@@ -1,0 +1,144 @@
+"""The Hopper kernels on the card, against their plain versions.
+
+Marked `cuda`: without an NVIDIA card every test here skips. On the card,
+where JAX is absent, run them without tests/conftest.py (which imports it):
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
+
+Error measure: max|kernel - plain| / max|plain|. 1e-4 where both sides round
+the operands the same way and only the sum order differs: a single GEMM
+with an f32 output (f32 "default" included) and an f32 "highest" chain.
+1e-2 for a bf16 output and for chains that re-round each layer's input to
+bf16; an f32 "default" chain (one pass) must also sit nearer the "default"
+plain version than the "highest" one.
+"""
+
+import dataclasses
+import io
+
+import pytest
+import torch
+
+from tpp_mlir_tpu.ir import parse_module
+from tpp_mlir_tpu.models.mlp import MlpConfig
+from tpp_mlir_tpu.tools.mlir_gen import generate_text
+from tpp_mlir_tpu_torch.tools.tpp_run import run_module
+from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, build_kernel,
+                                     global_cache, reference_kernel)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _err(got, ref):
+    d = (got.float() - ref.float()).abs().max().item()
+    return d / max(ref.float().abs().max().item(), 1e-30)
+
+
+def _tol(key):
+    if isinstance(key, BrgemmKey):
+        return 1e-4 if (key.out_dtype or key.dtype) == "f32" else 1e-2
+    return 1e-4 if key.dtype == "f32" and key.precision == "highest" \
+        else 1e-2
+
+
+def _rnd(g, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+        {"f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+
+
+@pytest.mark.parametrize("key", [
+    BrgemmKey(1, 100, 72, 40, "f32", beta0=True, binary_kind="add",
+              unary_kind="relu"),
+    BrgemmKey(1, 64, 64, 64, "f32", precision="highest"),
+    BrgemmKey(3, 48, 80, 96, "bf16", beta0=True, binary_kind="max",
+              binary_bcast="bcast_row", unary_kind="gelu_tanh"),
+    BrgemmKey(1, 33, 65, 64, "bf16", out_dtype="f32", beta0=True,
+              transpose_b=True, binary_kind="div",
+              binary_bcast="bcast_scalar", unary_kind="exp"),
+    BrgemmKey(2, 64, 32, 64, "bf16", vnni=2, binary_kind="add",
+              binary_bcast="none", unary_kind="square"),
+], ids=["ragged-fc", "highest-C", "batch-row-max", "tb-scalar-div",
+        "vnni-full"])
+def test_brgemm_kernel_matches_plain(cuda, key):
+    g = cuda
+    a = _rnd(g, (key.batch, key.m, key.k), key.dtype)
+    if key.vnni:
+        b = _rnd(g, (key.batch, key.k // 2, key.n, 2), key.dtype, 0.1)
+    elif key.transpose_b:
+        b = _rnd(g, (key.batch, key.n, key.k), key.dtype, 0.1)
+    else:
+        b = _rnd(g, (key.batch, key.k, key.n), key.dtype, 0.1)
+    c = None if key.beta0 else _rnd(g, (key.m, key.n), "f32")
+    shape = {"bcast_col": (key.n,), "bcast_row": (key.m, 1),
+             "bcast_scalar": (), "none": (key.m, key.n)}[key.binary_bcast]
+    d = _rnd(g, shape, "f32") + (3.0 if key.binary_kind == "div" else 0.0) \
+        if key.binary_kind else None
+    kern = build_kernel(key)
+    got = kern(a, b, c, d)
+    want = reference_kernel(key)(a, b, c, d)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= _tol(key)
+
+
+@pytest.mark.parametrize("key", [
+    ChainKey(m=40, dims=(64, 128, 32), dtype="bf16", unary_kind="gelu",
+             last_unary=None),
+    ChainKey(m=17, dims=(48, 48, 48), precision="highest", has_bias=False),
+    ChainKey(m=64, dims=(64, 64, 64), repeats=5),
+    ChainKey(m=64, dims=(256, 256, 256, 256)),
+], ids=["bf16-gelu", "highest-ragged-rows", "f32-repeats", "f32-default"])
+def test_chain_kernel_matches_plain(cuda, key):
+    g = cuda
+    args = [_rnd(g, (key.m, key.dims[0]), key.dtype)]
+    for i in range(len(key.dims) - 1):
+        args.append(_rnd(g, (key.dims[i], key.dims[i + 1]), key.dtype,
+                         key.dims[i] ** -0.5))
+        if key.has_bias:
+            args.append(_rnd(g, (key.dims[i + 1],), key.dtype, 0.1))
+    got = build_kernel(key)(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= _tol(key)
+    if key.dtype == "f32" and key.precision == "default" and \
+            key.repeats == 1:
+        # f32 "default" means bf16 operands: a true-f32 kernel would sit
+        # nearer the "highest" plain version
+        hi = reference_kernel(dataclasses.replace(key, precision="highest"))
+        assert _err(got, want) < _err(got, hi(*args))
+
+
+@pytest.mark.parametrize("layers,invoke", [
+    ((128, 128, 128, 128), "ChainKey"), ((128, 96), "BrgemmKey")])
+def test_main_path_on_the_card_matches_linalg_to_loops(cuda, layers, invoke):
+    cfg = MlpConfig(batch=64, layers=layers, bias=True, relu=True,
+                    float_type="bf16")
+    cache = global_cache()
+    cache.reset_launches()
+    got = run_module(parse_module(generate_text(cfg)), device="cuda",
+                     out_stream=io.StringIO())["outputs"][0]
+    assert cache.launches_by_kind().get(invoke, 0) == 1
+    want = run_module(parse_module(generate_text(cfg)), device="cuda",
+                      linalg_to_loops=True,
+                      out_stream=io.StringIO())["outputs"][0]
+    assert _err(got, want) <= 1e-2
+
+
+def test_trace_sees_the_chain_kernel(cuda):
+    from tpp_mlir_tpu_torch.tools.trace import trace_module
+    cfg = MlpConfig(batch=64, layers=(128, 128, 128), bias=True, relu=True,
+                    float_type="bf16")
+    res = trace_module(parse_module(generate_text(cfg)), iters=3, n=5)
+    for region in ("eager", "bench"):
+        r = res[region]
+        assert 0.0 <= r["idle_share"] < 1.0 and r["busy_ms"] > 0.0
+        assert any("chain" in name for _, name in r["shares"])

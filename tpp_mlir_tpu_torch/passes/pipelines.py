@@ -1,0 +1,75 @@
+"""Named pipelines of the port.
+
+`default-tpp-passes` runs only the passes the slice has ported, in the
+reference's order (`tpp_mlir_tpu/passes/pipelines.py`): on the MLP, fc and
+matmul modules of tpp-gen the reference's other passes leave the IR as it
+is. It ends with `verify-slice`, which refuses any op the port cannot run,
+so no IR outside the slice is run half-lowered.
+"""
+
+from __future__ import annotations
+
+from tpp_mlir_tpu.ir import Function, Module
+
+from .pass_manager import Pass, register, register_pipeline
+
+# ops the port's executor runs after lowering
+SLICE_OPS = frozenset({
+    "tl.constant", "tl.reshape",
+    "xsmm.gemm_dispatch", "xsmm.gemm",
+    "xsmm.brgemm_dispatch", "xsmm.brgemm",
+    "xsmm.fused_brgemm_dispatch", "xsmm.fused_brgemm",
+    "xsmm.fused_chain_dispatch", "xsmm.fused_chain",
+    "perf.bench",
+    "check.expect_true", "check.expect_almost_eq", "check.expect_sane",
+})
+
+
+def slice_violation(op) -> str | None:
+    """Why `op` is outside the slice, or None."""
+    if op.opname not in SLICE_OPS:
+        return f"op {op.opname}"
+    a = op.attrs
+    if op.opname == "tl.constant" and (
+            a.get("init") == "literal"
+            or any(k.startswith("pack_") for k in a)):
+        return "literal or packed tl.constant (queue A3)"
+    if op.opname.endswith("_dispatch") and op.opname != \
+            "xsmm.fused_chain_dispatch":
+        if a.get("layout", "flat") != "flat":
+            return f"{a['layout']} layout (queue A13)"
+        if a.get("prologue"):
+            return "LayerNorm prologue (queue A6)"
+    return None
+
+
+@register
+class VerifySlicePass(Pass):
+    """Raise NotImplementedError if any op is outside the port's slice."""
+
+    name = "verify-slice"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        for op in func.ops:
+            why = slice_violation(op)
+            if why is not None:
+                raise NotImplementedError(
+                    f"@{func.name}: {why} is outside the port's slice "
+                    f"(ROADMAP queue A); the port does not run IR "
+                    f"half-lowered")
+        return False
+
+
+@register_pipeline("default-tpp-passes")
+def default_tpp_passes():
+    return [
+        "cleanup",
+        "tile-and-fuse",
+        "convert-tl-to-xsmm",
+        "xsmm-combine",
+        "fold-xsmm-flags",
+        "chain-fusion",
+        "cleanup",
+        "verify-xsmm",
+        "verify-slice",
+    ]

@@ -1,0 +1,85 @@
+"""Kernel-cache keys of the port's slice.
+
+Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
+UnaryKey, BinaryKey). They are copies rather than imports because importing
+anything under `tpp_mlir_tpu.xsmm` loads JAX, which the port never does.
+`tests/test_torch_flags.py` pins every field name and default to the
+originals, so the two backends keep one key contract.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class BrgemmKey:
+    """Key for gemm/brgemm/fused_brgemm kernels (gemm == batch 1)."""
+
+    batch: int
+    m: int
+    n: int
+    k: int
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    beta0: bool = False            # GemmFlags BETA_0: ignore C, start at 0
+    vnni: int = 0                  # 0 = flat B [b,k,n]; 2/4 = VNNI [b,k/v,n,v]
+    transpose_b: bool = False      # B given as [b,n,k]
+    binary_kind: str | None = None  # fused epilogue binary (bias add, ...)
+    binary_bcast: str = "bcast_col"  # broadcast of the D operand
+    unary_kind: str | None = None   # fused epilogue unary (relu, ...)
+    # "default" = bf16 operands with f32 accumulation; "highest" = f32 FMA
+    precision: str = "default"
+    bm: int = 0                    # block-size overrides (0 = heuristic)
+    bn: int = 0
+    bk: int = 0
+    # LayerNorm A-row prologue and per-row output statistics (queue A6)
+    prologue: str | None = None
+    prologue_affine: bool = True
+    prologue_eps: float = 1e-5
+    ln_stats_out: bool = False
+
+
+@dataclass(frozen=True)
+class ChainKey:
+    """Key for the whole-chain fused MLP kernel:
+    act(...act(act(x@W1+b1)@W2+b2)...) in one launch."""
+
+    m: int
+    dims: tuple[int, ...]          # (k0, n1, ..., nL)
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    has_bias: bool = True
+    unary_kind: str | None = "relu"   # activation after every layer
+    last_unary: str | None = "relu"   # activation after the final layer
+    precision: str = "default"
+    bm: int = 0                       # M block (0 = heuristic)
+    # repeats > 1 = the perf.bench timed region runs inside the kernel: the
+    # chain is applied `repeats` times with the output fed back as input.
+    # Requires dims[0] == dims[-1].
+    repeats: int = 1
+    # warm bench for a non-square single-layer fc (queue B5)
+    pingpong: bool = False
+
+
+@dataclass(frozen=True)
+class UnaryKey:
+    kind: str                      # identity/zero/relu/transpose/vnni2/...
+    shape: tuple[int, ...]
+    dtype: str
+    out_shape: tuple[int, ...] | None = None
+    out_dtype: str | None = None
+    bcast: str = "none"
+    perm: tuple[int, ...] | None = None
+    vnni: int = 2
+
+
+@dataclass(frozen=True)
+class BinaryKey:
+    kind: str                      # add/mul/sub/div/max
+    shape_a: tuple[int, ...]
+    shape_b: tuple[int, ...]
+    dtype: str
+    out_dtype: str | None = None
+    bcast_a: str = "none"
+    bcast_b: str = "none"

@@ -1,0 +1,186 @@
+"""Kernel wrappers: one callable per key, a Hopper kernel behind it.
+
+`build_kernel(key)` returns a `Kernel`. Called with CUDA tensors it checks
+device, dtype, shape and contiguity, allocates the output with
+`torch.empty`, launches the CUDA kernel on the current stream and raises if
+the launch returned an error. Called with CPU tensors it runs the plain
+version from `reference.py`; that is the only way the plain version is
+reached. Each wrapper counts its launches.
+
+  BrgemmKey -> csrc/brgemm.cu   (replaces xsmm/kernels.py:580 _build_brgemm
+                                 and :243 _build_brgemm_wres)
+  ChainKey  -> csrc/chain.cu    (replaces :1475 _build_chain and
+                                 :2001 _build_chain_bench)
+
+Other keys and options raise NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import reference
+from .flags import BrgemmKey, ChainKey
+
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
+_BCAST_CODE = {"bcast_col": 0, "bcast_row": 1, "bcast_scalar": 2, "none": 3}
+_UNARY_CODE = {None: 0, "identity": 0, "relu": 1, "exp": 2, "square": 3,
+               "sqrt": 4, "rsqrt": 5, "tanh": 6, "gelu": 7, "gelu_tanh": 8,
+               "negate": 9, "zero": 10}
+
+# chain.cu's row block, paddings, layer limit and the shared memory one block
+# may opt into on sm_90 (227 KB); chain_fits_smem mirrors the kernel's need
+CHAIN_BM, CHAIN_HPAD, CHAIN_ZPAD, CHAIN_MAXL = 16, 8, 4, 32
+SM90_SMEM_OPTIN = 232448
+
+
+def chain_smem_bytes(dmax: int, mxu: torch.dtype) -> int:
+    """Dynamic shared memory chain.cu asks for (its smem_bytes())."""
+    h = CHAIN_BM * (dmax + CHAIN_HPAD) * (2 if mxu == torch.bfloat16 else 4)
+    return (h + 127) // 128 * 128 + CHAIN_BM * (dmax + CHAIN_ZPAD) * 4
+
+
+def chain_fits_smem(key: ChainKey) -> bool:
+    """Whether chain.cu can run this chain: every width a multiple of 16
+    (the tensor-core tile), at most CHAIN_MAXL layers, and the row block's
+    activations within one block's shared memory. The chain-fusion pass
+    gates on it, in place of the reference's chain_fits_vmem."""
+    if len(key.dims) - 1 > CHAIN_MAXL or any(d % 16 for d in key.dims):
+        return False
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    return chain_smem_bytes(max(key.dims), mxu) <= SM90_SMEM_OPTIN
+
+
+class Kernel:
+    """A callable for one key: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. `launches` counts CUDA launches only."""
+
+    def __init__(self, key, launch):
+        self.key = key
+        self.launches = 0
+        self._plain = reference.reference_kernel(key)
+        self._launch = launch
+
+    def __call__(self, *args):
+        device = args[0].device
+        if device.type == "cpu":
+            return self._plain(*args)
+        if device.type != "cuda":
+            raise ValueError(f"no kernel for device {device}")
+        with torch.cuda.device(device):
+            out = self._launch(*args)
+        self.launches += 1
+        return out
+
+
+def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _brgemm_launch(key: BrgemmKey):
+    from .build import check, library
+
+    B, m, n, k = key.batch, key.m, key.n, key.k
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    d_size = {"bcast_col": n, "bcast_row": m, "bcast_scalar": 1,
+              "none": m * n}[key.binary_bcast]
+
+    def launch(a, b, c=None, d=None):
+        dev = a.device
+        if key.vnni:
+            _expect(b, "B", (B, k // key.vnni, n, key.vnni), in_dt, dev)
+            b = reference.unvnni(b)     # the layout move _unvnni makes
+        _expect(a, "A", (B, m, k), in_dt, dev)
+        _expect(b, "B", (B, n, k) if key.transpose_b else (B, k, n),
+                in_dt, dev)
+        if not key.beta0:
+            c = c.float().contiguous()
+            _expect(c, "C", (m, n), None, dev)
+        if key.binary_kind:
+            d = d.float().contiguous()
+            if d.numel() != d_size or d.device != dev:
+                raise ValueError(f"D has {d.numel()} elements on {d.device}, "
+                                 f"expected {d_size} on {dev} for "
+                                 f"{key.binary_bcast}")
+        out = torch.empty((m, n), dtype=out_dt, device=dev)
+        rc = library().tpp_brgemm(
+            a.data_ptr(), b.data_ptr(),
+            c.data_ptr() if not key.beta0 else None,
+            d.data_ptr() if key.binary_kind else None,
+            out.data_ptr(), B, m, n, k, _DT_CODE[in_dt], _DT_CODE[mxu],
+            _DT_CODE[out_dt], int(key.transpose_b), int(not key.beta0),
+            _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
+            _UNARY_CODE[key.unary_kind], _stream())
+        check(rc, f"brgemm {key}")
+        return out
+    return launch
+
+
+def _chain_launch(key: ChainKey):
+    from .build import check, library
+
+    dims, L = key.dims, len(key.dims) - 1
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    bench = key.repeats > 1
+    step = 2 if key.has_bias else 1
+
+    def launch(x, *wb):
+        if not chain_fits_smem(key):
+            raise ValueError(f"chain does not fit chain.cu (widths multiple "
+                             f"of 16, shared memory): {key}")
+        dev = x.device
+        _expect(x, "x", (key.m, dims[0]), in_dt, dev)
+        if len(wb) != step * L:
+            raise ValueError(f"expected {step * L} weight/bias operands, "
+                             f"got {len(wb)}")
+        ws, bs = [], []
+        for li in range(L):
+            w = wb[step * li]
+            _expect(w, f"W{li}", (dims[li], dims[li + 1]), in_dt, dev)
+            w = w.to(mxu)        # the MXU-dtype cast the TPU wrapper makes
+            if w.data_ptr() % 32:
+                raise ValueError(f"W{li} must be 32-byte aligned")
+            ws.append(w)
+            if key.has_bias:
+                bias = wb[step * li + 1].reshape(-1).float().contiguous()
+                _expect(bias, f"b{li}", (dims[li + 1],), None, dev)
+                bs.append(bias)
+        out = torch.empty((key.m, dims[-1]), dtype=out_dt, device=dev)
+        w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in ws])
+        b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bs])
+        c_dims = (ctypes.c_int * (L + 1))(*dims)
+        rc = library().tpp_chain(
+            x.data_ptr(), out.data_ptr(), w_ptrs, b_ptrs, c_dims, L, key.m,
+            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            int(key.has_bias), _UNARY_CODE[key.unary_kind],
+            _UNARY_CODE[key.last_unary], max(1, key.repeats), int(bench),
+            _stream())
+        check(rc, f"chain {key}")
+        return out
+    return launch
+
+
+def build_kernel(key) -> Kernel:
+    reference.check_slice(key)
+    if isinstance(key, BrgemmKey):
+        return Kernel(key, _brgemm_launch(key))
+    return Kernel(key, _chain_launch(key))
