@@ -5,15 +5,28 @@
 
 Phases, one line each; any failure raises and the script exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build csrc/*.cu with nvcc and print the build seconds;
+  2. build csrc/*.cu with nvcc (one process per source, in parallel) and
+     print the build seconds;
   3. hold each Hopper kernel against its plain PyTorch version on the card,
-     at the main path's shapes, with the tolerance stated per case;
-  4. run the main path through tpp_mlir_tpu_torch.tools.tpp_run.run_module
-     on tpp-gen output (flagship MLP 256 x 1024x4 bias+relu in bf16 and f32,
-     the fc 256x1024x1024 bias+relu, the matmul 256x1024x1024): the flagship
-     must lower to one xsmm.fused_chain, both kernels' launch counts must
-     move, and each output must match --linalg-to-loops on the card;
-  5. time -n 100 on the same modules, GFLOP/s beside torch.matmul+bias+relu.
+     at the main paths' shapes, with the tolerance stated per case;
+  4. run the main paths, each with the launch counts set to 0 just before
+     and read just after:
+     a. the MLP path through tpp_mlir_tpu_torch.tools.tpp_run.run_module on
+        tpp-gen output (flagship MLP 256 x 1024x4 bias+relu in bf16 and f32,
+        the fc 256x1024x1024 bias+relu, the matmul 256x1024x1024): the
+        flagship must lower to one xsmm.fused_chain, both kernels' launch
+        counts must move, and each output must match --linalg-to-loops;
+     b. the transformer path: GPT-2 small (gpt2_small_s1024_bf16: batch 2,
+        seq 1024, vocab 50304, E 768, 12 heads, 12 layers, bf16, random
+        weights from seed 0) and the encoder block
+        (transformer_block_d128_fp32: batch 8, seq 256, E 1024, 8 heads,
+        f32), built by tpp_mlir_tpu_torch.tools.bench_driver and run through
+        run_module: the lowered op counts, the attention / layer_norm /
+        brgemm launch counts, finite outputs, and the outputs against
+        --linalg-to-loops;
+  5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
+     each transformer forward lowered beside --linalg-to-loops (GPT-2
+     tokens/s), and each kernel beside its plain version.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -31,6 +44,15 @@ ROOT = Path(__file__).resolve().parent
 BATCH, WIDTH, LAYERS = 256, 1024, 4     # the flagship: batch 256, 1024x4
 TOL_BF16 = 1e-2     # a bf16 output, or a chain of bf16 roundings
 TOL_F32 = 1e-4      # same operand rounding on both sides: sum order only
+# a whole model's output against --linalg-to-loops (f32 oracle, exact f32
+# operands): 12 bf16 layers, or one f32 "default" block whose kernels round
+# operands to bf16
+TOL_MODEL = 3e-2
+
+GPT2 = ('gpt:{"batch": 2, "seq": 1024, "vocab": 50304, "embed": 768, '
+        '"heads": 12, "layers": 12, "dtype": "bf16"}')
+ENCODER = ('transformer_block:{"batch": 8, "seq": 256, "embed": 1024, '
+           '"heads": 8}')
 
 
 def say(msg: str) -> None:
@@ -105,13 +127,19 @@ def _tol(key) -> float:
     an f32 output rounds its operands exactly as its plain version does
     (f32 "default" included: bf16 operands on both sides), so only the sum
     order differs. A chain re-rounds each layer's input to the MXU dtype,
-    where a sum-order difference can flip a bf16 rounding, so only f32
-    "highest" chains are held to TOL_F32."""
-    from tpp_mlir_tpu_torch.xsmm import BrgemmKey
-    if isinstance(key, BrgemmKey):
-        return TOL_F32 if (key.out_dtype or key.dtype) == "f32" else TOL_BF16
-    return TOL_F32 if key.dtype == "f32" and key.precision == "highest" \
-        else TOL_BF16
+    and so does a LayerNorm prologue its normalized rows, where a sum-order
+    difference can flip a bf16 rounding: only their f32 "highest" forms are
+    held to TOL_F32. Attention holds f32 "highest" to TOL_F32 and else
+    TOL_BF16 (the kernel rounds the unnormalized P and divides after P.V,
+    the plain version normalizes first, as B7 does); LayerNorm an f32
+    output to TOL_F32."""
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, LayerNormKey
+    out_f32 = (key.out_dtype or key.dtype) == "f32"
+    if isinstance(key, LayerNormKey):
+        return TOL_F32 if out_f32 else TOL_BF16
+    if isinstance(key, BrgemmKey) and not key.prologue:
+        return TOL_F32 if out_f32 else TOL_BF16
+    return TOL_F32 if out_f32 and key.precision == "highest" else TOL_BF16
 
 
 def _brgemm_cases():
@@ -202,6 +230,80 @@ def _chain_inputs(key, g):
     return (x, *wb)
 
 
+def _ln_gemm_cases():
+    """The LayerNorm-prologue GEMMs of the transformer path: GPT-2's QKV
+    (bias) and fc1 (bias + gelu) in bf16, the encoder's in f32 "default",
+    and one f32 "highest" case."""
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey
+    out = []
+    for label, m, n, k, dt, unary in (
+            ("gpt2 qkv 2048x2304x768", 2048, 2304, 768, "bf16", None),
+            ("gpt2 fc1 2048x3072x768", 2048, 3072, 768, "bf16", "gelu"),
+            ("enc qkv 2048x3072x1024", 2048, 3072, 1024, "f32", None),
+            ("enc fc1 2048x4096x1024", 2048, 4096, 1024, "f32", "gelu")):
+        out.append((f"ln {label} {dt}", BrgemmKey(
+            1, m, n, k, dt, beta0=True, binary_kind="add", unary_kind=unary,
+            prologue="layer_norm")))
+    out.append(("ln enc qkv f32 highest", BrgemmKey(
+        1, 2048, 3072, 1024, "f32", beta0=True, binary_kind="add",
+        precision="highest", prologue="layer_norm")))
+    return out
+
+
+def _ln_gemm_inputs(key, g):
+    """Raw A rows with a mean and scale away from 0 and 1, so the
+    normalization shows; W ~ N(0, 1/k); bias, gamma, beta ~ N(0, 1)."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+
+    def rnd(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale + shift
+    a = rnd((1, key.m, key.k), 2.0, 0.5).to(dt)
+    b = rnd((1, key.k, key.n), key.k ** -0.5).to(dt)
+    return a, b, None, rnd((key.n,)), rnd((key.k,)), rnd((key.k,))
+
+
+def _attention_cases():
+    """Attention at the transformer path's shapes, [Q|K|V] packed as
+    qkv-merge leaves it: GPT-2 (B 2, S 1024, H 12, D 64, causal, bf16) and
+    the encoder (B 8, S 256, H 8, D 128, non-causal, f32 "default"), and
+    the encoder's shape at "highest"."""
+    from tpp_mlir_tpu_torch.xsmm import FlashMhaKey
+    return [
+        ("attn gpt2 b2 s1024 h12 d64 causal bf16", FlashMhaKey(
+            2, 1024, 1024, 64, "bf16", scale=0.125, causal=True, heads=12,
+            qkv_packed=True)),
+        ("attn enc b8 s256 h8 d128 f32", FlashMhaKey(
+            8, 256, 256, 128, "f32", scale=128 ** -0.5, heads=8,
+            qkv_packed=True)),
+        ("attn enc b8 s256 h8 d128 highest", FlashMhaKey(
+            8, 256, 256, 128, "f32", scale=128 ** -0.5, heads=8,
+            qkv_packed=True, precision="highest")),
+    ]
+
+
+def _attention_inputs(key, g):
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    x = torch.randn(key.batch, key.seq, 3 * key.heads * key.head_dim,
+                    generator=g, device="cuda").to(dt)
+    return x, x, x
+
+
+def _layer_norm_cases():
+    from tpp_mlir_tpu_torch.xsmm import LayerNormKey
+    return [("ln_f gpt2 2048x768 bf16", LayerNormKey(2048, 768, "bf16")),
+            ("ln enc 2048x1024 f32", LayerNormKey(2048, 1024, "f32"))]
+
+
+def _layer_norm_inputs(key, g):
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    x = (torch.randn(key.m, key.n, generator=g, device="cuda") * 3 + 1)
+    return (x.to(dt), torch.randn(key.n, generator=g, device="cuda"),
+            torch.randn(key.n, generator=g, device="cuda"))
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version on the same inputs."""
     import torch
@@ -210,9 +312,13 @@ def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     stats = {}
-    for kind, cases, make in (("brgemm", _brgemm_cases(), _brgemm_inputs),
-                              ("chain", _chain_cases(), _chain_inputs)):
-        worst = 0.0
+    for kind, cases, make in (
+            ("brgemm", _brgemm_cases(), _brgemm_inputs),
+            ("brgemm", _ln_gemm_cases(), _ln_gemm_inputs),
+            ("chain", _chain_cases(), _chain_inputs),
+            ("attention", _attention_cases(), _attention_inputs),
+            ("layer_norm", _layer_norm_cases(), _layer_norm_inputs)):
+        worst = stats.get(kind, {}).get("max_abs_err", 0.0)
         for label, key in cases:
             args = make(key, g)
             got = build_kernel(key)(*args)
@@ -232,7 +338,7 @@ def phase_kernels() -> dict:
                 rel_hi, _ = rel_err(got, hi)
                 ok = ok and rel < rel_hi
                 note = f" (vs highest plain {rel_hi:.3e}, must be farther)"
-            say(f"kernel {kind:6s} {label:28s} rel {rel:.3e} abs {ab:.3e} "
+            say(f"kernel {kind:10s} {label:38s} rel {rel:.3e} abs {ab:.3e} "
                 f"tol {tol:.0e}{note} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{kind} {label}: rel {rel} > {tol}")
@@ -271,9 +377,18 @@ def _module(flags: str):
     return load_module(_GENERATED[flags])
 
 
+KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
+         "FlashMhaKey": "attention", "LayerNormKey": "layer_norm"}
+
+
+def _launches(cache) -> dict:
+    counts = cache.launches_by_kind()
+    return {kind: counts.get(name, 0) for name, kind in KINDS.items()}
+
+
 def phase_main_path() -> dict:
-    """The modules through run_module on the card, each held against
-    --linalg-to-loops; the launch counts of this run alone."""
+    """The MLP modules through run_module on the card, each held against
+    --linalg-to-loops; the launch counts of this path alone."""
     from tpp_mlir_tpu_torch.tools.tpp_run import run_module
     from tpp_mlir_tpu_torch.xsmm import global_cache
     cache = global_cache()
@@ -281,9 +396,7 @@ def phase_main_path() -> dict:
     runs = [(label, invoke, run_module(_module(flags), device="cuda",
                                        out_stream=sys.stderr))
             for label, flags, invoke in MODULES]
-    counts = cache.launches_by_kind()
-    launches = {"brgemm": counts.get("BrgemmKey", 0),
-                "chain": counts.get("ChainKey", 0)}
+    launches = _launches(cache)
     for (label, invoke, res), (_, flags, _) in zip(runs, MODULES):
         ops = [op.opname for op in res["module"]["entry"].ops
                if op.opname.startswith("xsmm.")
@@ -302,12 +415,77 @@ def phase_main_path() -> dict:
             f"tol {TOL_BF16:.0e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} vs --linalg-to-loops")
-    say(f"main path launches: brgemm {launches['brgemm']} "
+    say(f"main path (MLP) launches: brgemm {launches['brgemm']} "
         f"chain {launches['chain']}")
-    if not all(launches.values()):
+    if not (launches["brgemm"] and launches["chain"]):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    return {"launches": launches}
+    return launches
+
+
+# the transformer path: (label, bench_driver entry, lowered invokes the
+# module must hold, kernels that must launch). "+ln" marks a fused_brgemm
+# with the LayerNorm prologue.
+TRANSFORMERS = (
+    ("gpt2_small_s1024_bf16", GPT2,
+     {"xsmm.attention": 12, "xsmm.fused_brgemm+ln": 24,
+      "xsmm.fused_brgemm": 24, "xsmm.layer_norm": 1, "xsmm.gemm": 1,
+      "xsmm.binary": 1}, ("attention", "layer_norm", "brgemm")),
+    ("transformer_block_d128_fp32", ENCODER,
+     {"xsmm.attention": 1, "xsmm.fused_brgemm+ln": 2,
+      "xsmm.fused_brgemm": 2}, ("attention", "brgemm")),
+)
+
+
+def _invoke_counts(module) -> dict:
+    ops = module["entry"].ops
+    out: dict[str, int] = {}
+    for op in ops:
+        if not op.opname.startswith("xsmm.") or \
+                op.opname.endswith("_dispatch"):
+            continue
+        name = op.opname
+        if op.operands[0].owner.attrs.get("prologue") == "layer_norm":
+            name += "+ln"
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def phase_transformer_path() -> dict:
+    """GPT-2 small and the encoder block through the port's bench driver
+    (build_module, then run_module on the card, lowered after the
+    --linalg-to-loops run of the same module); each path's launch counts
+    set to 0 just before it and read just after."""
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    total: dict[str, int] = {}
+    for label, entry, want_ops, kinds in TRANSFORMERS:
+        t0 = time.perf_counter()
+        cache.reset_launches()
+        res = run_entry({"model": entry}, device="cuda",
+                        out_stream=sys.stderr)
+        launches = _launches(cache)
+        ops = _invoke_counts(res["lowered"]["module"])
+        got = res["lowered"]["outputs"][0]
+        want = res["baseline"]["outputs"][0]
+        rel, ab = rel_err(got, want)
+        finite = torch_isfinite(got)
+        ok = ops == want_ops and finite and rel <= TOL_MODEL and \
+            tuple(got.shape) == tuple(want.shape) and \
+            all(launches[k] for k in kinds)
+        say(f"main {label}: lowered to {ops}; output "
+            f"{tuple(got.shape)} {str(got.dtype)[6:]} finite {finite}, vs "
+            f"--linalg-to-loops rel {rel:.3e} abs {ab:.3e} tol "
+            f"{TOL_MODEL:.0e}; launches {launches} "
+            f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: ops {ops} (want {want_ops}), "
+                                 f"rel {rel}, finite {finite}, launches "
+                                 f"{launches} (must move: {kinds})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def torch_isfinite(t) -> bool:
@@ -349,8 +527,10 @@ def _baseline_ms(module, iters: int) -> float:
 
 
 def phase_timing(n: int = 100) -> dict:
-    """-n 100 through the port beside torch.matmul + bias + ReLU, then
-    each kernel's time beside its plain version at the main path's shape."""
+    """The MLP modules at -n 100 through the port beside torch.matmul +
+    bias + ReLU; each transformer forward (-n 10) beside the same module at
+    --linalg-to-loops; then each kernel's time beside its plain version at
+    the main paths' shapes."""
     import torch
 
     from tpp_mlir_tpu_torch.tools.tpp_run import run_module
@@ -365,27 +545,46 @@ def phase_timing(n: int = 100) -> dict:
         say(f"time {label:22s} -n {n}: port {res['gflops']:.1f} GFLOP/s "
             f"({res['mean_seconds'] * 1e3:.4f} ms), torch.matmul "
             f"{flops / base / 1e6:.1f} GFLOP/s ({base:.4f} ms)")
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    for label, entry, _, _ in TRANSFORMERS:
+        res = run_entry({"model": entry}, n=10, device="cuda",
+                        out_stream=sys.stderr)
+        ms = res["lowered"]["mean_seconds"] * 1e3
+        base = res["baseline"]["mean_seconds"] * 1e3
+        rate = f", {res['tokens'] / ms * 1e3:.1f} tokens/s" \
+            if res["tokens"] else ""
+        say(f"time {label} -n 10: port forward {ms:.4f} ms{rate} "
+            f"({res['flops'] / ms / 1e9:.2f} TFLOP/s), --linalg-to-loops "
+            f"{base:.4f} ms")
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for kind, key, make in (
-            ("brgemm", BrgemmKey(1, BATCH, WIDTH, WIDTH, "f32", beta0=True,
-                                 binary_kind="add", unary_kind="relu"),
-             _brgemm_inputs),
-            ("brgemm", BrgemmKey(1, BATCH, WIDTH, WIDTH, "bf16", beta0=True,
-                                 binary_kind="add", unary_kind="relu"),
-             _brgemm_inputs),
-            ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS,
-                               dtype="bf16"), _chain_inputs),
-            ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS,
-                               dtype="f32"), _chain_inputs)):
+    cases = [
+        ("brgemm", BrgemmKey(1, BATCH, WIDTH, WIDTH, "f32", beta0=True,
+                             binary_kind="add", unary_kind="relu"),
+         _brgemm_inputs),
+        ("brgemm", BrgemmKey(1, BATCH, WIDTH, WIDTH, "bf16", beta0=True,
+                             binary_kind="add", unary_kind="relu"),
+         _brgemm_inputs),
+        ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="bf16"),
+         _chain_inputs),
+        ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="f32"),
+         _chain_inputs)]
+    cases += [("brgemm", key, _ln_gemm_inputs)
+              for _, key in _ln_gemm_cases()[:2]]
+    cases += [("attention", key, _attention_inputs)
+              for _, key in _attention_cases()[:2]]
+    cases += [("layer_norm", key, _layer_norm_inputs)
+              for _, key in _layer_norm_cases()]
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    for kind, key, make in cases:
         args = make(key, g)
         kern, plain = build_kernel(key), reference_kernel(key)
         ms, plain_ms = cuda_ms(lambda: kern(*args)), \
             cuda_ms(lambda: plain(*args))
-        say(f"time kernel {kind:6s} {key.dtype:4s} {ms:.4f} ms, plain "
-            f"version {plain_ms:.4f} ms")
-        # the kernel line keeps the main path's own dtypes: the fc and
-        # matmul modules are f32, the flagship's first run bf16
+        say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
+            f"{plain_ms:.4f} ms")
+        # the kernel line keeps the first shape of each kind: the MLP's f32
+        # fc for brgemm, the bf16 flagship chain, GPT-2's attention and ln_f
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms})
     return out
 
@@ -402,17 +601,23 @@ def main() -> int:
     card = phase_device()
     phase_build()
     stats = phase_kernels()
-    main_path = phase_main_path()
+    launches = phase_main_path()
+    for kind, n in phase_transformer_path().items():
+        launches[kind] += n
     timing = phase_timing()
     kernels = []
     for kind, src, replaces in (
             ("brgemm", "tpp_mlir_tpu_torch/csrc/brgemm.cu",
              "tpp_mlir_tpu/xsmm/kernels.py:580"),
             ("chain", "tpp_mlir_tpu_torch/csrc/chain.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:1475")):
+             "tpp_mlir_tpu/xsmm/kernels.py:1475"),
+            ("attention", "tpp_mlir_tpu_torch/csrc/attention.cu",
+             "tpp_mlir_tpu/xsmm/kernels.py:2232"),
+            ("layer_norm", "tpp_mlir_tpu_torch/csrc/layer_norm.cu",
+             "tpp_mlir_tpu/xsmm/kernels.py:3257")):
         kernels.append({"name": kind, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": main_path["launches"][kind],
+                        "launches": launches[kind],
                         "max_abs_err": stats[kind]["max_abs_err"],
                         "ms": timing[kind]["ms"],
                         "plain_ms": timing[kind]["plain_ms"]})

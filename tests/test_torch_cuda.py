@@ -7,10 +7,14 @@ where JAX is absent, run them without tests/conftest.py (which imports it):
 
 Error measure: max|kernel - plain| / max|plain|. 1e-4 where both sides round
 the operands the same way and only the sum order differs: a single GEMM
-with an f32 output (f32 "default" included) and an f32 "highest" chain.
-1e-2 for a bf16 output and for chains that re-round each layer's input to
-bf16; an f32 "default" chain (one pass) must also sit nearer the "default"
-plain version than the "highest" one.
+with an f32 output (f32 "default" included), an f32 "highest" chain,
+attention or LayerNorm-prologue GEMM, and an f32 LayerNorm. 1e-2 for a bf16
+output, for chains that re-round each layer's input to bf16, for attention
+in the bf16 MXU dtype (the kernel rounds unnormalized P and divides by the
+row sum after P.V, the plain version normalizes P first, as B7 does) and
+for a LayerNorm prologue that rounds its f32 result to bf16, where a
+sum-order difference can flip a rounding; an f32 "default" chain (one pass)
+must also sit nearer the "default" plain version than the "highest" one.
 """
 
 import dataclasses
@@ -23,7 +27,8 @@ from tpp_mlir_tpu.ir import parse_module
 from tpp_mlir_tpu.models.mlp import MlpConfig
 from tpp_mlir_tpu.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
-from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, build_kernel,
+from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, FlashMhaKey,
+                                     LayerNormKey, build_kernel,
                                      global_cache, reference_kernel)
 
 pytestmark = pytest.mark.cuda
@@ -117,6 +122,77 @@ def test_chain_kernel_matches_plain(cuda, key):
         assert _err(got, want) < _err(got, hi(*args))
 
 
+@pytest.mark.parametrize("key", [
+    BrgemmKey(1, 100, 72, 200, "bf16", beta0=True, binary_kind="add",
+              unary_kind="gelu", prologue="layer_norm"),
+    BrgemmKey(1, 64, 96, 128, "f32", precision="highest",
+              prologue="layer_norm", prologue_affine=False),
+    BrgemmKey(1, 128, 192, 256, "f32", beta0=True, binary_kind="add",
+              prologue="layer_norm"),
+], ids=["bf16-gelu-ragged", "highest-C-no-affine", "f32-default"])
+def test_ln_prologue_gemm_matches_plain(cuda, key):
+    g = cuda
+    a = _rnd(g, (1, key.m, key.k), key.dtype) * 2 + 0.5
+    b = _rnd(g, (1, key.k, key.n), key.dtype, 0.1)
+    c = None if key.beta0 else _rnd(g, (key.m, key.n), "f32")
+    d = _rnd(g, (key.n,), "f32") if key.binary_kind else None
+    gamma, beta = _rnd(g, (key.k,), "f32"), _rnd(g, (key.k,), "f32")
+    kern = build_kernel(key)
+    got = kern(a, b, c, d, gamma, beta)
+    want = reference_kernel(key)(a, b, c, d, gamma, beta)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    tol = 1e-4 if key.precision == "highest" else 1e-2
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("key", [
+    FlashMhaKey(2, 128, 128, 64, "bf16", scale=0.125, causal=True, heads=2,
+                qkv_packed=True),
+    FlashMhaKey(2, 100, 100, 128, "f32", scale=128 ** -0.5, heads=2),
+    FlashMhaKey(1, 96, 160, 64, "f32", scale=0.125, causal=True,
+                precision="highest", heads=3),
+    FlashMhaKey(2, 128, 128, 32, "bf16", scale=32 ** -0.5, heads=4,
+                qkv_packed=True, strategy="tokens"),
+    FlashMhaKey(1, 64, 64, 128, "f32", scale=128 ** -0.5, precision="highest",
+                heads=1, qkv_packed=True),
+], ids=["bf16-causal-packed-d64", "f32-ragged-d128", "highest-causal-skv",
+        "bf16-packed-d32", "highest-packed-d128"])
+def test_attention_kernel_matches_plain(cuda, key):
+    g = cuda
+    E = key.heads * key.head_dim
+    if key.qkv_packed:
+        args = [_rnd(g, (key.batch, key.seq, 3 * E), key.dtype)] * 3
+    else:
+        args = [_rnd(g, (key.batch, s, E), key.dtype)
+                for s in (key.seq, key.seq_kv, key.seq_kv)]
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and got.shape == want.shape
+    tol = 1e-4 if key.precision == "highest" else 1e-2
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("key", [
+    LayerNormKey(m=100, n=768, dtype="bf16"),
+    LayerNormKey(m=64, n=1024, dtype="f32", affine=False),
+    LayerNormKey(m=33, n=200, dtype="f32", out_dtype="bf16", eps=1e-6),
+], ids=["bf16-768", "f32-1024-no-affine", "f32-in-bf16-out"])
+def test_layer_norm_kernel_matches_plain(cuda, key):
+    g = cuda
+    x = _rnd(g, (key.m, key.n), key.dtype) * 3 + 1
+    gamma, beta = _rnd(g, (key.n,), "f32"), _rnd(g, (key.n,), "f32")
+    kern = build_kernel(key)
+    got = kern(x, gamma, beta)
+    want = reference_kernel(key)(x, gamma, beta)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
+                               else 1e-2)
+
+
 @pytest.mark.parametrize("layers,invoke", [
     ((128, 128, 128, 128), "ChainKey"), ((128, 96), "BrgemmKey")])
 def test_main_path_on_the_card_matches_linalg_to_loops(cuda, layers, invoke):
@@ -131,6 +207,18 @@ def test_main_path_on_the_card_matches_linalg_to_loops(cuda, layers, invoke):
                       linalg_to_loops=True,
                       out_stream=io.StringIO())["outputs"][0]
     assert _err(got, want) <= 1e-2
+
+
+def test_trace_times_each_invoke_of_a_gpt(cuda):
+    from tpp_mlir_tpu_torch.tools.bench_driver import build_module
+    from tpp_mlir_tpu_torch.tools.trace import trace_module
+    res = trace_module(build_module({"model": (
+        'gpt:{"batch": 1, "seq": 128, "vocab": 256, "embed": 128, '
+        '"heads": 2, "layers": 2, "dtype": "bf16"}')}), iters=2, n=0)
+    assert "bench" not in res      # ids -> logits: no perf.bench wrapper
+    names = {name.split()[0]: n for name, n, ms in res["invokes"]}
+    assert names["attention"] == 2 and names["layer_norm"] == 1
+    assert all(ms > 0 for _, _, ms in res["invokes"])
 
 
 def test_trace_sees_the_chain_kernel(cuda):

@@ -13,8 +13,8 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["BrgemmKey", "ChainKey", "UnaryKey",
-                                  "BinaryKey"])
+@pytest.mark.parametrize("name", ["BrgemmKey", "ChainKey", "FlashMhaKey",
+                                  "LayerNormKey", "UnaryKey", "BinaryKey"])
 def test_key_copy_matches_reference(name):
     port, ref = getattr(port_flags, name), getattr(ref_flags, name)
     assert _fields(port) == _fields(ref)

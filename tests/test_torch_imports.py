@@ -29,6 +29,14 @@ for flags in ("--batch=8 --layers=16,16,16 --bias --relu --float-type=bf16",
     res = run_module(parse_module(generate_text(cfg)), n=2, device="cpu",
                      out_stream=sys.stderr)
     assert res["outputs"][0].shape[0] == 8
+# the transformer slice: an imported GPT through the port's bench driver
+from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+res = run_entry({"model": 'gpt:{"batch": 1, "seq": 16, "vocab": 64, '
+                          '"embed": 32, "heads": 2, "layers": 1}'},
+                device="cpu", out_stream=sys.stderr)
+assert res["lowered"]["outputs"][0].shape == (1, 16, 64)
+ops = {op.opname for op in res["lowered"]["module"]["entry"].ops}
+assert {"xsmm.attention", "xsmm.layer_norm", "xsmm.gemm"} <= ops, ops
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "ml_dtypes"))
 print("LOADED", bad)

@@ -1,13 +1,17 @@
 """The port's default-tpp-passes against the JAX package's: the same printed
-IR on tpp-gen's MLP, fc and matmul modules once the tile_* hints (TPU
-blocks there, Hopper tiles here) are stripped; and the chain gate
-chain_fits_smem on each side of its limit."""
+IR on tpp-gen's MLP, fc and matmul modules and on the imported GPT and
+transformer block once the tile_* hints (TPU blocks there, Hopper tiles
+here) are stripped; the chain gate chain_fits_smem on each side of its
+limit; and verify-slice refusing what the port cannot run."""
 
 import re
 
 import pytest
 
+from tpp_mlir_tpu.ir import Function, Module, TensorType, TppBuilder
+from tpp_mlir_tpu.models.gpt import build_gpt
 from tpp_mlir_tpu.models.mlp import MlpConfig, build_mlp
+from tpp_mlir_tpu.models.transformer_block import build_transformer_block
 from tpp_mlir_tpu.passes import run_pipeline as ref_run_pipeline
 from tpp_mlir_tpu_torch.passes import run_pipeline
 from tpp_mlir_tpu_torch.xsmm import ChainKey, chain_fits_smem
@@ -124,3 +128,81 @@ def test_cpu_target_plans_for_the_sm90_kernels():
     t = current_target("cpu")
     assert (t.name, t.sm_count) == ("cpu", 0)
     assert t.smem_per_block_optin == SM90_SMEM_OPTIN
+
+
+MODELS = {
+    "gpt-bf16": lambda: build_gpt(batch=2, seq=64, vocab=256, embed=128,
+                                  heads=2, layers=2, dtype="bf16"),
+    "gpt-f32": lambda: build_gpt(batch=1, seq=32, vocab=96, embed=64,
+                                 heads=2, layers=1),
+    "block-f32": lambda: build_transformer_block(batch=2, seq=32, embed=128,
+                                                 heads=2),
+    "block-bf16-causal": lambda: build_transformer_block(
+        batch=1, seq=32, embed=64, heads=4, dtype="bf16", causal=True),
+    "encoder-2-layers": lambda: build_transformer_block(
+        batch=1, seq=32, embed=64, heads=2, layers=2),
+}
+
+
+def _xsmm_sequence(module):
+    return [(op.opname, {k: v for k, v in op.attrs.items()
+                         if not k.startswith("tile_")})
+            for op in module["entry"].ops if op.opname.startswith("xsmm.")]
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_imported_models_lower_like_the_reference(name):
+    port, ref = MODELS[name](), MODELS[name]()
+    run_pipeline(port, "default-tpp-passes")
+    ref_run_pipeline(ref, "default-tpp-passes")
+    assert _xsmm_sequence(port) == _xsmm_sequence(ref)
+    assert _strip_tiles(str(port)) == _strip_tiles(str(ref))
+    # the folded QKV weights are the same literals
+    for key, arr in ref.literals.items():
+        assert (port.literals[key] == arr).all()
+
+
+def test_gpt_lowers_to_the_transformer_kernels():
+    m = MODELS["gpt-bf16"]()
+    run_pipeline(m, "default-tpp-passes")
+    ops = m["entry"].ops
+    disp = {id(op.result): op for op in ops if op.opname.endswith("_dispatch")}
+    kinds = [(op.opname, disp[id(op.operands[0])].attrs.get("prologue"))
+             for op in ops if op.opname.startswith("xsmm.")
+             and not op.opname.endswith("_dispatch")]
+    # per layer: LN-prologue QKV, packed attention, out-proj (+residual),
+    # LN-prologue fc1 (+gelu), fc2 (+residual); then ln_f and the LM head
+    layer = [("xsmm.fused_brgemm", "layer_norm"), ("xsmm.attention", None),
+             ("xsmm.fused_brgemm", None), ("xsmm.fused_brgemm", "layer_norm"),
+             ("xsmm.fused_brgemm", None)]
+    assert kinds == [("xsmm.binary", None)] + layer * 2 + [
+        ("xsmm.layer_norm", None), ("xsmm.gemm", None)]
+    att = [disp[id(op.operands[0])].attrs for op in ops
+           if op.opname == "xsmm.attention"]
+    assert all(a["qkv_packed"] and a["causal"] and a["heads"] == 2
+               and a["head_dim"] == 64 for a in att)
+
+
+def _attention_module(attrs):
+    t = TensorType((2, 32, 64), "f32")
+    m = Module()
+    f = m.add(Function("entry", [t, t, t], ["q", "k", "v"]))
+    f.returns = [TppBuilder(f).create("tl.attention", list(f.args), [t],
+                                      attrs).result]
+    m.verify()
+    return m
+
+
+@pytest.mark.parametrize("attrs,why", [
+    ({"causal": True}, "heads = 0"),
+    ({"heads": 2, "strategy": "xla"}, "strategy 'xla'"),
+], ids=["flat-heads-0", "forced-xla"])
+def test_verify_slice_refuses_attention_outside_the_slice(attrs, why):
+    with pytest.raises(NotImplementedError, match=why):
+        run_pipeline(_attention_module(attrs), "default-tpp-passes")
+
+
+def test_verify_slice_admits_token_attention():
+    m = _attention_module({"heads": 2, "strategy": "tokens"})
+    run_pipeline(m, "default-tpp-passes")
+    assert _invokes(m) == ["xsmm.attention"]

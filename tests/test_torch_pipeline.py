@@ -1,5 +1,6 @@
-"""The port's main path (tpp-gen IR -> default-tpp-passes -> executor)
-against the JAX package's run_module on the same IR and seed, on the CPU.
+"""The port's main paths (tpp-gen IR, and the imported GPT and transformer
+block -> default-tpp-passes -> executor) against the JAX package's
+run_module on the same module and seed, on the CPU.
 
 Error measure: max|port - jax| / max|jax|. Tolerances: f32 "highest" 1e-5
 (sum order only); f32 "default" and bf16 1e-2 (the port rounds f32
@@ -15,9 +16,12 @@ import pytest
 import torch
 
 from tpp_mlir_tpu.ir import parse_module
+from tpp_mlir_tpu.models.gpt import build_gpt
 from tpp_mlir_tpu.models.mlp import MlpConfig, build_mlp
+from tpp_mlir_tpu.models.transformer_block import build_transformer_block
 from tpp_mlir_tpu.runtime.tensor_init import tensor_init as ref_tensor_init
 from tpp_mlir_tpu.tools.mlir_gen import generate_text
+from tpp_mlir_tpu.tools.tpp_run import init_args as ref_init_args
 from tpp_mlir_tpu.tools.tpp_run import run_module as ref_run_module
 from tpp_mlir_tpu_torch.runtime import compile as port_compile
 from tpp_mlir_tpu_torch.runtime.tensor_init import tensor_init, to_torch
@@ -158,3 +162,131 @@ def test_to_torch_carries_ml_dtypes_bf16_bit_for_bit():
                                   b.view(np.uint16))
     assert torch.equal(to_torch(x), torch.from_numpy(x))
     assert torch.equal(to_torch(x[:, ::2]), torch.from_numpy(x[:, ::2].copy()))
+
+
+# ---------------------------------------------------------------------------
+# the transformer slice: imported GPT and transformer block
+# ---------------------------------------------------------------------------
+
+def _gpt(dtype="bf16", precision="default"):
+    m = build_gpt(batch=2, seq=128, vocab=512, embed=256, heads=2, layers=2,
+                  dtype=dtype)
+    if precision != "default":
+        m.attrs["precision"] = precision
+    return m
+
+
+def _block(dtype="f32", precision="default"):
+    m = build_transformer_block(batch=2, seq=128, embed=256, heads=2,
+                                dtype=dtype)
+    if precision != "default":
+        m.attrs["precision"] = precision
+    return m
+
+
+# Tolerances (max|port - jax| / max|jax|): bf16 and f32 "default" 2e-2 (the
+# port's kernels round f32 operands to bf16 where interpret mode keeps f32,
+# and two layers of bf16 roundings fall at other places; measured up to
+# 6.4e-3); f32 "highest" 1e-4 (sum order and the one-pass vs two-pass
+# LayerNorm statistics only).
+MODEL_CASES = {
+    "gpt-bf16": (_gpt, "bf16", "default", 2e-2),
+    "gpt-f32-default": (_gpt, "f32", "default", 2e-2),
+    "gpt-f32-highest": (_gpt, "f32", "highest", 1e-4),
+    "block-bf16": (_block, "bf16", "default", 2e-2),
+    "block-f32-default": (_block, "f32", "default", 2e-2),
+    "block-f32-highest": (_block, "f32", "highest", 1e-4),
+}
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_imported_model_matches_reference(name):
+    build, dtype, precision, tol = MODEL_CASES[name]
+    want = ref_run_module(build(dtype, precision), seed=1,
+                          out_stream=io.StringIO())["outputs"][0]
+    got = run_module(build(dtype, precision), seed=1, device="cpu",
+                     out_stream=io.StringIO())["outputs"][0]
+    assert got.dtype == {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    assert _err(got, want) <= tol
+
+
+@pytest.mark.parametrize("name", ["gpt-bf16", "block-f32-highest"])
+def test_imported_model_lowered_matches_linalg_to_loops(name):
+    build, dtype, precision, tol = MODEL_CASES[name]
+    got = run_module(build(dtype, precision), seed=2, device="cpu",
+                     out_stream=io.StringIO())["outputs"][0]
+    want = run_module(build(dtype, precision), seed=2, device="cpu",
+                      linalg_to_loops=True,
+                      out_stream=io.StringIO())["outputs"][0]
+    assert _err(got, want.float().numpy()) <= tol
+
+
+def test_gpt_at_highest_matches_the_torch_module():
+    # as tests/frontend/test_torch_import.py does for the JAX package
+    from tpp_mlir_tpu.frontend import import_torch_fx
+    from tpp_mlir_tpu.models.gpt import GptTorch
+    torch.manual_seed(0)
+    tm = GptTorch(96, 64, 4, 2, 4, max_seq=16).eval()
+    ids = np.random.default_rng(0).integers(0, 96, (2, 16)).astype(np.int32)
+    with torch.no_grad():
+        want = tm(torch.from_numpy(ids).long()).numpy()
+    m = import_torch_fx(tm, (2, 16), dtype="f32", input_dtype="i32")
+    m.attrs["precision"] = "highest"
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    run_pipeline(m, "default-tpp-passes")
+    got = port_compile(m)(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_init_args_makes_the_reference_token_ids():
+    # token ids: uniform in [0, rows of the gather table), default_rng(seed
+    # + i), as the reference's tpp_run.init_args; not truncated normals
+    m = build_gpt(batch=2, seq=16, vocab=96, embed=32, heads=2, layers=1)
+    want = ref_init_args(m, "entry", "normal", 5)
+    got = init_args(m, "entry", "normal", 5)
+    assert got[0].dtype == torch.int32
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert 0 <= int(got[0].min()) and int(got[0].max()) < 96
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_literals_carry_to_the_reference_bits(dtype):
+    import jax.numpy as jnp
+    from tpp_mlir_tpu.ir.types import jnp_dtype
+    from tpp_mlir_tpu_torch.runtime.params import literal_tensor, module_params
+    m = build_gpt(batch=1, seq=16, vocab=96, embed=32, heads=2, layers=1,
+                  dtype=dtype)
+    params = module_params(m)
+    consts = [op for op in m["entry"].ops if op.opname == "tl.constant"
+              and op.attrs.get("init") == "literal"]
+    assert len(params) == len(consts) > 0
+    bits = {"bf16": (torch.int16, np.uint16), "f32": (torch.int32, np.uint32)}
+    tb, nb = bits[dtype]
+    for op in consts:
+        t = op.results[0].type
+        want = np.asarray(jnp.asarray(np.asarray(
+            m.literals[op.attrs["literal"]])).astype(jnp_dtype(t)))
+        got = literal_tensor(m, op.attrs["literal"], t)
+        assert torch.equal(got, params[op.attrs["literal"]])
+        np.testing.assert_array_equal(got.view(tb).numpy().view(nb),
+                                      want.view(nb))
+
+
+def test_bench_driver_runs_a_model_entry(capsys):
+    from tpp_mlir_tpu_torch.tools import bench_driver
+    entry = {"model": 'transformer_block:{"batch": 1, "seq": 32, '
+                      '"embed": 64, "heads": 2}', "precision": "highest"}
+    res = bench_driver.run_entry(entry, n=2, device="cpu",
+                                 out_stream=io.StringIO())
+    got, want = res["lowered"]["outputs"][0], res["baseline"]["outputs"][0]
+    assert got.shape == (1, 32, 64) and res["tokens"] is None
+    assert _err(got, want.numpy()) <= 1e-4
+    assert res["lowered"]["mean_seconds"] > 0
+    assert bench_driver.main([
+        "--model", 'gpt:{"batch": 1, "seq": 16, "vocab": 64, "embed": 32, '
+        '"heads": 2, "layers": 1}', "--device", "cpu", "-n", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "tokens/s" in out and "vs --linalg-to-loops" in out
+    assert "on cpu" in out
+    with pytest.raises(NotImplementedError, match="outside the port's slice"):
+        bench_driver.build_module({"model": "mha_full"})

@@ -6,6 +6,7 @@ from .pass_manager import (Pass, PassManager, expand_pipeline, register,
 # importing registers the passes
 from . import chain as _chain              # noqa: F401
 from . import cleanup as _cleanup          # noqa: F401
+from . import fold as _fold                # noqa: F401
 from . import fuse as _fuse                # noqa: F401
 from . import pipelines as _pipelines      # noqa: F401
 from . import to_xsmm as _to_xsmm          # noqa: F401

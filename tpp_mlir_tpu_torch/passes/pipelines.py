@@ -1,10 +1,11 @@
 """Named pipelines of the port.
 
 `default-tpp-passes` runs only the passes the slice has ported, in the
-reference's order (`tpp_mlir_tpu/passes/pipelines.py`): on the MLP, fc and
-matmul modules of tpp-gen the reference's other passes leave the IR as it
-is. It ends with `verify-slice`, which refuses any op the port cannot run,
-so no IR outside the slice is run half-lowered.
+reference's order (`tpp_mlir_tpu/passes/pipelines.py:67-100`): on tpp-gen's
+MLP, fc and matmul modules and on the imported GPT and transformer-block
+models the reference's other passes leave the IR as it is. It ends with
+`verify-slice`, which refuses any op the port cannot run, so no IR outside
+the slice is run half-lowered.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ SLICE_OPS = frozenset({
     "xsmm.fused_chain_dispatch", "xsmm.fused_chain",
     "perf.bench",
     "check.expect_true", "check.expect_almost_eq", "check.expect_sane",
+    # the transformer slice
+    "tl.gather",
+    "xsmm.attention_dispatch", "xsmm.attention",
+    "xsmm.layer_norm_dispatch", "xsmm.layer_norm",
+    "xsmm.binary_dispatch", "xsmm.binary",
 })
 
 
@@ -30,16 +36,19 @@ def slice_violation(op) -> str | None:
     if op.opname not in SLICE_OPS:
         return f"op {op.opname}"
     a = op.attrs
-    if op.opname == "tl.constant" and (
-            a.get("init") == "literal"
-            or any(k.startswith("pack_") for k in a)):
-        return "literal or packed tl.constant (queue A3)"
-    if op.opname.endswith("_dispatch") and op.opname != \
-            "xsmm.fused_chain_dispatch":
+    if op.opname == "tl.constant" and any(k.startswith("pack_") for k in a):
+        return "packed tl.constant (queue A13)"
+    if op.opname in ("xsmm.gemm_dispatch", "xsmm.brgemm_dispatch",
+                     "xsmm.fused_brgemm_dispatch"):
         if a.get("layout", "flat") != "flat":
             return f"{a['layout']} layout (queue A13)"
-        if a.get("prologue"):
-            return "LayerNorm prologue (queue A6)"
+        if a.get("prologue") not in (None, "layer_norm"):
+            return f"{a['prologue']} prologue (queue A6 / B2)"
+    if op.opname == "xsmm.attention_dispatch":
+        if not a.get("heads"):
+            return "flat-layout attention, heads = 0 (queue A6 / B6, B8-B11)"
+        if a.get("strategy", "auto") not in ("auto", "tokens"):
+            return f"attention strategy {a['strategy']!r} (queue A6)"
     return None
 
 
@@ -64,11 +73,19 @@ class VerifySlicePass(Pass):
 def default_tpp_passes():
     return [
         "cleanup",
+        "sink-reshape",
+        "cleanup",
         "tile-and-fuse",
         "convert-tl-to-xsmm",
         "xsmm-combine",
+        "fold-residual-acc",
+        "qkv-merge",
         "fold-xsmm-flags",
         "chain-fusion",
+        "cleanup",
+        # after cleanup: dead A-operand reshapes from qkv-merge are gone,
+        # so a LayerNorm's remaining single consumer is visible
+        "fuse-ln-gemm",
         "cleanup",
         "verify-xsmm",
         "verify-slice",

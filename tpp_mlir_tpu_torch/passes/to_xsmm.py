@@ -2,26 +2,36 @@
 
 Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
 
-  convert-tl-to-xsmm  contractions (tl.matmul, tl.brgemm, tl.vnni_brgemm)
-                      and eltwise unary/binary ops become dispatch+invoke
-                      pairs;
-  xsmm-combine        {gemm|brgemm} -> binary -> unary chains become one
-                      xsmm.fused_brgemm;
+  convert-tl-to-xsmm  contractions (tl.matmul, tl.brgemm, tl.vnni_brgemm),
+                      tl.attention, tl.layer_norm and eltwise unary/binary
+                      ops become dispatch+invoke pairs;
+  xsmm-combine        {gemm|brgemm} -> binary -> unary chains (bias add,
+                      relu, gelu, ...) become one xsmm.fused_brgemm;
+  fold-residual-acc   a full-shape residual add of a BETA_0 contraction
+                      becomes its accumulator (:762);
+  qkv-merge           three Q/K/V projections of one activation become one
+                      GEMM of triple width feeding a qkv_packed attention
+                      (:887);
   fold-xsmm-flags     zero-filled accumulators fold into the dispatch as the
                       BETA_0 flag;
+  fuse-ln-gemm        a LayerNorm whose only consumer is one flat GEMM
+                      becomes that GEMM's prologue (:1030);
   verify-xsmm         dispatch/invoke consistency.
 
-The attention, LayerNorm, batch-matmul, packed, conv, transpose, VNNI-pack,
-zero-fill, generic, residual-accumulator and QKV branches wait for their
-ROADMAP items;
-what they would have lowered is refused by the pipeline's verify-slice.
+The batch-matmul, packed, conv, transpose, VNNI-pack, zero-fill and generic
+branches wait for their ROADMAP items; what they would have lowered is
+refused by the pipeline's verify-slice.
 """
 
 from __future__ import annotations
 
-from tpp_mlir_tpu.ir import Function, I64, Module, Operation, TppBuilder
+import numpy as np
+
+from tpp_mlir_tpu.ir import (Function, I64, Module, Operation, TensorType,
+                             TppBuilder)
 from tpp_mlir_tpu.ir.matcher import is_pure_zero, is_zero_op
 
+from .fold import _hoist_before, _materialize_const, new_literal_const
 from .pass_manager import Pass, register
 
 _UNARY_MAP = {
@@ -109,6 +119,40 @@ class ConvertTlToXsmmPass(Pass):
                          **_tile_attrs(op)}
                 replace(op, pair("xsmm.gemm_dispatch", "xsmm.gemm", attrs,
                                  [A, B, C], C.type, op))
+                changed = True
+
+            elif name == "tl.attention":
+                Q, K, V = op.operands
+                Bt, S, D = Q.type.shape
+                attrs = {"batch": Bt, "seq": S, "seq_kv": K.type.shape[1],
+                         "head_dim": D, "scale": op.attrs.get("scale", 1.0),
+                         "causal": bool(op.attrs.get("causal", False)),
+                         "dtype": Q.type.dtype, "flags": (),
+                         "precision": precision}
+                for opt in ("strategy", "bq", "bk"):
+                    if opt in op.attrs:
+                        attrs[opt] = op.attrs[opt]
+                H = int(op.attrs.get("heads", 0) or 0)
+                if H:
+                    # token layout: batch is the true batch, head_dim the
+                    # per-head width (operand width = heads * head_dim)
+                    attrs["heads"] = H
+                    attrs["head_dim"] = D // H
+                replace(op, pair("xsmm.attention_dispatch", "xsmm.attention",
+                                 attrs, [Q, K, V], op.result.type, op))
+                changed = True
+
+            elif name == "tl.layer_norm":
+                X = op.operands[0]
+                M, E = X.type.shape
+                attrs = {"m": M, "n": E,
+                         "eps": float(op.attrs.get("eps", 1e-5)),
+                         "affine": len(op.operands) == 3,
+                         "dtype": X.type.dtype, "flags": (),
+                         "precision": precision}
+                replace(op, pair("xsmm.layer_norm_dispatch",
+                                 "xsmm.layer_norm", attrs, list(op.operands),
+                                 op.result.type, op))
                 changed = True
 
             elif name in ("tl.brgemm", "tl.vnni_brgemm"):
@@ -310,6 +354,326 @@ class FoldXsmmFlagsPass(Pass):
                     and not any(r.uses for r in producer.results) \
                     and producer.opname != "tl.constant":
                 func.erase(producer)
+            changed = True
+        return changed
+
+
+@register
+class FoldResidualAccPass(Pass):
+    """A full-shape `xsmm.binary add` consuming a BETA_0 contraction becomes
+    the contraction's accumulator init (beta = 1):
+
+        f = fused_brgemm(A, B, C=zero[beta_0], bias[bcast_col])
+        r = binary_add(x, reshape?(f))          # full-shape residual
+        [u = unary(r)]                          # optional activation
+    ->
+        f' = fused_brgemm(A, B, C=x, bias[bcast_col], unary=u?)
+
+    The residual rides the accumulator read the kernel does anyway, and the
+    separate m*n elementwise pass disappears. Association changes from
+    (A@B + bias) + x to (x + A@B) + bias, within f32-accumulate tolerance."""
+
+    name = "fold-residual-acc"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        changed = False
+        b = TppBuilder(func)
+        for op in list(func.ops):
+            if op.parent is None or op.opname != "xsmm.binary":
+                continue
+            bdisp = op.operands[0].owner
+            if bdisp is None or bdisp.attrs.get("kind") != "add":
+                continue
+            if op.operands[1].type.shape != op.operands[2].type.shape:
+                continue  # only full-shape adds
+            for gi, oi in ((1, 2), (2, 1)):
+                v = op.operands[gi]
+                other = op.operands[oi]
+                if v is other:
+                    continue
+                reshape = None
+                prod = v.owner
+                if prod is not None and prod.opname == "tl.reshape":
+                    if len(prod.result.uses) != 1:
+                        continue
+                    reshape = prod
+                    prod = prod.operands[0].owner
+                if prod is None or prod.opname not in ("xsmm.fused_brgemm",
+                                                       "xsmm.brgemm"):
+                    continue
+                if len(prod.result.uses) != 1:
+                    continue  # the contraction output escapes elsewhere
+                if any(x is prod.result for x in func.returns) or (
+                        reshape is not None and any(
+                            x is reshape.result for x in func.returns)):
+                    continue  # returned: rewiring would change its value
+                pd = prod.operands[0].owner
+                flags = tuple(pd.attrs.get("flags", ()))
+                # the pass runs before fold-xsmm-flags, so "acc is dead"
+                # shows up as the BETA_0 flag or a zero-op accumulator
+                if "beta_0" not in flags \
+                        and not is_zero_op(prod.operands[3].owner):
+                    continue
+                if pd.attrs.get("unary_kind") not in (None, "none"):
+                    continue  # unary applies before the add: not foldable
+                if prod.result.type.dtype != op.result.type.dtype:
+                    continue
+                if not _hoist_before(func, prod, other):
+                    continue
+
+                attrs = dict(pd.attrs)
+                attrs["flags"] = tuple(f for f in flags if f != "beta_0")
+                # absorb a single trailing unary as the fused epilogue, only
+                # on fused_brgemm (a plain brgemm's key has no unary)
+                unary_op = _single_user(op, func)
+                if (unary_op is not None
+                        and unary_op.opname == "xsmm.unary"
+                        and prod.opname == "xsmm.fused_brgemm"
+                        and unary_op.result.type == prod.result.type):
+                    attrs["unary_kind"] = \
+                        unary_op.operands[0].owner.attrs["kind"]
+                else:
+                    unary_op = None
+
+                start = len(func.ops)
+                acc = other
+                if acc.type.shape != prod.result.type.shape:
+                    acc = b.reshape(acc, prod.result.type.shape)
+                nd = b.create(pd.opname, [], [I64], attrs).result
+                new_ops = func.ops[start:]
+                del func.ops[start:]
+                i = func.ops.index(prod)
+                func.ops[i:i] = new_ops
+
+                prod.set_operand(0, nd)
+                prod.set_operand(3, acc)
+
+                repl = reshape.result if reshape is not None else prod.result
+                if unary_op is not None:
+                    func.replace_all_uses(unary_op.result, repl)
+                    ud = unary_op.operands[0].owner
+                    func.erase(unary_op)
+                    if ud is not None and not ud.result.uses:
+                        func.erase(ud)
+                func.replace_all_uses(op.result, repl)
+                func.erase(op)
+                if not bdisp.result.uses:
+                    func.erase(bdisp)
+                if not pd.result.uses:
+                    func.erase(pd)
+                changed = True
+                break
+        return changed
+
+
+@register
+class QkvMergePass(Pass):
+    """Three fused_brgemm projections reading the same activation with
+    constant weights (the Q/K/V of every imported MultiheadAttention) merge
+    into one GEMM of triple width feeding a qkv_packed attention:
+
+        q = fused_brgemm(A, Wq, bias_q);  k = ...;  v = ...
+        o = attention(q, k, v)                       # token layout
+    ->
+        qkv = fused_brgemm(A, [Wq|Wk|Wv], [bq|bk|bv])   # (m, 3n)
+        o   = attention(qkv)                            # qkv_packed
+
+    The activation is read once instead of three times, one launch replaces
+    three, and attention.cu reads K/V at column offsets of the packed array.
+    The weight/bias concatenation happens at compile time, as new module
+    literals."""
+
+    name = "qkv-merge"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        changed = False
+        b = TppBuilder(func)
+        for op in list(func.ops):
+            if op.parent is None or op.opname != "xsmm.attention":
+                continue
+            if len(op.operands) != 4:
+                continue
+            ad = op.operands[0].owner
+            if not int(ad.attrs.get("heads", 0) or 0):
+                continue
+            if ad.attrs["seq"] != ad.attrs["seq_kv"]:
+                continue
+            reshapes, prods = [], []
+            for v in op.operands[1:]:
+                r = v.owner
+                if r is None or r.opname != "tl.reshape" \
+                        or len(r.result.uses) != 1:
+                    break
+                p = r.operands[0].owner
+                if p is None or p.opname != "xsmm.fused_brgemm" \
+                        or len(p.result.uses) != 1:
+                    break
+                reshapes.append(r)
+                prods.append(p)
+            if len(prods) != 3 or len(set(map(id, prods))) != 3:
+                continue
+            pds = [p.operands[0].owner for p in prods]
+
+            def _same_activation(x, y):
+                # CSE runs later: the A operands may be distinct-but-equal
+                # reshape ops of one source value
+                if x is y:
+                    return True
+                xo, yo = x.owner, y.owner
+                return (xo is not None and yo is not None
+                        and xo.opname == yo.opname == "tl.reshape"
+                        and xo.operands[0] is yo.operands[0]
+                        and x.type == y.type)
+
+            a0 = prods[0].operands[1]
+            if any(not _same_activation(p.operands[1], a0)
+                   for p in prods[1:]):
+                continue
+            base = dict(pds[0].attrs)
+            if any(dict(d.attrs) != base for d in pds[1:]):
+                continue
+            if base.get("layout", "flat") != "flat" or base.get("batch") != 1:
+                continue
+            if base.get("binary_kind") != "add" \
+                    or base.get("binary_bcast") != "bcast_col":
+                continue
+            if base.get("unary_kind") not in (None, "none"):
+                continue
+            # acc must be dead (zero or BETA_0) in all three
+            if "beta_0" not in base.get("flags", ()) and not all(
+                    is_zero_op(p.operands[3].owner) for p in prods):
+                continue
+            ws = [_materialize_const(p.operands[2], module) for p in prods]
+            bs = [_materialize_const(p.operands[4], module) for p in prods]
+            if any(w is None for w in ws) or any(x is None for x in bs):
+                continue
+            m, n, kk = base["m"], base["n"], base["k"]
+            dt = prods[0].result.type.dtype
+            w_cat = np.concatenate([w.reshape(kk, n) for w in ws], axis=1)
+            b_cat = np.concatenate([x.reshape(n) for x in bs])
+
+            attrs = dict(base)
+            attrs["n"] = 3 * n
+            attrs["flags"] = tuple(f for f in base.get("flags", ())
+                                   if f != "beta_0") + ("beta_0",)
+            for t in ("tile_m", "tile_n", "tile_k"):
+                attrs.pop(t, None)  # triple width: re-pick kernel blocks
+            a_attrs = dict(ad.attrs)
+            a_attrs["qkv_packed"] = True
+            B_, S_ = op.operands[1].type.shape[:2]
+
+            start = len(func.ops)
+            wc = new_literal_const(b, module, w_cat, (1, kk, 3 * n), dt)
+            bc = new_literal_const(b, module, b_cat, (3 * n,), dt)
+            zc = b.create("tl.constant", [], [TensorType((m, 3 * n), dt)],
+                          {"init": "zero"}).result
+            nd = b.create("xsmm.fused_brgemm_dispatch", [], [I64],
+                          attrs).result
+            gemm = b.create("xsmm.fused_brgemm", [nd, a0, wc, zc, bc],
+                            [TensorType((m, 3 * n), dt)]).result
+            packed = b.reshape(gemm, (B_, S_, 3 * n))
+            nad = b.create("xsmm.attention_dispatch", [], [I64],
+                           a_attrs).result
+            res = b.create("xsmm.attention", [nad, packed],
+                           [op.result.type]).result
+            new_ops = func.ops[start:]
+            del func.ops[start:]
+            i = func.ops.index(op)
+            func.ops[i:i] = new_ops
+
+            func.replace_all_uses(op.result, res)
+            func.erase(op)
+            for r, p, d in zip(reshapes, prods, pds):
+                if not r.result.uses:
+                    func.erase(r)
+                if not p.result.uses and not any(
+                        v is p.result for v in func.returns):
+                    func.erase(p)
+                if d.parent is not None and not d.result.uses:
+                    func.erase(d)
+            if ad.parent is not None and not ad.result.uses:
+                func.erase(ad)
+            changed = True
+        return changed
+
+
+@register
+class FuseLnGemmPass(Pass):
+    """A LayerNorm whose only consumer is one flat GEMM becomes that GEMM's
+    prologue: csrc/brgemm.cu normalizes each A row in f32 as it stages it
+    and contracts at once, so the LayerNorm output never goes to device
+    memory. Legal when the kernel sees whole rows: batch 1, flat, no VNNI,
+    no transpose_b."""
+
+    name = "fuse-ln-gemm"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        changed = False
+        b = TppBuilder(func)
+        for op in list(func.ops):
+            if op.parent is None or op.opname != "xsmm.layer_norm":
+                continue
+            ld = op.operands[0].owner
+            user = _single_user(op, func)
+            if user is None:
+                continue
+            reshape = None
+            if user.opname == "tl.reshape":
+                reshape = user
+                user = _single_user(user, func)
+                if user is None:
+                    continue
+            if user.opname != "xsmm.fused_brgemm":
+                continue
+            gd = user.operands[0].owner
+            a_val = reshape.result if reshape is not None else op.result
+            if user.operands[1] is not a_val:
+                continue  # LN feeds B/C/D, not the contraction input
+            if gd.attrs.get("layout", "flat") != "flat" \
+                    or gd.attrs.get("batch") != 1 \
+                    or gd.attrs.get("vnni") \
+                    or gd.attrs.get("prologue") \
+                    or "transpose_b" in gd.attrs.get("flags", ()):
+                continue
+            if gd.attrs["k"] != ld.attrs["n"] \
+                    or gd.attrs["m"] != ld.attrs["m"]:
+                continue
+            if gd.attrs["k"] > 8192:
+                continue  # the reference's whole-row block limit
+            affine = bool(ld.attrs.get("affine", True))
+            x_in = op.operands[1]
+            gamma_beta = list(op.operands[2:4]) if affine else []
+
+            attrs = dict(gd.attrs)
+            attrs["prologue"] = "layer_norm"
+            attrs["prologue_affine"] = affine
+            attrs["prologue_eps"] = float(ld.attrs.get("eps", 1e-5))
+            attrs.pop("tile_k", None)   # the kernel runs a single k block
+
+            start = len(func.ops)
+            nd = b.create(gd.opname, [], [I64], attrs).result
+            a_new = x_in
+            if a_new.type.shape != a_val.type.shape:
+                a_new = b.reshape(a_new, a_val.type.shape)
+            res = b.create(user.opname,
+                           [nd, a_new, *user.operands[2:], *gamma_beta],
+                           [user.result.type]).result
+            new_ops = func.ops[start:]
+            del func.ops[start:]
+            i = func.ops.index(user)
+            func.ops[i:i] = new_ops
+
+            func.replace_all_uses(user.result, res)
+            func.erase(user)
+            if gd.parent is not None and not gd.result.uses:
+                func.erase(gd)
+            if reshape is not None and not reshape.result.uses:
+                func.erase(reshape)
+            if not op.result.uses and not any(
+                    v is op.result for v in func.returns):
+                func.erase(op)
+                if ld.parent is not None and not ld.result.uses:
+                    func.erase(ld)
             changed = True
         return changed
 

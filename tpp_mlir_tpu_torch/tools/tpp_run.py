@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from tpp_mlir_tpu.ir import Function, Module, parse_module
@@ -73,10 +74,24 @@ def print_tensor(t, file=None):
 
 def init_args(module: Module, func_name: str, init_type: str, seed: int,
               device: str | torch.device = "cpu") -> list[torch.Tensor]:
-    """Deterministic args: arg i is tensor_init(init_type, seed + i)."""
-    return [tensor_init(init_type, a.type.shape, a.type.dtype,
-                        seed=seed + i).to(device)
-            for i, a in enumerate(module[func_name].args)]
+    """Deterministic args, the reference's rule (tpp_run.py:68-92): a float
+    arg i is tensor_init(init_type, seed + i); an i32/i8 arg holds token
+    ids, int32 uniform in [0, rows of the tl.gather table it feeds) (256
+    when it feeds none) from numpy's default_rng(seed + i)."""
+    func = module[func_name]
+    out = []
+    for i, a in enumerate(func.args):
+        if a.type.dtype in ("i32", "i8"):
+            bound = next((op.operands[0].type.shape[0] for op in func.ops
+                          if op.opname == "tl.gather"
+                          and op.operands[1] is a), 256)
+            t = torch.from_numpy(np.random.default_rng(seed + i).integers(
+                0, bound, size=a.type.shape, dtype=np.int32))
+        else:
+            t = tensor_init(init_type, a.type.shape, a.type.dtype,
+                            seed=seed + i)
+        out.append(t.to(device))
+    return out
 
 
 def load_module(text: str) -> Module:

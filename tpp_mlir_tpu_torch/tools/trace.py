@@ -2,6 +2,11 @@
 
   tpp-gen --batch=256 --layers=1024,1024,1024,1024 --bias --relu \\
       | python -m tpp_mlir_tpu_torch.tools.trace - --iters 20 -n 100
+  python -m tpp_mlir_tpu_torch.tools.trace --model 'gpt:{"batch": 2, \\
+      "seq": 1024, "dtype": "bf16"}' --iters 5
+
+`--model` takes the bench driver's `model:` entry (an imported model,
+which cannot go through IR text).
 
 Lowers the module with default-tpp-passes, warms it up, then traces two
 regions on the card and prints one line each:
@@ -11,6 +16,10 @@ regions on the card and prints one line each:
 For each region: the device span (first kernel start to last kernel end),
 the busy time (union of device activity), the idle share 1 - busy/span,
 and each device activity's share of the busy time, largest first.
+Then one line per kernel key of the module ("invoke"): its launches and
+device ms per forward, by CUDA events around each launch of `--iters`
+forwards, which the profiler's per-name sums cannot tell apart (one
+brgemm kernel serves every GEMM shape).
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import torch
 
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
+from ..xsmm import (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
+                    global_cache)
+from .bench_driver import build_module
 from .tpp_run import init_args, load_module, resolve_device, wrap_bench_main
 
 
@@ -60,6 +72,63 @@ def device_breakdown(fn) -> dict:
             "shares": shares}
 
 
+TOP = 8     # device activities listed per region
+
+
+def describe(key) -> str:
+    """A short label of a kernel key: kind, shape, dtype, fusions."""
+    if isinstance(key, BrgemmKey):
+        extra = "".join(f" +{x}" for x, on in (
+            ("ln", key.prologue), ("C", not key.beta0),
+            (key.binary_kind, key.binary_kind),
+            (key.unary_kind, key.unary_kind)) if on)
+        return f"brgemm {key.m}x{key.n}x{key.k} {key.dtype}{extra}"
+    if isinstance(key, ChainKey):
+        return f"chain {key.m}x{'x'.join(map(str, key.dims))} {key.dtype}"
+    if isinstance(key, FlashMhaKey):
+        return (f"attention b{key.batch} s{key.seq} h{key.heads} "
+                f"d{key.head_dim} {key.dtype}"
+                f"{' causal' if key.causal else ''}")
+    if isinstance(key, LayerNormKey):
+        return f"layer_norm {key.m}x{key.n} {key.dtype}"
+    return type(key).__name__
+
+
+def invoke_times(fn, args, iters: int) -> list[tuple[str, int, float]]:
+    """(label, launches per call, device ms per call) of each kernel key
+    that `fn(*args)` launches, largest first: CUDA events recorded around
+    each launch of `iters` calls (the kernels must be built already)."""
+    records = []
+    kernels = global_cache().kernels()
+    saved = [(k, k._launch) for k in kernels]
+
+    def timed(launch, key):
+        def run(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launch(*a)
+            stop.record()
+            records.append((key, start, stop))
+            return out
+        return run
+    try:
+        for k, launch in saved:
+            k._launch = timed(launch, k.key)
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        for k, launch in saved:
+            k._launch = launch
+    per: dict[str, list] = defaultdict(lambda: [0, 0.0])
+    for key, start, stop in records:
+        per[describe(key)][0] += 1
+        per[describe(key)][1] += start.elapsed_time(stop)
+    return sorted(((name, n // iters, ms / iters)
+                   for name, (n, ms) in per.items()), key=lambda r: -r[2])
+
+
 def trace_module(module, func_name: str = "entry", iters: int = 20,
                  n: int = 100, device: str = "cuda",
                  pipeline: str = "default-tpp-passes") -> dict:
@@ -77,6 +146,7 @@ def trace_module(module, func_name: str = "entry", iters: int = 20,
         bench = tpp_compile(module, wrapper, dev)
         bench(*args)
         out["bench"] = device_breakdown(lambda: bench(*args))
+    out["invokes"] = invoke_times(fn, args, iters)
     return out
 
 
@@ -84,6 +154,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="trace (torch)", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("input", nargs="?", default="-")
+    p.add_argument("--model", help="a bench_driver model entry, in place "
+                                   "of IR text")
     p.add_argument("-e", "--entry", default="entry")
     p.add_argument("--iters", type=int, default=20,
                    help="eager forwards in the eager region")
@@ -93,15 +165,24 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--label", default="", help="prefix of each line")
     args = p.parse_args(argv)
-    text = sys.stdin.read() if args.input == "-" else open(args.input).read()
-    res = trace_module(load_module(text), args.entry, args.iters, args.n,
-                       args.device, args.pipeline)
+    if args.model:
+        module = build_module({"model": args.model})
+    else:
+        module = load_module(sys.stdin.read() if args.input == "-"
+                             else open(args.input).read())
+    res = trace_module(module, args.entry, args.iters, args.n, args.device,
+                       args.pipeline)
+    invokes = res.pop("invokes")
     for region, r in res.items():
         top = ", ".join(f"{name[:48]} {share:.3f}" for share, name in
-                        r["shares"][:4])
+                        r["shares"][:TOP])
         print(f"{args.label}{region}: span {r['span_ms']:.3f} ms, busy "
               f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; "
               f"{top}")
+    total = sum(ms for _, _, ms in invokes)
+    for name, n, ms in invokes:
+        print(f"{args.label}invoke {name:44s} {n:3d} launches "
+              f"{ms:9.4f} ms share {ms / total:.3f} (per forward)")
     return 0
 
 

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-At first use, every `csrc/*.cu` is compiled by `nvcc` for sm_90a into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds rather than minutes), under `tpp_mlir_tpu_torch/build/`, which
-`.gitignore` lists. The library's name carries a hash of the sources, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing is
-downloaded: the sources in the package are the only input.
+At first use, every `csrc/*.cu` is compiled by `nvcc` for sm_90a, one nvcc
+process per source, all started together, and the objects are linked into
+one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds rather than minutes), under `tpp_mlir_tpu_torch/build/`,
+which `.gitignore` lists. The library's name carries a hash of the sources,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing is downloaded: the sources in the package are the only input.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -23,14 +25,18 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: (restype, argtypes)
-    "tpp_brgemm": (_I, [_P, _P, _P, _P, _P] + [_I] * 12 + [_P]),
+    "tpp_brgemm": (_I, [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _P, _P, _P]),
+    "tpp_attention": (_I, [_P] * 4 + [_I] * 10 + [_F, _P]),
+    "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_I)] + [_I] * 10 + [_P]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
@@ -75,22 +81,40 @@ def build() -> BuildInfo:
     path = BUILD_DIR / f"libtpp_kernels-{_digest()}.so"
     if path.exists():
         return BuildInfo(path, False, 0.0, "")
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    procs = []
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            out, err = proc.communicate()
+            log.append(f"{src.name}:\n{out}{err}")
+            if proc.returncode:
+                failed.append(f"nvcc {src.name} failed ({proc.returncode}):"
+                              f"\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = work / path.name
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in procs)],
                               capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(path, True, time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return BuildInfo(path, True, time.perf_counter() - t0, "".join(log))
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,8 +1,9 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
-UnaryKey, BinaryKey). They are copies rather than imports because importing
-anything under `tpp_mlir_tpu.xsmm` loads JAX, which the port never does.
+FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey). They are copies rather
+than imports because importing anything under `tpp_mlir_tpu.xsmm` loads
+JAX, which the port never does.
 `tests/test_torch_flags.py` pins every field name and default to the
 originals, so the two backends keep one key contract.
 """
@@ -60,6 +61,43 @@ class ChainKey:
     repeats: int = 1
     # warm bench for a non-square single-layer fc (queue B5)
     pingpong: bool = False
+
+
+@dataclass(frozen=True)
+class FlashMhaKey:
+    """Key for the fused attention kernel softmax(Q K^T * scale) V."""
+
+    batch: int                 # batch * heads (flat), or the batch (tokens)
+    seq: int
+    seq_kv: int
+    head_dim: int
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    scale: float = 1.0
+    causal: bool = False
+    precision: str = "default"
+    bq: int = 0                # query block (0 = heuristic)
+    bk: int = 0                # key/value block
+    strategy: str = "auto"     # auto/tokens here; the TPU's others queued
+    repeats: int = 0           # in-kernel warm bench (queue B11)
+    # heads > 0: token layout (batch, seq, heads*head_dim); 0: flat layout
+    # (batch*heads, seq, head_dim), queue A6 / B6, B8-B11
+    heads: int = 0
+    # one (batch, seq, 3*heads*head_dim) operand holding [Q | K | V]
+    qkv_packed: bool = False
+
+
+@dataclass(frozen=True)
+class LayerNormKey:
+    """Key for the row LayerNorm kernel (two-pass f32 statistics)."""
+
+    m: int                     # tokens (rows)
+    n: int                     # features (normalized dim)
+    dtype: str
+    out_dtype: str | None = None
+    affine: bool = True        # gamma/beta operands present
+    eps: float = 1e-5
+    precision: str = "default"
 
 
 @dataclass(frozen=True)

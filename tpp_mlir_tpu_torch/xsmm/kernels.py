@@ -7,10 +7,15 @@ the launch returned an error. Called with CPU tensors it runs the plain
 version from `reference.py`; that is the only way the plain version is
 reached. Each wrapper counts its launches.
 
-  BrgemmKey -> csrc/brgemm.cu   (replaces xsmm/kernels.py:580 _build_brgemm
-                                 and :243 _build_brgemm_wres)
-  ChainKey  -> csrc/chain.cu    (replaces :1475 _build_chain and
-                                 :2001 _build_chain_bench)
+  BrgemmKey    -> csrc/brgemm.cu     (replaces xsmm/kernels.py:580
+                                     _build_brgemm and :243
+                                     _build_brgemm_wres, LayerNorm
+                                     prologue included)
+  ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain and
+                                     :2001 _build_chain_bench)
+  FlashMhaKey  -> csrc/attention.cu  (replaces :2232
+                                     _build_flash_mha_tokens; heads > 0)
+  LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm)
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -22,7 +27,7 @@ import ctypes
 import torch
 
 from . import reference
-from .flags import BrgemmKey, ChainKey
+from .flags import BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -102,7 +107,9 @@ def _brgemm_launch(key: BrgemmKey):
     d_size = {"bcast_col": n, "bcast_row": m, "bcast_scalar": 1,
               "none": m * n}[key.binary_bcast]
 
-    def launch(a, b, c=None, d=None):
+    ln = key.prologue == "layer_norm"
+
+    def launch(a, b, c=None, d=None, gamma=None, beta=None):
         dev = a.device
         if key.vnni:
             _expect(b, "B", (B, k // key.vnni, n, key.vnni), in_dt, dev)
@@ -119,6 +126,13 @@ def _brgemm_launch(key: BrgemmKey):
                 raise ValueError(f"D has {d.numel()} elements on {d.device}, "
                                  f"expected {d_size} on {dev} for "
                                  f"{key.binary_bcast}")
+        if ln and key.prologue_affine:
+            gamma = gamma.reshape(-1).float().contiguous()
+            beta = beta.reshape(-1).float().contiguous()
+            _expect(gamma, "gamma", (k,), None, dev)
+            _expect(beta, "beta", (k,), None, dev)
+        else:
+            gamma = beta = None
         out = torch.empty((m, n), dtype=out_dt, device=dev)
         rc = library().tpp_brgemm(
             a.data_ptr(), b.data_ptr(),
@@ -127,7 +141,9 @@ def _brgemm_launch(key: BrgemmKey):
             out.data_ptr(), B, m, n, k, _DT_CODE[in_dt], _DT_CODE[mxu],
             _DT_CODE[out_dt], int(key.transpose_b), int(not key.beta0),
             _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
-            _UNARY_CODE[key.unary_kind], _stream())
+            _UNARY_CODE[key.unary_kind], int(ln), key.prologue_eps,
+            gamma.data_ptr() if gamma is not None else None,
+            beta.data_ptr() if beta is not None else None, _stream())
         check(rc, f"brgemm {key}")
         return out
     return launch
@@ -179,8 +195,75 @@ def _chain_launch(key: ChainKey):
     return launch
 
 
+ATTENTION_HEAD_DIMS = (32, 64, 128)     # attention.cu's instantiations
+
+
+def _attention_launch(key: FlashMhaKey):
+    from .build import check, library
+
+    B, S, Skv, H, D = key.batch, key.seq, key.seq_kv, key.heads, key.head_dim
+    E = H * D
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+
+    def launch(q, k=None, v=None):
+        if D not in ATTENTION_HEAD_DIMS:
+            raise ValueError(f"attention.cu takes head_dim in "
+                             f"{ATTENTION_HEAD_DIMS}: {key}")
+        dev = q.device
+        if key.qkv_packed:
+            # [Q|K|V] column groups of one operand, read in place
+            _expect(q, "QKV", (B, S, 3 * E), in_dt, dev)
+            ptrs = [q.data_ptr() + g * E * q.element_size()
+                    for g in range(3)]
+            ld = 3 * E
+        else:
+            _expect(q, "Q", (B, S, E), in_dt, dev)
+            _expect(k, "K", (B, Skv, E), in_dt, dev)
+            _expect(v, "V", (B, Skv, E), in_dt, dev)
+            ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+            ld = E
+        out = torch.empty((B, S, E), dtype=out_dt, device=dev)
+        rc = library().tpp_attention(
+            *ptrs, out.data_ptr(), B, S, Skv, H, D, ld, _DT_CODE[in_dt],
+            _DT_CODE[mxu], _DT_CODE[out_dt], int(key.causal),
+            key.scale * reference.LOG2E, _stream())
+        check(rc, f"attention {key}")
+        return out
+    return launch
+
+
+def _layer_norm_launch(key: LayerNormKey):
+    from .build import check, library
+
+    m, n = key.m, key.n
+    in_dt = reference.DTYPES[key.dtype]
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+
+    def launch(x, gamma=None, beta=None):
+        dev = x.device
+        _expect(x, "x", (m, n), in_dt, dev)
+        if key.affine:
+            gamma = gamma.reshape(-1).float().contiguous()
+            beta = beta.reshape(-1).float().contiguous()
+            _expect(gamma, "gamma", (n,), None, dev)
+            _expect(beta, "beta", (n,), None, dev)
+        out = torch.empty((m, n), dtype=out_dt, device=dev)
+        rc = library().tpp_layer_norm(
+            x.data_ptr(), gamma.data_ptr() if key.affine else None,
+            beta.data_ptr() if key.affine else None, out.data_ptr(), m, n,
+            _DT_CODE[in_dt], _DT_CODE[out_dt], key.eps, _stream())
+        check(rc, f"layer_norm {key}")
+        return out
+    return launch
+
+
+_LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
+             FlashMhaKey: _attention_launch,
+             LayerNormKey: _layer_norm_launch}
+
+
 def build_kernel(key) -> Kernel:
     reference.check_slice(key)
-    if isinstance(key, BrgemmKey):
-        return Kernel(key, _brgemm_launch(key))
-    return Kernel(key, _chain_launch(key))
+    return Kernel(key, _LAUNCHES[type(key)](key))

@@ -16,26 +16,27 @@ Precision, one meaning everywhere (kernel and plain version alike):
     to run while `torch.backends.cuda.matmul.allow_tf32` is on.
   * bf16: bf16 operands, f32 accumulation and f32 epilogue, one rounding to
     the output dtype at the end.
+Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
+in f32 whatever the dtype; only their results are rounded.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flags import BrgemmKey, ChainKey
+from .flags import BinaryKey, BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # ROADMAP items that own the key types and options outside this slice
 _OUTSIDE = {
     "UnaryKey": "queue A3 (eltwise xsmm.unary, left to PyTorch)",
-    "BinaryKey": "queue A3 (eltwise xsmm.binary, left to PyTorch)",
+    "BinaryKey": "queue A3 (xsmm.binary has no kernel: the executor runs "
+                 "it as a PyTorch op, binary_reference)",
     "BlockedMatmulKey": "queue A13 / B19-B20",
     "BatchMatmulKey": "queue A13 / B21-B22",
     "ConvBrgemmKey": "queue A13 / B23",
     "ConvNhwcKey": "queue A13 / B24-B25",
-    "FlashMhaKey": "queue A6 / B6-B11",
-    "LayerNormKey": "queue A6 / B12",
     "DecodeAttnKey": "queue A7 / B13",
     "FlashTrainKey": "queue A10 / B14, B18",
     "Int8GemmKey": "queue A7 / B15",
@@ -44,30 +45,48 @@ _OUTSIDE = {
 }
 
 
+def _refuse(what: str, item: str, key) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is outside the port's slice: ROADMAP queue {item}: {key}")
+
+
 def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
-    if not isinstance(key, (BrgemmKey, ChainKey)):
+    if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
             f"{_OUTSIDE.get(name, 'queue A')}")
     for dt in (key.dtype, key.out_dtype or key.dtype):
         if dt not in DTYPES:
-            raise NotImplementedError(
-                f"dtype {dt!r} is outside the port's slice: ROADMAP queue "
-                f"A14 (f16 keys): {key}")
+            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
     if key.precision not in ("default", "highest"):
         raise ValueError(f"unknown precision {key.precision!r}")
     if isinstance(key, BrgemmKey):
-        if key.prologue or key.ln_stats_out:
-            raise NotImplementedError(
-                f"prologue/ln_stats_out are outside the port's slice: "
-                f"ROADMAP queue A6 / B2: {key}")
-    elif key.pingpong:
-        raise NotImplementedError(
-            f"pingpong chain bench is outside the port's slice: ROADMAP "
-            f"queue B5: {key}")
+        if key.prologue == "ln_stats" or key.ln_stats_out:
+            raise _refuse("ln_stats/ln_stats_out", "A6 / B2", key)
+        if key.prologue not in (None, "layer_norm"):
+            raise ValueError(f"unknown prologue {key.prologue!r}")
+        if key.prologue and (key.batch != 1 or key.vnni or key.transpose_b):
+            raise ValueError(f"the layer_norm prologue needs the whole A row: "
+                             f"batch 1, flat, no transpose_b: {key}")
+    elif isinstance(key, ChainKey):
+        if key.pingpong:
+            raise _refuse("pingpong chain bench", "B5", key)
+    elif isinstance(key, FlashMhaKey):
+        if not key.heads:
+            raise _refuse("flat-layout attention (heads = 0)",
+                          "A6 / B6, B8-B11", key)
+        if key.repeats:
+            raise _refuse("attention repeats (warm bench)", "A6 / B11", key)
+        if key.strategy not in ("auto", "tokens"):
+            # the reference falls through from a forced strategy it cannot
+            # run (ADVICE.md #2); the port raises instead
+            raise _refuse(f"attention strategy {key.strategy!r}",
+                          "A6 / B6-B10, B14 (ADVICE.md #2)", key)
+        if key.qkv_packed and key.seq != key.seq_kv:
+            raise ValueError(f"qkv_packed needs seq == seq_kv: {key}")
 
 
 def mxu_dtype(dtype: str, precision: str) -> torch.dtype:
@@ -142,13 +161,29 @@ def canonical_d(key: BrgemmKey, d: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def ln_prologue(key: BrgemmKey, a, gamma=None, beta=None):
+    """The GEMM's LayerNorm prologue on A (1, m, k), in f32: the one-pass
+    statistics of the TPU kernels (mean, E[x^2] - mean^2;
+    tpp_mlir_tpu/xsmm/kernels.py:688-699 and :423-429), then gamma/beta."""
+    af = a.float()
+    mu = af.mean(-1, keepdim=True)
+    var = (af * af).mean(-1, keepdim=True) - mu * mu
+    af = (af - mu) * torch.rsqrt(var + key.prologue_eps)
+    if key.prologue_affine:
+        af = af * gamma.float().reshape(-1) + beta.float().reshape(-1)
+    return af
+
+
 def brgemm_reference(key: BrgemmKey):
-    """C (+)= sum_b A[b] @ B[b], then unary(acc OP D), as one function."""
+    """C (+)= sum_b A'[b] @ B[b], then unary(acc OP D), as one function;
+    A' is A, or A through the LayerNorm prologue (gamma/beta trail)."""
     check_slice(key)
     mdt = mxu_dtype(key.dtype, key.precision)
     out_dt = DTYPES[key.out_dtype or key.dtype]
 
-    def fn(a, b, c=None, d=None):
+    def fn(a, b, c=None, d=None, gamma=None, beta=None):
+        if key.prologue:
+            a = ln_prologue(key, a, gamma, beta)
         if key.vnni:
             b = unvnni(b)
         if key.transpose_b:
@@ -195,11 +230,85 @@ def chain_reference(key: ChainKey):
     return fn
 
 
+LOG2E = 1.4426950408889634     # tpp_mlir_tpu/xsmm/kernels.py:1615
+
+
+def attention_reference(key: FlashMhaKey):
+    """softmax(Q K^T * scale) V on the token layout (B, S, H*D), with B7's
+    own math (tpp_mlir_tpu/xsmm/kernels.py:2346-2370): Q in the MXU dtype
+    scaled by scale*log2(e) in f32 and rounded to the MXU dtype again, an
+    exp2 softmax over the whole row with -1e30 at causal-masked places, P
+    normalized, rounded to the MXU dtype, then P V; products and sums f32.
+    With qkv_packed, q is the one (B, S, 3E) [Q|K|V] operand (k and v, if
+    given, are ignored, as the executor passes the packed operand thrice)."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+    H, D = key.heads, key.head_dim
+    E = H * D
+
+    def fn(q, k=None, v=None):
+        if key.qkv_packed:
+            q, k, v = q[..., :E], q[..., E:2 * E], q[..., 2 * E:]
+        B, S, Skv = q.shape[0], q.shape[1], k.shape[1]
+
+        def split(x, s):        # (B, s, E) -> (B, H, s, D) in the MXU dtype
+            return x.to(mdt).reshape(B, s, H, D).transpose(1, 2)
+        qh = (split(q, S).float() * (key.scale * LOG2E)).to(mdt)
+        s = _f32_matmul(qh, split(k, Skv).transpose(-1, -2))
+        if key.causal:
+            keep = torch.ones(S, Skv, dtype=torch.bool, device=s.device)
+            s = s.masked_fill(~keep.tril(), -1e30)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        p = (p / p.sum(-1, keepdim=True)).to(mdt)
+        o = _f32_matmul(p, split(v, Skv))
+        return o.transpose(1, 2).reshape(B, S, E).to(out_dt)
+    return fn
+
+
+def layer_norm_reference(key: LayerNormKey):
+    """Row LayerNorm of (m, n): two-pass f32 statistics, biased variance,
+    optional affine, one rounding (tpp_mlir_tpu/xsmm/kernels.py:3281)."""
+    check_slice(key)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def fn(x, gamma=None, beta=None):
+        xf = x.float()
+        d = xf - xf.mean(-1, keepdim=True)
+        y = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + key.eps)
+        if key.affine:
+            y = y * gamma.float().reshape(-1) + beta.float().reshape(-1)
+        return y.to(out_dt)
+    return fn
+
+
+def binary_reference(key: BinaryKey):
+    """xsmm.binary: the reference's kernel is jnp (tpp_mlir_tpu/xsmm/
+    kernels.py:3343), so the port's is this PyTorch op and no CUDA kernel:
+    both operands in f32 with NumPy broadcasting, one rounding."""
+    if key.kind not in BINARY_FNS:
+        raise ValueError(f"unknown binary kind {key.kind!r}")
+    for dt in (key.dtype, key.out_dtype or key.dtype):
+        if dt not in DTYPES:
+            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+    fn = BINARY_FNS[key.kind]
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def prep(x, bcast):
+        # bcast_row: a rank-1 operand indexes the major dim
+        x = x.float()
+        return x.reshape(-1, 1) if bcast == "bcast_row" and x.ndim == 1 \
+            else x
+    return lambda a, b: fn(prep(a, key.bcast_a),
+                           prep(b, key.bcast_b)).to(out_dt)
+
+
+_REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
+               FlashMhaKey: attention_reference,
+               LayerNormKey: layer_norm_reference}
+
+
 def reference_kernel(key):
     """The plain version for any key of the slice."""
-    if isinstance(key, BrgemmKey):
-        return brgemm_reference(key)
-    if isinstance(key, ChainKey):
-        return chain_reference(key)
-    check_slice(key)   # raises, naming the ROADMAP item
-    raise AssertionError("unreachable")
+    check_slice(key)   # raises for keys outside it, naming the ROADMAP item
+    return _REFERENCES[type(key)](key)
