@@ -8,7 +8,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
   2. build csrc/*.cu with nvcc (one process per source, in parallel) and
      print the build seconds;
   3. hold each Hopper kernel against its plain PyTorch version on the card,
-     at the main paths' shapes, with the tolerance stated per case;
+     at the main paths' shapes, with the tolerance stated per case (for
+     serving: the prefill attention at B 8, S 512, H 12, D 64 with split
+     q/k/v; decode attention at B 8, H 12, S 1024, D 64, L 12 and its
+     slotted, GQA, int8-KV, pack2 and f32 variants; the int8 GEMM at the
+     four prefill shapes and a ragged m);
   4. run the main paths, each with the launch counts set to 0 just before
      and read just after:
      a. the MLP path through tpp_mlir_tpu_torch.tools.tpp_run.run_module on
@@ -24,9 +28,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
         run_module: the lowered op counts, the attention / layer_norm /
         brgemm launch counts, finite outputs, and the outputs against
         --linalg-to-loops;
+     c. the serving path: tpp_mlir_tpu_torch.serving make_generate at full
+        width (batch 8, prompt 512, random weights from seed 0) for
+        gpt2_small_serve_b8 (128 greedy steps), gpt2_small_serve_b8_int8
+        (int8 weights, int8 KV, int8 compute; 128 steps) and
+        llama_gqa_serve_b8 (RoPE/RMSNorm/SwiGLU, 4 KV heads; 32 steps): the
+        launch counts of an eager generate (attention 12, decode_attn
+        12 x (steps - 1), int8_gemm 73 for the int8 configuration), finite
+        logits, prefill and teacher-forced decode logits against the same
+        engine with its kernels off (composed prefill attention, einsum
+        decode attention, the int8 GEMM's plain version), the kernels-on
+        prefill with the composed attention in B7's place against it too
+        (the witness of B7's share of the prefill error), and the tokens of
+        the CUDA-graph-replayed generate equal to the eager ones;
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
-     tokens/s), and each kernel beside its plain version.
+     tokens/s), each serving configuration's prefill and decode step
+     (eager and graph-replayed) beside the kernels-off engine, with a
+     torch.profiler trace of 8 decode steps, and each kernel beside its
+     plain version.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -48,11 +68,25 @@ TOL_F32 = 1e-4      # same operand rounding on both sides: sum order only
 # operands): 12 bf16 layers, or one f32 "default" block whose kernels round
 # operands to bf16
 TOL_MODEL = 3e-2
+TOL_INT8 = 1e-5     # exact s32 product on both sides, the same f32 epilogue
 
 GPT2 = ('gpt:{"batch": 2, "seq": 1024, "vocab": 50304, "embed": 768, '
         '"heads": 12, "layers": 12, "dtype": "bf16"}')
 ENCODER = ('transformer_block:{"batch": 8, "seq": 256, "embed": 1024, '
            '"heads": 8}')
+
+# the serving path: (label, GptConfig fields, LLaMA preset, int8 weights,
+# greedy steps), each at batch 8 with a 512-token prompt
+SERVE_BATCH, SERVE_PROMPT = 8, 512
+GPT2_SERVE = dict(vocab=50304, embed=768, heads=12, layers=12, mlp_ratio=4,
+                  max_seq=1024, dtype="bf16")
+SERVING = (
+    ("gpt2_small_serve_b8", GPT2_SERVE, False, False, 128),
+    ("gpt2_small_serve_b8_int8",
+     dict(GPT2_SERVE, kv_quant="int8", int8_compute=True), False, True, 128),
+    ("llama_gqa_serve_b8", dict(embed=768, heads=12, kv_heads=4, layers=12,
+                                max_seq=1024, dtype="bf16"), True, False, 32),
+)
 
 
 def say(msg: str) -> None:
@@ -78,6 +112,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of fn(), from one CUDA graph of `iters`
+    calls replayed after a warm-up: no host launch time between calls, so a
+    kernel of a few microseconds reads as its own time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=3, warmup=1) / iters
 
 
 def phase_device() -> str:
@@ -133,7 +184,12 @@ def _tol(key) -> float:
     TOL_BF16 (the kernel rounds the unnormalized P and divides after P.V,
     the plain version normalizes first, as B7 does); LayerNorm an f32
     output to TOL_F32."""
-    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, LayerNormKey
+    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, DecodeAttnKey,
+                                         Int8GemmKey, LayerNormKey)
+    if isinstance(key, DecodeAttnKey):
+        return TOL_F32      # f32 math from the same values: sum order only
+    if isinstance(key, Int8GemmKey):
+        return TOL_INT8 if key.out_dtype == "f32" else TOL_BF16
     out_f32 = (key.out_dtype or key.dtype) == "f32"
     if isinstance(key, LayerNormKey):
         return TOL_F32 if out_f32 else TOL_BF16
@@ -264,15 +320,19 @@ def _ln_gemm_inputs(key, g):
 
 
 def _attention_cases():
-    """Attention at the transformer path's shapes, [Q|K|V] packed as
-    qkv-merge leaves it: GPT-2 (B 2, S 1024, H 12, D 64, causal, bf16) and
-    the encoder (B 8, S 256, H 8, D 128, non-causal, f32 "default"), and
-    the encoder's shape at "highest"."""
+    """Attention at the main paths' shapes: GPT-2 (B 2, S 1024, H 12, D 64,
+    causal, bf16) with [Q|K|V] packed as qkv-merge leaves it; the serving
+    prefill (B 8, S 512, H 12, D 64, causal, bf16) with split q/k/v, as
+    the engine passes them (the LLaMA GQA configuration's key too, once its
+    KV heads are repeated); the encoder (B 8, S 256, H 8, D 128,
+    non-causal, f32 "default", packed), and its shape at "highest"."""
     from tpp_mlir_tpu_torch.xsmm import FlashMhaKey
     return [
         ("attn gpt2 b2 s1024 h12 d64 causal bf16", FlashMhaKey(
             2, 1024, 1024, 64, "bf16", scale=0.125, causal=True, heads=12,
             qkv_packed=True)),
+        ("attn serve b8 s512 h12 d64 causal split", FlashMhaKey(
+            8, 512, 512, 64, "bf16", scale=0.125, causal=True, heads=12)),
         ("attn enc b8 s256 h8 d128 f32", FlashMhaKey(
             8, 256, 256, 128, "f32", scale=128 ** -0.5, heads=8,
             qkv_packed=True)),
@@ -283,11 +343,18 @@ def _attention_cases():
 
 
 def _attention_inputs(key, g):
+    """The packed (B, S, 3E) operand (passed thrice, as the executor does),
+    or three separate (B, S, E) tensors for split q/k/v."""
     import torch
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
-    x = torch.randn(key.batch, key.seq, 3 * key.heads * key.head_dim,
-                    generator=g, device="cuda").to(dt)
-    return x, x, x
+    E = key.heads * key.head_dim
+    if key.qkv_packed:
+        x = torch.randn(key.batch, key.seq, 3 * E, generator=g,
+                        device="cuda").to(dt)
+        return x, x, x
+    return tuple(torch.randn(key.batch, s, E, generator=g,
+                             device="cuda").to(dt)
+                 for s in (key.seq, key.seq_kv, key.seq_kv))
 
 
 def _layer_norm_cases():
@@ -304,6 +371,81 @@ def _layer_norm_inputs(key, g):
             torch.randn(key.n, generator=g, device="cuda"))
 
 
+def _decode_attn_cases():
+    """Decode attention at the serving geometry (B 8, 12 heads, S 1024,
+    D 64, the stacked 12-layer cache read at layer 5, pos 639 = prompt 512
+    + 127 steps) and its variants."""
+    from tpp_mlir_tpu_torch.xsmm import DecodeAttnKey
+    geo = dict(batch=8, seq=1024, head_dim=64, stacked=12)
+    return [
+        ("mha b8 h12 s1024 d64 bf16", DecodeAttnKey(heads=12, **geo)),
+        ("slotted, one sentinel", DecodeAttnKey(heads=12, slotted=True,
+                                                **geo)),
+        ("gqa kv4 g3", DecodeAttnKey(heads=4, groups=3, **geo)),
+        ("int8 kv", DecodeAttnKey(heads=12, kv_quant=True, **geo)),
+        ("pack2", DecodeAttnKey(heads=12, pack2=True, **geo)),
+        ("mha f32", DecodeAttnKey(heads=12, dtype="f32", **geo)),
+    ]
+
+
+def _decode_attn_inputs(key, g):
+    """q, the stacked K/V cache (normal values, or int8 payloads with
+    scales as quantize_tokens makes them), pos, the layer index 5, and the
+    int8 cache's scales."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
+    if key.pack2:
+        q_shape, slab = (B, H // 2, 2 * D), (key.stacked, B, H // 2, S, 2 * D)
+    else:
+        q_shape = (B, H, D) if G == 1 else (B, H, G, D)
+        slab = (key.stacked, B, H, S, D)
+    q = torch.randn(q_shape, generator=g, device="cuda").to(dt)
+    k = torch.randn(slab, generator=g, device="cuda")
+    v = torch.randn(slab, generator=g, device="cuda")
+    k_s = v_s = None
+    if key.kv_quant:
+        from tpp_mlir_tpu_torch.serving import quantize_tokens
+        (k, k_s), (v, v_s) = quantize_tokens(k), quantize_tokens(v)
+    else:
+        k, v = k.to(dt), v.to(dt)
+    # slotted: rows at their own positions, one free slot (pos == S)
+    pos = [639, S, 0, 511, S - 1, 100, 639, 300] if key.slotted else [639]
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return q, k, v, pos, 5, k_s, v_s
+
+
+def _int8_cases():
+    """The int8 GEMMs of the int8 prefill (B 8 x S 512 = 4096 rows): QKV and
+    the out projection, fc1 + gelu, fc2, the LM head; and a ragged m."""
+    from tpp_mlir_tpu_torch.xsmm import Int8GemmKey
+    return [
+        ("qkv/wo 4096x768x768 +bias", Int8GemmKey(
+            m=4096, n=768, k=768, has_bias=True)),
+        ("fc1 4096x3072x768 +bias+gelu", Int8GemmKey(
+            m=4096, n=3072, k=768, has_bias=True, unary_kind="gelu")),
+        ("fc2 4096x768x3072 +bias", Int8GemmKey(
+            m=4096, n=768, k=3072, has_bias=True)),
+        ("lm head 4096x50304x768", Int8GemmKey(m=4096, n=50304, k=768)),
+        ("ragged 33x768x768 +bias+gelu", Int8GemmKey(
+            m=33, n=768, k=768, has_bias=True, unary_kind="gelu")),
+    ]
+
+
+def _int8_inputs(key, g):
+    """Activations quantized per row and weights per column, as the engine
+    makes them (quantize_tokens, quantize), and a bf16 bias."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import quantize, quantize_tokens
+    xq, xs = quantize_tokens(torch.randn(key.m, key.k, generator=g,
+                                         device="cuda"))
+    w = quantize(torch.randn(key.k, key.n, generator=g, device="cuda")
+                 * key.k ** -0.5)
+    bias = torch.randn(key.n, generator=g, device="cuda").to(torch.bfloat16)
+    return (xq, w.q, xs, w.scale) + ((bias,) if key.has_bias else ())
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version on the same inputs."""
     import torch
@@ -317,7 +459,9 @@ def phase_kernels() -> dict:
             ("brgemm", _ln_gemm_cases(), _ln_gemm_inputs),
             ("chain", _chain_cases(), _chain_inputs),
             ("attention", _attention_cases(), _attention_inputs),
-            ("layer_norm", _layer_norm_cases(), _layer_norm_inputs)):
+            ("layer_norm", _layer_norm_cases(), _layer_norm_inputs),
+            ("decode_attn", _decode_attn_cases(), _decode_attn_inputs),
+            ("int8_gemm", _int8_cases(), _int8_inputs)):
         worst = stats.get(kind, {}).get("max_abs_err", 0.0)
         for label, key in cases:
             args = make(key, g)
@@ -378,7 +522,8 @@ def _module(flags: str):
 
 
 KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
-         "FlashMhaKey": "attention", "LayerNormKey": "layer_norm"}
+         "FlashMhaKey": "attention", "LayerNormKey": "layer_norm",
+         "DecodeAttnKey": "decode_attn", "Int8GemmKey": "int8_gemm"}
 
 
 def _launches(cache) -> dict:
@@ -488,6 +633,140 @@ def phase_transformer_path() -> dict:
     return total
 
 
+def _serving_setup(kw: dict, llama: bool, quant: bool):
+    """(cfg, params, ids) on the card: random weights and prompt ids from
+    seed 0, as tools/tpp_serve.py makes them."""
+    from tpp_mlir_tpu_torch.tools.tpp_serve import setup
+    return setup(dict(kw, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+                      llama=llama, quant=quant), device="cuda")
+
+
+def _kernels_off(cfg):
+    """The same engine with no hand-written kernel: composed prefill
+    attention, einsum decode attention, the int8 GEMM's plain version."""
+    return dataclasses.replace(cfg, decode_attn="xla")
+
+
+def _prefill_composed_attention(cfg, params, ids):
+    """Prefill logits with the kernels on but the composed attention in
+    B7's place."""
+    from tpp_mlir_tpu_torch.serving import engine
+    full = engine._attention_full
+    engine._attention_full = lambda q, k, v, c, kernels: full(q, k, v, c,
+                                                              False)
+    try:
+        return engine.make_prefill(cfg)(params, ids)[0]
+    finally:
+        engine._attention_full = full
+
+
+def phase_serving_path() -> tuple[dict, list]:
+    """The three serving configurations through make_generate on the card,
+    each with the launch counts set to 0 just before its eager generate and
+    read just after; then its CUDA-graph generate and the logits against
+    the kernels-off engine (prefill, and teacher-forced decode over the
+    kernel run's own tokens). Returns the launches and the setups."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (make_decode_step, make_generate,
+                                            make_prefill)
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    total: dict[str, int] = {}
+    setups = []
+    for label, kw, llama, quant, steps in SERVING:
+        t0 = time.perf_counter()
+        cfg, params, ids = _serving_setup(kw, llama, quant)
+        cache.reset_launches()
+        toks = make_generate(cfg, steps, graph=False)(params, ids)
+        torch.cuda.synchronize()
+        launches = _launches(cache)
+        want = {"attention": cfg.layers,
+                "decode_attn": cfg.layers * (steps - 1),
+                "int8_gemm": 6 * cfg.layers + 1 if cfg.int8_compute else 0}
+        graphed = make_generate(cfg, steps)(params, ids)
+        same = torch.equal(graphed, toks)
+        off = _kernels_off(cfg)
+        la, ca = make_prefill(cfg)(params, ids)
+        lb, cb = make_prefill(off, use_kernels=False)(params, ids)
+        finite = torch_isfinite(la)
+        rel_p, _ = rel_err(la, lb)
+        del la
+        # the witness of B7's share: the kernels-on prefill with the
+        # composed attention in its place differs from the kernels-off one
+        # only by the other prefill kernel, B15 (0 without int8 compute)
+        rel_w, _ = rel_err(_prefill_composed_attention(cfg, params, ids), lb)
+        del lb
+        step_a = make_decode_step(cfg)
+        step_b = make_decode_step(off, use_kernels=False)
+        rel_d, agree = 0.0, 0
+        for t in range(steps - 1):
+            la, ca = step_a(params, ca, toks[:, t])
+            lb, cb = step_b(params, cb, toks[:, t])
+            finite = finite and torch_isfinite(la)
+            rel_d = max(rel_d, rel_err(la, lb)[0])
+            agree += int((lb.argmax(-1).to(torch.int32)
+                          == toks[:, t + 1]).sum())
+        ok = (all(launches[k] == n for k, n in want.items()) and same
+              and finite and max(rel_p, rel_w, rel_d) <= TOL_MODEL
+              and tuple(toks.shape) == (SERVE_BATCH, steps))
+        say(f"main {label}: generate {tuple(toks.shape)} (b{SERVE_BATCH} "
+            f"prompt {SERVE_PROMPT}); eager launches {launches} (want "
+            f"{want}); graph tokens == eager {same}; logits finite {finite}"
+            f"; vs kernels off: prefill rel {rel_p:.3e} (composed attention"
+            f" in B7's place {rel_w:.3e}), teacher-forced "
+            f"decode rel {rel_d:.3e} (tol {TOL_MODEL:.0e}); greedy tokens "
+            f"agreeing {agree / (SERVE_BATCH * (steps - 1)):.3f} (for "
+            f"information) ({time.perf_counter() - t0:.1f} s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: launches {launches} (want "
+                                 f"{want}), graph == eager {same}, finite "
+                                 f"{finite}, rel {rel_p} / {rel_w} / "
+                                 f"{rel_d}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        setups.append((label, cfg, params, ids, steps))
+        del ca, cb
+    return total, setups
+
+
+def phase_serving_timing(setups) -> None:
+    """Per configuration, for the kernels and the kernels-off engine: the
+    prefill (B 8 x 512, CUDA events), the decode step eager and replayed
+    from a CUDA graph (32 steps from the prompt's end), tokens/s of the
+    replayed decode; then a torch.profiler trace of 8 decode steps."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (DecodeRunner, make_decode_step,
+                                            make_prefill)
+    from tpp_mlir_tpu_torch.tools.trace import print_trace, trace_serving
+    for label, cfg, params, ids, steps in setups:
+        n = min(steps - 1, 32)
+        for engine, c, uk in (("kernels", cfg, None),
+                              ("kernels off", _kernels_off(cfg), False)):
+            prefill, step = make_prefill(c, uk), make_decode_step(c, uk)
+            p_ms = cuda_ms(lambda: prefill(params, ids), iters=3, warmup=1)
+            logits, kv = prefill(params, ids)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+            del logits
+            eager = DecodeRunner(step, params, kv, tok, graph=False)
+            e_ms = cuda_ms(lambda: eager.repeat(tok, n), iters=1,
+                           warmup=1) / n
+            eager.reset()
+            replay = DecodeRunner(step, params, kv, tok, graph=True)
+            g_ms = cuda_ms(lambda: replay.repeat(tok, n), iters=3,
+                           warmup=1) / n
+            say(f"time serve {label} {engine}: prefill b{SERVE_BATCH} "
+                f"s{SERVE_PROMPT} {p_ms:.4f} ms "
+                f"({SERVE_BATCH * SERVE_PROMPT / p_ms * 1e3:.1f} tokens/s); "
+                f"decode eager {e_ms:.4f} ms/step, graph {g_ms:.4f} ms/step "
+                f"({SERVE_BATCH / g_ms * 1e3:.1f} tokens/s)")
+            del kv, eager, replay
+        print_trace(trace_serving(cfg, params, ids, 8),
+                    label=f"trace {label} ")
+
+
 def torch_isfinite(t) -> bool:
     import torch
     return bool(torch.isfinite(t.float()).all())
@@ -572,19 +851,32 @@ def phase_timing(n: int = 100) -> dict:
     cases += [("brgemm", key, _ln_gemm_inputs)
               for _, key in _ln_gemm_cases()[:2]]
     cases += [("attention", key, _attention_inputs)
-              for _, key in _attention_cases()[:2]]
+              for _, key in _attention_cases()[:3]]
     cases += [("layer_norm", key, _layer_norm_inputs)
               for _, key in _layer_norm_cases()]
+    cases += [("decode_attn", key, _decode_attn_inputs)
+              for _, key in _decode_attn_cases()[:4]]
+    cases += [("int8_gemm", key, _int8_inputs)
+              for _, key in _int8_cases()[:4]]
     from tpp_mlir_tpu_torch.tools.trace import describe
     for kind, key, make in cases:
         args = make(key, g)
         kern, plain = build_kernel(key), reference_kernel(key)
         ms, plain_ms = cuda_ms(lambda: kern(*args)), \
             cuda_ms(lambda: plain(*args))
+        note = ""
+        if kind in ("decode_attn", "int8_gemm"):
+            # the serving kernels run inside the decode step's CUDA graph:
+            # their line and the kernel table take graph-replayed times
+            note = (f" replayed from a CUDA graph (launched one by one: "
+                    f"{ms:.4f} ms, plain version {plain_ms:.4f} ms)")
+            ms = graph_ms(lambda: kern(*args))
+            plain_ms = graph_ms(lambda: plain(*args))
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms{note}")
         # the kernel line keeps the first shape of each kind: the MLP's f32
-        # fc for brgemm, the bf16 flagship chain, GPT-2's attention and ln_f
+        # fc for brgemm, the bf16 flagship chain, GPT-2's attention and
+        # ln_f, the serving decode attention (MHA) and the int8 QKV GEMM
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms})
     return out
 
@@ -604,7 +896,11 @@ def main() -> int:
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
+    serve_launches, setups = phase_serving_path()
+    for kind, n in serve_launches.items():
+        launches[kind] += n
     timing = phase_timing()
+    phase_serving_timing(setups)
     kernels = []
     for kind, src, replaces in (
             ("brgemm", "tpp_mlir_tpu_torch/csrc/brgemm.cu",
@@ -614,7 +910,11 @@ def main() -> int:
             ("attention", "tpp_mlir_tpu_torch/csrc/attention.cu",
              "tpp_mlir_tpu/xsmm/kernels.py:2232"),
             ("layer_norm", "tpp_mlir_tpu_torch/csrc/layer_norm.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:3257")):
+             "tpp_mlir_tpu/xsmm/kernels.py:3257"),
+            ("decode_attn", "tpp_mlir_tpu_torch/csrc/decode_attn.cu",
+             "tpp_mlir_tpu/xsmm/decode_attn.py:101"),
+            ("int8_gemm", "tpp_mlir_tpu_torch/csrc/int8_gemm.cu",
+             "tpp_mlir_tpu/xsmm/kernels.py:1365")):
         kernels.append({"name": kind, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": launches[kind],

@@ -27,9 +27,10 @@ from tpp_mlir_tpu.ir import parse_module
 from tpp_mlir_tpu.models.mlp import MlpConfig
 from tpp_mlir_tpu.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
-from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, FlashMhaKey,
-                                     LayerNormKey, build_kernel,
-                                     global_cache, reference_kernel)
+from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, DecodeAttnKey,
+                                     FlashMhaKey, Int8GemmKey, LayerNormKey,
+                                     build_kernel, global_cache,
+                                     reference_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,8 +157,9 @@ def test_ln_prologue_gemm_matches_plain(cuda, key):
                 qkv_packed=True, strategy="tokens"),
     FlashMhaKey(1, 64, 64, 128, "f32", scale=128 ** -0.5, precision="highest",
                 heads=1, qkv_packed=True),
+    FlashMhaKey(2, 128, 128, 64, "bf16", scale=0.125, causal=True, heads=3),
 ], ids=["bf16-causal-packed-d64", "f32-ragged-d128", "highest-causal-skv",
-        "bf16-packed-d32", "highest-packed-d128"])
+        "bf16-packed-d32", "highest-packed-d128", "bf16-causal-split-d64"])
 def test_attention_kernel_matches_plain(cuda, key):
     g = cuda
     E = key.heads * key.head_dim
@@ -230,3 +232,132 @@ def test_trace_sees_the_chain_kernel(cuda):
         r = res[region]
         assert 0.0 <= r["idle_share"] < 1.0 and r["busy_ms"] > 0.0
         assert any("chain" in name for _, name in r["shares"])
+
+
+# -- the serving kernels (B13 decode attention, B15 int8 GEMM) --------------
+
+@pytest.mark.parametrize("key,pos", [
+    (DecodeAttnKey(4, 6, 256, 64, "bf16", stacked=3), [200]),
+    (DecodeAttnKey(4, 6, 256, 64, "bf16", slotted=True, stacked=3),
+     [0, 256, 100, 255]),
+    (DecodeAttnKey(4, 2, 256, 64, "bf16", groups=3, stacked=3), [130]),
+    (DecodeAttnKey(4, 6, 256, 64, "bf16", kv_quant=True, stacked=3), [77]),
+    (DecodeAttnKey(4, 6, 256, 64, "bf16", pack2=True, stacked=3), [199]),
+    (DecodeAttnKey(2, 2, 128, 128, "f32", groups=8, kv_quant=True,
+                   stacked=3), [127]),
+    (DecodeAttnKey(2, 4, 64, 32, "f32", stacked=3), [40]),
+], ids=["mha-bf16", "slotted-sentinel", "gqa-g3", "int8-kv", "pack2",
+        "d128-g8-f32-int8", "d32-f32"])
+def test_decode_attn_kernel_matches_plain(cuda, key, pos):
+    """1e-4: the kernel and its plain version compute in f32 from the same
+    values and differ in summation order only."""
+    g = cuda
+    B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
+    if key.pack2:
+        q_shape, slab = (B, H // 2, 2 * D), (3, B, H // 2, S, 2 * D)
+    else:
+        q_shape = (B, H, D) if G == 1 else (B, H, G, D)
+        slab = (3, B, H, S, D)
+    q = _rnd(g, q_shape, key.dtype)
+    kw = {}
+    if key.kv_quant:
+        k = torch.randint(-127, 128, slab, generator=g, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, slab, generator=g, device="cuda",
+                          dtype=torch.int8)
+        kw = {n: torch.rand(slab[:4], generator=g, device="cuda") * 0.02
+              for n in ("k_s", "v_s")}
+    else:
+        k, v = _rnd(g, slab, key.dtype), _rnd(g, slab, key.dtype)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    kern = build_kernel(key)
+    got = kern(q, k, v, pos, 1, **kw)
+    want = reference_kernel(key)(q, k, v, pos, 1, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and got.shape == want.shape
+    assert _err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("key", [
+    Int8GemmKey(m=256, n=384, k=768, has_bias=True),
+    Int8GemmKey(m=33, n=200, k=64, has_bias=True, unary_kind="gelu",
+                out_dtype="bf16"),
+    Int8GemmKey(m=128, n=50304, k=128),
+], ids=["bias-f32", "ragged-gelu-bf16", "lm-head-width"])
+def test_int8_gemm_kernel_matches_plain(cuda, key):
+    """The s32 product is exact on both sides and the epilogue runs the same
+    f32 operations in the same order: 1e-5 for an f32 output, 1e-2 for
+    bf16."""
+    g = cuda
+    xq = torch.randint(-127, 128, (key.m, key.k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (key.k, key.n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    args = [xq, wq, torch.rand(key.m, generator=g, device="cuda") * 0.01,
+            torch.rand(1, key.n, generator=g, device="cuda") * 0.01]
+    if key.has_bias:
+        args.append(_rnd(g, (key.n,), "bf16"))
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-5 if key.out_dtype == "f32" else 1e-2)
+
+
+def _serving_model(kv_quant=None, **kw):
+    from tpp_mlir_tpu_torch.serving import GptConfig, init_params
+    cfg = GptConfig(vocab=512, embed=256, heads=4, layers=2, max_seq=128,
+                    dtype="bf16", kv_quant=kv_quant, **kw)
+    return cfg, init_params(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_generate_graph_replay_equals_eager(cuda, kv_quant):
+    from tpp_mlir_tpu_torch.serving import make_generate
+    cfg, params = _serving_model(kv_quant)
+    ids = torch.randint(0, cfg.vocab, (4, 32), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    cache = global_cache()
+    cache.reset_launches()
+    eager = make_generate(cfg, 8, graph=False)(params, ids)
+    counts = cache.launches_by_kind()
+    assert counts["DecodeAttnKey"] == cfg.layers * 7
+    assert counts["FlashMhaKey"] == cfg.layers
+    graphed = make_generate(cfg, 8)(params, ids)
+    assert torch.equal(graphed, eager)
+
+
+def test_serving_kernels_match_the_kernels_off_engine(cuda):
+    """Prefill (B7 + B15) and decode (B13) through the kernels against the
+    same engine on its composed and einsum paths, teacher-forced."""
+    import dataclasses
+
+    from tpp_mlir_tpu_torch.serving import (make_decode_step, make_prefill,
+                                            quantize_params)
+    cfg, params = _serving_model("int8", int8_compute=True)
+    params = quantize_params(params)
+    off = dataclasses.replace(cfg, decode_attn="xla")
+    ids = torch.randint(0, cfg.vocab, (4, 40), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    la, ca = make_prefill(cfg)(params, ids[:, :32])
+    lb, cb = make_prefill(off, use_kernels=False)(params, ids[:, :32])
+    assert _err(la, lb) <= 3e-2
+    for t in range(32, 40):
+        la, ca = make_decode_step(cfg)(params, ca, ids[:, t])
+        lb, cb = make_decode_step(off, use_kernels=False)(params, cb,
+                                                          ids[:, t])
+        assert _err(la, lb) <= 3e-2
+
+
+def test_trace_serving_sees_the_decode_kernel(cuda):
+    from tpp_mlir_tpu_torch.tools.trace import trace_serving
+    cfg, params = _serving_model()
+    ids = torch.randint(0, cfg.vocab, (2, 16), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    res = trace_serving(cfg, params, ids, steps=3)
+    graph = res["decode graph (3 steps)"]
+    assert 0.0 <= graph["idle_share"] < 1.0 and graph["busy_ms"] > 0.0
+    assert any("decode_attn" in name for _, name in graph["shares"])
+    assert any("attention_kernel" in name for _, name in
+               res["prefill"]["shares"])

@@ -5,6 +5,7 @@ import dataclasses
 
 import pytest
 
+import tpp_mlir_tpu.xsmm.decode_attn as decode_attn
 import tpp_mlir_tpu.xsmm.flags as ref_flags
 import tpp_mlir_tpu_torch.xsmm.flags as port_flags
 
@@ -14,9 +15,12 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["BrgemmKey", "ChainKey", "FlashMhaKey",
-                                  "LayerNormKey", "UnaryKey", "BinaryKey"])
+                                  "LayerNormKey", "UnaryKey", "BinaryKey",
+                                  "DecodeAttnKey", "Int8GemmKey"])
 def test_key_copy_matches_reference(name):
-    port, ref = getattr(port_flags, name), getattr(ref_flags, name)
+    port = getattr(port_flags, name)
+    ref = getattr(decode_attn if name == "DecodeAttnKey" else ref_flags,
+                  name)
     assert _fields(port) == _fields(ref)
     assert port.__dataclass_params__.frozen and ref.__dataclass_params__.frozen
 

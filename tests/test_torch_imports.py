@@ -1,4 +1,5 @@
-"""The port imports torch and never JAX, Triton or ml_dtypes.
+"""The port (the serving slice and tpp_serve included) imports torch and
+never JAX, Triton or ml_dtypes.
 
 The check runs in a subprocess because this test process already holds JAX
 (tests/conftest.py imports it)."""
@@ -37,6 +38,16 @@ res = run_entry({"model": 'gpt:{"batch": 1, "seq": 16, "vocab": 64, '
 assert res["lowered"]["outputs"][0].shape == (1, 16, 64)
 ops = {op.opname for op in res["lowered"]["module"]["entry"].ops}
 assert {"xsmm.attention", "xsmm.layer_norm", "xsmm.gemm"} <= ops, ops
+# the serving slice: engine, quantizers and tpp_serve
+import torch
+from tpp_mlir_tpu_torch.serving import (GptConfig, init_params, make_generate,
+                                        quantize_params)
+from tpp_mlir_tpu_torch.tools import tpp_serve
+cfg = GptConfig(vocab=64, embed=32, heads=2, layers=1, max_seq=40,
+                kv_quant="int8", int8_compute=True)
+toks = make_generate(cfg, 3)(quantize_params(init_params(cfg)),
+                             torch.zeros(1, 32, dtype=torch.int32))
+assert toks.shape == (1, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "ml_dtypes"))
 print("LOADED", bad)

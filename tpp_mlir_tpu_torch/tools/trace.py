@@ -6,7 +6,13 @@
       "seq": 1024, "dtype": "bf16"}' --iters 5
 
 `--model` takes the bench driver's `model:` entry (an imported model,
-which cannot go through IR text).
+which cannot go through IR text). `--serve` traces the serving engine
+instead: one prefill, `--iters` eager decode steps and the same steps
+replayed from a CUDA graph, each with its kernels' device ms
+(`trace_serving`):
+
+  python -m tpp_mlir_tpu_torch.tools.trace --serve '{"batch": 8,
+      "prompt": 512, "max_seq": 1024, "dtype": "bf16"}' --iters 8
 
 Lowers the module with default-tpp-passes, warms it up, then traces two
 regions on the card and prints one line each:
@@ -32,8 +38,8 @@ import torch
 
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
-from ..xsmm import (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
-                    global_cache)
+from ..xsmm import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
+                    Int8GemmKey, LayerNormKey, global_cache)
 from .bench_driver import build_module
 from .tpp_run import init_args, load_module, resolve_device, wrap_bench_main
 
@@ -69,7 +75,8 @@ def device_breakdown(fn) -> dict:
                     reverse=True)
     return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / span if span else 0.0,
-            "shares": shares}
+            "kernels": len(spans), "shares": shares,
+            "ms": {n: t / 1e3 for n, t in per_name.items()}}
 
 
 TOP = 8     # device activities listed per region
@@ -91,6 +98,16 @@ def describe(key) -> str:
                 f"{' causal' if key.causal else ''}")
     if isinstance(key, LayerNormKey):
         return f"layer_norm {key.m}x{key.n} {key.dtype}"
+    if isinstance(key, DecodeAttnKey):
+        extra = "".join(f" {x}" for x, on in (
+            (f"g{key.groups}", key.groups > 1), ("int8kv", key.kv_quant),
+            ("pack2", key.pack2), ("slotted", key.slotted)) if on)
+        return (f"decode_attn b{key.batch} kvh{key.heads} s{key.seq} "
+                f"d{key.head_dim} {key.dtype}{extra}")
+    if isinstance(key, Int8GemmKey):
+        extra = "".join(f" +{x}" for x, on in (
+            ("bias", key.has_bias), (key.unary_kind, key.unary_kind)) if on)
+        return f"int8_gemm {key.m}x{key.n}x{key.k} {key.out_dtype}{extra}"
     return type(key).__name__
 
 
@@ -103,11 +120,11 @@ def invoke_times(fn, args, iters: int) -> list[tuple[str, int, float]]:
     saved = [(k, k._launch) for k in kernels]
 
     def timed(launch, key):
-        def run(*a):
+        def run(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = launch(*a)
+            out = launch(*a, **kw)
             stop.record()
             records.append((key, start, stop))
             return out
@@ -150,6 +167,50 @@ def trace_module(module, func_name: str = "entry", iters: int = 20,
     return out
 
 
+def trace_serving(cfg, params, ids, steps: int = 8) -> dict:
+    """The serving engine on the card: device breakdowns of one prefill, of
+    `steps` eager decode steps and of the same steps replayed from a CUDA
+    graph (from the prompt's end each time). Each region's device ms per
+    kernel name come from the profiler's spans: the eager regions are
+    host-bound, so CUDA events around launches would time the host's gaps
+    too."""
+    from ..serving import DecodeRunner, make_decode_step, make_prefill
+
+    if not ids.is_cuda:
+        raise RuntimeError("trace reads device time: it needs CUDA tensors")
+    prefill, step = make_prefill(cfg), make_decode_step(cfg)
+    logits, cache = prefill(params, ids)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    eager = DecodeRunner(step, params, cache, tok, graph=False)
+    eager(tok)          # warm-up: builds the decode kernels
+    out = {"prefill": device_breakdown(lambda: prefill(params, ids)),
+           "decode eager": device_breakdown(lambda: eager.repeat(tok, steps))}
+    eager.reset()
+    graphed = DecodeRunner(step, params, cache, tok, graph=True)
+    out["decode graph"] = device_breakdown(
+        lambda: graphed.repeat(tok, steps))
+    return {f"{region} ({steps} steps)" if "decode" in region else region: r
+            for region, r in out.items()}
+
+
+def print_trace(res: dict, label: str = "") -> None:
+    """One line per profiled region (its largest device activities: share
+    of the busy time and device ms), then one per kernel key."""
+    for region, r in res.items():
+        if region == "invokes":
+            continue
+        top = ", ".join(f"{name[:48]} {share:.3f} ({r['ms'][name]:.3f} ms)"
+                        for share, name in r["shares"][:TOP])
+        print(f"{label}{region}: span {r['span_ms']:.3f} ms, busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
+              f"{r['kernels']} device activities; {top}")
+    rows = res.get("invokes", [])
+    total = sum(ms for _, _, ms in rows) or 1.0
+    for name, n, ms in rows:
+        print(f"{label}invoke {name:44s} {n:3d} launches "
+              f"{ms:9.4f} ms share {ms / total:.3f} (per forward)")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="trace (torch)", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -164,7 +225,19 @@ def main(argv=None) -> int:
     p.add_argument("--pipeline", default="default-tpp-passes")
     p.add_argument("--device", default="cuda")
     p.add_argument("--label", default="", help="prefix of each line")
+    p.add_argument("--serve", help="a JSON object of GptConfig fields (and "
+                                   "batch, prompt, seed, llama, quant): "
+                                   "trace the serving engine")
     args = p.parse_args(argv)
+    if args.serve:
+        import json
+        if resolve_device(args.device).type != "cuda":
+            raise RuntimeError("trace reads device time: it needs --device "
+                               "cuda")
+        from .tpp_serve import setup
+        cfg, params, ids = setup(json.loads(args.serve))
+        print_trace(trace_serving(cfg, params, ids, args.iters), args.label)
+        return 0
     if args.model:
         module = build_module({"model": args.model})
     else:
@@ -172,17 +245,7 @@ def main(argv=None) -> int:
                              else open(args.input).read())
     res = trace_module(module, args.entry, args.iters, args.n, args.device,
                        args.pipeline)
-    invokes = res.pop("invokes")
-    for region, r in res.items():
-        top = ", ".join(f"{name[:48]} {share:.3f}" for share, name in
-                        r["shares"][:TOP])
-        print(f"{args.label}{region}: span {r['span_ms']:.3f} ms, busy "
-              f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}; "
-              f"{top}")
-    total = sum(ms for _, _, ms in invokes)
-    for name, n, ms in invokes:
-        print(f"{args.label}invoke {name:44s} {n:3d} launches "
-              f"{ms:9.4f} ms share {ms / total:.3f} (per forward)")
+    print_trace(res, args.label)
     return 0
 
 

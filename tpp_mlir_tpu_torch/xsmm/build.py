@@ -39,6 +39,8 @@ _SIGNATURES = {
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_I)] + [_I] * 10 + [_P]),
+    "tpp_decode_attn": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
+    "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -1,7 +1,8 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
-FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey). They are copies rather
+FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey) and of
+`tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey). They are copies rather
 than imports because importing anything under `tpp_mlir_tpu.xsmm` loads
 JAX, which the port never does.
 `tests/test_torch_flags.py` pins every field name and default to the
@@ -121,3 +122,37 @@ class BinaryKey:
     out_dtype: str | None = None
     bcast_a: str = "none"
     bcast_b: str = "none"
+
+
+@dataclass(frozen=True)
+class DecodeAttnKey:
+    """Key for the single-token (T=1) decode-attention kernel (a copy of
+    `tpp_mlir_tpu/xsmm/decode_attn.py:33`, whose module imports JAX)."""
+
+    batch: int
+    heads: int          # KV heads (== query heads when groups == 1)
+    seq: int
+    head_dim: int
+    dtype: str = "bf16"
+    slotted: bool = False          # pos is (B,) per row instead of a scalar
+    groups: int = 1                # GQA: query heads per KV head
+    stacked: int = 0               # K/V are the full (L, B, H, S, D) cache
+    kv_quant: bool = False         # int8 K/V with (L, B, H, S) f32 scales
+    pack2: bool = False            # two heads per (H/2, S, 2D) cache row
+
+
+@dataclass(frozen=True)
+class Int8GemmKey:
+    """Key for the int8 compute GEMM
+    O = unary((Xq @ Wq) * xscale[m] * wscale[n] [+ bias]): s8 x s8 -> s32,
+    dequantized once on the f32 accumulator."""
+
+    m: int
+    n: int
+    k: int
+    out_dtype: str = "f32"
+    unary_kind: str | None = None
+    has_bias: bool = False
+    bm: int = 0
+    bn: int = 0
+    bk: int = 0

@@ -16,6 +16,9 @@ reached. Each wrapper counts its launches.
   FlashMhaKey  -> csrc/attention.cu  (replaces :2232
                                      _build_flash_mha_tokens; heads > 0)
   LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm)
+  DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
+                                     decode_attn.py:101 build_decode_attn)
+  Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm)
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -27,7 +30,8 @@ import ctypes
 import torch
 
 from . import reference
-from .flags import BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey
+from .flags import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
+                    Int8GemmKey, LayerNormKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -69,14 +73,14 @@ class Kernel:
         self._plain = reference.reference_kernel(key)
         self._launch = launch
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         device = args[0].device
         if device.type == "cpu":
-            return self._plain(*args)
+            return self._plain(*args, **kwargs)
         if device.type != "cuda":
             raise ValueError(f"no kernel for device {device}")
         with torch.cuda.device(device):
-            out = self._launch(*args)
+            out = self._launch(*args, **kwargs)
         self.launches += 1
         return out
 
@@ -259,9 +263,95 @@ def _layer_norm_launch(key: LayerNormKey):
     return launch
 
 
+DECODE_ATTN_HEAD_DIMS = (32, 64, 128)   # decode_attn.cu's instantiations
+DECODE_ATTN_MAX_GROUPS = 8
+_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _decode_attn_launch(key: DecodeAttnKey):
+    from .build import check, library
+
+    B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
+    q_dt = reference.DTYPES[key.dtype]
+    kv_dt = torch.int8 if key.kv_quant else q_dt
+    if key.pack2:
+        q_shape, slab = (B, H // 2, 2 * D), (B, H // 2, S, 2 * D)
+    else:
+        q_shape = (B, H, D) if G == 1 else (B, H, G, D)
+        slab = (B, H, S, D)
+    lead = (key.stacked,) if key.stacked else ()
+
+    def launch(q, k, v, pos, li=None, k_s=None, v_s=None):
+        if D not in DECODE_ATTN_HEAD_DIMS or G > DECODE_ATTN_MAX_GROUPS:
+            raise ValueError(f"decode_attn.cu takes head_dim in "
+                             f"{DECODE_ATTN_HEAD_DIMS} and at most "
+                             f"{DECODE_ATTN_MAX_GROUPS} groups: {key}")
+        dev = q.device
+        _expect(q, "q", q_shape, q_dt, dev)
+        _expect(k, "K", lead + slab, kv_dt, dev)
+        _expect(v, "V", lead + slab, kv_dt, dev)
+        if pos.dtype != torch.int32 or pos.device != dev or \
+                pos.numel() != (B if key.slotted else 1):
+            raise ValueError(f"pos must be int32 on {dev} with "
+                             f"{B if key.slotted else 1} element(s): "
+                             f"{tuple(pos.shape)} {pos.dtype} on {pos.device}")
+        pos = pos.contiguous()
+        if key.kv_quant:
+            _expect(k_s, "k_s", lead + (B, H, S), torch.float32, dev)
+            _expect(v_s, "v_s", lead + (B, H, S), torch.float32, dev)
+        li = int(li) if key.stacked else 0   # a host int: no device read
+        if not 0 <= li < max(key.stacked, 1):
+            raise ValueError(f"layer {li} outside the stacked cache: {key}")
+        out = torch.empty(q_shape, dtype=torch.float32, device=dev)
+        rc = library().tpp_decode_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_s.data_ptr() if key.kv_quant else None,
+            v_s.data_ptr() if key.kv_quant else None, pos.data_ptr(),
+            out.data_ptr(), B, H, S, D, G, li, int(key.slotted),
+            int(key.pack2), _DT_CODE[q_dt], _KV_CODE[kv_dt], D ** -0.5,
+            _stream())
+        check(rc, f"decode_attn {key}")
+        return out
+    return launch
+
+
+def _int8_gemm_launch(key: Int8GemmKey):
+    from .build import check, library
+
+    m, n, k = key.m, key.n, key.k
+    out_dt = reference.DTYPES[key.out_dtype]
+
+    def launch(xq, wq, xscale, wscale, bias=None):
+        if k % 16:
+            raise ValueError(f"int8_gemm.cu needs k a multiple of 16: {key}")
+        dev = xq.device
+        _expect(xq, "Xq", (m, k), torch.int8, dev)
+        _expect(wq, "Wq", (k, n), torch.int8, dev)
+        if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+            raise ValueError("Xq and Wq must be 16-byte aligned")
+        xscale = xscale.reshape(-1).float().contiguous()
+        wscale = wscale.reshape(-1).float().contiguous()
+        _expect(xscale, "xscale", (m,), None, dev)
+        _expect(wscale, "wscale", (n,), None, dev)
+        if key.has_bias:
+            bias = bias.reshape(-1).float().contiguous()
+            _expect(bias, "bias", (n,), None, dev)
+        out = torch.empty((m, n), dtype=out_dt, device=dev)
+        rc = library().tpp_int8_gemm(
+            xq.data_ptr(), wq.data_ptr(), xscale.data_ptr(),
+            wscale.data_ptr(), bias.data_ptr() if key.has_bias else None,
+            out.data_ptr(), m, n, k, _UNARY_CODE[key.unary_kind],
+            _DT_CODE[out_dt], _stream())
+        check(rc, f"int8_gemm {key}")
+        return out
+    return launch
+
+
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              FlashMhaKey: _attention_launch,
-             LayerNormKey: _layer_norm_launch}
+             LayerNormKey: _layer_norm_launch,
+             DecodeAttnKey: _decode_attn_launch,
+             Int8GemmKey: _int8_gemm_launch}
 
 
 def build_kernel(key) -> Kernel:

@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from .flags import BinaryKey, BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey
+from .flags import (BinaryKey, BrgemmKey, ChainKey, DecodeAttnKey,
+                    FlashMhaKey, Int8GemmKey, LayerNormKey)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -37,9 +38,7 @@ _OUTSIDE = {
     "BatchMatmulKey": "queue A13 / B21-B22",
     "ConvBrgemmKey": "queue A13 / B23",
     "ConvNhwcKey": "queue A13 / B24-B25",
-    "DecodeAttnKey": "queue A7 / B13",
     "FlashTrainKey": "queue A10 / B14, B18",
-    "Int8GemmKey": "queue A7 / B15",
     "GroupedGemmKey": "queue A9 / B16",
     "GroupedWgradKey": "queue A9 / B17",
 }
@@ -53,11 +52,21 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
 def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
-    if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey)):
+    if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
+                            DecodeAttnKey, Int8GemmKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
             f"{_OUTSIDE.get(name, 'queue A')}")
+    if isinstance(key, DecodeAttnKey):
+        _check_decode_attn(key)
+        return
+    if isinstance(key, Int8GemmKey):
+        if key.out_dtype not in DTYPES:
+            raise _refuse(f"dtype {key.out_dtype!r}", "A14 (f16 keys)", key)
+        if key.unary_kind not in (None, *UNARY_FNS):
+            raise ValueError(f"unknown unary {key.unary_kind!r}")
+        return
     for dt in (key.dtype, key.out_dtype or key.dtype):
         if dt not in DTYPES:
             raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
@@ -303,9 +312,88 @@ def binary_reference(key: BinaryKey):
                            prep(b, key.bcast_b)).to(out_dt)
 
 
+def _check_decode_attn(key: DecodeAttnKey) -> None:
+    """The variants decode_attn.py accepts (its asserts, :113-115, :280)."""
+    if key.dtype not in DTYPES:
+        raise _refuse(f"dtype {key.dtype!r}", "A14 (f16 keys)", key)
+    if key.groups < 1:
+        raise ValueError(f"groups must be >= 1: {key}")
+    if key.pack2 and (key.groups != 1 or key.kv_quant or key.heads % 2):
+        raise ValueError(f"pack2 is MHA with an even head count and "
+                         f"bf16/f32 KV only: {key}")
+
+
+def decode_attn_reference(key: DecodeAttnKey):
+    """Single-token attention over the KV cache, with build_decode_attn's
+    math (tpp_mlir_tpu/xsmm/decode_attn.py:120-160), all in f32:
+    s = sum_d k*q * D^-0.5 [* K scale], -1e30 where s > pos, exp(s - max)
+    normalized [* V scale], out = sum_s p*v.
+
+    fn(q, k, v, pos, li=None, k_s=None, v_s=None) -> f32 out. q is (B, H, D),
+    (B, H, G, D) for groups G > 1, or (B, H/2, 2D) for pack2; k/v are the
+    full stacked (L, B, H, S, D) cache when `stacked` (layer li), else one
+    layer's (B, H, S, D) (pack2: (.., H/2, S, 2D)); pos is an int32 scalar
+    or (B,) tensor (S, the free-slot sentinel, makes every row live);
+    k_s/v_s the (L, B, H, S) [or (B, H, S)] f32 scales of an int8 cache."""
+    check_slice(key)
+    B, H, S, D, G = (key.batch, key.heads, key.seq, key.head_dim,
+                     key.groups)
+    scale = D ** -0.5
+
+    def fn(q, k, v, pos, li=None, k_s=None, v_s=None):
+        if key.stacked:
+            k, v = k[li], v[li]
+            if key.kv_quant:
+                k_s, v_s = k_s[li], v_s[li]
+        if key.pack2:        # head h at slot h//2, lanes (h%2)*D
+            qf = q.float().reshape(B, H, 1, D)
+            kf, vf = (t.float().reshape(B, H // 2, S, 2, D).transpose(2, 3)
+                      .reshape(B, H, S, D) for t in (k, v))
+        else:
+            qf = q.float().reshape(B, H, G, D)
+            kf, vf = k.float(), v.float()
+        s = (kf[:, :, None] * qf[:, :, :, None]).sum(-1) * scale  # (B,H,G,S)
+        if key.kv_quant:
+            s = s * k_s.float()[:, :, None]
+        p_live = torch.as_tensor(pos, device=q.device).reshape(-1, 1, 1, 1)
+        live = torch.arange(S, device=q.device) <= p_live
+        s = torch.where(live, s, torch.full_like(s, -1e30))
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        if key.kv_quant:
+            p = p * v_s.float()[:, :, None]
+        out = (p[..., None] * vf[:, :, None]).sum(-2)            # (B,H,G,D)
+        if key.pack2:
+            return out.reshape(B, H // 2, 2 * D)
+        return out[:, :, 0] if G == 1 else out
+    return fn
+
+
+def int8_gemm_reference(key: Int8GemmKey):
+    """(xq @ wq) exactly, then * xscale[m] * wscale[n] (+ bias) in f32, the
+    unary, one rounding (tpp_mlir_tpu/xsmm/kernels.py:1422-1430). The s32
+    sum is taken in f64, where every such sum is exact, and its rounding to
+    f32 is the kernel's int32 -> f32 conversion."""
+    check_slice(key)
+    m, n = key.m, key.n
+    out_dt = DTYPES[key.out_dtype]
+
+    def fn(xq, wq, xscale, wscale, bias=None):
+        acc = (xq.double() @ wq.double()).float()
+        y = acc * xscale.reshape(m, 1).float() * wscale.reshape(1, n).float()
+        if key.has_bias:
+            y = y + bias.reshape(1, n).float()
+        if key.unary_kind:
+            y = UNARY_FNS[key.unary_kind](y)
+        return y.to(out_dt)
+    return fn
+
+
 _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                FlashMhaKey: attention_reference,
-               LayerNormKey: layer_norm_reference}
+               LayerNormKey: layer_norm_reference,
+               DecodeAttnKey: decode_attn_reference,
+               Int8GemmKey: int8_gemm_reference}
 
 
 def reference_kernel(key):
