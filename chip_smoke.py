@@ -12,7 +12,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
      serving: the prefill attention at B 8, S 512, H 12, D 64 with split
      q/k/v; decode attention at B 8, H 12, S 1024, D 64, L 12 and its
      slotted, GQA, int8-KV, pack2 and f32 variants; the int8 GEMM at the
-     four prefill shapes and a ragged m);
+     four prefill shapes and a ragged m; for training: B1 forward and
+     transpose_b (dx) at the MLP rows' shapes, B14 and B18 at the GPT-2
+     training key B 8, S 512, H 12, D 64 causal bf16, an f32 key at D 128
+     and a GQA case through the autograd op, B18 twice bit-equal);
   4. run the main paths, each with the launch counts set to 0 just before
      and read just after:
      a. the MLP path through tpp_mlir_tpu_torch.tools.tpp_run.run_module on
@@ -40,13 +43,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
         decode attention, the int8 GEMM's plain version), the kernels-on
         prefill with the composed attention in B7's place against it too
         (the witness of B7's share of the prefill error), and the tokens of
-        the CUDA-graph-replayed generate equal to the eager ones;
+        the CUDA-graph-replayed generate equal to the eager ones; then
+        gpt2_small_serve_b8's prefill with flash_attn (B14, 12 launches);
+     d. the training path (scripts/bench_train.py's rows): the MLP SGD step
+        (tpp_mlir_tpu_torch.parallel.make_train_step, 1024x4 at b256 bf16,
+        b256 f32 "highest", b2048 bf16), 3 steps with B1 against 3 with the
+        kernels off, B1 forward and dx launches counted, then timed; GPT-2
+        small's AdamW step (make_gpt_train_step: B 8, S 512, bf16, random
+        weights from seed 0, ids from default_rng(1)) with B14/B18 against
+        the composed attention: the step-0 loss against the CE of the
+        port's prefill logits, step-0 grads leaf by leaf, a falling loss,
+        12 B14 and 12 B18 launches per step, then 10 timed steps of each
+        (ms/step, tokens/s, TFLOP/s);
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
      tokens/s), each serving configuration's prefill and decode step
      (eager and graph-replayed) beside the kernels-off engine, with a
      torch.profiler trace of 8 decode steps, and each kernel beside its
-     plain version.
+     plain version, one PyTorch call computing the same function where
+     there is one, and its bound (bytes over HBM's rate or operations over
+     the peak rate of their type, whichever is larger).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -58,9 +74,7 @@ import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
 BATCH, WIDTH, LAYERS = 256, 1024, 4     # the flagship: batch 256, 1024x4
 TOL_BF16 = 1e-2     # a bf16 output, or a chain of bf16 roundings
 TOL_F32 = 1e-4      # same operand rounding on both sides: sum order only
@@ -87,6 +101,24 @@ SERVING = (
     ("llama_gqa_serve_b8", dict(embed=768, heads=12, kv_heads=4, layers=12,
                                 max_seq=1024, dtype="bf16"), True, False, 32),
 )
+
+# the training path (bench_train.py's rows): the MLP 1024x4 at (batch,
+# dtype, precision), f32 at "highest" so that it is held to 1e-4; GPT-2
+# small at B 8, S 512, bf16, AdamW(1e-3), ids from default_rng(1)
+TRAIN_MLP = ((256, "bf16", "default"), (256, "f32", "highest"),
+             (2048, "bf16", "default"))
+TRAIN_LAYERS = (WIDTH,) * 4
+GPT2_TRAIN = dict(vocab=50304, embed=768, heads=12, layers=12, mlp_ratio=4,
+                  max_seq=512, dtype="bf16")
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_STEPS, TIMED_STEPS = 3, 10
+TOL_GRAD = 3e-2     # relative Frobenius error of a grad, flash vs composed
+TOL_LSE = 1e-4      # lse2: f32 on both sides, sum order only
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W) for the
+# bound columns: operations at the rate of their type, bytes at HBM's
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(msg: str) -> None:
@@ -231,6 +263,23 @@ def _brgemm_cases():
         ("ragged 1024x352x512", BrgemmKey(1, 1024, 352, 512, "f32",
                                           beta0=True, binary_kind="add",
                                           unary_kind="relu")),
+    ]
+    # the MLP training step's keys (phase 4d) not above: its rows at f32
+    # "highest" and at batch 2048, forward and dx = g @ W^T (transpose_b)
+    hi = dict(beta0=True, precision="highest")
+    cases += [
+        ("train fc f32 highest", BrgemmKey(1, M, N, K, "f32", **hi,
+                                           binary_kind="add",
+                                           unary_kind="relu")),
+        ("train dx f32 highest transpose_b", BrgemmKey(
+            1, M, N, K, "f32", **hi, transpose_b=True)),
+        ("train fc 2048 bf16", BrgemmKey(1, 2048, N, K, "bf16", beta0=True,
+                                         binary_kind="add",
+                                         unary_kind="relu")),
+        ("train gemm 2048 bf16", BrgemmKey(1, 2048, N, K, "bf16",
+                                           beta0=True)),
+        ("train dx 2048 bf16 transpose_b", BrgemmKey(
+            1, 2048, N, K, "bf16", beta0=True, transpose_b=True)),
     ]
     return cases
 
@@ -491,6 +540,97 @@ def phase_kernels() -> dict:
     return stats
 
 
+# B14/B18 cases: (label, key, KV heads of a GQA case or None). The GPT-2
+# training key, an f32 key (no tensor cores: f32 FMA) and a GQA case whose
+# K/V are repeated to the query heads before the kernels, as
+# flash_attention_train does
+def _flash_train_cases():
+    from tpp_mlir_tpu_torch.xsmm import FlashTrainKey
+    return [
+        ("gpt2 train b8 s512 h12 d64 causal bf16",
+         FlashTrainKey(TRAIN_B, 12, TRAIN_S, 64, "bf16", True, 0.125), None),
+        ("f32 b2 s256 h4 d128", FlashTrainKey(2, 4, 256, 128, "f32", False,
+                                              128 ** -0.5), None),
+        ("gqa b2 s256 h12 kv4 d64 causal bf16",
+         FlashTrainKey(2, 12, 256, 64, "bf16", True, 0.125), 4),
+    ]
+
+
+def _flash_train_inputs(key, g, kv_heads=None):
+    """q, k, v (k/v with kv_heads heads for GQA) and a cotangent dO, all
+    (B, S, H, D) in the key's dtype."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+
+    def rnd(h):
+        return torch.randn(B, S, h, D, generator=g, device="cuda").to(dt)
+    return rnd(H), rnd(kv_heads or H), rnd(kv_heads or H), rnd(H)
+
+
+def _flash_delta(do, o):
+    """B18's (B, H, S) f32 operand delta = rowsum(dO * O)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def phase_flash_train() -> dict:
+    """B14 and B18 against their plain versions on the same inputs: O and
+    dq/dk/dv within 2e-2 (bf16: P and dS rounded on both sides, online vs
+    whole-row softmax) or 1e-4 (f32), lse2 within 1e-4; B18 twice on the
+    same inputs bit-equal (no atomics). The GQA case also runs the autograd
+    op flash_attention_train on 4 KV heads against the plain versions with
+    the group sums of dk/dv taken by hand."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (FlashTrainBwdKey, build_kernel,
+                                         reference_kernel)
+    from tpp_mlir_tpu_torch.xsmm.flash_train import flash_attention_train
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"flash_train_fwd": 0.0, "flash_train_bwd": 0.0}
+    for label, key, kvh in _flash_train_cases():
+        tol = TOL_F32 if key.dtype == "f32" else 2 * TOL_BF16
+        q, k, v, do = _flash_train_inputs(key, g, kvh)
+        rep = key.heads // (kvh or key.heads)
+        kr, vr = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+        o, lse2 = build_kernel(key)(q, kr, vr)
+        po, plse2 = reference_kernel(key)(q, kr, vr)
+        bkey = FlashTrainBwdKey(**dataclasses.asdict(key))
+        args = (q, kr, vr, do, plse2, _flash_delta(do, po))
+        bwd = build_kernel(bkey)
+        got, again = bwd(*args), bwd(*args)
+        want = reference_kernel(bkey)(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rels = {"o": rel_err(o, po), "lse2": rel_err(lse2, plse2)}
+        rels.update({n: rel_err(a, b) for n, a, b in
+                     zip(("dq", "dk", "dv"), got, want)})
+        if kvh:     # the autograd op: repeat outside, group sums by autograd
+            ql, kl, vl = (x.detach().clone().requires_grad_(True)
+                          for x in (q, k, v))
+            flash_attention_train(ql, kl, vl, key.scale).backward(do)
+            B, S, D = key.batch, key.seq, key.head_dim
+            gsum = lambda x: x.float().reshape(B, S, kvh, rep, D).sum(3)
+            rels.update({"op dq": rel_err(ql.grad, want[0]),
+                         "op dk": rel_err(kl.grad, gsum(want[1])),
+                         "op dv": rel_err(vl.grad, gsum(want[2]))})
+        finite = all(torch_isfinite(x) for x in (o, lse2, *got))
+        ok = same and finite and all(
+            r <= (TOL_LSE if n == "lse2" else tol)
+            for n, (r, _) in rels.items())
+        say(f"kernel flash_train {label:38s} " + " ".join(
+            f"{n} rel {r:.3e}" for n, (r, _) in rels.items())
+            + f"; B18 repeat bit-equal {same}; tol {tol:.0e} (lse2 "
+            f"{TOL_LSE:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_train {label}: {rels}, bit-equal "
+                                 f"{same}, finite {finite}")
+        worst["flash_train_fwd"] = max(worst["flash_train_fwd"],
+                                       rels["o"][1], rels["lse2"][1])
+        worst["flash_train_bwd"] = max(worst["flash_train_bwd"], *(
+            rels[n][1] for n in ("dq", "dk", "dv")))
+    return {kind: {"max_abs_err": e} for kind, e in worst.items()}
+
+
 # the main path's modules: (label, tpp-gen flags, invoke the flagship needs)
 MODULES = (
     ("flagship bf16", "--batch=256 --layers=1024,1024,1024,1024 --bias "
@@ -507,23 +647,23 @@ _GENERATED: dict[str, str] = {}
 
 
 def _module(flags: str):
-    """`tpp-gen <flags> | tpp_run -`: the generator runs in its own process
-    (tpp-gen's module, from this checkout) and the port parses its text."""
+    """`tpp-gen <flags> | tpp_run -`: the port's tpp-gen prints the module
+    and the port parses its text."""
+    from tpp_mlir_tpu_torch.tools.mlir_gen import (build_parser,
+                                                   config_from_args,
+                                                   generate_text)
     from tpp_mlir_tpu_torch.tools.tpp_run import load_module
     if flags not in _GENERATED:
-        gen = subprocess.run(
-            [sys.executable, "-m", "tpp_mlir_tpu.tools.mlir_gen",
-             *flags.split()], cwd=ROOT, capture_output=True, text=True,
-            timeout=120)
-        if gen.returncode != 0:
-            raise RuntimeError(f"tpp-gen {flags} failed: {gen.stderr}")
-        _GENERATED[flags] = gen.stdout
+        _GENERATED[flags] = generate_text(config_from_args(
+            build_parser().parse_args(flags.split())))
     return load_module(_GENERATED[flags])
 
 
 KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
          "FlashMhaKey": "attention", "LayerNormKey": "layer_norm",
-         "DecodeAttnKey": "decode_attn", "Int8GemmKey": "int8_gemm"}
+         "DecodeAttnKey": "decode_attn", "Int8GemmKey": "int8_gemm",
+         "FlashTrainKey": "flash_train_fwd",
+         "FlashTrainBwdKey": "flash_train_bwd"}
 
 
 def _launches(cache) -> dict:
@@ -767,6 +907,227 @@ def phase_serving_timing(setups) -> None:
                     label=f"trace {label} ")
 
 
+def _brgemm_launches(cache) -> tuple[int, int]:
+    """(forward, dx) launches of the BrgemmKey wrappers: dx is transpose_b."""
+    fwd = dx = 0
+    for fn in cache.kernels():
+        if type(fn.key).__name__ == "BrgemmKey":
+            if fn.key.transpose_b:
+                dx += fn.launches
+            else:
+                fwd += fn.launches
+    return fwd, dx
+
+
+def _mlp_flops(batch: int) -> int:
+    """bench_train.py's count: fwd, dgrad and wgrad, 2MNK each per layer."""
+    return 3 * sum(2 * batch * k * n for k, n in
+                   zip(TRAIN_LAYERS[:-1], TRAIN_LAYERS[1:]))
+
+
+def phase_mlp_training() -> dict:
+    """The MLP SGD step (tpp_mlir_tpu_torch.parallel.make_train_step) at
+    each of bench_train.py's rows: 3 steps with the kernels (B1 forward,
+    B1 transpose_b for dx), launches counted, against 3 steps with
+    use_kernels=False from the same params; then 20 timed steps of each."""
+    import numpy as np
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import make_train_step, mlp_init
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    total = 0
+    for batch, dtype, prec in TRAIN_MLP:
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+        params = mlp_init(TRAIN_LAYERS, dtype, seed=0)
+        rng = np.random.default_rng(0)
+        x, y = (torch.from_numpy(rng.standard_normal(
+            (batch, WIDTH), dtype=np.float32)).to("cuda", dt)
+            for _ in range(2))
+        runs = {}
+        for kernels in (True, False):
+            step = make_train_step(TRAIN_LAYERS, use_kernels=kernels,
+                                   precision=prec)
+            cache.reset_launches()
+            p, losses = params, []
+            for _ in range(TRAIN_STEPS):
+                p, loss = step(p, x, y)
+                losses.append(loss.item())
+            runs[kernels] = (p, losses, _brgemm_launches(cache))
+        (pk, lk, (fwd, dx)), (pp, lp, off) = runs[True], runs[False]
+        total += fwd + dx
+        # the params as one vector: a bias starts at 0 and moves by lr * a
+        # sum over the batch, so its own max is a poor scale for its error
+        flat = lambda ps: torch.cat([t.float().reshape(-1) for wb in ps
+                                     for t in wb])
+        rel = rel_err(flat(pk), flat(pp))[0]
+        tol = TOL_F32 if dtype == "f32" else TOL_BF16
+        n_layers = len(TRAIN_LAYERS) - 1
+        want = n_layers * TRAIN_STEPS
+        finite = all(torch_isfinite(w) for wb in pk for w in wb)
+        ok = rel <= tol and finite and fwd == dx == want and off == (0, 0)
+        times = {}
+        for kernels in (True, False):
+            step = make_train_step(TRAIN_LAYERS, use_kernels=kernels,
+                                   precision=prec)
+            times[kernels] = cuda_ms(lambda: step(params, x, y))
+        say(f"main train mlp b{batch} {dtype} {prec}: losses {lk} (kernels "
+            f"off {lp}); all params after {TRAIN_STEPS} steps vs kernels "
+            f"off rel {rel:.3e} tol {tol:.0e}; launches B1 forward {fwd}, dx "
+            f"{dx} "
+            f"(want {want} each; kernels off {off}); step {times[True]:.4f} "
+            f"ms ({_mlp_flops(batch) / times[True] / 1e9:.2f} TFLOP/s), "
+            f"kernels off {times[False]:.4f} ms "
+            f"({_mlp_flops(batch) / times[False] / 1e9:.2f} TFLOP/s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mlp train b{batch} {dtype}: rel {rel}, "
+                                 f"finite {finite}, launches {fwd}/{dx}, "
+                                 f"kernels off {off}")
+    return {"brgemm": total}
+
+
+def _leaf_names(tree, prefix="") -> list[str]:
+    """Names of tree_leaves(tree), in its order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree)
+                for n in _leaf_names(x, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.detach().clone()
+
+
+def _gpt_flops() -> int:
+    """bench_train.py:152-158's count: 3x the forward's matmul flops, the
+    attention squares included."""
+    B, S, E, L, V = (TRAIN_B, TRAIN_S, GPT2_TRAIN["embed"],
+                     GPT2_TRAIN["layers"], GPT2_TRAIN["vocab"])
+    F = GPT2_TRAIN["mlp_ratio"] * E
+    per_layer = (2 * B * S * E * 3 * E + 2 * 2 * B * S * S * E
+                 + 2 * B * S * E * E + 2 * 2 * B * S * E * F)
+    return 3 * (L * per_layer + 2 * B * S * E * V)
+
+
+def phase_gpt_training() -> dict:
+    """GPT-2 small's AdamW step (make_gpt_train_step, B 8, S 512, bf16) with
+    B14/B18 and with the composed attention, from the same params and ids:
+    the step-0 loss within 1e-2 of the CE of the port's prefill logits,
+    every step-0 grad within 3e-2 (relative Frobenius) of the composed
+    step's, the loss falling over 3 steps, 12 B14 and 12 B18 launches per
+    step; then 10 timed steps of each after 2 warm-ups and a
+    torch.profiler breakdown of 2 more."""
+    import numpy as np
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import (adamw, make_gpt_train_step,
+                                             next_token_loss, tree_leaves)
+    from tpp_mlir_tpu_torch.serving import GptConfig, init_params, make_prefill
+    from tpp_mlir_tpu_torch.tools.trace import print_trace, trace_steps
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    cfg = GptConfig(**GPT2_TRAIN)
+    params0 = init_params(cfg, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        ce = next_token_loss(make_prefill(cfg)(params0, ids)[0], ids).item()
+    names = _leaf_names(params0)
+    runs, launches = {}, {}
+    for flash in (True, False):
+        params = _clone(params0)
+        step, init = make_gpt_train_step(cfg, adamw(1e-3), flash_attn=flash)
+        state = init(params)
+        cache.reset_launches()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            params, state, loss = step(params, state, ids)
+            losses.append(loss.item())
+            if i == 0:
+                grads = [t.grad.clone() for t in tree_leaves(params)]
+        launches[flash] = _launches(cache)
+        ms = cuda_ms(lambda: step(params, state, ids), iters=TIMED_STEPS,
+                     warmup=2)
+        print_trace(trace_steps(lambda: step(params, state, ids)),
+                    label=f"trace train gpt2 small "
+                          f"{'B14/B18' if flash else 'composed'} ")
+        runs[flash] = (losses, grads, ms)
+        del params, state
+    (lf, gf, msf), (lc, gc, msc) = runs[True], runs[False]
+    # bk's true gradient is 0 (softmax is invariant to a shift of every
+    # key by one vector), so its grad is rounding noise on both sides and
+    # has no relative error to hold
+    errs = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+            for n, a, b in zip(names, gf, gc) if not n.endswith(".bk")}
+    worst = max(errs, key=errs.get)
+    per_step = {k: launches[True][k] / TRAIN_STEPS
+                for k in ("flash_train_fwd", "flash_train_bwd")}
+    off = (launches[False]["flash_train_fwd"],
+           launches[False]["flash_train_bwd"])
+    finite = all(torch_isfinite(g) for g in gf)
+    ok = (max(abs(lf[0] - ce), abs(lc[0] - ce)) <= TOL_BF16
+          and errs[worst] <= TOL_GRAD and lf[-1] < lf[0] and lc[-1] < lc[0]
+          and per_step == {"flash_train_fwd": cfg.layers,
+                           "flash_train_bwd": cfg.layers}
+          and off == (0, 0) and finite)
+    flops, tokens = _gpt_flops(), TRAIN_B * TRAIN_S
+    say(f"main train gpt2 small b{TRAIN_B} s{TRAIN_S} bf16 adamw: losses "
+        f"B14/B18 {lf}, composed {lc}; prefill CE {ce:.6f} (step-0 tol "
+        f"{TOL_BF16:.0e}); step-0 grads rel Frobenius max {errs[worst]:.3e} "
+        f"({worst}) tol {TOL_GRAD:.0e} over {len(errs)} leaves (bk "
+        f"excluded); launches per step {per_step} (composed run: {off}) "
+        f"{'ok' if ok else 'FAIL'}")
+    for label, ms in (("B14/B18", msf), ("composed attention", msc)):
+        say(f"time train gpt2 small {label}: {ms:.4f} ms/step over "
+            f"{TIMED_STEPS} steps, {tokens / ms * 1e3:.1f} tokens/s, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s ({flops / 1e12:.4f} TFLOP a "
+            f"step)")
+    if not ok:
+        raise AssertionError(f"gpt2 train: losses {lf} / {lc} vs CE {ce}, "
+                             f"grad {worst} {errs[worst]}, launches "
+                             f"{per_step} / {off}, finite {finite}")
+    return {k: launches[True][k] for k in ("flash_train_fwd",
+                                           "flash_train_bwd")}
+
+
+def phase_serving_flash(setup) -> dict:
+    """gpt2_small_serve_b8's prefill with GptConfig.flash_attn: B14's
+    forward in each layer (12 launches), logits against the kernels-off
+    engine (B14's plain version) within the model tolerance."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import make_prefill
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    label, cfg, params, ids, _ = setup
+    fcfg = dataclasses.replace(cfg, flash_attn=True)
+    cache = global_cache()
+    cache.reset_launches()
+    got = make_prefill(fcfg, use_kernels=True)(params, ids)[0]
+    torch.cuda.synchronize()
+    launches = _launches(cache)
+    want = make_prefill(_kernels_off(fcfg), use_kernels=False)(params, ids)[0]
+    rel, _ = rel_err(got, want)
+    finite = torch_isfinite(got)
+    ok = launches["flash_train_fwd"] == cfg.layers and \
+        launches["attention"] == 0 and rel <= TOL_MODEL and finite
+    say(f"main {label} flash_attn prefill: launches {launches} (want "
+        f"flash_train_fwd {cfg.layers}, attention 0); logits finite "
+        f"{finite}, vs kernels off rel {rel:.3e} tol {TOL_MODEL:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} flash prefill: launches {launches}, "
+                             f"rel {rel}, finite {finite}")
+    return launches
+
+
 def torch_isfinite(t) -> bool:
     import torch
     return bool(torch.isfinite(t.float()).all())
@@ -813,7 +1174,8 @@ def phase_timing(n: int = 100) -> dict:
     import torch
 
     from tpp_mlir_tpu_torch.tools.tpp_run import run_module
-    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, build_kernel,
+    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey,
+                                         FlashTrainBwdKey, build_kernel,
                                          reference_kernel)
     for label, flags, _ in MODULES:
         res = run_module(_module(flags), n=n, device="cuda",
@@ -858,27 +1220,168 @@ def phase_timing(n: int = 100) -> dict:
               for _, key in _decode_attn_cases()[:4]]
     cases += [("int8_gemm", key, _int8_inputs)
               for _, key in _int8_cases()[:4]]
+    train_key = _flash_train_cases()[0][1]
+    cases += [("flash_train_fwd", train_key, _flash_fwd_timing_inputs),
+              ("flash_train_bwd", FlashTrainBwdKey(
+                  **dataclasses.asdict(train_key)), _flash_bwd_timing_inputs)]
     from tpp_mlir_tpu_torch.tools.trace import describe
     for kind, key, make in cases:
         args = make(key, g)
         kern, plain = build_kernel(key), reference_kernel(key)
-        ms, plain_ms = cuda_ms(lambda: kern(*args)), \
-            cuda_ms(lambda: plain(*args))
-        note = ""
-        if kind in ("decode_attn", "int8_gemm"):
-            # the serving kernels run inside the decode step's CUDA graph:
-            # their line and the kernel table take graph-replayed times
-            note = (f" replayed from a CUDA graph (launched one by one: "
-                    f"{ms:.4f} ms, plain version {plain_ms:.4f} ms)")
-            ms = graph_ms(lambda: kern(*args))
-            plain_ms = graph_ms(lambda: plain(*args))
+        library = _library_call(kind, key, args)
+        graphed = kind in ("decode_attn", "int8_gemm")
+        # the serving kernels run inside the decode step's CUDA graph: their
+        # line and the kernel table take graph-replayed times
+        timer = graph_ms if graphed else cuda_ms
+        ms, plain_ms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
+        lib_ms = timer(library) if library else None
+        bound, by = _bound(kind, key, args)
+        note = " (replayed from a CUDA graph)" if graphed else ""
+        lib = f"{lib_ms:.4f} ms" if library else "none"
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
-            f"{plain_ms:.4f} ms{note}")
+            f"{plain_ms:.4f} ms, library call {lib}, bound {bound:.4f} ms "
+            f"({by}){note}")
         # the kernel line keeps the first shape of each kind: the MLP's f32
         # fc for brgemm, the bf16 flagship chain, GPT-2's attention and
-        # ln_f, the serving decode attention (MHA) and the int8 QKV GEMM
-        out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms})
+        # ln_f, the serving decode attention (MHA), the int8 QKV GEMM, and
+        # B14/B18 at the GPT-2 training key
+        out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound, "bound_by": by,
+                              "library_ms": lib_ms})
     return out
+
+
+def _flash_fwd_timing_inputs(key, g):
+    return _flash_train_inputs(key, g)[:3]
+
+
+def _flash_bwd_timing_inputs(key, g):
+    """B18's operands at `key`, from B14's plain forward."""
+    from tpp_mlir_tpu_torch.xsmm import FlashTrainKey, reference_kernel
+    q, k, v, do = _flash_train_inputs(key, g)
+    fwd = FlashTrainKey(**dataclasses.asdict(key))
+    o, lse2 = reference_kernel(fwd)(q, k, v)
+    return q, k, v, do, lse2, _flash_delta(do, o)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(kind, key, args) -> tuple[float, str]:
+    """The least time the card could take for the kernel's work on `args`:
+    the larger of the bytes it must move (each input read once, each output
+    written once) over HBM's rate and its operations over the peak rate of
+    their type (f32 "default" and bf16 products on the bf16 tensor cores,
+    f32 "highest" at the f32 rate). Work that depends on the data counts
+    what this run needs: a causal key's triangle, decode's live rows."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm.reference import mxu_dtype
+    out_bytes = {torch.float32: 4, torch.bfloat16: 2}
+    if kind == "brgemm":
+        a, b, c, d = args[:4]
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * key.batch * key.m * key.n * key.k
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = _nbytes(a, b, c, d, *args[4:]) + key.m * key.n * size
+    elif kind == "chain":
+        x, *wb = args
+        dims = key.dims
+        rate = "f32" if key.precision == "highest" else "bf16"
+        flops = 2 * key.m * sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+        nbytes = _nbytes(x, *wb) + key.m * dims[-1] * x.element_size()
+    elif kind == "attention":
+        q = args[0]
+        B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+        pairs = S * (S + 1) // 2 if key.causal else S * key.seq_kv
+        rate = "f32" if key.precision == "highest" else "bf16"
+        flops = 4 * B * H * pairs * D
+        nbytes = _nbytes(q) * (1 if key.qkv_packed else 3) + \
+            B * S * H * D * q.element_size()
+    elif kind == "layer_norm":
+        x, gamma, beta = args
+        rate, flops = "f32", 8 * key.m * key.n
+        nbytes = _nbytes(x, gamma, beta) + key.m * key.n * x.element_size()
+    elif kind == "decode_attn":
+        q, k, v, pos = args[:4]
+        live = int(pos.max()) + 1
+        B, H, D, G = key.batch, key.heads, key.head_dim, key.groups
+        rows = B * H * live * D
+        rate, flops = "f32", 4 * rows * G
+        nbytes = 2 * rows * k.element_size() + _nbytes(q, pos) + \
+            q.numel() * 4
+    elif kind == "int8_gemm":
+        rate, flops = "int8", 2 * key.m * key.n * key.k
+        nbytes = _nbytes(*args) + key.m * key.n * 4
+    elif kind == "flash_train_fwd":
+        q, k, v = args
+        B, S, H, D = q.shape
+        rate = key.dtype
+        flops = 4 * B * H * D * (S * (S + 1) // 2 if key.causal else S * S)
+        nbytes = 4 * _nbytes(q) + B * H * S * 4
+    else:   # flash_train_bwd: S again, dP, dV, dQ, dK
+        q = args[0]
+        B, S, H, D = q.shape
+        rate = key.dtype
+        flops = 10 * B * H * D * (S * (S + 1) // 2 if key.causal else S * S)
+        nbytes = _nbytes(*args) + 3 * _nbytes(q)
+    t_ops, t_bytes = flops / PEAK[rate], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes \
+        else "bytes"
+
+
+def _library_call(kind, key, args):
+    """One PyTorch call computing the kernel's function on the same inputs,
+    timed as a yardstick and used nowhere in the port; None where there is
+    none: a chain of GEMMs (B3) and the int8 GEMM with its scaled epilogue
+    (B15) have no single call. B1: torch.addmm (bias) or torch.mm; the
+    attention kernels: scaled_dot_product_attention, forward, or for B18
+    its backward alone (torch.autograd.grad of a kept forward); B12:
+    F.layer_norm."""
+    import torch
+    import torch.nn.functional as F
+    if kind == "brgemm" and not key.prologue and key.batch == 1 and \
+            not key.transpose_b and not key.vnni:
+        a, b, c, d = args[:4]
+        if key.binary_kind == "add" and key.binary_bcast == "bcast_col":
+            return lambda: torch.addmm(d, a[0], b[0])
+        return lambda: torch.mm(a[0], b[0])
+    if kind == "attention":
+        E = key.heads * key.head_dim
+        x = args[0]
+        parts = (x[..., :E], x[..., E:2 * E], x[..., 2 * E:]) \
+            if key.qkv_packed else args[:3]
+        q, k, v = (t.reshape(key.batch, -1, key.heads, key.head_dim)
+                   .transpose(1, 2).contiguous() for t in parts)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=key.causal, scale=key.scale)
+    if kind == "layer_norm":
+        x, gamma, beta = args
+        gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+        return lambda: F.layer_norm(x, (key.n,), gamma, beta, key.eps)
+    if kind == "decode_attn" and key.groups == 1 and not key.kv_quant \
+            and not key.pack2:
+        q, k, v, pos, li = args[:5]
+        live = int(pos.max()) + 1
+        kl, vl = (t[li][:, :, :live].contiguous() for t in (k, v))
+        q4 = q[:, :, None]
+        return lambda: F.scaled_dot_product_attention(
+            q4, kl, vl, scale=key.head_dim ** -0.5)
+    if kind in ("flash_train_fwd", "flash_train_bwd"):
+        q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(
+            kind == "flash_train_bwd") for t in args[:3])
+        if kind == "flash_train_fwd":
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=key.causal, scale=key.scale)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=key.causal,
+                                           scale=key.scale)
+        g = args[3].transpose(1, 2).contiguous()
+        return lambda: torch.autograd.grad(o, (q, k, v), g,
+                                           retain_graph=True)
+    return None
 
 
 def main() -> int:
@@ -893,34 +1396,33 @@ def main() -> int:
     card = phase_device()
     phase_build()
     stats = phase_kernels()
+    stats.update(phase_flash_train())
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
     serve_launches, setups = phase_serving_path()
-    for kind, n in serve_launches.items():
-        launches[kind] += n
+    for counts in (serve_launches, phase_serving_flash(setups[0]),
+                   phase_mlp_training(), phase_gpt_training()):
+        for kind, n in counts.items():
+            launches[kind] += n
     timing = phase_timing()
     phase_serving_timing(setups)
     kernels = []
     for kind, src, replaces in (
-            ("brgemm", "tpp_mlir_tpu_torch/csrc/brgemm.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:580"),
-            ("chain", "tpp_mlir_tpu_torch/csrc/chain.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:1475"),
-            ("attention", "tpp_mlir_tpu_torch/csrc/attention.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:2232"),
-            ("layer_norm", "tpp_mlir_tpu_torch/csrc/layer_norm.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:3257"),
-            ("decode_attn", "tpp_mlir_tpu_torch/csrc/decode_attn.cu",
-             "tpp_mlir_tpu/xsmm/decode_attn.py:101"),
-            ("int8_gemm", "tpp_mlir_tpu_torch/csrc/int8_gemm.cu",
-             "tpp_mlir_tpu/xsmm/kernels.py:1365")):
-        kernels.append({"name": kind, "route": "cuda", "source": src,
-                        "replaces": replaces,
+            ("brgemm", "brgemm.cu", "kernels.py:580"),
+            ("chain", "chain.cu", "kernels.py:1475"),
+            ("attention", "attention.cu", "kernels.py:2232"),
+            ("layer_norm", "layer_norm.cu", "kernels.py:3257"),
+            ("decode_attn", "decode_attn.cu", "decode_attn.py:101"),
+            ("int8_gemm", "int8_gemm.cu", "kernels.py:1365"),
+            ("flash_train_fwd", "flash_train.cu", "flash_train.py:146"),
+            ("flash_train_bwd", "flash_train.cu", "flash_train.py:190")):
+        kernels.append({"name": kind, "route": "cuda",
+                        "source": f"tpp_mlir_tpu_torch/csrc/{src}",
+                        "replaces": f"tpp_mlir_tpu/xsmm/{replaces}",
                         "launches": launches[kind],
                         "max_abs_err": stats[kind]["max_abs_err"],
-                        "ms": timing[kind]["ms"],
-                        "plain_ms": timing[kind]["plain_ms"]})
+                        **timing[kind]})
     say(f"total: {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,11 @@ import ml_dtypes
 import numpy as np
 import pytest
 
+import tpp_mlir_tpu.ir as jax_ir
 import tpp_mlir_tpu.xsmm.flags as ref_flags
-from tpp_mlir_tpu.ir import Function, Module, TensorType, TppBuilder
 from tpp_mlir_tpu.runtime.executor import interpret as jax_interpret
 from tpp_mlir_tpu.xsmm.kernels import build_kernel as jax_build_kernel
+import tpp_mlir_tpu_torch.ir as port_ir
 from tpp_mlir_tpu_torch.runtime import compile as port_compile
 from tpp_mlir_tpu_torch.runtime.tensor_init import to_torch
 from tpp_mlir_tpu_torch.xsmm import FlashMhaKey, build_kernel, reference_kernel
@@ -84,11 +85,13 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert kern.launches == 0
 
 
-def _attention_module(B, S, E, H, causal, dtype):
-    t = TensorType((B, S, E), dtype)
-    m = Module()
-    f = m.add(Function("entry", [t, t, t], ["q", "k", "v"]))
-    b = TppBuilder(f)
+def _attention_module(B, S, E, H, causal, dtype, ir=port_ir):
+    """One tl.attention, built with `ir`: the port's IR, or jax_ir for the
+    JAX package's evaluator."""
+    t = ir.TensorType((B, S, E), dtype)
+    m = ir.Module()
+    f = m.add(ir.Function("entry", [t, t, t], ["q", "k", "v"]))
+    b = ir.TppBuilder(f)
     attrs = {"causal": causal, "scale": 0.125}
     if H:
         attrs["heads"] = H
@@ -104,6 +107,7 @@ def test_tl_attention_oracle_matches_jax_evaluator(heads, causal):
     rng = np.random.default_rng(3)
     args = [_arr(rng, (2, 32, 64), "f32") for _ in range(3)]
     m = _attention_module(2, 32, 64, heads, causal, "f32")
-    want, = jax_interpret(m, "entry", *map(jnp.asarray, args))
-    got = port_compile(m)(*map(to_torch, args))
+    mj = _attention_module(2, 32, 64, heads, causal, "f32", jax_ir)
+    want, = jax_interpret(mj, "entry", *map(jnp.asarray, args))
+    got = port_compile(m, device="cpu")(*map(to_torch, args))
     assert _err(got, want) <= 1e-5

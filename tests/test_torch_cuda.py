@@ -23,12 +23,13 @@ import io
 import pytest
 import torch
 
-from tpp_mlir_tpu.ir import parse_module
-from tpp_mlir_tpu.models.mlp import MlpConfig
-from tpp_mlir_tpu.tools.mlir_gen import generate_text
+from tpp_mlir_tpu_torch.ir import parse_module
+from tpp_mlir_tpu_torch.models.mlp import MlpConfig
+from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
 from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, DecodeAttnKey,
-                                     FlashMhaKey, Int8GemmKey, LayerNormKey,
+                                     FlashMhaKey, FlashTrainBwdKey,
+                                     FlashTrainKey, Int8GemmKey, LayerNormKey,
                                      build_kernel, global_cache,
                                      reference_kernel)
 
@@ -361,3 +362,92 @@ def test_trace_serving_sees_the_decode_kernel(cuda):
     assert any("decode_attn" in name for _, name in graph["shares"])
     assert any("attention_kernel" in name for _, name in
                res["prefill"]["shares"])
+
+
+# ---------------------------------------------------------------------------
+# the training slice: B14/B18 and the train steps
+# Tolerances: f32 1e-4 (sum order only); bf16 2e-2 (P and dS rounded to
+# bf16 on both sides; the kernel's online softmax rounds P against the
+# running max, the plain version against the row's).
+
+@pytest.mark.parametrize("key", [
+    FlashTrainKey(2, 3, 100, 32, "bf16", False, 32 ** -0.5),
+    FlashTrainKey(1, 2, 200, 128, "bf16", True, 128 ** -0.5),
+    FlashTrainKey(2, 2, 130, 64, "f32", True, 0.125),
+], ids=["bf16-d32-tail", "bf16-d128-causal", "f32-d64-causal-tail"])
+def test_flash_train_kernels_match_plain(cuda, key):
+    import dataclasses
+    t = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    q, k, v, do = (torch.randn(key.batch, key.seq, key.heads, key.head_dim,
+                               generator=cuda, device="cuda").to(t)
+                   for _ in range(4))
+    tol = 1e-4 if key.dtype == "f32" else 2e-2
+    o, lse2 = build_kernel(key)(q, k, v)
+    po, plse2 = reference_kernel(key)(q, k, v)
+    assert _err(o, po) <= tol and _err(lse2, plse2) <= 1e-4
+    delta = (do.float() * po.float()).sum(-1).transpose(1, 2).contiguous()
+    bkey = FlashTrainBwdKey(**dataclasses.asdict(key))
+    got = build_kernel(bkey)(q, k, v, do, plse2, delta)
+    again = build_kernel(bkey)(q, k, v, do, plse2, delta)
+    want = reference_kernel(bkey)(q, k, v, do, plse2, delta)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)           # no atomics: bit-repeatable
+        assert _err(a, w) <= tol
+
+
+def test_flash_attention_train_gqa_grads_match_composed(cuda):
+    from tpp_mlir_tpu_torch.serving import composed_causal_attention
+    from tpp_mlir_tpu_torch.xsmm.flash_train import flash_attention_train
+    q = torch.randn(2, 64, 4, 32, generator=cuda, device="cuda")
+    k, v = (torch.randn(2, 64, 2, 32, generator=cuda, device="cuda")
+            for _ in range(2))
+    g = torch.randn(2, 64, 4, 32, generator=cuda, device="cuda")
+    grads = []
+    for attn in (flash_attention_train, composed_causal_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        attn(*leaves, 32 ** -0.5).backward(g)
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        assert _err(a, b) <= 1e-4
+
+
+def test_f32_matmul_backward_runs_bf16_gemms(cuda):
+    from tpp_mlir_tpu_torch.ops.trainable import f32_matmul
+    x = torch.randn(64, 48, generator=cuda, device="cuda").bfloat16()
+    w = torch.randn(48, 32, generator=cuda, device="cuda").bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = f32_matmul(x, w)
+    assert y.dtype == torch.float32
+    g = torch.randn(64, 32, generator=cuda, device="cuda")
+    y.backward(g)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    gb = g.bfloat16().float()
+    assert _err(x.grad, gb @ w.float().t()) <= 1e-2
+    assert _err(w.grad, x.float().t() @ gb) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype,precision", [("bf16", "default"),
+                                             ("f32", "highest")])
+def test_mlp_train_step_on_the_card_matches_kernels_off(cuda, dtype,
+                                                        precision):
+    from tpp_mlir_tpu_torch.parallel import make_train_step, mlp_init
+    layers = (128, 128, 128, 128)
+    params = mlp_init(layers, {"bf16": "bfloat16", "f32": "float32"}[dtype])
+    t = params[0][0].dtype
+    x = torch.randn(64, 128, generator=cuda, device="cuda").to(t)
+    y = torch.randn(64, 128, generator=cuda, device="cuda").to(t)
+    out = []
+    for kernels in (True, False):
+        step = make_train_step(layers, 0.05, use_kernels=kernels,
+                               precision=precision)
+        cache = global_cache()
+        cache.reset_launches()
+        p = params
+        for _ in range(2):
+            p, loss = step(p, x, y)
+        assert (cache.launches_by_kind().get("BrgemmKey", 0) > 0) == kernels
+        out.append(p)
+    for (wk, bk), (wp, bp) in zip(*out):
+        assert _err(wk, wp) <= (1e-4 if dtype == "f32" else 1e-2)
+        assert _err(bk, bp) <= (1e-4 if dtype == "f32" else 1e-2)

@@ -17,10 +17,11 @@ import ml_dtypes
 import numpy as np
 import pytest
 
+import tpp_mlir_tpu.ir as jax_ir
 import tpp_mlir_tpu.xsmm.flags as ref_flags
-from tpp_mlir_tpu.ir import Function, Module, TensorType, TppBuilder
 from tpp_mlir_tpu.runtime.executor import interpret as jax_interpret
 from tpp_mlir_tpu.xsmm.kernels import build_kernel as jax_build_kernel
+import tpp_mlir_tpu_torch.ir as port_ir
 from tpp_mlir_tpu_torch.runtime import compile as port_compile
 from tpp_mlir_tpu_torch.runtime.tensor_init import to_torch
 from tpp_mlir_tpu_torch.xsmm import (LayerNormKey, build_kernel,
@@ -80,14 +81,19 @@ def test_wrapper_takes_the_plain_version_on_cpu():
 def test_tl_layer_norm_oracle_matches_jax_evaluator(dtype, affine):
     key = LayerNormKey(m=32, n=80, dtype=dtype)
     x, gamma, beta = _inputs(key, seed=4)
-    t, v = TensorType((32, 80), dtype), TensorType((80,), "f32")
-    m = Module()
-    f = m.add(Function("entry", [t, v, v], ["x", "g", "b"]))
-    b = TppBuilder(f)
-    operands = list(f.args) if affine else [f.args[0]]
-    f.returns = [b.create("tl.layer_norm", operands, [t],
-                          {"eps": 1e-5}).result]
-    m.verify()
-    want, = jax_interpret(m, "entry", *map(jnp.asarray, (x, gamma, beta)))
-    got = port_compile(m)(*map(to_torch, (x, gamma, beta)))
+
+    def module(ir):       # each package evaluates IR of its own classes
+        t, v = ir.TensorType((32, 80), dtype), ir.TensorType((80,), "f32")
+        m = ir.Module()
+        f = m.add(ir.Function("entry", [t, v, v], ["x", "g", "b"]))
+        b = ir.TppBuilder(f)
+        operands = list(f.args) if affine else [f.args[0]]
+        f.returns = [b.create("tl.layer_norm", operands, [t],
+                              {"eps": 1e-5}).result]
+        m.verify()
+        return m
+    m = module(port_ir)
+    want, = jax_interpret(module(jax_ir), "entry",
+                          *map(jnp.asarray, (x, gamma, beta)))
+    got = port_compile(m, device="cpu")(*map(to_torch, (x, gamma, beta)))
     assert _err(got, want) <= (1e-5 if dtype == "f32" else 4e-3)

@@ -8,11 +8,16 @@ import re
 
 import pytest
 
-from tpp_mlir_tpu.ir import Function, Module, TensorType, TppBuilder
-from tpp_mlir_tpu.models.gpt import build_gpt
-from tpp_mlir_tpu.models.mlp import MlpConfig, build_mlp
-from tpp_mlir_tpu.models.transformer_block import build_transformer_block
+from tpp_mlir_tpu.models.gpt import build_gpt as ref_build_gpt
+from tpp_mlir_tpu.models.mlp import build_mlp as ref_build_mlp
+from tpp_mlir_tpu.models.transformer_block import \
+    build_transformer_block as ref_build_transformer_block
 from tpp_mlir_tpu.passes import run_pipeline as ref_run_pipeline
+from tpp_mlir_tpu_torch.ir import Function, Module, TensorType, TppBuilder
+from tpp_mlir_tpu_torch.models.gpt import build_gpt
+from tpp_mlir_tpu_torch.models.mlp import MlpConfig, build_mlp
+from tpp_mlir_tpu_torch.models.transformer_block import \
+    build_transformer_block
 from tpp_mlir_tpu_torch.passes import run_pipeline
 from tpp_mlir_tpu_torch.xsmm import ChainKey, chain_fits_smem
 
@@ -53,7 +58,8 @@ CONFIGS = {
 @pytest.mark.parametrize("name", list(CONFIGS))
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_default_tpp_passes_matches_reference(name, precision):
-    port, ref = build_mlp(CONFIGS[name]), build_mlp(CONFIGS[name])
+    # each package lowers IR built by its own copy of the builder
+    port, ref = build_mlp(CONFIGS[name]), ref_build_mlp(CONFIGS[name])
     if precision != "default":
         port.attrs["precision"] = ref.attrs["precision"] = precision
     run_pipeline(port, "default-tpp-passes")
@@ -130,18 +136,26 @@ def test_cpu_target_plans_for_the_sm90_kernels():
     assert t.smem_per_block_optin == SM90_SMEM_OPTIN
 
 
+# (builder, kwargs); the builder is "gpt" or "block", from either package
 MODELS = {
-    "gpt-bf16": lambda: build_gpt(batch=2, seq=64, vocab=256, embed=128,
-                                  heads=2, layers=2, dtype="bf16"),
-    "gpt-f32": lambda: build_gpt(batch=1, seq=32, vocab=96, embed=64,
-                                 heads=2, layers=1),
-    "block-f32": lambda: build_transformer_block(batch=2, seq=32, embed=128,
-                                                 heads=2),
-    "block-bf16-causal": lambda: build_transformer_block(
-        batch=1, seq=32, embed=64, heads=4, dtype="bf16", causal=True),
-    "encoder-2-layers": lambda: build_transformer_block(
-        batch=1, seq=32, embed=64, heads=2, layers=2),
+    "gpt-bf16": ("gpt", dict(batch=2, seq=64, vocab=256, embed=128, heads=2,
+                             layers=2, dtype="bf16")),
+    "gpt-f32": ("gpt", dict(batch=1, seq=32, vocab=96, embed=64, heads=2,
+                            layers=1)),
+    "block-f32": ("block", dict(batch=2, seq=32, embed=128, heads=2)),
+    "block-bf16-causal": ("block", dict(batch=1, seq=32, embed=64, heads=4,
+                                        dtype="bf16", causal=True)),
+    "encoder-2-layers": ("block", dict(batch=1, seq=32, embed=64, heads=2,
+                                       layers=2)),
 }
+
+
+def _model(name, ref=False):
+    kind, kw = MODELS[name]
+    build = {("gpt", False): build_gpt, ("gpt", True): ref_build_gpt,
+             ("block", False): build_transformer_block,
+             ("block", True): ref_build_transformer_block}[kind, ref]
+    return build(**kw)
 
 
 def _xsmm_sequence(module):
@@ -152,7 +166,7 @@ def _xsmm_sequence(module):
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_imported_models_lower_like_the_reference(name):
-    port, ref = MODELS[name](), MODELS[name]()
+    port, ref = _model(name), _model(name, ref=True)
     run_pipeline(port, "default-tpp-passes")
     ref_run_pipeline(ref, "default-tpp-passes")
     assert _xsmm_sequence(port) == _xsmm_sequence(ref)
@@ -163,7 +177,7 @@ def test_imported_models_lower_like_the_reference(name):
 
 
 def test_gpt_lowers_to_the_transformer_kernels():
-    m = MODELS["gpt-bf16"]()
+    m = _model("gpt-bf16")
     run_pipeline(m, "default-tpp-passes")
     ops = m["entry"].ops
     disp = {id(op.result): op for op in ops if op.opname.endswith("_dispatch")}

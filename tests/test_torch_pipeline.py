@@ -15,14 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from tpp_mlir_tpu.ir import parse_module
-from tpp_mlir_tpu.models.gpt import build_gpt
-from tpp_mlir_tpu.models.mlp import MlpConfig, build_mlp
-from tpp_mlir_tpu.models.transformer_block import build_transformer_block
+from tpp_mlir_tpu.ir import parse_module as ref_parse_module
+from tpp_mlir_tpu.models.gpt import build_gpt as ref_build_gpt
+from tpp_mlir_tpu.models.transformer_block import \
+    build_transformer_block as ref_build_transformer_block
 from tpp_mlir_tpu.runtime.tensor_init import tensor_init as ref_tensor_init
-from tpp_mlir_tpu.tools.mlir_gen import generate_text
 from tpp_mlir_tpu.tools.tpp_run import init_args as ref_init_args
 from tpp_mlir_tpu.tools.tpp_run import run_module as ref_run_module
+from tpp_mlir_tpu_torch.ir import parse_module
+from tpp_mlir_tpu_torch.models.gpt import build_gpt
+from tpp_mlir_tpu_torch.models.mlp import MlpConfig, build_mlp
+from tpp_mlir_tpu_torch.models.transformer_block import \
+    build_transformer_block
+from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.runtime import compile as port_compile
 from tpp_mlir_tpu_torch.runtime.tensor_init import tensor_init, to_torch
 from tpp_mlir_tpu_torch.tools import tpp_run
@@ -30,8 +35,10 @@ from tpp_mlir_tpu_torch.tools.tpp_run import (init_args, run_module,
                                               wrap_bench_main)
 
 
-def _module(cfg, precision="default"):
-    m = parse_module(generate_text(cfg))
+def _module(cfg, precision="default", ref=False):
+    """tpp-gen's module, parsed by the port (or, ref=True, by the JAX
+    package: each package runs IR of its own classes)."""
+    m = (ref_parse_module if ref else parse_module)(generate_text(cfg))
     if precision != "default":
         m.attrs["precision"] = precision
     return m
@@ -65,7 +72,7 @@ CASES = {
 @pytest.mark.parametrize("name", list(CASES))
 def test_run_module_matches_reference(name):
     cfg, precision, tol = CASES[name]
-    want = ref_run_module(_module(cfg, precision), seed=3,
+    want = ref_run_module(_module(cfg, precision, ref=True), seed=3,
                           out_stream=io.StringIO())["outputs"][0]
     got = run_module(_module(cfg, precision), seed=3, device="cpu",
                      out_stream=io.StringIO())["outputs"][0]
@@ -90,9 +97,9 @@ def test_bench_wrapper_chains_iterations():
     from tpp_mlir_tpu_torch.passes import run_pipeline
     run_pipeline(m, "default-tpp-passes")
     name = wrap_bench_main(m, "entry", 3)
-    args = init_args(m, "entry", "normal", 0)
-    step = port_compile(m, "entry")
-    mean, out = port_compile(m, name)(*args)
+    args = init_args(m, "entry", "normal", 0, device="cpu")
+    step = port_compile(m, "entry", device="cpu")
+    mean, out = port_compile(m, name, device="cpu")(*args)
     assert float(mean) > 0
     assert torch.equal(out, step(step(step(args[0]))))
 
@@ -119,7 +126,7 @@ def test_cli_prints_like_the_reference(tmp_path, capsys):
                          "--precision", "highest", "--device", "cpu"]) == 0
     rows = [r for r in capsys.readouterr().out.splitlines()
             if r.startswith("(")]
-    want = ref_run_module(parse_module(path.read_text()), seed=2,
+    want = ref_run_module(ref_parse_module(path.read_text()), seed=2,
                           out_stream=io.StringIO())["outputs"][0]
     got = np.array([[float(v) for v in r.strip("() ").split(",")]
                     for r in rows], np.float32)
@@ -168,17 +175,18 @@ def test_to_torch_carries_ml_dtypes_bf16_bit_for_bit():
 # the transformer slice: imported GPT and transformer block
 # ---------------------------------------------------------------------------
 
-def _gpt(dtype="bf16", precision="default"):
-    m = build_gpt(batch=2, seq=128, vocab=512, embed=256, heads=2, layers=2,
-                  dtype=dtype)
+def _gpt(dtype="bf16", precision="default", ref=False):
+    m = (ref_build_gpt if ref else build_gpt)(
+        batch=2, seq=128, vocab=512, embed=256, heads=2, layers=2,
+        dtype=dtype)
     if precision != "default":
         m.attrs["precision"] = precision
     return m
 
 
-def _block(dtype="f32", precision="default"):
-    m = build_transformer_block(batch=2, seq=128, embed=256, heads=2,
-                                dtype=dtype)
+def _block(dtype="f32", precision="default", ref=False):
+    m = (ref_build_transformer_block if ref else build_transformer_block)(
+        batch=2, seq=128, embed=256, heads=2, dtype=dtype)
     if precision != "default":
         m.attrs["precision"] = precision
     return m
@@ -202,7 +210,7 @@ MODEL_CASES = {
 @pytest.mark.parametrize("name", list(MODEL_CASES))
 def test_imported_model_matches_reference(name):
     build, dtype, precision, tol = MODEL_CASES[name]
-    want = ref_run_module(build(dtype, precision), seed=1,
+    want = ref_run_module(build(dtype, precision, ref=True), seed=1,
                           out_stream=io.StringIO())["outputs"][0]
     got = run_module(build(dtype, precision), seed=1, device="cpu",
                      out_stream=io.StringIO())["outputs"][0]
@@ -223,8 +231,8 @@ def test_imported_model_lowered_matches_linalg_to_loops(name):
 
 def test_gpt_at_highest_matches_the_torch_module():
     # as tests/frontend/test_torch_import.py does for the JAX package
-    from tpp_mlir_tpu.frontend import import_torch_fx
-    from tpp_mlir_tpu.models.gpt import GptTorch
+    from tpp_mlir_tpu_torch.frontend import import_torch_fx
+    from tpp_mlir_tpu_torch.models.gpt import GptTorch
     torch.manual_seed(0)
     tm = GptTorch(96, 64, 4, 2, 4, max_seq=16).eval()
     ids = np.random.default_rng(0).integers(0, 96, (2, 16)).astype(np.int32)
@@ -234,16 +242,17 @@ def test_gpt_at_highest_matches_the_torch_module():
     m.attrs["precision"] = "highest"
     from tpp_mlir_tpu_torch.passes import run_pipeline
     run_pipeline(m, "default-tpp-passes")
-    got = port_compile(m)(torch.from_numpy(ids)).numpy()
+    got = port_compile(m, device="cpu")(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_init_args_makes_the_reference_token_ids():
     # token ids: uniform in [0, rows of the gather table), default_rng(seed
     # + i), as the reference's tpp_run.init_args; not truncated normals
-    m = build_gpt(batch=2, seq=16, vocab=96, embed=32, heads=2, layers=1)
-    want = ref_init_args(m, "entry", "normal", 5)
-    got = init_args(m, "entry", "normal", 5)
+    kw = dict(batch=2, seq=16, vocab=96, embed=32, heads=2, layers=1)
+    m = build_gpt(**kw)
+    want = ref_init_args(ref_build_gpt(**kw), "entry", "normal", 5)
+    got = init_args(m, "entry", "normal", 5, device="cpu")
     assert got[0].dtype == torch.int32
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     assert 0 <= int(got[0].min()) and int(got[0].max()) < 96
@@ -256,7 +265,7 @@ def test_literals_carry_to_the_reference_bits(dtype):
     from tpp_mlir_tpu_torch.runtime.params import literal_tensor, module_params
     m = build_gpt(batch=1, seq=16, vocab=96, embed=32, heads=2, layers=1,
                   dtype=dtype)
-    params = module_params(m)
+    params = module_params(m, device="cpu")
     consts = [op for op in m["entry"].ops if op.opname == "tl.constant"
               and op.attrs.get("init") == "literal"]
     assert len(params) == len(consts) > 0
@@ -266,7 +275,7 @@ def test_literals_carry_to_the_reference_bits(dtype):
         t = op.results[0].type
         want = np.asarray(jnp.asarray(np.asarray(
             m.literals[op.attrs["literal"]])).astype(jnp_dtype(t)))
-        got = literal_tensor(m, op.attrs["literal"], t)
+        got = literal_tensor(m, op.attrs["literal"], t, device="cpu")
         assert torch.equal(got, params[op.attrs["literal"]])
         np.testing.assert_array_equal(got.view(tb).numpy().view(nb),
                                       want.view(nb))

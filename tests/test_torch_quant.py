@@ -61,7 +61,8 @@ def test_quantize_tokens_bit_identical():
 def test_quantize_params_bit_identical(dtype):
     cfg = J.GptConfig(dtype=dtype, **BASE)
     jp = J.init_params(cfg, seed=0)
-    pp = P.params_from_numpy(to_numpy(jp), P.GptConfig(dtype=dtype, **BASE))
+    pp = P.params_from_numpy(to_numpy(jp), P.GptConfig(dtype=dtype, **BASE),
+                             device="cpu")
     jq = J.quantize_params(jp, include_embed=True)
     pq = P.quantize_params(pp, include_embed=True)
     for name in ("wte", "wpe", "lm_head"):
@@ -78,7 +79,8 @@ def test_quantize_params_bit_identical(dtype):
     assert P.quantized_bytes(pq) == J.quantized_bytes(jq)
     # and the quantized tree itself carries across bit for bit
     carried = P.params_from_numpy(to_numpy(jq), P.GptConfig(dtype=dtype,
-                                                            **BASE))
+                                                            **BASE),
+                                  device="cpu")
     assert _same(carried["lm_head"].q, jq["lm_head"].q)
     assert _same(carried["blocks"][1]["w2"].scale, jq["blocks"][1]["w2"].scale)
     deq = P.dequantize_params(pq)
@@ -88,7 +90,7 @@ def test_quantize_params_bit_identical(dtype):
 
 
 def test_int4_raises_naming_the_roadmap_item():
-    params = P.init_params(P.GptConfig(**BASE))
+    params = P.init_params(P.GptConfig(**BASE), device="cpu")
     with pytest.raises(NotImplementedError, match="A7.*packed int4"):
         P.quantize_params(params, bits=4)
     with pytest.raises(NotImplementedError, match="A7"):
@@ -106,7 +108,7 @@ def test_params_from_numpy_carries_jax_leaves_bit_for_bit(dtype, stacked,
     if bits_view:       # bf16 as a uint16 bit view, as a loader gives it
         tree = jax.tree.map(lambda a: a.view(np.uint16), tree)
     pp = P.params_from_numpy(tree, P.GptConfig.llama(kv_heads=2, dtype=dtype,
-                                                     **BASE))
+                                                     **BASE), device="cpu")
     assert len(pp["blocks"]) == cfg.layers
     for name in ("wte", "lnf_g", "lm_head"):
         assert _same(pp[name], jp[name]), name
@@ -118,11 +120,12 @@ def test_params_from_numpy_carries_jax_leaves_bit_for_bit(dtype, stacked,
 def test_params_from_numpy_refuses_inexact_bf16():
     tree = to_numpy(J.init_params(J.GptConfig(**BASE), seed=0))  # f32
     with pytest.raises(ValueError, match="bf16-exact"):
-        P.params_from_numpy(tree, P.GptConfig(dtype="bf16", **BASE))
+        P.params_from_numpy(tree, P.GptConfig(dtype="bf16", **BASE),
+                            device="cpu")
 
 
 def test_stack_params_loads_a_stacked_tree():
-    pp = P.init_params(P.GptConfig(**BASE), seed=0)
+    pp = P.init_params(P.GptConfig(**BASE), seed=0, device="cpu")
     qp = P.quantize_params(pp)
     stacked = dict(qp)
     stacked["blocks"] = {
@@ -148,7 +151,8 @@ def test_params_from_torch_matches_jax(dtype):
                      BASE["layers"], BASE["mlp_ratio"],
                      max_seq=BASE["max_seq"]).eval()
     jp = J.params_from_torch(model, J.GptConfig(dtype=dtype, **BASE))
-    pp = P.params_from_torch(model, P.GptConfig(dtype=dtype, **BASE))
+    pp = P.params_from_torch(model, P.GptConfig(dtype=dtype, **BASE),
+                             device="cpu")
     for name in ("wte", "wpe", "lnf_g", "lnf_b", "lm_head"):
         assert _same(pp[name], jp[name]), name
     for jb, pb in zip(jp["blocks"], pp["blocks"]):

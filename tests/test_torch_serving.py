@@ -37,6 +37,11 @@ CASES = {
     "kv_packed": (dict(dtype="f32", kv_packed=True, decode_attn="pallas"),
                   False, False),
     "bf16": (dict(dtype="bf16"), False, False),
+    # prefill attention through B14's forward (its plain version here), the
+    # JAX engine through the Pallas kernel in interpret mode
+    "flash_attn": (dict(dtype="f32", flash_attn=True), False, False),
+    "flash_attn_gqa": (dict(dtype="f32", kv_heads=2, flash_attn=True), True,
+                       False),
 }
 
 
@@ -54,7 +59,7 @@ class Case:
         jp = J.init_params(self.jcfg, seed=7)
         self.jp = J.quantize_params(jp) if quant else jp
         self.pp = P.params_from_numpy(jax.tree.map(np.asarray, self.jp),
-                                      self.pcfg)
+                                      self.pcfg, device="cpu")
         self.ids = np.random.default_rng(7).integers(
             0, BASE["vocab"], (B, S0 + T)).astype(np.int32)
         self.j_prefill = J.make_prefill(self.jcfg, use_pallas=False)
@@ -167,7 +172,7 @@ def test_decode_kernel_and_einsum_paths_agree():
     """decode_attn "pallas" (the kernel's plain version on the CPU) and
     "xla" (the einsum path) give the same step, for GQA with int8 KV."""
     cfg = P.GptConfig.llama(**BASE, kv_heads=2, kv_quant="int8")
-    params = P.init_params(cfg, seed=1)
+    params = P.init_params(cfg, seed=1, device="cpu")
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, BASE["vocab"], (B, 8)).astype(np.int32))
     outs = []
@@ -181,10 +186,6 @@ def test_decode_kernel_and_einsum_paths_agree():
 def test_config_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A9"):
         P.GptConfig(n_experts=4)
-    cfg = P.GptConfig(**BASE, flash_attn=True)
-    params = P.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="A10"):
-        P.make_prefill(cfg)(params, torch.zeros(1, 4, dtype=torch.int32))
     with pytest.raises(ValueError):
         P.GptConfig(**BASE, kv_packed=True, decode_attn="xla")
 
@@ -284,7 +285,7 @@ def test_tpp_serve_matches_the_jax_tool_on_carried_weights():
     pcfg = P.GptConfig(vocab=96, embed=64, heads=4, layers=2, max_seq=24,
                        dtype="f32")
     res = tpp_serve.serve(pcfg, P.params_from_numpy(
-        jax.tree.map(np.asarray, jp), pcfg),
+        jax.tree.map(np.asarray, jp), pcfg, device="cpu"),
         torch.from_numpy(ids.astype(np.int32)), args.steps)
     assert np.array_equal(res["tokens"].numpy(), np.asarray(want))
     out = io.StringIO()

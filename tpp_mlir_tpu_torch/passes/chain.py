@@ -16,8 +16,7 @@ invokes where:
 
 from __future__ import annotations
 
-from tpp_mlir_tpu.ir import Function, I64, Module, Operation, TppBuilder
-
+from ..ir import Function, I64, Module, Operation, TppBuilder
 from ..xsmm.flags import ChainKey
 from ..xsmm.kernels import chain_fits_smem
 from .pass_manager import Pass, register

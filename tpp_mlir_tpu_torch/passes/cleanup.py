@@ -6,7 +6,7 @@ port copies its passes).
 
 from __future__ import annotations
 
-from tpp_mlir_tpu.ir import Function, Module
+from ..ir import Function, Module
 from .pass_manager import Pass, register
 
 # Ops with side effects that DCE must keep even when unused.

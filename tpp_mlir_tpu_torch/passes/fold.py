@@ -12,10 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpp_mlir_tpu.ir import Function, Module, TensorType, TppBuilder
-from tpp_mlir_tpu.ir.core import walk_backward_slice
-from tpp_mlir_tpu.ir.matcher import ELTWISE_BINARY, ELTWISE_UNARY
-
+from ..ir import Function, Module, TensorType, TppBuilder
+from ..ir.core import walk_backward_slice
+from ..ir.matcher import ELTWISE_BINARY, ELTWISE_UNARY
 from ..runtime.tensor_init import tensor_init
 from .pass_manager import Pass, register
 

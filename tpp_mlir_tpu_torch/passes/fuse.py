@@ -11,10 +11,9 @@ from __future__ import annotations
 
 import itertools
 
-from tpp_mlir_tpu.ir import Function, Module, Operation
-from tpp_mlir_tpu.ir.matcher import (ELTWISE_BINARY, ELTWISE_UNARY,
-                                     is_contraction, is_zero_op)
-
+from ..ir import Function, Module, Operation
+from ..ir.matcher import (ELTWISE_BINARY, ELTWISE_UNARY, is_contraction,
+                          is_zero_op)
 from .pass_manager import Pass, register
 
 FUSABLE_CONSUMERS = ELTWISE_UNARY + ELTWISE_BINARY

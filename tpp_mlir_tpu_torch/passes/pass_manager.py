@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Iterable
 
-from tpp_mlir_tpu.ir import Function, Module
+from ..ir import Function, Module
 
 _REGISTRY: dict[str, type["Pass"]] = {}
 _PIPELINES: dict[str, Callable[[], list[str]]] = {}

@@ -10,8 +10,7 @@ the slice is run half-lowered.
 
 from __future__ import annotations
 
-from tpp_mlir_tpu.ir import Function, Module
-
+from ..ir import Function, Module
 from .pass_manager import Pass, register, register_pipeline
 
 # ops the port's executor runs after lowering

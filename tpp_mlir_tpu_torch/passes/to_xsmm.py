@@ -27,10 +27,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpp_mlir_tpu.ir import (Function, I64, Module, Operation, TensorType,
-                             TppBuilder)
-from tpp_mlir_tpu.ir.matcher import is_pure_zero, is_zero_op
-
+from ..ir import (Function, I64, Module, Operation, TensorType,
+                  TppBuilder)
+from ..ir.matcher import is_pure_zero, is_zero_op
 from .fold import _hoist_before, _materialize_const, new_literal_const
 from .pass_manager import Pass, register
 

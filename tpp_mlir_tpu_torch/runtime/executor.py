@@ -21,9 +21,9 @@ from typing import Any, Callable
 
 import torch
 
-from tpp_mlir_tpu.ir import Function, Module, Operation
-from tpp_mlir_tpu.ir.types import TensorType
-
+from ..ir import Function, Module, Operation
+from ..ir.types import TensorType
+from ..utils.target import resolve_device
 from ..xsmm.cache import global_cache
 from ..xsmm.flags import (BinaryKey, BrgemmKey, ChainKey, FlashMhaKey,
                           LayerNormKey)
@@ -398,13 +398,13 @@ def extract_bench_kernel(module: Module, func_name: str = "entry"):
 
 
 def compile(module: Module, func_name: str = "entry",
-            device: str | torch.device = "cpu",
+            device: str | torch.device = "cuda",
             enforce_checks: bool = True) -> Callable:
-    """A callable running `func_name` eagerly on `device`. Its tl.constant
-    values are made here, once; check.* ops raise AssertionError when
-    enforce_checks."""
+    """A callable running `func_name` eagerly on `device` (the card unless
+    the caller names the CPU). Its tl.constant values are made here, once;
+    check.* ops raise AssertionError when enforce_checks."""
     func = module[func_name]
-    device = torch.device(device)
+    device = resolve_device(device)
     preset = {id(op.results[0]): _eval_constant(op, device)
               for op in func.ops if op.opname == "tl.constant"}
 

@@ -1,6 +1,6 @@
 """Weights carried across: a module's literals as tensors on the device.
 
-An imported model (`tpp_mlir_tpu.frontend`, e.g. `models/gpt.py`) keeps its
+An imported model (`frontend/`, e.g. `models/gpt.py`) keeps its
 weights in `module.literals` (numpy, f32), and passes such as qkv-merge add
 folded ones (the concatenated QKV weights). A `tl.constant` with
 `init = "literal"` names one. The JAX package makes it
@@ -16,15 +16,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpp_mlir_tpu.ir import Module
-from tpp_mlir_tpu.ir.types import TensorType
-
+from ..ir import Module
+from ..ir.types import TensorType
+from ..utils.target import resolve_device
 from .tensor_init import TORCH_DTYPES
 
 
 def literal_tensor(module: Module, name: str, type: TensorType,
-                   device: str | torch.device = "cpu") -> torch.Tensor:
+                   device: str | torch.device = "cuda") -> torch.Tensor:
     """`module.literals[name]` as a tensor of `type` on `device`."""
+    device = resolve_device(device)
     arr = np.asarray(module.literals[name])
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
@@ -38,10 +39,11 @@ def literal_tensor(module: Module, name: str, type: TensorType,
     return t.to(TORCH_DTYPES[type.dtype]).to(device)
 
 
-def module_params(module: Module, device: str | torch.device = "cpu"
+def module_params(module: Module, device: str | torch.device = "cuda"
                   ) -> dict[str, torch.Tensor]:
     """Every literal a `tl.constant` of the module names, as a tensor at
     that constant's IR type on `device`."""
+    device = resolve_device(device)
     out: dict[str, torch.Tensor] = {}
     for func in module.funcs.values():
         for op in func.ops:

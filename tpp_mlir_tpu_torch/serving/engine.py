@@ -17,9 +17,10 @@ with the same numerics, function for function. What differs, and why:
   a decode step reads it on the host, so the step can be captured in a CUDA
   graph (`make_generate` replays it per token).
 - The kernels: prefill attention goes to `csrc/attention.cu` (FlashMhaKey,
-  B7) for every shape, int8 compute to `csrc/int8_gemm.cu` (Int8GemmKey,
-  B15) and decode attention to `csrc/decode_attn.cu` (DecodeAttnKey, B13)
-  for every variant under "auto" (ROADMAP queue C). `use_kernels` (the
+  B7) for every shape, or with `flash_attn` to B14's forward
+  (`csrc/flash_train.cu`, FlashTrainKey), int8 compute to
+  `csrc/int8_gemm.cu` (Int8GemmKey, B15) and decode attention to
+  `csrc/decode_attn.cu` (DecodeAttnKey, B13) for every variant under "auto" (ROADMAP queue C). `use_kernels` (the
   JAX `use_pallas`) defaults to "the params are on CUDA"; with it off, or
   on the CPU, prefill attention is the composed path, `decode_attn="auto"`
   the einsum path, and a forced kernel runs its plain version
@@ -27,9 +28,9 @@ with the same numerics, function for function. What differs, and why:
 - The dense projections are PyTorch GEMMs (the JAX package's `jnp.dot`):
   f32 accumulation with an f32 result, TF32 off.
 
-Not ported here: MoE (`n_experts > 0`, ROADMAP A9), the flash training
-attention (`flash_attn`, A10/B14), the tp decode (A11), continuous
-batching, beam and speculative decoding (A8), int4 weights (A7).
+Not ported here: MoE (`n_experts > 0`, ROADMAP A9), `remat` (A10), the tp
+decode (A11), continuous batching, beam and speculative decoding (A8),
+int4 weights (A7).
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..xsmm import (DecodeAttnKey, FlashMhaKey, Int8GemmKey, global_cache,
-                    reference_kernel)
+from ..utils.target import resolve_device
+from ..xsmm import (DecodeAttnKey, FlashMhaKey, FlashTrainKey, Int8GemmKey,
+                    global_cache, reference_kernel)
 from ..xsmm.reference import DTYPES
 from .quant import QTensor, quantize_tokens
 
@@ -146,9 +148,10 @@ class GptConfig:
 # ---------------------------------------------------------------------------
 # parameters
 
-def params_from_torch(model, cfg: GptConfig, device="cpu") -> dict:
-    """Params from a `tpp_mlir_tpu.models.gpt.GptTorch`; weight matrices are
+def params_from_torch(model, cfg: GptConfig, device="cuda") -> dict:
+    """Params from a `models.gpt` GptTorch; weight matrices are
     stored (in, out), so the forward is x @ W."""
+    device = resolve_device(device)
     if cfg.kv_h != cfg.heads:
         raise ValueError("params_from_torch: models/gpt.py is MHA; GQA "
                          "configs use init_params or params_from_numpy")
@@ -178,11 +181,12 @@ def params_from_torch(model, cfg: GptConfig, device="cpu") -> dict:
             "lnf_b": t(model.ln_f.bias), "lm_head": t(model.lm_head.weight.T)}
 
 
-def init_params(cfg: GptConfig, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg: GptConfig, seed: int = 0, device="cuda") -> dict:
     """Random params for synthetic serving runs, at the JAX init_params'
     scales, zeros and ones. The values come from a torch.Generator on
     `device` and differ from the JAX package's jax.random stream for the
     same seed; carry JAX weights across with `params_from_numpy`."""
+    device = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     E, V, S = cfg.embed, cfg.vocab, cfg.max_seq
     F_ = cfg.mlp_ratio * E
@@ -270,11 +274,12 @@ def _from_numpy(a, dt: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: dict, cfg: GptConfig, device="cpu") -> dict:
+def params_from_numpy(tree: dict, cfg: GptConfig, device="cuda") -> dict:
     """The port's params from a JAX params tree passed as numpy arrays (per
     layer or stacked), QTensors as (q, scale) pairs: the weight carrier that
     lets both engines run the same weights. Leaves take the config's dtype;
     QTensor payloads stay int8 and their scales f32."""
+    device = resolve_device(device)
     dt = DTYPES[cfg.dtype]
 
     def leaf(x):
@@ -465,12 +470,11 @@ def composed_causal_attention(q, k, v, scale, causal: bool = True):
 
 
 def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
-    """Causal attention over token-layout (B, S, E) projections: the B7
-    kernel (csrc/attention.cu) with kernels on, else composed."""
-    if cfg.flash_attn:
-        raise NotImplementedError(
-            "flash_attn (the flash training attention) is not ported: "
-            "ROADMAP A10 / B14")
+    """Causal attention over token-layout (B, S, E) projections: with
+    cfg.flash_attn the training forward B14 (csrc/flash_train.cu; its plain
+    version with kernels off), as the JAX engine routes it (engine.py:
+    978-993 there, without its TPU VMEM gate); else the B7 kernel
+    (csrc/attention.cu) with kernels on, or the composed attention."""
     B, S, E = q.shape
     H, D = cfg.heads, cfg.head_dim
     scale = D ** -0.5
@@ -481,6 +485,12 @@ def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
             .reshape(B, S, E)
         v = v.reshape(B, S, cfg.kv_h, D).repeat_interleave(g, dim=2) \
             .reshape(B, S, E)
+    if cfg.flash_attn:
+        key = FlashTrainKey(batch=B, heads=H, seq=S, head_dim=D,
+                            dtype=cfg.dtype, scale=scale)
+        o, _ = _kernel(key, kernels)(
+            *(t.reshape(B, S, H, D).contiguous() for t in (q, k, v)))
+        return o.reshape(B, S, E).to(q.dtype)
     if kernels:
         key = FlashMhaKey(batch=B, seq=S, seq_kv=S, head_dim=D,
                           dtype=cfg.dtype, scale=scale, causal=True, heads=H)

@@ -6,7 +6,7 @@
       --model 'transformer_block:{"heads": 8}' --device cpu
 
 An imported model (the torch-defined GPT and transformer block of
-`tpp_mlir_tpu.models`) keeps its weights in `module.literals`, which the IR
+`models/`) keeps its weights in `module.literals`, which the IR
 printer does not print, so it cannot go through IR text and tpp_run; this
 driver builds it in process. `build_module(entry)` mirrors the reference's
 `tpp_mlir_tpu/tools/bench_driver.py:29-71` for the `model` entries of the
@@ -32,8 +32,8 @@ from .tpp_run import run_module
 
 
 def _builders():
-    from tpp_mlir_tpu.models.gpt import build_gpt
-    from tpp_mlir_tpu.models.transformer_block import build_transformer_block
+    from ..models.gpt import build_gpt
+    from ..models.transformer_block import build_transformer_block
     return {"gpt": build_gpt, "transformer_block": build_transformer_block}
 
 

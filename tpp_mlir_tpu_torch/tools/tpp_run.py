@@ -20,22 +20,13 @@ import sys
 import numpy as np
 import torch
 
-from tpp_mlir_tpu.ir import Function, Module, parse_module
-from tpp_mlir_tpu.ir.ops import TppBuilder
-
+from ..ir import Function, Module, parse_module
+from ..ir.ops import TppBuilder
 from ..passes import PassManager
 from ..runtime import bench, tensor_init
 from ..runtime import compile as tpp_compile
 from ..runtime.perf import device_name, model_flops
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch finds no CUDA device; "
-                           "the port does not fall back to the CPU "
-                           "(pass --device cpu to run the plain versions)")
-    return dev
+from ..utils.target import resolve_device
 
 
 def wrap_bench_main(module: Module, func_name: str, n: int) -> str | None:
@@ -73,11 +64,12 @@ def print_tensor(t, file=None):
 
 
 def init_args(module: Module, func_name: str, init_type: str, seed: int,
-              device: str | torch.device = "cpu") -> list[torch.Tensor]:
+              device: str | torch.device = "cuda") -> list[torch.Tensor]:
     """Deterministic args, the reference's rule (tpp_run.py:68-92): a float
     arg i is tensor_init(init_type, seed + i); an i32/i8 arg holds token
     ids, int32 uniform in [0, rows of the tl.gather table it feeds) (256
     when it feeds none) from numpy's default_rng(seed + i)."""
+    device = resolve_device(device)
     func = module[func_name]
     out = []
     for i, a in enumerate(func.args):

@@ -14,6 +14,9 @@ replayed from a CUDA graph, each with its kernels' device ms
   python -m tpp_mlir_tpu_torch.tools.trace --serve '{"batch": 8,
       "prompt": 512, "max_seq": 1024, "dtype": "bf16"}' --iters 8
 
+`trace_steps(step)` traces a few calls of any warm step function the same
+way (chip_smoke.py uses it on GPT-2 small's training step).
+
 Lowers the module with default-tpp-passes, warms it up, then traces two
 regions on the card and prints one line each:
   eager  `--iters` forwards of the entry through the executor;
@@ -38,10 +41,12 @@ import torch
 
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
+from ..utils.target import resolve_device
 from ..xsmm import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    Int8GemmKey, LayerNormKey, global_cache)
+                    FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
+                    LayerNormKey, global_cache)
 from .bench_driver import build_module
-from .tpp_run import init_args, load_module, resolve_device, wrap_bench_main
+from .tpp_run import init_args, load_module, wrap_bench_main
 
 
 def device_breakdown(fn) -> dict:
@@ -54,8 +59,11 @@ def device_breakdown(fn) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a user annotation (torch.optim's "Optimizer.step#...") is mirrored on
+    # the device timeline as a span around its kernels: not an activity
     spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
     if not spans:
         raise RuntimeError("the profiler recorded no device activity")
     spans.sort()
@@ -108,6 +116,12 @@ def describe(key) -> str:
         extra = "".join(f" +{x}" for x, on in (
             ("bias", key.has_bias), (key.unary_kind, key.unary_kind)) if on)
         return f"int8_gemm {key.m}x{key.n}x{key.k} {key.out_dtype}{extra}"
+    if isinstance(key, FlashTrainKey):
+        kind = "flash_train_bwd" if isinstance(key, FlashTrainBwdKey) \
+            else "flash_train_fwd"
+        return (f"{kind} b{key.batch} s{key.seq} h{key.heads} "
+                f"d{key.head_dim} {key.dtype}"
+                f"{' causal' if key.causal else ''}")
     return type(key).__name__
 
 
@@ -191,6 +205,15 @@ def trace_serving(cfg, params, ids, steps: int = 8) -> dict:
         lambda: graphed.repeat(tok, steps))
     return {f"{region} ({steps} steps)" if "decode" in region else region: r
             for region, r in out.items()}
+
+
+def trace_steps(step, steps: int = 2) -> dict:
+    """The device breakdown of `steps` calls of step() (a warm training
+    step: its kernels built, its optimizer state made)."""
+    def run():
+        for _ in range(steps):
+            step()
+    return {f"train step ({steps} steps)": device_breakdown(run)}
 
 
 def print_trace(res: dict, label: str = "") -> None:

@@ -1,3 +1,3 @@
-from .target import TargetInfo, current_target
+from .target import TargetInfo, current_target, resolve_device
 
-__all__ = ["TargetInfo", "current_target"]
+__all__ = ["TargetInfo", "current_target", "resolve_device"]

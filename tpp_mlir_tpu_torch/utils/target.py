@@ -26,6 +26,20 @@ class TargetInfo:
     capability: tuple[int, int] = (0, 0)
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """`device` as a torch.device; a CUDA device when torch finds no card
+    raises. Every entry point of the port defaults to "cuda" and goes
+    through this rule: nothing falls back to the CPU, which a caller asks
+    for by name (device="cpu", as the CPU tests do)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}, but torch finds no CUDA device; "
+                           f"the port does not fall back to the CPU (pass "
+                           f"device='cpu' or --device cpu to run the plain "
+                           f"versions)")
+    return dev
+
+
 def current_target(device: str | torch.device = "cuda") -> TargetInfo:
     dev = torch.device(device)
     if dev.type == "cpu":

@@ -41,6 +41,8 @@ _SIGNATURES = {
                        ctypes.POINTER(_I)] + [_I] * 10 + [_P]),
     "tpp_decode_attn": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _P]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -1,10 +1,10 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
-FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey) and of
-`tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey). They are copies rather
-than imports because importing anything under `tpp_mlir_tpu.xsmm` loads
-JAX, which the port never does.
+FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey), of
+`tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey) and of
+`tpp_mlir_tpu/xsmm/flash_train.py` (FlashTrainKey, without `hpp`). The port
+imports nothing of the JAX package, so it keeps its own copies.
 `tests/test_torch_flags.py` pins every field name and default to the
 originals, so the two backends keep one key contract.
 """
@@ -156,3 +156,26 @@ class Int8GemmKey:
     bm: int = 0
     bn: int = 0
     bk: int = 0
+
+
+@dataclass(frozen=True)
+class FlashTrainKey:
+    """Key of the training-attention pair (a copy of
+    `tpp_mlir_tpu/xsmm/flash_train.py:51`): the forward with the base-2
+    log-sum-exp (B14) under this type, the backward (B18) under
+    FlashTrainBwdKey. `hpp` (heads per TPU program, sized to VMEM) is left
+    out: a Hopper block holds one head's tiles."""
+
+    batch: int
+    heads: int
+    seq: int
+    head_dim: int
+    dtype: str = "bf16"          # operand dtype: f32 | bf16
+    causal: bool = True
+    scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class FlashTrainBwdKey(FlashTrainKey):
+    """FlashTrainKey's fields for the backward kernel: its own type, so that
+    the kernel cache and the launch counts keep B14 and B18 apart."""

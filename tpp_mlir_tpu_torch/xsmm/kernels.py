@@ -19,6 +19,11 @@ reached. Each wrapper counts its launches.
   DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
                                      decode_attn.py:101 build_decode_attn)
   Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm)
+  FlashTrainKey -> csrc/flash_train.cu (replaces tpp_mlir_tpu/xsmm/
+                                     flash_train.py:146
+                                     build_flash_train_fwd, B14)
+  FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
+                                     build_flash_train_bwd, B18)
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -31,7 +36,8 @@ import torch
 
 from . import reference
 from .flags import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    Int8GemmKey, LayerNormKey)
+                    FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
+                    LayerNormKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -347,11 +353,73 @@ def _int8_gemm_launch(key: Int8GemmKey):
     return launch
 
 
+FLASH_TRAIN_HEAD_DIMS = (32, 64, 128)   # flash_train.cu's instantiations
+
+
+def _flash_train_operands(key: FlashTrainKey, named: dict, dev) -> None:
+    """Check (B, S, H, D) operands in the key's dtype and (B, H, S) f32
+    statistics, all contiguous on `dev`."""
+    if key.head_dim not in FLASH_TRAIN_HEAD_DIMS:
+        raise ValueError(f"flash_train.cu takes head_dim in "
+                         f"{FLASH_TRAIN_HEAD_DIMS}: {key}")
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+    dt = reference.DTYPES[key.dtype]
+    for name, t in named.items():
+        if name in ("lse2", "delta"):
+            _expect(t, name, (B, H, S), torch.float32, dev)
+        else:
+            _expect(t, name, (B, S, H, D), dt, dev)
+
+
+def _flash_train_fwd_launch(key: FlashTrainKey):
+    from .build import check, library
+
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+    dt = reference.DTYPES[key.dtype]
+
+    def launch(q, k, v):
+        dev = q.device
+        _flash_train_operands(key, {"q": q, "k": k, "v": v}, dev)
+        o = torch.empty((B, S, H, D), dtype=dt, device=dev)
+        lse2 = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        rc = library().tpp_flash_train_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse2.data_ptr(), B, S, H, D, _DT_CODE[dt], int(key.causal),
+            key.scale * reference.LOG2E, _stream())
+        check(rc, f"flash_train_fwd {key}")
+        return o, lse2
+    return launch
+
+
+def _flash_train_bwd_launch(key: FlashTrainBwdKey):
+    from .build import check, library
+
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+    dt = reference.DTYPES[key.dtype]
+
+    def launch(q, k, v, do, lse2, delta):
+        dev = q.device
+        _flash_train_operands(key, {"q": q, "k": k, "v": v, "do": do,
+                                    "lse2": lse2, "delta": delta}, dev)
+        dq, dk, dv = (torch.empty((B, S, H, D), dtype=dt, device=dev)
+                      for _ in range(3))
+        rc = library().tpp_flash_train_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, S, H, D, _DT_CODE[dt], int(key.causal),
+            key.scale * reference.LOG2E, key.scale, _stream())
+        check(rc, f"flash_train_bwd {key}")
+        return dq, dk, dv
+    return launch
+
+
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              FlashMhaKey: _attention_launch,
              LayerNormKey: _layer_norm_launch,
              DecodeAttnKey: _decode_attn_launch,
-             Int8GemmKey: _int8_gemm_launch}
+             Int8GemmKey: _int8_gemm_launch,
+             FlashTrainKey: _flash_train_fwd_launch,
+             FlashTrainBwdKey: _flash_train_bwd_launch}
 
 
 def build_kernel(key) -> Kernel:

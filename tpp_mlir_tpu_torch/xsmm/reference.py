@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from .flags import (BinaryKey, BrgemmKey, ChainKey, DecodeAttnKey,
-                    FlashMhaKey, Int8GemmKey, LayerNormKey)
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
+                    LayerNormKey)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -38,7 +39,6 @@ _OUTSIDE = {
     "BatchMatmulKey": "queue A13 / B21-B22",
     "ConvBrgemmKey": "queue A13 / B23",
     "ConvNhwcKey": "queue A13 / B24-B25",
-    "FlashTrainKey": "queue A10 / B14, B18",
     "GroupedGemmKey": "queue A9 / B16",
     "GroupedWgradKey": "queue A9 / B17",
 }
@@ -53,13 +53,17 @@ def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
     if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
-                            DecodeAttnKey, Int8GemmKey)):
+                            DecodeAttnKey, Int8GemmKey, FlashTrainKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
             f"{_OUTSIDE.get(name, 'queue A')}")
     if isinstance(key, DecodeAttnKey):
         _check_decode_attn(key)
+        return
+    if isinstance(key, FlashTrainKey):
+        if key.dtype not in DTYPES:
+            raise _refuse(f"dtype {key.dtype!r}", "A14 (f16 keys)", key)
         return
     if isinstance(key, Int8GemmKey):
         if key.out_dtype not in DTYPES:
@@ -389,11 +393,71 @@ def int8_gemm_reference(key: Int8GemmKey):
     return fn
 
 
+def _logits2(key: FlashTrainKey, q, k):
+    """(B, H, S, S) f32 logits in the base-2 exponent domain of (B, S, H, D)
+    q and k: the product with f32 sums, then * scale*log2(e), -1e30 above
+    the diagonal when causal (tpp_mlir_tpu/xsmm/flash_train.py:126)."""
+    s2 = _f32_matmul(q.transpose(1, 2), k.transpose(1, 2).transpose(-1, -2))
+    s2 = s2 * (key.scale * LOG2E)
+    if key.causal:
+        S = q.shape[1]
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s2 = s2.masked_fill(~keep, -1e30)
+    return s2
+
+
+def flash_train_fwd_reference(key: FlashTrainKey):
+    """B14's function (tpp_mlir_tpu/xsmm/flash_train.py:156-171) on the
+    (B, S, H, D) layout: fn(q, k, v) -> (o, lse2). O = (P V) / l with
+    P = exp2(s2 - m2) rounded to bf16 for a bf16 key before the product,
+    l the f32 row sum of P; o in the operand dtype (the code writes `odt`,
+    whatever the docstring there says), (B, S, H, D); lse2 = m2 +
+    log(l) log2(e), (B, H, S) f32, the base-2 log-sum-exp with the scale
+    folded in, private to B14 and B18."""
+    check_slice(key)
+    pv = DTYPES[key.dtype]
+
+    def fn(q, k, v):
+        s2 = _logits2(key, q, k)
+        m2 = s2.amax(-1, keepdim=True)
+        p = torch.exp2(s2 - m2)
+        l = p.sum(-1, keepdim=True)
+        o = _f32_matmul(p.to(pv), v.transpose(1, 2)) / l      # (B, H, S, D)
+        lse2 = (m2 + torch.log(l) * LOG2E)[..., 0]
+        return o.transpose(1, 2).to(pv).contiguous(), lse2
+    return fn
+
+
+def flash_train_bwd_reference(key: FlashTrainKey):
+    """B18's function (tpp_mlir_tpu/xsmm/flash_train.py:201-227) on the
+    (B, S, H, D) layout: fn(q, k, v, do, lse2, delta) -> (dq, dk, dv) in the
+    operand dtype, with lse2 and delta = rowsum(dO * O) as (B, H, S) f32.
+    P = exp2(s2 - lse2); dV = P'^T dO; dP = dO V^T; dS = (P (dP - delta)
+    scale)'; dQ = dS K; dK = dS^T Q, where ' rounds to bf16 for a bf16 key;
+    products and sums in f32."""
+    check_slice(key)
+    pv = DTYPES[key.dtype]
+
+    def fn(q, k, v, do, lse2, delta):
+        p = torch.exp2(_logits2(key, q, k) - lse2[..., None])
+        dot = do.transpose(1, 2)
+        dv = _f32_matmul(p.to(pv).transpose(-1, -2), dot)
+        dp = _f32_matmul(dot, v.transpose(1, 2).transpose(-1, -2))
+        ds = (p * (dp - delta[..., None]) * key.scale).to(pv)
+        dq = _f32_matmul(ds, k.transpose(1, 2))
+        dk = _f32_matmul(ds.transpose(-1, -2), q.transpose(1, 2))
+        return tuple(x.transpose(1, 2).to(pv).contiguous()
+                     for x in (dq, dk, dv))
+    return fn
+
+
 _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                FlashMhaKey: attention_reference,
                LayerNormKey: layer_norm_reference,
                DecodeAttnKey: decode_attn_reference,
-               Int8GemmKey: int8_gemm_reference}
+               Int8GemmKey: int8_gemm_reference,
+               FlashTrainKey: flash_train_fwd_reference,
+               FlashTrainBwdKey: flash_train_bwd_reference}
 
 
 def reference_kernel(key):
