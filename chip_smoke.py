@@ -15,7 +15,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
      four prefill shapes and a ragged m; for training: B1 forward and
      transpose_b (dx) at the MLP rows' shapes, B14 and B18 at the GPT-2
      training key B 8, S 512, H 12, D 64 causal bf16, an f32 key at D 128
-     and a GQA case through the autograd op, B18 twice bit-equal);
+     and a GQA case through the autograd op, B18 twice bit-equal; for MoE:
+     B16 at the prefill's fc1 (gelu) and fc2, the training step's z1 and
+     its two transpose_b dgrads (9216 padded rows), a bm 16 key, a stacked
+     `layers` key and a skewed routing, padding rows exactly zero; B17 at
+     dw2 and dw1 and a skewed routing, twice bit-equal, an expert no token
+     chose exactly zero);
   4. run the main paths, each with the launch counts set to 0 just before
      and read just after:
      a. the MLP path through tpp_mlir_tpu_torch.tools.tpp_run.run_module on
@@ -55,11 +60,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
         port's prefill logits, step-0 grads leaf by leaf, a falling loss,
         12 B14 and 12 B18 launches per step, then 10 timed steps of each
         (ms/step, tokens/s, TFLOP/s);
+     e. the MoE slice, GPT-2 small MoE-8 top-2 at full width (bm 128,
+        bf16, random weights from seed 0): gpt2_small_moe8_serve_b8
+        (make_generate with the grouped prefill, 32 steps at b8 in the scan
+        decode form and 8 at b1 in the slice form; 24 B16 launches a
+        prefill; logits against the kernels-off engine with the router
+        pinned to the kernel run's choices, the unpinned routing-flip
+        share printed) and gpt2_small_moe8_train_b8_s512_bf16
+        (make_gpt_train_step, AdamW 1e-3, the grouped form against the
+        scan form: step-0 CE, grads, falling losses, 48 B16 and 24 B17
+        launches a step, 5 timed steps each);
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
      tokens/s), each serving configuration's prefill and decode step
      (eager and graph-replayed) beside the kernels-off engine, with a
-     torch.profiler trace of 8 decode steps, and each kernel beside its
+     torch.profiler trace of 8 decode steps, the MoE prefill in its three
+     forms and its decode step in each decode form at b8 and b1, and each
+     kernel beside its
      plain version, one PyTorch call computing the same function where
      there is one, and its bound (bytes over HBM's rate or operations over
      the peak rate of their type, whichever is larger).
@@ -663,7 +680,8 @@ KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
          "FlashMhaKey": "attention", "LayerNormKey": "layer_norm",
          "DecodeAttnKey": "decode_attn", "Int8GemmKey": "int8_gemm",
          "FlashTrainKey": "flash_train_fwd",
-         "FlashTrainBwdKey": "flash_train_bwd"}
+         "FlashTrainBwdKey": "flash_train_bwd",
+         "GroupedGemmKey": "grouped_gemm", "GroupedWgradKey": "grouped_wgrad"}
 
 
 def _launches(cache) -> dict:
@@ -1128,6 +1146,400 @@ def phase_serving_flash(setup) -> dict:
     return launches
 
 
+# the MoE slice: GPT-2 small MoE-8 top-2 at full width, bm 128, bf16;
+# serving as scripts/bench_serving.py:148-158 runs it with --experts 8
+# --top-k-experts 2 --moe-prefill grouped (max_seq 640, b8, prompt 512),
+# training as scripts/exp_moe_train.py:89-95 (B 8, S 512, AdamW 1e-3)
+MOE = dict(n_experts=8, top_k=2, moe_group_bm=128,
+           moe_prefill_form="grouped")
+MOE_SERVE = dict(GPT2_SERVE, max_seq=640, **MOE)
+MOE_STEPS, MOE_B1_STEPS = 32, 8
+MOE_TRAIN = dict(GPT2_TRAIN, **MOE)
+MOE_TIMED_STEPS = 5
+
+
+def _moe_routing(g, T, n_e, bm, skew=False):
+    """The engine's dispatch maps of a top-2 routing of T tokens from
+    random logits; skewed: expert 0 favoured and expert n_e - 1 chosen by
+    no token (it keeps only its padding block)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving.engine import _grouped_dispatch
+    logits = torch.randn(T, n_e, generator=g, device="cuda")
+    if skew:
+        logits[:, 0] += 2.0
+        logits[:, n_e - 1] -= 100.0
+    return _grouped_dispatch(logits.topk(2, -1).indices, T, n_e, bm, 2)
+
+
+# B16 at the slice's keys: (label, tokens T, bm, n, k, key fields, skewed
+# routing). T 4096 is the b8 x 512 serving prefill and the training step,
+# so A_pad = (8192 / 128 + 8) * 128 = 9216 rows
+_B16 = dict(dtype="bf16")
+GROUPED_GEMM_CASES = (
+    ("fc1 9216x3072x768 gelu bf16", 4096, 128, 3072, 768,
+     dict(_B16, unary_kind="gelu"), False),
+    ("fc2 9216x768x3072 bf16", 4096, 128, 768, 3072, _B16, False),
+    ("train z1 9216x3072x768 f32 out", 4096, 128, 3072, 768,
+     dict(_B16, out_dtype="f32"), False),
+    ("train da tb 9216x3072x768 f32 out", 4096, 128, 3072, 768,
+     dict(_B16, out_dtype="f32", transpose_b=True), False),
+    ("train dxs tb 9216x768x3072 f32 out", 4096, 128, 768, 3072,
+     dict(_B16, out_dtype="f32", transpose_b=True), False),
+    ("small bm 16 2128x768x256", 1000, 16, 768, 256, _B16, False),
+    ("layers 3 bm 64 1536x3072x768 gelu", 512, 64, 3072, 768,
+     dict(_B16, unary_kind="gelu", layers=3), False),
+    ("skewed fc1 9216x3072x768 gelu", 4096, 128, 3072, 768,
+     dict(_B16, unary_kind="gelu"), True),
+)
+# B17: (label, T, bm, k, n, skewed): dw2 (a^T dys) and dw1 (xs^T dz1)
+GROUPED_WGRAD_CASES = (
+    ("dw2 k3072 n768 over 9216", 4096, 128, 3072, 768, False),
+    ("dw1 k768 n3072 over 9216", 4096, 128, 768, 3072, False),
+    ("skewed dw1 k768 n3072", 4096, 128, 768, 3072, True),
+)
+
+
+def _grouped_gemm_inputs(g, T, bm, n, k, fields, skew):
+    """(key, args, padding-row mask): the tokens' rows gathered into the
+    padded slot order as the engine makes xs, weights ~ N(0, 1/k)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import GroupedGemmKey
+    d = _moe_routing(g, T, 8, bm, skew)
+    key = GroupedGemmKey(n_groups=8, m=d["A_pad"], n=n, k=k, bm=bm,
+                         **fields)
+    h = torch.randn(T, k, generator=g, device="cuda").bfloat16()
+    xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
+    shape = (n, k) if key.transpose_b else (k, n)
+    lead = (key.layers,) if key.layers else ()
+    w = (torch.randn(*lead, 8, *shape, generator=g, device="cuda")
+         * k ** -0.5).bfloat16()
+    args = ((1,) if key.layers else ()) + (d["ge"], xs, w)
+    return key, args, d["tt"] == T
+
+
+def _grouped_wgrad_inputs(g, T, bm, k, n, skew):
+    """(key, args, experts no token chose): xt the transpose of the
+    (A_pad, k) slot rows, read in place as the training backward passes
+    it, and dY with zero padding rows."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import GroupedWgradKey
+    d = _moe_routing(g, T, 8, bm, skew)
+    key = GroupedWgradKey(n_groups=8, m=d["A_pad"], k=k, n=n, bm=bm,
+                          dtype="bf16")
+    h = torch.randn(T, k, generator=g, device="cuda").bfloat16()
+    xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
+    dy = torch.randn(d["A_pad"], n, generator=g, device="cuda")
+    live = d["tt"] < T
+    dy = (dy * live[:, None]).bfloat16()
+    chosen = set(d["ge"][live.reshape(-1, bm).any(1)].tolist())
+    return key, (d["ge"], xs.t(), dy), sorted(set(range(8)) - chosen)
+
+
+def phase_grouped_kernels() -> dict:
+    """B16 and B17 against their plain versions at the MoE slice's keys:
+    1e-2 for a bf16 output, 1e-4 for an f32 one (the same operand rounding
+    on both sides: sum order only); padding rows of B16 exactly zero; B17
+    twice on the same inputs bit-equal, and the dW of an expert no token
+    chose exactly zero."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    g = torch.Generator(device="cuda").manual_seed(3)
+    worst = {"grouped_gemm": 0.0, "grouped_wgrad": 0.0}
+    for label, T, bm, n, k, fields, skew in GROUPED_GEMM_CASES:
+        key, args, pad = _grouped_gemm_inputs(g, T, bm, n, k, fields, skew)
+        got = build_kernel(key)(*args)
+        ref = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        tol = TOL_F32 if key.out_dtype == "f32" else TOL_BF16
+        zero = not got[pad].any().item()
+        ok = rel <= tol and zero and torch_isfinite(got)
+        say(f"kernel grouped_gemm {label:38s} rel {rel:.3e} abs {ab:.3e} "
+            f"tol {tol:.0e}; {int(pad.sum())} padding rows zero {zero} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grouped_gemm {label}: rel {rel}, "
+                                 f"padding zero {zero}")
+        worst["grouped_gemm"] = max(worst["grouped_gemm"], ab)
+    for label, T, bm, k, n, skew in GROUPED_WGRAD_CASES:
+        key, args, untouched = _grouped_wgrad_inputs(g, T, bm, k, n, skew)
+        kern = build_kernel(key)
+        got, again = kern(*args), kern(*args)
+        ref = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        same = torch.equal(got, again)
+        zero = not got[untouched].any().item()
+        ok = rel <= TOL_F32 and same and zero and torch_isfinite(got) \
+            and bool(untouched) == skew
+        say(f"kernel grouped_wgrad {label:37s} rel {rel:.3e} abs {ab:.3e} "
+            f"tol {TOL_F32:.0e}; repeat bit-equal {same}; experts no token "
+            f"chose {untouched} zero {zero} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grouped_wgrad {label}: rel {rel}, "
+                                 f"bit-equal {same}, untouched {untouched} "
+                                 f"zero {zero}")
+        worst["grouped_wgrad"] = max(worst["grouped_wgrad"], ab)
+    return {kind: {"max_abs_err": e} for kind, e in worst.items()}
+
+
+def _route(run, pin=None):
+    """(run(), the top-2 expert ids the engine's router chose in each of its
+    calls, in call order). With `pin` (such a list), each call takes the
+    next pinned selection instead, with gates from its own logits there:
+    two runs then differ by their numerics alone, not by a token whose
+    experts flip at a near-tie."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import engine
+    router, seen = engine._moe_gates, []
+    pinned = None if pin is None else iter(pin)
+
+    def spy(h, wr, top_k, mm=None):
+        if pinned is None:
+            gates, idx = router(h, wr, top_k, mm)
+        else:
+            idx = next(pinned)
+            logits = (mm or engine._mm)(h, wr)
+            gates = torch.softmax(logits.gather(-1, idx), dim=-1)
+        seen.append(idx)
+        return gates, idx
+    engine._moe_gates = spy
+    try:
+        return run(), seen
+    finally:
+        engine._moe_gates = router
+
+
+def _flip_share(a, b) -> float:
+    """The share of tokens whose top-k expert sets differ."""
+    return float((a.sort(-1).values != b.sort(-1).values).any(-1)
+                 .float().mean())
+
+
+def phase_moe_serving() -> tuple[dict, tuple]:
+    """gpt2_small_moe8_serve_b8 through make_generate at b8 (32 greedy
+    steps: the scan decode form, as the auto policy picks at b8) and b1
+    (8 steps: the slice form). Per batch: the launch counts of an eager
+    generate (B16 24 = fc1 + fc2 in 12 layers, B7 12, B13 12 a step), the
+    CUDA-graph generate's tokens equal to its, and the prefill and
+    teacher-forced decode logits against the kernels-off engine (the
+    grouped form's plain version, composed attention, einsum decode
+    attention) within the model tolerance, the kernels-off run's router
+    pinned to the kernels-on run's choices; the share of tokens whose
+    top-2 experts differ when it is not pinned is printed per layer."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (make_decode_step, make_generate,
+                                            make_prefill)
+    from tpp_mlir_tpu_torch.serving.engine import moe_decode_form
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    cfg, params, ids = _serving_setup(MOE_SERVE, False, False)
+    off = _kernels_off(cfg)
+    total: dict[str, int] = {}
+    for batch, steps in ((SERVE_BATCH, MOE_STEPS), (1, MOE_B1_STEPS)):
+        t0 = time.perf_counter()
+        bids = ids[:batch]
+        cache.reset_launches()
+        toks = make_generate(cfg, steps, graph=False)(params, bids)
+        torch.cuda.synchronize()
+        launches = _launches(cache)
+        want = {"grouped_gemm": 2 * cfg.layers, "attention": cfg.layers,
+                "decode_attn": cfg.layers * (steps - 1)}
+        same = torch.equal(make_generate(cfg, steps)(params, bids), toks)
+        prefill_a = make_prefill(cfg)
+        prefill_b = make_prefill(off, use_kernels=False)
+        (la, ca), ra = _route(lambda: prefill_a(params, bids))
+        (lf, _), rf = _route(lambda: prefill_b(params, bids))
+        flips = [round(_flip_share(a, b), 5) for a, b in zip(ra, rf)]
+        rel_free = rel_err(la, lf)[0]
+        del lf
+        (lb, cb), _ = _route(lambda: prefill_b(params, bids), pin=ra)
+        rel_p, finite = rel_err(la, lb)[0], torch_isfinite(la)
+        del la, lb
+        step_a = make_decode_step(cfg)
+        step_b = make_decode_step(off, use_kernels=False)
+        rel_d = 0.0
+        for t in range(steps - 1):
+            (la, ca), r = _route(lambda: step_a(params, ca, toks[:, t]))
+            (lb, cb), _ = _route(lambda: step_b(params, cb, toks[:, t]),
+                                 pin=r)
+            finite = finite and torch_isfinite(la)
+            rel_d = max(rel_d, rel_err(la, lb)[0])
+        ok = (all(launches[k] == n for k, n in want.items()) and same
+              and finite and max(rel_p, rel_d) <= TOL_MODEL
+              and tuple(toks.shape) == (batch, steps))
+        say(f"main gpt2_small_moe8_serve_b{batch}: generate "
+            f"{tuple(toks.shape)} (prompt {SERVE_PROMPT}, grouped prefill "
+            f"bm {cfg.moe_group_bm}, decode form "
+            f"{moe_decode_form(cfg, batch)}); eager launches {launches} "
+            f"(want {want}); graph tokens == eager {same}; logits finite "
+            f"{finite}; vs kernels off, routing pinned: prefill rel "
+            f"{rel_p:.3e}, teacher-forced decode rel {rel_d:.3e} (tol "
+            f"{TOL_MODEL:.0e}); unpinned: prefill rel {rel_free:.3e}, "
+            f"routing-flip share by layer {flips} "
+            f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"moe serve b{batch}: launches {launches} "
+                                 f"(want {want}), graph == eager {same}, "
+                                 f"finite {finite}, rel {rel_p} / {rel_d}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del ca, cb
+    return total, (cfg, params, ids)
+
+
+def phase_moe_serving_timing(setup) -> None:
+    """gpt2_small_moe8_serve_b8's prefill (b8 x 512, CUDA events) in the
+    grouped (B16), sorted and scan forms, and the grouped form with the
+    kernels off; the decode step replayed from a CUDA graph (16 steps from
+    the prompt's end) in each decode form at b8 and b1, beside the form the
+    auto policy picks; then a torch.profiler trace of the grouped prefill
+    and 8 decode steps."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (DecodeRunner, make_decode_step,
+                                            make_prefill)
+    from tpp_mlir_tpu_torch.serving.engine import moe_decode_form
+    from tpp_mlir_tpu_torch.tools.trace import print_trace, trace_serving
+    cfg, params, ids = setup
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    for form, uk in (("grouped", None), ("sorted", None), ("scan", None),
+                     ("grouped", False)):
+        c = dataclasses.replace(cfg, moe_prefill_form=form)
+        if uk is False:
+            c = _kernels_off(c)
+        prefill = make_prefill(c, uk)
+        ms = cuda_ms(lambda: prefill(params, ids), iters=3, warmup=1)
+        say(f"time serve gpt2_small_moe8 prefill b{SERVE_BATCH} "
+            f"s{SERVE_PROMPT} {form}{' kernels off' if uk is False else ''}:"
+            f" {ms:.4f} ms ({tokens / ms * 1e3:.1f} tokens/s)")
+    n = 16
+    for batch in (SERVE_BATCH, 1):
+        bids = ids[:batch]
+        auto = moe_decode_form(cfg, batch)
+        for form in (("slice", "gather", "scan") if batch == 1
+                     else ("gather", "scan")):
+            c = dataclasses.replace(cfg, moe_decode_form=form)
+            logits, kv = make_prefill(c)(params, bids)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+            del logits
+            replay = DecodeRunner(make_decode_step(c), params, kv, tok,
+                                  graph=True)
+            ms = cuda_ms(lambda: replay.repeat(tok, n), iters=3,
+                         warmup=1) / n
+            say(f"time serve gpt2_small_moe8 decode b{batch} {form}"
+                f"{' (auto)' if form == auto else ''}: graph {ms:.4f} "
+                f"ms/step ({batch / ms * 1e3:.1f} tokens/s)")
+            del kv, replay
+    print_trace(trace_serving(cfg, params, ids, 8),
+                label="trace gpt2_small_moe8_serve_b8 ")
+
+
+def _moe_flops() -> int:
+    """scripts/exp_moe_train.py:106-108's count: 3x the forward's matmul
+    flops with the top-2 experts' FFNs (not all 8), attention squares
+    included."""
+    B, S, E, L, V = (TRAIN_B, TRAIN_S, MOE_TRAIN["embed"],
+                     MOE_TRAIN["layers"], MOE_TRAIN["vocab"])
+    F, k, H, T = MOE_TRAIN["mlp_ratio"] * E, MOE_TRAIN["top_k"], \
+        MOE_TRAIN["heads"], TRAIN_B * TRAIN_S
+    blk = (4 * 2 * T * E * E + k * (2 * 2 * T * E * F)
+           + 2 * 2 * B * H * S * S * (E // H))
+    return 3 * (L * blk + 2 * T * E * V)
+
+
+def phase_moe_training() -> dict:
+    """gpt2_small_moe8_train_b8_s512_bf16: make_gpt_train_step (AdamW 1e-3,
+    B14/B18 attention) in the grouped form (B16 forward and dgrad, B17) and
+    in the scan form (PyTorch GEMMs), from the same params and ids: the
+    grouped step's step-0 loss within 1e-2 of the grouped prefill's CE,
+    its step-0 grads within 3e-2 (relative Frobenius, bk excluded) of the
+    scan step's, whose step 0 runs at the grouped step's routing (see
+    _route); falling losses over 3 steps, 48 B16 and 24 B17 launches a
+    step (none in the scan step); then 5 timed steps of each, the peak
+    memory, and a torch.profiler breakdown of the grouped step."""
+    import numpy as np
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import (adamw, make_gpt_train_step,
+                                             next_token_loss, tree_leaves)
+    from tpp_mlir_tpu_torch.serving import GptConfig, init_params, make_prefill
+    from tpp_mlir_tpu_torch.tools.trace import print_trace, trace_steps
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    cfg = GptConfig(**MOE_TRAIN)
+    params0 = init_params(cfg, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        ce = next_token_loss(make_prefill(cfg)(params0, ids)[0], ids).item()
+    names = _leaf_names(params0)
+    runs, launches, routes = {}, {}, None
+    for form in ("grouped", "scan"):
+        params = _clone(params0)
+        step, init = make_gpt_train_step(
+            dataclasses.replace(cfg, moe_prefill_form=form), adamw(1e-3))
+        state = init(params)
+        torch.cuda.reset_peak_memory_stats()
+        cache.reset_launches()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            if i == 0:      # the scan step at the grouped step's routing
+                (params, state, loss), routes = _route(
+                    lambda: step(params, state, ids), pin=routes)
+                grads = [t.grad.clone() for t in tree_leaves(params)]
+            else:
+                params, state, loss = step(params, state, ids)
+            losses.append(loss.item())
+        launches[form] = _launches(cache)
+        ms = cuda_ms(lambda: step(params, state, ids),
+                     iters=MOE_TIMED_STEPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if form == "grouped":
+            print_trace(trace_steps(lambda: step(params, state, ids)),
+                        label="trace train gpt2_small_moe8 grouped ")
+        runs[form] = (losses, grads, ms, peak)
+        del params, state, grads
+    (lg, gg, msg, pkg), (ls, gs, mss, pks) = runs["grouped"], runs["scan"]
+    errs = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+            for n, a, b in zip(names, gg, gs) if not n.endswith(".bk")}
+    worst = max(errs, key=errs.get)
+    per_step = {k: launches["grouped"][k] / TRAIN_STEPS
+                for k in ("grouped_gemm", "grouped_wgrad", "flash_train_fwd",
+                          "flash_train_bwd")}
+    want = {"grouped_gemm": 4 * cfg.layers, "grouped_wgrad": 2 * cfg.layers,
+            "flash_train_fwd": cfg.layers, "flash_train_bwd": cfg.layers}
+    off = (launches["scan"]["grouped_gemm"], launches["scan"]["grouped_wgrad"])
+    finite = all(torch_isfinite(g) for g in gg)
+    ok = (abs(lg[0] - ce) <= TOL_BF16 and errs[worst] <= TOL_GRAD
+          and lg[-1] < lg[0] and ls[-1] < ls[0] and per_step == want
+          and off == (0, 0) and finite)
+    flops, tokens = _moe_flops(), TRAIN_B * TRAIN_S
+    say(f"main train gpt2_small_moe8 b{TRAIN_B} s{TRAIN_S} bf16 adamw: "
+        f"losses grouped {lg}, scan {ls}; grouped prefill CE {ce:.6f} "
+        f"(step-0 tol {TOL_BF16:.0e}); step-0 grads rel Frobenius max "
+        f"{errs[worst]:.3e} ({worst}) tol {TOL_GRAD:.0e} over {len(errs)} "
+        f"leaves; launches per step {per_step} (scan run B16/B17: {off}) "
+        f"{'ok' if ok else 'FAIL'}")
+    for label, ms, peak in (("grouped (B16/B17)", msg, pkg),
+                            ("scan", mss, pks)):
+        say(f"time train gpt2_small_moe8 {label}: {ms:.4f} ms/step over "
+            f"{MOE_TIMED_STEPS} steps, {tokens / ms * 1e3:.1f} tokens/s, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s ({flops / 1e12:.4f} TFLOP a "
+            f"step, top-2 experts); peak memory {peak:.2f} GiB")
+    if not ok:
+        raise AssertionError(f"moe train: losses {lg} / {ls} vs CE {ce}, "
+                             f"grad {worst} {errs[worst]}, launches "
+                             f"{per_step} / {off}, finite {finite}")
+    return {k: n + launches["scan"][k] for k, n in launches["grouped"].items()}
+
+
 def torch_isfinite(t) -> bool:
     import torch
     return bool(torch.isfinite(t.float()).all())
@@ -1224,9 +1636,15 @@ def phase_timing(n: int = 100) -> dict:
     cases += [("flash_train_fwd", train_key, _flash_fwd_timing_inputs),
               ("flash_train_bwd", FlashTrainBwdKey(
                   **dataclasses.asdict(train_key)), _flash_bwd_timing_inputs)]
+    # the MoE slice's B16 keys (fc2 first: torch._grouped_mm computes the
+    # same function there; fc1's gelu epilogue has no such call) and B17
+    moe = [("grouped_gemm", *_grouped_gemm_inputs(
+        g, *GROUPED_GEMM_CASES[i][1:])[:2]) for i in (1, 0)]
+    moe += [("grouped_wgrad", *_grouped_wgrad_inputs(
+        g, *GROUPED_WGRAD_CASES[i][1:])[:2]) for i in (1, 0)]
     from tpp_mlir_tpu_torch.tools.trace import describe
-    for kind, key, make in cases:
-        args = make(key, g)
+    timed = [(kind, key, make(key, g)) for kind, key, make in cases] + moe
+    for kind, key, args in timed:
         kern, plain = build_kernel(key), reference_kernel(key)
         library = _library_call(kind, key, args)
         graphed = kind in ("decode_attn", "int8_gemm")
@@ -1243,8 +1661,9 @@ def phase_timing(n: int = 100) -> dict:
             f"({by}){note}")
         # the kernel line keeps the first shape of each kind: the MLP's f32
         # fc for brgemm, the bf16 flagship chain, GPT-2's attention and
-        # ln_f, the serving decode attention (MHA), the int8 QKV GEMM, and
-        # B14/B18 at the GPT-2 training key
+        # ln_f, the serving decode attention (MHA), the int8 QKV GEMM,
+        # B14/B18 at the GPT-2 training key, B16 at the MoE prefill's fc2
+        # and B17 at the training step's dw1
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": by,
                               "library_ms": lib_ms})
@@ -1322,12 +1741,32 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate = key.dtype
         flops = 4 * B * H * D * (S * (S + 1) // 2 if key.causal else S * S)
         nbytes = 4 * _nbytes(q) + B * H * S * 4
-    else:   # flash_train_bwd: S again, dP, dV, dQ, dK
+    elif kind == "flash_train_bwd":     # S again, dP, dV, dQ, dK
         q = args[0]
         B, S, H, D = q.shape
         rate = key.dtype
         flops = 10 * B * H * D * (S * (S + 1) // 2 if key.causal else S * S)
         nbytes = _nbytes(*args) + 3 * _nbytes(q)
+    elif kind == "grouped_gemm":
+        # this routing's token rows (padding rows need no work) and the
+        # weights of the experts it chose; every output row is written
+        ge, a, b = args[-3:]
+        rows = int((a != 0).any(-1).sum())
+        experts = int(torch.unique(ge).numel())
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * rows * key.n * key.k
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = (rows * key.k + experts * key.k * key.n) * a.element_size() \
+            + key.m * key.n * size + _nbytes(ge)
+    else:   # grouped_wgrad: the token rows of xt and dY, f32 dW
+        ge, xt, dy = args
+        rows = int((dy != 0).any(-1).sum())
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * rows * key.k * key.n
+        nbytes = rows * (key.k + key.n) * dy.element_size() + _nbytes(ge) \
+            + key.n_groups * key.k * key.n * 4
     t_ops, t_bytes = flops / PEAK[rate], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes \
         else "bytes"
@@ -1370,6 +1809,8 @@ def _library_call(kind, key, args):
         q4 = q[:, :, None]
         return lambda: F.scaled_dot_product_attention(
             q4, kl, vl, scale=key.head_dim ** -0.5)
+    if kind in ("grouped_gemm", "grouped_wgrad"):
+        return _grouped_mm_call(kind, key, args)
     if kind in ("flash_train_fwd", "flash_train_bwd"):
         q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(
             kind == "flash_train_bwd") for t in args[:3])
@@ -1382,6 +1823,27 @@ def _library_call(kind, key, args):
         return lambda: torch.autograd.grad(o, (q, k, v), g,
                                            retain_graph=True)
     return None
+
+
+def _grouped_mm_call(kind, key, args):
+    """torch._grouped_mm on the same rows, the groups cut at the padded
+    group boundaries (B16: (rows, k) x (G, k, n); B17: the (k, rows) x
+    (rows, n) form giving (G, k, n)). It has no epilogue, so a key with a
+    unary has no such call, and it writes its operands' dtype (bf16) where
+    the kernel writes f32: PyTorch 2.11 refuses an f32 output there."""
+    import torch
+    if not hasattr(torch, "_grouped_mm") or (
+            kind == "grouped_gemm" and (key.unary_kind or key.layers)):
+        return None
+    ge = args[-3] if kind == "grouped_gemm" else args[0]
+    offs = (torch.bincount(ge.long(), minlength=key.n_groups)
+            * key.bm).cumsum(0).to(torch.int32)
+    if kind == "grouped_gemm":
+        _, x, b = args
+        y = b.transpose(-2, -1) if key.transpose_b else b    # (G, k, n)
+    else:
+        _, x, y = args
+    return lambda: torch._grouped_mm(x, y, offs=offs)
 
 
 def main() -> int:
@@ -1397,16 +1859,20 @@ def main() -> int:
     phase_build()
     stats = phase_kernels()
     stats.update(phase_flash_train())
+    stats.update(phase_grouped_kernels())
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
     serve_launches, setups = phase_serving_path()
+    moe_launches, moe_setup = phase_moe_serving()
     for counts in (serve_launches, phase_serving_flash(setups[0]),
-                   phase_mlp_training(), phase_gpt_training()):
+                   moe_launches, phase_mlp_training(), phase_gpt_training(),
+                   phase_moe_training()):
         for kind, n in counts.items():
             launches[kind] += n
     timing = phase_timing()
     phase_serving_timing(setups)
+    phase_moe_serving_timing(moe_setup)
     kernels = []
     for kind, src, replaces in (
             ("brgemm", "brgemm.cu", "kernels.py:580"),
@@ -1416,7 +1882,9 @@ def main() -> int:
             ("decode_attn", "decode_attn.cu", "decode_attn.py:101"),
             ("int8_gemm", "int8_gemm.cu", "kernels.py:1365"),
             ("flash_train_fwd", "flash_train.cu", "flash_train.py:146"),
-            ("flash_train_bwd", "flash_train.cu", "flash_train.py:190")):
+            ("flash_train_bwd", "flash_train.cu", "flash_train.py:190"),
+            ("grouped_gemm", "grouped_gemm.cu", "kernels.py:1138"),
+            ("grouped_wgrad", "grouped_gemm.cu", "kernels.py:1283")):
         kernels.append({"name": kind, "route": "cuda",
                         "source": f"tpp_mlir_tpu_torch/csrc/{src}",
                         "replaces": f"tpp_mlir_tpu/xsmm/{replaces}",

@@ -29,9 +29,10 @@ from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
 from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, DecodeAttnKey,
                                      FlashMhaKey, FlashTrainBwdKey,
-                                     FlashTrainKey, Int8GemmKey, LayerNormKey,
-                                     build_kernel, global_cache,
-                                     reference_kernel)
+                                     FlashTrainKey, GroupedGemmKey,
+                                     GroupedWgradKey, Int8GemmKey,
+                                     LayerNormKey, build_kernel,
+                                     global_cache, reference_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -451,3 +452,141 @@ def test_mlp_train_step_on_the_card_matches_kernels_off(cuda, dtype,
     for (wk, bk), (wp, bp) in zip(*out):
         assert _err(wk, wp) <= (1e-4 if dtype == "f32" else 1e-2)
         assert _err(bk, bp) <= (1e-4 if dtype == "f32" else 1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice: B16 (grouped GEMM) and B17 (grouped weight gradient) on
+# routings made by the engine's own dispatch. Tolerances: 1e-4 for an f32
+# output (both sides round the operands alike: sum order only), 1e-2 for
+# bf16; padding rows and experts no token chose come out exactly zero, and
+# B17 is bit-repeatable (no atomics).
+
+def _moe_routing(g, T, n_e, bm, skew):
+    """The dispatch maps of a top-2 routing of T random tokens; skewed:
+    expert n_e - 1 gets no token (it keeps only its padding block)."""
+    from tpp_mlir_tpu_torch.serving.engine import _grouped_dispatch
+    logits = torch.randn(T, n_e, generator=g, device="cuda")
+    if skew:
+        logits[:, 0] += 2.0
+        logits[:, n_e - 1] -= 100.0
+    return _grouped_dispatch(logits.topk(2, -1).indices, T, n_e, bm, 2)
+
+
+# (T, n_e, bm, k, n, key fields, skewed routing)
+GROUPED = {
+    "bf16-gelu-bm128": (512, 8, 128, 256, 512,
+                        dict(dtype="bf16", unary_kind="gelu"), False),
+    "bf16-bm16-tb-f32out": (200, 4, 16, 128, 96,
+                            dict(dtype="bf16", transpose_b=True,
+                                 out_dtype="f32"), True),
+    "f32-default-bm32": (100, 4, 32, 96, 64, dict(dtype="f32"), False),
+    "f32-highest-layers": (64, 4, 64, 64, 128,
+                           dict(dtype="f32", precision="highest", layers=3,
+                                unary_kind="gelu"), True),
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPED))
+def test_grouped_gemm_kernel_matches_plain(cuda, name):
+    T, n_e, bm, k, n, fields, skew = GROUPED[name]
+    d = _moe_routing(cuda, T, n_e, bm, skew)
+    key = GroupedGemmKey(n_groups=n_e, m=d["A_pad"], n=n, k=k, bm=bm,
+                         **fields)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    h = _rnd(cuda, (T, k), key.dtype)
+    xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
+    wshape = (n, k) if key.transpose_b else (k, n)
+    w = _rnd(cuda, ((key.layers,) if key.layers else ()) + (n_e, *wshape),
+             key.dtype, k ** -0.5)
+    args = ((1,) if key.layers else ()) + (d["ge"], xs.to(dt), w)
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
+                               else 1e-2)
+    assert not got[d["tt"] == T].any()          # padding rows stay zero
+
+
+# (T, n_e, bm, k, n, dtype, precision, skewed routing)
+WGRAD = {
+    "bf16-bm128": (512, 8, 128, 256, 512, "bf16", "default", False),
+    "bf16-bm16-skewed": (200, 4, 16, 128, 96, "bf16", "default", True),
+    "f32-highest-skewed": (100, 4, 32, 64, 96, "f32", "highest", True),
+}
+
+
+@pytest.mark.parametrize("name", list(WGRAD))
+def test_grouped_wgrad_kernel_matches_plain(cuda, name):
+    T, n_e, bm, k, n, dtype, precision, skew = WGRAD[name]
+    d = _moe_routing(cuda, T, n_e, bm, skew)
+    key = GroupedWgradKey(n_groups=n_e, m=d["A_pad"], k=k, n=n, bm=bm,
+                          dtype=dtype, precision=precision)
+    h = _rnd(cuda, (T, k), dtype)
+    xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
+    dy = _rnd(cuda, (d["A_pad"], n), dtype)
+    kern = build_kernel(key)
+    got = kern(d["ge"], xs.t(), dy)         # the transpose, read in place
+    again = kern(d["ge"], xs.t().contiguous(), dy)
+    want = reference_kernel(key)(d["ge"], xs.t(), dy)
+    torch.cuda.synchronize()
+    assert kern.launches == 2 and torch.equal(got, again)
+    assert _err(got, want) <= 1e-4
+    if skew:
+        assert not got[n_e - 1].any()
+
+
+def _moe_model(**kw):
+    from tpp_mlir_tpu_torch.serving import GptConfig, init_params
+    cfg = GptConfig(vocab=512, embed=256, heads=4, layers=2, max_seq=128,
+                    dtype="bf16", n_experts=4, moe_prefill_form="grouped",
+                    moe_group_bm=64, **kw)
+    return cfg, init_params(cfg, seed=0, device="cuda")
+
+
+def test_moe_grouped_prefill_matches_the_kernels_off_engine(cuda,
+                                                           monkeypatch):
+    """Two B16 launches a layer; logits within the model tolerance of the
+    kernels-off engine run at the kernel run's routing: once the numerics
+    differ, a bf16 near-tie of the router can flip a token's experts."""
+    from tpp_mlir_tpu_torch.serving import engine, make_prefill
+    cfg, params = _moe_model()
+    ids = torch.randint(0, cfg.vocab, (4, 64), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    router, routes = engine._moe_gates, []
+
+    def record(*a):
+        out = router(*a)
+        routes.append(out[1])
+        return out
+    monkeypatch.setattr(engine, "_moe_gates", record)
+    cache = global_cache()
+    cache.reset_launches()
+    got = make_prefill(cfg)(params, ids)[0]
+    assert cache.launches_by_kind()["GroupedGemmKey"] == 2 * cfg.layers
+    pinned = iter(routes)
+
+    def pin(h, wr, top_k, mm=None):
+        idx = next(pinned)
+        return torch.softmax(engine._mm(h, wr).gather(-1, idx), -1), idx
+    monkeypatch.setattr(engine, "_moe_gates", pin)
+    want = make_prefill(dataclasses.replace(cfg, decode_attn="xla"),
+                        use_kernels=False)(params, ids)[0]
+    assert _err(got, want) <= 3e-2
+
+
+def test_moe_grouped_train_step_launches_b16_and_b17(cuda):
+    from tpp_mlir_tpu_torch.parallel import adamw, make_gpt_train_step
+    cfg, params = _moe_model()
+    ids = torch.randint(0, cfg.vocab, (2, 64), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    step, init = make_gpt_train_step(cfg, adamw(1e-3))
+    state = init(params)
+    cache = global_cache()
+    cache.reset_launches()
+    losses = [float(step(params, state, ids)[2]) for _ in range(3)]
+    counts = cache.launches_by_kind()
+    assert counts["GroupedGemmKey"] == 3 * 4 * cfg.layers
+    assert counts["GroupedWgradKey"] == 3 * 2 * cfg.layers
+    assert losses[-1] < losses[0]

@@ -20,7 +20,8 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["BrgemmKey", "ChainKey", "FlashMhaKey",
                                   "LayerNormKey", "UnaryKey", "BinaryKey",
-                                  "DecodeAttnKey", "Int8GemmKey"])
+                                  "DecodeAttnKey", "Int8GemmKey",
+                                  "GroupedGemmKey", "GroupedWgradKey"])
 def test_key_copy_matches_reference(name):
     port = getattr(port_flags, name)
     ref = getattr(decode_attn if name == "DecodeAttnKey" else ref_flags,

@@ -1,5 +1,5 @@
 """The port (every slice: the MLP path, the imported transformer, serving,
-training) imports torch and its own modules only: never JAX, Triton,
+training, MoE) imports torch and its own modules only: never JAX, Triton,
 ml_dtypes, nor any module of the JAX package `tpp_mlir_tpu`.
 
 The run-time checks go in a subprocess because this test process already
@@ -78,6 +78,13 @@ for flash in (True, False):
     step, init = make_gpt_train_step(gcfg, sgd(0.1), flash_attn=flash,
                                      device="cpu")
     assert torch.isfinite(step(gp, init(gp), ids)[2])
+# the MoE slice: the grouped form serving and training
+mcfg = GptConfig(vocab=64, embed=32, heads=2, layers=1, max_seq=16,
+                 n_experts=4, moe_prefill_form="grouped", moe_group_bm=8)
+mp = init_params(mcfg, device="cpu")
+assert make_generate(mcfg, 2)(mp, ids).shape == (2, 2)
+step, init = make_gpt_train_step(mcfg, sgd(0.1), device="cpu")
+assert torch.isfinite(step(mp, init(mp), ids)[2])
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """

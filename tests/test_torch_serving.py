@@ -184,10 +184,51 @@ def test_decode_kernel_and_einsum_paths_agree():
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        P.GptConfig(n_experts=4)
+    """MoE is ported (A9): n_experts is accepted, with the JAX engine's own
+    checks (engine.py:138-142 there) and only the forms its dispatchers
+    read; remat is not (A10)."""
+    assert P.GptConfig(n_experts=4).n_experts == 4
+    for bad in (dict(top_k=5), dict(top_k=0), dict(swiglu=True),
+                dict(moe_prefill_form="dense"), dict(moe_decode_form="xla")):
+        with pytest.raises(ValueError):
+            P.GptConfig(n_experts=4, **bad)
+    with pytest.raises(NotImplementedError, match="A10"):
+        P.GptConfig(n_experts=4, remat=True)
     with pytest.raises(ValueError):
         P.GptConfig(**BASE, kv_packed=True, decode_attn="xla")
+
+
+# MoE field -> (the other fields its code needs, the engine function that
+# reads it, what that function was given for it)
+_MOE_READS = {
+    "top_k": ({}, "_moe_gates", lambda h, wr, top_k, mm=None: top_k),
+    "moe_decode_form": ({}, "_moe_ffn_gather", lambda h, blk, k: "gather"),
+    "moe_prefill_form": ({}, "_moe_ffn_sorted", lambda *a: "sorted"),
+    "moe_capacity_factor": ({"moe_prefill_form": "sorted"}, "_moe_ffn_sorted",
+                            lambda h, blk, k, cf: cf),
+    "moe_group_bm": ({"moe_prefill_form": "grouped"}, "_grouped_dispatch",
+                     lambda idx, T, n_e, bm, k: bm),
+}
+
+
+def _moe_run(monkeypatch, **fields):
+    """Prefill and one decode step of a small MoE model with `fields`; the
+    values the engine functions of _MOE_READS were given, by name."""
+    from tpp_mlir_tpu_torch.serving import engine
+    seen = {}
+    for _, fn, read in _MOE_READS.values():
+        orig = getattr(engine, fn)
+
+        def spy(*a, orig=orig, read=read, fn=fn):
+            seen.setdefault(fn, []).append(read(*a))
+            return orig(*a)
+        monkeypatch.setattr(engine, fn, spy)
+    cfg = P.GptConfig(**BASE, n_experts=4, **fields)
+    params = P.init_params(cfg, seed=0, device="cpu")
+    ids = torch.arange(8, dtype=torch.int32)[None]
+    logits, cache = P.make_prefill(cfg)(params, ids)
+    P.make_decode_step(cfg)(params, cache, ids[:, 0])
+    return seen, logits
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -195,13 +236,28 @@ def test_config_refuses_what_is_not_ported():
     ("moe_prefill_form", "sorted", "A9"), ("moe_capacity_factor", 2.0, "A9"),
     ("moe_group_bm", 64, "A9"), ("moe_group_stacked", False, "A9"),
     ("remat", True, "A10")])
-def test_config_refuses_fields_nothing_reads_yet(field, value, item):
-    """A field read only by code not ported yet takes only its default, so
-    no setting silently does nothing."""
-    with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
-        P.GptConfig(**BASE, **{field: value})
+def test_config_refuses_fields_nothing_reads_yet(field, value, item,
+                                                 monkeypatch):
+    """A field read only by code not ported yet (remat, A10) takes only its
+    default, so no setting silently does nothing. The MoE fields (A9) are
+    read since the MoE slice: a non-default value is accepted and reaches
+    the engine code that reads it; moe_group_stacked, which nothing needs
+    in the per-layer layout, leaves the logits bit-identical."""
     assert getattr(P.GptConfig(**BASE), field) == getattr(
         J.GptConfig(**BASE), field)
+    if item != "A9":
+        with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
+            P.GptConfig(**BASE, **{field: value})
+        return
+    if field == "moe_group_stacked":
+        grouped = dict(moe_prefill_form="grouped", moe_group_bm=8)
+        _, want = _moe_run(monkeypatch, **grouped)
+        _, got = _moe_run(monkeypatch, **grouped, moe_group_stacked=value)
+        assert torch.equal(got, want)
+        return
+    extra, fn, _ = _MOE_READS[field]
+    seen, _ = _moe_run(monkeypatch, **extra, **{field: value})
+    assert value in seen[fn], seen
 
 
 def test_decode_runner_reset_repeats_the_same_steps():
@@ -299,8 +355,8 @@ def test_tpp_serve_matches_the_jax_tool_on_carried_weights():
 
 @pytest.mark.parametrize("flags", [
     ["--quant", "int4"], ["--tp", "2"], ["--speculative", "3"],
-    ["--continuous", "4"], ["--beams", "2"], ["--experts", "4"],
-    ["--prompt-len", "20"]])
+    ["--continuous", "4"], ["--beams", "2"],
+    ["--experts", "2", "--top-k-experts", "3"], ["--prompt-len", "20"]])
 def test_tpp_serve_refuses_with_exit_2(flags):
     from tpp_mlir_tpu_torch.tools import tpp_serve
 

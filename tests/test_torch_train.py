@@ -299,11 +299,15 @@ def _gpt_step(**kw):
     (lambda: _gpt_step(mesh={"dp": 2, "tp": 2}), "A11"),
     (lambda: _gpt_step(zero1=True), "A11"),
     (lambda: _gpt_step(vocab_parallel=True), "A11"),
-    (lambda: P.GptConfig(**CFG, n_experts=4), "A9"),
+    # MoE trains on one device; its experts shard over ep (parallel/moe.py)
+    (lambda: make_gpt_train_step(P.GptConfig(**CFG, n_experts=4), sgd(0.1),
+                                 device="cpu", mesh={"dp": 2, "tp": 1}),
+     "A11"),
     (lambda: make_gpt_train_step(P.GptConfig.llama(**CFG), sgd(0.1),
                                  device="cpu"), "queue C"),
+    (lambda: P.GptConfig(**CFG, n_experts=4, remat=True), "A10"),
 ], ids=["mlp-dp2", "optim-tp2", "zero1", "gpt-dp2tp2", "gpt-zero1",
-        "vocab-parallel", "moe", "llama"])
+        "vocab-parallel", "moe", "llama", "remat"])
 def test_refusals_name_their_roadmap_item(build, item):
     with pytest.raises(NotImplementedError, match=item):
         build()
@@ -312,6 +316,8 @@ def test_refusals_name_their_roadmap_item(build, item):
 def test_a_one_device_mesh_is_accepted():
     make_train_step(LAYERS, device="cpu", mesh={"dp": 1, "tp": 1})
     _gpt_step(mesh={"dp": 1, "tp": 1})
+    make_gpt_train_step(P.GptConfig(**CFG, n_experts=4), sgd(0.1),
+                        device="cpu", mesh={"dp": 1, "tp": 1})
 
 
 def _entry_points():

@@ -11,11 +11,21 @@ gate, gpt_train.py:63-70 there, is not carried). The params are the serving
 engine's per-layer list (`init_params`, `params_from_numpy`), not the JAX
 step's stacked arrays: PyTorch runs the layers in a Python loop.
 
+A MoE configuration (`n_experts > 0`, gpt_train.py:92-101 there) trains its
+sparse-expert FFN in the form `moe_prefill_form` names: the scan form (the
+default, and "sorted"), which is the JAX step's own, or "grouped", the
+autograd Function of the serving engine's grouped form (B16 forward and
+dgrad, B17 weight gradient; `csrc/grouped_gemm.cu`) at the keys'
+`precision`. The JAX package reaches its grouped core only through
+`jax.grad` of `make_prefill`; the port's prefill has no derivative on the
+card (`torch.mm(..., out_dtype=f32)`), so its step picks the form by the
+same config field (ROADMAP queue C).
+
 Refused, each naming the ROADMAP item that ports it: any mesh beyond one
-device, `vocab_parallel` and `zero1` (A11); MoE configurations (GptConfig
-refuses `n_experts`, A9); a configuration the training forward does not
-model (RMSNorm, RoPE, SwiGLU: the LLaMA preset), since the JAX forward
-always runs LayerNorm with biases, learned positions and a GELU FFN
+device (MoE included: its experts shard over ep in `parallel/moe.py`),
+`vocab_parallel` and `zero1` (A11); a configuration the training forward
+does not model (RMSNorm, RoPE, SwiGLU: the LLaMA preset), since the JAX
+forward always runs LayerNorm with biases, learned positions and a GELU FFN
 (gpt_train.py:75-115 there) and the port does not train a model other than
 the one it serves (queue C).
 """
@@ -26,8 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.trainable import f32_matmul
-from ..serving.engine import (GptConfig, _gather, _ln,
-                              composed_causal_attention)
+from ..serving.engine import (GptConfig, _gather, _ln, _moe_ffn_grouped,
+                              _moe_ffn_scan, composed_causal_attention)
 from ..utils.target import resolve_device
 from ..xsmm.flash_train import flash_attention_train
 from ..xsmm.reference import DTYPES
@@ -50,7 +60,20 @@ def _dot(x, w, b):
     return (f32_matmul(x, w) + b.float()).to(x.dtype)
 
 
-def _gpt_forward_local(params, ids, cfg: GptConfig, flash_attn: bool):
+def _moe_ffn(h, blk, cfg: GptConfig, precision: str):
+    """The MoE block's FFN on (B, S, E): the grouped Function, or the scan
+    form over the differentiable f32_matmul."""
+    rows = h.reshape(-1, h.shape[-1])
+    if cfg.moe_prefill_form == "grouped":
+        y = _moe_ffn_grouped(rows, blk, cfg, kernels=True,
+                             precision=precision)
+    else:
+        y = _moe_ffn_scan(rows, blk, cfg.top_k, mm=f32_matmul)
+    return y.reshape(h.shape)
+
+
+def _gpt_forward_local(params, ids, cfg: GptConfig, flash_attn: bool,
+                       precision: str = "default"):
     """Causal LM forward -> (B, S, V) f32 logits (the JAX function at
     tp = 1)."""
     _check_config(cfg)
@@ -72,8 +95,12 @@ def _gpt_forward_local(params, ids, cfg: GptConfig, flash_attn: bool):
         a = attn(q, k, v, scale).reshape(B, S, H * D).to(x.dtype)
         x = x + (f32_matmul(a, blk["wo"]) + blk["bo"].float()).to(x.dtype)
         h = _ln(x, blk["ln2_g"], blk["ln2_b"])
-        h = F.gelu(_dot(h, blk["w1"], blk["b1"]).float()).to(x.dtype)
-        x = x + (f32_matmul(h, blk["w2"]) + blk["b2"].float()).to(x.dtype)
+        if cfg.n_experts:
+            x = x + _moe_ffn(h, blk, cfg, precision)
+        else:
+            h = F.gelu(_dot(h, blk["w1"], blk["b1"]).float()).to(x.dtype)
+            x = x + (f32_matmul(h, blk["w2"])
+                     + blk["b2"].float()).to(x.dtype)
     x = _ln(x, params["lnf_g"], params["lnf_b"])
     return f32_matmul(x, params["lm_head"])
 
@@ -91,11 +118,14 @@ def next_token_loss(logits, ids):
 def make_gpt_train_step(cfg: GptConfig, optimizer,
                         flash_attn: bool | None = None, device="cuda",
                         mesh=None, zero1: bool = False,
-                        vocab_parallel: bool = False):
+                        vocab_parallel: bool = False,
+                        precision: str = "default"):
     """Return `(step, init_opt_state)`: `step(params, opt_state, ids) ->
     (params, opt_state, loss)` over the serving params (per-layer list),
     one optimizer update per step, params updated in place; `optimizer` is
-    a torch.optim constructor (`optim.sgd`, `optim.adamw`)."""
+    a torch.optim constructor (`optim.sgd`, `optim.adamw`). `precision` is
+    the grouped MoE form's kernel keys' ("default" rounds f32 operands to
+    bf16, as `make_train_step`'s keys do)."""
     device = resolve_device(device)
     check_single_device(mesh, "make_gpt_train_step")
     if zero1 or vocab_parallel:
@@ -108,7 +138,7 @@ def make_gpt_train_step(cfg: GptConfig, optimizer,
 
     def grads_fn(params, ids):
         loss = next_token_loss(
-            _gpt_forward_local(params, ids, cfg, flash_attn), ids)
+            _gpt_forward_local(params, ids, cfg, flash_attn, precision), ids)
         return loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
 
     return make_optim_step(optimizer, grads_fn)

@@ -27,10 +27,18 @@ with the same numerics, function for function. What differs, and why:
   (`xsmm/reference.py`), as interpret mode does off the TPU.
 - The dense projections are PyTorch GEMMs (the JAX package's `jnp.dot`):
   f32 accumulation with an f32 result, TF32 off.
+- The sparse-expert FFN (`n_experts > 0`, engine.py:438-920 there): the
+  scan, gather, slice and sorted forms are PyTorch ops; the grouped form
+  runs its two GEMMs on `csrc/grouped_gemm.cu` (GroupedGemmKey, B16), and
+  its autograd Function's backward adds the grouped weight gradient
+  (GroupedWgradKey, B17). Every form runs on the device with no host read
+  of the routing, so the decode step stays capturable in a CUDA graph.
+  `moe_group_stacked` changes nothing here: it kept a `lax.scan` from
+  copying a per-layer weight slab, and the per-layer list's `w1` is
+  already a view (ROADMAP queue C).
 
-Not ported here: MoE (`n_experts > 0`, ROADMAP A9), `remat` (A10), the tp
-decode (A11), continuous batching, beam and speculative decoding (A8),
-int4 weights (A7).
+Not ported here: `remat` (A10), the tp decode (A11), continuous batching,
+beam and speculative decoding (A8), int4 weights (A7).
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.target import resolve_device
-from ..xsmm import (DecodeAttnKey, FlashMhaKey, FlashTrainKey, Int8GemmKey,
+from ..xsmm import (DecodeAttnKey, FlashMhaKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     global_cache, reference_kernel)
 from ..xsmm.reference import DTYPES
 from .quant import QTensor, quantize_tokens
@@ -52,17 +61,17 @@ from .quant import QTensor, quantize_tokens
 
 # GptConfig fields read only by code not ported yet: any value but the
 # default is refused, naming the ROADMAP item that ports the code
-_UNPORTED = {name: "A9, MoE" for name in (
-    "n_experts", "top_k", "moe_decode_form", "moe_prefill_form",
-    "moe_capacity_factor", "moe_group_bm", "moe_group_stacked")}
-_UNPORTED["remat"] = "A10, training"
+_UNPORTED = {"remat": "A10, training"}
+# the MoE forms the JAX dispatchers read (_moe_ffn_decode, _moe_ffn_prefill)
+MOE_DECODE_FORMS = ("auto", "slice", "gather", "scan")
+MOE_PREFILL_FORMS = ("scan", "sorted", "grouped")
 
 
 @dataclass(frozen=True)
 class GptConfig:
     """The JAX engine's GptConfig, field for field (see engine.py:36 there
-    for what each field means). The MoE fields and `remat` take only their
-    defaults until ROADMAP A9 and A10 port the code that reads them."""
+    for what each field means). `remat` takes only its default until
+    ROADMAP A10 ports the code that reads it."""
 
     vocab: int = 50304
     embed: int = 768
@@ -108,6 +117,23 @@ class GptConfig:
                     f"is not ported yet (ROADMAP {item})")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be f32 or bf16: {self.dtype!r}")
+        if self.n_experts:      # engine.py:138-142 there
+            if not 1 <= self.top_k <= self.n_experts:
+                raise ValueError(f"top_k must be in [1, n_experts]: "
+                                 f"{self.top_k}, {self.n_experts}")
+            if self.swiglu:
+                raise ValueError("MoE experts use GELU (SwiGLU experts are "
+                                 "not in the JAX engine either)")
+        if self.moe_decode_form not in MOE_DECODE_FORMS:
+            raise ValueError(f"moe_decode_form must be one of "
+                             f"{MOE_DECODE_FORMS}: {self.moe_decode_form!r}")
+        if self.moe_prefill_form not in MOE_PREFILL_FORMS:
+            raise ValueError(f"moe_prefill_form must be one of "
+                             f"{MOE_PREFILL_FORMS}: "
+                             f"{self.moe_prefill_form!r}")
+        if self.moe_group_bm < 1:
+            raise ValueError(f"moe_group_bm must be positive: "
+                             f"{self.moe_group_bm}")
         if self.kv_heads is not None and self.heads % self.kv_heads:
             raise ValueError(f"heads {self.heads} not divisible by kv_heads "
                              f"{self.kv_heads}")
@@ -218,6 +244,10 @@ def init_params(cfg: GptConfig, seed: int = 0, device="cuda") -> dict:
             blk["w1"] = nrm((E, F_), E ** -0.5)
             blk["w3"] = nrm((E, F_), E ** -0.5)
             blk["w2"] = nrm((F_, E), F_ ** -0.5)
+        elif cfg.n_experts:  # a linear router and biasless expert stacks
+            blk["wr"] = nrm((E, cfg.n_experts), E ** -0.5)
+            blk["w1"] = nrm((cfg.n_experts, E, F_), E ** -0.5)
+            blk["w2"] = nrm((cfg.n_experts, F_, E), F_ ** -0.5)
         else:
             blk["w1"] = nrm((E, F_), E ** -0.5)
             blk["b1"] = const(F_, 0.0)
@@ -451,6 +481,293 @@ def _gather_window(w, pos, T: int):
 
 
 # ---------------------------------------------------------------------------
+# the sparse-expert FFN (n_experts > 0)
+
+def _moe_gates(h, wr, top_k: int, mm=None):
+    """Router (engine.py:438 there): the top_k expert ids and the softmax
+    over the selected logits. h (..., E) -> gates (..., k) f32, idx
+    (..., k) int64. `mm` is the f32-result contraction, `_mm` unless the
+    training step passes its differentiable one."""
+    logits = (mm or _mm)(h, wr)
+    vals, idx = torch.topk(logits, top_k, dim=-1)
+    return torch.softmax(vals, dim=-1), idx
+
+
+def _moe_ffn_scan(h, blk, top_k: int, mm=None):
+    """Every expert over all T tokens, weighted by the dense (T, n_e) gate
+    table (engine.py:450 there): exact, n_experts x the dense FFN's flops,
+    each expert's weights read once. h (T, E) -> (T, E)."""
+    mm = mm or _mm
+    gates, idx = _moe_gates(h, blk["wr"], top_k, mm)
+    n_e = blk["wr"].shape[-1]
+    dense = torch.zeros(h.shape[0], n_e, device=h.device).scatter_add(
+        1, idx, gates)
+    acc = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for e in range(n_e):
+        a = F.gelu(mm(h, blk["w1"][e])).to(h.dtype)
+        acc = acc + dense[:, e:e + 1] * mm(a, blk["w2"][e])
+    return acc.to(h.dtype)
+
+
+def _moe_ffn_gather(h, blk, top_k: int):
+    """Only the selected experts' weights, gathered per token (engine.py:480
+    there): B*k expert reads. h (B, E) -> (B, E)."""
+    gates, idx = _moe_gates(h, blk["wr"], top_k)
+    B, E = h.shape
+    w1s, w2s = blk["w1"][idx], blk["w2"][idx]     # (B, k, E, F), (B, k, F, E)
+    F_ = w1s.shape[-1]
+    hk = h[:, None, None, :].expand(B, top_k, 1, E).reshape(B * top_k, 1, E)
+    a = F.gelu(_f32bmm(hk, w1s.reshape(B * top_k, E, F_))).to(h.dtype)
+    y = _f32bmm(a, w2s.reshape(B * top_k, F_, E)).reshape(B, top_k, E)
+    return (gates[..., None] * y).sum(1).to(h.dtype)
+
+
+def _moe_ffn_slice(h, blk, top_k: int):
+    """B == 1 (engine.py:862 there): the k selected experts' matrices taken
+    by `index_select` on the device index, so no host read of the routing
+    and the step stays capturable (XLA fuses its dynamic slice into the
+    dot; here the slab is copied once). h (1, E) -> (1, E)."""
+    gates, idx = _moe_gates(h, blk["wr"], top_k)
+    acc = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for j in range(top_k):
+        e = idx[0, j:j + 1]
+        w1 = blk["w1"].index_select(0, e)[0]
+        w2 = blk["w2"].index_select(0, e)[0]
+        a = F.gelu(_mm(h, w1)).to(h.dtype)
+        acc = acc + gates[:, j:j + 1] * _mm(a, w2)
+    return acc.to(h.dtype)
+
+
+def _moe_ffn_sorted(h, blk, top_k: int, capacity_factor: float = 1.25):
+    """GShard sorted dispatch with capacity C = ceil(cf * T * k / n_e)
+    (engine.py:499 there): assignments sorted by expert (stable), packed
+    into an (n_e, C) token table, one batched GEMM per FFN layer;
+    assignments past an expert's capacity drop to a zero delta. The
+    dropped ones are written to one sentinel slot past the table, which is
+    cut off (`.at[].set(mode="drop")` there). h (T, E) -> (T, E)."""
+    gates, idx = _moe_gates(h, blk["wr"], top_k)
+    T, E = h.shape
+    n_e = blk["wr"].shape[-1]
+    A = T * top_k
+    C = max(1, int(-(-capacity_factor * A // n_e)))    # ceil
+    dev = h.device
+    e_flat = idx.reshape(A)
+    order = torch.argsort(e_flat, stable=True)
+    e_s = e_flat[order]
+    t_s = torch.arange(T, device=dev).repeat_interleave(top_k)[order]
+    g_s = gates.reshape(A)[order]
+    start = torch.searchsorted(e_s, torch.arange(n_e, device=dev))
+    rank = torch.arange(A, device=dev) - start[e_s]
+    dest = torch.where(rank < C, e_s * C + rank, n_e * C)
+    table = torch.full((n_e * C + 1,), T, device=dev).scatter(
+        0, dest, t_s)[:-1]
+    gtab = torch.zeros(n_e * C + 1, device=dev).scatter(0, dest, g_s)[:-1]
+    hp = torch.cat([h, h.new_zeros(1, E)])
+    a = F.gelu(_f32bmm(hp[table].reshape(n_e, C, E), blk["w1"])).to(h.dtype)
+    y = _f32bmm(a, blk["w2"]).reshape(n_e * C, E) * gtab[:, None]
+    out = torch.zeros(T + 1, E, device=dev).index_add_(0, table, y)
+    return out[:T].to(h.dtype)
+
+
+def _grouped_dispatch(idx, T: int, n_e: int, bm: int, top_k: int) -> dict:
+    """The single-sort grouped dispatch (engine.py:589 there), on the
+    device with the static bound A_pad = (ceil(A/bm) + n_e) * bm rows, so
+    one kernel key serves every routing. Each expert's rows pad to a bm
+    multiple with at least one block (B17 then writes every expert's dW).
+    Returns A_pad, ge (A_pad/bm,) int32 block -> expert, tt (A_pad,)
+    source token (T = padding), aid (A_pad,) assignment id (A = padding)
+    and rows (T, top_k) assignment -> padded slot."""
+    dev = idx.device
+    A = T * top_k
+    A_pad = (-(-A // bm) + n_e) * bm
+    e_flat = idx.reshape(A).long()
+    # the one-hot as (n_e, A), so the inclusive scan runs along contiguous
+    # memory (along the outer dim of (A, n_e), CUDA's scan took ~1.4 ms a
+    # layer at A 8192)
+    csum = torch.cumsum((torch.arange(n_e, device=dev)[:, None]
+                         == e_flat[None, :]).long(), 1)
+    rank = csum.gather(0, e_flat[None, :])[0] - 1
+    counts = csum[:, -1]
+    start = torch.cumsum(counts, 0) - counts            # exclusive
+    padded = torch.clamp((counts + bm - 1) // bm * bm, min=bm)
+    ends = torch.cumsum(padded, 0)
+    offs = ends - padded
+    # one sort on the unique key e*A + i orders like a stable sort by expert
+    a_s = torch.sort(e_flat * A + torch.arange(A, device=dev)).values % A
+    pslot = torch.arange(A_pad, device=dev)
+    pe = torch.searchsorted(ends, pslot, right=True).clamp(max=n_e - 1)
+    loc = pslot - offs[pe]
+    valid = loc < counts[pe]
+    # padding slots read any in-range entry, then take the sentinel
+    si = (start[pe] + torch.where(valid, loc, 0)).clamp(max=A - 1)
+    return {"A_pad": A_pad, "ge": pe[::bm].to(torch.int32),
+            "tt": torch.where(valid, a_s[si] // top_k, T),
+            "aid": torch.where(valid, a_s[si], A),
+            "rows": (offs[e_flat] + rank).reshape(T, top_k)}
+
+
+def _grouped_combine(gates, ys, rows, top_k: int):
+    """out[t] = sum_j gates[t, j] * ys[rows[t, j]] in f32, k gathers
+    (engine.py:647 there)."""
+    out = torch.zeros(gates.shape[0], ys.shape[-1], device=ys.device)
+    for j in range(top_k):
+        out = out + gates[:, j, None].float() * ys[rows[:, j]].float()
+    return out
+
+
+def _grouped_keys(T, E, F_, n_e, bm, top_k, dtype, precision):
+    """The two B16 keys of the grouped FFN: fc1 with the fused gelu, fc2."""
+    A_pad = (-(-T * top_k // bm) + n_e) * bm
+    k1 = GroupedGemmKey(n_groups=n_e, m=A_pad, n=F_, k=E, dtype=dtype,
+                        unary_kind="gelu", precision=precision, bm=bm)
+    k2 = GroupedGemmKey(n_groups=n_e, m=A_pad, n=E, k=F_, dtype=dtype,
+                        precision=precision, bm=bm)
+    return k1, k2
+
+
+def _grouped_route(h, wr, top_k: int, bm: int):
+    """(gates, idx, dispatch maps, xs): xs (A_pad, E) holds each padded
+    slot's token row, zero for padding."""
+    T, E = h.shape
+    gates, idx = _moe_gates(h, wr, top_k)
+    d = _grouped_dispatch(idx, T, wr.shape[-1], bm, top_k)
+    return gates, idx, d, torch.cat([h, h.new_zeros(1, E)])[d["tt"]]
+
+
+def _grouped_ffn(h, wr, w1, w2, top_k, bm, dtype, precision, kernels):
+    """The grouped form without autograd: the fused-gelu B16 pair."""
+    k1, k2 = _grouped_keys(*h.shape, w1.shape[-1], wr.shape[-1], bm, top_k,
+                           dtype, precision)
+    gates, _, d, xs = _grouped_route(h, wr, top_k, bm)
+    a = _kernel(k1, kernels)(d["ge"], xs, w1)         # gelu(xs @ w1[e])
+    ys = _kernel(k2, kernels)(d["ge"], a, w2)         # (A_pad, E)
+    return _grouped_combine(gates, ys, d["rows"], top_k).to(h.dtype)
+
+
+def _gelu_grad(z):
+    """d/dz of the exact-erf gelu, in f32: Phi(z) + z phi(z)."""
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    return cdf + z * torch.exp(-0.5 * z * z) * 0.3989422804014327
+
+
+def _router_vjp(h, wr, gates, idx, dgates):
+    """(dh, dwr) in f32 through gates = softmax((h @ wr)[idx]) with the
+    top-k selection fixed: routing indices carry no gradient."""
+    dvals = gates * (dgates - (gates * dgates).sum(-1, keepdim=True))
+    dlogits = torch.zeros(h.shape[0], wr.shape[-1],
+                          device=h.device).scatter(1, idx, dvals)
+    return dlogits @ wr.float().t(), h.float().t() @ dlogits
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """The differentiable grouped core (engine.py:665
+    _grouped_ffn_trainable there). Forward: z1 by an unfused B16 with an
+    f32 output, the erf gelu, the second B16; z1 is saved at the compute
+    dtype. Backward: the combine's backward as gathers, da and dxs by B16
+    transpose_b over w2 and w1 in their own layouts, dw2 and dw1 by B17 on
+    transposed views (no copy), dh as k gathers plus the router's
+    derivative through the fixed top-k selection."""
+
+    @staticmethod
+    def forward(ctx, h, wr, w1, w2, top_k, bm, dtype, precision, kernels):
+        k1, k2 = _grouped_keys(*h.shape, w1.shape[-1], wr.shape[-1], bm,
+                               top_k, dtype, precision)
+        gates, idx, d, xs = _grouped_route(h, wr, top_k, bm)
+        z1 = _kernel(dataclasses.replace(k1, unary_kind=None, out_dtype="f32"),
+                     kernels)(d["ge"], xs, w1)
+        ys = _kernel(k2, kernels)(d["ge"], F.gelu(z1).to(xs.dtype), w2)
+        ctx.save_for_backward(h, wr, w1, w2, gates, idx, d["ge"], d["tt"],
+                              d["aid"], d["rows"], xs, z1.to(xs.dtype), ys)
+        ctx.spec = (k1, k2, top_k, kernels)
+        return _grouped_combine(gates, ys, d["rows"], top_k).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (h, wr, w1, w2, gates, idx, ge, tt, aid, rows, xs, z1,
+         ys) = ctx.saved_tensors
+        k1, k2, top_k, kernels = ctx.spec
+        (T, E), F_, n_e = h.shape, w1.shape[-1], wr.shape[-1]
+        cdt = xs.dtype
+        do32 = dout.float()
+        # dys[p] = gates_flat[aid[p]] * dout[tt[p]]; sentinels read zero
+        dop = torch.cat([do32, do32.new_zeros(1, E)])
+        gflat = torch.cat([gates.reshape(-1).float(), gates.new_zeros(1)])
+        dys = (gflat[aid][:, None] * dop[tt]).to(cdt)
+        dgates = torch.stack([(do32 * ys[rows[:, j]].float()).sum(-1)
+                              for j in range(top_k)], -1)
+        da = _kernel(dataclasses.replace(k2, n=F_, k=E, transpose_b=True,
+                                         out_dtype="f32"),
+                     kernels)(ge, dys, w2)              # dys @ w2[e]^T
+        z1 = z1.float()
+        dz1 = (da * _gelu_grad(z1)).to(cdt)
+        wkey = GroupedWgradKey(n_groups=n_e, m=k1.m, k=F_, n=E,
+                               dtype=k1.dtype, precision=k1.precision,
+                               bm=k1.bm)
+        dw2 = _kernel(wkey, kernels)(ge, F.gelu(z1).to(cdt).t(), dys)
+        dw1 = _kernel(dataclasses.replace(wkey, k=E, n=F_), kernels)(
+            ge, xs.t(), dz1)
+        dxs = _kernel(dataclasses.replace(k1, n=E, k=F_, unary_kind=None,
+                                          transpose_b=True, out_dtype="f32"),
+                      kernels)(ge, dz1, w1)             # dz1 @ w1[e]^T
+        dh, dwr = _router_vjp(h, wr, gates, idx, dgates)
+        for j in range(top_k):
+            dh = dh + dxs[rows[:, j]]
+        return (dh.to(h.dtype), dwr.to(wr.dtype), dw1.to(w1.dtype),
+                dw2.to(w2.dtype), None, None, None, None, None)
+
+
+def _moe_ffn_grouped(h, blk, cfg: GptConfig, kernels: bool,
+                     precision: str = "default"):
+    """The dropless grouped-expert form (engine.py:550 there): assignments
+    sorted by expert, each expert's rows padded to a moe_group_bm multiple
+    (no token dropped), the two FFN GEMMs as B16 with gelu fused into the
+    first. Under autograd (grad mode on and a leaf that asks for it) the
+    `_GroupedFFN` Function runs instead, with B16/B17 in its backward.
+    `precision` is the keys' own ("highest" keeps f32 operands f32).
+    h (T, E) -> (T, E)."""
+    args = (h, blk["wr"], blk["w1"], blk["w2"], cfg.top_k, cfg.moe_group_bm,
+            cfg.dtype, precision, kernels)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:4]):
+        return _GroupedFFN.apply(*args)
+    return _grouped_ffn(*args)
+
+
+def _moe_ffn_prefill(h, blk, cfg: GptConfig, kernels: bool):
+    """The prefill (and extend) form by cfg.moe_prefill_form (engine.py:849
+    there). h (T, E) -> (T, E)."""
+    if cfg.moe_prefill_form == "sorted":
+        return _moe_ffn_sorted(h, blk, cfg.top_k, cfg.moe_capacity_factor)
+    if cfg.moe_prefill_form == "grouped":
+        return _moe_ffn_grouped(h, blk, cfg, kernels)
+    return _moe_ffn_scan(h, blk, cfg.top_k)
+
+
+def moe_decode_form(cfg: GptConfig, batch: int) -> str:
+    """The decode form (engine.py:885 there): a forced one, or under
+    "auto" the JAX package's byte policy, kept as it is: slice at B == 1,
+    scan once 3*B*k covers the expert table, gather otherwise."""
+    form = cfg.moe_decode_form
+    if form == "auto":
+        if batch == 1:
+            return "slice"
+        return "scan" if 3 * batch * cfg.top_k >= cfg.n_experts else "gather"
+    if form == "slice" and batch != 1:
+        raise ValueError(f"moe_decode_form='slice' needs batch 1, got "
+                         f"{batch}")
+    return form
+
+
+def _moe_ffn_decode(h, blk, cfg: GptConfig):
+    """h (B, E) -> (B, E) in the form moe_decode_form picks."""
+    form = moe_decode_form(cfg, h.shape[0])
+    if form == "slice":
+        return _moe_ffn_slice(h, blk, cfg.top_k)
+    if form == "scan":
+        return _moe_ffn_scan(h, blk, cfg.top_k)
+    return _moe_ffn_gather(h, blk, cfg.top_k)
+
+
+# ---------------------------------------------------------------------------
 # attention
 
 def composed_causal_attention(q, k, v, scale, causal: bool = True):
@@ -504,12 +821,19 @@ def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
 # ---------------------------------------------------------------------------
 # prefill
 
-def _ffn(x, h, blk, cfg: GptConfig, int8: bool, kernels: bool):
-    """The block's MLP on the normed h, added to x."""
+def _ffn(x, h, blk, cfg: GptConfig, int8: bool, kernels: bool,
+         decode: bool = False):
+    """The block's MLP on the normed h, added to x; a MoE block runs its
+    decode form on a decode step's (B, E) rows, else its prefill form."""
     if cfg.swiglu:
         act = (F.silu(_mm(h, blk["w1"], int8, kernels))
                * _mm(h, blk["w3"], int8, kernels)).to(x.dtype)
         return x + _mm(act, blk["w2"], int8, kernels).to(x.dtype)
+    if cfg.n_experts:
+        if decode:
+            return x + _moe_ffn_decode(h, blk, cfg)
+        rows = h.reshape(-1, h.shape[-1])
+        return x + _moe_ffn_prefill(rows, blk, cfg, kernels).reshape(h.shape)
     h = _dot(h, blk["w1"], blk["b1"], int8=int8, unary="gelu",
              kernels=kernels)
     return x + _dot(h, blk["w2"], blk["b2"], int8=int8, kernels=kernels)
@@ -687,7 +1011,7 @@ def _decode_body(params, cache, token, cfg: GptConfig, kernels: bool):
         a = a.reshape(B, H * D).to(x.dtype)
         x = x + _dot(a, blk["wo"], blk["bo"])
         x = _ffn(x, _block_norm(x, blk, "ln2", cfg), blk, cfg, False,
-                 kernels)
+                 kernels, decode=True)
     logits = _dot(_final_norm(x, params, cfg), params["lm_head"])
     pos.add_(1)
     return logits, cache

@@ -61,15 +61,23 @@ def dequantize(t):
 _BLOCK_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 
+def _quantized(name: str, blk: dict) -> bool:
+    """Whether a block leaf is quantized: a matmul weight, except the expert
+    stacks (n_e, E, F) of a MoE block (its router "wr" marks it), which
+    stay raw as the JAX package leaves them (quant.py:98-107 there); the
+    router is O(E * n_e) and not a matmul weight here."""
+    return name in _BLOCK_MATMUL_KEYS and not (
+        "wr" in blk and name in ("w1", "w2"))
+
+
 def quantize_params(params: dict, include_embed: bool = False,
                     bits: int = 8) -> dict:
     """Quantize every block matmul weight and the LM head of an engine
-    params dict. ``include_embed`` also quantizes wte/wpe with per-row
-    scales (rows are gathered)."""
+    params dict (a MoE block's expert stacks excepted). ``include_embed``
+    also quantizes wte/wpe with per-row scales (rows are gathered)."""
     out = dict(params)
     out["lm_head"] = quantize(params["lm_head"], bits=bits)
-    out["blocks"] = [{k: quantize(v, bits=bits)
-                      if k in _BLOCK_MATMUL_KEYS else v
+    out["blocks"] = [{k: quantize(v, bits=bits) if _quantized(k, blk) else v
                       for k, v in blk.items()} for blk in params["blocks"]]
     if include_embed:
         out["wte"] = quantize(params["wte"], axis=-1, bits=bits)

@@ -12,6 +12,9 @@ prompt ids are drawn exactly as there, so the prompts are the same.
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --vocab 96 --embed 64 \\
       --heads 4 --layers 2 --max-seq 24 --prompt-len 6 --steps 5 \\
       --dtype f32 --device cpu
+  python -m tpp_mlir_tpu_torch.tools.tpp_serve --experts 8 \\
+      --moe-prefill sorted --batch 8 --prompt-len 512 --max-seq 640 \\
+      --steps 32                                     # GPT-2 small MoE-8
 
 Times are host clocks around work that ends in a device synchronize; the
 prefill (with the first sample), the decode time per step and tokens/s
@@ -27,7 +30,7 @@ import time
 
 # modes of the JAX tool that are not ported yet, and their ROADMAP items
 _LATER = {"speculative": "A8", "continuous": "A8", "beams": "A8",
-          "tp": "A11", "experts": "A9"}
+          "tp": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,6 +57,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quant", choices=["int8"], default="")
     p.add_argument("--llama", action="store_true",
                    help="RoPE + RMSNorm + SwiGLU (with --kv-heads for GQA)")
+    p.add_argument("--experts", type=int, default=0,
+                   help="MoE: experts per block (0 = dense)")
+    p.add_argument("--top-k-experts", type=int, default=2,
+                   help="experts per token (with --experts)")
+    p.add_argument("--moe-prefill", choices=["scan", "sorted"],
+                   default="scan",
+                   help="MoE prefill FFN form: exact scan over the experts "
+                        "or GShard sorted dispatch (capacity-bounded); the "
+                        "grouped form is GptConfig(moe_prefill_form="
+                        "'grouped')")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no CPU fallback) or cpu")
     for flag, item in _LATER.items():
@@ -86,13 +99,19 @@ def main(argv=None, out=sys.stdout) -> int:
         print(f"prompt+steps ({args.prompt_len}+{args.steps}) exceeds "
               f"--max-seq {args.max_seq}", file=sys.stderr)
         return 2
-    cfg, params, ids = setup(dict(
-        vocab=args.vocab, embed=args.embed, heads=args.heads,
-        layers=args.layers, mlp_ratio=args.mlp_ratio, max_seq=args.max_seq,
-        dtype=args.dtype, kv_heads=args.kv_heads or None,
-        kv_quant=args.kv_quant or None, batch=args.batch,
-        prompt=args.prompt_len, seed=args.seed, llama=args.llama,
-        quant=bool(args.quant)), dev)
+    try:
+        cfg, params, ids = setup(dict(
+            vocab=args.vocab, embed=args.embed, heads=args.heads,
+            layers=args.layers, mlp_ratio=args.mlp_ratio,
+            max_seq=args.max_seq, dtype=args.dtype,
+            kv_heads=args.kv_heads or None, kv_quant=args.kv_quant or None,
+            n_experts=args.experts, top_k=args.top_k_experts,
+            moe_prefill_form=args.moe_prefill, batch=args.batch,
+            prompt=args.prompt_len, seed=args.seed, llama=args.llama,
+            quant=bool(args.quant)), dev)
+    except ValueError as e:         # a configuration GptConfig refuses
+        print(e, file=sys.stderr)
+        return 2
     res = serve(cfg, params, ids, args.steps, args.temperature, args.top_k,
                 args.top_p, args.seed)
     B, steps = args.batch, args.steps

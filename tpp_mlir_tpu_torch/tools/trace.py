@@ -43,8 +43,8 @@ from ..passes import PassManager
 from ..runtime import compile as tpp_compile
 from ..utils.target import resolve_device
 from ..xsmm import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
-                    LayerNormKey, global_cache)
+                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
+                    GroupedWgradKey, Int8GemmKey, LayerNormKey, global_cache)
 from .bench_driver import build_module
 from .tpp_run import init_args, load_module, wrap_bench_main
 
@@ -122,6 +122,16 @@ def describe(key) -> str:
         return (f"{kind} b{key.batch} s{key.seq} h{key.heads} "
                 f"d{key.head_dim} {key.dtype}"
                 f"{' causal' if key.causal else ''}")
+    if isinstance(key, GroupedGemmKey):
+        extra = "".join(f" {x}" for x, on in (
+            ("transpose_b", key.transpose_b), (key.unary_kind, key.unary_kind),
+            (f"layers {key.layers}", key.layers),
+            (f"-> {key.out_dtype}", key.out_dtype)) if on)
+        return (f"grouped_gemm {key.m}x{key.n}x{key.k} g{key.n_groups} "
+                f"bm{key.bm} {key.dtype}{extra}")
+    if isinstance(key, GroupedWgradKey):
+        return (f"grouped_wgrad {key.k}x{key.n} over m{key.m} "
+                f"g{key.n_groups} bm{key.bm} {key.dtype}")
     return type(key).__name__
 
 

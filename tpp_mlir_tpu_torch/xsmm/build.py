@@ -32,6 +32,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (restype, argtypes)
     "tpp_brgemm": (_I, [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _P, _P, _P]),
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
     "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _P]),
+    "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+    "tpp_grouped_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_L, _L] + [_I] * 2
+                          + [_P]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -1,7 +1,8 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
-FlashMhaKey, LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey), of
+FlashMhaKey, GroupedGemmKey, GroupedWgradKey, LayerNormKey, UnaryKey,
+BinaryKey, Int8GemmKey), of
 `tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey) and of
 `tpp_mlir_tpu/xsmm/flash_train.py` (FlashTrainKey, without `hpp`). The port
 imports nothing of the JAX package, so it keeps its own copies.
@@ -99,6 +100,54 @@ class LayerNormKey:
     affine: bool = True        # gamma/beta operands present
     eps: float = 1e-5
     precision: str = "default"
+
+
+@dataclass(frozen=True)
+class GroupedGemmKey:
+    """Key for the grouped (ragged-batch) GEMM
+
+        O[i*bm:(i+1)*bm] = unary(A[i*bm:(i+1)*bm] @ B[ge[i]])
+
+    A (m, k) holds rows sorted by group, each group's rows padded to a
+    multiple of bm; B (n_groups, k, n), or (n_groups, n, k) under
+    transpose_b (the dgrad dy @ w[ge]^T); ge (m // bm,) int32 is the
+    block -> group map, read on the device, so one kernel serves every
+    routing. layers > 0: B is the stacked (layers, n_groups, ., .) table
+    and the call takes the layer index first: fn(li, ge, a, b)."""
+
+    n_groups: int
+    m: int                         # padded rows; m % bm == 0
+    n: int
+    k: int
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    unary_kind: str | None = None  # fused epilogue (gelu for MoE FFN1)
+    precision: str = "default"
+    bm: int = 128                  # row block = the group padding quantum
+    bn: int = 0
+    bk: int = 0
+    layers: int = 0
+    transpose_b: bool = False
+
+
+@dataclass(frozen=True)
+class GroupedWgradKey:
+    """Key for the grouped weight gradient
+
+        dW[g] = sum_{i : ge[i] == g} A[i*bm:(i+1)*bm].T @ dY[i*bm:(i+1)*bm]
+
+    A arrives transposed as (k, m), rows sorted by group (the grouped
+    forward's layout, so ge is non-decreasing); dW is f32 (n_groups, k, n).
+    A group that owns no block gets zeros."""
+
+    n_groups: int
+    m: int                          # padded rows; m % bm == 0
+    k: int                          # A rows (input features)
+    n: int                          # dY cols (output features)
+    dtype: str = "f32"
+    precision: str = "default"
+    bm: int = 128
+    bn: int = 0
 
 
 @dataclass(frozen=True)

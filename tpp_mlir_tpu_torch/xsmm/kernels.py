@@ -24,6 +24,10 @@ reached. Each wrapper counts its launches.
                                      build_flash_train_fwd, B14)
   FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
                                      build_flash_train_bwd, B18)
+  GroupedGemmKey -> csrc/grouped_gemm.cu (replaces :1138
+                                     _build_grouped_gemm, B16)
+  GroupedWgradKey -> csrc/grouped_gemm.cu (replaces :1283
+                                     _build_grouped_wgrad, B17)
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -36,8 +40,8 @@ import torch
 
 from . import reference
 from .flags import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
-                    LayerNormKey)
+                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
+                    GroupedWgradKey, Int8GemmKey, LayerNormKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -80,7 +84,10 @@ class Kernel:
         self._launch = launch
 
     def __call__(self, *args, **kwargs):
-        device = args[0].device
+        # the first floating-point operand decides (a stacked grouped GEMM
+        # takes its layer index first, maybe as an int)
+        device = next(a.device for a in args if isinstance(a, torch.Tensor)
+                      and a.is_floating_point())
         if device.type == "cpu":
             return self._plain(*args, **kwargs)
         if device.type != "cuda":
@@ -413,13 +420,83 @@ def _flash_train_bwd_launch(key: FlashTrainBwdKey):
     return launch
 
 
+GROUPED_BM_QUANTUM = 16     # grouped_gemm.cu's row tiles: 16, 32 or 64 rows
+
+
+def _grouped_gemm_launch(key: GroupedGemmKey):
+    from .build import check, library
+
+    G, L, m, n, k, bm = (key.n_groups, key.layers, key.m, key.n, key.k,
+                         key.bm)
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    w_shape = ((L,) if L else ()) + (G,) + ((n, k) if key.transpose_b
+                                           else (k, n))
+
+    def launch(*args):
+        if bm % GROUPED_BM_QUANTUM:
+            raise ValueError(f"grouped_gemm.cu needs bm a multiple of "
+                             f"{GROUPED_BM_QUANTUM}: {key}")
+        li, (ge, a, b) = (args[0], args[1:]) if L else (None, args)
+        dev = a.device
+        _expect(ge, "ge", (m // bm,), torch.int32, dev)
+        _expect(a, "A", (m, k), in_dt, dev)
+        _expect(b, "B", w_shape, in_dt, dev)
+        if L:
+            if not isinstance(li, torch.Tensor):   # a host int: checked here
+                if not 0 <= li < L:
+                    raise ValueError(f"layer {li} outside the table: {key}")
+                li = torch.full((1,), li, dtype=torch.int32, device=dev)
+            li = li.reshape(1)     # a device int, read by the kernel
+            _expect(li, "li", (1,), torch.int32, dev)
+        out = torch.empty((m, n), dtype=out_dt, device=dev)
+        rc = library().tpp_grouped_gemm(
+            a.data_ptr(), b.data_ptr(), ge.data_ptr(),
+            li.data_ptr() if L else None, out.data_ptr(), G, L, m, n, k, bm,
+            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            int(key.transpose_b), _UNARY_CODE[key.unary_kind], _stream())
+        check(rc, f"grouped_gemm {key}")
+        return out
+    return launch
+
+
+def _grouped_wgrad_launch(key: GroupedWgradKey):
+    """xt (k, m) is read through its strides: the transpose of a contiguous
+    (m, k) tensor goes in as it is, with no copy."""
+    from .build import check, library
+
+    G, m, k, n, bm = key.n_groups, key.m, key.k, key.n, key.bm
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+
+    def launch(ge, xt, dy):
+        dev = dy.device
+        _expect(ge, "ge", (m // bm,), torch.int32, dev)
+        _expect(dy, "dY", (m, n), in_dt, dev)
+        if xt.device != dev or tuple(xt.shape) != (k, m) or \
+                xt.dtype != in_dt:
+            raise ValueError(f"xt is {tuple(xt.shape)} {xt.dtype} on "
+                             f"{xt.device}, expected {(k, m)} {in_dt} on "
+                             f"{dev}")
+        out = torch.empty((G, k, n), dtype=torch.float32, device=dev)
+        rc = library().tpp_grouped_wgrad(
+            xt.data_ptr(), dy.data_ptr(), ge.data_ptr(), out.data_ptr(), G, m,
+            k, n, bm, *xt.stride(), _DT_CODE[in_dt], _DT_CODE[mxu], _stream())
+        check(rc, f"grouped_wgrad {key}")
+        return out
+    return launch
+
+
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              FlashMhaKey: _attention_launch,
              LayerNormKey: _layer_norm_launch,
              DecodeAttnKey: _decode_attn_launch,
              Int8GemmKey: _int8_gemm_launch,
              FlashTrainKey: _flash_train_fwd_launch,
-             FlashTrainBwdKey: _flash_train_bwd_launch}
+             FlashTrainBwdKey: _flash_train_bwd_launch,
+             GroupedGemmKey: _grouped_gemm_launch,
+             GroupedWgradKey: _grouped_wgrad_launch}
 
 
 def build_kernel(key) -> Kernel:

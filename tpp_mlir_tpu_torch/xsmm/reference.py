@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from .flags import (BinaryKey, BrgemmKey, ChainKey, DecodeAttnKey,
-                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey, Int8GemmKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -39,8 +40,6 @@ _OUTSIDE = {
     "BatchMatmulKey": "queue A13 / B21-B22",
     "ConvBrgemmKey": "queue A13 / B23",
     "ConvNhwcKey": "queue A13 / B24-B25",
-    "GroupedGemmKey": "queue A9 / B16",
-    "GroupedWgradKey": "queue A9 / B17",
 }
 
 
@@ -53,7 +52,8 @@ def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
     if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
-                            DecodeAttnKey, Int8GemmKey, FlashTrainKey)):
+                            DecodeAttnKey, Int8GemmKey, FlashTrainKey,
+                            GroupedGemmKey, GroupedWgradKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
@@ -71,12 +71,19 @@ def check_slice(key) -> None:
         if key.unary_kind not in (None, *UNARY_FNS):
             raise ValueError(f"unknown unary {key.unary_kind!r}")
         return
-    for dt in (key.dtype, key.out_dtype or key.dtype):
+    out_dt = "f32" if isinstance(key, GroupedWgradKey) else key.out_dtype
+    for dt in (key.dtype, out_dt or key.dtype):
         if dt not in DTYPES:
             raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
     if key.precision not in ("default", "highest"):
         raise ValueError(f"unknown precision {key.precision!r}")
-    if isinstance(key, BrgemmKey):
+    if isinstance(key, (GroupedGemmKey, GroupedWgradKey)):
+        if key.bm < 1 or key.m % key.bm:
+            raise ValueError(f"m must be a multiple of bm: {key}")
+        if isinstance(key, GroupedGemmKey) and \
+                key.unary_kind not in (None, *UNARY_FNS):
+            raise ValueError(f"unknown unary {key.unary_kind!r}")
+    elif isinstance(key, BrgemmKey):
         if key.prologue == "ln_stats" or key.ln_stats_out:
             raise _refuse("ln_stats/ln_stats_out", "A6 / B2", key)
         if key.prologue not in (None, "layer_norm"):
@@ -393,6 +400,54 @@ def int8_gemm_reference(key: Int8GemmKey):
     return fn
 
 
+def grouped_gemm_reference(key: GroupedGemmKey):
+    """B16's function, per row block (tpp_mlir_tpu/xsmm/reference.py:181):
+    O[i*bm:(i+1)*bm] = unary(A[i*bm:(i+1)*bm] @ B[ge[i]]), operands in the
+    MXU dtype, products and sums in f32, the epilogue in f32 (`gelu` is the
+    exp2-domain gelu_exp2, as the JAX epilogue table maps it), one rounding
+    to the output dtype. fn(ge, a, b), or fn(li, ge, a, b) for a stacked
+    (layers, G, ., .) table with li an int or an integer tensor."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+    nb = key.m // key.bm
+
+    def body(ge, a, b):
+        blocks = a.to(mdt).reshape(nb, key.bm, key.k)
+        w = b.to(mdt)[ge.long()]                      # (nb, k|n, n|k)
+        if key.transpose_b:
+            w = w.transpose(-1, -2)
+        acc = _f32_matmul(blocks, w)
+        if key.unary_kind:
+            acc = UNARY_FNS[key.unary_kind](acc)
+        return acc.reshape(key.m, key.n).to(out_dt)
+
+    if key.layers:
+        return lambda li, ge, a, b: body(ge, a, b[int(li)])
+    return body
+
+
+def grouped_wgrad_reference(key: GroupedWgradKey):
+    """B17's function (tpp_mlir_tpu/xsmm/reference.py:206): dW[g] =
+    sum_{i: ge[i] == g} xt[:, blk i] @ dy[blk i], f32 (G, k, n): each
+    block's product in f32 from MXU-dtype operands, then the per-group sum
+    as a one-hot product, so a group that owns no block is exactly zero.
+    fn(ge, xt, dy) with xt (k, m) of any strides (the transpose of an
+    (m, k) tensor is taken as it is) and dy (m, n)."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    nb = key.m // key.bm
+
+    def fn(ge, xt, dy):
+        xb = xt.to(mdt).reshape(key.k, nb, key.bm).permute(1, 0, 2)
+        yb = dy.to(mdt).reshape(nb, key.bm, key.n)
+        db = _f32_matmul(xb, yb)                      # (nb, k, n)
+        oh = (ge.long()[:, None] == torch.arange(
+            key.n_groups, device=ge.device)).float()  # (nb, G)
+        return torch.einsum("ig,ikn->gkn", oh, db)
+    return fn
+
+
 def _logits2(key: FlashTrainKey, q, k):
     """(B, H, S, S) f32 logits in the base-2 exponent domain of (B, S, H, D)
     q and k: the product with f32 sums, then * scale*log2(e), -1e30 above
@@ -457,7 +512,9 @@ _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                DecodeAttnKey: decode_attn_reference,
                Int8GemmKey: int8_gemm_reference,
                FlashTrainKey: flash_train_fwd_reference,
-               FlashTrainBwdKey: flash_train_bwd_reference}
+               FlashTrainBwdKey: flash_train_bwd_reference,
+               GroupedGemmKey: grouped_gemm_reference,
+               GroupedWgradKey: grouped_wgrad_reference}
 
 
 def reference_kernel(key):
