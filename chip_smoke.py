@@ -70,6 +70,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
         (make_gpt_train_step, AdamW 1e-3, the grouped form against the
         scan form: step-0 CE, grads, falling losses, 48 B16 and 24 B17
         launches a step, 5 timed steps each);
+     f. the MHA suite (benchmarks/configs/mha.json's thirteen rows at their
+        own sizes: mha_qk, mha_softmax_v, mha_projection, mha_block,
+        mha_full and the eight flash_attention rows) through
+        tpp_mlir_tpu_torch.tools.bench_driver.run_entry with -n 20: the
+        lowered op list, the launch counts of each entry, finite outputs
+        against --linalg-to-loops, and which bench lowering ran (B11 in
+        the kernel, B4, or the loop for bench_mode "scan"); then fc.json's
+        fc_128x768x2304 and fc_128x3072x768 through tpp_run -n 100 (B5 in
+        the kernel where chain.cu holds the row block, else the loop);
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
      tokens/s), each serving configuration's prefill and decode step
@@ -79,7 +88,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
      kernel beside its
      plain version, one PyTorch call computing the same function where
      there is one, and its bound (bytes over HBM's rate or operations over
-     the peak rate of their type, whichever is larger).
+     the peak rate of their type, whichever is larger); for the MHA suite
+     the flat attention at each TPU kernel's own key (B9 at the S 1024
+     rows, B8 at S 2048, B10b/B10a at causal S 2048, B6 with forced
+     blocks), B11 at -n 20, the batched matmul at mha_qk's and
+     mha_softmax_v's keys and B5 at fc_128x768x2304 with -n 100.
+Phase 3 also holds the MHA suite's kernels: flat attention at every
+flash_attention key and mha_full's, each forced strategy (grouped, qblock,
+twocall, twocall2 on the flat layout; flash_heads and xla on the token
+layout), B11 at repeats 3 (bf16 S 1024 D 128, and a causal key), the
+batched matmul at mha_qk's and mha_softmax_v's keys, an lhs_shared and a
+non-beta0 key, and B5 at fc_128x768x2304 with repeats 2 and 3.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -231,18 +250,28 @@ def _tol(key) -> float:
     difference can flip a bf16 rounding: only their f32 "highest" forms are
     held to TOL_F32. Attention holds f32 "highest" to TOL_F32 and else
     TOL_BF16 (the kernel rounds the unnormalized P and divides after P.V,
-    the plain version normalizes first, as B7 does); LayerNorm an f32
-    output to TOL_F32."""
-    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, DecodeAttnKey,
-                                         Int8GemmKey, LayerNormKey)
+    the plain version normalizes first, as B7 does), B14 under strategy
+    flash_heads 2 * TOL_BF16 as phase 3 holds B14; LayerNorm an f32 output
+    to TOL_F32. A batched matmul is a single GEMM, but its softmax_lhs
+    rounds P to bf16 at "default", where an ulp of exp between kernel and
+    plain version can flip a rounding: TOL_BF16 there."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+                                         DecodeAttnKey, Int8GemmKey,
+                                         LayerNormKey)
     if isinstance(key, DecodeAttnKey):
         return TOL_F32      # f32 math from the same values: sum order only
+    if getattr(key, "strategy", None) == "flash_heads":
+        return 2 * TOL_BF16
+    if isinstance(key, BatchMatmulKey) and key.softmax_lhs and \
+            key.precision == "default":
+        return TOL_BF16
     if isinstance(key, Int8GemmKey):
         return TOL_INT8 if key.out_dtype == "f32" else TOL_BF16
     out_f32 = (key.out_dtype or key.dtype) == "f32"
     if isinstance(key, LayerNormKey):
         return TOL_F32 if out_f32 else TOL_BF16
-    if isinstance(key, BrgemmKey) and not key.prologue:
+    if isinstance(key, BatchMatmulKey) or (isinstance(key, BrgemmKey)
+                                           and not key.prologue):
         return TOL_F32 if out_f32 else TOL_BF16
     return TOL_F32 if out_f32 and key.precision == "highest" else TOL_BF16
 
@@ -681,12 +710,39 @@ KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
          "DecodeAttnKey": "decode_attn", "Int8GemmKey": "int8_gemm",
          "FlashTrainKey": "flash_train_fwd",
          "FlashTrainBwdKey": "flash_train_bwd",
-         "GroupedGemmKey": "grouped_gemm", "GroupedWgradKey": "grouped_wgrad"}
+         "GroupedGemmKey": "grouped_gemm", "GroupedWgradKey": "grouped_wgrad",
+         "BatchMatmulKey": "batch_matmul"}
+# kinds of the MHA suite that share a key type with an earlier kernel
+MHA_KINDS = ("attention_flat", "attention_bench", "chain_pingpong")
+
+
+def _kind(key) -> str | None:
+    """The kernel a key launches, as the kernel line names it: the flat
+    layout and the warm bench of attention.cu apart from its token layout,
+    B5's ping-pong loop apart from chain.cu's others, strategy flash_heads
+    under B14, and None for strategy xla (no kernel)."""
+    kind = KINDS[type(key).__name__]
+    if kind == "attention":
+        if key.strategy == "xla":
+            return None
+        if key.strategy == "flash_heads":
+            return "flash_train_fwd"
+        if key.repeats:
+            return "attention_bench"
+        if not key.heads:
+            return "attention_flat"
+    if kind == "chain" and key.pingpong and key.repeats > 1:
+        return "chain_pingpong"
+    return kind
 
 
 def _launches(cache) -> dict:
-    counts = cache.launches_by_kind()
-    return {kind: counts.get(name, 0) for name, kind in KINDS.items()}
+    out = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    for fn in cache.kernels():
+        kind = _kind(fn.key)
+        if kind:
+            out[kind] += fn.launches
+    return out
 
 
 def phase_main_path() -> dict:
@@ -1540,6 +1596,283 @@ def phase_moe_training() -> dict:
     return {k: n + launches["scan"][k] for k, n in launches["grouped"].items()}
 
 
+# the MHA suite (benchmarks/configs/mha.json): the rows the bench driver
+# runs, at their own sizes, with their bench_mode
+MHA_SUITE = (
+    {"name": "mha_qk_fp32", "model": 'mha_qk:{"batch": 64, "heads": 16, '
+     '"seq": 32, "head_dim": 64}'},
+    {"name": "mha_softmax_v_fp32", "model": 'mha_softmax_v:{"batch": 64, '
+     '"heads": 16, "seq": 32, "head_dim": 64}'},
+    {"name": "mha_projection_fp32", "model": 'mha_projection:{"batch": 64, '
+     '"seq": 32, "model_dim": 1024}'},
+    {"name": "mha_block_seq32_fp32", "model": 'mha_block:{"batch": 8, '
+     '"heads": 16, "seq": 32, "head_dim": 64}'},
+    {"name": "mha_full_fp32", "model": 'mha_full:{"batch": 16, "heads": 16, '
+     '"seq": 256, "head_dim": 64}'},
+    {"name": "flash_attention_fp32_s1024", "model": 'mha_full:{"batch": 4, '
+     '"heads": 8, "seq": 1024, "head_dim": 64, "fused": true, '
+     '"scale": 0.125}'},
+    {"name": "flash_attention_causal_fp32_s1024", "model": 'mha_full:'
+     '{"batch": 4, "heads": 8, "seq": 1024, "head_dim": 64, "causal": true, '
+     '"scale": 0.125}'},
+    {"name": "flash_attention_bf16_s2048", "model": 'mha_full:{"batch": 2, '
+     '"heads": 8, "seq": 2048, "head_dim": 64, "fused": true, "dtype": '
+     '"bf16", "scale": 0.125}'},
+    {"name": "flash_attention_causal_bf16_s2048", "model": 'mha_full:'
+     '{"batch": 2, "heads": 8, "seq": 2048, "head_dim": 64, "causal": true, '
+     '"dtype": "bf16", "scale": 0.125}', "bench_mode": "scan"},
+    {"name": "flash_attention_fp32_s1024_d128", "model": 'mha_full:'
+     '{"batch": 4, "heads": 8, "seq": 1024, "head_dim": 128, "fused": true, '
+     '"scale": 0.0883883}'},
+    {"name": "flash_attention_bf16_s1024_d128", "model": 'mha_full:'
+     '{"batch": 4, "heads": 8, "seq": 1024, "head_dim": 128, "fused": true, '
+     '"dtype": "bf16", "scale": 0.0883883}'},
+    {"name": "flash_attention_bf16_s2048_d128", "model": 'mha_full:'
+     '{"batch": 2, "heads": 8, "seq": 2048, "head_dim": 128, "fused": true, '
+     '"dtype": "bf16", "scale": 0.0883883}'},
+    {"name": "flash_attention_causal_bf16_s2048_d128", "model": 'mha_full:'
+     '{"batch": 2, "heads": 8, "seq": 2048, "head_dim": 128, "causal": '
+     'true, "dtype": "bf16", "scale": 0.0883883}', "bench_mode": "scan"},
+)
+MHA_N = 20          # -n of the suite's timed runs
+# two f32 rows have unscaled logits (mha_full_fp32: scale 1 at D 64;
+# mha_block: N(0, 1) weights at E 1024), where f32 "default"'s bf16 operand
+# rounding flips near-ties of a saturated softmax (2.2e-1 and 3.6e-2 from
+# the f32 oracle in the port's plain versions on the CPU): they are held
+# against --linalg-to-loops at precision "highest" instead
+MHA_HIGHEST = ("mha_full_fp32", "mha_block_seq32_fp32")
+TOL_MHA_HIGHEST = 1e-3  # f32 FMA kernels vs the f32 oracle: sum order only
+# fc.json's non-square rows of the ping-pong bench, through tpp-run -n 100
+FC_ROWS = (("fc_128x768x2304", "--batch=128 --layers=768,2304 --bias "
+            "--relu"),
+           ("fc_128x3072x768", "--batch=128 --layers=3072,768 --bias "
+            "--relu"))
+
+
+def _mha_key(name: str, **kw):
+    """The flat FlashMhaKey that attention-fusion and convert-tl-to-xsmm
+    make of a MHA_SUITE mha_full row (B*H, S, D), with overrides."""
+    from tpp_mlir_tpu_torch.xsmm import FlashMhaKey
+    model = json.loads(next(e["model"] for e in MHA_SUITE
+                            if e["name"] == name).split(":", 1)[1])
+    key = FlashMhaKey(batch=model["batch"] * model["heads"],
+                      seq=model["seq"], seq_kv=model["seq"],
+                      head_dim=model["head_dim"],
+                      dtype=model.get("dtype", "f32"),
+                      scale=model.get("scale", 1.0),
+                      causal=model.get("causal", False))
+    return dataclasses.replace(key, **kw)
+
+
+def _mha_kernel_cases():
+    """(label, key) of the MHA suite's kernels at the suite's keys."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, ChainKey,
+                                         FlashMhaKey)
+    flash = [e["name"] for e in MHA_SUITE if e["name"].startswith(
+        ("flash_attention", "mha_full"))]
+    cases = [(f"flat {n}", _mha_key(n)) for n in flash]
+    causal = "flash_attention_causal_bf16_s2048"
+    cases += [(f"flat forced {st} {n}", _mha_key(n, strategy=st))
+              for st, n in (("grouped", "flash_attention_fp32_s1024"),
+                            ("qblock", "flash_attention_bf16_s2048"),
+                            ("twocall", causal), ("twocall2", causal))]
+    cases.append(("flat blocked (B6) bq/bk 256 s1024",
+                  _mha_key("flash_attention_fp32_s1024", bq=256, bk=256)))
+    serve = FlashMhaKey(8, 512, 512, 64, "bf16", scale=0.125, causal=True,
+                        heads=12)
+    cases += [("tokens forced flash_heads serve b8 s512",
+               dataclasses.replace(serve, strategy="flash_heads")),
+              ("tokens forced xla serve b8 s512",
+               dataclasses.replace(serve, strategy="xla"))]
+    cases += [("bench r3 flash_attention_bf16_s1024_d128",
+               _mha_key("flash_attention_bf16_s1024_d128", repeats=3)),
+              ("bench r3 flash_attention_causal_fp32_s1024",
+               _mha_key("flash_attention_causal_fp32_s1024", repeats=3)),
+              ("bench r2 tokens serve b8 s512 causal",
+               dataclasses.replace(serve, repeats=2))]
+    cases += [
+        ("bmm mha_qk 1024x32x32x64 f32", BatchMatmulKey(
+            1024, 32, 32, 64, "f32", beta0=True)),
+        ("bmm mha_softmax_v 1024x32x64x32 f32", BatchMatmulKey(
+            1024, 32, 64, 32, "f32", beta0=True, softmax_lhs=True)),
+        ("bmm lhs_shared 64x256x196x128 bf16", BatchMatmulKey(
+            64, 256, 196, 128, "bf16", beta0=True, lhs_shared=True)),
+        ("bmm +C 16x256x256x512 f32 highest", BatchMatmulKey(
+            16, 256, 256, 512, "f32", precision="highest"))]
+    cases += [(f"pingpong fc_128x768x2304 repeats={r}", ChainKey(
+        m=128, dims=(768, 2304), repeats=r, pingpong=True))
+              for r in (2, 3)]
+    return cases
+
+
+def _mha_inputs(key, g):
+    """Operands of a suite key: flat (B*H, S, D) q/k/v, token ones as
+    _attention_inputs makes them; the batched matmul's A (x2, so the
+    softmax is not flat), B and C; the fc's x, W ~ N(0, 1/k) and bias."""
+    import torch
+    from tpp_mlir_tpu_torch.xsmm import BatchMatmulKey, ChainKey
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dt)
+    if isinstance(key, ChainKey):
+        return _chain_inputs(key, g)
+    if isinstance(key, BatchMatmulKey):
+        a = rnd(*((key.m, key.k) if key.lhs_shared
+                  else (key.batch, key.m, key.k)), scale=2.0)
+        c = None if key.beta0 else rnd(key.batch, key.m, key.n).float()
+        return a, rnd(key.batch, key.k, key.n), c
+    if key.heads:
+        return _attention_inputs(key, g)
+    return tuple(rnd(key.batch, s, key.head_dim)
+                 for s in (key.seq, key.seq_kv, key.seq_kv))
+
+
+def phase_mha_kernels() -> dict:
+    """The MHA suite's kernels against their plain versions on the same
+    inputs: flat attention (one kernel for B6, B8, B9, B10a, B10b) at each
+    flash_attention key and mha_full's and under each forced strategy,
+    B14 and the composed attention under the token strategies flash_heads
+    and xla, B11's repeats loop, the batched matmul (B21/B22) and B5."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    stats = {}
+    for label, key in _mha_kernel_cases():
+        args = _mha_inputs(key, g)
+        kern = build_kernel(key)
+        got = kern(*args)
+        ref = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        tol = _tol(key)
+        kind = _kind(key)
+        ok = rel <= tol and torch_isfinite(got) and \
+            kern.launches == (1 if kind else 0)
+        say(f"kernel {kind or 'no kernel':16s} {label:44s} rel {rel:.3e} "
+            f"abs {ab:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol} or launches "
+                                 f"{kern.launches}")
+        if kind:
+            prev = stats.get(kind, {}).get("max_abs_err", 0.0)
+            stats[kind] = {"max_abs_err": max(prev, ab)}
+    return stats
+
+
+def _mha_want(entry: dict):
+    """(lowered invokes, kernels that must launch, bench lowering) of a
+    MHA_SUITE row."""
+    scan = entry.get("bench_mode") == "scan"
+    name = entry["model"].split(":")[0]
+    return {
+        "mha_qk": ({"xsmm.unary": 1, "xsmm.batch_gemm": 1},
+                   ("batch_matmul",), "loop"),
+        "mha_softmax_v": ({"xsmm.batch_gemm": 1}, ("batch_matmul",),
+                          "loop"),
+        "mha_projection": ({"xsmm.gemm": 1}, ("brgemm", "chain"),
+                           "in-kernel B4 (chain.cu repeats)"),
+        "mha_block": ({"xsmm.gemm": 4, "xsmm.attention": 1},
+                      ("brgemm", "attention"), "loop"),
+        "mha_full": ({"xsmm.attention": 1},
+                     ("attention_flat",) if scan else
+                     ("attention_flat", "attention_bench"),
+                     "loop" if scan else
+                     "in-kernel B11 (attention.cu repeats)"),
+    }[name]
+
+
+def phase_mha_suite() -> dict:
+    """The MHA suite's rows through the bench driver on the card at -n 20,
+    each lowered beside --linalg-to-loops; then the ping-pong fc rows
+    through tpp-run -n 100. Each row's launch counts are set to 0 just
+    before it and read just after; the rows' sum is returned."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.tools.tpp_run import run_module
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    total = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    for entry in MHA_SUITE:
+        t0 = time.perf_counter()
+        want_ops, kinds, want_bench = _mha_want(entry)
+        cache.reset_launches()
+        res = run_entry(entry, n=MHA_N, device="cuda", out_stream=sys.stderr)
+        launches = _launches(cache)
+        module = res["lowered"]["module"]
+        ops = _invoke_counts(module)
+        disp = [op.attrs for op in module["entry"].ops
+                if op.opname == "xsmm.batch_gemm_dispatch"]
+        got = res["lowered"]["outputs"][0]
+        want = res["baseline"]["outputs"][0]
+        rel, _ = rel_err(got, want)
+        note = ""
+        tol = TOL_MODEL
+        if entry["name"] in MHA_HIGHEST:
+            hi = run_entry(dict(entry, precision="highest"), device="cuda",
+                           out_stream=sys.stderr)
+            note = f" (\"default\" {rel:.3e}, printed)"
+            rel, _ = rel_err(hi["lowered"]["outputs"][0],
+                             hi["baseline"]["outputs"][0])
+            tol = TOL_MHA_HIGHEST
+        softmax = any(a.get("softmax_lhs") for a in disp)
+        softmax_ok = entry["model"].startswith("mha_softmax_v") == softmax
+        bench = res["lowered"]["bench"]
+        ok = ops == want_ops and softmax_ok and torch_isfinite(got) and \
+            tuple(got.shape) == tuple(want.shape) and rel <= tol and \
+            bench == want_bench and all(launches[k] for k in kinds)
+        moved = {k: v for k, v in launches.items() if v}
+        ms = res["lowered"]["mean_seconds"] * 1e3
+        base = res["baseline"]["mean_seconds"] * 1e3
+        say(f"mha {entry['name']}: lowered to {ops}"
+            f"{' softmax_lhs' if softmax else ''}; bench "
+            f"{bench}; output {tuple(got.shape)} {str(got.dtype)[6:]} vs "
+            f"--linalg-to-loops rel {rel:.3e} tol {tol:.0e}{note}; launches "
+            f"{moved}; -n {MHA_N} {ms:.4f} ms/iter "
+            f"({res['flops'] / ms / 1e9:.2f} TFLOP/s), --linalg-to-loops "
+            f"{base:.4f} ms ({time.perf_counter() - t0:.1f} s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{entry['name']}: ops {ops} (want "
+                                 f"{want_ops}), bench {bench} (want "
+                                 f"{want_bench}), rel {rel}, launches "
+                                 f"{launches} (must move: {kinds})")
+        for k, v in launches.items():
+            total[k] += v
+        del res
+        torch.cuda.empty_cache()    # the S 2048 oracle's f32 scores
+    for label, flags in FC_ROWS:
+        cache.reset_launches()
+        res = run_module(_module(flags), n=100, device="cuda",
+                         out_stream=sys.stderr)
+        launches = _launches(cache)
+        ref = run_module(_module(flags), device="cuda", linalg_to_loops=True,
+                         out_stream=sys.stderr)
+        got, want = res["outputs"][0], ref["outputs"][0]
+        rel, _ = rel_err(got, want)
+        in_kernel = res["bench"].startswith("in-kernel")
+        ok = rel <= TOL_BF16 and torch_isfinite(got) and \
+            in_kernel == bool(launches["chain_pingpong"])
+        say(f"fc {label} tpp-run -n 100: bench {res['bench']}; "
+            f"{res['gflops']:.1f} GFLOP/s ({res['mean_seconds'] * 1e3:.4f} "
+            f"ms/iter); vs --linalg-to-loops rel {rel:.3e} tol "
+            f"{TOL_BF16:.0e}; launches "
+            f"{ {k: v for k, v in launches.items() if v} } "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel}, bench {res['bench']},"
+                                 f" launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+    if not total["chain_pingpong"]:
+        raise AssertionError("no fc row ran B5's ping-pong bench")
+    return total
+
+
 def torch_isfinite(t) -> bool:
     import torch
     return bool(torch.isfinite(t.float()).all())
@@ -1642,12 +1975,29 @@ def phase_timing(n: int = 100) -> dict:
         g, *GROUPED_GEMM_CASES[i][1:])[:2]) for i in (1, 0)]
     moe += [("grouped_wgrad", *_grouped_wgrad_inputs(
         g, *GROUPED_WGRAD_CASES[i][1:])[:2]) for i in (1, 0)]
+    # the MHA suite: flat attention at each TPU kernel's own key (B8 at
+    # S 2048 first: the kernel line's; B9 at the S 1024 rows and mha_full;
+    # B10b and B10a at causal S 2048; B6 with forced blocks), B11 at -n 20,
+    # the batched matmul at mha_qk's (B22, the line's) and mha_softmax_v's
+    # keys, B5 at fc_128x768x2304 with -n 100
+    from tpp_mlir_tpu_torch.xsmm import BatchMatmulKey
+    causal = "flash_attention_causal_bf16_s2048"
+    mha = [_mha_key("flash_attention_bf16_s2048"),
+           _mha_key("flash_attention_fp32_s1024"), _mha_key("mha_full_fp32"),
+           _mha_key(causal), _mha_key(causal, strategy="twocall"),
+           _mha_key("flash_attention_fp32_s1024", bq=256, bk=256),
+           _mha_key("flash_attention_bf16_s1024_d128", repeats=MHA_N),
+           BatchMatmulKey(1024, 32, 32, 64, "f32", beta0=True),
+           BatchMatmulKey(1024, 32, 64, 32, "f32", beta0=True,
+                          softmax_lhs=True),
+           ChainKey(m=128, dims=(768, 2304), repeats=100, pingpong=True)]
+    moe += [(_kind(key), key, _mha_inputs(key, g)) for key in mha]
     from tpp_mlir_tpu_torch.tools.trace import describe
     timed = [(kind, key, make(key, g)) for kind, key, make in cases] + moe
     for kind, key, args in timed:
         kern, plain = build_kernel(key), reference_kernel(key)
         library = _library_call(kind, key, args)
-        graphed = kind in ("decode_attn", "int8_gemm")
+        graphed = kind in ("decode_attn", "int8_gemm", "batch_matmul")
         # the serving kernels run inside the decode step's CUDA graph: their
         # line and the kernel table take graph-replayed times
         timer = graph_ms if graphed else cuda_ms
@@ -1655,6 +2005,11 @@ def phase_timing(n: int = 100) -> dict:
         lib_ms = timer(library) if library else None
         bound, by = _bound(kind, key, args)
         note = " (replayed from a CUDA graph)" if graphed else ""
+        if getattr(key, "repeats", 0) > 1:
+            note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
+        if getattr(key, "strategy", "auto") != "auto" or getattr(
+                key, "bq", 0):
+            note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
         lib = f"{lib_ms:.4f} ms" if library else "none"
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
             f"{plain_ms:.4f} ms, library call {lib}, bound {bound:.4f} ms "
@@ -1712,12 +2067,12 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate = "f32" if key.precision == "highest" else "bf16"
         flops = 2 * key.m * sum(k * n for k, n in zip(dims[:-1], dims[1:]))
         nbytes = _nbytes(x, *wb) + key.m * dims[-1] * x.element_size()
-    elif kind == "attention":
+    elif kind in ("attention", "attention_flat", "attention_bench"):
         q = args[0]
-        B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+        B, S, H, D = key.batch, key.seq, key.heads or 1, key.head_dim
         pairs = S * (S + 1) // 2 if key.causal else S * key.seq_kv
         rate = "f32" if key.precision == "highest" else "bf16"
-        flops = 4 * B * H * pairs * D
+        flops = 4 * B * H * pairs * D * max(1, key.repeats)
         nbytes = _nbytes(q) * (1 if key.qkv_packed else 3) + \
             B * S * H * D * q.element_size()
     elif kind == "layer_norm":
@@ -1747,6 +2102,18 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate = key.dtype
         flops = 10 * B * H * D * (S * (S + 1) // 2 if key.causal else S * S)
         nbytes = _nbytes(*args) + 3 * _nbytes(q)
+    elif kind == "batch_matmul":
+        a, b, c = args
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * key.batch * key.m * key.n * key.k
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = _nbytes(a, b, c) + key.batch * key.m * key.n * size
+    elif kind == "chain_pingpong":     # R contractions of m x k x n
+        x, w, bias = args
+        rate = "f32" if key.precision == "highest" else "bf16"
+        flops = key.repeats * 2 * key.m * key.dims[0] * key.dims[1]
+        nbytes = _nbytes(x, w, bias) + key.m * key.dims[1] * x.element_size()
     elif kind == "grouped_gemm":
         # this routing's token rows (padding rows need no work) and the
         # weights of the experts it chose; every output row is written
@@ -1775,11 +2142,12 @@ def _bound(kind, key, args) -> tuple[float, str]:
 def _library_call(kind, key, args):
     """One PyTorch call computing the kernel's function on the same inputs,
     timed as a yardstick and used nowhere in the port; None where there is
-    none: a chain of GEMMs (B3) and the int8 GEMM with its scaled epilogue
+    none: a chain of GEMMs (B3), B5's ping-pong, B11's repeats, a batched
+    matmul with its softmax, and the int8 GEMM with its scaled epilogue
     (B15) have no single call. B1: torch.addmm (bias) or torch.mm; the
     attention kernels: scaled_dot_product_attention, forward, or for B18
-    its backward alone (torch.autograd.grad of a kept forward); B12:
-    F.layer_norm."""
+    its backward alone (torch.autograd.grad of a kept forward); B21/B22:
+    torch.bmm; B12: F.layer_norm."""
     import torch
     import torch.nn.functional as F
     if kind == "brgemm" and not key.prologue and key.batch == 1 and \
@@ -1797,6 +2165,14 @@ def _library_call(kind, key, args):
                    .transpose(1, 2).contiguous() for t in parts)
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=key.causal, scale=key.scale)
+    if kind == "attention_flat":     # the (B*H, S, D) rows as (1, B*H, S, D)
+        q, k, v = (t[None] for t in args)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=key.causal, scale=key.scale)
+    if kind == "batch_matmul" and key.beta0 and not key.softmax_lhs \
+            and not key.lhs_shared:
+        a, b, _ = args
+        return lambda: torch.bmm(a, b)
     if kind == "layer_norm":
         x, gamma, beta = args
         gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
@@ -1860,6 +2236,10 @@ def main() -> int:
     stats = phase_kernels()
     stats.update(phase_flash_train())
     stats.update(phase_grouped_kernels())
+    for kind, st in phase_mha_kernels().items():
+        worst = max(st["max_abs_err"], stats.get(kind, {}).get(
+            "max_abs_err", 0.0))
+        stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
@@ -1867,7 +2247,7 @@ def main() -> int:
     moe_launches, moe_setup = phase_moe_serving()
     for counts in (serve_launches, phase_serving_flash(setups[0]),
                    moe_launches, phase_mlp_training(), phase_gpt_training(),
-                   phase_moe_training()):
+                   phase_moe_training(), phase_mha_suite()):
         for kind, n in counts.items():
             launches[kind] += n
     timing = phase_timing()
@@ -1884,10 +2264,21 @@ def main() -> int:
             ("flash_train_fwd", "flash_train.cu", "flash_train.py:146"),
             ("flash_train_bwd", "flash_train.cu", "flash_train.py:190"),
             ("grouped_gemm", "grouped_gemm.cu", "kernels.py:1138"),
-            ("grouped_wgrad", "grouped_gemm.cu", "kernels.py:1283")):
+            ("grouped_wgrad", "grouped_gemm.cu", "kernels.py:1283"),
+            # one kernel for the five flat TPU kernels (B6, B8, B9, B10a,
+            # B10b: :1660, :2395, :2721, :2496, :2618)
+            ("attention_flat", "attention.cu", "kernels.py:1660"),
+            ("attention_bench", "attention.cu", "kernels.py:2091"),
+            ("batch_matmul", "batch_matmul.cu", "kernels.py:963"),
+            ("chain_pingpong", "chain.cu", "kernels.py:1919")):
+        also = {"attention_flat": [":2395", ":2496", ":2618", ":2721"],
+                "batch_matmul": [":1065"]}.get(kind)
         kernels.append({"name": kind, "route": "cuda",
                         "source": f"tpp_mlir_tpu_torch/csrc/{src}",
                         "replaces": f"tpp_mlir_tpu/xsmm/{replaces}",
+                        **({"also_replaces": [f"tpp_mlir_tpu/xsmm/kernels.py"
+                                              f"{x}" for x in also]}
+                           if also else {}),
                         "launches": launches[kind],
                         "max_abs_err": stats[kind]["max_abs_err"],
                         **timing[kind]})

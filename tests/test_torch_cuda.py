@@ -27,8 +27,9 @@ from tpp_mlir_tpu_torch.ir import parse_module
 from tpp_mlir_tpu_torch.models.mlp import MlpConfig
 from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
-from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, ChainKey, DecodeAttnKey,
-                                     FlashMhaKey, FlashTrainBwdKey,
+from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey, ChainKey,
+                                     DecodeAttnKey, FlashMhaKey,
+                                     FlashTrainBwdKey,
                                      FlashTrainKey, GroupedGemmKey,
                                      GroupedWgradKey, Int8GemmKey,
                                      LayerNormKey, build_kernel,
@@ -590,3 +591,115 @@ def test_moe_grouped_train_step_launches_b16_and_b17(cuda):
     assert counts["GroupedGemmKey"] == 3 * 4 * cfg.layers
     assert counts["GroupedWgradKey"] == 3 * 2 * cfg.layers
     assert losses[-1] < losses[0]
+
+
+# the MHA suite's kernels: flat-layout attention under each strategy and its
+# warm bench (B6, B8-B11), the batched matmul (B21/B22), the ping-pong fc
+# bench (B5)
+FLAT = {
+    "auto-s256-d64": FlashMhaKey(6, 256, 256, 64, "f32", scale=0.125),
+    "grouped-causal-bf16": FlashMhaKey(4, 128, 128, 32, "bf16", scale=0.2,
+                                       causal=True, strategy="grouped"),
+    "qblock-highest-d128": FlashMhaKey(3, 192, 320, 128, "f32",
+                                       scale=0.09, precision="highest",
+                                       strategy="qblock"),
+    "twocall-causal": FlashMhaKey(4, 256, 256, 64, "bf16", scale=0.125,
+                                  causal=True, strategy="twocall"),
+    "twocall2-causal-ragged": FlashMhaKey(2, 200, 200, 64, "bf16",
+                                          scale=0.125, causal=True,
+                                          strategy="twocall2"),
+    "bench-flat-r3": FlashMhaKey(4, 256, 256, 128, "bf16", scale=0.09,
+                                 repeats=3),
+    "bench-flat-causal-highest": FlashMhaKey(2, 128, 128, 64, "f32",
+                                             scale=0.125, causal=True,
+                                             precision="highest", repeats=2),
+    "bench-tokens-packed": FlashMhaKey(2, 128, 128, 64, "bf16", scale=0.125,
+                                       causal=True, heads=4, repeats=2,
+                                       qkv_packed=True),
+    "flash-heads": FlashMhaKey(2, 256, 256, 64, "bf16", scale=0.125,
+                               causal=True, heads=4,
+                               strategy="flash_heads"),
+    "xla": FlashMhaKey(2, 128, 128, 64, "bf16", scale=0.125, heads=4,
+                       strategy="xla"),
+}
+
+
+@pytest.mark.parametrize("name", list(FLAT))
+def test_flat_attention_and_bench_match_plain(cuda, name):
+    key = FLAT[name]
+    g = cuda
+    if key.heads:
+        E = key.heads * key.head_dim
+        if key.qkv_packed:
+            x = _rnd(g, (key.batch, key.seq, 3 * E), key.dtype)
+            args = (x, x, x)
+        else:
+            args = tuple(_rnd(g, (key.batch, s, E), key.dtype)
+                         for s in (key.seq, key.seq_kv, key.seq_kv))
+    else:
+        args = tuple(_rnd(g, (key.batch, s, key.head_dim), key.dtype)
+                     for s in (key.seq, key.seq_kv, key.seq_kv))
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == (0 if key.strategy == "xla" else 1)
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-2 if key.strategy == "flash_heads" else _tol(key)
+    assert _err(got, want) <= tol
+
+
+BMM = {
+    "qk-f32": BatchMatmulKey(64, 32, 32, 64, "f32", beta0=True),
+    "softmax-v-bf16": BatchMatmulKey(64, 32, 64, 32, "bf16", beta0=True,
+                                     softmax_lhs=True),
+    "softmax-highest-C": BatchMatmulKey(5, 70, 90, 100, "f32",
+                                        softmax_lhs=True,
+                                        precision="highest"),
+    "lhs-shared-C-bf16-out-f32": BatchMatmulKey(7, 96, 130, 80, "bf16",
+                                                out_dtype="f32",
+                                                lhs_shared=True),
+}
+
+
+@pytest.mark.parametrize("name", list(BMM))
+def test_batch_matmul_kernel_matches_plain(cuda, name):
+    key = BMM[name]
+    g = cuda
+    a = _rnd(g, (key.m, key.k) if key.lhs_shared
+             else (key.batch, key.m, key.k), key.dtype, 2.0)
+    b = _rnd(g, (key.batch, key.k, key.n), key.dtype)
+    c = None if key.beta0 else _rnd(g, (key.batch, key.m, key.n), "f32")
+    kern = build_kernel(key)
+    got = kern(a, b, c)
+    want = reference_kernel(key)(a, b, c)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    f32_out = (key.out_dtype or key.dtype) == "f32"
+    assert _err(got, want) <= (1e-4 if f32_out else 1e-2)
+
+
+@pytest.mark.parametrize("dtype,precision,repeats", [
+    ("bf16", "default", 2), ("f32", "default", 3), ("f32", "highest", 4)])
+def test_pingpong_chain_matches_plain(cuda, dtype, precision, repeats):
+    g = cuda
+    key = ChainKey(m=40, dims=(64, 160), dtype=dtype, precision=precision,
+                   repeats=repeats, pingpong=True)
+    args = (_rnd(g, (40, 64), dtype), _rnd(g, (64, 160), dtype, 64 ** -0.5),
+            _rnd(g, (160,), dtype, 0.1))
+    got = build_kernel(key)(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (40, 160)
+    assert _err(got, want) <= _tol(key)
+
+
+def test_flat_attention_refuses_shapes_beyond_the_kernel(cuda):
+    # head_dim outside attention.cu's instantiations; a batch beyond
+    # gridDim.z, where the kernel puts it
+    q = torch.zeros(2, 64, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        build_kernel(FlashMhaKey(2, 64, 64, 48))(q, q, q)
+    q = torch.zeros(70000, 16, 32, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="65535"):
+        build_kernel(FlashMhaKey(70000, 16, 16, 32, "bf16"))(q, q, q)

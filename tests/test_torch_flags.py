@@ -18,7 +18,8 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["BrgemmKey", "ChainKey", "FlashMhaKey",
+@pytest.mark.parametrize("name", ["BrgemmKey", "BatchMatmulKey", "ChainKey",
+                                  "FlashMhaKey",
                                   "LayerNormKey", "UnaryKey", "BinaryKey",
                                   "DecodeAttnKey", "Int8GemmKey",
                                   "GroupedGemmKey", "GroupedWgradKey"])

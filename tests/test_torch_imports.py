@@ -1,5 +1,5 @@
 """The port (every slice: the MLP path, the imported transformer, serving,
-training, MoE) imports torch and its own modules only: never JAX, Triton,
+training, MoE, the MHA suite) imports torch and its own modules only: never JAX, Triton,
 ml_dtypes, nor any module of the JAX package `tpp_mlir_tpu`.
 
 The run-time checks go in a subprocess because this test process already
@@ -46,6 +46,15 @@ res = run_entry({"model": 'gpt:{"batch": 1, "seq": 16, "vocab": 64, '
 assert res["lowered"]["outputs"][0].shape == (1, 16, 64)
 ops = {op.opname for op in res["lowered"]["module"]["entry"].ops}
 assert {"xsmm.attention", "xsmm.layer_norm", "xsmm.gemm"} <= ops, ops
+# the MHA slice: flat attention, the batched matmul with its softmax
+for model in ('mha_full:{"batch": 1, "heads": 2, "seq": 128, '
+              '"head_dim": 32}',
+              'mha_qk:{"batch": 1, "heads": 2, "seq": 32, "head_dim": 64}',
+              'mha_softmax_v:{"batch": 1, "heads": 2, "seq": 32, '
+              '"head_dim": 64}'):
+    res = run_entry({"model": model}, n=2, device="cpu",
+                    out_stream=sys.stderr)
+    assert torch.isfinite(res["lowered"]["outputs"][0]).all()
 # the serving slice: engine, quantizers, flash prefill and tpp_serve
 from tpp_mlir_tpu_torch.serving import (GptConfig, init_params, make_generate,
                                         quantize_params)

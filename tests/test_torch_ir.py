@@ -1,9 +1,11 @@
-"""The port's copies of the JAX package's IR, model builders, importer and
-tpp-gen (tpp_mlir_tpu_torch/ir, models, frontend, tools/mlir_gen) against the
-originals: the same printed text for every tpp-gen flag set the chip smoke
-and the tests use, the same IR and literal arrays for the imported GPT and
-encoder block, and the JAX-printed text parsed by the port printing back
-identical. Everything is compared exactly."""
+"""The port's copies of the JAX package's IR, model builders, importer,
+tpp-gen and attention-fusion pass (tpp_mlir_tpu_torch/ir, models, frontend,
+tools/mlir_gen, passes/attention.py) against the originals: the same
+printed text for every tpp-gen flag set the chip smoke and the tests use,
+the same IR and literal arrays for the imported GPT and encoder block, the
+same IR from every MHA builder before and after attention-fusion, and the
+JAX-printed text parsed by the port printing back identical. Everything is
+compared exactly."""
 
 import importlib.util
 from pathlib import Path
@@ -12,9 +14,13 @@ import numpy as np
 import pytest
 
 import tpp_mlir_tpu.ir as jax_ir
+import tpp_mlir_tpu.models.mha as jax_mha
 import tpp_mlir_tpu.tools.mlir_gen as jax_gen
 import tpp_mlir_tpu_torch.ir as port_ir
+import tpp_mlir_tpu_torch.models.mha as port_mha
 import tpp_mlir_tpu_torch.tools.mlir_gen as port_gen
+from tpp_mlir_tpu.passes import PassManager as JaxPassManager
+from tpp_mlir_tpu_torch.passes import PassManager
 from tpp_mlir_tpu.models.gpt import build_gpt as jax_build_gpt
 from tpp_mlir_tpu.models.transformer_block import \
     build_transformer_block as jax_build_block
@@ -85,3 +91,30 @@ def test_port_parser_round_trips_jax_printed_text(flags):
     module = port_ir.parse_module(text)
     module.verify()
     assert port_ir.print_module(module) == text
+
+
+MHA = [
+    ("build_qk", dict(batch=2, heads=2, seq=32, head_dim=64)),
+    ("build_softmax_v", dict(batch=2, heads=2, seq=32, head_dim=64,
+                             dtype="bf16")),
+    ("build_projection", dict(batch=2, seq=32, model_dim=64)),
+    ("build_mha", dict(batch=2, heads=2, seq=64, head_dim=32)),
+    ("build_mha", dict(batch=2, heads=2, seq=64, head_dim=32, scale=0.25)),
+    ("build_mha", dict(batch=1, heads=2, seq=64, head_dim=32, causal=True,
+                       scale=0.125, strategy="twocall", bq=32)),
+    ("build_mha", dict(batch=1, heads=2, seq=64, head_dim=32, fused=True,
+                       dtype="bf16")),
+    ("build_mha_block", dict(batch=2, heads=2, seq=32, head_dim=32)),
+]
+
+
+@pytest.mark.parametrize("fn,kw", MHA, ids=[
+    "qk", "softmax_v-bf16", "projection", "mha", "mha-scaled",
+    "mha-causal-twocall", "mha-fused-bf16", "mha_block"])
+def test_mha_builders_and_attention_fusion_match(fn, kw):
+    port, jax = getattr(port_mha, fn)(**kw), getattr(jax_mha, fn)(**kw)
+    assert str(port) == str(jax)
+    assert port.attrs == jax.attrs
+    PassManager(["attention-fusion"]).run(port)
+    JaxPassManager(["attention-fusion"]).run(jax)
+    assert str(port) == str(jax)

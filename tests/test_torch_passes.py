@@ -208,8 +208,10 @@ def _attention_module(attrs):
 
 
 @pytest.mark.parametrize("attrs,why", [
-    ({"causal": True}, "heads = 0"),
-    ({"heads": 2, "strategy": "xla"}, "strategy 'xla'"),
+    # heads = 0 is the flat layout, whose kernel runs every flat strategy;
+    # a token-layout strategy there is what the reference would swap for B6
+    ({"causal": True, "strategy": "tokens"}, "strategy 'tokens'"),
+    ({"strategy": "xla"}, "strategy 'xla'"),
 ], ids=["flat-heads-0", "forced-xla"])
 def test_verify_slice_refuses_attention_outside_the_slice(attrs, why):
     with pytest.raises(NotImplementedError, match=why):

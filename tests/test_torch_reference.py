@@ -234,10 +234,11 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching():
 
 
 @pytest.mark.parametrize("key,item", [
-    (FlashMhaKey(8, 16, 16, 64), "A6"),      # heads = 0: the flat layout
+    (BrgemmKey(1, 8, 16, 16, prologue="ln_stats"), "A6"),
     (BrgemmKey(1, 8, 16, 16, ln_stats_out=True), "A6"),
     (BrgemmKey(1, 8, 16, 16, dtype="f16"), "A14"),
-    (ChainKey(m=8, dims=(16, 32), repeats=4, pingpong=True), "B5"),
+    (ChainKey(m=8, dims=(16, 32), repeats=4, pingpong=True,
+              dtype="f16"), "A14"),
     (UnaryKey(kind="relu", shape=(8, 16), dtype="f32"), "A3"),
     (BinaryKey(kind="add", shape_a=(8, 16), shape_b=(16,), dtype="f32"),
      "A3"),

@@ -1,17 +1,24 @@
 // Whole-chain fused MLP for Hopper (sm_90a): act(...act(x@W1+b1)@W2...)
 // in one launch, optionally `repeats` times with the output fed back.
 //
-// Replaces tpp_mlir_tpu/xsmm/kernels.py:1475 _build_chain (B3) and
-// :2001 _build_chain_bench (B4). Rows of an MLP are independent, so one
-// block owns CBM rows and carries them through every layer and every
-// repeat, writing the output once at the end: no grid-wide sync, and B4 is
-// a loop inside B3 rather than a second kernel.
+// Replaces tpp_mlir_tpu/xsmm/kernels.py:1475 _build_chain (B3),
+// :2001 _build_chain_bench (B4) and :1919 _build_chain_bench_pingpong (B5).
+// Rows of an MLP are independent, so one block owns CBM rows and carries
+// them through every layer and every repeat, writing the output once: no
+// grid-wide sync, and B4 and B5 are loops inside B3 rather than kernels of
+// their own.
 //
-// Numerics of both references:
+// Numerics of the references:
 //   * B3: f32 between layers; only each product's input is rounded to the
 //     MXU dtype (bf16, or f32 at precision "highest").
 //   * B4 (repeats > 1): the state fed back is held in the MXU dtype, and the
 //     output is that state, converted to the output dtype.
+//   * B5 (pingpong, one layer k -> n, repeats > 1): even repeats run the fc,
+//     hn = act(h W + b); odd repeats contract hn with the same W on its n
+//     axis, h = hn W^T (W^T read in place: col-major fragment loads), no
+//     bias, no activation; both states in the MXU dtype. The output is hn
+//     after the last forward repeat, written when that repeat ends. The
+//     row block's buffers are sized for max(k, n).
 //
 // What bounds it on the H100: the activation row-block lives in dynamic
 // shared memory (the layer input in the MXU dtype plus the f32 layer
@@ -41,7 +48,7 @@ struct ChainParams {
   const void* w[MAXL];      // [dims[i], dims[i+1]] row-major, in Tmma
   const float* bias[MAXL];  // [dims[i+1]] f32, or null
   int dims[MAXL + 1];
-  int L, dmax, unary, last_unary, repeats, round_out, out_dtype;
+  int L, dmax, unary, last_unary, repeats, round_out, out_dtype, pingpong;
 };
 
 __host__ __device__ inline size_t align128(size_t x) {
@@ -54,17 +61,84 @@ __host__ __device__ inline size_t smem_bytes(int dmax) {
          (size_t)CBM * (dmax + ZPAD) * sizeof(float);
 }
 
+// Z[:, :N] = H[:, :K] @ W for the block's CBM rows, W (K x N) row-major
+// in the MXU dtype, or with `transposed` H[:, :K] @ W^T for W (N x K).
+template <typename Tmma>
+__device__ void block_product(const Tmma* H, int ldh, float* Z, int ldz,
+                              const Tmma* W, int K, int N, bool transposed) {
+  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  const int tid = threadIdx.x, warp = tid / 32;
+  if constexpr (kTensor) {
+    // one 16x16 output tile per warp step; A from shared memory, B
+    // straight from device memory (L2-resident), f32 accumulators
+    for (int nt = warp; nt < N / 16; nt += THREADS / 32) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, H + k0, ldh);
+        if (transposed) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::col_major> fb;
+          wmma::load_matrix_sync(fb, W + (size_t)nt * 16 * K + k0, K);
+          wmma::mma_sync(acc, fa, fb, acc);
+        } else {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, W + (size_t)k0 * N + nt * 16, N);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+      }
+      wmma::store_matrix_sync(Z + nt * 16, acc, ldz, wmma::mem_row_major);
+    }
+  } else {
+    // f32 FMA: each thread owns 4 rows x 4 columns of a 256-column slab
+    const int ty = tid / 64, tx = tid % 64;
+    for (int c0 = 0; c0 < N; c0 += 256) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int kk = 0; kk < K; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = tpp::to_f32(H[(ty * 4 + i) * ldh + kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c0 + tx + 64 * j;
+          const size_t w = transposed ? (size_t)col * K + kk
+                                      : (size_t)kk * N + col;
+          b[j] = col < N ? tpp::to_f32(W[w]) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c0 + tx + 64 * j;
+          if (col < N) Z[(ty * 4 + i) * ldz + col] = acc[i][j];
+        }
+    }
+  }
+}
+
 template <typename Tin, typename Tmma>
 __global__ void __launch_bounds__(THREADS)
 chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
              ChainParams p) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldh = p.dmax + HPAD, ldz = p.dmax + ZPAD;
   Tmma* H = reinterpret_cast<Tmma*>(smem);  // layer input, MXU dtype
   float* Z = reinterpret_cast<float*>(
       smem + align128((size_t)CBM * ldh * sizeof(Tmma)));  // layer output
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int r0 = blockIdx.x * CBM;
 
   const int d0 = p.dims[0];
@@ -76,60 +150,27 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
   }
   __syncthreads();
 
+  const int dl = p.dims[p.L];
+  // B5: the repeat whose forward state is the output
+  const int last_fwd = (p.repeats - 1) % 2 ? p.repeats - 2 : p.repeats - 1;
   for (int rep = 0; rep < p.repeats; ++rep) {
+    if (p.pingpong && rep % 2) {
+      // B5's backward step: h = hn W^T, no bias, no activation
+      const int K = p.dims[0], N = p.dims[1];
+      block_product(H, ldh, Z, ldz, static_cast<const Tmma*>(p.w[0]), N, K,
+                    true);
+      __syncthreads();
+      for (int i = tid; i < CBM * K; i += THREADS) {
+        const int r = i / K, c = i % K;
+        H[r * ldh + c] = tpp::from_f32<Tmma>(Z[r * ldz + c]);
+      }
+      __syncthreads();
+      continue;
+    }
     for (int li = 0; li < p.L; ++li) {
       const int K = p.dims[li], N = p.dims[li + 1];
-      const Tmma* W = static_cast<const Tmma*>(p.w[li]);
-      if constexpr (kTensor) {
-        // one 16x16 output tile per warp step; A from shared memory, B
-        // straight from device memory (L2-resident), f32 accumulators
-        for (int nt = warp; nt < N / 16; nt += THREADS / 32) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-          wmma::fill_fragment(acc, 0.f);
-          for (int k0 = 0; k0 < K; k0 += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb;
-            wmma::load_matrix_sync(fa, H + k0, ldh);
-            wmma::load_matrix_sync(fb, W + (size_t)k0 * N + nt * 16, N);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(Z + nt * 16, acc, ldz, wmma::mem_row_major);
-        }
-      } else {
-        // f32 FMA: each thread owns 4 rows x 4 columns of a 256-column slab
-        const int ty = tid / 64, tx = tid % 64;
-        for (int c0 = 0; c0 < N; c0 += 256) {
-          float acc[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-          for (int kk = 0; kk < K; ++kk) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              a[i] = tpp::to_f32(H[(ty * 4 + i) * ldh + kk]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int col = c0 + tx + 64 * j;
-              b[j] = col < N ? tpp::to_f32(W[(size_t)kk * N + col]) : 0.f;
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int col = c0 + tx + 64 * j;
-              if (col < N) Z[(ty * 4 + i) * ldz + col] = acc[i][j];
-            }
-        }
-      }
+      block_product(H, ldh, Z, ldz, static_cast<const Tmma*>(p.w[li]), K, N,
+                    false);
       __syncthreads();
       // bias + activation in f32; the next layer's input in the MXU dtype
       const float* bias = p.bias[li];
@@ -144,9 +185,17 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
       }
       __syncthreads();
     }
+    if (p.pingpong && rep == last_fwd) {
+      for (int i = tid; i < CBM * dl; i += THREADS) {
+        const int r = i / dl, c = i % dl;
+        if (r0 + r < m)
+          tpp::store_out(out, (size_t)(r0 + r) * dl + c, p.out_dtype,
+                         tpp::to_f32(H[r * ldh + c]));
+      }
+    }
   }
+  if (p.pingpong) return;
 
-  const int dl = p.dims[p.L];
   for (int i = tid; i < CBM * dl; i += THREADS) {
     const int r = i / dl, c = i % dl;
     if (r0 + r >= m) continue;
@@ -182,12 +231,14 @@ extern "C" long long tpp_chain_smem_bytes(int dmax, int mma_dtype) {
 // Returns the cudaError_t of the launch (0 on success). w_ptrs/b_ptrs are
 // host arrays of L device pointers (weights in the MXU dtype, biases f32);
 // dims is a host array of L+1 ints. Every dim must be a multiple of 16.
+// pingpong (B5) needs L == 1 and repeats > 1.
 extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
                          const void* const* b_ptrs, const int* dims, int L,
                          int m, int in_dtype, int mma_dtype, int out_dtype,
                          int has_bias, int unary, int last_unary, int repeats,
-                         int round_out, void* stream) {
-  if (L < 1 || L > MAXL) return static_cast<int>(cudaErrorInvalidValue);
+                         int round_out, int pingpong, void* stream) {
+  if (L < 1 || L > MAXL || (pingpong && (L != 1 || repeats < 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
   ChainParams p{};
   p.L = L;
   p.dmax = 0;
@@ -206,6 +257,7 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
   p.repeats = repeats < 1 ? 1 : repeats;
   p.round_out = round_out;
   p.out_dtype = out_dtype;
+  p.pingpong = pingpong;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return launch<float, float>(x, out, m, p, st);

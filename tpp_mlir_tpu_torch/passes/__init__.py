@@ -4,6 +4,7 @@ from .pass_manager import (Pass, PassManager, expand_pipeline, register,
                            register_pipeline, run_pipeline)
 
 # importing registers the passes
+from . import attention as _attention      # noqa: F401
 from . import chain as _chain              # noqa: F401
 from . import cleanup as _cleanup          # noqa: F401
 from . import fold as _fold                # noqa: F401

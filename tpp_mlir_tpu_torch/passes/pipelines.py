@@ -2,15 +2,17 @@
 
 `default-tpp-passes` runs only the passes the slice has ported, in the
 reference's order (`tpp_mlir_tpu/passes/pipelines.py:67-100`): on tpp-gen's
-MLP, fc and matmul modules and on the imported GPT and transformer-block
-models the reference's other passes leave the IR as it is. It ends with
-`verify-slice`, which refuses any op the port cannot run, so no IR outside
-the slice is run half-lowered.
+MLP, fc and matmul modules, on the MHA suite's modules and on the imported
+GPT and transformer-block models the reference's other passes leave the IR
+as it is. It ends with `verify-slice`, which refuses any op the port cannot
+run, so no IR outside the slice is run half-lowered.
 """
 
 from __future__ import annotations
 
 from ..ir import Function, Module
+from ..runtime.executor import attention_key
+from ..xsmm.reference import attention_route
 from .pass_manager import Pass, register, register_pipeline
 
 # ops the port's executor runs after lowering
@@ -27,11 +29,17 @@ SLICE_OPS = frozenset({
     "xsmm.attention_dispatch", "xsmm.attention",
     "xsmm.layer_norm_dispatch", "xsmm.layer_norm",
     "xsmm.binary_dispatch", "xsmm.binary",
+    # the MHA suite
+    "xsmm.batch_gemm_dispatch", "xsmm.batch_gemm",
+    "xsmm.unary_dispatch", "xsmm.unary",
 })
 
 
 def slice_violation(op) -> str | None:
     """Why `op` is outside the slice, or None."""
+    if op.opname == "tl.softmax":
+        return ("a tl.softmax that attention-fusion did not absorb "
+                "(decompose-softmax, queue A3)")
     if op.opname not in SLICE_OPS:
         return f"op {op.opname}"
     a = op.attrs
@@ -43,11 +51,15 @@ def slice_violation(op) -> str | None:
             return f"{a['layout']} layout (queue A13)"
         if a.get("prologue") not in (None, "layer_norm"):
             return f"{a['prologue']} prologue (queue A6 / B2)"
+    if op.opname == "xsmm.unary_dispatch" and a["kind"] != "transpose":
+        return f"xsmm.unary {a['kind']!r} (queue A3)"
     if op.opname == "xsmm.attention_dispatch":
-        if not a.get("heads"):
-            return "flat-layout attention, heads = 0 (queue A6 / B6, B8-B11)"
-        if a.get("strategy", "auto") not in ("auto", "tokens"):
-            return f"attention strategy {a['strategy']!r} (queue A6)"
+        # a strategy whose kernel the reference would swap for another;
+        # a shape a strategy does not apply to raises ValueError here
+        try:
+            attention_route(attention_key(a))
+        except NotImplementedError as e:
+            return f"attention {e}"
     return None
 
 
@@ -71,6 +83,7 @@ class VerifySlicePass(Pass):
 @register_pipeline("default-tpp-passes")
 def default_tpp_passes():
     return [
+        "attention-fusion",
         "cleanup",
         "sink-reshape",
         "cleanup",

@@ -2,9 +2,10 @@
 
 Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
 
-  convert-tl-to-xsmm  contractions (tl.matmul, tl.brgemm, tl.vnni_brgemm),
-                      tl.attention, tl.layer_norm and eltwise unary/binary
-                      ops become dispatch+invoke pairs;
+  convert-tl-to-xsmm  contractions (tl.matmul, tl.batch_matmul, tl.brgemm,
+                      tl.vnni_brgemm), tl.attention, tl.layer_norm,
+                      tl.transpose and eltwise unary/binary ops become
+                      dispatch+invoke pairs;
   xsmm-combine        {gemm|brgemm} -> binary -> unary chains (bias add,
                       relu, gelu, ...) become one xsmm.fused_brgemm;
   fold-residual-acc   a full-shape residual add of a BETA_0 contraction
@@ -18,9 +19,9 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
                       becomes that GEMM's prologue (:1030);
   verify-xsmm         dispatch/invoke consistency.
 
-The batch-matmul, packed, conv, transpose, VNNI-pack, zero-fill and generic
-branches wait for their ROADMAP items; what they would have lowered is
-refused by the pipeline's verify-slice.
+The packed, conv, VNNI-pack, zero-fill and generic branches wait for their
+ROADMAP items; what they would have lowered is refused by the pipeline's
+verify-slice.
 """
 
 from __future__ import annotations
@@ -139,6 +140,34 @@ class ConvertTlToXsmmPass(Pass):
                     attrs["head_dim"] = D // H
                 replace(op, pair("xsmm.attention_dispatch", "xsmm.attention",
                                  attrs, [Q, K, V], op.result.type, op))
+                changed = True
+
+            elif name == "tl.batch_matmul":
+                A, B, C = op.operands
+                if op.attrs.get("lhs_shared"):
+                    m, k = A.type.shape
+                    Bt = B.type.shape[0]
+                else:
+                    Bt, m, k = A.type.shape
+                attrs = {"batch": Bt, "m": m, "n": C.type.shape[2], "k": k,
+                         "dtype": A.type.dtype, "flags": (),
+                         "precision": precision}
+                for opt in ("softmax_lhs", "lhs_shared"):
+                    if op.attrs.get(opt):
+                        attrs[opt] = True
+                replace(op, pair("xsmm.batch_gemm_dispatch",
+                                 "xsmm.batch_gemm", attrs, [A, B, C], C.type,
+                                 op))
+                changed = True
+
+            elif name == "tl.transpose":
+                X = op.operands[0]
+                attrs = {"kind": "transpose", "m": X.type.shape[0],
+                         "n": X.type.shape[-1], "shape": tuple(X.type.shape),
+                         "perm": tuple(op.attrs["perm"]),
+                         "dtype": X.type.dtype, "flags": ()}
+                replace(op, pair("xsmm.unary_dispatch", "xsmm.unary", attrs,
+                                 [X], op.result.type, op))
                 changed = True
 
             elif name == "tl.layer_norm":
@@ -320,7 +349,8 @@ class FoldXsmmFlagsPass(Pass):
         b = TppBuilder(func)
         for op in list(func.ops):
             if op.parent is None or op.opname not in (
-                    "xsmm.gemm", "xsmm.brgemm", "xsmm.fused_brgemm"):
+                    "xsmm.gemm", "xsmm.brgemm", "xsmm.fused_brgemm",
+                    "xsmm.batch_gemm"):
                 continue
             disp = op.operands[0].owner
             if "beta_0" in disp.attrs.get("flags", ()):

@@ -25,6 +25,7 @@ from ..ir.ops import TppBuilder
 from ..passes import PassManager
 from ..runtime import bench, tensor_init
 from ..runtime import compile as tpp_compile
+from ..runtime.executor import bench_label, in_kernel_bench, time_in_kernel
 from ..runtime.perf import device_name, model_flops
 from ..utils.target import resolve_device
 
@@ -98,9 +99,12 @@ def run_module(module: Module, func_name: str = "entry", n: int = 0,
                pipeline: str = "default-tpp-passes",
                linalg_to_loops: bool = False, print_result: bool = False,
                device: str | torch.device = "cuda",
-               out_stream=None) -> dict:
+               out_stream=None, bench_mode: str = "auto") -> dict:
     """Lower (unless linalg_to_loops), run once, and with n > 0 time n
-    chained iterations. Returns the module, outputs, device and timing."""
+    chained iterations: inside one kernel launch where the function is one
+    kernel with a warm bench (B4, B5, B11) and bench_mode is "auto", else
+    in a loop (result["bench"] says which). Returns the module, outputs,
+    device and timing."""
     out_stream = out_stream or sys.stdout
     device = resolve_device(device)
     if not linalg_to_loops:
@@ -113,19 +117,28 @@ def run_module(module: Module, func_name: str = "entry", n: int = 0,
         flops = model_flops(module)
         if wrapper is not None:
             # the timing lives in IR: run the perf.bench wrapper (in-kernel
-            # repeats when the body is one chain kernel, else a loop)
-            outs = tpp_compile(module, wrapper, device)(*args)
+            # repeats when the body is one benchable kernel, else a loop)
+            ext = in_kernel_bench(module, func_name, device, bench_mode)
+            result["bench"] = bench_label(ext[0]) if ext else "loop"
+            outs = tpp_compile(module, wrapper, device,
+                               bench_mode=bench_mode)(*args)
             mean = float(outs[0])
         else:
-            mean = bench(fn, args, iters=n).mean_seconds
+            # results that cannot chain into the args: B5's ping-pong for a
+            # non-square fc (the reference's warm bench of it), else a loop
+            ext = in_kernel_bench(module, func_name, device, bench_mode)
+            result["bench"] = bench_label(ext[0]) if ext else "loop"
+            mean = time_in_kernel(ext, args, n, device)[0] if ext else \
+                bench(fn, args, iters=n).mean_seconds
         result["mean_seconds"] = mean
         result["gflops"] = flops / mean / 1e9 if flops else None
         where = result["device"]
+        how = f"{where}, {result['bench']}"
         if result["gflops"] is not None:
             print(f"{result['gflops']:.3f} gflops ({mean * 1e3:.6f} ms "
-                  f"mean of {n}, {where})", file=out_stream)
+                  f"mean of {n}, {how})", file=out_stream)
         else:
-            print(f"{mean * 1e3:.6f} ms (mean of {n}, {where})",
+            print(f"{mean * 1e3:.6f} ms (mean of {n}, {how})",
                   file=out_stream)
     out = fn(*args)
     outs = out if isinstance(out, tuple) else (out,)

@@ -42,9 +42,10 @@ import torch
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
 from ..utils.target import resolve_device
-from ..xsmm import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
-                    GroupedWgradKey, Int8GemmKey, LayerNormKey, global_cache)
+from ..xsmm import (BatchMatmulKey, BrgemmKey, ChainKey, DecodeAttnKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
+                    LayerNormKey, global_cache)
 from .bench_driver import build_module
 from .tpp_run import init_args, load_module, wrap_bench_main
 
@@ -99,11 +100,25 @@ def describe(key) -> str:
             (key.unary_kind, key.unary_kind)) if on)
         return f"brgemm {key.m}x{key.n}x{key.k} {key.dtype}{extra}"
     if isinstance(key, ChainKey):
-        return f"chain {key.m}x{'x'.join(map(str, key.dims))} {key.dtype}"
+        kind = "chain_pingpong" if key.pingpong and key.repeats > 1 \
+            else "chain"
+        reps = f" r{key.repeats}" if key.repeats > 1 else ""
+        return (f"{kind} {key.m}x{'x'.join(map(str, key.dims))} "
+                f"{key.dtype}{reps}")
     if isinstance(key, FlashMhaKey):
-        return (f"attention b{key.batch} s{key.seq} h{key.heads} "
-                f"d{key.head_dim} {key.dtype}"
-                f"{' causal' if key.causal else ''}")
+        kind = "attention_bench" if key.repeats else \
+            "attention" if key.heads else "attention_flat"
+        extra = "".join(f" {x}" for x, on in (
+            ("causal", key.causal), (key.strategy, key.strategy != "auto"),
+            (f"r{key.repeats}", key.repeats)) if on)
+        return (f"{kind} b{key.batch} s{key.seq} h{key.heads} "
+                f"d{key.head_dim} {key.dtype}{extra}")
+    if isinstance(key, BatchMatmulKey):
+        extra = "".join(f" {x}" for x, on in (
+            ("softmax_lhs", key.softmax_lhs), ("lhs_shared", key.lhs_shared),
+            ("+C", not key.beta0)) if on)
+        return (f"batch_matmul {key.batch}x{key.m}x{key.n}x{key.k} "
+                f"{key.dtype}{extra}")
     if isinstance(key, LayerNormKey):
         return f"layer_norm {key.m}x{key.n} {key.dtype}"
     if isinstance(key, DecodeAttnKey):

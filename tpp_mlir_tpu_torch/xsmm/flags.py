@@ -1,8 +1,8 @@
 """Kernel-cache keys of the port's slice.
 
-Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey, ChainKey,
-FlashMhaKey, GroupedGemmKey, GroupedWgradKey, LayerNormKey, UnaryKey,
-BinaryKey, Int8GemmKey), of
+Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey,
+BatchMatmulKey, ChainKey, FlashMhaKey, GroupedGemmKey, GroupedWgradKey,
+LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey), of
 `tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey) and of
 `tpp_mlir_tpu/xsmm/flash_train.py` (FlashTrainKey, without `hpp`). The port
 imports nothing of the JAX package, so it keeps its own copies.
@@ -44,6 +44,28 @@ class BrgemmKey:
 
 
 @dataclass(frozen=True)
+class BatchMatmulKey:
+    """Key for the parallel-batch matmul O[b] = f(A[b]) @ B[b] (+ C[b])
+    (tl.batch_matmul, xsmm.batch_gemm)."""
+
+    batch: int
+    m: int
+    n: int
+    k: int
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    beta0: bool = False
+    # f = the row softmax over k, in f32 (the softmax(scores) @ V kernel)
+    softmax_lhs: bool = False
+    # A is one rank-2 (m, k) operand shared by every batch element
+    lhs_shared: bool = False
+    precision: str = "default"
+    bm: int = 0
+    bn: int = 0
+    bk: int = 0
+
+
+@dataclass(frozen=True)
 class ChainKey:
     """Key for the whole-chain fused MLP kernel:
     act(...act(act(x@W1+b1)@W2+b2)...) in one launch."""
@@ -61,7 +83,8 @@ class ChainKey:
     # chain is applied `repeats` times with the output fed back as input.
     # Requires dims[0] == dims[-1].
     repeats: int = 1
-    # warm bench for a non-square single-layer fc (queue B5)
+    # warm bench of a non-square single-layer fc (B5): with repeats > 1,
+    # odd repeats contract the state with the same W on its n axis
     pingpong: bool = False
 
 
@@ -80,10 +103,14 @@ class FlashMhaKey:
     precision: str = "default"
     bq: int = 0                # query block (0 = heuristic)
     bk: int = 0                # key/value block
-    strategy: str = "auto"     # auto/tokens here; the TPU's others queued
-    repeats: int = 0           # in-kernel warm bench (queue B11)
+    # the TPU kernel a key asks for; on the card (reference.attention_route):
+    # flat auto/grouped/qblock/twocall/twocall2 and token auto/tokens run
+    # csrc/attention.cu, token flash_heads B14 (csrc/flash_train.cu), token
+    # xla the composed PyTorch attention; every other pair raises
+    strategy: str = "auto"
+    repeats: int = 0           # > 0: the in-kernel warm bench (B11)
     # heads > 0: token layout (batch, seq, heads*head_dim); 0: flat layout
-    # (batch*heads, seq, head_dim), queue A6 / B6, B8-B11
+    # (batch*heads, seq, head_dim)
     heads: int = 0
     # one (batch, seq, 3*heads*head_dim) operand holding [Q | K | V]
     qkv_packed: bool = False

@@ -11,10 +11,23 @@ reached. Each wrapper counts its launches.
                                      _build_brgemm and :243
                                      _build_brgemm_wres, LayerNorm
                                      prologue included)
-  ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain and
-                                     :2001 _build_chain_bench)
-  FlashMhaKey  -> csrc/attention.cu  (replaces :2232
-                                     _build_flash_mha_tokens; heads > 0)
+  ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain, :2001
+                                     _build_chain_bench and, pingpong,
+                                     :1919 _build_chain_bench_pingpong)
+  BatchMatmulKey -> csrc/batch_matmul.cu (replaces :963
+                                     _build_batch_matmul and :1065
+                                     _build_batch_matmul_grouped)
+  FlashMhaKey  -> by reference.attention_route:
+                  csrc/attention.cu  (replaces :2232 _build_flash_mha_tokens,
+                                     token layout; :1660 _build_flash_mha,
+                                     :2395 _qblock, :2721 _grouped, :2496
+                                     _causal_twocall and :2618
+                                     _causal_fold2, flat layout; with
+                                     repeats, :2091 _build_flash_bench)
+                  csrc/flash_train.cu (strategy flash_heads: B14's forward)
+                  no kernel          (strategy xla: the composed PyTorch
+                                     attention, as the reference composes
+                                     it in XLA)
   LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm)
   DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
                                      decode_attn.py:101 build_decode_attn)
@@ -39,9 +52,10 @@ import ctypes
 import torch
 
 from . import reference
-from .flags import (BrgemmKey, ChainKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
-                    GroupedWgradKey, Int8GemmKey, LayerNormKey)
+from .flags import (BatchMatmulKey, BrgemmKey, ChainKey, DecodeAttnKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
+                    LayerNormKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -75,7 +89,10 @@ def chain_fits_smem(key: ChainKey) -> bool:
 
 class Kernel:
     """A callable for one key: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. `launches` counts CUDA launches only."""
+    version for CPU tensors. `launches` counts CUDA launches only. A key
+    with no kernel (launch None: attention's strategy "xla", which the
+    reference composes in XLA) runs its plain version on any device and
+    counts nothing."""
 
     def __init__(self, key, launch):
         self.key = key
@@ -88,7 +105,7 @@ class Kernel:
         # takes its layer index first, maybe as an int)
         device = next(a.device for a in args if isinstance(a, torch.Tensor)
                       and a.is_floating_point())
-        if device.type == "cpu":
+        if device.type == "cpu" or self._launch is None:
             return self._plain(*args, **kwargs)
         if device.type != "cuda":
             raise ValueError(f"no kernel for device {device}")
@@ -206,28 +223,39 @@ def _chain_launch(key: ChainKey):
             _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
             int(key.has_bias), _UNARY_CODE[key.unary_kind],
             _UNARY_CODE[key.last_unary], max(1, key.repeats), int(bench),
-            _stream())
+            int(key.pingpong and bench), _stream())
         check(rc, f"chain {key}")
         return out
     return launch
 
 
 ATTENTION_HEAD_DIMS = (32, 64, 128)     # attention.cu's instantiations
+CUDA_GRID_YZ = 65535                    # gridDim.y/z limit
 
 
 def _attention_launch(key: FlashMhaKey):
+    route = reference.attention_route(key)
+    if route == "xla":
+        return None
+    if route == "flash_heads":
+        return _flash_heads_launch(key)
     from .build import check, library
 
-    B, S, Skv, H, D = key.batch, key.seq, key.seq_kv, key.heads, key.head_dim
+    B, S, Skv, D = key.batch, key.seq, key.seq_kv, key.head_dim
+    H = key.heads or 1                  # the flat layout: one head per row
     E = H * D
     in_dt = reference.DTYPES[key.dtype]
     mxu = reference.mxu_dtype(key.dtype, key.precision)
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    shape = (B, S, E) if key.heads else (B, S, D)
 
     def launch(q, k=None, v=None):
         if D not in ATTENTION_HEAD_DIMS:
             raise ValueError(f"attention.cu takes head_dim in "
                              f"{ATTENTION_HEAD_DIMS}: {key}")
+        if B > CUDA_GRID_YZ or H > CUDA_GRID_YZ:
+            raise ValueError(f"attention.cu puts the batch and the heads in "
+                             f"gridDim.z/y, at most {CUDA_GRID_YZ}: {key}")
         dev = q.device
         if key.qkv_packed:
             # [Q|K|V] column groups of one operand, read in place
@@ -236,17 +264,75 @@ def _attention_launch(key: FlashMhaKey):
                     for g in range(3)]
             ld = 3 * E
         else:
-            _expect(q, "Q", (B, S, E), in_dt, dev)
-            _expect(k, "K", (B, Skv, E), in_dt, dev)
-            _expect(v, "V", (B, Skv, E), in_dt, dev)
+            _expect(q, "Q", shape, in_dt, dev)
+            _expect(k, "K", shape[:1] + (Skv,) + shape[2:], in_dt, dev)
+            _expect(v, "V", shape[:1] + (Skv,) + shape[2:], in_dt, dev)
             ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
             ld = E
-        out = torch.empty((B, S, E), dtype=out_dt, device=dev)
+        out = torch.empty(shape, dtype=out_dt, device=dev)
         rc = library().tpp_attention(
             *ptrs, out.data_ptr(), B, S, Skv, H, D, ld, _DT_CODE[in_dt],
-            _DT_CODE[mxu], _DT_CODE[out_dt], int(key.causal),
+            _DT_CODE[mxu], _DT_CODE[out_dt], int(key.causal), key.repeats,
             key.scale * reference.LOG2E, _stream())
         check(rc, f"attention {key}")
+        return out
+    return launch
+
+
+def _flash_heads_launch(key: FlashMhaKey):
+    """Strategy "flash_heads" on the token layout: B14's forward on the
+    (B, S, H, D) view of (B, S, H*D), which is the same memory."""
+    fwd = _flash_train_fwd_launch(reference.flash_heads_key(key))
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+
+    def launch(q, k=None, v=None):
+        if key.qkv_packed:      # B14 reads contiguous (B, S, H, D) slabs
+            E = H * D
+            q, k, v = (q[..., g * E:(g + 1) * E].contiguous()
+                       for g in range(3))
+        o, _ = fwd(*(x.reshape(B, S, H, D) for x in (q, k, v)))
+        return o.reshape(B, S, H * D).to(out_dt)
+    return launch
+
+
+BMM_TILE = 64        # batch_matmul.cu's output tile is 64 x 64
+
+
+def _batch_matmul_launch(key: BatchMatmulKey):
+    """O[b] = f(A[b]) @ B[b] (+ C[b]). A problem that fits one tile is one
+    of `group` problems a block takes in turn (B22's grouping), as many as
+    keep two blocks for every SM of the card."""
+    from .build import check, library
+
+    Bt, m, n, k = key.batch, key.m, key.n, key.k
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    a_shape = (m, k) if key.lhs_shared else (Bt, m, k)
+
+    def launch(a, b, c=None):
+        dev = a.device
+        _expect(a, "A", a_shape, in_dt, dev)
+        _expect(b, "B", (Bt, k, n), in_dt, dev)
+        if not key.beta0:
+            c = c.float().contiguous()
+            _expect(c, "C", (Bt, m, n), None, dev)
+        group = 1
+        if m <= BMM_TILE and n <= BMM_TILE:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            group = next(g for g in (8, 4, 2, 1) if Bt // g >= 2 * sms
+                         or g == 1)
+        if -(-Bt // group) > CUDA_GRID_YZ:
+            raise ValueError(f"batch_matmul.cu puts the batch in gridDim.z, "
+                             f"at most {CUDA_GRID_YZ} blocks: {key}")
+        out = torch.empty((Bt, m, n), dtype=out_dt, device=dev)
+        rc = library().tpp_batch_matmul(
+            a.data_ptr(), b.data_ptr(), None if key.beta0 else c.data_ptr(),
+            out.data_ptr(), Bt, m, n, k, group, int(key.lhs_shared),
+            int(key.softmax_lhs), _DT_CODE[in_dt], _DT_CODE[mxu],
+            _DT_CODE[out_dt], _stream())
+        check(rc, f"batch_matmul {key}")
         return out
     return launch
 
@@ -489,6 +575,7 @@ def _grouped_wgrad_launch(key: GroupedWgradKey):
 
 
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
+             BatchMatmulKey: _batch_matmul_launch,
              FlashMhaKey: _attention_launch,
              LayerNormKey: _layer_norm_launch,
              DecodeAttnKey: _decode_attn_launch,

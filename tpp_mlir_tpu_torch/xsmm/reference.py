@@ -24,20 +24,20 @@ from __future__ import annotations
 
 import torch
 
-from .flags import (BinaryKey, BrgemmKey, ChainKey, DecodeAttnKey,
-                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
-                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
-                    LayerNormKey)
+from .flags import (BatchMatmulKey, BinaryKey, BrgemmKey, ChainKey,
+                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
+                    FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
+                    Int8GemmKey, LayerNormKey, UnaryKey)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # ROADMAP items that own the key types and options outside this slice
 _OUTSIDE = {
-    "UnaryKey": "queue A3 (eltwise xsmm.unary, left to PyTorch)",
+    "UnaryKey": "queue A3 (xsmm.unary has no kernel: the executor runs its "
+                "transpose as a PyTorch op, unary_reference)",
     "BinaryKey": "queue A3 (xsmm.binary has no kernel: the executor runs "
                  "it as a PyTorch op, binary_reference)",
     "BlockedMatmulKey": "queue A13 / B19-B20",
-    "BatchMatmulKey": "queue A13 / B21-B22",
     "ConvBrgemmKey": "queue A13 / B23",
     "ConvNhwcKey": "queue A13 / B24-B25",
 }
@@ -51,9 +51,9 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
 def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
-    if not isinstance(key, (BrgemmKey, ChainKey, FlashMhaKey, LayerNormKey,
-                            DecodeAttnKey, Int8GemmKey, FlashTrainKey,
-                            GroupedGemmKey, GroupedWgradKey)):
+    if not isinstance(key, (BrgemmKey, BatchMatmulKey, ChainKey, FlashMhaKey,
+                            LayerNormKey, DecodeAttnKey, Int8GemmKey,
+                            FlashTrainKey, GroupedGemmKey, GroupedWgradKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
@@ -92,21 +92,10 @@ def check_slice(key) -> None:
             raise ValueError(f"the layer_norm prologue needs the whole A row: "
                              f"batch 1, flat, no transpose_b: {key}")
     elif isinstance(key, ChainKey):
-        if key.pingpong:
-            raise _refuse("pingpong chain bench", "B5", key)
+        if key.pingpong and key.repeats > 1 and len(key.dims) != 2:
+            raise ValueError(f"the ping-pong bench is one fc layer: {key}")
     elif isinstance(key, FlashMhaKey):
-        if not key.heads:
-            raise _refuse("flat-layout attention (heads = 0)",
-                          "A6 / B6, B8-B11", key)
-        if key.repeats:
-            raise _refuse("attention repeats (warm bench)", "A6 / B11", key)
-        if key.strategy not in ("auto", "tokens"):
-            # the reference falls through from a forced strategy it cannot
-            # run (ADVICE.md #2); the port raises instead
-            raise _refuse(f"attention strategy {key.strategy!r}",
-                          "A6 / B6-B10, B14 (ADVICE.md #2)", key)
-        if key.qkv_packed and key.seq != key.seq_kv:
-            raise ValueError(f"qkv_packed needs seq == seq_kv: {key}")
+        attention_route(key)
 
 
 def mxu_dtype(dtype: str, precision: str) -> torch.dtype:
@@ -222,12 +211,15 @@ def brgemm_reference(key: BrgemmKey):
 def chain_reference(key: ChainKey):
     """act(...act(x@W1+b1)@W2...): f32 between layers, each layer's input
     rounded to the MXU dtype (B3). With repeats > 1 the chain runs `repeats`
-    times and the state fed back is held in the MXU dtype (B4)."""
+    times and the state fed back is held in the MXU dtype (B4); a pingpong
+    key runs B5 instead (_pingpong_reference)."""
     check_slice(key)
     mdt = mxu_dtype(key.dtype, key.precision)
     out_dt = DTYPES[key.out_dtype or key.dtype]
     L = len(key.dims) - 1
     bench = key.repeats > 1
+    if bench and key.pingpong:
+        return _pingpong_reference(key, mdt, out_dt)
     if bench and key.dims[0] != key.dims[-1]:
         raise ValueError(f"bench chain must be shape-preserving: {key}")
 
@@ -247,6 +239,33 @@ def chain_reference(key: ChainKey):
             if bench:
                 h = h.to(mdt).float()
         return h.to(out_dt)
+    return fn
+
+
+def _pingpong_reference(key: ChainKey, mdt, out_dt):
+    """B5's function (tpp_mlir_tpu/xsmm/kernels.py:1946-1974) for one fc
+    (k, n): the state h (m, k) in the MXU dtype; even repeats make
+    hn = act(h W + b) in the MXU dtype (`last_unary` is the act), odd
+    repeats make h = hn W^T with no bias and no act; the result is hn after
+    the last forward repeat."""
+    R = key.repeats
+    last_fwd = R - 1 if (R - 1) % 2 == 0 else R - 2
+    act = UNARY_FNS[key.last_unary or "identity"]
+
+    def fn(x, w, b=None):
+        w = w.to(mdt)
+        h, out = x.to(mdt), None
+        for r in range(R):
+            if r % 2:
+                h = _f32_matmul(hn, w.T).to(mdt)
+                continue
+            z = _f32_matmul(h, w)
+            if key.has_bias:
+                z = z + b.reshape(1, -1).float()
+            hn = act(z).to(mdt)
+            if r == last_fwd:
+                out = hn
+        return out.to(out_dt)
     return fn
 
 
@@ -284,6 +303,232 @@ def attention_reference(key: FlashMhaKey):
         o = _f32_matmul(p, split(v, Skv))
         return o.transpose(1, 2).reshape(B, S, E).to(out_dt)
     return fn
+
+
+FLAT_STRATEGIES = ("auto", "grouped", "qblock", "twocall", "twocall2")
+
+
+def attention_route(key: FlashMhaKey) -> str:
+    """Which of the port's attention paths runs `key`, or raise.
+
+    The reference lets a forced strategy fall through to another kernel
+    without a word (ADVICE.md #2, tpp_mlir_tpu/xsmm/kernels.py:1674-1745).
+    The port runs a strategy wherever the reference's builder would run
+    that strategy's kernel, and raises wherever it would run another:
+      "kernel"      csrc/attention.cu: flat layout (heads = 0) under auto,
+                    grouped (B9), qblock (B8), twocall (B10a), twocall2
+                    (B10b) and B6's blocked form (auto with bq/bk), which
+                    differ only in how they schedule the TPU's VMEM; token
+                    layout under auto or tokens (B7);
+      "bench"       the same kernel's repeats loop (B11), for repeats > 0
+                    under any strategy above (the reference reads no
+                    strategy once repeats is set, kernels.py:1746);
+      "flash_heads" token layout, causal, seq == seq_kv, f32/bf16,
+                    precision "default" (the reference's gate, :1674-1681):
+                    B14's forward, csrc/flash_train.cu;
+      "xla"         token layout: the composed PyTorch attention (the
+                    reference composes it in XLA, :2198; no Pallas kernel).
+    """
+    S, Skv = key.seq, key.seq_kv
+    if key.qkv_packed and (not key.heads or S != Skv):
+        raise ValueError(f"qkv_packed needs the token layout and seq == "
+                         f"seq_kv: {key}")
+    if not key.heads:
+        if key.strategy in ("tokens", "flash_heads", "xla"):
+            raise NotImplementedError(
+                f"strategy {key.strategy!r} names a token-layout kernel; on "
+                f"the flat layout the reference falls through to B6 without "
+                f"a word (ADVICE.md #2): {key}")
+        if key.strategy not in FLAT_STRATEGIES:
+            raise ValueError(f"unknown attention strategy "
+                             f"{key.strategy!r}: {key}")
+        # the reference's block overrides must divide (kernels.py:1767-1773)
+        if key.bk and Skv % key.bk:
+            raise ValueError(f"flash bk override {key.bk} must divide "
+                             f"seq_kv {Skv}")
+        if key.bq and S % key.bq:
+            raise ValueError(f"flash bq override {key.bq} must divide "
+                             f"seq {S}")
+        if key.repeats:
+            return "bench"
+        if key.strategy in ("twocall", "twocall2") and (
+                not key.causal or S != Skv or S % 2):
+            # the builders return None for such shapes (:2512-2514,
+            # :2635-2637) and the reference raises
+            raise ValueError(f"{key.strategy} causal attention does not "
+                             f"apply to {key}")
+        return "kernel"
+    if key.strategy in ("auto", "tokens"):
+        return "bench" if key.repeats else "kernel"
+    if key.strategy == "flash_heads" and not key.repeats and key.causal \
+            and S == Skv and key.dtype in DTYPES \
+            and key.precision == "default":
+        return "flash_heads"
+    if key.strategy == "xla" and not key.repeats:
+        return "xla"
+    raise NotImplementedError(
+        f"strategy {key.strategy!r} on the token layout: the reference runs "
+        f"another kernel here without a word (ADVICE.md #2): {key}")
+
+
+def _heads(key: FlashMhaKey, x: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, s, H*D) token layout or (B*H, s, D) flat layout -> (B', H', s,
+    D)."""
+    if key.heads:
+        return x.reshape(x.shape[0], s, key.heads, key.head_dim) \
+            .transpose(1, 2)
+    return x[:, None]
+
+
+def _merge(key: FlashMhaKey, o: torch.Tensor) -> torch.Tensor:
+    """The inverse of _heads."""
+    if key.heads:
+        return o.transpose(1, 2).reshape(o.shape[0], o.shape[2], -1)
+    return o[:, 0]
+
+
+def _attend(key: FlashMhaKey, mdt, q, k, v):
+    """One pass of csrc/attention.cu on (B', H', s, D) tensors, all f32 sums:
+    Q rounded to the MXU dtype, scaled by scale*log2(e) in f32 and rounded
+    again; exp2 scores with -1e30 at causal-masked places (rows >= cols,
+    top-left aligned); P = exp2(s - max) rounded to the MXU dtype; P V
+    divided by the f32 row sum of the unrounded P after the product, as the
+    online kernel does and as B8/B9/B11 do."""
+    qh = (q.to(mdt).float() * (key.scale * LOG2E)).to(mdt)
+    s = _f32_matmul(qh, k.to(mdt).transpose(-1, -2))
+    if key.causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device)
+        s = s.masked_fill(~keep.tril(), -1e30)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    return _f32_matmul(p.to(mdt), v.to(mdt)) / p.sum(-1, keepdim=True)
+
+
+def flat_attention_reference(key: FlashMhaKey):
+    """The flat layout's function (B6, B8, B9, B10a, B10b: one function,
+    scheduled five ways for the TPU's VMEM): _attend on (B*H, S, D), and,
+    with repeats > 0, B11's warm bench (tpp_mlir_tpu/xsmm/kernels.py:
+    2151-2176): the output rounded to the MXU dtype is the next Q, `repeats`
+    times, and the last one, still in the MXU dtype, is the result. B11 and
+    the kernel round P to the MXU dtype, where the TPU's B11 rounds it to
+    the key's dtype (:2170); the two differ only for f32 "default". The
+    token layout runs the same bench on each head's columns."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def fn(q, k, v):
+        S, Skv = q.shape[1], k.shape[1]
+        kh, vh = _heads(key, k, Skv), _heads(key, v, Skv)
+        h = _heads(key, q, S)
+        for _ in range(max(1, key.repeats)):
+            h = _attend(key, mdt, h, kh, vh)
+            if key.repeats:
+                h = h.to(mdt)
+        return _merge(key, h).to(out_dt)
+    return fn
+
+
+def composed_attention_reference(key: FlashMhaKey):
+    """Token-layout strategy "xla": the attention composed of PyTorch ops,
+    as the reference composes it in XLA (tpp_mlir_tpu/xsmm/kernels.py:2198):
+    scores in f32 from MXU-dtype operands, scaled, -inf at causal-masked
+    places, an f32 softmax rounded to the MXU dtype, then P V in f32."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def fn(q, k, v):
+        S, Skv = q.shape[1], k.shape[1]
+        s = _f32_matmul(_heads(key, q, S).to(mdt),
+                        _heads(key, k, Skv).to(mdt).transpose(-1, -2))
+        s = s * key.scale
+        if key.causal:
+            keep = torch.ones(S, Skv, dtype=torch.bool, device=s.device)
+            s = s.masked_fill(~keep.tril(), float("-inf"))
+        p = torch.softmax(s, dim=-1).to(mdt)
+        return _merge(key, _f32_matmul(p, _heads(key, v, Skv).to(mdt))) \
+            .to(out_dt)
+    return fn
+
+
+def flash_heads_key(key: FlashMhaKey) -> FlashTrainKey:
+    """B14's key for a token-layout FlashMhaKey under "flash_heads"."""
+    return FlashTrainKey(batch=key.batch, heads=key.heads, seq=key.seq,
+                         head_dim=key.head_dim, dtype=key.dtype,
+                         causal=key.causal, scale=key.scale)
+
+
+def _flash_heads_reference(key: FlashMhaKey):
+    """Strategy "flash_heads": B14's plain version on the (B, S, H, D) view
+    of the token layout, its output cast to the out dtype."""
+    fwd = flash_train_fwd_reference(flash_heads_key(key))
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+    B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
+
+    def fn(q, k, v):
+        if key.qkv_packed:
+            E = H * D
+            q, k, v = q[..., :E], q[..., E:2 * E], q[..., 2 * E:]
+        o, _ = fwd(*(x.reshape(B, S, H, D) for x in (q, k, v)))
+        return o.reshape(B, S, H * D).to(out_dt)
+    return fn
+
+
+def mha_reference(key: FlashMhaKey):
+    """The plain version of whatever attention_route picks for `key`."""
+    route = attention_route(key)
+    if route == "xla":
+        return composed_attention_reference(key)
+    if route == "flash_heads":
+        return _flash_heads_reference(key)
+    if route == "bench" or not key.heads:
+        inner = flat_attention_reference(key)
+        if not key.qkv_packed:
+            return inner
+        E = key.heads * key.head_dim
+        return lambda x, *_: inner(x[..., :E], x[..., E:2 * E],
+                                   x[..., 2 * E:])
+    return attention_reference(key)
+
+
+def batch_matmul_reference(key: BatchMatmulKey):
+    """B21/B22's function (tpp_mlir_tpu/xsmm/kernels.py:1009-1031,
+    :1097-1109): O[b] = f(A[b]) @ B[b] (+ C[b]) in f32 from MXU-dtype
+    operands, one rounding to the out dtype. With softmax_lhs, f is the row
+    softmax over k taken in f32 from A's values and rounded to the MXU dtype
+    before the product (the TPU wrapper leaves an f32 A's softmax in f32; at
+    precision "default" the port rounds every product operand to bf16, as
+    the module docstring says). With lhs_shared, A is one (m, k) matrix for
+    every b."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def fn(a, b, c=None):
+        af = a.float()
+        if key.softmax_lhs:
+            e = torch.exp(af - af.amax(-1, keepdim=True))
+            af = e / e.sum(-1, keepdim=True)
+        acc = _f32_matmul(af.to(mdt), b.to(mdt))
+        if not key.beta0:
+            acc = acc + c.float()
+        return acc.to(out_dt)
+    return fn
+
+
+def unary_reference(key: UnaryKey):
+    """xsmm.unary's transpose: the reference's kernel is jnp
+    (tpp_mlir_tpu/xsmm/kernels.py:3315), so the port's is this PyTorch op
+    and no CUDA kernel. The other unary kinds stand alone only where a pass
+    the port has not copied leaves them (queue A3)."""
+    if key.kind != "transpose":
+        raise _refuse(f"xsmm.unary {key.kind!r}", "A3", key)
+    for dt in (key.dtype, key.out_dtype or key.dtype):
+        if dt not in DTYPES:
+            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+    perm = key.perm or tuple(reversed(range(len(key.shape))))
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+    return lambda x: x.permute(*perm).contiguous().to(out_dt)
 
 
 def layer_norm_reference(key: LayerNormKey):
@@ -507,7 +752,8 @@ def flash_train_bwd_reference(key: FlashTrainKey):
 
 
 _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
-               FlashMhaKey: attention_reference,
+               BatchMatmulKey: batch_matmul_reference,
+               FlashMhaKey: mha_reference,
                LayerNormKey: layer_norm_reference,
                DecodeAttnKey: decode_attn_reference,
                Int8GemmKey: int8_gemm_reference,
