@@ -79,6 +79,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
         the kernel, B4, or the loop for bench_mode "scan"); then fc.json's
         fc_128x768x2304 and fc_128x3072x768 through tpp_run -n 100 (B5 in
         the kernel where chain.cu holds the row block, else the loop);
+     g. the conv family (benchmarks/configs/conv.json's fourteen rows and
+        vit.json's three, at their own sizes) through
+        tpp_mlir_tpu_torch.tools.bench_driver.run_entry with each row's -n
+        (its iters, or 20 for the ViT rows, which time the loop): the
+        lowered invokes, the route of each conv (csrc/conv.cu for every
+        stride-1 conv; xla, F.conv2d with TF32 off, for the ViT's strided
+        patch conv), each row's launch counts, finite outputs against
+        --linalg-to-loops, ms/iter of both;
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
      tokens/s), each serving configuration's prefill and decode step
@@ -92,13 +100,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
      the flat attention at each TPU kernel's own key (B9 at the S 1024
      rows, B8 at S 2048, B10b/B10a at causal S 2048, B6 with forced
      blocks), B11 at -n 20, the batched matmul at mha_qk's and
-     mha_softmax_v's keys and B5 at fc_128x768x2304 with -n 100.
+     mha_softmax_v's keys and B5 at fc_128x768x2304 with -n 100; csrc/conv.cu
+     at the conv kernel cases' keys beside F.conv2d + the epilogue (TF32
+     off).
 Phase 3 also holds the MHA suite's kernels: flat attention at every
 flash_attention key and mha_full's, each forced strategy (grouped, qblock,
 twocall, twocall2 on the flat layout; flash_heads and xla on the token
 layout), B11 at repeats 3 (bf16 S 1024 D 128, and a causal key), the
 batched matmul at mha_qk's and mha_softmax_v's keys, an lhs_shared and a
-non-beta0 key, and B5 at fc_128x768x2304 with repeats 2 and 3.
+non-beta0 key, and B5 at fc_128x768x2304 with repeats 2 and 3; and
+csrc/conv.cu (B24/B25) at the keys default-tpp-passes makes of the conv
+suite (conv3x3_fp32_b8_c128_k128_30's layer at f32 "default" and "highest",
+its bf16 form, c256 at 16x16, the 1x1 W 14 key, the same-padded residual
+bf16 key, forced fullrow and window), and the xla route at the ViT's patch
+conv at "highest" against the same plain version (TF32 would miss it).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -106,6 +121,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -245,8 +261,9 @@ def _tol(key) -> float:
     """max|kernel - plain| / max|plain| allowed for `key`. A single GEMM with
     an f32 output rounds its operands exactly as its plain version does
     (f32 "default" included: bf16 operands on both sides), so only the sum
-    order differs. A chain re-rounds each layer's input to the MXU dtype,
-    and so does a LayerNorm prologue its normalized rows, where a sum-order
+    order differs; so does a conv (its taps are such GEMMs). A chain
+    re-rounds each layer's input to the MXU dtype, and so does a LayerNorm
+    prologue its normalized rows, where a sum-order
     difference can flip a bf16 rounding: only their f32 "highest" forms are
     held to TOL_F32. Attention holds f32 "highest" to TOL_F32 and else
     TOL_BF16 (the kernel rounds the unnormalized P and divides after P.V,
@@ -256,8 +273,8 @@ def _tol(key) -> float:
     rounds P to bf16 at "default", where an ulp of exp between kernel and
     plain version can flip a rounding: TOL_BF16 there."""
     from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
-                                         DecodeAttnKey, Int8GemmKey,
-                                         LayerNormKey)
+                                         ConvNhwcKey, DecodeAttnKey,
+                                         Int8GemmKey, LayerNormKey)
     if isinstance(key, DecodeAttnKey):
         return TOL_F32      # f32 math from the same values: sum order only
     if getattr(key, "strategy", None) == "flash_heads":
@@ -270,8 +287,8 @@ def _tol(key) -> float:
     out_f32 = (key.out_dtype or key.dtype) == "f32"
     if isinstance(key, LayerNormKey):
         return TOL_F32 if out_f32 else TOL_BF16
-    if isinstance(key, BatchMatmulKey) or (isinstance(key, BrgemmKey)
-                                           and not key.prologue):
+    if isinstance(key, (BatchMatmulKey, ConvNhwcKey)) or (
+            isinstance(key, BrgemmKey) and not key.prologue):
         return TOL_F32 if out_f32 else TOL_BF16
     return TOL_F32 if out_f32 and key.precision == "highest" else TOL_BF16
 
@@ -711,7 +728,7 @@ KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
          "FlashTrainKey": "flash_train_fwd",
          "FlashTrainBwdKey": "flash_train_bwd",
          "GroupedGemmKey": "grouped_gemm", "GroupedWgradKey": "grouped_wgrad",
-         "BatchMatmulKey": "batch_matmul"}
+         "BatchMatmulKey": "batch_matmul", "ConvNhwcKey": "conv_nhwc"}
 # kinds of the MHA suite that share a key type with an earlier kernel
 MHA_KINDS = ("attention_flat", "attention_bench", "chain_pingpong")
 
@@ -720,8 +737,12 @@ def _kind(key) -> str | None:
     """The kernel a key launches, as the kernel line names it: the flat
     layout and the warm bench of attention.cu apart from its token layout,
     B5's ping-pong loop apart from chain.cu's others, strategy flash_heads
-    under B14, and None for strategy xla (no kernel)."""
+    under B14, and None for attention's and conv's strategy xla (no
+    kernel)."""
     kind = KINDS[type(key).__name__]
+    if kind == "conv_nhwc":
+        from tpp_mlir_tpu_torch.xsmm.reference import conv_route
+        return kind if conv_route(key) == "kernel" else None
     if kind == "attention":
         if key.strategy == "xla":
             return None
@@ -1873,6 +1894,177 @@ def phase_mha_suite() -> dict:
     return total
 
 
+# the conv family (benchmarks/configs/conv.json's 14 rows, vit.json's 3), at
+# their own sizes: the nets through the bench driver with each row's -n
+# (iters; MHA_N for the ViT rows, which time the loop), and csrc/conv.cu
+# (B24/B25) at the keys default-tpp-passes makes of them
+CONV_CONFIGS = ("benchmarks/configs/conv.json", "benchmarks/configs/vit.json")
+# (label, suite row, index of the conv among the row's, key overrides)
+CONV_KERNEL_CASES = (
+    ("conv3x3_fp32_b8_c128_k128_30", "conv3x3_fp32_b8_c128_k128_30", 0, {}),
+    ("conv3x3_fp32_b8_c128_k128_30 highest", "conv3x3_fp32_b8_c128_k128_30",
+     0, {"precision": "highest"}),
+    ("conv3x3_bf16_b8_c128_k128_30", "conv3x3_bf16_b8_c128_k128_30", 0, {}),
+    ("conv3x3_fp32_b8_c256_k256_16", "conv3x3_fp32_b8_c256_k256_16", 0, {}),
+    ("conv1x1_nhwc_fp32_b8_c256_k256_14 (W 14)",
+     "conv1x1_nhwc_fp32_b8_c256_k256_14", 0, {}),
+    ("resnet_block_nhwc_bf16 same + residual",
+     "resnet_block_nhwc_bf16", 1, {}),
+    ("conv3x3_fp32_b8_c128_k128_30 forced fullrow (B25)",
+     "conv3x3_fp32_b8_c128_k128_30", 0, {"strategy": "fullrow"}),
+    ("conv3x3_fp32_b8_c128_k128_30 forced window (B24)",
+     "conv3x3_fp32_b8_c128_k128_30", 0, {"strategy": "window"}),
+    # no kernel: the xla route, held at "highest" to the per-tap plain
+    # version, which it meets only with cuDNN's TF32 off
+    ("vit_d128_p16_f32 patch conv, xla route, highest", "vit_d128_p16_f32",
+     0, {"precision": "highest"}),
+)
+
+
+def _conv_suite() -> list[dict]:
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    return [e for cfg in CONV_CONFIGS
+            for e in json.loads((root / cfg).read_text())["benchmarks"]]
+
+
+def _conv_dispatches(module) -> list:
+    """(invoke, ConvNhwcKey) of each conv_nhwc invoke of a lowered
+    module."""
+    from tpp_mlir_tpu_torch.runtime.executor import _dispatch_key
+    return [(op, _dispatch_key(op.operands[0].owner, op))
+            for op in module["entry"].ops
+            if op.opname in ("xsmm.brgemm", "xsmm.fused_brgemm")
+            and op.operands[0].owner.attrs.get("layout") == "conv_nhwc"]
+
+
+@functools.lru_cache(maxsize=None)
+def _row_conv_keys(row: str) -> tuple:
+    """The conv keys default-tpp-passes makes of a suite row."""
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.tools.bench_driver import build_module
+    module = build_module(next(e for e in _conv_suite() if e["name"] == row))
+    run_pipeline(module, "default-tpp-passes")
+    return tuple(key for _, key in _conv_dispatches(module))
+
+
+def _conv_key(row: str, index: int, **kw):
+    """A suite row's index-th conv key, with overrides."""
+    return dataclasses.replace(_row_conv_keys(row)[index], **kw)
+
+
+def _conv_inputs(key, g):
+    """I (N, H, W, C) and W (R, S, C, K) ~ N(0, 1/(R S C)) in the key's
+    dtype; the f32 accumulator and D (a channel bias or a full residual)
+    where the key reads them."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+
+    def rnd(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dtype)
+    out = (key.N, key.P, key.Q, key.K)
+    c = None if key.beta0 else rnd(*out, dtype=torch.float32)
+    d = None
+    if key.binary_kind:
+        d = rnd(*(out if key.binary_bcast == "none" else (key.K,)),
+                dtype=torch.float32)
+    return (rnd(key.N, key.H, key.W, key.C),
+            rnd(key.R, key.S, key.C, key.K,
+                scale=(key.R * key.S * key.C) ** -0.5), c, d)
+
+
+def phase_conv_kernels() -> dict:
+    """csrc/conv.cu against its per-tap plain version at the conv suite's
+    keys, at f32 "default" and "highest", bf16, the 1x1 W 14 key, the
+    same-padded residual key and the forced fullrow (B25) and window (B24)
+    strategies; then the xla route (F.conv2d, no kernel) against the same
+    plain version at "highest", which cuDNN's default TF32 would miss."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel
+    from tpp_mlir_tpu_torch.xsmm.reference import (conv_nhwc_reference,
+                                                   conv_route)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for label, row, index, kw in CONV_KERNEL_CASES:
+        key = _conv_key(row, index, **kw)
+        args = _conv_inputs(key, g)
+        kern = build_kernel(key)
+        got = kern(*args)
+        ref = conv_nhwc_reference(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        tol = _tol(key)
+        route = conv_route(key)
+        ok = rel <= tol and torch_isfinite(got) and \
+            kern.launches == (route == "kernel") and \
+            torch.backends.cudnn.allow_tf32   # the route restores the flag
+        say(f"kernel {_kind(key) or 'no kernel':12s} {label:50s} "
+            f"N{key.N} {key.H}x{key.W}x{key.C}->{key.P}x{key.Q}x{key.K} "
+            f"R{key.R} pad {key.pad} {key.dtype}/{key.precision} route "
+            f"{route} rel {rel:.3e} abs {ab:.3e} tol {tol:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol}, launches "
+                                 f"{kern.launches}, route {route}")
+        if route == "kernel":
+            worst = max(worst, ab)
+    return {"conv_nhwc": {"max_abs_err": worst}}
+
+
+def phase_conv_suite() -> dict:
+    """Every conv.json and vit.json row through the bench driver on the
+    card with its own -n, lowered beside --linalg-to-loops: the invokes it
+    lowered to, which route each conv took (csrc/conv.cu, or xla for the
+    ViT's strided patch conv), the launch counts of the row alone, finite
+    outputs within TOL_MODEL of the oracle, ms/iter of both."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_route
+    cache = global_cache()
+    total = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    for entry in _conv_suite():
+        t0 = time.perf_counter()
+        n = entry.get("iters", MHA_N)
+        vit = entry["model"].startswith("vit:")
+        cache.reset_launches()
+        res = run_entry(entry, n=n, device="cuda", out_stream=sys.stderr)
+        launches = _launches(cache)
+        module = res["lowered"]["module"]
+        ops = _invoke_counts(module)
+        routes = [conv_route(key) for _, key in _conv_dispatches(module)]
+        got = res["lowered"]["outputs"][0]
+        want = res["baseline"]["outputs"][0]
+        rel, _ = rel_err(got, want)
+        kinds = ("attention", "brgemm") if vit else ("conv_nhwc",)
+        ok = torch_isfinite(got) and rel <= TOL_MODEL and \
+            tuple(got.shape) == tuple(want.shape) and \
+            routes == (["xla"] if vit else ["kernel"] * len(routes)) and \
+            all(launches[k] for k in kinds)
+        moved = {k: v for k, v in launches.items() if v}
+        ms = res["lowered"]["mean_seconds"] * 1e3
+        base = res["baseline"]["mean_seconds"] * 1e3
+        say(f"conv {entry['name']}: lowered to {ops}; conv routes {routes}; "
+            f"output {tuple(got.shape)} {str(got.dtype)[6:]} vs "
+            f"--linalg-to-loops rel {rel:.3e} tol {TOL_MODEL:.0e}; launches "
+            f"{moved}; -n {n} ({res['lowered']['bench']}) {ms:.4f} ms/iter "
+            f"({res['flops'] / ms / 1e9:.2f} TFLOP/s), --linalg-to-loops "
+            f"{base:.4f} ms ({time.perf_counter() - t0:.1f} s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{entry['name']}: rel {rel}, routes "
+                                 f"{routes}, launches {launches} (must "
+                                 f"move: {kinds})")
+        for k, v in launches.items():
+            total[k] += v
+        del res
+        torch.cuda.empty_cache()
+    return total
+
+
 def torch_isfinite(t) -> bool:
     import torch
     return bool(torch.isfinite(t.float()).all())
@@ -1992,6 +2184,12 @@ def phase_timing(n: int = 100) -> dict:
                           softmax_lhs=True),
            ChainKey(m=128, dims=(768, 2304), repeats=100, pingpong=True)]
     moe += [(_kind(key), key, _mha_inputs(key, g)) for key in mha]
+    # the conv family: csrc/conv.cu at each kernel case's key (the
+    # conv3x3_fp32_b8_c128_k128_30 layer first: the kernel line's), forced
+    # fullrow (B25) last
+    convs = [_conv_key(row, index, **kw)
+             for _, row, index, kw in CONV_KERNEL_CASES[:7]]
+    moe += [("conv_nhwc", key, _conv_inputs(key, g)) for key in convs]
     from tpp_mlir_tpu_torch.tools.trace import describe
     timed = [(kind, key, make(key, g)) for kind, key, make in cases] + moe
     for kind, key, args in timed:
@@ -2007,8 +2205,7 @@ def phase_timing(n: int = 100) -> dict:
         note = " (replayed from a CUDA graph)" if graphed else ""
         if getattr(key, "repeats", 0) > 1:
             note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
-        if getattr(key, "strategy", "auto") != "auto" or getattr(
-                key, "bq", 0):
+        if hasattr(key, "bq") and (key.strategy != "auto" or key.bq):
             note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
         lib = f"{lib_ms:.4f} ms" if library else "none"
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
@@ -2126,6 +2323,12 @@ def _bound(kind, key, args) -> tuple[float, str]:
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = (rows * key.k + experts * key.k * key.n) * a.element_size() \
             + key.m * key.n * size + _nbytes(ge)
+    elif kind == "conv_nhwc":     # each tap's products; I, W, C, D, out
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * key.N * key.P * key.Q * key.K * key.C * key.R * key.S
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = _nbytes(*args) + key.N * key.P * key.Q * key.K * size
     else:   # grouped_wgrad: the token rows of xt and dY, f32 dW
         ge, xt, dy = args
         rows = int((dy != 0).any(-1).sum())
@@ -2187,6 +2390,8 @@ def _library_call(kind, key, args):
             q4, kl, vl, scale=key.head_dim ** -0.5)
     if kind in ("grouped_gemm", "grouped_wgrad"):
         return _grouped_mm_call(kind, key, args)
+    if kind == "conv_nhwc":
+        return _conv_library_call(key, args)
     if kind in ("flash_train_fwd", "flash_train_bwd"):
         q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(
             kind == "flash_train_bwd") for t in args[:3])
@@ -2199,6 +2404,31 @@ def _library_call(kind, key, args):
         return lambda: torch.autograd.grad(o, (q, k, v), g,
                                            retain_graph=True)
     return None
+
+
+def _conv_library_call(key, args):
+    """F.conv2d on the NCHW view of the NHWC operands (channels_last, no
+    copy) in their own dtype, TF32 off, then the plain version's epilogue
+    (`reference._conv_epilogue`). None for an asymmetric padding, which
+    F.conv2d does not take."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpp_mlir_tpu_torch.xsmm.reference import _conv_epilogue, no_tf32_conv
+    pt, pb, pl, pr = key.pad
+    if pt != pb or pl != pr:
+        return None
+    i, w, c, d = args
+    x = i.permute(0, 3, 1, 2)
+    wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def call():
+        with no_tf32_conv():
+            y = F.conv2d(x, wt, stride=(key.stride_h, key.stride_w),
+                         padding=(pt, pl))
+        acc = y.permute(0, 2, 3, 1).reshape(-1, key.K).float()
+        return _conv_epilogue(key, acc, c, d)
+    return call
 
 
 def _grouped_mm_call(kind, key, args):
@@ -2240,6 +2470,7 @@ def main() -> int:
         worst = max(st["max_abs_err"], stats.get(kind, {}).get(
             "max_abs_err", 0.0))
         stats[kind] = {"max_abs_err": worst}
+    stats.update(phase_conv_kernels())
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
@@ -2247,7 +2478,8 @@ def main() -> int:
     moe_launches, moe_setup = phase_moe_serving()
     for counts in (serve_launches, phase_serving_flash(setups[0]),
                    moe_launches, phase_mlp_training(), phase_gpt_training(),
-                   phase_moe_training(), phase_mha_suite()):
+                   phase_moe_training(), phase_mha_suite(),
+                   phase_conv_suite()):
         for kind, n in counts.items():
             launches[kind] += n
     timing = phase_timing()
@@ -2270,9 +2502,11 @@ def main() -> int:
             ("attention_flat", "attention.cu", "kernels.py:1660"),
             ("attention_bench", "attention.cu", "kernels.py:2091"),
             ("batch_matmul", "batch_matmul.cu", "kernels.py:963"),
-            ("chain_pingpong", "chain.cu", "kernels.py:1919")):
+            ("chain_pingpong", "chain.cu", "kernels.py:1919"),
+            # one kernel for B24 (window) and B25 (fullrow, :3117)
+            ("conv_nhwc", "conv.cu", "kernels.py:2919")):
         also = {"attention_flat": [":2395", ":2496", ":2618", ":2721"],
-                "batch_matmul": [":1065"]}.get(kind)
+                "batch_matmul": [":1065"], "conv_nhwc": [":3117"]}.get(kind)
         kernels.append({"name": kind, "route": "cuda",
                         "source": f"tpp_mlir_tpu_torch/csrc/{src}",
                         "replaces": f"tpp_mlir_tpu/xsmm/{replaces}",

@@ -28,7 +28,7 @@ from tpp_mlir_tpu_torch.models.mlp import MlpConfig
 from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
 from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey, ChainKey,
-                                     DecodeAttnKey, FlashMhaKey,
+                                     ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
                                      FlashTrainBwdKey,
                                      FlashTrainKey, GroupedGemmKey,
                                      GroupedWgradKey, Int8GemmKey,
@@ -703,3 +703,79 @@ def test_flat_attention_refuses_shapes_beyond_the_kernel(cuda):
     q = torch.zeros(70000, 16, 32, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="65535"):
         build_kernel(FlashMhaKey(70000, 16, 16, 32, "bf16"))(q, q, q)
+
+
+# the conv family: csrc/conv.cu (B24/B25) at the conv suite's key forms, a
+# ragged shape (C, K and the pixel count off the 32/64 tiles), the xla
+# route with TF32 off, and the conv suite's nets against --linalg-to-loops
+CONV = {
+    "3x3-f32-bias-relu": ConvNhwcKey(N=2, H=12, W=12, C=64, K=64, R=3, S=3,
+                                     beta0=True, binary_kind="add",
+                                     unary_kind="relu"),
+    "3x3-highest-acc": ConvNhwcKey(N=2, H=10, W=9, C=64, K=96, R=3, S=3,
+                                   precision="highest"),
+    "same-residual-bf16": ConvNhwcKey(N=2, H=16, W=16, C=128, K=128, R=3,
+                                      S=3, dtype="bf16", pad=(1, 1, 1, 1),
+                                      binary_kind="add", binary_bcast="none",
+                                      unary_kind="relu"),
+    "1x1-w14-fullrow": ConvNhwcKey(N=2, H=14, W=14, C=256, K=64,
+                                   beta0=True, binary_kind="add",
+                                   unary_kind="relu", strategy="fullrow"),
+    "ragged-window-bf16-out-f32": ConvNhwcKey(N=3, H=7, W=11, C=40, K=72,
+                                              R=3, S=2, dtype="bf16",
+                                              out_dtype="f32",
+                                              pad=(2, 0, 1, 1),
+                                              strategy="window"),
+    "xla-stride2-highest": ConvNhwcKey(N=2, H=9, W=9, C=32, K=32, R=3, S=3,
+                                       stride_h=2, stride_w=2, beta0=True,
+                                       binary_kind="add",
+                                       precision="highest"),
+}
+
+
+@pytest.mark.parametrize("name", list(CONV))
+def test_conv_kernel_matches_plain(cuda, name):
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_nhwc_reference
+    key = CONV[name]
+    g = cuda
+    i = _rnd(g, (key.N, key.H, key.W, key.C), key.dtype)
+    w = _rnd(g, (key.R, key.S, key.C, key.K), key.dtype, key.C ** -0.5)
+    c = None if key.beta0 else _rnd(g, (key.N, key.P, key.Q, key.K), "f32")
+    d = None
+    if key.binary_kind:
+        d = _rnd(g, (key.N, key.P, key.Q, key.K)
+                 if key.binary_bcast == "none" else (key.K,), "f32")
+    kern = build_kernel(key)
+    got = kern(i, w, c, d)
+    # the per-tap plain version: the xla route's F.conv2d must agree with
+    # it at "highest" too, which TF32 would not
+    want = conv_nhwc_reference(key)(i, w, c, d)
+    torch.cuda.synchronize()
+    assert got.shape == (key.N, key.P, key.Q, key.K)
+    assert kern.launches == (0 if key.stride_h > 1 else 1)
+    assert torch.backends.cudnn.allow_tf32     # restored after the route
+    assert _err(got, want) <= _tol(key)
+
+
+@pytest.mark.parametrize("model", [
+    'convnet:{"batch": 2, "channels": 64, "filters": 64, "height": 12, '
+    '"width": 12, "kernel": 3, "layers": 2}',
+    'convnet:{"batch": 2, "channels": 64, "filters": 64, "height": 8, '
+    '"width": 8, "kernel": 3, "layers": 2, "float_type": "bf16", '
+    '"layout": "nhwc", "padding": "same", "residual": true}',
+    'resnet_block:{"batch": 2, "channels": 64, "hw": 8}',
+    'vit:{"batch": 2, "image": 32, "patch": 16, "embed": 128, "heads": 2, '
+    '"layers": 1}',
+], ids=["convnet-2layer", "resnet-nhwc-bf16", "resnet_block", "vit"])
+def test_conv_nets_on_the_card_match_linalg_to_loops(cuda, model):
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    cache = global_cache()
+    cache.reset_launches()
+    res = run_entry({"model": model}, device="cuda",
+                    out_stream=io.StringIO())
+    assert cache.launches_by_kind().get("ConvNhwcKey", 0) >= \
+        (0 if model.startswith("vit") else 2)
+    got = res["lowered"]["outputs"][0]
+    want = res["baseline"]["outputs"][0]
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= 3e-2

@@ -19,6 +19,7 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["BrgemmKey", "BatchMatmulKey", "ChainKey",
+                                  "ConvBrgemmKey", "ConvNhwcKey",
                                   "FlashMhaKey",
                                   "LayerNormKey", "UnaryKey", "BinaryKey",
                                   "DecodeAttnKey", "Int8GemmKey",
@@ -29,6 +30,15 @@ def test_key_copy_matches_reference(name):
                   name)
     assert _fields(port) == _fields(ref)
     assert port.__dataclass_params__.frozen and ref.__dataclass_params__.frozen
+
+
+@pytest.mark.parametrize("name", ["ConvBrgemmKey", "ConvNhwcKey"])
+def test_conv_key_output_shape_matches_reference(name):
+    kw = dict(N=2, H=9, W=11, R=3, S=3, stride_h=2, stride_w=1)
+    kw.update(dict(Cb=1, c=16, Kb=1, k=16) if name == "ConvBrgemmKey"
+              else dict(C=16, K=16, pad=(1, 0, 2, 1)))
+    port, ref = getattr(port_flags, name)(**kw), getattr(ref_flags, name)(**kw)
+    assert (port.P, port.Q) == (ref.P, ref.Q)
 
 
 def test_keys_hash_equal_across_packages():

@@ -1,6 +1,7 @@
 """The port (every slice: the MLP path, the imported transformer, serving,
-training, MoE, the MHA suite) imports torch and its own modules only: never JAX, Triton,
-ml_dtypes, nor any module of the JAX package `tpp_mlir_tpu`.
+training, MoE, the MHA suite, the conv family) imports torch and its own
+modules only: never JAX, Triton, ml_dtypes, nor any module of the JAX
+package `tpp_mlir_tpu`.
 
 The run-time checks go in a subprocess because this test process already
 holds JAX and the JAX package (tests/conftest.py imports them)."""
@@ -94,6 +95,15 @@ mp = init_params(mcfg, device="cpu")
 assert make_generate(mcfg, 2)(mp, ids).shape == (2, 2)
 step, init = make_gpt_train_step(mcfg, sgd(0.1), device="cpu")
 assert torch.isfinite(step(mp, init(mp), ids)[2])
+# the conv family: a conv net, the imported ResNet block and a ViT
+for model in ('convnet:{"batch": 2, "channels": 16, "filters": 16, '
+              '"height": 8, "width": 8, "padding": "same", "layers": 2, '
+              '"residual": true}',
+              'resnet_block:{"batch": 1, "channels": 8, "hw": 6}',
+              'vit:{"batch": 1, "image": 32, "patch": 16, "embed": 64, '
+              '"heads": 2, "layers": 1}'):
+    res = run_entry({"model": model}, device="cpu", out_stream=sys.stderr)
+    assert torch.isfinite(res["lowered"]["outputs"][0]).all()
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """

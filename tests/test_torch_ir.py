@@ -2,7 +2,8 @@
 tpp-gen and attention-fusion pass (tpp_mlir_tpu_torch/ir, models, frontend,
 tools/mlir_gen, passes/attention.py) against the originals: the same
 printed text for every tpp-gen flag set the chip smoke and the tests use,
-the same IR and literal arrays for the imported GPT and encoder block, the
+the same IR for the conv suite's nets, the same IR and literal arrays for
+the imported GPT, encoder block, ResNet block and ViT, the
 same IR from every MHA builder before and after attention-fusion, and the
 JAX-printed text parsed by the port printing back identical. Everything is
 compared exactly."""
@@ -24,9 +25,17 @@ from tpp_mlir_tpu_torch.passes import PassManager
 from tpp_mlir_tpu.models.gpt import build_gpt as jax_build_gpt
 from tpp_mlir_tpu.models.transformer_block import \
     build_transformer_block as jax_build_block
+from tpp_mlir_tpu.models.convnet import ConvConfig as JaxConvConfig
+from tpp_mlir_tpu.models.convnet import build_convnet as jax_build_convnet
+from tpp_mlir_tpu.models.resnet_block import \
+    build_resnet_block as jax_build_resnet_block
+from tpp_mlir_tpu.models.vit import build_vit_block as jax_build_vit
+from tpp_mlir_tpu_torch.models.convnet import ConvConfig, build_convnet
 from tpp_mlir_tpu_torch.models.gpt import build_gpt
+from tpp_mlir_tpu_torch.models.resnet_block import build_resnet_block
 from tpp_mlir_tpu_torch.models.transformer_block import \
     build_transformer_block
+from tpp_mlir_tpu_torch.models.vit import build_vit_block
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -74,7 +83,20 @@ def test_generator_prints_the_same_text(flags):
      dict(batch=2, seq=16, embed=32, heads=2)),
     (build_transformer_block, jax_build_block,
      dict(batch=1, seq=16, embed=32, heads=4, layers=2, causal=True)),
-], ids=["gpt", "gpt-bf16-2layers", "block", "block-causal-2layers"])
+    (build_resnet_block, jax_build_resnet_block,
+     dict(batch=2, channels=16, hw=6)),
+    (build_resnet_block, jax_build_resnet_block,
+     dict(batch=1, channels=8, hw=5, seed=3, dtype="bf16")),
+    (lambda **kw: build_vit_block(**kw)[0],
+     lambda **kw: jax_build_vit(**kw)[0],
+     dict(batch=2, image=32, patch=16, embed=64, heads=2, layers=1)),
+    (lambda **kw: build_vit_block(**kw)[0],
+     lambda **kw: jax_build_vit(**kw)[0],
+     dict(batch=1, image=16, patch=4, embed=32, heads=4, layers=2,
+          classes=10, dtype="bf16")),
+], ids=["gpt", "gpt-bf16-2layers", "block", "block-causal-2layers",
+        "resnet_block", "resnet_block-bf16", "vit", "vit-head-bf16-2layers"])
+@pytest.mark.filterwarnings("ignore:enable_nested_tensor")
 def test_imported_models_build_the_same_ir_and_literals(build, ref, kw):
     port, jax = build(**kw), ref(**kw)
     assert str(port) == str(jax)
@@ -83,6 +105,20 @@ def test_imported_models_build_the_same_ir_and_literals(build, ref, kw):
     for name, arr in jax.literals.items():
         np.testing.assert_array_equal(np.asarray(port.literals[name]),
                                       np.asarray(arr))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(layout="nhwc", float_type="bf16", const_weights=False),
+    dict(layers=2, padding="same", residual=True, channels=128,
+         filters=128, height=16, width=16, seed=5),
+    dict(kernel=1, height=14, width=14, bias=False, relu=False),
+], ids=["suite-default", "nhwc-bf16-args", "same-residual", "1x1-plain"])
+def test_convnet_builds_the_same_ir(kw):
+    port = build_convnet(ConvConfig(**kw))
+    jax = jax_build_convnet(JaxConvConfig(**kw))
+    assert str(port) == str(jax)
+    assert port.attrs == jax.attrs
 
 
 @pytest.mark.parametrize("flags", FLAGS)

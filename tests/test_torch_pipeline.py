@@ -298,4 +298,4 @@ def test_bench_driver_runs_a_model_entry(capsys):
     assert "tokens/s" in out and "vs --linalg-to-loops" in out
     assert "on cpu" in out
     with pytest.raises(NotImplementedError, match="outside the port's slice"):
-        bench_driver.build_module({"model": "convnet"})
+        bench_driver.build_module({"model": "unet"})

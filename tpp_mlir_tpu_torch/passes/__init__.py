@@ -7,6 +7,7 @@ from .pass_manager import (Pass, PassManager, expand_pipeline, register,
 from . import attention as _attention      # noqa: F401
 from . import chain as _chain              # noqa: F401
 from . import cleanup as _cleanup          # noqa: F401
+from . import conv as _conv                # noqa: F401
 from . import fold as _fold                # noqa: F401
 from . import fuse as _fuse                # noqa: F401
 from . import pipelines as _pipelines      # noqa: F401

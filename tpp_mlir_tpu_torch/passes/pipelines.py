@@ -1,18 +1,19 @@
 """Named pipelines of the port.
 
 `default-tpp-passes` runs only the passes the slice has ported, in the
-reference's order (`tpp_mlir_tpu/passes/pipelines.py:67-100`): on tpp-gen's
-MLP, fc and matmul modules, on the MHA suite's modules and on the imported
-GPT and transformer-block models the reference's other passes leave the IR
-as it is. It ends with `verify-slice`, which refuses any op the port cannot
-run, so no IR outside the slice is run half-lowered.
+reference's order (`tpp_mlir_tpu/passes/pipelines.py:44-100`, flat mode):
+on tpp-gen's MLP, fc and matmul modules, on the MHA suite's modules, on the
+conv suite's nets and on the imported GPT, transformer-block, ResNet-block
+and ViT models the reference's other passes leave the IR as it is. It ends
+with `verify-slice`, which refuses any op the port cannot run, so no IR
+outside the slice is run half-lowered.
 """
 
 from __future__ import annotations
 
 from ..ir import Function, Module
-from ..runtime.executor import attention_key
-from ..xsmm.reference import attention_route
+from ..runtime.executor import attention_key, conv_key
+from ..xsmm.reference import attention_route, conv_route
 from .pass_manager import Pass, register, register_pipeline
 
 # ops the port's executor runs after lowering
@@ -32,6 +33,9 @@ SLICE_OPS = frozenset({
     # the MHA suite
     "xsmm.batch_gemm_dispatch", "xsmm.batch_gemm",
     "xsmm.unary_dispatch", "xsmm.unary",
+    # the conv family: conv-init-simplify's broadcast accumulator, a pad
+    # that conv-to-brgemm could not fuse
+    "tl.broadcast", "tl.pad",
 })
 
 
@@ -47,8 +51,16 @@ def slice_violation(op) -> str | None:
         return "packed tl.constant (queue A13)"
     if op.opname in ("xsmm.gemm_dispatch", "xsmm.brgemm_dispatch",
                      "xsmm.fused_brgemm_dispatch"):
-        if a.get("layout", "flat") != "flat":
-            return f"{a['layout']} layout (queue A13)"
+        layout = a.get("layout", "flat")
+        if layout == "conv_nhwc":
+            # a strategy and stride the reference refuses raise here
+            try:
+                conv_route(conv_key(a))
+            except NotImplementedError as e:
+                return f"conv {e}"
+            return None
+        if layout != "flat":
+            return f"{layout} layout (queue A13, packed mode)"
         if a.get("prologue") not in (None, "layer_norm"):
             return f"{a['prologue']} prologue (queue A6 / B2)"
     if op.opname == "xsmm.unary_dispatch" and a["kind"] != "transpose":
@@ -83,11 +95,19 @@ class VerifySlicePass(Pass):
 @register_pipeline("default-tpp-passes")
 def default_tpp_passes():
     return [
+        "fold-add-into-dest",
         "attention-fusion",
         "cleanup",
+        # flat mode: convs to NHWC, layout conversions sunk to the boundary
+        "conv-to-nhwc",
+        "sink-transpose",
+        "fold-const-scale",
+        "conv1x1-to-matmul",
         "sink-reshape",
+        "conv-init-simplify",
         "cleanup",
         "tile-and-fuse",
+        "conv-to-brgemm",
         "convert-tl-to-xsmm",
         "xsmm-combine",
         "fold-residual-acc",

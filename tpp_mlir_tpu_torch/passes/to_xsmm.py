@@ -7,7 +7,9 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
                       tl.transpose and eltwise unary/binary ops become
                       dispatch+invoke pairs;
   xsmm-combine        {gemm|brgemm} -> binary -> unary chains (bias add,
-                      relu, gelu, ...) become one xsmm.fused_brgemm;
+                      relu, gelu, ...) become one xsmm.fused_brgemm; a
+                      conv's broadcast-bias accumulator becomes BETA_0 and
+                      a fused bcast_col bias (:489, :585-640);
   fold-residual-acc   a full-shape residual add of a BETA_0 contraction
                       becomes its accumulator (:762);
   qkv-merge           three Q/K/V projections of one activation become one
@@ -19,7 +21,7 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
                       becomes that GEMM's prologue (:1030);
   verify-xsmm         dispatch/invoke consistency.
 
-The packed, conv, VNNI-pack, zero-fill and generic branches wait for their
+The packed, VNNI-pack, zero-fill and generic branches wait for their
 ROADMAP items; what they would have lowered is refused by the pipeline's
 verify-slice.
 """
@@ -100,7 +102,8 @@ class ConvertTlToXsmmPass(Pass):
             def emit():
                 d = b.create(dname, [], [I64], attrs)
                 inv = b.create(iname, [d.result, *operands], [rtype])
-                _carry(op, inv)
+                if op is not None:
+                    _carry(op, inv)
                 return inv.result
             return emit
 
@@ -166,8 +169,9 @@ class ConvertTlToXsmmPass(Pass):
                          "n": X.type.shape[-1], "shape": tuple(X.type.shape),
                          "perm": tuple(op.attrs["perm"]),
                          "dtype": X.type.dtype, "flags": ()}
+                # the reference carries no fusion_group onto a transpose
                 replace(op, pair("xsmm.unary_dispatch", "xsmm.unary", attrs,
-                                 [X], op.result.type, op))
+                                 [X], op.result.type, None))
                 changed = True
 
             elif name == "tl.layer_norm":
@@ -239,6 +243,24 @@ def _single_user(op: Operation, func: Function | None = None):
     return op.result.uses[0][0]
 
 
+def _bias_broadcast_init(C):
+    """Recognize a conv accumulator that is a broadcast channel bias, the
+    pattern conv-init-simplify emits over an NHWC conv:
+        C = tl.broadcast(bias[K]) over [N,P,Q,K].
+    Returns the 1-D bias value, or None. Recovering it lets the kernel run
+    BETA_0 with the bias as a fused epilogue instead of reading a
+    materialized broadcast accumulator every tile. The reference's blocked
+    (tl.pack) forms come with packed mode (ROADMAP queue A13)."""
+    op = C.owner
+    if op is None or op.opname != "tl.broadcast":
+        return None
+    base = op.operands[0]
+    if base.type.rank != 1 or C.type.rank != 4 \
+            or base.type.num_elements != C.type.shape[-1]:
+        return None
+    return base
+
+
 @register
 class CombineXsmmPass(Pass):
     """{gemm|brgemm} -> binary -> unary chains => one fused_brgemm."""
@@ -279,7 +301,14 @@ class CombineXsmmPass(Pass):
                         "relu", "gelu", "tanh", "exp", "square", "identity"):
                     unary_op = user
                     cur = user
-            if binary_op is None and unary_op is None:
+            # conv accumulators that are broadcast channel biases become a
+            # BETA_0 + fused bias-add (no HBM read of the broadcast)
+            init_bias = None
+            if binary_op is None and op.opname == "xsmm.brgemm" \
+                    and disp.attrs.get("layout") == "conv_nhwc" \
+                    and "beta_0" not in disp.attrs.get("flags", ()):
+                init_bias = _bias_broadcast_init(op.operands[3])
+            if binary_op is None and unary_op is None and init_bias is None:
                 continue
 
             attrs = dict(disp.attrs)
@@ -293,6 +322,11 @@ class CombineXsmmPass(Pass):
                 attrs["binary_kind"] = binary_op.operands[0].owner.attrs["kind"]
                 attrs["binary_bcast"] = infer_bcast(
                     binary_op.result.type.shape, bias.type.shape)
+            elif init_bias is not None:
+                bias = init_bias
+                attrs["binary_kind"] = "add"
+                attrs["binary_bcast"] = "bcast_col"
+                attrs["flags"] = tuple(attrs.get("flags", ())) + ("beta_0",)
             else:
                 attrs["binary_kind"] = "none"
                 attrs["binary_bcast"] = "none"

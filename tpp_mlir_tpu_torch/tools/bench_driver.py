@@ -6,16 +6,21 @@
       --model 'transformer_block:{"heads": 8}' --device cpu
   python -m tpp_mlir_tpu_torch.tools.bench_driver --device cpu \\
       --model 'mha_full:{"batch": 1, "heads": 2, "seq": 128, "head_dim": 32}'
+  python -m tpp_mlir_tpu_torch.tools.bench_driver --device cpu -n 1 \\
+      --model 'convnet:{"batch": 2, "channels": 32, "filters": 32,
+                        "height": 10, "width": 10, "layout": "nhwc"}'
 
-An imported model (the torch-defined GPT and transformer block of
-`models/`) keeps its weights in `module.literals`, which the IR
+An imported model (the torch-defined GPT, transformer block, ResNet block
+and ViT of `models/`) keeps its weights in `module.literals`, which the IR
 printer does not print, so it cannot go through IR text and tpp_run; this
-driver builds it in process, and the MHA suite's pieces
-(`benchmarks/configs/mha.json`) the same way. `build_module(entry)` mirrors
-the reference's `tpp_mlir_tpu/tools/bench_driver.py:29-71` for the `model`
-entries of the slice, `"gpt:{json kwargs}"`, `"transformer_block:{...}"`
-and `"mha_qk"`, `"mha_softmax_v"`, `"mha_projection"`, `"mha_full"`,
-`"mha_block"`, with an optional `precision`; tpp-gen modules go through
+driver builds it in process, and the MHA and conv suites' nets
+(`benchmarks/configs/mha.json`, `conv.json`, `vit.json`) the same way.
+`build_module(entry)` mirrors the reference's
+`tpp_mlir_tpu/tools/bench_driver.py:29-71` for the `model` entries of the
+slice, `"gpt:{json kwargs}"`, `"transformer_block:{...}"`, `"mha_qk"`,
+`"mha_softmax_v"`, `"mha_projection"`, `"mha_full"`, `"mha_block"`,
+`"convnet"`, `"resnet_block"` and `"vit"`, with an optional `precision`;
+an entry's `iters` is its `-n`; tpp-gen modules go through
 tools/tpp_run. An entry's `bench_mode: "scan"` times the loop lowering, as
 the reference's driver does (:131).
 
@@ -38,13 +43,19 @@ from .tpp_run import run_module
 
 
 def _builders():
-    from ..models import mha
+    from ..models import convnet, mha
     from ..models.gpt import build_gpt
+    from ..models.resnet_block import build_resnet_block
     from ..models.transformer_block import build_transformer_block
+    from ..models.vit import build_vit_block
     return {"gpt": build_gpt, "transformer_block": build_transformer_block,
             "mha_qk": mha.build_qk, "mha_softmax_v": mha.build_softmax_v,
             "mha_projection": mha.build_projection, "mha_full": mha.build_mha,
-            "mha_block": mha.build_mha_block}
+            "mha_block": mha.build_mha_block,
+            "convnet": lambda **kw: convnet.build_convnet(
+                convnet.ConvConfig(**kw)),
+            "resnet_block": build_resnet_block,
+            "vit": lambda **kw: build_vit_block(**kw)[0]}
 
 
 def build_module(entry: dict):
@@ -53,8 +64,8 @@ def build_module(entry: dict):
     builders = _builders()
     if name not in builders:
         raise NotImplementedError(
-            f"model {name!r} is outside the port's slice (ROADMAP queue A6, "
-            f"A13); the slice has {sorted(builders)}")
+            f"model {name!r} is outside the port's slice (ROADMAP queue "
+            f"A); the slice has {sorted(builders)}")
     module = builders[name](**(json.loads(rest[0]) if rest else {}))
     if entry.get("precision"):
         module.attrs["precision"] = entry["precision"]
@@ -70,11 +81,14 @@ def tokens(module, func_name: str = "entry") -> int | None:
     return None
 
 
-def run_entry(entry: dict, n: int = 0, device: str = "cuda",
+def run_entry(entry: dict, n: int | None = None, device: str = "cuda",
               out_stream=None) -> dict:
     """Run the entry un-lowered (the baseline), then lowered, on one
     module; each run is tpp_run.run_module's result (outputs, and with
-    n > 0 the mean and the bench lowering)."""
+    n > 0 the mean and the bench lowering). n defaults to the entry's
+    `iters` (0 without one)."""
+    if n is None:
+        n = entry.get("iters", 0)
     module = build_module(entry)
     out = {"tokens": tokens(module), "flops": module.attrs.get("flops")}
     for name, l2l in (("baseline", True), ("lowered", False)):
@@ -89,8 +103,10 @@ def main(argv=None) -> int:
                                 description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", required=True,
-                   help="'gpt:{json}', 'transformer_block:{json}' or "
-                        "'mha_{qk,softmax_v,projection,full,block}:{json}'")
+                   help="'gpt:{json}', 'transformer_block:{json}', "
+                        "'mha_{qk,softmax_v,projection,full,block}:{json}', "
+                        "'convnet:{json}', 'resnet_block:{json}' or "
+                        "'vit:{json}'")
     p.add_argument("-n", type=int, default=0, help="timed forwards")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; no CPU fallback)")

@@ -42,8 +42,8 @@ import torch
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
 from ..utils.target import resolve_device
-from ..xsmm import (BatchMatmulKey, BrgemmKey, ChainKey, DecodeAttnKey,
-                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+from ..xsmm import (BatchMatmulKey, BrgemmKey, ChainKey, ConvNhwcKey,
+                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, global_cache)
 from .bench_driver import build_module
@@ -147,6 +147,15 @@ def describe(key) -> str:
     if isinstance(key, GroupedWgradKey):
         return (f"grouped_wgrad {key.k}x{key.n} over m{key.m} "
                 f"g{key.n_groups} bm{key.bm} {key.dtype}")
+    if isinstance(key, ConvNhwcKey):
+        extra = "".join(f" {x}" for x, on in (
+            (f"pad {key.pad}", any(key.pad)), ("+C", not key.beta0),
+            (f"+{key.binary_kind} {key.binary_bcast}", key.binary_kind),
+            (f"+{key.unary_kind}", key.unary_kind),
+            (key.precision, key.precision != "default"),
+            (key.strategy, key.strategy != "auto")) if on)
+        return (f"conv_nhwc n{key.N} {key.H}x{key.W}x{key.C}->{key.P}x"
+                f"{key.Q}x{key.K} r{key.R}s{key.S} {key.dtype}{extra}")
     return type(key).__name__
 
 
@@ -156,7 +165,8 @@ def invoke_times(fn, args, iters: int) -> list[tuple[str, int, float]]:
     each launch of `iters` calls (the kernels must be built already)."""
     records = []
     kernels = global_cache().kernels()
-    saved = [(k, k._launch) for k in kernels]
+    # a key with no kernel (strategy xla) runs its plain version: untimed
+    saved = [(k, k._launch) for k in kernels if k._launch is not None]
 
     def timed(launch, key):
         def run(*a, **kw):

@@ -2,14 +2,15 @@
 
 from .cache import KernelCache, global_cache
 from .flags import (BatchMatmulKey, BinaryKey, BrgemmKey, ChainKey,
-                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
+                    ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
                     FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
                     Int8GemmKey, LayerNormKey, UnaryKey)
 from .kernels import Kernel, build_kernel, chain_fits_smem
 from .reference import reference_kernel
 
 __all__ = [
-    "BatchMatmulKey", "BinaryKey", "BrgemmKey", "ChainKey", "DecodeAttnKey", "FlashMhaKey",
+    "BatchMatmulKey", "BinaryKey", "BrgemmKey", "ChainKey", "ConvBrgemmKey",
+    "ConvNhwcKey", "DecodeAttnKey", "FlashMhaKey",
     "FlashTrainBwdKey", "FlashTrainKey", "GroupedGemmKey", "GroupedWgradKey",
     "Int8GemmKey", "LayerNormKey",
     "UnaryKey", "Kernel", "KernelCache",

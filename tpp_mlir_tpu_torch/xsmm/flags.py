@@ -1,8 +1,9 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey,
-BatchMatmulKey, ChainKey, FlashMhaKey, GroupedGemmKey, GroupedWgradKey,
-LayerNormKey, UnaryKey, BinaryKey, Int8GemmKey), of
+BatchMatmulKey, ChainKey, ConvBrgemmKey, ConvNhwcKey, FlashMhaKey,
+GroupedGemmKey, GroupedWgradKey, LayerNormKey, UnaryKey, BinaryKey,
+Int8GemmKey), of
 `tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey) and of
 `tpp_mlir_tpu/xsmm/flash_train.py` (FlashTrainKey, without `hpp`). The port
 imports nothing of the JAX package, so it keeps its own copies.
@@ -86,6 +87,84 @@ class ChainKey:
     # warm bench of a non-square single-layer fc (B5): with repeats > 1,
     # odd repeats contract the state with the same W on its n axis
     pingpong: bool = False
+
+
+@dataclass(frozen=True)
+class ConvBrgemmKey:
+    """Key for the NCHW channel-blocked conv as batch-reduce GEMM
+    O[N,Kb,P,Q,k] += sum_{Cb,R,S} I[N,Cb,h+r,w+s,c] * W[Kb,Cb,R,S,c,k].
+    Only packed parity mode lowers to it; the port refuses it (ROADMAP
+    queue A13, packed mode, B23)."""
+
+    N: int
+    H: int
+    W: int
+    Cb: int
+    c: int
+    Kb: int
+    k: int
+    R: int = 1
+    S: int = 1
+    stride_h: int = 1
+    stride_w: int = 1
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    beta0: bool = False
+    binary_kind: str | None = None
+    binary_bcast: str = "bcast_col"
+    unary_kind: str | None = None
+    precision: str = "default"
+
+    @property
+    def P(self) -> int:
+        return (self.H - self.R) // self.stride_h + 1
+
+    @property
+    def Q(self) -> int:
+        return (self.W - self.S) // self.stride_w + 1
+
+
+@dataclass(frozen=True)
+class ConvNhwcKey:
+    """Key for the NHWC conv I[N,H,W,C] * W[R,S,C,K] -> O[N,P,Q,K] with a
+    fused zero padding and epilogue: unary(C + conv (+) D). `G`, `cblk` and
+    `kblk` are the TPU kernels' VMEM blocking; csrc/conv.cu takes them and
+    uses its own tiles. `strategy` names the TPU kernel asked for ("window"
+    B24, "fullrow" B25, "xla", "auto"); reference.conv_route says what the
+    port runs for each."""
+
+    N: int
+    H: int
+    W: int
+    C: int
+    K: int
+    R: int = 1
+    S: int = 1
+    stride_h: int = 1
+    stride_w: int = 1
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    beta0: bool = False
+    binary_kind: str | None = None
+    binary_bcast: str = "bcast_col"
+    unary_kind: str | None = None
+    precision: str = "default"
+    G: int = 0                 # images per TPU program (0 = heuristic)
+    cblk: int = 0              # input-channel block (0 = heuristic)
+    kblk: int = 0              # output-channel block (0 = heuristic)
+    strategy: str = "auto"
+    # zero padding fused into the conv (h_lo, h_hi, w_lo, w_hi)
+    pad: tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    @property
+    def P(self) -> int:
+        return (self.H + self.pad[0] + self.pad[1] - self.R) \
+            // self.stride_h + 1
+
+    @property
+    def Q(self) -> int:
+        return (self.W + self.pad[2] + self.pad[3] - self.S) \
+            // self.stride_w + 1
 
 
 @dataclass(frozen=True)

@@ -41,6 +41,14 @@ reached. Each wrapper counts its launches.
                                      _build_grouped_gemm, B16)
   GroupedWgradKey -> csrc/grouped_gemm.cu (replaces :1283
                                      _build_grouped_wgrad, B17)
+  ConvNhwcKey  -> by reference.conv_route:
+                  csrc/conv.cu       (replaces :2919 _build_conv_nhwc, B24,
+                                     and :3117 _build_conv_nhwc_fullrow,
+                                     B25; stride 1)
+                  no kernel          (strategy xla, and auto at stride > 1:
+                                     torch.nn.functional.conv2d and the
+                                     epilogue, TF32 off, as the reference
+                                     leaves it to XLA's conv, :3068)
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -52,8 +60,8 @@ import ctypes
 import torch
 
 from . import reference
-from .flags import (BatchMatmulKey, BrgemmKey, ChainKey, DecodeAttnKey,
-                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+from .flags import (BatchMatmulKey, BrgemmKey, ChainKey, ConvNhwcKey,
+                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey)
 
@@ -90,9 +98,9 @@ def chain_fits_smem(key: ChainKey) -> bool:
 class Kernel:
     """A callable for one key: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. `launches` counts CUDA launches only. A key
-    with no kernel (launch None: attention's strategy "xla", which the
-    reference composes in XLA) runs its plain version on any device and
-    counts nothing."""
+    with no kernel (launch None: attention's and conv's strategy "xla",
+    which the reference leaves to XLA) runs its plain version on any device
+    and counts nothing."""
 
     def __init__(self, key, launch):
         self.key = key
@@ -574,6 +582,44 @@ def _grouped_wgrad_launch(key: GroupedWgradKey):
     return launch
 
 
+def _conv_launch(key: ConvNhwcKey):
+    """csrc/conv.cu for the stride-1 routes; None (the plain version on any
+    device, counting nothing) for the xla route."""
+    if reference.conv_route(key) == "xla":
+        return None
+    from .build import check, library
+
+    N, H, W, C, K, P, Q = key.N, key.H, key.W, key.C, key.K, key.P, key.Q
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    full_d = key.binary_bcast == "none"
+
+    def launch(i, w, c=None, d=None):
+        dev = i.device
+        _expect(i, "I", (N, H, W, C), in_dt, dev)
+        _expect(w, "W", (key.R, key.S, C, K), in_dt, dev)
+        if not key.beta0:
+            c = c.float().contiguous()
+            _expect(c, "C", (N, P, Q, K), None, dev)
+        if key.binary_kind:
+            d = d.float().contiguous()
+            _expect(d.reshape(-1), "D", (N * P * Q * K if full_d else K,),
+                    None, dev)
+        out = torch.empty((N, P, Q, K), dtype=out_dt, device=dev)
+        rc = library().tpp_conv_nhwc(
+            i.data_ptr(), w.data_ptr(), None if key.beta0 else c.data_ptr(),
+            d.data_ptr() if key.binary_kind else None, out.data_ptr(), N, H,
+            W, C, K, key.R, key.S, key.pad[0], key.pad[2], P, Q,
+            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            int(not key.beta0), _BINARY_CODE[key.binary_kind],
+            _BCAST_CODE[key.binary_bcast], _UNARY_CODE[key.unary_kind],
+            _stream())
+        check(rc, f"conv_nhwc {key}")
+        return out
+    return launch
+
+
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              BatchMatmulKey: _batch_matmul_launch,
              FlashMhaKey: _attention_launch,
@@ -583,7 +629,8 @@ _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              FlashTrainKey: _flash_train_fwd_launch,
              FlashTrainBwdKey: _flash_train_bwd_launch,
              GroupedGemmKey: _grouped_gemm_launch,
-             GroupedWgradKey: _grouped_wgrad_launch}
+             GroupedWgradKey: _grouped_wgrad_launch,
+             ConvNhwcKey: _conv_launch}
 
 
 def build_kernel(key) -> Kernel:

@@ -12,8 +12,10 @@ Precision, one meaning everywhere (kernel and plain version alike):
     interpret mode keeps exact f32 instead, so tests of f32 "default" round
     the JAX side's operands to bf16 first.
   * f32 at precision "highest": true f32 products and sums. No TF32 anywhere:
-    the kernels set nothing that enables it, and the plain version refuses
-    to run while `torch.backends.cuda.matmul.allow_tf32` is on.
+    the kernels set nothing that enables it, the plain version refuses
+    to run while `torch.backends.cuda.matmul.allow_tf32` is on, and every
+    cuDNN convolution runs under `no_tf32_conv` (cuDNN's own TF32 flag,
+    `torch.backends.cudnn.allow_tf32`, is on by default).
   * bf16: bf16 operands, f32 accumulation and f32 epilogue, one rounding to
     the output dtype at the end.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
@@ -22,10 +24,12 @@ in f32 whatever the dtype; only their results are rounded.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .flags import (BatchMatmulKey, BinaryKey, BrgemmKey, ChainKey,
-                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
+                    ConvNhwcKey, DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
                     FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
                     Int8GemmKey, LayerNormKey, UnaryKey)
 
@@ -37,9 +41,8 @@ _OUTSIDE = {
                 "transpose as a PyTorch op, unary_reference)",
     "BinaryKey": "queue A3 (xsmm.binary has no kernel: the executor runs "
                  "it as a PyTorch op, binary_reference)",
-    "BlockedMatmulKey": "queue A13 / B19-B20",
-    "ConvBrgemmKey": "queue A13 / B23",
-    "ConvNhwcKey": "queue A13 / B24-B25",
+    "BlockedMatmulKey": "queue A13, packed mode (B19-B20)",
+    "ConvBrgemmKey": "queue A13, packed mode (layout \"conv\", B23)",
 }
 
 
@@ -53,7 +56,8 @@ def check_slice(key) -> None:
     option this slice does not port."""
     if not isinstance(key, (BrgemmKey, BatchMatmulKey, ChainKey, FlashMhaKey,
                             LayerNormKey, DecodeAttnKey, Int8GemmKey,
-                            FlashTrainKey, GroupedGemmKey, GroupedWgradKey)):
+                            FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
+                            ConvNhwcKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
@@ -96,6 +100,15 @@ def check_slice(key) -> None:
             raise ValueError(f"the ping-pong bench is one fc layer: {key}")
     elif isinstance(key, FlashMhaKey):
         attention_route(key)
+    elif isinstance(key, ConvNhwcKey):
+        conv_route(key)
+        if key.binary_kind is not None and key.binary_bcast not in (
+                "bcast_col", "none"):
+            raise ValueError(f"a conv's D is a channel bias (bcast_col) or "
+                             f"a full residual (none): {key}")
+        if key.binary_kind not in (None, *BINARY_FNS) or \
+                key.unary_kind not in (None, *UNARY_FNS):
+            raise ValueError(f"unknown epilogue kind: {key}")
 
 
 def mxu_dtype(dtype: str, precision: str) -> torch.dtype:
@@ -516,6 +529,115 @@ def batch_matmul_reference(key: BatchMatmulKey):
     return fn
 
 
+CONV_STRATEGIES = ("auto", "window", "fullrow", "xla")
+
+
+def conv_route(key: ConvNhwcKey) -> str:
+    """Which of the port's conv paths runs `key`, or raise.
+
+      "kernel"  csrc/conv.cu, stride 1 under auto, window (B24) and fullrow
+                (B25): B24 and B25 compute one function, and fullrow's
+                padded width is a TPU sublane artifact
+                (tpp_mlir_tpu/xsmm/kernels.py:3140-3142);
+      "xla"     torch.nn.functional.conv2d and the epilogue in PyTorch, TF32
+                off: strategy xla at any stride, and auto at stride > 1 (the
+                reference's auto is xla at every stride, :2927-2934; it was
+                never a Pallas kernel).
+    window and fullrow at stride > 1 raise in the reference's words
+    (:2953-2956). The reference's auto at stride 1 is xla too, from a v5e
+    measurement that the port does not carry over (ROADMAP queue C)."""
+    if key.strategy not in CONV_STRATEGIES:
+        raise ValueError(f"unknown conv strategy {key.strategy!r}: {key}")
+    stride1 = (key.stride_h, key.stride_w) == (1, 1)
+    if key.strategy == "xla" or (key.strategy == "auto" and not stride1):
+        return "xla"
+    if not stride1:
+        raise NotImplementedError(
+            "stride>1 conv runs via strategy='xla' (reference also "
+            "restricts conv-to-BRGEMM to stride 1, docs/ConvMapping.md)")
+    return "kernel"
+
+
+@contextlib.contextmanager
+def no_tf32_conv():
+    """cuDNN convolutions in true f32 inside the block: cuDNN's TF32 flag
+    is on by default, unlike matmul's."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def _conv_epilogue(key: ConvNhwcKey, acc, c, d):
+    """(N*P*Q, K) f32 sums -> (N, P, Q, K): + C, then D (a channel bias or
+    a full (N, P, Q, K) residual) under the binary, then the unary, one
+    rounding (tpp_mlir_tpu/xsmm/kernels.py:3019-3032)."""
+    K = key.K
+    if not key.beta0:
+        acc = acc + c.float().reshape(-1, K)
+    if key.binary_kind:
+        d = d.float().reshape(1, K) if key.binary_bcast == "bcast_col" \
+            else d.float().reshape(-1, K)
+        acc = BINARY_FNS[key.binary_kind](acc, d)
+    if key.unary_kind:
+        acc = UNARY_FNS[key.unary_kind](acc)
+    return acc.reshape(key.N, key.P, key.Q, K).to(
+        DTYPES[key.out_dtype or key.dtype])
+
+
+def conv_nhwc_reference(key: ConvNhwcKey):
+    """B24/B25's function with the TPU kernel's arithmetic (tpp_mlir_tpu/
+    xsmm/kernels.py:3006-3017): per tap (r, s), the shifted (N*P*Q, C)
+    window of the zero-padded input times W[r, s], products and sums in f32
+    from MXU-dtype operands, the taps summed in order; then _conv_epilogue.
+    A stride takes every stride-th window row and column. fn(i, w, c=None,
+    d=None) with i (N, H, W, C) and w (R, S, C, K)."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    P, Q, sh, sw = key.P, key.Q, key.stride_h, key.stride_w
+    pt, pb, pl, pr = key.pad
+
+    def fn(i, w, c=None, d=None):
+        x = torch.nn.functional.pad(i.to(mdt), (0, 0, pl, pr, pt, pb))
+        w = w.to(mdt)
+        acc = None
+        for r in range(key.R):
+            for s in range(key.S):
+                win = x[:, r:r + (P - 1) * sh + 1:sh,
+                        s:s + (Q - 1) * sw + 1:sw, :]
+                tap = _f32_matmul(win.reshape(-1, key.C), w[r, s])
+                acc = tap if acc is None else acc + tap
+        return _conv_epilogue(key, acc, c, d)
+    return fn
+
+
+def conv_xla_reference(key: ConvNhwcKey):
+    """The "xla" route (tpp_mlir_tpu/xsmm/kernels.py:3068): one
+    torch.nn.functional.conv2d in f32 of the MXU-dtype operands, TF32 off,
+    then _conv_epilogue. No kernel of the port runs here."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    pt, pb, pl, pr = key.pad
+
+    def fn(i, w, c=None, d=None):
+        x = torch.nn.functional.pad(i.to(mdt).float(), (0, 0, pl, pr, pt, pb))
+        with no_tf32_conv():
+            out = torch.nn.functional.conv2d(
+                x.permute(0, 3, 1, 2), w.to(mdt).float().permute(3, 2, 0, 1),
+                stride=(key.stride_h, key.stride_w))
+        return _conv_epilogue(key, out.permute(0, 2, 3, 1).reshape(-1, key.K),
+                              c, d)
+    return fn
+
+
+def conv_reference(key: ConvNhwcKey):
+    """The plain version of whatever conv_route picks for `key`."""
+    return conv_xla_reference(key) if conv_route(key) == "xla" \
+        else conv_nhwc_reference(key)
+
+
 def unary_reference(key: UnaryKey):
     """xsmm.unary's transpose: the reference's kernel is jnp
     (tpp_mlir_tpu/xsmm/kernels.py:3315), so the port's is this PyTorch op
@@ -760,7 +882,8 @@ _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                FlashTrainKey: flash_train_fwd_reference,
                FlashTrainBwdKey: flash_train_bwd_reference,
                GroupedGemmKey: grouped_gemm_reference,
-               GroupedWgradKey: grouped_wgrad_reference}
+               GroupedWgradKey: grouped_wgrad_reference,
+               ConvNhwcKey: conv_reference}
 
 
 def reference_kernel(key):
