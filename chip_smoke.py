@@ -87,6 +87,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
         stride-1 conv; xla, F.conv2d with TF32 off, for the ViT's strided
         patch conv), each row's launch counts, finite outputs against
         --linalg-to-loops, ms/iter of both;
+     h. packed parity mode (default-tpp-passes-packed) at the suites' own
+        sizes, through tpp_mlir_tpu_torch.tools.bench_driver.run_entry with
+        each entry's `pipeline`: base.json's fc_{fp32,bf16}_packed_warm_1024
+        with -n 200 (one B19 a forward, the bench in the kernel: B20) beside
+        their flat twins; the flagship MLP 256 x 1024x4 f32 and bf16 with -n
+        100 (one tl.pack, three B19, one tl.unpack a forward) and its
+        tpp-gen --tiles=256,512,512 form under the default pipeline;
+        conv.json's five NCHW rows and two imported ResNet rows (one or two
+        B23 a forward; the 1x1 row lowers to B21) beside their flat runs of
+        phase g; vit.json's three rows with -n 20 (twelve B19 a forward, B7
+        and B12 as in phase g, the strided patch conv a tl.blocked_conv2d
+        through F.conv2d); mha.json's three pack/unpack `file` rows with -n
+        100, bit-exact against --linalg-to-loops. Each row: the lowered
+        invokes, its launch counts, the bench lowering, finite outputs
+        against --linalg-to-loops, ms/iter of both;
   5. time the same paths: the MLP at -n 100 beside torch.matmul+bias+relu,
      each transformer forward lowered beside --linalg-to-loops (GPT-2
      tokens/s), each serving configuration's prefill and decode step
@@ -102,7 +117,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
      blocks), B11 at -n 20, the batched matmul at mha_qk's and
      mha_softmax_v's keys and B5 at fc_128x768x2304 with -n 100; csrc/conv.cu
      at the conv kernel cases' keys beside F.conv2d + the epilogue (TF32
-     off).
+     off); B19 at the fc rows' keys beside torch.addmm on the unpacked
+     operands, B20 at them with -n 200 as repeats, B23 at the packed conv
+     rows' keys beside F.conv2d on the unpacked operands + the epilogue;
+     each of these held against its plain version there too, the kernel
+     line's max_abs_err for the three taken at the key whose ms it shows.
 Phase 3 also holds the MHA suite's kernels: flat attention at every
 flash_attention key and mha_full's, each forced strategy (grouped, qblock,
 twocall, twocall2 on the flat layout; flash_heads and xla on the token
@@ -113,7 +132,14 @@ csrc/conv.cu (B24/B25) at the keys default-tpp-passes makes of the conv
 suite (conv3x3_fp32_b8_c128_k128_30's layer at f32 "default" and "highest",
 its bf16 form, c256 at 16x16, the 1x1 W 14 key, the same-padded residual
 bf16 key, forced fullrow and window), and the xla route at the ViT's patch
-conv at "highest" against the same plain version (TF32 would miss it).
+conv at "highest" against the same plain version (TF32 would miss it); and
+packed parity mode's kernels: csrc/blocked_matmul.cu (B19) at the fc rows'
+key in f32 "default", f32 "highest" and bf16 VNNI, a masked mb 8 key and
+the ViT's gelu fc1, B20 at repeats 3 in f32 "default" (the fc_fp32 row's
+own key, which its -n runs), f32 "highest" and bf16, and
+csrc/conv.cu's channel-blocked entry (B23) at the c128/30 key in f32 and
+bf16, the c256/16 key (Cb 2) and the imported ResNet block's two keys (a C
+accumulator). Phase 5 times B19, B20 and B23 at those rows' keys.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -249,12 +275,19 @@ def phase_build() -> None:
             say(f"  ptxas: {line.strip()}")
     import torch
 
-    from tpp_mlir_tpu_torch.xsmm.kernels import chain_smem_bytes
+    from tpp_mlir_tpu_torch.xsmm.kernels import (blocked_warm_smem_bytes,
+                                                 chain_smem_bytes)
     for mxu, code in ((torch.bfloat16, 1), (torch.float32, 0)):
         want = lib.tpp_chain_smem_bytes(WIDTH, code)
         if want != chain_smem_bytes(WIDTH, mxu):
             raise AssertionError(f"chain_smem_bytes {chain_smem_bytes(WIDTH, mxu)}"
                                  f" != kernel's {want}")
+        for K in (WIDTH, 1856):
+            want = lib.tpp_blocked_warm_smem_bytes(K, code)
+            if want != blocked_warm_smem_bytes(K, mxu):
+                raise AssertionError(f"blocked_warm_smem_bytes "
+                                     f"{blocked_warm_smem_bytes(K, mxu)} != "
+                                     f"kernel's {want} at K {K}")
 
 
 def _tol(key) -> float:
@@ -271,10 +304,16 @@ def _tol(key) -> float:
     flash_heads 2 * TOL_BF16 as phase 3 holds B14; LayerNorm an f32 output
     to TOL_F32. A batched matmul is a single GEMM, but its softmax_lhs
     rounds P to bf16 at "default", where an ulp of exp between kernel and
-    plain version can flip a rounding: TOL_BF16 there."""
-    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+    plain version can flip a rounding: TOL_BF16 there. Packed mode's B19
+    and B23 are single GEMMs; B20 re-rounds its state as a chain does."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, ConvBrgemmKey,
                                          ConvNhwcKey, DecodeAttnKey,
                                          Int8GemmKey, LayerNormKey)
+    if isinstance(key, BlockedMatmulKey) and key.repeats:
+        out_f32 = (key.out_dtype or key.dtype) == "f32"
+        return TOL_F32 if out_f32 and key.precision == "highest" \
+            else TOL_BF16
     if isinstance(key, DecodeAttnKey):
         return TOL_F32      # f32 math from the same values: sum order only
     if getattr(key, "strategy", None) == "flash_heads":
@@ -287,7 +326,8 @@ def _tol(key) -> float:
     out_f32 = (key.out_dtype or key.dtype) == "f32"
     if isinstance(key, LayerNormKey):
         return TOL_F32 if out_f32 else TOL_BF16
-    if isinstance(key, (BatchMatmulKey, ConvNhwcKey)) or (
+    if isinstance(key, (BatchMatmulKey, ConvNhwcKey, BlockedMatmulKey,
+                        ConvBrgemmKey)) or (
             isinstance(key, BrgemmKey) and not key.prologue):
         return TOL_F32 if out_f32 else TOL_BF16
     return TOL_F32 if out_f32 and key.precision == "highest" else TOL_BF16
@@ -728,9 +768,12 @@ KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
          "FlashTrainKey": "flash_train_fwd",
          "FlashTrainBwdKey": "flash_train_bwd",
          "GroupedGemmKey": "grouped_gemm", "GroupedWgradKey": "grouped_wgrad",
-         "BatchMatmulKey": "batch_matmul", "ConvNhwcKey": "conv_nhwc"}
-# kinds of the MHA suite that share a key type with an earlier kernel
-MHA_KINDS = ("attention_flat", "attention_bench", "chain_pingpong")
+         "BatchMatmulKey": "batch_matmul", "ConvNhwcKey": "conv_nhwc",
+         "BlockedMatmulKey": "blocked_matmul", "ConvBrgemmKey": "conv_blocked"}
+# kinds that share a key type with an earlier kernel: the MHA suite's, and
+# B20, blocked_matmul.cu's warm bench
+SHARED_KINDS = ("attention_flat", "attention_bench", "chain_pingpong",
+             "blocked_matmul_warm")
 
 
 def _kind(key) -> str | None:
@@ -754,11 +797,13 @@ def _kind(key) -> str | None:
             return "attention_flat"
     if kind == "chain" and key.pingpong and key.repeats > 1:
         return "chain_pingpong"
+    if kind == "blocked_matmul" and key.repeats:
+        return "blocked_matmul_warm"
     return kind
 
 
 def _launches(cache) -> dict:
-    out = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    out = dict.fromkeys((*KINDS.values(), *SHARED_KINDS), 0)
     for fn in cache.kernels():
         kind = _kind(fn.key)
         if kind:
@@ -1817,7 +1862,7 @@ def phase_mha_suite() -> dict:
     from tpp_mlir_tpu_torch.tools.tpp_run import run_module
     from tpp_mlir_tpu_torch.xsmm import global_cache
     cache = global_cache()
-    total = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    total = dict.fromkeys((*KINDS.values(), *SHARED_KINDS), 0)
     for entry in MHA_SUITE:
         t0 = time.perf_counter()
         want_ops, kinds, want_bench = _mha_want(entry)
@@ -2013,6 +2058,11 @@ def phase_conv_kernels() -> dict:
     return {"conv_nhwc": {"max_abs_err": worst}}
 
 
+# ms/iter of each conv.json row's flat run in phase g, printed beside its
+# packed run in phase h
+CONV_FLAT_MS: dict[str, float] = {}
+
+
 def phase_conv_suite() -> dict:
     """Every conv.json and vit.json row through the bench driver on the
     card with its own -n, lowered beside --linalg-to-loops: the invokes it
@@ -2025,7 +2075,7 @@ def phase_conv_suite() -> dict:
     from tpp_mlir_tpu_torch.xsmm import global_cache
     from tpp_mlir_tpu_torch.xsmm.reference import conv_route
     cache = global_cache()
-    total = dict.fromkeys((*KINDS.values(), *MHA_KINDS), 0)
+    total = dict.fromkeys((*KINDS.values(), *SHARED_KINDS), 0)
     for entry in _conv_suite():
         t0 = time.perf_counter()
         n = entry.get("iters", MHA_N)
@@ -2047,6 +2097,7 @@ def phase_conv_suite() -> dict:
         moved = {k: v for k, v in launches.items() if v}
         ms = res["lowered"]["mean_seconds"] * 1e3
         base = res["baseline"]["mean_seconds"] * 1e3
+        CONV_FLAT_MS[entry["name"]] = ms
         say(f"conv {entry['name']}: lowered to {ops}; conv routes {routes}; "
             f"output {tuple(got.shape)} {str(got.dtype)[6:]} vs "
             f"--linalg-to-loops rel {rel:.3e} tol {TOL_MODEL:.0e}; launches "
@@ -2058,6 +2109,314 @@ def phase_conv_suite() -> dict:
             raise AssertionError(f"{entry['name']}: rel {rel}, routes "
                                  f"{routes}, launches {launches} (must "
                                  f"move: {kinds})")
+        for k, v in launches.items():
+            total[k] += v
+        del res
+        torch.cuda.empty_cache()
+    return total
+
+
+# packed parity mode (default-tpp-passes-packed): the rows of base.json,
+# conv.json, vit.json and mha.json it runs, at their own sizes, and
+# csrc/blocked_matmul.cu (B19/B20) and csrc/conv.cu's channel-blocked entry
+# (B23) at the keys the packed pipeline makes of them
+PACKED = "default-tpp-passes-packed"
+PACKED_KINDS = ("blocked_matmul", "blocked_matmul_warm", "conv_blocked")
+PACKED_CONFIGS = ("benchmarks/configs/base.json",
+                  "benchmarks/configs/conv.json",
+                  "benchmarks/configs/vit.json",
+                  "benchmarks/configs/mha.json")
+FLAGSHIP_GEN = f"--batch={BATCH} --layers={','.join([str(WIDTH)] * LAYERS)} " \
+    "--bias --relu"
+# (row or label, entry overrides, {dispatch layout: invokes a forward},
+#  kinds that must launch, the flat twin's row (or "4g": phase g's run),
+#  tolerance against --linalg-to-loops)
+PACKED_ROWS = (
+    ("fc_fp32_packed_warm_1024", {}, {"blocked": 1},
+     ("blocked_matmul", "blocked_matmul_warm"), "fc_fp32_flat_warm_1024",
+     TOL_BF16),
+    ("fc_bf16_packed_warm_1024", {}, {"blocked": 1},
+     ("blocked_matmul", "blocked_matmul_warm"), "fc_bf16_flat_warm_1024",
+     TOL_BF16),
+    ("flagship f32 packed", {"gen": FLAGSHIP_GEN, "pipeline": PACKED,
+                             "iters": 100},
+     {"blocked": 3}, ("blocked_matmul",), None, TOL_BF16),
+    ("flagship bf16 packed", {"gen": FLAGSHIP_GEN + " --float-type=bf16",
+                              "pipeline": PACKED, "iters": 100},
+     {"blocked": 3}, ("blocked_matmul",), None, TOL_BF16),
+    ("flagship f32 --tiles=256,512,512", {
+        "gen": FLAGSHIP_GEN + " --tiles=256,512,512", "iters": 100},
+     {"blocked": 3}, ("blocked_matmul",), None, TOL_BF16),
+    ("conv3x3_fp32_b8_c128_k128_30", {"pipeline": PACKED}, {"conv": 1},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("conv3x3_fp32_b8_c256_k256_16", {"pipeline": PACKED}, {"conv": 1},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("conv3x3_bf16_b8_c128_k128_30", {"pipeline": PACKED}, {"conv": 1},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("conv3x3_fp32_2layer", {"pipeline": PACKED}, {"conv": 2},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("conv1x1_fp32_b8_c256_k256_14", {"pipeline": PACKED}, {},
+     ("batch_matmul",), "4g", TOL_MODEL),
+    ("resnet_block_torch_import_fp32", {"pipeline": PACKED}, {"conv": 2},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("resnet_block_torch_import_bf16", {"pipeline": PACKED}, {"conv": 2},
+     ("conv_blocked",), "4g", TOL_MODEL),
+    ("vit_d128_p16_f32", {"pipeline": PACKED}, {"blocked": 12},
+     ("blocked_matmul", "attention", "layer_norm"), None, TOL_MODEL),
+    ("vit_d128_p16_bf16", {"pipeline": PACKED}, {"blocked": 12},
+     ("blocked_matmul", "attention", "layer_norm"), None, TOL_MODEL),
+    ("vit_d64_p16_bf16", {"pipeline": PACKED}, {"blocked": 12},
+     ("blocked_matmul", "attention", "layer_norm"), None, TOL_MODEL),
+    ("pack_gemm_operand_a_fp32", {}, {}, (), None, 0.0),
+    ("pack_gemm_operand_b_fp32", {}, {}, (), None, 0.0),
+    ("unpack_gemm_operand_a_fp32", {}, {}, (), None, 0.0),
+)
+# (label, row, index of the packed dispatch among the row's, overrides)
+PACKED_KERNEL_CASES = (
+    ("fc_fp32_packed_warm_1024 (f32 default)", "fc_fp32_packed_warm_1024",
+     0, {}),
+    ("fc_fp32_packed_warm_1024 highest", "fc_fp32_packed_warm_1024", 0,
+     {"precision": "highest"}),
+    ("fc_bf16_packed_warm_1024 (VNNI)", "fc_bf16_packed_warm_1024", 0, {}),
+    ("fc f32 masked mb 8", "fc_fp32_packed_warm_1024", 0,
+     {"Mb": 2, "mb": 8}),
+    ("vit_d128_p16_bf16 fc1 (gelu)", "vit_d128_p16_bf16", 4, {}),
+    ("fc_fp32_packed_warm_1024 B20 r3", "fc_fp32_packed_warm_1024", 0,
+     {"repeats": 3}),
+    ("fc_fp32_packed_warm_1024 B20 highest r3", "fc_fp32_packed_warm_1024",
+     0, {"precision": "highest", "repeats": 3}),
+    ("fc_bf16_packed_warm_1024 B20 r3", "fc_bf16_packed_warm_1024", 0,
+     {"repeats": 3}),
+    ("conv3x3_fp32_b8_c128_k128_30", "conv3x3_fp32_b8_c128_k128_30", 0, {}),
+    ("conv3x3_bf16_b8_c128_k128_30", "conv3x3_bf16_b8_c128_k128_30", 0, {}),
+    ("conv3x3_fp32_b8_c256_k256_16 (Cb 2)", "conv3x3_fp32_b8_c256_k256_16",
+     0, {}),
+    ("resnet_block_torch_import_fp32 conv1 (C, relu)",
+     "resnet_block_torch_import_fp32", 0, {}),
+    ("resnet_block_torch_import_fp32 conv2 (C)",
+     "resnet_block_torch_import_fp32", 1, {}),
+)
+# the keys phase 5 times and holds against their plain versions, each
+# kernel's first the kernel line's (its ms and max_abs_err): B19 at the fc
+# rows' keys, B20 at them with the rows' -n as repeats, B23 at the conv rows'
+# keys and the ResNet block's C-accumulator key
+PACKED_TIMED = (
+    ("fc_fp32_packed_warm_1024", 0, {}), ("fc_bf16_packed_warm_1024", 0, {}),
+    ("fc_fp32_packed_warm_1024", 0, {"repeats": 200}),
+    ("fc_bf16_packed_warm_1024", 0, {"repeats": 200}),
+    ("conv3x3_fp32_b8_c128_k128_30", 0, {}),
+    ("conv3x3_bf16_b8_c128_k128_30", 0, {}),
+    ("conv3x3_fp32_b8_c256_k256_16", 0, {}),
+    ("resnet_block_torch_import_fp32", 1, {}))
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_suite() -> dict:
+    from pathlib import Path
+
+    from tpp_mlir_tpu_torch.tools.bench_driver import load_config
+    root = Path(__file__).resolve().parent
+    return {e["name"]: e for cfg in PACKED_CONFIGS
+            for e in load_config(str(root / cfg))}
+
+
+def _packed_entry(row: str, overrides: dict) -> dict:
+    entry = dict(_packed_suite().get(row, {"name": row}), **overrides)
+    entry["name"] = row
+    return entry
+
+
+def _packed_layouts(module) -> dict:
+    """{dispatch layout: invokes} of a lowered module's blocked and conv
+    GEMMs, and the tl.pack/tl.unpack/tl.blocked_conv2d ops it keeps."""
+    out: dict[str, int] = {}
+    for op in module["entry"].ops:
+        if op.opname in ("tl.pack", "tl.unpack", "tl.blocked_conv2d"):
+            out[op.opname] = out.get(op.opname, 0) + 1
+        elif op.opname in ("xsmm.brgemm", "xsmm.fused_brgemm"):
+            layout = op.operands[0].owner.attrs.get("layout", "flat")
+            if layout in ("blocked", "conv"):
+                out[layout] = out.get(layout, 0) + 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_row_keys(row: str) -> tuple:
+    """The BlockedMatmulKey/ConvBrgemmKey of each packed invoke the packed
+    pipeline makes of a suite row, in order."""
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.runtime.executor import _dispatch_key
+    from tpp_mlir_tpu_torch.tools.bench_driver import build_module
+    module = build_module(_packed_entry(row, {}))
+    run_pipeline(module, PACKED)
+    return tuple(_dispatch_key(op.operands[0].owner, op)
+                 for op in module["entry"].ops
+                 if op.opname in ("xsmm.brgemm", "xsmm.fused_brgemm")
+                 and op.operands[0].owner.attrs.get("layout")
+                 in ("blocked", "conv"))
+
+
+def _packed_key(row: str, index: int, **kw):
+    return dataclasses.replace(_packed_row_keys(row)[index], **kw)
+
+
+def _blocked_inputs(key, g):
+    """A [Mb,Kb,mb,kb] and B [Nb,Kb,kb,nb] ~ N(0, 1/K) (VNNI
+    [Nb,Kb,kb/2,nb,2] for a vnni key) in the key's dtype; the f32
+    accumulator and the bias [Nb, nb] where the key reads them."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+
+    def rnd(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dtype)
+    b = rnd(key.Nb, key.Kb, key.kb, key.nb, scale=(key.Kb * key.kb) ** -0.5)
+    if key.vnni:
+        b = b.reshape(key.Nb, key.Kb, key.kb // key.vnni, key.vnni, key.nb) \
+            .movedim(-2, -1).contiguous()
+    c = None if key.beta0 else rnd(key.Mb, key.Nb, key.mb, key.nb,
+                                   dtype=torch.float32)
+    d = rnd(key.Nb, key.nb, dtype=torch.float32) if key.binary_kind else None
+    return rnd(key.Mb, key.Kb, key.mb, key.kb), b, c, d
+
+
+def _conv_blocked_inputs(key, g):
+    """I [N,Cb,H,W,c] and W [Kb,Cb,R,S,c,k] ~ N(0, 1/(R S C)) in the key's
+    dtype; the f32 accumulator and the bias [Kb, k] where the key reads
+    them."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+
+    def rnd(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dtype)
+    out = (key.N, key.Kb, key.P, key.Q, key.k)
+    c = None if key.beta0 else rnd(*out, dtype=torch.float32)
+    d = rnd(key.Kb, key.k, dtype=torch.float32) if key.binary_kind else None
+    return (rnd(key.N, key.Cb, key.H, key.W, key.c),
+            rnd(key.Kb, key.Cb, key.R, key.S, key.c, key.k,
+                scale=(key.R * key.S * key.Cb * key.c) ** -0.5), c, d)
+
+
+def _packed_inputs(key, g):
+    from tpp_mlir_tpu_torch.xsmm import BlockedMatmulKey
+    return _blocked_inputs(key, g) if isinstance(key, BlockedMatmulKey) \
+        else _conv_blocked_inputs(key, g)
+
+
+def phase_packed_kernels() -> dict:
+    """B19, B20 and B23 against their plain versions at the keys the packed
+    pipeline makes of the suites' rows (and a masked mb 8 key, B20 at
+    repeats 3)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    g = torch.Generator(device="cuda").manual_seed(9)
+    stats: dict[str, dict] = {}
+    for label, row, index, kw in PACKED_KERNEL_CASES:
+        key = _packed_key(row, index, **kw)
+        args = _packed_inputs(key, g)
+        kern = build_kernel(key)
+        got = kern(*args)
+        ref = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        tol = _tol(key)
+        kind = _kind(key)
+        ok = rel <= tol and torch_isfinite(got) and kern.launches == 1 and \
+            tuple(got.shape) == tuple(ref.shape)
+        say(f"kernel {kind:19s} {label:48s} {describe(key)} rel "
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol}, launches "
+                                 f"{kern.launches}")
+        worst = stats.get(kind, {}).get("max_abs_err", 0.0)
+        stats[kind] = {"max_abs_err": max(worst, ab)}
+    return stats
+
+
+def phase_packed_suite() -> dict:
+    """Packed parity mode's rows through the bench driver on the card at
+    their own sizes, each with its own -n, lowered beside
+    --linalg-to-loops: the packed invokes a forward, the launch counts of
+    the row alone (a forward's kernels times the forwards the run made;
+    the fc rows: one B19 forward and B20's four bench launches), the bench
+    lowering, outputs within the row's tolerance (the pack/unpack rows
+    bit-exact), and ms/iter beside the flat twin's and
+    --linalg-to-loops'."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    total = dict.fromkeys((*KINDS.values(), *SHARED_KINDS), 0)
+    flat_ms: dict[str, float] = {}
+    for row, overrides, want_layouts, kinds, twin, tol in PACKED_ROWS:
+        t0 = time.perf_counter()
+        entry = _packed_entry(row, overrides)
+        n = entry.get("iters", MHA_N)
+        cache.reset_launches()
+        res = run_entry(entry, n=n, device="cuda", out_stream=sys.stderr)
+        launches = _launches(cache)
+        low = res["lowered"]
+        module = low["module"]
+        layouts = _packed_layouts(module)
+        got, want = low["outputs"][0], res["baseline"]["outputs"][0]
+        rel, _ = rel_err(got, want)
+        bench = low["bench"]
+        per_forward = sum(want_layouts.values())
+        kind = "conv_blocked" if "conv" in want_layouts else "blocked_matmul"
+        if bench.startswith("in-kernel B20"):
+            # the bench in the kernel: a warm-up and 3 timed B20 launches;
+            # one B19 forward for the output
+            counts_ok = launches["blocked_matmul"] == 1 and \
+                launches["blocked_matmul_warm"] == 4
+        else:
+            forwards = launches[kind] // per_forward if per_forward else 0
+            counts_ok = not per_forward or (
+                launches[kind] == forwards * per_forward and forwards > n)
+        layouts_ok = all(layouts.get(k, 0) == v
+                         for k, v in want_layouts.items())
+        if row.startswith("flagship") and "tiles" not in row:
+            layouts_ok &= layouts.get("tl.pack") == 1 and \
+                layouts.get("tl.unpack") == 1
+        if row.startswith("vit"):
+            layouts_ok &= layouts.get("tl.blocked_conv2d") == 1
+        exact = tol == 0.0
+        out_ok = torch.equal(got, want) if exact else \
+            (rel <= tol and torch_isfinite(got))
+        want_bench = "in-kernel B20 (blocked_matmul.cu repeats)" \
+            if row.startswith("fc_") else "loop"
+        ok = layouts_ok and counts_ok and out_ok and bench == want_bench \
+            and tuple(got.shape) == tuple(want.shape) and \
+            all(launches[k] for k in kinds)
+        ms = low["mean_seconds"] * 1e3
+        base = res["baseline"]["mean_seconds"] * 1e3
+        twin_note = ""
+        if twin == "4g":
+            twin_note = f", flat (phase g) {CONV_FLAT_MS[row]:.4f} ms"
+        elif twin:
+            flat = run_entry(_packed_entry(twin, {}), device="cuda",
+                             out_stream=sys.stderr)
+            flat_ms[twin] = flat["lowered"]["mean_seconds"] * 1e3
+            twin_note = (f", flat twin {twin} {flat_ms[twin]:.4f} ms "
+                         f"({flat['lowered']['bench']})")
+        moved = {k: v for k, v in launches.items() if v}
+        rate = f" ({res['flops'] / ms / 1e9:.2f} TFLOP/s)" \
+            if res["flops"] else ""
+        say(f"packed {row}: {entry.get('pipeline', 'default-tpp-passes')} "
+            f"lowered to {layouts} (want {want_layouts} a forward); bench "
+            f"{bench}; output {tuple(got.shape)} {str(got.dtype)[6:]} vs "
+            f"--linalg-to-loops {'bit-exact ' + str(out_ok) if exact else f'rel {rel:.3e} tol {tol:.0e}'}; "
+            f"launches {moved}; -n {n} {ms:.4f} ms/iter{rate}{twin_note}, "
+            f"--linalg-to-loops {base:.4f} ms "
+            f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{row}: layouts {layouts} (want "
+                                 f"{want_layouts}), bench {bench} (want "
+                                 f"{want_bench}), rel {rel}, launches "
+                                 f"{launches} (must move: {kinds})")
         for k, v in launches.items():
             total[k] += v
         del res
@@ -2190,6 +2549,9 @@ def phase_timing(n: int = 100) -> dict:
     convs = [_conv_key(row, index, **kw)
              for _, row, index, kw in CONV_KERNEL_CASES[:7]]
     moe += [("conv_nhwc", key, _conv_inputs(key, g)) for key in convs]
+    # packed parity mode: B19, B20 and B23 at the packed rows' keys
+    packed = [_packed_key(row, index, **kw) for row, index, kw in PACKED_TIMED]
+    moe += [(_kind(key), key, _packed_inputs(key, g)) for key in packed]
     from tpp_mlir_tpu_torch.tools.trace import describe
     timed = [(kind, key, make(key, g)) for kind, key, make in cases] + moe
     for kind, key, args in timed:
@@ -2211,6 +2573,20 @@ def phase_timing(n: int = 100) -> dict:
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
             f"{plain_ms:.4f} ms, library call {lib}, bound {bound:.4f} ms "
             f"({by}){note}")
+        err = {}
+        if kind in PACKED_KINDS:
+            # packed parity mode's kernels at the timed keys themselves
+            # (B20 at the rows' -n): the line's max_abs_err is its ms's key's
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            rel, ab = rel_err(got, want)
+            ok = rel <= _tol(key) and torch_isfinite(got)
+            say(f"  against its plain version: rel {rel:.3e} abs {ab:.3e} "
+                f"tol {_tol(key):.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{describe(key)}: rel {rel} > "
+                                     f"{_tol(key)}")
+            err = {"max_abs_err": ab}
         # the kernel line keeps the first shape of each kind: the MLP's f32
         # fc for brgemm, the bf16 flagship chain, GPT-2's attention and
         # ln_f, the serving decode attention (MHA), the int8 QKV GEMM,
@@ -2218,7 +2594,7 @@ def phase_timing(n: int = 100) -> dict:
         # and B17 at the training step's dw1
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": by,
-                              "library_ms": lib_ms})
+                              "library_ms": lib_ms, **err})
     return out
 
 
@@ -2329,6 +2705,22 @@ def _bound(kind, key, args) -> tuple[float, str]:
         flops = 2 * key.N * key.P * key.Q * key.K * key.C * key.R * key.S
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = _nbytes(*args) + key.N * key.P * key.Q * key.K * size
+    elif kind in ("blocked_matmul", "blocked_matmul_warm"):
+        # the packed GEMM (repeats times for B20); A, B, C, bias, out
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * key.Mb * key.Nb * key.Kb * key.mb * key.nb * key.kb * \
+            max(1, key.repeats)
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = _nbytes(*args) + key.Mb * key.Nb * key.mb * key.nb * size
+    elif kind == "conv_blocked":    # each tap's products; I, W, C, D, out
+        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "bf16"
+        flops = 2 * key.N * key.P * key.Q * key.Kb * key.k * key.Cb * \
+            key.c * key.R * key.S
+        size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
+        nbytes = _nbytes(*args) + \
+            key.N * key.Kb * key.P * key.Q * key.k * size
     else:   # grouped_wgrad: the token rows of xt and dY, f32 dW
         ge, xt, dy = args
         rows = int((dy != 0).any(-1).sum())
@@ -2350,7 +2742,9 @@ def _library_call(kind, key, args):
     (B15) have no single call. B1: torch.addmm (bias) or torch.mm; the
     attention kernels: scaled_dot_product_attention, forward, or for B18
     its backward alone (torch.autograd.grad of a kept forward); B21/B22:
-    torch.bmm; B12: F.layer_norm."""
+    torch.bmm; B12: F.layer_norm; B19: torch.addmm on the unpacked
+    operands; B23: F.conv2d on the unpacked NCHW operands and the
+    epilogue, TF32 off; B20's repeats have no single call."""
     import torch
     import torch.nn.functional as F
     if kind == "brgemm" and not key.prologue and key.batch == 1 and \
@@ -2392,6 +2786,17 @@ def _library_call(kind, key, args):
         return _grouped_mm_call(kind, key, args)
     if kind == "conv_nhwc":
         return _conv_library_call(key, args)
+    if kind == "blocked_matmul" and key.binary_kind == "add" and key.beta0:
+        # torch.addmm on the unpacked operands (unpacked here, untimed)
+        a, b, _, d = args
+        if key.vnni:
+            b = b.movedim(-1, -2).reshape(key.Nb, key.Kb, key.kb, key.nb)
+        a2 = a.permute(0, 2, 1, 3).reshape(key.Mb * key.mb, -1)
+        b2 = b.permute(1, 2, 0, 3).reshape(key.Kb * key.kb, -1)
+        bias = d.reshape(-1).to(a.dtype)
+        return lambda: torch.addmm(bias, a2, b2)
+    if kind == "conv_blocked":
+        return _conv_blocked_library_call(key, args)
     if kind in ("flash_train_fwd", "flash_train_bwd"):
         q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(
             kind == "flash_train_bwd") for t in args[:3])
@@ -2429,6 +2834,15 @@ def _conv_library_call(key, args):
         acc = y.permute(0, 2, 3, 1).reshape(-1, key.K).float()
         return _conv_epilogue(key, acc, c, d)
     return call
+
+
+def _conv_blocked_library_call(key, args):
+    """_conv_library_call on B23's NHWC form (reference.conv_blocked_nhwc):
+    the operands permuted here, untimed."""
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_blocked_nhwc
+    nkey, ops = conv_blocked_nhwc(key)
+    return _conv_library_call(nkey, [None if t is None else t.contiguous()
+                                     for t in ops(*args)])
 
 
 def _grouped_mm_call(kind, key, args):
@@ -2471,6 +2885,7 @@ def main() -> int:
             "max_abs_err", 0.0))
         stats[kind] = {"max_abs_err": worst}
     stats.update(phase_conv_kernels())
+    stats.update(phase_packed_kernels())
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
@@ -2479,7 +2894,7 @@ def main() -> int:
     for counts in (serve_launches, phase_serving_flash(setups[0]),
                    moe_launches, phase_mlp_training(), phase_gpt_training(),
                    phase_moe_training(), phase_mha_suite(),
-                   phase_conv_suite()):
+                   phase_conv_suite(), phase_packed_suite()):
         for kind, n in counts.items():
             launches[kind] += n
     timing = phase_timing()
@@ -2504,7 +2919,11 @@ def main() -> int:
             ("batch_matmul", "batch_matmul.cu", "kernels.py:963"),
             ("chain_pingpong", "chain.cu", "kernels.py:1919"),
             # one kernel for B24 (window) and B25 (fullrow, :3117)
-            ("conv_nhwc", "conv.cu", "kernels.py:2919")):
+            ("conv_nhwc", "conv.cu", "kernels.py:2919"),
+            ("blocked_matmul", "blocked_matmul.cu", "kernels.py:763"),
+            ("blocked_matmul_warm", "blocked_matmul.cu", "kernels.py:870"),
+            # B24's kernel in the channel-blocked layout
+            ("conv_blocked", "conv.cu", "kernels.py:2778")):
         also = {"attention_flat": [":2395", ":2496", ":2618", ":2721"],
                 "batch_matmul": [":1065"], "conv_nhwc": [":3117"]}.get(kind)
         kernels.append({"name": kind, "route": "cuda",
@@ -2514,6 +2933,8 @@ def main() -> int:
                                               f"{x}" for x in also]}
                            if also else {}),
                         "launches": launches[kind],
+                        # phase 3's worst case; packed parity mode's
+                        # kinds take phase 5's at the line's key
                         "max_abs_err": stats[kind]["max_abs_err"],
                         **timing[kind]})
     say(f"total: {time.perf_counter() - t0:.1f} s on {card}")

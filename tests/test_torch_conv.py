@@ -192,9 +192,18 @@ def test_conv_route_table(kw, route):
 
 
 def test_packed_conv_key_names_packed_mode():
+    """Packed mode's channel-blocked conv key (B23) builds: on CPU tensors
+    its wrapper runs the plain version and launches nothing."""
     key = ConvBrgemmKey(N=2, H=8, W=8, Cb=1, c=16, Kb=1, k=16, R=3, S=3)
-    with pytest.raises(NotImplementedError, match="A13, packed mode"):
-        build_kernel(key)
+    rng = np.random.default_rng(4)
+    i = torch.from_numpy(rng.standard_normal((2, 1, 8, 8, 16), np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 1, 3, 3, 16, 16),
+                                             np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, 1, 6, 6, 16), np.float32))
+    kern = build_kernel(key)
+    got = kern(i, w, c)
+    assert got.shape == (2, 1, 6, 6, 16) and kern.launches == 0
+    assert torch.equal(got, reference_kernel(key)(i, w, c))
 
 
 def _strip_tiles(text: str) -> str:
@@ -359,7 +368,10 @@ def _conv_dispatch_module(**attrs):
 
 @pytest.mark.parametrize("attrs,err,why", [
     (dict(strategy="window"), NotImplementedError, "stride>1 conv"),
-    (dict(layout="conv"), NotImplementedError, "A13, packed mode"),
+    # a strided channel-blocked conv: the reference's words
+    # (kernels.py:2785-2788)
+    (dict(layout="conv", Cb=1, c=16, Kb=1, kblk=16), NotImplementedError,
+     "stride>1 conv stays on the XLA conv path"),
     (dict(strategy="im2col"), ValueError, "im2col"),
 ], ids=["window-stride2", "packed-layout", "unknown-strategy"])
 def test_verify_slice_refuses_convs_outside_the_slice(attrs, err, why):
@@ -380,11 +392,18 @@ def test_verify_slice_admits_the_strided_xla_conv():
 
 
 def test_packed_ops_name_packed_mode_in_the_executor():
+    """The executor runs packed mode's tl.pack: equal to the reference's
+    `_pack_val`, bit for bit."""
+    from tpp_mlir_tpu.runtime.executor import _pack_val
     from tpp_mlir_tpu_torch.ir import Function, Module, TensorType, \
         TppBuilder
     from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
     m = Module()
     f = m.add(Function("entry", [TensorType((2, 32, 4, 4), "f32")], ["x"]))
     f.returns = [TppBuilder(f).pack(f.args[0], (1,), (16,))]
-    with pytest.raises(NotImplementedError, match="A13, packed mode"):
-        tpp_compile(m, device="cpu")(torch.zeros(2, 32, 4, 4))
+    x = np.random.default_rng(5).standard_normal((2, 32, 4, 4), np.float32)
+    got = tpp_compile(m, device="cpu")(torch.from_numpy(x))
+    want = np.asarray(_pack_val(jnp.asarray(x), {"inner_dims": (1,),
+                                                 "inner_tiles": (16,)}))
+    assert got.shape == (2, 2, 4, 4, 16)
+    assert np.array_equal(got.numpy(), want)

@@ -27,7 +27,8 @@ from tpp_mlir_tpu_torch.ir import parse_module
 from tpp_mlir_tpu_torch.models.mlp import MlpConfig
 from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
 from tpp_mlir_tpu_torch.tools.tpp_run import run_module
-from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey, ChainKey,
+from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                     BrgemmKey, ChainKey, ConvBrgemmKey,
                                      ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
                                      FlashTrainBwdKey,
                                      FlashTrainKey, GroupedGemmKey,
@@ -775,6 +776,115 @@ def test_conv_nets_on_the_card_match_linalg_to_loops(cuda, model):
                     out_stream=io.StringIO())
     assert cache.launches_by_kind().get("ConvNhwcKey", 0) >= \
         (0 if model.startswith("vit") else 2)
+    got = res["lowered"]["outputs"][0]
+    want = res["baseline"]["outputs"][0]
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= 3e-2
+
+
+# packed parity mode: csrc/blocked_matmul.cu (B19, and B20 with repeats) and
+# csrc/conv.cu's channel-blocked entry (B23), at the fc rows' key forms, a
+# masked key (mb 8, kb and nb off the 32/64 tiles), VNNI read in place, and
+# the packed nets against --linalg-to-loops
+BLOCKED = {
+    "fc-f32-default": BlockedMatmulKey(1, 2, 2, 64, 128, 128, beta0=True,
+                                       binary_kind="add", unary_kind="relu"),
+    "fc-f32-highest-c": BlockedMatmulKey(1, 2, 2, 64, 128, 128,
+                                         precision="highest"),
+    "fc-bf16-vnni": BlockedMatmulKey(1, 2, 2, 64, 128, 128, "bf16",
+                                     beta0=True, vnni=2, binary_kind="add",
+                                     unary_kind="relu"),
+    "masked-mb8-gelu": BlockedMatmulKey(2, 3, 2, 8, 40, 48, "bf16",
+                                        out_dtype="f32", vnni=2,
+                                        binary_kind="add",
+                                        unary_kind="gelu"),
+    "warm-f32-default-r3": BlockedMatmulKey(1, 2, 2, 32, 128, 128,
+                                            beta0=True, binary_kind="add",
+                                            unary_kind="relu", repeats=3),
+    "warm-f32-r3": BlockedMatmulKey(1, 2, 2, 32, 128, 128, beta0=True,
+                                    binary_kind="add", unary_kind="relu",
+                                    precision="highest", repeats=3),
+    "warm-bf16-vnni-r3": BlockedMatmulKey(2, 2, 2, 24, 64, 64, "bf16",
+                                          beta0=True, vnni=2,
+                                          binary_kind="add",
+                                          unary_kind="relu", repeats=3),
+}
+
+
+@pytest.mark.parametrize("name", list(BLOCKED))
+def test_blocked_matmul_kernel_matches_plain(cuda, name):
+    key = BLOCKED[name]
+    g = cuda
+    a = _rnd(g, (key.Mb, key.Kb, key.mb, key.kb), key.dtype)
+    b = _rnd(g, (key.Nb, key.Kb, key.kb, key.nb), key.dtype,
+             (key.Kb * key.kb) ** -0.5)
+    if key.vnni:
+        b = b.reshape(key.Nb, key.Kb, key.kb // 2, 2, key.nb) \
+            .movedim(-2, -1).contiguous()
+    c = None if key.beta0 else _rnd(g, (key.Mb, key.Nb, key.mb, key.nb),
+                                    "f32")
+    d = _rnd(g, (key.Nb, key.nb), "f32") if key.binary_kind else None
+    kern = build_kernel(key)
+    got = kern(a, b, c, d)
+    want = reference_kernel(key)(a, b, c, d)
+    torch.cuda.synchronize()
+    assert got.shape == (key.Mb, key.Nb, key.mb, key.nb)
+    assert kern.launches == 1
+    out_f32 = (key.out_dtype or key.dtype) == "f32"
+    # B20 re-rounds its state to the MXU dtype every repeat
+    tol = 1e-4 if out_f32 and (not key.repeats
+                               or key.precision == "highest") else 1e-2
+    assert _err(got, want) <= tol
+
+
+CONV_BLOCKED = {
+    "c128-30-bias-relu": ConvBrgemmKey(N=2, H=12, W=12, Cb=1, c=128, Kb=1,
+                                       k=128, R=3, S=3, beta0=True,
+                                       binary_kind="add", unary_kind="relu"),
+    "cb2-highest-c-acc": ConvBrgemmKey(N=2, H=8, W=8, Cb=2, c=64, Kb=2, k=64,
+                                       R=3, S=3, precision="highest",
+                                       unary_kind="relu"),
+    "bf16-masked-c16": ConvBrgemmKey(N=2, H=7, W=9, Cb=2, c=16, Kb=3, k=24,
+                                     R=3, S=2, dtype="bf16", beta0=True,
+                                     binary_kind="add"),
+}
+
+
+@pytest.mark.parametrize("name", list(CONV_BLOCKED))
+def test_conv_blocked_kernel_matches_plain(cuda, name):
+    key = CONV_BLOCKED[name]
+    g = cuda
+    i = _rnd(g, (key.N, key.Cb, key.H, key.W, key.c), key.dtype)
+    w = _rnd(g, (key.Kb, key.Cb, key.R, key.S, key.c, key.k), key.dtype,
+             (key.Cb * key.c) ** -0.5)
+    c = None if key.beta0 else _rnd(g, (key.N, key.Kb, key.P, key.Q, key.k),
+                                    "f32")
+    d = _rnd(g, (key.Kb, key.k), "f32") if key.binary_kind else None
+    kern = build_kernel(key)
+    got = kern(i, w, c, d)
+    want = reference_kernel(key)(i, w, c, d)
+    torch.cuda.synchronize()
+    assert got.shape == (key.N, key.Kb, key.P, key.Q, key.k)
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-4 if key.dtype == "f32" else 1e-2)
+
+
+@pytest.mark.parametrize("entry", [
+    {"gen": "--batch=64 --layers=1024,1024,1024 --bias --relu "
+            "--float-type=bf16"},
+    {"model": 'convnet:{"batch": 2, "channels": 128, "filters": 128, '
+              '"height": 10, "width": 10, "layers": 2}'},
+    {"model": 'resnet_block:{"batch": 2, "channels": 128, "hw": 8}'},
+], ids=["mlp-bf16", "convnet-2layer", "resnet_block"])
+def test_packed_nets_on_the_card_match_linalg_to_loops(cuda, entry):
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    cache = global_cache()
+    cache.reset_launches()
+    res = run_entry({**entry, "pipeline": "default-tpp-passes-packed"},
+                    n=3, device="cuda", out_stream=io.StringIO())
+    kinds = cache.launches_by_kind()
+    assert kinds.get("BlockedMatmulKey", 0) + kinds.get("ConvBrgemmKey", 0) \
+        >= 2
     got = res["lowered"]["outputs"][0]
     want = res["baseline"]["outputs"][0]
     assert torch.isfinite(got.float()).all()

@@ -18,7 +18,8 @@ def _fields(cls):
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["BrgemmKey", "BatchMatmulKey", "ChainKey",
+@pytest.mark.parametrize("name", ["BrgemmKey", "BlockedMatmulKey",
+                                  "BatchMatmulKey", "ChainKey",
                                   "ConvBrgemmKey", "ConvNhwcKey",
                                   "FlashMhaKey",
                                   "LayerNormKey", "UnaryKey", "BinaryKey",

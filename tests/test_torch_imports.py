@@ -1,5 +1,5 @@
 """The port (every slice: the MLP path, the imported transformer, serving,
-training, MoE, the MHA suite, the conv family) imports torch and its own
+training, MoE, the MHA suite, the conv family, packed parity mode) imports torch and its own
 modules only: never JAX, Triton, ml_dtypes, nor any module of the JAX
 package `tpp_mlir_tpu`.
 
@@ -104,6 +104,25 @@ for model in ('convnet:{"batch": 2, "channels": 16, "filters": 16, '
               '"heads": 2, "layers": 1}'):
     res = run_entry({"model": model}, device="cpu", out_stream=sys.stderr)
     assert torch.isfinite(res["lowered"]["outputs"][0]).all()
+# packed parity mode: tpp_run and the bench driver under
+# default-tpp-passes-packed, a file entry, and the functional ops
+cfg = config_from_args(build_parser().parse_args(
+    "--batch=16 --layers=1024,1024 --bias --relu --float-type=bf16".split()))
+res = run_module(parse_module(generate_text(cfg)), n=2, device="cpu",
+                 pipeline="default-tpp-passes-packed", out_stream=sys.stderr)
+assert res["outputs"][0].shape == (16, 1024)
+for entry in ({"model": 'convnet:{"batch": 1, "channels": 16, '
+                        '"filters": 16, "height": 6, "width": 6}',
+               "pipeline": "default-tpp-passes-packed"},
+              {"file": "benchmarks/mlir/fp32-pack-gemm-operand-b-512x1024.mlir"}):
+    res = run_entry(entry, n=1, device="cpu", out_stream=sys.stderr)
+    assert torch.isfinite(res["lowered"]["outputs"][0]).all()
+from tpp_mlir_tpu_torch import ops
+assert ops.blocked_matmul(torch.randn(1, 2, 8, 16),
+                          ops.vnni_pack(torch.randn(2, 2, 16, 8)),
+                          vnni=2).shape == (1, 2, 8, 8)
+assert ops.conv2d_brgemm(torch.randn(1, 2, 5, 5, 8),
+                         torch.randn(1, 2, 3, 3, 8, 4)).shape == (1, 1, 3, 3, 4)
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """

@@ -10,6 +10,7 @@ from . import cleanup as _cleanup          # noqa: F401
 from . import conv as _conv                # noqa: F401
 from . import fold as _fold                # noqa: F401
 from . import fuse as _fuse                # noqa: F401
+from . import pack as _pack                # noqa: F401
 from . import pipelines as _pipelines      # noqa: F401
 from . import to_xsmm as _to_xsmm          # noqa: F401
 

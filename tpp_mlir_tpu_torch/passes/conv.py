@@ -1,8 +1,7 @@
-"""Conv passes of the default (flat) pipeline.
+"""Conv passes.
 
-Copies of `tpp_mlir_tpu/passes/conv.py:28-457` without pack-conv2d, which
-has nothing to do in flat mode (conv-to-nhwc leaves no NCHW conv) and goes
-with packed parity mode (ROADMAP queue A13):
+Copies of `tpp_mlir_tpu/passes/conv.py:28-457` (without the opt-in
+patchify-conv-to-matmul, which no pipeline of the port runs):
 
   conv-init-simplify       a conv into a zero-fill followed by a bias add
                            becomes a conv whose accumulator is the
@@ -10,9 +9,12 @@ with packed parity mode (ROADMAP queue A13):
   conv-to-nhwc             NCHW convs become NHWC ones between boundary
                            transposes, which sink-transpose cancels;
   conv1x1-to-matmul        1x1 stride-1 convs become GEMMs;
+  pack-conv2d              (packed parity mode) NCHW convs become
+                           channel-blocked tl.blocked_conv2d;
   conv-to-brgemm           each NHWC conv becomes one xsmm.brgemm with
                            layout "conv_nhwc", a zero-pad producer fused in
-                           as its padding.
+                           as its padding; each stride-1 blocked conv one
+                           with layout "conv".
 
 conv1x1-to-matmul keeps the reference's width gate (a TPU sublane rule) so
 the lowered IR stays the JAX package's; ROADMAP queue C records it.
@@ -22,20 +24,10 @@ from __future__ import annotations
 
 from ..ir import Function, I64, Module, TppBuilder, broadcast_shapes
 from ..ir.matcher import is_zero_op
+from ..utils.target import pack_min_tile
 from .fold import _hoist_before
+from .pack import _divisor, _insert_before
 from .pass_manager import Pass, register
-
-
-def _insert_before(func: Function, anchor, b: TppBuilder, emit):
-    """Run `emit(builder)` and splice the emitted ops before `anchor` (a
-    copy of `tpp_mlir_tpu/passes/pack.py:51`)."""
-    start = len(func.ops)
-    result = emit(b)
-    new_ops = func.ops[start:]
-    del func.ops[start:]
-    idx = func.ops.index(anchor)
-    func.ops[idx:idx] = new_ops
-    return result
 
 
 @register
@@ -200,10 +192,52 @@ class Conv1x1ToMatmulPass(Pass):
 
 
 @register
+class PackConv2DPass(Pass):
+    """NCHW channel-block packing (packed parity mode): the reference's
+    PackConv2DNchwFchw, O[N,Kb,P,Q,k] += I[N,Cb,H,W,c] * W[Kb,Cb,R,S,c,k].
+    NHWC convs are not packed (conv-to-brgemm lowers them as they are). The
+    channel block is the reference's rule: a lane-sized (128) divisor, else
+    64's, else the whole channel count."""
+
+    name = "pack-conv2d"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        changed = False
+        b = TppBuilder(func)
+        for op in list(func.ops):
+            if op.parent is None or op.opname != "tl.conv2d_nchw_fchw":
+                continue
+            I, W, O = op.operands
+            N, C, H, Wd = I.type.shape
+            K, _, R, S = W.type.shape
+            lane = pack_min_tile(I.type.dtype)[1]
+            cblk = _divisor(C, lane) or _divisor(C, 64) or C
+            kblk = _divisor(K, lane) or _divisor(K, 64) or K
+            strides = tuple(op.attrs.get("strides", (1, 1)))
+
+            def emit(bb):
+                pi = bb.pack(I, (1,), (cblk,))             # [N,Cb,H,W,c]
+                pw = bb.pack(W, (0, 1), (kblk, cblk),
+                             outer_perm=(0, 1, 2, 3))      # [Kb,Cb,R,S,k,c]
+                pw = bb.transpose(pw, (0, 1, 2, 3, 5, 4))  # [Kb,Cb,R,S,c,k]
+                po = bb.pack(O, (1,), (kblk,))             # [N,Kb,P,Q,k]
+                blocked = bb.blocked_conv2d(pi, pw, po, strides)
+                return bb.unpack(blocked, (1,), (kblk,), O.type.shape)
+
+            res = _insert_before(func, op, b, emit)
+            func.replace_all_uses(op.result, res)
+            func.erase(op)
+            changed = True
+        return changed
+
+
+@register
 class ConvToBrgemmPass(Pass):
-    """NHWC convs -> xsmm.brgemm conv kernels with layout="conv_nhwc"
-    (NHWC-native, zero relayout). The reference's tl.blocked_conv2d ->
-    layout="conv" case comes with packed mode (ROADMAP queue A13)."""
+    """Stride-1 channel-blocked convs -> layout="conv" (B23,
+    csrc/conv.cu's channel-blocked entry), and NHWC convs -> layout
+    "conv_nhwc" (NHWC-native, zero relayout) at any stride. A strided
+    tl.blocked_conv2d stays as it is, as in the reference: the executor runs
+    it with F.conv2d."""
 
     name = "conv-to-brgemm"
 
@@ -211,31 +245,44 @@ class ConvToBrgemmPass(Pass):
         changed = False
         b = TppBuilder(func)
         for op in list(func.ops):
-            if op.parent is None or op.opname != "tl.conv2d_nhwc_hwcf":
+            if op.parent is None:
                 continue
-            I, W, O = op.operands
-            # fuse a zero-pad producer into the conv (the xla strategy
-            # pads natively; Pallas strategies pad outside the kernel) —
-            # saves the pad's HBM round trip. Two shapes: a direct NHWC
-            # pad, or pad-below-transpose at the NCHW graph boundary.
-            hit = _match_pad(I)
-            pad4, in_shape, make_input = (hit if hit is not None
-                                          else (None, I.type.shape,
-                                                lambda bb: I))
-            N, H, Wd, C = in_shape
-            R, S, _, K = W.type.shape
-            attrs = {"layout": "conv_nhwc", "N": N, "H": H, "W": Wd,
-                     "C": C, "K": K, "R": R, "S": S,
-                     "m": 0, "n": K, "k": C, "batch": C * R * S,
-                     "strides": tuple(op.attrs.get("strides", (1, 1))),
-                     "dtype": I.type.dtype, "flags": ()}
-            if pad4 is not None:
-                attrs["padding"] = pad4
+            strides = tuple(op.attrs.get("strides", (1, 1)))
+            I, W, O = op.operands if len(op.operands) == 3 else (None,) * 3
+            make_input = lambda bb, _i=I: _i      # noqa: E731
+            if op.opname == "tl.blocked_conv2d" and strides == (1, 1):
+                N, Cb, H, Wd, c = I.type.shape
+                Kb, _, R, S, _, k = W.type.shape
+                attrs = {"layout": "conv", "N": N, "H": H, "W": Wd, "Cb": Cb,
+                         "Kb": Kb, "R": R, "S": S, "c": c, "kblk": k,
+                         "m": 0, "n": k, "k": c, "batch": Cb * R * S,
+                         "strides": (1, 1), "dtype": I.type.dtype,
+                         "flags": ()}
+            elif op.opname == "tl.conv2d_nhwc_hwcf":
+                # fuse a zero-pad producer into the conv (the xla strategy
+                # pads natively; Pallas strategies pad outside the kernel)
+                # -- saves the pad's HBM round trip. Two shapes: a direct
+                # NHWC pad, or pad-below-transpose at the NCHW boundary.
+                hit = _match_pad(I)
+                pad4, in_shape, make_input = (hit if hit is not None
+                                              else (None, I.type.shape,
+                                                    make_input))
+                N, H, Wd, C = in_shape
+                R, S, _, K = W.type.shape
+                attrs = {"layout": "conv_nhwc", "N": N, "H": H, "W": Wd,
+                         "C": C, "K": K, "R": R, "S": S,
+                         "m": 0, "n": K, "k": C, "batch": C * R * S,
+                         "strides": strides, "dtype": I.type.dtype,
+                         "flags": ()}
+                if pad4 is not None:
+                    attrs["padding"] = pad4
+            else:
+                continue
 
-            def emit(bb):
+            def emit(bb, mk=make_input):
                 d = bb.create("xsmm.brgemm_dispatch", [], [I64], attrs)
-                inv = bb.create("xsmm.brgemm",
-                                [d.result, make_input(bb), W, O], [O.type])
+                inv = bb.create("xsmm.brgemm", [d.result, mk(bb), W, O],
+                                [O.type])
                 if "fusion_group" in op.attrs:
                     inv.attrs["fusion_group"] = op.attrs["fusion_group"]
                 return inv.result

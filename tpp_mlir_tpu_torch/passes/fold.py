@@ -13,18 +13,19 @@ Copies from `tpp_mlir_tpu/passes/fold.py`:
 with `_materialize_const` (:366), `new_literal_const` (:403) and
 `tpp_mlir_tpu/passes/conv.py:28 _hoist_before`. `_materialize_const` makes
 a non-literal constant with the port's numpy recipes (runtime/tensor_init),
-since the reference's tensor_init module loads JAX; a packed constant stays
-outside the slice (queue A13) and is not materialized.
+since the reference's tensor_init module loads JAX, and applies a packed
+constant's recipe (apply_pack_recipe) as the reference does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ir import Function, Module, TensorType, TppBuilder
 from ..ir.core import walk_backward_slice
 from ..ir.matcher import ELTWISE_BINARY, ELTWISE_UNARY, is_zero_op
-from ..runtime.tensor_init import tensor_init
+from ..runtime.tensor_init import apply_pack_recipe, tensor_init
 from .pass_manager import Pass, register
 
 
@@ -394,16 +395,15 @@ def _materialize_const(val, module):
     if op is None:
         return None
     if op.opname == "tl.constant":
-        if any(k.startswith("pack_") for k in op.attrs):
-            return None             # packed recipes: queue A13
         if op.attrs.get("init") == "literal":
-            arr = np.asarray(module.literals[op.attrs["literal"]])
+            t = torch.from_numpy(np.ascontiguousarray(
+                module.literals[op.attrs["literal"]]))
         else:
-            arr = tensor_init(op.attrs.get("init", "zero"),
-                              op.attrs.get("orig_shape", val.type.shape),
-                              val.type.dtype, op.attrs.get("seed", 0),
-                              op.attrs.get("value", 1.0)).float().numpy()
-        return np.asarray(arr, np.float32)
+            t = tensor_init(op.attrs.get("init", "zero"),
+                            op.attrs.get("orig_shape", val.type.shape),
+                            val.type.dtype, op.attrs.get("seed", 0),
+                            op.attrs.get("value", 1.0))
+        return apply_pack_recipe(t, op.attrs).float().numpy()
     if op.opname == "tl.reshape":
         a = _materialize_const(op.operands[0], module)
         return None if a is None else a.reshape(val.type.shape)

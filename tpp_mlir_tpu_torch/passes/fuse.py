@@ -16,7 +16,7 @@ from ..ir.matcher import (ELTWISE_BINARY, ELTWISE_UNARY, is_contraction,
                           is_zero_op)
 from .pass_manager import Pass, register
 
-FUSABLE_CONSUMERS = ELTWISE_UNARY + ELTWISE_BINARY
+FUSABLE_CONSUMERS = ELTWISE_UNARY + ELTWISE_BINARY + ("tl.unpack",)
 MAX_DEPTH, NUM_ITERS = 5, 3     # the reference's defaults
 
 # csrc/brgemm.cu: one 64x64 output tile per block, k in steps of 32
@@ -100,6 +100,8 @@ class TileAndFusePass(Pass):
         return changed
 
     def _assign_tiles(self, anchor: Operation) -> None:
+        if anchor.opname == "tl.blocked_matmul":
+            return  # block sizes are the packed tile sizes already
         shapes = {
             "tl.matmul": lambda a, b, c: (c.shape[0], c.shape[1], a.shape[1]),
             "tl.brgemm": lambda a, b, c: (c.shape[0], c.shape[1], a.shape[2]),

@@ -4,16 +4,20 @@
 reference's order (`tpp_mlir_tpu/passes/pipelines.py:44-100`, flat mode):
 on tpp-gen's MLP, fc and matmul modules, on the MHA suite's modules, on the
 conv suite's nets and on the imported GPT, transformer-block, ResNet-block
-and ViT models the reference's other passes leave the IR as it is. It ends
-with `verify-slice`, which refuses any op the port cannot run, so no IR
-outside the slice is run half-lowered.
+and ViT models the reference's other passes leave the IR as it is.
+`default-tpp-passes-packed` is the reference's packed parity mode (:109,
+`pack=True`): no conv-to-nhwc/sink-transpose, and pack-conv2d with the five
+pack stages after conv-init-simplify, so contractions run on physically
+blocked layouts (csrc/blocked_matmul.cu, csrc/conv.cu's channel-blocked
+entry). Both end with `verify-slice`, which refuses any op the port cannot
+run, so no IR outside the slice is run half-lowered.
 """
 
 from __future__ import annotations
 
 from ..ir import Function, Module
-from ..runtime.executor import attention_key, conv_key
-from ..xsmm.reference import attention_route, conv_route
+from ..runtime.executor import attention_key, conv_blocked_key, conv_key
+from ..xsmm.reference import attention_route, check_slice, conv_route
 from .pass_manager import Pass, register, register_pipeline
 
 # ops the port's executor runs after lowering
@@ -36,7 +40,15 @@ SLICE_OPS = frozenset({
     # the conv family: conv-init-simplify's broadcast accumulator, a pad
     # that conv-to-brgemm could not fuse
     "tl.broadcast", "tl.pad",
+    # packed parity mode: data movement, and a strided blocked conv, which
+    # the executor runs with F.conv2d (TF32 off) as the reference runs it
+    # with XLA
+    "tl.pack", "tl.unpack", "tl.vnni_pack", "tl.blocked_conv2d",
 })
+
+# xsmm.unary kinds the executor runs as PyTorch ops (the reference's are
+# jnp, xsmm/kernels.py:3315-3335); queue A3 owns the others
+UNARY_KINDS = ("transpose", "relu", "vnni2")
 
 
 def slice_violation(op) -> str | None:
@@ -47,23 +59,22 @@ def slice_violation(op) -> str | None:
     if op.opname not in SLICE_OPS:
         return f"op {op.opname}"
     a = op.attrs
-    if op.opname == "tl.constant" and any(k.startswith("pack_") for k in a):
-        return "packed tl.constant (queue A13)"
     if op.opname in ("xsmm.gemm_dispatch", "xsmm.brgemm_dispatch",
                      "xsmm.fused_brgemm_dispatch"):
         layout = a.get("layout", "flat")
-        if layout == "conv_nhwc":
+        try:
             # a strategy and stride the reference refuses raise here
-            try:
+            if layout == "conv_nhwc":
                 conv_route(conv_key(a))
-            except NotImplementedError as e:
-                return f"conv {e}"
-            return None
-        if layout != "flat":
-            return f"{layout} layout (queue A13, packed mode)"
+            elif layout == "conv":
+                check_slice(conv_blocked_key(a))
+        except NotImplementedError as e:
+            return f"conv {e}"
+        if layout not in ("flat", "blocked", "conv", "conv_nhwc"):
+            return f"{layout} layout"
         if a.get("prologue") not in (None, "layer_norm"):
             return f"{a['prologue']} prologue (queue A6 / B2)"
-    if op.opname == "xsmm.unary_dispatch" and a["kind"] != "transpose":
+    if op.opname == "xsmm.unary_dispatch" and a["kind"] not in UNARY_KINDS:
         return f"xsmm.unary {a['kind']!r} (queue A3)"
     if op.opname == "xsmm.attention_dispatch":
         # a strategy whose kernel the reference would swap for another;
@@ -92,19 +103,26 @@ class VerifySlicePass(Pass):
         return False
 
 
-@register_pipeline("default-tpp-passes")
-def default_tpp_passes():
+# the reference's tpp-mapping stages of packed parity mode
+PACK_STAGES = ("pack-conv2d", "pack-matmul", "pack-vnni", "propagate-pack",
+               "constant-fold-pack", "simplify-pack")
+
+
+def _pipeline(pack: bool) -> list[str]:
+    """The reference's default-tpp-passes (flat, or packed with pack=True)
+    over the port's passes."""
     return [
         "fold-add-into-dest",
         "attention-fusion",
         "cleanup",
-        # flat mode: convs to NHWC, layout conversions sunk to the boundary
-        "conv-to-nhwc",
-        "sink-transpose",
+        # flat mode: convs to NHWC, layout conversions sunk to the boundary;
+        # packed mode keeps the reference's NCHW channel-blocked layout
+        *(() if pack else ("conv-to-nhwc", "sink-transpose")),
         "fold-const-scale",
         "conv1x1-to-matmul",
         "sink-reshape",
         "conv-init-simplify",
+        *(PACK_STAGES if pack else ()),
         "cleanup",
         "tile-and-fuse",
         "conv-to-brgemm",
@@ -120,5 +138,18 @@ def default_tpp_passes():
         "fuse-ln-gemm",
         "cleanup",
         "verify-xsmm",
+        "cleanup",
         "verify-slice",
     ]
+
+
+@register_pipeline("default-tpp-passes")
+def default_tpp_passes():
+    return _pipeline(pack=False)
+
+
+@register_pipeline("default-tpp-passes-packed")
+def default_tpp_passes_packed():
+    """Packed parity mode: physical blocked layouts + VNNI, as the
+    reference's (`tpp_mlir_tpu/passes/pipelines.py:109`)."""
+    return _pipeline(pack=True)

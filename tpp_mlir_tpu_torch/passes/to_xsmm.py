@@ -3,13 +3,16 @@
 Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
 
   convert-tl-to-xsmm  contractions (tl.matmul, tl.batch_matmul, tl.brgemm,
-                      tl.vnni_brgemm), tl.attention, tl.layer_norm,
-                      tl.transpose and eltwise unary/binary ops become
-                      dispatch+invoke pairs;
+                      tl.vnni_brgemm, and packed mode's tl.blocked_matmul
+                      as layout "blocked"), tl.attention, tl.layer_norm,
+                      tl.transpose, tl.vnni_pack (unary vnni2) and eltwise
+                      unary/binary ops become dispatch+invoke pairs;
   xsmm-combine        {gemm|brgemm} -> binary -> unary chains (bias add,
-                      relu, gelu, ...) become one xsmm.fused_brgemm; a
-                      conv's broadcast-bias accumulator becomes BETA_0 and
-                      a fused bcast_col bias (:489, :585-640);
+                      relu, gelu, ...) become one xsmm.fused_brgemm (a
+                      blocked GEMM's (1,Nb,1,nb) bias is bcast_col); a
+                      conv's broadcast-bias accumulator, NHWC or
+                      channel-blocked, becomes BETA_0 and a fused
+                      bcast_col bias (:489, :585-640);
   fold-residual-acc   a full-shape residual add of a BETA_0 contraction
                       becomes its accumulator (:762);
   qkv-merge           three Q/K/V projections of one activation become one
@@ -21,9 +24,8 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
                       becomes that GEMM's prologue (:1030);
   verify-xsmm         dispatch/invoke consistency.
 
-The packed, VNNI-pack, zero-fill and generic branches wait for their
-ROADMAP items; what they would have lowered is refused by the pipeline's
-verify-slice.
+The zero-fill and generic branches wait for their ROADMAP item (A3); what
+they would have lowered is refused by the pipeline's verify-slice.
 """
 
 from __future__ import annotations
@@ -200,6 +202,30 @@ class ConvertTlToXsmmPass(Pass):
                                  attrs, [A, B, C], C.type, op))
                 changed = True
 
+            elif name == "tl.blocked_matmul":
+                A, B, C = op.operands
+                Mb, Kb, mb, kb = A.type.shape
+                attrs = {"m": mb, "n": C.type.shape[3], "k": kb,
+                         "batch": Kb, "Mb": Mb, "Nb": C.type.shape[1],
+                         "layout": "blocked", "dtype": A.type.dtype,
+                         "flags": (), "precision": precision}
+                if op.attrs.get("vnni"):
+                    attrs["vnni"] = op.attrs["vnni"]
+                replace(op, pair("xsmm.brgemm_dispatch", "xsmm.brgemm",
+                                 attrs, [A, B, C], C.type, op))
+                changed = True
+
+            elif name == "tl.vnni_pack":
+                X = op.operands[0]
+                attrs = {"kind": "vnni2", "m": X.type.shape[-2],
+                         "n": X.type.shape[-1], "shape": tuple(X.type.shape),
+                         "vnni": op.attrs.get("vnni", 2),
+                         "dtype": X.type.dtype, "flags": ()}
+                # the reference carries no fusion_group onto a VNNI pack
+                replace(op, pair("xsmm.unary_dispatch", "xsmm.unary", attrs,
+                                 [X], op.result.type, None))
+                changed = True
+
             elif name in _UNARY_MAP:
                 X = op.operands[0]
                 shape = X.type.shape
@@ -245,18 +271,41 @@ def _single_user(op: Operation, func: Function | None = None):
 
 def _bias_broadcast_init(C):
     """Recognize a conv accumulator that is a broadcast channel bias, the
-    pattern conv-init-simplify emits over an NHWC conv:
-        C = tl.broadcast(bias[K]) over [N,P,Q,K].
-    Returns the 1-D bias value, or None. Recovering it lets the kernel run
-    BETA_0 with the bias as a fused epilogue instead of reading a
-    materialized broadcast accumulator every tile. The reference's blocked
-    (tl.pack) forms come with packed mode (ROADMAP queue A13)."""
+    pattern conv-init-simplify emits:
+        C = tl.pack(tl.broadcast(tl.reshape(bias[K] -> (K,1,1))))
+    (NCHW, channel-blocked) or C = tl.broadcast(bias[K]) over [N,P,Q,K]
+    (NHWC). Returns the 1-D bias value, or None. Recovering it lets the
+    kernel run BETA_0 with the bias as a fused epilogue instead of reading
+    a materialized broadcast accumulator every tile."""
     op = C.owner
+    if op is not None and op.opname == "tl.pack":
+        if tuple(op.attrs.get("inner_dims", ())) != (1,):
+            return None
+        op = op.operands[0].owner
+    elif op is not None and op.opname == "tl.reshape":
+        # C = reshape(broadcast(bias[K]) : [N,P,Q,K] -> blocked)
+        op = op.operands[0].owner
     if op is None or op.opname != "tl.broadcast":
         return None
-    base = op.operands[0]
-    if base.type.rank != 1 or C.type.rank != 4 \
-            or base.type.num_elements != C.type.shape[-1]:
+    src = op.operands[0]
+    if src.owner is not None and src.owner.opname == "tl.reshape":
+        base = src.owner.operands[0]
+        if src.type.shape != (base.type.num_elements, 1, 1):
+            return None
+    else:
+        base = src
+    if base.type.rank != 1:
+        return None
+    # the bias length must equal the channel count: Kb*k (blocked 5-D),
+    # trailing K (NHWC 4-D), else the leading channel dim
+    cshape = C.type.shape
+    if len(cshape) == 5:
+        channels = cshape[1] * cshape[4]
+    elif len(cshape) == 4:
+        channels = cshape[-1]
+    else:
+        channels = cshape[1]
+    if base.type.num_elements != channels:
         return None
     return base
 
@@ -305,7 +354,7 @@ class CombineXsmmPass(Pass):
             # BETA_0 + fused bias-add (no HBM read of the broadcast)
             init_bias = None
             if binary_op is None and op.opname == "xsmm.brgemm" \
-                    and disp.attrs.get("layout") == "conv_nhwc" \
+                    and disp.attrs.get("layout") in ("conv", "conv_nhwc") \
                     and "beta_0" not in disp.attrs.get("flags", ()):
                 init_bias = _bias_broadcast_init(op.operands[3])
             if binary_op is None and unary_op is None and init_bias is None:

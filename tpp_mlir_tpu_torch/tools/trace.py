@@ -42,10 +42,10 @@ import torch
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
 from ..utils.target import resolve_device
-from ..xsmm import (BatchMatmulKey, BrgemmKey, ChainKey, ConvNhwcKey,
-                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
-                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
-                    LayerNormKey, global_cache)
+from ..xsmm import (BatchMatmulKey, BlockedMatmulKey, BrgemmKey, ChainKey,
+                    ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
+                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
+                    GroupedWgradKey, Int8GemmKey, LayerNormKey, global_cache)
 from .bench_driver import build_module
 from .tpp_run import init_args, load_module, wrap_bench_main
 
@@ -156,6 +156,21 @@ def describe(key) -> str:
             (key.strategy, key.strategy != "auto")) if on)
         return (f"conv_nhwc n{key.N} {key.H}x{key.W}x{key.C}->{key.P}x"
                 f"{key.Q}x{key.K} r{key.R}s{key.S} {key.dtype}{extra}")
+    if isinstance(key, (BlockedMatmulKey, ConvBrgemmKey)):
+        extra = "".join(f" {x}" for x, on in (
+            ("+C", not key.beta0), (f"+{key.binary_kind}", key.binary_kind),
+            (f"+{key.unary_kind}", key.unary_kind),
+            (key.precision, key.precision != "default"),
+            (f"vnni{getattr(key, 'vnni', 0)}", getattr(key, "vnni", 0)),
+            (f"r{getattr(key, 'repeats', 0)}", getattr(key, "repeats", 0)))
+            if on)
+        if isinstance(key, ConvBrgemmKey):
+            return (f"conv_blocked n{key.N} {key.H}x{key.W}x{key.Cb}x{key.c}"
+                    f"->{key.P}x{key.Q}x{key.Kb}x{key.k} r{key.R}s{key.S} "
+                    f"{key.dtype}{extra}")
+        kind = "blocked_matmul_warm" if key.repeats else "blocked_matmul"
+        return (f"{kind} {key.Mb}x{key.Nb}x{key.Kb} {key.mb}/{key.nb}/"
+                f"{key.kb} {key.dtype}{extra}")
     return type(key).__name__
 
 

@@ -26,6 +26,18 @@ class TargetInfo:
     capability: tuple[int, int] = (0, 0)
 
 
+# the reference's minimum (sublane, lane) tile per dtype
+# (tpp_mlir_tpu/utils/target.py:35-38): packed parity mode's tile rule
+# (passes/pack.py default_tiles, pack-conv2d) keeps it so that the packed IR
+# is the JAX package's. It is a layout, not the Hopper kernels' blocking.
+PACK_SUBLANES = {"f32": 8, "bf16": 16, "f16": 16, "i8": 32, "i32": 8}
+PACK_LANES = 128
+
+
+def pack_min_tile(dtype: str) -> tuple[int, int]:
+    return PACK_SUBLANES.get(dtype, 8), PACK_LANES
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """`device` as a torch.device; a CUDA device when torch finds no card
     raises. Every entry point of the port defaults to "cuda" and goes

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "tpp_grouped_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_L, _L] + [_I] * 2
                           + [_P]),
     "tpp_conv_nhwc": (_I, [_P] * 5 + [_I] * 18 + [_P]),
+    "tpp_conv_blocked": (_I, [_P] * 5 + [_I] * 18 + [_P]),
+    "tpp_blocked_matmul": (_I, [_P] * 5 + [_I] * 14 + [_P]),
+    "tpp_blocked_warm_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -1,7 +1,7 @@
 """Kernel-cache keys of the port's slice.
 
 Field-for-field copies of `tpp_mlir_tpu/xsmm/flags.py` (BrgemmKey,
-BatchMatmulKey, ChainKey, ConvBrgemmKey, ConvNhwcKey, FlashMhaKey,
+BlockedMatmulKey, BatchMatmulKey, ChainKey, ConvBrgemmKey, ConvNhwcKey, FlashMhaKey,
 GroupedGemmKey, GroupedWgradKey, LayerNormKey, UnaryKey, BinaryKey,
 Int8GemmKey), of
 `tpp_mlir_tpu/xsmm/decode_attn.py` (DecodeAttnKey) and of
@@ -42,6 +42,32 @@ class BrgemmKey:
     prologue_affine: bool = True
     prologue_eps: float = 1e-5
     ln_stats_out: bool = False
+
+
+@dataclass(frozen=True)
+class BlockedMatmulKey:
+    """Key for the packed-layout matmul (packed parity mode)
+    C[Mb,Nb,mb,nb] += A[Mb,Kb,mb,kb] * B[Nb,Kb,kb,nb]: csrc/blocked_matmul.cu
+    (B19; with repeats, B20)."""
+
+    Mb: int
+    Nb: int
+    Kb: int
+    mb: int
+    nb: int
+    kb: int
+    dtype: str = "f32"
+    out_dtype: str | None = None
+    beta0: bool = False
+    vnni: int = 0                  # B packed [Nb,Kb,kb/v,nb,v]
+    binary_kind: str | None = None
+    binary_bcast: str = "bcast_col"
+    unary_kind: str | None = None
+    precision: str = "default"
+    # > 0: the in-kernel perf.bench timed region (B20): `repeats`
+    # applications with the output fed back as the next packed activation
+    # (Nb == Kb and nb == kb)
+    repeats: int = 0
 
 
 @dataclass(frozen=True)
@@ -92,9 +118,9 @@ class ChainKey:
 @dataclass(frozen=True)
 class ConvBrgemmKey:
     """Key for the NCHW channel-blocked conv as batch-reduce GEMM
-    O[N,Kb,P,Q,k] += sum_{Cb,R,S} I[N,Cb,h+r,w+s,c] * W[Kb,Cb,R,S,c,k].
-    Only packed parity mode lowers to it; the port refuses it (ROADMAP
-    queue A13, packed mode, B23)."""
+    O[N,Kb,P,Q,k] += sum_{Cb,R,S} I[N,Cb,h+r,w+s,c] * W[Kb,Cb,R,S,c,k]
+    (packed parity mode; csrc/conv.cu's channel-blocked entry, B23;
+    stride 1 only, as in the reference)."""
 
     N: int
     H: int

@@ -41,6 +41,13 @@ reached. Each wrapper counts its launches.
                                      _build_grouped_gemm, B16)
   GroupedWgradKey -> csrc/grouped_gemm.cu (replaces :1283
                                      _build_grouped_wgrad, B17)
+  BlockedMatmulKey -> csrc/blocked_matmul.cu (replaces :763
+                                     _build_blocked_matmul, B19, and with
+                                     repeats :870
+                                     _build_blocked_matmul_warm, B20)
+  ConvBrgemmKey -> csrc/conv.cu, the channel-blocked entry (replaces
+                                     :2778 _build_conv_brgemm, B23; stride
+                                     1, as the reference)
   ConvNhwcKey  -> by reference.conv_route:
                   csrc/conv.cu       (replaces :2919 _build_conv_nhwc, B24,
                                      and :3117 _build_conv_nhwc_fullrow,
@@ -60,10 +67,10 @@ import ctypes
 import torch
 
 from . import reference
-from .flags import (BatchMatmulKey, BrgemmKey, ChainKey, ConvNhwcKey,
-                    DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
-                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
-                    LayerNormKey)
+from .flags import (BatchMatmulKey, BlockedMatmulKey, BrgemmKey, ChainKey,
+                    ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
+                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
+                    GroupedWgradKey, Int8GemmKey, LayerNormKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -93,6 +100,36 @@ def chain_fits_smem(key: ChainKey) -> bool:
         return False
     mxu = reference.mxu_dtype(key.dtype, key.precision)
     return chain_smem_bytes(max(key.dims), mxu) <= SM90_SMEM_OPTIN
+
+
+# blocked_matmul.cu's B20 holds two of chain.cu's row panels (CHAIN_BM rows
+# of K + CHAIN_HPAD) and, on the tensor path, each warp's weight and output
+# staging; the kernel's static_assert pins the staging's bytes to this
+WARM_STAGING_BYTES = 34816
+
+
+def blocked_warm_smem_bytes(K: int, mxu: torch.dtype) -> int:
+    """Dynamic shared memory B20 asks for at K = Kb * kb (its
+    warm_smem_bytes())."""
+    h = 2 * CHAIN_BM * (K + CHAIN_HPAD) * (2 if mxu == torch.bfloat16 else 4)
+    return (h + 127) // 128 * 128 + \
+        (WARM_STAGING_BYTES if mxu == torch.bfloat16 else 0)
+
+
+def blocked_warm_fits_smem(key: BlockedMatmulKey) -> bool:
+    """Whether B20 can run this key's warm bench: square feedback
+    (Nb == Kb, nb == kb), K = Kb * kb and nb multiples of 16 (the
+    tensor-core tile; a warp's 16 columns inside one Nb block, read as
+    16-byte vectors), and the row panel's two buffers within one block's
+    shared memory, the same sm_90 opt-in limit the chain gate plans for. The
+    executor's extract_bench_kernel gates on it in place of the reference's
+    VMEM check (tpp_mlir_tpu/runtime/executor.py:863-870): a key it refuses
+    times the loop lowering."""
+    K = key.Kb * key.kb
+    if key.Nb != key.Kb or key.nb != key.kb or K % 16 or key.nb % 16:
+        return False
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    return blocked_warm_smem_bytes(K, mxu) <= SM90_SMEM_OPTIN
 
 
 class Kernel:
@@ -620,6 +657,87 @@ def _conv_launch(key: ConvNhwcKey):
     return launch
 
 
+def _blocked_matmul_launch(key: BlockedMatmulKey):
+    """B19, or with repeats B20, on packed operands: a [Mb,Kb,mb,kb],
+    b [Nb,Kb,kb,nb] (VNNI [Nb,Kb,kb/2,nb,2], read in place by the kernel),
+    c [Mb,Nb,mb,nb] unless beta_0 (B20 takes none), d the bias with Nb*nb
+    elements; the output is [Mb,Nb,mb,nb]."""
+    from .build import check, library
+
+    Mb, Nb, Kb, mb, nb, kb = key.Mb, key.Nb, key.Kb, key.mb, key.nb, key.kb
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    v = key.vnni
+    b_shape = (Nb, Kb, kb // v, nb, v) if v else (Nb, Kb, kb, nb)
+    has_c = not key.beta0 and not key.repeats
+
+    def launch(a, b, c=None, d=None):
+        if key.repeats and not blocked_warm_fits_smem(key):
+            raise ValueError(f"the blocked warm bench does not fit "
+                             f"blocked_matmul.cu (square feedback, K a "
+                             f"multiple of 16, shared memory): {key}")
+        dev = a.device
+        _expect(a, "A", (Mb, Kb, mb, kb), in_dt, dev)
+        _expect(b, "B", b_shape, in_dt, dev)
+        if key.repeats and b.data_ptr() % 16:
+            raise ValueError("B must be 16-byte aligned for the warm bench")
+        if has_c:
+            c = c.float().contiguous()
+            _expect(c, "C", (Mb, Nb, mb, nb), None, dev)
+        if key.binary_kind:
+            d = d.reshape(-1).float().contiguous()
+            _expect(d, "D", (Nb * nb,), None, dev)
+        out = torch.empty((Mb, Nb, mb, nb), dtype=out_dt, device=dev)
+        rc = library().tpp_blocked_matmul(
+            a.data_ptr(), b.data_ptr(), c.data_ptr() if has_c else None,
+            d.data_ptr() if key.binary_kind else None, out.data_ptr(), Mb,
+            Nb, Kb, mb, nb, kb, v, _DT_CODE[in_dt], _DT_CODE[mxu],
+            _DT_CODE[out_dt], int(has_c), _BINARY_CODE[key.binary_kind],
+            _UNARY_CODE[key.unary_kind], key.repeats, _stream())
+        check(rc, f"blocked_matmul {key}")
+        return out
+    return launch
+
+
+def _conv_blocked_launch(key: ConvBrgemmKey):
+    """B23 on the channel-blocked layout: i [N,Cb,H,W,c], w
+    [Kb,Cb,R,S,c,k], c [N,Kb,P,Q,k] unless beta_0, d the bias with Kb*k
+    elements; the output is [N,Kb,P,Q,k]. Stride 1 only (check_slice
+    raises in the reference's words for a stride)."""
+    from .build import check, library
+
+    N, H, W, Cb, cb, Kb, kb = key.N, key.H, key.W, key.Cb, key.c, key.Kb, \
+        key.k
+    P, Q = key.P, key.Q
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    out_shape = (N, Kb, P, Q, kb)
+
+    def launch(i, w, c=None, d=None):
+        dev = i.device
+        _expect(i, "I", (N, Cb, H, W, cb), in_dt, dev)
+        _expect(w, "W", (Kb, Cb, key.R, key.S, cb, kb), in_dt, dev)
+        if not key.beta0:
+            c = c.float().contiguous()
+            _expect(c, "C", out_shape, None, dev)
+        if key.binary_kind:
+            d = d.reshape(-1).float().contiguous()
+            _expect(d, "D", (Kb * kb,), None, dev)
+        out = torch.empty(out_shape, dtype=out_dt, device=dev)
+        rc = library().tpp_conv_blocked(
+            i.data_ptr(), w.data_ptr(), None if key.beta0 else c.data_ptr(),
+            d.data_ptr() if key.binary_kind else None, out.data_ptr(), N, H,
+            W, Cb, cb, Kb, kb, key.R, key.S, P, Q, _DT_CODE[in_dt],
+            _DT_CODE[mxu], _DT_CODE[out_dt], int(not key.beta0),
+            _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
+            _UNARY_CODE[key.unary_kind], _stream())
+        check(rc, f"conv_blocked {key}")
+        return out
+    return launch
+
+
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              BatchMatmulKey: _batch_matmul_launch,
              FlashMhaKey: _attention_launch,
@@ -630,7 +748,9 @@ _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              FlashTrainBwdKey: _flash_train_bwd_launch,
              GroupedGemmKey: _grouped_gemm_launch,
              GroupedWgradKey: _grouped_wgrad_launch,
-             ConvNhwcKey: _conv_launch}
+             ConvNhwcKey: _conv_launch,
+             BlockedMatmulKey: _blocked_matmul_launch,
+             ConvBrgemmKey: _conv_blocked_launch}
 
 
 def build_kernel(key) -> Kernel:

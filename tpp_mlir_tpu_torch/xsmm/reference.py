@@ -28,22 +28,27 @@ import contextlib
 
 import torch
 
-from .flags import (BatchMatmulKey, BinaryKey, BrgemmKey, ChainKey,
-                    ConvNhwcKey, DecodeAttnKey, FlashMhaKey, FlashTrainBwdKey,
-                    FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
-                    Int8GemmKey, LayerNormKey, UnaryKey)
+from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
+                    ChainKey, ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
+                    LayerNormKey, UnaryKey)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # ROADMAP items that own the key types and options outside this slice
 _OUTSIDE = {
     "UnaryKey": "queue A3 (xsmm.unary has no kernel: the executor runs its "
-                "transpose as a PyTorch op, unary_reference)",
+                "transpose, relu and vnni2 as PyTorch ops, unary_reference)",
     "BinaryKey": "queue A3 (xsmm.binary has no kernel: the executor runs "
                  "it as a PyTorch op, binary_reference)",
-    "BlockedMatmulKey": "queue A13, packed mode (B19-B20)",
-    "ConvBrgemmKey": "queue A13, packed mode (layout \"conv\", B23)",
 }
+
+# the reference's words for a strided channel-blocked conv
+# (tpp_mlir_tpu/xsmm/kernels.py:2785-2788)
+CONV_BLOCKED_STRIDE = (
+    "stride>1 conv stays on the XLA conv path (reference also restricts "
+    "conv-to-BRGEMM to stride 1, docs/ConvMapping.md)")
 
 
 def _refuse(what: str, item: str, key) -> NotImplementedError:
@@ -57,7 +62,7 @@ def check_slice(key) -> None:
     if not isinstance(key, (BrgemmKey, BatchMatmulKey, ChainKey, FlashMhaKey,
                             LayerNormKey, DecodeAttnKey, Int8GemmKey,
                             FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
-                            ConvNhwcKey)):
+                            ConvNhwcKey, BlockedMatmulKey, ConvBrgemmKey)):
         name = type(key).__name__
         raise NotImplementedError(
             f"{name} is outside the port's slice: ROADMAP "
@@ -100,15 +105,45 @@ def check_slice(key) -> None:
             raise ValueError(f"the ping-pong bench is one fc layer: {key}")
     elif isinstance(key, FlashMhaKey):
         attention_route(key)
+    elif isinstance(key, BlockedMatmulKey):
+        _check_blocked(key)
+    elif isinstance(key, ConvBrgemmKey):
+        if (key.stride_h, key.stride_w) != (1, 1):
+            raise NotImplementedError(CONV_BLOCKED_STRIDE)
+        if key.binary_kind is not None and key.binary_bcast != "bcast_col":
+            raise ValueError(f"a channel-blocked conv's D is a bias [Kb, k] "
+                             f"(bcast_col): {key}")
+        _check_epilogue(key)
     elif isinstance(key, ConvNhwcKey):
         conv_route(key)
         if key.binary_kind is not None and key.binary_bcast not in (
                 "bcast_col", "none"):
             raise ValueError(f"a conv's D is a channel bias (bcast_col) or "
                              f"a full residual (none): {key}")
-        if key.binary_kind not in (None, *BINARY_FNS) or \
-                key.unary_kind not in (None, *UNARY_FNS):
-            raise ValueError(f"unknown epilogue kind: {key}")
+        _check_epilogue(key)
+
+
+def _check_epilogue(key) -> None:
+    if key.binary_kind not in (None, *BINARY_FNS) or \
+            key.unary_kind not in (None, *UNARY_FNS):
+        raise ValueError(f"unknown epilogue kind: {key}")
+
+
+def _check_blocked(key: BlockedMatmulKey) -> None:
+    """B19/B20's variants: a bias is [Nb, nb] added along the columns
+    (the reference passes it flat and indexes it by column block), VNNI 2
+    pairs of k, and B20 feeds its output back (square blocks, no C)."""
+    _check_epilogue(key)
+    if key.binary_kind is not None and key.binary_bcast != "bcast_col":
+        raise ValueError(f"a blocked GEMM's D is a bias [Nb, nb] "
+                         f"(bcast_col): {key}")
+    if key.vnni not in (0, 2) or (key.vnni and key.kb % key.vnni):
+        raise ValueError(f"VNNI factor {key.vnni} must be 0 or 2 and divide "
+                         f"kb: {key}")
+    if key.repeats and (key.Nb != key.Kb or key.nb != key.kb
+                        or not key.beta0):
+        raise ValueError(f"the blocked warm bench needs square feedback "
+                         f"(Nb == Kb, nb == kb) and beta_0: {key}")
 
 
 def mxu_dtype(dtype: str, precision: str) -> torch.dtype:
@@ -218,6 +253,51 @@ def brgemm_reference(key: BrgemmKey):
         if key.unary_kind:
             acc = UNARY_FNS[key.unary_kind](acc)
         return acc.to(out_dt)
+    return fn
+
+
+def blocked_product(x, w):
+    """sum_r X[i, r] @ W[j, r] of a packed activation x [Mb, Kb, mb, kb]
+    and packed weights w [Nb, Kb, kb, nb] (both already in the MXU dtype),
+    as one f32 GEMM over the unpacked forms: f32 [Mb, Nb, mb, nb]."""
+    Mb, Kb, mb, kb = x.shape
+    Nb, nb = w.shape[0], w.shape[-1]
+    x2 = x.permute(0, 2, 1, 3).reshape(Mb * mb, Kb * kb)
+    w2 = w.permute(1, 2, 0, 3).reshape(Kb * kb, Nb * nb)
+    return _f32_matmul(x2, w2).reshape(Mb, mb, Nb, nb).permute(0, 2, 1, 3)
+
+
+def blocked_matmul_reference(key: BlockedMatmulKey):
+    """B19 (tpp_mlir_tpu/xsmm/kernels.py:763 _build_blocked_matmul) as one
+    function: C[i, j] (+)= sum_r A[i, r] @ B[j, r] over MXU-dtype operands
+    in f32, then unary(acc OP bias[j]) with the bias [Nb, nb] along the
+    columns, one rounding to the output dtype. A VNNI B [Nb, Kb, kb/2, nb,
+    2] is un-VNNI'd first (:772-779). With repeats (B20, :870) the product
+    runs `repeats` times, beta_0, each output held in the MXU dtype and fed
+    back as the next packed activation (Nb == Kb, nb == kb); the result is
+    that state in the output dtype. fn(a, b, c=None, d=None)."""
+    check_slice(key)
+    mdt = mxu_dtype(key.dtype, key.precision)
+    out_dt = DTYPES[key.out_dtype or key.dtype]
+
+    def fn(a, b, c=None, d=None):
+        w = (unvnni(b) if key.vnni else b).to(mdt)
+        bias = d.float().reshape(1, key.Nb, 1, key.nb) \
+            if key.binary_kind else None
+
+        def epilogue(acc):
+            if bias is not None:
+                acc = BINARY_FNS[key.binary_kind](acc, bias)
+            return UNARY_FNS[key.unary_kind](acc) if key.unary_kind else acc
+        if key.repeats:
+            x = a.to(mdt)
+            for _ in range(key.repeats):
+                x = epilogue(blocked_product(x, w)).to(mdt)
+            return x.to(out_dt)
+        acc = blocked_product(a.to(mdt), w)
+        if not key.beta0:
+            acc = acc + c.float()
+        return epilogue(acc).to(out_dt)
     return fn
 
 
@@ -613,6 +693,46 @@ def conv_nhwc_reference(key: ConvNhwcKey):
     return fn
 
 
+def conv_blocked_nhwc(key: ConvBrgemmKey):
+    """B23's function in B24's layout: (the ConvNhwcKey of the same conv,
+    ops(i, w, c=None, d=None)), ops giving the NHWC views of the channel-
+    blocked operands: I as [N,H,W,Cb*c], W as [R,S,Cb*c,Kb*k], C as
+    [N,P,Q,Kb*k] and the bias as [Kb*k]."""
+    N, Cb, c, Kb, k = key.N, key.Cb, key.c, key.Kb, key.k
+    C, K = Cb * c, Kb * k
+    nkey = ConvNhwcKey(
+        N=N, H=key.H, W=key.W, C=C, K=K, R=key.R, S=key.S, dtype=key.dtype,
+        out_dtype=key.out_dtype, beta0=key.beta0,
+        binary_kind=key.binary_kind, binary_bcast=key.binary_bcast,
+        unary_kind=key.unary_kind, precision=key.precision)
+
+    def ops(i, w, cacc=None, d=None):
+        x = i.permute(0, 2, 3, 1, 4).reshape(N, key.H, key.W, C)
+        wt = w.permute(2, 3, 1, 4, 0, 5).reshape(key.R, key.S, C, K)
+        if cacc is not None:
+            cacc = cacc.permute(0, 2, 3, 1, 4).reshape(N, key.P, key.Q, K)
+        return x, wt, cacc, None if d is None else d.reshape(K)
+    return nkey, ops
+
+
+def conv_brgemm_reference(key: ConvBrgemmKey):
+    """B23 (tpp_mlir_tpu/xsmm/kernels.py:2778 _build_conv_brgemm) as one
+    function: O[N,Kb,P,Q,k] = unary((C) + sum_{Cb,R,S} I[N,Cb,h+r,w+s,c] *
+    W[Kb,Cb,R,S,c,k] OP bias[Kb, k]), stride 1, no padding. It is B24's
+    function in another layout, so it runs conv_nhwc_reference on the NHWC
+    views of the operands (conv_blocked_nhwc): per tap, MXU-dtype operands,
+    f32 sums. fn(i, w, c=None, d=None)."""
+    check_slice(key)
+    nkey, ops = conv_blocked_nhwc(key)
+    nhwc = conv_nhwc_reference(nkey)
+
+    def fn(i, w, cacc=None, d=None):
+        out = nhwc(*ops(i, w, cacc, d))
+        return out.reshape(key.N, key.P, key.Q, key.Kb, key.k) \
+            .permute(0, 3, 1, 2, 4).contiguous()
+    return fn
+
+
 def conv_xla_reference(key: ConvNhwcKey):
     """The "xla" route (tpp_mlir_tpu/xsmm/kernels.py:3068): one
     torch.nn.functional.conv2d in f32 of the MXU-dtype operands, TF32 off,
@@ -638,18 +758,30 @@ def conv_reference(key: ConvNhwcKey):
         else conv_nhwc_reference(key)
 
 
+UNARY_OPS = ("transpose", "relu", "vnni2")
+
+
 def unary_reference(key: UnaryKey):
-    """xsmm.unary's transpose: the reference's kernel is jnp
-    (tpp_mlir_tpu/xsmm/kernels.py:3315), so the port's is this PyTorch op
-    and no CUDA kernel. The other unary kinds stand alone only where a pass
-    the port has not copied leaves them (queue A3)."""
-    if key.kind != "transpose":
+    """xsmm.unary's transpose, relu and vnni2: the reference's kernels are
+    jnp (tpp_mlir_tpu/xsmm/kernels.py:3315-3335), so the port's are these
+    PyTorch ops and no CUDA kernel. relu computes in f32 and rounds once;
+    vnni2 is [..., K, N] -> [..., K/v, N, v]. The other unary kinds stand
+    alone only where a pass the port has not copied leaves them (queue
+    A3)."""
+    if key.kind not in UNARY_OPS:
         raise _refuse(f"xsmm.unary {key.kind!r}", "A3", key)
     for dt in (key.dtype, key.out_dtype or key.dtype):
         if dt not in DTYPES:
             raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
-    perm = key.perm or tuple(reversed(range(len(key.shape))))
     out_dt = DTYPES[key.out_dtype or key.dtype]
+    if key.kind == "relu":
+        return lambda x: torch.relu(x.float()).to(out_dt)
+    if key.kind == "vnni2":
+        *lead, K, N = key.shape
+        vf = key.vnni
+        return lambda x: x.reshape(*lead, K // vf, vf, N).movedim(-2, -1) \
+            .contiguous()
+    perm = key.perm or tuple(reversed(range(len(key.shape))))
     return lambda x: x.permute(*perm).contiguous().to(out_dt)
 
 
@@ -883,7 +1015,9 @@ _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                FlashTrainBwdKey: flash_train_bwd_reference,
                GroupedGemmKey: grouped_gemm_reference,
                GroupedWgradKey: grouped_wgrad_reference,
-               ConvNhwcKey: conv_reference}
+               ConvNhwcKey: conv_reference,
+               BlockedMatmulKey: blocked_matmul_reference,
+               ConvBrgemmKey: conv_brgemm_reference}
 
 
 def reference_kernel(key):
