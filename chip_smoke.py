@@ -18,9 +18,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
      and a GQA case through the autograd op, B18 twice bit-equal; for MoE:
      B16 at the prefill's fc1 (gelu) and fc2, the training step's z1 and
      its two transpose_b dgrads (9216 padded rows), a bm 16 key, a stacked
-     `layers` key and a skewed routing, padding rows exactly zero; B17 at
-     dw2 and dw1 and a skewed routing, twice bit-equal, an expert no token
-     chose exactly zero);
+     `layers` key and a skewed routing, and the wgmma tile's edges (bm 64,
+     n and k off its 128/64 tiles, a stacked table under transpose_b, an
+     f32 output, experts that own no row block), padding rows exactly
+     zero, each line naming the tile reference.grouped_gemm_route chose;
+     B17 at dw2 and dw1 and a skewed routing, twice bit-equal, an expert no
+     token chose exactly zero);
   4. run the main paths, each with the launch counts set to 0 just before
      and read just after:
      a. the MLP path through tpp_mlir_tpu_torch.tools.tpp_run.run_module on
@@ -111,7 +114,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
      kernel beside its
      plain version, one PyTorch call computing the same function where
      there is one, and its bound (bytes over HBM's rate or operations over
-     the peak rate of their type, whichever is larger); for the MHA suite
+     the peak rate of their type, whichever is larger), and B16's
+     WMMA tile forced at the fc2 and fc1 keys beside its wgmma tile, in
+     turns; for the MHA suite
      the flat attention at each TPU kernel's own key (B9 at the S 1024
      rows, B8 at S 2048, B10b/B10a at causal S 2048, B6 with forced
      blocks), B11 at -n 20, the batched matmul at mha_qk's and
@@ -126,6 +131,10 @@ Phase 3 also holds the MHA suite's kernels: flat attention at every
 flash_attention key and mha_full's, each forced strategy (grouped, qblock,
 twocall, twocall2 on the flat layout; flash_heads and xla on the token
 layout), B11 at repeats 3 (bf16 S 1024 D 128, and a causal key), the
+wgmma attention kernel's edges (S 77 and 1000, seq_kv != seq, causal with S
+below its 128-row block, D 32/64/128, packed and split, repeats 2, the f32
+register loader), each line naming the loader reference.attention_loader
+chose, the
 batched matmul at mha_qk's and mha_softmax_v's keys, an lhs_shared and a
 non-beta0 key, and B5 at fc_128x768x2304 with repeats 2 and 3; and
 csrc/conv.cu (B24/B25) at the keys default-tpp-passes makes of the conv
@@ -598,6 +607,20 @@ def _int8_inputs(key, g):
     return (xq, w.q, xs, w.scale) + ((bias,) if key.has_bias else ())
 
 
+def _route_note(key) -> str:
+    """The loader (attention.cu) or tile (B16) the wrapper chose."""
+    from tpp_mlir_tpu_torch.xsmm import FlashMhaKey, GroupedGemmKey
+    from tpp_mlir_tpu_torch.xsmm.reference import (attention_loader,
+                                                   attention_route,
+                                                   grouped_gemm_route)
+    if isinstance(key, FlashMhaKey) and \
+            attention_route(key) in ("kernel", "bench"):
+        return f"; loader {attention_loader(key)}"
+    if isinstance(key, GroupedGemmKey):
+        return f"; route {grouped_gemm_route(key)}"
+    return ""
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version on the same inputs."""
     import torch
@@ -635,7 +658,8 @@ def phase_kernels() -> dict:
                 ok = ok and rel < rel_hi
                 note = f" (vs highest plain {rel_hi:.3e}, must be farther)"
             say(f"kernel {kind:10s} {label:38s} rel {rel:.3e} abs {ab:.3e} "
-                f"tol {tol:.0e}{note} {'ok' if ok else 'FAIL'}")
+                f"tol {tol:.0e}{note}{_route_note(key)} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{kind} {label}: rel {rel} > {tol}")
             worst = max(worst, ab)
@@ -1313,6 +1337,15 @@ GROUPED_GEMM_CASES = (
      dict(_B16, unary_kind="gelu", layers=3), False),
     ("skewed fc1 9216x3072x768 gelu", 4096, 128, 3072, 768,
      dict(_B16, unary_kind="gelu"), True),
+    # the wgmma tile's edges: bm 64, n and k off the 128/64 tiles, a
+    # stacked table under transpose_b, an f32 output with skewed routing
+    ("edge bm 64 gelu 1536x512x256", 600, 64, 512, 256,
+     dict(_B16, unary_kind="gelu"), False),
+    ("edge ragged n200 k136", 300, 128, 200, 136, _B16, False),
+    ("edge ragged tb f32 out skewed n136 k200", 300, 64, 136, 200,
+     dict(_B16, transpose_b=True, out_dtype="f32"), True),
+    ("edge layers 2 tb 1280x256x384", 512, 128, 256, 384,
+     dict(_B16, layers=2, transpose_b=True), False),
 )
 # B17: (label, T, bm, k, n, skewed): dw2 (a^T dys) and dw1 (xs^T dz1)
 GROUPED_WGRAD_CASES = (
@@ -1381,11 +1414,33 @@ def phase_grouped_kernels() -> dict:
         zero = not got[pad].any().item()
         ok = rel <= tol and zero and torch_isfinite(got)
         say(f"kernel grouped_gemm {label:38s} rel {rel:.3e} abs {ab:.3e} "
-            f"tol {tol:.0e}; {int(pad.sum())} padding rows zero {zero} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"tol {tol:.0e}; {int(pad.sum())} padding rows zero {zero}"
+            f"{_route_note(key)} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"grouped_gemm {label}: rel {rel}, "
                                  f"padding zero {zero}")
+        worst["grouped_gemm"] = max(worst["grouped_gemm"], ab)
+    # an expert that owns no row block at all (experts 1 and 3 of 5), at
+    # both of the wgmma tile's heights
+    from tpp_mlir_tpu_torch.xsmm import GroupedGemmKey
+    for bm in (64, 128):
+        ge = torch.tensor([0, 2, 2, 4, 4, 4], dtype=torch.int32,
+                          device="cuda")
+        key = GroupedGemmKey(n_groups=5, m=6 * bm, n=256, k=192, bm=bm,
+                             dtype="bf16")
+        a = torch.randn(key.m, key.k, generator=g, device="cuda").bfloat16()
+        b = (torch.randn(5, key.k, key.n, generator=g, device="cuda")
+             * key.k ** -0.5).bfloat16()
+        got = build_kernel(key)(ge, a, b)
+        ref = reference_kernel(key)(ge, a, b)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        ok = rel <= TOL_BF16 and torch_isfinite(got)
+        say(f"kernel grouped_gemm {f'experts 1, 3 own no block bm {bm}':38s}"
+            f" rel {rel:.3e} abs {ab:.3e} tol {TOL_BF16:.0e}"
+            f"{_route_note(key)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grouped_gemm no-block bm {bm}: rel {rel}")
         worst["grouped_gemm"] = max(worst["grouped_gemm"], ab)
     for label, T, bm, k, n, skew in GROUPED_WGRAD_CASES:
         key, args, untouched = _grouped_wgrad_inputs(g, T, bm, k, n, skew)
@@ -1768,7 +1823,40 @@ def _mha_kernel_cases():
     cases += [(f"pingpong fc_128x768x2304 repeats={r}", ChainKey(
         m=128, dims=(768, 2304), repeats=r, pingpong=True))
               for r in (2, 3)]
+    cases += [(f"edge {label}", key) for label, key in _attention_edges()]
     return cases
+
+
+# csrc/attention.cu's wgmma kernel at its edges: ragged S (77, 1000),
+# seq_kv != seq, causal with S below the block's 128 rows, D 32/64/128,
+# packed and split, repeats 2, on the TMA loader (bf16) and the register
+# loader (f32 "default"); (label, FlashMhaKey fields)
+_EDGE = (
+    ("s77 flat d64", (3, 77, 77, 64, "bf16"), dict(scale=0.125)),
+    ("s1000 causal packed d64", (2, 1000, 1000, 64, "bf16"),
+     dict(scale=0.125, causal=True, heads=2, qkv_packed=True)),
+    ("s77 causal tokens d128", (2, 77, 77, 128, "bf16"),
+     dict(scale=0.09, causal=True, heads=2)),
+    ("skv160 s96 split d64", (1, 96, 160, 64, "bf16"),
+     dict(scale=0.125, heads=3)),
+    ("skv160 s96 causal flat d32", (2, 96, 160, 32, "bf16"),
+     dict(scale=0.2, causal=True)),
+    ("causal s50 packed d32", (2, 50, 50, 32, "bf16"),
+     dict(scale=0.2, causal=True, heads=4, qkv_packed=True)),
+    ("repeats 2 flat d128", (3, 200, 200, 128, "bf16"),
+     dict(scale=0.09, repeats=2)),
+    ("repeats 2 causal tokens d32", (2, 130, 130, 32, "bf16"),
+     dict(scale=0.2, causal=True, heads=3, repeats=2)),
+    ("f32 convert skv180 d128", (2, 100, 180, 128, "f32"),
+     dict(scale=0.09, heads=2)),
+    ("f32 convert causal packed d32", (2, 77, 77, 32, "f32"),
+     dict(scale=0.2, causal=True, heads=4, qkv_packed=True)),
+)
+
+
+def _attention_edges():
+    from tpp_mlir_tpu_torch.xsmm import FlashMhaKey
+    return [(label, FlashMhaKey(*pos, **kw)) for label, pos, kw in _EDGE]
 
 
 def _mha_inputs(key, g):
@@ -1819,7 +1907,8 @@ def phase_mha_kernels() -> dict:
         ok = rel <= tol and torch_isfinite(got) and \
             kern.launches == (1 if kind else 0)
         say(f"kernel {kind or 'no kernel':16s} {label:44s} rel {rel:.3e} "
-            f"abs {ab:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+            f"abs {ab:.3e} tol {tol:.0e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} > {tol} or launches "
                                  f"{kern.launches}")
@@ -2595,6 +2684,18 @@ def phase_timing(n: int = 100) -> dict:
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": by,
                               "library_ms": lib_ms, **err})
+    # B16's WMMA tile, forced at the keys the route sends to wgmma,
+    # beside the wgmma tile in turns (wgmma, wmma, wmma, wgmma)
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
+    for kind, key, args in timed:
+        if kind != "grouped_gemm":
+            continue
+        new, old = build_grouped_gemm(key, "wgmma"), \
+            build_grouped_gemm(key, "wmma")
+        t = [cuda_ms(lambda: k(*args)) for k in (new, old, old, new)]
+        say(f"time kernel {describe(key):44s} wgmma tile "
+            f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), forced "
+            f"wmma tile {(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f})")
     return out
 
 

@@ -27,6 +27,7 @@ import tpp_mlir_tpu_torch.ir as port_ir
 from tpp_mlir_tpu_torch.runtime import compile as port_compile
 from tpp_mlir_tpu_torch.runtime.tensor_init import to_torch
 from tpp_mlir_tpu_torch.xsmm import FlashMhaKey, build_kernel, reference_kernel
+from tpp_mlir_tpu_torch.xsmm.reference import attention_loader, tma_aligned
 
 
 def _err(port, ref):
@@ -111,3 +112,40 @@ def test_tl_attention_oracle_matches_jax_evaluator(heads, causal):
     want, = jax_interpret(mj, "entry", *map(jnp.asarray, args))
     got = port_compile(m, device="cpu")(*map(to_torch, args))
     assert _err(got, want) <= 1e-5
+
+
+# csrc/attention.cu's loader, chosen from the key (xsmm/reference.py
+# attention_loader): TMA for bf16 operands whose strides and column offsets
+# are 16-byte multiples, the register loader for f32 operands at "default"
+# (and bf16 ones TMA cannot take), the f32-FMA kernel at "highest"
+LOADERS = {
+    "bf16-packed-d64": (dict(dtype="bf16", heads=12, qkv_packed=True), "tma"),
+    "bf16-split-d32": (dict(dtype="bf16", head_dim=32, heads=4), "tma"),
+    "bf16-flat-d128": (dict(dtype="bf16", head_dim=128), "tma"),
+    "bf16-bench": (dict(dtype="bf16", heads=2, repeats=3), "tma"),
+    "f32-default-packed-d128": (dict(dtype="f32", head_dim=128, heads=8,
+                                     qkv_packed=True), "convert"),
+    "f32-default-flat": (dict(dtype="f32"), "convert"),
+    "f32-highest": (dict(dtype="f32", precision="highest", heads=3), "fma"),
+    "f32-highest-bench": (dict(dtype="f32", precision="highest",
+                               repeats=2), "fma"),
+}
+
+
+@pytest.mark.parametrize("name", list(LOADERS))
+def test_attention_loader_follows_the_key(name):
+    fields, want = LOADERS[name]
+    key = FlashMhaKey(**{"batch": 2, "seq": 128, "seq_kv": 128,
+                         "head_dim": 64, "scale": 0.125, **fields})
+    assert attention_loader(key) == want
+
+
+@pytest.mark.parametrize("itemsize,elements,want", [
+    (2, (3 * 768, 768, 64), True),      # GPT-2's packed [Q|K|V]: 3E, E, D
+    (2, (3 * 96, 96, 32), True),        # a packed E of 96 at D 32
+    (2, (3 * 36, 36, 12), False),       # E 36: 72-byte offsets
+    (2, (100,), False),                 # a row stride of 200 bytes
+    (4, (100,), True),                  # 400 bytes in f32
+])
+def test_tma_alignment_gate(itemsize, elements, want):
+    assert tma_aligned(itemsize, *elements) is want

@@ -181,6 +181,87 @@ def test_attention_kernel_matches_plain(cuda, key):
     assert _err(got, want) <= tol
 
 
+# csrc/attention.cu's wgmma kernel at its edges: ragged S (77, 1000),
+# seq_kv != seq, causal with S below the block's 128 rows, D 32/64/128,
+# packed and split, repeats 2 (B11), on the TMA loader (bf16) and the
+# register loader (f32 "default")
+ATTN_EDGES = {
+    "s77-flat-d64": FlashMhaKey(3, 77, 77, 64, "bf16", scale=0.125),
+    "s77-causal-tokens-d128": FlashMhaKey(2, 77, 77, 128, "bf16",
+                                          scale=0.09, causal=True, heads=2),
+    "s1000-causal-packed-d64": FlashMhaKey(2, 1000, 1000, 64, "bf16",
+                                           scale=0.125, causal=True,
+                                           heads=2, qkv_packed=True),
+    "skv160-s96-split-d64": FlashMhaKey(1, 96, 160, 64, "bf16", scale=0.125,
+                                        heads=3),
+    "skv160-s96-causal-flat-d32": FlashMhaKey(2, 96, 160, 32, "bf16",
+                                              scale=0.2, causal=True),
+    "skv70-s200-flat-d128": FlashMhaKey(2, 200, 70, 128, "bf16",
+                                        scale=0.09),
+    "causal-s50-packed-d32": FlashMhaKey(2, 50, 50, 32, "bf16", scale=0.2,
+                                         causal=True, heads=4,
+                                         qkv_packed=True),
+    "repeats2-flat-d128": FlashMhaKey(3, 200, 200, 128, "bf16", scale=0.09,
+                                      repeats=2),
+    "repeats2-causal-tokens-d32": FlashMhaKey(2, 130, 130, 32, "bf16",
+                                              scale=0.2, causal=True,
+                                              heads=3, repeats=2),
+    "f32-convert-skv180-d128": FlashMhaKey(2, 100, 180, 128, "f32",
+                                           scale=0.09, heads=2),
+    "f32-convert-causal-packed-d32": FlashMhaKey(2, 77, 77, 32, "f32",
+                                                 scale=0.2, causal=True,
+                                                 heads=4, qkv_packed=True),
+    "f32-convert-repeats2-d64": FlashMhaKey(2, 256, 256, 64, "f32",
+                                            scale=0.125, repeats=2),
+}
+
+
+@pytest.mark.parametrize("name", list(ATTN_EDGES))
+def test_attention_wgmma_edges_match_plain(cuda, name):
+    from tpp_mlir_tpu_torch.xsmm.reference import attention_loader
+    key = ATTN_EDGES[name]
+    assert attention_loader(key) == ("tma" if key.dtype == "bf16"
+                                     else "convert")
+    g = cuda
+    E = (key.heads or 1) * key.head_dim
+    if key.qkv_packed:
+        args = [_rnd(g, (key.batch, key.seq, 3 * E), key.dtype)] * 3
+    else:
+        args = [_rnd(g, (key.batch, s, E), key.dtype)
+                for s in (key.seq, key.seq_kv, key.seq_kv)]
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert _err(got, want) <= 1e-2
+
+
+def test_attention_bf16_register_loader_matches_plain(cuda):
+    # the route reference.attention_loader gives a bf16 key whose strides
+    # TMA cannot take; no head_dim attention.cu instantiates makes one, so
+    # the C entry is called with that loader (code 2) directly
+    import ctypes
+
+    from tpp_mlir_tpu_torch.xsmm.build import check, library
+    from tpp_mlir_tpu_torch.xsmm.reference import LOG2E
+    key = FlashMhaKey(2, 150, 150, 64, "bf16", scale=0.125, causal=True,
+                      heads=3, qkv_packed=True)
+    E = 3 * 64
+    x = _rnd(cuda, (2, 150, 3 * E), "bf16")
+    out = torch.empty(2, 150, E, dtype=torch.bfloat16, device="cuda")
+    ptrs = [x.data_ptr() + g * E * 2 for g in range(3)]
+    check(library().tpp_attention(
+        *ptrs, out.data_ptr(), 2, 150, 150, 3, 64, 3 * E, 1, 2, 1, 1, 0,
+        0.125 * LOG2E,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)),
+        "attention bf16 register loader")
+    want = reference_kernel(key)(x, x, x)
+    torch.cuda.synchronize()
+    assert _err(out, want) <= 1e-2
+
+
 @pytest.mark.parametrize("key", [
     LayerNormKey(m=100, n=768, dtype="bf16"),
     LayerNormKey(m=64, n=1024, dtype="f32", affine=False),
@@ -509,6 +590,84 @@ def test_grouped_gemm_kernel_matches_plain(cuda, name):
     assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
                                else 1e-2)
     assert not got[d["tt"] == T].any()          # padding rows stay zero
+
+
+# B16's TMA + wgmma tile at its edges (xsmm/reference.py grouped_gemm_route
+# sends each here): bm 64 and 128, transpose_b, a stacked table, an f32
+# output, the gelu epilogue, n and k off the 128/64 tiles (multiples of 8,
+# as TMA's row strides need), skewed routing; and hand-made maps where an
+# expert owns no block at all
+GROUPED_EDGES = {
+    "bm64-gelu": (300, 8, 64, 256, 512, dict(dtype="bf16",
+                                             unary_kind="gelu"), False),
+    "bm128-tb-f32-out": (300, 8, 128, 384, 256,
+                         dict(dtype="bf16", transpose_b=True,
+                              out_dtype="f32"), False),
+    "bm128-layers-gelu": (256, 4, 128, 128, 256,
+                          dict(dtype="bf16", layers=3, unary_kind="gelu"),
+                          True),
+    "bm64-ragged-n200-k136": (200, 4, 64, 136, 200, dict(dtype="bf16"),
+                              False),
+    "bm128-ragged-tb-skewed": (300, 8, 128, 200, 136,
+                               dict(dtype="bf16", transpose_b=True), True),
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPED_EDGES))
+def test_grouped_gemm_wgmma_edges_match_plain(cuda, name):
+    from tpp_mlir_tpu_torch.xsmm.reference import grouped_gemm_route
+    T, n_e, bm, k, n, fields, skew = GROUPED_EDGES[name]
+    d = _moe_routing(cuda, T, n_e, bm, skew)
+    key = GroupedGemmKey(n_groups=n_e, m=d["A_pad"], n=n, k=k, bm=bm,
+                         **fields)
+    assert grouped_gemm_route(key) == "wgmma"
+    h = _rnd(cuda, (T, k), "bf16")
+    xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
+    wshape = (n, k) if key.transpose_b else (k, n)
+    w = _rnd(cuda, ((key.layers,) if key.layers else ()) + (n_e, *wshape),
+             "bf16", k ** -0.5)
+    args = ((2,) if key.layers else ()) + (d["ge"], xs, w)
+    kern = build_kernel(key)
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-4 if key.out_dtype == "f32" else 1e-2)
+    assert not got[d["tt"] == T].any()          # padding rows stay zero
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+def test_grouped_gemm_wgmma_with_an_expert_that_owns_no_block(cuda, bm):
+    # experts 1 and 3 of 5 own no row block; expert 4 owns the most
+    ge = torch.tensor([0, 2, 2, 4, 4, 4], dtype=torch.int32, device="cuda")
+    key = GroupedGemmKey(n_groups=5, m=6 * bm, n=256, k=192, bm=bm,
+                         dtype="bf16")
+    a = _rnd(cuda, (key.m, key.k), "bf16")
+    b = _rnd(cuda, (5, key.k, key.n), "bf16", key.k ** -0.5)
+    got = build_kernel(key)(ge, a, b)
+    want = reference_kernel(key)(ge, a, b)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= 1e-2
+
+
+def test_grouped_gemm_forced_tiles(cuda):
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
+    d = _moe_routing(cuda, 256, 4, 128, False)
+    key = GroupedGemmKey(n_groups=4, m=d["A_pad"], n=256, k=128, bm=128,
+                         dtype="bf16", out_dtype="f32")
+    h = _rnd(cuda, (256, 128), "bf16")
+    xs = torch.cat([h, h.new_zeros(1, 128)])[d["tt"]]
+    w = _rnd(cuda, (4, 128, 256), "bf16", 128 ** -0.5)
+    want = reference_kernel(key)(d["ge"], xs, w)
+    for route in ("wgmma", "wmma"):
+        got = build_grouped_gemm(key, route)(d["ge"], xs, w)
+        torch.cuda.synchronize()
+        assert _err(got, want) <= 1e-4, route
+    small = dataclasses.replace(key, bm=16, m=d["A_pad"])
+    with pytest.raises(ValueError, match="wgmma tile cannot take"):
+        build_grouped_gemm(small, "wgmma")(
+            torch.zeros(small.m // 16, dtype=torch.int32, device="cuda"), xs,
+            w)
 
 
 # (T, n_e, bm, k, n, dtype, precision, skewed routing)

@@ -180,6 +180,44 @@ def test_grouped_keys_refuse_what_the_kernels_cannot_take():
                                      dtype="f16"))
 
 
+# csrc/grouped_gemm.cu's tile for B16, chosen from the key
+# (xsmm/reference.py grouped_gemm_route): the TMA + wgmma tile for bf16
+# operands with bm a multiple of 64 and k, n multiples of 8; the WMMA tile
+# for every other bm that 16 divides, f32 operands and strides TMA cannot
+# take; no tile for a bm off the 16-row quantum
+ROUTES = {
+    "bf16-bm128-slice": (dict(m=9216, n=768, k=3072, bm=128), "wgmma"),
+    "bf16-bm64-gelu": (dict(unary_kind="gelu", bm=64), "wgmma"),
+    "bf16-bm192": (dict(bm=192, m=384), "wgmma"),
+    "bf16-bm128-tb-f32-out": (dict(transpose_b=True, out_dtype="f32"),
+                              "wgmma"),
+    "bf16-bm128-layers": (dict(layers=3), "wgmma"),
+    "bf16-bm16": (dict(bm=16), "wmma"),
+    "bf16-bm32": (dict(bm=32), "wmma"),
+    "bf16-bm96": (dict(bm=96, m=192), "wmma"),
+    "f32-default-bm128": (dict(dtype="f32"), "wmma"),
+    "f32-highest-bm128": (dict(dtype="f32", precision="highest"), "wmma"),
+    "bf16-k-off-8": (dict(k=100), "wmma"),
+    "bf16-n-off-8": (dict(n=36), "wmma"),
+    "bm8": (dict(bm=8), (ValueError, "multiple of 16")),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_grouped_gemm_route_table(name):
+    from tpp_mlir_tpu_torch.xsmm.reference import grouped_gemm_route
+    fields, want = ROUTES[name]
+    key = GroupedGemmKey(**{"n_groups": 8, "m": 256, "n": 128, "k": 64,
+                            "dtype": "bf16", **fields})
+    if isinstance(want, str):
+        assert grouped_gemm_route(key) == want
+        return
+    err, match = want
+    with pytest.raises(err, match=match):
+        grouped_gemm_route(key)
+    build_kernel(key)       # the CPU's plain version takes any bm
+
+
 # ---------------------------------------------------------------------------
 # the router and the forms without a kernel
 

@@ -13,16 +13,15 @@
 // :2395 _build_flash_mha_qblock (B8), :2721 _build_flash_mha_grouped (B9),
 // :2496 _build_flash_causal_twocall (B10a) and :2618
 // _build_flash_causal_fold2 (B10b). Their causal mask keeps rows >= cols,
-// aligned top-left, as kv_end and the mask below do.
+// aligned top-left.
 //
 // Warm bench (replaces :2091 _build_flash_bench, B11): with repeats > 0 a
 // block loops over the repeats on its own Q tile. A tile's output rows
 // depend only on its Q rows and on all of K/V, so no grid-wide sync is
 // needed: O/l is rounded to the MXU dtype (the TPU's hbuf), scaled by
-// qscale back into the Q tile in shared memory, the K/V loop runs again,
-// and the output (still rounded to the MXU dtype) is written once, after
-// the last repeat. Only the first Q comes from device memory (from the
-// packed columns, for a packed operand).
+// qscale back into the Q tile in shared memory (in the swizzled layout the
+// products read), the K/V loop runs again, and the output (still rounded
+// to the MXU dtype) is written once, after the last repeat.
 //
 // The math follows B7: Q (in the MXU dtype) is scaled by scale*log2(e) in
 // f32 and rounded to the MXU dtype again, the softmax is in the exp2
@@ -32,30 +31,45 @@
 // end (as B6, B8, B9 and B11 do), so the (S x S) scores never exist
 // anywhere.
 //
-// What bounds it on the H100: at the GPT-2 shape (B 2, S 1024, H 12, D 64,
-// causal) it is 26 GFLOP of tensor-core work over 19 MB of Q/K/V, so it
-// could be compute-bound; this first version is bound by its shared-memory
-// traffic instead: one block per (q-tile of 64 rows, head, batch), 4 warps
-// of 16 query rows each, K/V tiles of 64 rows staged through shared memory
-// without pipelining, products by WMMA (mma.sync 16x16x16 bf16, f32
-// accumulators), and the f32 output accumulator kept in shared memory so
-// that the per-row online-softmax rescale needs no fragment layout. Causal
-// keys skip every K/V tile above the diagonal. MXU dtype: bf16 for bf16 and
-// f32 "default"; f32 FMA (no TF32) for f32 "highest". D 32, 64 and 128.
-// Register-resident accumulators (mma.sync with a known fragment layout),
-// wgmma and TMA are later work.
+// What bounds it on the H100: at the MHA suite's B8 key (B*H 16, S 2048,
+// D 64) it is 17 GFLOP of tensor-core work over 12.6 MB of Q/K/V, 0.017 ms
+// at 989 TFLOP/s against 0.004 ms at 3.35 TB/s: compute-bound, as
+// attention is at any S past a few hundred. So the design keeps the tensor
+// cores fed and everything else off their path:
+//   - one block per (128 query rows, head, batch): two consumer warpgroups
+//     of 64 rows and one producer warpgroup;
+//   - K/V tiles of 64 rows go through a 3-stage ring in shared memory with
+//     full/empty mbarriers: for bf16 operands one producer thread fills it
+//     by TMA (3D maps over (columns, rows, batch), 128-byte swizzle, 64 at
+//     D 32; the rows past seq_kv arrive as zeros); for f32 operands at
+//     "default" (the "convert" loader) the producer warpgroup loads them
+//     through registers, rounds them to bf16 and stores the same swizzled
+//     layout, so the consumers run one code;
+//   - S = Q K^T on wgmma m64n64k16 with Q and K from shared memory, the
+//     online softmax in registers (row max and sum across the four lanes
+//     of a row by shuffles, columns past seq_kv and above the diagonal set
+//     to -inf in registers), and O += P V on wgmma with P from registers as
+//     the A operand (the S accumulator is the A fragment) and V MN-major
+//     from shared memory; O stays in registers for the whole K/V loop;
+//   - causal keys load no tile above the block's diagonal, a warpgroup
+//     skips the tiles above its own, and q tiles are issued heaviest first
+//     (the grid's slowest dimension, reversed), so the long rows do not run
+//     last.
+// With 64-row K/V tiles a consumer thread holds 32 S and D/2 O floats:
+// ptxas fits D 128 in the 168 registers a 384-thread block allows, with no
+// spill, so the warpgroups keep the same register budget (no setmaxnreg).
+// MXU dtype f32 (f32 "highest") runs attention_fma_kernel below: f32 FMA
+// (no TF32), one block of 4 warps per 64 query rows, K/V tiles staged
+// through shared memory, the output accumulator in shared memory.
+// D 32, 64 and 128.
 #include <math.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "epilogue.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
+namespace hw = tpp::hopper;
 
 struct Args {
   const void* q;
@@ -70,26 +84,380 @@ struct Args {
   int repeats;   // 0: one pass; > 0: the warm bench (B11)
 };
 
-// Shared-memory plan of one block. Row pads keep WMMA pointers 32-byte
-// aligned (bf16 rows a multiple of 8, f32 rows of 4) and, on the FMA path,
-// give K an odd row stride so lanes reading K[lane][d] hit distinct banks.
-template <typename Tmma, int D>
+// ---- the bf16 MXU path: wgmma, TMA or register loaders -----------------
+
+enum Loader : int { kTma = 0, kConvertF32 = 1, kConvertBF16 = 2 };
+
+constexpr int WG = 128;          // threads of a warpgroup
+constexpr int NCW = 2;           // consumer warpgroups
+constexpr int BQ = 64 * NCW;     // query rows of a block
+constexpr int BKV = 64;          // key/value rows of a tile
+constexpr int STAGES = 3;        // K/V ring depth
+constexpr int THREADS = WG * (NCW + 1);
+
+template <int D>
+struct Tile {
+  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span in bytes
+  static constexpr int CW = SW / 2;               // bf16 columns a chunk
+  static constexpr int KV = BKV * D * 2;          // bytes of a K or V tile
+  static constexpr int q_off = 0;
+  static constexpr int ring_off = BQ * D * 2;
+  static constexpr int bar_off = ring_off + STAGES * 2 * KV;
+  static constexpr int bytes = bar_off + 2 * STAGES * 8;
+  // the byte offset of (row, col) in a [rows x D] tile of row count `rows`
+  __device__ static uint32_t at(int rows, int row, int col) {
+    return (col / CW) * rows * SW +
+           hw::swizzle<SW>(row * SW + (col % CW) * 2);
+  }
+};
+
+// eight consecutive elements as f32 (a 16-byte unit of the bf16 tile)
+template <Loader LD>
+__device__ __forceinline__ void load8(const void* base, size_t i,
+                                      float (&x)[8]) {
+  if constexpr (LD == kConvertF32) {
+    const float4* p =
+        reinterpret_cast<const float4*>(static_cast<const float*>(base) + i);
+    const float4 a = p[0], b = p[1];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else if constexpr (LD == kTma) {     // 16-byte aligned (the TMA gate)
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(base) + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  } else {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(base) + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(p[j]);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
+  return make_uint4(hw::pack_bf16(x[0], x[1]), hw::pack_bf16(x[2], x[3]),
+                    hw::pack_bf16(x[4], x[5]), hw::pack_bf16(x[6], x[7]));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// S (m64 x n64) = Q K^T, both operands K-major (D contiguous)
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[BKV / 2],
+                                           const unsigned char* qs,
+                                           const unsigned char* ks) {
+  using T = Tile<D>;
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / T::CW, off = (kk * 16 % T::CW) * 2;
+    const uint64_t da = hw::make_desc<T::SW>(qs + c * BQ * T::SW + off, 16,
+                                             8 * T::SW);
+    const uint64_t db = hw::make_desc<T::SW>(ks + c * BKV * T::SW + off, 16,
+                                             8 * T::SW);
+    hw::wgmma_m64n64k16_ss<0>(s, da, db, kk > 0);
+  }
+  hw::wgmma_commit();
+  hw::wgmma_wait<0>();
+  hw::fence_regs(s);
+}
+
+// O (m64 x nD) += P V, P from registers, V MN-major (D contiguous)
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&p)[BKV / 16][4],
+                                           const unsigned char* vs) {
+  using T = Tile<D>;
+  hw::fence_regs(o);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < BKV / 16; ++kt) {
+    const uint64_t db = hw::make_desc<T::SW>(vs + kt * 16 * T::SW,
+                                             BKV * T::SW, 8 * T::SW);
+    if constexpr (D == 32)
+      hw::wgmma_m64n32k16_rs<1>(o, p[kt], db, 1);
+    else if constexpr (D == 64)
+      hw::wgmma_m64n64k16_rs<1>(o, p[kt], db, 1);
+    else
+      hw::wgmma_m64n128k16_rs<1>(o, p[kt], db, 1);
+  }
+  hw::wgmma_commit();
+  hw::wgmma_wait<0>();
+  hw::fence_regs(o);
+}
+
+template <Loader LD, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+attention_kernel(const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, Args a) {
+  using T = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
+                                    % 1024);
+  unsigned char* qs = smem + T::q_off;
+  unsigned char* ring = smem + T::ring_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid / WG;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest first
+  const int col0 = h * D;
+  const int kv_end = a.causal ? min(a.seq_kv, q0 + BQ) : a.seq_kv;
+  const int tiles = (kv_end + BKV - 1) / BKV;
+  const int passes = a.repeats > 0 ? a.repeats : 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hw::mbar_init(&full[s], LD == kTma ? 1 : WG);
+      hw::mbar_init(&empty[s], NCW * WG);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NCW) {  // ---- producer warpgroup: fills the K/V ring ----
+    const int ptid = tid - NCW * WG;
+    if constexpr (LD == kTma) {
+      if (ptid != 0) return;
+      int stage = 0, phase = 0;
+      for (int rep = 0; rep < passes; ++rep)
+        for (int t = 0; t < tiles; ++t) {
+          hw::mbar_wait(&empty[stage], phase ^ 1);
+          hw::mbar_arrive_tx(&full[stage], 2 * T::KV);
+          unsigned char* ks = ring + stage * 2 * T::KV;
+#pragma unroll
+          for (int c = 0; c < D / T::CW; ++c) {
+            hw::tma_load_3d(ks + c * BKV * T::SW, &kmap, &full[stage],
+                            col0 + c * T::CW, t * BKV, b);
+            hw::tma_load_3d(ks + T::KV + c * BKV * T::SW, &vmap,
+                            &full[stage], col0 + c * T::CW, t * BKV, b);
+          }
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+    } else {
+      const size_t kv_base = (size_t)b * a.seq_kv * a.ld_in + col0;
+      int stage = 0, phase = 0;
+      for (int rep = 0; rep < passes; ++rep)
+        for (int t = 0; t < tiles; ++t) {
+          hw::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* ks = ring + stage * 2 * T::KV;
+#pragma unroll
+          for (int it = 0; it < BKV * D / 8 / WG; ++it) {
+            const int u = ptid + it * WG;
+            const int r = u / (D / 8), c = (u % (D / 8)) * 8;
+            const int kv = t * BKV + r;
+            float xk[8], xv[8];
+            if (kv < a.seq_kv) {
+              const size_t i = kv_base + (size_t)kv * a.ld_in + c;
+              load8<LD>(a.k, i, xk);
+              load8<LD>(a.v, i, xv);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) xk[j] = xv[j] = 0.f;
+            }
+            *reinterpret_cast<uint4*>(ks + T::at(BKV, r, c)) = pack8(xk);
+            *reinterpret_cast<uint4*>(ks + T::KV + T::at(BKV, r, c)) =
+                pack8(xv);
+          }
+          hw::fence_proxy_async();
+          hw::mbar_arrive(&full[stage]);
+          if (++stage == STAGES) { stage = 0; phase ^= 1; }
+        }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63 ----
+  const int wtid = tid % WG, warp = wtid / 32, lane = tid % 32;
+  const int r_wg = 64 * wg;                      // first row in the tile
+  const int row0 = q0 + r_wg + 16 * warp + lane / 4;  // and row0 + 8
+  const int cq = 2 * (lane % 4);                 // first column of a pair
+  const size_t q_base = (size_t)b * a.seq * a.ld_in + col0;
+
+  // stage Q: rounded to bf16, scaled by qscale in f32, rounded again
+#pragma unroll
+  for (int it = 0; it < 64 * D / 8 / WG; ++it) {
+    const int u = wtid + it * WG;
+    const int r = u / (D / 8), c = (u % (D / 8)) * 8;
+    const int qi = q0 + r_wg + r;
+    float x[8];
+    if (qi < a.seq) {
+      load8<LD>(a.q, q_base + (size_t)qi * a.ld_in + c, x);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = round_bf16(x[j]) * a.qscale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = 0.f;
+    }
+    *reinterpret_cast<uint4*>(qs + T::at(BQ, r_wg + r, c)) = pack8(x);
+  }
+  hw::fence_proxy_async();
+  hw::bar_sync(1 + wg, WG);
+
+  const unsigned char* qa = qs + r_wg * T::SW;   // this warpgroup's A rows
+  const int kv_end_wg = a.causal ? min(a.seq_kv, q0 + r_wg + 64) : a.seq_kv;
+  float o[D / 2], l[2];
+  int stage = 0, phase = 0;
+  for (int rep = 0; rep < passes; ++rep) {
+    float m[2] = {-INFINITY, -INFINITY};
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      const int kv0 = t * BKV;
+      hw::mbar_wait(&full[stage], phase);
+      if (kv0 < kv_end_wg) {
+        const unsigned char* ks = ring + stage * 2 * T::KV;
+        float s[BKV / 2];
+        qk_product<D>(s, qa, ks);
+        if (kv0 + BKV > a.seq_kv ||
+            (a.causal && kv0 + BKV - 1 > q0 + r_wg)) {
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i) {
+            const int col = kv0 + 8 * (i / 4) + cq + (i & 1);
+            const int row = row0 + 8 * ((i / 2) & 1);
+            if (col >= a.seq_kv || (a.causal && col > row)) s[i] = -INFINITY;
+          }
+        }
+        // online softmax of the tile: rows row0 (h 0) and row0 + 8 (h 1)
+        // (mu: the max, or 0 while a row has seen only -inf)
+        float mx[2] = {m[0], m[1]}, mu[2], sum[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i)
+          mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], s[i]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+          mu[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];
+          alpha[hh] = exp2f(m[hh] - mu[hh]);
+          m[hh] = mx[hh];
+        }
+        uint32_t p[BKV / 16][4];
+#pragma unroll
+        for (int i = 0; i < BKV / 2; i += 2) {
+          const int hh = (i / 2) & 1;
+          const float p0 = exp2f(s[i] - mu[hh]);
+          const float p1 = exp2f(s[i + 1] - mu[hh]);
+          sum[hh] += p0 + p1;
+          // S columns 16 kt .. 16 kt + 15 (s[8 kt .. 8 kt + 7]) are the A
+          // fragment of P.V's step kt
+          p[i / 8][(i % 8) / 2] = hw::pack_bf16(p0, p1);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+        pv_product<D>(o, p, ks + T::KV);
+      }
+      hw::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    if (rep + 1 == passes) break;
+    // warm bench: the output, rounded to bf16, is the next Q
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int hh = (i / 2) & 1, r = r_wg + 16 * warp + lane / 4 + 8 * hh;
+      const bool in = row0 + 8 * hh < a.seq;
+      const float x0 = in ? round_bf16(o[i] / l[hh]) : 0.f;
+      const float x1 = in ? round_bf16(o[i + 1] / l[hh]) : 0.f;
+      *reinterpret_cast<uint32_t*>(qs + T::at(BQ, r, 8 * (i / 4) + cq)) =
+          hw::pack_bf16(x0 * a.qscale, x1 * a.qscale);
+    }
+    hw::fence_proxy_async();
+    hw::bar_sync(1 + wg, WG);
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int hh = (i / 2) & 1, qi = row0 + 8 * hh;
+    if (qi >= a.seq) continue;
+    float x0 = o[i] / l[hh], x1 = o[i + 1] / l[hh];
+    if (a.repeats > 0) {
+      x0 = round_bf16(x0);
+      x1 = round_bf16(x1);
+    }
+    const size_t at = ((size_t)b * a.seq + qi) * a.ld_out + col0 +
+                      8 * (i / 4) + cq;
+    if (a.out_dtype == tpp::kBF16)
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.out) +
+                                         at) = __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
+          make_float2(x0, x1);
+  }
+}
+
+// The K and V maps of a TMA launch: (columns E, rows seq_kv, batch) over
+// the operand's head-0 pointer, boxes of (SW / 2 columns, BKV rows, 1).
+template <int D>
+int kv_maps(const Args& a, int heads, int batch, CUtensorMap* kmap,
+            CUtensorMap* vmap) {
+  using T = Tile<D>;
+  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * D,
+                            static_cast<uint64_t>(a.seq_kv),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(a.ld_in) * 2,
+                               static_cast<uint64_t>(a.seq_kv) * a.ld_in * 2};
+  const uint32_t box[3] = {T::CW, BKV, 1};
+  int rc = hw::make_map(kmap, a.k, 3, dims, strides, box, T::SW);
+  if (rc == 0) rc = hw::make_map(vmap, a.v, 3, dims, strides, box, T::SW);
+  return rc;
+}
+
+template <Loader LD, int D>
+int launch_mma(const Args& a, int batch, int heads, cudaStream_t stream) {
+  using T = Tile<D>;
+  CUtensorMap kmap{}, vmap{};
+  if constexpr (LD == kTma) {
+    const int rc = kv_maps<D>(a, heads, batch, &kmap, &vmap);
+    if (rc) return rc;
+  }
+  auto kernel = attention_kernel<LD, D>;
+  const int smem = T::bytes + 1024;     // + the 1024-byte alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(heads, batch, (a.seq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, smem, stream>>>(kmap, vmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- MXU dtype f32 ("highest"): f32 FMA --------------------------------
+
+constexpr int FBQ = 64, FBKV = 64, FWARPS = 4, FTHREADS = FWARPS * 32;
+
+// Shared-memory plan of one FMA block. K has an odd row stride so lanes
+// reading K[lane][d] hit distinct banks.
+template <int D>
 struct Plan {
-  static constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
-  static constexpr int QLD = kTensor ? D + 8 : D + 1;  // Q and K rows
-  static constexpr int VLD = kTensor ? D + 8 : D + 4;
-  static constexpr int SLD = BKV + 4;                  // f32 scores
-  static constexpr int PLD = kTensor ? BKV + 8 : BKV + 4;
-  static constexpr int OLD = D + 4;                    // f32 output acc
+  static constexpr int QLD = D + 1;  // Q and K rows
+  static constexpr int VLD = D + 4;
+  static constexpr int SLD = FBKV + 4;  // f32 scores
+  static constexpr int PLD = FBKV + 4;
+  static constexpr int OLD = D + 4;     // f32 output acc
   static constexpr size_t up(size_t x) { return (x + 127) / 128 * 128; }
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = up(q_off + BQ * QLD * sizeof(Tmma));
-  static constexpr size_t v_off = up(k_off + BKV * QLD * sizeof(Tmma));
-  static constexpr size_t s_off = up(v_off + BKV * VLD * sizeof(Tmma));
-  static constexpr size_t p_off = up(s_off + BQ * SLD * sizeof(float));
-  static constexpr size_t o_off = up(p_off + BQ * PLD * sizeof(Tmma));
-  static constexpr size_t r_off = up(o_off + BQ * OLD * sizeof(float));
-  static constexpr size_t bytes = up(r_off + 3 * BQ * sizeof(float));
+  static constexpr size_t k_off = up(q_off + FBQ * QLD * sizeof(float));
+  static constexpr size_t v_off = up(k_off + FBKV * QLD * sizeof(float));
+  static constexpr size_t s_off = up(v_off + FBKV * VLD * sizeof(float));
+  static constexpr size_t p_off = up(s_off + FBQ * SLD * sizeof(float));
+  static constexpr size_t o_off = up(p_off + FBQ * PLD * sizeof(float));
+  static constexpr size_t r_off = up(o_off + FBQ * OLD * sizeof(float));
+  static constexpr size_t bytes = up(r_off + 3 * FBQ * sizeof(float));
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -105,91 +473,68 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename Tin, typename Tmma, int D>
-__global__ void __launch_bounds__(THREADS) attention_kernel(Args a) {
-  using L = Plan<Tmma, D>;
+template <int D>
+__global__ void __launch_bounds__(FTHREADS) attention_fma_kernel(Args a) {
+  using L = Plan<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  Tmma* Qs = reinterpret_cast<Tmma*>(smem + L::q_off);
-  Tmma* Ks = reinterpret_cast<Tmma*>(smem + L::k_off);
-  Tmma* Vs = reinterpret_cast<Tmma*>(smem + L::v_off);
+  float* Qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* Ks = reinterpret_cast<float*>(smem + L::k_off);
+  float* Vs = reinterpret_cast<float*>(smem + L::v_off);
   float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  Tmma* Ps = reinterpret_cast<Tmma*>(smem + L::p_off);
+  float* Ps = reinterpret_cast<float*>(smem + L::p_off);
   float* Os = reinterpret_cast<float*>(smem + L::o_off);
   float* Ms = reinterpret_cast<float*>(smem + L::r_off);  // running max
-  float* Ls = Ms + BQ;                                     // running sum
-  float* As = Ls + BQ;                                     // tile rescale
+  float* Ls = Ms + FBQ;                                    // running sum
+  float* As = Ls + FBQ;                                    // tile rescale
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * FBQ, h = blockIdx.y, b = blockIdx.z;
   const size_t head = (size_t)h * D;
-  const Tin* Q = static_cast<const Tin*>(a.q) + (size_t)b * a.seq * a.ld_in
-                 + head;
-  const Tin* K = static_cast<const Tin*>(a.k)
-                 + (size_t)b * a.seq_kv * a.ld_in + head;
-  const Tin* V = static_cast<const Tin*>(a.v)
-                 + (size_t)b * a.seq_kv * a.ld_in + head;
+  const float* Q = static_cast<const float*>(a.q) +
+                   (size_t)b * a.seq * a.ld_in + head;
+  const float* K = static_cast<const float*>(a.k) +
+                   (size_t)b * a.seq_kv * a.ld_in + head;
+  const float* V = static_cast<const float*>(a.v) +
+                   (size_t)b * a.seq_kv * a.ld_in + head;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < FBQ * D; i += FTHREADS) {
     const int r = i / D, c = i % D;
-    float x = 0.f;
-    if (q0 + r < a.seq)
-      x = tpp::to_f32(tpp::from_f32<Tmma>(
-          tpp::to_f32(Q[(size_t)(q0 + r) * a.ld_in + c])));
-    Qs[r * L::QLD + c] = tpp::from_f32<Tmma>(x * a.qscale);
+    const float x = q0 + r < a.seq ? Q[(size_t)(q0 + r) * a.ld_in + c] : 0.f;
+    Qs[r * L::QLD + c] = x * a.qscale;
   }
 
   const int r0 = warp * 16;  // this warp's 16 query rows of the tile
-  const int kv_end = a.causal ? min(a.seq_kv, q0 + BQ) : a.seq_kv;
+  const int kv_end = a.causal ? min(a.seq_kv, q0 + FBQ) : a.seq_kv;
   const int passes = a.repeats > 0 ? a.repeats : 1;
   for (int rep = 0; rep < passes; ++rep) {
-    for (int i = tid; i < BQ * D; i += THREADS)
+    for (int i = tid; i < FBQ * D; i += FTHREADS)
       Os[(i / D) * L::OLD + i % D] = 0.f;
-    if (tid < BQ) {
+    if (tid < FBQ) {
       Ms[tid] = -INFINITY;
       Ls[tid] = 0.f;
     }
-    for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+    for (int kv0 = 0; kv0 < kv_end; kv0 += FBKV) {
       __syncthreads();  // Q staged; the previous tile's K/V no longer read
-      for (int i = tid; i < BKV * D; i += THREADS) {
+      for (int i = tid; i < FBKV * D; i += FTHREADS) {
         const int r = i / D, c = i % D;
         const bool in = kv0 + r < a.seq_kv;
         const size_t g = (size_t)(kv0 + r) * a.ld_in + c;
-        Ks[r * L::QLD + c] =
-            tpp::from_f32<Tmma>(in ? tpp::to_f32(K[g]) : 0.f);
-        Vs[r * L::VLD + c] =
-            tpp::from_f32<Tmma>(in ? tpp::to_f32(V[g]) : 0.f);
+        Ks[r * L::QLD + c] = in ? K[g] : 0.f;
+        Vs[r * L::VLD + c] = in ? V[g] : 0.f;
       }
       __syncthreads();
 
       // S = Q K^T for the warp's rows (already in the exp2 domain)
-      if constexpr (L::kTensor) {
-#pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-          wmma::fill_fragment(s, 0.f);
-#pragma unroll
-          for (int kk = 0; kk < D; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, Qs + r0 * L::QLD + kk, L::QLD);
-            wmma::load_matrix_sync(fb, Ks + j * 16 * L::QLD + kk, L::QLD);
-            wmma::mma_sync(s, fa, fb, s);
-          }
-          wmma::store_matrix_sync(Ss + r0 * L::SLD + j * 16, s, L::SLD,
-                                  wmma::mem_row_major);
-        }
-      } else {
+      {
         float acc[16][2];
 #pragma unroll
         for (int rr = 0; rr < 16; ++rr) acc[rr][0] = acc[rr][1] = 0.f;
         for (int d = 0; d < D; ++d) {
-          const float k0 = tpp::to_f32(Ks[lane * L::QLD + d]);
-          const float k1 = tpp::to_f32(Ks[(lane + 32) * L::QLD + d]);
+          const float k0 = Ks[lane * L::QLD + d];
+          const float k1 = Ks[(lane + 32) * L::QLD + d];
 #pragma unroll
           for (int rr = 0; rr < 16; ++rr) {
-            const float qv = tpp::to_f32(Qs[(r0 + rr) * L::QLD + d]);
+            const float qv = Qs[(r0 + rr) * L::QLD + d];
             acc[rr][0] = fmaf(qv, k0, acc[rr][0]);
             acc[rr][1] = fmaf(qv, k1, acc[rr][1]);
           }
@@ -223,7 +568,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Args a) {
         for (int t = 0; t < 2; ++t) {
           const float p = m_new == -INFINITY ? 0.f : exp2f(s[t] - m_new);
           sum += p;
-          Ps[r * L::PLD + lane + 32 * t] = tpp::from_f32<Tmma>(p);
+          Ps[r * L::PLD + lane + 32 * t] = p;
         }
         sum = warp_sum(sum);
         __syncwarp();
@@ -237,32 +582,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Args a) {
       __syncwarp();
 
       // O = alpha * O + P V for the warp's rows
-      if constexpr (L::kTensor) {
-        for (int rr = 0; rr < 16; ++rr) {
-          const float alpha = As[r0 + rr];
-          for (int c = lane; c < D; c += 32)
-            Os[(r0 + rr) * L::OLD + c] *= alpha;
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < D / 16; ++t) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-          wmma::load_matrix_sync(o, Os + r0 * L::OLD + t * 16, L::OLD,
-                                 wmma::mem_row_major);
-#pragma unroll
-          for (int kk = 0; kk < BKV; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb;
-            wmma::load_matrix_sync(fa, Ps + r0 * L::PLD + kk, L::PLD);
-            wmma::load_matrix_sync(fb, Vs + kk * L::VLD + t * 16, L::VLD);
-            wmma::mma_sync(o, fa, fb, o);
-          }
-          wmma::store_matrix_sync(Os + r0 * L::OLD + t * 16, o, L::OLD,
-                                  wmma::mem_row_major);
-        }
-      } else {
+      {
         constexpr int NT = D / 32;  // output columns lane + 32 t
         float acc[16][NT];
 #pragma unroll
@@ -272,14 +592,13 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Args a) {
           for (int t = 0; t < NT; ++t)
             acc[rr][t] = Os[(r0 + rr) * L::OLD + lane + 32 * t] * alpha;
         }
-        for (int j = 0; j < BKV; ++j) {
+        for (int j = 0; j < FBKV; ++j) {
           float vv[NT];
 #pragma unroll
-          for (int t = 0; t < NT; ++t)
-            vv[t] = tpp::to_f32(Vs[j * L::VLD + lane + 32 * t]);
+          for (int t = 0; t < NT; ++t) vv[t] = Vs[j * L::VLD + lane + 32 * t];
 #pragma unroll
           for (int rr = 0; rr < 16; ++rr) {
-            const float p = tpp::to_f32(Ps[(r0 + rr) * L::PLD + j]);
+            const float p = Ps[(r0 + rr) * L::PLD + j];
 #pragma unroll
             for (int t = 0; t < NT; ++t)
               acc[rr][t] = fmaf(p, vv[t], acc[rr][t]);
@@ -294,47 +613,44 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Args a) {
     }
     __syncthreads();
     if (rep + 1 == passes) break;
-    // warm bench: the output, rounded to the MXU dtype, is the next Q
-    for (int i = tid; i < BQ * D; i += THREADS) {
+    // warm bench: the output is the next Q
+    for (int i = tid; i < FBQ * D; i += FTHREADS) {
       const int r = i / D, c = i % D;
       const float o = Os[r * L::OLD + c] / Ls[r];
-      const float x = q0 + r < a.seq ? tpp::to_f32(tpp::from_f32<Tmma>(o))
-                                     : 0.f;
-      Qs[r * L::QLD + c] = tpp::from_f32<Tmma>(x * a.qscale);
+      Qs[r * L::QLD + c] = (q0 + r < a.seq ? o : 0.f) * a.qscale;
     }
     __syncthreads();
   }  // repeats
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < FBQ * D; i += FTHREADS) {
     const int r = i / D, c = i % D, qi = q0 + r;
     if (qi >= a.seq) continue;
-    float o = Os[r * L::OLD + c] / Ls[r];
-    if (a.repeats > 0) o = tpp::to_f32(tpp::from_f32<Tmma>(o));
     tpp::store_out(a.out, ((size_t)b * a.seq + qi) * a.ld_out + head + c,
-                   a.out_dtype, o);
+                   a.out_dtype, Os[r * L::OLD + c] / Ls[r]);
   }
 }
 
-template <typename Tin, typename Tmma, int D>
-int launch(const Args& a, int batch, int heads, cudaStream_t stream) {
-  using L = Plan<Tmma, D>;
-  auto kernel = attention_kernel<Tin, Tmma, D>;
+template <int D>
+int launch_fma(const Args& a, int batch, int heads, cudaStream_t stream) {
+  using L = Plan<D>;
+  auto kernel = attention_fma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.seq + BQ - 1) / BQ, heads, batch);
-  kernel<<<grid, THREADS, L::bytes, stream>>>(a);
+  const dim3 grid((a.seq + FBQ - 1) / FBQ, heads, batch);
+  kernel<<<grid, FTHREADS, L::bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin, typename Tmma>
-int launch_d(const Args& a, int batch, int heads, int d, cudaStream_t st) {
-  switch (d) {
-    case 32: return launch<Tin, Tmma, 32>(a, batch, heads, st);
-    case 64: return launch<Tin, Tmma, 64>(a, batch, heads, st);
-    case 128: return launch<Tin, Tmma, 128>(a, batch, heads, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_d(const Args& a, int batch, int heads, int loader,
+             cudaStream_t st) {
+  switch (loader) {
+    case kTma: return launch_mma<kTma, D>(a, batch, heads, st);
+    case kConvertF32: return launch_mma<kConvertF32, D>(a, batch, heads, st);
+    case kConvertBF16: return launch_mma<kConvertBF16, D>(a, batch, heads, st);
+    default: return launch_fma<D>(a, batch, heads, st);
   }
 }
 
@@ -343,23 +659,30 @@ int launch_d(const Args& a, int batch, int heads, int d, cudaStream_t st) {
 // Returns the cudaError_t of the launch (0 on success). q/k/v/out point at
 // the first element of head 0 of Q/K/V and of the output; ld_in is their row
 // stride in elements (E, or 3E for one packed operand), the output's is E.
-// The flat layout is heads = 1 with ld_in = D. The batch goes in gridDim.z,
-// so it is at most 65535.
+// The flat layout is heads = 1 with ld_in = D. `loader` is the route
+// xsmm/reference.py attention_loader chose: 0 TMA (bf16 operands, 16-byte
+// aligned pointers and strides), 1 the register loader of f32 operands at
+// "default", 2 that of bf16 operands TMA cannot take, 3 f32 FMA (MXU dtype
+// f32). The batch goes in gridDim.y (gridDim.z for FMA), so it is at most
+// 65535.
 extern "C" int tpp_attention(const void* q, const void* k, const void* v,
                              void* out, int batch, int seq, int seq_kv,
                              int heads, int head_dim, int ld_in,
-                             int in_dtype, int mma_dtype, int out_dtype,
+                             int in_dtype, int loader, int out_dtype,
                              int causal, int repeats, float qscale,
                              void* stream) {
   const Args a{q,     k,      v,      out,    seq,      seq_kv,
                ld_in, heads * head_dim, qscale, causal, out_dtype, repeats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
-    return launch_d<float, float>(a, batch, heads, head_dim, st);
-  if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
-    return launch_d<float, __nv_bfloat16>(a, batch, heads, head_dim, st);
-  if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
-    return launch_d<__nv_bfloat16, __nv_bfloat16>(a, batch, heads, head_dim,
-                                                   st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  // the loader must match the operands' dtype
+  const int want_in = loader == kTma || loader == kConvertBF16 ? tpp::kBF16
+                                                               : tpp::kF32;
+  if (loader < 0 || loader > 3 || in_dtype != want_in)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32: return launch_d<32>(a, batch, heads, loader, st);
+    case 64: return launch_d<64>(a, batch, heads, loader, st);
+    case 128: return launch_d<128>(a, batch, heads, loader, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

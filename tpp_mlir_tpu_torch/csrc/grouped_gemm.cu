@@ -23,22 +23,44 @@
 // unwritten, kernels.py:1295-1297).
 //
 // What bounds them on the H100: at the MoE shapes (A_pad 9216 rows, E 768,
-// F 3072) each product is 43.5 GFLOP, 0.044 ms at 989 TFLOP/s, so both
-// are compute-bound by the card's measure. This first version keeps
-// brgemm.cu's design: one 64-column output tile per block, staged through
-// shared memory with no pipelining, WMMA bf16 (mma.sync 16x16x16, f32
-// accumulators) for bf16 and f32 "default" operands, f32 FMA for f32
-// "highest"; it is bound by the latency of the global->shared copies.
-// A B16 tile must not straddle two row blocks, which may belong to
-// different groups: its rows BM are the largest of 64, 32, 16 that divide
-// bm (the wrapper refuses a bm that is not a multiple of 16). wgmma, TMA
-// and a persistent schedule that keeps a group's weights in L2 are the
-// next PRs' work.
+// F 3072) each product is 43.5 GFLOP, 0.044 ms at 989 TFLOP/s, against
+// 0.030 ms for fc2's 101 MB of A, weights and output at 3.35 TB/s: both are
+// compute-bound by the card's measure, so the tensor cores must never wait
+// on a copy.
+//
+// B16 takes one of two routes, which xsmm/reference.py grouped_gemm_route
+// chooses from the key:
+//   "wgmma" (bf16 operands, bm a multiple of 64, k and n multiples of 8 so
+//   that TMA takes the row strides; every key of the MoE slice): one block
+//   computes a BM x 128 tile with BM = 128 where 128 divides bm, else 64,
+//   so a tile never straddles two row blocks: one consumer warpgroup per
+//   64 rows and one producer warp, two blocks to an SM, so that one block's
+//   first loads and epilogue overlap the other's products. The producer
+//   thread reads the tile's group and layer on the device and keeps a
+//   3-stage ring of BK 64 slices full by TMA: A through a (k, m) map, B
+//   through one map over the whole (L*G, ., .) table whose third
+//   coordinate is layer * G + group, 128-byte swizzled; transpose_b is the
+//   B map's major-ness (the (n, k) weight K-major, the (k, n) one MN-major),
+//   not a copy. The consumers run wgmma m64n128k16 with f32 accumulators in
+//   registers, keeping one k slice's products in flight while the previous
+//   slice's stage goes back to the producer, and apply the epilogue
+//   (unary, conversion, store; columns past n masked) from registers, one
+//   straight-line copy per unary. TMA's zero fill covers a ragged last k
+//   or n slice. The grid walks row blocks fastest, so neighbouring blocks
+//   read one expert's weight tile from L2.
+//   "wmma" (f32 operands, a bm that 64 does not divide, strides TMA cannot
+//   take): one 64-column output tile per block, staged through shared
+//   memory without pipelining, WMMA bf16 (mma.sync
+//   16x16x16, f32 accumulators) for bf16 and f32 "default" operands, f32
+//   FMA for f32 "highest". Its rows BM are the largest of 64, 32, 16 that
+//   divide bm (the wrapper refuses a bm that is not a multiple of 16).
+// B17 runs on the WMMA tile's staging and products (TileMma).
 #include <mma.h>
 
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -285,6 +307,210 @@ int gemm_by_bm(const void* a, const void* b, const int* ge, const int* li,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- B16 on wgmma: bf16 operands, bm a multiple of 64 -------------------
+
+namespace hw = tpp::hopper;
+
+constexpr int G_BN = 128, G_BK = 64, G_STAGES = 3, G_WG = 128;
+
+template <int NCW>  // consumer warpgroups: BM = 64 NCW rows
+struct GTile {
+  static constexpr int BM = 64 * NCW;
+  static constexpr int A_BYTES = BM * G_BK * 2;
+  static constexpr int B_BYTES = G_BK * G_BN * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int bar_off = G_STAGES * STAGE;
+  static constexpr int bytes = bar_off + 2 * G_STAGES * 8;
+};
+
+// The accumulator tile, unary(acc) converted, stored from registers:
+// acc[4 j + 2 h + e] is row `row` + 8 h, column `col` + 8 j + e; n is a
+// multiple of 8, so a pair is in or out as a whole.
+template <int U>
+__device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
+                                           int row, int col, int n,
+                                           int out_dtype) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int gm = row + 8 * ((i / 2) & 1), gn = col + 8 * (i / 4);
+    if (gn >= n) continue;
+    const float x0 = tpp::apply_unary(U, acc[i]);
+    const float x1 = tpp::apply_unary(U, acc[i + 1]);
+    const size_t at = (size_t)gm * n + gn;
+    if (out_dtype == tpp::kBF16)
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                         at) = __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+          make_float2(x0, x1);
+  }
+}
+
+// TRANS_B 0: B[g] is (k, n), staged as two [64 k][64 n] MN-major chunks;
+// 1: B[g] is (n, k), staged as one [128 n][64 k] K-major tile. NCW consumer
+// warpgroups and one producer warp; two blocks share an SM, so one block's
+// first loads and epilogue overlap the other's products.
+template <int NCW, int TRANS_B>
+__global__ void __launch_bounds__(G_WG * NCW + 32, 2)
+grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                          const __grid_constant__ CUtensorMap bmap,
+                          const int* __restrict__ ge,
+                          const int* __restrict__ li, void* __restrict__ out,
+                          int groups, int layers, int n, int k, int bm,
+                          int unary, int out_dtype) {
+  using T = GTile<NCW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
+                                    % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+  uint64_t* empty = full + G_STAGES;
+
+  const int tid = threadIdx.x, wg = tid / G_WG;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * G_BN;
+  const int ktiles = (k + G_BK - 1) / G_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], NCW * G_WG);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NCW) {  // ---- producer warp: one thread issues every copy ----
+    if (tid != NCW * G_WG) return;
+    // BM divides bm: the tile lies in row block m0 / bm, one group. The
+    // clamps keep a bad map or layer from reading outside the weight table.
+    const int g = min(max(ge[m0 / bm], 0), groups - 1);
+    const int layer = li != nullptr ? min(max(*li, 0), layers - 1) : 0;
+    const int z = layer * groups + g;
+    int stage = 0, phase = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      hw::mbar_wait(&empty[stage], phase ^ 1);
+      hw::mbar_arrive_tx(&full[stage], T::STAGE);
+      unsigned char* sa = smem + stage * T::STAGE;
+      unsigned char* sb = sa + T::A_BYTES;
+      hw::tma_load_2d(sa, &amap, &full[stage], kt * G_BK, m0);
+      if constexpr (TRANS_B) {
+        hw::tma_load_3d(sb, &bmap, &full[stage], kt * G_BK, n0, z);
+      } else {
+        hw::tma_load_3d(sb, &bmap, &full[stage], n0, kt * G_BK, z);
+        hw::tma_load_3d(sb + G_BK * 128, &bmap, &full[stage], n0 + 64,
+                        kt * G_BK, z);
+      }
+      if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: rows m0 + 64 wg .. + 63 ----
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int stage = 0, phase = 0, prev = -1;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    hw::mbar_wait(&full[stage], phase);
+    const unsigned char* sa = smem + stage * T::STAGE + wg * 64 * 128;
+    const unsigned char* sb = smem + stage * T::STAGE + T::A_BYTES;
+    hw::fence_regs(acc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      const uint64_t da = hw::make_desc<128>(sa + kk * 32, 16, 1024);
+      const uint64_t db =
+          TRANS_B ? hw::make_desc<128>(sb + kk * 32, 16, 1024)
+                  : hw::make_desc<128>(sb + kk * 16 * 128, G_BK * 128, 1024);
+      hw::wgmma_m64n128k16_ss<TRANS_B ? 0 : 1>(acc, da, db, 1);
+    }
+    hw::wgmma_commit();
+    // the previous slice's products are done: its stage goes back
+    hw::wgmma_wait<1>();
+    hw::fence_regs(acc);
+    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+  }
+  hw::wgmma_wait<0>();
+  hw::fence_regs(acc);
+
+  // epilogue from registers, one straight-line copy per unary (the switch
+  // inside the unrolled loop would inline every unary 64 times)
+  const int warp = (tid % G_WG) / 32, lane = tid % 32;
+  const int row = m0 + wg * 64 + warp * 16 + lane / 4;
+  const int col = n0 + 2 * (lane % 4);
+  switch (unary) {
+#define TPP_EPILOGUE(U)                                          \
+  case U:                                                        \
+    store_tile<U>(acc, out, row, col, n, out_dtype);             \
+    break;
+    TPP_EPILOGUE(tpp::kRelu)
+    TPP_EPILOGUE(tpp::kExp)
+    TPP_EPILOGUE(tpp::kSquare)
+    TPP_EPILOGUE(tpp::kSqrt)
+    TPP_EPILOGUE(tpp::kRsqrt)
+    TPP_EPILOGUE(tpp::kTanh)
+    TPP_EPILOGUE(tpp::kGelu)
+    TPP_EPILOGUE(tpp::kGeluTanh)
+    TPP_EPILOGUE(tpp::kNegate)
+    TPP_EPILOGUE(tpp::kZero)
+#undef TPP_EPILOGUE
+    default:
+      store_tile<tpp::kIdentity>(acc, out, row, col, n, out_dtype);
+  }
+}
+
+template <int NCW, int TRANS_B>
+int launch_gemm_wgmma(const void* a, const void* b, const int* ge,
+                      const int* li, void* out, int groups, int layers, int m,
+                      int n, int k, int bm, int unary, int out_dtype,
+                      cudaStream_t stream) {
+  using T = GTile<NCW>;
+  const uint64_t lg = static_cast<uint64_t>(groups) * (layers ? layers : 1);
+  CUtensorMap amap, bmap;
+  const uint64_t a_dims[2] = {static_cast<uint64_t>(k),
+                              static_cast<uint64_t>(m)};
+  const uint64_t a_strides[1] = {static_cast<uint64_t>(k) * 2};
+  const uint32_t a_box[2] = {G_BK, T::BM};
+  int rc = hw::make_map(&amap, a, 2, a_dims, a_strides, a_box, 128);
+  if (rc) return rc;
+  const uint64_t inner = TRANS_B ? k : n, outer = TRANS_B ? n : k;
+  const uint64_t b_dims[3] = {inner, outer, lg};
+  const uint64_t b_strides[2] = {inner * 2, inner * outer * 2};
+  const uint32_t b_box[3] = {64, static_cast<uint32_t>(TRANS_B ? G_BN : G_BK),
+                             1};
+  rc = hw::make_map(&bmap, b, 3, b_dims, b_strides, b_box, 128);
+  if (rc) return rc;
+  auto kernel = grouped_gemm_wgmma_kernel<NCW, TRANS_B>;
+  const int smem = T::bytes + 1024;     // + the 1024-byte alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(m / T::BM, (n + G_BN - 1) / G_BN);
+  kernel<<<grid, G_WG * NCW + 32, smem, stream>>>(
+      amap, bmap, ge, li, out, groups, layers, n, k, bm, unary, out_dtype);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gemm_wgmma(const void* a, const void* b, const int* ge, const int* li,
+               void* out, int groups, int layers, int m, int n, int k, int bm,
+               int transpose_b, int unary, int out_dtype,
+               cudaStream_t stream) {
+  if (bm % 64 || k % 8 || n % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bm % 128 == 0)
+    return transpose_b
+               ? launch_gemm_wgmma<2, 1>(a, b, ge, li, out, groups, layers, m,
+                                         n, k, bm, unary, out_dtype, stream)
+               : launch_gemm_wgmma<2, 0>(a, b, ge, li, out, groups, layers, m,
+                                         n, k, bm, unary, out_dtype, stream);
+  return transpose_b
+             ? launch_gemm_wgmma<1, 1>(a, b, ge, li, out, groups, layers, m, n,
+                                       k, bm, unary, out_dtype, stream)
+             : launch_gemm_wgmma<1, 0>(a, b, ge, li, out, groups, layers, m, n,
+                                       k, bm, unary, out_dtype, stream);
+}
+
 template <typename Tin, typename Tmma>
 int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
                  int groups, int m, int k, int n, int bm, long long xs0,
@@ -300,17 +526,26 @@ int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
 // in_dtype, ge int32 (m / bm), li a device int32 (the layer of a stacked
-// (layers, groups, ., .) table) or null, out out_dtype (m, n). bm must be
-// a multiple of 16.
+// (layers, groups, ., .) table) or null, out out_dtype (m, n). route is
+// xsmm/reference.py grouped_gemm_route's choice: 1 "wgmma" (bf16 operands,
+// bm a multiple of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of
+// 16).
 extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
                                 const void* li, void* out, int groups,
                                 int layers, int m, int n, int k, int bm,
                                 int in_dtype, int mma_dtype, int out_dtype,
-                                int transpose_b, int unary, void* stream) {
+                                int transpose_b, int unary, int route,
+                                void* stream) {
   if (bm <= 0 || m % bm) return static_cast<int>(cudaErrorInvalidValue);
   const int* gp = static_cast<const int*>(ge);
   const int* lp = static_cast<const int*>(li);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (in_dtype != tpp::kBF16 || mma_dtype != tpp::kBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return gemm_wgmma(a, b, gp, lp, out, groups, layers, m, n, k, bm,
+                      transpose_b, unary, out_dtype, st);
+  }
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return gemm_by_bm<float, float>(a, b, gp, lp, out, groups, layers, m, n,
                                     k, bm, transpose_b, unary, out_dtype, st);

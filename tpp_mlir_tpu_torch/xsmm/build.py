@@ -7,6 +7,10 @@ build takes seconds rather than minutes), under `tpp_mlir_tpu_torch/build/`,
 which `.gitignore` lists. The library's name carries a hash of the sources,
 so an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is downloaded: the sources in the package are the only input.
+`csrc/hopper.cuh` (TMA, mbarriers, wgmma) is shared by the kernels that
+use Hopper's asynchronous copies; its tensor-map encoder, a driver API, is
+taken through the runtime's cudaGetDriverEntryPoint, so the link needs no
+-lcuda.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ _SIGNATURES = {
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
     "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _P]),
-    "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+    "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 12 + [_P]),
     "tpp_grouped_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_L, _L] + [_I] * 2
                           + [_P]),
     "tpp_conv_nhwc": (_I, [_P] * 5 + [_I] * 18 + [_P]),

@@ -18,7 +18,8 @@ reached. Each wrapper counts its launches.
                                      _build_batch_matmul and :1065
                                      _build_batch_matmul_grouped)
   FlashMhaKey  -> by reference.attention_route:
-                  csrc/attention.cu  (replaces :2232 _build_flash_mha_tokens,
+                  csrc/attention.cu  (loader by reference.attention_loader;
+                                     replaces :2232 _build_flash_mha_tokens,
                                      token layout; :1660 _build_flash_mha,
                                      :2395 _qblock, :2721 _grouped, :2496
                                      _causal_twocall and :2618
@@ -38,7 +39,8 @@ reached. Each wrapper counts its launches.
   FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
                                      build_flash_train_bwd, B18)
   GroupedGemmKey -> csrc/grouped_gemm.cu (replaces :1138
-                                     _build_grouped_gemm, B16)
+                                     _build_grouped_gemm, B16; tile by
+                                     reference.grouped_gemm_route)
   GroupedWgradKey -> csrc/grouped_gemm.cu (replaces :1283
                                      _build_grouped_wgrad, B17)
   BlockedMatmulKey -> csrc/blocked_matmul.cu (replaces :763
@@ -290,9 +292,11 @@ def _attention_launch(key: FlashMhaKey):
     H = key.heads or 1                  # the flat layout: one head per row
     E = H * D
     in_dt = reference.DTYPES[key.dtype]
-    mxu = reference.mxu_dtype(key.dtype, key.precision)
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     shape = (B, S, E) if key.heads else (B, S, D)
+    loader = reference.attention_loader(key)
+    code = {"tma": 0, "convert": 1 if key.dtype == "f32" else 2,
+            "fma": 3}[loader]
 
     def launch(q, k=None, v=None):
         if D not in ATTENTION_HEAD_DIMS:
@@ -300,7 +304,7 @@ def _attention_launch(key: FlashMhaKey):
                              f"{ATTENTION_HEAD_DIMS}: {key}")
         if B > CUDA_GRID_YZ or H > CUDA_GRID_YZ:
             raise ValueError(f"attention.cu puts the batch and the heads in "
-                             f"gridDim.z/y, at most {CUDA_GRID_YZ}: {key}")
+                             f"gridDim.y/z, at most {CUDA_GRID_YZ}: {key}")
         dev = q.device
         if key.qkv_packed:
             # [Q|K|V] column groups of one operand, read in place
@@ -314,10 +318,13 @@ def _attention_launch(key: FlashMhaKey):
             _expect(v, "V", shape[:1] + (Skv,) + shape[2:], in_dt, dev)
             ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
             ld = E
+        if loader != "fma" and any(p % 16 for p in ptrs):
+            raise ValueError(f"attention.cu's {loader} loader needs 16-byte "
+                             f"aligned operands: {key}")
         out = torch.empty(shape, dtype=out_dt, device=dev)
         rc = library().tpp_attention(
             *ptrs, out.data_ptr(), B, S, Skv, H, D, ld, _DT_CODE[in_dt],
-            _DT_CODE[mxu], _DT_CODE[out_dt], int(key.causal), key.repeats,
+            code, _DT_CODE[out_dt], int(key.causal), key.repeats,
             key.scale * reference.LOG2E, _stream())
         check(rc, f"attention {key}")
         return out
@@ -551,10 +558,13 @@ def _flash_train_bwd_launch(key: FlashTrainBwdKey):
     return launch
 
 
-GROUPED_BM_QUANTUM = 16     # grouped_gemm.cu's row tiles: 16, 32 or 64 rows
+_GROUPED_ROUTE_CODE = {"wmma": 0, "wgmma": 1}
 
 
-def _grouped_gemm_launch(key: GroupedGemmKey):
+def _grouped_gemm_launch(key: GroupedGemmKey, route: str | None = None):
+    """B16 on the tile reference.grouped_gemm_route chooses, or on `route`
+    where a caller forces one (chip_smoke.py times the WMMA tile at keys
+    the route sends to wgmma)."""
     from .build import check, library
 
     G, L, m, n, k, bm = (key.n_groups, key.layers, key.m, key.n, key.k,
@@ -566,9 +576,9 @@ def _grouped_gemm_launch(key: GroupedGemmKey):
                                            else (k, n))
 
     def launch(*args):
-        if bm % GROUPED_BM_QUANTUM:
-            raise ValueError(f"grouped_gemm.cu needs bm a multiple of "
-                             f"{GROUPED_BM_QUANTUM}: {key}")
+        chosen = reference.grouped_gemm_route(key)
+        if route == "wgmma" and chosen != "wgmma":
+            raise ValueError(f"the wgmma tile cannot take {key}")
         li, (ge, a, b) = (args[0], args[1:]) if L else (None, args)
         dev = a.device
         _expect(ge, "ge", (m // bm,), torch.int32, dev)
@@ -586,7 +596,8 @@ def _grouped_gemm_launch(key: GroupedGemmKey):
             a.data_ptr(), b.data_ptr(), ge.data_ptr(),
             li.data_ptr() if L else None, out.data_ptr(), G, L, m, n, k, bm,
             _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
-            int(key.transpose_b), _UNARY_CODE[key.unary_kind], _stream())
+            int(key.transpose_b), _UNARY_CODE[key.unary_kind],
+            _GROUPED_ROUTE_CODE[route or chosen], _stream())
         check(rc, f"grouped_gemm {key}")
         return out
     return launch
@@ -756,3 +767,12 @@ _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
 def build_kernel(key) -> Kernel:
     reference.check_slice(key)
     return Kernel(key, _LAUNCHES[type(key)](key))
+
+
+def build_grouped_gemm(key: GroupedGemmKey, route: str) -> Kernel:
+    """B16 with its tile forced to `route` ("wgmma" or "wmma"), for timing
+    the two side by side; build_kernel takes the route's own choice."""
+    if route not in _GROUPED_ROUTE_CODE:
+        raise ValueError(f"unknown grouped GEMM route {route!r}")
+    reference.check_slice(key)
+    return Kernel(key, _grouped_gemm_launch(key, route))

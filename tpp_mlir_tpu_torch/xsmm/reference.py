@@ -464,6 +464,34 @@ def attention_route(key: FlashMhaKey) -> str:
         f"another kernel here without a word (ADVICE.md #2): {key}")
 
 
+def tma_aligned(itemsize: int, *elements: int) -> bool:
+    """Whether TMA can take these row strides and column offsets (in
+    elements of `itemsize` bytes): each a multiple of 16 bytes."""
+    return all(e * itemsize % 16 == 0 for e in elements)
+
+
+def attention_loader(key: FlashMhaKey) -> str:
+    """Which loader csrc/attention.cu runs a "kernel" or "bench" route key
+    with, from the key alone:
+      "fma"      MXU dtype f32 (f32 "highest"): the f32-FMA kernel;
+      "tma"      bf16 operands whose row stride (E, 3E packed, D flat) and
+                 column offsets (each head's h*D, the packed groups' E and
+                 2E) TMA can take: TMA fills the K/V ring of the wgmma
+                 kernel;
+      "convert"  f32 operands at "default" (bf16 products), and bf16
+                 operands TMA cannot take: the wgmma kernel's producer
+                 warpgroup loads K/V through registers, rounding to bf16.
+    The operands' base pointers must be 16-byte aligned too; the wrapper
+    checks them (every torch allocation is)."""
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    if key.dtype != "bf16":
+        return "convert"
+    E = (key.heads or 1) * key.head_dim
+    ld = 3 * E if key.qkv_packed else E
+    return "tma" if tma_aligned(2, ld, E, key.head_dim) else "convert"
+
+
 def _heads(key: FlashMhaKey, x: torch.Tensor, s: int) -> torch.Tensor:
     """(B, s, H*D) token layout or (B*H, s, D) flat layout -> (B', H', s,
     D)."""
@@ -924,6 +952,28 @@ def grouped_gemm_reference(key: GroupedGemmKey):
     if key.layers:
         return lambda li, ge, a, b: body(ge, a, b[int(li)])
     return body
+
+
+GROUPED_BM_QUANTUM = 16     # the WMMA tile's rows: 16, 32 or 64
+
+
+def grouped_gemm_route(key: GroupedGemmKey) -> str:
+    """Which tile of csrc/grouped_gemm.cu runs B16 at `key`, or raise:
+      "wgmma"  bf16 operands, bm a multiple of 64 (the tile's 64 or 128
+               rows divide it, so no tile straddles two row blocks), k and
+               n multiples of 8 (TMA takes the row strides): the pipelined
+               TMA + wgmma tile; every key of the MoE slice;
+      "wmma"   any other bm that is a multiple of 16, f32 operands ("default"
+               and "highest"), strides TMA cannot take: the WMMA / f32-FMA
+               tile staged through shared memory.
+    A bm that is not a multiple of 16 has no tile (ValueError)."""
+    if key.bm % GROUPED_BM_QUANTUM:
+        raise ValueError(f"grouped_gemm.cu needs bm a multiple of "
+                         f"{GROUPED_BM_QUANTUM}: {key}")
+    if key.dtype == "bf16" and key.bm % 64 == 0 and \
+            tma_aligned(2, key.k, key.n):
+        return "wgmma"
+    return "wmma"
 
 
 def grouped_wgrad_reference(key: GroupedWgradKey):
