@@ -607,17 +607,27 @@ def _int8_inputs(key, g):
     return (xq, w.q, xs, w.scale) + ((bias,) if key.has_bias else ())
 
 
-def _route_note(key) -> str:
-    """The loader (attention.cu) or tile (B16) the wrapper chose."""
-    from tpp_mlir_tpu_torch.xsmm import FlashMhaKey, GroupedGemmKey
+def _route_note(key, xt_stride=None) -> str:
+    """The loader (attention.cu) or tile (B16, B17: at xt's strides) or
+    kernel (B14) the wrapper chose."""
+    from tpp_mlir_tpu_torch.xsmm import (FlashMhaKey, FlashTrainBwdKey,
+                                         FlashTrainKey, GroupedGemmKey,
+                                         GroupedWgradKey)
     from tpp_mlir_tpu_torch.xsmm.reference import (attention_loader,
                                                    attention_route,
-                                                   grouped_gemm_route)
+                                                   flash_train_fwd_route,
+                                                   grouped_gemm_route,
+                                                   grouped_wgrad_route)
     if isinstance(key, FlashMhaKey) and \
             attention_route(key) in ("kernel", "bench"):
         return f"; loader {attention_loader(key)}"
     if isinstance(key, GroupedGemmKey):
         return f"; route {grouped_gemm_route(key)}"
+    if isinstance(key, GroupedWgradKey):
+        return f"; route {grouped_wgrad_route(key, xt_stride)}"
+    if isinstance(key, FlashTrainKey) and \
+            not isinstance(key, FlashTrainBwdKey):
+        return f"; B14 route {flash_train_fwd_route(key)}"
     return ""
 
 
@@ -668,9 +678,11 @@ def phase_kernels() -> dict:
 
 
 # B14/B18 cases: (label, key, KV heads of a GQA case or None). The GPT-2
-# training key, an f32 key (no tensor cores: f32 FMA) and a GQA case whose
+# training key, an f32 key (no tensor cores: f32 FMA), a GQA case whose
 # K/V are repeated to the query heads before the kernels, as
-# flash_attention_train does
+# flash_attention_train does, and the edges of attention.cu's training
+# mode: a ragged S (rows past seq, a partial K/V tile), D 32 (64-byte
+# swizzle) and D 128
 def _flash_train_cases():
     from tpp_mlir_tpu_torch.xsmm import FlashTrainKey
     return [
@@ -680,6 +692,12 @@ def _flash_train_cases():
                                               128 ** -0.5), None),
         ("gqa b2 s256 h12 kv4 d64 causal bf16",
          FlashTrainKey(2, 12, 256, 64, "bf16", True, 0.125), 4),
+        ("ragged b2 s200 h4 d64 causal bf16",
+         FlashTrainKey(2, 4, 200, 64, "bf16", True, 0.125), None),
+        ("d32 b2 s256 h8 causal bf16",
+         FlashTrainKey(2, 8, 256, 32, "bf16", True, 32 ** -0.5), None),
+        ("d128 b2 s256 h4 bf16", FlashTrainKey(2, 4, 256, 128, "bf16", False,
+                                               128 ** -0.5), None),
     ]
 
 
@@ -704,9 +722,10 @@ def phase_flash_train() -> dict:
     """B14 and B18 against their plain versions on the same inputs: O and
     dq/dk/dv within 2e-2 (bf16: P and dS rounded on both sides, online vs
     whole-row softmax) or 1e-4 (f32), lse2 within 1e-4; B18 twice on the
-    same inputs bit-equal (no atomics). The GQA case also runs the autograd
-    op flash_attention_train on 4 KV heads against the plain versions with
-    the group sums of dk/dv taken by hand."""
+    same inputs bit-equal (no atomics), and B18 fed B14's own lse2 and
+    delta ("fed") within the same tolerance of the plain B18. The GQA case
+    also runs the autograd op flash_attention_train on 4 KV heads against
+    the plain versions with the group sums of dk/dv taken by hand."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import (FlashTrainBwdKey, build_kernel,
@@ -725,12 +744,15 @@ def phase_flash_train() -> dict:
         args = (q, kr, vr, do, plse2, _flash_delta(do, po))
         bwd = build_kernel(bkey)
         got, again = bwd(*args), bwd(*args)
+        fed = bwd(q, kr, vr, do, lse2, _flash_delta(do, o))
         want = reference_kernel(bkey)(*args)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         rels = {"o": rel_err(o, po), "lse2": rel_err(lse2, plse2)}
         rels.update({n: rel_err(a, b) for n, a, b in
                      zip(("dq", "dk", "dv"), got, want)})
+        rels.update({f"fed {n}": rel_err(a, b) for n, a, b in
+                     zip(("dq", "dk", "dv"), fed, want)})
         if kvh:     # the autograd op: repeat outside, group sums by autograd
             ql, kl, vl = (x.detach().clone().requires_grad_(True)
                           for x in (q, k, v))
@@ -747,7 +769,7 @@ def phase_flash_train() -> dict:
         say(f"kernel flash_train {label:38s} " + " ".join(
             f"{n} rel {r:.3e}" for n, (r, _) in rels.items())
             + f"; B18 repeat bit-equal {same}; tol {tol:.0e} (lse2 "
-            f"{TOL_LSE:.0e}) {'ok' if ok else 'FAIL'}")
+            f"{TOL_LSE:.0e}){_route_note(key)} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_train {label}: {rels}, bit-equal "
                                  f"{same}, finite {finite}")
@@ -1347,11 +1369,20 @@ GROUPED_GEMM_CASES = (
     ("edge layers 2 tb 1280x256x384", 512, 128, 256, 384,
      dict(_B16, layers=2, transpose_b=True), False),
 )
-# B17: (label, T, bm, k, n, skewed): dw2 (a^T dys) and dw1 (xs^T dz1)
+# B17: (label, T, bm, k, n, skewed, xt contiguous): dw2 (a^T dys) and dw1
+# (xs^T dz1) as the training backward passes xt (the transpose of the slot
+# rows), then the wgmma tile's edges: bm 64, k and n off its 128, a
+# contiguous (K-major) xt; bm 16 takes the WMMA tile
 GROUPED_WGRAD_CASES = (
-    ("dw2 k3072 n768 over 9216", 4096, 128, 3072, 768, False),
-    ("dw1 k768 n3072 over 9216", 4096, 128, 768, 3072, False),
-    ("skewed dw1 k768 n3072", 4096, 128, 768, 3072, True),
+    ("dw2 k3072 n768 over 9216", 4096, 128, 3072, 768, False, False),
+    ("dw1 k768 n3072 over 9216", 4096, 128, 768, 3072, False, False),
+    ("skewed dw1 k768 n3072", 4096, 128, 768, 3072, True, False),
+    ("edge bm 64 k256 n512", 600, 64, 256, 512, False, False),
+    ("edge ragged k200 n136", 300, 128, 200, 136, False, False),
+    ("edge bm 64 ragged skewed k136 n200", 300, 64, 136, 200, True, False),
+    ("edge contiguous xt dw1 k768 n3072", 4096, 128, 768, 3072, False,
+     True),
+    ("edge bm 16 k128 n96", 200, 16, 128, 96, False, False),
 )
 
 
@@ -1374,10 +1405,11 @@ def _grouped_gemm_inputs(g, T, bm, n, k, fields, skew):
     return key, args, d["tt"] == T
 
 
-def _grouped_wgrad_inputs(g, T, bm, k, n, skew):
+def _grouped_wgrad_inputs(g, T, bm, k, n, skew, contiguous=False):
     """(key, args, experts no token chose): xt the transpose of the
     (A_pad, k) slot rows, read in place as the training backward passes
-    it, and dY with zero padding rows."""
+    it (or, `contiguous`, a contiguous copy), and dY with zero padding
+    rows."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import GroupedWgradKey
@@ -1390,7 +1422,8 @@ def _grouped_wgrad_inputs(g, T, bm, k, n, skew):
     live = d["tt"] < T
     dy = (dy * live[:, None]).bfloat16()
     chosen = set(d["ge"][live.reshape(-1, bm).any(1)].tolist())
-    return key, (d["ge"], xs.t(), dy), sorted(set(range(8)) - chosen)
+    xt = xs.t().contiguous() if contiguous else xs.t()
+    return key, (d["ge"], xt, dy), sorted(set(range(8)) - chosen)
 
 
 def phase_grouped_kernels() -> dict:
@@ -1442,8 +1475,9 @@ def phase_grouped_kernels() -> dict:
         if not ok:
             raise AssertionError(f"grouped_gemm no-block bm {bm}: rel {rel}")
         worst["grouped_gemm"] = max(worst["grouped_gemm"], ab)
-    for label, T, bm, k, n, skew in GROUPED_WGRAD_CASES:
-        key, args, untouched = _grouped_wgrad_inputs(g, T, bm, k, n, skew)
+    for label, T, bm, k, n, skew, contiguous in GROUPED_WGRAD_CASES:
+        key, args, untouched = _grouped_wgrad_inputs(g, T, bm, k, n, skew,
+                                                     contiguous)
         kern = build_kernel(key)
         got, again = kern(*args), kern(*args)
         ref = reference_kernel(key)(*args)
@@ -1455,11 +1489,35 @@ def phase_grouped_kernels() -> dict:
             and bool(untouched) == skew
         say(f"kernel grouped_wgrad {label:37s} rel {rel:.3e} abs {ab:.3e} "
             f"tol {TOL_F32:.0e}; repeat bit-equal {same}; experts no token "
-            f"chose {untouched} zero {zero} {'ok' if ok else 'FAIL'}")
+            f"chose {untouched} zero {zero}"
+            f"{_route_note(key, args[1].stride())} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"grouped_wgrad {label}: rel {rel}, "
                                  f"bit-equal {same}, untouched {untouched} "
                                  f"zero {zero}")
+        worst["grouped_wgrad"] = max(worst["grouped_wgrad"], ab)
+    # experts 1 and 3 of 5 own no row block: the wgmma tile runs no slice
+    # for them and must write exactly zero
+    from tpp_mlir_tpu_torch.xsmm import GroupedWgradKey
+    for bm in (64, 128):
+        ge = torch.tensor([0, 2, 2, 4, 4, 4], dtype=torch.int32,
+                          device="cuda")
+        key = GroupedWgradKey(n_groups=5, m=6 * bm, k=192, n=256, bm=bm,
+                              dtype="bf16")
+        x = torch.randn(key.m, key.k, generator=g, device="cuda").bfloat16()
+        dy = torch.randn(key.m, key.n, generator=g, device="cuda").bfloat16()
+        got = build_kernel(key)(ge, x.t(), dy)
+        ref = reference_kernel(key)(ge, x.t(), dy)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        zero = not got[[1, 3]].any().item()
+        ok = rel <= TOL_F32 and zero and torch_isfinite(got)
+        say(f"kernel grouped_wgrad {f'experts 1, 3 own no block bm {bm}':37s}"
+            f" rel {rel:.3e} abs {ab:.3e} tol {TOL_F32:.0e}; their dW zero "
+            f"{zero}{_route_note(key)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grouped_wgrad no-block bm {bm}: rel {rel},"
+                                 f" zero {zero}")
         worst["grouped_wgrad"] = max(worst["grouped_wgrad"], ab)
     return {kind: {"max_abs_err": e} for kind, e in worst.items()}
 
@@ -2614,7 +2672,7 @@ def phase_timing(n: int = 100) -> dict:
     moe = [("grouped_gemm", *_grouped_gemm_inputs(
         g, *GROUPED_GEMM_CASES[i][1:])[:2]) for i in (1, 0)]
     moe += [("grouped_wgrad", *_grouped_wgrad_inputs(
-        g, *GROUPED_WGRAD_CASES[i][1:])[:2]) for i in (1, 0)]
+        g, *GROUPED_WGRAD_CASES[i][1:])[:2]) for i in (1, 0, 2)]
     # the MHA suite: flat attention at each TPU kernel's own key (B8 at
     # S 2048 first: the kernel line's; B9 at the S 1024 rows and mha_full;
     # B10b and B10a at causal S 2048; B6 with forced blocks), B11 at -n 20,
@@ -2658,6 +2716,18 @@ def phase_timing(n: int = 100) -> dict:
             note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
         if hasattr(key, "bq") and (key.strategy != "auto" or key.bq):
             note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
+        if kind in ("flash_train_fwd", "attention"):
+            # a ~50 us kernel timed over eager launches can read the host's
+            # time a call (two tensor-map encodes included): the device's
+            # own, from graph replay, beside it
+            lib_g = f", library call {graph_ms(library):.4f} ms" \
+                if library else ""
+            note += f" (replayed from a CUDA graph: " \
+                f"{graph_ms(lambda: kern(*args)):.4f} ms{lib_g})"
+        if kind in ("grouped_gemm", "grouped_wgrad"):
+            blocks = torch.bincount(args[-3].long(), minlength=key.n_groups)
+            note += f" (largest expert {int(blocks.max())} of " \
+                f"{key.m // key.bm} row blocks)"
         lib = f"{lib_ms:.4f} ms" if library else "none"
         say(f"time kernel {describe(key):44s} {ms:.4f} ms, plain version "
             f"{plain_ms:.4f} ms, library call {lib}, bound {bound:.4f} ms "
@@ -2684,11 +2754,11 @@ def phase_timing(n: int = 100) -> dict:
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": by,
                               "library_ms": lib_ms, **err})
-    # B16's WMMA tile, forced at the keys the route sends to wgmma,
-    # beside the wgmma tile in turns (wgmma, wmma, wmma, wgmma)
+    # B16's and B17's WMMA tile, forced at the keys the route sends to
+    # wgmma, beside the wgmma tile in turns (wgmma, wmma, wmma, wgmma)
     from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
     for kind, key, args in timed:
-        if kind != "grouped_gemm":
+        if kind not in ("grouped_gemm", "grouped_wgrad"):
             continue
         new, old = build_grouped_gemm(key, "wgmma"), \
             build_grouped_gemm(key, "wmma")
@@ -3009,7 +3079,9 @@ def main() -> int:
             ("layer_norm", "layer_norm.cu", "kernels.py:3257"),
             ("decode_attn", "decode_attn.cu", "decode_attn.py:101"),
             ("int8_gemm", "int8_gemm.cu", "kernels.py:1365"),
-            ("flash_train_fwd", "flash_train.cu", "flash_train.py:146"),
+            # bf16 (the main path's) on attention.cu's training mode; f32
+            # on flash_train.cu's f32-FMA forward
+            ("flash_train_fwd", "attention.cu", "flash_train.py:146"),
             ("flash_train_bwd", "flash_train.cu", "flash_train.py:190"),
             ("grouped_gemm", "grouped_gemm.cu", "kernels.py:1138"),
             ("grouped_wgrad", "grouped_gemm.cu", "kernels.py:1283"),

@@ -458,8 +458,15 @@ def test_trace_serving_sees_the_decode_kernel(cuda):
     FlashTrainKey(2, 3, 100, 32, "bf16", False, 32 ** -0.5),
     FlashTrainKey(1, 2, 200, 128, "bf16", True, 128 ** -0.5),
     FlashTrainKey(2, 2, 130, 64, "f32", True, 0.125),
-], ids=["bf16-d32-tail", "bf16-d128-causal", "f32-d64-causal-tail"])
+    FlashTrainKey(2, 4, 200, 64, "bf16", True, 0.125),
+    FlashTrainKey(2, 3, 256, 32, "bf16", True, 32 ** -0.5),
+    FlashTrainKey(1, 2, 256, 128, "bf16", False, 128 ** -0.5),
+], ids=["bf16-d32-tail", "bf16-d128-causal", "f32-d64-causal-tail",
+        "bf16-d64-causal-s200", "bf16-d32-causal", "bf16-d128-full"])
 def test_flash_train_kernels_match_plain(cuda, key):
+    """B14 (attention.cu's training mode for bf16, the f32-FMA forward for
+    f32) and B18 against their plain versions; B18 fed the kernel's lse2
+    and delta within the same tolerance of B18 fed the plain ones."""
     import dataclasses
     t = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
     q, k, v, do = (torch.randn(key.batch, key.seq, key.heads, key.head_dim,
@@ -476,6 +483,10 @@ def test_flash_train_kernels_match_plain(cuda, key):
     want = reference_kernel(bkey)(q, k, v, do, plse2, delta)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)           # no atomics: bit-repeatable
+        assert _err(a, w) <= tol
+    kdelta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    fed = build_kernel(bkey)(q, k, v, do, lse2, kdelta)
+    for a, w in zip(fed, got):
         assert _err(a, w) <= tol
 
 
@@ -670,32 +681,81 @@ def test_grouped_gemm_forced_tiles(cuda):
             w)
 
 
-# (T, n_e, bm, k, n, dtype, precision, skewed routing)
+# (T, n_e, bm, k, n, dtype, precision, skewed routing): B17 at the MoE
+# slice's dw1 and dw2 (9216 padded rows), skewed routing, bm 64 and k, n off
+# the wgmma tile's 128 on the TMA + wgmma tile; bm 16 and f32 "highest" on
+# the WMMA / FMA tile
 WGRAD = {
     "bf16-bm128": (512, 8, 128, 256, 512, "bf16", "default", False),
     "bf16-bm16-skewed": (200, 4, 16, 128, 96, "bf16", "default", True),
     "f32-highest-skewed": (100, 4, 32, 64, 96, "f32", "highest", True),
+    "bf16-dw1": (4096, 8, 128, 768, 3072, "bf16", "default", False),
+    "bf16-dw2": (4096, 8, 128, 3072, 768, "bf16", "default", False),
+    "bf16-dw1-skewed": (4096, 8, 128, 768, 3072, "bf16", "default", True),
+    "bf16-bm64": (600, 8, 64, 256, 512, "bf16", "default", False),
+    "bf16-ragged-k200-n136": (300, 8, 128, 200, 136, "bf16", "default",
+                              False),
+    "bf16-bm64-ragged-k136-n200-skewed": (300, 8, 64, 136, 200, "bf16",
+                                          "default", True),
 }
 
 
 @pytest.mark.parametrize("name", list(WGRAD))
 def test_grouped_wgrad_kernel_matches_plain(cuda, name):
+    """xt as the transpose of a contiguous x (an MN-major A tile on wgmma)
+    and as a contiguous (K-major) xt, bit-equal to each other and over two
+    runs; the forced WMMA tile at the same key within the same tolerance."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
+    from tpp_mlir_tpu_torch.xsmm.reference import grouped_wgrad_route
     T, n_e, bm, k, n, dtype, precision, skew = WGRAD[name]
     d = _moe_routing(cuda, T, n_e, bm, skew)
     key = GroupedWgradKey(n_groups=n_e, m=d["A_pad"], k=k, n=n, bm=bm,
                           dtype=dtype, precision=precision)
+    route = grouped_wgrad_route(key)
+    assert route == ("wgmma" if dtype == "bf16" and bm % 64 == 0
+                     else "wmma")
+    assert grouped_wgrad_route(key, (d["A_pad"], 1)) == route
     h = _rnd(cuda, (T, k), dtype)
     xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
     dy = _rnd(cuda, (d["A_pad"], n), dtype)
     kern = build_kernel(key)
     got = kern(d["ge"], xs.t(), dy)         # the transpose, read in place
     again = kern(d["ge"], xs.t().contiguous(), dy)
+    twice = kern(d["ge"], xs.t(), dy)
     want = reference_kernel(key)(d["ge"], xs.t(), dy)
+    forced = build_grouped_gemm(key, "wmma")(d["ge"], xs.t(), dy)
     torch.cuda.synchronize()
-    assert kern.launches == 2 and torch.equal(got, again)
+    assert kern.launches == 3
+    assert torch.equal(got, again) and torch.equal(got, twice)
     assert _err(got, want) <= 1e-4
+    assert _err(forced, want) <= 1e-4
     if skew:
         assert not got[n_e - 1].any()
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+def test_grouped_wgrad_wgmma_with_an_expert_that_owns_no_block(cuda, bm):
+    # experts 1 and 3 of 5 own no row block: the wgmma tile runs no slice
+    # for them and writes exactly zero
+    ge = torch.tensor([0, 2, 2, 4, 4, 4], dtype=torch.int32, device="cuda")
+    key = GroupedWgradKey(n_groups=5, m=6 * bm, k=192, n=256, bm=bm,
+                          dtype="bf16")
+    x = _rnd(cuda, (key.m, key.k), "bf16")
+    dy = _rnd(cuda, (key.m, key.n), "bf16")
+    got = build_kernel(key)(ge, x.t(), dy)
+    want = reference_kernel(key)(ge, x.t(), dy)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= 1e-4
+    assert not got[1].any() and not got[3].any()
+
+
+def test_grouped_wgrad_forced_wgmma_refuses_what_it_cannot_take(cuda):
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
+    key = GroupedWgradKey(n_groups=2, m=64, k=32, n=32, bm=16, dtype="bf16")
+    ge = torch.zeros(4, dtype=torch.int32, device="cuda")
+    x = _rnd(cuda, (64, 32), "bf16")
+    with pytest.raises(ValueError, match="wgmma tile cannot take"):
+        build_grouped_gemm(key, "wgmma")(ge, x.t(), x)
 
 
 def _moe_model(**kw):

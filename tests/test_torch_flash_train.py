@@ -142,6 +142,18 @@ def test_cpu_tensors_take_the_plain_versions():
         "FlashTrainBwdKey", 0) == 0
 
 
+@pytest.mark.parametrize("dtype,want", [("bf16", "wgmma"), ("f32", "fma")])
+def test_flash_train_fwd_route_table(dtype, want):
+    # B14's kernel by operand dtype (xsmm/reference.py flash_train_fwd_route):
+    # bf16 on attention.cu's wgmma kernel in its training mode, f32 on
+    # flash_train.cu's f32-FMA forward
+    from tpp_mlir_tpu_torch.xsmm.reference import flash_train_fwd_route
+    for causal in (True, False):
+        key = FlashTrainKey(batch=2, heads=4, seq=24, head_dim=32,
+                            dtype=dtype, causal=causal, scale=0.25)
+        assert flash_train_fwd_route(key) == want
+
+
 def test_flash_train_key_rejects_f16():
     with pytest.raises(NotImplementedError, match="A14"):
         reference_kernel(FlashTrainKey(1, 2, 16, 32, "f16"))

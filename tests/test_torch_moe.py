@@ -218,6 +218,39 @@ def test_grouped_gemm_route_table(name):
     build_kernel(key)       # the CPU's plain version takes any bm
 
 
+# csrc/grouped_gemm.cu's tile for B17, chosen from the key and xt's strides
+# (xsmm/reference.py grouped_wgrad_route): the TMA + wgmma tile for bf16
+# operands with bm a multiple of 64, n a multiple of 8 and xt with one unit
+# stride and the other a 16-byte multiple (the transpose of a contiguous x
+# by default, or a contiguous xt); the WMMA tile for a bm of 16 or 32, f32
+# operands and strides TMA cannot take. (key fields, xt strides, route)
+WGRAD_ROUTES = {
+    "dw1-bm128": (dict(m=9216, k=768, n=3072), None, "wgmma"),
+    "dw2-bm128": (dict(m=9216, k=3072, n=768), None, "wgmma"),
+    "dw1-bm128-transpose-strides": (dict(m=9216, k=768, n=3072), (1, 768),
+                                    "wgmma"),
+    "bm64": (dict(bm=64), None, "wgmma"),
+    "contiguous-xt": (dict(), (256, 1), "wgmma"),
+    "bm16": (dict(bm=16), None, "wmma"),
+    "bm32": (dict(bm=32), None, "wmma"),
+    "f32-default": (dict(dtype="f32"), None, "wmma"),
+    "f32-highest": (dict(dtype="f32", precision="highest"), None, "wmma"),
+    "xt-row-stride-off-16-bytes": (dict(k=100), None, "wmma"),
+    "xt-no-unit-stride": (dict(), (2, 128), "wmma"),
+    "n-off-8": (dict(n=36), None, "wmma"),
+}
+
+
+@pytest.mark.parametrize("name", list(WGRAD_ROUTES))
+def test_grouped_wgrad_route_table(name):
+    from tpp_mlir_tpu_torch.xsmm.reference import grouped_wgrad_route
+    fields, strides, want = WGRAD_ROUTES[name]
+    key = GroupedWgradKey(**{"n_groups": 8, "m": 256, "k": 64, "n": 128,
+                             "dtype": "bf16", **fields})
+    assert grouped_wgrad_route(key, strides) == want
+    build_kernel(key)       # the CPU's plain version takes any tile
+
+
 # ---------------------------------------------------------------------------
 # the router and the forms without a kernel
 

@@ -15,6 +15,16 @@
 // _build_flash_causal_fold2 (B10b). Their causal mask keeps rows >= cols,
 // aligned top-left.
 //
+// Training forward (replaces tpp_mlir_tpu/xsmm/flash_train.py:146
+// build_flash_train_fwd, B14, for bf16 operands; flash_train.cu's
+// tpp_flash_train_fwd calls tpp_attention_train_fwd below): the same
+// function on the (B, S, H, D) layout, which is the token layout's memory,
+// with two differences that a compile-time mode (TRAIN) folds into the
+// wgmma kernel: Q is staged rounded but unscaled and the S accumulators are
+// multiplied by qscale in f32 before the row max, as the plain version
+// scales the f32 product (B18 recomputes P from lse2); and each row's
+// base-2 log-sum-exp lse2 = m + log2(l) is written, (B, H, S) f32.
+//
 // Warm bench (replaces :2091 _build_flash_bench, B11): with repeats > 0 a
 // block loops over the repeats on its own Q tile. A tile's output rows
 // depend only on its Q rows and on all of K/V, so no grid-wide sync is
@@ -82,6 +92,7 @@ struct Args {
   float qscale;  // scale * log2(e)
   int causal, out_dtype;
   int repeats;   // 0: one pass; > 0: the warm bench (B11)
+  float* lse = nullptr;  // training mode: (B, H, seq) base-2 log-sum-exp
 };
 
 // ---- the bf16 MXU path: wgmma, TMA or register loaders -----------------
@@ -193,7 +204,9 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
   hw::fence_regs(o);
 }
 
-template <Loader LD, int D>
+// TRAIN: B14's forward (one pass, bf16 by TMA): Q staged unscaled, S scaled
+// by qscale in f32 in registers, and each row's lse2 = m + log2(l) stored.
+template <Loader LD, int D, bool TRAIN = false>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, Args a) {
@@ -282,7 +295,8 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
   const int cq = 2 * (lane % 4);                 // first column of a pair
   const size_t q_base = (size_t)b * a.seq * a.ld_in + col0;
 
-  // stage Q: rounded to bf16, scaled by qscale in f32, rounded again
+  // stage Q: rounded to bf16, scaled by qscale in f32, rounded again (in
+  // training mode rounded only: S is scaled instead)
 #pragma unroll
   for (int it = 0; it < 64 * D / 8 / WG; ++it) {
     const int u = wtid + it * WG;
@@ -292,7 +306,8 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
     if (qi < a.seq) {
       load8<LD>(a.q, q_base + (size_t)qi * a.ld_in + c, x);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) x[j] = round_bf16(x[j]) * a.qscale;
+      for (int j = 0; j < 8; ++j)
+        x[j] = TRAIN ? round_bf16(x[j]) : round_bf16(x[j]) * a.qscale;
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
@@ -318,6 +333,10 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
         const unsigned char* ks = ring + stage * 2 * T::KV;
         float s[BKV / 2];
         qk_product<D>(s, qa, ks);
+        if constexpr (TRAIN) {
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i) s[i] *= a.qscale;
+        }
         if (kv0 + BKV > a.seq_kv ||
             (a.causal && kv0 + BKV - 1 > q0 + r_wg)) {
 #pragma unroll
@@ -365,6 +384,15 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int hh = 0; hh < 2; ++hh) {
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+    if constexpr (TRAIN) {   // the quad's four lanes agree: one stores
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qi = row0 + 8 * hh;
+        if (lane % 4 == 0 && qi < a.seq)
+          a.lse[((size_t)b * gridDim.x + h) * a.seq + qi] =
+              m[hh] + log2f(l[hh]);
+      }
     }
     if (rep + 1 == passes) break;
     // warm bench: the output, rounded to bf16, is the next Q
@@ -418,7 +446,7 @@ int kv_maps(const Args& a, int heads, int batch, CUtensorMap* kmap,
   return rc;
 }
 
-template <Loader LD, int D>
+template <Loader LD, int D, bool TRAIN = false>
 int launch_mma(const Args& a, int batch, int heads, cudaStream_t stream) {
   using T = Tile<D>;
   CUtensorMap kmap{}, vmap{};
@@ -426,7 +454,7 @@ int launch_mma(const Args& a, int batch, int heads, cudaStream_t stream) {
     const int rc = kv_maps<D>(a, heads, batch, &kmap, &vmap);
     if (rc) return rc;
   }
-  auto kernel = attention_kernel<LD, D>;
+  auto kernel = attention_kernel<LD, D, TRAIN>;
   const int smem = T::bytes + 1024;     // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -683,6 +711,29 @@ extern "C" int tpp_attention(const void* q, const void* k, const void* v,
     case 32: return launch_d<32>(a, batch, heads, loader, st);
     case 64: return launch_d<64>(a, batch, heads, loader, st);
     case 128: return launch_d<128>(a, batch, heads, loader, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B14, the training forward (replaces tpp_mlir_tpu/xsmm/flash_train.py:146
+// build_flash_train_fwd), bf16 operands: the wgmma kernel above in its
+// training mode over the (B, S, H, D) layout (row stride H*D, TMA loader),
+// causal or not, O in bf16 and lse2 (B, H, S) f32. flash_train.cu's
+// tpp_flash_train_fwd sends its bf16 keys here. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int tpp_attention_train_fwd(const void* q, const void* k,
+                                       const void* v, void* o, float* lse2,
+                                       int batch, int seq, int heads,
+                                       int head_dim, int causal,
+                                       float qscale, void* stream) {
+  Args a{q,      k,      v,      o,           seq, seq,
+         heads * head_dim, heads * head_dim, qscale, causal, tpp::kBF16, 0};
+  a.lse = lse2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return launch_mma<kTma, 32, true>(a, batch, heads, st);
+    case 64: return launch_mma<kTma, 64, true>(a, batch, heads, st);
+    case 128: return launch_mma<kTma, 128, true>(a, batch, heads, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,13 +12,20 @@
 // where ' rounds to bf16 for bf16 operands (the TPU kernels' `_pv_dtype`)
 // and every product sums in f32. Outputs are in the operand dtype.
 //
+// B14 takes one of two routes, which xsmm/reference.py
+// flash_train_fwd_route chooses from the key:
+//   "wgmma" (bf16 operands): attention.cu's wgmma kernel in its training
+//   mode (tpp_attention_train_fwd: TMA K/V ring, S, P and O in registers,
+//   lse2 from the final row max and sum);
+//   "fma" (f32 operands, which the TPU's B14 runs in true f32): the f32-FMA
+//   forward below.
 // The TPU kernels hold whole (S, S) slabs of one head in VMEM; a Hopper
-// block has at most 227 KB of shared memory, so both kernels are tiled in
-// 64 x 64 blocks and no (S, S) array exists anywhere:
-//   * B14: one block per (64-row Q tile, head, batch row), looping over the
-//     K/V tiles with an online softmax (running max m, running sum l, the
-//     f32 output accumulator rescaled per tile and divided by l once at the
-//     end). Causal keys skip the K/V tiles above the diagonal.
+// block has at most 227 KB of shared memory, so the kernels here are tiled
+// in 64 x 64 blocks and no (S, S) array exists anywhere:
+//   * B14 "fma": one block per (64-row Q tile, head, batch row), looping
+//     over the K/V tiles with an online softmax (running max m, running sum
+//     l, the f32 output accumulator rescaled per tile and divided by l once
+//     at the end). Causal keys skip the K/V tiles above the diagonal.
 //   * B18: two passes, both deterministic (no atomics, so two runs give
 //     bit-equal gradients). Pass 1, one block per (64-row K/V tile, head,
 //     batch row), keeps K_j, V_j and the f32 dK_j, dV_j accumulators and
@@ -26,16 +33,16 @@
 //     lse2. Pass 2, one block per Q tile, recomputes S and dP over the
 //     K/V tiles and accumulates dQ_i; it repeats two of pass 1's products
 //     so that dQ needs no cross-block reduction.
-// Products: WMMA bf16 16x16x16 with f32 accumulators for bf16 operands; f32
-// FMA (no TF32) for f32 operands. Accumulators live in shared memory so
-// that the row-wise softmax and rescale need no fragment layout.
+// Products: WMMA bf16 16x16x16 with f32 accumulators for bf16 operands
+// (B18); f32 FMA (no TF32) for f32 operands. Accumulators live in shared
+// memory so that the row-wise softmax and rescale need no fragment layout.
 //
 // What bounds it on the H100: at the GPT-2 training key (B 8, S 512, H 12,
 // D 64, causal, bf16) B14 does 3.2 GFLOP over 25 MB and B18 8.1 GFLOP over
 // 44 MB, both below the 295 FLOP/byte ridge, so the floor is bytes (7.6 and
-// 13.3 us at 3.35 TB/s). This first version is bound by its own
-// shared-memory traffic and unpipelined scalar tile loads instead; wgmma,
-// TMA and register-resident accumulators are later work. D 32, 64, 128.
+// 13.3 us at 3.35 TB/s). B18 is bound by its own shared-memory traffic and
+// unpipelined scalar tile loads instead; wgmma, TMA and register-resident
+// accumulators there are later work. D 32, 64, 128.
 #include <math.h>
 #include <mma.h>
 
@@ -460,8 +467,13 @@ int launch(Kernel kernel, size_t bytes, const Args& a, int batch,
 
 template <typename T, int D>
 int run(bool backward, const Args& a, int batch, cudaStream_t st) {
-  if (!backward)
-    return launch(flash_fwd_kernel<T, D>, FwdPlan<T, D>::bytes, a, batch, st);
+  if (!backward) {   // bf16 keys take attention.cu's wgmma kernel
+    if constexpr (kTensor<T>)
+      return static_cast<int>(cudaErrorInvalidValue);
+    else
+      return launch(flash_fwd_kernel<T, D>, FwdPlan<T, D>::bytes, a, batch,
+                    st);
+  }
   const size_t bytes = BwdPlan<T, D>::bytes;
   const int rc = launch(flash_bwd_kv_kernel<T, D>, bytes, a, batch, st);
   if (rc) return rc;
@@ -490,13 +502,28 @@ int dispatch(bool backward, const Args& a, int batch, int head_dim,
 
 }  // namespace
 
+// attention.cu's training mode
+extern "C" int tpp_attention_train_fwd(const void* q, const void* k,
+                                       const void* v, void* o, float* lse2,
+                                       int batch, int seq, int heads,
+                                       int head_dim, int causal,
+                                       float qscale, void* stream);
+
 // B14. q/k/v/o are (B, S, H, D) in the operand dtype, lse2 (B, H, S) f32.
-// Returns the cudaError_t of the launch (0 on success).
+// route is xsmm/reference.py flash_train_fwd_route's choice: 1 "wgmma"
+// (bf16), 0 "fma" (f32). Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int tpp_flash_train_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse2,
                                    int batch, int seq, int heads,
                                    int head_dim, int dtype, int causal,
-                                   float qscale, void* stream) {
+                                   float qscale, int route, void* stream) {
+  if (route != (dtype == tpp::kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1)
+    return tpp_attention_train_fwd(q, k, v, o, static_cast<float*>(lse2),
+                                   batch, seq, heads, head_dim, causal,
+                                   qscale, stream);
   const Args a{q, k, v, nullptr, o, nullptr, nullptr,
                static_cast<float*>(lse2), nullptr, seq, heads,
                heads * head_dim, causal, qscale, 0.f};

@@ -24,9 +24,9 @@
 //
 // What bounds them on the H100: at the MoE shapes (A_pad 9216 rows, E 768,
 // F 3072) each product is 43.5 GFLOP, 0.044 ms at 989 TFLOP/s, against
-// 0.030 ms for fc2's 101 MB of A, weights and output at 3.35 TB/s: both are
-// compute-bound by the card's measure, so the tensor cores must never wait
-// on a copy.
+// 0.030 ms for fc2's 101 MB of A, weights and output at 3.35 TB/s (B17:
+// 0.041 ms, most of it the 75 MB of f32 dW): both are compute-bound by the
+// card's measure, so the tensor cores must never wait on a copy.
 //
 // B16 takes one of two routes, which xsmm/reference.py grouped_gemm_route
 // chooses from the key:
@@ -54,7 +54,19 @@
 //   16x16x16, f32 accumulators) for bf16 and f32 "default" operands, f32
 //   FMA for f32 "highest". Its rows BM are the largest of 64, 32, 16 that
 //   divide bm (the wrapper refuses a bm that is not a multiple of 16).
-// B17 runs on the WMMA tile's staging and products (TileMma).
+//
+// B17 takes one of the same two routes, which xsmm/reference.py
+// grouped_wgrad_route chooses from the key and xt's strides:
+//   "wgmma" (bf16 operands, bm a multiple of 64, n a multiple of 8, xt with
+//   one unit stride and the other a multiple of 8; every key of the MoE
+//   slice): one block per (128 n columns, 128 k rows, group), the group
+//   slowest, with B16's ring, producer warp and consumer loop
+//   (consume_ring). Both operands carry the reduction (the token rows) on
+//   their slow axis: dY's slice is an MN-major B tile, and xt's an MN-major
+//   A tile (wgmma's trans-a) when xt is the transpose of a contiguous
+//   x, a K-major one when xt itself is contiguous. f32 stored from
+//   registers, masked at the k and n edges.
+//   "wmma": one 64 x 64 tile per block on TileMma's staging and products.
 #include <mma.h>
 
 #include <type_traits>
@@ -324,16 +336,17 @@ struct GTile {
 };
 
 // The accumulator tile, unary(acc) converted, stored from registers:
-// acc[4 j + 2 h + e] is row `row` + 8 h, column `col` + 8 j + e; n is a
-// multiple of 8, so a pair is in or out as a whole.
+// acc[4 j + 2 h + e] is row `row` + 8 h, column `col` + 8 j + e; rows at or
+// past `m` are dropped; n is a multiple of 8, so a pair is in or out as a
+// whole.
 template <int U>
 __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
-                                           int row, int col, int n,
+                                           int row, int col, int m, int n,
                                            int out_dtype) {
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {
     const int gm = row + 8 * ((i / 2) & 1), gn = col + 8 * (i / 4);
-    if (gn >= n) continue;
+    if (gm >= m || gn >= n) continue;
     const float x0 = tpp::apply_unary(U, acc[i]);
     const float x1 = tpp::apply_unary(U, acc[i + 1]);
     const size_t at = (size_t)gm * n + gn;
@@ -344,6 +357,50 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
       *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
           make_float2(x0, x1);
   }
+}
+
+// The consumer side of the ring, shared by B16 and B17: `slices` stages in
+// order, each four k16 products of warpgroup wg's 64 rows into acc, one
+// slice's products kept in flight while the previous slice's stage goes
+// back to the producer. A stage is an A tile of 128 M rows then a B tile
+// of 128 N columns, 64 deep (GTile<2>, or GTile<1>'s 64 A rows). A_MN 0:
+// A is [M][64 k] K-major; 1: two [64 k][64 M] MN-major chunks. B_MN 0: B
+// is [128 N][64 k] K-major; 1: two [64 k][64 N] MN-major chunks.
+template <int A_MN, int B_MN, int A_BYTES>
+__device__ __forceinline__ void consume_ring(float (&acc)[64],
+                                             const unsigned char* smem,
+                                             uint64_t* full, uint64_t* empty,
+                                             int slices, int wg) {
+  constexpr int STAGE = A_BYTES + G_BK * G_BN * 2;
+  int stage = 0, phase = 0, prev = -1;
+  for (int kt = 0; kt < slices; ++kt) {
+    hw::mbar_wait(&full[stage], phase);
+    // warpgroup wg's A rows: 64 rows of 128 bytes (K-major), or chunk wg
+    // of 64 k-rows of 128 bytes (MN-major): 8 KB in either layout
+    const unsigned char* sa = smem + stage * STAGE + wg * 64 * 128;
+    const unsigned char* sb = smem + stage * STAGE + A_BYTES;
+    hw::fence_regs(acc);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      const uint64_t da =
+          A_MN ? hw::make_desc<128>(sa + kk * 16 * 128, G_BK * 128, 1024)
+               : hw::make_desc<128>(sa + kk * 32, 16, 1024);
+      const uint64_t db =
+          B_MN ? hw::make_desc<128>(sb + kk * 16 * 128, G_BK * 128, 1024)
+               : hw::make_desc<128>(sb + kk * 32, 16, 1024);
+      hw::wgmma_m64n128k16_ss<B_MN, A_MN>(acc, da, db, 1);
+    }
+    hw::wgmma_commit();
+    // the previous slice's products are done: its stage goes back
+    hw::wgmma_wait<1>();
+    hw::fence_regs(acc);
+    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+  }
+  hw::wgmma_wait<0>();
+  hw::fence_regs(acc);
 }
 
 // TRANS_B 0: B[g] is (k, n), staged as two [64 k][64 n] MN-major chunks;
@@ -408,41 +465,19 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  int stage = 0, phase = 0, prev = -1;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    hw::mbar_wait(&full[stage], phase);
-    const unsigned char* sa = smem + stage * T::STAGE + wg * 64 * 128;
-    const unsigned char* sb = smem + stage * T::STAGE + T::A_BYTES;
-    hw::fence_regs(acc);
-    hw::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < G_BK / 16; ++kk) {
-      const uint64_t da = hw::make_desc<128>(sa + kk * 32, 16, 1024);
-      const uint64_t db =
-          TRANS_B ? hw::make_desc<128>(sb + kk * 32, 16, 1024)
-                  : hw::make_desc<128>(sb + kk * 16 * 128, G_BK * 128, 1024);
-      hw::wgmma_m64n128k16_ss<TRANS_B ? 0 : 1>(acc, da, db, 1);
-    }
-    hw::wgmma_commit();
-    // the previous slice's products are done: its stage goes back
-    hw::wgmma_wait<1>();
-    hw::fence_regs(acc);
-    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
-    prev = stage;
-    if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
-  }
-  hw::wgmma_wait<0>();
-  hw::fence_regs(acc);
+  consume_ring<0, TRANS_B ? 0 : 1, T::A_BYTES>(acc, smem, full, empty, ktiles,
+                                               wg);
 
   // epilogue from registers, one straight-line copy per unary (the switch
   // inside the unrolled loop would inline every unary 64 times)
   const int warp = (tid % G_WG) / 32, lane = tid % 32;
   const int row = m0 + wg * 64 + warp * 16 + lane / 4;
   const int col = n0 + 2 * (lane % 4);
+  const int m = gridDim.x * T::BM;     // BM divides m: every row is in
   switch (unary) {
 #define TPP_EPILOGUE(U)                                          \
   case U:                                                        \
-    store_tile<U>(acc, out, row, col, n, out_dtype);             \
+    store_tile<U>(acc, out, row, col, m, n, out_dtype);          \
     break;
     TPP_EPILOGUE(tpp::kRelu)
     TPP_EPILOGUE(tpp::kExp)
@@ -456,7 +491,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     TPP_EPILOGUE(tpp::kZero)
 #undef TPP_EPILOGUE
     default:
-      store_tile<tpp::kIdentity>(acc, out, row, col, n, out_dtype);
+      store_tile<tpp::kIdentity>(acc, out, row, col, m, n, out_dtype);
   }
 }
 
@@ -511,6 +546,125 @@ int gemm_wgmma(const void* a, const void* b, const int* ge, const int* li,
                                        k, bm, unary, out_dtype, stream);
 }
 
+// ---- B17 on wgmma: bf16 operands, bm a multiple of 64 -------------------
+
+// One block per (128 n columns, 128 k rows, group), the group slowest, so a
+// group's x and dY slabs stay in L2 while its tiles run. The reduction runs
+// over the group's token rows, the slow axis of both operands: the A tile
+// (an xt slice, 128 k x 64 rows) is MN-major when xt's k axis is
+// unit-stride (A_MN 1: the transpose of a contiguous (m, k) x, read as two
+// [64 rows][64 k] boxes of a (k, m) map) and K-major when its row axis is
+// (A_MN 0: one [128 k][64 rows] box of an (m, k) map); the B tile (a dY
+// slice, 64 rows x 128 n) is MN-major. The producer finds the group's run
+// of row blocks by a binary search of ge and streams its 64-row slices
+// (bm a multiple of 64: no slice straddles two groups); the consumers sum
+// them in order, so the result is bit-repeatable, and a group that owns no
+// block runs no slice and stores its zero accumulators.
+template <int A_MN>
+__global__ void __launch_bounds__(G_WG * 2 + 32, 2)
+grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap ymap,
+                           const int* __restrict__ ge,
+                           float* __restrict__ out, int m, int k, int n,
+                           int bm) {
+  using T = GTile<2>;     // A 128 x 64, B 64 x 128: 16 KB each a stage
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
+                                    % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::bar_off);
+  uint64_t* empty = full + G_STAGES;
+
+  const int tid = threadIdx.x, wg = tid / G_WG;
+  const int n0 = blockIdx.x * G_BN, k0 = blockIdx.y * T::BM, g = blockIdx.z;
+  const int nb = m / bm;
+  const int r_begin = first_at_least(ge, nb, g) * bm;
+  const int slices = (first_at_least(ge, nb, g + 1) * bm - r_begin) / G_BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 2 * G_WG);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ---- producer warp: one thread starts every copy ----
+    if (tid != 2 * G_WG) return;
+    // a 64-wide half box wholly past k or n is not loaded: the rows and
+    // columns it would fill are never stored
+    const bool x_hi = !A_MN || k0 + 64 < k, y_hi = n0 + 64 < n;
+    const uint32_t bytes = T::STAGE - (x_hi ? 0 : G_BK * 128) -
+                           (y_hi ? 0 : G_BK * 128);
+    int stage = 0, phase = 0;
+    for (int t = 0; t < slices; ++t) {
+      const int r0 = r_begin + t * G_BK;
+      hw::mbar_wait(&empty[stage], phase ^ 1);
+      hw::mbar_arrive_tx(&full[stage], bytes);
+      unsigned char* sa = smem + stage * T::STAGE;
+      unsigned char* sb = sa + T::A_BYTES;
+      if constexpr (A_MN) {
+        hw::tma_load_2d(sa, &xmap, &full[stage], k0, r0);
+        if (x_hi)
+          hw::tma_load_2d(sa + G_BK * 128, &xmap, &full[stage], k0 + 64, r0);
+      } else {
+        hw::tma_load_2d(sa, &xmap, &full[stage], r0, k0);
+      }
+      hw::tma_load_2d(sb, &ymap, &full[stage], n0, r0);
+      if (y_hi)
+        hw::tma_load_2d(sb + G_BK * 128, &ymap, &full[stage], n0 + 64, r0);
+      if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: dW rows k0 + 64 wg .. + 63 ----
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  consume_ring<A_MN, 1, T::A_BYTES>(acc, smem, full, empty, slices, wg);
+  const int warp = (tid % G_WG) / 32, lane = tid % 32;
+  store_tile<tpp::kIdentity>(acc, out + static_cast<size_t>(g) * k * n,
+                             k0 + wg * 64 + warp * 16 + lane / 4,
+                             n0 + 2 * (lane % 4), k, n, tpp::kF32);
+}
+
+// xt (k, m) bf16 with element (kk, r) at xt[kk * xs0 + r * xs1]: xs0 == 1
+// takes the MN-major A tile, xs1 == 1 the K-major one; the other stride,
+// n and bm as xsmm/reference.py grouped_wgrad_route requires.
+int wgrad_wgmma(const void* xt, const void* dy, const int* ge, float* out,
+                int groups, int m, int k, int n, int bm, long long xs0,
+                long long xs1, cudaStream_t stream) {
+  if (bm % 64 || n % 8 || (xs0 != 1 && xs1 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using T = GTile<2>;
+  const int a_mn = xs0 == 1;
+  CUtensorMap xmap, ymap;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(a_mn ? k : m),
+                              static_cast<uint64_t>(a_mn ? m : k)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(a_mn ? xs1 : xs0) *
+                                 2};
+  const uint32_t x_box[2] = {64, a_mn ? 64u : 128u};
+  int rc = hw::make_map(&xmap, xt, 2, x_dims, x_strides, x_box, 128);
+  if (rc) return rc;
+  const uint64_t y_dims[2] = {static_cast<uint64_t>(n),
+                              static_cast<uint64_t>(m)};
+  const uint64_t y_strides[1] = {static_cast<uint64_t>(n) * 2};
+  const uint32_t y_box[2] = {64, 64};
+  rc = hw::make_map(&ymap, dy, 2, y_dims, y_strides, y_box, 128);
+  if (rc) return rc;
+  auto kernel = a_mn ? &grouped_wgrad_wgmma_kernel<1>
+                     : &grouped_wgrad_wgmma_kernel<0>;
+  const int smem = T::bytes + 1024;     // + the 1024-byte alignment
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + G_BN - 1) / G_BN, (k + T::BM - 1) / T::BM, groups);
+  kernel<<<grid, G_WG * 2 + 32, smem, stream>>>(xmap, ymap, ge, out, m, k, n,
+                                                bm);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Tin, typename Tmma>
 int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
                  int groups, int m, int k, int n, int bm, long long xs0,
@@ -562,15 +716,23 @@ extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
 
 // xt is in_dtype, element (kk, r) at xt[kk * xs0 + r * xs1]; dy in_dtype
 // (m, n) contiguous; ge int32 (m / bm), non-decreasing; out f32 (G, k, n).
+// route is xsmm/reference.py grouped_wgrad_route's choice: 1 "wgmma" (bf16
+// operands, bm a multiple of 64, n a multiple of 8, xt with one unit
+// stride and the other a multiple of 8), 0 "wmma".
 extern "C" int tpp_grouped_wgrad(const void* xt, const void* dy,
                                  const void* ge, void* out, int groups,
                                  int m, int k, int n, int bm, long long xs0,
                                  long long xs1, int in_dtype, int mma_dtype,
-                                 void* stream) {
+                                 int route, void* stream) {
   if (bm <= 0 || m % bm) return static_cast<int>(cudaErrorInvalidValue);
   const int* gp = static_cast<const int*>(ge);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (in_dtype != tpp::kBF16 || mma_dtype != tpp::kBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return wgrad_wgmma(xt, dy, gp, o, groups, m, k, n, bm, xs0, xs1, st);
+  }
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return launch_wgrad<float, float>(xt, dy, gp, o, groups, m, k, n, bm,
                                       xs0, xs1, st);

@@ -16,6 +16,10 @@
 //   MN-major B (K x N with N contiguous, V of P.V, a (k, n) weight): SBO =
 //     8 K-rows x SW, LBO = the stride between SW/2-column chunks along N;
 //     the k16 step s starts 16 s rows in; trans-b = 1 (16-bit types only).
+//   MN-major A (K x M with M contiguous, B17's slice of the transpose of a
+//     (rows, k) tensor): B's layout with M in place of N: SBO = 8 K-rows x
+//     SW, LBO = the stride between SW/2-column chunks along M; the k16 step
+//     s starts 16 s rows in; trans-a = 1 (SS products, 16-bit types only).
 //
 // The tensor-map encoder is a driver entry point: it is taken through
 // cudaGetDriverEntryPoint[ByVersion], so the library links with the CUDA
@@ -223,8 +227,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // rows +0 cols 8-15, rows +8 cols 8-15} as bf16 pairs, so the accumulator
 // of a product is the A fragment of the next one with no shuffle.
 
-// m64n64k16, A and B from shared memory: 32 f32 accumulators a thread
-template <int TRANS_B>
+// m64n64k16, A and B from shared memory: 32 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                    uint64_t db, int scale_d) {
   asm volatile(
@@ -235,7 +240,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -243,11 +248,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
-// m64n128k16, A and B from shared memory: 64 f32 accumulators a thread
-template <int TRANS_B>
+// m64n128k16, A and B from shared memory: 64 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int scale_d) {
   asm volatile(
@@ -262,7 +268,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -276,7 +282,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // m64n32k16, A from registers (four bf16x2 a thread), B from shared

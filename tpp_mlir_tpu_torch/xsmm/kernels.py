@@ -25,7 +25,7 @@ reached. Each wrapper counts its launches.
                                      _causal_twocall and :2618
                                      _causal_fold2, flat layout; with
                                      repeats, :2091 _build_flash_bench)
-                  csrc/flash_train.cu (strategy flash_heads: B14's forward)
+                  B14's forward      (strategy flash_heads)
                   no kernel          (strategy xla: the composed PyTorch
                                      attention, as the reference composes
                                      it in XLA)
@@ -33,16 +33,20 @@ reached. Each wrapper counts its launches.
   DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
                                      decode_attn.py:101 build_decode_attn)
   Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm)
-  FlashTrainKey -> csrc/flash_train.cu (replaces tpp_mlir_tpu/xsmm/
-                                     flash_train.py:146
-                                     build_flash_train_fwd, B14)
+  FlashTrainKey -> by reference.flash_train_fwd_route (replaces
+                                     tpp_mlir_tpu/xsmm/flash_train.py:146
+                                     build_flash_train_fwd, B14):
+                  csrc/attention.cu  (bf16: the wgmma kernel's training
+                                     mode)
+                  csrc/flash_train.cu (f32: the f32-FMA forward)
   FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
                                      build_flash_train_bwd, B18)
   GroupedGemmKey -> csrc/grouped_gemm.cu (replaces :1138
                                      _build_grouped_gemm, B16; tile by
                                      reference.grouped_gemm_route)
   GroupedWgradKey -> csrc/grouped_gemm.cu (replaces :1283
-                                     _build_grouped_wgrad, B17)
+                                     _build_grouped_wgrad, B17; tile by
+                                     reference.grouped_wgrad_route)
   BlockedMatmulKey -> csrc/blocked_matmul.cu (replaces :763
                                      _build_blocked_matmul, B19, and with
                                      repeats :870
@@ -517,20 +521,30 @@ def _flash_train_operands(key: FlashTrainKey, named: dict, dev) -> None:
 
 
 def _flash_train_fwd_launch(key: FlashTrainKey):
+    """B14 on the kernel reference.flash_train_fwd_route chooses:
+    attention.cu's wgmma kernel in its training mode for bf16 (K/V by TMA:
+    16-byte aligned operands, the batch in gridDim.y), flash_train.cu's
+    f32-FMA forward for f32."""
     from .build import check, library
 
     B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
     dt = reference.DTYPES[key.dtype]
+    route = reference.flash_train_fwd_route(key)
 
     def launch(q, k, v):
         dev = q.device
         _flash_train_operands(key, {"q": q, "k": k, "v": v}, dev)
+        if route == "wgmma" and (B > CUDA_GRID_YZ or any(
+                t.data_ptr() % 16 for t in (q, k, v))):
+            raise ValueError(f"attention.cu's training mode needs 16-byte "
+                             f"aligned operands and a batch of at most "
+                             f"{CUDA_GRID_YZ}: {key}")
         o = torch.empty((B, S, H, D), dtype=dt, device=dev)
         lse2 = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         rc = library().tpp_flash_train_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse2.data_ptr(), B, S, H, D, _DT_CODE[dt], int(key.causal),
-            key.scale * reference.LOG2E, _stream())
+            key.scale * reference.LOG2E, int(route == "wgmma"), _stream())
         check(rc, f"flash_train_fwd {key}")
         return o, lse2
     return launch
@@ -603,9 +617,12 @@ def _grouped_gemm_launch(key: GroupedGemmKey, route: str | None = None):
     return launch
 
 
-def _grouped_wgrad_launch(key: GroupedWgradKey):
+def _grouped_wgrad_launch(key: GroupedWgradKey, route: str | None = None):
     """xt (k, m) is read through its strides: the transpose of a contiguous
-    (m, k) tensor goes in as it is, with no copy."""
+    (m, k) tensor goes in as it is, with no copy. The tile is the one
+    reference.grouped_wgrad_route chooses from the key and xt's strides, or
+    `route` where a caller forces one (chip_smoke.py times the WMMA tile at
+    keys the route sends to wgmma)."""
     from .build import check, library
 
     G, m, k, n, bm = key.n_groups, key.m, key.k, key.n, key.bm
@@ -621,10 +638,19 @@ def _grouped_wgrad_launch(key: GroupedWgradKey):
             raise ValueError(f"xt is {tuple(xt.shape)} {xt.dtype} on "
                              f"{xt.device}, expected {(k, m)} {in_dt} on "
                              f"{dev}")
+        chosen = reference.grouped_wgrad_route(key, xt.stride())
+        if route == "wgmma" and chosen != "wgmma":
+            raise ValueError(f"the wgmma tile cannot take {key} with xt "
+                             f"strides {xt.stride()}")
+        if (route or chosen) == "wgmma" and \
+                any(t.data_ptr() % 16 for t in (xt, dy)):
+            raise ValueError(f"the wgmma tile needs 16-byte aligned xt and "
+                             f"dY: {key}")
         out = torch.empty((G, k, n), dtype=torch.float32, device=dev)
         rc = library().tpp_grouped_wgrad(
             xt.data_ptr(), dy.data_ptr(), ge.data_ptr(), out.data_ptr(), G, m,
-            k, n, bm, *xt.stride(), _DT_CODE[in_dt], _DT_CODE[mxu], _stream())
+            k, n, bm, *xt.stride(), _DT_CODE[in_dt], _DT_CODE[mxu],
+            _GROUPED_ROUTE_CODE[route or chosen], _stream())
         check(rc, f"grouped_wgrad {key}")
         return out
     return launch
@@ -769,10 +795,14 @@ def build_kernel(key) -> Kernel:
     return Kernel(key, _LAUNCHES[type(key)](key))
 
 
-def build_grouped_gemm(key: GroupedGemmKey, route: str) -> Kernel:
-    """B16 with its tile forced to `route` ("wgmma" or "wmma"), for timing
-    the two side by side; build_kernel takes the route's own choice."""
+def build_grouped_gemm(key: GroupedGemmKey | GroupedWgradKey,
+                       route: str) -> Kernel:
+    """B16 or B17 with its tile forced to `route` ("wgmma" or "wmma"), for
+    timing the two side by side; build_kernel takes the route's own
+    choice."""
     if route not in _GROUPED_ROUTE_CODE:
         raise ValueError(f"unknown grouped GEMM route {route!r}")
     reference.check_slice(key)
-    return Kernel(key, _grouped_gemm_launch(key, route))
+    launch = _grouped_wgrad_launch if isinstance(key, GroupedWgradKey) \
+        else _grouped_gemm_launch
+    return Kernel(key, launch(key, route))

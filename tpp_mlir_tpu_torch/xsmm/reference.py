@@ -976,6 +976,28 @@ def grouped_gemm_route(key: GroupedGemmKey) -> str:
     return "wmma"
 
 
+def grouped_wgrad_route(key: GroupedWgradKey,
+                        xt_stride: tuple[int, int] | None = None) -> str:
+    """Which tile of csrc/grouped_gemm.cu runs B17 at `key` with xt of
+    strides `xt_stride` (default (1, k): the transpose of a contiguous
+    (m, k) tensor, as the MoE training backward passes it):
+      "wgmma"  bf16 operands, bm a multiple of 64 (no 64-row slice
+               straddles two groups), n a multiple of 8 (TMA takes dY's row
+               stride), xt with one unit stride and the other a 16-byte
+               multiple (TMA's MN-major or K-major A tile): the pipelined
+               TMA + wgmma tile; every key of the MoE slice;
+      "wmma"   f32 operands ("default" and "highest"), a bm of 16 or 32,
+               strides TMA cannot take: the WMMA / f32-FMA tile staged
+               through shared memory, which reads any strides and any bm."""
+    xs0, xs1 = xt_stride if xt_stride is not None else (1, key.k)
+    if key.dtype == "bf16" and key.bm % 64 == 0 and \
+            tma_aligned(2, key.n) and \
+            ((xs0 == 1 and tma_aligned(2, xs1)) or
+             (xs1 == 1 and tma_aligned(2, xs0))):
+        return "wgmma"
+    return "wmma"
+
+
 def grouped_wgrad_reference(key: GroupedWgradKey):
     """B17's function (tpp_mlir_tpu/xsmm/reference.py:206): dW[g] =
     sum_{i: ge[i] == g} xt[:, blk i] @ dy[blk i], f32 (G, k, n): each
@@ -1008,6 +1030,15 @@ def _logits2(key: FlashTrainKey, q, k):
         keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         s2 = s2.masked_fill(~keep, -1e30)
     return s2
+
+
+def flash_train_fwd_route(key: FlashTrainKey) -> str:
+    """Which kernel runs B14 at `key`:
+      "wgmma"  bf16 operands: csrc/attention.cu's wgmma kernel in its
+               training mode (TMA K/V ring, accumulators in registers);
+      "fma"    f32 operands: csrc/flash_train.cu's f32-FMA forward (no
+               tensor cores: the TPU's f32 B14 is true f32)."""
+    return "wgmma" if key.dtype == "bf16" else "fma"
 
 
 def flash_train_fwd_reference(key: FlashTrainKey):
