@@ -279,9 +279,14 @@ def phase_build() -> None:
     lib = build.library()
     say(f"build: {info.seconds:.2f} s "
         f"({'compiled' if info.compiled else 'cached'}) {info.path.name}")
+    fn = ""
     for line in info.log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
         if "registers" in line or "spill" in line or "smem" in line:
             say(f"  ptxas: {line.strip()}")
+        if "spill" in line and " 0 bytes spill stores" not in line:
+            say(f"  ptxas: spills in {fn}")
     import torch
 
     from tpp_mlir_tpu_torch.xsmm.kernels import (blocked_warm_smem_bytes,
@@ -609,12 +614,14 @@ def _int8_inputs(key, g):
 
 def _route_note(key, xt_stride=None) -> str:
     """The loader (attention.cu) or tile (B16, B17: at xt's strides) or
-    kernel (B14) the wrapper chose."""
-    from tpp_mlir_tpu_torch.xsmm import (FlashMhaKey, FlashTrainBwdKey,
-                                         FlashTrainKey, GroupedGemmKey,
-                                         GroupedWgradKey)
+    kernel (B14 and B18, the batched matmul) the wrapper chose."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, FlashMhaKey,
+                                         FlashTrainBwdKey, FlashTrainKey,
+                                         GroupedGemmKey, GroupedWgradKey)
     from tpp_mlir_tpu_torch.xsmm.reference import (attention_loader,
                                                    attention_route,
+                                                   batch_matmul_route,
+                                                   flash_train_bwd_route,
                                                    flash_train_fwd_route,
                                                    grouped_gemm_route,
                                                    grouped_wgrad_route)
@@ -627,7 +634,10 @@ def _route_note(key, xt_stride=None) -> str:
         return f"; route {grouped_wgrad_route(key, xt_stride)}"
     if isinstance(key, FlashTrainKey) and \
             not isinstance(key, FlashTrainBwdKey):
-        return f"; B14 route {flash_train_fwd_route(key)}"
+        return f"; B14 route {flash_train_fwd_route(key)}, B18 route " \
+            f"{flash_train_bwd_route(key)}"
+    if isinstance(key, BatchMatmulKey):
+        return f"; route {batch_matmul_route(key)}"
     return ""
 
 
@@ -698,6 +708,9 @@ def _flash_train_cases():
          FlashTrainKey(2, 8, 256, 32, "bf16", True, 32 ** -0.5), None),
         ("d128 b2 s256 h4 bf16", FlashTrainKey(2, 4, 256, 128, "bf16", False,
                                                128 ** -0.5), None),
+        # pass 1's second 128-row block: its diagonal in both warpgroups
+        ("s192 b2 h4 d64 causal bf16",
+         FlashTrainKey(2, 4, 192, 64, "bf16", True, 0.125), None),
     ]
 
 
@@ -1877,7 +1890,21 @@ def _mha_kernel_cases():
         ("bmm lhs_shared 64x256x196x128 bf16", BatchMatmulKey(
             64, 256, 196, 128, "bf16", beta0=True, lhs_shared=True)),
         ("bmm +C 16x256x256x512 f32 highest", BatchMatmulKey(
-            16, 256, 256, 512, "f32", precision="highest"))]
+            16, 256, 256, 512, "f32", precision="highest")),
+        # the tiled route's bf16 softmax (f32 "default", k over 64)
+        ("bmm softmax +C 5x70x90x100 f32", BatchMatmulKey(
+            5, 70, 90, 100, "f32", softmax_lhs=True)),
+        # the multi route's edges: a batch the warps do not divide, one
+        # beyond the resident warps (each warp takes problems in turn),
+        # lhs_shared, +C with a bf16 softmax at k 64, m below 16
+        ("bmm qk b1000 f32", BatchMatmulKey(1000, 32, 32, 64, "f32",
+                                            beta0=True)),
+        ("bmm qk b5000 f32", BatchMatmulKey(
+            5000, 32, 32, 64, "f32", beta0=True)),
+        ("bmm lhs_shared 300x48x64x40 bf16", BatchMatmulKey(
+            300, 48, 64, 40, "bf16", beta0=True, lhs_shared=True)),
+        ("bmm softmax +C 130x20x32x64 bf16", BatchMatmulKey(
+            130, 20, 32, 64, "bf16", softmax_lhs=True))]
     cases += [(f"pingpong fc_128x768x2304 repeats={r}", ChainKey(
         m=128, dims=(768, 2304), repeats=r, pingpong=True))
               for r in (2, 3)]
@@ -2712,16 +2739,26 @@ def phase_timing(n: int = 100) -> dict:
         lib_ms = timer(library) if library else None
         bound, by = _bound(kind, key, args)
         note = " (replayed from a CUDA graph)" if graphed else ""
+        if kind == "batch_matmul":     # the eager times beside them
+            lib_e = f", library call {cuda_ms(library):.4f} ms" \
+                if library else ""
+            note += f" (eager: {cuda_ms(lambda: kern(*args)):.4f} ms{lib_e})"
         if getattr(key, "repeats", 0) > 1:
             note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
         if hasattr(key, "bq") and (key.strategy != "auto" or key.bq):
             note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
-        if kind in ("flash_train_fwd", "attention"):
-            # a ~50 us kernel timed over eager launches can read the host's
-            # time a call (two tensor-map encodes included): the device's
-            # own, from graph replay, beside it
-            lib_g = f", library call {graph_ms(library):.4f} ms" \
-                if library else ""
+        if kind in ("flash_train_fwd", "flash_train_bwd", "attention",
+                    "layer_norm"):
+            # a kernel of tens of us timed over eager launches can read the
+            # host's time a call (tensor-map encodes included): the
+            # device's own, from graph replay, beside it. B18's library
+            # backward cannot be captured through torch.autograd.grad (the
+            # engine runs on the legacy stream): the SDPA flash backward op
+            # is replayed on the kept forward's outputs instead
+            glib = _sdpa_backward_op(key, args) \
+                if kind == "flash_train_bwd" else library
+            lib_g = f", library call {graph_ms(glib):.4f} ms" \
+                if glib else ""
             note += f" (replayed from a CUDA graph: " \
                 f"{graph_ms(lambda: kern(*args)):.4f} ms{lib_g})"
         if kind in ("grouped_gemm", "grouped_wgrad"):
@@ -2980,6 +3017,22 @@ def _library_call(kind, key, args):
         return lambda: torch.autograd.grad(o, (q, k, v), g,
                                            retain_graph=True)
     return None
+
+
+def _sdpa_backward_op(key, args):
+    """SDPA's flash backward op alone, on the outputs of one flash forward
+    of the same q, k, v (B, H, S, D) and the cotangent: what
+    torch.autograd.grad of SDPA runs, without the autograd engine, so that
+    a CUDA graph can capture it."""
+    import torch
+    q, k, v, g = (t.transpose(1, 2).contiguous() for t in args[:4])
+    aten = torch.ops.aten
+    o, lse, cq, ck, mq, mk, seed, off, _ = \
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, key.causal,
+                                                 False, scale=key.scale)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        g, q, k, v, o, lse, cq, ck, mq, mk, 0.0, key.causal, seed, off,
+        scale=key.scale)
 
 
 def _conv_library_call(key, args):

@@ -129,3 +129,40 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     kern = build_kernel(key)
     assert torch.equal(kern(a, b, c), reference_kernel(key)(a, b, c))
     assert kern.launches == 0
+
+
+ROUTES = {
+    # the MHA suite's two keys (f32 "default": bf16 products)
+    "mha_qk": (BatchMatmulKey(1024, 32, 32, 64, beta0=True), "multi"),
+    "mha_softmax_v": (BatchMatmulKey(1024, 32, 64, 32, beta0=True,
+                                     softmax_lhs=True), "multi"),
+    "bf16-small-C": (BatchMatmulKey(7, 64, 64, 64, "bf16"), "multi"),
+    "bf16-lhs-shared": (BatchMatmulKey(9, 10, 16, 24, "bf16",
+                                       lhs_shared=True), "multi"),
+    "f32-highest-small": (BatchMatmulKey(1024, 32, 32, 64, beta0=True,
+                                         precision="highest"), "tiled"),
+    "m-over-64": (BatchMatmulKey(8, 65, 32, 32, "bf16"), "tiled"),
+    "n-over-64": (BatchMatmulKey(8, 32, 72, 32, "bf16"), "tiled"),
+    "k-over-64": (BatchMatmulKey(8, 32, 32, 72, "bf16"), "tiled"),
+    "n-off-8": (BatchMatmulKey(8, 32, 36, 32, "bf16"), "tiled"),
+    "k-off-8": (BatchMatmulKey(8, 32, 32, 20, "bf16"), "tiled"),
+    "softmax-default-over-64": (BatchMatmulKey(5, 70, 90, 100, "f32",
+                                               softmax_lhs=True), "tiled"),
+    "softmax-bf16-k-over-64": (BatchMatmulKey(4, 32, 32, 96, "bf16",
+                                              softmax_lhs=True), "tiled"),
+    # chip_smoke's two large keys
+    "lhs-shared-64x256x196x128": (BatchMatmulKey(
+        64, 256, 196, 128, "bf16", beta0=True, lhs_shared=True), "tiled"),
+    "C-16x256x256x512-highest": (BatchMatmulKey(
+        16, 256, 256, 512, precision="highest"), "tiled"),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_batch_matmul_route_table(name):
+    # csrc/batch_matmul.cu's kernel by key (xsmm/reference.py
+    # batch_matmul_route): "multi" for bf16 products with m, n, k <= 64
+    # and k, n multiples of 8, else "tiled"
+    from tpp_mlir_tpu_torch.xsmm.reference import batch_matmul_route
+    key, want = ROUTES[name]
+    assert batch_matmul_route(key) == want

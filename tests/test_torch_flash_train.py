@@ -154,6 +154,19 @@ def test_flash_train_fwd_route_table(dtype, want):
         assert flash_train_fwd_route(key) == want
 
 
+@pytest.mark.parametrize("dtype,want", [("bf16", "wgmma"), ("f32", "fma")])
+def test_flash_train_bwd_route_table(dtype, want):
+    # B18's kernel by operand dtype (xsmm/reference.py
+    # flash_train_bwd_route): bf16 on flash_train.cu's wgmma passes, f32 on
+    # its f32-FMA passes, at every head dim, causal or not
+    from tpp_mlir_tpu_torch.xsmm.reference import flash_train_bwd_route
+    for causal in (True, False):
+        for d in (32, 64, 128):
+            key = FlashTrainKey(batch=2, heads=4, seq=100, head_dim=d,
+                                dtype=dtype, causal=causal, scale=0.25)
+            assert flash_train_bwd_route(key) == want
+
+
 def test_flash_train_key_rejects_f16():
     with pytest.raises(NotImplementedError, match="A14"):
         reference_kernel(FlashTrainKey(1, 2, 16, 32, "f16"))

@@ -105,11 +105,13 @@ constexpr int BQ = 64 * NCW;     // query rows of a block
 constexpr int BKV = 64;          // key/value rows of a tile
 constexpr int STAGES = 3;        // K/V ring depth
 constexpr int THREADS = WG * (NCW + 1);
+static_assert(BKV == 64, "hopper.cuh's ss_abt / rs_ab: 64-row B tiles");
 
+// hopper.cuh's chunked layout: SW bytes a chunk row, CW columns a chunk
 template <int D>
-struct Tile {
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span in bytes
-  static constexpr int CW = SW / 2;               // bf16 columns a chunk
+struct Tile : hw::Chunks<D> {
+  using hw::Chunks<D>::SW;
+  using hw::Chunks<D>::CW;
   static constexpr int KV = BKV * D * 2;          // bytes of a K or V tile
   static constexpr int q_off = 0;
   static constexpr int ring_off = BQ * D * 2;
@@ -157,51 +159,6 @@ __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// S (m64 x n64) = Q K^T, both operands K-major (D contiguous)
-template <int D>
-__device__ __forceinline__ void qk_product(float (&s)[BKV / 2],
-                                           const unsigned char* qs,
-                                           const unsigned char* ks) {
-  using T = Tile<D>;
-  hw::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 / T::CW, off = (kk * 16 % T::CW) * 2;
-    const uint64_t da = hw::make_desc<T::SW>(qs + c * BQ * T::SW + off, 16,
-                                             8 * T::SW);
-    const uint64_t db = hw::make_desc<T::SW>(ks + c * BKV * T::SW + off, 16,
-                                             8 * T::SW);
-    hw::wgmma_m64n64k16_ss<0>(s, da, db, kk > 0);
-  }
-  hw::wgmma_commit();
-  hw::wgmma_wait<0>();
-  hw::fence_regs(s);
-}
-
-// O (m64 x nD) += P V, P from registers, V MN-major (D contiguous)
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2],
-                                           const uint32_t (&p)[BKV / 16][4],
-                                           const unsigned char* vs) {
-  using T = Tile<D>;
-  hw::fence_regs(o);
-  hw::wgmma_fence();
-#pragma unroll
-  for (int kt = 0; kt < BKV / 16; ++kt) {
-    const uint64_t db = hw::make_desc<T::SW>(vs + kt * 16 * T::SW,
-                                             BKV * T::SW, 8 * T::SW);
-    if constexpr (D == 32)
-      hw::wgmma_m64n32k16_rs<1>(o, p[kt], db, 1);
-    else if constexpr (D == 64)
-      hw::wgmma_m64n64k16_rs<1>(o, p[kt], db, 1);
-    else
-      hw::wgmma_m64n128k16_rs<1>(o, p[kt], db, 1);
-  }
-  hw::wgmma_commit();
-  hw::wgmma_wait<0>();
-  hw::fence_regs(o);
 }
 
 // TRAIN: B14's forward (one pass, bf16 by TMA): Q staged unscaled, S scaled
@@ -332,7 +289,11 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
       if (kv0 < kv_end_wg) {
         const unsigned char* ks = ring + stage * 2 * T::KV;
         float s[BKV / 2];
-        qk_product<D>(s, qa, ks);
+        hw::wgmma_fence();
+        hw::ss_abt<D, BQ>(s, qa, ks);   // S = Q K^T
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(s);
         if constexpr (TRAIN) {
 #pragma unroll
           for (int i = 0; i < BKV / 2; ++i) s[i] *= a.qscale;
@@ -375,7 +336,12 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
         for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
-        pv_product<D>(o, p, ks + T::KV);
+        hw::fence_regs(o);
+        hw::wgmma_fence();
+        hw::rs_ab<D>(o, p, ks + T::KV);   // O += P V, V MN-major
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(o);
       }
       hw::mbar_arrive(&empty[stage]);
       if (++stage == STAGES) { stage = 0; phase ^= 1; }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, the 16-byte swizzle of shared-memory tiles,
+// TMA tensor maps and loads, cp.async 16-byte copies, the 16-byte swizzle
+// of shared-memory tiles,
 // wgmma's shared-memory matrix descriptors, its fence/commit/wait sequence
 // and the bf16 m64nNk16 products (both operands from shared memory, or A
 // from registers), with f32 accumulators in registers.
@@ -61,13 +62,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map over `base` of `rank` dims (innermost first), the byte
+// A tensor map over `base` of `rank` dims (innermost first), the byte
 // strides of dims 1.. in `strides`, boxes of `box` elements, swizzled by
-// `swizzle` bytes (64 or 128); out-of-bounds elements read as zero. Returns
-// a cudaError_t: TMA needs a 16-byte aligned base and strides.
+// `swizzle` bytes (64 or 128, or 0: not swizzled); bf16 elements, or f32
+// with `f32`; out-of-bounds elements read as zero. Returns a cudaError_t:
+// TMA needs a 16-byte aligned base and strides.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box, int swizzle) {
+                    const uint32_t* box, int swizzle, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16)
@@ -83,9 +85,13 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult rc = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      rank, const_cast<void*>(base), d, s, b, e,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -148,6 +154,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -167,6 +182,27 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 16 bytes from global to shared memory by the copy engine (cp.async), or
+// zeros for the bytes at or past `src_bytes` (0 or 16); both addresses
+// 16-byte aligned. Completion is per thread: commit, then wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // shared-memory writes of the generic proxy (st.shared) made visible to the
@@ -366,6 +402,56 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TRANS_B));
+}
+
+// ---- device: products over the chunks of D-column bf16 tiles ----------
+
+// a bf16 tile D columns wide: SW bytes a chunk row, CW columns a chunk
+template <int D>
+struct Chunks {
+  static constexpr int SW = D >= 64 ? 128 : 64;
+  static constexpr int CW = SW / 2;
+};
+
+// acc (m64 x n64) = A B^T over D columns, both operands K-major (D
+// contiguous): A the 64 rows at `a` of a tile whose chunks hold A_ROWS
+// rows, B a 64-row tile. Issues the products only: the caller fences,
+// commits and waits.
+template <int D, int A_ROWS>
+__device__ __forceinline__ void ss_abt(float (&acc)[32],
+                                       const unsigned char* a,
+                                       const unsigned char* b) {
+  using C = Chunks<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / C::CW, off = (kk * 16 % C::CW) * 2;
+    const uint64_t da = make_desc<C::SW>(a + c * A_ROWS * C::SW + off, 16,
+                                         8 * C::SW);
+    const uint64_t db = make_desc<C::SW>(b + c * 64 * C::SW + off, 16,
+                                         8 * C::SW);
+    wgmma_m64n64k16_ss<0>(acc, da, db, kk > 0);
+  }
+}
+
+// acc (m64 x nD) += P X: P from registers (the four k16 A fragments of a
+// 64-column accumulator), X a 64-row tile read MN-major (D contiguous,
+// trans-b). Issues the products only.
+template <int D>
+__device__ __forceinline__ void rs_ab(float (&acc)[D / 2],
+                                      const uint32_t (&p)[4][4],
+                                      const unsigned char* x) {
+  using C = Chunks<D>;
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt) {
+    const uint64_t db = make_desc<C::SW>(x + kt * 16 * C::SW, 64 * C::SW,
+                                         8 * C::SW);
+    if constexpr (D == 32)
+      wgmma_m64n32k16_rs<1>(acc, p[kt], db, 1);
+    else if constexpr (D == 64)
+      wgmma_m64n64k16_rs<1>(acc, p[kt], db, 1);
+    else
+      wgmma_m64n128k16_rs<1>(acc, p[kt], db, 1);
+  }
 }
 
 

@@ -41,14 +41,14 @@ _SIGNATURES = {
     # name: (restype, argtypes)
     "tpp_brgemm": (_I, [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _P, _P, _P]),
     "tpp_attention": (_I, [_P] * 4 + [_I] * 11 + [_F, _P]),
-    "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 10 + [_P]),
+    "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 11 + [_P]),
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_I)] + [_I] * 11 + [_P]),
     "tpp_decode_attn": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
-    "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _P]),
+    "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P]),
     "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 12 + [_P]),
     "tpp_grouped_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_L, _L] + [_I] * 3
                           + [_P]),

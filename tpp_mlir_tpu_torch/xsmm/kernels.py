@@ -16,7 +16,9 @@ reached. Each wrapper counts its launches.
                                      :1919 _build_chain_bench_pingpong)
   BatchMatmulKey -> csrc/batch_matmul.cu (replaces :963
                                      _build_batch_matmul and :1065
-                                     _build_batch_matmul_grouped)
+                                     _build_batch_matmul_grouped; the
+                                     multi or tiled kernel by
+                                     reference.batch_matmul_route)
   FlashMhaKey  -> by reference.attention_route:
                   csrc/attention.cu  (loader by reference.attention_loader;
                                      replaces :2232 _build_flash_mha_tokens,
@@ -40,7 +42,10 @@ reached. Each wrapper counts its launches.
                                      mode)
                   csrc/flash_train.cu (f32: the f32-FMA forward)
   FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
-                                     build_flash_train_bwd, B18)
+                                     build_flash_train_bwd, B18; wgmma
+                                     passes for bf16, f32-FMA passes for
+                                     f32, by
+                                     reference.flash_train_bwd_route)
   GroupedGemmKey -> csrc/grouped_gemm.cu (replaces :1138
                                      _build_grouped_gemm, B16; tile by
                                      reference.grouped_gemm_route)
@@ -352,13 +357,16 @@ def _flash_heads_launch(key: FlashMhaKey):
     return launch
 
 
-BMM_TILE = 64        # batch_matmul.cu's output tile is 64 x 64
+BMM_TILE = 64        # batch_matmul.cu's tiled route: a 64 x 64 output tile
 
 
 def _batch_matmul_launch(key: BatchMatmulKey):
-    """O[b] = f(A[b]) @ B[b] (+ C[b]). A problem that fits one tile is one
-    of `group` problems a block takes in turn (B22's grouping), as many as
-    keep two blocks for every SM of the card."""
+    """O[b] = f(A[b]) @ B[b] (+ C[b]) on the kernel
+    reference.batch_matmul_route chooses: "multi" (one warp per whole
+    problem; operands by 16-byte copies, so 16-byte aligned) or "tiled",
+    where a problem that fits one tile is one of `group` problems a block
+    takes in turn (B22's grouping), as many as keep two blocks for every SM
+    of the card."""
     from .build import check, library
 
     Bt, m, n, k = key.batch, key.m, key.n, key.k
@@ -366,6 +374,7 @@ def _batch_matmul_launch(key: BatchMatmulKey):
     mxu = reference.mxu_dtype(key.dtype, key.precision)
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     a_shape = (m, k) if key.lhs_shared else (Bt, m, k)
+    route = reference.batch_matmul_route(key)
 
     def launch(a, b, c=None):
         dev = a.device
@@ -375,19 +384,27 @@ def _batch_matmul_launch(key: BatchMatmulKey):
             c = c.float().contiguous()
             _expect(c, "C", (Bt, m, n), None, dev)
         group = 1
-        if m <= BMM_TILE and n <= BMM_TILE:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            group = next(g for g in (8, 4, 2, 1) if Bt // g >= 2 * sms
-                         or g == 1)
-        if -(-Bt // group) > CUDA_GRID_YZ:
-            raise ValueError(f"batch_matmul.cu puts the batch in gridDim.z, "
-                             f"at most {CUDA_GRID_YZ} blocks: {key}")
+        if route == "multi":
+            if any(t.data_ptr() % 16 for t in (a, b) + (
+                    () if key.beta0 else (c,))):
+                raise ValueError(f"batch_matmul.cu's multi route needs "
+                                 f"16-byte aligned operands: {key}")
+        else:
+            if m <= BMM_TILE and n <= BMM_TILE:
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                group = next(g for g in (8, 4, 2, 1) if Bt // g >= 2 * sms
+                             or g == 1)
+            if -(-Bt // group) > CUDA_GRID_YZ:
+                raise ValueError(f"batch_matmul.cu's tiled route puts the "
+                                 f"batch in gridDim.z, at most "
+                                 f"{CUDA_GRID_YZ} blocks: {key}")
         out = torch.empty((Bt, m, n), dtype=out_dt, device=dev)
         rc = library().tpp_batch_matmul(
             a.data_ptr(), b.data_ptr(), None if key.beta0 else c.data_ptr(),
             out.data_ptr(), Bt, m, n, k, group, int(key.lhs_shared),
             int(key.softmax_lhs), _DT_CODE[in_dt], _DT_CODE[mxu],
-            _DT_CODE[out_dt], _stream())
+            _DT_CODE[out_dt], int(route == "multi"), _stream())
         check(rc, f"batch_matmul {key}")
         return out
     return launch
@@ -551,22 +568,34 @@ def _flash_train_fwd_launch(key: FlashTrainKey):
 
 
 def _flash_train_bwd_launch(key: FlashTrainBwdKey):
+    """B18 on the kernels reference.flash_train_bwd_route chooses:
+    flash_train.cu's two wgmma passes for bf16 (Q/K/V/dO and the
+    statistics by TMA: 16-byte aligned operands, the batch in gridDim.y;
+    the tensor maps are encoded once a call), its two f32-FMA passes for
+    f32."""
     from .build import check, library
 
     B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
     dt = reference.DTYPES[key.dtype]
+    route = reference.flash_train_bwd_route(key)
 
     def launch(q, k, v, do, lse2, delta):
         dev = q.device
         _flash_train_operands(key, {"q": q, "k": k, "v": v, "do": do,
                                     "lse2": lse2, "delta": delta}, dev)
+        if route == "wgmma" and (B > CUDA_GRID_YZ or any(
+                t.data_ptr() % 16 for t in (q, k, v, do, lse2, delta))):
+            raise ValueError(f"flash_train.cu's wgmma backward needs 16-byte "
+                             f"aligned operands and a batch of at most "
+                             f"{CUDA_GRID_YZ}: {key}")
         dq, dk, dv = (torch.empty((B, S, H, D), dtype=dt, device=dev)
                       for _ in range(3))
         rc = library().tpp_flash_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, S, H, D, _DT_CODE[dt], int(key.causal),
-            key.scale * reference.LOG2E, key.scale, _stream())
+            key.scale * reference.LOG2E, key.scale, int(route == "wgmma"),
+            _stream())
         check(rc, f"flash_train_bwd {key}")
         return dq, dk, dv
     return launch

@@ -637,6 +637,24 @@ def batch_matmul_reference(key: BatchMatmulKey):
     return fn
 
 
+BMM_MULTI_MAX = 64     # m, n and k of batch_matmul.cu's multi route
+
+
+def batch_matmul_route(key: BatchMatmulKey) -> str:
+    """Which of csrc/batch_matmul.cu's kernels runs B21/B22 at `key`:
+      "multi"  MXU dtype bf16 (bf16 keys, f32 "default"), m, n and k at
+               most 64 (a whole problem fits one warp's registers and its
+               staging), k and n multiples of 8 (rows of 16-byte copies):
+               one warp per problem, cp.async staging, mma.sync. Every MHA
+               suite key: mha_qk 1024x32x32x64, mha_softmax_v 1024x32x64x32.
+      "tiled"  everything else (f32 "highest", larger problems): 64x64
+               block tiles, `group` problems a block in turn."""
+    small = max(key.m, key.n, key.k) <= BMM_MULTI_MAX and \
+        key.k % 8 == 0 and key.n % 8 == 0
+    bf16 = mxu_dtype(key.dtype, key.precision) == torch.bfloat16
+    return "multi" if small and bf16 else "tiled"
+
+
 CONV_STRATEGIES = ("auto", "window", "fullrow", "xla")
 
 
@@ -1038,6 +1056,15 @@ def flash_train_fwd_route(key: FlashTrainKey) -> str:
                training mode (TMA K/V ring, accumulators in registers);
       "fma"    f32 operands: csrc/flash_train.cu's f32-FMA forward (no
                tensor cores: the TPU's f32 B14 is true f32)."""
+    return "wgmma" if key.dtype == "bf16" else "fma"
+
+
+def flash_train_bwd_route(key: FlashTrainKey) -> str:
+    """Which kernel runs B18 at `key`:
+      "wgmma"  bf16 operands: csrc/flash_train.cu's two wgmma passes (TMA
+               rings, S/dP and the dK/dV/dQ accumulators in registers);
+      "fma"    f32 operands: csrc/flash_train.cu's f32-FMA passes (no
+               tensor cores: the TPU's f32 B18 is true f32)."""
     return "wgmma" if key.dtype == "bf16" else "fma"
 
 
