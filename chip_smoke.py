@@ -380,6 +380,13 @@ def _brgemm_cases():
         ("ragged 1024x352x512", BrgemmKey(1, 1024, 352, 512, "f32",
                                           beta0=True, binary_kind="add",
                                           unary_kind="relu")),
+        # the convert loader at a row stride TMA cannot take (n 100) and
+        # on a K-major f32 B
+        ("misaligned n 100 bf16", BrgemmKey(1, 1000, 100, 96, "bf16",
+                                            binary_kind="add",
+                                            unary_kind="relu")),
+        ("transpose_b f32", BrgemmKey(1, M, N, K, "f32", beta0=True,
+                                      transpose_b=True)),
     ]
     # the MLP training step's keys (phase 4d) not above: its rows at f32
     # "highest" and at batch 2048, forward and dx = g @ W^T (transpose_b)
@@ -613,11 +620,23 @@ def _int8_inputs(key, g):
 
 
 def _route_note(key, xt_stride=None) -> str:
-    """The loader (attention.cu) or tile (B16, B17: at xt's strides) or
-    kernel (B14 and B18, the batched matmul) the wrapper chose."""
-    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, FlashMhaKey,
+    """The loader (attention.cu; B1/B2 and B19 with the launcher's tile and
+    k split) or tile (B16, B17: at xt's strides) or kernel (B14 and B18,
+    the batched matmul) the wrapper chose."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, FlashMhaKey,
                                          FlashTrainBwdKey, FlashTrainKey,
                                          GroupedGemmKey, GroupedWgradKey)
+    if isinstance(key, (BrgemmKey, BlockedMatmulKey)):
+        from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
+        from tpp_mlir_tpu_torch.xsmm.reference import (blocked_matmul_route,
+                                                       brgemm_route)
+        route = brgemm_route(key) if isinstance(key, BrgemmKey) \
+            else blocked_matmul_route(key)
+        if route not in ("tma", "convert"):
+            return f"; route {route}"
+        bm, bn, split, _ = gemm_plan(key)
+        return f"; route {route}, tile {bm}x{bn}, split {split}"
     from tpp_mlir_tpu_torch.xsmm.reference import (attention_loader,
                                                    attention_route,
                                                    batch_matmul_route,
@@ -2354,6 +2373,9 @@ PACKED_KERNEL_CASES = (
     ("fc_bf16_packed_warm_1024 (VNNI)", "fc_bf16_packed_warm_1024", 0, {}),
     ("fc f32 masked mb 8", "fc_fp32_packed_warm_1024", 0,
      {"Mb": 2, "mb": 8}),
+    ("fc bf16 VNNI masked mb 8", "fc_bf16_packed_warm_1024", 0,
+     {"Mb": 2, "mb": 8}),
+    ("fc bf16 flat B (tma)", "fc_bf16_packed_warm_1024", 0, {"vnni": 0}),
     ("vit_d128_p16_bf16 fc1 (gelu)", "vit_d128_p16_bf16", 4, {}),
     ("fc_fp32_packed_warm_1024 B20 r3", "fc_fp32_packed_warm_1024", 0,
      {"repeats": 3}),
@@ -2501,7 +2523,8 @@ def phase_packed_kernels() -> dict:
         ok = rel <= tol and torch_isfinite(got) and kern.launches == 1 and \
             tuple(got.shape) == tuple(ref.shape)
         say(f"kernel {kind:19s} {label:48s} {describe(key)} rel "
-            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} > {tol}, launches "
                                  f"{kern.launches}")
@@ -2747,8 +2770,10 @@ def phase_timing(n: int = 100) -> dict:
             note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
         if hasattr(key, "bq") and (key.strategy != "auto" or key.bq):
             note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
+        if kind in ("brgemm", "blocked_matmul"):
+            note += _route_note(key)
         if kind in ("flash_train_fwd", "flash_train_bwd", "attention",
-                    "layer_norm"):
+                    "layer_norm", "brgemm", "blocked_matmul"):
             # a kernel of tens of us timed over eager launches can read the
             # host's time a call (tensor-map encodes included): the
             # device's own, from graph replay, beside it. B18's library

@@ -18,15 +18,16 @@
 //
 // What bounds them on the H100: at the fc rows' key (Mb 1, Nb = Kb = 2,
 // mb 256, nb = kb = 512) B19 is a 256 x 1024 x 1024 GEMM: 0.54 GFLOP over
-// 6 MB in f32, so the tensor cores bound it (0.54 us at 989 TFLOP/s bf16)
-// against 1.8 us of HBM traffic: bytes. This first B19 reaches neither: it
-// is csrc/brgemm.cu's design with the tiles addressed through the packed
-// layout, one 64 x 64 output tile of one (i, j) block per block, reduced
-// over (r, 32-deep k steps) through shared memory with no pipelining
-// (64 blocks on 132 SMs at the fc key). Partial tiles (mb = 8 for a small
-// f32 batch, kb not a multiple of 32) are masked. bf16 products go through
-// WMMA (mma.sync 16x16x16, f32 accumulators); f32 at precision "highest"
-// uses f32 FMA, never TF32; f32 "default" rounds operands to bf16.
+// 6 MB in f32, so the bytes bound it (1.8 us at 3.35 TB/s against 0.54 us
+// of tensor-core work at 989 TFLOP/s bf16). B19 is the packed GEMM of
+// csrc/gemm_sm90.cuh, the mainloop B1 runs: 4D tensor maps (k within the
+// block, row, r, block) whose out-of-bounds zero fill masks a partial
+// block such as mb 8, or the convert loader (f32 "default", VNNI B re-laid
+// in registers as an MN-major tile, strides TMA cannot take), wgmma with
+// register accumulators, the output and C addressed through the packed
+// layout from registers, and a deterministic k split where the tiles do not
+// fill the card (xsmm/reference.py blocked_matmul_route names the loader).
+// f32 at precision "highest" keeps the f32-FMA body below, never TF32.
 //
 // B20: rows are independent (next[i,:] needs only act[i,:], the
 // reference's note at kernels.py:917-918), so each block owns a panel of
@@ -52,6 +53,7 @@
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace nvcuda;
 
@@ -73,7 +75,7 @@ struct Blocked {
 };
 
 struct Epilogue {
-  int has_c, binary, unary, out_dtype;
+  int has_c, c_dtype, binary, d_dtype, unary, out_dtype;
 };
 
 // offset of element (k, n) inside one packed B block [kb/V, nb, V]; with
@@ -83,104 +85,70 @@ __device__ __forceinline__ size_t b_off(int k, int n, int nb) {
   return (size_t)(k - k % V) * nb + (size_t)n * V + k % V;
 }
 
-template <typename Tin, typename Tmma, int V>
+// B19 at f32 "highest": f32 FMA, one 64 x 64 output tile of one (i, j)
+// block per block, reduced over (r, 32-deep k steps) through shared memory
+template <int V>
 __global__ void __launch_bounds__(THREADS)
-blocked_matmul_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
-                      const float* __restrict__ C,
-                      const float* __restrict__ D, void* __restrict__ out,
-                      Blocked g, Epilogue epi) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
-  __shared__ __align__(128) Tmma As[BM][BK + APAD];
-  __shared__ __align__(128) Tmma Bs[BK][BN + BPAD];
+blocked_matmul_fma_kernel(const float* __restrict__ A,
+                          const float* __restrict__ B,
+                          const void* __restrict__ C,
+                          const void* __restrict__ D, void* __restrict__ out,
+                          Blocked g, Epilogue epi) {
+  __shared__ __align__(128) float As[BM][BK + APAD];
+  __shared__ __align__(128) float Bs[BK][BN + BPAD];
   __shared__ __align__(128) float Cs[BM][BN + CPAD];
 
   const int tid = threadIdx.x;
   const int tiles_n = (g.nb + BN - 1) / BN, tiles_m = (g.mb + BM - 1) / BM;
   const int j = blockIdx.x / tiles_n, n0 = (blockIdx.x % tiles_n) * BN;
   const int i = blockIdx.y / tiles_m, m0 = (blockIdx.y % tiles_m) * BM;
-  const int warp = tid / 32;
-  const int wr = warp / 2, wc = warp % 2;  // tensor path: 16x32 per warp
-  const int ty = tid / 16, tx = tid % 16;  // FMA path: 4x4 per thread
+  const int ty = tid / 16, tx = tid % 16;  // 4x4 outputs per thread
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
   float facc[4][4];
-  if constexpr (kTensor) {
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-  } else {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) facc[a][b] = 0.f;
-  }
+    for (int b = 0; b < 4; ++b) facc[a][b] = 0.f;
 
   for (int r = 0; r < g.Kb; ++r) {
-    const Tin* Ar = A + ((size_t)i * g.Kb + r) * g.mb * g.kb;
-    const Tin* Br = B + ((size_t)j * g.Kb + r) * g.kb * g.nb;
+    const float* Ar = A + ((size_t)i * g.Kb + r) * g.mb * g.kb;
+    const float* Br = B + ((size_t)j * g.Kb + r) * g.kb * g.nb;
     for (int k0 = 0; k0 < g.kb; k0 += BK) {
-      // stage A[i,r][m0:, k0:] and B[j,r][k0:, n0:], converted to Tmma,
-      // zero past the block's edges
+      // stage A[i,r][m0:, k0:] and B[j,r][k0:, n0:], zero past the block's
+      // edges
       for (int e = tid; e < BM * BK; e += THREADS) {
         const int rr = e / BK, cc = e % BK;
         const int gm = m0 + rr, gk = k0 + cc;
-        const float v = (gm < g.mb && gk < g.kb)
-                            ? tpp::to_f32(Ar[(size_t)gm * g.kb + gk])
-                            : 0.f;
-        As[rr][cc] = tpp::from_f32<Tmma>(v);
+        As[rr][cc] = (gm < g.mb && gk < g.kb) ? Ar[(size_t)gm * g.kb + gk]
+                                              : 0.f;
       }
       for (int e = tid; e < BK * BN; e += THREADS) {
         const int rr = e / BN, cc = e % BN;
         const int gk = k0 + rr, gn = n0 + cc;
-        const float v = (gk < g.kb && gn < g.nb)
-                            ? tpp::to_f32(Br[b_off<V>(gk, gn, g.nb)])
-                            : 0.f;
-        Bs[rr][cc] = tpp::from_f32<Tmma>(v);
+        Bs[rr][cc] = (gk < g.kb && gn < g.nb) ? Br[b_off<V>(gk, gn, g.nb)]
+                                              : 0.f;
       }
       __syncthreads();
-      if constexpr (kTensor) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, &As[wr * 16][kk], BK + APAD);
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, &Bs[kk][wc * 32 + q * 16], BN + BPAD);
-            wmma::mma_sync(acc[q], fa, fb, acc[q]);
-          }
-        }
-      } else {
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[4], b[4];
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) a[q] = tpp::to_f32(As[ty + 16 * q][kk]);
+        for (int q = 0; q < 4; ++q) a[q] = As[ty + 16 * q][kk];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) b[q] = tpp::to_f32(Bs[kk][tx + 16 * q]);
+        for (int q = 0; q < 4; ++q) b[q] = Bs[kk][tx + 16 * q];
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
+        for (int p = 0; p < 4; ++p)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) facc[p][q] = fmaf(a[p], b[q], facc[p][q]);
-        }
+          for (int q = 0; q < 4; ++q) facc[p][q] = fmaf(a[p], b[q], facc[p][q]);
       }
       __syncthreads();
     }
   }
 
-  // accumulators -> shared tile, then the epilogue once per element
-  if constexpr (kTensor) {
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
-      wmma::store_matrix_sync(&Cs[wr * 16][wc * 32 + q * 16], acc[q],
-                              BN + CPAD, wmma::mem_row_major);
-  } else {
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) Cs[ty + 16 * p][tx + 16 * q] = facc[p][q];
-  }
+    for (int q = 0; q < 4; ++q) Cs[ty + 16 * p][tx + 16 * q] = facc[p][q];
   __syncthreads();
 
   for (int e = tid; e < BM * BN; e += THREADS) {
@@ -189,9 +157,11 @@ blocked_matmul_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     if (gm >= g.mb || gn >= g.nb) continue;
     const size_t o = (((size_t)i * g.Nb + j) * g.mb + gm) * g.nb + gn;
     float v = Cs[rr][cc];
-    if (epi.has_c) v += C[o];
+    if (epi.has_c) v += tpp::sm90::ld_f32(C, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone)
-      v = tpp::apply_binary(epi.binary, v, D[(size_t)j * g.nb + gn]);
+      v = tpp::apply_binary(
+          epi.binary, v,
+          tpp::sm90::ld_f32(D, (size_t)j * g.nb + gn, epi.d_dtype));
     tpp::store_out(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
   }
 }
@@ -381,17 +351,6 @@ blocked_warm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ W,
 }
 
 template <typename Tin, typename Tmma, int V>
-int launch(const void* a, const void* b, const float* c, const float* d,
-           void* out, Blocked g, Epilogue epi, cudaStream_t stream) {
-  const dim3 grid(g.Nb * ((g.nb + BN - 1) / BN),
-                  g.Mb * ((g.mb + BM - 1) / BM));
-  blocked_matmul_kernel<Tin, Tmma, V><<<grid, THREADS, 0, stream>>>(
-      static_cast<const Tin*>(a), static_cast<const Tin*>(b), c, d, out, g,
-      epi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Tin, typename Tmma, int V>
 int launch_warm(const void* a, const void* b, const float* d, void* out,
                 Blocked g, int binary, int unary, int repeats, int out_dtype,
                 cudaStream_t stream) {
@@ -407,24 +366,68 @@ int launch_warm(const void* a, const void* b, const float* d, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B19 (repeats 0) or B20 for one dtype pair, the VNNI factor made a
-// template argument so the packed offsets compile to shifts
-template <typename Tin, typename Tmma, int V>
-int run(const void* a, const void* b, const float* c, const float* d,
-        void* out, const Blocked& g, const Epilogue& epi, int repeats,
-        cudaStream_t st) {
-  if (repeats > 0)
-    return launch_warm<Tin, Tmma, V>(a, b, d, out, g, epi.binary,
-                                     epi.unary, repeats, epi.out_dtype, st);
-  return launch<Tin, Tmma, V>(a, b, c, d, out, g, epi, st);
+// B20 for one dtype pair, the VNNI factor made a template argument so the
+// packed offsets compile to shifts
+template <typename Tin, typename Tmma>
+int run_warm(const void* a, const void* b, const float* d, void* out,
+             const Blocked& g, const Epilogue& epi, int vnni, int repeats,
+             cudaStream_t st) {
+  return vnni == 2
+             ? launch_warm<Tin, Tmma, 2>(a, b, d, out, g, epi.binary,
+                                         epi.unary, repeats, epi.out_dtype, st)
+             : launch_warm<Tin, Tmma, 1>(a, b, d, out, g, epi.binary,
+                                         epi.unary, repeats, epi.out_dtype,
+                                         st);
 }
 
-template <typename Tin, typename Tmma>
-int run(const void* a, const void* b, const float* c, const float* d,
-        void* out, const Blocked& g, const Epilogue& epi, int vnni,
-        int repeats, cudaStream_t st) {
-  return vnni == 2 ? run<Tin, Tmma, 2>(a, b, c, d, out, g, epi, repeats, st)
-                   : run<Tin, Tmma, 1>(a, b, c, d, out, g, epi, repeats, st);
+// B19 on the packed mainloop of csrc/gemm_sm90.cuh
+int run_sm90(const void* a, const void* b, const void* c, const void* d,
+             void* out, void* work, const Blocked& bl, const Epilogue& epi,
+             int vnni, int in_dtype, int route, cudaStream_t st) {
+  namespace sm = tpp::sm90;
+  const sm::Plan p = sm::gemm_plan(bl.Mb, bl.Nb, bl.Kb, bl.mb, bl.nb, bl.kb);
+  if (p.split > 1 && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sm::Gemm g{};
+  g.a = a;
+  g.b = b;
+  g.c = c;
+  g.d = d;
+  g.out = out;
+  g.work = static_cast<float*>(work);
+  g.Mb = bl.Mb;
+  g.Nb = bl.Nb;
+  g.Kb = bl.Kb;
+  g.mb = bl.mb;
+  g.nb = bl.nb;
+  g.kb = bl.kb;
+  g.in_f32 = in_dtype == tpp::kF32;
+  const int es = g.in_f32 ? 4 : 2;
+  g.vec_a = sm::vec_ok(a, bl.kb, es);
+  g.vec_b = sm::vec_ok(b, vnni ? 2LL * bl.nb : bl.nb, es);
+  g.vec_c = reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  g.vec_d = reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  g.has_c = epi.has_c;
+  g.c_dtype = epi.c_dtype;
+  g.binary = epi.binary;
+  g.bcast = tpp::kBcastCol;
+  g.d_dtype = epi.d_dtype;
+  g.unary = epi.unary;
+  g.out_dtype = epi.out_dtype;
+  g.split = p.split;
+  CUtensorMap amap = {}, bmap = {};
+  if (route == tpp::sm90::kRouteTma) {
+    if (vnni || in_dtype != tpp::kBF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rc = sm::make_maps(&amap, &bmap, g, p, sm::kBMn);
+    if (rc) return rc;
+    return sm::launch_plan<sm::kBMn, sm::kTma, sm::kLnNone>(p, g, amap, bmap,
+                                                            st);
+  }
+  return vnni ? sm::launch_plan<sm::kBVnni, sm::kConvert, sm::kLnNone>(
+                    p, g, amap, bmap, st)
+              : sm::launch_plan<sm::kBMn, sm::kConvert, sm::kLnNone>(
+                    p, g, amap, bmap, st);
 }
 
 }  // namespace
@@ -439,34 +442,57 @@ extern "C" long long tpp_blocked_warm_smem_bytes(int K, int mma_dtype) {
 
 // B19 when repeats == 0, else B20. Returns the cudaError_t of the launch
 // (0 on success). A and B are in_dtype (B in VNNI layout when vnni is 2);
-// C [Mb,Nb,mb,nb] and the bias D [Nb,nb] are f32 (the wrapper converts
-// them); out [Mb,Nb,mb,nb] is out_dtype. B20 needs has_c 0, Nb == Kb,
-// nb == kb and, on the tensor path, Kb * kb and nb multiples of 16 and B
-// 16-byte aligned.
+// C [Mb,Nb,mb,nb] is c_dtype and the bias D [Nb,nb] d_dtype (f32 or bf16,
+// widened in registers; B20 takes an f32 D); out [Mb,Nb,mb,nb] is
+// out_dtype. B19's route is xsmm/reference.py blocked_matmul_route's
+// choice: 0 "fma" (f32 "highest"), 1 "tma" (bf16, not VNNI; 16-byte
+// aligned base pointers and row strides), 2 "convert"; work is
+// tpp_gemm_plan's workspace. B20 needs has_c 0, Nb == Kb, nb == kb and, on
+// the tensor path, Kb * kb and nb multiples of 16 and B 16-byte aligned.
 extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   const void* c, const void* d, void* out,
-                                  int Mb, int Nb, int Kb, int mb, int nb,
-                                  int kb, int vnni, int in_dtype,
-                                  int mma_dtype, int out_dtype, int has_c,
-                                  int binary, int unary, int repeats,
+                                  void* work, int Mb, int Nb, int Kb, int mb,
+                                  int nb, int kb, int vnni, int in_dtype,
+                                  int mma_dtype, int out_dtype, int c_dtype,
+                                  int d_dtype, int has_c, int binary,
+                                  int unary, int repeats, int route,
                                   void* stream) {
   if ((vnni != 0 && vnni != 2) || (vnni && kb % vnni))
     return static_cast<int>(cudaErrorInvalidValue);
   if (repeats > 0 && (has_c || Nb != Kb || nb != kb ||
+                      (binary && d_dtype != tpp::kF32) ||
                       (mma_dtype == tpp::kBF16 && ((Kb * kb) % 16 || nb % 16))))
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocked g{Mb, Nb, Kb, mb, nb, kb};
-  const Epilogue epi{has_c, binary, unary, out_dtype};
-  const float* cf = static_cast<const float*>(c);
+  const Epilogue epi{has_c, c_dtype, binary, d_dtype, unary, out_dtype};
   const float* df = static_cast<const float*>(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
-    return run<float, float>(a, b, cf, df, out, g, epi, vnni, repeats, st);
-  if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
-    return run<float, __nv_bfloat16>(a, b, cf, df, out, g, epi, vnni,
-                                     repeats, st);
-  if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
-    return run<__nv_bfloat16, __nv_bfloat16>(a, b, cf, df, out, g, epi, vnni,
-                                             repeats, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (repeats > 0) {
+    if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
+      return run_warm<float, float>(a, b, df, out, g, epi, vnni, repeats, st);
+    if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
+      return run_warm<float, __nv_bfloat16>(a, b, df, out, g, epi, vnni,
+                                            repeats, st);
+    if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
+      return run_warm<__nv_bfloat16, __nv_bfloat16>(a, b, df, out, g, epi,
+                                                    vnni, repeats, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route == tpp::sm90::kRouteFma) {
+    if (in_dtype != tpp::kF32 || mma_dtype != tpp::kF32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(g.Nb * ((g.nb + BN - 1) / BN),
+                    g.Mb * ((g.mb + BM - 1) / BM));
+    const float* af = static_cast<const float*>(a);
+    const float* bf = static_cast<const float*>(b);
+    if (vnni == 2)
+      blocked_matmul_fma_kernel<2><<<grid, THREADS, 0, st>>>(af, bf, c, d,
+                                                            out, g, epi);
+    else
+      blocked_matmul_fma_kernel<1><<<grid, THREADS, 0, st>>>(af, bf, c, d,
+                                                            out, g, epi);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mma_dtype != tpp::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return run_sm90(a, b, c, d, out, work, g, epi, vnni, in_dtype, route, st);
 }

@@ -12,35 +12,37 @@
 // over the whole k; kernels.py:688-699), then gamma/beta, then one rounding
 // to the MXU dtype -- the LayerNorm output never goes to device memory.
 //
-// What bounds it on the H100: at the slice's shapes (m=256..2048,
-// n=352..50304, k=352..4096) a GEMM is compute-bound on the tensor cores
-// (989 TFLOP/s bf16) only when operands are re-read from shared memory many
-// times; this first version stages one 64x64 output tile per block through
-// shared memory with no pipelining, so it is bound by the latency of the
-// global->shared copies and by the small grid (m=256, n=1024 gives 64
-// blocks on 132 SMs). Its design keeps it simple and right: bf16 products
-// go through WMMA (mma.sync 16x16x16, f32 accumulators); f32 at precision
-// "highest" uses f32 FMA, so no TF32 is ever involved. The prologue's row
-// statistics are computed per block, once for its 64 rows (each n-block
-// recomputes them, a second read of the A rows from L2, as the TPU kernel
-// recomputes them per n-block). The epilogue runs once per output element
-// in f32 before the single store. TMA, wgmma and a pipelined ring of stages
-// are the next PRs' work.
-#include <mma.h>
-
-#include <type_traits>
-
+// What bounds it on the H100: at the slice's shapes (m = 256..2048,
+// n = 352..50304, k = 352..4096) a GEMM is compute-bound on the tensor
+// cores (989 TFLOP/s bf16) once its operands are re-read from shared memory
+// enough; at the MLP's fc key (256 x 1024 x 1024 f32, 0.54 GFLOP over 6 MB)
+// the bytes bound it (0.0019 ms). The kernel is the packed GEMM of
+// csrc/gemm_sm90.cuh with Mb = Nb = 1 (Kb = the batch): a ring of TMA (bf16)
+// or register-converted (f32 "default", strides TMA cannot take) stages,
+// wgmma with register accumulators, the epilogue from registers, and a
+// deterministic k split where the output tiles do not fill the card
+// (xsmm/reference.py brgemm_route names the loader; gemm_plan the tile).
+// The LayerNorm prologue's row statistics come from a small pass once a
+// row (ln_stats below), not from each block: a block's own pass would read
+// its A rows once for every column tile (18 times at GPT-2's QKV, 55 MB
+// from L2 against 3 MB once). Each consumer warpgroup then normalizes its
+// raw A rows of a stage in place before the stage's products (the convert
+// loader normalizes as it loads). f32 at precision "highest"
+// keeps the f32-FMA body below (no TF32 anywhere).
 #include "epilogue.cuh"
-
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace {
+
+namespace sm = tpp::sm90;
+
+// ---- f32 "highest": f32 FMA, one 64 x 64 tile per block ----------------
 
 constexpr int BM = 64, BN = 64, BK = 32, THREADS = 256;
 constexpr int APAD = 8, BPAD = 8, CPAD = 4;
 
 struct Epilogue {
-  int has_c, binary, bcast, unary, out_dtype;
+  int has_c, c_dtype, binary, bcast, d_dtype, unary, out_dtype;
 };
 
 // LayerNorm prologue: ln = 0 (none) or 1; gamma/beta f32 [k] or null.
@@ -51,25 +53,20 @@ struct Prologue {
   const float* beta;
 };
 
-// Tin: dtype of A/B in device memory; Tmma: dtype the products see
-// (bf16 -> tensor cores, float -> f32 FMA).
-template <typename Tin, typename Tmma>
 __global__ void __launch_bounds__(THREADS)
-brgemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
-              const float* __restrict__ C, const float* __restrict__ D,
-              void* __restrict__ out, int batch, int m, int n, int k,
-              int transpose_b, Epilogue epi, Prologue pro) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
-  __shared__ __align__(128) Tmma As[BM][BK + APAD];
-  __shared__ __align__(128) Tmma Bs[BK][BN + BPAD];
+brgemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                  const void* __restrict__ C, const void* __restrict__ D,
+                  void* __restrict__ out, int batch, int m, int n, int k,
+                  int transpose_b, Epilogue epi, Prologue pro) {
+  __shared__ __align__(128) float As[BM][BK + APAD];
+  __shared__ __align__(128) float Bs[BK][BN + BPAD];
   __shared__ __align__(128) float Cs[BM][BN + CPAD];
   __shared__ float mu_s[BM], rstd_s[BM];
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = tid / 32;
-  const int wr = warp / 2, wc = warp % 2;  // tensor path: 16x32 per warp
-  const int ty = tid / 16, tx = tid % 16;  // FMA path: 4x4 per thread
+  const int ty = tid / 16, tx = tid % 16;  // 4x4 outputs per thread
 
   if (pro.ln) {
     // per-row mean and 1/sqrt(var + eps) over the whole k (batch is 1):
@@ -80,7 +77,7 @@ brgemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
       float s = 0.f, s2 = 0.f;
       if (gm < m)
         for (int c = lane; c < k; c += 32) {
-          const float v = tpp::to_f32(A[(size_t)gm * k + c]);
+          const float v = A[(size_t)gm * k + c];
           s += v;
           s2 += v * v;
         }
@@ -98,99 +95,62 @@ brgemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     __syncthreads();
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
   float facc[4][4];
-  if constexpr (kTensor) {
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) facc[i][j] = 0.f;
-  }
+    for (int j = 0; j < 4; ++j) facc[i][j] = 0.f;
 
   for (int bi = 0; bi < batch; ++bi) {
-    const Tin* Ab = A + (size_t)bi * m * k;
-    const Tin* Bb = B + (size_t)bi * k * n;
+    const float* Ab = A + (size_t)bi * m * k;
+    const float* Bb = B + (size_t)bi * k * n;
     for (int k0 = 0; k0 < k; k0 += BK) {
-      // stage A[m0:m0+BM, k0:k0+BK] and B[k0:k0+BK, n0:n0+BN], converted to
-      // Tmma, zero outside the matrix (ragged edges)
+      // stage A[m0:m0+BM, k0:k0+BK] and B[k0:k0+BK, n0:n0+BN], zero outside
+      // the matrix (ragged edges)
       for (int i = tid; i < BM * BK; i += THREADS) {
         const int r = i / BK, c = i % BK;
         const int gm = m0 + r, gk = k0 + c;
-        float v =
-            (gm < m && gk < k) ? tpp::to_f32(Ab[(size_t)gm * k + gk]) : 0.f;
+        float v = (gm < m && gk < k) ? Ab[(size_t)gm * k + gk] : 0.f;
         if (pro.ln && gm < m && gk < k) {
           v = (v - mu_s[r]) * rstd_s[r];
           if (pro.gamma != nullptr) v = v * pro.gamma[gk] + pro.beta[gk];
         }
-        As[r][c] = tpp::from_f32<Tmma>(v);
+        As[r][c] = v;
       }
       if (transpose_b) {  // B[b] is [n, k]: walk k fastest
         for (int i = tid; i < BK * BN; i += THREADS) {
           const int c = i / BK, r = i % BK;
           const int gk = k0 + r, gn = n0 + c;
-          const float v = (gk < k && gn < n)
-                              ? tpp::to_f32(Bb[(size_t)gn * k + gk])
-                              : 0.f;
-          Bs[r][c] = tpp::from_f32<Tmma>(v);
+          Bs[r][c] = (gk < k && gn < n) ? Bb[(size_t)gn * k + gk] : 0.f;
         }
       } else {
         for (int i = tid; i < BK * BN; i += THREADS) {
           const int r = i / BN, c = i % BN;
           const int gk = k0 + r, gn = n0 + c;
-          const float v = (gk < k && gn < n)
-                              ? tpp::to_f32(Bb[(size_t)gk * n + gn])
-                              : 0.f;
-          Bs[r][c] = tpp::from_f32<Tmma>(v);
+          Bs[r][c] = (gk < k && gn < n) ? Bb[(size_t)gk * n + gn] : 0.f;
         }
       }
       __syncthreads();
-      if constexpr (kTensor) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, &As[wr * 16][kk], BK + APAD);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, &Bs[kk][wc * 32 + j * 16], BN + BPAD);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
-        }
-      } else {
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[4], b[4];
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = tpp::to_f32(As[ty + 16 * i][kk]);
+        for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kk];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = tpp::to_f32(Bs[kk][tx + 16 * j]);
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
-        }
+          for (int j = 0; j < 4; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
       }
       __syncthreads();
     }
   }
 
-  // accumulators -> shared tile, then the epilogue once per element
-  if constexpr (kTensor) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wr * 16][wc * 32 + j * 16], acc[j],
-                              BN + CPAD, wmma::mem_row_major);
-  } else {
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[ty + 16 * i][tx + 16 * j] = facc[i][j];
-  }
+    for (int j = 0; j < 4; ++j) Cs[ty + 16 * i][tx + 16 * j] = facc[i][j];
   __syncthreads();
 
   for (int i = tid; i < BM * BN; i += THREADS) {
@@ -199,62 +159,170 @@ brgemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     if (gm >= m || gn >= n) continue;
     const size_t o = (size_t)gm * n + gn;
     float v = Cs[r][c];
-    if (epi.has_c) v += C[o];
+    if (epi.has_c) v += sm::ld_f32(C, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone) {
-      float dv;
+      size_t di;
       switch (epi.bcast) {
-        case tpp::kBcastCol: dv = D[gn]; break;
-        case tpp::kBcastRow: dv = D[gm]; break;
-        case tpp::kBcastScalar: dv = D[0]; break;
-        default: dv = D[o]; break;
+        case tpp::kBcastCol: di = gn; break;
+        case tpp::kBcastRow: di = gm; break;
+        case tpp::kBcastScalar: di = 0; break;
+        default: di = o; break;
       }
-      v = tpp::apply_binary(epi.binary, v, dv);
+      v = tpp::apply_binary(epi.binary, v, sm::ld_f32(D, di, epi.d_dtype));
     }
     tpp::store_out(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
   }
 }
 
-template <typename Tin, typename Tmma>
-void launch(const void* a, const void* b, const float* c, const float* d,
-            void* out, int batch, int m, int n, int k, int transpose_b,
-            Epilogue epi, Prologue pro, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  brgemm_kernel<Tin, Tmma><<<grid, THREADS, 0, stream>>>(
-      static_cast<const Tin*>(a), static_cast<const Tin*>(b), c, d, out,
-      batch, m, n, k, transpose_b, epi, pro);
+// ---- the LayerNorm prologue's statistics -------------------------------
+
+// (mean, 1/sqrt(E[x^2] - mean^2 + eps)) of each of the m rows of A (m x k,
+// f32 or bf16), f32 sums: one warp a row
+__global__ void __launch_bounds__(256)
+ln_stats(const void* __restrict__ A, float2* __restrict__ stats, int m, int k,
+         int in_f32, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= m) return;
+  float s = 0.f, s2 = 0.f;
+  for (int c = lane; c < k; c += 32) {
+    const float v =
+        sm::ld_f32(A, (size_t)row * k + c, in_f32 ? tpp::kF32 : tpp::kBF16);
+    s += v;
+    s2 += v * v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  if (lane == 0) {
+    const float mu = s / k;
+    stats[row] = make_float2(mu, 1.f / sqrtf(s2 / k - mu * mu + eps));
+  }
+}
+
+// ---- the packed mainloop at Mb = Nb = 1 ---------------------------------
+
+int run_sm90(const sm::Plan& p, const sm::Gemm& g, int transpose_b,
+             int route, int ln, cudaStream_t st) {
+  CUtensorMap amap = {}, bmap = {};
+  if (route == sm::kRouteTma) {
+    const int rc = sm::make_maps(&amap, &bmap, g, p,
+                                 transpose_b ? sm::kBK : sm::kBMn);
+    if (rc) return rc;
+    if (ln) return sm::launch_plan<sm::kBMn, sm::kTma, sm::kLnSmem>(
+        p, g, amap, bmap, st);
+    return transpose_b
+               ? sm::launch_plan<sm::kBK, sm::kTma, sm::kLnNone>(p, g, amap,
+                                                                 bmap, st)
+               : sm::launch_plan<sm::kBMn, sm::kTma, sm::kLnNone>(p, g, amap,
+                                                                  bmap, st);
+  }
+  if (ln)
+    return sm::launch_plan<sm::kBMn, sm::kConvert, sm::kLnLoad>(p, g, amap,
+                                                                bmap, st);
+  return transpose_b
+             ? sm::launch_plan<sm::kBK, sm::kConvert, sm::kLnNone>(
+                   p, g, amap, bmap, st)
+             : sm::launch_plan<sm::kBMn, sm::kConvert, sm::kLnNone>(
+                   p, g, amap, bmap, st);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). C, D, gamma and
-// beta are f32 (the wrapper converts them); A and B are in_dtype; out is
-// out_dtype. ln = 1 runs the LayerNorm prologue (batch must be 1); gamma
-// and beta are null when it has no affine.
+// The plan of the packed mainloop (csrc/gemm_sm90.cuh gemm_plan) for A
+// [Mb, Kb, mb, kb] x B [Nb, Kb, kb, nb] on the current device, and the
+// workspace its launch needs (the split partials, and with ln the
+// LayerNorm statistics of the Mb * mb rows): plan = {tile rows, tile
+// columns, k split, workspace bytes}. Returns 0.
+extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
+                             int ln, long long* plan) {
+  const tpp::sm90::Plan p = tpp::sm90::gemm_plan(Mb, Nb, Kb, mb, nb, kb);
+  plan[0] = p.bm;
+  plan[1] = p.bn;
+  plan[2] = p.split;
+  plan[3] = static_cast<long long>(
+      tpp::sm90::work_bytes(p, Mb, Nb, mb, nb, ln ? Mb * mb : 0));
+  return 0;
+}
+
+// Returns the cudaError_t of the launch (0 on success). A and B are
+// in_dtype; C is c_dtype and D d_dtype (f32 or bf16, widened in
+// registers); gamma and beta f32; out out_dtype. route is
+// xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
+// "tma" (bf16; 16-byte aligned base pointers and row strides), 2
+// "convert". work is tpp_gemm_plan's workspace (tma and convert routes).
+// ln = 1 runs the LayerNorm prologue (batch must be 1); gamma and beta are
+// null when it has no affine.
 extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
-                          const void* d, void* out, int batch, int m, int n,
-                          int k, int in_dtype, int mma_dtype, int out_dtype,
+                          const void* d, void* out, void* work, int batch,
+                          int m, int n, int k, int in_dtype, int mma_dtype,
+                          int out_dtype, int c_dtype, int d_dtype,
                           int transpose_b, int has_c, int binary, int bcast,
-                          int unary, int ln, float eps, const void* gamma,
-                          const void* beta, void* stream) {
+                          int unary, int ln, int route, float eps,
+                          const void* gamma, const void* beta, void* stream) {
   if (ln && batch != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Epilogue epi{has_c, binary, bcast, unary, out_dtype};
-  const Prologue pro{ln, eps, static_cast<const float*>(gamma),
-                     static_cast<const float*>(beta)};
-  const float* cf = static_cast<const float*>(c);
-  const float* df = static_cast<const float*>(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
-    launch<float, float>(a, b, cf, df, out, batch, m, n, k, transpose_b, epi,
-                         pro, st);
-  else if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
-    launch<float, __nv_bfloat16>(a, b, cf, df, out, batch, m, n, k,
-                                 transpose_b, epi, pro, st);
-  else if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(a, b, cf, df, out, batch, m, n, k,
-                                         transpose_b, epi, pro, st);
-  else
+  if (route == sm::kRouteFma) {
+    if (in_dtype != tpp::kF32 || mma_dtype != tpp::kF32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Epilogue epi{has_c, c_dtype, binary, bcast, d_dtype, unary,
+                       out_dtype};
+    const Prologue pro{ln, eps, static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta)};
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    brgemm_fma_kernel<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), c, d,
+        out, batch, m, n, k, transpose_b, epi, pro);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mma_dtype != tpp::kBF16 ||
+      (route == sm::kRouteTma && in_dtype != tpp::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const sm::Plan p = sm::gemm_plan(1, 1, batch, m, n, k);
+  const size_t part = sm::work_bytes(p, 1, 1, m, n, 0);
+  sm::Gemm g{};
+  g.a = a;
+  g.b = b;
+  g.c = c;
+  g.d = d;
+  g.out = out;
+  g.work = static_cast<float*>(work);
+  g.stats = ln ? reinterpret_cast<const float2*>(
+                     static_cast<unsigned char*>(work) + part)
+               : nullptr;
+  g.gamma = static_cast<const float*>(gamma);
+  g.beta = static_cast<const float*>(beta);
+  g.Mb = 1;
+  g.Nb = 1;
+  g.Kb = batch;
+  g.mb = m;
+  g.nb = n;
+  g.kb = k;
+  g.in_f32 = in_dtype == tpp::kF32;
+  const int es = g.in_f32 ? 4 : 2;
+  g.vec_a = sm::vec_ok(a, k, es);
+  g.vec_b = sm::vec_ok(b, transpose_b ? k : n, es);
+  g.vec_c = reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  g.vec_d = reinterpret_cast<uintptr_t>(d) % 16 == 0;
+  g.has_c = has_c;
+  g.c_dtype = c_dtype;
+  g.binary = binary;
+  g.bcast = bcast;
+  g.d_dtype = d_dtype;
+  g.unary = unary;
+  g.out_dtype = out_dtype;
+  g.split = p.split;
+  if ((p.split > 1 || ln) && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ln) {
+    ln_stats<<<(m + 7) / 8, 256, 0, st>>>(a, const_cast<float2*>(g.stats), m,
+                                          k, g.in_f32, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return run_sm90(p, g, transpose_b, route, ln, st);
 }
 
 extern "C" const char* tpp_error_string(int err) {

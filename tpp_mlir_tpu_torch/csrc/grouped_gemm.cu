@@ -61,17 +61,19 @@
 //   one unit stride and the other a multiple of 8; every key of the MoE
 //   slice): one block per (128 n columns, 128 k rows, group), the group
 //   slowest, with B16's ring, producer warp and consumer loop
-//   (consume_ring). Both operands carry the reduction (the token rows) on
-//   their slow axis: dY's slice is an MN-major B tile, and xt's an MN-major
-//   A tile (wgmma's trans-a) when xt is the transpose of a contiguous
-//   x, a K-major one when xt itself is contiguous. f32 stored from
-//   registers, masked at the k and n edges.
+//   (consume_ring, csrc/gemm_sm90.cuh's, which B1 and B19 share). Both
+//   operands carry the reduction (the token rows) on their slow axis: dY's
+//   slice is an MN-major B tile, and xt's an MN-major A tile (wgmma's
+//   trans-a) when xt is the transpose of a contiguous x, a K-major one when
+//   xt itself is contiguous. f32 stored from registers, masked at the k
+//   and n edges.
 //   "wmma": one 64 x 64 tile per block on TileMma's staging and products.
 #include <mma.h>
 
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "gemm_sm90.cuh"
 #include "hopper.cuh"
 
 using namespace nvcuda;
@@ -359,49 +361,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
   }
 }
 
-// The consumer side of the ring, shared by B16 and B17: `slices` stages in
-// order, each four k16 products of warpgroup wg's 64 rows into acc, one
-// slice's products kept in flight while the previous slice's stage goes
-// back to the producer. A stage is an A tile of 128 M rows then a B tile
-// of 128 N columns, 64 deep (GTile<2>, or GTile<1>'s 64 A rows). A_MN 0:
-// A is [M][64 k] K-major; 1: two [64 k][64 M] MN-major chunks. B_MN 0: B
-// is [128 N][64 k] K-major; 1: two [64 k][64 N] MN-major chunks.
-template <int A_MN, int B_MN, int A_BYTES>
-__device__ __forceinline__ void consume_ring(float (&acc)[64],
-                                             const unsigned char* smem,
-                                             uint64_t* full, uint64_t* empty,
-                                             int slices, int wg) {
-  constexpr int STAGE = A_BYTES + G_BK * G_BN * 2;
-  int stage = 0, phase = 0, prev = -1;
-  for (int kt = 0; kt < slices; ++kt) {
-    hw::mbar_wait(&full[stage], phase);
-    // warpgroup wg's A rows: 64 rows of 128 bytes (K-major), or chunk wg
-    // of 64 k-rows of 128 bytes (MN-major): 8 KB in either layout
-    const unsigned char* sa = smem + stage * STAGE + wg * 64 * 128;
-    const unsigned char* sb = smem + stage * STAGE + A_BYTES;
-    hw::fence_regs(acc);
-    hw::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < G_BK / 16; ++kk) {
-      const uint64_t da =
-          A_MN ? hw::make_desc<128>(sa + kk * 16 * 128, G_BK * 128, 1024)
-               : hw::make_desc<128>(sa + kk * 32, 16, 1024);
-      const uint64_t db =
-          B_MN ? hw::make_desc<128>(sb + kk * 16 * 128, G_BK * 128, 1024)
-               : hw::make_desc<128>(sb + kk * 32, 16, 1024);
-      hw::wgmma_m64n128k16_ss<B_MN, A_MN>(acc, da, db, 1);
-    }
-    hw::wgmma_commit();
-    // the previous slice's products are done: its stage goes back
-    hw::wgmma_wait<1>();
-    hw::fence_regs(acc);
-    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
-    prev = stage;
-    if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
-  }
-  hw::wgmma_wait<0>();
-  hw::fence_regs(acc);
-}
+// The consumer side of the ring is csrc/gemm_sm90.cuh's consume_ring, which
+// B1 and B19 run too: a stage is an A tile of 128 M rows (GTile<2>, or
+// GTile<1>'s 64) then a B tile of 128 N columns, 64 deep.
+static_assert(G_BK == tpp::sm90::BK, "the shared ring is 64 deep");
 
 // TRANS_B 0: B[g] is (k, n), staged as two [64 k][64 n] MN-major chunks;
 // 1: B[g] is (n, k), staged as one [128 n][64 k] K-major tile. NCW consumer
@@ -465,8 +428,8 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  consume_ring<0, TRANS_B ? 0 : 1, T::A_BYTES>(acc, smem, full, empty, ktiles,
-                                               wg);
+  tpp::sm90::consume_ring<0, TRANS_B ? 0 : 1, T::A_BYTES, G_BN, G_STAGES>(
+      acc, smem, full, empty, ktiles, wg);
 
   // epilogue from registers, one straight-line copy per unary (the switch
   // inside the unrolled loop would inline every unary 64 times)
@@ -622,7 +585,8 @@ grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  consume_ring<A_MN, 1, T::A_BYTES>(acc, smem, full, empty, slices, wg);
+  tpp::sm90::consume_ring<A_MN, 1, T::A_BYTES, G_BN, G_STAGES>(
+      acc, smem, full, empty, slices, wg);
   const int warp = (tid % G_WG) / 32, lane = tid % 32;
   store_tile<tpp::kIdentity>(acc, out + static_cast<size_t>(g) * k * n,
                              k0 + wg * 64 + warp * 16 + lane / 4,

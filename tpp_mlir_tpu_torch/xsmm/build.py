@@ -8,9 +8,10 @@ which `.gitignore` lists. The library's name carries a hash of the sources,
 so an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is downloaded: the sources in the package are the only input.
 `csrc/hopper.cuh` (TMA, mbarriers, wgmma) is shared by the kernels that
-use Hopper's asynchronous copies; its tensor-map encoder, a driver API, is
-taken through the runtime's cudaGetDriverEntryPoint, so the link needs no
--lcuda.
+use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh` (the pipelined
+TMA + wgmma GEMM mainloop) by brgemm.cu, blocked_matmul.cu and
+grouped_gemm.cu; the tensor-map encoder, a driver API, is taken through
+the runtime's cudaGetDriverEntryPoint, so the link needs no -lcuda.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (restype, argtypes)
-    "tpp_brgemm": (_I, [_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _P, _P, _P]),
+    "tpp_brgemm": (_I, [_P] * 6 + [_I] * 16 + [_F, _P, _P, _P]),
+    "tpp_gemm_plan": (_I, [_I] * 7 + [ctypes.POINTER(_L)]),
     "tpp_attention": (_I, [_P] * 4 + [_I] * 11 + [_F, _P]),
     "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 11 + [_P]),
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
@@ -54,7 +56,7 @@ _SIGNATURES = {
                           + [_P]),
     "tpp_conv_nhwc": (_I, [_P] * 5 + [_I] * 18 + [_P]),
     "tpp_conv_blocked": (_I, [_P] * 5 + [_I] * 18 + [_P]),
-    "tpp_blocked_matmul": (_I, [_P] * 5 + [_I] * 14 + [_P]),
+    "tpp_blocked_matmul": (_I, [_P] * 6 + [_I] * 17 + [_P]),
     "tpp_blocked_warm_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),

@@ -10,7 +10,9 @@ reached. Each wrapper counts its launches.
   BrgemmKey    -> csrc/brgemm.cu     (replaces xsmm/kernels.py:580
                                      _build_brgemm and :243
                                      _build_brgemm_wres, LayerNorm
-                                     prologue included)
+                                     prologue included; loader by
+                                     reference.brgemm_route, tile and k
+                                     split by tpp_gemm_plan)
   ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain, :2001
                                      _build_chain_bench and, pingpong,
                                      :1919 _build_chain_bench_pingpong)
@@ -53,7 +55,9 @@ reached. Each wrapper counts its launches.
                                      _build_grouped_wgrad, B17; tile by
                                      reference.grouped_wgrad_route)
   BlockedMatmulKey -> csrc/blocked_matmul.cu (replaces :763
-                                     _build_blocked_matmul, B19, and with
+                                     _build_blocked_matmul, B19, on
+                                     brgemm.cu's mainloop, loader by
+                                     reference.blocked_matmul_route; with
                                      repeats :870
                                      _build_blocked_matmul_warm, B20)
   ConvBrgemmKey -> csrc/conv.cu, the channel-blocked entry (replaces
@@ -74,6 +78,7 @@ Other keys and options raise NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -187,6 +192,56 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+_GEMM_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_plan(device: int, Mb: int, Nb: int, Kb: int, mb: int, nb: int,
+               kb: int, ln: bool) -> tuple[int, int, int, int]:
+    from .build import check, library
+    plan = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        check(library().tpp_gemm_plan(Mb, Nb, Kb, mb, nb, kb, int(ln), plan),
+              "gemm_plan")
+    return tuple(plan)
+
+
+def gemm_plan(key: BrgemmKey | BlockedMatmulKey,
+              device: int | None = None) -> tuple[int, int, int, int]:
+    """The launch plan of csrc/gemm_sm90.cuh's mainloop for a B1/B2 or B19
+    key on a card (default: the current one), as the C++ launcher makes it
+    (tpp_gemm_plan): (tile rows, tile columns, k split, workspace bytes).
+    Only the launcher holds the plan; this asks it."""
+    if device is None:
+        device = torch.cuda.current_device()
+    if isinstance(key, BrgemmKey):
+        return _gemm_plan(device, 1, 1, key.batch, key.m, key.n, key.k,
+                          key.prologue == "layer_norm")
+    return _gemm_plan(device, key.Mb, key.Nb, key.Kb, key.mb, key.nb,
+                      key.kb, False)
+
+
+def _workspace(key, dev) -> torch.Tensor | None:
+    """The split partials and LayerNorm statistics the launch writes, from
+    the caching allocator; None where the plan needs none."""
+    nbytes = gemm_plan(key, dev.index)[3]
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev) \
+        if nbytes else None
+
+
+def _native(t: torch.Tensor, name: str, numel: int, dev) -> torch.Tensor:
+    """An epilogue operand (C or D) as the kernel reads it: contiguous, in
+    its stored dtype where that is f32 or bf16 (widened to f32 in
+    registers), so no conversion kernel runs before the GEMM."""
+    if t.dtype not in _DT_CODE:
+        t = t.float()
+    t = t.contiguous()
+    if t.numel() != numel or t.device != dev:
+        raise ValueError(f"{name} has {t.numel()} elements on {t.device}, "
+                         f"expected {numel} on {dev}")
+    return t
+
+
 def _brgemm_launch(key: BrgemmKey):
     from .build import check, library
 
@@ -196,7 +251,7 @@ def _brgemm_launch(key: BrgemmKey):
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     d_size = {"bcast_col": n, "bcast_row": m, "bcast_scalar": 1,
               "none": m * n}[key.binary_bcast]
-
+    route = reference.brgemm_route(key)
     ln = key.prologue == "layer_norm"
 
     def launch(a, b, c=None, d=None, gamma=None, beta=None):
@@ -207,15 +262,16 @@ def _brgemm_launch(key: BrgemmKey):
         _expect(a, "A", (B, m, k), in_dt, dev)
         _expect(b, "B", (B, n, k) if key.transpose_b else (B, k, n),
                 in_dt, dev)
+        if route == "tma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+            raise ValueError(f"brgemm's tma route needs 16-byte aligned A "
+                             f"and B: {key}")
         if not key.beta0:
-            c = c.float().contiguous()
-            _expect(c, "C", (m, n), None, dev)
+            if tuple(c.shape) != (m, n):
+                raise ValueError(f"C has shape {tuple(c.shape)}, expected "
+                                 f"{(m, n)}")
+            c = _native(c, "C", m * n, dev)
         if key.binary_kind:
-            d = d.float().contiguous()
-            if d.numel() != d_size or d.device != dev:
-                raise ValueError(f"D has {d.numel()} elements on {d.device}, "
-                                 f"expected {d_size} on {dev} for "
-                                 f"{key.binary_bcast}")
+            d = _native(d, "D", d_size, dev)
         if ln and key.prologue_affine:
             gamma = gamma.reshape(-1).float().contiguous()
             beta = beta.reshape(-1).float().contiguous()
@@ -223,15 +279,20 @@ def _brgemm_launch(key: BrgemmKey):
             _expect(beta, "beta", (k,), None, dev)
         else:
             gamma = beta = None
+        work = None if route == "fma" else _workspace(key, dev)
         out = torch.empty((m, n), dtype=out_dt, device=dev)
         rc = library().tpp_brgemm(
             a.data_ptr(), b.data_ptr(),
             c.data_ptr() if not key.beta0 else None,
             d.data_ptr() if key.binary_kind else None,
-            out.data_ptr(), B, m, n, k, _DT_CODE[in_dt], _DT_CODE[mxu],
-            _DT_CODE[out_dt], int(key.transpose_b), int(not key.beta0),
+            out.data_ptr(), work.data_ptr() if work is not None else None,
+            B, m, n, k, _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            _DT_CODE[c.dtype] if not key.beta0 else 0,
+            _DT_CODE[d.dtype] if key.binary_kind else 0,
+            int(key.transpose_b), int(not key.beta0),
             _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
-            _UNARY_CODE[key.unary_kind], int(ln), key.prologue_eps,
+            _UNARY_CODE[key.unary_kind], int(ln), _GEMM_ROUTE_CODE[route],
+            key.prologue_eps,
             gamma.data_ptr() if gamma is not None else None,
             beta.data_ptr() if beta is not None else None, _stream())
         check(rc, f"brgemm {key}")
@@ -727,7 +788,9 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
     """B19, or with repeats B20, on packed operands: a [Mb,Kb,mb,kb],
     b [Nb,Kb,kb,nb] (VNNI [Nb,Kb,kb/2,nb,2], read in place by the kernel),
     c [Mb,Nb,mb,nb] unless beta_0 (B20 takes none), d the bias with Nb*nb
-    elements; the output is [Mb,Nb,mb,nb]."""
+    elements; the output is [Mb,Nb,mb,nb]. B19 takes the loader
+    reference.blocked_matmul_route names and reads C and the bias in their
+    stored dtype; B20 reads an f32 bias."""
     from .build import check, library
 
     Mb, Nb, Kb, mb, nb, kb = key.Mb, key.Nb, key.Kb, key.mb, key.nb, key.kb
@@ -737,6 +800,7 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
     v = key.vnni
     b_shape = (Nb, Kb, kb // v, nb, v) if v else (Nb, Kb, kb, nb)
     has_c = not key.beta0 and not key.repeats
+    route = reference.blocked_matmul_route(key)
 
     def launch(a, b, c=None, d=None):
         if key.repeats and not blocked_warm_fits_smem(key):
@@ -748,19 +812,28 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
         _expect(b, "B", b_shape, in_dt, dev)
         if key.repeats and b.data_ptr() % 16:
             raise ValueError("B must be 16-byte aligned for the warm bench")
+        if route == "tma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+            raise ValueError(f"blocked_matmul's tma route needs 16-byte "
+                             f"aligned A and B: {key}")
         if has_c:
-            c = c.float().contiguous()
-            _expect(c, "C", (Mb, Nb, mb, nb), None, dev)
+            if tuple(c.shape) != (Mb, Nb, mb, nb):
+                raise ValueError(f"C has shape {tuple(c.shape)}, expected "
+                                 f"{(Mb, Nb, mb, nb)}")
+            c = _native(c, "C", Mb * Nb * mb * nb, dev)
         if key.binary_kind:
-            d = d.reshape(-1).float().contiguous()
-            _expect(d, "D", (Nb * nb,), None, dev)
+            d = d.reshape(-1).float() if key.repeats else d.reshape(-1)
+            d = _native(d, "D", Nb * nb, dev)
+        work = _workspace(key, dev) if route in ("tma", "convert") else None
         out = torch.empty((Mb, Nb, mb, nb), dtype=out_dt, device=dev)
         rc = library().tpp_blocked_matmul(
             a.data_ptr(), b.data_ptr(), c.data_ptr() if has_c else None,
-            d.data_ptr() if key.binary_kind else None, out.data_ptr(), Mb,
-            Nb, Kb, mb, nb, kb, v, _DT_CODE[in_dt], _DT_CODE[mxu],
-            _DT_CODE[out_dt], int(has_c), _BINARY_CODE[key.binary_kind],
-            _UNARY_CODE[key.unary_kind], key.repeats, _stream())
+            d.data_ptr() if key.binary_kind else None, out.data_ptr(),
+            work.data_ptr() if work is not None else None, Mb, Nb, Kb, mb,
+            nb, kb, v, _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            _DT_CODE[c.dtype] if has_c else 0,
+            _DT_CODE[d.dtype] if key.binary_kind else 0, int(has_c),
+            _BINARY_CODE[key.binary_kind], _UNARY_CODE[key.unary_kind],
+            key.repeats, _GEMM_ROUTE_CODE.get(route, 0), _stream())
         check(rc, f"blocked_matmul {key}")
         return out
     return launch

@@ -492,6 +492,52 @@ def attention_loader(key: FlashMhaKey) -> str:
     return "tma" if tma_aligned(2, ld, E, key.head_dim) else "convert"
 
 
+def brgemm_route(key: BrgemmKey) -> str:
+    """Which loader runs B1/B2 at `key` (csrc/brgemm.cu on the pipelined
+    mainloop of csrc/gemm_sm90.cuh), from the key alone:
+      "fma"      MXU dtype f32 (f32 "highest"): brgemm.cu's f32-FMA body,
+                 no TF32;
+      "tma"      bf16 operands whose row strides TMA can take (A's k and,
+                 unless transpose_b, B's n: 16-byte multiples): one
+                 producer thread fills the ring by TMA;
+      "convert"  f32 operands at "default" (bf16 products, f32 sums) and
+                 bf16 operands TMA cannot take: the producer warpgroup
+                 loads through registers, rounds to bf16 and stores the
+                 swizzled layout TMA would, so the consumers run one code.
+    A VNNI B is un-VNNI'd by the wrapper first (as _unvnni does), so it
+    takes the flat B's route. The "tma" route also needs 16-byte aligned
+    base pointers; the wrapper checks them (every torch allocation is).
+    The tile and the k split are the launcher's (tpp_gemm_plan), chosen on
+    the card."""
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    strides = (key.k,) if key.transpose_b else (key.k, key.n)
+    if key.dtype == "bf16" and tma_aligned(2, *strides):
+        return "tma"
+    return "convert"
+
+
+def blocked_matmul_route(key: BlockedMatmulKey) -> str:
+    """Which kernel runs a BlockedMatmulKey, from the key alone:
+      "warm"     repeats > 0: B20's panel kernel in csrc/blocked_matmul.cu;
+      and B19 on the loaders of brgemm_route's table:
+      "fma"      f32 "highest": the f32-FMA body (VNNI read in place);
+      "tma"      bf16, not VNNI, kb and nb 16-byte multiples: 4D tensor
+                 maps over the packed A and B;
+      "convert"  f32 "default", any VNNI B (VNNI2 pairs two k of one n in 4
+                 bytes, no wgmma layout, so it is re-laid in registers on
+                 the way in, in place: no un-VNNI pass), and strides TMA
+                 cannot take."""
+    if key.repeats:
+        return "warm"
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    if key.dtype == "bf16" and not key.vnni and tma_aligned(2, key.kb,
+                                                            key.nb):
+        return "tma"
+    return "convert"
+
+
 def _heads(key: FlashMhaKey, x: torch.Tensor, s: int) -> torch.Tensor:
     """(B, s, H*D) token layout or (B*H, s, D) flat layout -> (B', H', s,
     D)."""
