@@ -11,7 +11,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
      at the main paths' shapes, with the tolerance stated per case (for
      serving: the prefill attention at B 8, S 512, H 12, D 64 with split
      q/k/v; decode attention at B 8, H 12, S 1024, D 64, L 12 and its
-     slotted, GQA, int8-KV, pack2 and f32 variants; the int8 GEMM at the
+     slotted, GQA, int8-KV, pack2 and f32 variants, each line naming
+     reference.decode_attn_plan's chunk and split count, each launched
+     twice bit-equal; the int8 GEMM at the
      four prefill shapes and a ragged m; for training: B1 forward and
      transpose_b (dx) at the MLP rows' shapes, B14 and B18 at the GPT-2
      training key B 8, S 512, H 12, D 64 causal bf16, an f32 key at D 128
@@ -122,9 +124,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
      blocks), B11 at -n 20, the batched matmul at mha_qk's and
      mha_softmax_v's keys and B5 at fc_128x768x2304 with -n 100; csrc/conv.cu
      at the conv kernel cases' keys beside F.conv2d + the epilogue (TF32
-     off); B19 at the fc rows' keys beside torch.addmm on the unpacked
+     off; for f32 "default" keys also F.conv2d on bf16 copies of I and W,
+     the function the key computes), eagerly and from a CUDA graph, and
+     its tile body forced to "wmma" beside its wgmma kernel in turns; B19
+     at the fc rows' keys beside torch.addmm on the unpacked
      operands, B20 at them with -n 200 as repeats, B23 at the packed conv
      rows' keys beside F.conv2d on the unpacked operands + the epilogue;
+     decode attention (B13) from a CUDA graph whose launches walk the 12
+     stacked layers, as a decode step reads them (the line's times, beside
+     SDPA on each layer's live rows), and replaying layer 5 alone (which
+     L2 can hold);
      each of these held against its plain version there too, the kernel
      line's max_abs_err for the three taken at the key whose ms it shows.
 Phase 3 also holds the MHA suite's kernels: flat attention at every
@@ -140,7 +149,9 @@ non-beta0 key, and B5 at fc_128x768x2304 with repeats 2 and 3; and
 csrc/conv.cu (B24/B25) at the keys default-tpp-passes makes of the conv
 suite (conv3x3_fp32_b8_c128_k128_30's layer at f32 "default" and "highest",
 its bf16 form, c256 at 16x16, the 1x1 W 14 key, the same-padded residual
-bf16 key, forced fullrow and window), and the xla route at the ViT's patch
+bf16 key, forced fullrow and window, and the c128/30 key on the forced
+"wmma" tile body), each line naming reference.conv_kernel_route's body and
+conv_plan's tile and split, and the xla route at the ViT's patch
 conv at "highest" against the same plain version (TF32 would miss it); and
 packed parity mode's kernels: csrc/blocked_matmul.cu (B19) at the fc rows'
 key in f32 "default", f32 "highest" and bf16 VNNI, a masked mb 8 key and
@@ -157,6 +168,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -622,11 +634,26 @@ def _int8_inputs(key, g):
 def _route_note(key, xt_stride=None) -> str:
     """The loader (attention.cu; B1/B2 and B19 with the launcher's tile and
     k split) or tile (B16, B17: at xt's strides) or kernel (B14 and B18,
-    the batched matmul) the wrapper chose."""
+    the batched matmul) or body (conv.cu, with its tile and k split) or
+    split (decode attention) the wrapper chose."""
     from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
-                                         BrgemmKey, FlashMhaKey,
-                                         FlashTrainBwdKey, FlashTrainKey,
-                                         GroupedGemmKey, GroupedWgradKey)
+                                         BrgemmKey, ConvBrgemmKey,
+                                         ConvNhwcKey, DecodeAttnKey,
+                                         FlashMhaKey, FlashTrainBwdKey,
+                                         FlashTrainKey, GroupedGemmKey,
+                                         GroupedWgradKey)
+    if isinstance(key, DecodeAttnKey):
+        from tpp_mlir_tpu_torch.xsmm.reference import decode_attn_plan
+        chunk, splits = decode_attn_plan(key)
+        return f"; chunk {chunk} rows, splits {splits}"
+    if isinstance(key, (ConvNhwcKey, ConvBrgemmKey)):
+        from tpp_mlir_tpu_torch.xsmm.reference import (conv_kernel_route,
+                                                       conv_plan)
+        route = conv_kernel_route(key)
+        if route not in ("tma", "convert"):
+            return f"; route {route}"
+        bm, bn, split = conv_plan(key)
+        return f"; route {route}, tile {bm}x{bn}, split {split}"
     if isinstance(key, (BrgemmKey, BlockedMatmulKey)):
         from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
         from tpp_mlir_tpu_torch.xsmm.reference import (blocked_matmul_route,
@@ -686,6 +713,12 @@ def phase_kernels() -> dict:
             tol = _tol(key)
             ok = rel <= tol and torch.isfinite(got.float()).all().item()
             note = ""
+            if kind == "decode_attn":
+                # the split merge sums in split order, whatever order the
+                # blocks ran in
+                same = torch.equal(build_kernel(key)(*args), got)
+                ok = ok and same
+                note = f" (second launch bit-equal: {same})"
             if kind == "chain" and key.dtype == "f32" and \
                     key.precision == "default" and key.repeats == 1:
                 # pins the meaning of f32 "default": a kernel that ran true
@@ -2216,19 +2249,24 @@ def phase_conv_kernels() -> dict:
     """csrc/conv.cu against its per-tap plain version at the conv suite's
     keys, at f32 "default" and "highest", bf16, the 1x1 W 14 key, the
     same-padded residual key and the forced fullrow (B25) and window (B24)
-    strategies; then the xla route (F.conv2d, no kernel) against the same
-    plain version at "highest", which cuDNN's default TF32 would miss."""
+    strategies, and the c128/30 key on its forced "wmma" tile body; then
+    the xla route (F.conv2d, no kernel) against the same plain version at
+    "highest", which cuDNN's default TF32 would miss."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import build_kernel
     from tpp_mlir_tpu_torch.xsmm.reference import (conv_nhwc_reference,
                                                    conv_route)
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_conv
     g = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
-    for label, row, index, kw in CONV_KERNEL_CASES:
-        key = _conv_key(row, index, **kw)
+    cases = [(label, _conv_key(row, index, **kw), None)
+             for label, row, index, kw in CONV_KERNEL_CASES]
+    cases.append((CONV_KERNEL_CASES[0][0] + " forced wmma", cases[0][1],
+                  "wmma"))
+    for label, key, forced in cases:
         args = _conv_inputs(key, g)
-        kern = build_kernel(key)
+        kern = build_conv(key, forced) if forced else build_kernel(key)
         got = kern(*args)
         ref = conv_nhwc_reference(key)(*args)
         torch.cuda.synchronize()
@@ -2238,10 +2276,11 @@ def phase_conv_kernels() -> dict:
         ok = rel <= tol and torch_isfinite(got) and \
             kern.launches == (route == "kernel") and \
             torch.backends.cudnn.allow_tf32   # the route restores the flag
+        body = f"; forced {forced}" if forced else _route_note(key)
         say(f"kernel {_kind(key) or 'no kernel':12s} {label:50s} "
             f"N{key.N} {key.H}x{key.W}x{key.C}->{key.P}x{key.Q}x{key.K} "
             f"R{key.R} pad {key.pad} {key.dtype}/{key.precision} route "
-            f"{route} rel {rel:.3e} abs {ab:.3e} tol {tol:.0e} "
+            f"{route}{body} rel {rel:.3e} abs {ab:.3e} tol {tol:.0e} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} > {tol}, launches "
@@ -2758,10 +2797,27 @@ def phase_timing(n: int = 100) -> dict:
         # the serving kernels run inside the decode step's CUDA graph: their
         # line and the kernel table take graph-replayed times
         timer = graph_ms if graphed else cuda_ms
-        ms, plain_ms = timer(lambda: kern(*args)), timer(lambda: plain(*args))
-        lib_ms = timer(library) if library else None
         bound, by = _bound(kind, key, args)
         note = " (replayed from a CUDA graph)" if graphed else ""
+        if kind == "decode_attn":
+            # of record: a graph whose launches walk the stacked layers, as
+            # a decode step reads them (twelve slabs, more than L2 holds);
+            # layer 5 replayed alone beside it (its slab can sit in L2)
+            layer = _decode_library(key, args)
+            walk = [_walk(lambda li: kern(*args[:4], li, *args[5:]), key),
+                    _walk(lambda li: plain(*args[:4], li, *args[5:]), key),
+                    _walk(layer, key) if layer else None]
+            ms, plain_ms, lib_ms = (graph_ms(f, iters=2 * key.stacked)
+                                    if f else None for f in walk)
+            lib_5 = f", SDPA {graph_ms(library):.4f} ms" if library else ""
+            note = f" (replayed from a CUDA graph walking the " \
+                f"{key.stacked} layers; layer {args[4]} replayed alone " \
+                f"{graph_ms(lambda: kern(*args)):.4f} ms{lib_5})" \
+                f"{_route_note(key)}"
+        else:
+            ms = timer(lambda: kern(*args))
+            plain_ms = timer(lambda: plain(*args))
+            lib_ms = timer(library) if library else None
         if kind == "batch_matmul":     # the eager times beside them
             lib_e = f", library call {cuda_ms(library):.4f} ms" \
                 if library else ""
@@ -2770,10 +2826,19 @@ def phase_timing(n: int = 100) -> dict:
             note += f" ({ms / key.repeats:.4f} ms per repeat of {key.repeats})"
         if hasattr(key, "bq") and (key.strategy != "auto" or key.bq):
             note += f" (strategy {key.strategy}, bq {key.bq}, bk {key.bk})"
-        if kind in ("brgemm", "blocked_matmul"):
+        if kind in ("brgemm", "blocked_matmul", "conv_nhwc",
+                    "conv_blocked"):
             note += _route_note(key)
+        if kind in ("conv_nhwc", "conv_blocked"):
+            # the function an f32 "default" key computes (bf16 products)
+            bf16 = _conv_library_bf16(kind, key, args)
+            if bf16:
+                note += f" (F.conv2d on bf16 I and W + epilogue " \
+                    f"{cuda_ms(bf16):.4f} ms, from a CUDA graph " \
+                    f"{graph_ms(bf16):.4f} ms)"
         if kind in ("flash_train_fwd", "flash_train_bwd", "attention",
-                    "layer_norm", "brgemm", "blocked_matmul"):
+                    "layer_norm", "brgemm", "blocked_matmul", "conv_nhwc",
+                    "conv_blocked"):
             # a kernel of tens of us timed over eager launches can read the
             # host's time a call (tensor-map encodes included): the
             # device's own, from graph replay, beside it. B18's library
@@ -2828,7 +2893,28 @@ def phase_timing(n: int = 100) -> dict:
         say(f"time kernel {describe(key):44s} wgmma tile "
             f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), forced "
             f"wmma tile {(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f})")
+    # conv.cu's tile body forced to "wmma" beside its wgmma kernel, in
+    # turns, from a CUDA graph, at each timed conv key with bf16 products
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_conv
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_kernel_route
+    for kind, key, args in timed:
+        if kind not in ("conv_nhwc", "conv_blocked") or \
+                conv_kernel_route(key) not in ("tma", "convert"):
+            continue
+        new, old = build_kernel(key), build_conv(key, "wmma")
+        t = [graph_ms(lambda: k(*args)) for k in (new, old, old, new)]
+        say(f"time kernel {describe(key):44s} wgmma "
+            f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), forced "
+            f"wmma body {(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, "
+            f"{t[2]:.4f}) (from a CUDA graph){_route_note(key)}")
     return out
+
+
+def _walk(fn, key):
+    """A call of fn(li) whose layer index walks 0 .. key.stacked - 1, one
+    layer a call, as a decode step reads the stacked cache."""
+    layers = itertools.count()
+    return lambda: fn(next(layers) % key.stacked)
 
 
 def _flash_fwd_timing_inputs(key, g):
@@ -2886,13 +2972,16 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate, flops = "f32", 8 * key.m * key.n
         nbytes = _nbytes(x, gamma, beta) + key.m * key.n * x.element_size()
     elif kind == "decode_attn":
+        # each slot's live rows, min(pos_b + 1, S) (pos_b == S: a free
+        # slot, every row), K and V (and the int8 cache's two scales)
         q, k, v, pos = args[:4]
-        live = int(pos.max()) + 1
-        B, H, D, G = key.batch, key.heads, key.head_dim, key.groups
-        rows = B * H * live * D
+        live = int(torch.clamp(pos.long() + 1, max=key.seq).expand(
+            key.batch).sum())
+        H, D, G = key.heads, key.head_dim, key.groups
+        rows = H * live * D
         rate, flops = "f32", 4 * rows * G
         nbytes = 2 * rows * k.element_size() + _nbytes(q, pos) + \
-            q.numel() * 4
+            q.numel() * 4 + (2 * H * live * 4 if key.kv_quant else 0)
     elif kind == "int8_gemm":
         rate, flops = "int8", 2 * key.m * key.n * key.k
         nbytes = _nbytes(*args) + key.m * key.n * 4
@@ -3007,14 +3096,9 @@ def _library_call(kind, key, args):
         x, gamma, beta = args
         gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
         return lambda: F.layer_norm(x, (key.n,), gamma, beta, key.eps)
-    if kind == "decode_attn" and key.groups == 1 and not key.kv_quant \
-            and not key.pack2:
-        q, k, v, pos, li = args[:5]
-        live = int(pos.max()) + 1
-        kl, vl = (t[li][:, :, :live].contiguous() for t in (k, v))
-        q4 = q[:, :, None]
-        return lambda: F.scaled_dot_product_attention(
-            q4, kl, vl, scale=key.head_dim ** -0.5)
+    if kind == "decode_attn":
+        layer = _decode_library(key, args)
+        return (lambda: layer(args[4])) if layer else None
     if kind in ("grouped_gemm", "grouped_wgrad"):
         return _grouped_mm_call(kind, key, args)
     if kind == "conv_nhwc":
@@ -3042,6 +3126,42 @@ def _library_call(kind, key, args):
         return lambda: torch.autograd.grad(o, (q, k, v), g,
                                            retain_graph=True)
     return None
+
+
+def _decode_library(key, args):
+    """SDPA on each layer's live rows, as call(li): the rows up to the
+    largest min(pos_b + 1, S), copied contiguous here (untimed) for every
+    layer of the stacked cache, and for a slotted key a mask of each slot's
+    rows past its own pos, so the call computes B13's function. None where
+    no SDPA call does: GQA's groups, the int8 cache's scales, pack2's
+    layout."""
+    import torch
+    import torch.nn.functional as F
+    if key.groups != 1 or key.kv_quant or key.pack2:
+        return None
+    q, k, v, pos = args[:4]
+    live = int(torch.clamp(pos.long() + 1, max=key.seq).max())
+    kl = [t[:, :, :live].contiguous() for t in k]
+    vl = [t[:, :, :live].contiguous() for t in v]
+    mask = torch.arange(live, device=q.device) <= pos.reshape(-1, 1, 1, 1) \
+        if key.slotted else None
+    q4 = q[:, :, None]
+    return lambda li: F.scaled_dot_product_attention(
+        q4, kl[li], vl[li], attn_mask=mask, scale=key.head_dim ** -0.5)
+
+
+def _conv_library_bf16(kind, key, args):
+    """For an f32 "default" conv key (bf16 products, f32 sums): F.conv2d on
+    bf16 copies of I and W (copied here, untimed) and the f32 epilogue, the
+    key's own function up to the rounding of the conv's output to bf16;
+    None for any other key."""
+    import torch
+    if key.dtype != "f32" or key.precision != "default":
+        return None
+    i, w, c, d = args
+    half = (i.to(torch.bfloat16), w.to(torch.bfloat16), c, d)
+    return _conv_library_call(key, half) if kind == "conv_nhwc" \
+        else _conv_blocked_library_call(key, half)
 
 
 def _sdpa_backward_op(key, args):

@@ -510,13 +510,25 @@ def test_trace_sees_the_chain_kernel(cuda):
 def test_decode_attn_kernel_matches_plain(cuda, key, pos):
     """1e-4: the kernel and its plain version compute in f32 from the same
     values and differ in summation order only."""
-    g = cuda
+    q, k, v, pos, kw = _decode_inputs(cuda, key, pos)
+    kern = build_kernel(key)
+    got = kern(q, k, v, pos, 1, **kw)
+    want = reference_kernel(key)(q, k, v, pos, 1, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == 1 and got.shape == want.shape
+    assert _err(got, want) <= 1e-4
+
+
+def _decode_inputs(g, key, pos):
+    """q, a stacked cache of `key.stacked` layers (int8 payloads with f32
+    scales for kv_quant), pos on the card, and the scales as keywords."""
     B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
+    L = key.stacked
     if key.pack2:
-        q_shape, slab = (B, H // 2, 2 * D), (3, B, H // 2, S, 2 * D)
+        q_shape, slab = (B, H // 2, 2 * D), (L, B, H // 2, S, 2 * D)
     else:
         q_shape = (B, H, D) if G == 1 else (B, H, G, D)
-        slab = (3, B, H, S, D)
+        slab = (L, B, H, S, D)
     q = _rnd(g, q_shape, key.dtype)
     kw = {}
     if key.kv_quant:
@@ -529,12 +541,56 @@ def test_decode_attn_kernel_matches_plain(cuda, key, pos):
     else:
         k, v = _rnd(g, slab, key.dtype), _rnd(g, slab, key.dtype)
     pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return q, k, v, pos, kw
+
+
+# decode_attn.cu's split edges: 64-row chunks (reference.decode_attn_plan),
+# pos 0 (splits with no live row), 63 and 64 (a chunk edge: one whole
+# chunk, then a chunk of one row), S - 1, S (a free slot: every row)
+@pytest.mark.parametrize("key,pos", [
+    (DecodeAttnKey(5, 2, 512, 64, "bf16", slotted=True, stacked=2),
+     [0, 63, 64, 511, 512]),
+    (DecodeAttnKey(2, 4, 256, 128, "f32", groups=8, stacked=2), [191]),
+    (DecodeAttnKey(3, 2, 384, 32, "bf16", slotted=True, kv_quant=True,
+                   stacked=2), [383, 127, 128]),
+    (DecodeAttnKey(2, 4, 512, 64, "bf16", pack2=True, stacked=2), [300]),
+    (DecodeAttnKey(8, 12, 1024, 64, "bf16", stacked=12), [639]),
+], ids=["slotted-edges", "d128-g8-f32", "int8-slotted", "pack2",
+        "serving-key"])
+def test_decode_attn_split_edges_are_bit_repeatable(cuda, key, pos):
+    """Within 1e-4 of the plain version, bit-equal across launches (the
+    splits merge in split order whatever order the blocks ran in), and the
+    merge's arrival counters left at zero for the next launch."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import _DECODE_COUNTS
+    from tpp_mlir_tpu_torch.xsmm.reference import decode_attn_plan
+    assert decode_attn_plan(key)[1] > 1
+    q, k, v, pos, kw = _decode_inputs(cuda, key, pos)
     kern = build_kernel(key)
     got = kern(q, k, v, pos, 1, **kw)
+    again = kern(q, k, v, pos, 1, **kw)
     want = reference_kernel(key)(q, k, v, pos, 1, **kw)
     torch.cuda.synchronize()
-    assert kern.launches == 1 and got.shape == want.shape
+    assert kern.launches == 2
+    assert torch.equal(got, again)
     assert _err(got, want) <= 1e-4
+    assert int(_DECODE_COUNTS[torch.cuda.current_device()].abs().sum()) == 0
+
+
+def test_decode_attn_graph_replays_right_at_every_position(cuda):
+    """pos is read on the card: one captured graph, replayed after pos
+    moves in place, matches the plain version at each position."""
+    key = DecodeAttnKey(4, 6, 512, 64, "bf16", slotted=True, stacked=2)
+    q, k, v, pos, _ = _decode_inputs(cuda, key, [10, 200, 512, 511])
+    kern = build_kernel(key)
+    kern(q, k, v, pos, 1)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(q, k, v, pos, 1)
+    for p in ([10, 200, 512, 511], [0, 64, 65, 127], [511, 63, 1, 300]):
+        pos.copy_(torch.tensor(p, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _err(out, reference_kernel(key)(q, k, v, pos, 1)) <= 1e-4
 
 
 @pytest.mark.parametrize("key", [
@@ -1137,6 +1193,125 @@ def test_flat_attention_refuses_shapes_beyond_the_kernel(cuda):
     q = torch.zeros(70000, 16, 32, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="65535"):
         build_kernel(FlashMhaKey(70000, 16, 16, 32, "bf16"))(q, q, q)
+
+
+# csrc/conv.cu's wgmma implicit GEMM (routes "tma", bf16, and "convert",
+# f32 "default"; reference.conv_kernel_route) at its edges: C and K off the
+# 64 / 128 tiles (C 8 and 24, K 72 and 40), asymmetric padding, P.Q not a
+# multiple of 64, 1x1, the channel-blocked entry at Cb 2 (rows per image),
+# 64 x 128 and 128 x 128 tiles, k splits on both routes, C and D in bf16
+# read as stored
+CONV_WGMMA = {
+    "c8-k72-bf16-asym-pad": (ConvNhwcKey(N=3, H=9, W=7, C=8, K=72, R=3,
+                                         S=3, dtype="bf16", pad=(1, 0, 2, 1),
+                                         beta0=True, binary_kind="add",
+                                         unary_kind="relu"), "tma"),
+    "c24-k72-f32-asym-residual": (ConvNhwcKey(N=2, H=11, W=10, C=24, K=72,
+                                              R=3, S=2, pad=(0, 2, 1, 0),
+                                              binary_kind="add",
+                                              binary_bcast="none",
+                                              unary_kind="gelu"), "convert"),
+    "1x1-c24-bf16-f32-out": (ConvNhwcKey(N=2, H=7, W=9, C=24, K=72,
+                                         dtype="bf16", out_dtype="f32"),
+                             "tma"),
+    "blocked-cb2-f32": (ConvBrgemmKey(N=2, H=9, W=8, Cb=2, c=24, Kb=2, k=72,
+                                      R=3, S=3, beta0=True,
+                                      binary_kind="add", unary_kind="relu"),
+                        "convert"),
+    "blocked-cb2-kb3-bf16-c": (ConvBrgemmKey(N=2, H=6, W=7, Cb=2, c=64, Kb=3,
+                                             k=40, R=2, S=3, dtype="bf16"),
+                               "tma"),
+    "64x128-bf16": (ConvNhwcKey(N=8, H=36, W=36, C=64, K=128, R=3, S=3,
+                                dtype="bf16", beta0=True, binary_kind="add",
+                                unary_kind="relu"), "tma"),
+    "tma-split-bf16": (ConvNhwcKey(N=2, H=18, W=18, C=128, K=128, R=3, S=3,
+                                   dtype="bf16"), "tma"),
+    "128x128-f32": (ConvNhwcKey(N=8, H=36, W=36, C=64, K=128, R=3, S=3,
+                                beta0=True, binary_kind="add",
+                                unary_kind="relu"), "convert"),
+    "c128-30-f32-c-relu": (ConvNhwcKey(N=8, H=30, W=30, C=128, K=128, R=3,
+                                       S=3, unary_kind="relu"), "convert"),
+}
+
+
+def _conv_args(g, key, cd="f32"):
+    """I and W of a NHWC or channel-blocked key, C and D (in dtype cd)
+    where the key reads them."""
+    if isinstance(key, ConvBrgemmKey):
+        out = (key.N, key.Kb, key.P, key.Q, key.k)
+        i = _rnd(g, (key.N, key.Cb, key.H, key.W, key.c), key.dtype)
+        w = _rnd(g, (key.Kb, key.Cb, key.R, key.S, key.c, key.k), key.dtype,
+                 (key.R * key.S * key.Cb * key.c) ** -0.5)
+        bias = (key.Kb, key.k)
+    else:
+        out = (key.N, key.P, key.Q, key.K)
+        i = _rnd(g, (key.N, key.H, key.W, key.C), key.dtype)
+        w = _rnd(g, (key.R, key.S, key.C, key.K), key.dtype,
+                 (key.R * key.S * key.C) ** -0.5)
+        bias = (key.K,)
+    c = None if key.beta0 else _rnd(g, out, cd)
+    d = None
+    if key.binary_kind:
+        d = _rnd(g, out if key.binary_bcast == "none" else bias, cd)
+    return i, w, c, d
+
+
+@pytest.mark.parametrize("name", list(CONV_WGMMA))
+def test_conv_wgmma_routes_match_plain(cuda, name):
+    """Single GEMMs: 1e-4 for an f32 output (both sides round I and W to
+    bf16 the same way), 1e-2 for bf16; a k split sums its partials in
+    slice order, so two launches are bit-equal."""
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_kernel_route
+    key, route = CONV_WGMMA[name]
+    assert conv_kernel_route(key) == route
+    args = _conv_args(cuda, key)
+    kern = build_kernel(key)
+    got = kern(*args)
+    again = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 2 and got.shape == want.shape
+    assert torch.equal(got, again)
+    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
+                               else 1e-2)
+
+
+@pytest.mark.parametrize("name,cd", [
+    ("c24-k72-f32-asym-residual", "bf16"), ("blocked-cb2-kb3-bf16-c", "bf16"),
+    ("c128-30-f32-c-relu", "bf16")])
+def test_conv_reads_c_and_d_in_their_stored_dtype(cuda, name, cd):
+    """bf16 C and D go to the kernel as they are (no conversion kernel
+    first) and are widened in registers: the plain version widens them
+    the same way."""
+    key, _ = CONV_WGMMA[name]
+    args = _conv_args(cuda, key, cd)
+    got = build_kernel(key)(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
+                               else 1e-2)
+
+
+@pytest.mark.parametrize("name", ["c8-k72-bf16-asym-pad",
+                                  "c24-k72-f32-asym-residual",
+                                  "blocked-cb2-f32", "c128-30-f32-c-relu"])
+def test_conv_forced_wmma_route(cuda, name):
+    """The tile body forced (kernels.build_conv), as phase 5 times it
+    beside the wgmma kernel: the same function within the same tolerance;
+    "highest" keys cannot be forced off their f32 FMA body."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_conv
+    key, _ = CONV_WGMMA[name]
+    args = _conv_args(cuda, key)
+    kern = build_conv(key, "wmma")
+    got = kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
+                               else 1e-2)
+    with pytest.raises(ValueError, match="only 'wmma' may be forced"):
+        build_conv(dataclasses.replace(key, dtype="f32",
+                                       precision="highest"), "wmma")
 
 
 # the conv family: csrc/conv.cu (B24/B25) at the conv suite's key forms, a

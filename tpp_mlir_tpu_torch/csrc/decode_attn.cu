@@ -1,5 +1,5 @@
 // Single-token decode attention over the stacked KV cache, for Hopper
-// (sm_90a).
+// (sm_90a), as a split-sequence kernel.
 //
 // Replaces tpp_mlir_tpu/xsmm/decode_attn.py:101 build_decode_attn (B13):
 //   out[b, h, g] = sum_{s <= pos} softmax_s(K[li,b,h,s] . q[b,h,g] * D^-0.5
@@ -13,26 +13,50 @@
 // What bounds it on the H100: a batch of matvecs, two FLOPs per cache byte,
 // so device memory (3.35 TB/s). At the serving geometry (B 8, H 12, D 64,
 // bf16, 640 live rows) one layer reads 15.7 MB of K/V; the floor is ~5 us.
-// Design: one block per (KV head, batch row), so all G query heads of a KV
-// head share one read of its rows. The live rows (s <= pos; pos read from
-// device memory, so a captured CUDA graph replays right at every position)
-// are split across the block's 8 warps; D/8 lanes hold one row, each lane 8
-// columns (16-byte loads for bf16, two for f32, 8 bytes for int8). Scores
-// are f32, reduced over the row's lanes by shuffles, and each lane keeps an
-// online softmax (running max, sum and its 8 P.V columns) for the rows it
-// visits; the row groups of a warp are merged by shuffles and the warps in
-// shared memory. Rows past pos are never read: B13 gives them
-// exp(-1e30 - m) = 0 exactly, so the function is the same.
-// Known gaps: B 8 x H 12 is 96 blocks for 132 SMs and B 8 x 4 KV heads only
-// 32; splitting S across blocks (a second merge pass) is later work.
+// Reaching it takes enough blocks (a block per (KV head, batch row) is 96
+// on 132 SMs, 32 at 4 KV heads) and enough bytes in flight on every SM.
+// Design:
+//   - the grid is (split, KV head, batch row): the live rows of a head are
+//     cut into chunks of `chunk` rows (xsmm/reference.py decode_attn_plan,
+//     from the key alone: 128 rows at the serving keys). pos
+//     is read on the device, so one captured CUDA graph stays right at
+//     every position; a split whose first row is past the live rows exits
+//     at once;
+//   - the whole chunk goes in flight at once: per 64-row tile one bulk
+//     copy of K and one of V (cp.async.bulk: the rows are contiguous),
+//     issued by thread 0 as soon as the tile's mbarrier exists; pack2's
+//     strided rows by every thread's 16-byte cp.async, arriving on the
+//     same barriers. The scores of a tile start as soon as it lands; the
+//     int8 cache's scales of the chunk's rows go to shared memory in the
+//     same round (read per row in the passes, they cost a round trip a
+//     row group);
+//   - the chunk is computed in passes on CUDA cores (G is 1-8 query heads
+//     a KV head: an mma.sync tile would be at least half padding, and the
+//     products are two FLOPs a byte, far under the card's FMA rate): the
+//     scores of the chunk's rows x G (f32, each row's D columns over D/8
+//     lanes, shuffle sums), one max and one exp per (row, g), then P.V
+//     from shared memory, the block's 8 warps' partial sums added in warp
+//     order;
+//   - the splits merge deterministically: a head with one live split
+//     writes its output directly; otherwise each split writes (m, l,
+//     acc[G][D]) to an f32 workspace, and the last split of the head to
+//     arrive (a counter in the workspace, reset by that block, so a graph
+//     replays right) merges them in split order. The output is
+//     bit-repeatable whatever order the blocks run in.
+// Rows past pos are never read: B13 gives them exp(-1e30 - m) = 0 exactly,
+// so the function is the same.
 #include <math.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+namespace hw = tpp::hopper;
+
 constexpr int WARPS = 8, THREADS = WARPS * 32, CPL = 8;  // columns per lane
+constexpr int TILE = 64, MAX_TILES = 2;   // rows a bulk copy, tiles a chunk
 
 struct Args {
   const void* q;
@@ -42,9 +66,32 @@ struct Args {
   const float* v_s;
   const int* pos;
   float* out;
+  float* part;     // [B H splits][G][D] partial P.V sums
+  float2* ml;      // [B H splits][G] (max, sum of exp) of each split
+  int* count;      // [B H] splits arrived; zero between launches
   int batch, heads, seq;  // heads: KV heads (H, also with pack2)
   int li, slotted, pack2;
+  int chunk, splits;
   float scale;
+};
+
+// The block's shared memory: K and V of the chunk, the scores [G][chunk],
+// the int8 cache's K and V scales of the chunk's rows, the warps' P.V
+// partials [WARPS][G][D], (m, l) per g, the tile barriers and the
+// last-arrival flag. Offsets in bytes.
+struct Layout {
+  int k, v, sc, ks, red, ml, bar, flag, bytes;
+  __host__ __device__ Layout(int chunk, int G, int D, int es) {
+    k = 0;
+    v = chunk * D * es;
+    sc = 2 * chunk * D * es;
+    ks = sc + G * chunk * 4;
+    red = ks + 2 * chunk * 4;
+    ml = red + WARPS * G * D * 4;
+    bar = (ml + 2 * G * 4 + 7) / 8 * 8;
+    flag = bar + MAX_TILES * 8;
+    bytes = flag + 16;
+  }
 };
 
 __device__ __forceinline__ void load8(const float* p, float (&x)[CPL]) {
@@ -73,158 +120,268 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[CPL]) {
   for (int i = 0; i < CPL; ++i) x[i] = static_cast<float>(c[i]);
 }
 
-// Online-softmax state of one query head: max, sum, 8 output columns.
-template <int GMAX>
-struct State {
-  float m[GMAX], l[GMAX], acc[GMAX][CPL];
-};
-
-// Merge another state (m2, l2, acc2) into (m, l, acc).
-__device__ __forceinline__ void merge(float& m, float& l, float* acc,
-                                      float m2, float l2, const float* acc2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;  // both empty
-  const float a = m == -INFINITY ? 0.f : expf(m - mn);
-  const float b = m2 == -INFINITY ? 0.f : expf(m2 - mn);
-  l = l * a + l2 * b;
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) acc[c] = acc[c] * a + acc2[c] * b;
-  m = mn;
-}
-
 // D: head dim; GMAX: G rounded up to 1, 4 or 8 (loops run to G).
 template <typename Tq, typename Tkv, int D, int GMAX>
-__global__ void __launch_bounds__(THREADS) decode_attn_kernel(Args a, int G) {
+__global__ void __launch_bounds__(THREADS, 1)
+decode_attn_kernel(Args a, int G) {
   constexpr int LPR = D / CPL;     // lanes holding one row
   constexpr int RPW = 32 / LPR;    // rows a warp reads at once
-  __shared__ float red_m[WARPS][GMAX], red_l[WARPS][GMAX];
-  __shared__ float red_acc[WARPS][GMAX][D];
+  constexpr int RPB = WARPS * RPW; // rows the block reads at once
+  static_assert(TILE % RPB == 0, "a warp's rows lie in one tile");
+  static_assert(MAX_TILES * TILE <= THREADS, "a thread a row's scales");
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int S = a.seq, H = a.heads, CH = a.chunk;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int sub = lane / LPR, c0 = (lane % LPR) * CPL;
-  const int S = a.seq, H = a.heads;
 
-  // cache rows of (li, b, h): pack2 keeps head h in slot h/2 at column
-  // offset (h % 2) * D, rows 2D apart
+  const int p = a.slotted ? a.pos[b] : a.pos[0];
+  const int live = min(p + 1, S);  // p == S (free slot): every row
+  const int s0 = sp * CH;
+  if (s0 >= live) return;          // no live row in this split
+  const int n = min(CH, live - s0), tiles = (n + TILE - 1) / TILE;
+  const int nsplit = (live + CH - 1) / CH;
+
+  const Layout L(CH, G, D, sizeof(Tkv));
+  Tkv* Ks = reinterpret_cast<Tkv*>(smem + L.k);
+  Tkv* Vs = reinterpret_cast<Tkv*>(smem + L.v);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* kss = reinterpret_cast<float*>(smem + L.ks);   // [chunk] K scales
+  float* vss = kss + CH;                                 // [chunk] V scales
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* ml = reinterpret_cast<float*>(smem + L.ml);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  int* flag = reinterpret_cast<int*>(smem + L.flag);
+
+  // cache rows of (li, b, h) from s0: pack2 keeps head h in slot h/2 at
+  // column offset (h % 2) * D, rows 2D apart
   const int rs = a.pack2 ? 2 * D : D;
   const size_t lb = (size_t)a.li * a.batch + b;
   const size_t head = a.pack2
       ? (lb * (H / 2) + h / 2) * (size_t)S * rs + (h % 2) * D
       : (lb * H + h) * (size_t)S * D;
-  const Tkv* K = static_cast<const Tkv*>(a.k) + head + c0;
-  const Tkv* V = static_cast<const Tkv*>(a.v) + head + c0;
-  const float* KS = a.k_s ? a.k_s + (lb * H + h) * (size_t)S : nullptr;
-  const float* VS = a.v_s ? a.v_s + (lb * H + h) * (size_t)S : nullptr;
-  const int p = a.slotted ? a.pos[b] : a.pos[0];
-  const int live = min(p + 1, S);  // p == S (free slot): every row
+  const Tkv* K = static_cast<const Tkv*>(a.k) + head + (size_t)s0 * rs;
+  const Tkv* V = static_cast<const Tkv*>(a.v) + head + (size_t)s0 * rs;
+  const bool quant = a.k_s != nullptr;
 
-  float q[GMAX][CPL];
-  const Tq* Q = static_cast<const Tq*>(a.q) + ((size_t)b * H + h) * G * D;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g)
-#pragma unroll
-    for (int c = 0; c < CPL; ++c)
-      q[g][c] = g < G ? tpp::to_f32(Q[(size_t)g * D + c0 + c]) : 0.f;
-
-  State<GMAX> st;
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    st.m[g] = -INFINITY;
-    st.l[g] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) st.acc[g][c] = 0.f;
+  // the chunk's rows in flight at once, a barrier a tile: thread 0's bulk
+  // copies as soon as the barriers exist; pack2's strided rows by every
+  // thread's 16-byte cp.async, each arriving on the tile's barrier once
+  // its copies have landed
+  constexpr uint32_t row_bytes = D * sizeof(Tkv);
+  if (tid == 0) {
+    for (int t = 0; t < tiles; ++t)
+      hw::mbar_init(&bar[t], a.pack2 ? THREADS : 1);
+    hw::mbar_fence_init();
+    for (int t = 0; t < tiles && !a.pack2; ++t) {
+      const int r0 = t * TILE, nr = min(TILE, n - r0);
+      hw::mbar_arrive_tx(&bar[t], 2 * nr * row_bytes);
+      hw::bulk_load(Ks + (size_t)r0 * D, K + (size_t)r0 * D, nr * row_bytes,
+                    &bar[t]);
+      hw::bulk_load(Vs + (size_t)r0 * D, V + (size_t)r0 * D, nr * row_bytes,
+                    &bar[t]);
+    }
+  }
+  if (quant && tid < n) {   // the rows' scales, one load each, in flight
+    const size_t o = (lb * H + h) * (size_t)S + s0 + tid;   // with K/V's
+    kss[tid] = a.k_s[o];
+    vss[tid] = a.v_s[o];
+  }
+  __syncthreads();
+  if (a.pack2) {
+    constexpr int UPR = row_bytes / 16, EPU = 16 / sizeof(Tkv);
+    for (int t = 0; t < tiles; ++t) {
+      const int r0 = t * TILE, nr = min(TILE, n - r0);
+      for (int u = tid; u < 2 * nr * UPR; u += THREADS) {
+        const int r = r0 + (u / UPR) % nr, x = (u % UPR) * EPU;
+        const bool is_v = u >= nr * UPR;
+        hw::cp_async16((is_v ? Vs : Ks) + (size_t)r * D + x,
+                       (is_v ? V : K) + (size_t)r * rs + x, 16);
+      }
+      hw::cp_async_arrive(&bar[t]);
+    }
   }
 
-  for (int s = warp * RPW + sub; s - sub < live; s += WARPS * RPW) {
-    const bool in = s < live;
-    float kx[CPL], vx[CPL];
-    if (in) {
-      load8(K + (size_t)s * rs, kx);
-      load8(V + (size_t)s * rs, vx);
+  // pass 1: the scores of the chunk's rows, sc[g][r] (scaled, x ks)
+  {
+    float q[GMAX][CPL];
+    const Tq* Q = static_cast<const Tq*>(a.q) + ((size_t)b * H + h) * G * D;
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        q[g][c] = g < G ? tpp::to_f32(Q[(size_t)g * D + c0 + c]) : 0.f;
+    int ready = -1;
+    for (int base = warp * RPW; base < n; base += RPB) {
+      const int r = base + sub, t = base / TILE;
+      const bool in = r < n;
+      if (t > ready) {
+        hw::mbar_wait(&bar[t], 0);
+        ready = t;
+      }
+      float kx[CPL];
+      if (in) {
+        load8(Ks + (size_t)r * D + c0, kx);
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) kx[c] = 0.f;
+      }
+      const float ks = in && quant ? kss[r] : 1.f;
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) break;
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) d = fmaf(kx[c], q[g][c], d);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (in && lane % LPR == 0) {
+          float s = d * a.scale;
+          if (quant) s *= ks;
+          sc[g * CH + r] = s;
+        }
+      }
     }
-    const float ks = in && KS ? KS[s] : 1.f;
-    const float vs = in && VS ? VS[s] : 1.f;
+  }
+  // every thread reads V rows below: each sees every tile land
+  for (int t = 0; t < tiles; ++t) hw::mbar_wait(&bar[t], 0);
+  __syncthreads();
+
+  // pass 2: one max and one exp per (row, g); warp g takes query head g.
+  // sc becomes exp(s - m) [x vs], the weight of V's row
+  if (warp < G) {
+    float* sg = sc + warp * CH;
+    float m = -INFINITY;
+    for (int r = lane; r < n; r += 32) m = fmaxf(m, sg[r]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float e = expf(sg[r] - m);
+      l += e;
+      sg[r] = quant ? e * vss[r] : e;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      ml[2 * warp] = m;
+      ml[2 * warp + 1] = l;
+    }
+  }
+  __syncthreads();
+
+  // pass 3: P.V over the chunk's rows, lanes as in pass 1
+  {
+    float acc[GMAX][CPL];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
+    for (int base = warp * RPW; base < n; base += RPB) {
+      const int r = base + sub;
+      if (r >= n) continue;
+      float vx[CPL];
+      load8(Vs + (size_t)r * D + c0, vx);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) break;
+        const float w = sc[g * CH + r];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[g][c] = fmaf(w, vx[c], acc[g][c]);
+      }
+    }
+    // the warp's row groups (lanes lane % LPR hold the same columns)
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       if (g >= G) break;
-      float d = 0.f;
-      if (in) {
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) d = fmaf(kx[c], q[g][c], d);
+      for (int c = 0; c < CPL; ++c) {
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1)
+          acc[g][c] += __shfl_xor_sync(0xffffffffu, acc[g][c], o);
       }
+      if (lane < LPR) {
 #pragma unroll
-      for (int o = LPR / 2; o > 0; o >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (!in) continue;
-      float sc = d * a.scale;
-      if (KS) sc *= ks;
-      const float mn = fmaxf(st.m[g], sc);
-      const float al = expf(st.m[g] - mn);  // 0 while m is -inf
-      const float e = expf(sc - mn);
-      st.l[g] = st.l[g] * al + e;
-      const float ev = e * vs;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        st.acc[g][c] = fmaf(ev, vx[c], st.acc[g][c] * al);
-      st.m[g] = mn;
-    }
-  }
-
-  // merge the warp's row groups (lanes lane % LPR hold the same columns)
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int o = LPR; o < 32; o <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, st.m[g], o);
-      const float l2 = __shfl_xor_sync(0xffffffffu, st.l[g], o);
-      float acc2[CPL];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        acc2[c] = __shfl_xor_sync(0xffffffffu, st.acc[g][c], o);
-      merge(st.m[g], st.l[g], st.acc[g], m2, l2, acc2);
-    }
-    if (lane < LPR) {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) red_acc[warp][g][c0 + c] = st.acc[g][c];
-      if (lane == 0) {
-        red_m[warp][g] = st.m[g];
-        red_l[warp][g] = st.l[g];
+        for (int c = 0; c < CPL; ++c)
+          red[(warp * G + g) * D + c0 + c] = acc[g][c];
       }
     }
   }
   __syncthreads();
 
-  // merge the warps: one thread per (g, column)
-  float* O = a.out + ((size_t)b * H + h) * G * D;
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D, c = i % D;
-    float M = -INFINITY;
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, red_m[w][g]);
-    float L = 0.f, acc = 0.f;
-    for (int w = 0; w < WARPS; ++w) {
-      if (red_m[w][g] == -INFINITY) continue;
-      const float f = expf(red_m[w][g] - M);
-      L += red_l[w][g] * f;
-      acc += red_acc[w][g][c] * f;
-    }
-    O[(size_t)g * D + c] = acc / L;
+  // the block's sums, warps in order: the output, or this split's partial
+  const size_t bh = (size_t)b * H + h;
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D;
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += red[(w * G + g) * D + i % D];
+    if (nsplit == 1)
+      a.out[bh * G * D + i] = s / ml[2 * g + 1];
+    else
+      a.part[(bh * a.splits + sp) * G * D + i] = s;
   }
+  if (nsplit == 1) return;
+  if (tid < G)
+    a.ml[(bh * a.splits + sp) * G + tid] =
+        make_float2(ml[2 * tid], ml[2 * tid + 1]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int before = atomicAdd(&a.count[bh], 1);
+    *flag = before == nsplit - 1;
+    if (*flag) atomicExch(&a.count[bh], 0);   // every live split is in
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+
+  // the last split to arrive merges all of them, in split order
+  const float2* M2 = a.ml + bh * a.splits * G;
+  const float* P = a.part + bh * a.splits * G * D;
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D;
+    float M = -INFINITY;
+    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(&M2[s * G + g]).x);
+    float Lsum = 0.f, acc = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float2 f = __ldcg(&M2[s * G + g]);
+      const float e = expf(f.x - M);
+      Lsum = fmaf(f.y, e, Lsum);
+      acc = fmaf(__ldcg(&P[(size_t)s * G * D + i]), e, acc);
+    }
+    a.out[bh * G * D + i] = acc / Lsum;
+  }
+}
+
+template <typename Tq, typename Tkv, int D, int GMAX>
+int launch_kernel(const Args& a, int G, cudaStream_t st) {
+  auto kernel = decode_attn_kernel<Tq, Tkv, D, GMAX>;
+  const int smem = Layout(a.chunk, G, D, sizeof(Tkv)).bytes;
+  if (smem > 48 * 1024) {
+    static int opted[64] = {};   // the bytes set on each device so far
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (opted[dev & 63] < smem) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      opted[dev & 63] = smem;
+    }
+  }
+  const dim3 grid(a.splits, a.heads, a.batch);
+  kernel<<<grid, THREADS, smem, st>>>(a, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Tq, typename Tkv, int D>
 int launch_g(const Args& a, int G, cudaStream_t st) {
-  const dim3 grid(a.heads, a.batch);
-  if (G == 1)
-    decode_attn_kernel<Tq, Tkv, D, 1><<<grid, THREADS, 0, st>>>(a, G);
-  else if (G <= 4)
-    decode_attn_kernel<Tq, Tkv, D, 4><<<grid, THREADS, 0, st>>>(a, G);
-  else if (G <= 8)
-    decode_attn_kernel<Tq, Tkv, D, 8><<<grid, THREADS, 0, st>>>(a, G);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (G == 1) return launch_kernel<Tq, Tkv, D, 1>(a, G, st);
+  if (G <= 4) return launch_kernel<Tq, Tkv, D, 4>(a, G, st);
+  if (G <= 8) return launch_kernel<Tq, Tkv, D, 8>(a, G, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename Tq, typename Tkv>
@@ -241,19 +398,33 @@ int launch_d(const Args& a, int d, int G, cudaStream_t st) {
 
 // Returns the cudaError_t of the launch (0 on success). q: (B, H, G, D) in
 // q_dtype; k/v: the stacked cache in kv_dtype (0 f32, 1 bf16, 2 int8),
-// (L, B, H, S, D), or (L, B, H/2, S, 2D) with pack2; k_s/v_s: (L, B, H, S)
-// f32 or null; pos: int32 on the device, one value or B (slotted); out:
-// (B, H, G, D) f32. li selects the layer.
+// (L, B, H, S, D), or (L, B, H/2, S, 2D) with pack2, 16-byte aligned;
+// k_s/v_s: (L, B, H, S) f32 or null; pos: int32 on the device, one value or
+// B (slotted); out: (B, H, G, D) f32. li selects the layer. chunk and
+// splits are xsmm/reference.py decode_attn_plan's (chunk a multiple of 64
+// up to 128, splits * chunk >= S). With splits > 1, work holds
+// B H splits G (D + 2) f32 partials and count B H int32 that are zero
+// before the launch and zero again after it.
 extern "C" int tpp_decode_attn(const void* q, const void* k, const void* v,
                                const void* k_s, const void* v_s,
-                               const void* pos, void* out, int batch,
-                               int heads, int seq, int head_dim, int groups,
-                               int li, int slotted, int pack2, int q_dtype,
-                               int kv_dtype, float scale, void* stream) {
+                               const void* pos, void* out, void* work,
+                               void* count, int batch, int heads, int seq,
+                               int head_dim, int groups, int li, int slotted,
+                               int pack2, int q_dtype, int kv_dtype,
+                               int chunk, int splits, float scale,
+                               void* stream) {
+  if (chunk % TILE || chunk > MAX_TILES * TILE || chunk <= 0 ||
+      (long long)chunk * splits < seq ||
+      (long long)chunk * (splits - 1) >= seq ||
+      (splits > 1 && (work == nullptr || count == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part = static_cast<float*>(work);
+  float2* ml = reinterpret_cast<float2*>(
+      part + (size_t)batch * heads * splits * groups * head_dim);
   const Args a{q, k, v, static_cast<const float*>(k_s),
                static_cast<const float*>(v_s), static_cast<const int*>(pos),
-               static_cast<float*>(out), batch, heads, seq, li, slotted,
-               pack2, scale};
+               static_cast<float*>(out), part, ml, static_cast<int*>(count),
+               batch, heads, seq, li, slotted, pack2, chunk, splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == tpp::kF32 && kv_dtype == tpp::kF32)
     return launch_d<float, float>(a, head_dim, groups, st);

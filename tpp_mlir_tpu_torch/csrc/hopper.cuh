@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, cp.async 16-byte copies, the 16-byte swizzle
-// of shared-memory tiles,
+// TMA tensor maps and loads, bulk copies, cp.async 16-byte copies (and
+// their arrival on an mbarrier), the 16-byte swizzle of shared-memory tiles,
 // wgmma's shared-memory matrix descriptors, its fence/commit/wait sequence
 // and the bf16 m64nNk16 products (both operands from shared memory, or A
 // from registers), with f32 accumulators in registers.
@@ -184,6 +184,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from global to shared memory in one bulk copy
+// (the TMA unit, no tensor map), completing on `bar` as TMA loads do; both
+// addresses 16-byte aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // 16 bytes from global to shared memory by the copy engine (cp.async), or
 // zeros for the bytes at or past `src_bytes` (0 or 16); both addresses
 // 16-byte aligned. Completion is per thread: commit, then wait.
@@ -192,6 +204,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// an arrival on `bar` once all of this thread's earlier cp.async copies
+// have landed; it counts toward the barrier's expected arrivals (noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 

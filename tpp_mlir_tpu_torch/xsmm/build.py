@@ -7,11 +7,11 @@ build takes seconds rather than minutes), under `tpp_mlir_tpu_torch/build/`,
 which `.gitignore` lists. The library's name carries a hash of the sources,
 so an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is downloaded: the sources in the package are the only input.
-`csrc/hopper.cuh` (TMA, mbarriers, wgmma) is shared by the kernels that
-use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh` (the pipelined
-TMA + wgmma GEMM mainloop) by brgemm.cu, blocked_matmul.cu and
-grouped_gemm.cu; the tensor-map encoder, a driver API, is taken through
-the runtime's cudaGetDriverEntryPoint, so the link needs no -lcuda.
+`csrc/hopper.cuh` (TMA, bulk copies, mbarriers, wgmma) is shared by the
+kernels that use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh`
+(the pipelined TMA + wgmma GEMM mainloop) by brgemm.cu, blocked_matmul.cu,
+conv.cu and grouped_gemm.cu; the tensor-map encoder, a driver API, is taken
+through the runtime's cudaGetDriverEntryPoint, so the link needs no -lcuda.
 """
 
 from __future__ import annotations
@@ -47,15 +47,15 @@ _SIGNATURES = {
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_I)] + [_I] * 11 + [_P]),
-    "tpp_decode_attn": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
+    "tpp_decode_attn": (_I, [_P] * 9 + [_I] * 12 + [_F, _P]),
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P]),
     "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 12 + [_P]),
     "tpp_grouped_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_L, _L] + [_I] * 3
                           + [_P]),
-    "tpp_conv_nhwc": (_I, [_P] * 5 + [_I] * 18 + [_P]),
-    "tpp_conv_blocked": (_I, [_P] * 5 + [_I] * 18 + [_P]),
+    "tpp_conv_nhwc": (_I, [_P] * 6 + [_I] * 24 + [_P]),
+    "tpp_conv_blocked": (_I, [_P] * 6 + [_I] * 24 + [_P]),
     "tpp_blocked_matmul": (_I, [_P] * 6 + [_I] * 17 + [_P]),
     "tpp_blocked_warm_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),

@@ -35,7 +35,8 @@ reached. Each wrapper counts its launches.
                                      it in XLA)
   LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm)
   DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
-                                     decode_attn.py:101 build_decode_attn)
+                                     decode_attn.py:101 build_decode_attn;
+                                     split by reference.decode_attn_plan)
   Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm)
   FlashTrainKey -> by reference.flash_train_fwd_route (replaces
                                      tpp_mlir_tpu/xsmm/flash_train.py:146
@@ -62,11 +63,14 @@ reached. Each wrapper counts its launches.
                                      _build_blocked_matmul_warm, B20)
   ConvBrgemmKey -> csrc/conv.cu, the channel-blocked entry (replaces
                                      :2778 _build_conv_brgemm, B23; stride
-                                     1, as the reference)
+                                     1, as the reference; body by
+                                     reference.conv_kernel_route)
   ConvNhwcKey  -> by reference.conv_route:
                   csrc/conv.cu       (replaces :2919 _build_conv_nhwc, B24,
                                      and :3117 _build_conv_nhwc_fullrow,
-                                     B25; stride 1)
+                                     B25; stride 1; body by
+                                     reference.conv_kernel_route, tile and
+                                     split by reference.conv_plan)
                   no kernel          (strategy xla, and auto at stride > 1:
                                      torch.nn.functional.conv2d and the
                                      epilogue, TF32 off, as the reference
@@ -499,6 +503,18 @@ def _layer_norm_launch(key: LayerNormKey):
 DECODE_ATTN_HEAD_DIMS = (32, 64, 128)   # decode_attn.cu's instantiations
 DECODE_ATTN_MAX_GROUPS = 8
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_DECODE_COUNTS: dict[int, torch.Tensor] = {}
+
+
+def _decode_counts(dev, n: int) -> torch.Tensor:
+    """decode_attn.cu's arrival counters of the split merge on `dev`: n
+    int32 zeros, kept for the process (each launch leaves them zero, so a
+    captured graph replays right). Grown when a key needs more."""
+    counts = _DECODE_COUNTS.get(dev.index)
+    if counts is None or counts.numel() < n:
+        counts = torch.zeros(n, dtype=torch.int32, device=dev)
+        _DECODE_COUNTS[dev.index] = counts
+    return counts
 
 
 def _decode_attn_launch(key: DecodeAttnKey):
@@ -513,6 +529,7 @@ def _decode_attn_launch(key: DecodeAttnKey):
         q_shape = (B, H, D) if G == 1 else (B, H, G, D)
         slab = (B, H, S, D)
     lead = (key.stacked,) if key.stacked else ()
+    chunk, splits = reference.decode_attn_plan(key)
 
     def launch(q, k, v, pos, li=None, k_s=None, v_s=None):
         if D not in DECODE_ATTN_HEAD_DIMS or G > DECODE_ATTN_MAX_GROUPS:
@@ -523,6 +540,9 @@ def _decode_attn_launch(key: DecodeAttnKey):
         _expect(q, "q", q_shape, q_dt, dev)
         _expect(k, "K", lead + slab, kv_dt, dev)
         _expect(v, "V", lead + slab, kv_dt, dev)
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError(f"decode_attn.cu's bulk copies need 16-byte "
+                             f"aligned K and V: {key}")
         if pos.dtype != torch.int32 or pos.device != dev or \
                 pos.numel() != (B if key.slotted else 1):
             raise ValueError(f"pos must be int32 on {dev} with "
@@ -536,13 +556,19 @@ def _decode_attn_launch(key: DecodeAttnKey):
         if not 0 <= li < max(key.stacked, 1):
             raise ValueError(f"layer {li} outside the stacked cache: {key}")
         out = torch.empty(q_shape, dtype=torch.float32, device=dev)
+        work = counts = None
+        if splits > 1:   # each split's P.V sums [G][D] and (max, sum)
+            work = torch.empty(B * H * splits * G * (D + 2),
+                               dtype=torch.float32, device=dev)
+            counts = _decode_counts(dev, B * H)
         rc = library().tpp_decode_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_s.data_ptr() if key.kv_quant else None,
             v_s.data_ptr() if key.kv_quant else None, pos.data_ptr(),
-            out.data_ptr(), B, H, S, D, G, li, int(key.slotted),
-            int(key.pack2), _DT_CODE[q_dt], _KV_CODE[kv_dt], D ** -0.5,
-            _stream())
+            out.data_ptr(), work.data_ptr() if work is not None else None,
+            counts.data_ptr() if counts is not None else None, B, H, S, D,
+            G, li, int(key.slotted), int(key.pack2), _DT_CODE[q_dt],
+            _KV_CODE[kv_dt], chunk, splits, D ** -0.5, _stream())
         check(rc, f"decode_attn {key}")
         return out
     return launch
@@ -746,41 +772,83 @@ def _grouped_wgrad_launch(key: GroupedWgradKey, route: str | None = None):
     return launch
 
 
-def _conv_launch(key: ConvNhwcKey):
-    """csrc/conv.cu for the stride-1 routes; None (the plain version on any
-    device, counting nothing) for the xla route."""
+_CONV_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2, "wmma": 3}
+
+
+def _conv_route(key, route: str | None) -> str:
+    """The key's own route (reference.conv_kernel_route), or `route` forced:
+    "wmma" (the tile body) for any key with bf16 products."""
+    own = reference.conv_kernel_route(key)
+    if route is None or route == own:
+        return own
+    if route != "wmma" or own == "fma":
+        raise ValueError(f"conv.cu cannot run {key} on route {route!r} (its "
+                         f"own: {own!r}; only 'wmma' may be forced, for bf16 "
+                         f"products)")
+    return route
+
+
+def _conv_call(key, route: str, fn, i, w, c, d, out, geometry):
+    """One launch of csrc/conv.cu's entry `fn` (tpp_conv_nhwc or
+    tpp_conv_blocked) on the route: C and D read in their stored dtype
+    (_native), the wgmma routes at conv_plan's tile and split with the
+    split partials in a workspace."""
+    from .build import check
+
+    dev = i.device
+    n_out = out.numel()
+    in_dt = reference.DTYPES[key.dtype]
+    mxu = reference.mxu_dtype(key.dtype, key.precision)
+    if not key.beta0:
+        if tuple(c.shape) != tuple(out.shape):
+            raise ValueError(f"C has shape {tuple(c.shape)}, expected "
+                             f"{tuple(out.shape)}")
+        c = _native(c, "C", n_out, dev)
+    if key.binary_kind:   # a full residual, or a bias of the K columns
+        d = _native(d.reshape(-1), "D", n_out if key.binary_bcast == "none"
+                    else n_out // (key.N * key.P * key.Q), dev)
+    bm, bn, split = reference.conv_plan(key) \
+        if route in ("tma", "convert") else (64, 64, 1)
+    if route in ("tma", "convert") and (i.data_ptr() % 16 or
+                                        w.data_ptr() % 16):
+        raise ValueError(f"conv.cu's {route} route needs 16-byte aligned I "
+                         f"and W: {key}")
+    work = torch.empty(split * n_out, dtype=torch.float32, device=dev) \
+        if split > 1 else None
+    rc = fn(i.data_ptr(), w.data_ptr(), None if key.beta0 else c.data_ptr(),
+            d.data_ptr() if key.binary_kind else None, out.data_ptr(),
+            work.data_ptr() if work is not None else None, *geometry,
+            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out.dtype],
+            0 if key.beta0 else _DT_CODE[c.dtype],
+            _DT_CODE[d.dtype] if key.binary_kind else 0, int(not key.beta0),
+            _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
+            _UNARY_CODE[key.unary_kind], _CONV_ROUTE_CODE[route], bm, bn,
+            split, _stream())
+    check(rc, f"conv {key} route {route}")
+    return out
+
+
+def _conv_launch(key: ConvNhwcKey, route: str | None = None):
+    """csrc/conv.cu for the stride-1 routes (reference.conv_kernel_route,
+    or `route` forced); None (the plain version on any device, counting
+    nothing) for the xla route."""
     if reference.conv_route(key) == "xla":
         return None
-    from .build import check, library
+    from .build import library
 
     N, H, W, C, K, P, Q = key.N, key.H, key.W, key.C, key.K, key.P, key.Q
     in_dt = reference.DTYPES[key.dtype]
-    mxu = reference.mxu_dtype(key.dtype, key.precision)
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
-    full_d = key.binary_bcast == "none"
+    route = _conv_route(key, route)
 
     def launch(i, w, c=None, d=None):
         dev = i.device
         _expect(i, "I", (N, H, W, C), in_dt, dev)
         _expect(w, "W", (key.R, key.S, C, K), in_dt, dev)
-        if not key.beta0:
-            c = c.float().contiguous()
-            _expect(c, "C", (N, P, Q, K), None, dev)
-        if key.binary_kind:
-            d = d.float().contiguous()
-            _expect(d.reshape(-1), "D", (N * P * Q * K if full_d else K,),
-                    None, dev)
         out = torch.empty((N, P, Q, K), dtype=out_dt, device=dev)
-        rc = library().tpp_conv_nhwc(
-            i.data_ptr(), w.data_ptr(), None if key.beta0 else c.data_ptr(),
-            d.data_ptr() if key.binary_kind else None, out.data_ptr(), N, H,
-            W, C, K, key.R, key.S, key.pad[0], key.pad[2], P, Q,
-            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
-            int(not key.beta0), _BINARY_CODE[key.binary_kind],
-            _BCAST_CODE[key.binary_bcast], _UNARY_CODE[key.unary_kind],
-            _stream())
-        check(rc, f"conv_nhwc {key}")
-        return out
+        return _conv_call(key, route, library().tpp_conv_nhwc, i, w, c, d,
+                          out, (N, H, W, C, K, key.R, key.S, key.pad[0],
+                                key.pad[2], P, Q))
     return launch
 
 
@@ -839,41 +907,29 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
     return launch
 
 
-def _conv_blocked_launch(key: ConvBrgemmKey):
+def _conv_blocked_launch(key: ConvBrgemmKey, route: str | None = None):
     """B23 on the channel-blocked layout: i [N,Cb,H,W,c], w
     [Kb,Cb,R,S,c,k], c [N,Kb,P,Q,k] unless beta_0, d the bias with Kb*k
     elements; the output is [N,Kb,P,Q,k]. Stride 1 only (check_slice
-    raises in the reference's words for a stride)."""
-    from .build import check, library
+    raises in the reference's words for a stride). The route is
+    reference.conv_kernel_route's, or `route` forced."""
+    from .build import library
 
     N, H, W, Cb, cb, Kb, kb = key.N, key.H, key.W, key.Cb, key.c, key.Kb, \
         key.k
     P, Q = key.P, key.Q
     in_dt = reference.DTYPES[key.dtype]
-    mxu = reference.mxu_dtype(key.dtype, key.precision)
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
-    out_shape = (N, Kb, P, Q, kb)
+    route = _conv_route(key, route)
 
     def launch(i, w, c=None, d=None):
         dev = i.device
         _expect(i, "I", (N, Cb, H, W, cb), in_dt, dev)
         _expect(w, "W", (Kb, Cb, key.R, key.S, cb, kb), in_dt, dev)
-        if not key.beta0:
-            c = c.float().contiguous()
-            _expect(c, "C", out_shape, None, dev)
-        if key.binary_kind:
-            d = d.reshape(-1).float().contiguous()
-            _expect(d, "D", (Kb * kb,), None, dev)
-        out = torch.empty(out_shape, dtype=out_dt, device=dev)
-        rc = library().tpp_conv_blocked(
-            i.data_ptr(), w.data_ptr(), None if key.beta0 else c.data_ptr(),
-            d.data_ptr() if key.binary_kind else None, out.data_ptr(), N, H,
-            W, Cb, cb, Kb, kb, key.R, key.S, P, Q, _DT_CODE[in_dt],
-            _DT_CODE[mxu], _DT_CODE[out_dt], int(not key.beta0),
-            _BINARY_CODE[key.binary_kind], _BCAST_CODE[key.binary_bcast],
-            _UNARY_CODE[key.unary_kind], _stream())
-        check(rc, f"conv_blocked {key}")
-        return out
+        out = torch.empty((N, Kb, P, Q, kb), dtype=out_dt, device=dev)
+        return _conv_call(key, route, library().tpp_conv_blocked, i, w, c,
+                          d, out, (N, H, W, Cb, cb, Kb, kb, key.R, key.S, P,
+                                   Q))
     return launch
 
 
@@ -895,6 +951,16 @@ _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
 def build_kernel(key) -> Kernel:
     reference.check_slice(key)
     return Kernel(key, _LAUNCHES[type(key)](key))
+
+
+def build_conv(key: ConvNhwcKey | ConvBrgemmKey, route: str) -> Kernel:
+    """csrc/conv.cu with its body forced to `route` (its own, or "wmma" for
+    a key with bf16 products), for timing the tile body beside the wgmma
+    kernel; build_kernel takes reference.conv_kernel_route's choice."""
+    reference.check_slice(key)
+    launch = _conv_blocked_launch if isinstance(key, ConvBrgemmKey) \
+        else _conv_launch
+    return Kernel(key, launch(key, route))
 
 
 def build_grouped_gemm(key: GroupedGemmKey | GroupedWgradKey,

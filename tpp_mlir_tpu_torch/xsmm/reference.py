@@ -730,6 +730,82 @@ def conv_route(key: ConvNhwcKey) -> str:
     return "kernel"
 
 
+H100_SMS = 132   # the plans below are pinned to the H100's SM count
+
+
+def conv_kernel_route(key: ConvNhwcKey | ConvBrgemmKey) -> str:
+    """Which body of csrc/conv.cu runs a conv key, from the key alone (c
+    and k are the channel counts C and K, or a channel-blocked key's block
+    sizes):
+      "xla"      a ConvNhwcKey that conv_route sends to F.conv2d: no kernel;
+      "fma"      MXU dtype f32 (f32 "highest"): the tile body's f32 FMA, no
+                 TF32;
+      "tma"      bf16 operands with c and k multiples of 8 (16-byte channel
+                 runs): the wgmma implicit GEMM on csrc/gemm_sm90.cuh's
+                 consumer loop, A by 16-byte cp.async with a zero fill for
+                 padding, W by TMA;
+      "convert"  f32 operands at "default" (bf16 products, f32 sums) with c
+                 and k multiples of 4: the same kernel, A and W by cp.async
+                 into raw f32 stages that the producer rounds to bf16;
+      "wmma"     bf16 products at any other channel count: the tile body's
+                 WMMA, staged through shared memory with no pipelining.
+    The tile and k split of the wgmma routes are conv_plan's. The base
+    pointers of I and W must be 16-byte aligned there too; the wrapper
+    checks them (every torch allocation is)."""
+    if isinstance(key, ConvNhwcKey):
+        if conv_route(key) == "xla":
+            return "xla"
+        c, k = key.C, key.K
+    else:
+        c, k = key.c, key.k
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    if key.dtype == "bf16":
+        return "tma" if c % 8 == 0 and k % 8 == 0 else "wmma"
+    return "convert" if c % 4 == 0 and k % 4 == 0 else "wmma"
+
+
+def conv_gemm_shape(key: ConvNhwcKey | ConvBrgemmKey) -> tuple:
+    """The packed GEMM csrc/conv.cu's wgmma kernel runs for a key: (Mb, Nb,
+    KT, mb, nb). Rows are output pixels: one block of N P Q (Mb 1), or per
+    image (Mb N, mb P Q) where Kb > 1, so that a row tile stays inside one
+    [N, Kb, P, Q, k] output block; Nb = Kb blocks of nb = k columns; KT is
+    the reduction's 64-channel slices, Cb R S ceil(c / 64)."""
+    if isinstance(key, ConvBrgemmKey):
+        Cb, c, Kb, k = key.Cb, key.c, key.Kb, key.k
+    else:
+        Cb, c, Kb, k = 1, key.C, 1, key.K
+    pq = key.P * key.Q
+    KT = Cb * key.R * key.S * -(-c // 64)
+    if Kb > 1:
+        return key.N, Kb, KT, pq, k
+    return 1, 1, KT, key.N * pq, k
+
+
+def conv_plan(key: ConvNhwcKey | ConvBrgemmKey) -> tuple[int, int, int]:
+    """(tile rows, tile columns, k split) of the wgmma routes on
+    conv_gemm_shape's GEMM at the H100's 132 SMs. The conv re-reads its
+    operand tiles from L2 (each A row 9 times, W by every row tile), so
+    larger tiles win while the grid stays in one wave of resident blocks:
+    "convert" (its f32 staging ring: one block an SM) takes the first of
+    128 x 128, 64 x 128, 64 x 64 whose tiles fill a third of the 132
+    slots, "tma" (two blocks an SM) the first of 64 x 128, 64 x 64 that
+    fill a third of 264; then k is split into as many slices as the slots
+    hold, each at least eight 64-deep stages. The partials are summed in
+    slice order (bit-repeatable). Chosen from a sweep on the H100 at the
+    conv suite's c128/30 and c256/16 keys (scripts/exp_conv_plan.py)."""
+    Mb, Nb, KT, mb, nb = conv_gemm_shape(key)
+    if conv_kernel_route(key) == "tma":
+        tiles, slots = ((64, 128), (64, 64)), 2 * H100_SMS
+    else:
+        tiles, slots = ((128, 128), (64, 128), (64, 64)), H100_SMS
+    for bm, bn in tiles:
+        t = Mb * -(-mb // bm) * Nb * -(-nb // bn)
+        if 3 * t >= slots:
+            break
+    return bm, bn, max(1, min(slots // t, KT // 8))
+
+
 @contextlib.contextmanager
 def no_tf32_conv():
     """cuDNN convolutions in true f32 inside the block: cuDNN's TF32 flag
@@ -969,6 +1045,33 @@ def decode_attn_reference(key: DecodeAttnKey):
             return out.reshape(B, H // 2, 2 * D)
         return out[:, :, 0] if G == 1 else out
     return fn
+
+
+DECODE_TARGET_BLOCKS = 2 * H100_SMS   # blocks at a full cache
+DECODE_CHUNK_BYTES = 48 * 1024        # K + V of a chunk in shared memory
+DECODE_TILE = 64                      # rows a bulk copy lands
+DECODE_MAX_TILES = 2                  # tiles a chunk
+
+
+def decode_attn_plan(key: DecodeAttnKey) -> tuple[int, int]:
+    """(chunk, splits) of csrc/decode_attn.cu at `key`: the cache's S rows
+    are cut into `splits` chunks of `chunk` rows, one block per (chunk, KV
+    head, batch row); a chunk whose first row is past pos exits at once.
+    The chunk is a multiple of 64 rows (one bulk copy and barrier a 64-row
+    tile), at most 128 and, above 64, at most DECODE_CHUNK_BYTES of K and
+    V, and no larger than gives DECODE_TARGET_BLOCKS blocks over the whole
+    cache (two an SM). On the H100 at the serving keys (B 8, S 1024, D 64,
+    pos 639; MHA, GQA kv4, int8 KV) chunks of 128 rows ran as fast as or
+    faster than 64, 192 or 256 (scripts/exp_decode_split.py)."""
+    es = 1 if key.kv_quant else (4 if key.dtype == "f32" else 2)
+    row = 2 * key.head_dim * es
+    cap = max(DECODE_TILE, min(DECODE_MAX_TILES * DECODE_TILE,
+                               DECODE_CHUNK_BYTES // row // DECODE_TILE
+                               * DECODE_TILE))
+    splits = -(-DECODE_TARGET_BLOCKS // (key.batch * key.heads))
+    rows = -(-key.seq // splits)
+    chunk = min(cap, max(DECODE_TILE, -(-rows // DECODE_TILE) * DECODE_TILE))
+    return chunk, -(-key.seq // chunk)
 
 
 def int8_gemm_reference(key: Int8GemmKey):
