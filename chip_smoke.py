@@ -160,6 +160,16 @@ own key, which its -n runs), f32 "highest" and bf16, and
 csrc/conv.cu's channel-blocked entry (B23) at the c128/30 key in f32 and
 bf16, the c256/16 key (Cb 2) and the imported ResNet block's two keys (a C
 accumulator). Phase 5 times B19, B20 and B23 at those rows' keys.
+Phase 3 also holds csrc/warm_panel.cuh (chain.cu's B3/B4/B5 and B20 on the
+warm-panel engine): every chain, ping-pong and B20 key launched twice
+bit-equal, a ragged-row and a masked-width chain, and each body
+(reference.chain_route / warm_route: the engine, or the first design's
+WMMA body) forced at the flagship, B5 and B20 keys, after printing the
+card's cudaOccupancyMaxActiveClusters at each main key's plan beside
+reference.H100_WARM_CLUSTERS. Phase 5 times B3 (also from a CUDA graph),
+B4 at -n 100, B5 and B20 beside the composed PyTorch chain (addmm + relu
+a layer and repeat on bf16 copies; B5 then h @ W^T) replayed from a CUDA
+graph, and the MLP rows' torch.matmul chain from a CUDA graph too.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -631,13 +641,30 @@ def _int8_inputs(key, g):
     return (xq, w.q, xs, w.scale) + ((bias,) if key.has_bias else ())
 
 
+def _warm_note(key, route: str | None = None) -> str:
+    """chain.cu's or B20's body (reference.chain_route / warm_route, or
+    `route` forced) and, on the warm-panel engine, its plan."""
+    from tpp_mlir_tpu_torch.xsmm import ChainKey
+    from tpp_mlir_tpu_torch.xsmm.reference import (chain_route, warm_plan,
+                                                   warm_route)
+    route = route or (chain_route(key) if isinstance(key, ChainKey)
+                      else warm_route(key))
+    if route != "panel":
+        return f"; route {route}"
+    p = warm_plan(key)
+    return f"; route panel, rows {p.rows}, cluster {p.cluster}, tiles " \
+        f"{p.tiles}, {'resident' if p.resident else 'streamed'}, " \
+        f"{p.clusters} clusters"
+
+
 def _route_note(key, xt_stride=None) -> str:
     """The loader (attention.cu; B1/B2 and B19 with the launcher's tile and
     k split) or tile (B16, B17: at xt's strides) or kernel (B14 and B18,
-    the batched matmul) or body (conv.cu, with its tile and k split) or
-    split (decode attention) the wrapper chose."""
+    the batched matmul) or body (conv.cu, with its tile and k split; chain.cu
+    and B20, with the warm-panel engine's plan) or split (decode attention)
+    the wrapper chose."""
     from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
-                                         BrgemmKey, ConvBrgemmKey,
+                                         BrgemmKey, ChainKey, ConvBrgemmKey,
                                          ConvNhwcKey, DecodeAttnKey,
                                          FlashMhaKey, FlashTrainBwdKey,
                                          FlashTrainKey, GroupedGemmKey,
@@ -654,6 +681,9 @@ def _route_note(key, xt_stride=None) -> str:
             return f"; route {route}"
         bm, bn, split = conv_plan(key)
         return f"; route {route}, tile {bm}x{bn}, split {split}"
+    if isinstance(key, ChainKey) or (isinstance(key, BlockedMatmulKey)
+                                     and key.repeats):
+        return _warm_note(key)
     if isinstance(key, (BrgemmKey, BlockedMatmulKey)):
         from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
         from tpp_mlir_tpu_torch.xsmm.reference import (blocked_matmul_route,
@@ -713,9 +743,9 @@ def phase_kernels() -> dict:
             tol = _tol(key)
             ok = rel <= tol and torch.isfinite(got.float()).all().item()
             note = ""
-            if kind == "decode_attn":
+            if kind in ("decode_attn", "chain"):
                 # the split merge sums in split order, whatever order the
-                # blocks ran in
+                # blocks ran in; the warm-panel engine has no atomics
                 same = torch.equal(build_kernel(key)(*args), got)
                 ok = ok and same
                 note = f" (second launch bit-equal: {same})"
@@ -2043,8 +2073,13 @@ def phase_mha_kernels() -> dict:
         kind = _kind(key)
         ok = rel <= tol and torch_isfinite(got) and \
             kern.launches == (1 if kind else 0)
+        note = ""
+        if kind == "chain_pingpong":
+            same = torch.equal(kern(*args), got)
+            ok = ok and same
+            note = f" (second launch bit-equal: {same})"
         say(f"kernel {kind or 'no kernel':16s} {label:44s} rel {rel:.3e} "
-            f"abs {ab:.3e} tol {tol:.0e}{_route_note(key)} "
+            f"abs {ab:.3e} tol {tol:.0e}{note}{_route_note(key)} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} > {tol} or launches "
@@ -2561,12 +2596,99 @@ def phase_packed_kernels() -> dict:
         kind = _kind(key)
         ok = rel <= tol and torch_isfinite(got) and kern.launches == 1 and \
             tuple(got.shape) == tuple(ref.shape)
+        note = ""
+        if kind == "blocked_matmul_warm":
+            same = torch.equal(build_kernel(key)(*args), got)
+            ok = ok and same
+            note = f" (second launch bit-equal: {same})"
         say(f"kernel {kind:19s} {label:48s} {describe(key)} rel "
-            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e}{_route_note(key)} "
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e}{note}{_route_note(key)} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label}: rel {rel} > {tol}, launches "
                                  f"{kern.launches}")
+        worst = stats.get(kind, {}).get("max_abs_err", 0.0)
+        stats[kind] = {"max_abs_err": max(worst, ab)}
+    return stats
+
+
+def _warm_main_keys():
+    """The warm-panel engine's main keys: the flagship chain (B3/B4), B5 at
+    fc_128x768x2304 with -n 100, B20 at the fc rows' f32 key with -n 200."""
+    from tpp_mlir_tpu_torch.xsmm import ChainKey
+    return (("flagship bf16", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS,
+                                       dtype="bf16", repeats=100)),
+            ("B5 fc_128x768x2304", ChainKey(m=128, dims=(768, 2304),
+                                            repeats=100, pingpong=True)),
+            ("B20 fc f32", _packed_key("fc_fp32_packed_warm_1024", 0,
+                                       repeats=200)))
+
+
+# csrc/warm_panel.cuh beyond the keys phases 3, 4f and 4h hold: ragged rows
+# and masked widths, and each body forced at the flagship, B5 and B20 keys;
+# (label, key, body or None for the key's own)
+def _warm_cases():
+    from tpp_mlir_tpu_torch.xsmm import ChainKey
+    cases = [("chain bf16 ragged 17 x 48-160-48",
+              ChainKey(m=17, dims=(48, 160, 48), dtype="bf16"), None),
+             ("chain f32 ragged 40 x 160-48-160 r3",
+              ChainKey(m=40, dims=(160, 48, 160), repeats=3), None)]
+    for label, key in (
+            ("flagship bf16 r8", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS,
+                                          dtype="bf16", repeats=8)),
+            ("B5 fc_128x768x2304 r3", ChainKey(m=128, dims=(768, 2304),
+                                               repeats=3, pingpong=True)),
+            ("B20 fc f32 r3", _packed_key("fc_fp32_packed_warm_1024", 0,
+                                          repeats=3)),
+            ("B20 fc bf16 VNNI r3", _packed_key("fc_bf16_packed_warm_1024",
+                                                0, repeats=3))):
+        cases += [(f"{label} {route}", key, route)
+                  for route in ("panel", "wmma")]
+    return cases
+
+
+def phase_warm_kernels() -> dict:
+    """csrc/warm_panel.cuh: the card's cudaOccupancyMaxActiveClusters at
+    each main key's plan (and at its bytes for clusters of 1 to 16, against
+    reference.H100_WARM_CLUSTERS), then _warm_cases against their plain
+    versions, each launched twice bit-equal."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (ChainKey, build_kernel,
+                                         reference_kernel)
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm, warm_max_clusters
+    from tpp_mlir_tpu_torch.xsmm.reference import (H100_WARM_CLUSTERS,
+                                                   warm_plan)
+    for label, key in _warm_main_keys():
+        p = warm_plan(key)
+        held = warm_max_clusters(p.rows, p.cluster, p.smem)
+        row = ", ".join(f"C{c} {warm_max_clusters(p.rows, c, p.smem)} "
+                        f"(table {H100_WARM_CLUSTERS[c]})"
+                        for c in (1, 2, 4, 8, 12, 16))
+        waves = "one wave" if p.clusters <= held else "more than one wave"
+        say(f"warm occupancy {label}: rows {p.rows}, cluster {p.cluster}, "
+            f"{p.smem} B: the card holds {held} clusters at once, the plan "
+            f"launches {p.clusters} ({waves}); at {p.smem} B: {row}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    stats: dict[str, dict] = {}
+    for label, key, route in _warm_cases():
+        args = _chain_inputs(key, g) if isinstance(key, ChainKey) \
+            else _blocked_inputs(key, g)
+        kern = build_warm(key, route) if route else build_kernel(key)
+        got, again = kern(*args), kern(*args)
+        ref = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, ref)
+        tol = _tol(key)
+        same = torch.equal(got, again)
+        ok = rel <= tol and torch_isfinite(got) and same
+        kind = _kind(key)
+        say(f"kernel {kind:19s} {label:40s} rel {rel:.3e} abs {ab:.3e} tol "
+            f"{tol:.0e} (second launch bit-equal: {same})"
+            f"{_warm_note(key, route)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol}, or two "
+                                 f"launches not bit-equal")
         worst = stats.get(kind, {}).get("max_abs_err", 0.0)
         stats[kind] = {"max_abs_err": max(worst, ab)}
     return stats
@@ -2665,9 +2787,10 @@ def torch_isfinite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
-def _baseline_ms(module, iters: int) -> float:
+def _baseline_ms(module, iters: int) -> tuple[float, float]:
     """torch.matmul + bias + ReLU on the module's own weights, chained
-    `iters` times like the perf.bench loop, by CUDA events."""
+    `iters` times like the perf.bench loop, by CUDA events: (eager ms, ms
+    replayed from one CUDA graph), each a chain."""
     import torch
 
     from tpp_mlir_tpu_torch.runtime.executor import _eval_constant
@@ -2695,7 +2818,8 @@ def _baseline_ms(module, iters: int) -> float:
         h = x
         for _ in range(iters):
             h = step(h)
-    return cuda_ms(run, iters=1, warmup=1) / iters
+    return cuda_ms(run, iters=1, warmup=1) / iters, \
+        graph_ms(run, iters=1) / iters
 
 
 def phase_timing(n: int = 100) -> dict:
@@ -2713,11 +2837,13 @@ def phase_timing(n: int = 100) -> dict:
         res = run_module(_module(flags), n=n, device="cuda",
                          out_stream=sys.stderr)
         module = _module(flags)
-        base = _baseline_ms(module, n)
+        base, base_g = _baseline_ms(module, n)
         flops = module.attrs["flops"]
         say(f"time {label:22s} -n {n}: port {res['gflops']:.1f} GFLOP/s "
             f"({res['mean_seconds'] * 1e3:.4f} ms), torch.matmul "
-            f"{flops / base / 1e6:.1f} GFLOP/s ({base:.4f} ms)")
+            f"{flops / base / 1e6:.1f} GFLOP/s ({base:.4f} ms; replayed "
+            f"from a CUDA graph {flops / base_g / 1e6:.1f} GFLOP/s, "
+            f"{base_g:.4f} ms)")
     from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
     for label, entry, _, _ in TRANSFORMERS:
         res = run_entry({"model": entry}, n=10, device="cuda",
@@ -2741,7 +2867,9 @@ def phase_timing(n: int = 100) -> dict:
         ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="bf16"),
          _chain_inputs),
         ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="f32"),
-         _chain_inputs)]
+         _chain_inputs),
+        ("chain", ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="bf16",
+                           repeats=n), _chain_inputs)]
     cases += [("brgemm", key, _ln_gemm_inputs)
               for _, key in _ln_gemm_cases()[:2]]
     cases += [("attention", key, _attention_inputs)
@@ -2836,6 +2964,15 @@ def phase_timing(n: int = 100) -> dict:
                 note += f" (F.conv2d on bf16 I and W + epilogue " \
                     f"{cuda_ms(bf16):.4f} ms, from a CUDA graph " \
                     f"{graph_ms(bf16):.4f} ms)"
+        if kind in ("chain", "chain_pingpong", "blocked_matmul_warm"):
+            # no single call computes a chain: the composed PyTorch chain
+            # on bf16 copies, replayed from a CUDA graph, is the yardstick
+            iters = 2 if key.repeats > 8 else 20
+            g_ms = graph_ms(lambda: kern(*args), iters=iters)
+            c_ms = graph_ms(_composed_chain(key, args), iters=iters)
+            note += f" (replayed from a CUDA graph: {g_ms:.4f} ms; composed " \
+                f"chain, not one call, from a CUDA graph {c_ms:.4f} ms)" \
+                f"{_warm_note(key)}"
         if kind in ("flash_train_fwd", "flash_train_bwd", "attention",
                     "layer_norm", "brgemm", "blocked_matmul", "conv_nhwc",
                     "conv_blocked"):
@@ -3056,6 +3193,49 @@ def _bound(kind, key, args) -> tuple[float, str]:
         else "bytes"
 
 
+def _composed_chain(key, args):
+    """The composed PyTorch chain of a chain.cu or B20 key on bf16 copies of
+    its inputs (its products are bf16), as one callable: torch.addmm +
+    torch.relu per layer and repeat (B5: addmm + relu, then h @ W^T; B20 on
+    the unpacked operands). A yardstick, not one call; used nowhere in the
+    port."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import ChainKey
+    bf = torch.bfloat16
+    if isinstance(key, ChainKey):
+        x, *wb = (t.to(bf) for t in args)
+        layers = list(zip(wb[0::2], wb[1::2]))
+        if key.pingpong:
+            (w, b), = layers
+
+            def run():
+                h = x
+                for r in range(key.repeats):
+                    h = torch.relu(torch.addmm(b, h, w)) if r % 2 == 0 \
+                        else h @ w.t()
+            return run
+
+        def run():
+            h = x
+            for _ in range(max(1, key.repeats)):
+                for w, b in layers:
+                    h = torch.relu(torch.addmm(b, h, w))
+        return run
+    a, b, _, d = args
+    if key.vnni:
+        b = b.movedim(-1, -2).reshape(key.Nb, key.Kb, key.kb, key.nb)
+    a2 = a.permute(0, 2, 1, 3).reshape(key.Mb * key.mb, -1).to(bf)
+    b2 = b.permute(1, 2, 0, 3).reshape(key.Kb * key.kb, -1).to(bf)
+    bias = d.reshape(-1).to(bf)
+
+    def run():
+        h = a2
+        for _ in range(key.repeats):
+            h = torch.relu(torch.addmm(bias, h, b2))
+    return run
+
+
 def _library_call(kind, key, args):
     """One PyTorch call computing the kernel's function on the same inputs,
     timed as a yardstick and used nowhere in the port; None where there is
@@ -3255,6 +3435,12 @@ def main() -> int:
         stats[kind] = {"max_abs_err": worst}
     stats.update(phase_conv_kernels())
     stats.update(phase_packed_kernels())
+    for kind, st in phase_warm_kernels().items():
+        if kind == "blocked_matmul_warm":
+            continue    # its line takes phase 5's, at the key it times
+        worst = max(st["max_abs_err"], stats.get(kind, {}).get(
+            "max_abs_err", 0.0))
+        stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
     for kind, n in phase_transformer_path().items():
         launches[kind] += n

@@ -280,7 +280,14 @@ def test_grouped_outputs_bit_identical_to_before_the_ring_moved(cuda):
     ChainKey(m=17, dims=(48, 48, 48), precision="highest", has_bias=False),
     ChainKey(m=64, dims=(64, 64, 64), repeats=5),
     ChainKey(m=64, dims=(256, 256, 256, 256)),
-], ids=["bf16-gelu", "highest-ragged-rows", "f32-repeats", "f32-default"])
+    ChainKey(m=256, dims=(1024,) * 4, dtype="bf16"),
+    ChainKey(m=256, dims=(1024,) * 4, dtype="bf16", repeats=8),
+    ChainKey(m=256, dims=(1024,) * 4, repeats=8),
+    ChainKey(m=17, dims=(48, 160, 48), dtype="bf16"),
+    ChainKey(m=40, dims=(160, 48, 160), repeats=3),
+], ids=["bf16-gelu", "highest-ragged-rows", "f32-repeats", "f32-default",
+        "flagship-bf16", "flagship-bf16-r8", "flagship-f32-r8",
+        "ragged-masked-bf16", "ragged-masked-f32-r3"])
 def test_chain_kernel_matches_plain(cuda, key):
     g = cuda
     args = [_rnd(g, (key.m, key.dims[0]), key.dtype)]
@@ -490,7 +497,8 @@ def test_trace_sees_the_chain_kernel(cuda):
     for region in ("eager", "bench"):
         r = res[region]
         assert 0.0 <= r["idle_share"] < 1.0 and r["busy_ms"] > 0.0
-        assert any("chain" in name for _, name in r["shares"])
+        # chain.cu runs a bf16 chain on csrc/warm_panel.cuh's kernel
+        assert any("warm_panel_kernel" in name for _, name in r["shares"])
 
 
 # -- the serving kernels (B13 decode attention, B15 int8 GEMM) --------------
@@ -1184,6 +1192,112 @@ def test_pingpong_chain_matches_plain(cuda, dtype, precision, repeats):
     assert _err(got, want) <= _tol(key)
 
 
+@pytest.mark.parametrize("dtype,repeats", [("f32", 2), ("f32", 3),
+                                           ("bf16", 3)])
+def test_pingpong_full_key_matches_plain(cuda, dtype, repeats):
+    # fc_128x768x2304's B5 key: the forward owns three 64-column tiles a
+    # block, the backward one, both streamed
+    g = cuda
+    key = ChainKey(m=128, dims=(768, 2304), dtype=dtype, repeats=repeats,
+                   pingpong=True)
+    args = (_rnd(g, (128, 768), dtype), _rnd(g, (768, 2304), dtype,
+                                             768 ** -0.5),
+            _rnd(g, (2304,), dtype, 0.1))
+    got = build_kernel(key)(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (128, 2304)
+    assert _err(got, want) <= _tol(key)
+
+
+def _warm_args(g, key):
+    if isinstance(key, ChainKey):
+        args = [_rnd(g, (key.m, key.dims[0]), key.dtype)]
+        for k, n in zip(key.dims[:-1], key.dims[1:]):
+            args.append(_rnd(g, (k, n), key.dtype, k ** -0.5))
+            if key.has_bias:
+                args.append(_rnd(g, (n,), key.dtype, 0.1))
+        return args
+    b = _rnd(g, (key.Nb, key.Kb, key.kb, key.nb), key.dtype,
+             (key.Kb * key.kb) ** -0.5)
+    if key.vnni:
+        b = b.reshape(key.Nb, key.Kb, key.kb // 2, 2, key.nb) \
+            .movedim(-2, -1).contiguous()
+    d = _rnd(g, (key.Nb, key.nb), "f32") if key.binary_kind else None
+    return [_rnd(g, (key.Mb, key.Kb, key.mb, key.kb), key.dtype), b, None, d]
+
+
+# csrc/warm_panel.cuh under each route and forced plans: (key, route, plan
+# overrides for reference.warm_plan or None)
+FC = dict(beta0=True, binary_kind="add", unary_kind="relu")
+WARM = {
+    "chain-panel": (ChainKey(m=40, dims=(64, 128, 32), dtype="bf16"),
+                    "panel", None),
+    "chain-wmma": (ChainKey(m=40, dims=(64, 128, 32), dtype="bf16"),
+                   "wmma", None),
+    "chain-streamed-masked": (ChainKey(m=17, dims=(48, 160, 48),
+                                       repeats=3), "panel",
+                              {"resident": False}),
+    "chain-rows64-c1": (ChainKey(m=70, dims=(96, 128, 96), dtype="bf16",
+                                 unary_kind="gelu", repeats=2), "panel",
+                        {"rows": 64, "cluster": 1}),
+    "chain-rows32-streamed": (ChainKey(m=70, dims=(256, 256, 256)), "panel",
+                              {"rows": 32, "resident": False}),
+    "pingpong-panel": (ChainKey(m=40, dims=(64, 160), repeats=3,
+                                pingpong=True), "panel", None),
+    "pingpong-streamed": (ChainKey(m=40, dims=(64, 160), repeats=4,
+                                   pingpong=True), "panel",
+                          {"resident": False}),
+    "pingpong-wmma": (ChainKey(m=40, dims=(64, 160), repeats=3,
+                               pingpong=True), "wmma", None),
+    "b20-panel": (BlockedMatmulKey(2, 2, 2, 24, 64, 64, "bf16", vnni=2,
+                                   repeats=3, **FC), "panel", None),
+    "b20-wmma": (BlockedMatmulKey(2, 2, 2, 24, 64, 64, "bf16", vnni=2,
+                                  repeats=3, **FC), "wmma", None),
+    "b20-f32-panel-c1": (BlockedMatmulKey(1, 3, 3, 40, 48, 48, repeats=2,
+                                          **FC), "panel",
+                         {"rows": 16, "cluster": 1}),
+    "b20-f32-wmma": (BlockedMatmulKey(1, 3, 3, 40, 48, 48, repeats=2, **FC),
+                     "wmma", None),
+}
+
+
+@pytest.mark.parametrize("name", list(WARM))
+def test_warm_routes_forced_both_ways(cuda, name):
+    from tpp_mlir_tpu_torch.xsmm import reference
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
+    key, route, over = WARM[name]
+    plan = reference.warm_plan(key, **over) if over else None
+    kern = build_warm(key, route, plan)
+    args = _warm_args(cuda, key)
+    got, again = kern(*args), kern(*args)
+    want = reference_kernel(key)(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == 2
+    assert torch.equal(got, again)
+    assert _err(got, want) <= _tol(key)
+
+
+@pytest.mark.parametrize("key", [
+    ChainKey(m=256, dims=(1024,) * 4, dtype="bf16", repeats=8),
+    ChainKey(m=128, dims=(768, 2304), repeats=3, pingpong=True),
+    BlockedMatmulKey(1, 2, 2, 256, 512, 512, repeats=3, **FC),
+    BlockedMatmulKey(1, 2, 2, 256, 512, 512, "bf16", vnni=2, repeats=3,
+                     **FC),
+], ids=["flagship-r8", "b5-r3", "b20-fc-f32-r3", "b20-fc-bf16-vnni-r3"])
+def test_warm_kernels_are_bit_repeatable(cuda, key):
+    from tpp_mlir_tpu_torch.xsmm import reference
+    route = reference.chain_route(key) if isinstance(key, ChainKey) \
+        else reference.warm_route(key)
+    assert route == "panel"
+    kern = build_kernel(key)
+    args = _warm_args(cuda, key)
+    got = kern(*args)
+    for _ in range(3):
+        assert torch.equal(kern(*args), got)
+    assert _err(got, reference_kernel(key)(*args)) <= _tol(key)
+
+
 def test_flat_attention_refuses_shapes_beyond_the_kernel(cuda):
     # head_dim outside attention.cu's instantiations; a batch beyond
     # gridDim.z, where the kernel puts it
@@ -1416,6 +1530,13 @@ BLOCKED = {
                                           beta0=True, vnni=2,
                                           binary_kind="add",
                                           unary_kind="relu", repeats=3),
+    "warm-fc-f32-default-r3": BlockedMatmulKey(1, 2, 2, 256, 512, 512,
+                                               beta0=True, binary_kind="add",
+                                               unary_kind="relu", repeats=3),
+    "warm-fc-bf16-vnni-r3": BlockedMatmulKey(1, 2, 2, 256, 512, 512, "bf16",
+                                             beta0=True, vnni=2,
+                                             binary_kind="add",
+                                             unary_kind="relu", repeats=3),
 }
 
 

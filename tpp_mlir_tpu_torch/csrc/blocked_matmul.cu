@@ -30,30 +30,34 @@
 // f32 at precision "highest" keeps the f32-FMA body below, never TF32.
 //
 // B20: rows are independent (next[i,:] needs only act[i,:], the
-// reference's note at kernels.py:917-918), so each block owns a panel of
-// WBM = 16 rows of one Mb tile for every repeat, with no grid-wide sync:
-// csrc/chain.cu's B4 design with the weight read through the packed
-// layout. The panel lives in shared memory in the MXU dtype, ping-ponged
-// between two buffers (16 x 1024 x 2 B x 2 = 64 KB in bf16, 128 KB in f32
-// "highest"), so the launch opts into dynamic shared memory; the weights
-// (2 MB in bf16) are re-read from L2 every repeat. Each warp owns 16-wide
-// column tiles: it stages a 64 x 16 strip of the weight at a time in its
-// own shared scratch (VNNI read in place, as 16-byte vectors that are all
-// in flight before the first product), accumulates with WMMA, and applies
-// the bias and unary per element from a 16 x 16 f32 scratch on the way
-// into the other buffer. At 256 rows that is only 16
-// blocks on 132 SMs, bound by per-SM tensor-core rate and L2 latency;
-// splitting the columns across a cluster is later work.
-// blocked_warm_fits_smem in xsmm/kernels.py mirrors warm_smem_bytes()
+// reference's note at kernels.py:917-918), so a row panel of one Mb tile is
+// carried through every repeat inside one launch, with no grid-wide sync.
+// bf16 products run on the warm-panel engine (csrc/warm_panel.cuh), the
+// same code as csrc/chain.cu's B3/B4/B5: a cluster of blocks shares the
+// panel (P rows), each block owns 64-column tiles of the output (wgmma with
+// the batch rows as N) and the repeat's output is exchanged through
+// distributed shared memory. The weight stays resident, as the TPU kernel
+// holds it in VMEM: each block loads its columns' slices once, through
+// registers, read in place through the packed (or VNNI) layout and rounded
+// to bf16 there, so no conversion runs on the repeat loop. At the fc key
+// (K = N = 1024) a block's 64 columns are 128 KB beside a 32-row panel of
+// 64 KB. The plan is xsmm/reference.py warm_plan's, the route warm_route's.
+// The first design below (one block per 16-row panel, ping-ponged between
+// two buffers in the MXU dtype, the weight re-read from L2 every repeat
+// through each warp's staging, WMMA, or f32 FMA) serves f32 "highest"
+// (route "fma") and any key the plan cannot take (route "wmma");
+// blocked_warm_fits_smem in xsmm/kernels.py mirrors its warm_smem_bytes()
 // below: chain.cu's panel (16 rows of K + 8) and WARM_STAGING_BYTES, which
-// the static_asserts pin. The VNNI factor (1 or 2) is a template argument, so the packed
-// offsets compile to shifts.
+// the static_asserts pin, so the engine admits no key the gate did not.
+// The VNNI factor (1 or 2) is a template argument, so the packed offsets
+// compile to shifts.
 #include <mma.h>
 
 #include <type_traits>
 
 #include "epilogue.cuh"
 #include "gemm_sm90.cuh"
+#include "warm_panel.cuh"
 
 using namespace nvcuda;
 
@@ -430,6 +434,36 @@ int run_sm90(const void* a, const void* b, const void* c, const void* d,
                     p, g, amap, bmap, st);
 }
 
+// B20 on the warm-panel engine: one step a repeat, the packed operands
+// addressed in place, the weight resident
+int run_warm_panel(const void* a, const void* b, const float* d, void* out,
+                   const Blocked& g, const Epilogue& epi, int vnni,
+                   int in_dtype, int repeats, const int* plan,
+                   cudaStream_t st) {
+  namespace wm = tpp::warm;
+  wm::Params p{};
+  const int K = g.Kb * g.kb;
+  p.steps[0] = {epi.binary ? d : nullptr, K, g.Nb * g.nb, 1, 0, 0,
+                epi.binary, epi.unary};
+  p.period = 1;
+  p.total = repeats;
+  p.w[0] = b;
+  p.x = a;
+  p.out = out;
+  p.groups = g.Mb;
+  p.mb = g.mb;
+  p.xkb = g.kb;
+  p.onb = g.nb;
+  p.wkb = g.kb;
+  p.wnb = g.nb;
+  p.wv = vnni ? vnni : 1;
+  p.x_dtype = in_dtype;
+  p.w_dtype = in_dtype;
+  p.out_dtype = epi.out_dtype;
+  p.round_out = 1;
+  return wm::run(p, wm::Plan{plan[0], plan[1], plan[2], plan[3]}, st);
+}
+
 }  // namespace
 
 // Shared-memory bytes B20 asks for at K = Kb * kb; the executor's
@@ -448,7 +482,10 @@ extern "C" long long tpp_blocked_warm_smem_bytes(int K, int mma_dtype) {
 // choice: 0 "fma" (f32 "highest"), 1 "tma" (bf16, not VNNI; 16-byte
 // aligned base pointers and row strides), 2 "convert"; work is
 // tpp_gemm_plan's workspace. B20 needs has_c 0, Nb == Kb, nb == kb and, on
-// the tensor path, Kb * kb and nb multiples of 16 and B 16-byte aligned.
+// the tensor path, Kb * kb and nb multiples of 16 and B 16-byte aligned;
+// warm_plan, when not null, is reference.warm_plan's (rows, cluster,
+// resident, shared-memory bytes): B20 runs on the warm-panel engine (bf16
+// products), else on the first design.
 extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   const void* c, const void* d, void* out,
                                   void* work, int Mb, int Nb, int Kb, int mb,
@@ -456,7 +493,7 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   int mma_dtype, int out_dtype, int c_dtype,
                                   int d_dtype, int has_c, int binary,
                                   int unary, int repeats, int route,
-                                  void* stream) {
+                                  const int* warm_plan, void* stream) {
   if ((vnni != 0 && vnni != 2) || (vnni && kb % vnni))
     return static_cast<int>(cudaErrorInvalidValue);
   if (repeats > 0 && (has_c || Nb != Kb || nb != kb ||
@@ -467,6 +504,11 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
   const Epilogue epi{has_c, c_dtype, binary, d_dtype, unary, out_dtype};
   const float* df = static_cast<const float*>(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (repeats > 0 && warm_plan != nullptr)
+    return mma_dtype == tpp::kBF16
+               ? run_warm_panel(a, b, df, out, g, epi, vnni, in_dtype,
+                                repeats, warm_plan, st)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (repeats > 0) {
     if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
       return run_warm<float, float>(a, b, df, out, g, epi, vnni, repeats, st);

@@ -3,8 +3,8 @@
 //
 // Replaces tpp_mlir_tpu/xsmm/kernels.py:1475 _build_chain (B3),
 // :2001 _build_chain_bench (B4) and :1919 _build_chain_bench_pingpong (B5).
-// Rows of an MLP are independent, so one block owns CBM rows and carries
-// them through every layer and every repeat, writing the output once: no
+// Rows of an MLP are independent, so a row panel is carried through every
+// layer and every repeat inside one launch, the output written once: no
 // grid-wide sync, and B4 and B5 are loops inside B3 rather than kernels of
 // their own.
 //
@@ -17,25 +17,31 @@
 //     hn = act(h W + b); odd repeats contract hn with the same W on its n
 //     axis, h = hn W^T (W^T read in place: col-major fragment loads), no
 //     bias, no activation; both states in the MXU dtype. The output is hn
-//     after the last forward repeat, written when that repeat ends. The
-//     row block's buffers are sized for max(k, n).
+//     after the last forward repeat, written when that repeat ends (the
+//     engine stops there: a later backward repeat is dead). The panel is
+//     sized for max(k, n).
 //
-// What bounds it on the H100: the activation row-block lives in dynamic
-// shared memory (the layer input in the MXU dtype plus the f32 layer
-// output: 99 KB at 1024 wide in bf16, 129 KB in f32 "highest"), which is
-// above the 48 KB default, so the launch opts in with cudaFuncSetAttribute.
-// Weights stream from device memory for every block; the three 1024x1024
-// bf16 weights of the flagship (6 MB) sit in the 50 MB L2. With CBM = 16
-// rows a 256-row batch is only 16 blocks on 132 SMs, so this first version
-// is bound by per-SM tensor-core rate and L2 bandwidth on a few SMs, not by
-// the card. Splitting the columns of a layer across a cluster of blocks
-// (distributed shared memory) is the way to fill the card; that is later
-// work.
+// What bounds it on the H100: the flagship (256 x 1024x4, bf16) is 1.61
+// GFLOP and 6 MB of weights an iteration; one block cannot hold the weights
+// nor fill the card's 132 SMs. bf16 products (bf16, and f32 at "default")
+// run on the warm-panel engine (csrc/warm_panel.cuh): a cluster of blocks
+// shares a row panel, each block owns a share of every layer's output
+// columns (wgmma with the batch rows as N), and the layer's output is
+// exchanged through distributed shared memory; weights stream from the 50
+// MB L2 by TMA, or stay resident where a block's slices fit. The plan is
+// xsmm/reference.py warm_plan's, the route chain_route's. The first design
+// below (one block per 16-row block, the layer input in the MXU dtype and
+// its f32 output in shared memory, WMMA tiles with B straight from device
+// memory, or f32 FMA) serves f32 "highest" (route "fma") and any key the
+// engine's plan cannot take (route "wmma"); the chain-fusion gate,
+// chain_fits_smem, still sizes that body (tpp_chain_smem_bytes), so the
+// engine admits no key the gate did not.
 #include <mma.h>
 
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "warm_panel.cuh"
 
 using namespace nvcuda;
 
@@ -49,6 +55,7 @@ struct ChainParams {
   const float* bias[MAXL];  // [dims[i+1]] f32, or null
   int dims[MAXL + 1];
   int L, dmax, unary, last_unary, repeats, round_out, out_dtype, pingpong;
+  int m;
 };
 
 __host__ __device__ inline size_t align128(size_t x) {
@@ -218,6 +225,45 @@ int launch(const void* x, void* out, int m, const ChainParams& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The chain on the warm-panel engine: one step a layer (B3, B4), or B5's
+// forward (hn = act(h W + b)) and backward (h = hn W^T) steps; B5 stops at
+// its last forward step, whose hn is the output (the steps after it are
+// dead).
+int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
+              const int* plan, cudaStream_t st) {
+  namespace wm = tpp::warm;
+  wm::Params p{};
+  const int L = c.L;
+  if (c.pingpong) {
+    const int K = c.dims[0], N = c.dims[1];
+    p.steps[0] = {c.bias[0], K, N, 1, 0, 0,
+                  c.bias[0] ? tpp::kAdd : tpp::kBinNone, c.last_unary};
+    p.steps[1] = {nullptr, N, K, 0, 0, 0, tpp::kBinNone, tpp::kIdentity};
+    p.period = 2;
+    p.total = (c.repeats - 1) % 2 ? c.repeats - 1 : c.repeats;
+    p.onb = N;
+  } else {
+    for (int i = 0; i < L; ++i)
+      p.steps[i] = {c.bias[i], c.dims[i], c.dims[i + 1], 1, i, 0,
+                    c.bias[i] ? tpp::kAdd : tpp::kBinNone,
+                    i < L - 1 ? c.unary : c.last_unary};
+    p.period = L;
+    p.total = c.repeats * L;
+    p.onb = c.dims[L];
+  }
+  for (int i = 0; i < L; ++i) p.w[i] = c.w[i];
+  p.x = x;
+  p.out = out;
+  p.groups = 1;
+  p.mb = c.m;
+  p.xkb = c.dims[0];
+  p.x_dtype = in_dtype;
+  p.w_dtype = tpp::kBF16;
+  p.out_dtype = c.out_dtype;
+  p.round_out = c.pingpong ? 1 : c.round_out;
+  return wm::run(p, wm::Plan{plan[0], plan[1], plan[2], plan[3]}, st);
+}
+
 }  // namespace
 
 // Shared-memory bytes the kernel asks for at width dmax; the pipeline's
@@ -231,12 +277,16 @@ extern "C" long long tpp_chain_smem_bytes(int dmax, int mma_dtype) {
 // Returns the cudaError_t of the launch (0 on success). w_ptrs/b_ptrs are
 // host arrays of L device pointers (weights in the MXU dtype, biases f32);
 // dims is a host array of L+1 ints. Every dim must be a multiple of 16.
-// pingpong (B5) needs L == 1 and repeats > 1.
+// pingpong (B5) needs L == 1 and repeats > 1. plan, when not null, is
+// reference.warm_plan's (rows, cluster, resident, shared-memory bytes):
+// the warm-panel engine runs the chain (bf16 products only; 16-byte
+// aligned weights where they stream); null runs the first design.
 extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
                          const void* const* b_ptrs, const int* dims, int L,
                          int m, int in_dtype, int mma_dtype, int out_dtype,
                          int has_bias, int unary, int last_unary, int repeats,
-                         int round_out, int pingpong, void* stream) {
+                         int round_out, int pingpong, const int* plan,
+                         void* stream) {
   if (L < 1 || L > MAXL || (pingpong && (L != 1 || repeats < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   ChainParams p{};
@@ -258,7 +308,12 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
   p.round_out = round_out;
   p.out_dtype = out_dtype;
   p.pingpong = pingpong;
+  p.m = m;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan != nullptr)
+    return mma_dtype == tpp::kBF16
+               ? run_panel(x, out, p, in_dtype, plan, st)
+               : static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return launch<float, float>(x, out, m, p, st);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
@@ -266,4 +321,12 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
   if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, out, m, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// cudaOccupancyMaxActiveClusters for the warm-panel engine (csrc/
+// warm_panel.cuh) at rows x cluster with `smem` bytes of dynamic shared
+// memory a block: the clusters the card holds at once, into *n
+extern "C" int tpp_warm_max_clusters(int rows, int cluster, int smem,
+                                     int* n) {
+  return tpp::warm::max_clusters(rows, cluster, smem, n);
 }

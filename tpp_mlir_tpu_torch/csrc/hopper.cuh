@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor maps and loads, bulk copies, cp.async 16-byte copies (and
 // their arrival on an mbarrier), the 16-byte swizzle of shared-memory tiles,
-// wgmma's shared-memory matrix descriptors, its fence/commit/wait sequence
-// and the bf16 m64nNk16 products (both operands from shared memory, or A
-// from registers), with f32 accumulators in registers.
+// thread block clusters (rank, the split cluster barrier, bulk copies into
+// a peer block's shared memory), wgmma's shared-memory matrix descriptors,
+// its fence/commit/wait sequence and the bf16 m64nNk16 products (both
+// operands from shared memory, or A from registers), with f32 accumulators
+// in registers.
 //
 // Tiles: a bf16 tile is kept as "chunks" of SW bytes a row (SW = 128, or 64
 // for a 32-column tile), each chunk a [rows][SW] block whose 16-byte units
@@ -236,6 +238,100 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+// ---- device: thread block clusters -------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// a barrier over every thread of the cluster, split in two: arrive releases
+// this thread's earlier writes (shared memory of any block of the cluster
+// included), wait acquires every other thread's; each thread alternates
+// arrive and wait, all threads of a warp together
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// the shared::cluster address of `addr` (a shared::cta address of this
+// block) in the block of rank `rank`: the same offset in its shared memory
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// an arrival (release, cluster scope) on the mbarrier at the offset of
+// `bar` in the block of `rank`, where `issue` is true (by predicate)
+__device__ __forceinline__ void mbar_arrive_peer_if(uint64_t* bar,
+                                                    uint32_t rank,
+                                                    bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n}\n"
+      ::"r"(peer_addr(smem_u32(bar), rank)),
+      "r"(static_cast<int>(issue))
+      : "memory");
+}
+
+// `bytes` contiguous bytes of this block's shared memory into the shared
+// memory of the block of `rank` in its cluster (at the same offset as
+// `dst`), completing on that block's mbarrier at the offset of `bar`, by
+// the bulk-copy engine; 16-byte aligned, `bytes` a multiple of 16. The
+// source may be reused once cp.async.bulk.wait_group.read says so.
+// Issued only where `issue` is true (a predicate, not a branch: the whole
+// warp runs one path).
+__device__ __forceinline__ void bulk_to_peer(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar,
+                                             uint32_t rank, bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
+      "::bytes [%0], [%1], %2, [%3];\n}\n" ::"r"(peer_addr(smem_u32(dst),
+                                                           rank)),
+      "r"(smem_u32(src)), "r"(bytes), "r"(peer_addr(smem_u32(bar), rank)),
+      "r"(static_cast<int>(issue))
+      : "memory");
+}
+
+// mbar_arrive_tx where `issue` is true, by predicate
+__device__ __forceinline__ void mbar_arrive_tx_if(uint64_t* bar,
+                                                  uint32_t bytes, bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(issue))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N committed bulk-copy groups still read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// wait until at most N committed bulk-copy groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // ---- device: wgmma -----------------------------------------------------
 
 // layout type of the descriptor: 1 = 128-byte swizzle, 2 = 64-byte
@@ -282,6 +378,79 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // + e. An A fragment of 16 columns is {rows +0 cols 0-7, rows +8 cols 0-7,
 // rows +0 cols 8-15, rows +8 cols 8-15} as bf16 pairs, so the accumulator
 // of a product is the A fragment of the next one with no shuffle.
+
+// m64n16k16, A and B from shared memory: 8 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// m64n24k16, A and B from shared memory: 12 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n24k16_ss(float (&d)[12], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// m64n32k16, A and B from shared memory: 16 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// m64n40k16, A and B from shared memory: 20 f32 accumulators a thread;
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n40k16_ss(float (&d)[20], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
 
 // m64n64k16, A and B from shared memory: 32 f32 accumulators a thread;
 // TRANS_A / TRANS_B 1 read an MN-major A / B tile

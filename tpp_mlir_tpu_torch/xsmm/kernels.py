@@ -15,7 +15,10 @@ reached. Each wrapper counts its launches.
                                      split by tpp_gemm_plan)
   ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain, :2001
                                      _build_chain_bench and, pingpong,
-                                     :1919 _build_chain_bench_pingpong)
+                                     :1919 _build_chain_bench_pingpong;
+                                     body by reference.chain_route, the
+                                     warm-panel engine's plan by
+                                     reference.warm_plan)
   BatchMatmulKey -> csrc/batch_matmul.cu (replaces :963
                                      _build_batch_matmul and :1065
                                      _build_batch_matmul_grouped; the
@@ -60,7 +63,8 @@ reached. Each wrapper counts its launches.
                                      brgemm.cu's mainloop, loader by
                                      reference.blocked_matmul_route; with
                                      repeats :870
-                                     _build_blocked_matmul_warm, B20)
+                                     _build_blocked_matmul_warm, B20, body
+                                     by reference.warm_route)
   ConvBrgemmKey -> csrc/conv.cu, the channel-blocked entry (replaces
                                      :2778 _build_conv_brgemm, B23; stride
                                      1, as the reference; body by
@@ -102,7 +106,7 @@ _UNARY_CODE = {None: 0, "identity": 0, "relu": 1, "exp": 2, "square": 3,
 # chain.cu's row block, paddings, layer limit and the shared memory one block
 # may opt into on sm_90 (227 KB); chain_fits_smem mirrors the kernel's need
 CHAIN_BM, CHAIN_HPAD, CHAIN_ZPAD, CHAIN_MAXL = 16, 8, 4, 32
-SM90_SMEM_OPTIN = 232448
+SM90_SMEM_OPTIN = reference.SM90_SMEM_OPTIN
 
 
 def chain_smem_bytes(dmax: int, mxu: torch.dtype) -> int:
@@ -304,7 +308,42 @@ def _brgemm_launch(key: BrgemmKey):
     return launch
 
 
-def _chain_launch(key: ChainKey):
+_WARM_ROUTES = ("panel", "fma", "wmma")
+
+
+def _warm_plan_arg(key, route: str, plan):
+    """The plan array the C entries take for the warm-panel engine (rows,
+    cluster, resident, bytes), or None for the first design; `plan` forces
+    one (reference.warm_plan's by default)."""
+    if route not in _WARM_ROUTES:
+        raise ValueError(f"unknown warm route {route!r}")
+    if route != "panel":
+        # the first design's body follows the MXU dtype
+        body = "fma" if reference.mxu_dtype(key.dtype, key.precision) == \
+            torch.float32 else "wmma"
+        if route != body:
+            raise ValueError(f"the first design runs {body} at {key}")
+        return None
+    plan = plan or reference.warm_plan(key)
+    if plan is None:
+        raise ValueError(f"the warm-panel engine has no plan for {key}")
+    return (ctypes.c_int * 4)(plan.rows, plan.cluster, int(plan.resident),
+                              plan.smem)
+
+
+def warm_max_clusters(rows: int, cluster: int, smem: int) -> int:
+    """The card's cudaOccupancyMaxActiveClusters for csrc/warm_panel.cuh at
+    a panel of `rows`, clusters of `cluster` blocks and `smem` bytes of
+    dynamic shared memory a block (the current device)."""
+    from .build import check, library
+    n = ctypes.c_int(0)
+    check(library().tpp_warm_max_clusters(rows, cluster, smem,
+                                          ctypes.byref(n)),
+          "warm_max_clusters")
+    return n.value
+
+
+def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
     from .build import check, library
 
     dims, L = key.dims, len(key.dims) - 1
@@ -313,6 +352,7 @@ def _chain_launch(key: ChainKey):
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     bench = key.repeats > 1
     step = 2 if key.has_bias else 1
+    plan_arg = _warm_plan_arg(key, route or reference.chain_route(key), plan)
 
     def launch(x, *wb):
         if not chain_fits_smem(key):
@@ -344,7 +384,7 @@ def _chain_launch(key: ChainKey):
             _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
             int(key.has_bias), _UNARY_CODE[key.unary_kind],
             _UNARY_CODE[key.last_unary], max(1, key.repeats), int(bench),
-            int(key.pingpong and bench), _stream())
+            int(key.pingpong and bench), plan_arg, _stream())
         check(rc, f"chain {key}")
         return out
     return launch
@@ -852,13 +892,15 @@ def _conv_launch(key: ConvNhwcKey, route: str | None = None):
     return launch
 
 
-def _blocked_matmul_launch(key: BlockedMatmulKey):
+def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
+                           plan=None):
     """B19, or with repeats B20, on packed operands: a [Mb,Kb,mb,kb],
     b [Nb,Kb,kb,nb] (VNNI [Nb,Kb,kb/2,nb,2], read in place by the kernel),
     c [Mb,Nb,mb,nb] unless beta_0 (B20 takes none), d the bias with Nb*nb
     elements; the output is [Mb,Nb,mb,nb]. B19 takes the loader
     reference.blocked_matmul_route names and reads C and the bias in their
-    stored dtype; B20 reads an f32 bias."""
+    stored dtype; B20 reads an f32 bias and takes the body
+    reference.warm_route names (or `warm`, forced)."""
     from .build import check, library
 
     Mb, Nb, Kb, mb, nb, kb = key.Mb, key.Nb, key.Kb, key.mb, key.nb, key.kb
@@ -869,6 +911,8 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
     b_shape = (Nb, Kb, kb // v, nb, v) if v else (Nb, Kb, kb, nb)
     has_c = not key.beta0 and not key.repeats
     route = reference.blocked_matmul_route(key)
+    plan_arg = _warm_plan_arg(key, warm or reference.warm_route(key), plan) \
+        if key.repeats else None
 
     def launch(a, b, c=None, d=None):
         if key.repeats and not blocked_warm_fits_smem(key):
@@ -901,7 +945,8 @@ def _blocked_matmul_launch(key: BlockedMatmulKey):
             _DT_CODE[c.dtype] if has_c else 0,
             _DT_CODE[d.dtype] if key.binary_kind else 0, int(has_c),
             _BINARY_CODE[key.binary_kind], _UNARY_CODE[key.unary_kind],
-            key.repeats, _GEMM_ROUTE_CODE.get(route, 0), _stream())
+            key.repeats, _GEMM_ROUTE_CODE.get(route, 0), plan_arg,
+            _stream())
         check(rc, f"blocked_matmul {key}")
         return out
     return launch
@@ -961,6 +1006,21 @@ def build_conv(key: ConvNhwcKey | ConvBrgemmKey, route: str) -> Kernel:
     launch = _conv_blocked_launch if isinstance(key, ConvBrgemmKey) \
         else _conv_launch
     return Kernel(key, launch(key, route))
+
+
+def build_warm(key: ChainKey | BlockedMatmulKey, route: str,
+               plan: reference.WarmPlan | None = None) -> Kernel:
+    """csrc/chain.cu (B3/B4/B5) or B20 with its body forced to `route`
+    ("panel": the warm-panel engine, on `plan` or reference.warm_plan's;
+    "wmma" or "fma": the first design), for timing and testing the two
+    side by side; build_kernel takes reference.chain_route's /
+    warm_route's choice."""
+    reference.check_slice(key)
+    if isinstance(key, ChainKey):
+        return Kernel(key, _chain_launch(key, route, plan))
+    if not key.repeats:
+        raise ValueError(f"B19 has no warm body: {key}")
+    return Kernel(key, _blocked_matmul_launch(key, route, plan))
 
 
 def build_grouped_gemm(key: GroupedGemmKey | GroupedWgradKey,

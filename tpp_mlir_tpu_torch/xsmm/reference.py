@@ -25,6 +25,7 @@ in f32 whatever the dtype; only their results are rounded.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 
@@ -536,6 +537,142 @@ def blocked_matmul_route(key: BlockedMatmulKey) -> str:
                                                             key.nb):
         return "tma"
     return "convert"
+
+
+SM90_SMEM_OPTIN = 232448    # shared memory one block may opt into on sm_90
+
+# csrc/warm_panel.cuh: a tile's columns (and a weight slice's depth), the
+# bytes of a 64 x 64 bf16 slice, the streamed ring's stages, the weights
+# that can stream (one tensor map each), the panel heights
+WARM_TILE, WARM_SLICE, WARM_STAGES, WARM_MAPS = 64, 8192, 8, 8
+# the panel chunks a block's barriers cover (K up to 2560) and the
+# barriers: the ring's full and empty, each chunk's, the panel's `freed`
+WARM_MAXKT = 40
+WARM_BARRIERS = 2 * WARM_STAGES + WARM_MAXKT + 1
+WARM_ROWS = (16, 24, 32, 40, 64)
+# cudaOccupancyMaxActiveClusters for the engine at one block an SM (above
+# ~114 KB of shared memory), by cluster size, as an NVIDIA H100 80GB HBM3
+# answered it (scripts/exp_warm_plan.py; chip_smoke.py prints the card's)
+H100_WARM_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                      8: 15, 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7,
+                      15: 7, 16: 7}
+
+
+class WarmPlan(NamedTuple):
+    """A launch plan of csrc/warm_panel.cuh: the panel's rows (wgmma's N),
+    the cluster's blocks, the most 64-column tiles a block owns at each step
+    of a period, whether the weights stay resident (else they stream
+    through the TMA ring), the dynamic shared memory a block asks for, and
+    the clusters of the grid (one a row panel)."""
+
+    rows: int
+    cluster: int
+    tiles: tuple
+    resident: bool
+    smem: int
+    clusters: int
+
+
+def warm_steps(key: ChainKey | BlockedMatmulKey):
+    """One period of the warm-panel engine's GEMM steps at `key`, as
+    ((K, N, fwd), ...), with its row groups and their rows: a chain's
+    layers; B5's forward (k -> n) and backward (n -> k, W^T) steps; B20's
+    one step, its groups the Mb tiles."""
+    if isinstance(key, BlockedMatmulKey):
+        K = key.Kb * key.kb
+        return ((K, key.Nb * key.nb, True),), key.Mb, key.mb
+    d = key.dims
+    if key.pingpong and key.repeats > 1:
+        return ((d[0], d[1], True), (d[1], d[0], False)), 1, key.m
+    return tuple((k, n, True) for k, n in zip(d[:-1], d[1:])), 1, key.m
+
+
+def warm_smem_bytes(rows: int, cluster: int, steps, resident: bool) -> int:
+    """csrc/warm_panel.cuh layout()'s bytes: the panel (the widest K's
+    64-column chunks of `rows` rows), two staging buffers (the most tiles a
+    block owns at a step), the weights (every owned 64 x 64 slice, or the
+    ring), the barriers and 1024 bytes of alignment."""
+    kt = [-(-K // WARM_TILE) for K, _, _ in steps]
+    tiles = [-(-(-(-N // WARM_TILE)) // cluster) for _, N, _ in steps]
+    weights = sum(t * k for t, k in zip(tiles, kt)) if resident \
+        else WARM_STAGES
+    return (max(kt) + 2 * max(tiles)) * rows * 128 + weights * WARM_SLICE \
+        + WARM_BARRIERS * 8 + 1024
+
+
+def warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
+              rows: int | None = None, cluster: int | None = None,
+              resident: bool | None = None) -> WarmPlan | None:
+    """The warm-panel engine's plan at `key` (B3/B4/B5 chains, B20), or None
+    where the engine does not take it (f32 "highest" products, or a plan
+    that does not fit a block's shared memory). `clusters` maps a cluster
+    size to the clusters the card holds at once (the card's
+    cudaOccupancyMaxActiveClusters at one block an SM; default the H100's).
+    The cluster C: at most 16, and the fewest blocks that keep the most
+    tiles a block owns at each step (B5 768 <-> 2304: 12, three tiles
+    forward, one backward). The panel: the fewest rows (WARM_ROWS, wgmma
+    N values) whose row panels all fit in one wave of clusters, else the
+    fewest waves (256 rows in clusters of 16, of which the H100 holds 7:
+    40 rows, 7 panels).
+    The weights: resident if a block's slices fit beside the panel, else
+    streamed (a chain's flat bf16 weights only, at most WARM_MAPS of
+    them). rows, cluster and resident force a choice (for experiments)."""
+    if mxu_dtype(key.dtype, key.precision) != torch.bfloat16:
+        return None
+    steps, groups, m = warm_steps(key)
+    nts = [-(-N // WARM_TILE) for _, N, _ in steps]
+    if max(max(nts), *(-(-K // WARM_TILE) for K, _, _ in steps)) > \
+            WARM_MAXKT:
+        return None
+    if cluster is None:
+        c0 = min(16, max(nts))
+        cluster = min(c for c in range(1, c0 + 1)
+                      if all(-(-n // c) == -(-n // c0) for n in nts))
+    table = clusters or H100_WARM_CLUSTERS
+    stream_ok = isinstance(key, ChainKey) and len(steps) <= WARM_MAPS
+
+    def panels(p):
+        return groups * -(-m // p)
+
+    order = (rows,) if rows else sorted(
+        WARM_ROWS, key=lambda p: (-(-panels(p) // table[cluster]), p))
+    for p in order:
+        for res in (True, False) if resident is None else (resident,):
+            if not res and not stream_ok:
+                continue
+            smem = warm_smem_bytes(p, cluster, steps, res)
+            if smem <= SM90_SMEM_OPTIN:
+                return WarmPlan(p, cluster,
+                                tuple(-(-n // cluster) for n in nts), res,
+                                smem, panels(p))
+    return None
+
+
+def chain_route(key: ChainKey) -> str:
+    """Which body of csrc/chain.cu runs a chain (B3, B4, B5), from the key
+    alone:
+      "panel"  bf16 products (bf16, f32 "default") where warm_plan has a
+               plan: the warm-panel engine (csrc/warm_panel.cuh);
+      "fma"    f32 "highest": the first design's f32-FMA body;
+      "wmma"   bf16 products warm_plan cannot place (more streamed layers
+               than WARM_MAPS whose weights do not fit resident): the first
+               design's WMMA body.
+    chain_fits_smem gates every key as before; the route only picks the
+    body."""
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    return "panel" if warm_plan(key) else "wmma"
+
+
+def warm_route(key: BlockedMatmulKey) -> str:
+    """Which body of csrc/blocked_matmul.cu runs B20 (repeats > 0), from the
+    key alone: "panel" (the warm-panel engine, its weight resident) where
+    warm_plan has a plan, "fma" at f32 "highest", else "wmma" (the first
+    design's 16-row panel). blocked_warm_fits_smem gates every key as
+    before."""
+    if mxu_dtype(key.dtype, key.precision) == torch.float32:
+        return "fma"
+    return "panel" if warm_plan(key) else "wmma"
 
 
 def _heads(key: FlashMhaKey, x: torch.Tensor, s: int) -> torch.Tensor:
