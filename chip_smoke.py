@@ -13,8 +13,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
      q/k/v; decode attention at B 8, H 12, S 1024, D 64, L 12 and its
      slotted, GQA, int8-KV, pack2 and f32 variants, each line naming
      reference.decode_attn_plan's chunk and split count, each launched
-     twice bit-equal; the int8 GEMM at the
-     four prefill shapes and a ragged m; for training: B1 forward and
+     twice bit-equal; the int8 GEMM (B15) at the four prefill shapes and
+     a ragged m, each line naming reference.int8_gemm_route's body and
+     int8_gemm_plan's tile, stages, split, tiles and grid (the C launcher
+     refuses another), launched twice and with the first design forced
+     (build_int8 "wmma"), all bit-equal; the row LayerNorm (B12) at
+     GPT-2's ln_f and the encoder's key, naming reference.layer_norm_route's
+     body, and with the first design forced (build_layer_norm "strided")
+     held to the plain version too; for training: B1 forward and
      transpose_b (dx) at the MLP rows' shapes, B14 and B18 at the GPT-2
      training key B 8, S 512, H 12, D 64 causal bf16, an f32 key at D 128
      and a GQA case through the autograd op, B18 twice bit-equal; for MoE:
@@ -118,7 +124,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
      there is one, and its bound (bytes over HBM's rate or operations over
      the peak rate of their type, whichever is larger), and B16's
      WMMA tile forced at the fc2 and fc1 keys beside its wgmma tile, in
-     turns; for the MHA suite
+     turns; B15 at the four prefill keys from a CUDA graph beside the
+     composed torch._int_mm + scales + bias + unary chain (not one call)
+     and its first design forced, in turns; B12 from a CUDA graph beside
+     F.layer_norm, its first design forced in turns and an empty kernel's
+     launch from a graph (the card's floor); for the MHA suite
      the flat attention at each TPU kernel's own key (B9 at the S 1024
      rows, B8 at S 2048, B10b/B10a at causal S 2048, B6 with forced
      blocks), B11 at -n 20, the batched matmul at mha_qk's and
@@ -629,7 +639,9 @@ def _int8_cases():
 
 def _int8_inputs(key, g):
     """Activations quantized per row and weights per column, as the engine
-    makes them (quantize_tokens, quantize), and a bf16 bias."""
+    makes them (quantize_tokens, quantize), a bf16 bias (None without one)
+    and the weight's K-major copy the wgmma body reads (QTensor.qt, which
+    the engine makes once): (xq, wq, xscale, wscale, bias, wt)."""
     import torch
 
     from tpp_mlir_tpu_torch.serving import quantize, quantize_tokens
@@ -638,7 +650,8 @@ def _int8_inputs(key, g):
     w = quantize(torch.randn(key.k, key.n, generator=g, device="cuda")
                  * key.k ** -0.5)
     bias = torch.randn(key.n, generator=g, device="cuda").to(torch.bfloat16)
-    return (xq, w.q, xs, w.scale) + ((bias,) if key.has_bias else ())
+    return xq, w.q, xs, w.scale, bias if key.has_bias else None, \
+        w.q.t().contiguous()
 
 
 def _warm_note(key, route: str | None = None) -> str:
@@ -657,22 +670,45 @@ def _warm_note(key, route: str | None = None) -> str:
         f"{p.clusters} clusters"
 
 
+def _int8_note(key) -> str:
+    """B15's route and reference.int8_gemm_plan (the C launcher refuses a
+    plan that differs from its own)."""
+    from tpp_mlir_tpu_torch.xsmm.reference import (int8_gemm_plan,
+                                                   int8_gemm_route)
+    p = int8_gemm_plan(key)
+    return f"; route {int8_gemm_route(key)}, tile {p.bm}x{p.bn}, " \
+        f"{p.stages} stages, split {p.split}, {p.tiles} tiles, grid " \
+        f"{p.grid}{' persistent' if p.persistent else ''}, {p.smem} B " \
+        f"shared memory"
+
+
 def _route_note(key, xt_stride=None) -> str:
     """The loader (attention.cu; B1/B2 and B19 with the launcher's tile and
     k split) or tile (B16, B17: at xt's strides) or kernel (B14 and B18,
     the batched matmul) or body (conv.cu, with its tile and k split; chain.cu
-    and B20, with the warm-panel engine's plan) or split (decode attention)
-    the wrapper chose."""
+    and B20, with the warm-panel engine's plan; B12; B15 with its plan) or
+    split (decode attention) the wrapper chose."""
     from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
                                          BrgemmKey, ChainKey, ConvBrgemmKey,
                                          ConvNhwcKey, DecodeAttnKey,
                                          FlashMhaKey, FlashTrainBwdKey,
                                          FlashTrainKey, GroupedGemmKey,
-                                         GroupedWgradKey)
+                                         GroupedWgradKey, Int8GemmKey,
+                                         LayerNormKey)
     if isinstance(key, DecodeAttnKey):
         from tpp_mlir_tpu_torch.xsmm.reference import decode_attn_plan
         chunk, splits = decode_attn_plan(key)
         return f"; chunk {chunk} rows, splits {splits}"
+    if isinstance(key, Int8GemmKey):
+        return _int8_note(key)
+    if isinstance(key, LayerNormKey):
+        from tpp_mlir_tpu_torch.xsmm.reference import (LN_MAX_VPL,
+                                                       layer_norm_route)
+        route = layer_norm_route(key)
+        es = 4 if key.dtype == "f32" else 2
+        vpl = f", {-(-key.n * es // 16 // 32)} of {LN_MAX_VPL} 16-byte " \
+            f"vectors a lane" if route == "register" else ""
+        return f"; route {route}{vpl}"
     if isinstance(key, (ConvNhwcKey, ConvBrgemmKey)):
         from tpp_mlir_tpu_torch.xsmm.reference import (conv_kernel_route,
                                                        conv_plan)
@@ -722,6 +758,7 @@ def phase_kernels() -> dict:
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_int8, build_layer_norm
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     stats = {}
@@ -749,6 +786,19 @@ def phase_kernels() -> dict:
                 same = torch.equal(build_kernel(key)(*args), got)
                 ok = ok and same
                 note = f" (second launch bit-equal: {same})"
+            if kind == "int8_gemm":
+                # exact s32 sums and one epilogue order: the wgmma body is
+                # bit-equal across launches and to the first design forced
+                same = torch.equal(build_kernel(key)(*args), got)
+                old = torch.equal(build_int8(key, "wmma")(*args), got)
+                ok = ok and same and old
+                note = f" (second launch bit-equal: {same}; forced wmma " \
+                    f"bit-equal: {old})"
+            if kind == "layer_norm":
+                rel_s, _ = rel_err(build_layer_norm(key, "strided")(*args),
+                                   ref)
+                ok = ok and rel_s <= tol
+                note = f" (forced strided rel {rel_s:.3e})"
             if kind == "chain" and key.dtype == "f32" and \
                     key.precision == "default" and key.repeats == 1:
                 # pins the meaning of f32 "default": a kernel that ran true
@@ -2921,7 +2971,8 @@ def phase_timing(n: int = 100) -> dict:
     for kind, key, args in timed:
         kern, plain = build_kernel(key), reference_kernel(key)
         library = _library_call(kind, key, args)
-        graphed = kind in ("decode_attn", "int8_gemm", "batch_matmul")
+        graphed = kind in ("decode_attn", "int8_gemm", "batch_matmul",
+                           "layer_norm")
         # the serving kernels run inside the decode step's CUDA graph: their
         # line and the kernel table take graph-replayed times
         timer = graph_ms if graphed else cuda_ms
@@ -2973,8 +3024,16 @@ def phase_timing(n: int = 100) -> dict:
             note += f" (replayed from a CUDA graph: {g_ms:.4f} ms; composed " \
                 f"chain, not one call, from a CUDA graph {c_ms:.4f} ms)" \
                 f"{_warm_note(key)}"
+        if kind == "int8_gemm":
+            # no single call scales per row and column: torch._int_mm and
+            # the epilogue in PyTorch, composed, is B15's yardstick
+            c_ms = timer(_int8_composed(key, args))
+            note += f" (composed torch._int_mm + scales + bias + unary, not " \
+                f"one call, from a CUDA graph {c_ms:.4f} ms){_route_note(key)}"
+        if kind == "layer_norm":
+            note += _route_note(key)
         if kind in ("flash_train_fwd", "flash_train_bwd", "attention",
-                    "layer_norm", "brgemm", "blocked_matmul", "conv_nhwc",
+                    "brgemm", "blocked_matmul", "conv_nhwc",
                     "conv_blocked"):
             # a kernel of tens of us timed over eager launches can read the
             # host's time a call (tensor-map encodes included): the
@@ -3018,6 +3077,29 @@ def phase_timing(n: int = 100) -> dict:
         out.setdefault(kind, {"ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": by,
                               "library_ms": lib_ms, **err})
+    # B15's and B12's first designs, forced, beside the new bodies in turns
+    # (new, first, first, new), from a CUDA graph; B12 beside the card's
+    # floor for one launch from the same kind of graph (an empty kernel)
+    from tpp_mlir_tpu_torch.xsmm.kernels import (build_int8,
+                                                 build_layer_norm,
+                                                 empty_kernel)
+    for kind, key, args in timed:
+        if kind not in ("int8_gemm", "layer_norm"):
+            continue
+        if kind == "int8_gemm":
+            first, forced = build_int8(key, "wmma"), "wmma"
+        else:
+            first, forced = build_layer_norm(key, "strided"), "strided"
+        new = build_kernel(key)
+        iters = 5 if kind == "int8_gemm" and key.n > 10000 else 20
+        t = [graph_ms(lambda: k(*args), iters=iters)
+             for k in (new, first, first, new)]
+        floor = f"; an empty kernel {graph_ms(empty_kernel, iters=100):.4f}" \
+            f" ms a launch" if kind == "layer_norm" else ""
+        say(f"time kernel {describe(key):44s} {_route_note(key)[2:]} "
+            f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), forced "
+            f"{forced} {(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f}) "
+            f"(from a CUDA graph){floor}")
     # B16's and B17's WMMA tile, forced at the keys the route sends to
     # wgmma, beside the wgmma tile in turns (wgmma, wmma, wmma, wgmma)
     from tpp_mlir_tpu_torch.xsmm.kernels import build_grouped_gemm
@@ -3119,9 +3201,11 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate, flops = "f32", 4 * rows * G
         nbytes = 2 * rows * k.element_size() + _nbytes(q, pos) + \
             q.numel() * 4 + (2 * H * live * 4 if key.kv_quant else 0)
-    elif kind == "int8_gemm":
+    elif kind == "int8_gemm":     # Xq, the K-major Wt, scales, bias, out
+        xq, _, xs, ws, bias, wt = args
         rate, flops = "int8", 2 * key.m * key.n * key.k
-        nbytes = _nbytes(*args) + key.m * key.n * 4
+        nbytes = _nbytes(xq, wt, xs, ws, bias) + \
+            key.m * key.n * (4 if key.out_dtype == "f32" else 2)
     elif kind == "flash_train_fwd":
         q, k, v = args
         B, S, H, D = q.shape
@@ -3306,6 +3390,35 @@ def _library_call(kind, key, args):
         return lambda: torch.autograd.grad(o, (q, k, v), g,
                                            retain_graph=True)
     return None
+
+
+def _int8_composed(key, args):
+    """B15's yardstick, composed and not one call, used nowhere in the port:
+    torch._int_mm (s8 x s8 -> s32) on the same operands, its weight laid
+    out column-major (a view of the K-major copy, made here, untimed), then
+    the two scales, the bias (widened here) and the unary in PyTorch
+    (F.gelu, the exact-erf gelu that gelu_exp2 meets within an ulp)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpp_mlir_tpu_torch.xsmm.reference import UNARY_FNS
+    xq, wq, xs, ws, bias, wt = args
+    w = wt.t()
+    try:
+        torch._int_mm(xq, w)
+    except RuntimeError:
+        w = wq
+    xs2, ws2 = xs.reshape(-1, 1), ws.reshape(1, -1)
+    b = bias.float().reshape(1, -1) if bias is not None else None
+    unary = F.gelu if key.unary_kind == "gelu" else \
+        UNARY_FNS.get(key.unary_kind)
+
+    def run():
+        y = torch._int_mm(xq, w).float() * xs2 * ws2
+        if b is not None:
+            y = y + b
+        return unary(y) if unary else y
+    return run
 
 
 def _decode_library(key, args):

@@ -443,22 +443,48 @@ def test_attention_bf16_register_loader_matches_plain(cuda):
     assert _err(out, want) <= 1e-2
 
 
-@pytest.mark.parametrize("key", [
-    LayerNormKey(m=100, n=768, dtype="bf16"),
-    LayerNormKey(m=64, n=1024, dtype="f32", affine=False),
-    LayerNormKey(m=33, n=200, dtype="f32", out_dtype="bf16", eps=1e-6),
-], ids=["bf16-768", "f32-1024-no-affine", "f32-in-bf16-out"])
-def test_layer_norm_kernel_matches_plain(cuda, key):
+# B12's keys, with the route layer_norm_route gives each: the register
+# template's edges (1 and 8 vectors a lane) and one width past them
+LN_CASES = [
+    ("bf16-768", LayerNormKey(m=100, n=768, dtype="bf16"), "register"),
+    ("f32-1024-no-affine", LayerNormKey(m=64, n=1024, dtype="f32",
+                                        affine=False), "register"),
+    ("f32-in-bf16-out", LayerNormKey(m=33, n=200, dtype="f32",
+                                     out_dtype="bf16", eps=1e-6),
+     "register"),
+    ("ln-f-2048x768", LayerNormKey(m=2048, n=768, dtype="bf16"), "register"),
+    ("bf16-8-one-vector", LayerNormKey(m=17, n=8, dtype="bf16"), "register"),
+    ("bf16-2048-edge", LayerNormKey(m=40, n=2048, dtype="bf16"), "register"),
+    ("bf16-2056-past", LayerNormKey(m=40, n=2056, dtype="bf16"), "strided"),
+    ("f32-1028-past", LayerNormKey(m=9, n=1028, dtype="f32"), "strided"),
+    ("bf16-100-ragged", LayerNormKey(m=5, n=100, dtype="bf16"), "strided"),
+]
+
+
+@pytest.mark.parametrize("g_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,key,route", LN_CASES,
+                         ids=[c[0] for c in LN_CASES])
+def test_layer_norm_kernel_matches_plain(cuda, name, key, route, g_dtype):
+    """Both bodies (the key's own and the first design forced) against the
+    plain version, gamma and beta read in their stored dtype."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_layer_norm
+    from tpp_mlir_tpu_torch.xsmm.reference import layer_norm_route
     g = cuda
+    assert layer_norm_route(key) == route
     x = _rnd(g, (key.m, key.n), key.dtype) * 3 + 1
-    gamma, beta = _rnd(g, (key.n,), "f32"), _rnd(g, (key.n,), "f32")
+    gamma, beta = _rnd(g, (key.n,), g_dtype), _rnd(g, (key.n,), g_dtype)
     kern = build_kernel(key)
     got = kern(x, gamma, beta)
+    old = build_layer_norm(key, "strided")(x, gamma, beta)
     want = reference_kernel(key)(x, gamma, beta)
     torch.cuda.synchronize()
     assert kern.launches == 1
-    assert _err(got, want) <= (1e-4 if (key.out_dtype or key.dtype) == "f32"
-                               else 1e-2)
+    tol = 1e-4 if (key.out_dtype or key.dtype) == "f32" else 1e-2
+    assert _err(got, want) <= tol
+    assert _err(old, want) <= tol
+    if route == "strided":
+        with pytest.raises(ValueError, match="cannot run"):
+            build_layer_norm(key, "register")
 
 
 @pytest.mark.parametrize("layers,invoke", [
@@ -601,17 +627,40 @@ def test_decode_attn_graph_replays_right_at_every_position(cuda):
         assert _err(out, reference_kernel(key)(q, k, v, pos, 1)) <= 1e-4
 
 
-@pytest.mark.parametrize("key", [
-    Int8GemmKey(m=256, n=384, k=768, has_bias=True),
-    Int8GemmKey(m=33, n=200, k=64, has_bias=True, unary_kind="gelu",
-                out_dtype="bf16"),
-    Int8GemmKey(m=128, n=50304, k=128),
-], ids=["bias-f32", "ragged-gelu-bf16", "lm-head-width"])
-def test_int8_gemm_kernel_matches_plain(cuda, key):
+# B15's keys: the cuda tests' first three, the int8 prefill's four (B 8 x S
+# 512 rows: QKV/out projection, fc1 + gelu, fc2, the LM head), a ragged m
+# and n (masked stores), and a key whose plan splits k
+INT8_CASES = [
+    ("bias-f32", Int8GemmKey(m=256, n=384, k=768, has_bias=True)),
+    ("ragged-gelu-bf16", Int8GemmKey(m=33, n=200, k=64, has_bias=True,
+                                     unary_kind="gelu", out_dtype="bf16")),
+    ("lm-head-width", Int8GemmKey(m=128, n=50304, k=128)),
+    ("prefill-qkv", Int8GemmKey(m=4096, n=768, k=768, has_bias=True)),
+    ("prefill-fc1", Int8GemmKey(m=4096, n=3072, k=768, has_bias=True,
+                                unary_kind="gelu")),
+    ("prefill-fc2", Int8GemmKey(m=4096, n=768, k=3072, has_bias=True)),
+    ("prefill-lm-head", Int8GemmKey(m=4096, n=50304, k=768)),
+    ("ragged-m-n", Int8GemmKey(m=1000, n=1001, k=784, has_bias=True,
+                               unary_kind="gelu")),
+    ("split-k", Int8GemmKey(m=64, n=256, k=3072, has_bias=True,
+                            unary_kind="relu")),
+]
+INT8_PARAMS = [(name, key, bdt) for name, key in INT8_CASES
+               for bdt in (("bf16", "f32") if key.has_bias else (None,))]
+
+
+@pytest.mark.parametrize(
+    "name,key,bias_dtype", INT8_PARAMS,
+    ids=[f"{n}-{b}" if b else n for n, _, b in INT8_PARAMS])
+def test_int8_gemm_kernel_matches_plain(cuda, name, key, bias_dtype):
     """The s32 product is exact on both sides and the epilogue runs the same
     f32 operations in the same order: 1e-5 for an f32 output, 1e-2 for
-    bf16."""
+    bf16. The wgmma body is bit-equal across launches, without the K-major
+    copy (the wrapper makes one) and to the first design forced."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_int8
+    from tpp_mlir_tpu_torch.xsmm.reference import int8_gemm_route
     g = cuda
+    assert int8_gemm_route(key) == "wgmma"
     xq = torch.randint(-127, 128, (key.m, key.k), generator=g, device="cuda",
                        dtype=torch.int8)
     wq = torch.randint(-127, 128, (key.k, key.n), generator=g, device="cuda",
@@ -619,13 +668,20 @@ def test_int8_gemm_kernel_matches_plain(cuda, key):
     args = [xq, wq, torch.rand(key.m, generator=g, device="cuda") * 0.01,
             torch.rand(1, key.n, generator=g, device="cuda") * 0.01]
     if key.has_bias:
-        args.append(_rnd(g, (key.n,), "bf16"))
+        args.append(_rnd(g, (key.n,), bias_dtype))
+    wt = wq.t().contiguous()
     kern = build_kernel(key)
-    got = kern(*args)
+    got = kern(*args, wt=wt)
+    again = kern(*args, wt=wt)
+    own_copy = kern(*args)
+    old = build_int8(key, "wmma")(*args)
     want = reference_kernel(key)(*args)
     torch.cuda.synchronize()
-    assert kern.launches == 1
+    assert kern.launches == 3
     assert _err(got, want) <= (1e-5 if key.out_dtype == "f32" else 1e-2)
+    assert torch.equal(got, again)
+    assert torch.equal(got, own_copy)
+    assert torch.equal(got, old)
 
 
 def _serving_model(kv_quant=None, **kw):

@@ -1,7 +1,10 @@
 // One pipelined TMA + wgmma GEMM mainloop for Hopper (sm_90a), shared by
 // the batch-reduce GEMM (csrc/brgemm.cu: B1, B2) and the packed blocked
 // matmul (csrc/blocked_matmul.cu: B19), and the consumer loop of the
-// grouped GEMMs (csrc/grouped_gemm.cu: B16, B17).
+// grouped GEMMs (csrc/grouped_gemm.cu: B16, B17), the implicit-GEMM conv
+// (csrc/conv.cu) and the int8 GEMM (csrc/int8_gemm.cu: B15, s8 products
+// with s32 accumulators on the same ring, walked across a persistent
+// block's tiles).
 //
 // The problem is always the packed one:
 //   out[i, j] = unary( (C[i, j]) + sum_{r < Kb} A[i, r] . B[j, r]  OP  D )
@@ -45,6 +48,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "epilogue.cuh"
 #include "hopper.cuh"
@@ -64,24 +68,41 @@ struct NoPrep {
   __device__ __forceinline__ void operator()(unsigned char*, int) {}
 };
 
-// `slices` stages in order, each four k16 products of warpgroup wg's 64
-// rows into acc, one slice's products kept in flight while the previous
-// slice's stage goes back to the producer. A stage is an A tile of A_BYTES
-// (warpgroup wg's 64 rows at wg * 8 KB) then a B tile of BN columns, 64
-// deep. A_MN 0: A is [M][64 k] K-major; 1: [64 k][64 M] MN-major chunks.
-// B_MN 0: B is [BN][64 k] K-major; 1: [64 k][64 N] MN-major chunks.
-// prep(a, kt) runs on warpgroup wg's A rows of slice kt once they have
-// landed, before its products (the LayerNorm prologue; B16/B17 pass none).
+// A consumer's place in the ring when it walks several tiles' slices (a
+// persistent block): the next stage and its phase.
+struct RingPos {
+  int stage = 0, phase = 0;
+};
+
+// `slices` stages in order, each four products of warpgroup wg's 64 rows
+// into acc, one slice's products kept in flight while the previous slice's
+// stage goes back to the producer. A stage is an A tile of A_BYTES
+// (warpgroup wg's 64 rows at wg * 8 KB) then a B tile of BN columns, 128
+// bytes deep. f32 acc: bf16 k16 products, 64 k a stage; A_MN 0: A is
+// [M][64 k] K-major; 1: [64 k][64 M] MN-major chunks; B_MN 0: B is
+// [BN][64 k] K-major; 1: [64 k][64 N] MN-major chunks. s32 acc: s8 k32
+// products, 128 k a stage, both operands K-major (A_MN = B_MN = 0: wgmma
+// takes 8-bit operands K-major only). prep(a, kt) runs on warpgroup wg's A
+// rows of slice kt once they have landed, before its products (the
+// LayerNorm prologue; the others pass none). With `pos` the walk starts at
+// *pos, the last stage goes back too once its products are done, and *pos
+// is left at the next stage: the producer may already fill it for the next
+// tile while this one's epilogue runs. Without it the walk starts at stage
+// 0 and keeps the last stage (a block of one tile).
 template <int A_MN, int B_MN, int A_BYTES, int BN, int STAGES,
-          class Prep = NoPrep>
-__device__ __forceinline__ void consume_ring(float (&acc)[BN / 2],
+          class Prep = NoPrep, class Acc = float>
+__device__ __forceinline__ void consume_ring(Acc (&acc)[BN / 2],
                                              unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
                                              int slices, int wg,
-                                             Prep prep = Prep()) {
-  static_assert(BN == 64 || BN == 128, "wgmma m64n64 or m64n128");
+                                             Prep prep = Prep(),
+                                             RingPos* pos = nullptr) {
+  constexpr bool S8 = std::is_same<Acc, int>::value;
+  static_assert(S8 ? (BN == 128 || BN == 192) && A_MN == 0 && B_MN == 0
+                   : BN == 64 || BN == 128,
+                "wgmma m64n64/n128 bf16, or m64n128/n192 s8 (K-major)");
   constexpr int STAGE = A_BYTES + BK * BN * 2;
-  int stage = 0, phase = 0, prev = -1;
+  int stage = pos ? pos->stage : 0, phase = pos ? pos->phase : 0, prev = -1;
   for (int kt = 0; kt < slices; ++kt) {
     hw::mbar_wait(&full[stage], phase);
     // warpgroup wg's A rows: 64 rows of 128 bytes (K-major), or chunk wg
@@ -99,7 +120,11 @@ __device__ __forceinline__ void consume_ring(float (&acc)[BN / 2],
       const uint64_t db =
           B_MN ? hw::make_desc<128>(sb + kk * 16 * 128, BK * 128, 1024)
                : hw::make_desc<128>(sb + kk * 32, 16, 1024);
-      if constexpr (BN == 128)
+      if constexpr (S8 && BN == 192)
+        hw::wgmma_m64n192k32_s8(acc, da, db, 1);
+      else if constexpr (S8)
+        hw::wgmma_m64n128k32_s8(acc, da, db, 1);
+      else if constexpr (BN == 128)
         hw::wgmma_m64n128k16_ss<B_MN, A_MN>(acc, da, db, 1);
       else
         hw::wgmma_m64n64k16_ss<B_MN, A_MN>(acc, da, db, 1);
@@ -114,6 +139,11 @@ __device__ __forceinline__ void consume_ring(float (&acc)[BN / 2],
   }
   hw::wgmma_wait<0>();
   hw::fence_regs(acc);
+  if (pos != nullptr) {
+    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
+    pos->stage = stage;
+    pos->phase = phase;
+  }
 }
 
 // ---- the packed GEMM ---------------------------------------------------

@@ -5,7 +5,8 @@
 // a peer block's shared memory), wgmma's shared-memory matrix descriptors,
 // its fence/commit/wait sequence and the bf16 m64nNk16 products (both
 // operands from shared memory, or A from registers), with f32 accumulators
-// in registers.
+// in registers, and the s8 m64nNk32 products (both operands K-major from
+// shared memory) with s32 accumulators.
 //
 // Tiles: a bf16 tile is kept as "chunks" of SW bytes a row (SW = 128, or 64
 // for a 32-column tile), each chunk a [rows][SW] block whose 16-byte units
@@ -15,7 +16,9 @@
 // Descriptors (make_desc):
 //   K-major operand (A = rows x K, or B = N x K with K contiguous): SBO =
 //     8 rows x SW (the stride between 8-row core-matrix groups), LBO unused
-//     (16); the k16 step s of a chunk starts 32 s bytes into the row.
+//     (16); the k16 step s of a chunk starts 32 s bytes into the row (for
+//     s8 operands the k32 step: a 128-byte row holds 128 k values, four
+//     k32 products). 8-bit operands have no MN-major form.
 //   MN-major B (K x N with N contiguous, V of P.V, a (k, n) weight): SBO =
 //     8 K-rows x SW, LBO = the stride between SW/2-column chunks along N;
 //     the k16 step s starts 16 s rows in; trans-b = 1 (16-bit types only).
@@ -66,12 +69,14 @@ inline EncodeTiled encode_tiled() {
 
 // A tensor map over `base` of `rank` dims (innermost first), the byte
 // strides of dims 1.. in `strides`, boxes of `box` elements, swizzled by
-// `swizzle` bytes (64 or 128, or 0: not swizzled); bf16 elements, or f32
-// with `f32`; out-of-bounds elements read as zero. Returns a cudaError_t:
-// TMA needs a 16-byte aligned base and strides.
-inline int make_map(CUtensorMap* map, const void* base, int rank,
-                    const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box, int swizzle, bool f32 = false) {
+// `swizzle` bytes (64 or 128, or 0: not swizzled), elements of `type` (int8
+// as CU_TENSOR_MAP_DATA_TYPE_UINT8: TMA moves bytes); out-of-bounds
+// elements read as zero. Returns a cudaError_t: TMA needs a 16-byte aligned
+// base and strides.
+inline int make_map_typed(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          int swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (reinterpret_cast<uintptr_t>(base) % 16)
@@ -87,15 +92,23 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   const CUresult rc = fn(
-      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      rank, const_cast<void*>(base), d, s, b, e,
+      map, type, rank, const_cast<void*>(base), d, s, b, e,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                       : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// make_map_typed over bf16 elements, or f32 with `f32`
+inline int make_map(CUtensorMap* map, const void* base, int rank,
+                    const uint64_t* dims, const uint64_t* strides,
+                    const uint32_t* box, int swizzle, bool f32 = false) {
+  return make_map_typed(map,
+                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        base, rank, dims, strides, box, swizzle);
 }
 
 // ---- device: shared memory, barriers, TMA ------------------------------
@@ -238,6 +251,13 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+// an arrival at named barrier `id` of `count` threads without waiting (the
+// producer side of a hand-off: the arriving threads' earlier writes are
+// released to the threads that bar_sync on it)
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- device: thread block clusters -------------------------------------
 
 // this block's rank in its cluster
@@ -365,6 +385,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -508,6 +534,83 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// m64n128k32, s8 x s8 -> s32, A and B K-major from shared memory: 64 s32
+// accumulators a thread
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64n192k32, s8 x s8 -> s32, A and B K-major from shared memory: 96 s32
+// accumulators a thread
+__device__ __forceinline__ void wgmma_m64n192k32_s8(int (&d)[96], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // m64n32k16, A from registers (four bf16x2 a thread), B from shared

@@ -7,7 +7,8 @@ from .engine import (DecodeRunner, GptConfig, composed_causal_attention,
                      make_generate, make_prefill, make_sampler,
                      params_from_numpy, params_from_torch, stack_params)
 from .quant import (QTensor, dequantize, dequantize_params, quantize,
-                    quantize_params, quantize_tokens, quantized_bytes)
+                    quantize_params, quantize_tokens, quantized_bytes,
+                    with_kmajor)
 
 __all__ = [
     "DecodeRunner", "GptConfig", "QTensor",
@@ -15,5 +16,5 @@ __all__ = [
     "init_params", "make_decode_step", "make_extend",
     "make_generate", "make_prefill", "make_sampler", "params_from_numpy",
     "params_from_torch", "quantize", "quantize_params", "quantize_tokens",
-    "quantized_bytes", "stack_params",
+    "quantized_bytes", "stack_params", "with_kmajor",
 ]

@@ -56,7 +56,7 @@ from ..xsmm import (DecodeAttnKey, FlashMhaKey, FlashTrainKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     global_cache, reference_kernel)
 from ..xsmm.reference import DTYPES
-from .quant import QTensor, quantize_tokens
+from .quant import QTensor, quantize_tokens, with_kmajor
 
 
 # GptConfig fields read only by code not ported yet: any value but the
@@ -276,8 +276,10 @@ def stack_params(params: dict) -> dict:
     first = next(iter(blocks.values()))
     L = (first.q if isinstance(first, QTensor) else first).shape[0]
     out = dict(params)
-    out["blocks"] = [{k: QTensor(v.q[i], v.scale[i]) if isinstance(v, QTensor)
-                      else v[i] for k, v in blocks.items()}
+    out["blocks"] = [{k: QTensor(v.q[i], v.scale[i],
+                                 None if v.qt is None else v.qt[i])
+                      if isinstance(v, QTensor) else v[i]
+                      for k, v in blocks.items()}
                      for i in range(L)]
     return out
 
@@ -308,7 +310,9 @@ def params_from_numpy(tree: dict, cfg: GptConfig, device="cuda") -> dict:
     """The port's params from a JAX params tree passed as numpy arrays (per
     layer or stacked), QTensors as (q, scale) pairs: the weight carrier that
     lets both engines run the same weights. Leaves take the config's dtype;
-    QTensor payloads stay int8 and their scales f32."""
+    QTensor payloads stay int8 and their scales f32. Under int8 compute the
+    QTensors the int8 GEMM contracts against also get their K-major copies
+    (quant.with_kmajor)."""
     device = resolve_device(device)
     dt = DTYPES[cfg.dtype]
 
@@ -326,7 +330,7 @@ def params_from_numpy(tree: dict, cfg: GptConfig, device="cuda") -> dict:
                    for k, v in blocks.items()} for i in range(L)]
     out = {k: leaf(v) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [{k: leaf(v) for k, v in blk.items()} for blk in blocks]
-    return out
+    return with_kmajor(out) if cfg.int8_compute else out
 
 
 def _use_kernels(params: dict, use_kernels: bool | None) -> bool:
@@ -409,15 +413,18 @@ def _f32bmm(a, b):
 def _mm_int8(x, w: QTensor, b=None, unary=None, kernels=False):
     """The int8 compute route: activation rows quantized per row, then the
     s8 x s8 -> s32 GEMM with the dequantization, bias and unary on the f32
-    accumulator (Int8GemmKey, csrc/int8_gemm.cu). Any row count: the TPU's
-    padding of rows to 32 was a tile quantum."""
+    accumulator (Int8GemmKey, csrc/int8_gemm.cu), reading the weight's
+    K-major copy where the params carry one (quant.with_kmajor) and the
+    bias in its stored dtype. Any row count: the TPU's padding of rows to
+    32 was a tile quantum."""
     K, N = x.shape[-1], w.q.shape[-1]
     x2 = x.reshape(-1, K)
     xq, xs = quantize_tokens(x2)                 # (M, K) s8, (M,) f32
     key = Int8GemmKey(m=x2.shape[0], n=N, k=K, out_dtype="f32",
                       has_bias=b is not None, unary_kind=unary)
     args = (xq, w.q, xs, w.scale) + ((b,) if b is not None else ())
-    return _kernel(key, kernels)(*args).reshape(*x.shape[:-1], N)
+    kw = {} if w.qt is None else {"wt": w.qt}
+    return _kernel(key, kernels)(*args, **kw).reshape(*x.shape[:-1], N)
 
 
 def _int8_rows(x, w, int8: bool) -> bool:

@@ -29,10 +29,15 @@ class QTensor(NamedTuple):
     """Symmetric per-output-channel int8 weight: ``q * scale`` recovers the
     weight. ``q`` is int8 with the weight's shape; ``scale`` is f32 with the
     contraction (second-to-last) dim collapsed to 1, (in, out) -> (1, out),
-    so it broadcasts against the matmul result."""
+    so it broadcasts against the matmul result. ``qt``, where present, is
+    ``q``'s K-major (out, in) copy, made once where int8-compute weights
+    are placed (`with_kmajor`): the int8 compute GEMM's wgmma body takes
+    8-bit operands K-major only, and reads it in place of a transpose per
+    call. The decode step's weight-only route reads ``q``."""
 
     q: torch.Tensor
     scale: torch.Tensor
+    qt: torch.Tensor | None = None
 
 
 def quantize(w: torch.Tensor, axis: int = -2, bits: int = 8) -> QTensor:
@@ -86,6 +91,25 @@ def quantize_params(params: dict, include_embed: bool = False,
     return out
 
 
+def _kmajor(w):
+    if isinstance(w, QTensor) and w.q.dim() == 2 and w.qt is None:
+        return w._replace(qt=w.q.t().contiguous())
+    return w
+
+
+def with_kmajor(params: dict) -> dict:
+    """The params with each (in, out) QTensor that int8 compute contracts
+    against (block matmul weights, the LM head) given its K-major copy
+    ``qt``, made once here: for GPT-2 small 85 MB of block weights and
+    38.6 MB of LM head beside the int8 payloads. Leaves that have one, and
+    every other leaf, are kept as they are."""
+    out = dict(params)
+    out["lm_head"] = _kmajor(params["lm_head"])
+    out["blocks"] = [{k: _kmajor(v) if k in _BLOCK_MATMUL_KEYS else v
+                      for k, v in blk.items()} for blk in params["blocks"]]
+    return out
+
+
 def dequantize_params(params: dict) -> dict:
     """Undo quantize_params: f32 weights where QTensors were."""
     out = {k: dequantize(v) for k, v in params.items() if k != "blocks"}
@@ -106,12 +130,15 @@ def quantize_tokens(x: torch.Tensor, axis: int = -1):
 
 
 def quantized_bytes(params: dict) -> int:
-    """Total parameter bytes as stored: the decode bandwidth denominator."""
+    """Total parameter bytes as stored, the K-major copies (QTensor.qt)
+    left out: the decode bandwidth denominator (the decode step reads
+    ``q``)."""
     leaves = [v for k, v in params.items() if k != "blocks"]
     for blk in params["blocks"]:
         leaves += list(blk.values())
     total = 0
     for leaf in leaves:
-        for t in (leaf if isinstance(leaf, QTensor) else (leaf,)):
+        for t in ((leaf.q, leaf.scale) if isinstance(leaf, QTensor)
+                  else (leaf,)):
             total += t.numel() * t.element_size()
     return total

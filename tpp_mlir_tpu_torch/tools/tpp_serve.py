@@ -133,7 +133,7 @@ def setup(spec: dict, device="cuda"):
     import torch
 
     from tpp_mlir_tpu_torch.serving import (GptConfig, init_params,
-                                            quantize_params)
+                                            quantize_params, with_kmajor)
 
     spec = dict(spec)
     batch, prompt = spec.pop("batch", 8), spec.pop("prompt", 512)
@@ -142,6 +142,8 @@ def setup(spec: dict, device="cuda"):
     params = init_params(cfg, seed=seed, device=device)
     if quant:
         params = quantize_params(params)
+    if cfg.int8_compute:
+        params = with_kmajor(params)
     ids = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (batch, prompt)).astype(np.int32)).to(device)
     return cfg, params, ids

@@ -10,7 +10,7 @@ Nothing is downloaded: the sources in the package are the only input.
 `csrc/hopper.cuh` (TMA, bulk copies, mbarriers, wgmma) is shared by the
 kernels that use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh`
 (the pipelined TMA + wgmma GEMM mainloop) by brgemm.cu, blocked_matmul.cu,
-conv.cu and grouped_gemm.cu, and `csrc/warm_panel.cuh` (the cluster-split
+conv.cu, grouped_gemm.cu and int8_gemm.cu, and `csrc/warm_panel.cuh` (the cluster-split
 row-panel engine) by chain.cu and blocked_matmul.cu; the tensor-map
 encoder, a driver API, is taken through the runtime's
 cudaGetDriverEntryPoint, so the link needs no -lcuda.
@@ -46,13 +46,16 @@ _SIGNATURES = {
     "tpp_gemm_plan": (_I, [_I] * 7 + [ctypes.POINTER(_L)]),
     "tpp_attention": (_I, [_P] * 4 + [_I] * 11 + [_F, _P]),
     "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 11 + [_P]),
-    "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 4 + [_F, _P]),
+    "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 6 + [_F, _P]),
+    "tpp_empty_kernel": (_I, [_P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
                        ctypes.POINTER(_I)] + [_I] * 11
                   + [ctypes.POINTER(_I), _P]),
     "tpp_warm_max_clusters": (_I, [_I] * 3 + [ctypes.POINTER(_I)]),
     "tpp_decode_attn": (_I, [_P] * 9 + [_I] * 12 + [_F, _P]),
     "tpp_int8_gemm": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "tpp_int8_gemm_wgmma": (_I, [_P] * 7 + [_I] * 8
+                            + [ctypes.POINTER(_I), _P]),
     "tpp_flash_train_fwd": (_I, [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "tpp_flash_train_bwd": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P]),
     "tpp_grouped_gemm": (_I, [_P] * 5 + [_I] * 12 + [_P]),

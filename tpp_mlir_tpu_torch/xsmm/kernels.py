@@ -36,11 +36,15 @@ reached. Each wrapper counts its launches.
                   no kernel          (strategy xla: the composed PyTorch
                                      attention, as the reference composes
                                      it in XLA)
-  LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm)
+  LayerNormKey -> csrc/layer_norm.cu (replaces :3257 _build_layer_norm;
+                                     body by reference.layer_norm_route)
   DecodeAttnKey -> csrc/decode_attn.cu (replaces tpp_mlir_tpu/xsmm/
                                      decode_attn.py:101 build_decode_attn;
                                      split by reference.decode_attn_plan)
-  Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm)
+  Int8GemmKey  -> csrc/int8_gemm.cu  (replaces :1365 _build_int8_gemm;
+                                     body by reference.int8_gemm_route,
+                                     tile, split and grid by
+                                     reference.int8_gemm_plan)
   FlashTrainKey -> by reference.flash_train_fwd_route (replaces
                                      tpp_mlir_tpu/xsmm/flash_train.py:146
                                      build_flash_train_fwd, B14):
@@ -515,29 +519,60 @@ def _batch_matmul_launch(key: BatchMatmulKey):
     return launch
 
 
-def _layer_norm_launch(key: LayerNormKey):
+LN_ROUTES = ("register", "strided")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its base is not 16-byte aligned (a view
+    into another tensor); every torch allocation is aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _layer_norm_launch(key: LayerNormKey, route: str | None = None):
+    """B12 on the body reference.layer_norm_route names, or `route` forced
+    ("strided", the first design, takes any key). gamma and beta are read
+    in their stored dtype (f32 or bf16)."""
     from .build import check, library
 
     m, n = key.m, key.n
     in_dt = reference.DTYPES[key.dtype]
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
+    own = reference.layer_norm_route(key)
+    route = route or own
+    if route not in LN_ROUTES or (route == "register" and own != route):
+        raise ValueError(f"layer_norm.cu cannot run {key} on route "
+                         f"{route!r} (its own: {own!r})")
+    reg = route == "register"
 
     def launch(x, gamma=None, beta=None):
         dev = x.device
         _expect(x, "x", (m, n), in_dt, dev)
+        g_code = 0
         if key.affine:
-            gamma = gamma.reshape(-1).float().contiguous()
-            beta = beta.reshape(-1).float().contiguous()
-            _expect(gamma, "gamma", (n,), None, dev)
-            _expect(beta, "beta", (n,), None, dev)
+            gamma = _native(gamma.reshape(-1), "gamma", n, dev)
+            beta = _native(beta.reshape(-1), "beta", n, dev).to(gamma.dtype)
+            if reg:
+                x, gamma, beta = _aligned(x), _aligned(gamma), _aligned(beta)
+            g_code = _DT_CODE[gamma.dtype]
+        elif reg:
+            x = _aligned(x)
         out = torch.empty((m, n), dtype=out_dt, device=dev)
         rc = library().tpp_layer_norm(
             x.data_ptr(), gamma.data_ptr() if key.affine else None,
             beta.data_ptr() if key.affine else None, out.data_ptr(), m, n,
-            _DT_CODE[in_dt], _DT_CODE[out_dt], key.eps, _stream())
-        check(rc, f"layer_norm {key}")
+            _DT_CODE[in_dt], _DT_CODE[out_dt], g_code, int(reg), key.eps,
+            _stream())
+        check(rc, f"layer_norm {key} route {route}")
         return out
     return launch
+
+
+def empty_kernel() -> None:
+    """One launch of an empty kernel on the current stream (csrc/
+    layer_norm.cu's tpp_empty_kernel): the card's floor for a launch,
+    timed from a CUDA graph beside B12."""
+    from .build import check, library
+    check(library().tpp_empty_kernel(_stream()), "empty kernel")
 
 
 DECODE_ATTN_HEAD_DIMS = (32, 64, 128)   # decode_attn.cu's instantiations
@@ -614,13 +649,29 @@ def _decode_attn_launch(key: DecodeAttnKey):
     return launch
 
 
-def _int8_gemm_launch(key: Int8GemmKey):
+INT8_ROUTES = ("wgmma", "wmma")
+
+
+def _int8_gemm_launch(key: Int8GemmKey, route: str | None = None):
+    """B15 on the body reference.int8_gemm_route names, or `route` forced
+    ("wmma", the first design). launch(xq, wq, xscale, wscale, bias=None,
+    wt=None): Xq (m, k) and Wq (k, n) int8; wt is Wq's K-major (n, k) copy
+    (QTensor.qt, made once where the engine places int8-compute weights),
+    which the wgmma body reads; without it the wrapper makes one, a
+    transposing copy each call. The scales and the bias are read in their
+    stored dtype (f32 or bf16) on the wgmma body; the first design takes
+    f32 copies."""
     from .build import check, library
 
     m, n, k = key.m, key.n, key.k
     out_dt = reference.DTYPES[key.out_dtype]
+    if route is None and k % 16 == 0:   # else no body: the launch raises
+        route = reference.int8_gemm_route(key)
+    if route is not None and route not in INT8_ROUTES:
+        raise ValueError(f"unknown int8 GEMM route {route!r}")
+    plan = reference.int8_gemm_plan(key) if route == "wgmma" else None
 
-    def launch(xq, wq, xscale, wscale, bias=None):
+    def launch(xq, wq, xscale, wscale, bias=None, wt=None):
         if k % 16:
             raise ValueError(f"int8_gemm.cu needs k a multiple of 16: {key}")
         dev = xq.device
@@ -628,20 +679,44 @@ def _int8_gemm_launch(key: Int8GemmKey):
         _expect(wq, "Wq", (k, n), torch.int8, dev)
         if xq.data_ptr() % 16 or wq.data_ptr() % 16:
             raise ValueError("Xq and Wq must be 16-byte aligned")
-        xscale = xscale.reshape(-1).float().contiguous()
-        wscale = wscale.reshape(-1).float().contiguous()
-        _expect(xscale, "xscale", (m,), None, dev)
-        _expect(wscale, "wscale", (n,), None, dev)
-        if key.has_bias:
-            bias = bias.reshape(-1).float().contiguous()
-            _expect(bias, "bias", (n,), None, dev)
         out = torch.empty((m, n), dtype=out_dt, device=dev)
-        rc = library().tpp_int8_gemm(
-            xq.data_ptr(), wq.data_ptr(), xscale.data_ptr(),
+        if route == "wmma":
+            xscale = xscale.reshape(-1).float().contiguous()
+            wscale = wscale.reshape(-1).float().contiguous()
+            _expect(xscale, "xscale", (m,), None, dev)
+            _expect(wscale, "wscale", (n,), None, dev)
+            if key.has_bias:
+                bias = bias.reshape(-1).float().contiguous()
+                _expect(bias, "bias", (n,), None, dev)
+            rc = library().tpp_int8_gemm(
+                xq.data_ptr(), wq.data_ptr(), xscale.data_ptr(),
+                wscale.data_ptr(), bias.data_ptr() if key.has_bias else None,
+                out.data_ptr(), m, n, k, _UNARY_CODE[key.unary_kind],
+                _DT_CODE[out_dt], _stream())
+            check(rc, f"int8_gemm {key} route wmma")
+            return out
+        if wt is None:
+            wt = wq.t().contiguous()
+        _expect(wt, "Wt", (n, k), torch.int8, dev)
+        if wt.data_ptr() % 16:
+            raise ValueError("Wt must be 16-byte aligned")
+        xscale = _native(xscale.reshape(-1), "xscale", m, dev)
+        wscale = _native(wscale.reshape(-1), "wscale", n, dev)
+        if key.has_bias:
+            bias = _native(bias.reshape(-1), "bias", n, dev)
+        work = torch.empty(plan.split * m * n, dtype=torch.int32,
+                           device=dev) if plan.split > 1 else None
+        plan_arg = (ctypes.c_int * 6)(plan.bm, plan.bn, plan.split,
+                                      plan.tiles, plan.grid, plan.smem)
+        rc = library().tpp_int8_gemm_wgmma(
+            xq.data_ptr(), wt.data_ptr(), xscale.data_ptr(),
             wscale.data_ptr(), bias.data_ptr() if key.has_bias else None,
-            out.data_ptr(), m, n, k, _UNARY_CODE[key.unary_kind],
-            _DT_CODE[out_dt], _stream())
-        check(rc, f"int8_gemm {key}")
+            out.data_ptr(), work.data_ptr() if work is not None else None,
+            m, n, k, _UNARY_CODE[key.unary_kind], _DT_CODE[out_dt],
+            _DT_CODE[xscale.dtype], _DT_CODE[wscale.dtype],
+            _DT_CODE[bias.dtype] if key.has_bias else 0, plan_arg,
+            _stream())
+        check(rc, f"int8_gemm {key} route wgmma")
         return out
     return launch
 
@@ -1021,6 +1096,22 @@ def build_warm(key: ChainKey | BlockedMatmulKey, route: str,
     if not key.repeats:
         raise ValueError(f"B19 has no warm body: {key}")
     return Kernel(key, _blocked_matmul_launch(key, route, plan))
+
+
+def build_int8(key: Int8GemmKey, route: str) -> Kernel:
+    """B15 with its body forced to `route` ("wgmma", or "wmma": the first
+    design), for timing the two side by side and holding them bit-equal;
+    build_kernel takes reference.int8_gemm_route's choice."""
+    reference.check_slice(key)
+    return Kernel(key, _int8_gemm_launch(key, route))
+
+
+def build_layer_norm(key: LayerNormKey, route: str) -> Kernel:
+    """B12 with its body forced to `route` ("register" where
+    reference.layer_norm_route allows it, or "strided": the first design),
+    for timing the two side by side."""
+    reference.check_slice(key)
+    return Kernel(key, _layer_norm_launch(key, route))
 
 
 def build_grouped_gemm(key: GroupedGemmKey | GroupedWgradKey,

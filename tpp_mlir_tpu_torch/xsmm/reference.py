@@ -1090,6 +1090,28 @@ def unary_reference(key: UnaryKey):
     return lambda x: x.permute(*perm).contiguous().to(out_dt)
 
 
+LN_MAX_VPL = 8   # csrc/layer_norm.cu's register template: vectors a lane
+
+
+def layer_norm_route(key: LayerNormKey) -> str:
+    """Which body of csrc/layer_norm.cu runs B12 at `key`, from the key
+    alone:
+      "register"  rows of whole 16-byte vectors of the input dtype (n a
+                  multiple of 4 in f32, of 8 in bf16) and at most
+                  LN_MAX_VPL of them a lane of the row's warp (n up to 1,024
+                  f32 or 2,048 bf16): the row is loaded once into
+                  registers, one-pass;
+      "strided"   any other n: the first design, each lane walking the row
+                  with stride 32 and reading it three times.
+    The wrapper also needs the operands 16-byte aligned on the "register"
+    route (every torch allocation is) and copies one that is not."""
+    es = 4 if key.dtype == "f32" else 2
+    vectors = key.n * es // 16
+    if key.n * es % 16 == 0 and -(-vectors // 32) <= LN_MAX_VPL:
+        return "register"
+    return "strided"
+
+
 def layer_norm_reference(key: LayerNormKey):
     """Row LayerNorm of (m, n): two-pass f32 statistics, biased variance,
     optional affine, one rounding (tpp_mlir_tpu/xsmm/kernels.py:3281)."""
@@ -1215,12 +1237,13 @@ def int8_gemm_reference(key: Int8GemmKey):
     """(xq @ wq) exactly, then * xscale[m] * wscale[n] (+ bias) in f32, the
     unary, one rounding (tpp_mlir_tpu/xsmm/kernels.py:1422-1430). The s32
     sum is taken in f64, where every such sum is exact, and its rounding to
-    f32 is the kernel's int32 -> f32 conversion."""
+    f32 is the kernel's int32 -> f32 conversion. `wt`, the weight's K-major
+    (n, k) copy the kernel reads, is accepted and not needed here."""
     check_slice(key)
     m, n = key.m, key.n
     out_dt = DTYPES[key.out_dtype]
 
-    def fn(xq, wq, xscale, wscale, bias=None):
+    def fn(xq, wq, xscale, wscale, bias=None, wt=None):
         acc = (xq.double() @ wq.double()).float()
         y = acc * xscale.reshape(m, 1).float() * wscale.reshape(1, n).float()
         if key.has_bias:
@@ -1229,6 +1252,72 @@ def int8_gemm_reference(key: Int8GemmKey):
             y = UNARY_FNS[key.unary_kind](y)
         return y.to(out_dt)
     return fn
+
+
+INT8_BK = 128      # k a stage of csrc/int8_gemm.cu's ring (128 bytes)
+
+
+def int8_gemm_route(key: Int8GemmKey) -> str:
+    """Which body of csrc/int8_gemm.cu runs B15 at `key`: "wgmma" (the TMA +
+    wgmma s8 mainloop on int8_gemm_plan's persistent tiles) for every key
+    with k a multiple of 16, the rule of the first design too (TMA's row
+    stride, WMMA's fragment), so no key falls back; "wmma", the first
+    design, runs only where forced (kernels.build_int8). A k that is not a
+    multiple of 16 has no body (ValueError). A ragged m, n or k is masked
+    by TMA's out-of-bounds fill on the way in and by the stores."""
+    if key.k % 16:
+        raise ValueError(f"int8_gemm.cu needs k a multiple of 16: {key}")
+    return "wgmma"
+
+
+class Int8Plan(NamedTuple):
+    """csrc/int8_gemm.cu's plan (i8_plan there, which refuses another):
+    the output tile (bm rows: one or two consumer warpgroups of 64, beside
+    an epilogue warpgroup and a producer warp; bn columns: the wgmma N),
+    the ring's stages, the k split, the tiles (m
+    tiles x n tiles x split), the grid and whether it is persistent (more
+    tiles than SMs: each block walks tiles grid apart), and the dynamic
+    shared memory a block asks for."""
+
+    bm: int
+    bn: int
+    stages: int
+    split: int
+    tiles: int
+    grid: int
+    persistent: bool
+    smem: int
+
+
+def int8_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Shared memory of csrc/int8_gemm.cu's I8Tile: the ring (X rows and Wt
+    rows of 128 bytes a stage), the s32 staging tile (bn + 4 words a row),
+    the epilogue's f32 row scales, the full/empty barriers and 1024 bytes
+    of alignment."""
+    return stages * (bm + bn) * 128 + bm * (bn + 4) * 4 + bm * 4 + \
+        2 * stages * 8 + 1024
+
+
+def int8_gemm_plan(key: Int8GemmKey) -> Int8Plan:
+    """B15's plan at `key` on the H100's 132 SMs: 128 rows (two consumer
+    warpgroups) above m 64, else 64; 192 columns above n 128, else 128 (the
+    widest wgmma N whose s32 staging tile fits beside a ring of 3 stages:
+    4096 x 768 is 128 tiles, one wave); the ring 3 stages at 128 x 192,
+    else 4. Under half a wave of tiles, k is split into as many slices as
+    fill the card, each at least four 128-deep stages (the s32 partials sum
+    exactly in any order). A grid of min(tiles, 132) blocks; with more
+    tiles than that the blocks are persistent (the LM head's 8,384)."""
+    int8_gemm_route(key)
+    bm = 128 if key.m > 64 else 64
+    bn = 192 if key.n > 128 else 128
+    stages = 3 if (bm, bn) == (128, 192) else 4
+    mn = -(-key.m // bm) * -(-key.n // bn)
+    kt = -(-key.k // INT8_BK)
+    split = max(1, min(H100_SMS // mn, kt // 4)) if 2 * mn <= H100_SMS \
+        else 1
+    tiles = mn * split
+    return Int8Plan(bm, bn, stages, split, tiles, min(tiles, H100_SMS),
+                    tiles > H100_SMS, int8_smem_bytes(bm, bn, stages))
 
 
 def grouped_gemm_reference(key: GroupedGemmKey):
