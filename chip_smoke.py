@@ -10,8 +10,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
   3. hold each Hopper kernel against its plain PyTorch version on the card,
      at the main paths' shapes, with the tolerance stated per case (for
      serving: the prefill attention at B 8, S 512, H 12, D 64 with split
-     q/k/v; decode attention at B 8, H 12, S 1024, D 64, L 12 and its
-     slotted, GQA, int8-KV, pack2 and f32 variants, each line naming
+     q/k/v, and at B 1, S 16 and 32; decode attention at B 8, H 12, S 1024,
+     D 64, L 12 and its slotted, GQA, int8-KV, pack2 and f32 variants, and
+     at B 1 over a 2-layer cache, each line naming
      reference.decode_attn_plan's chunk and split count, each launched
      twice bit-equal; the int8 GEMM (B15) at the four prefill shapes and
      a ragged m, each line naming reference.int8_gemm_route's body and
@@ -61,6 +62,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
         (the witness of B7's share of the prefill error), and the tokens of
         the CUDA-graph-replayed generate equal to the eager ones; then
         gpt2_small_serve_b8's prefill with flash_attn (B14, 12 launches);
+        then its serving modes (ROADMAP A8, phase_serving_modes): 24
+        requests (prompts of 1-512 tokens from default_rng(0), max_new 64)
+        through 8 slots by the host scheduler (sync 8) and the device
+        scheduler (sync 64, waves of 16), beam search (b2, prompt 512, 4
+        beams, 32 steps) and speculative decoding (b1, prompt 512, k 4, 64
+        steps, a 2-layer trunk draft): each mode's eager run with exact B7
+        and B13 launch counts, its CUDA-graph run's tokens equal to it,
+        every token the kernels-off engine's teacher-forced argmax or
+        within 3e-2 of its max|logit|, beam W=1 equal to make_generate and
+        the best beam's score its teacher-forced log-probability; timed
+        second passes (tokens/s of each scheduler beside static batching on
+        the same trace, beam ms/step, speculative tokens/s and acceptance
+        beside plain greedy);
      d. the training path (scripts/bench_train.py's rows): the MLP SGD step
         (tpp_mlir_tpu_torch.parallel.make_train_step, 1024x4 at b256 bf16,
         b256 f32 "highest", b2048 bf16), 3 steps with B1 against 3 with the
@@ -530,7 +544,8 @@ def _attention_cases():
     prefill (B 8, S 512, H 12, D 64, causal, bf16) with split q/k/v, as
     the engine passes them (the LLaMA GQA configuration's key too, once its
     KV heads are repeated); the encoder (B 8, S 256, H 8, D 128,
-    non-causal, f32 "default", packed), and its shape at "highest"."""
+    non-causal, f32 "default", packed), and its shape at "highest"; the
+    serving modes' batch-1 prefills at the 16- and 32-token buckets."""
     from tpp_mlir_tpu_torch.xsmm import FlashMhaKey
     return [
         ("attn gpt2 b2 s1024 h12 d64 causal bf16", FlashMhaKey(
@@ -544,6 +559,12 @@ def _attention_cases():
         ("attn enc b8 s256 h8 d128 highest", FlashMhaKey(
             8, 256, 256, 128, "f32", scale=128 ** -0.5, heads=8,
             qkv_packed=True, precision="highest")),
+        # the serving modes' bucketed batch-1 prefills below the kernel's
+        # 64-row tiles (continuous batching's 16- and 32-token buckets)
+        ("attn serve b1 s16 h12 d64 causal split", FlashMhaKey(
+            1, 16, 16, 64, "bf16", scale=0.125, causal=True, heads=12)),
+        ("attn serve b1 s32 h12 d64 causal split", FlashMhaKey(
+            1, 32, 32, 64, "bf16", scale=0.125, causal=True, heads=12)),
     ]
 
 
@@ -579,24 +600,28 @@ def _layer_norm_inputs(key, g):
 def _decode_attn_cases():
     """Decode attention at the serving geometry (B 8, 12 heads, S 1024,
     D 64, the stacked 12-layer cache read at layer 5, pos 639 = prompt 512
-    + 127 steps) and its variants."""
+    + 127 steps; beam search's b2 x 4 beams takes the same key) and its
+    variants; batch 1 (the speculative draft's, the 2-layer trunk)."""
     from tpp_mlir_tpu_torch.xsmm import DecodeAttnKey
     geo = dict(batch=8, seq=1024, head_dim=64, stacked=12)
     return [
-        ("mha b8 h12 s1024 d64 bf16", DecodeAttnKey(heads=12, **geo)),
+        ("mha b8 h12 s1024 d64 bf16 (beam b2x4)",
+         DecodeAttnKey(heads=12, **geo)),
         ("slotted, one sentinel", DecodeAttnKey(heads=12, slotted=True,
                                                 **geo)),
         ("gqa kv4 g3", DecodeAttnKey(heads=4, groups=3, **geo)),
         ("int8 kv", DecodeAttnKey(heads=12, kv_quant=True, **geo)),
         ("pack2", DecodeAttnKey(heads=12, pack2=True, **geo)),
         ("mha f32", DecodeAttnKey(heads=12, dtype="f32", **geo)),
+        ("b1 trunk draft, 2 layers", DecodeAttnKey(
+            heads=12, batch=1, seq=1024, head_dim=64, stacked=2)),
     ]
 
 
 def _decode_attn_inputs(key, g):
     """q, the stacked K/V cache (normal values, or int8 payloads with
-    scales as quantize_tokens makes them), pos, the layer index 5, and the
-    int8 cache's scales."""
+    scales as quantize_tokens makes them), pos, the layer index (5, or the
+    last of fewer layers), and the int8 cache's scales."""
     import torch
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
     B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
@@ -617,7 +642,7 @@ def _decode_attn_inputs(key, g):
     # slotted: rows at their own positions, one free slot (pos == S)
     pos = [639, S, 0, 511, S - 1, 100, 639, 300] if key.slotted else [639]
     pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    return q, k, v, pos, 5, k_s, v_s
+    return q, k, v, pos, min(5, key.stacked - 1), k_s, v_s
 
 
 def _int8_cases():
@@ -1458,6 +1483,360 @@ def phase_serving_flash(setup) -> dict:
                              f"rel {rel}, finite {finite}")
     return launches
 
+
+# the serving modes (ROADMAP A8) at GPT-2 small's full width, the serving
+# path's gpt2_small_serve_b8 model (bf16, vocab 50304, 12 layers, max_seq
+# 1024, random weights from seed 0): continuous batching of 24 requests
+# (prompts of 1-512 tokens from default_rng(0), as tpp_serve --continuous
+# draws them; max_new 64) through 8 slots, the host scheduler syncing every
+# 8 steps and the device scheduler every 64 with waves of 16; beam search at
+# b2, prompt 512, 4 beams, 32 steps; speculative decoding at b1, prompt 512,
+# k 4, 64 steps, a 2-layer trunk draft
+MODES_REQUESTS, MODES_PROMPT, MODES_MAX_NEW, MODES_SLOTS = 24, 512, 64, 8
+HOST_SYNC, DEVICE_SYNC, DEVICE_WAVE = 8, 64, 16
+BEAM_BATCH, BEAM_WIDTH, BEAM_STEPS = 2, 4, 32
+SPEC_K, SPEC_STEPS, SPEC_TRUNK = 4, 64, 2
+
+
+def _counted(obj, name: str, calls: list) -> None:
+    """Wrap obj.<name> so that each call appends one to `calls`."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+    setattr(obj, name, wrapped)
+
+
+class _Oracle:
+    """Teacher-forced prefills of the kernels-off engine over a prompt and
+    the tokens emitted after it: each emitted token must be the oracle's
+    argmax or within TOL_MODEL * max|logit| of it. Keeps the exact-argmax
+    count; one prefill per distinct stream."""
+
+    def __init__(self, cfg, params):
+        from tpp_mlir_tpu_torch.serving import make_prefill
+        self.prefill = make_prefill(_kernels_off(cfg), use_kernels=False)
+        self.params, self.seen = params, {}
+        self.exact = self.total = 0
+
+    def logits(self, prompt, toks):
+        """The oracle's f32 logits (len(toks), V) for each emitted token."""
+        import torch
+        key = (tuple(prompt), tuple(toks[:-1]))
+        if key not in self.seen:
+            ids = torch.tensor([list(prompt) + list(toks[:-1])],
+                               dtype=torch.int32, device="cuda")
+            self.seen[key] = self.prefill(self.params, ids)[0][
+                0, len(prompt) - 1:].float()
+        return self.seen[key]
+
+    def check(self, prompt, toks) -> bool:
+        import torch
+        rows = self.logits(prompt, toks)
+        t = torch.tensor(toks, device=rows.device).long()[:, None]
+        top = rows.max(-1).values
+        ok = bool((rows.gather(1, t)[:, 0] >= top - TOL_MODEL *
+                   rows.abs().max(-1).values).all())
+        self.exact += int((rows.argmax(-1) == t[:, 0]).sum())
+        self.total += len(toks)
+        return ok
+
+    def logp(self, prompt, toks) -> float:
+        """Sum of the oracle's log-probabilities of toks after prompt."""
+        import torch
+        rows = torch.log_softmax(self.logits(prompt, toks), -1)
+        t = torch.tensor(toks, device=rows.device).long()[:, None]
+        return float(rows.gather(1, t).sum())
+
+
+def _static_batching(cfg, params, prompts, max_new: int):
+    """The static-batching baseline on the same trace (as
+    scripts/bench_batching.py runs it for the JAX package): batches of
+    MODES_SLOTS requests, each prefilled at its bucket into a slotted cache,
+    then the same replayed decode loop (sync HOST_SYNC) until the batch's
+    longest generation is done, finished rows idling. Returns run() ->
+    tokens emitted; a first call captures the loop's graph."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (init_slot_cache,
+                                            make_decode_loop, make_insert,
+                                            make_prefill)
+    from tpp_mlir_tpu_torch.serving.batching import DEFAULT_BUCKETS, _park
+    prefill, insert = make_prefill(cfg), make_insert(cfg)
+    loop = make_decode_loop(cfg, HOST_SYNC)
+    cache = init_slot_cache(cfg, MODES_SLOTS, "cuda")
+    tok = torch.zeros(MODES_SLOTS, dtype=torch.int32, device="cuda")
+
+    def run() -> int:
+        total = 0
+        for i in range(0, len(prompts), MODES_SLOTS):
+            batch = prompts[i:i + MODES_SLOTS]
+            _park(cache, cfg)
+            for b, p in enumerate(batch):
+                logits, pc = prefill(params, _bucketed(p, DEFAULT_BUCKETS))
+                insert(cache, pc, b, len(p))
+                tok[b] = logits[0, len(p) - 1].argmax()
+            for _ in range(-(-(max_new - 1) // HOST_SYNC)):
+                loop(params, cache, tok)
+            total += max_new * len(batch)
+        torch.cuda.synchronize()
+        return total
+    return run
+
+
+def _bucketed(prompt, buckets):
+    """A prompt right-padded to its bucket, (1, bucket) on the card, as
+    the host scheduler prefills it."""
+    import numpy as np
+    import torch
+    bucket = next(b for b in buckets if b >= len(prompt))
+    ids = np.zeros((1, bucket), np.int32)
+    ids[0, :len(prompt)] = prompt
+    return torch.from_numpy(ids).to("cuda")
+
+
+def _wall(fn):
+    """(fn(), seconds) by the host clock, the device synchronized (and the
+    garbage of earlier runs, their CUDA graphs among it, collected
+    first)."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_serving_modes(setup) -> dict:
+    """Continuous batching (both schedulers), beam search and speculative
+    decoding (ROADMAP A8) on gpt2_small_serve_b8's model. Each mode: an
+    eager run (graph=False) with the launch counts set to 0 just before it
+    and read just after (B7 a prefill, B13 a decode step: exact counts),
+    then the same run replayed from CUDA graphs, whose tokens must equal the
+    eager run's; every emitted token against the kernels-off engine's
+    teacher-forced prefill (_Oracle); beam W=1 against make_generate, the
+    best beam's score against its teacher-forced log-probability
+    (TOL_MODEL, relative); then timed second passes: each scheduler's
+    tokens/s beside static batching on the same trace, beam ms/step,
+    speculative tokens/s and acceptance beside plain greedy."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (BatchingEngine,
+                                            DeviceBatchingEngine,
+                                            make_beam_generate,
+                                            make_generate, make_prefill,
+                                            make_speculative_generate)
+    from tpp_mlir_tpu_torch.tools.tpp_serve import continuous_prompts
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    kcache = global_cache()
+    _, cfg, params, ids, _ = setup
+    L = cfg.layers
+    oracle = _Oracle(cfg, params)
+    prompts = continuous_prompts(cfg.vocab, MODES_PROMPT, MODES_REQUESTS, 0)
+    total: dict[str, int] = {}
+
+    def eager_launches(run):
+        """run() under fresh launch counts; (its result, the counts)."""
+        kcache.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launches = _launches(kcache)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        return out, launches
+
+    def serve(eng):
+        eng.reset()
+        rids = [eng.submit(p, max_new=MODES_MAX_NEW) for p in prompts]
+        done = eng.run()
+        return [done[r] for r in rids]
+
+    # -- continuous batching, host and device schedulers -------------------
+    timed, parts = {}, {}
+    for sched in ("host", "device"):
+        t0 = time.perf_counter()
+        if sched == "host":
+            def make(graph):
+                return BatchingEngine(params, cfg, slots=MODES_SLOTS,
+                                      sync_steps=HOST_SYNC, graph=graph)
+            sync, looped = HOST_SYNC, "_loop"
+        else:
+            def make(graph):
+                return DeviceBatchingEngine(
+                    params, cfg, slots=MODES_SLOTS, sync_steps=DEVICE_SYNC,
+                    wave=DEVICE_WAVE, graph=graph)
+            sync, looped = DEVICE_SYNC, "_macro"
+        eng = make(False)
+        loops, stages = [], []
+        _counted(eng, looped, loops)
+        _counted(eng, "_prefill" if sched == "host" else "_stage_fn",
+                 stages)
+        eager, launches = eager_launches(lambda: serve(eng))
+        want = {"attention": L * len(stages),
+                "decode_attn": L * sync * len(loops)}
+        eng = make(True)
+        graphed = serve(eng)                    # the first pass captures
+        same = graphed == eager
+        exact0 = oracle.exact, oracle.total
+        good = all([oracle.check(p, t) for p, t in zip(prompts, graphed)])
+        share = (oracle.exact - exact0[0]) / (oracle.total - exact0[1])
+        ntok = sum(len(t) for t in graphed)
+        ok = all(launches[k] == n for k, n in want.items()) and same and \
+            good and ntok == MODES_REQUESTS * MODES_MAX_NEW and \
+            (sched == "device" or len(stages) == MODES_REQUESTS)
+        toks, secs = _wall(lambda: serve(eng))  # the second pass
+        timed[sched] = (sum(len(t) for t in toks), secs)
+        # its parts alone, by the host clock: the prefills (with the
+        # staging copies) and the decode loops replayed as often as the
+        # run called them (every slot parked: B13 reads all rows)
+        if sched == "host":
+            pre = [_bucketed(p, eng.buckets) for p in prompts]
+            _, pre_s = _wall(lambda: [eng._prefill(eng.params, i)
+                                      for i in pre])
+            _, loop_s = _wall(lambda: [eng._loop(eng.params, eng.cache,
+                                                 eng.tok)
+                                       for _ in loops])
+        else:
+            reqs = [(i, i, p, MODES_MAX_NEW) for i, p in enumerate(prompts)]
+            _, pre_s = _wall(lambda: [
+                eng._stage(reqs[i:i + DEVICE_WAVE], len(reqs))
+                for i in range(0, len(reqs), DEVICE_WAVE)])
+            out, olen = eng._outs[(len(reqs), MODES_MAX_NEW)]
+            _, loop_s = _wall(lambda: [eng._macro(
+                eng.params, eng.cache, eng.tok, None, eng.rid, eng.left, out,
+                olen, eng.nxt_l, eng.staging, eng.wlen, eng.wnew, eng.wfirst,
+                eng.wrid, eng.wcount) for _ in loops])
+        parts[sched] = (pre_s, loop_s, len(loops))
+        say(f"main gpt2_small_serve continuous {sched} scheduler: "
+            f"{MODES_REQUESTS} requests (prompts {min(map(len, prompts))}-"
+            f"{max(map(len, prompts))}, max_new {MODES_MAX_NEW}) through "
+            f"{MODES_SLOTS} slots, sync {sync}"
+            f"{f', wave {DEVICE_WAVE}' if sched == 'device' else ''}: "
+            f"{ntok} tokens, {len(stages)} prefills, {len(loops)} "
+            f"{looped[1:]} calls; eager launches {launches} (want {want}); "
+            f"graph tokens == eager {same}; every token within "
+            f"{TOL_MODEL:.0e} of the teacher-forced argmax {good} (exact "
+            f"argmax {share:.4f}, for information) "
+            f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"continuous {sched}: launches {launches} "
+                                 f"(want {want}), graph == eager {same}, "
+                                 f"teacher-forced {good}, tokens {ntok}")
+        del eng
+    static = _static_batching(cfg, params, prompts, MODES_MAX_NEW)
+    static()                                    # the first pass captures
+    s_tok, s_secs = _wall(static)
+    say(f"time serve gpt2_small continuous {MODES_SLOTS} slots, "
+        f"{MODES_REQUESTS} requests x {MODES_MAX_NEW} tokens (second pass,"
+        f" host clock): host scheduler {timed['host'][1]:.4f} s "
+        f"({timed['host'][0] / timed['host'][1]:.1f} tokens/s), device "
+        f"scheduler {timed['device'][1]:.4f} s "
+        f"({timed['device'][0] / timed['device'][1]:.1f} tokens/s), static "
+        f"batching {s_secs:.4f} s ({s_tok / s_secs:.1f} tokens/s)")
+    for sched, (pre_s, loop_s, n) in parts.items():
+        steps = n * (HOST_SYNC if sched == "host" else DEVICE_SYNC)
+        say(f"time serve gpt2_small continuous {sched} scheduler, its parts"
+            f" alone: prefills {pre_s:.4f} s, {n} decode "
+            f"{'rounds' if sched == 'host' else 'macros'} replayed "
+            f"{loop_s:.4f} s ({loop_s * 1e3 / steps:.4f} ms a step)")
+
+    # -- beam search ----------------------------------------------------------
+    t0 = time.perf_counter()
+    bids = ids[:BEAM_BATCH]
+
+    def beam(graph, width=BEAM_WIDTH, mark=None):
+        return make_beam_generate(cfg, BEAM_STEPS, width, graph=graph)(
+            params, bids, mark)
+    (toks, _), launches = eager_launches(lambda: beam(False))
+    want = {"attention": L, "decode_attn": L * (BEAM_STEPS - 1)}
+    gtoks, scores = beam(True)
+    same = torch.equal(gtoks, toks)
+    w1_same = torch.equal(beam(True, 1)[0],
+                          make_generate(cfg, BEAM_STEPS)(params, bids))
+    tf = [oracle.logp(p, t) for p, t in zip(bids.tolist(), gtoks.tolist())]
+    rel = max(abs(float(s) - w) / abs(w) for s, w in zip(scores, tf))
+    ok = all(launches[k] == n for k, n in want.items()) and same and \
+        w1_same and rel <= TOL_MODEL
+    say(f"main gpt2_small_serve beam search b{BEAM_BATCH} prompt "
+        f"{bids.shape[1]} width {BEAM_WIDTH} steps {BEAM_STEPS}: eager "
+        f"launches {launches} (want {want}); graph tokens == eager {same};"
+        f" W=1 == make_generate {w1_same}; best score vs teacher-forced "
+        f"log-prob rel {rel:.3e} (scores "
+        f"{[round(float(s), 4) for s in scores]}, tol {TOL_MODEL:.0e}) "
+        f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"beam: launches {launches} (want {want}), "
+                             f"graph == eager {same}, W=1 {w1_same}, rel "
+                             f"{rel}")
+    stamps = {}
+
+    def mark(phase):
+        torch.cuda.synchronize()
+        stamps[phase] = time.perf_counter()
+    _wall(lambda: beam(True, mark=mark))
+    # the reorder alone (gather the parents' rows, copy back, k and v),
+    # from a CUDA graph, on a cache of the beams' shape
+    _, kv = make_prefill(cfg)(params, ids[:BEAM_BATCH * BEAM_WIDTH])
+    flat = torch.arange(BEAM_BATCH * BEAM_WIDTH, device="cuda").flip(0)
+    reorder_ms = graph_ms(lambda: [kv[n].copy_(kv[n].index_select(1, flat))
+                                   for n in ("k", "v")], iters=5)
+    del kv
+    step_ms = (stamps["decode"] - stamps["capture"]) * 1e3 / (BEAM_STEPS - 2)
+    say(f"time serve gpt2_small beam b{BEAM_BATCH} x {BEAM_WIDTH} beams: "
+        f"{step_ms:.4f} ms/step (the steps replayed after the first, host "
+        f"clock), of "
+        f"which the cache reorder {reorder_ms:.4f} ms (from a CUDA graph); "
+        f"prefill and beam set-up "
+        f"{(stamps['prefill'] - stamps['start']) * 1e3:.4f} ms")
+
+    # -- speculative decoding -----------------------------------------------
+    t0 = time.perf_counter()
+    sids = ids[:1]
+
+    def spec(graph):
+        out, stats = make_speculative_generate(
+            cfg, None, SPEC_STEPS, k=SPEC_K, trunk_layers=SPEC_TRUNK,
+            graph=graph)(params, sids)
+        return out, {k: int(v) for k, v in stats.items()}
+    (toks, stats), launches = eager_launches(lambda: spec(False))
+    want = {"attention": L, "decode_attn": SPEC_TRUNK * (SPEC_K + 1)
+            * stats["macro_steps"]}
+    gtoks, gstats = spec(True)
+    same = torch.equal(gtoks, toks) and gstats == stats
+    good = oracle.check(sids[0].tolist(), gtoks[0].tolist())
+    rate = gstats["accepted"] / gstats["drafted"]
+    ok = all(launches[k] == n for k, n in want.items()) and same and good
+    say(f"main gpt2_small_serve speculative b1 prompt {sids.shape[1]} k "
+        f"{SPEC_K} steps {SPEC_STEPS}, {SPEC_TRUNK}-layer trunk draft: "
+        f"eager launches {launches} (want {want}); graph tokens and stats "
+        f"== eager {same}; every token within {TOL_MODEL:.0e} of the "
+        f"teacher-forced argmax {good}; {gstats['macro_steps']} rounds, "
+        f"acceptance {gstats['accepted']}/{gstats['drafted']} ({rate:.4f}, "
+        f"for information) ({time.perf_counter() - t0:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"speculative: launches {launches} (want "
+                             f"{want}), graph == eager {same}, "
+                             f"teacher-forced {good}")
+    plain = make_generate(cfg, SPEC_STEPS)
+    _, s_secs = _wall(lambda: spec(True))
+    _, g_secs = _wall(lambda: plain(params, sids))
+    _, p_secs = _wall(lambda: make_prefill(cfg)(params, sids))
+    say(f"time serve gpt2_small speculative b1 (second pass, whole call "
+        f"with its prefill and one capture, host clock): {s_secs:.4f} s "
+        f"({SPEC_STEPS / s_secs:.1f} tokens/s, acceptance {rate:.4f}, "
+        f"{(s_secs - p_secs) * 1e3 / gstats['macro_steps']:.4f} ms a round "
+        f"after the prefill); plain greedy make_generate {g_secs:.4f} s "
+        f"({SPEC_STEPS / g_secs:.1f} tokens/s, "
+        f"{(g_secs - p_secs) * 1e3 / (SPEC_STEPS - 1):.4f} ms a step after "
+        f"the prefill); the b1 prefill alone {p_secs * 1e3:.4f} ms")
+    say(f"serving modes: exact argmax share of every checked token "
+        f"{oracle.exact / oracle.total:.4f} of {oracle.total}")
+    return total
 
 # the MoE slice: GPT-2 small MoE-8 top-2 at full width, bm 128, bf16;
 # serving as scripts/bench_serving.py:148-158 runs it with --experts 8
@@ -3560,7 +3939,8 @@ def main() -> int:
     serve_launches, setups = phase_serving_path()
     moe_launches, moe_setup = phase_moe_serving()
     for counts in (serve_launches, phase_serving_flash(setups[0]),
-                   moe_launches, phase_mlp_training(), phase_gpt_training(),
+                   phase_serving_modes(setups[0]), moe_launches,
+                   phase_mlp_training(), phase_gpt_training(),
                    phase_moe_training(), phase_mha_suite(),
                    phase_conv_suite(), phase_packed_suite()):
         for kind, n in counts.items():

@@ -707,6 +707,43 @@ def test_generate_graph_replay_equals_eager(cuda, kv_quant):
     assert torch.equal(graphed, eager)
 
 
+@pytest.mark.parametrize("mode", ["host", "device", "beam", "speculative"])
+def test_serving_modes_graph_replay_equals_eager(cuda, mode):
+    """Continuous batching (both schedulers), beam search and speculative
+    decoding: the loops replayed from CUDA graphs give the eager loops'
+    tokens, and the eager run launches B7 (prefills) and B13 (decode)."""
+    from tpp_mlir_tpu_torch.serving import (BatchingEngine,
+                                            DeviceBatchingEngine,
+                                            make_beam_generate,
+                                            make_speculative_generate)
+    cfg, params = _serving_model()
+    ids = torch.randint(0, cfg.vocab, (2, 32), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    prompts = [ids[0, :n].cpu().numpy() for n in (5, 17, 32, 9)]
+
+    def run(graph):
+        if mode in ("host", "device"):
+            eng = DeviceBatchingEngine(params, cfg, slots=2, sync_steps=4,
+                                       wave=3, graph=graph) \
+                if mode == "device" else BatchingEngine(
+                    params, cfg, slots=2, sync_steps=4, graph=graph)
+            for p in prompts:
+                eng.submit(p, max_new=6)
+            return eng.run()
+        if mode == "beam":
+            return make_beam_generate(cfg, 6, 3, graph=graph)(
+                params, ids)[0].tolist()
+        return make_speculative_generate(cfg, None, 8, k=3, trunk_layers=1,
+                                         graph=graph)(
+            params, ids[:1])[0].tolist()
+    cache = global_cache()
+    cache.reset_launches()
+    eager = run(False)
+    counts = cache.launches_by_kind()
+    assert counts["FlashMhaKey"] > 0 and counts["DecodeAttnKey"] > 0
+    assert run(True) == eager
+
+
 def test_serving_kernels_match_the_kernels_off_engine(cuda):
     """Prefill (B7 + B15) and decode (B13) through the kernels against the
     same engine on its composed and einsum paths, teacher-forced."""

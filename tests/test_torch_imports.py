@@ -1,5 +1,6 @@
-"""The port (every slice: the MLP path, the imported transformer, serving,
-training, MoE, the MHA suite, the conv family, packed parity mode) imports torch and its own
+"""The port (every slice: the MLP path, the imported transformer, serving
+and its batching, beam and speculative modes, training, MoE, the MHA
+suite, the conv family, packed parity mode) imports torch and its own
 modules only: never JAX, Triton, ml_dtypes, nor any module of the JAX
 package `tpp_mlir_tpu`.
 
@@ -70,6 +71,20 @@ fcfg = GptConfig(vocab=64, embed=32, heads=2, layers=1, max_seq=40,
 assert make_generate(fcfg, 2)(init_params(fcfg, device="cpu"),
                               torch.zeros(1, 8, dtype=torch.int32)).shape \
     == (1, 2)
+# the serving modes: both batching schedulers, beam search, speculative
+from tpp_mlir_tpu_torch.serving import (BatchingEngine, DeviceBatchingEngine,
+                                        make_beam_generate,
+                                        make_speculative_generate)
+bcfg = GptConfig(vocab=64, embed=32, heads=2, layers=2, max_seq=40)
+bp = init_params(bcfg, device="cpu")
+for engine in (BatchingEngine, DeviceBatchingEngine):
+    eng = engine(bp, bcfg, slots=2, sync_steps=2, buckets=(8,))
+    eng.submit([1, 2, 3], max_new=3)
+    assert len(eng.run()[0]) == 3
+prompt = torch.zeros(1, 4, dtype=torch.int32)
+assert make_beam_generate(bcfg, 3, 2)(bp, prompt)[0].shape == (1, 3)
+assert make_speculative_generate(bcfg, None, 4, k=2, trunk_layers=1)(
+    bp, prompt)[0].shape == (1, 4)
 # the training slice: the MLP SGD and optimizer steps, the GPT step
 from tpp_mlir_tpu_torch.parallel import (adamw, make_gpt_train_step,
                                          make_optim_train_step,

@@ -355,9 +355,13 @@ def test_tpp_serve_matches_the_jax_tool_on_carried_weights():
 
 @pytest.mark.parametrize("flags", [
     ["--quant", "int4"], ["--tp", "2"], ["--speculative", "3"],
-    ["--continuous", "4"], ["--beams", "2"],
+    ["--continuous", "4", "--sync-steps", "0"], ["--beams", "97"],
     ["--experts", "2", "--top-k-experts", "3"], ["--prompt-len", "20"]])
 def test_tpp_serve_refuses_with_exit_2(flags):
+    """int4 (A7) and --tp (A11) are not ported; --speculative serves batch
+    1 only (SERVE's batch is 2); no sync step, more beams than the vocab,
+    more experts a token than the model has and a prompt past max_seq are
+    refused."""
     from tpp_mlir_tpu_torch.tools import tpp_serve
 
     assert tpp_serve.main(SERVE + ["--device", "cpu"] + flags,

@@ -1,20 +1,31 @@
 """The serving core: GPT-family prefill, KV-cache decode, extend and
-generate (`engine.py`) and int8 quantization (`quant.py`), the port of
-`tpp_mlir_tpu/serving/engine.py` and `quant.py`."""
+generate (`engine.py`), int8 quantization (`quant.py`), continuous batching
+with host and device schedulers (`batching.py`), beam search (`beam.py`)
+and speculative decoding (`speculative.py`), the port of the modules of the
+same names in `tpp_mlir_tpu/serving/`."""
 
-from .engine import (DecodeRunner, GptConfig, composed_causal_attention,
-                     init_params, make_decode_step, make_extend,
-                     make_generate, make_prefill, make_sampler,
-                     params_from_numpy, params_from_torch, stack_params)
+from .batching import (BatchingEngine, DeviceBatchingEngine,
+                       init_slot_cache, init_staging, make_decode_loop,
+                       make_device_loop, make_insert, make_stage_prefill)
+from .beam import make_beam_generate
+from .engine import (DecodeRunner, GptConfig, Replayed,
+                     composed_causal_attention, init_params,
+                     make_decode_step, make_extend, make_generate,
+                     make_prefill, make_sampler, params_from_numpy,
+                     params_from_torch, stack_params)
 from .quant import (QTensor, dequantize, dequantize_params, quantize,
                     quantize_params, quantize_tokens, quantized_bytes,
                     with_kmajor)
+from .speculative import make_speculative_generate
 
 __all__ = [
-    "DecodeRunner", "GptConfig", "QTensor",
-    "composed_causal_attention", "dequantize", "dequantize_params",
-    "init_params", "make_decode_step", "make_extend",
-    "make_generate", "make_prefill", "make_sampler", "params_from_numpy",
-    "params_from_torch", "quantize", "quantize_params", "quantize_tokens",
-    "quantized_bytes", "stack_params", "with_kmajor",
+    "BatchingEngine", "DecodeRunner", "DeviceBatchingEngine", "GptConfig",
+    "QTensor", "Replayed", "composed_causal_attention", "dequantize",
+    "dequantize_params", "init_params", "init_slot_cache", "init_staging",
+    "make_beam_generate", "make_decode_loop", "make_decode_step",
+    "make_device_loop", "make_extend", "make_generate", "make_insert",
+    "make_prefill", "make_sampler", "make_speculative_generate",
+    "make_stage_prefill", "params_from_numpy", "params_from_torch",
+    "quantize", "quantize_params", "quantize_tokens", "quantized_bytes",
+    "stack_params", "with_kmajor",
 ]

@@ -37,8 +37,10 @@ with the same numerics, function for function. What differs, and why:
   copying a per-layer weight slab, and the per-layer list's `w1` is
   already a view (ROADMAP queue C).
 
-Not ported here: `remat` (A10), the tp decode (A11), continuous batching,
-beam and speculative decoding (A8), int4 weights (A7).
+Continuous batching, beam search and speculative decoding (`batching.py`,
+`beam.py`, `speculative.py`) run on these functions; their loops replay
+one CUDA graph per body (`Replayed`). Not ported here: `remat` (A10), the
+tp decode (A11), LoRA (A10), int4 weights (A7).
 """
 
 from __future__ import annotations
@@ -333,11 +335,16 @@ def params_from_numpy(tree: dict, cfg: GptConfig, device="cuda") -> dict:
     return with_kmajor(out) if cfg.int8_compute else out
 
 
+def params_device(params: dict) -> torch.device:
+    """The device the params live on (the LM head's)."""
+    w = params["lm_head"]
+    return (w.q if isinstance(w, QTensor) else w).device
+
+
 def _use_kernels(params: dict, use_kernels: bool | None) -> bool:
     if use_kernels is not None:
         return use_kernels
-    w = params["lm_head"]
-    return (w.q if isinstance(w, QTensor) else w).is_cuda
+    return params_device(params).type == "cuda"
 
 
 def _kernel(key, use_kernels: bool):
@@ -1117,15 +1124,17 @@ def make_extend(cfg: GptConfig, use_kernels: bool | None = None):
 
 def make_sampler(temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0):
-    """Return `sample(logits (B, V), generator=None) -> (B,) int32`.
+    """Return `sample(logits (B, V), generator=None, noise=None) -> (B,)
+    int32`.
 
     temperature 0 is greedy (top_k/top_p ignored). Otherwise logits are
     scaled by 1/temperature, truncated to the top_k largest and/or the
     smallest nucleus reaching mass top_p (the first token always kept), and
-    sampled categorically by the Gumbel-max rule over a torch.Generator
-    (its numbers differ from jax.random's)."""
+    sampled categorically by the Gumbel-max rule over uniform numbers drawn
+    from a torch.Generator (its numbers differ from jax.random's), or over
+    `noise` (B, V), numbers drawn before a CUDA graph's replay."""
 
-    def sample(logits, generator=None):
+    def sample(logits, generator=None, noise=None):
         if temperature == 0.0:
             return logits.argmax(-1).to(torch.int32)
         x = logits.float() / temperature
@@ -1138,7 +1147,8 @@ def make_sampler(temperature: float = 0.0, top_k: int = 0,
             keep = probs.cumsum(-1) - probs < top_p
             cut = torch.where(keep, srt, math.inf).amin(-1, keepdim=True)
             x = torch.where(x < cut, -math.inf, x)
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = noise if noise is not None else torch.rand(
+            x.shape, generator=generator, device=x.device)
         return (x - torch.log(-torch.log(u))).argmax(-1).to(torch.int32)
 
     return sample
@@ -1187,6 +1197,35 @@ class DecodeRunner:
         self.reset()
         for _ in range(n):
             self._run(token)
+
+
+class Replayed:
+    """`body()`, run eagerly, or replayed from one CUDA graph (graph=True,
+    or None on a CUDA `device`): the counterpart of a `lax.scan` or
+    `lax.while_loop` body under `jit`. The body reads and writes only
+    tensors that outlive it (static buffers, updated in place). With a
+    graph, the first call runs the body eagerly on a side stream (a real
+    call: it builds the kernels and warms the allocator), then captures it;
+    every later call replays the capture."""
+
+    def __init__(self, body, graph: bool | None, device: torch.device):
+        self._body, self._g = body, None
+        self._graph = graph if graph is not None else device.type == "cuda"
+
+    def __call__(self):
+        if not self._graph:
+            self._body()
+        elif self._g is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream().wait_stream(side)
+            self._g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._g):
+                self._body()
+        else:
+            self._g.replay()
 
 
 def make_generate(cfg: GptConfig, steps: int, temperature: float = 0.0,

@@ -5,8 +5,12 @@ Runs prefill + KV-cache decode for a GPT-family model, random-initialized
 at the requested size from --seed, on one NVIDIA card (or the CPU with
 --device cpu, where the kernels' plain versions run), and prints the
 prefill time, the decode time per step, tokens/s, then the tokens. The
-counterpart of `tpp_mlir_tpu/tools/tpp_serve.py`'s generate path; the
-prompt ids are drawn exactly as there, so the prompts are the same.
+counterpart of `tpp_mlir_tpu/tools/tpp_serve.py` with its modes: greedy or
+sampled generation, `--beams` (beam search), `--speculative K` (a draft
+model, or with `--trunk-draft N` the target's first N blocks, proposes K
+tokens a round) and `--continuous N` (N requests through --batch slots,
+host scheduler, or `--device-scheduler`). The prompt ids are drawn exactly
+as there, so the prompts are the same.
 
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --steps 32      # GPT-2 small
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --vocab 96 --embed 64 \\
@@ -15,11 +19,19 @@ prompt ids are drawn exactly as there, so the prompts are the same.
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --experts 8 \\
       --moe-prefill sorted --batch 8 --prompt-len 512 --max-seq 640 \\
       --steps 32                                     # GPT-2 small MoE-8
+  python -m tpp_mlir_tpu_torch.tools.tpp_serve --continuous 24 --batch 8 \\
+      --prompt-len 512 --steps 64 --max-seq 1024 --device-scheduler \\
+      --sync-steps 64                                # device scheduler
+  python -m tpp_mlir_tpu_torch.tools.tpp_serve --speculative 4 \\
+      --trunk-draft 2 --prompt-len 512 --steps 64 --max-seq 1024
 
 Times are host clocks around work that ends in a device synchronize; the
 prefill (with the first sample), the decode time per step and tokens/s
 exclude the kernel build and the CUDA-graph capture, which a first pass and
-the capture pay (`serve`).
+the capture pay (`serve`). Beam search, speculative decoding and continuous
+batching run twice too and time the second pass whole (beam and speculative
+recapture their loop's graph each call; a continuous engine keeps its
+graphs across runs).
 """
 
 from __future__ import annotations
@@ -29,8 +41,7 @@ import sys
 import time
 
 # modes of the JAX tool that are not ported yet, and their ROADMAP items
-_LATER = {"speculative": "A8", "continuous": "A8", "beams": "A8",
-          "tp": "A11"}
+_LATER = {"tp": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +78,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "or GShard sorted dispatch (capacity-bounded); the "
                         "grouped form is GptConfig(moe_prefill_form="
                         "'grouped')")
+    p.add_argument("--beams", type=int, default=1,
+                   help="beam-search width (>1 enables beam decoding; "
+                        "deterministic, ignores sampling flags)")
+    p.add_argument("--length-penalty", type=float, default=0.0,
+                   help="GNMT length norm exponent for beam search")
+    p.add_argument("--eos", type=int, default=-1,
+                   help="EOS token id for beam search (-1 = none)")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="speculative decoding: draft K tokens a round, "
+                        "verify them in one target pass (greedy, batch 1)")
+    p.add_argument("--draft-layers", type=int, default=2,
+                   help="layer count of the random draft model (with "
+                        "--speculative)")
+    p.add_argument("--trunk-draft", type=int, default=0, metavar="N",
+                   help="with --speculative: the draft is the target's "
+                        "first N blocks + its head (no draft params, no "
+                        "draft prefill); overrides --draft-layers")
+    p.add_argument("--draft-vocab", type=int, default=0,
+                   help="truncate the draft lm_head to this vocab prefix "
+                        "(0 = full)")
+    p.add_argument("--continuous", type=int, default=0, metavar="N",
+                   help="continuous batching: serve N queued requests "
+                        "(random prompt lengths <= --prompt-len) through "
+                        "--batch slots")
+    p.add_argument("--sync-steps", type=int, default=8,
+                   help="decode steps per host read in --continuous mode")
+    p.add_argument("--device-scheduler", action="store_true",
+                   help="with --continuous: admission on the device "
+                        "(staged batched prefill, retire/admit/decode in "
+                        "one replayed macro)")
+    p.add_argument("--wave", type=int, default=16,
+                   help="device-scheduler staging rows (KV memory knob)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no CPU fallback) or cpu")
     for flag, item in _LATER.items():
@@ -78,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, out=sys.stdout) -> int:
     args = build_parser().parse_args(argv)
     for flag, item in _LATER.items():
-        if getattr(args, flag) > (1 if flag == "beams" else 0):
+        if getattr(args, flag):
             print(f"--{flag} is not ported yet: ROADMAP {item}",
                   file=sys.stderr)
             return 2
@@ -95,9 +138,15 @@ def main(argv=None, out=sys.stdout) -> int:
               "pass --device cpu to run the plain versions",
               file=sys.stderr)
         return 1
-    if args.prompt_len + args.steps > args.max_seq:
-        print(f"prompt+steps ({args.prompt_len}+{args.steps}) exceeds "
+    slack = args.speculative + 1 if args.speculative else 0
+    if args.prompt_len + args.steps + slack > args.max_seq:
+        print(f"prompt+steps ({args.prompt_len}+{args.steps}"
+              f"{f'+{slack} speculative slack' if slack else ''}) exceeds "
               f"--max-seq {args.max_seq}", file=sys.stderr)
+        return 2
+    if args.speculative and args.batch != 1:
+        print("--speculative serves the batch-1 latency path",
+              file=sys.stderr)
         return 2
     try:
         cfg, params, ids = setup(dict(
@@ -112,6 +161,16 @@ def main(argv=None, out=sys.stdout) -> int:
     except ValueError as e:         # a configuration GptConfig refuses
         print(e, file=sys.stderr)
         return 2
+    try:
+        if args.speculative:
+            return _speculative(args, cfg, params, ids, out)
+        if args.continuous:
+            return _continuous(args, cfg, params, ids.device, out)
+        if args.beams > 1:
+            return _beams(args, cfg, params, ids, out)
+    except ValueError as e:         # a mode's own refusal (sizes, vocab)
+        print(e, file=sys.stderr)
+        return 2
     res = serve(cfg, params, ids, args.steps, args.temperature, args.top_k,
                 args.top_p, args.seed)
     B, steps = args.batch, args.steps
@@ -120,6 +179,104 @@ def main(argv=None, out=sys.stdout) -> int:
           f"{B * steps / res['seconds']:,.1f} tok/s over {steps} steps x "
           f"batch {B} ({dev}, capture and build excluded)", file=out)
     for row in res["tokens"].tolist():
+        print(" ".join(str(t) for t in row), file=out)
+    return 0
+
+
+def _timed(fn, dev):
+    """fn() twice (the first builds the kernels); (the second's result,
+    its seconds)."""
+    import torch
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def _speculative(args, cfg, params, ids, out) -> int:
+    from tpp_mlir_tpu_torch.serving import (GptConfig, init_params,
+                                            make_speculative_generate)
+    k = args.speculative
+    if args.trunk_draft:
+        gen = make_speculative_generate(cfg, None, args.steps, k=k,
+                                        draft_vocab=args.draft_vocab,
+                                        trunk_layers=args.trunk_draft)
+        run = lambda: gen(params, ids)      # noqa: E731
+    else:
+        # the JAX tool's draft: a GPT-2-style model of --draft-layers
+        dcfg = GptConfig(vocab=cfg.vocab, embed=cfg.embed, heads=cfg.heads,
+                         layers=args.draft_layers, mlp_ratio=cfg.mlp_ratio,
+                         max_seq=cfg.max_seq, dtype=cfg.dtype,
+                         kv_heads=cfg.kv_heads, kv_quant=cfg.kv_quant)
+        draft = init_params(dcfg, seed=args.seed + 1, device=ids.device)
+        gen = make_speculative_generate(cfg, dcfg, args.steps, k=k,
+                                        draft_vocab=args.draft_vocab)
+        run = lambda: gen(params, draft, ids)   # noqa: E731
+    (toks, stats), dt = _timed(run, ids.device)
+    acc, drafted = int(stats["accepted"]), int(stats["drafted"])
+    print(f"# speculative K={k}: {args.steps} tokens in {dt:.4f} s "
+          f"({args.steps / dt:,.1f} tok/s, second pass); "
+          f"{int(stats['macro_steps'])} rounds, acceptance {acc}/{drafted} "
+          f"({100 * acc / max(drafted, 1):.0f}%) ({ids.device})", file=out)
+    for row in toks.tolist():
+        print(" ".join(str(t) for t in row), file=out)
+    return 0
+
+
+def continuous_prompts(vocab: int, prompt_len: int, n: int, seed: int):
+    """The JAX tool's --continuous trace: n prompts of lengths drawn from
+    [1, prompt_len], ids from [0, vocab), by default_rng(seed)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32)
+            for m in rng.integers(1, prompt_len + 1, n)]
+
+
+def _continuous(args, cfg, params, dev, out) -> int:
+    from tpp_mlir_tpu_torch.serving import (BatchingEngine,
+                                            DeviceBatchingEngine)
+    prompts = continuous_prompts(cfg.vocab, args.prompt_len,
+                                 args.continuous, args.seed)
+    kw = dict(slots=args.batch, sync_steps=args.sync_steps,
+              temperature=args.temperature, top_k=args.top_k,
+              top_p=args.top_p, seed=args.seed)
+    if args.device_scheduler:
+        eng = DeviceBatchingEngine(params, cfg, wave=args.wave, **kw)
+    else:
+        eng = BatchingEngine(params, cfg, **kw)
+
+    def run():
+        eng.reset()
+        rids = [eng.submit(p, max_new=args.steps) for p in prompts]
+        return rids, eng.run()
+    (rids, done), dt = _timed(run, dev)
+    total = sum(len(v) for v in done.values())
+    sched = "device" if args.device_scheduler else "host"
+    print(f"# continuous: {args.continuous} requests through {args.batch} "
+          f"slots, sync every {args.sync_steps} steps ({sched} scheduler):"
+          f" {total} tokens in {dt:.4f} s ({total / dt:,.1f} tok/s, second "
+          f"pass) ({dev})", file=out)
+    for i, rid in enumerate(rids):
+        print(f"req {rid} ({len(prompts[i])}-token prompt): "
+              + " ".join(str(t) for t in done[rid]), file=out)
+    return 0
+
+
+def _beams(args, cfg, params, ids, out) -> int:
+    from tpp_mlir_tpu_torch.serving import make_beam_generate
+    gen = make_beam_generate(cfg, args.steps, beams=args.beams,
+                             length_penalty=args.length_penalty,
+                             eos_id=args.eos if args.eos >= 0 else None)
+    (toks, scores), dt = _timed(lambda: gen(params, ids), ids.device)
+    print(f"# beam search: width {args.beams}, {args.steps} steps x batch "
+          f"{args.batch} in {dt:.4f} s (second pass); best scores "
+          + " ".join(f"{float(s):.3f}" for s in scores.tolist())
+          + f" ({ids.device})", file=out)
+    for row in toks.tolist():
         print(" ".join(str(t) for t in row), file=out)
     return 0
 
