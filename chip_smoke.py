@@ -194,16 +194,36 @@ reference.H100_WARM_CLUSTERS. Phase 5 times B3 (also from a CUDA graph),
 B4 at -n 100, B5 and B20 beside the composed PyTorch chain (addmm + relu
 a layer and repeat on bf16 copies; B5 then h @ W^T) replayed from a CUDA
 graph, and the MLP rows' torch.matmul chain from a CUDA graph too.
+Phase 3 also holds B2's LN-stats pair (csrc/brgemm.cu through the
+kernel-key API): a GPT-2 fc-class producer (m 2048, k 768, n 3072, + bias,
+gelu, ln_stats_out) and its ln_stats consumer (k 3072, n 768), in bf16, f32
+"default" and f32 "highest", and at n 3000 (no multiple of a tile): y and
+the consumer against their plain versions, the mean and var against the
+plain statistics of the producer's own y (1e-5), both launched twice
+bit-equal; phase 4 runs the bf16 pair through the kernel cache (two
+launches), and phase 5 times the pair from a CUDA graph beside its plain
+versions and the composed addmm -> F.layer_norm -> addmm chain. The LoRA
+slice (ROADMAP A7, A10) at GPT-2 small's full width, bf16: int4 serving
+(packed int4 weights, b8, prompt 512, 16 steps: launches, graph == eager,
+logits against the kernels-off engine, greedy tokens against its argmax
+where the margin exceeds the noise, the weight bytes beside int8's); LoRA
+and QLoRA on bf16, int8 and int4 bases (B 4 x S 512, rank 8 on wq/wv,
+AdamW, 5 steps: step-0 adapter grads against the kernels-off route, the
+losses, ms a step, B14/B18 launches), the merged model served (B7, B13);
+the step with remat on and off (losses, peak memory); and a checkpoint of
+adapters and optimizer state resumed bit-equal to the uninterrupted run.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -989,7 +1009,7 @@ KINDS = {"BrgemmKey": "brgemm", "ChainKey": "chain",
 # kinds that share a key type with an earlier kernel: the MHA suite's, and
 # B20, blocked_matmul.cu's warm bench
 SHARED_KINDS = ("attention_flat", "attention_bench", "chain_pingpong",
-             "blocked_matmul_warm")
+             "blocked_matmul_warm", "brgemm_ln_stats")
 
 
 def _kind(key) -> str | None:
@@ -1015,6 +1035,8 @@ def _kind(key) -> str | None:
         return "chain_pingpong"
     if kind == "blocked_matmul" and key.repeats:
         return "blocked_matmul_warm"
+    if kind == "brgemm" and (key.prologue == "ln_stats" or key.ln_stats_out):
+        return "brgemm_ln_stats"
     return kind
 
 
@@ -3907,6 +3929,517 @@ def _grouped_mm_call(kind, key, args):
     return lambda: torch._grouped_mm(x, y, offs=offs)
 
 
+# ---- B2's LN-stats pair; int4 serving; LoRA/QLoRA, remat, checkpoints ----
+
+# B2's producer/consumer pair through the kernel-key API (no pass emits it):
+# a GPT-2 fc-class producer (m 2048, k 768, n 3072, + bias, gelu,
+# ln_stats_out) and its consumer (k 3072, n 768, + bias, the ln_stats
+# prologue on the producer's mean and var), in f32 "default", f32
+# "highest" and bf16, and at an n no tile divides (3000: 23.4 tiles of 128)
+LN_STATS_M, LN_STATS_K = 2048, 768
+LN_STATS_CASES = (("bf16", "default", 3072), ("f32", "default", 3072),
+                  ("f32", "highest", 3072), ("bf16", "default", 3000),
+                  ("f32", "default", 3000))
+TOL_STATS = 1e-5    # the row statistics: f32 sums of the same values
+
+# int4 serving and the LoRA slice at GPT-2 small's full width, bf16
+INT4_STEPS = 16
+LORA_B, LORA_S, LORA_RANK, LORA_TARGETS = 4, 512, 8, ("wq", "wv")
+LORA_STEPS, LORA_LR = 5, 1e-3
+
+
+def _ln_stats_keys(dtype: str, precision: str, n: int):
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey
+    common = dict(batch=1, m=LN_STATS_M, dtype=dtype, precision=precision,
+                  beta0=True, binary_kind="add")
+    return (BrgemmKey(n=n, k=LN_STATS_K, unary_kind="gelu",
+                      ln_stats_out=True, **common),
+            BrgemmKey(n=LN_STATS_K, k=n, prologue="ln_stats", **common))
+
+
+def _ln_stats_inputs(kp, kc, g):
+    """The producer's (A, W1, None, bias) and the consumer's (W2, None,
+    bias, gamma, beta): W ~ N(0, 1/k), biases ~ N(0, 0.01), gamma near 1."""
+    import torch
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kp.dtype]
+
+    def rnd(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale + shift
+    return ((rnd((1, kp.m, kp.k)).to(dt),
+             rnd((1, kp.k, kp.n), kp.k ** -0.5).to(dt), None,
+             rnd((kp.n,), 0.1)),
+            (rnd((1, kc.k, kc.n), kc.k ** -0.5).to(dt), None,
+             rnd((kc.n,), 0.1), rnd((kc.k,), 0.2, 1.0), rnd((kc.k,), 0.1)))
+
+
+def _ln_stats_pair(prod, cons, pa, ca):
+    """The pair as a caller runs it: (y, mean, var) = producer(A), then the
+    consumer on y with them. Returns (y, mean, var, z)."""
+    y, mu, var = prod(*pa)
+    w2, c, b2, gamma, beta = ca
+    z = cons(y.reshape(1, *y.shape), w2, c, b2, gamma=gamma, beta=beta,
+             mu=mu, var=var)
+    return y, mu, var, z
+
+
+def phase_ln_stats_kernels() -> dict:
+    """Phase 3 for B2's pair: at each LN_STATS_CASES key the producer's y
+    against its plain version (the single-GEMM tolerance), its mean and var
+    against the plain statistics of its own stored y (TOL_STATS; against
+    the plain version's own for information), the consumer on them against
+    its plain version (the LayerNorm-prologue tolerance), and both launched
+    twice bit-equal: no atomics, no k split."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
+    from tpp_mlir_tpu_torch.xsmm.reference import ln_stats_out
+    g = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for dtype, precision, n in LN_STATS_CASES:
+        kp, kc = _ln_stats_keys(dtype, precision, n)
+        pa, ca = _ln_stats_inputs(kp, kc, g)
+        prod, cons = build_kernel(kp), build_kernel(kc)
+        got = _ln_stats_pair(prod, cons, pa, ca)
+        again = _ln_stats_pair(prod, cons, pa, ca)
+        py, pmu, pvar = reference_kernel(kp)(*pa)
+        w2, c, b2, gamma, beta = ca
+        pz = reference_kernel(kc)(got[0].reshape(1, *got[0].shape), w2, c,
+                                  b2, gamma=gamma, beta=beta, mu=got[1],
+                                  var=got[2])
+        torch.cuda.synchronize()
+        y, mu, var, z = got
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rel_y, ab_y = rel_err(y, py)
+        own = ln_stats_out(y)
+        (rel_mu, ab_mu), (rel_var, ab_var) = rel_err(mu, own[0]), \
+            rel_err(var, own[1])
+        rel_plain = max(rel_err(mu, pmu)[0], rel_err(var, pvar)[0])
+        rel_z, ab_z = rel_err(z, pz)
+        ok = (rel_y <= _tol(kp) and max(rel_mu, rel_var) <= TOL_STATS
+              and rel_z <= _tol(kc) and same and torch_isfinite(z))
+        plan = gemm_plan(kp)
+        say(f"kernel brgemm_ln_stats {dtype} {precision} fc {LN_STATS_M}x"
+            f"{n}x{LN_STATS_K} +gelu -> {LN_STATS_M}x{LN_STATS_K}x{n}: "
+            f"producer y rel {rel_y:.3e} (tol {_tol(kp):.0e}), mean rel "
+            f"{rel_mu:.3e} var rel {rel_var:.3e} against its own y's "
+            f"(tol {TOL_STATS:.0e}; against the plain version's "
+            f"{rel_plain:.3e}); consumer rel {rel_z:.3e} abs {ab_z:.3e} "
+            f"(tol {_tol(kc):.0e}); second launch bit-equal {same}; tile "
+            f"{plan[0]}x{plan[1]} split {plan[2]}{_route_note(kp)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ln_stats {dtype} {precision} n {n}: y "
+                                 f"{rel_y}, stats {rel_mu}/{rel_var}, "
+                                 f"consumer {rel_z}, bit-equal {same}")
+        worst = max(worst, ab_y, ab_mu, ab_var, ab_z)
+    return {"brgemm_ln_stats": {"max_abs_err": worst}}
+
+
+def phase_ln_stats_path() -> dict:
+    """The pair's main path: the bf16 GPT-2 fc-class producer and its
+    consumer through xsmm's kernel cache, as a caller of the kernel-key API
+    runs them, with the launch counts set to 0 just before and read just
+    after (one launch each)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    kp, kc = _ln_stats_keys(*LN_STATS_CASES[0])
+    g = torch.Generator(device="cuda").manual_seed(4)
+    pa, ca = _ln_stats_inputs(kp, kc, g)
+    cache.reset_launches()
+    z = _ln_stats_pair(cache.dispatch(kp), cache.dispatch(kc), pa, ca)[3]
+    torch.cuda.synchronize()
+    launches = _launches(cache)
+    moved = {k: v for k, v in launches.items() if v}
+    ok = moved == {"brgemm_ln_stats": 2} and torch_isfinite(z)
+    say(f"main brgemm_ln_stats pair {LN_STATS_M}x{kp.n}x{kp.k} bf16 through "
+        f"the kernel cache: launches {moved} (want brgemm_ln_stats 2), "
+        f"output {tuple(z.shape)} finite {torch_isfinite(z)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ln_stats path: launches {moved}")
+    return launches
+
+
+def _ln_stats_composed(kp, kc, pa, ca):
+    """The pair's function as PyTorch composes it: addmm + gelu, a full
+    F.layer_norm, addmm, in the operands' dtype (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    a, w1, _, b1 = pa
+    w2, _, b2, gamma, beta = ca
+    dt = a.dtype
+    b1, b2, gamma, beta = (t.to(dt) for t in (b1, b2, gamma, beta))
+
+    def run():
+        y = F.gelu(torch.addmm(b1, a[0], w1[0]))
+        h = F.layer_norm(y, (kc.k,), gamma, beta, kc.prologue_eps)
+        return torch.addmm(b2, h, w2[0])
+    return run
+
+
+def phase_ln_stats_timing() -> dict:
+    """The pair (producer then consumer) from a CUDA graph beside its plain
+    versions and the composed addmm -> F.layer_norm -> addmm chain, at the
+    bf16 GPT-2 fc key (the kernel line's) and f32 "default"; its bound: the
+    bytes the two must move (A, both weights, biases, gamma, beta, y once
+    each way, the statistics, the output) over HBM's rate, or their
+    products at the bf16 rate."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for dtype, precision, n in LN_STATS_CASES[:2]:
+        kp, kc = _ln_stats_keys(dtype, precision, n)
+        pa, ca = _ln_stats_inputs(kp, kc, g)
+        prod, cons = build_kernel(kp), build_kernel(kc)
+        pprod, pcons = reference_kernel(kp), reference_kernel(kc)
+        ms = graph_ms(lambda: _ln_stats_pair(prod, cons, pa, ca))
+        plain_ms = graph_ms(lambda: _ln_stats_pair(pprod, pcons, pa, ca))
+        composed = _ln_stats_composed(kp, kc, pa, ca)
+        comp_ms = graph_ms(composed)
+        y, mu, var, z = _ln_stats_pair(prod, cons, pa, ca)
+        nbytes = _nbytes(*pa, *ca, mu, var, z) + 2 * _nbytes(y)
+        flops = 2 * kp.m * kp.n * kp.k + 2 * kc.m * kc.n * kc.k
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK["bf16"]
+        bound, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+        bound *= 1e3
+        p_ms = graph_ms(lambda: prod(*pa))
+        say(f"time kernel brgemm_ln_stats pair {dtype} {precision} "
+            f"{LN_STATS_M}x{n}x{LN_STATS_K} -> {LN_STATS_M}x{LN_STATS_K}x"
+            f"{n}: {ms:.4f} ms (the producer alone {p_ms:.4f} ms), plain "
+            f"versions {plain_ms:.4f} ms, composed addmm + gelu -> "
+            f"F.layer_norm -> addmm (not one call) {comp_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}) (from CUDA graphs)")
+        out.setdefault("brgemm_ln_stats", {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    return out
+
+
+def _payload_bytes(params) -> int:
+    """The QTensor payloads' bytes of a params tree (scales left out)."""
+    from tpp_mlir_tpu_torch.serving import QTensor
+    leaves = [v for k, v in params.items() if k != "blocks"]
+    leaves += [v for blk in params["blocks"] for v in blk.values()]
+    return sum(v.q.numel() * v.q.element_size() for v in leaves
+               if isinstance(v, QTensor))
+
+
+def phase_int4_serving() -> dict:
+    """GPT-2 small with packed int4 weights (ROADMAP A7), b8 with a
+    512-token prompt, 16 greedy steps through make_generate: its eager
+    launches (B7 12, B13 12 x 15), the graph-replayed tokens equal to the
+    eager ones, the prefill and teacher-forced decode logits against the
+    kernels-off engine on the same int4 weights (TOL_MODEL), the greedy
+    tokens against the kernels-off argmax wherever the kernels-off logits'
+    top-2 margin exceeds twice the row's max |kernels on - off| (all must
+    agree there), and the weights' bytes beside int8's."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import (make_decode_step, make_generate,
+                                            make_prefill, quantize_params,
+                                            quantized_bytes)
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    t0 = time.perf_counter()
+    cfg, params, ids = _serving_setup(GPT2_SERVE, False, 4)
+    cache.reset_launches()
+    toks = make_generate(cfg, INT4_STEPS, graph=False)(params, ids)
+    torch.cuda.synchronize()
+    launches = _launches(cache)
+    want = {"attention": cfg.layers,
+            "decode_attn": cfg.layers * (INT4_STEPS - 1), "int8_gemm": 0}
+    same = torch.equal(make_generate(cfg, INT4_STEPS)(params, ids), toks)
+    off = _kernels_off(cfg)
+    la, ca = make_prefill(cfg)(params, ids)
+    lb, cb = make_prefill(off, use_kernels=False)(params, ids)
+    finite = torch_isfinite(la)
+    rel_p, _ = rel_err(la, lb)
+    step_a = make_decode_step(cfg)
+    step_b = make_decode_step(off, use_kernels=False)
+    rel_d, clear, agree = 0.0, 0, 0
+    for t in range(INT4_STEPS - 1):
+        la, ca = step_a(params, ca, toks[:, t])
+        lb, cb = step_b(params, cb, toks[:, t])
+        finite = finite and torch_isfinite(la)
+        rel_d = max(rel_d, rel_err(la, lb)[0])
+        noise = (la.float() - lb.float()).abs().amax(-1)
+        top = lb.float().topk(2, -1).values
+        sure = (top[:, 0] - top[:, 1]) > 2 * noise
+        clear += int(sure.sum())
+        agree += int((sure & (lb.argmax(-1).to(torch.int32)
+                              == toks[:, t + 1])).sum())
+    b4, p4 = quantized_bytes(params), _payload_bytes(params)
+    q8 = quantize_params(_serving_setup(GPT2_SERVE, False, False)[1])
+    b8, p8 = quantized_bytes(q8), _payload_bytes(q8)
+    del q8
+    ok = (all(launches[k] == v for k, v in want.items()) and same and finite
+          and max(rel_p, rel_d) <= TOL_MODEL and agree == clear
+          and 2 * p4 == p8)
+    say(f"main gpt2_small_serve_b8_int4: generate {tuple(toks.shape)} (b"
+        f"{SERVE_BATCH} prompt {SERVE_PROMPT}); eager launches "
+        f"{ {k: launches[k] for k in want} } (want {want}); graph tokens == "
+        f"eager {same}; vs kernels off: prefill rel {rel_p:.3e}, "
+        f"teacher-forced decode rel {rel_d:.3e} (tol {TOL_MODEL:.0e}); "
+        f"greedy tokens equal to the kernels-off argmax {agree} of {clear} "
+        f"where the top-2 margin exceeds twice the noise (of "
+        f"{SERVE_BATCH * (INT4_STEPS - 1)}); weights {b4:,} bytes against "
+        f"int8's {b8:,} (payloads {p4:,} against {p8:,}) "
+        f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int4 serving: launches {launches}, graph "
+                             f"{same}, finite {finite}, rel {rel_p}/{rel_d},"
+                             f" agree {agree}/{clear}, payload {p4}/{p8}")
+    return launches
+
+
+def _lora_adapters(params, seed: int):
+    """lora_init's adapters with B drawn too (N(0, 0.01^2), seeded), so
+    that step 0's gradient reaches A as well."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import lora_init
+    ad = lora_init(params, rank=LORA_RANK, targets=LORA_TARGETS, seed=seed,
+                   device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for blk in ad["blocks"]:
+        for ab in blk.values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=g,
+                                      device="cuda") * 0.01)
+    return ad
+
+
+class _PlainCache:
+    """A kernel cache that hands out plain versions (for _plain_flash)."""
+
+    @staticmethod
+    def dispatch(key):
+        from tpp_mlir_tpu_torch.xsmm import reference_kernel
+        return reference_kernel(key)
+
+
+@contextlib.contextmanager
+def _plain_flash():
+    """B14 and B18 run as their plain versions on the card's tensors (the
+    same bf16 roundings of P and dS), in place of the kernels, inside
+    flash_attention_train."""
+    from tpp_mlir_tpu_torch.xsmm import flash_train
+    real = flash_train.global_cache
+    flash_train.global_cache = _PlainCache
+    try:
+        yield
+    finally:
+        flash_train.global_cache = real
+
+
+def _lora_run(cfg, base, ids, steps: int, kernels: bool = True,
+              seed: int = 1):
+    """`steps` LoRA steps from fresh adapters: (losses, step-0 grads,
+    seconds a step, adapters, optimizer)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import adamw, tree_leaves
+    from tpp_mlir_tpu_torch.serving import make_lora_train_step
+    ad = _lora_adapters(base, seed)
+    step, init = make_lora_train_step(cfg, adamw(LORA_LR),
+                                      use_kernels=kernels)
+    st = init(ad)
+    losses, secs, grads = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, loss = step(base, ad, st, ids)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t)
+        if i == 0:
+            grads = [x.grad.clone() for x in tree_leaves(ad)]
+    return losses, grads, secs, ad, st
+
+
+def phase_lora() -> dict:
+    """LoRA and QLoRA (ROADMAP A10) at GPT-2 small's full width, bf16, B 4 x
+    S 512, rank 8 on wq/wv, AdamW, 5 steps, on a bf16, an int8 and a packed
+    int4 base: the step-0 adapter grads against the same step with B14/B18's
+    plain versions and against the kernels-off route (composed attention
+    in f32), all leaves jointly within TOL_GRAD (relative Frobenius), the
+    worst leaf of each printed beside the two references' own worst leaf:
+    the top layers' wq adapters are ill-conditioned at initialization and
+    read ~3.5e-2 against either reference at B 4 (PERF.md), the loss at
+    every step, falling, ms per step (steps 2-5), 12
+    B14 and 12 B18 launches a step and no B7; the bf16 base's trained
+    adapters merged and served (make_generate, 8 steps: B7 12, B13 12 x
+    7); a MoE-8 model at 2 layers with adapters on its expert stacks, one
+    step through the grouped form (B16, B17 launched). Then remat on and off (the same losses, the peak memory of each),
+    and a checkpoint of adapters and optimizer state after 2 steps
+    restored into fresh ones and run 2 more: equal, bit for bit, to 4
+    uninterrupted steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import (adamw, restore_checkpoint,
+                                             save_checkpoint, tree_leaves)
+    from tpp_mlir_tpu_torch.serving import (GptConfig, init_params,
+                                            lora_init, make_generate,
+                                            make_lora_train_step, merge_lora,
+                                            quantize_params)
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    cfg = GptConfig(**GPT2_SERVE)
+    base0 = init_params(cfg, seed=0, device="cuda")
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (LORA_B, LORA_S)).astype(np.int32)).to("cuda")
+    total: dict[str, int] = {}
+    trained = None
+    for bits in (0, 8, 4):
+        label = {0: "lora bf16", 8: "qlora int8", 4: "qlora int4"}[bits]
+        base = quantize_params(base0, bits=bits) if bits else base0
+        off_losses, off_grads, _, _, _ = _lora_run(cfg, base, ids, 1,
+                                                   kernels=False)
+        with _plain_flash():
+            _, plain_grads, _, _, _ = _lora_run(cfg, base, ids, 1)
+        cache.reset_launches()
+        losses, grads, secs, ad, _ = _lora_run(cfg, base, ids, LORA_STEPS)
+        launches = _launches(cache)
+        names = [f"{i}.{n}.{ab}" for i, blk in enumerate(ad["blocks"])
+                 for n in sorted(blk) for ab in ("a", "b")]
+
+        def rel(a, b):
+            return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+        def against(got, ref):
+            """(worst leaf, its error, all leaves jointly) of got - ref."""
+            errs = {n: rel(a, b) for n, a, b in zip(names, got, ref)}
+            worst = max(errs, key=errs.get)
+            joint = rel(torch.cat([x.flatten() for x in got]),
+                        torch.cat([x.flatten() for x in ref]))
+            return worst, errs[worst], joint
+        w_off, e_off, j_off = against(grads, off_grads)
+        w_pl, e_pl, j_pl = against(grads, plain_grads)
+        w_rr, e_rr, _ = against(plain_grads, off_grads)
+        want = {"flash_train_fwd": cfg.layers * LORA_STEPS,
+                "flash_train_bwd": cfg.layers * LORA_STEPS, "attention": 0}
+        finite = all(torch_isfinite(x) for x in grads)
+        ms = sum(secs[1:]) / len(secs[1:]) * 1e3
+        ok = (max(j_off, j_pl) <= TOL_GRAD and losses[-1] < losses[0]
+              and finite and abs(losses[0] - off_losses[0]) <= TOL_BF16
+              and all(launches[k] == v for k, v in want.items()))
+        say(f"main train {label} gpt2 small b{LORA_B} s{LORA_S} rank "
+            f"{LORA_RANK} {'/'.join(LORA_TARGETS)} adamw: losses {losses} "
+            f"(kernels off step 0: {off_losses[0]:.6f}); step-0 adapter "
+            f"grads, rel Frobenius over {len(names)} leaves, all jointly "
+            f"(tol {TOL_GRAD:.0e}) and the worst leaf: against the "
+            f"kernels-off route (composed attention) {j_off:.3e}, worst "
+            f"{e_off:.3e} ({w_off}); against the same step with B14/B18's "
+            f"plain versions {j_pl:.3e}, worst {e_pl:.3e} ({w_pl}); the "
+            f"two references against each other, worst {e_rr:.3e} "
+            f"({w_rr}); launches { {k: launches[k] for k in want} } (want "
+            f"{want}); {ms:.4f} ms/step (steps 2-{LORA_STEPS}, host clock "
+            f"around synchronized steps) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: grads jointly {j_off} / {j_pl}"
+                                 f", losses {losses}, launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if bits == 0:
+            trained = ad
+        del base, ad
+    # the trained adapters baked in and served: B7 and B13 on the merged
+    # weights
+    merged = merge_lora(base0, trained)
+    cache.reset_launches()
+    toks = make_generate(cfg, 8, graph=False)(merged, ids)
+    torch.cuda.synchronize()
+    launches = _launches(cache)
+    want = {"attention": cfg.layers, "decode_attn": cfg.layers * 7}
+    ok = all(launches[k] == v for k, v in want.items()) and \
+        tuple(toks.shape) == (LORA_B, 8)
+    say(f"main serve the merged lora model: generate {tuple(toks.shape)}; "
+        f"launches { {k: launches[k] for k in want} } (want {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"merged serving: launches {launches}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del merged
+    # MoE at small depth: adapters on the expert stacks, trained through
+    # the grouped form's autograd Function (B16 forward and dgrads, B17)
+    mcfg = GptConfig(**dict(GPT2_SERVE, layers=2), n_experts=8, top_k=2,
+                     moe_prefill_form="grouped", moe_group_bm=128)
+    mbase = init_params(mcfg, seed=0, device="cuda")
+    mloss = {}
+    for kernels in (False, True):
+        ad = lora_init(mbase, rank=LORA_RANK, targets=("w1", "w2"), seed=3,
+                       device="cuda")
+        step, init = make_lora_train_step(mcfg, adamw(LORA_LR),
+                                          use_kernels=kernels)
+        cache.reset_launches()
+        mloss[kernels] = step(mbase, ad, init(ad), ids)[2].item()
+        launches = _launches(cache)
+    want = ("grouped_gemm", "grouped_wgrad", "flash_train_fwd",
+            "flash_train_bwd")
+    ok = all(launches[k] > 0 for k in want) and \
+        all(math.isfinite(v) for v in mloss.values())
+    say(f"main train lora moe-8 2 layers (grouped form) w1/w2: step-0 loss "
+        f"{mloss[True]:.6f}, kernels off {mloss[False]:.6f} (for "
+        f"information: a router near-tie flips a token's experts); "
+        f"launches { {k: launches[k] for k in want} } (each must move) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"moe lora: launches {launches}, loss {mloss}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del mbase
+    # remat: the same two steps with each layer recomputed in the backward
+    runs = {}
+    for remat in (False, True):
+        rcfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, _, secs, ad, st = _lora_run(rcfg, base0, ids, 2)
+        runs[remat] = (losses, torch.cuda.max_memory_allocated(),
+                       secs[1] * 1e3)
+        del ad, st
+    (l0, m0, s0), (l1, m1, s1) = runs[False], runs[True]
+    dl = max(abs(a - b) for a, b in zip(l0, l1))
+    ok = dl <= 1e-6
+    say(f"main train lora remat: losses without {l0}, with {l1} (max "
+        f"|diff| {dl:.3e}, bit-equal {l0 == l1}; tol 1e-6); peak "
+        f"torch.cuda.max_memory_allocated {m0 / 2**20:.1f} MiB without, "
+        f"{m1 / 2**20:.1f} MiB with; second step {s0:.4f} ms without, "
+        f"{s1:.4f} ms with {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"remat losses {l0} / {l1}")
+    # a checkpoint of adapters and AdamW state, resumed
+    full, _, _, ad_full, _ = _lora_run(cfg, base0, ids, 4)
+    first, _, _, ad2, st2 = _lora_run(cfg, base0, ids, 2)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, {"adapters": ad2, "opt": st2}, step=2)
+        del ad2, st2
+        _, _, _, ad3, st3 = _lora_run(cfg, base0, ids, 0, seed=7)
+        got, at = restore_checkpoint(d, {"adapters": ad3, "opt": st3},
+                                     step=2)
+    step, _ = make_lora_train_step(cfg, adamw(LORA_LR))
+    resumed = [step(base0, got["adapters"], got["opt"], ids)[2].item()
+               for _ in range(2)]
+    same = (first + resumed == full and at == 2 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(got["adapters"]),
+                                          tree_leaves(ad_full))))
+    say(f"main train lora checkpoint: 2 steps, saved, restored into fresh "
+        f"adapters and AdamW state, 2 more: losses {first + resumed} against "
+        f"uninterrupted {full}; adapters and losses bit-equal {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the resumed LoRA run differs from the "
+                             "uninterrupted one")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3927,6 +4460,7 @@ def main() -> int:
         stats[kind] = {"max_abs_err": worst}
     stats.update(phase_conv_kernels())
     stats.update(phase_packed_kernels())
+    stats.update(phase_ln_stats_kernels())
     for kind, st in phase_warm_kernels().items():
         if kind == "blocked_matmul_warm":
             continue    # its line takes phase 5's, at the key it times
@@ -3942,10 +4476,13 @@ def main() -> int:
                    phase_serving_modes(setups[0]), moe_launches,
                    phase_mlp_training(), phase_gpt_training(),
                    phase_moe_training(), phase_mha_suite(),
-                   phase_conv_suite(), phase_packed_suite()):
+                   phase_conv_suite(), phase_packed_suite(),
+                   phase_ln_stats_path(), phase_int4_serving(),
+                   phase_lora()):
         for kind, n in counts.items():
             launches[kind] += n
     timing = phase_timing()
+    timing.update(phase_ln_stats_timing())
     phase_serving_timing(setups)
     phase_moe_serving_timing(moe_setup)
     kernels = []
@@ -3973,7 +4510,10 @@ def main() -> int:
             ("blocked_matmul", "blocked_matmul.cu", "kernels.py:763"),
             ("blocked_matmul_warm", "blocked_matmul.cu", "kernels.py:870"),
             # B24's kernel in the channel-blocked layout
-            ("conv_blocked", "conv.cu", "kernels.py:2778")):
+            ("conv_blocked", "conv.cu", "kernels.py:2778"),
+            # B2's LN-stats producer/consumer pair (the line's times: the
+            # two launches, at the bf16 GPT-2 fc key)
+            ("brgemm_ln_stats", "brgemm.cu", "kernels.py:243")):
         also = {"attention_flat": [":2395", ":2496", ":2618", ":2721"],
                 "batch_matmul": [":1065"], "conv_nhwc": [":3117"]}.get(kind)
         kernels.append({"name": kind, "route": "cuda",

@@ -1711,3 +1711,120 @@ def test_packed_nets_on_the_card_match_linalg_to_loops(cuda, entry):
     want = res["baseline"]["outputs"][0]
     assert torch.isfinite(got.float()).all()
     assert _err(got, want) <= 3e-2
+
+
+# B2's LN-stats pair (csrc/brgemm.cu): the producer's y at the single-GEMM
+# tolerance, its mean and var against the plain statistics of its own y at
+# 1e-5, the consumer at the LayerNorm-prologue tolerance, both bit-equal
+# across launches; ragged m and an n no tile divides, on each route
+@pytest.mark.parametrize("dtype,precision,m,n,k", [
+    ("bf16", "default", 200, 200, 64), ("f32", "default", 130, 96, 72),
+    ("f32", "highest", 100, 136, 40), ("bf16", "default", 256, 3000, 768)],
+    ids=["bf16-tma-ragged", "f32-convert", "f32-fma", "bf16-n3000"])
+def test_ln_stats_pair_matches_plain_and_repeats(cuda, dtype, precision, m,
+                                                n, k):
+    from tpp_mlir_tpu_torch.xsmm.reference import ln_stats_out
+    g = cuda
+    common = dict(batch=1, m=m, dtype=dtype, precision=precision,
+                  beta0=True, binary_kind="add")
+    kp = BrgemmKey(n=n, k=k, unary_kind="gelu", ln_stats_out=True, **common)
+    kc = BrgemmKey(n=64, k=n, prologue="ln_stats", **common)
+    a, w1 = _rnd(g, (1, m, k), dtype), _rnd(g, (1, k, n), dtype, k ** -0.5)
+    b1 = _rnd(g, (n,), "f32", 0.1)
+    w2, b2 = _rnd(g, (1, n, 64), dtype, n ** -0.5), _rnd(g, (64,), "f32")
+    gamma, beta = _rnd(g, (n,), "f32") + 1, _rnd(g, (n,), "f32")
+    prod, cons = build_kernel(kp), build_kernel(kc)
+    y, mu, var = prod(a, w1, None, b1)
+    y2, mu2, var2 = prod(a, w1, None, b1)
+    kw = dict(gamma=gamma, beta=beta, mu=mu, var=var)
+    z = cons(y.reshape(1, m, n), w2, None, b2, **kw)
+    z2 = cons(y.reshape(1, m, n), w2, None, b2, **kw)
+    want_y = reference_kernel(kp)(a, w1, None, b1)[0]
+    want_z = reference_kernel(kc)(y.reshape(1, m, n), w2, None, b2, **kw)
+    torch.cuda.synchronize()
+    assert prod.launches == 2 and cons.launches == 2
+    assert _err(y, want_y) <= _tol(kp)
+    own_mu, own_var = ln_stats_out(y)
+    assert _err(mu, own_mu) <= 1e-5 and _err(var, own_var) <= 1e-5
+    tol = 1e-4 if precision == "highest" else 1e-2
+    assert _err(z, want_z) <= tol
+    assert torch.equal(y, y2) and torch.equal(mu, mu2) and \
+        torch.equal(var, var2) and torch.equal(z, z2)
+
+
+def test_lora_step_on_the_card_matches_kernels_off(cuda):
+    """A LoRA step through the prefill with B14/B18 (no B7: it has no
+    backward) against the kernels-off route's step-0 adapter grads (3e-2,
+    relative Frobenius over all of them), and a QLoRA int4 base trains."""
+    from tpp_mlir_tpu_torch.parallel import adamw, tree_leaves
+    from tpp_mlir_tpu_torch.serving import (lora_init, make_lora_train_step,
+                                            quantize_params)
+    cfg, params = _serving_model()
+    ids = torch.randint(0, cfg.vocab, (2, 64), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    grads = []
+    for kernels in (True, False):
+        ad = lora_init(params, rank=4, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for blk in ad["blocks"]:
+            for ab in blk.values():
+                ab["b"].normal_(0, 0.01, generator=gen)
+        step, init = make_lora_train_step(cfg, adamw(1e-3),
+                                          use_kernels=kernels)
+        cache = global_cache()
+        cache.reset_launches()
+        step(params, ad, init(ad), ids)
+        counts = cache.launches_by_kind()
+        if kernels:
+            assert counts["FlashTrainKey"] == cfg.layers
+            assert counts["FlashTrainBwdKey"] == cfg.layers
+            assert counts.get("FlashMhaKey", 0) == 0
+        grads.append([t.grad.clone() for t in tree_leaves(ad)])
+    # all adapter grads jointly: a single top-layer wq leaf is
+    # ill-conditioned at initialization (chip_smoke.py phase_lora)
+    got, want = (torch.cat([t.float().flatten() for t in g]) for g in grads)
+    assert (got - want).norm() / want.norm() <= 3e-2
+    q4 = quantize_params(params, bits=4)
+    ad = lora_init(q4, rank=4, seed=1)
+    step, init = make_lora_train_step(cfg, adamw(1e-2))
+    st = init(ad)
+    losses = [step(q4, ad, st, ids)[2].item() for _ in range(3)]
+    assert losses[-1] < losses[0]
+
+
+def test_int4_serving_matches_the_kernels_off_engine(cuda):
+    import dataclasses
+
+    from tpp_mlir_tpu_torch.serving import (make_decode_step, make_prefill,
+                                            quantize_params)
+    cfg, params = _serving_model()
+    params = quantize_params(params, bits=4)
+    off = dataclasses.replace(cfg, decode_attn="xla")
+    ids = torch.randint(0, cfg.vocab, (4, 40), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    la, ca = make_prefill(cfg)(params, ids[:, :32])
+    lb, cb = make_prefill(off, use_kernels=False)(params, ids[:, :32])
+    assert _err(la, lb) <= 3e-2
+    for t in range(32, 40):
+        la, ca = make_decode_step(cfg)(params, ca, ids[:, t])
+        lb, cb = make_decode_step(off, use_kernels=False)(params, cb,
+                                                          ids[:, t])
+        assert _err(la, lb) <= 3e-2
+
+
+def test_remat_lora_step_gives_the_same_losses(cuda):
+    import dataclasses
+
+    from tpp_mlir_tpu_torch.parallel import adamw
+    from tpp_mlir_tpu_torch.serving import lora_init, make_lora_train_step
+    cfg, params = _serving_model()
+    ids = torch.randint(0, cfg.vocab, (2, 64), generator=cuda,
+                        device="cuda", dtype=torch.int32)
+    runs = []
+    for remat in (False, True):
+        rcfg = dataclasses.replace(cfg, remat=remat)
+        ad = lora_init(params, rank=4, seed=0)
+        step, init = make_lora_train_step(rcfg, adamw(1e-2))
+        st = init(ad)
+        runs.append([step(params, ad, st, ids)[2].item() for _ in range(2)])
+    assert runs[0] == runs[1]

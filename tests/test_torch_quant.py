@@ -89,12 +89,77 @@ def test_quantize_params_bit_identical(dtype):
                            jq["lm_head"]))))
 
 
-def test_int4_raises_naming_the_roadmap_item():
-    params = P.init_params(P.GptConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7.*packed int4"):
-        P.quantize_params(params, bits=4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        P.quantize(torch.ones(4, 4), bits=4)
+@pytest.mark.parametrize("axis,shape", [(-2, (64, 48)), (-1, (64, 48)),
+                                        (-2, (48, 95))],
+                         ids=["in-out", "rows", "odd-width"])
+def test_int4_quantize_matches_jax(axis, shape):
+    """int4 (refused until A7 was ported): the packed payload holds JAX's
+    jnp.int4 values exactly (read as int8), the scales are the same bits,
+    and the payload takes half of int8's bytes (a row of odd width pads
+    half a byte)."""
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal(shape).astype(np.float32) * 0.3
+    w[:, 5] = 0.0
+    w[3, 7] = 2.5 * np.abs(w).max()
+    jq = J.quantize(jnp.asarray(w), axis=axis, bits=4)
+    pq = P.quantize(torch.from_numpy(w), axis=axis, bits=4)
+    assert pq.bits == 4 and pq.dims == shape and pq.q.dtype == torch.uint8
+    assert _same(pq.values(), np.asarray(jq.q).astype(np.int8))
+    assert _same(pq.scale, jq.scale)
+    assert pq.q.shape == (shape[0], (shape[1] + 1) // 2)
+    assert torch.equal(P.dequantize(pq), torch.from_numpy(
+        np.asarray(J.dequantize(jq))))
+    rows = torch.tensor([3, 0, 3])
+    assert torch.equal(pq.rows(rows), pq.values()[rows])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int4_quantize_params_matches_jax(dtype):
+    cfg = J.GptConfig(dtype=dtype, **BASE)
+    jp = J.init_params(cfg, seed=0)
+    pp = P.params_from_numpy(to_numpy(jp), P.GptConfig(dtype=dtype, **BASE),
+                             device="cpu")
+    jq = J.quantize_params(jp, include_embed=True, bits=4)
+    pq = P.quantize_params(pp, include_embed=True, bits=4)
+    for name in ("wte", "wpe", "lm_head"):
+        assert _same(pq[name].values(), np.asarray(jq[name].q, np.int8))
+        assert _same(pq[name].scale, jq[name].scale)
+    for jb, pb in zip(jq["blocks"], pq["blocks"]):
+        for name, leaf in jb.items():
+            if isinstance(leaf, J.QTensor):
+                assert pb[name].bits == 4, name
+                assert _same(pb[name].values(), np.asarray(leaf.q, np.int8))
+    # the JAX package counts half a byte an int4 element: equal at these
+    # even widths, and the int4 payloads are half of int8's
+    assert P.quantized_bytes(pq) == J.quantized_bytes(jq)
+    q8 = P.quantize_params(pp, include_embed=True)
+    scales = sum(v.scale.numel() * 4 for v in
+                 [pq["wte"], pq["wpe"], pq["lm_head"]]
+                 + [x for b in pq["blocks"] for x in b.values()
+                    if isinstance(x, P.QTensor)])
+    raw = P.quantized_bytes({"blocks": [
+        {k: v for k, v in b.items() if not isinstance(v, P.QTensor)}
+        for b in pq["blocks"]], "lnf_g": pq["lnf_g"], "lnf_b": pq["lnf_b"]})
+    assert 2 * (P.quantized_bytes(pq) - scales - raw) == \
+        P.quantized_bytes(q8) - scales - raw
+    # a JAX int4 tree carries across: payload values and scales bit for bit
+    carried = P.params_from_numpy(to_numpy(jq), P.GptConfig(dtype=dtype,
+                                                            **BASE),
+                                  device="cpu")
+    for name in ("wte", "lm_head"):
+        assert carried[name].bits == 4
+        assert torch.equal(carried[name].q, pq[name].q)
+    assert torch.equal(carried["blocks"][1]["w2"].q, pq["blocks"][1]["w2"].q)
+
+
+def test_int4_pack_round_trips_every_value():
+    v = torch.arange(-8, 8, dtype=torch.int8).repeat(3, 1)[:, :15]
+    p = P.pack_int4(v)
+    assert p.dtype == torch.uint8 and p.shape == (3, 8)
+    assert torch.equal(P.unpack_int4(p, 15), v)
+    # element 2i is the low nibble, two's complement
+    assert P.pack_int4(torch.tensor([[-1, 1]], dtype=torch.int8)).item() \
+        == 0x1F
 
 
 @pytest.mark.parametrize("dtype,stacked,bits_view", [

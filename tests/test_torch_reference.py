@@ -233,9 +233,29 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching():
         kern(*[t.to("meta") if t is not None else None for t in args])
 
 
+@pytest.mark.parametrize("key", [
+    BrgemmKey(1, 8, 16, 16, beta0=True, prologue="ln_stats"),
+    BrgemmKey(1, 8, 16, 16, beta0=True, ln_stats_out=True)],
+    ids=["ln_stats", "ln_stats_out"])
+def test_ln_stats_keys_are_in_the_slice(key):
+    """B2's LN-stats pair, once refused (queue A6), builds and runs its
+    plain version on CPU tensors (tests/test_torch_ln_stats.py holds it to
+    the JAX package)."""
+    rng = np.random.default_rng(0)
+    a, b = (to_torch(_np(s, rng, "f32")) for s in ((1, 8, 16), (1, 16, 16)))
+    kw = {}
+    if key.prologue:
+        kw = dict(gamma=torch.ones(16), beta=torch.zeros(16),
+                  mu=a[0].mean(1, keepdim=True),
+                  var=a[0].var(1, unbiased=False, keepdim=True))
+    out = build_kernel(key)(a, b, **kw)
+    y = out[0] if key.ln_stats_out else out
+    assert y.shape == (8, 16) and torch.isfinite(y).all()
+    if key.ln_stats_out:
+        assert out[1].shape == out[2].shape == (8, 1)
+
+
 @pytest.mark.parametrize("key,item", [
-    (BrgemmKey(1, 8, 16, 16, prologue="ln_stats"), "A6"),
-    (BrgemmKey(1, 8, 16, 16, ln_stats_out=True), "A6"),
     (BrgemmKey(1, 8, 16, 16, dtype="f16"), "A14"),
     (ChainKey(m=8, dims=(16, 32), repeats=4, pingpong=True,
               dtype="f16"), "A14"),

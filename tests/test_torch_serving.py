@@ -28,12 +28,15 @@ import tpp_mlir_tpu_torch.serving as P
 BASE = dict(vocab=96, embed=64, heads=4, layers=2, mlp_ratio=4, max_seq=24)
 B, S0, T = 2, 16, 4     # B*S0 = 32 rows: prefill reaches the int8 route
 
-# name -> (config kwargs, llama preset, quantize_params weights)
+# name -> (config kwargs, llama preset, quantize_params bits: False for
+# none, True for 8, or 4: packed int4 payloads carried from jnp.int4)
 CASES = {
     "gpt2_f32": (dict(dtype="f32"), False, False),
     "llama_gqa": (dict(dtype="f32", kv_heads=2), True, False),
     "kv_int8": (dict(dtype="f32", kv_quant="int8"), False, False),
     "int8_compute": (dict(dtype="f32", int8_compute=True), False, True),
+    "int4": (dict(dtype="f32"), False, 4),
+    "int4_compute": (dict(dtype="f32", int8_compute=True), False, 4),
     "kv_packed": (dict(dtype="f32", kv_packed=True, decode_attn="pallas"),
                   False, False),
     "bf16": (dict(dtype="bf16"), False, False),
@@ -57,7 +60,8 @@ class Case:
         self.pcfg = (P.GptConfig.llama if llama else P.GptConfig)(
             **BASE, **kw)
         jp = J.init_params(self.jcfg, seed=7)
-        self.jp = J.quantize_params(jp) if quant else jp
+        self.jp = J.quantize_params(jp, bits=8 if quant is True else quant) \
+            if quant else jp
         self.pp = P.params_from_numpy(jax.tree.map(np.asarray, self.jp),
                                       self.pcfg, device="cpu")
         self.ids = np.random.default_rng(7).integers(
@@ -186,14 +190,13 @@ def test_decode_kernel_and_einsum_paths_agree():
 def test_config_refuses_what_is_not_ported():
     """MoE is ported (A9): n_experts is accepted, with the JAX engine's own
     checks (engine.py:138-142 there) and only the forms its dispatchers
-    read; remat is not (A10)."""
+    read; so is remat (A10, read by the prefill under a gradient)."""
     assert P.GptConfig(n_experts=4).n_experts == 4
     for bad in (dict(top_k=5), dict(top_k=0), dict(swiglu=True),
                 dict(moe_prefill_form="dense"), dict(moe_decode_form="xla")):
         with pytest.raises(ValueError):
             P.GptConfig(n_experts=4, **bad)
-    with pytest.raises(NotImplementedError, match="A10"):
-        P.GptConfig(n_experts=4, remat=True)
+    assert P.GptConfig(n_experts=4, remat=True).remat
     with pytest.raises(ValueError):
         P.GptConfig(**BASE, kv_packed=True, decode_attn="xla")
 
@@ -238,16 +241,35 @@ def _moe_run(monkeypatch, **fields):
     ("remat", True, "A10")])
 def test_config_refuses_fields_nothing_reads_yet(field, value, item,
                                                  monkeypatch):
-    """A field read only by code not ported yet (remat, A10) takes only its
-    default, so no setting silently does nothing. The MoE fields (A9) are
-    read since the MoE slice: a non-default value is accepted and reaches
-    the engine code that reads it; moe_group_stacked, which nothing needs
-    in the per-layer layout, leaves the logits bit-identical."""
+    """No setting silently does nothing. The MoE fields (A9) are read since
+    the MoE slice: a non-default value is accepted and reaches the engine
+    code that reads it; moe_group_stacked, which nothing needs in the
+    per-layer layout, leaves the logits bit-identical. remat (A10), refused
+    until the LoRA slice, is accepted: a prefill under a gradient runs each
+    layer through torch.utils.checkpoint, and one without leaves the logits
+    bit-identical."""
     assert getattr(P.GptConfig(**BASE), field) == getattr(
         J.GptConfig(**BASE), field)
-    if item != "A9":
-        with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
-            P.GptConfig(**BASE, **{field: value})
+    if field == "remat":
+        from tpp_mlir_tpu_torch.serving import engine
+        calls = []
+        real = torch.utils.checkpoint.checkpoint
+
+        def spy(fn, *a, **kw):
+            calls.append(fn.__name__)
+            return real(fn, *a, **kw)
+        monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", spy)
+        cfg = P.GptConfig(**BASE, remat=value)
+        params = P.init_params(cfg, seed=0, device="cpu")
+        ids = torch.arange(8, dtype=torch.int32)[None]
+        with torch.no_grad():
+            got, _ = P.make_prefill(cfg)(params, ids)
+        want, _ = P.make_prefill(P.GptConfig(**BASE))(params, ids)
+        assert torch.equal(got, want) and not calls
+        params["blocks"][0]["wq"].requires_grad_(True)
+        got, _ = P.make_prefill(cfg)(params, ids)
+        assert calls == ["_prefill_layer"] * BASE["layers"]
+        assert engine._prefill_layer.__name__ == "_prefill_layer"
         return
     if field == "moe_group_stacked":
         grouped = dict(moe_prefill_form="grouped", moe_group_bm=8)
@@ -354,14 +376,15 @@ def test_tpp_serve_matches_the_jax_tool_on_carried_weights():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quant", "int4"], ["--tp", "2"], ["--speculative", "3"],
+    ["--kv-heads", "3"], ["--tp", "2"], ["--speculative", "3"],
     ["--continuous", "4", "--sync-steps", "0"], ["--beams", "97"],
     ["--experts", "2", "--top-k-experts", "3"], ["--prompt-len", "20"]])
 def test_tpp_serve_refuses_with_exit_2(flags):
-    """int4 (A7) and --tp (A11) are not ported; --speculative serves batch
-    1 only (SERVE's batch is 2); no sync step, more beams than the vocab,
-    more experts a token than the model has and a prompt past max_seq are
-    refused."""
+    """--tp (A11) is not ported; --speculative serves batch 1 only
+    (SERVE's batch is 2); KV heads that do not divide the heads, no sync
+    step, more beams than the vocab, more experts a token than the model
+    has and a prompt past max_seq are refused. (--quant int4, refused
+    here until int4 was ported, runs: test_tpp_serve_quant_runs.)"""
     from tpp_mlir_tpu_torch.tools import tpp_serve
 
     assert tpp_serve.main(SERVE + ["--device", "cpu"] + flags,
@@ -391,3 +414,26 @@ def test_serving_trace_reads_only_device_time():
         trace_serving(cfg, params, ids)
     with pytest.raises(RuntimeError, match="needs --device cuda"):
         main(["--serve", '{"layers": 1}', "--device", "cpu"])
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_tpp_serve_quant_runs(quant):
+    """--quant int8 and int4 serve (int4 was refused until A7 ported it):
+    the tool's greedy tokens equal make_generate's over the tool's own
+    setup with the weights quantized at those bits."""
+    from tpp_mlir_tpu_torch.tools import tpp_serve
+
+    out = io.StringIO()
+    assert tpp_serve.main(SERVE + ["--device", "cpu", "--quant", quant],
+                          out=out) == 0
+    rows = [list(map(int, line.split()))
+            for line in out.getvalue().splitlines()[1:]]
+    args = tpp_serve.build_parser().parse_args(SERVE)
+    cfg, params, ids = tpp_serve.setup(dict(
+        vocab=96, embed=64, heads=4, layers=2, max_seq=24, dtype="f32",
+        batch=args.batch, prompt=args.prompt_len, seed=args.seed,
+        quant=int(quant[3:])), device="cpu")
+    assert isinstance(params["lm_head"], P.QTensor)
+    assert params["lm_head"].bits == int(quant[3:])
+    want = tpp_serve.serve(cfg, params, ids, args.steps)["tokens"]
+    assert rows == want.tolist()

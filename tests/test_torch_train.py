@@ -305,12 +305,35 @@ def _gpt_step(**kw):
      "A11"),
     (lambda: make_gpt_train_step(P.GptConfig.llama(**CFG), sgd(0.1),
                                  device="cpu"), "queue C"),
-    (lambda: P.GptConfig(**CFG, n_experts=4, remat=True), "A10"),
 ], ids=["mlp-dp2", "optim-tp2", "zero1", "gpt-dp2tp2", "gpt-zero1",
-        "vocab-parallel", "moe", "llama", "remat"])
+        "vocab-parallel", "moe", "llama"])
 def test_refusals_name_their_roadmap_item(build, item):
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_remat_prefill_gives_the_same_loss_and_grads(moe):
+    """remat (refused until A10 was ported) is accepted, MoE included, and
+    the prefill's next-token loss and its gradients are the same with each
+    layer recomputed in the backward (torch.utils.checkpoint)."""
+    kw = dict(n_experts=4, moe_prefill_form="grouped", moe_group_bm=8) \
+        if moe else {}
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, CFG["vocab"], (2, 12)).astype(np.int32))
+    out = []
+    for remat in (False, True):
+        cfg = P.GptConfig(**CFG, **kw, remat=remat)
+        params = P.init_params(cfg, seed=3, device="cpu")
+        leaves = [blk[n] for blk in params["blocks"] for n in ("wq", "wo")]
+        for t in leaves:
+            t.requires_grad_(True)
+        logits, _ = P.make_prefill(cfg)(params, ids)
+        loss = next_token_loss(logits, ids)
+        out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    for g0, g1 in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(g1, g0, atol=1e-6, rtol=1e-6)
 
 
 def test_a_one_device_mesh_is_accepted():

@@ -74,6 +74,11 @@ __device__ __forceinline__ float apply_binary(int kind, float a, float b) {
   }
 }
 
+// v as store_out stores it, read back as f32 (one rounding to bf16)
+__device__ __forceinline__ float round_out(int dtype, float v) {
+  return dtype == kBF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 __device__ __forceinline__ void store_out(void* out, size_t i, int dtype,
                                           float v) {
   if (dtype == kBF16)

@@ -167,6 +167,9 @@ struct Gemm {
   void* out;
   float* work;             // split > 1: [split][Mb Nb mb nb] f32 partials
   const float2* stats;     // LayerNorm: (mean, rstd) of each A row
+  float2* rowpart;         // ln_stats_out (Mb = Nb = 1, split 1): the (sum,
+                           // sum of squares) of each output row's stored
+                           // values in each BN-column tile, [nb / BN][mb]
   const float* gamma;      // LayerNorm affine, or null
   const float* beta;
   int Mb, Nb, Kb, mb, nb, kb;
@@ -497,7 +500,11 @@ __device__ __forceinline__ void load4(float (&x)[4], const void* p, size_t i,
 // compiler cannot know the output aliases nothing, and loads behind stores
 // would wait a round trip each. With split > 1 the raw partial goes to
 // slice ks of the workspace; otherwise + C, OP D, the unary U, one
-// rounding.
+// rounding. With g.rowpart, each row's stored values (after that rounding)
+// are summed, and squared and summed, over the tile's columns: a thread's
+// run in column order, then a shuffle tree over the RUNS threads of the row
+// (within one warp), so the partial is the same at every launch; the row's
+// lead thread writes it to g.rowpart[tile column][row].
 template <int BM, int BN, int THREADS, int U>
 __device__ __forceinline__ void epilogue_rows(const Gemm& g,
                                               const float* tile, int i,
@@ -506,8 +513,10 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
   constexpr int LD = BN + 8, RUNS = BN / 4, STEP = THREADS / RUNS, R = 4;
   static_assert(THREADS % RUNS == 0 && BM % (STEP * R) == 0, "whole rows");
   const size_t blk = ((size_t)i * g.Nb + j) * g.mb;
+  static_assert(32 % RUNS == 0, "a row's runs lie in one warp");
   const int t = t0 + (ctid % RUNS) * 4, n = clamp_run(g.nb - t, 4);
-  if (n == 0) return;
+  const bool stats = g.rowpart != nullptr;   // the same for every thread
+  if (n == 0 && !stats) return;   // with stats it joins the row's shuffles
   const bool vec = (g.nb & 3) == 0 && n == 4;
   const bool epi = g.split == 1;
   float dcol[4] = {0.f, 0.f, 0.f, 0.f};
@@ -522,7 +531,7 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
       const float4 f = *reinterpret_cast<const float4*>(tile + row * LD +
                                                         (ctid % RUNS) * 4);
       v[r][0] = f.x; v[r][1] = f.y; v[r][2] = f.z; v[r][3] = f.w;
-      if (!epi || p >= g.mb) continue;
+      if (!epi || p >= g.mb || n == 0) continue;
       const size_t o = (blk + p) * g.nb + t;
       float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4];
       if (g.has_c) load4(c, g.c, o, g.c_dtype, vec && g.vec_c, n);
@@ -543,10 +552,15 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
         v[r][e] = g.binary != kBinNone ? apply_binary(g.binary, x, d[e]) : x;
       }
     }
+    float s1[R], s2[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int p = p0 + r0 + r * STEP;
-      if (p >= g.mb) continue;
+      s1[r] = s2[r] = 0.f;
+      // a run with no column takes part in the shuffles below and in
+      // nothing else: without this skip, the run that starts at nb stored
+      // into the next row's first columns on the card
+      if (p >= g.mb || n == 0) continue;
       const size_t o = (blk + p) * g.nb + t;
       float* x = v[r];
       if (!epi) {
@@ -562,6 +576,14 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[e] = apply_unary(U, x[e]);
+      if (stats) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = e < n ? round_out(g.out_dtype, x[e]) : 0.f;
+          s1[r] += y;
+          s2[r] += y * y;
+        }
+      }
       if (vec && g.out_dtype == kBF16) {
         const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
         const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
@@ -575,6 +597,19 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (e < n) store_out(g.out, o + e, g.out_dtype, x[e]);
+      }
+    }
+    if (stats) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int off = RUNS / 2; off > 0; off >>= 1) {
+          s1[r] += __shfl_xor_sync(0xffffffffu, s1[r], off);
+          s2[r] += __shfl_xor_sync(0xffffffffu, s2[r], off);
+        }
+        const int p = p0 + r0 + r * STEP;
+        if (ctid % RUNS == 0 && p < g.mb)
+          g.rowpart[(size_t)(t0 / BN) * g.mb + p] = make_float2(s1[r], s2[r]);
       }
     }
   }
@@ -753,8 +788,11 @@ struct Plan {
 // tile: half the L2 traffic a flop of two 64-row blocks, which at the
 // slice's sizes outweighs the SMs a smaller grid leaves idle); under that,
 // 64 x 64 tiles and k split into as many slices as fill the wave, each
-// slice at least four 64-deep stages.
-inline Plan gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb) {
+// slice at least four 64-deep stages. no_split (the row statistics of
+// ln_stats_out are taken in the tile epilogue, which a split defers to
+// split_reduce) keeps 64 x 64 tiles unsplit there.
+inline Plan gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
+                      bool no_split = false) {
   const int sms = sm_count();
   auto tiles = [&](int bm, int bn) {
     return (long long)Mb * ((mb + bm - 1) / bm) * Nb * ((nb + bn - 1) / bn);
@@ -762,20 +800,24 @@ inline Plan gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb) {
   const int cand[3][2] = {{128, 128}, {64, 128}, {64, 64}};
   for (const auto& c : cand)
     if (2 * tiles(c[0], c[1]) >= sms) return {c[0], c[1], 1};
+  if (no_split) return {64, 64, 1};
   const long long t = tiles(64, 64);
   const long long kt = (long long)Kb * ((kb + BK - 1) / BK);
   const long long s = std::min<long long>(sms / t, kt / 4);
   return {64, 64, static_cast<int>(std::max<long long>(s, 1))};
 }
 
-// bytes of the f32 split partials (0 without a split) and, after them, the
-// LayerNorm statistics of `ln_rows` rows
+// bytes of the f32 split partials (0 without a split), after them the
+// LayerNorm statistics of `ln_rows` rows, and after those the ln_stats_out
+// row partials of `part_rows` rows ([nb / bn tiles][part_rows] float2)
 inline size_t work_bytes(const Plan& p, int Mb, int Nb, int mb, int nb,
-                         int ln_rows) {
+                         int ln_rows, int part_rows = 0) {
   const size_t part = p.split > 1
                           ? (size_t)p.split * Mb * Nb * mb * nb * sizeof(float)
                           : 0;
-  return (part + 15) / 16 * 16 + (size_t)ln_rows * sizeof(float2);
+  const size_t tiles = (size_t)(nb + p.bn - 1) / p.bn;
+  return (part + 15) / 16 * 16 +
+         ((size_t)ln_rows + tiles * part_rows) * sizeof(float2);
 }
 
 template <int NCW, int BN, int BMODE, int LOADER, int LN>

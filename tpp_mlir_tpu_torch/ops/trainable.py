@@ -68,9 +68,12 @@ class _F32Matmul(torch.autograd.Function):
     """x (..., K) @ w (K, N) with an f32 result. bf16 operands stay bf16
     (on CUDA `torch.mm(..., out_dtype=torch.float32)`, for which autograd
     raises "derivative for aten::mm is not implemented" in PyTorch 2.11);
-    the backward runs the same GEMMs on the
-    cotangent rounded to the operands' dtype, with f32 results, and returns
-    dx and dw in their operands' dtypes. f32 operands: true f32 throughout."""
+    the backward runs the same GEMMs on the cotangent rounded to the
+    operands' dtype (the wider of the two where they differ, as an f32
+    merged LoRA weight under bf16 activations), with f32 results, and
+    returns dx and dw in their operands' dtypes, each only where its input
+    needs a gradient (a frozen base weight costs no weight GEMM). f32
+    operands: true f32 throughout."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -80,10 +83,13 @@ class _F32Matmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
-        x2 = x.reshape(-1, x.shape[-1])
-        dx = _f32mm(g2, w.t()).to(x.dtype).reshape(x.shape)
-        dw = _f32mm(x2.t(), g2).to(w.dtype)
+        g2 = g.reshape(-1, g.shape[-1]).to(torch.promote_types(x.dtype,
+                                                              w.dtype))
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _f32mm(g2, w.t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _f32mm(x.reshape(-1, x.shape[-1]).t(), g2).to(w.dtype)
         return dx, dw
 
 

@@ -73,7 +73,11 @@ def slice_violation(op) -> str | None:
         if layout not in ("flat", "blocked", "conv", "conv_nhwc"):
             return f"{layout} layout"
         if a.get("prologue") not in (None, "layer_norm"):
-            return f"{a['prologue']} prologue (queue A6 / B2)"
+            # no pass of either package emits the ln_stats pair: its mu/var
+            # operands have no place in a dispatch op, and the pair is
+            # reached through the kernel-key API (xsmm.build_kernel)
+            return (f"a {a['prologue']} prologue in the IR (the ln_stats "
+                    f"pair runs through xsmm.build_kernel, not a pass)")
     if op.opname == "xsmm.unary_dispatch" and a["kind"] not in UNARY_KINDS:
         return f"xsmm.unary {a['kind']!r} (queue A3)"
     if op.opname == "xsmm.attention_dispatch":

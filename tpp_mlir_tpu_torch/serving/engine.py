@@ -39,31 +39,37 @@ with the same numerics, function for function. What differs, and why:
 
 Continuous batching, beam search and speculative decoding (`batching.py`,
 `beam.py`, `speculative.py`) run on these functions; their loops replay
-one CUDA graph per body (`Replayed`). Not ported here: `remat` (A10), the
-tp decode (A11), LoRA (A10), int4 weights (A7).
+one CUDA graph per body (`Replayed`). QTensor weights are int8 or packed
+int4 (`quant.py`; the engine unpacks int4 to the activation dtype in
+PyTorch). The prefill is differentiable for LoRA/QLoRA training
+(`lora.py`): where a gradient is taken, its contractions run through
+`ops.trainable.f32_matmul`, its attention through B14/B18 on the card (B7
+has no backward), its K/V are written to the cache detached, and
+`remat` recomputes each layer in the backward; int8 compute has no
+backward and raises. Not ported here: the tp decode (A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..utils.target import resolve_device
 from ..xsmm import (DecodeAttnKey, FlashMhaKey, FlashTrainKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     global_cache, reference_kernel)
+from ..xsmm.flash_train import flash_attention_train
 from ..xsmm.reference import DTYPES
-from .quant import QTensor, quantize_tokens, with_kmajor
+from .quant import QTensor, from_values, quantize_tokens, with_kmajor
 
 
-# GptConfig fields read only by code not ported yet: any value but the
-# default is refused, naming the ROADMAP item that ports the code
-_UNPORTED = {"remat": "A10, training"}
 # the MoE forms the JAX dispatchers read (_moe_ffn_decode, _moe_ffn_prefill)
 MOE_DECODE_FORMS = ("auto", "slice", "gather", "scan")
 MOE_PREFILL_FORMS = ("scan", "sorted", "grouped")
@@ -72,8 +78,8 @@ MOE_PREFILL_FORMS = ("scan", "sorted", "grouped")
 @dataclass(frozen=True)
 class GptConfig:
     """The JAX engine's GptConfig, field for field (see engine.py:36 there
-    for what each field means). `remat` takes only its default until
-    ROADMAP A10 ports the code that reads it."""
+    for what each field means). `remat` recomputes each layer's forward in
+    the backward of a prefill that takes a gradient (LoRA training)."""
 
     vocab: int = 50304
     embed: int = 768
@@ -111,12 +117,6 @@ class GptConfig:
         return cls(**kw)
 
     def __post_init__(self):
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name, item in _UNPORTED.items():
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the code that reads it "
-                    f"is not ported yet (ROADMAP {item})")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be f32 or bf16: {self.dtype!r}")
         if self.n_experts:      # engine.py:138-142 there
@@ -278,19 +278,22 @@ def stack_params(params: dict) -> dict:
     first = next(iter(blocks.values()))
     L = (first.q if isinstance(first, QTensor) else first).shape[0]
     out = dict(params)
-    out["blocks"] = [{k: QTensor(v.q[i], v.scale[i],
-                                 None if v.qt is None else v.qt[i])
-                      if isinstance(v, QTensor) else v[i]
-                      for k, v in blocks.items()}
-                     for i in range(L)]
+    out["blocks"] = [{k: v._replace(
+        q=v.q[i], scale=v.scale[i], qt=None if v.qt is None else v.qt[i],
+        shape=None if v.shape is None else v.shape[1:])
+        if isinstance(v, QTensor) else v[i] for k, v in blocks.items()}
+        for i in range(L)]
     return out
 
 
 def _from_numpy(a, dt: torch.dtype, device) -> torch.Tensor:
     """One array of a JAX params tree as a tensor. bf16 arrives as a uint16
     (or ml_dtypes bfloat16) bit view, or as f32 holding bf16-exact values;
-    either becomes torch.bfloat16 with no change of bits."""
+    either becomes torch.bfloat16 with no change of bits. A JAX int4
+    payload (ml_dtypes int4) is read as its int8 values."""
     a = np.asarray(a)
+    if a.dtype.name == "int4":
+        a = a.astype(np.int8)
     if a.dtype == np.int8:
         return torch.from_numpy(a.copy()).to(device)
     if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
@@ -312,16 +315,19 @@ def params_from_numpy(tree: dict, cfg: GptConfig, device="cuda") -> dict:
     """The port's params from a JAX params tree passed as numpy arrays (per
     layer or stacked), QTensors as (q, scale) pairs: the weight carrier that
     lets both engines run the same weights. Leaves take the config's dtype;
-    QTensor payloads stay int8 and their scales f32. Under int8 compute the
-    QTensors the int8 GEMM contracts against also get their K-major copies
-    (quant.with_kmajor)."""
+    int8 QTensor payloads stay int8, int4 ones (`jnp.int4`) are packed two
+    to a byte (quant.pack_int4), and their scales stay f32. Under int8
+    compute the QTensors the int8 GEMM contracts against also get their
+    K-major copies (quant.with_kmajor)."""
     device = resolve_device(device)
     dt = DTYPES[cfg.dtype]
 
     def leaf(x):
         if isinstance(x, tuple) and len(x) == 2:
-            return QTensor(_from_numpy(x[0], torch.int8, device),
-                           _from_numpy(x[1], torch.float32, device))
+            bits = 4 if np.asarray(x[0]).dtype.name == "int4" else 8
+            return from_values(_from_numpy(x[0], torch.int8, device),
+                               _from_numpy(x[1], torch.float32, device),
+                               bits)
         return _from_numpy(x, dt, device)
 
     blocks = tree["blocks"]
@@ -397,11 +403,23 @@ def _rope(x, pos, theta: float):
                      -1).to(x.dtype)
 
 
+def _grad_on(*ts) -> bool:
+    """Whether autograd records an op on ts: grad mode is on and one of
+    them requires grad (a prefill under LoRA training)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _f32mm(x, w):
     """x (..., K) @ w (K, N) with f32 accumulation and an f32 result (the
     JAX package's preferred_element_type=f32). A bf16 matmul would round
     its result to bf16; on CUDA `out_dtype` keeps it f32, elsewhere the
-    operands go up to f32 (bf16 products are exact in f32)."""
+    operands go up to f32 (bf16 products are exact in f32). Where a
+    gradient is taken through it, the same forward runs inside
+    `ops.trainable.f32_matmul` (torch.mm's out_dtype form has no
+    derivative), so the forward's bits do not change."""
+    if _grad_on(x, w):
+        from ..ops.trainable import f32_matmul
+        return f32_matmul(x, w)
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda and x2.dtype == w.dtype == torch.bfloat16:
         y = torch.mm(x2, w, out_dtype=torch.float32)
@@ -411,8 +429,11 @@ def _f32mm(x, w):
 
 
 def _f32bmm(a, b):
-    """Batched a @ b with f32 accumulation and an f32 result."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    """Batched a @ b with f32 accumulation and an f32 result (under a
+    gradient as an f32 bmm of the upcast operands: out_dtype has no
+    derivative)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and \
+            not _grad_on(a, b):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -423,13 +444,18 @@ def _mm_int8(x, w: QTensor, b=None, unary=None, kernels=False):
     accumulator (Int8GemmKey, csrc/int8_gemm.cu), reading the weight's
     K-major copy where the params carry one (quant.with_kmajor) and the
     bias in its stored dtype. Any row count: the TPU's padding of rows to
-    32 was a tile quantum."""
-    K, N = x.shape[-1], w.q.shape[-1]
+    32 was a tile quantum. B15 has no backward, in either package: a
+    gradient through it raises."""
+    if _grad_on(x) or (b is not None and _grad_on(b)):
+        raise NotImplementedError(
+            "int8_compute has no gradient: the int8 GEMM (Int8GemmKey, "
+            "csrc/int8_gemm.cu) has no backward; train with int8_compute off")
+    K, N = x.shape[-1], w.dims[-1]
     x2 = x.reshape(-1, K)
     xq, xs = quantize_tokens(x2)                 # (M, K) s8, (M,) f32
     key = Int8GemmKey(m=x2.shape[0], n=N, k=K, out_dtype="f32",
                       has_bias=b is not None, unary_kind=unary)
-    args = (xq, w.q, xs, w.scale) + ((b,) if b is not None else ())
+    args = (xq, w.values(), xs, w.scale) + ((b,) if b is not None else ())
     kw = {} if w.qt is None else {"wt": w.qt}
     return _kernel(key, kernels)(*args, **kw).reshape(*x.shape[:-1], N)
 
@@ -444,11 +470,12 @@ def _int8_rows(x, w, int8: bool) -> bool:
 
 def _mm(x, w, int8: bool = False, kernels: bool = False):
     """f32-accumulated contraction; a QTensor weight contracts against its
-    int8 payload cast to the activation dtype and scales the result."""
+    int8 (or unpacked int4) values cast to the activation dtype and scales
+    the result."""
     if isinstance(w, QTensor):
         if _int8_rows(x, w, int8):
             return _mm_int8(x, w, kernels=kernels)
-        return _f32mm(x, w.q.to(x.dtype)) * w.scale
+        return _f32mm(x, w.values().to(x.dtype)) * w.scale
     return _f32mm(x, w)
 
 
@@ -474,22 +501,23 @@ def _gather(w, idx):
     """Embedding rows (QTensor-aware, per-row scales) as f32. An index
     outside the table reads NaN, as `jnp.take` fills it (the free-slot
     sentinel pos == max_seq gathers wpe out of range)."""
-    table = w.q if isinstance(w, QTensor) else w
-    rows = table.shape[0]
+    quant = isinstance(w, QTensor)
+    rows, cols = w.dims if quant else w.shape
     flat = idx.reshape(-1).long()
     safe = flat.clamp(0, rows - 1)
-    got = table.index_select(0, safe).float()
-    if isinstance(w, QTensor):
-        got = got * w.scale.index_select(0, safe)
+    if quant:
+        got = w.rows(safe).float() * w.scale.index_select(0, safe)
+    else:
+        got = w.index_select(0, safe).float()
     got = torch.where(((flat >= 0) & (flat < rows))[:, None], got,
                       float("nan"))
-    return got.reshape(*idx.shape, table.shape[1])
+    return got.reshape(*idx.shape, cols)
 
 
 def _gather_window(w, pos, T: int):
     """Rows [pos, pos + T) of an embedding table, the start clamped so the
     window fits (dynamic_slice's rule); f32."""
-    rows = (w.q if isinstance(w, QTensor) else w).shape[0]
+    rows = (w.dims if isinstance(w, QTensor) else w.shape)[0]
     start = pos.long().clamp(0, rows - T)
     return _gather(w, start + torch.arange(T, device=pos.device))
 
@@ -805,7 +833,11 @@ def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
     cfg.flash_attn the training forward B14 (csrc/flash_train.cu; its plain
     version with kernels off), as the JAX engine routes it (engine.py:
     978-993 there, without its TPU VMEM gate); else the B7 kernel
-    (csrc/attention.cu) with kernels on, or the composed attention."""
+    (csrc/attention.cu) with kernels on, or the composed attention. Where a
+    gradient is taken (B7 has no backward): on CUDA with kernels on,
+    `flash_attention_train` (B14 forward, B18 backward), else the composed
+    attention, as `make_gpt_train_step` picks by default (ROADMAP
+    queue C)."""
     B, S, E = q.shape
     H, D = cfg.heads, cfg.head_dim
     scale = D ** -0.5
@@ -816,6 +848,13 @@ def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
             .reshape(B, S, E)
         v = v.reshape(B, S, cfg.kv_h, D).repeat_interleave(g, dim=2) \
             .reshape(B, S, E)
+    if _grad_on(q, k, v):
+        q4, k4, v4 = (t.reshape(B, S, H, D) for t in (q, k, v))
+        if kernels and q.is_cuda:
+            o = flash_attention_train(q4, k4, v4, scale)
+        else:
+            o = composed_causal_attention(q4, k4, v4, scale)
+        return o.reshape(B, S, E).to(q.dtype)
     if cfg.flash_attn:
         key = FlashTrainKey(batch=B, heads=H, seq=S, head_dim=D,
                             dtype=cfg.dtype, scale=scale)
@@ -899,7 +938,15 @@ def make_prefill(cfg: GptConfig, use_kernels: bool | None = None):
     """Return `prefill(params, ids) -> (logits, cache)`: ids (B, S0) int, a
     causal forward over the prompt; logits (B, S0, V) for every prompt
     position; the cache (see `_empty_cache`) with [0:S0) written and pos S0
-    (an int32 device scalar)."""
+    (an int32 device scalar).
+
+    The prefill is differentiable (the LoRA step takes its gradient): the
+    contractions and attention take their differentiable forms where a
+    gradient is taken (`_f32mm`, `_attention_full`), the cache gets
+    detached K/V (it holds no activations alive), and with `cfg.remat`
+    each layer runs under `torch.utils.checkpoint` (non-reentrant), so its
+    activations are recomputed in the backward (engine.py:1111,1122
+    there: `jax.checkpoint` around the scanned layer)."""
 
     def prefill(params, ids):
         kernels = _use_kernels(params, use_kernels)
@@ -910,10 +957,14 @@ def make_prefill(cfg: GptConfig, use_kernels: bool | None = None):
             x = x + _gather(params["wpe"], torch.arange(S0, device=dev))
         x = x.to(DTYPES[cfg.dtype])
         cache = _empty_cache(cfg, B, dev)
+        layer = _prefill_layer
+        if cfg.remat and torch.is_grad_enabled():
+            layer = functools.partial(torch.utils.checkpoint.checkpoint,
+                                      _prefill_layer, use_reentrant=False)
         for li, blk in enumerate(params["blocks"]):
-            x, k4, v4 = _prefill_layer(x, blk, cfg, kernels)
+            x, k4, v4 = layer(x, blk, cfg, kernels)
             # (B, S0, kv_h, D) -> per-head contiguous (B, kv_h, S0, D)
-            kt, vt = k4.transpose(1, 2), v4.transpose(1, 2)
+            kt, vt = k4.detach().transpose(1, 2), v4.detach().transpose(1, 2)
             if cfg.kv_packed:     # adjacent heads share one 2D row
                 kt, vt = (t.reshape(B, cfg.heads // 2, 2, S0, -1)
                           .transpose(2, 3).reshape(B, cfg.heads // 2, S0, -1)

@@ -1,17 +1,22 @@
-"""Weight-only int8 quantization for the serving engine.
+"""Weight-only int8 and int4 quantization for the serving engine.
 
-The port of `tpp_mlir_tpu/serving/quant.py`. Per-output-channel symmetric
-int8: a weight W (in, out) used as `x @ W` stores round(col / scale) with
-scale = max|col| / 127 per output column, so the scale factors out of the
-contraction exactly, `x @ (q * scale) == (x @ q) * scale`, and the engine
-computes the right-hand form. `torch.round` rounds half to even like
-`jnp.round`, and the division and the scale are the same f32 operations,
-so the payloads and scales are bit-identical to the JAX package's on the
-same f32 input.
+The port of `tpp_mlir_tpu/serving/quant.py`. Per-output-channel symmetric:
+a weight W (in, out) used as `x @ W` stores round(col / scale), clipped to
++-qmax, with scale = max|col| / qmax per output column (qmax 127 for int8,
+7 for int4), so the scale factors out of the contraction exactly,
+`x @ (q * scale) == (x @ q) * scale`, and the engine computes the
+right-hand form. `torch.round` rounds half to even like `jnp.round`, and
+the division and the scale are the same f32 operations, so the payloads
+and scales are bit-identical to the JAX package's on the same f32 input.
 
-int4 is not ported: torch has no packed int4 dtype, and int4 values kept
-in int8 would not halve the bytes that make int4 worth having. `bits=4`
-raises, naming ROADMAP A7 ("packed int4 weights").
+int4 payloads are packed two to a byte along the last dim (`pack_int4`:
+element 2i in the low nibble, 2i + 1 in the high one, two's complement; an
+odd last dim pads one zero nibble), so they take half of int8's bytes, as
+XLA stores `jnp.int4` packed on the TPU. `torch.int4` is not used: it is a
+placeholder dtype with almost no kernels. The engine unpacks to int8 and
+casts to the activation dtype in PyTorch, where XLA fuses the convert into
+the dot; the values -7..7 are exact in bf16, so `(x @ q) * scale` stays
+exact.
 """
 
 from __future__ import annotations
@@ -20,17 +25,33 @@ from typing import NamedTuple
 
 import torch
 
-INT4_TODO = ("int4 weights are not ported: ROADMAP A7, packed int4 weights "
-             "(torch has no packed int4 dtype; int4 values stored in int8 "
-             "would not halve the bytes)")
+QMAX = {8: 127.0, 4: 7.0}
+
+
+def pack_int4(v: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] (..., n) -> uint8 (..., ceil(n / 2)), two
+    two's-complement nibbles a byte: element 2i low, 2i + 1 high."""
+    if v.shape[-1] % 2:
+        v = torch.cat([v, v.new_zeros(*v.shape[:-1], 1)], -1)
+    u = (v & 0xF).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def unpack_int4(p: torch.Tensor, n: int) -> torch.Tensor:
+    """pack_int4's inverse: uint8 (..., ceil(n / 2)) -> int8 (..., n)."""
+    v = torch.stack([p & 0xF, p >> 4], -1).reshape(*p.shape[:-1], -1)
+    return (v[..., :n].to(torch.int8) ^ 8) - 8
 
 
 class QTensor(NamedTuple):
-    """Symmetric per-output-channel int8 weight: ``q * scale`` recovers the
-    weight. ``q`` is int8 with the weight's shape; ``scale`` is f32 with the
-    contraction (second-to-last) dim collapsed to 1, (in, out) -> (1, out),
-    so it broadcasts against the matmul result. ``qt``, where present, is
-    ``q``'s K-major (out, in) copy, made once where int8-compute weights
+    """Symmetric per-output-channel quantized weight: ``values() * scale``
+    recovers the weight. ``q`` is the payload: int8 with the weight's shape
+    (bits 8), or uint8 with two int4 values a byte along the last dim
+    (bits 4, `pack_int4`). ``scale`` is f32 with the contraction
+    (second-to-last) dim collapsed to 1, (in, out) -> (1, out), so it
+    broadcasts against the matmul result. ``shape`` is the weight's shape
+    where ``q``'s is not it (bits 4). ``qt``, where present, is the int8
+    values' K-major (out, in) copy, made once where int8-compute weights
     are placed (`with_kmajor`): the int8 compute GEMM's wgmma body takes
     8-bit operands K-major only, and reads it in place of a transpose per
     call. The decode step's weight-only route reads ``q``."""
@@ -38,27 +59,55 @@ class QTensor(NamedTuple):
     q: torch.Tensor
     scale: torch.Tensor
     qt: torch.Tensor | None = None
+    bits: int = 8
+    shape: tuple | None = None
+
+    @property
+    def dims(self) -> tuple:
+        """The weight's (logical) shape."""
+        return tuple(self.q.shape) if self.shape is None else self.shape
+
+    def values(self) -> torch.Tensor:
+        """The integer payload as int8 at the weight's shape."""
+        if self.bits == 8:
+            return self.q
+        return unpack_int4(self.q, self.dims[-1])
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """values()[idx] along dim 0, unpacking only the rows taken."""
+        got = self.q.index_select(0, idx)
+        return got if self.bits == 8 else unpack_int4(got, self.dims[-1])
+
+
+def from_values(q: torch.Tensor, scale: torch.Tensor,
+                bits: int = 8) -> QTensor:
+    """A QTensor from int8 values (packed here for bits 4)."""
+    if bits == 8:
+        return QTensor(q=q, scale=scale)
+    return QTensor(q=pack_int4(q), scale=scale, bits=4,
+                   shape=tuple(q.shape))
 
 
 def quantize(w: torch.Tensor, axis: int = -2, bits: int = 8) -> QTensor:
     """Quantize one weight per output channel along ``axis`` (the
-    contraction dim; -2 for (in, out) layouts, -1 for gathered rows)."""
-    if bits == 4:
-        raise NotImplementedError(INT4_TODO)
-    if bits != 8:
-        raise ValueError(f"bits must be 8 (or 4, not ported): {bits}")
+    contraction dim; -2 for (in, out) layouts, -1 for gathered rows).
+    bits 8 (qmax 127) or 4 (qmax 7, packed): round, clip, then cast, as
+    the JAX package does, so no value wraps at the clip edge."""
+    if bits not in QMAX:
+        raise ValueError(f"bits must be 8 or 4: {bits}")
+    qmax = QMAX[bits]
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
-    q = torch.clamp(torch.round(wf / scale), -127.0, 127.0).to(torch.int8)
-    return QTensor(q=q, scale=scale)
+    scale = torch.where(amax > 0, amax / qmax, 1.0)
+    q = torch.clamp(torch.round(wf / scale), -qmax, qmax).to(torch.int8)
+    return from_values(q, scale, bits)
 
 
 def dequantize(t):
     """The f32 weight (tests and oracles only; the engine never does this)."""
     if not isinstance(t, QTensor):
         return t
-    return t.q.float() * t.scale
+    return t.values().float() * t.scale
 
 
 # block weights that are matmul operands; norms and biases stay in the model
@@ -93,7 +142,7 @@ def quantize_params(params: dict, include_embed: bool = False,
 
 def _kmajor(w):
     if isinstance(w, QTensor) and w.q.dim() == 2 and w.qt is None:
-        return w._replace(qt=w.q.t().contiguous())
+        return w._replace(qt=w.values().t().contiguous())
     return w
 
 
@@ -132,7 +181,8 @@ def quantize_tokens(x: torch.Tensor, axis: int = -1):
 def quantized_bytes(params: dict) -> int:
     """Total parameter bytes as stored, the K-major copies (QTensor.qt)
     left out: the decode bandwidth denominator (the decode step reads
-    ``q``)."""
+    ``q``). A packed int4 payload counts its bytes, half of int8's (the
+    JAX package counts half a byte an element: the same for even rows)."""
     leaves = [v for k, v in params.items() if k != "blocks"]
     for blk in params["blocks"]:
         leaves += list(blk.values())

@@ -64,7 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quant", choices=["int8", "int4"], default="",
-                   help="weight quantization (int4: not ported, ROADMAP A7)")
+                   help="weight-only quantization of the matmul weights and "
+                        "LM head, per-output-channel scales (int4: two "
+                        "values a byte)")
     p.add_argument("--kv-quant", choices=["int8"], default="")
     p.add_argument("--llama", action="store_true",
                    help="RoPE + RMSNorm + SwiGLU (with --kv-heads for GQA)")
@@ -127,11 +129,6 @@ def main(argv=None, out=sys.stdout) -> int:
             return 2
     import torch
 
-    from tpp_mlir_tpu_torch.serving.quant import INT4_TODO
-
-    if args.quant == "int4":
-        print(INT4_TODO, file=sys.stderr)
-        return 2
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device (torch.cuda.is_available() is false); "
@@ -157,7 +154,7 @@ def main(argv=None, out=sys.stdout) -> int:
             n_experts=args.experts, top_k=args.top_k_experts,
             moe_prefill_form=args.moe_prefill, batch=args.batch,
             prompt=args.prompt_len, seed=args.seed, llama=args.llama,
-            quant=bool(args.quant)), dev)
+            quant=int(args.quant[3:]) if args.quant else 0), dev)
     except ValueError as e:         # a configuration GptConfig refuses
         print(e, file=sys.stderr)
         return 2
@@ -283,7 +280,8 @@ def _beams(args, cfg, params, ids, out) -> int:
 
 def setup(spec: dict, device="cuda"):
     """(cfg, params, ids) on `device` from GptConfig fields plus batch,
-    prompt, seed, llama (the LLaMA preset) and quant (int8 weights): the
+    prompt, seed, llama (the LLaMA preset) and quant (the weights' bits,
+    8 or 4; True is 8; 0 or False leaves them unquantized): the
     port's random weights from the seed, and the prompt ids drawn as the
     JAX tool draws them, default_rng(seed).integers(0, vocab, (B, P))."""
     import numpy as np
@@ -298,7 +296,7 @@ def setup(spec: dict, device="cuda"):
     cfg = (GptConfig.llama if spec.pop("llama", False) else GptConfig)(**spec)
     params = init_params(cfg, seed=seed, device=device)
     if quant:
-        params = quantize_params(params)
+        params = quantize_params(params, bits=8 if quant is True else quant)
     if cfg.int8_compute:
         params = with_kmajor(params)
     ids = torch.from_numpy(np.random.default_rng(seed).integers(

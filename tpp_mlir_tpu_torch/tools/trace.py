@@ -95,7 +95,9 @@ def describe(key) -> str:
     """A short label of a kernel key: kind, shape, dtype, fusions."""
     if isinstance(key, BrgemmKey):
         extra = "".join(f" +{x}" for x, on in (
-            ("ln", key.prologue), ("C", not key.beta0),
+            ("ln", key.prologue == "layer_norm"),
+            ("ln_stats", key.prologue == "ln_stats"),
+            ("stats_out", key.ln_stats_out), ("C", not key.beta0),
             (key.binary_kind, key.binary_kind),
             (key.unary_kind, key.unary_kind)) if on)
         return f"brgemm {key.m}x{key.n}x{key.k} {key.dtype}{extra}"

@@ -42,7 +42,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (restype, argtypes)
-    "tpp_brgemm": (_I, [_P] * 6 + [_I] * 16 + [_F, _P, _P, _P]),
+    "tpp_brgemm": (_I, [_P] * 6 + [_I] * 16 + [_F] + [_P] * 4 + [_I]
+                   + [_P] * 3),
     "tpp_gemm_plan": (_I, [_I] * 7 + [ctypes.POINTER(_L)]),
     "tpp_attention": (_I, [_P] * 4 + [_I] * 11 + [_F, _P]),
     "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 11 + [_P]),

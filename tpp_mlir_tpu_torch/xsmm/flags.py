@@ -37,7 +37,8 @@ class BrgemmKey:
     bm: int = 0                    # block-size overrides (0 = heuristic)
     bn: int = 0
     bk: int = 0
-    # LayerNorm A-row prologue and per-row output statistics (queue A6)
+    # LayerNorm A-row prologue ("layer_norm", or "ln_stats" on a
+    # producer's mu/var) and per-row output statistics (ln_stats_out)
     prologue: str | None = None
     prologue_affine: bool = True
     prologue_eps: float = 1e-5

@@ -10,7 +10,9 @@ reached. Each wrapper counts its launches.
   BrgemmKey    -> csrc/brgemm.cu     (replaces xsmm/kernels.py:580
                                      _build_brgemm and :243
                                      _build_brgemm_wres, LayerNorm
-                                     prologue included; loader by
+                                     prologue and the ln_stats
+                                     producer/consumer pair included;
+                                     loader by
                                      reference.brgemm_route, tile and k
                                      split by tpp_gemm_plan)
   ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain, :2001
@@ -209,13 +211,17 @@ _GEMM_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2}
 
 @functools.lru_cache(maxsize=None)
 def _gemm_plan(device: int, Mb: int, Nb: int, Kb: int, mb: int, nb: int,
-               kb: int, ln: bool) -> tuple[int, int, int, int]:
+               kb: int, flags: int) -> tuple[int, int, int, int]:
     from .build import check, library
     plan = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        check(library().tpp_gemm_plan(Mb, Nb, Kb, mb, nb, kb, int(ln), plan),
+        check(library().tpp_gemm_plan(Mb, Nb, Kb, mb, nb, kb, flags, plan),
               "gemm_plan")
     return tuple(plan)
+
+
+# tpp_gemm_plan's flags (csrc/brgemm.cu PlanFlag)
+_PLAN_LN, _PLAN_STATS_OUT, _PLAN_FMA = 1, 2, 4
 
 
 def gemm_plan(key: BrgemmKey | BlockedMatmulKey,
@@ -223,19 +229,25 @@ def gemm_plan(key: BrgemmKey | BlockedMatmulKey,
     """The launch plan of csrc/gemm_sm90.cuh's mainloop for a B1/B2 or B19
     key on a card (default: the current one), as the C++ launcher makes it
     (tpp_gemm_plan): (tile rows, tile columns, k split, workspace bytes).
-    Only the launcher holds the plan; this asks it."""
+    A brgemm key on the "fma" route has 64 x 64 tiles and no split; an
+    ln_stats_out key is never split. Only the launcher holds the plan;
+    this asks it."""
     if device is None:
         device = torch.cuda.current_device()
     if isinstance(key, BrgemmKey):
+        flags = ((_PLAN_LN if key.prologue else 0)
+                 | (_PLAN_STATS_OUT if key.ln_stats_out else 0)
+                 | (_PLAN_FMA if reference.brgemm_route(key) == "fma" else 0))
         return _gemm_plan(device, 1, 1, key.batch, key.m, key.n, key.k,
-                          key.prologue == "layer_norm")
+                          flags)
     return _gemm_plan(device, key.Mb, key.Nb, key.Kb, key.mb, key.nb,
-                      key.kb, False)
+                      key.kb, 0)
 
 
 def _workspace(key, dev) -> torch.Tensor | None:
-    """The split partials and LayerNorm statistics the launch writes, from
-    the caching allocator; None where the plan needs none."""
+    """The split partials, LayerNorm statistics and ln_stats_out row
+    partials the launch writes, from the caching allocator; None where the
+    plan needs none."""
     nbytes = gemm_plan(key, dev.index)[3]
     return torch.empty(nbytes, dtype=torch.uint8, device=dev) \
         if nbytes else None
@@ -264,9 +276,10 @@ def _brgemm_launch(key: BrgemmKey):
     d_size = {"bcast_col": n, "bcast_row": m, "bcast_scalar": 1,
               "none": m * n}[key.binary_bcast]
     route = reference.brgemm_route(key)
-    ln = key.prologue == "layer_norm"
+    ln = {None: 0, "layer_norm": 1, "ln_stats": 2}[key.prologue]
 
-    def launch(a, b, c=None, d=None, gamma=None, beta=None):
+    def launch(a, b, c=None, d=None, gamma=None, beta=None, mu=None,
+               var=None):
         dev = a.device
         if key.vnni:
             _expect(b, "B", (B, k // key.vnni, n, key.vnni), in_dt, dev)
@@ -291,8 +304,18 @@ def _brgemm_launch(key: BrgemmKey):
             _expect(beta, "beta", (k,), None, dev)
         else:
             gamma = beta = None
-        work = None if route == "fma" else _workspace(key, dev)
+        if ln == 2:     # the producer's (m, 1) statistics
+            if mu is None or var is None:
+                raise ValueError(f"the ln_stats prologue needs the "
+                                 f"producer's mu and var: {key}")
+            mu = mu.reshape(-1).float().contiguous()
+            var = var.reshape(-1).float().contiguous()
+            _expect(mu, "mu", (m,), None, dev)
+            _expect(var, "var", (m,), None, dev)
+        work = _workspace(key, dev)
         out = torch.empty((m, n), dtype=out_dt, device=dev)
+        stats = [torch.empty((m, 1), dtype=torch.float32, device=dev)
+                 for _ in range(2)] if key.ln_stats_out else [None, None]
         rc = library().tpp_brgemm(
             a.data_ptr(), b.data_ptr(),
             c.data_ptr() if not key.beta0 else None,
@@ -306,9 +329,13 @@ def _brgemm_launch(key: BrgemmKey):
             _UNARY_CODE[key.unary_kind], int(ln), _GEMM_ROUTE_CODE[route],
             key.prologue_eps,
             gamma.data_ptr() if gamma is not None else None,
-            beta.data_ptr() if beta is not None else None, _stream())
+            beta.data_ptr() if beta is not None else None,
+            mu.data_ptr() if ln == 2 else None,
+            var.data_ptr() if ln == 2 else None, int(key.ln_stats_out),
+            *(t.data_ptr() if t is not None else None for t in stats),
+            _stream())
         check(rc, f"brgemm {key}")
-        return out
+        return (out, *stats) if key.ln_stats_out else out
     return launch
 
 

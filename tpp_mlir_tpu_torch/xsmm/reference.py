@@ -94,10 +94,15 @@ def check_slice(key) -> None:
                 key.unary_kind not in (None, *UNARY_FNS):
             raise ValueError(f"unknown unary {key.unary_kind!r}")
     elif isinstance(key, BrgemmKey):
-        if key.prologue == "ln_stats" or key.ln_stats_out:
-            raise _refuse("ln_stats/ln_stats_out", "A6 / B2", key)
-        if key.prologue not in (None, "layer_norm"):
+        if key.prologue not in (None, "layer_norm", "ln_stats"):
             raise ValueError(f"unknown prologue {key.prologue!r}")
+        if (key.prologue == "ln_stats" or key.ln_stats_out) and (
+                key.batch != 1 or key.vnni or key.transpose_b):
+            # the TPU builds the pair only as its weights-resident kernel
+            # (kernels.py:258-259, :596-601 there); its VMEM fit is a TPU
+            # limit and is not carried over (ROADMAP queue C)
+            raise ValueError(f"the ln_stats form needs the weights-resident "
+                             f"shape (batch 1, flat, no transpose_b): {key}")
         if key.prologue and (key.batch != 1 or key.vnni or key.transpose_b):
             raise ValueError(f"the layer_norm prologue needs the whole A row: "
                              f"batch 1, flat, no transpose_b: {key}")
@@ -232,15 +237,40 @@ def ln_prologue(key: BrgemmKey, a, gamma=None, beta=None):
     return af
 
 
+def ln_stats_prologue(key: BrgemmKey, a, mu, var, gamma=None, beta=None):
+    """The consumer's ln_stats prologue on A (1, m, k), in f32: A's rows
+    normalized with a producer's per-row (m, 1) mean and variance, then
+    gamma/beta (tpp_mlir_tpu/xsmm/kernels.py:563-572)."""
+    af = (a.float() - mu.float().reshape(-1, 1)) * torch.rsqrt(
+        var.float().reshape(-1, 1) + key.prologue_eps)
+    if key.prologue_affine:
+        af = af * gamma.float().reshape(-1) + beta.float().reshape(-1)
+    return af
+
+
+def ln_stats_out(y):
+    """The producer's per-row statistics of its stored output y (m, n):
+    (mean, one-pass variance s2/n - mean^2), each (m, 1) f32
+    (tpp_mlir_tpu/xsmm/kernels.py:456-467)."""
+    rf = y.float()
+    n = rf.shape[-1]
+    mu = rf.sum(-1, keepdim=True) / n
+    return mu, (rf * rf).sum(-1, keepdim=True) / n - mu * mu
+
+
 def brgemm_reference(key: BrgemmKey):
     """C (+)= sum_b A'[b] @ B[b], then unary(acc OP D), as one function;
-    A' is A, or A through the LayerNorm prologue (gamma/beta trail)."""
+    A' is A, or A through the LayerNorm prologue (gamma/beta trail) or the
+    ln_stats prologue (gamma/beta, then the producer's mu/var). With
+    ln_stats_out it returns (out, mean, var) of the output rows."""
     check_slice(key)
     mdt = mxu_dtype(key.dtype, key.precision)
     out_dt = DTYPES[key.out_dtype or key.dtype]
 
-    def fn(a, b, c=None, d=None, gamma=None, beta=None):
-        if key.prologue:
+    def fn(a, b, c=None, d=None, gamma=None, beta=None, mu=None, var=None):
+        if key.prologue == "ln_stats":
+            a = ln_stats_prologue(key, a, mu, var, gamma, beta)
+        elif key.prologue:
             a = ln_prologue(key, a, gamma, beta)
         if key.vnni:
             b = unvnni(b)
@@ -253,7 +283,8 @@ def brgemm_reference(key: BrgemmKey):
             acc = BINARY_FNS[key.binary_kind](acc, canonical_d(key, d).float())
         if key.unary_kind:
             acc = UNARY_FNS[key.unary_kind](acc)
-        return acc.to(out_dt)
+        out = acc.to(out_dt)
+        return (out, *ln_stats_out(out)) if key.ln_stats_out else out
     return fn
 
 
