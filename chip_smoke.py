@@ -212,6 +212,24 @@ AdamW, 5 steps: step-0 adapter grads against the kernels-off route, the
 losses, ms a step, B14/B18 launches), the merged model served (B7, B13);
 the step with remat on and off (losses, peak memory); and a checkpoint of
 adapters and optimizer state resumed bit-equal to the uninterrupted run.
+The parallel layer (ROADMAP A11, `phase_parallel`): a world of one over
+NCCL in this process at full width (GPT-2 small bf16's tp decode, b8,
+prompt 512, 16 steps, eager and replayed from a CUDA graph with its NCCL
+all-reduces inside, fed the eager tokens and bit-equal; its AdamW train
+step with zero1 and vocab_parallel, B 8 x S 512; the MLP 1024x4 SGD step
+at b256; the Megatron MHA at b8 s512; GPipe over 4 microbatches; causal
+ring attention at S 2048; the ep MoE over 2048 tokens), then a world of
+two ranks on the one card over gloo (NCCL refuses two ranks on one
+device; a gloo collective on CUDA tensors runs through pinned host
+memory): the decode at tp 2 in f32 (greedy tokens equal to the one-device
+decode) and bf16 (logits teacher-forced within 3e-2), eagerly; the train
+step at tp 2 (step-0 loss within 1e-2, grads within 3e-2 jointly), the
+MLP step and MHA at tp 2, the pipeline at P 2, ring attention at sp 2 and
+the MoE at ep 2, each against its one-device run; every rank holds each
+kernel key it launched against its plain version. Launches are counted in
+each world's path alone; the tp-local keys (B7, B14, B18 at 6 heads, B13
+at 6 KV heads, B1 at 512 columns or rows) are timed after phase 5 and
+join the kernel line as rows of their own.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -266,6 +284,11 @@ GPT2_TRAIN = dict(vocab=50304, embed=768, heads=12, layers=12, mlp_ratio=4,
 TRAIN_B, TRAIN_S = 8, 512
 TRAIN_STEPS, TIMED_STEPS = 3, 10
 TOL_GRAD = 3e-2     # relative Frobenius error of a grad, flash vs composed
+# one bf16 grad leaf of the tp train step against the one-device step: the
+# sound runs' worst leaf reads 3.62e-2 (blocks.10.bq, a nearly cancelling
+# grad); a tp fault (a grad counted tp times, a reduction left out) moves a
+# leaf by 0.5 or more
+TOL_GRAD_LEAF = 1e-1
 TOL_LSE = 1e-4      # lse2: f32 on both sides, sum order only
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W) for the
@@ -3726,7 +3749,8 @@ def _library_call(kind, key, args):
     timed as a yardstick and used nowhere in the port; None where there is
     none: a chain of GEMMs (B3), B5's ping-pong, B11's repeats, a batched
     matmul with its softmax, and the int8 GEMM with its scaled epilogue
-    (B15) have no single call. B1: torch.addmm (bias) or torch.mm; the
+    (B15) have no single call. B1: torch.addmm (bias) or torch.mm, on B's
+    transposed view where the key transposes B; the
     attention kernels: scaled_dot_product_attention, forward, or for B18
     its backward alone (torch.autograd.grad of a kept forward); B21/B22:
     torch.bmm; B12: F.layer_norm; B19: torch.addmm on the unpacked
@@ -3735,11 +3759,12 @@ def _library_call(kind, key, args):
     import torch
     import torch.nn.functional as F
     if kind == "brgemm" and not key.prologue and key.batch == 1 and \
-            not key.transpose_b and not key.vnni:
+            not key.vnni:
         a, b, c, d = args[:4]
+        b0 = b[0].t() if key.transpose_b else b[0]     # (n, k) -> (k, n)
         if key.binary_kind == "add" and key.binary_bcast == "bcast_col":
-            return lambda: torch.addmm(d, a[0], b[0])
-        return lambda: torch.mm(a[0], b[0])
+            return lambda: torch.addmm(d, a[0], b0)
+        return lambda: torch.mm(a[0], b0)
     if kind == "attention":
         E = key.heads * key.head_dim
         x = args[0]
@@ -4439,6 +4464,504 @@ def phase_lora() -> dict:
                              "uninterrupted one")
     return total
 
+# ---------------------------------------------------------------------------
+# the parallel layer (ROADMAP A11): a world of one over NCCL and a world of
+# two ranks on the one card over gloo
+
+PAR_DECODE_STEPS = 16           # the tp decode's greedy steps, b8
+PAR_MLP_B = 256                 # the MLP SGD step: TRAIN_LAYERS at b256 bf16
+PAR_PIPE = (4, 256, WIDTH)      # the pipeline: n_micro, microbatch, width
+PAR_RING = (2, 2048, 12, 64)    # ring attention: B, S, H, D (bf16)
+PAR_MOE = (2048, 768, 3072, 8)  # ep MoE: tokens, d_model, d_ff, experts
+PAR_MHA = (8, 512)              # the tp MHA at GPT-2 small's E and H: B, S
+
+
+def _par_meshes(deg: int) -> dict:
+    """Each mode's mesh over the world's `deg` ranks."""
+    from tpp_mlir_tpu_torch.parallel import make_mesh
+    return {"tp": make_mesh({"dp": 1, "tp": deg}),
+            "pp": make_mesh({"pp": deg}), "sp": make_mesh({"sp": deg}),
+            "ep": make_mesh({"ep": deg})}
+
+
+def _par_decode(cfg, params, ids, mesh, graph: bool, force=None):
+    """The unsharded prefill, then PAR_DECODE_STEPS greedy tp decode steps
+    on this rank's shards (or, given `force` (B, steps + 1), steps fed its
+    tokens): (the full prefill cache, tokens (B, steps + 1), each step's
+    logits, ms a step on the host clock around the synchronized loop after
+    its first step, capture excluded)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import shard_tree
+    from tpp_mlir_tpu_torch.serving import DecodeRunner, make_prefill
+    from tpp_mlir_tpu_torch.serving.engine import (decode_cache_specs,
+                                                   decode_param_specs,
+                                                   make_tp_decode_step)
+    logits, cache = make_prefill(cfg)(params, ids)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    run = DecodeRunner(make_tp_decode_step(mesh, cfg),
+                       shard_tree(params, decode_param_specs(cfg), mesh),
+                       shard_tree(cache, decode_cache_specs(cfg), mesh),
+                       tok, graph)
+    toks, lgs = [tok], []
+    for t in range(PAR_DECODE_STEPS):
+        if t == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg = run(tok if force is None else force[:, t]).clone()
+        tok = lg.argmax(-1).to(torch.int32)
+        lgs.append(lg)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (PAR_DECODE_STEPS - 1)
+    return cache, torch.stack(toks, 1), lgs, ms
+
+
+def _par_decode_ref(cfg, params, cache, toks, lgs) -> tuple[float, bool]:
+    """The one-device decode teacher-forced on the tp run's tokens: (max
+    rel err of the logits, inf where either is not finite; whether its
+    greedy tokens are the tp run's)."""
+    from tpp_mlir_tpu_torch.serving import make_decode_step
+    step, worst, same = make_decode_step(cfg), 0.0, True
+    for t, lg in enumerate(lgs):
+        ref, _ = step(params, cache, toks[:, t])
+        err = rel_err(lg, ref)[0] if torch_isfinite(lg) and \
+            torch_isfinite(ref) else math.inf
+        worst = max(worst, err)
+        same = same and bool((ref.argmax(-1) == toks[:, t + 1]).all())
+    return worst, same
+
+
+def _par_train(cfg, params0, ids, mesh, flash: bool = True):
+    """Two AdamW steps of make_gpt_train_step over `mesh` with zero1 and
+    vocab_parallel on this rank's shards: (step-0 loss, step-0 grads
+    gathered, the losses, the second step's ms on the host clock)."""
+    from tpp_mlir_tpu_torch.parallel import (adamw, gpt_param_specs,
+                                             make_gpt_train_step,
+                                             shard_tree, tree_leaves)
+    from tpp_mlir_tpu_torch.parallel.mesh import gather_tensor
+    from tpp_mlir_tpu_torch.parallel.optim import spec_leaves
+    specs = gpt_param_specs(cfg, vocab_parallel=True)
+    params = shard_tree(params0, specs, mesh)
+    step, init = make_gpt_train_step(cfg, adamw(1e-3), flash_attn=flash,
+                                     mesh=mesh, zero1=True,
+                                     vocab_parallel=True)
+    state = init(params)
+    losses = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, ids)
+        losses.append(loss.item())
+        if i == 0:
+            grads = [gather_tensor(t.grad, s, mesh) for t, s in
+                     zip(tree_leaves(params), spec_leaves(specs))]
+    return losses[0], grads, losses, (time.perf_counter() - t0) * 1e3
+
+
+def _par_train_ref(cfg, params0, ids, loss0, grads) -> tuple:
+    """The one-device step's step-0 loss and grads against the tp run's:
+    (|loss diff|, rel Frobenius error of all grads jointly, the worst
+    leaf's, that leaf); bk excluded, as phase 4d excludes it (its grad is
+    zero but for rounding). In bf16 a leaf whose grad nearly cancels at
+    initialization (a top layer's bq or wq) moves by a few 1e-2 between
+    two valid sum orders, so there the grads are held jointly at TOL_GRAD
+    and each leaf only at TOL_GRAD_LEAF; the f32 run holds each leaf at
+    TOL_F32."""
+    from tpp_mlir_tpu_torch.parallel import (adamw, make_gpt_train_step,
+                                             tree_leaves)
+    params = _clone(params0)
+    step, init = make_gpt_train_step(cfg, adamw(1e-3))
+    _, _, loss = step(params, init(params), ids)
+    pairs = [(n, a.float(), t.grad.float()) for n, a, t in
+             zip(_leaf_names(params), grads, tree_leaves(params))
+             if not n.endswith(".bk")]
+    errs = {n: ((a - b).norm() / b.norm()).item() for n, a, b in pairs}
+    worst = max(errs, key=errs.get)
+    joint = (sum(((a - b).norm() ** 2).item() for _, a, b in pairs)
+             / sum((b.norm() ** 2).item() for _, _, b in pairs)) ** 0.5
+    return abs(loss.item() - loss0), joint, errs[worst], worst
+
+
+def _par_modes(meshes, g) -> dict:
+    """The MLP dp x tp SGD step, the tp MHA, the pipeline, ring attention
+    and the ep MoE on this rank's shards, each output gathered, with the
+    full inputs it ran from: {mode: (output, inputs)}."""
+    import torch
+
+    from tpp_mlir_tpu_torch.parallel import (
+        P, gather_tree, make_mha_forward, make_moe_forward,
+        make_pipeline_forward, make_ring_attention, make_train_step,
+        mha_param_specs, mha_params, mlp_init, moe_init, moe_param_specs,
+        param_specs, pipeline_init, pipeline_param_specs, shard_tree)
+    out = {}
+    tp, pp, sp, ep = (meshes[k] for k in ("tp", "pp", "sp", "ep"))
+    layers = TRAIN_LAYERS
+    mlp = mlp_init(layers, dtype="bfloat16", seed=3)
+    x = torch.randn(PAR_MLP_B, layers[0], generator=g, device="cuda").to(
+        torch.bfloat16)
+    y = torch.randn(PAR_MLP_B, layers[-1], generator=g, device="cuda").to(
+        torch.bfloat16)
+    specs = param_specs(len(layers) - 1)
+    new, loss = make_train_step(layers, 0.05, mesh=tp)(
+        shard_tree(mlp, specs, tp), shard_tree(x, P("dp"), tp),
+        shard_tree(y, P("dp"), tp))
+    out["mlp"] = ((loss, gather_tree(new, specs, tp)), (mlp, x, y))
+    E, H = GPT2_SERVE["embed"], GPT2_SERVE["heads"]
+    mp = mha_params(E, H, dtype="bfloat16", seed=4)
+    xm = torch.randn(*PAR_MHA, E, generator=g, device="cuda").to(
+        torch.bfloat16)
+    om = make_mha_forward(tp, E, H)(shard_tree(mp, mha_param_specs(), tp),
+                                    shard_tree(xm, P("dp"), tp))
+    out["mha"] = (gather_tree(om, P("dp"), tp), (mp, xm))
+    n_micro, mb, d = PAR_PIPE
+    pparams = pipeline_init(d, pp.size("pp"), dtype="bfloat16", seed=5)
+    xs = torch.randn(n_micro, mb, d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    out["pipeline"] = (make_pipeline_forward(pp, d)(
+        shard_tree(pparams, pipeline_param_specs(), pp), xs), (pparams, xs))
+    B, S, Hr, D = PAR_RING
+    qkv = [torch.randn(B, S, Hr, D, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3)]
+    seq = P(None, "sp")
+    ro = make_ring_attention(sp, Hr, causal=True)(
+        *(shard_tree(t, seq, sp) for t in qkv))
+    out["ring"] = (gather_tree(ro, seq, sp), qkv)
+    T, dm, dff, ne = PAR_MOE
+    mo = moe_init(dm, dff, ne, seed=6)
+    xe = torch.randn(T, dm, generator=g, device="cuda")
+    oe = make_moe_forward(ep, dm, dff, ne)(shard_tree(mo, moe_param_specs(),
+                                                      ep),
+                                           shard_tree(xe, P("ep"), ep))
+    out["moe"] = (gather_tree(oe, P("ep"), ep), (mo, xe))
+    return out
+
+
+def _par_modes_ref(out) -> dict:
+    """Each mode's one-device run against its gathered output: {mode:
+    (rel err, tol)}. The MLP step (loss and params) and the pipeline
+    through B1, the MHA through B7 at all heads, held at TOL_MODEL (a
+    module of bf16 roundings against its kernels-on one-device run or
+    kernels-off oracle); ring attention (f32 math on bf16 inputs) at
+    TOL_BF16, the f32 MoE at TOL_F32."""
+    from tpp_mlir_tpu_torch.parallel import (make_mha_forward,
+                                             make_train_step,
+                                             moe_reference,
+                                             pipeline_reference,
+                                             ring_attention_reference)
+    (loss, new), (mlp, x, y) = out["mlp"]
+    want, wloss = make_train_step(TRAIN_LAYERS, 0.05)(mlp, x, y)
+    mlp_err = max([abs(loss.item() - wloss.item()) / abs(wloss.item())]
+                  + [rel_err(a, b)[0] for ab, wb in zip(new, want)
+                     for a, b in zip(ab, wb)])
+    E, H = GPT2_SERVE["embed"], GPT2_SERVE["heads"]
+    om, (mp, xm) = out["mha"]
+    po, (pparams, xs) = out["pipeline"]
+    ro, (q, k, v) = out["ring"]
+    oe, (mo, xe) = out["moe"]
+    return {"mlp": (mlp_err, TOL_MODEL),
+            "mha": (rel_err(om, make_mha_forward(None, E, H)(mp, xm))[0],
+                    TOL_MODEL),
+            "pipeline": (rel_err(po, pipeline_reference(pparams, xs))[0],
+                         TOL_MODEL),
+            "ring": (rel_err(ro, ring_attention_reference(q, k, v, True))[0],
+                     TOL_BF16),
+            "moe": (rel_err(oe, moe_reference(mo, xe))[0], TOL_F32)}
+
+
+def _tp_local(key, deg: int) -> bool:
+    """Whether a key is one only the degree-`deg` path launches: attention
+    (B7, B14, B18) at heads/deg, decode attention at kv heads/deg, B1 at
+    the MLP's WIDTH/deg columns or rows."""
+    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, DecodeAttnKey,
+                                         FlashMhaKey, FlashTrainBwdKey,
+                                         FlashTrainKey)
+    heads = GPT2_SERVE["heads"] // deg
+    if isinstance(key, (FlashMhaKey, FlashTrainKey, FlashTrainBwdKey,
+                        DecodeAttnKey)):
+        return key.heads == heads
+    return isinstance(key, BrgemmKey) and WIDTH // deg in (key.n, key.k)
+
+
+# the kernel inputs of each kind the parallel path launches, made from a key
+_PAR_INPUTS = {"brgemm": _brgemm_inputs, "attention": _attention_inputs,
+               "decode_attn": _decode_attn_inputs,
+               "flash_train_fwd": _flash_fwd_timing_inputs,
+               "flash_train_bwd": _flash_bwd_timing_inputs}
+
+
+def _par_tols(kind, key, n: int) -> list:
+    """The tolerance of each of a key's n outputs, as phase 3 holds them:
+    B14/B18 at 2e-2 in bf16 (1e-4 in f32) and B14's lse2 at TOL_LSE, the
+    others by `_tol`."""
+    if kind in ("flash_train_fwd", "flash_train_bwd"):
+        tol = TOL_F32 if key.dtype == "f32" else 2 * TOL_BF16
+        return [tol, TOL_LSE][:n] if kind == "flash_train_fwd" else [tol] * n
+    return [_tol(key)] * n
+
+
+def _par_kernel_checks(keys, g) -> list:
+    """Each launched key of the parallel path against its plain version
+    on the same inputs: [(kind, key, rel, abs)] (the worst output); a
+    failure raises."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    out = []
+    for kind, key in keys:
+        args = _PAR_INPUTS[kind](key, g)
+        got, want = build_kernel(key)(*args), reference_kernel(key)(*args)
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in pairs]
+        tols = _par_tols(kind, key, len(pairs))
+        if not all(e[0] <= t and torch_isfinite(a) for e, t, (a, _) in
+                   zip(errs, tols, pairs)):
+            raise AssertionError(f"{key}: rel {[e[0] for e in errs]} "
+                                 f"tol {tols}")
+        out.append((kind, key, max(e[0] for e in errs),
+                    max(e[1] for e in errs)))
+    return out
+
+
+def _par_run(deg: int, graph: bool, lines: list) -> tuple[dict, list]:
+    """Every mode over this world's `deg` ranks, the counted part first
+    (the launch counts set to 0 before it, read after it), then each held
+    against its one-device run (rank 0) and each launched kernel key
+    against its plain version (every rank). Returns (launches by kind,
+    [(kind, key, launches, rel, abs)]), appending the report to `lines`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpp_mlir_tpu_torch.serving import GptConfig, init_params
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    rank, where = dist.get_rank(), f"{dist.get_backend()} x{deg}"
+    meshes = _par_meshes(deg)
+    dtypes = ("bf16",) if deg == 1 else ("f32", "bf16")
+    serve = {}
+    for dt in dtypes:
+        cfg = GptConfig(**dict(GPT2_SERVE, dtype=dt))
+        ids = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
+                np.int32)).cuda()
+        serve[dt] = (cfg, init_params(cfg, seed=0, device="cuda"), ids)
+    tcfg = GptConfig(**GPT2_TRAIN)
+    tparams = init_params(tcfg, seed=0, device="cuda")
+    tids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tcfg.vocab, (TRAIN_B, TRAIN_S)).astype(np.int32)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    torch.cuda.synchronize()
+    cache.reset_launches()
+    t0 = time.perf_counter()
+    decoded = {dt: _par_decode(*serve[dt], meshes["tp"], False)
+               for dt in dtypes}
+    trained = _par_train(tcfg, tparams, tids, meshes["tp"])
+    modes = _par_modes(meshes, g)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = _launches(cache)
+    keys = sorted({(_kind(fn.key), fn.key): fn.launches
+                   for fn in cache.kernels() if fn.launches and
+                   _kind(fn.key) in _PAR_INPUTS}.items(), key=repr)
+    lines.append(f"parallel {where} rank {rank}: the path ran in "
+                 f"{path_s:.1f} s; launches {dict((k, v) for k, v in launches.items() if v)}")
+    # the second witness of the tp step's grads, outside the counted run:
+    # the same step in f32, where no leaf loses its low bits to bf16
+    # rounding, so each leaf is held alone at the sum-order tolerance
+    fcfg = GptConfig(**dict(GPT2_TRAIN, dtype="f32"))
+    fparams = init_params(fcfg, seed=0, device="cuda")
+    trained_f32 = _par_train(fcfg, fparams, tids, meshes["tp"])
+    ok = True
+    if graph:
+        # the decode replayed from a CUDA graph (NCCL can be captured):
+        # the same tokens as the eager run
+        # the same steps fed the eager run's tokens: each step's logits
+        # bit-equal, so the greedy tokens are the eager run's
+        cfg, params, ids = serve["bf16"]
+        _, etoks, elgs, ems = decoded["bf16"]
+        _, gtoks, glgs, gms = _par_decode(cfg, params, ids, meshes["tp"],
+                                          True, force=etoks)
+        diffs = [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(glgs, elgs)]
+        same = torch.equal(gtoks, etoks) and max(diffs) == 0.0
+        ok = ok and same
+        lines.append(f"parallel {where}: tp decode b{SERVE_BATCH} "
+                     f"{PAR_DECODE_STEPS} steps replayed from a CUDA graph "
+                     f"{gms:.4f} ms a step (eager {ems:.4f}; host clock), "
+                     f"fed the eager tokens: logits bit-equal {same} (max "
+                     f"|graph - eager| per step "
+                     f"{' '.join(f'{d:.3g}' for d in diffs)})")
+    if rank == 0:
+        for dt in dtypes:
+            cfg, params, _ = serve[dt]
+            pcache, toks, lgs, ms = decoded[dt]
+            err, same = _par_decode_ref(cfg, params, pcache, toks, lgs)
+            tol = TOL_F32 if dt == "f32" else TOL_MODEL
+            good = err <= tol and (same or dt == "bf16")
+            ok = ok and good
+            lines.append(
+                f"parallel {where}: tp decode gpt2 small {dt} b{SERVE_BATCH}"
+                f" prompt {SERVE_PROMPT}, {PAR_DECODE_STEPS} steps (eager, "
+                f"{ms:.4f} ms a step, host clock): logits vs one device "
+                f"teacher-forced rel {err:.3e} (tol "
+                f"{tol:.0e}); greedy tokens equal {same} "
+                f"{'ok' if good else 'FAIL'}")
+        loss0, grads, losses, step_ms = trained
+        dl, gerr, lerr, leaf = _par_train_ref(tcfg, tparams, tids, loss0,
+                                              grads)
+        good = dl <= TOL_BF16 and gerr <= TOL_GRAD and \
+            lerr <= TOL_GRAD_LEAF and losses[1] < losses[0]
+        ok = ok and good
+        lines.append(
+            f"parallel {where}: train gpt2 small b{TRAIN_B} s{TRAIN_S} bf16 "
+            f"zero1 vocab_parallel: losses {losses}, second step "
+            f"{step_ms:.1f} ms (host clock); step-0 loss vs one "
+            f"device |diff| {dl:.3e} (tol {TOL_BF16:.0e}), grads rel "
+            f"Frobenius jointly {gerr:.3e} (tol {TOL_GRAD:.0e}), worst leaf"
+            f" {leaf} {lerr:.3e} (tol {TOL_GRAD_LEAF:.0e}) "
+            f"{'ok' if good else 'FAIL'}")
+        loss0, grads, losses, step_ms = trained_f32
+        dl, gerr, lerr, leaf = _par_train_ref(fcfg, fparams, tids, loss0,
+                                              grads)
+        good = dl <= TOL_F32 and lerr <= TOL_F32 and losses[1] < losses[0]
+        ok = ok and good
+        lines.append(
+            f"parallel {where}: train gpt2 small b{TRAIN_B} s{TRAIN_S} f32 "
+            f"zero1 vocab_parallel: losses {losses}, second step "
+            f"{step_ms:.1f} ms (host clock); step-0 loss vs one device "
+            f"|diff| {dl:.3e} (tol {TOL_F32:.0e}), grads leaf by leaf: "
+            f"worst {leaf} rel {lerr:.3e} (tol {TOL_F32:.0e}), jointly "
+            f"{gerr:.3e} {'ok' if good else 'FAIL'}")
+        for mode, (err, tol) in _par_modes_ref(modes).items():
+            good = err <= tol
+            ok = ok and good
+            lines.append(f"parallel {where}: {mode} vs one device rel "
+                         f"{err:.3e} (tol {tol:.0e}) "
+                         f"{'ok' if good else 'FAIL'}")
+    checks = _par_kernel_checks([k for k, _ in keys], g)
+    counts = dict(keys)
+    rows = []
+    for kind, key, rel, ab in checks:
+        rows.append((kind, key, counts[(kind, key)], rel, ab))
+        lines.append(f"parallel {where} rank {rank}: kernel {kind} at "
+                     f"{key} vs plain rel {rel:.3e} abs {ab:.3e} (tol "
+                     f"{_par_tols(kind, key, 1)[0]:.0e}), "
+                     f"{counts[(kind, key)]} launches")
+    if not ok:
+        raise AssertionError("\n".join(lines))
+    return launches, rows
+
+
+def _parallel_rank(rank, world, device, _):
+    """A rank of the gloo world of two on the one card."""
+    lines = [f"parallel gloo x{world} rank {rank} on {device} "
+             f"(collectives on CUDA tensors staged through pinned host "
+             f"memory: a gloo group)"]
+    launches, rows = _par_run(world, False, lines)
+    return lines, launches, rows
+
+
+def phase_parallel() -> tuple[dict, list]:
+    """The parallel layer in two worlds. A world of one over NCCL in this
+    process at full width: the GPT-2 small bf16 tp decode (b8, 16 steps,
+    eager, then replayed from a CUDA graph: the same tokens), its AdamW
+    train step with zero1 and vocab_parallel (B 8 x S 512), the MLP step,
+    the tp MHA, the pipeline, ring attention and MoE, every mode at degree
+    1. Then a world of two ranks on the one card over gloo (NCCL refuses
+    two ranks on one device): the decode at tp 2 in f32 (token-equal to the
+    one-device decode) and bf16, eagerly (a gloo collective is not
+    captured), the train step, MLP step and MHA at tp 2, the pipeline at
+    P 2, ring attention at sp 2, MoE at ep 2, each against its one-device
+    run; each rank holds every kernel key it launched against its plain
+    version. Returns the launches of both worlds by kind and the
+    tp-local keys' rows."""
+    import torch
+    import torch.distributed as dist
+
+    from tpp_mlir_tpu_torch.parallel import World
+    from tpp_mlir_tpu_torch.parallel.mesh import _free_port
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    lines = [f"parallel: world 1: backend {dist.get_backend()}, "
+             f"{dist.get_world_size()} rank, cuda:"
+             f"{torch.cuda.current_device()}"]
+    try:
+        launches, _ = _par_run(1, True, lines)
+    finally:
+        dist.destroy_process_group()
+        for line in lines:
+            say(line)
+    t1 = time.perf_counter()
+    say(f"parallel: world 1 {t1 - t0:.1f} s; world 2: backend gloo, 2 "
+        f"ranks on cuda:0")
+    torch.cuda.empty_cache()
+    ranks = World(_parallel_rank, 2, "gloo", "cuda", (None,)).result()
+    rows = {}
+    for lines2, counts, got in ranks:
+        for line in lines2:
+            say(line)
+        for kind, n in counts.items():
+            launches[kind] = launches.get(kind, 0) + n
+        for kind, key, n, rel, ab in got:
+            if not _tp_local(key, 2):
+                continue
+            row = rows.setdefault((kind, key), [0, 0.0])
+            row[0] += n
+            row[1] = max(row[1], ab)
+    say(f"parallel: world 2 {time.perf_counter() - t1:.1f} s; tp-local "
+        f"keys {len(rows)}")
+    return launches, [(kind, key, n, ab)
+                      for (kind, key), (n, ab) in rows.items()]
+
+
+def phase_parallel_timing(rows) -> list:
+    """Each tp-local key of the gloo world's path timed as phase 5 times
+    its kind's row (decode attention from a CUDA graph walking the stacked
+    layers; the others by CUDA events), beside its plain version, the one
+    PyTorch call computing the same function and its bound: kernel-line
+    entries."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for kind, key, launches, ab in rows:
+        args = _PAR_INPUTS[kind](key, g)
+        kern, plain = build_kernel(key), reference_kernel(key)
+        library = _library_call(kind, key, args)
+        bound, by = _bound(kind, key, args)
+        if kind == "decode_attn":
+            layer = _decode_library(key, args)
+            walk = [_walk(lambda li: kern(*args[:4], li, *args[5:]), key),
+                    _walk(lambda li: plain(*args[:4], li, *args[5:]), key),
+                    _walk(layer, key) if layer else None]
+            ms, plain_ms, lib_ms = (graph_ms(f, iters=2 * key.stacked)
+                                    if f else None for f in walk)
+            note = " (replayed from a CUDA graph walking the layers)"
+        else:
+            ms, plain_ms = cuda_ms(lambda: kern(*args)), \
+                cuda_ms(lambda: plain(*args))
+            lib_ms = cuda_ms(library) if library else None
+            # a kernel of tens of us over eager launches reads the host's
+            # time a call: its device time, from a graph, beside it
+            note = f" (replayed from a CUDA graph " \
+                f"{graph_ms(lambda: kern(*args)):.4f} ms)"
+        lib = f"{lib_ms:.4f} ms" if lib_ms else "none"
+        say(f"time kernel tp-local {describe(key):44s} {ms:.4f} ms, plain "
+            f"version {plain_ms:.4f} ms, library call {lib}, bound "
+            f"{bound:.4f} ms ({by}); {launches} launches in the gloo world"
+            f"{note}")
+        out.append((kind, key, {"launches": launches, "max_abs_err": ab,
+                                "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": by,
+                                "library_ms": lib_ms}))
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -4481,6 +5004,9 @@ def main() -> int:
                    phase_lora()):
         for kind, n in counts.items():
             launches[kind] += n
+    par_launches, par_rows = phase_parallel()
+    for kind, n in par_launches.items():
+        launches[kind] += n
     timing = phase_timing()
     timing.update(phase_ln_stats_timing())
     phase_serving_timing(setups)
@@ -4527,6 +5053,15 @@ def main() -> int:
                         # kinds take phase 5's at the line's key
                         "max_abs_err": stats[kind]["max_abs_err"],
                         **timing[kind]})
+    # the parallel path's tp-local keys (ROADMAP A11), each a row of its
+    # kernel's source
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    rows = {k["name"]: k for k in kernels}
+    for kind, key, entry in phase_parallel_timing(par_rows):
+        dx = " transpose_b" if getattr(key, "transpose_b", False) else ""
+        kernels.append({**{f: rows[kind][f] for f in ("route", "source",
+                                                      "replaces")},
+                        "name": f"{kind}@{describe(key)}{dx}", **entry})
     say(f"total: {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

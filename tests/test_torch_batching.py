@@ -241,13 +241,15 @@ def test_sampling_repeats_and_top_k_1_is_greedy(sched):
 
 
 def test_refusals():
-    """The tensor-parallel decode is A11; prompts outside the buckets and
-    non-positive sizes are refused, as in the JAX engine."""
+    """A tp mesh larger than the world (one process here: the tp engine
+    runs in tests/test_torch_tp_serving.py's world), prompts outside the
+    buckets and non-positive sizes are refused, as in the JAX engine (the
+    mesh in make_mesh's words)."""
     _, _, pcfg, pp = model(3)
-    with pytest.raises(NotImplementedError, match="A11"):
-        P.BatchingEngine(pp, pcfg, tp_mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        P.make_decode_loop(pcfg, 2, mesh=object())
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        P.BatchingEngine(pp, pcfg, tp_mesh={"tp": 2})
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        P.make_decode_loop(pcfg, 2, mesh={"tp": 2})
     eng = P.BatchingEngine(pp, pcfg, buckets=BUCKETS)
     for bad in ([], np.arange(17)):
         with pytest.raises(ValueError, match="prompt length"):

@@ -1828,3 +1828,51 @@ def test_remat_lora_step_gives_the_same_losses(cuda):
         st = init(ad)
         runs.append([step(params, ad, st, ids)[2].item() for _ in range(2)])
     assert runs[0] == runs[1]
+
+
+def test_tp_decode_graph_replay_equals_eager_over_nccl(cuda):
+    """The tensor-parallel decode in a world of one NCCL rank on the card:
+    replayed from a CUDA graph (its all-reduces captured) over shards that
+    only the runner holds, fed the eager run's tokens, every step's logits
+    are the eager step's, bit for bit, and finite."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpp_mlir_tpu_torch.parallel import make_mesh, shard_tree
+    from tpp_mlir_tpu_torch.serving import (DecodeRunner, GptConfig,
+                                            init_params, make_prefill)
+    from tpp_mlir_tpu_torch.serving.engine import (decode_cache_specs,
+                                                   decode_param_specs,
+                                                   make_tp_decode_step)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg = GptConfig(vocab=512, embed=128, heads=4, layers=3,
+                        max_seq=96, dtype="bf16")
+        params = init_params(cfg, seed=0)
+        ids = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 40)).astype(np.int32)).cuda()
+        mesh = make_mesh({"tp": 1})
+        step = make_tp_decode_step(mesh, cfg)
+        runs = []
+        for graph, feed in ((False, None), (True, "eager")):
+            logits, cache = make_prefill(cfg)(params, ids)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+            run = DecodeRunner(step, shard_tree(params, decode_param_specs(
+                cfg), mesh), shard_tree(cache, decode_cache_specs(cfg),
+                                        mesh), tok, graph)
+            toks, lgs = [tok], []
+            for t in range(8):
+                lg = run(toks[t] if feed is None else runs[0][0][t]).clone()
+                lgs.append(lg)
+                toks.append(lg.argmax(-1).to(torch.int32))
+            runs.append((toks, lgs))
+        for a, b in zip(runs[0][1], runs[1][1]):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

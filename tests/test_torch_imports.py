@@ -1,8 +1,9 @@
 """The port (every slice: the MLP path, the imported transformer, serving
 and its batching, beam and speculative modes, training, MoE, the MHA
-suite, the conv family, packed parity mode) imports torch and its own
-modules only: never JAX, Triton, ml_dtypes, nor any module of the JAX
-package `tpp_mlir_tpu`.
+suite, the conv family, packed parity mode, the parallel layer) imports
+torch and its own modules only: never JAX, Triton, ml_dtypes, nor any
+module of the JAX package `tpp_mlir_tpu`; nor does a rank of a world the
+parallel layer spawns.
 
 The run-time checks go in a subprocess because this test process already
 holds JAX and the JAX package (tests/conftest.py imports them)."""
@@ -138,6 +139,29 @@ assert ops.blocked_matmul(torch.randn(1, 2, 8, 16),
                           vnni=2).shape == (1, 2, 8, 8)
 assert ops.conv2d_brgemm(torch.randn(1, 2, 5, 5, 8),
                          torch.randn(1, 2, 3, 3, 8, 4)).shape == (1, 1, 3, 3, 4)
+# the parallel layer: its modules on one device, then a spawned gloo world
+# of two ranks running the dry run, each rank reporting what it loaded
+from tpp_mlir_tpu_torch.parallel import (P, make_mha_forward,
+                                         make_moe_forward,
+                                         make_pipeline_forward,
+                                         make_ring_attention, mha_params,
+                                         moe_init, pipeline_init, spawn)
+x = torch.randn(2, 8, 32)
+assert make_mha_forward(None, 32, 4)(mha_params(32, 4, device="cpu"),
+                                     x).shape == x.shape
+assert make_pipeline_forward({"pp": 1}, 16)(
+    pipeline_init(16, 1, device="cpu"), torch.randn(3, 4, 16)).shape \
+    == (3, 4, 16)
+q = torch.randn(1, 8, 2, 4)
+assert make_ring_attention({"sp": 1}, 2, causal=True)(q, q, q).shape \
+    == q.shape
+assert make_moe_forward({"ep": 1}, 16, 32, 4)(
+    moe_init(16, 32, 4, device="cpu"), torch.randn(8, 16)).shape == (8, 16)
+sys.path.insert(0, "tests")
+from torch_parallel_workers import loaded_modules
+roots = ("jax", "jaxlib", "triton", "ml_dtypes", "tpp_mlir_tpu")
+for rank_bad in spawn(loaded_modules, 2, "gloo", "cpu", (roots,)):
+    print("RANK LOADED", rank_bad)
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """
@@ -153,8 +177,10 @@ def _run(code: str) -> str:
 
 def test_slice_runs_without_jax_triton_or_ml_dtypes():
     out = _run(_SLICE)
-    # neither JAX, Triton, ml_dtypes nor any module of the JAX package
+    # neither JAX, Triton, ml_dtypes nor any module of the JAX package, in
+    # this process and in each spawned rank
     assert "LOADED []" in out, out
+    assert out.count("RANK LOADED []") == 2, out
     # on the CPU the plain versions run: the CUDA library is never loaded
     assert "LIBRARY 0" in out, out
 
@@ -174,11 +200,13 @@ def _imports_and_strings(path: Path):
 
 
 def test_port_sources_name_no_jax_or_triton_import():
-    """No file of the port nor chip_smoke.py imports JAX, ml_dtypes, Triton
+    """No file of the port, nor chip_smoke.py, nor the rank bodies of the
+    parallel tests (tests/torch_parallel_workers.py) imports JAX, ml_dtypes, Triton
     (the port has no Triton kernel) or the JAX package, or names a module
     of the JAX package to run (`-m tpp_mlir_tpu.…`)."""
     offenders = []
-    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "tests" / "torch_parallel_workers.py"]:
         names, strings = _imports_and_strings(path)
         bad = names & {"jax", "jaxlib", "ml_dtypes", "tpp_mlir_tpu",
                        "triton"}

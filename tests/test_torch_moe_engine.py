@@ -252,9 +252,12 @@ def test_grouped_form_step_matches_jax_grouped_training(precision):
 
 
 def test_moe_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A11"):
+    """MoE under tp > 1 is refused in the JAX step's words (gpt_train.py:
+    188-190 there); dp meshes train (tests/test_torch_parallel_train.py
+    moe-dp2)."""
+    with pytest.raises(NotImplementedError, match="not tp -- use a dp-only"):
         make_gpt_train_step(P.GptConfig(**TRAIN), sgd(0.1), device="cpu",
-                            mesh={"dp": 2, "tp": 1})
+                            mesh={"dp": 1, "tp": 2})
 
 
 # ---------------------------------------------------------------------------

@@ -380,7 +380,9 @@ def test_tpp_serve_matches_the_jax_tool_on_carried_weights():
     ["--continuous", "4", "--sync-steps", "0"], ["--beams", "97"],
     ["--experts", "2", "--top-k-experts", "3"], ["--prompt-len", "20"]])
 def test_tpp_serve_refuses_with_exit_2(flags):
-    """--tp (A11) is not ported; --speculative serves batch 1 only
+    """--tp 2 needs two ranks (run under torchrun; one process is a world
+    of one: make_mesh's refusal, test_torch_tp_serving.py runs it under
+    torchrun); --speculative serves batch 1 only
     (SERVE's batch is 2); KV heads that do not divide the heads, no sync
     step, more beams than the vocab, more experts a token than the model
     has and a prompt past max_seq are refused. (--quant int4, refused

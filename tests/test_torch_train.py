@@ -2,7 +2,7 @@
 
 The port's trainable ops (tpp_mlir_tpu_torch.ops.trainable), the MLP SGD and
 optimizer steps and the GPT step (tpp_mlir_tpu_torch.parallel) against the
-JAX ones on a 1x1 mesh, from the same numpy params and batches. The JAX side
+JAX ones on a 1x1 mesh (the sharded steps: test_torch_parallel_train.py), from the same numpy params and batches. The JAX side
 runs its Pallas kernels in interpret mode (exact f32), so the port's GEMM
 kernels run at precision "highest" here: at "default" they round f32
 operands to bf16, as the compiled TPU kernels do (ROADMAP queue C).
@@ -290,25 +290,32 @@ def _gpt_step(**kw):
 
 
 @pytest.mark.parametrize("build,item", [
-    (lambda: make_train_step(LAYERS, device="cpu",
-                             mesh={"dp": 2, "tp": 1}), "A11"),
-    (lambda: make_optim_train_step(LAYERS, sgd(0.1), device="cpu",
-                                   mesh={"dp": 1, "tp": 2}), "A11"),
-    (lambda: make_optim_train_step(LAYERS, sgd(0.1), device="cpu",
-                                   zero1=True), "A11"),
-    (lambda: _gpt_step(mesh={"dp": 2, "tp": 2}), "A11"),
-    (lambda: _gpt_step(zero1=True), "A11"),
-    (lambda: _gpt_step(vocab_parallel=True), "A11"),
-    # MoE trains on one device; its experts shard over ep (parallel/moe.py)
+    # MoE trains over dp; under tp the JAX step's refusal, in its words
+    # (its experts shard over ep in parallel/moe.py)
     (lambda: make_gpt_train_step(P.GptConfig(**CFG, n_experts=4), sgd(0.1),
-                                 device="cpu", mesh={"dp": 2, "tp": 1}),
-     "A11"),
+                                 device="cpu", mesh={"dp": 1, "tp": 2}),
+     "not tp -- use a dp-only mesh"),
     (lambda: make_gpt_train_step(P.GptConfig.llama(**CFG), sgd(0.1),
                                  device="cpu"), "queue C"),
-], ids=["mlp-dp2", "optim-tp2", "zero1", "gpt-dp2tp2", "gpt-zero1",
-        "vocab-parallel", "moe", "llama"])
+], ids=["moe", "llama"])
 def test_refusals_name_their_roadmap_item(build, item):
+    """What the port still refuses. The dp/tp meshes, zero1 and
+    vocab_parallel (mlp-dp2, optim-tp2, zero1, gpt-dp2tp2, gpt-zero1,
+    vocab-parallel here until the parallel layer was ported) run in
+    tests/test_torch_parallel_train.py under those ids."""
     with pytest.raises(NotImplementedError, match=item):
+        build()
+
+
+@pytest.mark.parametrize("build", [
+    lambda: make_train_step(LAYERS, device="cpu", mesh={"dp": 2, "tp": 1}),
+    lambda: make_optim_train_step(LAYERS, sgd(0.1), device="cpu",
+                                  mesh={"dp": 1, "tp": 2}),
+    lambda: _gpt_step(mesh={"dp": 2, "tp": 2})], ids=["mlp", "optim", "gpt"])
+def test_a_mesh_beyond_the_world_raises_in_make_mesh_words(build):
+    """One process is a world of one: a mesh of more devices is refused as
+    the JAX make_mesh refuses more devices than it has."""
+    with pytest.raises(ValueError, match="needs [24] devices, have 1"):
         build()
 
 

@@ -10,7 +10,8 @@ The layout mirrors the JAX package, module for module:
   runtime/    executor (IR -> eager PyTorch), CUDA-event timing, tensor init
   serving/    the GPT serving engine (prefill, KV-cache decode, generate)
   ops/        differentiable GEMM ops over the kernels (autograd Functions)
-  parallel/   the training steps (MLP SGD/optimizer, GPT), one device
+  parallel/   meshes over torch.distributed ranks, the collectives, the
+              dp/tp/pp/sp/ep modes, the training steps, ZeRO-1
   xsmm/       kernel keys, cache, wrappers, plain versions, the nvcc build
   csrc/       the hand-written Hopper kernels (CUDA C++, sm_90a)
   utils/      the device target, FLOP counting

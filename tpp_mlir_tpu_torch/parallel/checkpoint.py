@@ -14,6 +14,13 @@ walks the `like` tree it is given (as the JAX function restores into the
 and into its optimizers by `load_state_dict`, so an optimizer made over
 those tensors keeps its references and a resumed run continues the saved
 one exactly.
+
+Over a mesh, `specs` (the params' spec tree, None at a ShardedOptim) says
+how the tree is laid out: `save_checkpoint` gathers it to the full tree
+(a ZeRO-1 state's moments to their global shapes) and rank 0 writes it;
+`restore_checkpoint` reads the full tree on every rank and takes the
+rank's shards, so a state saved on one mesh restores onto another (JAX:
+orbax restores into the `like` tree's shardings).
 """
 
 from __future__ import annotations
@@ -22,8 +29,13 @@ import os
 from typing import Any
 
 import torch
+import torch.distributed as dist
+
+from .mesh import P, gather_tree, shard_tensor
+from .optim import ShardedOptim
 
 _FILE = "state.pt"
+_OPTIMIZERS = (torch.optim.Optimizer, ShardedOptim)
 
 
 def _flatten(tree, out: list) -> None:
@@ -31,7 +43,7 @@ def _flatten(tree, out: list) -> None:
     dicts, and plain values (None, numbers, strings)."""
     if isinstance(tree, torch.Tensor):
         out.append(tree.detach().cpu())
-    elif isinstance(tree, torch.optim.Optimizer):
+    elif isinstance(tree, _OPTIMIZERS):
         out.append(tree.state_dict())
     elif isinstance(tree, dict):
         for k in sorted(tree):
@@ -43,12 +55,30 @@ def _flatten(tree, out: list) -> None:
         out.append(tree)
 
 
-def _fill(like, leaves, at: list):
+def _leaf_specs(like, specs, out: list) -> None:
+    """The spec of each of `like`'s leaves, in `_flatten`'s order."""
+    if isinstance(like, dict):
+        for k in sorted(like):
+            _leaf_specs(like[k], None if specs is None else specs[k], out)
+    elif isinstance(like, (list, tuple)) and not isinstance(like, P):
+        if isinstance(specs, P) or specs is None:
+            specs = [specs] * len(like)
+        for x, s in zip(like, specs, strict=True):
+            _leaf_specs(x, s, out)
+    else:
+        out.append(specs)
+
+
+def _fill(like, leaves, at: list, specs=None, mesh=None):
     """`like` with the saved leaves put in, in `_flatten`'s order: tensors
-    copied in place, optimizers loaded, plain values replaced; a tensor of
-    another shape or dtype is refused."""
+    copied in place (the rank's shard of a saved full tensor, by `specs`,
+    the per-leaf spec list), optimizers loaded, plain values replaced; a
+    tensor of another shape or dtype is refused."""
     if isinstance(like, torch.Tensor):
         saved = leaves[at[0]]
+        if specs is not None and specs[at[0]] is not None \
+                and isinstance(saved, torch.Tensor):
+            saved = shard_tensor(saved, specs[at[0]], mesh)
         at[0] += 1
         if not isinstance(saved, torch.Tensor) or saved.shape != like.shape \
                 or saved.dtype != like.dtype:
@@ -60,15 +90,16 @@ def _fill(like, leaves, at: list):
         with torch.no_grad():
             like.copy_(saved)
         return like
-    if isinstance(like, torch.optim.Optimizer):
+    if isinstance(like, _OPTIMIZERS):
         like.load_state_dict(leaves[at[0]])
         at[0] += 1
         return like
     if isinstance(like, dict):
-        filled = {k: _fill(like[k], leaves, at) for k in sorted(like)}
+        filled = {k: _fill(like[k], leaves, at, specs, mesh)
+                  for k in sorted(like)}
         return {k: filled[k] for k in like}
     if isinstance(like, (list, tuple)):
-        items = [_fill(x, leaves, at) for x in like]
+        items = [_fill(x, leaves, at, specs, mesh) for x in like]
         if isinstance(like, list):
             return items
         return type(like)(*items) if hasattr(like, "_fields") \
@@ -78,25 +109,38 @@ def _fill(like, leaves, at: list):
     return saved
 
 
-def save_checkpoint(path: str, params: Any, step: int = 0) -> None:
+def save_checkpoint(path: str, params: Any, step: int = 0, specs=None,
+                    mesh=None) -> None:
     """Save `params` (any tree of dicts, lists, tuples, QTensors, tensors,
-    optimizers and plain values) as step `step` under `path`."""
-    d = os.path.join(os.path.abspath(path), f"step_{step}")
-    os.makedirs(d, exist_ok=True)
+    optimizers and plain values) as step `step` under `path`; over a mesh,
+    every rank calls it with the tree's `specs` (module docstring)."""
+    if specs is not None:
+        params = gather_tree(params, specs, mesh)
     leaves: list = []
     _flatten(params, leaves)
-    tmp = os.path.join(d, _FILE + ".tmp")
-    torch.save({"leaves": leaves, "step": step}, tmp)
-    os.replace(tmp, os.path.join(d, _FILE))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        d = os.path.join(os.path.abspath(path), f"step_{step}")
+        os.makedirs(d, exist_ok=True)
+        tmp = os.path.join(d, _FILE + ".tmp")
+        torch.save({"leaves": leaves, "step": step}, tmp)
+        os.replace(tmp, os.path.join(d, _FILE))
+    if dist.is_initialized():
+        dist.barrier()
 
 
-def restore_checkpoint(path: str, like: Any, step: int = 0):
+def restore_checkpoint(path: str, like: Any, step: int = 0, specs=None,
+                       mesh=None):
     """(params, step) of step `step` under `path`, restored into `like`, a
-    tree of the saved tree's structure (see the module's docstring)."""
+    tree of the saved tree's structure (see the module's docstring); over
+    a mesh with the tree's `specs`, into the rank's shards."""
     f = os.path.join(os.path.abspath(path), f"step_{step}", _FILE)
     state = torch.load(f, map_location="cpu", weights_only=True)
     leaves, at = state["leaves"], [0]
-    out = _fill(like, leaves, at)
+    per_leaf = None
+    if specs is not None:
+        per_leaf = []
+        _leaf_specs(like, specs, per_leaf)
+    out = _fill(like, leaves, at, per_leaf, mesh)
     if at[0] != len(leaves):
         raise ValueError(f"the like tree takes {at[0]} leaves, the "
                          f"checkpoint holds {len(leaves)}")

@@ -1,5 +1,5 @@
-"""The GPT training step on one device: the port of
-`tpp_mlir_tpu/parallel/gpt_train.py` at dp = tp = 1.
+"""The GPT training step over a (dp, tp) mesh: the port of
+`tpp_mlir_tpu/parallel/gpt_train.py`.
 
 The forward mirrors the serving prefill's math (LayerNorm, f32-accumulated
 contractions rounded to the model dtype, exact-erf GELU), so the step-0
@@ -11,6 +11,18 @@ gate, gpt_train.py:63-70 there, is not carried). The params are the serving
 engine's per-layer list (`init_params`, `params_from_numpy`), not the JAX
 step's stacked arrays: PyTorch runs the layers in a Python loop.
 
+Sharding is the Megatron transformer recipe, as there: the batch over dp
+(a dp-local loss, the grads' mean over dp after the backward); q/k/v and
+fc1 column-parallel (each tp rank holds heads/tp heads and its fc1
+columns, `mark_replicated` before them), attention local to the rank's
+heads (B14/B18 at heads/tp), out-proj and fc2 row-parallel with one
+`row_parallel_psum` of the f32 partial product each; embeddings and norms
+replicated. The LM head is replicated, or with `vocab_parallel` split over
+the vocab with the vocab-parallel cross-entropy (`_vocab_parallel_loss`).
+The specs are `serving.engine.decode_param_specs` (per-layer list), so a
+model trains and serves under one layout. `zero1` splits the optimizer
+moments over dp (optim.py).
+
 A MoE configuration (`n_experts > 0`, gpt_train.py:92-101 there) trains its
 sparse-expert FFN in the form `moe_prefill_form` names: the scan form (the
 default, and "sorted"), which is the JAX step's own, or "grouped", the
@@ -19,15 +31,15 @@ dgrad, B17 weight gradient; `csrc/grouped_gemm.cu`) at the keys'
 `precision`. The JAX package reaches its grouped core only through
 `jax.grad` of `make_prefill`; the port's prefill has no derivative on the
 card (`torch.mm(..., out_dtype=f32)`), so its step picks the form by the
-same config field (ROADMAP queue C).
+same config field (ROADMAP queue C). Its experts are replicated: MoE under
+tp > 1 is refused in the JAX package's words (ep sharding is
+`parallel/moe.py`).
 
-Refused, each naming the ROADMAP item that ports it: any mesh beyond one
-device (MoE included: its experts shard over ep in `parallel/moe.py`),
-`vocab_parallel` and `zero1` (A11); a configuration the training forward
-does not model (RMSNorm, RoPE, SwiGLU: the LLaMA preset), since the JAX
-forward always runs LayerNorm with biases, learned positions and a GELU FFN
-(gpt_train.py:75-115 there) and the port does not train a model other than
-the one it serves (queue C).
+Refused: a configuration the training forward does not model (RMSNorm,
+RoPE, SwiGLU: the LLaMA preset), since the JAX forward always runs
+LayerNorm with biases, learned positions and a GELU FFN (gpt_train.py:
+75-115 there) and the port does not train a model other than the one it
+serves (queue C).
 """
 
 from __future__ import annotations
@@ -41,8 +53,10 @@ from ..serving.engine import (GptConfig, _gather, _ln, _moe_ffn_grouped,
 from ..utils.target import resolve_device
 from ..xsmm.flash_train import flash_attention_train
 from ..xsmm.reference import DTYPES
-from .optim import make_optim_step, tree_leaves
-from .train import check_single_device
+from .collectives import (mark_replicated, mean_over, pmax_stopgrad,
+                          row_parallel_psum)
+from .mesh import P, as_mesh, mesh_shape
+from .optim import make_sharded_optim_step, tree_leaves
 
 
 def _check_config(cfg: GptConfig) -> None:
@@ -73,15 +87,17 @@ def _moe_ffn(h, blk, cfg: GptConfig, precision: str):
 
 
 def _gpt_forward_local(params, ids, cfg: GptConfig, flash_attn: bool,
-                       precision: str = "default"):
-    """Causal LM forward -> (B, S, V) f32 logits (the JAX function at
-    tp = 1)."""
+                       precision: str = "default", tp=None,
+                       with_head: bool = True):
+    """Causal LM forward on this rank's shards -> (B, S, V) f32 logits
+    (replicated over tp), or with_head=False the (B, S, E) final-normed
+    activations."""
     _check_config(cfg)
     B, S = ids.shape
     if S > cfg.max_seq:
         raise ValueError(f"sequence {S} exceeds max_seq {cfg.max_seq} "
                          f"(wpe table)")
-    H, KVH, D = cfg.heads, cfg.kv_h, cfg.head_dim
+    D = cfg.head_dim
     scale = D ** -0.5
     attn = flash_attention_train if flash_attn else composed_causal_attention
     x = (_gather(params["wte"], ids)
@@ -89,19 +105,25 @@ def _gpt_forward_local(params, ids, cfg: GptConfig, flash_attn: bool,
          ).to(DTYPES[cfg.dtype])
     for blk in params["blocks"]:
         h = _ln(x, blk["ln1_g"], blk["ln1_b"])
-        q = _dot(h, blk["wq"], blk["bq"]).reshape(B, S, H, D)
-        k = _dot(h, blk["wk"], blk["bk"]).reshape(B, S, KVH, D)
-        v = _dot(h, blk["wv"], blk["bv"]).reshape(B, S, KVH, D)
-        a = attn(q, k, v, scale).reshape(B, S, H * D).to(x.dtype)
-        x = x + (f32_matmul(a, blk["wo"]) + blk["bo"].float()).to(x.dtype)
+        # a tp-replicated activation meets tp-sharded weights
+        h = mark_replicated(h, tp)
+        q = _dot(h, blk["wq"], blk["bq"]).reshape(B, S, -1, D)
+        k = _dot(h, blk["wk"], blk["bk"]).reshape(B, S, -1, D)
+        v = _dot(h, blk["wv"], blk["bv"]).reshape(B, S, -1, D)
+        a = attn(q, k, v, scale).reshape(B, S, -1).to(x.dtype)
+        y = row_parallel_psum(f32_matmul(a, blk["wo"]), tp)
+        x = x + (y + blk["bo"].float()).to(x.dtype)
         h = _ln(x, blk["ln2_g"], blk["ln2_b"])
         if cfg.n_experts:
             x = x + _moe_ffn(h, blk, cfg, precision)
         else:
+            h = mark_replicated(h, tp)
             h = F.gelu(_dot(h, blk["w1"], blk["b1"]).float()).to(x.dtype)
-            x = x + (f32_matmul(h, blk["w2"])
-                     + blk["b2"].float()).to(x.dtype)
+            y = row_parallel_psum(f32_matmul(h, blk["w2"]), tp)
+            x = x + (y + blk["b2"].float()).to(x.dtype)
     x = _ln(x, params["lnf_g"], params["lnf_b"])
+    if not with_head:
+        return x
     return f32_matmul(x, params["lm_head"])
 
 
@@ -115,30 +137,86 @@ def next_token_loss(logits, ids):
     return -picked.mean()
 
 
+def _vocab_parallel_loss(x, lm_head_local, ids, tp, shard: int):
+    """Next-token CE with the LM head split over the vocab on tp: the
+    stable log-softmax assembled from per-shard partials (gpt_train.py:
+    131-167 there). The max shift takes no gradient (`pmax_stopgrad`: the
+    CE is invariant to it); the sum of exps and the picked target logit are
+    partials summed by `row_parallel_psum`."""
+    x = mark_replicated(x, tp)              # sliced contraction below
+    logits = f32_matmul(x[:, :-1], lm_head_local)      # (B, S-1, Vl) f32
+    Vl = logits.shape[-1]
+    m = pmax_stopgrad(logits.amax(-1).detach(), tp)    # (B, S-1)
+    z = logits - m[..., None]
+    se = row_parallel_psum(torch.exp(z).sum(-1), tp)
+    local = ids[:, 1:].long() - shard * Vl
+    valid = (local >= 0) & (local < Vl)
+    picked = z.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    picked = row_parallel_psum(torch.where(valid, picked, 0.0), tp)
+    return torch.mean(torch.log(se) - picked)
+
+
+def gpt_param_specs(cfg: GptConfig, tp_axis: str = "tp",
+                    vocab_parallel: bool = False):
+    """The training step's specs: `decode_param_specs`, with the LM head
+    split over the vocab under vocab_parallel."""
+    from ..serving.engine import decode_param_specs
+    specs = decode_param_specs(cfg, tp_axis)
+    if vocab_parallel:
+        specs["lm_head"] = P(None, tp_axis)
+    return specs
+
+
+def _check_tp(cfg: GptConfig, ntp: int, vocab_parallel: bool) -> None:
+    """The JAX step's guards (gpt_train.py:186-197 there), in its words."""
+    if cfg.n_experts and ntp > 1:
+        raise NotImplementedError(
+            "MoE GPT training shards experts over ep (parallel/moe.py), "
+            "not tp -- use a dp-only mesh")
+    for what, n in (("heads", cfg.heads), ("kv_heads", cfg.kv_h)) + (
+            (("vocab", cfg.vocab),) if vocab_parallel else ()):
+        if n % ntp:
+            raise ValueError(f"tp training needs {what} {n} divisible by "
+                             f"tp {ntp}")
+
+
 def make_gpt_train_step(cfg: GptConfig, optimizer,
                         flash_attn: bool | None = None, device="cuda",
                         mesh=None, zero1: bool = False,
                         vocab_parallel: bool = False,
-                        precision: str = "default"):
+                        precision: str = "default", dp_axis: str = "dp",
+                        tp_axis: str = "tp"):
     """Return `(step, init_opt_state)`: `step(params, opt_state, ids) ->
-    (params, opt_state, loss)` over the serving params (per-layer list),
-    one optimizer update per step, params updated in place; `optimizer` is
-    a torch.optim constructor (`optim.sgd`, `optim.adamw`). `precision` is
-    the grouped MoE form's kernel keys' ("default" rounds f32 operands to
-    bf16, as `make_train_step`'s keys do)."""
+    (params, opt_state, loss)` over this rank's shards of the serving params
+    (per-layer list, laid out by `gpt_param_specs`) and its dp slice of the
+    ids, one optimizer update per step, params updated in place, the loss
+    the dp mean; `optimizer` is a torch.optim constructor (`optim.sgd`,
+    `optim.adamw`). `mesh` is a Mesh, a {axis: size} mapping or None (one
+    device). `precision` is the grouped MoE form's kernel keys' ("default"
+    rounds f32 operands to bf16, as `make_train_step`'s keys do)."""
     device = resolve_device(device)
-    check_single_device(mesh, "make_gpt_train_step")
-    if zero1 or vocab_parallel:
-        raise NotImplementedError(
-            "zero1 and vocab_parallel shard over dp/tp; the port trains on "
-            "one device (ROADMAP A11)")
     _check_config(cfg)
+    _check_tp(cfg, mesh_shape(mesh).get(tp_axis, 1), vocab_parallel)
+    mesh = as_mesh(mesh)
+    tp, dp = mesh.group(tp_axis), mesh.group(dp_axis)
+    shard = mesh.index(tp_axis)
     if flash_attn is None:
         flash_attn = device.type == "cuda"
 
-    def grads_fn(params, ids):
-        loss = next_token_loss(
-            _gpt_forward_local(params, ids, cfg, flash_attn, precision), ids)
-        return loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
+    def loss_fn(params, ids):
+        if vocab_parallel:
+            x = _gpt_forward_local(params, ids, cfg, flash_attn, precision,
+                                   tp, with_head=False)
+            return _vocab_parallel_loss(x, params["lm_head"], ids, tp, shard)
+        return next_token_loss(_gpt_forward_local(
+            params, ids, cfg, flash_attn, precision, tp), ids)
 
-    return make_optim_step(optimizer, grads_fn)
+    def grads_fn(params, ids):
+        loss = loss_fn(params, ids)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        return mean_over(loss.detach(), dp), [mean_over(g, dp)
+                                              for g in grads]
+
+    return make_sharded_optim_step(
+        mesh, optimizer, gpt_param_specs(cfg, tp_axis, vocab_parallel),
+        grads_fn, dp_axis, zero1)

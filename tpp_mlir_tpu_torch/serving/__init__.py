@@ -10,9 +10,10 @@ from .batching import (BatchingEngine, DeviceBatchingEngine,
                        make_device_loop, make_insert, make_stage_prefill)
 from .beam import make_beam_generate
 from .engine import (DecodeRunner, GptConfig, Replayed,
-                     composed_causal_attention, init_params,
-                     make_decode_step, make_extend, make_generate,
-                     make_prefill, make_sampler, params_from_numpy,
+                     composed_causal_attention, decode_cache_specs,
+                     decode_param_specs, init_params, make_decode_step,
+                     make_extend, make_generate, make_prefill, make_sampler,
+                     make_tp_decode_step, params_from_numpy,
                      params_from_torch, stack_params)
 from .lora import (ALL_TARGETS, adapters_from_numpy, lora_init,
                    make_lora_train_step, merge_lora)
@@ -25,12 +26,13 @@ __all__ = [
     "ALL_TARGETS", "adapters_from_numpy", "lora_init",
     "make_lora_train_step", "merge_lora",
     "BatchingEngine", "DecodeRunner", "DeviceBatchingEngine", "GptConfig",
-    "QTensor", "Replayed", "composed_causal_attention", "dequantize",
+    "QTensor", "Replayed", "composed_causal_attention",
+    "decode_cache_specs", "decode_param_specs", "dequantize",
     "dequantize_params", "init_params", "init_slot_cache", "init_staging",
     "make_beam_generate", "make_decode_loop", "make_decode_step",
     "make_device_loop", "make_extend", "make_generate", "make_insert",
     "make_prefill", "make_sampler", "make_speculative_generate",
-    "make_stage_prefill", "pack_int4", "params_from_numpy",
+    "make_stage_prefill", "make_tp_decode_step", "pack_int4", "params_from_numpy",
     "params_from_torch", "quantize", "quantize_params", "quantize_tokens",
     "quantized_bytes", "stack_params", "unpack_int4", "with_kmajor",
 ]

@@ -33,8 +33,16 @@ Two schedulers, as in the JAX package:
 Sampling draws its uniform numbers for a whole round (or macro) from the
 engine's torch.Generator before the replay (`make_sampler`'s `noise`), so a
 seed gives the same tokens eagerly and from the graph; they differ from the
-JAX package's jax.random stream. The tensor-parallel decode (`tp_mesh`,
-`mesh`) is ROADMAP A11.
+JAX package's jax.random stream.
+
+With a tp mesh (`make_decode_loop(mesh=...)`, `BatchingEngine(tp_mesh=...)`)
+the decode is `engine.make_tp_decode_step` on this rank's shards: the
+engine keeps the full params for the prefill, which is unsharded as in the
+JAX engine, and decodes on its shards of the params and of the slotted
+cache (`decode_param_specs`, `decode_cache_specs`), each prefill's cache
+split before it is inserted. Every rank of the mesh runs the same schedule
+and samples the same tokens (the logits are replicated). A gloo group
+cannot be captured in a CUDA graph, so `graph` defaults off there.
 """
 
 from __future__ import annotations
@@ -46,11 +54,28 @@ import numpy as np
 import torch
 
 from ..utils.target import resolve_device
-from .engine import (GptConfig, Replayed, _empty_cache, make_decode_step,
-                     make_prefill, make_sampler, params_device, stack_params)
+from .engine import (GptConfig, Replayed, _empty_cache, decode_cache_specs,
+                     decode_param_specs, make_decode_step, make_prefill,
+                     make_sampler, make_tp_decode_step, params_device,
+                     stack_params)
+from .quant import QTensor
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
-TP_TODO = "the tensor-parallel decode is not ported yet: ROADMAP A11"
+
+
+def _tp(mesh, tp_axis: str):
+    """(Mesh, its tp group) of a tp mesh argument."""
+    from ..parallel.mesh import as_mesh
+    mesh = as_mesh(mesh)
+    return mesh, mesh.group(tp_axis)
+
+
+def tp_graph_default(group, device) -> bool:
+    """Whether a tp decode is replayed from a CUDA graph by default: on
+    CUDA, unless its group is gloo (a gloo collective runs on the host and
+    cannot be captured)."""
+    from ..parallel.collectives import staged
+    return torch.device(device).type == "cuda" and not staged(group)
 
 
 def init_slot_cache(cfg: GptConfig, slots: int, device="cuda") -> dict:
@@ -93,7 +118,6 @@ def make_insert(cfg: GptConfig):
 def make_decode_loop(cfg: GptConfig, sync_steps: int,
                      temperature: float = 0.0, top_k: int = 0,
                      top_p: float = 0.0, mesh=None, tp_axis: str = "tp",
-                     quantized: bool = False,
                      use_kernels: bool | None = None,
                      graph: bool | None = None):
     """Return ``loop(params, cache, tok, generator=None) -> (toks
@@ -101,11 +125,15 @@ def make_decode_loop(cfg: GptConfig, sync_steps: int,
     the device, the cache and ``tok`` (B,) updated in place. On CUDA (or
     with graph=True) the steps are one CUDA graph per set of buffers,
     captured at its first call; ``toks`` is a static buffer, so a caller
-    copies it to the host once a round. ``mesh`` (and ``tp_axis``,
-    ``quantized``, which only the tensor-parallel step reads) is A11."""
-    if mesh is not None:
-        raise NotImplementedError(TP_TODO)
-    step = make_decode_step(cfg, use_kernels)
+    copies it to the host once a round. With ``mesh`` the step is the
+    tensor-parallel decode over its ``tp_axis`` on this rank's shards of
+    the params and cache (laid out by ``decode_param_specs`` and
+    ``decode_cache_specs``); ``graph`` then defaults off for a gloo group."""
+    if mesh is None:
+        step = make_decode_step(cfg, use_kernels)
+    else:
+        mesh, group = _tp(mesh, tp_axis)
+        step = make_tp_decode_step(mesh, cfg, tp_axis, use_kernels)
     sample = make_sampler(temperature, top_k, top_p)
     runs = {}
 
@@ -126,7 +154,10 @@ def make_decode_loop(cfg: GptConfig, sync_steps: int,
                                  else noise[i])
                     toks[i].copy_(nxt)
                     tok.copy_(nxt)
-            runs[key] = (Replayed(body, graph, tok.device), toks, noise)
+            g = graph
+            if g is None and mesh is not None:
+                g = tp_graph_default(group, tok.device)
+            runs[key] = (Replayed(body, g, tok.device), toks, noise)
         run, toks, noise = runs[key]
         if noise is not None:
             noise.uniform_(generator=generator)
@@ -169,8 +200,9 @@ class BatchingEngine:
     device); ``run()`` drives rounds until every submitted request finished
     and returns {rid: token list}. Generation stops at ``eos_id`` (if set),
     ``max_new`` tokens, or a full cache (max_seq), whichever is first.
-    ``tp_mesh`` is A11. ``graph`` (default: on CUDA) replays the decode
-    loop from a CUDA graph.
+    ``tp_mesh`` decodes tensor-parallel over its ``tp_axis`` (the module
+    docstring). ``graph`` (default: on CUDA, off for a gloo tp group)
+    replays the decode loop from a CUDA graph.
     """
 
     def __init__(self, params, cfg: GptConfig, slots: int = 4,
@@ -180,11 +212,11 @@ class BatchingEngine:
                  tp_mesh=None, tp_axis: str = "tp",
                  use_kernels: bool | None = None,
                  graph: bool | None = None):
-        if tp_mesh is not None:
-            raise NotImplementedError(TP_TODO)
         if slots < 1 or sync_steps < 1:
             raise ValueError(f"slots and sync_steps must be positive: "
                              f"{slots}, {sync_steps}")
+        if tp_mesh is not None:
+            tp_mesh, _ = _tp(tp_mesh, tp_axis)
         self.cfg, self.slots, self.sync_steps = cfg, slots, sync_steps
         self.eos_id = eos_id
         self.buckets = _buckets(buckets, cfg)
@@ -192,11 +224,21 @@ class BatchingEngine:
         dev = params_device(self.params)
         self._prefill = make_prefill(cfg, use_kernels)
         self._insert = make_insert(cfg)
+        quantized = any(isinstance(v, QTensor) for blk in
+                        self.params["blocks"] for v in blk.values())
         self._loop = make_decode_loop(cfg, sync_steps, temperature, top_k,
-                                      top_p, use_kernels=use_kernels,
-                                      graph=graph)
+                                      top_p, mesh=tp_mesh, tp_axis=tp_axis,
+                                      use_kernels=use_kernels, graph=graph)
         self._sample = make_sampler(temperature, top_k, top_p)
         self.cache = init_slot_cache(cfg, slots, dev)
+        self._dparams, self._shard = self.params, lambda c: c
+        if tp_mesh is not None:
+            from ..parallel.mesh import shard_tree
+            self._dparams = shard_tree(self.params, decode_param_specs(
+                cfg, tp_axis, quantized), tp_mesh)
+            cspecs = decode_cache_specs(cfg, tp_axis)
+            self._shard = lambda c: shard_tree(c, cspecs, tp_mesh)
+            self.cache = self._shard(self.cache)
         self.tok = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._seed = seed
         self._gen = torch.Generator(device=dev).manual_seed(seed)
@@ -237,7 +279,8 @@ class BatchingEngine:
         self._admit()
         if all(r is None for r in self.slot_req):
             return
-        toks, _, _ = self._loop(self.params, self.cache, self.tok, self._gen)
+        toks, _, _ = self._loop(self._dparams, self.cache, self.tok,
+                                self._gen)
         toks = toks.cpu().numpy()           # (sync_steps, B): one copy
         for b, req in enumerate(self.slot_req):
             if req is None:
@@ -277,7 +320,7 @@ class BatchingEngine:
             logits, pcache = self._prefill(self.params,
                                            torch.from_numpy(ids).to(dev))
             first = self._sample(logits[:, n - 1], self._gen)   # (1,)
-            self._insert(self.cache, pcache, slot, n)
+            self._insert(self.cache, self._shard(pcache), slot, n)
             self.tok[slot:slot + 1].copy_(first)
             req.tokens.append(int(first[0]))
             self.slot_req[slot] = req

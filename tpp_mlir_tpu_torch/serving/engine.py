@@ -46,7 +46,11 @@ PyTorch). The prefill is differentiable for LoRA/QLoRA training
 `ops.trainable.f32_matmul`, its attention through B14/B18 on the card (B7
 has no backward), its K/V are written to the cache detached, and
 `remat` recomputes each layer in the backward; int8 compute has no
-backward and raises. Not ported here: the tp decode (A11).
+backward and raises. The tensor-parallel decode (`make_tp_decode_step`,
+`decode_param_specs`, `decode_cache_specs`) runs `_decode_body` on one tp
+rank's shards (heads and the KV cache split over tp, one all-reduce of the
+f32 partial product per row-parallel GEMM), as the JAX `shard_map` body
+does (engine.py:1175-1217, 1650-1770 there).
 """
 
 from __future__ import annotations
@@ -874,14 +878,29 @@ def _attention_full(q, k, v, cfg: GptConfig, kernels: bool):
 # ---------------------------------------------------------------------------
 # prefill
 
+def _row_dot(x, w, b, tp=None):
+    """A row-parallel contraction + bias: the f32 partial product summed
+    over the tp group, then the bias once, cast to x's dtype (the JAX
+    decode's `row_parallel`). With no group it is `_dot(x, w, b)`."""
+    if tp is None:
+        return _dot(x, w, b)
+    from ..parallel.collectives import all_reduce
+    return (all_reduce(_mm(x, w), tp) + b.float()).to(x.dtype)
+
+
 def _ffn(x, h, blk, cfg: GptConfig, int8: bool, kernels: bool,
-         decode: bool = False):
+         decode: bool = False, tp=None):
     """The block's MLP on the normed h, added to x; a MoE block runs its
-    decode form on a decode step's (B, E) rows, else its prefill form."""
+    decode form on a decode step's (B, E) rows, else its prefill form. With
+    a tp group (the tp decode) the second GEMM is row-parallel."""
     if cfg.swiglu:
         act = (F.silu(_mm(h, blk["w1"], int8, kernels))
                * _mm(h, blk["w3"], int8, kernels)).to(x.dtype)
-        return x + _mm(act, blk["w2"], int8, kernels).to(x.dtype)
+        y = _mm(act, blk["w2"], int8, kernels)
+        if tp is not None:
+            from ..parallel.collectives import all_reduce
+            y = all_reduce(y, tp)
+        return x + y.to(x.dtype)
     if cfg.n_experts:
         if decode:
             return x + _moe_ffn_decode(h, blk, cfg)
@@ -889,6 +908,8 @@ def _ffn(x, h, blk, cfg: GptConfig, int8: bool, kernels: bool,
         return x + _moe_ffn_prefill(rows, blk, cfg, kernels).reshape(h.shape)
     h = _dot(h, blk["w1"], blk["b1"], int8=int8, unary="gelu",
              kernels=kernels)
+    if tp is not None:
+        return x + _row_dot(h, blk["w2"], blk["b2"], tp)
     return x + _dot(h, blk["w2"], blk["b2"], int8=int8, kernels=kernels)
 
 
@@ -1005,11 +1026,16 @@ def _write(arr, new, pos, slotted: bool):
     arr[rows, :, at] = torch.where(free, old, new)
 
 
-def _decode_body(params, cache, token, cfg: GptConfig, kernels: bool):
+def _decode_body(params, cache, token, cfg: GptConfig, kernels: bool,
+                 tp=None):
     """One decode step: write the token's K/V at pos in place, attend over
     the cache, MLP; advances cache["pos"] in place. No host read of a
-    device value, so the step can be captured in a CUDA graph."""
-    H, KVH, D = cfg.heads, cfg.kv_h, cfg.head_dim
+    device value, so the step can be captured in a CUDA graph. With a tp
+    group the params and cache are one rank's shards (heads/tp query and
+    kv_h/tp KV heads; `decode_param_specs`, `decode_cache_specs`) and the
+    out-proj and fc2 partials are summed over it."""
+    ntp = 1 if tp is None else tp.size()
+    H, KVH, D = cfg.heads // ntp, cfg.kv_h // ntp, cfg.head_dim
     G, S = H // KVH, cfg.max_seq
     scale = D ** -0.5
     B = token.shape[0]
@@ -1074,9 +1100,9 @@ def _decode_body(params, cache, token, cfg: GptConfig, kernels: bool):
             a = _f32bmm(p.to(ct).reshape(B * KVH, G, S),
                         vc.to(ct).reshape(B * KVH, S, D))
         a = a.reshape(B, H * D).to(x.dtype)
-        x = x + _dot(a, blk["wo"], blk["bo"])
+        x = x + _row_dot(a, blk["wo"], blk["bo"], tp)
         x = _ffn(x, _block_norm(x, blk, "ln2", cfg), blk, cfg, False,
-                 kernels, decode=True)
+                 kernels, decode=True, tp=tp)
     logits = _dot(_final_norm(x, params, cfg), params["lm_head"])
     pos.add_(1)
     return logits, cache
@@ -1090,6 +1116,95 @@ def make_decode_step(cfg: GptConfig, use_kernels: bool | None = None):
     def step(params, cache, token):
         return _decode_body(params, cache, token, cfg,
                             _use_kernels(params, use_kernels))
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel decode
+
+def decode_param_specs(cfg: GptConfig, tp_axis: str = "tp",
+                       quantized: bool = False) -> dict:
+    """Specs of the tp decode's params (engine.py:1650 there): q/k/v and
+    fc1 (and w3) column-parallel (heads / fc1 columns on tp), out-proj and
+    fc2 row-parallel; everything else replicated. The per-layer list layout
+    (the port has no stacked one). With quantized=True the matmul weights'
+    specs are QTensors: the payload splits like the weight; the (1, out)
+    scale splits with the out dim for column-parallel weights and is
+    replicated for row-parallel ones. A MoE block's experts are
+    replicated (the tp decode refuses MoE; these serve the dp-only GPT
+    step)."""
+    from ..parallel.mesh import P
+
+    def col():
+        w = P(None, tp_axis)
+        return QTensor(q=w, scale=P(None, tp_axis)) if quantized else w
+
+    def row():
+        w = P(tp_axis, None)
+        return QTensor(q=w, scale=P(None, None)) if quantized else w
+
+    blk = {"ln1_g": P(), "wq": col(), "bq": P(tp_axis), "wk": col(),
+           "bk": P(tp_axis), "wv": col(), "bv": P(tp_axis), "wo": row(),
+           "bo": P(), "ln2_g": P()}
+    if not cfg.rms_norm:
+        blk.update({"ln1_b": P(), "ln2_b": P()})
+    if cfg.swiglu:
+        blk.update({"w1": col(), "w3": col(), "w2": row()})
+    elif cfg.n_experts:
+        blk.update({"wr": P(), "w1": P(), "w2": P()})
+    else:
+        blk.update({"w1": col(), "b1": P(tp_axis), "w2": row(), "b2": P()})
+    out = {"wte": P(), "blocks": [dict(blk) for _ in range(cfg.layers)],
+           "lnf_g": P(),
+           "lm_head": QTensor(q=P(), scale=P()) if quantized else P()}
+    if not cfg.rope:
+        out["wpe"] = P()
+    if not cfg.rms_norm:
+        out["lnf_b"] = P()
+    return out
+
+
+def decode_cache_specs(cfg: GptConfig, tp_axis: str = "tp") -> dict:
+    """The KV cache (L, B, kv_h, max_seq, D) splits its KV-head dim over
+    tp; an int8 cache's (L, B, kv_h, max_seq) scales split the same dim
+    (engine.py:1759 there)."""
+    from ..parallel.mesh import P
+    kv = P(None, None, tp_axis, None, None)
+    specs = {"k": kv, "v": kv, "pos": P()}
+    if cfg.kv_quant == "int8":
+        specs["k_s"] = specs["v_s"] = P(None, None, tp_axis, None)
+    return specs
+
+
+def make_tp_decode_step(mesh, cfg: GptConfig, tp_axis: str = "tp",
+                        use_kernels: bool | None = None):
+    """The tensor-parallel decode step over `mesh` (engine.py:1723 there):
+    `step(params, cache, token) -> (logits, cache)` on this rank's shards
+    (`shard_tree` with `decode_param_specs` / `decode_cache_specs`), heads
+    and the KV cache split over tp, one all-reduce per row-parallel GEMM;
+    the logits are replicated. The cache is updated in place, as
+    `make_decode_step`'s is. QTensor params (laid out by
+    `decode_param_specs(quantized=True)`) are read as they come."""
+    from ..parallel.mesh import mesh_shape
+    tp = mesh_shape(mesh).get(tp_axis, 1)
+    if cfg.heads % tp:
+        raise ValueError(f"tp decode needs heads {cfg.heads} divisible by "
+                         f"tp {tp}")
+    if cfg.kv_h % tp:
+        raise ValueError(f"GQA tp decode needs kv_heads {cfg.kv_h} "
+                         f"divisible by tp {tp}")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "tp decode does not shard MoE experts (use the ep-sharded MoE "
+            "in parallel/moe.py; Megatron-style expert sharding is future "
+            "work)")
+    from ..parallel.mesh import as_mesh
+    group = as_mesh(mesh).group(tp_axis)
+
+    def step(params, cache, token):
+        return _decode_body(params, cache, token, cfg,
+                            _use_kernels(params, use_kernels), group)
 
     return step
 
@@ -1215,7 +1330,8 @@ class DecodeRunner:
     so the same steps can run again (timing, tracing)."""
 
     def __init__(self, step, params, cache, token, graph: bool):
-        self.cache = cache
+        # the captured graph reads these tensors: they live as long as it
+        self.params, self.cache = params, cache
         self.pos0 = cache["pos"].clone()
         if not graph:
             self._run = lambda tok: step(params, cache, tok)[0]

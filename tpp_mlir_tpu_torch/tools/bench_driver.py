@@ -123,7 +123,10 @@ def run_entry(entry: dict, n: int | None = None, device: str = "cuda",
     """Run the entry un-lowered (the baseline), then lowered with its
     `pipeline`, on one module; each run is tpp_run.run_module's result
     (outputs, and with n > 0 the mean and the bench lowering). n defaults
-    to the entry's `iters` (0 without one)."""
+    to the entry's `iters` (0 without one). An entry's `task_grid` ("DP" or
+    "DPxTP", the scaling rows of benchmarks/configs/taskgrid.json) runs the
+    lowered program over that mesh of the world's ranks (every rank calls
+    run_entry); the baseline runs whole."""
     if n is None:
         n = entry.get("iters", 0)
     module = build_module(entry)
@@ -133,7 +136,9 @@ def run_entry(entry: dict, n: int | None = None, device: str = "cuda",
                                pipeline=entry.get("pipeline",
                                                   "default-tpp-passes"),
                                linalg_to_loops=l2l, out_stream=out_stream,
-                               bench_mode=entry.get("bench_mode", "auto"))
+                               bench_mode=entry.get("bench_mode", "auto"),
+                               task_grid="" if l2l else
+                               str(entry.get("task_grid", "")))
     return out
 
 

@@ -9,8 +9,10 @@ counterpart of `tpp_mlir_tpu/tools/tpp_serve.py` with its modes: greedy or
 sampled generation, `--beams` (beam search), `--speculative K` (a draft
 model, or with `--trunk-draft N` the target's first N blocks, proposes K
 tokens a round) and `--continuous N` (N requests through --batch slots,
-host scheduler, or `--device-scheduler`). The prompt ids are drawn exactly
-as there, so the prompts are the same.
+host scheduler, or `--device-scheduler`) and `--tp N` (the
+tensor-parallel decode, run under torchrun with N ranks: the prefill
+unsharded, then the decode on each rank's shards, greedy; rank 0 prints).
+The prompt ids are drawn exactly as there, so the prompts are the same.
 
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --steps 32      # GPT-2 small
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --vocab 96 --embed 64 \\
@@ -24,6 +26,10 @@ as there, so the prompts are the same.
       --sync-steps 64                                # device scheduler
   python -m tpp_mlir_tpu_torch.tools.tpp_serve --speculative 4 \\
       --trunk-draft 2 --prompt-len 512 --steps 64 --max-seq 1024
+  python -m torch.distributed.run --nproc-per-node 2 \\
+      -m tpp_mlir_tpu_torch.tools.tpp_serve --tp 2 --vocab 96 --embed 64 \\
+      --heads 4 --layers 2 --max-seq 24 --prompt-len 6 --steps 5 \\
+      --dtype f32 --device cpu                      # a gloo world of 2
 
 Times are host clocks around work that ends in a device synchronize; the
 prefill (with the first sample), the decode time per step and tokens/s
@@ -39,9 +45,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-# modes of the JAX tool that are not ported yet, and their ROADMAP items
-_LATER = {"tp": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,21 +115,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "one replayed macro)")
     p.add_argument("--wave", type=int, default=16,
                    help="device-scheduler staging rows (KV memory knob)")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel decode over N ranks (run under "
+                        "torchrun; nccl on CUDA, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no CPU fallback) or cpu")
-    for flag, item in _LATER.items():
-        p.add_argument(f"--{flag}", type=int, default=0,
-                       help=f"not ported yet (ROADMAP {item})")
     return p
 
 
 def main(argv=None, out=sys.stdout) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in _LATER.items():
-        if getattr(args, flag):
-            print(f"--{flag} is not ported yet: ROADMAP {item}",
-                  file=sys.stderr)
-            return 2
     import torch
 
     dev = torch.device(args.device)
@@ -145,6 +143,13 @@ def main(argv=None, out=sys.stdout) -> int:
         print("--speculative serves the batch-1 latency path",
               file=sys.stderr)
         return 2
+    if args.tp:
+        from tpp_mlir_tpu_torch.parallel.mesh import join_world
+        try:
+            dev, out = join_world(dev, {"tp": args.tp})
+        except ValueError as e:     # more ranks than torchrun started
+            print(e, file=sys.stderr)
+            return 2
     try:
         cfg, params, ids = setup(dict(
             vocab=args.vocab, embed=args.embed, heads=args.heads,
@@ -163,6 +168,8 @@ def main(argv=None, out=sys.stdout) -> int:
             return _speculative(args, cfg, params, ids, out)
         if args.continuous:
             return _continuous(args, cfg, params, ids.device, out)
+        if args.tp:
+            return _tp(args, cfg, params, ids, out)
         if args.beams > 1:
             return _beams(args, cfg, params, ids, out)
     except ValueError as e:         # a mode's own refusal (sizes, vocab)
@@ -260,6 +267,52 @@ def _continuous(args, cfg, params, dev, out) -> int:
     for i, rid in enumerate(rids):
         print(f"req {rid} ({len(prompts[i])}-token prompt): "
               + " ".join(str(t) for t in done[rid]), file=out)
+    return 0
+
+
+def _tp(args, cfg, params, ids, out) -> int:
+    """The JAX tool's --tp: the unsharded prefill, then steps - 1 greedy
+    tensor-parallel decode steps on this rank's shards, timed (a CUDA graph
+    over an NCCL group, eager over a gloo one)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpp_mlir_tpu_torch.parallel.mesh import make_mesh, shard_tree
+    from tpp_mlir_tpu_torch.serving import DecodeRunner, make_prefill
+    from tpp_mlir_tpu_torch.serving.batching import tp_graph_default
+    from tpp_mlir_tpu_torch.serving.engine import (decode_cache_specs,
+                                                   decode_param_specs,
+                                                   make_tp_decode_step)
+    mesh = make_mesh({"tp": args.tp})
+    quant = bool(args.quant)
+    step = make_tp_decode_step(mesh, cfg)
+    logits, cache = make_prefill(cfg)(params, ids)
+    # the model's own continuation, comparable token for token with the
+    # single-device modes
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    local = shard_tree(params, decode_param_specs(cfg, quantized=quant),
+                       mesh)
+    lcache = shard_tree(cache, decode_cache_specs(cfg), mesh)
+    dev = ids.device
+    graph = tp_graph_default(mesh.group("tp"), dev)
+    run = DecodeRunner(step, local, lcache, tok, graph)
+    toks = [tok]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(args.steps - 1):
+        tok = run(tok).argmax(-1).to(torch.int32)
+        toks.append(tok)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    print(f"# tp={args.tp} decode ({dist.get_backend()}, "
+          f"{'graph' if graph else 'eager'}): {args.steps - 1} steps in "
+          f"{dt:.4f} s ({dt * 1e3 / max(args.steps - 1, 1):.4f} ms/step, "
+          f"{dev})", file=out)
+    for row in torch.stack(toks, 1).tolist():
+        print(" ".join(str(t) for t in row), file=out)
+    dist.destroy_process_group()
     return 0
 
 
