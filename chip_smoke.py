@@ -40,6 +40,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
         the fc 256x1024x1024 bias+relu, the matmul 256x1024x1024): the
         flagship must lower to one xsmm.fused_chain, both kernels' launch
         counts must move, and each output must match --linalg-to-loops;
+        then the compiler's general path (ROADMAP A3,
+        phase_compiler_path): tpp-gen --output=generic's flagship in bf16
+        and f32 (one xsmm.fused_chain, bit-equal to the named form, both
+        timed from a CUDA graph of 100 forwards), the fc with --softmax in
+        f32 "default", f32 "highest" and bf16 (one B1 fused_brgemm, then
+        decompose-softmax's reduce/sub/exp/reduce/div as PyTorch ops; rows
+        summing to 1, the softmax against the f32 softmax of its own
+        logits; the f32 "default" and bf16 readings against
+        --linalg-to-loops printed, not held), the f32 fc through
+        split-reduction-dim{tile=256} (one B1 dispatch of batch 4 against
+        the un-split lowering and its plain version) and the imported
+        Conv2d-BN-ReLU-MaxPool2d-AvgPool2d-Linear stack at N 8, 128
+        channels, 32x32 (conv.cu) against the torch module; brgemm, chain
+        and conv_nhwc must launch;
      b. the transformer path: GPT-2 small (gpt2_small_s1024_bf16: batch 2,
         seq 1024, vocab 50304, E 768, 12 heads, 12 layers, bf16, random
         weights from seed 0) and the encoder block
@@ -1063,13 +1077,36 @@ def _kind(key) -> str | None:
     return kind
 
 
+# each kind's launches by the csrc/ source its kernels were built with
+# (Kernel.source, recorded where the wrapper chose its route): the kernel
+# line names the source of most of a kind's counted launches
+SOURCES: dict = {}
+
+
 def _launches(cache) -> dict:
     out = dict.fromkeys((*KINDS.values(), *SHARED_KINDS), 0)
     for fn in cache.kernels():
         kind = _kind(fn.key)
         if kind:
             out[kind] += fn.launches
+            if fn.launches:
+                seen = SOURCES.setdefault(kind, {})
+                seen[fn.source] = seen.get(fn.source, 0) + fn.launches
     return out
+
+
+def _source(kind: str) -> str:
+    """The csrc/ source of most of a kind's counted launches; for a kind
+    counted outside _launches, the one source its built kernels share."""
+    if SOURCES.get(kind):
+        return max(SOURCES[kind].items(), key=lambda kv: kv[1])[0]
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    built = {fn.source for fn in global_cache().kernels()
+             if _kind(fn.key) == kind}
+    if len(built) != 1:
+        raise AssertionError(f"{kind}: no counted launch, and its kernels "
+                             f"were built from {sorted(map(str, built))}")
+    return built.pop()
 
 
 def phase_main_path() -> dict:
@@ -1106,6 +1143,203 @@ def phase_main_path() -> dict:
     if not (launches["brgemm"] and launches["chain"]):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    return launches
+
+
+# the compiler's general path (ROADMAP A3): tpp-gen's generic and softmax
+# modules, split-reduction-dim, and an imported conv-BN-pool stack
+GENERIC_FLAGSHIP = (("generic flagship bf16", "--float-type=bf16"),
+                    ("generic flagship f32", ""))
+SOFTMAX_FC = "--batch=256 --layers=1024,1024 --bias --relu --softmax"
+SOFTMAX_FORMS = (("f32", "default"), ("f32", "highest"), ("bf16", "default"))
+SPLIT_FC = "--batch=256 --layers=1024,1024 --bias --relu"
+SPLIT_TILE = 256
+CONV_STACK = (8, 128, 32, 32)   # N, C, H, W of the conv-BN-pool stack
+COMPILER_GRAPH_N = 100          # forwards a CUDA graph replays (-n 100)
+
+
+def _invokes(module) -> list:
+    return [op.opname for op in module["entry"].ops
+            if op.opname.startswith("xsmm.")
+            and not op.opname.endswith("_dispatch")]
+
+
+def _conv_bn_pool_stack():
+    """JAX tests/frontend/test_torch_import.py:88's stack at 128 channels:
+    Conv2d(3, p1)-BN-ReLU-MaxPool2d(2)-AvgPool2d(2)-Linear(->10), weights
+    from torch.manual_seed(4), BN stats drawn as the JAX test draws them."""
+    import torch
+    N, C, H, W = CONV_STACK
+    torch.manual_seed(4)
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(C, C, 3, padding=1), torch.nn.BatchNorm2d(C),
+        torch.nn.ReLU(), torch.nn.MaxPool2d(2), torch.nn.AvgPool2d(2),
+        torch.nn.Flatten(), torch.nn.Linear(C * (H // 4) * (W // 4), 10))
+    model.eval()
+    with torch.no_grad():
+        model[1].running_mean.uniform_(-0.5, 0.5)
+        model[1].running_var.uniform_(0.5, 1.5)
+    return model, torch.randn(N, C, H, W)
+
+
+def phase_compiler_path() -> dict:
+    """ROADMAP A3 on the card, through run_module: (a) the generic-form
+    flagship (tpp-gen --output=generic, constant weights) in bf16 and f32
+    "default", one xsmm.fused_chain (B3) as the named form, bit-equal to
+    it; (b) the fc with --softmax in f32 and bf16, one B1 fused_brgemm then
+    the decomposed softmax as PyTorch ops, rows summing to 1, against the
+    f32 softmax of its own logits (see the comment there); (c) the f32
+    fc through split-reduction-dim{tile=256}, one B1 dispatch of batch 4,
+    against the un-split lowering and the same module on the CPU (B1's
+    plain version); (d) the imported conv-BN-pool stack (N 8, 128
+    channels, 32x32) on conv.cu (B24) against the torch module. Each run
+    is held against --linalg-to-loops at TOL_BF16 ((d): TOL_MODEL); the
+    launches are this path's alone; then the CUDA-graph times of (a)."""
+    import copy
+
+    import torch
+
+    from tpp_mlir_tpu_torch.frontend import import_torch
+    from tpp_mlir_tpu_torch.passes import make_pass, run_pipeline
+    from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
+    from tpp_mlir_tpu_torch.tools.tpp_run import init_args, run_module
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    from tpp_mlir_tpu_torch.xsmm.reference import no_tf32_conv
+    cache = global_cache()
+    t0 = time.perf_counter()
+
+    def run(module, **kw):
+        return run_module(module, device="cuda", out_stream=sys.stderr,
+                          **kw)
+
+    def held(label, got, want, tol, extra=""):
+        rel, ab = rel_err(got, want)
+        ok = tuple(got.shape) == tuple(want.shape) and rel <= tol \
+            and torch_isfinite(got)
+        say(f"compiler {label:26s} vs {extra or '--linalg-to-loops'} rel "
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol}")
+
+    cache.reset_launches()
+    lowered = {}
+    # (a) the flagship in generic form against its named form
+    for label, dt in GENERIC_FLAGSHIP:
+        named = f"{FLAGSHIP_GEN} {dt}".strip()
+        res = run(_module(f"{named} --output=generic"))
+        if _invokes(res["module"]) != ["xsmm.fused_chain"]:
+            raise AssertionError(f"{label}: lowered to "
+                                 f"{_invokes(res['module'])}")
+        lowered[label] = res["module"]
+        got = res["outputs"][0]
+        want = run(_module(f"{named} --output=generic"),
+                   linalg_to_loops=True)["outputs"][0]
+        held(label, got, want, TOL_BF16, "")
+        ref = run(_module(named))["outputs"][0]
+        d = (got.float() - ref.float()).abs().max().item()
+        say(f"compiler {label:26s} one xsmm.fused_chain; max |generic - "
+            f"named| {d:.3e} {'ok' if d == 0 else 'FAIL'}")
+        if d != 0:
+            raise AssertionError(f"{label}: {d} from the named flagship")
+    # (b) --softmax: B1, then reduce/sub/exp/reduce/div. Held: the rows'
+    # sums, the softmax against the f32 softmax of B1's own logits (the
+    # same module without --softmax), the logits against
+    # --linalg-to-loops, and the f32 "highest" module against
+    # --linalg-to-loops. Printed, not held: the f32 "default" and bf16
+    # modules against --linalg-to-loops, where exp turns the logits'
+    # rounding (up to |157| here) into differences of several 1e-2; the
+    # JAX package on the CPU reads the same 0.2305 on the bf16 module
+    for dt, prec in SOFTMAX_FORMS:
+        flags = f"{SOFTMAX_FC} --float-type={dt}"
+        label = f"softmax fc {dt}" + (f" {prec}" if prec != "default"
+                                      else "")
+
+        def module(softmax=True):
+            m = _module(flags if softmax else flags.replace(" --softmax",
+                                                            ""))
+            if prec != "default":
+                m.attrs["precision"] = prec
+            return m
+        res = run(module())
+        ops = [op.opname for op in res["module"]["entry"].ops
+               if not op.opname.endswith("_dispatch")
+               and op.opname not in ("tl.constant", "tl.reshape")]
+        if ops != ["xsmm.fused_brgemm", "tl.reduce", "xsmm.binary",
+                   "xsmm.unary", "tl.reduce", "xsmm.binary"]:
+            raise AssertionError(f"{label}: lowered to {ops}")
+        got = res["outputs"][0]
+        rows = (got.float().sum(-1) - 1).abs().max().item()
+        say(f"compiler {label:26s} one xsmm.fused_brgemm + the decomposed "
+            f"softmax; max |row sum - 1| {rows:.3e} tol 1e-02 "
+            f"{'ok' if rows <= 1e-2 else 'FAIL'}")
+        if rows > 1e-2:
+            raise AssertionError(f"{label}: rows sum {rows} from 1")
+        logits = run(module(False))["outputs"][0]
+        held(label, got, torch.softmax(logits.float(), -1), TOL_BF16,
+             "softmax(B1's own logits, f32)")
+        held(f"{label} logits", logits, run(module(False),
+             linalg_to_loops=True)["outputs"][0], TOL_BF16)
+        want = run(module(), linalg_to_loops=True)["outputs"][0]
+        if prec == "highest":
+            held(label, got, want, TOL_BF16)
+        else:
+            rel, ab = rel_err(got, want)
+            say(f"compiler {label:26s} vs --linalg-to-loops rel {rel:.3e} "
+                f"abs {ab:.3e} (reported, not held: the logits' rounding "
+                f"through exp)")
+    # (c) split-reduction-dim ahead of default-tpp-passes
+    split = _module(SPLIT_FC)
+    make_pass("split-reduction-dim", tile=SPLIT_TILE).run(split)
+    cpu_split = _module(SPLIT_FC)
+    make_pass("split-reduction-dim", tile=SPLIT_TILE).run(cpu_split)
+    res = run(split)
+    disp = [op.attrs for op in res["module"]["entry"].ops
+            if op.opname.endswith("brgemm_dispatch")]
+    inv = [o for o in _invokes(res["module"]) if "brgemm" in o]
+    if len(disp) != 1 or disp[0]["batch"] != 1024 // SPLIT_TILE:
+        raise AssertionError(f"split fc: dispatches {disp}")
+    say(f"compiler split fc: one {inv[0]} of batch {disp[0]['batch']} "
+        f"(k {disp[0]['k']}), invokes {_invokes(res['module'])}")
+    got = res["outputs"][0]
+    held("split fc f32", got, run(_module(SPLIT_FC))["outputs"][0],
+         TOL_F32, "the un-split lowering")
+    plain = run_module(cpu_split, device="cpu", out_stream=sys.stderr)
+    held("split fc f32", got, plain["outputs"][0].to(got.device), TOL_F32,
+         "B1's plain version (cpu)")
+    held("split fc f32", got, run(_module(SPLIT_FC), linalg_to_loops=True)
+         ["outputs"][0], TOL_BF16)
+    # (d) the imported conv-BN-pool stack
+    model, x = _conv_bn_pool_stack()
+    x = x.cuda()
+    with torch.no_grad(), no_tf32_conv():
+        want = copy.deepcopy(model).cuda()(x)
+    stack = import_torch(model, CONV_STACK)
+    run_pipeline(stack, "default-tpp-passes")
+    convs = [op.attrs.get("layout") for op in stack["entry"].ops
+             if op.opname.endswith("brgemm_dispatch")]
+    got = tpp_compile(stack, "entry", "cuda")(x)
+    held("conv-BN-pool stack f32", got, want, TOL_MODEL, "the torch module")
+    held("conv-BN-pool stack f32", got, tpp_compile(
+        import_torch(model, CONV_STACK), "entry", "cuda")(x), TOL_MODEL)
+    launches = _launches(cache)
+    say(f"compiler stack: invokes {_invokes(stack)}, conv layouts "
+        f"{convs}; path launches: brgemm {launches['brgemm']} chain "
+        f"{launches['chain']} conv_nhwc {launches['conv_nhwc']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (launches["brgemm"] and launches["chain"]
+            and launches["conv_nhwc"]):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    # both forms of the flagship, -n 100 forwards replayed from a graph
+    for label, dt in GENERIC_FLAGSHIP:
+        named = f"{FLAGSHIP_GEN} {dt}".strip()
+        times = []
+        for module in (lowered[label], run(_module(named))["module"]):
+            f = tpp_compile(module, "entry", "cuda")
+            args = init_args(module, "entry", "normal", 0, "cuda")
+            times.append(graph_ms(lambda: f(*args), COMPILER_GRAPH_N))
+        say(f"compiler {label:26s} graph of {COMPILER_GRAPH_N} forwards: "
+            f"{times[0]:.4f} ms a forward (named form {times[1]:.4f})")
     return launches
 
 
@@ -4991,6 +5225,8 @@ def main() -> int:
             "max_abs_err", 0.0))
         stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
+    for kind, n in phase_compiler_path().items():
+        launches[kind] += n
     for kind, n in phase_transformer_path().items():
         launches[kind] += n
     serve_launches, setups = phase_serving_path()
@@ -5012,38 +5248,38 @@ def main() -> int:
     phase_serving_timing(setups)
     phase_moe_serving_timing(moe_setup)
     kernels = []
-    for kind, src, replaces in (
-            ("brgemm", "brgemm.cu", "kernels.py:580"),
-            ("chain", "chain.cu", "kernels.py:1475"),
-            ("attention", "attention.cu", "kernels.py:2232"),
-            ("layer_norm", "layer_norm.cu", "kernels.py:3257"),
-            ("decode_attn", "decode_attn.cu", "decode_attn.py:101"),
-            ("int8_gemm", "int8_gemm.cu", "kernels.py:1365"),
+    for kind, replaces in (
+            ("brgemm", "kernels.py:580"),
+            ("chain", "kernels.py:1475"),
+            ("attention", "kernels.py:2232"),
+            ("layer_norm", "kernels.py:3257"),
+            ("decode_attn", "decode_attn.py:101"),
+            ("int8_gemm", "kernels.py:1365"),
             # bf16 (the main path's) on attention.cu's training mode; f32
             # on flash_train.cu's f32-FMA forward
-            ("flash_train_fwd", "attention.cu", "flash_train.py:146"),
-            ("flash_train_bwd", "flash_train.cu", "flash_train.py:190"),
-            ("grouped_gemm", "grouped_gemm.cu", "kernels.py:1138"),
-            ("grouped_wgrad", "grouped_gemm.cu", "kernels.py:1283"),
+            ("flash_train_fwd", "flash_train.py:146"),
+            ("flash_train_bwd", "flash_train.py:190"),
+            ("grouped_gemm", "kernels.py:1138"),
+            ("grouped_wgrad", "kernels.py:1283"),
             # one kernel for the five flat TPU kernels (B6, B8, B9, B10a,
             # B10b: :1660, :2395, :2721, :2496, :2618)
-            ("attention_flat", "attention.cu", "kernels.py:1660"),
-            ("attention_bench", "attention.cu", "kernels.py:2091"),
-            ("batch_matmul", "batch_matmul.cu", "kernels.py:963"),
-            ("chain_pingpong", "chain.cu", "kernels.py:1919"),
+            ("attention_flat", "kernels.py:1660"),
+            ("attention_bench", "kernels.py:2091"),
+            ("batch_matmul", "kernels.py:963"),
+            ("chain_pingpong", "kernels.py:1919"),
             # one kernel for B24 (window) and B25 (fullrow, :3117)
-            ("conv_nhwc", "conv.cu", "kernels.py:2919"),
-            ("blocked_matmul", "blocked_matmul.cu", "kernels.py:763"),
-            ("blocked_matmul_warm", "blocked_matmul.cu", "kernels.py:870"),
+            ("conv_nhwc", "kernels.py:2919"),
+            ("blocked_matmul", "kernels.py:763"),
+            ("blocked_matmul_warm", "kernels.py:870"),
             # B24's kernel in the channel-blocked layout
-            ("conv_blocked", "conv.cu", "kernels.py:2778"),
+            ("conv_blocked", "kernels.py:2778"),
             # B2's LN-stats producer/consumer pair (the line's times: the
             # two launches, at the bf16 GPT-2 fc key)
-            ("brgemm_ln_stats", "brgemm.cu", "kernels.py:243")):
+            ("brgemm_ln_stats", "kernels.py:243")):
         also = {"attention_flat": [":2395", ":2496", ":2618", ":2721"],
                 "batch_matmul": [":1065"], "conv_nhwc": [":3117"]}.get(kind)
         kernels.append({"name": kind, "route": "cuda",
-                        "source": f"tpp_mlir_tpu_torch/csrc/{src}",
+                        "source": _source(kind),
                         "replaces": f"tpp_mlir_tpu/xsmm/{replaces}",
                         **({"also_replaces": [f"tpp_mlir_tpu/xsmm/kernels.py"
                                               f"{x}" for x in also]}

@@ -1,6 +1,7 @@
-"""The port (every slice: the MLP path, the imported transformer, serving
-and its batching, beam and speculative modes, training, MoE, the MHA
-suite, the conv family, packed parity mode, the parallel layer) imports
+"""The port (every slice: the MLP path, the compiler's general path and its
+tools, the imported transformer, serving and its batching, beam and
+speculative modes, training, MoE, the MHA suite, the conv family, packed
+parity mode, the parallel layer) imports
 torch and its own modules only: never JAX, Triton, ml_dtypes, nor any
 module of the JAX package `tpp_mlir_tpu`; nor does a rank of a world the
 parallel layer spawns.
@@ -41,6 +42,30 @@ for flags in ("--batch=8 --layers=16,16,16 --bias --relu --float-type=bf16",
     res = run_module(parse_module(generate_text(cfg)), n=2, device="cpu",
                      out_stream=sys.stderr)
     assert res["outputs"][0].shape[0] == 8
+# the compiler's general path: generic and softmax IR, split-reduction,
+# the pools, tpp-opt and fpcmp
+from tpp_mlir_tpu_torch.passes import make_pass
+from tpp_mlir_tpu_torch.tools import fpcmp, tpp_opt
+for flags in ("--batch=8 --layers=16,16 --bias --relu --output=generic",
+              "--batch=8 --layers=16,16 --bias --relu --softmax"):
+    cfg = config_from_args(build_parser().parse_args(flags.split()))
+    res = run_module(parse_module(generate_text(cfg)), device="cpu",
+                     print_mlir="kernel", sanitize=True,
+                     out_stream=sys.stderr)
+    assert res["outputs"][0].shape == (8, 16)
+m = parse_module(generate_text(config_from_args(build_parser().parse_args(
+    "--batch=8 --layers=64,16".split()))))
+make_pass("split-reduction-dim", tile=16).run(m)
+assert run_module(m, device="cpu", out_stream=sys.stderr)["outputs"][0] \
+    .shape == (8, 16)
+from tpp_mlir_tpu_torch.frontend import import_torch
+pool = torch.nn.Sequential(torch.nn.Conv2d(8, 8, 3, padding=1),
+                           torch.nn.MaxPool2d(2), torch.nn.AvgPool2d(2))
+res = run_module(import_torch(pool, (1, 8, 8, 8)), device="cpu",
+                 out_stream=sys.stderr)
+assert res["outputs"][0].shape == (1, 8, 2, 2)
+assert tpp_opt.main(["--list"]) == 0
+assert fpcmp.compare_values([1.0, float("inf")], [1.0, float("inf")], 0, 0)[0]
 # the transformer slice: an imported GPT through the port's bench driver
 from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
 res = run_entry({"model": 'gpt:{"batch": 1, "seq": 16, "vocab": 64, '

@@ -323,14 +323,34 @@ def test_mha_lowerings_hold_the_suite_kernels():
 
 
 def test_unabsorbed_softmax_names_a3():
+    """A softmax attention-fusion does not absorb, once refused naming
+    ROADMAP A3, now runs: decompose-softmax splits it into reduce max, sub,
+    exp, reduce sum and div, the IR the JAX package prints, and the
+    lowered module matches --linalg-to-loops and the JAX run."""
     from tpp_mlir_tpu_torch.ir import Function, Module, TensorType, TppBuilder
-    m = Module()
-    t = TensorType((2, 8, 8), "f32")
-    f = m.add(Function("entry", [t], ["x"]))
-    f.returns = [TppBuilder(f).softmax(f.args[0], axis=2)]
-    m.verify()
-    with pytest.raises(NotImplementedError, match="queue A3"):
-        run_pipeline(m, "default-tpp-passes")
+
+    def build(pkg):
+        ir = pkg.ir
+        m = ir.Module()
+        t = ir.TensorType((2, 8, 8), "f32")
+        f = m.add(ir.Function("entry", [t], ["x"]))
+        f.returns = [ir.TppBuilder(f).softmax(f.args[0], axis=2)]
+        m.verify()
+        return m
+    import tpp_mlir_tpu
+    import tpp_mlir_tpu_torch
+    port, ref = build(tpp_mlir_tpu_torch), build(tpp_mlir_tpu)
+    run_pipeline(port, "default-tpp-passes")
+    jax_run_pipeline(ref, "default-tpp-passes")
+    assert str(port) == str(ref)
+    assert [op.opname for op in port["entry"].ops].count("tl.reduce") == 2
+    got = run_module(build(tpp_mlir_tpu_torch), device="cpu",
+                     out_stream=io.StringIO())["outputs"][0]
+    want = run_module(build(tpp_mlir_tpu_torch), linalg_to_loops=True,
+                      device="cpu", out_stream=io.StringIO())["outputs"][0]
+    jax_want = jax_run_module(build(tpp_mlir_tpu), linalg_to_loops=True,
+                              out_stream=io.StringIO())["outputs"][0]
+    assert _err(got, want) <= 1e-6 and _err(got, jax_want) <= 1e-6
 
 
 @pytest.mark.parametrize("name", ["mha_block", "mha_full", "qk"])

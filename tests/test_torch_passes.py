@@ -2,7 +2,8 @@
 IR on tpp-gen's MLP, fc and matmul modules and on the imported GPT and
 transformer block once the tile_* hints (TPU blocks there, Hopper tiles
 here) are stripped; the chain gate chain_fits_smem on each side of its
-limit; and verify-slice refusing what the port cannot run."""
+limit; the softmax, generic and packed modules that once stood outside
+the slice; and verify-slice refusing what the port cannot run."""
 
 import re
 
@@ -18,7 +19,7 @@ from tpp_mlir_tpu_torch.models.gpt import build_gpt
 from tpp_mlir_tpu_torch.models.mlp import MlpConfig, build_mlp
 from tpp_mlir_tpu_torch.models.transformer_block import \
     build_transformer_block
-from tpp_mlir_tpu_torch.passes import run_pipeline
+from tpp_mlir_tpu_torch.passes import make_pass, run_pipeline
 from tpp_mlir_tpu_torch.xsmm import ChainKey, chain_fits_smem
 
 
@@ -118,16 +119,65 @@ def test_chain_gate_limit_follows_the_kernel():
                                         dtype="f32", precision="highest"))
 
 
-@pytest.mark.parametrize("cfg", [
-    MlpConfig(batch=8, layers=(16, 16), softmax=True),
-    MlpConfig(batch=8, layers=(16, 16), bias=True, output="generic"),
-    # packed parity mode runs (tests/test_torch_packed.py); a packed module
-    # with an op outside the slice is still refused
-    MlpConfig(batch=8, layers=(16, 16), tiles=(4, 8, 8), softmax=True),
-], ids=["softmax", "generic", "packed"])
-def test_ir_outside_the_slice_is_refused(cfg):
-    with pytest.raises(NotImplementedError, match="outside the port's slice"):
-        run_pipeline(build_mlp(cfg), "default-tpp-passes")
+def _generic_row_sum():
+    """A tl.generic whose reduction is no contraction (a row sum):
+    classify_generic cannot place it, and the reference's evaluator
+    raises on it too."""
+    m = Module()
+    f = m.add(Function("entry", [TensorType((8, 16), "f32")], ["x"]))
+    b = TppBuilder(f)
+    acc = b.constant(TensorType((8,), "f32"), init="zero")
+    f.returns = [b.generic([f.args[0]], acc, [(0, 1), (0,)],
+                           ("parallel", "reduction"),
+                           ("add", ("arg", 0), ("arg", 1)))]
+    m.verify()
+    return m
+
+
+# IR the port once refused (softmax, generic, packed with a softmax: run
+# since the compiler's general path was ported), and what it still
+# refuses, with the refusal's words: f16, a reduction tl.generic no
+# kernel form takes, and a contraction that convert-tl-to-xsmm's `skip`
+# left in tl form (it would run its plain version on the card in place of
+# B1), named or generic
+@pytest.mark.parametrize("cfg,refusal,skip", [
+    (MlpConfig(batch=8, layers=(16, 16), softmax=True), None, None),
+    (MlpConfig(batch=8, layers=(16, 16), bias=True, output="generic"), None,
+     None),
+    (MlpConfig(batch=8, layers=(16, 16), tiles=(4, 8, 8), softmax=True),
+     None, None),
+    (MlpConfig(batch=8, layers=(16, 16), bias=True, float_type="f16"),
+     "A14", None),
+    (None, "outside the contraction normal form", None),
+    (MlpConfig(batch=8, layers=(16, 16), bias=True), "op tl.matmul",
+     ("matmul",)),
+    (MlpConfig(batch=8, layers=(16, 16), bias=True, output="generic"),
+     "a contraction tl.generic", ("generic",)),
+], ids=["softmax", "generic", "packed", "f16", "generic-reduction",
+        "skip-matmul", "skip-generic"])
+def test_ir_outside_the_slice_is_refused(cfg, refusal, skip):
+    if refusal is not None:
+        m = build_mlp(cfg) if cfg is not None else _generic_row_sum()
+        passes = ("default-tpp-passes",) if skip is None else (
+            make_pass("convert-tl-to-xsmm", skip=skip), "verify-slice")
+        with pytest.raises(NotImplementedError,
+                           match="outside the port's slice") as e:
+            run_pipeline(m, *passes)
+        assert refusal in str(e.value)
+        return
+    from tpp_mlir_tpu_torch.tools.tpp_run import run_module
+    pipeline = "default-tpp-passes-packed" if cfg.tiles \
+        else "default-tpp-passes"
+    port, ref = build_mlp(cfg), ref_build_mlp(cfg)
+    run_pipeline(port, pipeline)
+    ref_run_pipeline(ref, pipeline)
+    assert _strip_tiles(str(port)) == _strip_tiles(str(ref))
+    got = run_module(build_mlp(cfg), pipeline=pipeline, device="cpu",
+                     seed=3)["outputs"][0]
+    want = run_module(build_mlp(cfg), linalg_to_loops=True, device="cpu",
+                      seed=3)["outputs"][0]
+    # f32 "default": the kernels' plain versions round operands to bf16
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-2
 
 
 def test_cpu_target_plans_for_the_sm90_kernels():

@@ -16,11 +16,12 @@ counterpart:
     rendering of the reference's single-block region with a yield.
 
 `classify_generic` maps a generic onto the named-op normal form (the same
-taxonomy the reference's ConvertLinalgToXsmm patterns use).
+taxonomy the reference's ConvertLinalgToXsmm patterns use), and
+`eval_generic` gives reference semantics for the executor's
+--linalg-to-loops path, on torch tensors.
 
-A copy of `tpp_mlir_tpu/ir/affine.py` without its jnp evaluator
-(`eval_body`, `eval_generic`): the port runs no `tl.generic` yet and
-refuses it naming ROADMAP A3.
+A copy of `tpp_mlir_tpu/ir/affine.py` whose evaluator computes with torch
+where the original's computes with jnp.
 """
 
 from __future__ import annotations
@@ -58,6 +59,31 @@ def body_args(expr) -> set[int]:
             out |= body_args(e)
         return out
     return set()
+
+
+def eval_body(expr, args):
+    """Evaluate a body expression over f32 torch tensors (reference
+    `ir/affine.py:84`). A number leaf is a scalar; "gelu" is the tanh
+    approximation, jax.nn.gelu's default, as the reference evaluates it."""
+    import torch
+    import torch.nn.functional as F
+
+    if is_arg(expr):
+        return args[expr[1]]
+    if isinstance(expr, (int, float)):
+        return torch.tensor(float(expr), dtype=torch.float32,
+                            device=args[0].device)
+    vals = [eval_body(e, args) for e in expr[1:]]
+    fns = {
+        "add": torch.add, "sub": torch.sub, "mul": torch.mul,
+        "div": torch.div, "max": torch.maximum, "min": torch.minimum,
+        "maximumf": torch.maximum, "exp": torch.exp,
+        "negate": torch.neg, "sqrt": torch.sqrt, "rsqrt": torch.rsqrt,
+        "square": lambda x: x * x, "tanh": torch.tanh,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": torch.relu, "identity": lambda x: x,
+    }
+    return fns[expr[0]](*vals)
 
 
 def verify_body(expr, n_args: int):
@@ -190,3 +216,42 @@ def infer_bcast_from_map(out_map, operand_map) -> str:
     if mp == om[len(om) - len(mp):]:
         return "bcast_col"   # trailing projection
     return "none"
+
+
+def eval_generic(op, vals):
+    """Reference semantics of a tl.generic on torch tensors (reference
+    `ir/affine.py:216`, the role of -linalg-to-loops). A contraction
+    computes in f32 with TF32 off, through the same product as the
+    executor's tl.matmul/tl.brgemm/tl.batch_matmul oracles, so a generic
+    and its named form give the same bits; an elementwise generic
+    broadcasts every operand into the output's dims by its map, evaluates
+    the body in f32 and rounds once. A reduction outside the contraction
+    normal form raises NotImplementedError, as the reference's does."""
+    from ..runtime.tensor_init import TORCH_DTYPES
+    from ..xsmm.reference import contraction
+
+    maps = [tuple(m) for m in op.attrs["indexing_maps"]]
+    iters = tuple(op.attrs["iterator_types"])
+    out_dt = TORCH_DTYPES[op.results[0].type.dtype]
+    cls = classify_generic(op)
+    if cls and cls[0] == "contraction":
+        _, kind, swap = cls
+        a, b = (vals[1], vals[0]) if swap else (vals[0], vals[1])
+        return (contraction(kind, a, b) + vals[-1].float()).to(out_dt)
+    if "reduction" in iters:
+        raise NotImplementedError(
+            "tl.generic with reduction dims must match the contraction "
+            "normal form (add(mul(a,b), acc))")
+    sizes: dict[int, int] = {}
+    for v, mp in zip(vals, maps):
+        for d, s in zip(mp, v.shape):
+            sizes[d] = s
+    out_map = maps[-1]
+    out_shape = tuple(sizes[d] for d in out_map)
+    exp = []
+    for v, mp in zip(vals, maps):
+        present = [d for d in out_map if d in mp]
+        x = v.permute([mp.index(d) for d in present])
+        x = x.reshape([sizes[d] if d in mp else 1 for d in out_map])
+        exp.append(x.broadcast_to(out_shape).float())
+    return eval_body(op.attrs["body"], exp).to(out_dt)

@@ -10,6 +10,8 @@ Copies from `tpp_mlir_tpu/passes/fold.py`:
                       only at the graph's boundary;
   fold-const-scale    (:419) constant per-channel scales (an imported
                       BatchNorm) fold into the conv weight;
+  decompose-softmax   (:573) tl.softmax -> reduce max, sub, exp, reduce
+                      sum, div;
 with `_materialize_const` (:366), `new_literal_const` (:403) and
 `tpp_mlir_tpu/passes/conv.py:28 _hoist_before`. `_materialize_const` makes
 a non-literal constant with the port's numpy recipes (runtime/tensor_init),
@@ -576,3 +578,40 @@ class FoldConstScalePass(Pass):
                             func.erase(prod)
                         return True
         return False
+
+
+@register
+class DecomposeSoftmaxPass(Pass):
+    """tl.softmax -> reduce max, sub, exp, reduce sum, div (reference
+    `fold.py:573`), emitted before the softmax. default-tpp-passes runs it
+    after attention-fusion, so a softmax that pass absorbs never reaches
+    it; the eltwise steps lower to xsmm.unary/xsmm.binary and the
+    reductions stay tl.reduce."""
+
+    name = "decompose-softmax"
+
+    def run_on_function(self, func: Function, module: Module) -> bool:
+        changed = False
+        b = TppBuilder(func)
+        for op in list(func.ops):
+            if op.parent is None or op.opname != "tl.softmax":
+                continue
+            x = op.operands[0]
+            axis = op.attrs.get("axis", -1)
+            if axis < 0:
+                axis += x.type.rank
+            ops_before = len(func.ops)
+            mx = b.reduce(x, "max", (axis,), keepdims=True)
+            sh = b.sub(x, mx)
+            ex = b.exp(sh)
+            sm = b.reduce(ex, "sum", (axis,), keepdims=True)
+            res = b.div(ex, sm)
+            # move the freshly appended ops to just before the softmax
+            new_ops = func.ops[ops_before:]
+            del func.ops[ops_before:]
+            idx = func.ops.index(op)
+            func.ops[idx:idx] = new_ops
+            func.replace_all_uses(op.result, res)
+            func.erase(op)
+            changed = True
+        return changed

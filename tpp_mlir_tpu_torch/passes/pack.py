@@ -15,7 +15,7 @@ ToBlockLayoutAndBack family:
 The tiles are the reference's rule, the (sublane, lane) table included
 (`utils/target.py pack_min_tile`), so the packed IR is the JAX package's:
 they are a layout, not the Hopper kernels' blocking (csrc/blocked_matmul.cu
-tiles each packed block with its own 64 x 64 output tiles). The port's
+tiles each packed block with its own 64 x 64 output tiles). These
 passes take no options: tiles come from the module's `tiles` attribute
 (tpp-gen --tiles) or the default rule. lower-packs (:358) is in no
 pipeline and is not copied.

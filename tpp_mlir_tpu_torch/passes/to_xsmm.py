@@ -5,8 +5,12 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
   convert-tl-to-xsmm  contractions (tl.matmul, tl.batch_matmul, tl.brgemm,
                       tl.vnni_brgemm, and packed mode's tl.blocked_matmul
                       as layout "blocked"), tl.attention, tl.layer_norm,
-                      tl.transpose, tl.vnni_pack (unary vnni2) and eltwise
-                      unary/binary ops become dispatch+invoke pairs;
+                      tl.transpose, tl.vnni_pack (unary vnni2), eltwise
+                      unary/binary ops, zero fills (unary zero) and
+                      tl.generic (classified from its maps and body, its
+                      broadcast flags from the maps) become dispatch+invoke
+                      pairs; a `skip` option lists the patterns to leave
+                      (the reference's skip-operations);
   xsmm-combine        {gemm|brgemm} -> binary -> unary chains (bias add,
                       relu, gelu, ...) become one xsmm.fused_brgemm (a
                       blocked GEMM's (1,Nb,1,nb) bias is bcast_col); a
@@ -18,14 +22,12 @@ Copies of the slice's branches of `tpp_mlir_tpu/passes/to_xsmm.py`:
   qkv-merge           three Q/K/V projections of one activation become one
                       GEMM of triple width feeding a qkv_packed attention
                       (:887);
-  fold-xsmm-flags     zero-filled accumulators fold into the dispatch as the
+  fold-xsmm-flags     zero-filled accumulators (a zero constant or fill, or
+                      an xsmm.unary zero) fold into the dispatch as the
                       BETA_0 flag;
   fuse-ln-gemm        a LayerNorm whose only consumer is one flat GEMM
                       becomes that GEMM's prologue (:1030);
   verify-xsmm         dispatch/invoke consistency.
-
-The zero-fill and generic branches wait for their ROADMAP item (A3); what
-they would have lowered is refused by the pipeline's verify-slice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 
 from ..ir import (Function, I64, Module, Operation, TensorType,
                   TppBuilder)
+from ..ir.affine import classify_generic, infer_bcast_from_map
 from ..ir.matcher import is_pure_zero, is_zero_op
 from .fold import _hoist_before, _materialize_const, new_literal_const
 from .pass_manager import Pass, register
@@ -86,6 +89,7 @@ class ConvertTlToXsmmPass(Pass):
 
     def run_on_function(self, func: Function, module: Module) -> bool:
         precision = module.attrs.get("precision", "default")
+        skip = set(self.options.get("skip", ()))
         changed = False
         b = TppBuilder(func)
 
@@ -114,7 +118,7 @@ class ConvertTlToXsmmPass(Pass):
                 continue
             name = op.opname
 
-            if name == "tl.matmul":
+            if name == "tl.matmul" and "matmul" not in skip:
                 A, B, C = op.operands
                 m, k = A.type.shape
                 n = C.type.shape[1]
@@ -126,7 +130,7 @@ class ConvertTlToXsmmPass(Pass):
                                  [A, B, C], C.type, op))
                 changed = True
 
-            elif name == "tl.attention":
+            elif name == "tl.attention" and "attention" not in skip:
                 Q, K, V = op.operands
                 Bt, S, D = Q.type.shape
                 attrs = {"batch": Bt, "seq": S, "seq_kv": K.type.shape[1],
@@ -147,7 +151,7 @@ class ConvertTlToXsmmPass(Pass):
                                  attrs, [Q, K, V], op.result.type, op))
                 changed = True
 
-            elif name == "tl.batch_matmul":
+            elif name == "tl.batch_matmul" and "batch_matmul" not in skip:
                 A, B, C = op.operands
                 if op.attrs.get("lhs_shared"):
                     m, k = A.type.shape
@@ -165,7 +169,7 @@ class ConvertTlToXsmmPass(Pass):
                                  op))
                 changed = True
 
-            elif name == "tl.transpose":
+            elif name == "tl.transpose" and "transpose" not in skip:
                 X = op.operands[0]
                 attrs = {"kind": "transpose", "m": X.type.shape[0],
                          "n": X.type.shape[-1], "shape": tuple(X.type.shape),
@@ -176,7 +180,7 @@ class ConvertTlToXsmmPass(Pass):
                                  [X], op.result.type, None))
                 changed = True
 
-            elif name == "tl.layer_norm":
+            elif name == "tl.layer_norm" and "layer_norm" not in skip:
                 X = op.operands[0]
                 M, E = X.type.shape
                 attrs = {"m": M, "n": E,
@@ -189,7 +193,8 @@ class ConvertTlToXsmmPass(Pass):
                                  op.result.type, op))
                 changed = True
 
-            elif name in ("tl.brgemm", "tl.vnni_brgemm"):
+            elif name in ("tl.brgemm", "tl.vnni_brgemm") \
+                    and "brgemm" not in skip:
                 A, B, C = op.operands
                 Bt, m, k = A.type.shape
                 n = C.type.shape[1]
@@ -202,7 +207,7 @@ class ConvertTlToXsmmPass(Pass):
                                  attrs, [A, B, C], C.type, op))
                 changed = True
 
-            elif name == "tl.blocked_matmul":
+            elif name == "tl.blocked_matmul" and "brgemm" not in skip:
                 A, B, C = op.operands
                 Mb, Kb, mb, kb = A.type.shape
                 attrs = {"m": mb, "n": C.type.shape[3], "k": kb,
@@ -215,7 +220,7 @@ class ConvertTlToXsmmPass(Pass):
                                  attrs, [A, B, C], C.type, op))
                 changed = True
 
-            elif name == "tl.vnni_pack":
+            elif name == "tl.vnni_pack" and "vnni" not in skip:
                 X = op.operands[0]
                 attrs = {"kind": "vnni2", "m": X.type.shape[-2],
                          "n": X.type.shape[-1], "shape": tuple(X.type.shape),
@@ -226,7 +231,7 @@ class ConvertTlToXsmmPass(Pass):
                                  [X], op.result.type, None))
                 changed = True
 
-            elif name in _UNARY_MAP:
+            elif name in _UNARY_MAP and "unary" not in skip:
                 X = op.operands[0]
                 shape = X.type.shape
                 attrs = {"kind": _UNARY_MAP[name],
@@ -239,7 +244,7 @@ class ConvertTlToXsmmPass(Pass):
                                  [X], op.result.type, op))
                 changed = True
 
-            elif name in _BINARY_MAP:
+            elif name in _BINARY_MAP and "binary" not in skip:
                 X, Y = op.operands
                 out_shape = op.result.type.shape
                 fx = infer_bcast(out_shape, X.type.shape)
@@ -256,7 +261,93 @@ class ConvertTlToXsmmPass(Pass):
                                  attrs, [X, Y], op.result.type, op))
                 changed = True
 
+            elif (name == "tl.zero" or (name == "tl.fill" and op.attrs.get(
+                    "value") in (0, 0.0))) and "zero" not in skip:
+                # reference :273; fold-xsmm-flags folds it into BETA_0
+                X = op.operands[0]
+                shape = X.type.shape
+                attrs = {"kind": "zero",
+                         "m": int(X.type.num_elements
+                                  // (shape[-1] if shape else 1)),
+                         "n": shape[-1] if shape else 1,
+                         "shape": tuple(shape), "dtype": X.type.dtype,
+                         "flags": ()}
+                replace(op, pair("xsmm.unary_dispatch", "xsmm.unary", attrs,
+                                 [X], op.result.type, op))
+                changed = True
+
+            elif name == "tl.generic" and "generic" not in skip:
+                # direct generic matching (reference :330, the
+                # reference's ConvertLinalgToXsmm core): programs lowered
+                # without degeneralize
+                emit = _generic_pair(op, precision, pair)
+                if emit is not None:
+                    replace(op, emit)
+                    changed = True
+
         return changed
+
+
+def _generic_pair(op: Operation, precision: str, pair):
+    """The dispatch+invoke emitter of a tl.generic that classify_generic
+    places, or None: a contraction becomes a gemm, brgemm or batch GEMM; an
+    eltwise generic an xsmm.unary/xsmm.binary whose broadcast flags come
+    from the maps. A broadcast unary other than an identity stays
+    generic."""
+    cls = classify_generic(op)
+    if cls is None:
+        return None
+    maps = [tuple(x) for x in op.attrs["indexing_maps"]]
+    out_map = maps[-1]
+    init = op.operands[-1]
+    out_shape = op.result.type.shape
+    m_rows = int(op.result.type.num_elements
+                 // (out_shape[-1] if out_shape else 1))
+    n_cols = out_shape[-1] if out_shape else 1
+    if cls[0] == "contraction":
+        kind = cls[1]
+        A, B = op.operands[:2]
+        if cls[2]:
+            A, B = B, A
+        if kind in ("matmul", "matmul_tb"):
+            m, k = A.type.shape
+            attrs = {"m": m, "n": out_shape[1], "k": k,
+                     "dtype": A.type.dtype,
+                     "flags": ("transpose_b",) if kind == "matmul_tb"
+                     else (), "precision": precision}
+            return pair("xsmm.gemm_dispatch", "xsmm.gemm", attrs,
+                        [A, B, init], init.type, op)
+        Bt, m, k = A.type.shape
+        if kind == "brgemm":
+            attrs = {"m": m, "n": out_shape[1], "k": k, "batch": Bt,
+                     "dtype": A.type.dtype, "flags": (),
+                     "precision": precision}
+            return pair("xsmm.brgemm_dispatch", "xsmm.brgemm", attrs,
+                        [A, B, init], init.type, op)
+        attrs = {"batch": Bt, "m": m, "n": out_shape[2], "k": k,
+                 "dtype": A.type.dtype, "flags": (), "precision": precision}
+        return pair("xsmm.batch_gemm_dispatch", "xsmm.batch_gemm", attrs,
+                    [A, B, init], init.type, op)
+    if cls[0] == "unary":
+        X = op.operands[0]
+        flag = infer_bcast_from_map(out_map, maps[0])
+        if flag != "none" and not (cls[1] == "identity" and flag in (
+                "bcast_col", "bcast_scalar")):
+            return None
+        attrs = {"kind": cls[1], "m": m_rows, "n": n_cols,
+                 "shape": tuple(X.type.shape), "dtype": X.type.dtype,
+                 "flags": (flag,) if flag != "none" else ()}
+        return pair("xsmm.unary_dispatch", "xsmm.unary", attrs, [X],
+                    op.result.type, op)
+    X, Y = op.operands[:2]      # binary: flags from the maps, not shapes
+    fx = infer_bcast_from_map(out_map, maps[0])
+    fy = infer_bcast_from_map(out_map, maps[1])
+    attrs = {"kind": cls[1], "m": m_rows, "n": n_cols,
+             "shape_a": tuple(X.type.shape), "shape_b": tuple(Y.type.shape),
+             "bcast_a": fx, "bcast_b": fy, "dtype": op.result.type.dtype,
+             "flags": tuple(f for f in (fx, fy) if f != "none")}
+    return pair("xsmm.binary_dispatch", "xsmm.binary", attrs, [X, Y],
+                op.result.type, op)
 
 
 def _single_user(op: Operation, func: Function | None = None):
@@ -442,7 +533,11 @@ class FoldXsmmFlagsPass(Pass):
             C = op.operands[c_idx]
             producer = C.owner
             new_c = None
-            if is_pure_zero(producer):
+            if producer is not None and producer.opname == "xsmm.unary" \
+                    and producer.operands[0].owner.attrs["kind"] == "zero" \
+                    and len(C.uses) == 1:
+                new_c = producer.operands[1]    # the zero fill's dest
+            elif is_pure_zero(producer):
                 new_c = C
             elif is_zero_op(producer):
                 if producer.opname in ("tl.zero", "tl.fill") \
@@ -465,7 +560,11 @@ class FoldXsmmFlagsPass(Pass):
             if producer is not None and producer.parent is not None \
                     and not any(r.uses for r in producer.results) \
                     and producer.opname != "tl.constant":
+                zd = producer.operands[0].owner \
+                    if producer.opname == "xsmm.unary" else None
                 func.erase(producer)
+                if zd is not None and not zd.result.uses:
+                    func.erase(zd)
             changed = True
         return changed
 

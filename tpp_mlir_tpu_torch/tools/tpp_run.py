@@ -11,6 +11,26 @@ tpp-run: deterministic arg init, a perf.bench timing loop, result printing):
 `--device` defaults to cuda; with no CUDA device it raises rather than
 running on the CPU. `--device cpu` runs the kernels' plain versions.
 
+The reference's debugging flags: `--print-mlir early|mid|late` prints the
+module (to stderr) before or after lowering, `--print-mlir kernel` each
+dispatched kernel key with the route and csrc/ source that runs it on the
+card; `-v` prints the kernel cache's builds and each kernel's launches;
+`--splat-to-random` makes splat weights and inputs random (accumulator
+zeros stay); `--profile DIR` writes a torch.profiler trace of the run to
+DIR/trace.json; `--sanitize nan` raises at the first op whose output holds
+a NaN or an Inf (a host sync an op, only under the flag). The differential
+recipe, as the reference's (f32 "highest": true f32 on both sides; f32
+"default" rounds the kernels' operands to bf16, so compare it by -a):
+
+  python -m tpp_mlir_tpu_torch.tools.mlir_gen --batch=8 \
+      --layers=16,16,16 --bias --relu --output=generic > g.ir
+  python -m tpp_mlir_tpu_torch.tools.tpp_run g.ir --print -seed 3 \
+      -init-type rand --precision highest --device cpu > low.txt
+  python -m tpp_mlir_tpu_torch.tools.tpp_run g.ir --print -seed 3 \
+      -init-type rand --precision highest --device cpu \
+      --linalg-to-loops > ref.txt
+  python -m tpp_mlir_tpu_torch.tools.fpcmp low.txt ref.txt -r 1e-4
+
 `--task-grid DPxTP` (the reference's --parallel-task-grid) splits the
 batch over a (dp, tp) mesh of torch.distributed ranks: run it under
 torchrun, one rank a device; each rank runs the program at its share of
@@ -35,7 +55,8 @@ from ..ir.ops import TppBuilder
 from ..passes import PassManager
 from ..runtime import bench, tensor_init
 from ..runtime import compile as tpp_compile
-from ..runtime.executor import bench_label, in_kernel_bench, time_in_kernel
+from ..runtime.executor import (bench_label, in_kernel_bench, module_keys,
+                                time_in_kernel)
 from ..runtime.perf import device_name, model_flops
 from ..utils.target import resolve_device
 
@@ -104,20 +125,68 @@ def load_module(text: str) -> Module:
     return module
 
 
+# contractions whose C operand (index 2) is the accumulator
+_CONTRACTIONS = ("tl.matmul", "tl.brgemm", "tl.vnni_brgemm",
+                 "tl.batch_matmul", "tl.blocked_matmul",
+                 "tl.conv2d_nhwc_hwcf", "tl.conv2d_nchw_fchw")
+
+
+def splat_to_random(module: Module, seed: int = 0) -> None:
+    """The reference's -splat-to-random (tpp_run.py:234-260 there,
+    MLIRBench.cpp:111-164): every splat constant ("const" or "zero" init)
+    becomes a random one, so a benchmark does not time splat arithmetic;
+    a zero that only feeds contractions as their accumulator keeps its
+    meaning (BETA_0) and stays."""
+    def only_accumulator(op):
+        return op.results and op.result.uses and all(
+            u.opname in _CONTRACTIONS and i == 2 for u, i in op.result.uses)
+
+    for f in module.funcs.values():
+        for op in f.ops:
+            init = op.attrs.get("init")
+            if op.opname != "tl.constant" or init not in ("const", "zero"):
+                continue
+            if init == "zero" and only_accumulator(op):
+                continue
+            op.attrs["init"] = "rand"
+            op.attrs.setdefault("seed", seed)
+
+
+def print_kernels(module: Module, func_name: str, device: torch.device,
+                  file) -> None:
+    """--print-mlir kernel: each dispatched key of the lowered function, the
+    route and csrc/ source its kernel, the one the run launches, was built
+    with (the reference prints each kernel's jaxpr and StableHLO here)."""
+    from ..xsmm import global_cache
+    from .trace import describe
+    where = "" if device.type == "cuda" else \
+        f" (on {device.type}: its plain version)"
+    for inv, key in module_keys(module, func_name):
+        kern = global_cache().dispatch(key)
+        runs = f"route {kern.route}, {kern.source}" if kern.source else \
+            "no kernel: a PyTorch op"
+        print(f"// kernel %{inv.result.name} = {inv.opname}: "
+              f"{describe(key)}; {runs}{where}", file=file)
+
+
 def run_module(module: Module, func_name: str = "entry", n: int = 0,
                init_type: str = "normal", seed: int = 0,
                pipeline: str = "default-tpp-passes",
                linalg_to_loops: bool = False, print_result: bool = False,
                device: str | torch.device = "cuda",
                out_stream=None, bench_mode: str = "auto",
-               task_grid: str = "") -> dict:
+               task_grid: str = "", print_mlir: str = "",
+               sanitize: bool = False) -> dict:
     """Lower (unless linalg_to_loops), run once, and with n > 0 time n
     chained iterations: inside one kernel launch where the function is one
     kernel with a warm bench (B4, B5, B11) and bench_mode is "auto", else
     in a loop (result["bench"] says which). With `task_grid` every rank of
     the world runs the program at its dp share of the batch
     (`parallel.runner.local_batch`, `task_grid_run`), the outputs gathered,
-    timed in a loop. Returns the module, outputs, device and timing."""
+    timed in a loop. `print_mlir` ("early", "mid", "late" or "kernel")
+    prints the module or its kernels to stderr; `sanitize` raises at the
+    first non-finite op output. Returns the module, outputs, device and
+    timing."""
     out_stream = out_stream or sys.stdout
     device = resolve_device(device)
     if task_grid:
@@ -130,14 +199,20 @@ def run_module(module: Module, func_name: str = "entry", n: int = 0,
         flops = model_flops(module)
         module = copy.deepcopy(module)
         local_batch(module, func_name, parse_task_grid(task_grid)["dp"])
+    if print_mlir == "early":
+        print(module, file=sys.stderr)
     if not linalg_to_loops:
         PassManager([pipeline]).run(module)
+    if print_mlir in ("mid", "late"):
+        print(module, file=sys.stderr)
+    elif print_mlir == "kernel":
+        print_kernels(module, func_name, device, sys.stderr)
     wrapper = wrap_bench_main(module, func_name, n) \
         if n > 0 and not task_grid else None
     if not task_grid:
         args = init_args(module, func_name, init_type, seed, device)
         flops = model_flops(module)
-    fn = tpp_compile(module, func_name, device)
+    fn = tpp_compile(module, func_name, device, sanitize=sanitize)
     if task_grid:
         fn = task_grid_run(fn, task_grid, len(args))
     result = {"module": module, "device": device_name(device)}
@@ -148,7 +223,8 @@ def run_module(module: Module, func_name: str = "entry", n: int = 0,
             ext = in_kernel_bench(module, func_name, device, bench_mode)
             result["bench"] = bench_label(ext[0]) if ext else "loop"
             outs = tpp_compile(module, wrapper, device,
-                               bench_mode=bench_mode)(*args)
+                               bench_mode=bench_mode,
+                               sanitize=sanitize)(*args)
             mean = float(outs[0])
         else:
             # results that cannot chain into the args: B5's ping-pong for a
@@ -177,6 +253,23 @@ def run_module(module: Module, func_name: str = "entry", n: int = 0,
     return result
 
 
+def profile_run(fn, out_dir: str, device) -> str:
+    """Run fn() under torch.profiler (the CPU, and CUDA activities on the
+    card) and write its chrome trace to out_dir/trace.json."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpp-run (torch)", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -199,23 +292,62 @@ def main(argv=None) -> int:
                    help="split the batch over a (dp, tp) mesh of ranks, "
                         "e.g. '2x1' (the reference's --parallel-task-grid); "
                         "run under torchrun")
+    p.add_argument("-print-mlir", "--print-mlir",
+                   choices=["", "early", "mid", "late", "kernel"], default="",
+                   help="print the module before (early) or after (mid, "
+                        "late) lowering, or each dispatched kernel key with "
+                        "its route and csrc/ source (kernel), to stderr")
+    p.add_argument("-v", "--verbose", action="count", default=0,
+                   help="print the kernel cache's builds and launches")
+    p.add_argument("-splat-to-random", "--splat-to-random",
+                   action="store_true",
+                   help="make splat constants random (accumulator zeros "
+                        "stay), as the reference's -splat-to-random")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json")
+    p.add_argument("--sanitize", choices=["", "nan"], default="",
+                   help="'nan': raise at the first op whose output holds a "
+                        "NaN or an Inf")
     args = p.parse_args(argv)
 
     text = sys.stdin.read() if args.input == "-" else open(args.input).read()
     module = load_module(text)
     if args.precision != "default":
         module.attrs["precision"] = args.precision
+    if args.splat_to_random:
+        splat_to_random(module, args.seed)
     out = sys.stdout
     device = args.device
     if args.task_grid:
         from ..parallel.mesh import join_world
         from ..parallel.runner import parse_task_grid
         device, out = join_world(device, parse_task_grid(args.task_grid))
-    run_module(module, args.entry, n=args.n, init_type=args.init_type,
-               seed=args.seed, pipeline=args.pipeline,
-               linalg_to_loops=args.linalg_to_loops,
-               print_result=args.print_result, device=device,
-               out_stream=out, task_grid=args.task_grid)
+    from ..xsmm import global_cache
+    cache = global_cache()
+    if args.verbose:
+        cache.reset_launches()
+
+    def go():
+        run_module(module, args.entry, n=args.n, init_type=args.init_type,
+                   seed=args.seed, pipeline=args.pipeline,
+                   linalg_to_loops=args.linalg_to_loops,
+                   print_result=args.print_result, device=device,
+                   out_stream=out, task_grid=args.task_grid,
+                   print_mlir=args.print_mlir,
+                   sanitize=args.sanitize == "nan")
+
+    if args.profile:
+        profile_run(go, args.profile, device)
+    else:
+        go()
+    if args.verbose:
+        from .trace import describe
+        print(f"kernel cache: {len(cache)} kernels, {cache.stats.hits} "
+              f"hits, {cache.stats.misses} misses (builds)", file=sys.stderr)
+        for k in cache.kernels():
+            print(f"  {describe(k.key)}: {k.launches} launches",
+                  file=sys.stderr)
     if args.task_grid:
         import torch.distributed as dist
         dist.destroy_process_group()

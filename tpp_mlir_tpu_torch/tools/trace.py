@@ -42,10 +42,11 @@ import torch
 from ..passes import PassManager
 from ..runtime import compile as tpp_compile
 from ..utils.target import resolve_device
-from ..xsmm import (BatchMatmulKey, BlockedMatmulKey, BrgemmKey, ChainKey,
-                    ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
-                    GroupedWgradKey, Int8GemmKey, LayerNormKey, global_cache)
+from ..xsmm import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
+                    ChainKey, ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
+                    LayerNormKey, UnaryKey, global_cache)
 from .bench_driver import build_module
 from .tpp_run import init_args, load_module, wrap_bench_main
 
@@ -173,6 +174,11 @@ def describe(key) -> str:
         kind = "blocked_matmul_warm" if key.repeats else "blocked_matmul"
         return (f"{kind} {key.Mb}x{key.Nb}x{key.Kb} {key.mb}/{key.nb}/"
                 f"{key.kb} {key.dtype}{extra}")
+    if isinstance(key, UnaryKey):
+        return f"unary {key.kind} {'x'.join(map(str, key.shape))} {key.dtype}"
+    if isinstance(key, BinaryKey):
+        return (f"binary {key.kind} {'x'.join(map(str, key.shape_a))}, "
+                f"{'x'.join(map(str, key.shape_b))} {key.dtype}")
     return type(key).__name__
 
 

@@ -97,10 +97,11 @@ import functools
 import torch
 
 from . import reference
-from .flags import (BatchMatmulKey, BlockedMatmulKey, BrgemmKey, ChainKey,
-                    ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
-                    FlashTrainBwdKey, FlashTrainKey, GroupedGemmKey,
-                    GroupedWgradKey, Int8GemmKey, LayerNormKey)
+from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
+                    ChainKey, ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey,
+                    FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
+                    GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
+                    LayerNormKey, UnaryKey)
 
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
@@ -166,8 +167,9 @@ class Kernel:
     """A callable for one key: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. `launches` counts CUDA launches only. A key
     with no kernel (launch None: attention's and conv's strategy "xla",
-    which the reference leaves to XLA) runs its plain version on any device
-    and counts nothing."""
+    which the reference leaves to XLA, and xsmm.unary/xsmm.binary, which
+    it computes with jnp) runs its plain version on any device and counts
+    nothing."""
 
     def __init__(self, key, launch):
         self.key = key
@@ -188,6 +190,23 @@ class Kernel:
             out = self._launch(*args, **kwargs)
         self.launches += 1
         return out
+
+    @property
+    def route(self) -> str | None:
+        """The route its launcher chose, None for a key with no kernel."""
+        return getattr(self._launch, "route", None)
+
+    @property
+    def source(self) -> str | None:
+        """The csrc/ source of its kernel, None for a key with no kernel."""
+        return getattr(self._launch, "source", None)
+
+
+def _tag(launch, route: str | None, source: str):
+    """Record on a launch the route its launcher chose and the csrc/ file
+    that runs it (Kernel.route, Kernel.source)."""
+    launch.route, launch.source = route, f"tpp_mlir_tpu_torch/csrc/{source}"
+    return launch
 
 
 def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -336,7 +355,7 @@ def _brgemm_launch(key: BrgemmKey):
             _stream())
         check(rc, f"brgemm {key}")
         return (out, *stats) if key.ln_stats_out else out
-    return launch
+    return _tag(launch, route, "brgemm.cu")
 
 
 _WARM_ROUTES = ("panel", "fma", "wmma")
@@ -383,7 +402,8 @@ def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     bench = key.repeats > 1
     step = 2 if key.has_bias else 1
-    plan_arg = _warm_plan_arg(key, route or reference.chain_route(key), plan)
+    route = route or reference.chain_route(key)
+    plan_arg = _warm_plan_arg(key, route, plan)
 
     def launch(x, *wb):
         if not chain_fits_smem(key):
@@ -418,7 +438,7 @@ def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
             int(key.pingpong and bench), plan_arg, _stream())
         check(rc, f"chain {key}")
         return out
-    return launch
+    return _tag(launch, route, "chain.cu")
 
 
 ATTENTION_HEAD_DIMS = (32, 64, 128)     # attention.cu's instantiations
@@ -473,7 +493,7 @@ def _attention_launch(key: FlashMhaKey):
             key.scale * reference.LOG2E, _stream())
         check(rc, f"attention {key}")
         return out
-    return launch
+    return _tag(launch, loader, "attention.cu")
 
 
 def _flash_heads_launch(key: FlashMhaKey):
@@ -490,6 +510,7 @@ def _flash_heads_launch(key: FlashMhaKey):
                        for g in range(3))
         o, _ = fwd(*(x.reshape(B, S, H, D) for x in (q, k, v)))
         return o.reshape(B, S, H * D).to(out_dt)
+    launch.route, launch.source = f"flash_heads/{fwd.route}", fwd.source
     return launch
 
 
@@ -543,7 +564,7 @@ def _batch_matmul_launch(key: BatchMatmulKey):
             _DT_CODE[out_dt], int(route == "multi"), _stream())
         check(rc, f"batch_matmul {key}")
         return out
-    return launch
+    return _tag(launch, route, "batch_matmul.cu")
 
 
 LN_ROUTES = ("register", "strided")
@@ -591,7 +612,7 @@ def _layer_norm_launch(key: LayerNormKey, route: str | None = None):
             _stream())
         check(rc, f"layer_norm {key} route {route}")
         return out
-    return launch
+    return _tag(launch, route, "layer_norm.cu")
 
 
 def empty_kernel() -> None:
@@ -673,7 +694,7 @@ def _decode_attn_launch(key: DecodeAttnKey):
             _KV_CODE[kv_dt], chunk, splits, D ** -0.5, _stream())
         check(rc, f"decode_attn {key}")
         return out
-    return launch
+    return _tag(launch, "split", "decode_attn.cu")
 
 
 INT8_ROUTES = ("wgmma", "wmma")
@@ -745,7 +766,7 @@ def _int8_gemm_launch(key: Int8GemmKey, route: str | None = None):
             _stream())
         check(rc, f"int8_gemm {key} route wgmma")
         return out
-    return launch
+    return _tag(launch, route, "int8_gemm.cu")
 
 
 FLASH_TRAIN_HEAD_DIMS = (32, 64, 128)   # flash_train.cu's instantiations
@@ -793,7 +814,9 @@ def _flash_train_fwd_launch(key: FlashTrainKey):
             key.scale * reference.LOG2E, int(route == "wgmma"), _stream())
         check(rc, f"flash_train_fwd {key}")
         return o, lse2
-    return launch
+    # bf16's wgmma kernel is attention.cu's training mode
+    return _tag(launch, route, "attention.cu" if route == "wgmma"
+                else "flash_train.cu")
 
 
 def _flash_train_bwd_launch(key: FlashTrainBwdKey):
@@ -827,7 +850,7 @@ def _flash_train_bwd_launch(key: FlashTrainBwdKey):
             _stream())
         check(rc, f"flash_train_bwd {key}")
         return dq, dk, dv
-    return launch
+    return _tag(launch, route, "flash_train.cu")
 
 
 _GROUPED_ROUTE_CODE = {"wmma": 0, "wgmma": 1}
@@ -872,7 +895,11 @@ def _grouped_gemm_launch(key: GroupedGemmKey, route: str | None = None):
             _GROUPED_ROUTE_CODE[route or chosen], _stream())
         check(rc, f"grouped_gemm {key}")
         return out
-    return launch
+    try:
+        own = reference.grouped_gemm_route(key)
+    except ValueError:      # a bm with no tile: the launch raises
+        own = None
+    return _tag(launch, route or own, "grouped_gemm.cu")
 
 
 def _grouped_wgrad_launch(key: GroupedWgradKey, route: str | None = None):
@@ -904,6 +931,7 @@ def _grouped_wgrad_launch(key: GroupedWgradKey, route: str | None = None):
                 any(t.data_ptr() % 16 for t in (xt, dy)):
             raise ValueError(f"the wgmma tile needs 16-byte aligned xt and "
                              f"dY: {key}")
+        launch.route = route or chosen
         out = torch.empty((G, k, n), dtype=torch.float32, device=dev)
         rc = library().tpp_grouped_wgrad(
             xt.data_ptr(), dy.data_ptr(), ge.data_ptr(), out.data_ptr(), G, m,
@@ -911,7 +939,8 @@ def _grouped_wgrad_launch(key: GroupedWgradKey, route: str | None = None):
             _GROUPED_ROUTE_CODE[route or chosen], _stream())
         check(rc, f"grouped_wgrad {key}")
         return out
-    return launch
+    # the tile follows xt's strides: the last call's is recorded
+    return _tag(launch, route or "by xt's strides", "grouped_gemm.cu")
 
 
 _CONV_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2, "wmma": 3}
@@ -991,7 +1020,7 @@ def _conv_launch(key: ConvNhwcKey, route: str | None = None):
         return _conv_call(key, route, library().tpp_conv_nhwc, i, w, c, d,
                           out, (N, H, W, C, K, key.R, key.S, key.pad[0],
                                 key.pad[2], P, Q))
-    return launch
+    return _tag(launch, route, "conv.cu")
 
 
 def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
@@ -1051,7 +1080,8 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
             _stream())
         check(rc, f"blocked_matmul {key}")
         return out
-    return launch
+    return _tag(launch, warm or reference.warm_route(key) if key.repeats
+                else route, "blocked_matmul.cu")
 
 
 def _conv_blocked_launch(key: ConvBrgemmKey, route: str | None = None):
@@ -1077,7 +1107,7 @@ def _conv_blocked_launch(key: ConvBrgemmKey, route: str | None = None):
         return _conv_call(key, route, library().tpp_conv_blocked, i, w, c,
                           d, out, (N, H, W, Cb, cb, Kb, kb, key.R, key.S, P,
                                    Q))
-    return launch
+    return _tag(launch, route, "conv.cu")
 
 
 _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
@@ -1092,7 +1122,10 @@ _LAUNCHES = {BrgemmKey: _brgemm_launch, ChainKey: _chain_launch,
              GroupedWgradKey: _grouped_wgrad_launch,
              ConvNhwcKey: _conv_launch,
              BlockedMatmulKey: _blocked_matmul_launch,
-             ConvBrgemmKey: _conv_blocked_launch}
+             ConvBrgemmKey: _conv_blocked_launch,
+             # xsmm.unary / xsmm.binary: jnp in the reference
+             # (kernels.py:3315-3345 there), PyTorch ops here: no launch
+             UnaryKey: lambda key: None, BinaryKey: lambda key: None}
 
 
 def build_kernel(key) -> Kernel:

@@ -37,14 +37,6 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-# ROADMAP items that own the key types and options outside this slice
-_OUTSIDE = {
-    "UnaryKey": "queue A3 (xsmm.unary has no kernel: the executor runs its "
-                "transpose, relu and vnni2 as PyTorch ops, unary_reference)",
-    "BinaryKey": "queue A3 (xsmm.binary has no kernel: the executor runs "
-                 "it as a PyTorch op, binary_reference)",
-}
-
 # the reference's words for a strided channel-blocked conv
 # (tpp_mlir_tpu/xsmm/kernels.py:2785-2788)
 CONV_BLOCKED_STRIDE = (
@@ -63,11 +55,10 @@ def check_slice(key) -> None:
     if not isinstance(key, (BrgemmKey, BatchMatmulKey, ChainKey, FlashMhaKey,
                             LayerNormKey, DecodeAttnKey, Int8GemmKey,
                             FlashTrainKey, GroupedGemmKey, GroupedWgradKey,
-                            ConvNhwcKey, BlockedMatmulKey, ConvBrgemmKey)):
-        name = type(key).__name__
-        raise NotImplementedError(
-            f"{name} is outside the port's slice: ROADMAP "
-            f"{_OUTSIDE.get(name, 'queue A')}")
+                            ConvNhwcKey, BlockedMatmulKey, ConvBrgemmKey,
+                            UnaryKey, BinaryKey)):
+        raise NotImplementedError(f"{type(key).__name__} is outside the "
+                                  f"port's slice: ROADMAP queue A")
     if isinstance(key, DecodeAttnKey):
         _check_decode_attn(key)
         return
@@ -85,6 +76,14 @@ def check_slice(key) -> None:
     for dt in (key.dtype, out_dt or key.dtype):
         if dt not in DTYPES:
             raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+    if isinstance(key, UnaryKey):
+        if key.kind not in (*UNARY_OPS, *UNARY_FNS):
+            raise ValueError(f"unknown unary kind {key.kind!r}")
+        return
+    if isinstance(key, BinaryKey):
+        if key.kind not in BINARY_FNS:
+            raise ValueError(f"unknown binary kind {key.kind!r}")
+        return
     if key.precision not in ("default", "highest"):
         raise ValueError(f"unknown precision {key.precision!r}")
     if isinstance(key, (GroupedGemmKey, GroupedWgradKey)):
@@ -164,6 +163,18 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError("the plain version needs true f32 matmuls: "
                            "torch.backends.cuda.matmul.allow_tf32 is on")
     return torch.matmul(a.float(), b.float())
+
+
+def contraction(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A named contraction's product in f32, TF32 off: "matmul" A @ B,
+    "matmul_tb" A @ B^T, "brgemm" sum_b A[b] @ B[b], "batch_matmul"
+    A[b] @ B[b]. The executor's tl oracles and tl.generic's evaluator
+    (`ir/affine.py eval_generic`) share it, so a generic and its named form
+    give the same bits."""
+    if kind == "matmul_tb":
+        b = b.transpose(-1, -2)
+    out = _f32_matmul(a, b)
+    return out.sum(0) if kind == "brgemm" else out
 
 
 # exp2-domain exact-erf gelu, the same constants and evaluation order as
@@ -1094,31 +1105,35 @@ def conv_reference(key: ConvNhwcKey):
         else conv_nhwc_reference(key)
 
 
-UNARY_OPS = ("transpose", "relu", "vnni2")
+UNARY_OPS = ("transpose", "vnni2", "vnni")   # data movement
 
 
 def unary_reference(key: UnaryKey):
-    """xsmm.unary's transpose, relu and vnni2: the reference's kernels are
-    jnp (tpp_mlir_tpu/xsmm/kernels.py:3315-3335), so the port's are these
-    PyTorch ops and no CUDA kernel. relu computes in f32 and rounds once;
-    vnni2 is [..., K, N] -> [..., K/v, N, v]. The other unary kinds stand
-    alone only where a pass the port has not copied leaves them (queue
-    A3)."""
-    if key.kind not in UNARY_OPS:
-        raise _refuse(f"xsmm.unary {key.kind!r}", "A3", key)
-    for dt in (key.dtype, key.out_dtype or key.dtype):
-        if dt not in DTYPES:
-            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+    """xsmm.unary: the reference's kernels are jnp (tpp_mlir_tpu/xsmm/
+    kernels.py:3315-3335), so the port's are these PyTorch ops and no CUDA
+    kernel. "zero" fills the output shape; "identity" broadcasts to it
+    (a bcast_col or bcast_scalar operand of a generic); "transpose" and
+    "vnni2" ([..., K, N] -> [..., K/v, N, v]) move data; every other kind
+    computes in f32 and rounds once to the output dtype."""
+    check_slice(key)
     out_dt = DTYPES[key.out_dtype or key.dtype]
-    if key.kind == "relu":
-        return lambda x: torch.relu(x.float()).to(out_dt)
-    if key.kind == "vnni2":
+    out_shape = key.out_shape or key.shape
+    if key.kind == "zero":
+        return lambda x=None: torch.zeros(
+            out_shape, dtype=out_dt,
+            device=None if x is None else x.device)
+    if key.kind == "identity":
+        return lambda x: x.broadcast_to(out_shape).to(out_dt).contiguous()
+    if key.kind in ("vnni2", "vnni"):
         *lead, K, N = key.shape
         vf = key.vnni
         return lambda x: x.reshape(*lead, K // vf, vf, N).movedim(-2, -1) \
             .contiguous()
-    perm = key.perm or tuple(reversed(range(len(key.shape))))
-    return lambda x: x.permute(*perm).contiguous().to(out_dt)
+    if key.kind == "transpose":
+        perm = key.perm or tuple(reversed(range(len(key.shape))))
+        return lambda x: x.permute(*perm).contiguous().to(out_dt)
+    fn = UNARY_FNS[key.kind]
+    return lambda x: fn(x.float()).to(out_dt)
 
 
 LN_MAX_VPL = 8   # csrc/layer_norm.cu's register template: vectors a lane
@@ -1163,11 +1178,7 @@ def binary_reference(key: BinaryKey):
     """xsmm.binary: the reference's kernel is jnp (tpp_mlir_tpu/xsmm/
     kernels.py:3343), so the port's is this PyTorch op and no CUDA kernel:
     both operands in f32 with NumPy broadcasting, one rounding."""
-    if key.kind not in BINARY_FNS:
-        raise ValueError(f"unknown binary kind {key.kind!r}")
-    for dt in (key.dtype, key.out_dtype or key.dtype):
-        if dt not in DTYPES:
-            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+    check_slice(key)
     fn = BINARY_FNS[key.kind]
     out_dt = DTYPES[key.out_dtype or key.dtype]
 
@@ -1531,7 +1542,8 @@ _REFERENCES = {BrgemmKey: brgemm_reference, ChainKey: chain_reference,
                GroupedWgradKey: grouped_wgrad_reference,
                ConvNhwcKey: conv_reference,
                BlockedMatmulKey: blocked_matmul_reference,
-               ConvBrgemmKey: conv_brgemm_reference}
+               ConvBrgemmKey: conv_brgemm_reference,
+               UnaryKey: unary_reference, BinaryKey: binary_reference}
 
 
 def reference_kernel(key):
