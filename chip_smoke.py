@@ -244,6 +244,21 @@ kernel key it launched against its plain version. Launches are counted in
 each world's path alone; the tp-local keys (B7, B14, B18 at 6 heads, B13
 at 6 KV heads, B1 at 512 columns or rows) are timed after phase 5 and
 join the kernel line as rows of their own.
+The tuning layer and the user API (ROADMAP A5 + A12, `phase_tuning`,
+after phase 4a): (a) every legal forced plan (xsmm/tune.py's trial) of fc
+256x1024x1024 in f32 "default", bf16 and f32 "highest", GPT-2's LN QKV,
+the ragged n 136/200/3000 keys (a fused GEMM with C and a full residual
+under every tile and split, the ln_stats_out producers under every tile)
+and B19's fc key against its plain version at the key's tolerance, the
+plan each Kernel records equal to the C++ launcher's (tpp_gemm_plan) and
+its heuristic to the Python mirror's, splits launched twice bit-equal,
+every illegal plan raising; the flagship chain at every panel rows x
+cluster warm_plan places and the card holds; (b) tpp_run's
+--register-blocking 64,128,256 on the fc (64 x 128, split 4) against
+--linalg-to-loops, its launches counted; (c) tpp-tune on the bf16
+flagship and on the fc's GEMM key, in subprocesses writing a temporary
+table, each sweep row beside the heuristic's; (d) examples/torch/01-06 on
+the card, all started together, each exiting 0.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1143,6 +1158,270 @@ def phase_main_path() -> dict:
     if not (launches["brgemm"] and launches["chain"]):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    return launches
+
+
+# the tuning layer and the user API (ROADMAP A5 + A12): forced launch plans
+# (xsmm/tune.py), tpp-run's --register-blocking, tpp-tune, the examples
+TUNE_FC = dict(batch=1, m=256, n=1024, k=1024, beta0=True, binary_kind="add",
+               unary_kind="relu")
+TUNE_FC_GEN = "--batch=256 --layers=1024,1024 --bias --relu"
+TUNE_FLAGSHIP_GEN = \
+    "--batch=256 --layers=1024,1024,1024,1024 --bias --relu --float-type=bf16"
+REGISTER_BLOCKING = (64, 128, 256)      # 64 x 128 tiles, split 1024/256 = 4
+# the ragged widths of the LN-stats cases (n 136, 200, 3000), as a fused
+# GEMM with C and a full-width residual under every tile and split, and the
+# tests' ln_stats_out producers under every tile (no split)
+TUNE_RAGGED = ((100, 136, 512), (200, 200, 256), (256, 3000, 768))
+TUNE_PRODUCERS = (("bf16", "default", 200, 200, 64),
+                  ("f32", "highest", 100, 136, 40),
+                  ("bf16", "default", 256, 3000, 768))
+TUNE_TIMEOUT = 600      # seconds a tpp-tune or example subprocess may take
+
+
+def _tuning_gemm_cases():
+    """(label, key, inputs) of phase_tuning (a)'s GEMM keys."""
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey
+    out = [(f"fc 256x1024x1024 {dt} {p}",
+            BrgemmKey(dtype=dt, precision=p, **TUNE_FC), _brgemm_inputs)
+           for dt, p in (("f32", "default"), ("bf16", "default"),
+                         ("f32", "highest"))]
+    out.append(("ln gpt2 qkv 2048x2304x768 bf16", _ln_gemm_cases()[0][1],
+                _ln_gemm_inputs))
+    for m, n, k in TUNE_RAGGED:
+        for dt in ("bf16", "f32"):
+            out.append((f"ragged {m}x{n}x{k} {dt} +C +D gelu", BrgemmKey(
+                1, m, n, k, dt, beta0=False, binary_kind="add",
+                binary_bcast="none", unary_kind="gelu"), _brgemm_inputs))
+    for dt, p, m, n, k in TUNE_PRODUCERS:
+        out.append((f"ln_stats_out {m}x{n}x{k} {dt} {p}", BrgemmKey(
+            1, m, n, k, dt, precision=p, beta0=True, binary_kind="add",
+            unary_kind="gelu", ln_stats_out=True), _brgemm_inputs))
+    out.append(("B19 fc_bf16_packed_warm_1024",
+                _packed_key("fc_bf16_packed_warm_1024", 0), _blocked_inputs))
+    return out
+
+
+def _forced_kernel(key, cfg: dict):
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, tune
+    with tune.trial(key, cfg):
+        return build_kernel(key)
+
+
+def _tuning_plans(g) -> None:
+    """(a) Every legal forced plan of each key against its plain version at
+    the key's tolerance, the plan the Kernel records equal to the C++
+    launcher's (tpp_gemm_plan; the Python mirror's too, at the card's SM
+    count), a split launched twice bit-equal; every illegal plan raises."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import ChainKey, reference, reference_kernel
+    from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan, warm_max_clusters
+    from tpp_mlir_tpu_torch.xsmm.reference import ln_stats_out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, key, inputs in _tuning_gemm_cases():
+        args = inputs(key, g)
+        want = reference_kernel(key)(*args)
+        if key_stats := getattr(key, "ln_stats_out", False):
+            want = want[0]
+        tol = _tol(key)
+        heur = gemm_plan(key, force=(0, 0, 0))
+        if heur[:3] != tuple(reference.gemm_heuristic(key, sms)):
+            raise AssertionError(f"{label}: the card's heuristic {heur} != "
+                                 f"the mirror's")
+        tiles, most = reference.legal_gemm_plans(key)
+        worst, n, repeat = 0.0, 0, True
+        for bm, bn in tiles:
+            for split in range(1, most + 1):
+                kern = _forced_kernel(key, {"bm": bm, "bn": bn,
+                                            "split": split})
+                card = gemm_plan(key, force=(bm, bn, split))
+                if not tuple(kern.plan) == card[:3] == (bm, bn, split) or \
+                        kern._launch.work_bytes != card[3]:
+                    raise AssertionError(f"{label}: Kernel plan "
+                                         f"{kern.plan} != the launcher's "
+                                         f"{card}")
+                got = kern(*args)
+                if key_stats:
+                    got, mu, var = got
+                    own_mu, own_var = ln_stats_out(got)
+                    if max(rel_err(mu, own_mu)[0],
+                           rel_err(var, own_var)[0]) > TOL_STATS:
+                        raise AssertionError(f"{label} {bm}x{bn}: stats")
+                elif split == most or split == 2:
+                    repeat = repeat and torch.equal(got, kern(*args))
+                torch.cuda.synchronize()
+                rel, _ = rel_err(got, want)
+                worst, n = max(worst, rel), n + 1
+                if not (rel <= tol and torch_isfinite(got)):
+                    raise AssertionError(f"{label}: plan {bm}x{bn} split "
+                                         f"{split} rel {rel} > {tol}")
+        illegal = [(128, 64, 1), (32, 32, 1), (64, 64, most + 1)]
+        if tiles == reference.FMA_TILES:
+            illegal += [(64, 128, 1), (128, 128, 1)]
+        for plan in illegal:
+            try:
+                _forced_kernel(key, dict(zip(("bm", "bn", "split"), plan)))
+            except ValueError:
+                continue
+            raise AssertionError(f"{label}: illegal plan {plan} was taken")
+        say(f"tuning plans {label:38s} {n:3d} legal plans (tiles "
+            f"{' '.join(f'{a}x{b}' for a, b in tiles)}, split 1..{most}) "
+            f"worst rel {worst:.3e} tol {tol:.0e}; heuristic "
+            f"{heur[0]}x{heur[1]} split {heur[2]} (card == mirror); "
+            f"splits repeat bit-equal {repeat}; {len(illegal)} illegal "
+            f"plans raised")
+        if not repeat:
+            raise AssertionError(f"{label}: a split did not repeat")
+    key = ChainKey(m=BATCH, dims=(WIDTH,) * LAYERS, dtype="bf16")
+    args = _chain_inputs(key, g)
+    want = reference_kernel(key)(*args)
+    heur = reference.warm_plan(key)
+    worst, ran, skipped = 0.0, 0, []
+    for rows in reference.WARM_ROWS:
+        for cluster in range(1, reference.WARM_MAX_CLUSTER + 1):
+            plan = reference.warm_plan(key, rows=rows, cluster=cluster)
+            if plan is None:
+                continue
+            if not warm_max_clusters(rows, cluster, plan.smem):
+                skipped.append((rows, cluster))
+                continue
+            kern = _forced_kernel(key, {"bm": rows, "cluster": cluster})
+            got = kern(*args)
+            torch.cuda.synchronize()
+            rel, _ = rel_err(got, want)
+            worst, ran = max(worst, rel), ran + 1
+            if (kern.plan.rows, kern.plan.cluster) != (rows, cluster) or \
+                    rel > TOL_BF16:
+                raise AssertionError(f"flagship chain rows {rows} cluster "
+                                     f"{cluster}: rel {rel}")
+    for cfg in ({"bm": 48}, {"cluster": 17}):
+        try:
+            _forced_kernel(key, cfg)
+        except ValueError:
+            continue
+        raise AssertionError(f"flagship chain: {cfg} was taken")
+    say(f"tuning plans flagship chain bf16: {ran} panel plans (rows "
+        f"{'/'.join(map(str, reference.WARM_ROWS))} x the clusters "
+        f"warm_plan places) worst rel {worst:.3e} tol {TOL_BF16:.0e}; "
+        f"heuristic rows {heur.rows} cluster {heur.cluster}; not placeable "
+        f"on the card {skipped}; rows 48 and cluster 17 raised")
+
+
+def _tuning_register_blocking() -> dict:
+    """(b) tpp_run --register-blocking on the one-layer fc (a BrgemmKey):
+    the plan it names, within TOL_BF16 of --linalg-to-loops."""
+    from tpp_mlir_tpu_torch.runtime.executor import module_keys
+    from tpp_mlir_tpu_torch.tools.tpp_run import run_module
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    from tpp_mlir_tpu_torch.xsmm.kernels import describe_plan
+    cache = global_cache()
+    module = _module(TUNE_FC_GEN)
+    module.attrs["register_blocking"] = REGISTER_BLOCKING
+    cache.reset_launches()
+    res = run_module(module, device="cuda", print_mlir="kernel",
+                     out_stream=sys.stderr)
+    launches = _launches(cache)
+    ref = run_module(_module(TUNE_FC_GEN), device="cuda",
+                     linalg_to_loops=True, out_stream=sys.stderr)
+    rel, _ = rel_err(res["outputs"][0], ref["outputs"][0])
+    (_, key), = module_keys(res["module"])
+    kern = cache.dispatch(key)
+    want = (64, 128, 4)
+    ok = rel <= TOL_BF16 and tuple(kern.plan) == want and kern.launches
+    say(f"tuning --register-blocking {','.join(map(str, REGISTER_BLOCKING))}"
+        f" on fc 256x1024x1024: key bm/bn/bk {key.bm}/{key.bn}/{key.bk}, "
+        f"ran {describe_plan(kern.plan)} ({kern.launches} launch), vs "
+        f"--linalg-to-loops rel {rel:.3e} tol {TOL_BF16:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("--register-blocking did not run its plan")
+    return launches
+
+
+def _tuning_subprocess(argv: list, env: dict, cwd) -> str:
+    proc = subprocess.run([sys.executable, *argv], cwd=cwd, env=env,
+                          capture_output=True, text=True,
+                          timeout=TUNE_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def _tuning_tuner(root) -> None:
+    """(c) tpp-tune on the bf16 flagship (its B4 chain) and on the fc's GEMM
+    key, in a subprocess writing a temporary table; each sweep row beside
+    the heuristic's."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(root),
+                   TPP_TUNING_PATH=os.path.join(d, "tuning.json"))
+        for args in (["--gen", TUNE_FLAGSHIP_GEN],
+                     ["--gen", TUNE_FC_GEN, "--key", "BrgemmKey"]):
+            t0 = time.perf_counter()
+            proc = _tuning_subprocess(
+                ["-m", "tpp_mlir_tpu_torch.tools.tpp_tune", *args,
+                 "--iters", "10"], env, root)
+            rows = [x for x in proc.stderr.splitlines()
+                    if "ms (heuristic" in x]
+            for line in proc.stderr.splitlines():
+                if line.startswith((" ", "==")) and "candidate" not in line:
+                    say(f"tuning tpp-tune {line}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            say(f"tuning tpp-tune {' '.join(args)}: {len(rows)} sweep rows, "
+                f"{out['tuned']} recorded to a temporary table, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if len(rows) < 2:
+                raise AssertionError("tpp-tune swept nothing")
+
+
+def _tuning_examples(root) -> None:
+    """(d) examples/torch/01-06 on the card, each a process of its own, all
+    started together; each must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(root))
+    paths = sorted((root / "examples" / "torch").glob("0*.py"))
+    t0 = time.perf_counter()
+    procs = [(p, subprocess.Popen([sys.executable, str(p), "--device",
+                                   "cuda"], cwd=root, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))
+             for p in paths]
+    failed = []
+    try:
+        for p, proc in procs:
+            out, err = proc.communicate(timeout=TUNE_TIMEOUT)
+            last = (out.strip().splitlines() or [""])[-1]
+            say(f"tuning example {p.name}: exit {proc.returncode}; {last}")
+            if proc.returncode:
+                failed.append(f"{p.name}:\n{err[-3000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say(f"tuning examples: {len(paths)} ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if failed or len(paths) != 6:
+        raise AssertionError("examples failed:\n" + "\n".join(failed))
+
+
+def phase_tuning() -> dict:
+    """The tuning layer and the user API (ROADMAP A5 + A12): (a) forced
+    plans against the plain versions, (b) --register-blocking, (c) tpp-tune,
+    (d) the examples. Returns (b)'s launches, counted on that run alone."""
+    from pathlib import Path
+
+    import torch
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    _tuning_plans(torch.Generator(device="cuda").manual_seed(21))
+    launches = _tuning_register_blocking()
+    _tuning_tuner(root)
+    _tuning_examples(root)
+    say(f"tuning phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5225,6 +5504,8 @@ def main() -> int:
             "max_abs_err", 0.0))
         stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
+    for kind, n in phase_tuning().items():
+        launches[kind] += n
     for kind, n in phase_compiler_path().items():
         launches[kind] += n
     for kind, n in phase_transformer_path().items():

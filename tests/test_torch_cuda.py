@@ -1876,3 +1876,143 @@ def test_tp_decode_graph_replay_equals_eager_over_nccl(cuda):
             assert torch.isfinite(a).all() and torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# ---- forced launch plans (xsmm/tune.py, csrc/gemm_sm90.cuh resolve_plan) --
+
+def _gemm_args(g, key):
+    """A, B (N(0, 1/k)), C and a full-width D of a BrgemmKey."""
+    a = _rnd(g, (key.batch, key.m, key.k), key.dtype)
+    b = _rnd(g, (key.batch, key.k, key.n), key.dtype, key.k ** -0.5)
+    c = None if key.beta0 else _rnd(g, (key.m, key.n), key.dtype)
+    d = None
+    if key.binary_kind:
+        d = _rnd(g, (key.m, key.n) if key.binary_bcast == "none"
+                 else (key.n,), key.dtype, 0.1)
+    return a, b, c, d
+
+
+def _forced(key, plan):
+    from tpp_mlir_tpu_torch.xsmm import tune
+    with tune.trial(key, dict(zip(("bm", "bn", "split"), plan))):
+        return build_kernel(key)
+
+
+FC = dict(batch=1, m=256, n=1024, k=1024, beta0=True, binary_kind="add",
+          unary_kind="relu")
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    ("f32", "default"), ("bf16", "default"), ("f32", "highest")])
+def test_a_forced_plan_reaches_the_kernel(cuda, dtype, precision):
+    """At fc 256 x 1024 x 1024 every legal tile at splits 1, 2, 4 and 16:
+    the plan the Kernel records is the one the C++ launcher resolves for it
+    (tpp_gemm_plan), the workspace is sized for it, and the result is the
+    plain version's; the forced split repeats bit for bit."""
+    from tpp_mlir_tpu_torch.xsmm import reference
+    from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
+    key = BrgemmKey(dtype=dtype, precision=precision, **FC)
+    args = _gemm_args(cuda, key)
+    want = reference_kernel(key)(*args)
+    tiles, most = reference.legal_gemm_plans(key)
+    for bm, bn in tiles:
+        for split in (s for s in (1, 2, 4, 16) if s <= most):
+            kern = _forced(key, (bm, bn, split))
+            card = gemm_plan(key, force=(bm, bn, split))
+            assert tuple(kern.plan) == card[:3] == (bm, bn, split)
+            assert kern._launch.work_bytes == card[3]
+            assert (card[3] > 0) == (split > 1)
+            got, again = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            assert _err(got, want) <= _tol(key), (bm, bn, split)
+            assert torch.equal(got, again)
+
+
+def test_a_launch_refuses_a_plan_its_workspace_was_not_sized_for(cuda):
+    key = BrgemmKey(dtype="bf16", **FC)
+    args = _gemm_args(cuda, key)
+    kern = _forced(key, (64, 64, 4))
+    kern(*args)
+    kern._launch.work_bytes //= 2       # sized for another plan
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kern(*args)
+    kern = _forced(key, (64, 64, 4))
+    kern._launch.plan = kern.plan._replace(split=99)   # more than 16 stages
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kern(*args)
+
+
+def test_an_illegal_plan_raises_naming_the_legal_set(cuda):
+    from tpp_mlir_tpu_torch.xsmm.kernels import gemm_plan
+    key = BrgemmKey(dtype="bf16", **FC)
+    for plan in ((128, 64, 1), (64, 64, 17), (32, 32, 1)):
+        with pytest.raises(ValueError, match="128x128, 64x128, 64x64"):
+            _forced(key, plan)
+        with pytest.raises(ValueError):
+            gemm_plan(key, force=plan)
+    hi = BrgemmKey(dtype="f32", precision="highest", **FC)
+    with pytest.raises(ValueError, match="f32-FMA body"):
+        _forced(hi, (64, 64, 2))
+
+
+# The column run that starts at n (ROADMAP queue C): the ragged widths of
+# the LN-stats cases (n 136, 200, 3000) under every tile and every split
+# the key allows, with C and a full-width residual D read in the epilogue,
+# and the ln_stats_out producer (no split) under every tile.
+@pytest.mark.parametrize("m,n,k", [(100, 136, 512), (200, 200, 256),
+                                   (256, 3000, 768)])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_ragged_widths_under_every_plan(cuda, m, n, k, dtype):
+    from tpp_mlir_tpu_torch.xsmm import reference
+    from tpp_mlir_tpu_torch.xsmm.reference import ln_stats_out
+    g = cuda
+    key = BrgemmKey(1, m, n, k, dtype, beta0=False, binary_kind="add",
+                    binary_bcast="none", unary_kind="gelu")
+    args = _gemm_args(g, key)
+    want = reference_kernel(key)(*args)
+    prod = BrgemmKey(1, m, n, k, dtype, beta0=True, binary_kind="add",
+                     unary_kind="gelu", ln_stats_out=True)
+    pargs = _gemm_args(g, prod)
+    pwant = reference_kernel(prod)(*pargs)[0]
+    tiles, most = reference.legal_gemm_plans(key)
+    for bm, bn in tiles:
+        for split in sorted({1, 2, most}):
+            got = _forced(key, (bm, bn, split))(*args)
+            torch.cuda.synchronize()
+            assert _err(got, want) <= _tol(key), (bm, bn, split)
+        y, mu, var = _forced(prod, (bm, bn, 1))(*pargs)
+        torch.cuda.synchronize()
+        assert _err(y, pwant) <= _tol(prod), (bm, bn)
+        own_mu, own_var = ln_stats_out(y)
+        assert _err(mu, own_mu) <= 1e-5 and _err(var, own_var) <= 1e-5
+
+
+def test_forced_warm_panels_match_plain(cuda):
+    """The flagship chain (B3) at panel rows x clusters the engine places
+    and the card holds, each against the plain version; a plan it cannot
+    place raises."""
+    from tpp_mlir_tpu_torch.xsmm import reference, tune
+    from tpp_mlir_tpu_torch.xsmm.kernels import warm_max_clusters
+    key = ChainKey(m=256, dims=(1024,) * 4, dtype="bf16")
+    g = cuda
+    x = _rnd(g, (256, 1024), "bf16")
+    wb = []
+    for _ in range(3):
+        wb += [_rnd(g, (1024, 1024), "bf16", 1024 ** -0.5),
+               _rnd(g, (1024,), "bf16", 0.1)]
+    want = reference_kernel(key)(x, *wb)
+    for rows in reference.WARM_ROWS:
+        for cluster in (1, 2, 4, 8, 16):
+            plan = reference.warm_plan(key, rows=rows, cluster=cluster)
+            if plan is None or not warm_max_clusters(rows, cluster,
+                                                     plan.smem):
+                continue
+            with tune.trial(key, {"bm": rows, "cluster": cluster}):
+                kern = build_kernel(key)
+            assert (kern.plan.rows, kern.plan.cluster) == (rows, cluster)
+            got = kern(x, *wb)
+            torch.cuda.synchronize()
+            assert _err(got, want) <= 1e-2, (rows, cluster)
+    with tune.trial(key, {"bm": 48}):
+        with pytest.raises(ValueError, match="rows in"):
+            build_kernel(key)

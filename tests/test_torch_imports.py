@@ -1,7 +1,8 @@
 """The port (every slice: the MLP path, the compiler's general path and its
 tools, the imported transformer, serving and its batching, beam and
 speculative modes, training, MoE, the MHA suite, the conv family, packed
-parity mode, the parallel layer) imports
+parity mode, the parallel layer, the tuning layer and the user API with
+its examples) imports
 torch and its own modules only: never JAX, Triton, ml_dtypes, nor any
 module of the JAX package `tpp_mlir_tpu`; nor does a rank of a world the
 parallel layer spawns.
@@ -187,6 +188,25 @@ from torch_parallel_workers import loaded_modules
 roots = ("jax", "jaxlib", "triton", "ml_dtypes", "tpp_mlir_tpu")
 for rank_bad in spawn(loaded_modules, 2, "gloo", "cpu", (roots,)):
     print("RANK LOADED", rank_bad)
+# the tuning layer and the user API: the table, tpp-tune's listing,
+# --register-blocking, the completed ops and an example run in process
+import runpy
+from tpp_mlir_tpu_torch.tools import tpp_run, tpp_tune
+from tpp_mlir_tpu_torch.xsmm import tune
+assert tpp_tune.main(["--dry", "--device", "cpu", "--gen",
+                      "--batch=8 --layers=16,16 --bias --relu",
+                      "--key", "BrgemmKey"]) == 0
+import tempfile
+with tempfile.NamedTemporaryFile("w", suffix=".ir") as f:
+    f.write(generate_text(config_from_args(build_parser().parse_args(
+        "--batch=8 --layers=64,64 --bias --relu".split()))))
+    f.flush()
+    assert tpp_run.main([f.name, "--device", "cpu", "--register-blocking",
+                         "64,64,64"]) == 0
+assert ops.brgemm(torch.randn(2, 8, 16), torch.randn(2, 16, 8)).shape == (8, 8)
+assert ops.relu(torch.randn(4)).min() >= 0
+sys.argv = ["02_functional_ops.py", "--device", "cpu"]
+runpy.run_path("examples/torch/02_functional_ops.py", run_name="__main__")
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """
@@ -226,12 +246,14 @@ def _imports_and_strings(path: Path):
 
 def test_port_sources_name_no_jax_or_triton_import():
     """No file of the port, nor chip_smoke.py, nor the rank bodies of the
-    parallel tests (tests/torch_parallel_workers.py) imports JAX, ml_dtypes, Triton
+    parallel tests (tests/torch_parallel_workers.py), nor the port's
+    examples (examples/torch/) imports JAX, ml_dtypes, Triton
     (the port has no Triton kernel) or the JAX package, or names a module
     of the JAX package to run (`-m tpp_mlir_tpu.…`)."""
     offenders = []
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-                 ROOT / "tests" / "torch_parallel_workers.py"]:
+                 ROOT / "tests" / "torch_parallel_workers.py",
+                 *(ROOT / "examples" / "torch").glob("*.py")]:
         names, strings = _imports_and_strings(path)
         bad = names & {"jax", "jaxlib", "ml_dtypes", "tpp_mlir_tpu",
                        "triton"}

@@ -387,10 +387,13 @@ int run_warm(const void* a, const void* b, const float* d, void* out,
 // B19 on the packed mainloop of csrc/gemm_sm90.cuh
 int run_sm90(const void* a, const void* b, const void* c, const void* d,
              void* out, void* work, const Blocked& bl, const Epilogue& epi,
-             int vnni, int in_dtype, int route, cudaStream_t st) {
+             int vnni, int in_dtype, int route, const long long* plan,
+             cudaStream_t st) {
   namespace sm = tpp::sm90;
-  const sm::Plan p = sm::gemm_plan(bl.Mb, bl.Nb, bl.Kb, bl.mb, bl.nb, bl.kb);
-  if (p.split > 1 && work == nullptr)
+  sm::Plan p;
+  if (!sm::launch_plan_ok(plan, bl.Mb, bl.Nb, bl.Kb, bl.mb, bl.nb, bl.kb, 0,
+                          &p) ||
+      (plan[3] > 0 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   sm::Gemm g{};
   g.a = a;
@@ -480,8 +483,10 @@ extern "C" long long tpp_blocked_warm_smem_bytes(int K, int mma_dtype) {
 // widened in registers; B20 takes an f32 D); out [Mb,Nb,mb,nb] is
 // out_dtype. B19's route is xsmm/reference.py blocked_matmul_route's
 // choice: 0 "fma" (f32 "highest"), 1 "tma" (bf16, not VNNI; 16-byte
-// aligned base pointers and row strides), 2 "convert"; work is
-// tpp_gemm_plan's workspace. B20 needs has_c 0, Nb == Kb, nb == kb and, on
+// aligned base pointers and row strides), 2 "convert"; plan is
+// tpp_gemm_plan's {bm, bn, split, bytes} for B19 (flags kPlanFma on the
+// "fma" route: 64 x 64, no split; gemm_sm90.cuh launch_plan_ok) and work
+// its workspace. B20 needs has_c 0, Nb == Kb, nb == kb and, on
 // the tensor path, Kb * kb and nb multiples of 16 and B 16-byte aligned;
 // warm_plan, when not null, is reference.warm_plan's (rows, cluster,
 // resident, shared-memory bytes): B20 runs on the warm-panel engine (bf16
@@ -493,6 +498,7 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   int mma_dtype, int out_dtype, int c_dtype,
                                   int d_dtype, int has_c, int binary,
                                   int unary, int repeats, int route,
+                                  const long long* plan,
                                   const int* warm_plan, void* stream) {
   if ((vnni != 0 && vnni != 2) || (vnni && kb % vnni))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -521,7 +527,12 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == tpp::sm90::kRouteFma) {
-    if (in_dtype != tpp::kF32 || mma_dtype != tpp::kF32)
+    tpp::sm90::Plan p;
+    static_assert(BM == tpp::sm90::kFmaTile && BN == tpp::sm90::kFmaTile,
+                  "the FMA body's tile is the plan's");
+    if (in_dtype != tpp::kF32 || mma_dtype != tpp::kF32 ||
+        !tpp::sm90::launch_plan_ok(plan, Mb, Nb, Kb, mb, nb, kb,
+                                   tpp::sm90::kPlanFma, &p))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(g.Nb * ((g.nb + BN - 1) / BN),
                     g.Mb * ((g.mb + BM - 1) / BM));
@@ -536,5 +547,6 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
     return static_cast<int>(cudaGetLastError());
   }
   if (mma_dtype != tpp::kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  return run_sm90(a, b, c, d, out, work, g, epi, vnni, in_dtype, route, st);
+  return run_sm90(a, b, c, d, out, work, g, epi, vnni, in_dtype, route, plan,
+                  st);
 }

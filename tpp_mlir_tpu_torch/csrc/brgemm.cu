@@ -310,32 +310,24 @@ int run_sm90(const sm::Plan& p, const sm::Gemm& g, int transpose_b,
 // workspace bytes}. flags (a brgemm's, Mb = Nb = 1): kPlanLn, a LayerNorm
 // prologue of either kind (the (mean, rstd) of the mb rows); kPlanStatsOut,
 // ln_stats_out (no k split, and the rows' partials of each column tile);
-// kPlanFma, the f32-FMA body (64 x 64 tiles, no split). Returns 0.
-enum PlanFlag : int { kPlanLn = 1, kPlanStatsOut = 2, kPlanFma = 4 };
-
-namespace {
-
-sm::Plan brgemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
-                     int flags) {
-  if (flags & kPlanFma) return sm::Plan{BM, BN, 1};
-  return sm::gemm_plan(Mb, Nb, Kb, mb, nb, kb, (flags & kPlanStatsOut) != 0);
-}
-
-size_t brgemm_work(const sm::Plan& p, int Mb, int Nb, int mb, int nb,
-                   int flags) {
-  return sm::work_bytes(p, Mb, Nb, mb, nb, (flags & kPlanLn) ? Mb * mb : 0,
-                        (flags & kPlanStatsOut) ? Mb * mb : 0);
-}
-
-}  // namespace
+// kPlanFma, the f32-FMA body (64 x 64 tiles, no split). force, when not
+// null, is a forced {bm, bn, split} (xsmm/tune.py: the key's bm/bn/bk or
+// the tuning table), zeros where the heuristic decides (its tile; its
+// split where the tile is its own, else none). Returns 0, or
+// cudaErrorInvalidValue for a plan the mainloop does not run (plan_legal;
+// xsmm/reference.py check_gemm_plan is its mirror).
+static_assert(BM == sm::kFmaTile && BN == sm::kFmaTile,
+              "the FMA body's tile is the plan's");
 
 extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
-                             int flags, long long* plan) {
-  const sm::Plan p = brgemm_plan(Mb, Nb, Kb, mb, nb, kb, flags);
+                             int flags, const int* force, long long* plan) {
+  sm::Plan p;
+  if (!sm::resolve_plan(Mb, Nb, Kb, mb, nb, kb, flags, force, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   plan[0] = p.bm;
   plan[1] = p.bn;
   plan[2] = p.split;
-  plan[3] = static_cast<long long>(brgemm_work(p, Mb, Nb, mb, nb, flags));
+  plan[3] = static_cast<long long>(sm::plan_work(p, Mb, Nb, mb, nb, flags));
   return 0;
 }
 
@@ -344,7 +336,9 @@ extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
 // registers); gamma and beta f32; out out_dtype. route is
 // xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
 // "tma" (bf16; 16-byte aligned base pointers and row strides), 2
-// "convert". work is tpp_gemm_plan's workspace (null where it is 0 bytes).
+// "convert". plan is tpp_gemm_plan's {bm, bn, split, bytes} for these
+// flags (gemm_sm90.cuh launch_plan_ok) and work its workspace (null where
+// it is 0 bytes).
 // ln = 1 runs the LayerNorm prologue, ln = 2 the ln_stats prologue on the
 // f32 (m) mean and var; gamma and beta are null when it has no affine.
 // stats_out = 1 also writes the f32 (m) mean_out and var_out of the
@@ -357,7 +351,8 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
                           int unary, int ln, int route, float eps,
                           const void* gamma, const void* beta,
                           const void* mean, const void* var, int stats_out,
-                          void* mean_out, void* var_out, void* stream) {
+                          void* mean_out, void* var_out,
+                          const long long* plan, void* stream) {
   if ((ln || stats_out) && batch != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((ln == 2 && (mean == nullptr || var == nullptr)) ||
@@ -365,13 +360,15 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fma = route == sm::kRouteFma;
-  const int flags = (ln ? kPlanLn : 0) | (stats_out ? kPlanStatsOut : 0) |
-                    (fma ? kPlanFma : 0);
-  const sm::Plan p = brgemm_plan(1, 1, batch, m, n, k, flags);
-  if (brgemm_work(p, 1, 1, m, n, flags) > 0 && work == nullptr)
+  const int flags = (ln ? sm::kPlanLn : 0) |
+                    (stats_out ? sm::kPlanStatsOut : 0) |
+                    (fma ? sm::kPlanFma : 0);
+  sm::Plan p;
+  if (!sm::launch_plan_ok(plan, 1, 1, batch, m, n, k, flags, &p) ||
+      (plan[3] > 0 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   // the workspace: split partials, then the rows' (mean, rstd), then the
-  // rows' tile partials (brgemm_work's order)
+  // rows' tile partials (plan_work's order)
   float2* const ln_rows = reinterpret_cast<float2*>(
       static_cast<unsigned char*>(work) + sm::work_bytes(p, 1, 1, m, n, 0));
   float2* const rowpart = stats_out ? ln_rows + (ln ? m : 0) : nullptr;

@@ -558,8 +558,15 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
       const int p = p0 + r0 + r * STEP;
       s1[r] = s2[r] = 0.f;
       // a run with no column takes part in the shuffles below and in
-      // nothing else: without this skip, the run that starts at nb stored
-      // into the next row's first columns on the card
+      // nothing else. The skip (and the first loop's) is load-bearing on
+      // the card: without them (scripts/exp_column_run.py's "noskip"
+      // build) every ln_stats_out key stored into the next row's first
+      // columns (rel 0.58-0.84 at n 136, 200 and 3000, f32 and bf16),
+      // though each store below is predicated off at n == 0 (e < n; vec is
+      // false there); keys without ln_stats_out, whose no-column threads
+      // return above, and the FMA body were right. The cause lies below
+      // the source (the compiled code was not read): keep such a run out
+      // of the row's I/O entirely.
       if (p >= g.mb || n == 0) continue;
       const size_t o = (blk + p) * g.nb + t;
       float* x = v[r];
@@ -818,6 +825,80 @@ inline size_t work_bytes(const Plan& p, int Mb, int Nb, int mb, int nb,
   const size_t tiles = (size_t)(nb + p.bn - 1) / p.bn;
   return (part + 15) / 16 * 16 +
          ((size_t)ln_rows + tiles * part_rows) * sizeof(float2);
+}
+
+// ---- forced plans (xsmm/tune.py) ---------------------------------------
+// A launch runs the plan its wrapper asked tpp_gemm_plan for, with the
+// workspace sized for that plan: the plan is made once, on the host, and
+// checked here again, never recomputed.
+
+// tpp_gemm_plan's flags: a LayerNorm prologue of either kind (the (mean,
+// rstd) of the rows in the workspace), ln_stats_out (no k split; the rows'
+// partials of each column tile), the f32-FMA body of f32 "highest"
+enum PlanFlag : int { kPlanLn = 1, kPlanStatsOut = 2, kPlanFma = 4 };
+constexpr int kFmaTile = 64;   // the FMA bodies' one tile, no split
+
+// the launcher's own plan
+inline Plan heuristic_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
+                           int flags) {
+  if (flags & kPlanFma) return {kFmaTile, kFmaTile, 1};
+  return gemm_plan(Mb, Nb, Kb, mb, nb, kb, (flags & kPlanStatsOut) != 0);
+}
+
+// whether the mainloop runs plan p: a tile it is instantiated at (launch_plan
+// below; the FMA body: its one tile), and 1 <= split <= the 64-deep k
+// stages, no split for the FMA body or ln_stats_out (xsmm/reference.py
+// check_gemm_plan is the mirror the CPU tests hold)
+inline bool plan_legal(const Plan& p, int Kb, int kb, int flags) {
+  const bool tile =
+      (flags & kPlanFma)
+          ? p.bm == kFmaTile && p.bn == kFmaTile
+          : (p.bm == 128 && p.bn == 128) || (p.bm == 64 && p.bn == 128) ||
+                (p.bm == 64 && p.bn == 64);
+  const long long stages = (long long)Kb * ((kb + BK - 1) / BK);
+  const long long most = (flags & (kPlanFma | kPlanStatsOut)) ? 1 : stages;
+  return tile && p.split >= 1 && p.split <= most;
+}
+
+// The plan at a forced {bm, bn, split} (null: none), zeros where the
+// heuristic decides: its tile, and its split where the tile is its own,
+// else no split. False for a plan the mainloop does not run.
+inline bool resolve_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
+                         int flags, const int* force, Plan* out) {
+  const Plan h = heuristic_plan(Mb, Nb, Kb, mb, nb, kb, flags);
+  Plan p = h;
+  if (force != nullptr) {
+    if (force[0] != 0 || force[1] != 0) {
+      p.bm = force[0];
+      p.bn = force[1];
+    }
+    p.split = force[2] != 0                       ? force[2]
+              : (p.bm == h.bm && p.bn == h.bn) ? h.split
+                                               : 1;
+  }
+  *out = p;
+  return plan_legal(p, Kb, kb, flags);
+}
+
+// the workspace of plan p under `flags`: the split partials, the rows'
+// LayerNorm statistics, the ln_stats_out row partials (work_bytes)
+inline size_t plan_work(const Plan& p, int Mb, int Nb, int mb, int nb,
+                        int flags) {
+  return work_bytes(p, Mb, Nb, mb, nb, (flags & kPlanLn) ? Mb * mb : 0,
+                    (flags & kPlanStatsOut) ? Mb * mb : 0);
+}
+
+// A launch's plan {bm, bn, split, workspace bytes} as tpp_gemm_plan gave
+// it: false for a missing or illegal plan, or one whose bytes are not this
+// plan's (a workspace sized for another plan would be overrun).
+inline bool launch_plan_ok(const long long* plan, int Mb, int Nb, int Kb,
+                           int mb, int nb, int kb, int flags, Plan* p) {
+  if (plan == nullptr) return false;
+  *p = Plan{static_cast<int>(plan[0]), static_cast<int>(plan[1]),
+            static_cast<int>(plan[2])};
+  return plan_legal(*p, Kb, kb, flags) &&
+         static_cast<long long>(plan_work(*p, Mb, Nb, mb, nb, flags)) ==
+             plan[3];
 }
 
 template <int NCW, int BN, int BMODE, int LOADER, int LN>

@@ -1,12 +1,15 @@
-"""Functional ops over the kernel cache: the port of the GEMM and packed
-parts of `tpp_mlir_tpu/ops/__init__.py` (`gemm`, `fused_mlp_layer`,
-`blocked_matmul`, `conv2d_brgemm`, `vnni_pack`), for callers that want the
-kernels without the IR pipeline. gemm and fused_mlp_layer dispatch a
-BrgemmKey (csrc/brgemm.cu), blocked_matmul a BlockedMatmulKey
-(csrc/blocked_matmul.cu, B19), conv2d_brgemm a ConvBrgemmKey (csrc/conv.cu's
-channel-blocked entry, B23): the kernel on CUDA tensors, the plain version
-on CPU tensors. `precision` is the key's: "default" rounds f32 operands to
-bf16 (the compiled TPU meaning), "highest" keeps true f32."""
+"""Functional ops over the kernel cache: the port of
+`tpp_mlir_tpu/ops/__init__.py` (`gemm`, `brgemm`, `fused_mlp_layer`,
+`blocked_matmul`, `conv2d_brgemm`, `relu`, `vnni_pack`), for callers that
+want the kernels without the IR pipeline, with the JAX signatures
+(`precision` in place of `interpret`: the device of the tensors decides).
+gemm, brgemm and fused_mlp_layer dispatch a BrgemmKey (csrc/brgemm.cu, B1),
+blocked_matmul a BlockedMatmulKey (csrc/blocked_matmul.cu, B19),
+conv2d_brgemm a ConvBrgemmKey (csrc/conv.cu's channel-blocked entry, B23):
+the kernel on CUDA tensors, the plain version on CPU tensors. `precision`
+is the key's: "default" rounds f32 operands to bf16 (the compiled TPU
+meaning), "highest" keeps true f32. `out_dtype` ("f32" or "bf16", default
+the operands') is the result's; a C accumulator is added in f32."""
 
 from __future__ import annotations
 
@@ -26,23 +29,36 @@ def _dt(x: torch.Tensor) -> str:
     return _DT[x.dtype]
 
 
-def gemm(a, b, *, transpose_b=False, precision="default"):
-    """A @ B (or A @ B^T with transpose_b) with f32 accumulation, in A's
-    dtype."""
+def gemm(a, b, c=None, *, out_dtype=None, transpose_b=False,
+         precision="default"):
+    """C(+)= A @ B (or A @ B^T with transpose_b) with f32 accumulation."""
     m, k = a.shape
     n = b.shape[0] if transpose_b else b.shape[1]
-    key = BrgemmKey(batch=1, m=m, n=n, k=k, dtype=_dt(a), beta0=True,
+    key = BrgemmKey(batch=1, m=m, n=n, k=k, dtype=_dt(a),
+                    out_dtype=out_dtype, beta0=c is None,
                     transpose_b=transpose_b, precision=precision)
     return global_cache().dispatch(key)(a.contiguous()[None],
-                                        b.contiguous()[None])
+                                        b.contiguous()[None], c)
 
 
-def fused_mlp_layer(x, w, bias, *, activation="relu", precision="default"):
-    """activation(x @ w + bias) as one kernel launch, in x's dtype."""
+def brgemm(a, b, c=None, *, out_dtype=None, precision="default"):
+    """Batch-reduce GEMM: C(+)= sum_i A[i] @ B[i]."""
+    bt, m, k = a.shape
+    key = BrgemmKey(batch=bt, m=m, n=b.shape[-1], k=k, dtype=_dt(a),
+                    out_dtype=out_dtype, beta0=c is None,
+                    precision=precision)
+    return global_cache().dispatch(key)(a.contiguous(), b.contiguous(), c)
+
+
+def fused_mlp_layer(x, w, bias=None, *, activation="relu", out_dtype=None,
+                    precision="default"):
+    """activation(x @ w + bias) as one kernel launch (the bias optional)."""
     m, k = x.shape
     key = BrgemmKey(batch=1, m=m, n=w.shape[1], k=k, dtype=_dt(x),
-                    beta0=True, binary_kind="add", binary_bcast="bcast_col",
-                    unary_kind=activation, precision=precision)
+                    out_dtype=out_dtype, beta0=True,
+                    binary_kind="add" if bias is not None else None,
+                    binary_bcast="bcast_col", unary_kind=activation,
+                    precision=precision)
     return global_cache().dispatch(key)(x.contiguous()[None],
                                         w.contiguous()[None], None, bias)
 
@@ -79,11 +95,16 @@ def conv2d_brgemm(i, w, c=None, *, bias=None, activation=None,
                                         bias)
 
 
+def relu(x):
+    """max(x, 0): a PyTorch op (jnp.maximum in the JAX package)."""
+    return torch.clamp_min(x, 0)
+
+
 def vnni_pack(w, vf: int = 2):
     """[.., K, N] -> [.., K/vf, N, vf] (the reference's xsmm unary VNNI2): a
     PyTorch op."""
     return vnni_pack_tensor(w, vf)
 
 
-__all__ = ["blocked_matmul", "conv2d_brgemm", "fused_mlp_layer", "gemm",
-           "vnni_pack"]
+__all__ = ["blocked_matmul", "brgemm", "conv2d_brgemm", "fused_mlp_layer",
+           "gemm", "relu", "vnni_pack"]

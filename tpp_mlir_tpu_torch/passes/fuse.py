@@ -1,10 +1,15 @@
 """tile-and-fuse: fusion-group formation + tile hints.
 
 The grouping is a copy of `tpp_mlir_tpu/passes/fuse.py` (the reference's
-TileConsumerAndFuseProducers, consumer-anchored producer BFS). The tile
-hints differ: the reference asks `pick_blocks` for MXU/VMEM blocks; here
-they name the output tile and k step of csrc/brgemm.cu. They are hints
-only: the executor's keys leave them out and the kernel uses its own tile.
+TileConsumerAndFuseProducers, consumer-anchored producer BFS), and so is
+the register blocking: the pass's `blocks` option (bm, bn, bk), or the
+module's `register_blocking` attr (tpp-run's --register-blocking), sets
+binding `tile_m/n/k` on the anchor with `register_blocked`, which
+convert-tl-to-xsmm carries to the dispatch and the executor puts into the
+key's bm/bn/bk (on Hopper: the mainloop's output tile and the depth of one
+k slice, xsmm/tune.py). Without it the tiles are unbound hints
+(HOPPER_TILE): the executor's keys leave them out, nothing reads them, and
+the launcher chooses its own plan.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from .pass_manager import Pass, register
 FUSABLE_CONSUMERS = ELTWISE_UNARY + ELTWISE_BINARY + ("tl.unpack",)
 MAX_DEPTH, NUM_ITERS = 5, 3     # the reference's defaults
 
-# csrc/brgemm.cu: one 64x64 output tile per block, k in steps of 32
+# the unbound tile hints, the first brgemm.cu's tile (its f32-FMA body's
+# 64 x 64 and 32-deep k step); nothing reads them: the launcher plans on its
+# own (csrc/gemm_sm90.cuh gemm_plan) unless register blocking binds a plan
 HOPPER_TILE = (64, 64, 32)
 
 
@@ -112,7 +119,17 @@ class TileAndFusePass(Pass):
         if get is None:
             return
         a, b, c = (v.type for v in anchor.operands)
-        bm, bn, bk = hopper_tiles(*get(a, b, c))
+        # explicit register blocking (the reference's --registerBlocking)
+        # by pass option or module attr binds the kernel's plan; else hints
+        rb = self.options.get("blocks")
+        if not rb and anchor.parent is not None \
+                and anchor.parent.module is not None:
+            rb = anchor.parent.module.attrs.get("register_blocking")
+        if rb:
+            bm, bn, bk = rb
+            anchor.attrs["register_blocked"] = True
+        else:
+            bm, bn, bk = hopper_tiles(*get(a, b, c))
         anchor.attrs.setdefault("tile_m", bm)
         anchor.attrs.setdefault("tile_n", bn)
         anchor.attrs.setdefault("tile_k", bk)

@@ -79,8 +79,11 @@ def _carry(src: Operation, dst: Operation):
 
 
 def _tile_attrs(op: Operation) -> dict:
-    return {f"tile_{x}": op.attrs[f"tile_{x}"]
-            for x in ("m", "n", "k") if f"tile_{x}" in op.attrs}
+    d = {f"tile_{x}": op.attrs[f"tile_{x}"]
+         for x in ("m", "n", "k") if f"tile_{x}" in op.attrs}
+    if op.attrs.get("register_blocked"):
+        d["register_blocked"] = True   # --register-blocking: binding
+    return d
 
 
 @register

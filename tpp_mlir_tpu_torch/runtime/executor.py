@@ -310,18 +310,27 @@ def conv_blocked_key(a: dict, out_dtype: str | None = None,
 
 
 def _dispatch_key(d: Operation, invoke: Operation):
-    """Kernel key of a dispatch. The tile_* hints stay out of the key: the
-    kernels use their own tile (see passes/fuse.py)."""
+    """Kernel key of a dispatch. The tile_* attrs bind only under
+    --register-blocking (`register_blocked`, reference :300-314): then they
+    are a BrgemmKey's bm/bn/bk (the mainloop's tile and k slice, xsmm/
+    tune.py); otherwise they are hints that stay out of the key, and the
+    launcher chooses its own plan (see passes/fuse.py)."""
     a = d.attrs
     out_dtype = invoke.results[0].type.dtype
     flags = a.get("flags", ())
     prec = a.get("precision", "default")
     name = d.opname
+    rb = bool(a.get("register_blocked"))
+
+    def _tile(x):
+        return a.get(f"tile_{x}", 0) if rb else 0
+
     if name == "xsmm.gemm_dispatch":
         return BrgemmKey(batch=1, m=a["m"], n=a["n"], k=a["k"],
                          dtype=a["dtype"], out_dtype=out_dtype,
                          beta0="beta_0" in flags,
-                         transpose_b="transpose_b" in flags, precision=prec)
+                         transpose_b="transpose_b" in flags, precision=prec,
+                         bm=_tile("m"), bn=_tile("n"), bk=_tile("k"))
     if name in ("xsmm.brgemm_dispatch", "xsmm.fused_brgemm_dispatch"):
         fused = name == "xsmm.fused_brgemm_dispatch"
         layout = a.get("layout", "flat")
@@ -349,7 +358,9 @@ def _dispatch_key(d: Operation, invoke: Operation):
                          binary_bcast=a.get("binary_bcast", "bcast_col"),
                          unary_kind=_kind(a.get("unary_kind"))
                          if fused else None,
-                         precision=prec, prologue=a.get("prologue"),
+                         precision=prec,
+                         bm=_tile("m"), bn=_tile("n"), bk=_tile("k"),
+                         prologue=a.get("prologue"),
                          prologue_affine=bool(a.get("prologue_affine", True)),
                          prologue_eps=float(a.get("prologue_eps", 1e-5)))
     if name == "xsmm.fused_chain_dispatch":

@@ -45,6 +45,25 @@ def elapsed_seconds(fn: Callable[[], object], device: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+def graph_seconds(fn: Callable[[], object], iters: int = 20) -> float:
+    """Seconds one fn() takes on the card, from one CUDA graph of `iters`
+    calls replayed after a warm-up (a call on a side stream, then one
+    replay): no host launch time between calls, so a kernel of a few
+    microseconds reads as its own time (eager rows under ~0.15 ms move
+    by tens of percent within one process, PERF.md). CUDA only."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return elapsed_seconds(graph.replay, torch.device("cuda")) / iters
+
+
 def feed_back(args: list, outs: Sequence) -> list:
     """Outputs replace the leading args of the same shape and dtype, one
     slot per output, so iterations depend on each other (iter_args)."""

@@ -158,6 +158,7 @@ def print_kernels(module: Module, func_name: str, device: torch.device,
     route and csrc/ source its kernel, the one the run launches, was built
     with (the reference prints each kernel's jaxpr and StableHLO here)."""
     from ..xsmm import global_cache
+    from ..xsmm.kernels import describe_plan
     from .trace import describe
     where = "" if device.type == "cuda" else \
         f" (on {device.type}: its plain version)"
@@ -165,6 +166,8 @@ def print_kernels(module: Module, func_name: str, device: torch.device,
         kern = global_cache().dispatch(key)
         runs = f"route {kern.route}, {kern.source}" if kern.source else \
             "no kernel: a PyTorch op"
+        if kern.plan is not None:
+            runs += f", {describe_plan(kern.plan)}"
         print(f"// kernel %{inv.result.name} = {inv.opname}: "
               f"{describe(key)}; {runs}{where}", file=file)
 
@@ -288,6 +291,15 @@ def main(argv=None) -> int:
                         "accumulation, 'highest' = f32 FMA (no TF32)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; no CPU fallback)")
+    p.add_argument("--register-blocking", "-registerBlocking", default="",
+                   help="bm,bn,bk: force the plan of every GEMM the "
+                        "tile-and-fuse pass anchors (the reference's "
+                        "--registerBlocking). On Hopper bm,bn choose the "
+                        "mainloop's output tile (128,128 64,128 or 64,64; "
+                        "f32 'highest' 64,64) and bk the depth of one k "
+                        "slice, a multiple of 64: the k split is "
+                        "ceil(K / bk), bk >= K none. A plan the kernel "
+                        "does not run raises")
     p.add_argument("--task-grid", "-parallel-task-grid", default="",
                    help="split the batch over a (dp, tp) mesh of ranks, "
                         "e.g. '2x1' (the reference's --parallel-task-grid); "
@@ -313,6 +325,9 @@ def main(argv=None) -> int:
 
     text = sys.stdin.read() if args.input == "-" else open(args.input).read()
     module = load_module(text)
+    if args.register_blocking:
+        module.attrs["register_blocking"] = tuple(
+            int(x) for x in args.register_blocking.split(","))
     if args.precision != "default":
         module.attrs["precision"] = args.precision
     if args.splat_to_random:
@@ -345,8 +360,11 @@ def main(argv=None) -> int:
         from .trace import describe
         print(f"kernel cache: {len(cache)} kernels, {cache.stats.hits} "
               f"hits, {cache.stats.misses} misses (builds)", file=sys.stderr)
+        from ..xsmm.kernels import describe_plan
         for k in cache.kernels():
-            print(f"  {describe(k.key)}: {k.launches} launches",
+            plan = f", {describe_plan(k.plan)}" if k.plan is not None \
+                else ""
+            print(f"  {describe(k.key)}: {k.launches} launches{plan}",
                   file=sys.stderr)
     if args.task_grid:
         import torch.distributed as dist

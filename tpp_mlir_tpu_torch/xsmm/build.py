@@ -43,8 +43,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: (restype, argtypes)
     "tpp_brgemm": (_I, [_P] * 6 + [_I] * 16 + [_F] + [_P] * 4 + [_I]
-                   + [_P] * 3),
-    "tpp_gemm_plan": (_I, [_I] * 7 + [ctypes.POINTER(_L)]),
+                   + [_P] * 2 + [ctypes.POINTER(_L), _P]),
+    "tpp_gemm_plan": (_I, [_I] * 7 + [ctypes.POINTER(_I),
+                                      ctypes.POINTER(_L)]),
     "tpp_attention": (_I, [_P] * 4 + [_I] * 11 + [_F, _P]),
     "tpp_batch_matmul": (_I, [_P] * 4 + [_I] * 11 + [_P]),
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 6 + [_F, _P]),
@@ -65,7 +66,7 @@ _SIGNATURES = {
     "tpp_conv_nhwc": (_I, [_P] * 6 + [_I] * 24 + [_P]),
     "tpp_conv_blocked": (_I, [_P] * 6 + [_I] * 24 + [_P]),
     "tpp_blocked_matmul": (_I, [_P] * 6 + [_I] * 17
-                           + [ctypes.POINTER(_I), _P]),
+                           + [ctypes.POINTER(_L), ctypes.POINTER(_I), _P]),
     "tpp_blocked_warm_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_chain_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "tpp_error_string": (ctypes.c_char_p, [_I]),

@@ -14,7 +14,9 @@ reached. Each wrapper counts its launches.
                                      producer/consumer pair included;
                                      loader by
                                      reference.brgemm_route, tile and k
-                                     split by tpp_gemm_plan)
+                                     split by tpp_gemm_plan: the key's
+                                     bm/bn/bk, else the tuning table
+                                     (xsmm/tune.py), else its heuristic)
   ChainKey     -> csrc/chain.cu      (replaces :1475 _build_chain, :2001
                                      _build_chain_bench and, pingpong,
                                      :1919 _build_chain_bench_pingpong;
@@ -85,6 +87,14 @@ reached. Each wrapper counts its launches.
                                      torch.nn.functional.conv2d and the
                                      epilogue, TF32 off, as the reference
                                      leaves it to XLA's conv, :3068)
+
+A Kernel captures its launch plan when it is built (Kernel.plan; the
+GEMM-class launches run that plan and no other, with the workspace sized
+for it): B1/B2 and B19 a reference.GemmPlan, the warm-panel engine (B3/B4/
+B5, B20) a reference.WarmPlan, each from the key's fields, then
+tune.tuned(key), then the heuristic. B21 (batch_matmul.cu) has no tile
+choice to bind: its multi route runs one warp a problem, its tiled route
+one 64 x 64 tile.
 
 Other keys and options raise NotImplementedError naming their ROADMAP item.
 """
@@ -197,6 +207,13 @@ class Kernel:
         return getattr(self._launch, "route", None)
 
     @property
+    def plan(self):
+        """The launch plan captured when the kernel was built: a
+        reference.GemmPlan (B1/B2, B19), a reference.WarmPlan (the
+        warm-panel engine: B3/B4/B5, B20), or None (no plan to choose)."""
+        return getattr(self._launch, "plan", None)
+
+    @property
     def source(self) -> str | None:
         """The csrc/ source of its kernel, None for a key with no kernel."""
         return getattr(self._launch, "source", None)
@@ -230,46 +247,80 @@ _GEMM_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2}
 
 @functools.lru_cache(maxsize=None)
 def _gemm_plan(device: int, Mb: int, Nb: int, Kb: int, mb: int, nb: int,
-               kb: int, flags: int) -> tuple[int, int, int, int]:
+               kb: int, flags: int,
+               force: tuple[int, int, int]) -> tuple[int, int, int, int]:
     from .build import check, library
     plan = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        check(library().tpp_gemm_plan(Mb, Nb, Kb, mb, nb, kb, flags, plan),
-              "gemm_plan")
+        check(library().tpp_gemm_plan(Mb, Nb, Kb, mb, nb, kb, flags,
+                                      (ctypes.c_int * 3)(*force), plan),
+              f"gemm_plan {force}")
     return tuple(plan)
 
 
-# tpp_gemm_plan's flags (csrc/brgemm.cu PlanFlag)
+# tpp_gemm_plan's flags (csrc/gemm_sm90.cuh PlanFlag)
 _PLAN_LN, _PLAN_STATS_OUT, _PLAN_FMA = 1, 2, 4
 
 
-def gemm_plan(key: BrgemmKey | BlockedMatmulKey,
-              device: int | None = None) -> tuple[int, int, int, int]:
+def _plan_flags(key: BrgemmKey | BlockedMatmulKey) -> int:
+    *_, fma, no_split = reference.gemm_problem(key)
+    ln = isinstance(key, BrgemmKey) and key.prologue is not None
+    return ((_PLAN_LN if ln else 0) | (_PLAN_STATS_OUT if no_split else 0)
+            | (_PLAN_FMA if fma else 0))
+
+
+def gemm_plan(key: BrgemmKey | BlockedMatmulKey, device: int | None = None,
+              force=None) -> tuple[int, int, int, int]:
     """The launch plan of csrc/gemm_sm90.cuh's mainloop for a B1/B2 or B19
     key on a card (default: the current one), as the C++ launcher makes it
     (tpp_gemm_plan): (tile rows, tile columns, k split, workspace bytes).
-    A brgemm key on the "fma" route has 64 x 64 tiles and no split; an
-    ln_stats_out key is never split. Only the launcher holds the plan;
-    this asks it."""
+    `force` is a forced (bm, bn, split), reference.plan_request's by
+    default (the key's bm/bn/bk, else the tuning table; zeros: the
+    heuristic's). A brgemm key on the "fma" route has 64 x 64 tiles and no
+    split; an ln_stats_out key is never split. An illegal plan raises
+    ValueError naming the legal set (reference.check_gemm_plan) before the
+    card is asked."""
+    if force is None:
+        force = reference.plan_request(key)
+    reference.gemm_plan(key, force)     # raises for an illegal plan
     if device is None:
         device = torch.cuda.current_device()
-    if isinstance(key, BrgemmKey):
-        flags = ((_PLAN_LN if key.prologue else 0)
-                 | (_PLAN_STATS_OUT if key.ln_stats_out else 0)
-                 | (_PLAN_FMA if reference.brgemm_route(key) == "fma" else 0))
-        return _gemm_plan(device, 1, 1, key.batch, key.m, key.n, key.k,
-                          flags)
-    return _gemm_plan(device, key.Mb, key.Nb, key.Kb, key.mb, key.nb,
-                      key.kb, 0)
+    Mb, Nb, Kb, mb, nb, kb, _, _ = reference.gemm_problem(key)
+    return _gemm_plan(device, Mb, Nb, Kb, mb, nb, kb, _plan_flags(key),
+                      tuple(force))
 
 
-def _workspace(key, dev) -> torch.Tensor | None:
-    """The split partials, LayerNorm statistics and ln_stats_out row
-    partials the launch writes, from the caching allocator; None where the
-    plan needs none."""
-    nbytes = gemm_plan(key, dev.index)[3]
-    return torch.empty(nbytes, dtype=torch.uint8, device=dev) \
-        if nbytes else None
+def _launch_plan(key: BrgemmKey | BlockedMatmulKey):
+    """The plan a Kernel captures when it is built: the card's
+    (gemm_plan: tile, split, workspace bytes) where there is one, else the
+    H100's by the Python mirror with the bytes unknown (the CPU runs the
+    plain version and launches nothing)."""
+    force = reference.plan_request(key)
+    if torch.cuda.is_available():
+        return gemm_plan(key, force=force)
+    return (*reference.gemm_plan(key, force), None)
+
+
+def _plan_workspace(launch, dev) -> torch.Tensor | None:
+    """The workspace a GEMM launch's plan needs (split partials, LayerNorm
+    statistics, ln_stats_out row partials), from the caching allocator."""
+    n = launch.work_bytes
+    return torch.empty(n, dtype=torch.uint8, device=dev) if n else None
+
+
+def _plan_arg(launch) -> ctypes.Array:
+    """The {bm, bn, split, workspace bytes} array a GEMM launch passes: the
+    launcher checks it is a plan it runs with this workspace, and never
+    plans on its own."""
+    return (ctypes.c_longlong * 4)(*launch.plan, launch.work_bytes)
+
+
+def describe_plan(plan) -> str:
+    """A Kernel's plan as --print-mlir kernel and -v print it."""
+    if isinstance(plan, reference.WarmPlan):
+        return (f"plan rows {plan.rows} cluster {plan.cluster} "
+                f"{'resident' if plan.resident else 'streamed'}")
+    return f"plan {plan.bm}x{plan.bn} split {plan.split}"
 
 
 def _native(t: torch.Tensor, name: str, numel: int, dev) -> torch.Tensor:
@@ -296,6 +347,7 @@ def _brgemm_launch(key: BrgemmKey):
               "none": m * n}[key.binary_bcast]
     route = reference.brgemm_route(key)
     ln = {None: 0, "layer_norm": 1, "ln_stats": 2}[key.prologue]
+    plan = _launch_plan(key)
 
     def launch(a, b, c=None, d=None, gamma=None, beta=None, mu=None,
                var=None):
@@ -331,7 +383,8 @@ def _brgemm_launch(key: BrgemmKey):
             var = var.reshape(-1).float().contiguous()
             _expect(mu, "mu", (m,), None, dev)
             _expect(var, "var", (m,), None, dev)
-        work = _workspace(key, dev)
+        # the plan the Kernel records is the plan this launch runs
+        work = _plan_workspace(launch, dev)
         out = torch.empty((m, n), dtype=out_dt, device=dev)
         stats = [torch.empty((m, 1), dtype=torch.float32, device=dev)
                  for _ in range(2)] if key.ln_stats_out else [None, None]
@@ -352,21 +405,27 @@ def _brgemm_launch(key: BrgemmKey):
             mu.data_ptr() if ln == 2 else None,
             var.data_ptr() if ln == 2 else None, int(key.ln_stats_out),
             *(t.data_ptr() if t is not None else None for t in stats),
-            _stream())
-        check(rc, f"brgemm {key}")
+            _plan_arg(launch), _stream())
+        check(rc, f"brgemm {key} {describe_plan(launch.plan)}")
         return (out, *stats) if key.ln_stats_out else out
+    launch.plan, launch.work_bytes = reference.GemmPlan(*plan[:3]), plan[3]
     return _tag(launch, route, "brgemm.cu")
 
 
 _WARM_ROUTES = ("panel", "fma", "wmma")
 
 
-def _warm_plan_arg(key, route: str, plan):
-    """The plan array the C entries take for the warm-panel engine (rows,
-    cluster, resident, bytes), or None for the first design; `plan` forces
-    one (reference.warm_plan's by default)."""
+def _warm_plan(key, route: str, plan):
+    """The warm-panel engine's plan on the "panel" route, or None for the
+    first design; `plan` forces one (reference.requested_warm_plan's by
+    default: the key's bm, else the tuning table, else warm_plan). A plan
+    the caller forces on the first design, which has no panel to size
+    (`plan`, a ChainKey's bm), raises; a table entry is not read there."""
     if route not in _WARM_ROUTES:
         raise ValueError(f"unknown warm route {route!r}")
+    if route != "panel" and (plan or getattr(key, "bm", 0)):
+        raise ValueError(f"a warm-panel plan is forced at {key}, which runs "
+                         f"the first design ({route})")
     if route != "panel":
         # the first design's body follows the MXU dtype
         body = "fma" if reference.mxu_dtype(key.dtype, key.precision) == \
@@ -374,11 +433,17 @@ def _warm_plan_arg(key, route: str, plan):
         if route != body:
             raise ValueError(f"the first design runs {body} at {key}")
         return None
-    plan = plan or reference.warm_plan(key)
+    plan = plan or reference.requested_warm_plan(key)
     if plan is None:
         raise ValueError(f"the warm-panel engine has no plan for {key}")
-    return (ctypes.c_int * 4)(plan.rows, plan.cluster, int(plan.resident),
-                              plan.smem)
+    return plan
+
+
+def _warm_plan_arg(plan) -> ctypes.Array | None:
+    """The plan array the C entries take (rows, cluster, resident, bytes),
+    None for the first design."""
+    return None if plan is None else (ctypes.c_int * 4)(
+        plan.rows, plan.cluster, int(plan.resident), plan.smem)
 
 
 def warm_max_clusters(rows: int, cluster: int, smem: int) -> int:
@@ -403,7 +468,8 @@ def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
     bench = key.repeats > 1
     step = 2 if key.has_bias else 1
     route = route or reference.chain_route(key)
-    plan_arg = _warm_plan_arg(key, route, plan)
+    plan = _warm_plan(key, route, plan)
+    plan_arg = _warm_plan_arg(plan)
 
     def launch(x, *wb):
         if not chain_fits_smem(key):
@@ -438,6 +504,7 @@ def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
             int(key.pingpong and bench), plan_arg, _stream())
         check(rc, f"chain {key}")
         return out
+    launch.plan = plan
     return _tag(launch, route, "chain.cu")
 
 
@@ -1042,8 +1109,12 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
     b_shape = (Nb, Kb, kb // v, nb, v) if v else (Nb, Kb, kb, nb)
     has_c = not key.beta0 and not key.repeats
     route = reference.blocked_matmul_route(key)
-    plan_arg = _warm_plan_arg(key, warm or reference.warm_route(key), plan) \
-        if key.repeats else None
+    if key.repeats:
+        plan = _warm_plan(key, warm or reference.warm_route(key), plan)
+        gemm = None
+    else:
+        gemm = _launch_plan(key)
+    plan_arg = _warm_plan_arg(plan) if key.repeats else None
 
     def launch(a, b, c=None, d=None):
         if key.repeats and not blocked_warm_fits_smem(key):
@@ -1066,7 +1137,7 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
         if key.binary_kind:
             d = d.reshape(-1).float() if key.repeats else d.reshape(-1)
             d = _native(d, "D", Nb * nb, dev)
-        work = _workspace(key, dev) if route in ("tma", "convert") else None
+        work = None if key.repeats else _plan_workspace(launch, dev)
         out = torch.empty((Mb, Nb, mb, nb), dtype=out_dt, device=dev)
         rc = library().tpp_blocked_matmul(
             a.data_ptr(), b.data_ptr(), c.data_ptr() if has_c else None,
@@ -1076,10 +1147,16 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
             _DT_CODE[c.dtype] if has_c else 0,
             _DT_CODE[d.dtype] if key.binary_kind else 0, int(has_c),
             _BINARY_CODE[key.binary_kind], _UNARY_CODE[key.unary_kind],
-            key.repeats, _GEMM_ROUTE_CODE.get(route, 0), plan_arg,
+            key.repeats, _GEMM_ROUTE_CODE.get(route, 0),
+            None if key.repeats else _plan_arg(launch), plan_arg,
             _stream())
         check(rc, f"blocked_matmul {key}")
         return out
+    if key.repeats:
+        launch.plan = plan
+    else:
+        launch.plan, launch.work_bytes = reference.GemmPlan(*gemm[:3]), \
+            gemm[3]
     return _tag(launch, warm or reference.warm_route(key) if key.repeats
                 else route, "blocked_matmul.cu")
 

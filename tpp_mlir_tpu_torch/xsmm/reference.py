@@ -550,8 +550,9 @@ def brgemm_route(key: BrgemmKey) -> str:
     A VNNI B is un-VNNI'd by the wrapper first (as _unvnni does), so it
     takes the flat B's route. The "tma" route also needs 16-byte aligned
     base pointers; the wrapper checks them (every torch allocation is).
-    The tile and the k split are the launcher's (tpp_gemm_plan), chosen on
-    the card."""
+    The tile and the k split are gemm_plan's: forced by the key or the
+    tuning table (xsmm/tune.py), else the launcher's heuristic on the card
+    (tpp_gemm_plan; gemm_heuristic is its mirror)."""
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
     strides = (key.k,) if key.transpose_b else (key.k, key.n)
@@ -579,6 +580,134 @@ def blocked_matmul_route(key: BlockedMatmulKey) -> str:
                                                             key.nb):
         return "tma"
     return "convert"
+
+
+H100_SMS = 132   # the plans below are pinned to the H100's SM count
+
+# csrc/gemm_sm90.cuh's launch plans: the output tiles its mainloop is
+# instantiated at (rows, columns), and the depth of one k stage; the f32-FMA
+# bodies of f32 "highest" (brgemm.cu, blocked_matmul.cu) have one 64 x 64
+# tile and no split
+GEMM_TILES = ((128, 128), (64, 128), (64, 64))
+FMA_TILES = ((64, 64),)
+GEMM_STAGE_K = 64
+
+
+class GemmPlan(NamedTuple):
+    """A launch plan of csrc/gemm_sm90.cuh's mainloop: the output tile
+    (bm rows x bn columns) and the k split (1: none)."""
+
+    bm: int
+    bn: int
+    split: int
+
+
+def gemm_problem(key: BrgemmKey | BlockedMatmulKey) -> tuple:
+    """A B1/B2 or B19 key as the launcher sees it: (Mb, Nb, Kb, mb, nb, kb,
+    fma, no_split). A brgemm is the packed problem with Mb = Nb = 1 and the
+    batch as Kb; fma is the f32-FMA body (64 x 64, no split); no_split is
+    ln_stats_out, whose row statistics come from the tile epilogue."""
+    if isinstance(key, BrgemmKey):
+        return (1, 1, key.batch, key.m, key.n, key.k,
+                brgemm_route(key) == "fma", key.ln_stats_out)
+    return (key.Mb, key.Nb, key.Kb, key.mb, key.nb, key.kb,
+            blocked_matmul_route(key) == "fma", False)
+
+
+def gemm_stages(key: BrgemmKey | BlockedMatmulKey) -> int:
+    """The key's 64-deep k stages: the most slices a split can make."""
+    _, _, Kb, _, _, kb, _, _ = gemm_problem(key)
+    return Kb * -(-kb // GEMM_STAGE_K)
+
+
+def gemm_heuristic(key: BrgemmKey | BlockedMatmulKey,
+                   sms: int = H100_SMS) -> GemmPlan:
+    """The launcher's own plan (gemm_sm90.cuh gemm_plan, brgemm.cu
+    brgemm_plan) on a card of `sms` SMs: the largest tile of 128 x 128,
+    64 x 128, 64 x 64 whose grid fills half a wave; under that 64 x 64 and
+    k split into as many slices as fill the wave, each at least four
+    stages; 64 x 64 unsplit for the FMA body and ln_stats_out."""
+    Mb, Nb, Kb, mb, nb, kb, fma, no_split = gemm_problem(key)
+    if fma:
+        return GemmPlan(64, 64, 1)
+
+    def tiles(bm, bn):
+        return Mb * -(-mb // bm) * Nb * -(-nb // bn)
+    for bm, bn in GEMM_TILES:
+        if 2 * tiles(bm, bn) >= sms:
+            return GemmPlan(bm, bn, 1)
+    if no_split:
+        return GemmPlan(64, 64, 1)
+    kt = Kb * -(-kb // GEMM_STAGE_K)
+    return GemmPlan(64, 64, max(1, min(sms // tiles(64, 64), kt // 4)))
+
+
+def bk_split(key: BrgemmKey | BlockedMatmulKey, bk: int) -> int:
+    """The k split a slice depth `bk` makes: ceil(K / bk) over the whole
+    reduction K (batch x k, or Kb x kb); bk >= K is no split. bk must be
+    a multiple of the mainloop's 64-deep stage."""
+    if bk <= 0 or bk % GEMM_STAGE_K:
+        raise ValueError(f"bk {bk} must be a positive multiple of the "
+                         f"mainloop's {GEMM_STAGE_K}-deep k stage: {key}")
+    _, _, Kb, _, _, kb, _, _ = gemm_problem(key)
+    return -(-(Kb * kb) // bk)
+
+
+def plan_request(key: BrgemmKey | BlockedMatmulKey) -> tuple[int, int, int]:
+    """The forced (bm, bn, split) of a B1/B2 or B19 key, zeros where the
+    heuristic decides: the key's own bm/bn/bk (a BrgemmKey's; tpp-run's
+    --register-blocking), else the tuning table's cfg {"bm", "bn",
+    "split"} (an entry with a `cluster` is B20's and is skipped), else
+    (0, 0, 0)."""
+    from . import tune
+    if isinstance(key, BrgemmKey) and (key.bm or key.bn or key.bk):
+        return key.bm, key.bn, bk_split(key, key.bk) if key.bk else 0
+    cfg = tune.tuned(key)
+    if "cluster" in cfg:
+        return 0, 0, 0
+    return cfg.get("bm", 0), cfg.get("bn", 0), cfg.get("split", 0)
+
+
+def gemm_plan(key: BrgemmKey | BlockedMatmulKey, force=None,
+              sms: int = H100_SMS) -> GemmPlan:
+    """The plan a B1/B2 or B19 launch runs on a card of `sms` SMs: the
+    forced (bm, bn, split) (plan_request's by default; zeros take the
+    heuristic's: its tile, and its split where the tile is its own, else
+    no split), checked by check_gemm_plan. The Python mirror of
+    brgemm.cu's resolve_plan, which the launch checks again."""
+    bm, bn, split = plan_request(key) if force is None else force
+    h = gemm_heuristic(key, sms)
+    if (bm, bn) == (0, 0):
+        bm, bn = h.bm, h.bn
+    if split == 0:
+        split = h.split if (bm, bn) == (h.bm, h.bn) else 1
+    plan = GemmPlan(bm, bn, split)
+    check_gemm_plan(key, plan)
+    return plan
+
+
+def legal_gemm_plans(key: BrgemmKey | BlockedMatmulKey) -> tuple:
+    """(tiles, most splits) a key may force: FMA_TILES and 1 on the
+    f32-FMA body, GEMM_TILES otherwise; no split under ln_stats_out."""
+    _, _, _, _, _, _, fma, no_split = gemm_problem(key)
+    return (FMA_TILES if fma else GEMM_TILES,
+            1 if fma or no_split else gemm_stages(key))
+
+
+def check_gemm_plan(key: BrgemmKey | BlockedMatmulKey, plan) -> None:
+    """Raise ValueError, naming the legal set, for a plan the mainloop does
+    not run at `key` (the rule brgemm.cu's plan_legal applies on the card)."""
+    bm, bn, split = plan
+    tiles, most = legal_gemm_plans(key)
+    if (bm, bn) not in tiles or not 1 <= split <= most:
+        legal = ", ".join(f"{a}x{b}" for a, b in tiles)
+        raise ValueError(
+            f"illegal GEMM plan {bm}x{bn} split {split} for {key}: the tile "
+            f"is one of {legal} and the split 1..{most}"
+            + (" (the f32-FMA body: 64 x 64, no split)"
+               if tiles == FMA_TILES else
+               " (ln_stats_out: no split)" if most == 1 else
+               f" (the key's {GEMM_STAGE_K}-deep k stages)"))
 
 
 SM90_SMEM_OPTIN = 232448    # shared memory one block may opt into on sm_90
@@ -688,6 +817,51 @@ def warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
                                 tuple(-(-n // cluster) for n in nts), res,
                                 smem, panels(p))
     return None
+
+
+WARM_MAX_CLUSTER = 16   # blocks a cluster may hold (non-portable above 8)
+
+
+def warm_request(key: ChainKey | BlockedMatmulKey) -> tuple[int, int]:
+    """The forced (rows, cluster) of the warm-panel engine at a ChainKey
+    (B3/B4/B5) or B20 key, zeros where the heuristic decides: a ChainKey's
+    bm (the panel rows), else the tuning table's {"bm", "cluster"} (for a
+    BlockedMatmulKey only an entry with a cluster: one without is B19's
+    tile, the two sharing a tag)."""
+    from . import tune
+    if isinstance(key, ChainKey) and key.bm:
+        return key.bm, 0
+    cfg = tune.tuned(key)
+    if isinstance(key, BlockedMatmulKey) and "cluster" not in cfg:
+        return 0, 0
+    return cfg.get("bm", 0), cfg.get("cluster", 0)
+
+
+def requested_warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
+                        request=None) -> WarmPlan | None:
+    """warm_plan at the forced (rows, cluster) (warm_request's by default):
+    the heuristic's plan where nothing is forced; a forced plan the engine
+    cannot take (rows not in WARM_ROWS, a cluster outside
+    1..WARM_MAX_CLUSTER, shared memory over SM90_SMEM_OPTIN, a width over
+    WARM_MAXKT tiles, products not bf16) raises ValueError."""
+    rows, cluster = warm_request(key) if request is None else request
+    if not rows and not cluster:
+        return warm_plan(key, clusters)
+    if rows and rows not in WARM_ROWS:
+        raise ValueError(f"panel rows {rows} for {key}: the warm-panel "
+                         f"engine takes rows in {WARM_ROWS}")
+    if cluster and not 1 <= cluster <= WARM_MAX_CLUSTER:
+        raise ValueError(f"cluster {cluster} for {key}: the warm-panel "
+                         f"engine takes 1..{WARM_MAX_CLUSTER} blocks")
+    plan = warm_plan(key, clusters, rows=rows or None,
+                     cluster=cluster or None)
+    if plan is None:
+        raise ValueError(f"the warm-panel engine cannot place rows {rows} "
+                         f"cluster {cluster} at {key}: bf16 products, "
+                         f"at most {WARM_MAXKT} 64-column tiles a width and "
+                         f"{SM90_SMEM_OPTIN} bytes of shared memory a "
+                         f"block")
+    return plan
 
 
 def chain_route(key: ChainKey) -> str:
@@ -909,7 +1083,6 @@ def conv_route(key: ConvNhwcKey) -> str:
     return "kernel"
 
 
-H100_SMS = 132   # the plans below are pinned to the H100's SM count
 
 
 def conv_kernel_route(key: ConvNhwcKey | ConvBrgemmKey) -> str:
