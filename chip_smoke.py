@@ -259,6 +259,22 @@ cluster warm_plan places and the card holds; (b) tpp_run's
 flagship and on the fc's GEMM key, in subprocesses writing a temporary
 table, each sweep row beside the heuristic's; (d) examples/torch/01-06 on
 the card, all started together, each exiting 0.
+f16 keys (ROADMAP A14, `phase_f16`, after phase 4a): (a) B1 (the fc
+256x1024x1024 +bias+relu with an f32 and an f16 output, a ragged n on the
+convert loader, transpose_b), B3 (the flagship cut to two layers), B4 at
+20 repeats, B5 at fc 128x768x2304, B19 (the packed fc, VNNI2 and flat) and
+B20 at 20 repeats, He-scaled, against their plain versions (2e-3 a GEMM,
+5e-3 a chain); (b) on every route an f16 key takes (B1 tma, convert and
+transpose_b; B19 tma and VNNI2 convert; B3, B4, B5, B20 on the warm-panel
+engine; B3 and B20 on the first design's WMMA body) A = 1 + 2^-10, K 1024,
+an f32 output, bit-equal to the plain version's exact sums (bf16 products
+would read A as 1.0); (c) tpp-gen --float-type=f16's two-layer flagship
+(B3), fc (B1) and --tiles VNNI2 packed MLP (B19) against
+--linalg-to-loops at 1e-2, finite, then the flagship, the packed fc and
+fc_128x768x2304 at -n 100 (B4, B20, B5 in the kernel), the launches of
+this path counted; the flagship from a CUDA graph of 100 forwards beside
+torch.matmul + bias + ReLU in f16; each f16 key the path launched timed
+and appended to the kernel line as `kind@key`.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -322,7 +338,7 @@ TOL_LSE = 1e-4      # lse2: f32 on both sides, sum order only
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, 700 W) for the
 # bound columns: operations at the rate of their type, bytes at HBM's
-PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK = {"bf16": 989e12, "f16": 989e12, "f32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -397,6 +413,10 @@ def phase_build() -> None:
     lib = build.library()
     say(f"build: {info.seconds:.2f} s "
         f"({'compiled' if info.compiled else 'cached'}) {info.path.name}")
+    if info.sources:    # when each source's nvcc ended, the slowest first
+        say("build: " + ", ".join(
+            f"{name} {end:.1f} s" for name, end in sorted(
+                info.sources.items(), key=lambda kv: -kv[1])))
     fn = ""
     for line in info.log.splitlines():
         if "Function properties for" in line:
@@ -409,7 +429,8 @@ def phase_build() -> None:
 
     from tpp_mlir_tpu_torch.xsmm.kernels import (blocked_warm_smem_bytes,
                                                  chain_smem_bytes)
-    for mxu, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+    for mxu, code in ((torch.bfloat16, 1), (torch.float32, 0),
+                      (torch.float16, 2)):
         want = lib.tpp_chain_smem_bytes(WIDTH, code)
         if want != chain_smem_bytes(WIDTH, mxu):
             raise AssertionError(f"chain_smem_bytes {chain_smem_bytes(WIDTH, mxu)}"
@@ -1159,6 +1180,349 @@ def phase_main_path() -> dict:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     return launches
+
+
+# ROADMAP A14: f16 keys on the GEMM family (B1, B3-B5, B19, B20). The
+# flagship keeps its width (1024) and batch (256) and is cut to two layers:
+# under tpp-gen's normal init the activations' standard deviation grows
+# about sqrt(K / 2) = 22.6x a ReLU layer (~32, then ~724, then ~1.6e4), so
+# the tail of a third layer's 256 x 1024 outputs passes f16's 65,504 and
+# turns inf in both packages.
+F16_FLAGSHIP = "--batch=256 --layers=1024,1024,1024 --bias --relu " \
+    "--float-type=f16"
+F16_FC = "--batch=256 --layers=1024,1024 --bias --relu --float-type=f16"
+F16_PACKED = "--batch=256 --layers=1024,1024,1024 --tiles=256,512,512 " \
+    "--bias --relu --vnni=2 --float-type=f16"
+F16_PACKED_FC = "--batch=256 --layers=1024,1024 --tiles=256,512,512 " \
+    "--bias --relu --vnni=2 --float-type=f16"
+F16_PINGPONG = "--batch=128 --layers=768,2304 --bias --relu --float-type=f16"
+F16_N = 100         # -n of the in-kernel benches (B4, B5, B20)
+TOL_F16 = 2e-3      # one GEMM: tests/xsmm/test_kernels.py:677's f16 rtol
+TOL_F16_CHAIN = 5e-3    # a chain: f16 roundings between layers add up
+F16_ONE = 1 + 2 ** -10  # exact in f16; 1.0 in bf16
+F16_KINDS = ("brgemm", "chain", "chain_pingpong", "blocked_matmul",
+             "blocked_matmul_warm")
+F16_CHAINS = ("chain", "chain_pingpong", "blocked_matmul_warm")
+
+
+def _f16_inputs(key, g):
+    """Inputs of an f16 key on the card: activations N(0, 1), weights
+    He-scaled N(0, 2/K), so that a ReLU layer keeps the state's scale and
+    the repeats of B4 and B20 stay inside f16's range; B5's one weight W
+    Gaussian over its spectral norm: a round trip h -> ReLU(h W + b) W^T
+    cannot grow the state then, where any entrywise scale that keeps a
+    random h's scale grows the state about 3x a round trip along W W^T's
+    top eigenvector (Marchenko-Pastur: up to (1 + sqrt(k/n))^2 over the
+    mean), inf before 100 repeats; biases N(0, 0.1^2), a C N(0, 1); B20's
+    bias f32 (its launch takes f32)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, ChainKey
+    f16 = torch.float16
+
+    def rnd(*shape, scale=1.0, dt=f16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(dt)
+    if isinstance(key, BrgemmKey):
+        he = (2 / (key.batch * key.k)) ** 0.5
+        b = (key.batch, key.n, key.k) if key.transpose_b else \
+            (key.batch, key.k, key.n)
+        return (rnd(key.batch, key.m, key.k), rnd(*b, scale=he),
+                None if key.beta0 else rnd(key.m, key.n),
+                rnd(key.n, scale=0.1) if key.binary_kind else None)
+    if isinstance(key, ChainKey):
+        wb = []
+        for k, n in zip(key.dims[:-1], key.dims[1:]):
+            if key.pingpong:
+                w = rnd(k, n, dt=torch.float32)
+                wb.append((w / torch.linalg.matrix_norm(w, ord=2)).to(f16))
+            else:
+                wb.append(rnd(k, n, scale=(2 / k) ** 0.5))
+            if key.has_bias:
+                wb.append(rnd(n, scale=0.1))
+        return (rnd(key.m, key.dims[0]), *wb)
+    K = key.Kb * key.kb
+    b = rnd(key.Nb, key.Kb, key.kb, key.nb, scale=(2 / K) ** 0.5)
+    if key.vnni:
+        b = b.reshape(key.Nb, key.Kb, key.kb // 2, 2, key.nb) \
+            .movedim(-2, -1).contiguous()
+    d = rnd(key.Nb, key.nb, scale=0.1,
+            dt=torch.float32 if key.repeats else f16) \
+        if key.binary_kind else None
+    return (rnd(key.Mb, key.Kb, key.mb, key.kb), b,
+            None if key.beta0 else rnd(key.Mb, key.Nb, key.mb, key.nb), d)
+
+
+def _f16_kernel_cases():
+    """(a): (label, key, tolerance) at the f16 main path's shapes."""
+    from tpp_mlir_tpu_torch.xsmm import BlockedMatmulKey, BrgemmKey, ChainKey
+    fc = dict(beta0=True, binary_kind="add", unary_kind="relu")
+    flagship = (WIDTH,) * 3
+    packed = dict(vnni=2, **fc)
+    return (
+        ("B1 fc 256x1024x1024 f16 +bias+relu, f32 out",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "f16", out_dtype="f32", **fc),
+         TOL_F16),
+        ("B1 fc 256x1024x1024 f16 +bias+relu, f16 out",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "f16", **fc), TOL_F16),
+        ("B1 fc 256x1004x1024 f16 +C (convert)",
+         BrgemmKey(1, BATCH, 1004, WIDTH, "f16"), TOL_F16),
+        ("B1 fc 128x2304x768 f16 +bias+relu (fc_128x768x2304)",
+         BrgemmKey(1, 128, 2304, 768, "f16", **fc), TOL_F16),
+        ("B1 dx 256x1024x1024 f16 transpose_b",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "f16", beta0=True,
+                   transpose_b=True), TOL_F16),
+        ("B3 flagship 256 x 1024x3 f16",
+         ChainKey(m=BATCH, dims=flagship, dtype="f16"), TOL_F16_CHAIN),
+        ("B4 flagship 256 x 1024x3 f16 r20",
+         ChainKey(m=BATCH, dims=flagship, dtype="f16", repeats=20),
+         TOL_F16_CHAIN),
+        ("B5 fc_128x768x2304 f16 r3",
+         ChainKey(m=128, dims=(768, 2304), dtype="f16", repeats=3,
+                  pingpong=True, unary_kind=None), TOL_F16_CHAIN),
+        ("B19 packed fc f16 VNNI2",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", **packed),
+         TOL_F16),
+        ("B19 packed fc f16 flat B (tma)",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", **fc), TOL_F16),
+        ("B20 packed fc f16 VNNI2 r20",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", repeats=20,
+                          **packed), TOL_F16_CHAIN))
+
+
+def f16_route_probes():
+    """(b): (label, key, forced body or None) for every route an f16 key
+    takes, at K = 1024 and an f32 output."""
+    from tpp_mlir_tpu_torch.xsmm import BlockedMatmulKey, BrgemmKey, ChainKey
+    b1 = dict(out_dtype="f32", beta0=True)
+    one = dict(dtype="f16", out_dtype="f32", has_bias=False,
+               unary_kind=None, last_unary=None)
+    b19 = dict(out_dtype="f32", beta0=True)
+    return (
+        ("B1 tma", BrgemmKey(1, 64, 64, WIDTH, "f16", **b1), None),
+        ("B1 convert", BrgemmKey(1, 64, 36, WIDTH, "f16", **b1), None),
+        ("B1 tma transpose_b", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                         transpose_b=True, **b1), None),
+        ("B19 tma", BlockedMatmulKey(1, 1, 2, 64, 64, 512, "f16", **b19),
+         None),
+        ("B19 convert VNNI2", BlockedMatmulKey(1, 1, 2, 64, 64, 512, "f16",
+                                               vnni=2, **b19), None),
+        ("B3 panel", ChainKey(m=64, dims=(WIDTH, 64), **one), None),
+        ("B3 wmma", ChainKey(m=64, dims=(WIDTH, 64), **one), "wmma"),
+        ("B4 panel", ChainKey(m=64, dims=(WIDTH, WIDTH), repeats=3, **one),
+         None),
+        ("B5 panel", ChainKey(m=64, dims=(WIDTH, WIDTH), repeats=3,
+                              pingpong=True, **one), None),
+        ("B20 panel", BlockedMatmulKey(1, 2, 2, 64, 512, 512, "f16",
+                                       vnni=2, repeats=3, **b19), None),
+        ("B20 wmma", BlockedMatmulKey(1, 2, 2, 64, 512, 512, "f16", vnni=2,
+                                      repeats=3, **b19), "wmma"))
+
+
+def f16_probe(key):
+    """(b)'s inputs at `key` and the value every output element must hold:
+    A = 1 + 2^-10; a single GEMM's B 1 (1024 (1 + 2^-10) = 1025), a
+    repeat's weight 2^-10 (the state stays 1 + 2^-10). bf16 products
+    would read A as 1.0: 1024, or 1."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, ChainKey
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.float16, device="cuda")
+    reps = getattr(key, "repeats", 0) > (1 if isinstance(key, ChainKey)
+                                         else 0)
+    w, want = (2 ** -10, F16_ONE) if reps else (1.0, WIDTH * F16_ONE)
+    if isinstance(key, BrgemmKey):
+        b = (1, key.n, key.k) if key.transpose_b else (1, key.k, key.n)
+        return (full((1, key.m, key.k), F16_ONE), full(b, w)), want
+    if isinstance(key, ChainKey):
+        return (full((key.m, key.dims[0]), F16_ONE),
+                full(key.dims, w)), want
+    b = (key.Nb, key.Kb, key.kb // 2, key.nb, 2) if key.vnni else \
+        (key.Nb, key.Kb, key.kb, key.nb)
+    return (full((key.Mb, key.Kb, key.mb, key.kb), F16_ONE),
+            full(b, w)), want
+
+
+def _f16_launches(cache) -> dict:
+    """The launches of each f16 key of the cache since its last reset."""
+    return {fn.key: fn.launches for fn in cache.kernels()
+            if "f16" in (fn.key.dtype, getattr(fn.key, "out_dtype", None))
+            and fn.launches}
+
+
+def phase_f16() -> list:
+    """ROADMAP A14 on the card: (a) B1, B3, B4, B5, B19 and B20 at f16 keys
+    against their plain versions; (b) the f16-not-bf16 check on every
+    route an f16 key takes; (c) the f16 main path through run_module (the
+    two-layer flagship, B3, and its -n 100 bench, B4; the fc, B1; the
+    packed MLP, B19, and the packed fc's -n 100 bench, B20; fc 128x768x2304's
+    -n 100 bench, B5), held against --linalg-to-loops, its launches counted;
+    the flagship timed from a CUDA graph beside torch.matmul + bias + ReLU
+    in f16; then each f16 key the path launched held against its plain
+    version at that key and timed beside it, its library call and its
+    bound: kernel-line rows, each with its own key's error."""
+    import torch
+
+    from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.tools.tpp_run import init_args, run_module
+    from tpp_mlir_tpu_torch.xsmm import (build_kernel, global_cache,
+                                         reference_kernel)
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    # (a) each kernel at its f16 keys against its plain version
+    for label, key, tol in _f16_kernel_cases():
+        args = _f16_inputs(key, g)
+        kern = build_kernel(key)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        ok = rel <= tol and torch_isfinite(got) and got.dtype == want.dtype
+        say(f"f16 kernel {_kind(key):19s} {label:44s} rel {rel:.3e} abs "
+            f"{ab:.3e} tol {tol:.0e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {label}: rel {rel} > {tol}")
+    # (b) the products are f16: bit-equal to the plain version's exact sums
+    for label, key, forced in f16_route_probes():
+        kern = build_warm(key, forced) if forced else build_kernel(key)
+        args, value = f16_probe(key)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want) and bool((got == value).all())
+        say(f"f16 products {label:20s} route {kern.route:8s} every output "
+            f"{got.flatten()[0].item()!r} (plain {want.flatten()[0].item()!r},"
+            f" f16 products {value!r}; bf16 products would give "
+            f"{1.0 if value < 2 else float(WIDTH)!r}) bit-equal "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 products {label}: {got.flatten()[:4]}"
+                                 f" vs {want.flatten()[:4]}")
+    # (c) the main path, each launch counted
+    cache = global_cache()
+    cache.reset_launches()
+    runs = (("flagship f16 (2 layers)", F16_FLAGSHIP, "default-tpp-passes",
+             ["xsmm.fused_chain"]),
+            ("fc 256x1024x1024 f16", F16_FC, "default-tpp-passes",
+             ["xsmm.fused_brgemm"]),
+            ("packed MLP f16 --tiles VNNI2", F16_PACKED, PACKED,
+             ["xsmm.fused_brgemm"] * 2))
+    for label, flags, pipeline, invokes in runs:
+        res = run_module(_module(flags), device="cuda", pipeline=pipeline,
+                         out_stream=sys.stderr)
+        ops = [op.opname for op in res["module"]["entry"].ops
+               if op.opname.startswith("xsmm.")
+               and not op.opname.endswith("_dispatch")]
+        if ops != invokes:
+            raise AssertionError(f"{label}: lowered to {ops}")
+        ref = run_module(_module(flags), device="cuda", linalg_to_loops=True,
+                         out_stream=sys.stderr)
+        got, want = res["outputs"][0], ref["outputs"][0]
+        rel, ab = rel_err(got, want)
+        ok = got.dtype == torch.float16 and tuple(got.shape) == \
+            tuple(want.shape) and rel <= TOL_BF16 and torch_isfinite(got)
+        say(f"f16 main {label:30s} -> {ops} {tuple(got.shape)} "
+            f"{got.dtype} vs --linalg-to-loops rel {rel:.3e} abs {ab:.3e} "
+            f"tol {TOL_BF16:.0e}, finite {torch_isfinite(got)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {label}: rel {rel}")
+    for label, flags, pipeline, bench in (
+            ("flagship f16 (2 layers)", F16_FLAGSHIP, "default-tpp-passes",
+             "B4"),
+            ("packed fc f16 --tiles VNNI2", F16_PACKED_FC, PACKED, "B20"),
+            ("fc_128x768x2304 f16", F16_PINGPONG, "default-tpp-passes",
+             "B5")):
+        res = run_module(_module(flags), n=F16_N, device="cuda",
+                         pipeline=pipeline, out_stream=sys.stderr)
+        say(f"f16 main {label:30s} -n {F16_N}: bench {res['bench']!r}, "
+            f"{res['gflops']:.1f} GFLOP/s ({res['mean_seconds'] * 1e3:.4f} "
+            f"ms an iteration)")
+        if bench not in str(res["bench"]):
+            raise AssertionError(f"f16 {label}: bench {res['bench']}, "
+                                 f"expected {bench}")
+    launches = _f16_launches(cache)
+    by_kind: dict = {}
+    for key, n in launches.items():
+        by_kind[_kind(key)] = by_kind.get(_kind(key), 0) + n
+    say(f"f16 main path launches: {by_kind} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    missing = [k for k in F16_KINDS if not by_kind.get(k)]
+    if missing:
+        raise AssertionError(f"f16 kernels of the path never launched: "
+                             f"{missing}")
+    # the flagship's forwards from a CUDA graph beside torch.matmul
+    module = run_module(_module(F16_FLAGSHIP), device="cuda",
+                        out_stream=sys.stderr)["module"]
+    f = tpp_compile(module, "entry", "cuda")
+    x = init_args(module, "entry", "normal", 0, "cuda")
+    port = graph_ms(lambda: f(*x), COMPILER_GRAPH_N)
+    base, base_g = _baseline_ms(_module(F16_FLAGSHIP), COMPILER_GRAPH_N)
+    flops = _module(F16_FLAGSHIP).attrs["flops"]
+    say(f"time flagship f16 (2 layers) graph of {COMPILER_GRAPH_N} "
+        f"forwards: port {port:.4f} ms a forward "
+        f"({flops / port / 1e9:.2f} TFLOP/s), torch.matmul + bias + ReLU in "
+        f"f16 {base_g:.4f} ms from a CUDA graph ({base:.4f} ms eager)")
+    # each f16 key the path launched, held against its plain version on
+    # the inputs it is timed on, then timed: kernel-line rows
+    rows = []
+    for key, n in launches.items():
+        kind = _kind(key)
+        args = _f16_inputs(key, g)
+        kern, plain = build_kernel(key), reference_kernel(key)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        tol, spread = TOL_F16_CHAIN if kind in F16_CHAINS else TOL_F16, ""
+        if getattr(key, "repeats", 0) > 1:
+            # a repeat loop carries each ulp a sum order flips on to every
+            # later layer, so at -n 100 (200 layers) two sum orders part
+            # further than at (a)'s 20: the kernel is held to the larger of
+            # the chain tolerance and twice what another sum order alone
+            # moves the plain version by (the same plain version, its
+            # roundings included, on the host's BLAS)
+            host = plain(*(a.cpu() if a is not None else None for a in args))
+            host_rel = rel_err(host, want.cpu())[0]
+            tol = max(tol, 2 * host_rel)
+            spread = f" (plain version on the host vs on the card rel " \
+                f"{host_rel:.3e})"
+        ok = rel <= tol and torch_isfinite(got) and got.dtype == want.dtype
+        say(f"f16 kernel {kind:19s} {describe(key):44s} (main path) rel "
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.3e}{spread}"
+            f"{_route_note(key)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {describe(key)}: rel {rel} > {tol}")
+        library = _library_call(kind, key, args)
+        bound, by = _bound(kind, key, args)
+        ms, plain_ms = cuda_ms(lambda: kern(*args)), \
+            cuda_ms(lambda: plain(*args))
+        lib_ms = cuda_ms(library) if library else None
+        iters = 2 if getattr(key, "repeats", 0) > 8 else 20
+        note = f" (replayed from a CUDA graph " \
+            f"{graph_ms(lambda: kern(*args), iters=iters):.4f} ms"
+        if kind in F16_CHAINS:
+            note += f"; composed f16 chain, not one call, from a CUDA graph " \
+                f"{graph_ms(_composed_chain(key, args), iters=iters):.4f} ms"
+        note += ")"
+        if getattr(key, "repeats", 0) > 1:
+            note += f" ({ms / key.repeats:.4f} ms per repeat of " \
+                f"{key.repeats})"
+        lib = f"{lib_ms:.4f} ms" if lib_ms else "none"
+        say(f"time kernel f16 {describe(key):44s} {ms:.4f} ms, plain "
+            f"version {plain_ms:.4f} ms, library call {lib}, bound "
+            f"{bound:.4f} ms ({by}); {n} launches on the f16 main path; "
+            f"route {kern.route}{note}")
+        rows.append((kind, key, kern.source, {
+            "launches": n, "max_abs_err": ab, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}))
+    say(f"phase f16: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 # the tuning layer and the user API (ROADMAP A5 + A12): forced launch plans
@@ -4102,18 +4466,23 @@ def _bound(kind, key, args) -> tuple[float, str]:
 
     from tpp_mlir_tpu_torch.xsmm.reference import mxu_dtype
     out_bytes = {torch.float32: 4, torch.bfloat16: 2}
+
+    def mxu_rate(key):      # the products' peak: f32, bf16 or f16
+        return {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}[mxu_dtype(key.dtype, key.precision)]
     if kind == "brgemm":
         a, b, c, d = args[:4]
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * key.batch * key.m * key.n * key.k
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = _nbytes(a, b, c, d, *args[4:]) + key.m * key.n * size
     elif kind == "chain":
         x, *wb = args
         dims = key.dims
-        rate = "f32" if key.precision == "highest" else "bf16"
-        flops = 2 * key.m * sum(k * n for k, n in zip(dims[:-1], dims[1:]))
+        rate = mxu_rate(key)
+        # B4 runs the chain `repeats` times in the launch
+        flops = 2 * key.m * sum(k * n for k, n in zip(dims[:-1], dims[1:])) \
+            * max(1, key.repeats)
         nbytes = _nbytes(x, *wb) + key.m * dims[-1] * x.element_size()
     elif kind in ("attention", "attention_flat", "attention_bench"):
         q = args[0]
@@ -4164,7 +4533,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         nbytes = _nbytes(a, b, c) + key.batch * key.m * key.n * size
     elif kind == "chain_pingpong":     # R contractions of m x k x n
         x, w, bias = args
-        rate = "f32" if key.precision == "highest" else "bf16"
+        rate = mxu_rate(key)
         flops = key.repeats * 2 * key.m * key.dims[0] * key.dims[1]
         nbytes = _nbytes(x, w, bias) + key.m * key.dims[1] * x.element_size()
     elif kind == "grouped_gemm":
@@ -4187,8 +4556,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         nbytes = _nbytes(*args) + key.N * key.P * key.Q * key.K * size
     elif kind in ("blocked_matmul", "blocked_matmul_warm"):
         # the packed GEMM (repeats times for B20); A, B, C, bias, out
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * key.Mb * key.Nb * key.Kb * key.mb * key.nb * key.kb * \
             max(1, key.repeats)
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
@@ -4215,15 +4583,15 @@ def _bound(kind, key, args) -> tuple[float, str]:
 
 
 def _composed_chain(key, args):
-    """The composed PyTorch chain of a chain.cu or B20 key on bf16 copies of
-    its inputs (its products are bf16), as one callable: torch.addmm +
-    torch.relu per layer and repeat (B5: addmm + relu, then h @ W^T; B20 on
-    the unpacked operands). A yardstick, not one call; used nowhere in the
-    port."""
+    """The composed PyTorch chain of a chain.cu or B20 key on copies of its
+    inputs in its products' type (bf16, or f16 for an f16 key), as one
+    callable: torch.addmm + torch.relu per layer and repeat (B5: addmm +
+    relu, then h @ W^T; B20 on the unpacked operands). A yardstick, not one
+    call; used nowhere in the port."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import ChainKey
-    bf = torch.bfloat16
+    bf = torch.float16 if key.dtype == "f16" else torch.bfloat16
     if isinstance(key, ChainKey):
         x, *wb = (t.to(bf) for t in args)
         layers = list(zip(wb[0::2], wb[1::2]))
@@ -5504,6 +5872,7 @@ def main() -> int:
             "max_abs_err", 0.0))
         stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
+    f16_rows = phase_f16()
     for kind, n in phase_tuning().items():
         launches[kind] += n
     for kind, n in phase_compiler_path().items():
@@ -5579,6 +5948,12 @@ def main() -> int:
         kernels.append({**{f: rows[kind][f] for f in ("route", "source",
                                                       "replaces")},
                         "name": f"{kind}@{describe(key)}{dx}", **entry})
+    # the f16 keys of the GEMM family (ROADMAP A14), each a row of its
+    # kernel's, launched on phase_f16's main path
+    for kind, key, source, entry in f16_rows:
+        kernels.append({"route": "cuda", "source": source,
+                        "replaces": rows[kind]["replaces"],
+                        "name": f"{kind}@{describe(key)}", **entry})
     say(f"total: {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ import io
 import pytest
 import torch
 
+import chip_smoke
 from tpp_mlir_tpu_torch.ir import parse_module
 from tpp_mlir_tpu_torch.models.mlp import MlpConfig
 from tpp_mlir_tpu_torch.tools.mlir_gen import generate_text
@@ -2016,3 +2017,24 @@ def test_forced_warm_panels_match_plain(cuda):
     with tune.trial(key, {"bm": 48}):
         with pytest.raises(ValueError, match="rows in"):
             build_kernel(key)
+
+
+# ROADMAP A14: every route an f16 key takes, with A = 1 + 2^-10 (exact in
+# f16, 1.0 in bf16): the probes and their inputs are chip_smoke.py's
+# phase_f16 (b), held here at their launch counts
+F16_ROUTES = {label: (key, forced)
+              for label, key, forced in chip_smoke.f16_route_probes()}
+
+
+@pytest.mark.parametrize("name", list(F16_ROUTES))
+def test_f16_products_are_not_bf16(cuda, name):
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
+    key, forced = F16_ROUTES[name]
+    kern = build_warm(key, forced) if forced else build_kernel(key)
+    args, value = chip_smoke.f16_probe(key)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    want = reference_kernel(key)(*args)
+    assert kern.launches == 1
+    assert torch.equal(got, want), (got.flatten()[:4], want.flatten()[:4])
+    assert bool((got == value).all())

@@ -1,0 +1,454 @@
+"""f16 keys (ROADMAP A14) on the port's GEMM family: B1 (BrgemmKey), B3-B5
+(ChainKey), B19/B20 (BlockedMatmulKey) and the xsmm.unary/binary ops.
+
+On the CPU the port runs the kernels' plain versions; each is held here to
+the JAX package on the same seeded numpy inputs cast to float16, the JAX
+side through `build_kernel(key, interpret=True)` (its Pallas bodies) or its
+own `run_module`. Tolerances:
+  * the three keys of tests/xsmm/test_kernels.py:661 test_f16_kernel_family
+    at that test's own tolerances (f16 operands, f32 sums in another order,
+    one rounding to f16 on each side: an ulp, ~1e-3 relative);
+  * tpp-gen's f16 MLPs (tests/integration/test_gen_configs.py's f16 rows:
+    flat, --vnni=2, --tiles=32,32,32 --vnni=2) through both executors,
+    lowered and --linalg-to-loops, max|port - jax| / max|jax| <= 2e-3;
+  * tensor_init in f16 and the functional ops: bit-equal and 2e-3.
+The route tests hold what the card would run: f16 products at either
+precision, and no f16 key's route, plan or launch arguments naming a
+loader that rounds to bf16 (the launch arguments read from a recording
+stand-in for the kernel library, since the CPU has none). The card's own
+check that the products are f16 (A = 1 + 2^-10) is
+tests/test_torch_cuda.py's test_f16_products_are_not_bf16.
+"""
+
+import dataclasses
+import io
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpp_mlir_tpu.xsmm.flags as ref_flags
+from tpp_mlir_tpu import ops as jax_ops
+from tpp_mlir_tpu.ir import parse_module as jax_parse_module
+from tpp_mlir_tpu.runtime.tensor_init import tensor_init as jax_tensor_init
+from tpp_mlir_tpu.tools.mlir_gen import build_parser as jax_gen_parser
+from tpp_mlir_tpu.tools.mlir_gen import config_from_args as jax_gen_config
+from tpp_mlir_tpu.tools.mlir_gen import generate_text as jax_generate
+from tpp_mlir_tpu.tools.tpp_run import run_module as jax_run_module
+from tpp_mlir_tpu.xsmm.kernels import build_kernel as jax_build_kernel
+from tpp_mlir_tpu_torch import ops
+from tpp_mlir_tpu_torch.runtime.tensor_init import tensor_init, to_torch
+from tpp_mlir_tpu_torch.tools.mlir_gen import (build_parser,
+                                               config_from_args,
+                                               generate_text)
+from tpp_mlir_tpu_torch.tools.tpp_run import load_module, run_module
+from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                     BrgemmKey, ChainKey, ConvBrgemmKey,
+                                     ConvNhwcKey, DecodeAttnKey, FlashMhaKey,
+                                     FlashTrainKey, GroupedGemmKey,
+                                     GroupedWgradKey, Int8GemmKey,
+                                     LayerNormKey, build_kernel)
+from tpp_mlir_tpu_torch.xsmm import build as kbuild
+from tpp_mlir_tpu_torch.xsmm import kernels, reference
+
+F16 = torch.float16
+
+
+def _f16(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) *
+            scale).astype(np.float16)
+
+
+def _ref_key(key):
+    return getattr(ref_flags, type(key).__name__)(**dataclasses.asdict(key))
+
+
+def _err(got, want) -> float:
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape
+    return float(np.max(np.abs(g - w)) / max(np.max(np.abs(w)), 1e-30))
+
+
+# tests/xsmm/test_kernels.py:661-684: (key, inputs, atol, rtol)
+FAMILY = {
+    "brgemm-f32-out": (
+        BrgemmKey(batch=2, m=32, n=128, k=64, dtype="f16", out_dtype="f32",
+                  beta0=True),
+        lambda: (_f16((2, 32, 64), 0), _f16((2, 64, 128), 1)), 1e-5, 1e-3),
+    "brgemm-f16-bias-relu": (
+        BrgemmKey(batch=1, m=32, n=128, k=64, dtype="f16", out_dtype="f16",
+                  beta0=True, binary_kind="add", unary_kind="relu"),
+        lambda: (_f16((1, 32, 64), 2), _f16((1, 64, 128), 3), None,
+                 _f16((128,), 4)), 2e-3, 2e-3),
+    "chain": (
+        ChainKey(m=16, dims=(64, 128, 64), dtype="f16", has_bias=True,
+                 unary_kind="relu", last_unary=None),
+        lambda: (_f16((16, 64), 5), _f16((64, 128), 6), _f16((128,), 8),
+                 _f16((128, 64), 7), _f16((64,), 9)), 2e-3, 2e-2),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILY))
+def test_f16_kernel_family_matches_pallas_interpret(name):
+    key, make, atol, rtol = FAMILY[name]
+    args = make()
+    kern = build_kernel(key)
+    got = kern(*(None if a is None else to_torch(a) for a in args))
+    want = jax_build_kernel(_ref_key(key), interpret=True)(
+        *(None if a is None else jnp.asarray(a) for a in args))
+    assert got.dtype == reference.DTYPES[key.out_dtype or key.dtype]
+    assert kern.launches == 0
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+# B5's ping-pong and B4/B20's repeats at f16: the state held in f16
+# between repeats on both sides (He-scaled weights keep it in range)
+REPEATS = {
+    "b4-chain-bench": ChainKey(m=16, dims=(64, 64, 64), dtype="f16",
+                               repeats=3),
+    "b5-pingpong": ChainKey(m=16, dims=(64, 96), dtype="f16", repeats=3,
+                            pingpong=True),
+    "b20-warm-vnni": BlockedMatmulKey(1, 2, 2, 16, 32, 32, "f16", vnni=2,
+                                      repeats=3, beta0=True,
+                                      binary_kind="add", unary_kind="relu"),
+}
+
+
+@pytest.mark.parametrize("name", list(REPEATS))
+def test_f16_repeats_match_pallas_interpret(name):
+    key = REPEATS[name]
+    if isinstance(key, ChainKey):
+        dims = key.dims
+        args = [_f16((key.m, dims[0]), 0)]
+        for li, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+            args += [_f16((k, n), 1 + li, (2 / k) ** 0.5),
+                     _f16((n,), 10 + li, 0.1)]
+    else:
+        K = key.Kb * key.kb
+        args = [_f16((key.Mb, key.Kb, key.mb, key.kb), 0),
+                _f16((key.Nb, key.Kb, key.kb // 2, key.nb, 2), 1,
+                     (2 / K) ** 0.5), None, _f16((key.Nb, key.nb), 2, 0.1)]
+    got = build_kernel(key)(*(None if a is None else to_torch(a)
+                              for a in args))
+    want = jax_build_kernel(_ref_key(key), interpret=True)(
+        *(None if a is None else jnp.asarray(a) for a in args))
+    assert got.dtype == F16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-3,
+                               rtol=2e-2)
+
+
+# tests/integration/test_gen_configs.py's f16 rows
+GEN = {
+    "flat": "--batch=16 --layers=64,64 --bias --relu --float-type=f16",
+    "vnni": "--batch=16 --layers=64,64 --bias --relu --float-type=f16 "
+            "--vnni=2",
+    "tiles": "--batch=64 --layers=64,64 --tiles=32,32,32 --float-type=f16 "
+             "--vnni=2",
+    "chain": "--batch=16 --layers=64,64,64 --bias --relu --float-type=f16",
+}
+GEN_RUNS = [(n, p) for n in GEN for p in ("default-tpp-passes",
+                                          "default-tpp-passes-packed")]
+
+
+@pytest.mark.parametrize("l2l", [False, True], ids=["lowered", "l2l"])
+@pytest.mark.parametrize("name,pipeline", GEN_RUNS,
+                         ids=[f"{n}-{p.rsplit('-', 1)[-1]}"
+                              for n, p in GEN_RUNS])
+def test_gen_f16_runs_like_the_jax_package(name, pipeline, l2l):
+    flags = GEN[name].split()
+    text = generate_text(config_from_args(build_parser().parse_args(flags)))
+    jtext = jax_generate(jax_gen_config(jax_gen_parser().parse_args(flags)))
+    assert text == jtext
+    got = run_module(load_module(text), init_type="rand", seed=11,
+                     device="cpu", pipeline=pipeline, linalg_to_loops=l2l,
+                     out_stream=io.StringIO())
+    want = jax_run_module(jax_parse_module(jtext), init_type="rand",
+                          seed=11, pipeline=pipeline, linalg_to_loops=l2l,
+                          out_stream=io.StringIO())
+    g, w = got["outputs"][0], want["outputs"][0]
+    assert g.dtype == F16 and str(np.asarray(w).dtype) == "float16"
+    assert torch.isfinite(g.float()).all()
+    assert _err(g, w) <= 2e-3
+    if not l2l:
+        ops_ = [op.opname for op in got["module"]["entry"].ops
+                if op.opname.startswith("xsmm.")
+                and not op.opname.endswith("_dispatch")]
+        assert ops_ and all(o in ("xsmm.fused_brgemm", "xsmm.brgemm",
+                                  "xsmm.gemm", "xsmm.fused_chain",
+                                  "xsmm.unary", "xsmm.binary")
+                            for o in ops_), ops_
+
+
+@pytest.mark.parametrize("kind", ["rand", "normal", "simple", "cont",
+                                  "const", "identity"])
+def test_tensor_init_f16_is_the_jax_copy_bit_for_bit(kind):
+    shape = (24, 24)
+    got = tensor_init(kind, shape, "f16", seed=5)
+    want = np.asarray(jax_tensor_init(kind, shape, "f16", seed=5))
+    assert got.dtype == F16
+    np.testing.assert_array_equal(got.numpy().view(np.int16),
+                                  want.view(np.int16))
+
+
+@pytest.mark.parametrize("with_c,out_dtype,transpose_b", [
+    (False, None, False), (True, None, False), (False, "f32", False),
+    (False, None, True)])
+def test_ops_gemm_f16_matches_jax(with_c, out_dtype, transpose_b):
+    m, n, k = 48, 80, 96
+    a = _f16((m, k), 0)
+    b = _f16((n, k) if transpose_b else (k, n), 1)
+    c = _f16((m, n), 2) if with_c else None
+    got = ops.gemm(to_torch(a), to_torch(b),
+                   None if c is None else to_torch(c), out_dtype=out_dtype,
+                   transpose_b=transpose_b)
+    want = jax_ops.gemm(jnp.asarray(a), jnp.asarray(b),
+                        None if c is None else jnp.asarray(c),
+                        out_dtype=out_dtype, transpose_b=transpose_b,
+                        interpret=True)
+    assert got.dtype == reference.DTYPES[out_dtype or "f16"]
+    assert _err(got, want) <= 2e-3
+
+
+@pytest.mark.parametrize("bias,activation", [(True, "relu"), (False, "gelu"),
+                                             (True, None)])
+def test_ops_fused_mlp_layer_f16_matches_jax(bias, activation):
+    m, k, n = 32, 64, 48
+    x, w = _f16((m, k), 3), _f16((k, n), 4, 0.2)
+    bv = _f16((n,), 5) if bias else None
+    got = ops.fused_mlp_layer(to_torch(x), to_torch(w),
+                              None if bv is None else to_torch(bv),
+                              activation=activation)
+    want = jax_ops.fused_mlp_layer(jnp.asarray(x), jnp.asarray(w),
+                                   None if bv is None else jnp.asarray(bv),
+                                   activation=activation, interpret=True)
+    assert got.dtype == F16
+    assert _err(got, want) <= 2e-3
+
+
+# ---- routes, plans and launch arguments ---------------------------------
+
+def test_f16_products_are_f16_at_either_precision():
+    for precision in ("default", "highest"):
+        assert reference.mxu_dtype("f16", precision) is torch.float16
+    # f32 "default" keeps its bf16 products
+    assert reference.mxu_dtype("f32", "default") is torch.bfloat16
+
+
+class _Recorder:
+    """A stand-in for the kernel library: records each C entry's
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+# each f16 key of the slice, the route its launcher takes, and its inputs
+ROUTED = {
+    "b1-tma": (BrgemmKey(1, 32, 64, 64, "f16", beta0=True,
+                         binary_kind="add", unary_kind="relu"), "tma"),
+    "b1-tma-highest": (BrgemmKey(1, 32, 64, 64, "f16", beta0=True,
+                                 precision="highest"), "tma"),
+    "b1-transpose-b": (BrgemmKey(1, 32, 64, 64, "f16", beta0=True,
+                                 transpose_b=True), "tma"),
+    "b1-convert-n36": (BrgemmKey(1, 32, 36, 64, "f16", beta0=True), "convert"),
+    "b1-vnni-c-f32-out": (BrgemmKey(2, 32, 64, 64, "f16", out_dtype="f32",
+                                    vnni=2), "tma"),
+    "b3-panel": (ChainKey(m=32, dims=(64, 64, 64), dtype="f16"), "panel"),
+    "b4-panel": (ChainKey(m=32, dims=(64, 64), dtype="f16", repeats=5),
+                 "panel"),
+    "b5-panel": (ChainKey(m=32, dims=(64, 128), dtype="f16", repeats=3,
+                          pingpong=True), "panel"),
+    "b19-tma": (BlockedMatmulKey(1, 2, 2, 32, 64, 64, "f16", beta0=True,
+                                 binary_kind="add", unary_kind="relu"),
+                "tma"),
+    "b19-vnni-convert": (BlockedMatmulKey(1, 2, 2, 32, 64, 64, "f16",
+                                          vnni=2, beta0=True), "convert"),
+    "b19-c": (BlockedMatmulKey(1, 2, 2, 32, 64, 64, "f16"), "tma"),
+    "b20-panel": (BlockedMatmulKey(1, 2, 2, 32, 64, 64, "f16", vnni=2,
+                                   repeats=3, beta0=True, binary_kind="add",
+                                   unary_kind="relu"), "panel"),
+}
+
+
+def _inputs(key):
+    """CPU tensors of the shapes the key's launcher checks."""
+    def t(*shape, dt=F16):
+        return torch.zeros(shape, dtype=dt)
+    if isinstance(key, BrgemmKey):
+        b = (key.batch, key.k // 2, key.n, 2) if key.vnni else \
+            (key.batch, key.n, key.k) if key.transpose_b else \
+            (key.batch, key.k, key.n)
+        return (t(key.batch, key.m, key.k), t(*b),
+                None if key.beta0 else t(key.m, key.n),
+                t(key.n) if key.binary_kind else None)
+    if isinstance(key, ChainKey):
+        args = [t(key.m, key.dims[0])]
+        for k, n in zip(key.dims[:-1], key.dims[1:]):
+            args += [t(k, n), t(n)]
+        return tuple(args)
+    b = (key.Nb, key.Kb, key.kb // 2, key.nb, 2) if key.vnni else \
+        (key.Nb, key.Kb, key.kb, key.nb)
+    return (t(key.Mb, key.Kb, key.mb, key.kb), t(*b),
+            None if key.beta0 else t(key.Mb, key.Nb, key.mb, key.nb),
+            t(key.Nb, key.nb) if key.binary_kind else None)
+
+
+# the product-type argument's place in each C entry (xsmm/build.py)
+_ENTRY = {"tpp_brgemm": (10, 11, 21), "tpp_chain": (7, 8, None),
+          "tpp_blocked_matmul": (13, 14, 22)}
+
+
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_no_f16_key_reaches_a_bf16_rounding_loader(name, monkeypatch):
+    """The route, the plan and the arguments each f16 launch passes: f16
+    operands and f16 products (code 2), never the bf16 products (code 1)
+    that make the convert loader and the warm-panel engine round to bf16;
+    a GEMM plan from the wgmma tiles (not the f32-FMA body); a warm plan
+    (the engine's f16 kernel) where the chain would run it."""
+    key, route = ROUTED[name]
+    rec = _Recorder()
+    monkeypatch.setattr(kbuild, "library", lambda: rec)
+    monkeypatch.setattr(kernels, "_stream", lambda: None)
+    kern = build_kernel(key)
+    assert kern.route == route
+    if isinstance(key, ChainKey):
+        assert reference.chain_route(key) == route
+        assert isinstance(kern.plan, reference.WarmPlan)
+    elif isinstance(key, BlockedMatmulKey) and key.repeats:
+        assert reference.warm_route(key) == route
+        assert isinstance(kern.plan, reference.WarmPlan)
+    else:
+        assert kern.plan in [reference.GemmPlan(bm, bn, kern.plan.split)
+                             for bm, bn in reference.GEMM_TILES]
+        kern._launch.work_bytes = 0     # no card: no workspace to size
+    kern._launch(*_inputs(key))
+    (entry, args), = rec.calls
+    i_in, i_mma, i_route = _ENTRY[entry]
+    assert args[i_in] == kernels._DT_CODE[F16] == 2
+    assert args[i_mma] == 2
+    if i_route is not None and not getattr(key, "repeats", 0):
+        assert args[i_route] == kernels._GEMM_ROUTE_CODE[route]
+
+
+@pytest.mark.parametrize("route", ["wmma"])
+@pytest.mark.parametrize("name", ["b3-panel", "b5-panel", "b20-panel"])
+def test_the_first_design_runs_f16_products_too(name, route, monkeypatch):
+    """The warm-panel engine's first design, forced, passes f16 products
+    (its WMMA tiles in f16) and no plan."""
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
+    key, _ = ROUTED[name]
+    rec = _Recorder()
+    monkeypatch.setattr(kbuild, "library", lambda: rec)
+    monkeypatch.setattr(kernels, "_stream", lambda: None)
+    kern = build_warm(key, route)
+    assert kern.route == route and kern.plan is None
+    kern._launch(*_inputs(key))
+    (entry, args), = rec.calls
+    assert args[_ENTRY[entry][1]] == 2
+
+
+def test_f16_sizes_as_two_bytes():
+    assert kernels.chain_smem_bytes(1024, torch.float16) == \
+        kernels.chain_smem_bytes(1024, torch.bfloat16)
+    assert kernels.blocked_warm_smem_bytes(1024, torch.float16) == \
+        kernels.blocked_warm_smem_bytes(1024, torch.bfloat16)
+    f16 = ChainKey(m=256, dims=(1024,) * 3, dtype="f16")
+    bf16 = dataclasses.replace(f16, dtype="bf16")
+    assert kernels.chain_fits_smem(f16)
+    assert reference.warm_plan(f16) == reference.warm_plan(bf16)
+    fc = BlockedMatmulKey(1, 2, 2, 256, 512, 512, "f16", vnni=2,
+                          repeats=100, beta0=True)
+    assert reference.warm_plan(fc) == reference.warm_plan(
+        dataclasses.replace(fc, dtype="bf16"))
+    assert reference.gemm_plan(BrgemmKey(1, 256, 1024, 1024, "f16")) == \
+        reference.gemm_plan(BrgemmKey(1, 256, 1024, 1024, "bf16"))
+
+
+# every family outside the slice's f16 keys keeps refusing, naming A14
+OUTSIDE = {
+    "layer-norm": LayerNormKey(m=8, n=64, dtype="f16"),
+    "attention": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
+                             dtype="f16"),
+    "batch-matmul": BatchMatmulKey(4, 16, 16, 16, "f16"),
+    "ln-prologue": BrgemmKey(1, 8, 64, 64, "f16", beta0=True,
+                             prologue="layer_norm"),
+    "ln-stats-out": BrgemmKey(1, 8, 64, 64, "f16", beta0=True,
+                              ln_stats_out=True),
+    "conv-nhwc": ConvNhwcKey(N=1, H=8, W=8, C=16, K=16, R=3, S=3,
+                             dtype="f16"),
+    "conv-blocked": ConvBrgemmKey(N=1, H=8, W=8, Cb=1, c=16, Kb=1, k=16,
+                                  dtype="f16"),
+    "int8-f16-out": Int8GemmKey(m=16, n=16, k=16, out_dtype="f16"),
+    "grouped": GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8,
+                              dtype="f16"),
+    "grouped-wgrad": GroupedWgradKey(n_groups=2, m=16, k=16, n=16, bm=8,
+                                     dtype="f16"),
+    "decode": DecodeAttnKey(batch=1, heads=2, seq=32, head_dim=64,
+                            dtype="f16"),
+    "flash-train": FlashTrainKey(batch=1, heads=2, seq=64, head_dim=64,
+                                 dtype="f16"),
+    # the f16 instantiations read and write f16 and f32 only
+    "b1-bf16-to-f16": BrgemmKey(1, 8, 64, 64, "bf16", out_dtype="f16"),
+    "b1-f16-to-bf16": BrgemmKey(1, 8, 64, 64, "f16", out_dtype="bf16"),
+    "chain-f32-to-f16": ChainKey(m=8, dims=(64, 64), out_dtype="f16"),
+}
+
+
+@pytest.mark.parametrize("name", list(OUTSIDE))
+def test_f16_keys_outside_the_slice_name_a14(name):
+    with pytest.raises(NotImplementedError, match="A14"):
+        build_kernel(OUTSIDE[name])
+
+
+def _f16_dispatch_module(dispatch, invoke, attrs, operands, out):
+    """One lowered f16 dispatch and its invoke, as the port's passes write
+    them."""
+    from tpp_mlir_tpu_torch.ir import I64, Function, Module, TensorType, \
+        TppBuilder
+    types = [TensorType(s, "f16") for s in operands]
+    m = Module()
+    f = m.add(Function("entry", types, [f"a{i}" for i in range(len(types))]))
+    b = TppBuilder(f)
+    d = b.create(dispatch, [], [I64], {"dtype": "f16", **attrs})
+    f.returns = [b.create(invoke, [d.result, *f.args],
+                          [TensorType(out, "f16")]).result]
+    return m
+
+
+# IR whose f16 key no kernel of the port takes: verify-slice refuses it
+# through check_slice, naming A14, before anything runs
+F16_IR_OUTSIDE = {
+    "ln-prologue": ("xsmm.fused_brgemm_dispatch", "xsmm.fused_brgemm",
+                    dict(batch=1, m=8, n=64, k=64, flags=("beta_0",),
+                         prologue="layer_norm"),
+                    [(1, 8, 64), (1, 64, 64), (8, 64), (64,), (64,), (64,)],
+                    (8, 64)),
+    "layer-norm": ("xsmm.layer_norm_dispatch", "xsmm.layer_norm",
+                   dict(m=8, n=64), [(8, 64), (64,), (64,)], (8, 64)),
+    "conv-nhwc": ("xsmm.brgemm_dispatch", "xsmm.brgemm",
+                  dict(layout="conv_nhwc", N=2, H=8, W=8, C=16, K=16, R=3,
+                       S=3, m=0, n=16, k=16, batch=144, strides=(1, 1),
+                       flags=()),
+                  [(2, 8, 8, 16), (3, 3, 16, 16), (2, 6, 6, 16)],
+                  (2, 6, 6, 16)),
+}
+
+
+@pytest.mark.parametrize("name", list(F16_IR_OUTSIDE))
+def test_verify_slice_refuses_f16_ir_outside_the_gemm_family(name):
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    with pytest.raises(NotImplementedError, match="A14") as e:
+        run_pipeline(_f16_dispatch_module(*F16_IR_OUTSIDE[name]),
+                     "verify-slice")
+    assert "outside the port's slice" in str(e.value)

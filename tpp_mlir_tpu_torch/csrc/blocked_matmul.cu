@@ -28,6 +28,11 @@
 // layout from registers, and a deterministic k split where the tiles do not
 // fill the card (xsmm/reference.py blocked_matmul_route names the loader).
 // f32 at precision "highest" keeps the f32-FMA body below, never TF32.
+// f16 keys (ROADMAP A14) run with f16 products throughout: B19's
+// mainloop on f16 tensor maps or the convert loader copying raw halves
+// (a VNNI2 pair split into its two k rows by byte permutes; csrc/
+// gemm_f16.cu's instantiations), B20's engine in f16 (csrc/
+// warm_panel_f16.cu) or the first design's f16 WMMA tiles.
 //
 // B20: rows are independent (next[i,:] needs only act[i,:], the
 // reference's note at kernels.py:917-918), so a row panel of one Mb tile is
@@ -39,7 +44,8 @@
 // distributed shared memory. The weight stays resident, as the TPU kernel
 // holds it in VMEM: each block loads its columns' slices once, through
 // registers, read in place through the packed (or VNNI) layout and rounded
-// to bf16 there, so no conversion runs on the repeat loop. At the fc key
+// to the products' type there (an f16 weight unchanged), so no conversion
+// runs on the repeat loop. At the fc key
 // (K = N = 1024) a block's 64 columns are 128 KB beside a 32-row panel of
 // 64 KB. The plan is xsmm/reference.py warm_plan's, the route warm_route's.
 // The first design below (one block per 16-row panel, ping-ponged between
@@ -180,7 +186,7 @@ __host__ __device__ inline size_t align128(size_t x) {
 template <typename Tmma>
 __host__ __device__ inline size_t warm_smem_bytes(int K) {
   const size_t panels = align128(2 * (size_t)WBM * (K + HPAD) * sizeof(Tmma));
-  if (std::is_same<Tmma, __nv_bfloat16>::value)
+  if (!std::is_same<Tmma, float>::value)   // 16-bit products: WMMA
     return panels + (size_t)WARPS * (WKS * BSLD * sizeof(Tmma) +
                                      16 * CSLD * sizeof(float));
   return panels;
@@ -194,7 +200,7 @@ __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
                           const Tin* __restrict__ W,
                           const float* __restrict__ D, const Blocked& g,
                           int binary, int unary, unsigned char* scratch) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  constexpr bool kTensor = !std::is_same<Tmma, float>::value;
   const int K = g.Kb * g.kb, N = g.Nb * g.nb;
   const size_t jstride = (size_t)K * g.nb;  // elements of one Nb slab
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -239,10 +245,10 @@ __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
         }
         __syncwarp();
         for (int kk = 0; kk < kn; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma, wmma::row_major>
+              fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma, wmma::row_major>
+              fb;
           wmma::load_matrix_sync(fa, cur + k0 + kk, ldh);
           wmma::load_matrix_sync(fb, Bw + kk * BSLD, BSLD);
           wmma::mma_sync(acc, fa, fb, acc);
@@ -315,6 +321,9 @@ blocked_warm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ W,
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = g.Kb * g.kb, N = g.Nb * g.nb;
   const int ldh = K + HPAD;
+  // the output is f32 or the products' 16-bit type (bf16 for f32 ones)
+  using E16 = typename std::conditional<std::is_same<Tmma, __half>::value,
+                                        __half, __nv_bfloat16>::type;
   Tmma* cur = reinterpret_cast<Tmma*>(smem);
   Tmma* nxt = cur + (size_t)WBM * ldh;
   unsigned char* scratch =
@@ -347,10 +356,10 @@ blocked_warm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ W,
     const int rr = e / N, n = e % N, gm = r0 + rr;
     if (gm >= g.mb) continue;
     const int jb = n / g.nb;
-    tpp::store_out(out,
-                   (((size_t)i * g.Nb + jb) * g.mb + gm) * g.nb +
-                       (n - jb * g.nb),
-                   out_dtype, tpp::to_f32(cur[rr * ldh + n]));
+    tpp::store_out<E16>(out,
+                        (((size_t)i * g.Nb + jb) * g.mb + gm) * g.nb +
+                            (n - jb * g.nb),
+                        out_dtype, tpp::to_f32(cur[rr * ldh + n]));
   }
 }
 
@@ -387,8 +396,8 @@ int run_warm(const void* a, const void* b, const float* d, void* out,
 // B19 on the packed mainloop of csrc/gemm_sm90.cuh
 int run_sm90(const void* a, const void* b, const void* c, const void* d,
              void* out, void* work, const Blocked& bl, const Epilogue& epi,
-             int vnni, int in_dtype, int route, const long long* plan,
-             cudaStream_t st) {
+             int vnni, int in_dtype, int mma_dtype, int route,
+             const long long* plan, cudaStream_t st) {
   namespace sm = tpp::sm90;
   sm::Plan p;
   if (!sm::launch_plan_ok(plan, bl.Mb, bl.Nb, bl.Kb, bl.mb, bl.nb, bl.kb, 0,
@@ -423,6 +432,19 @@ int run_sm90(const void* a, const void* b, const void* c, const void* d,
   g.out_dtype = epi.out_dtype;
   g.split = p.split;
   CUtensorMap amap = {}, bmap = {};
+  if (mma_dtype == tpp::kF16) {
+    // f16 products: f16 A and B only (gemm_f16.cu's instantiations)
+    if (in_dtype != tpp::kF16 || (route == tpp::sm90::kRouteTma && vnni))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (route == tpp::sm90::kRouteTma) {
+      const int rc = sm::make_maps<__half>(&amap, &bmap, g, p, sm::kBMn);
+      if (rc) return rc;
+      return sm::launch_plan_f16(sm::kBMn, sm::kTma, p, g, amap, bmap, st);
+    }
+    return sm::launch_plan_f16(vnni ? sm::kBVnni : sm::kBMn, sm::kConvert, p,
+                               g, amap, bmap, st);
+  }
+  if (in_dtype == tpp::kF16) return static_cast<int>(cudaErrorInvalidValue);
   if (route == tpp::sm90::kRouteTma) {
     if (vnni || in_dtype != tpp::kBF16)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -441,7 +463,7 @@ int run_sm90(const void* a, const void* b, const void* c, const void* d,
 // addressed in place, the weight resident
 int run_warm_panel(const void* a, const void* b, const float* d, void* out,
                    const Blocked& g, const Epilogue& epi, int vnni,
-                   int in_dtype, int repeats, const int* plan,
+                   int in_dtype, int mma_dtype, int repeats, const int* plan,
                    cudaStream_t st) {
   namespace wm = tpp::warm;
   wm::Params p{};
@@ -464,7 +486,9 @@ int run_warm_panel(const void* a, const void* b, const float* d, void* out,
   p.w_dtype = in_dtype;
   p.out_dtype = epi.out_dtype;
   p.round_out = 1;
-  return wm::run(p, wm::Plan{plan[0], plan[1], plan[2], plan[3]}, st);
+  const wm::Plan pl{plan[0], plan[1], plan[2], plan[3]};
+  return mma_dtype == tpp::kF16 ? wm::run_f16(p, pl, st)
+                                : wm::run(p, pl, st);
 }
 
 }  // namespace
@@ -474,23 +498,26 @@ int run_warm_panel(const void* a, const void* b, const float* d, void* out,
 extern "C" long long tpp_blocked_warm_smem_bytes(int K, int mma_dtype) {
   return mma_dtype == tpp::kBF16
              ? static_cast<long long>(warm_smem_bytes<__nv_bfloat16>(K))
+         : mma_dtype == tpp::kF16
+             ? static_cast<long long>(warm_smem_bytes<__half>(K))
              : static_cast<long long>(warm_smem_bytes<float>(K));
 }
 
 // B19 when repeats == 0, else B20. Returns the cudaError_t of the launch
 // (0 on success). A and B are in_dtype (B in VNNI layout when vnni is 2);
-// C [Mb,Nb,mb,nb] is c_dtype and the bias D [Nb,nb] d_dtype (f32 or bf16,
-// widened in registers; B20 takes an f32 D); out [Mb,Nb,mb,nb] is
-// out_dtype. B19's route is xsmm/reference.py blocked_matmul_route's
-// choice: 0 "fma" (f32 "highest"), 1 "tma" (bf16, not VNNI; 16-byte
-// aligned base pointers and row strides), 2 "convert"; plan is
+// C [Mb,Nb,mb,nb] is c_dtype and the bias D [Nb,nb] d_dtype (f32, bf16 or
+// f16, widened in registers; B20 takes an f32 D); out [Mb,Nb,mb,nb] is
+// out_dtype. mma_dtype is the products' type: f32, bf16 (f32 or bf16 A
+// and B), or f16 (f16 A and B). B19's route is xsmm/reference.py
+// blocked_matmul_route's choice: 0 "fma" (f32 "highest"), 1 "tma" (16-bit,
+// not VNNI; 16-byte aligned base pointers and row strides), 2 "convert"; plan is
 // tpp_gemm_plan's {bm, bn, split, bytes} for B19 (flags kPlanFma on the
 // "fma" route: 64 x 64, no split; gemm_sm90.cuh launch_plan_ok) and work
 // its workspace. B20 needs has_c 0, Nb == Kb, nb == kb and, on
 // the tensor path, Kb * kb and nb multiples of 16 and B 16-byte aligned;
 // warm_plan, when not null, is reference.warm_plan's (rows, cluster,
-// resident, shared-memory bytes): B20 runs on the warm-panel engine (bf16
-// products), else on the first design.
+// resident, shared-memory bytes): B20 runs on the warm-panel engine
+// (16-bit products), else on the first design.
 extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   const void* c, const void* d, void* out,
                                   void* work, int Mb, int Nb, int Kb, int mb,
@@ -502,19 +529,22 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                   const int* warm_plan, void* stream) {
   if ((vnni != 0 && vnni != 2) || (vnni && kb % vnni))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool mma16 = mma_dtype == tpp::kBF16 || mma_dtype == tpp::kF16;
   if (repeats > 0 && (has_c || Nb != Kb || nb != kb ||
                       (binary && d_dtype != tpp::kF32) ||
-                      (mma_dtype == tpp::kBF16 && ((Kb * kb) % 16 || nb % 16))))
+                      (mma16 && ((Kb * kb) % 16 || nb % 16))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // f16 products take f16 operands, and f16 operands f16 products
+  if ((mma_dtype == tpp::kF16) != (in_dtype == tpp::kF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocked g{Mb, Nb, Kb, mb, nb, kb};
   const Epilogue epi{has_c, c_dtype, binary, d_dtype, unary, out_dtype};
   const float* df = static_cast<const float*>(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (repeats > 0 && warm_plan != nullptr)
-    return mma_dtype == tpp::kBF16
-               ? run_warm_panel(a, b, df, out, g, epi, vnni, in_dtype,
-                                repeats, warm_plan, st)
-               : static_cast<int>(cudaErrorInvalidValue);
+    return mma16 ? run_warm_panel(a, b, df, out, g, epi, vnni, in_dtype,
+                                  mma_dtype, repeats, warm_plan, st)
+                 : static_cast<int>(cudaErrorInvalidValue);
   if (repeats > 0) {
     if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
       return run_warm<float, float>(a, b, df, out, g, epi, vnni, repeats, st);
@@ -524,6 +554,9 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
     if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
       return run_warm<__nv_bfloat16, __nv_bfloat16>(a, b, df, out, g, epi,
                                                     vnni, repeats, st);
+    if (in_dtype == tpp::kF16 && mma_dtype == tpp::kF16)
+      return run_warm<__half, __half>(a, b, df, out, g, epi, vnni, repeats,
+                                      st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == tpp::sm90::kRouteFma) {
@@ -546,7 +579,7 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                                                             out, g, epi);
     return static_cast<int>(cudaGetLastError());
   }
-  if (mma_dtype != tpp::kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  return run_sm90(a, b, c, d, out, work, g, epi, vnni, in_dtype, route, plan,
-                  st);
+  if (!mma16) return static_cast<int>(cudaErrorInvalidValue);
+  return run_sm90(a, b, c, d, out, work, g, epi, vnni, in_dtype, mma_dtype,
+                  route, plan, st);
 }

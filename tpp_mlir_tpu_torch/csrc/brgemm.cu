@@ -35,6 +35,10 @@
 // wgmma with register accumulators, the epilogue from registers, and a
 // deterministic k split where the output tiles do not fill the card
 // (xsmm/reference.py brgemm_route names the loader; gemm_plan the tile).
+// f16 keys (ROADMAP A14) run the same mainloop with f16 products (wgmma
+// .f16, TMA maps of FLOAT16 elements, the convert loader copying raw
+// halves) and no LayerNorm prologue; their instantiations are
+// csrc/gemm_f16.cu's, built beside this file.
 // The LayerNorm prologue's row statistics come from a small pass once a
 // row (ln_stats below), not from each block: a block's own pass would read
 // its A rows once for every column tile (18 times at GPT-2's QKV, 55 MB
@@ -278,8 +282,21 @@ ln_stats_finish(const float2* __restrict__ part, int tiles, int m, int n,
 // ---- the packed mainloop at Mb = Nb = 1 ---------------------------------
 
 int run_sm90(const sm::Plan& p, const sm::Gemm& g, int transpose_b,
-             int route, int ln, cudaStream_t st) {
+             int route, int ln, int f16, cudaStream_t st) {
   CUtensorMap amap = {}, bmap = {};
+  if (f16) {
+    // f16 products (ROADMAP A14): f16 tensor maps or the raw 16-bit
+    // convert loader, no LayerNorm prologue (gemm_f16.cu's instantiations)
+    const int bmode = transpose_b ? sm::kBK : sm::kBMn;
+    if (ln) return static_cast<int>(cudaErrorInvalidValue);
+    if (route == sm::kRouteTma) {
+      const int rc = sm::make_maps<__half>(&amap, &bmap, g, p, bmode);
+      if (rc) return rc;
+    }
+    return sm::launch_plan_f16(
+        bmode, route == sm::kRouteTma ? sm::kTma : sm::kConvert, p, g, amap,
+        bmap, st);
+  }
   if (route == sm::kRouteTma) {
     const int rc = sm::make_maps(&amap, &bmap, g, p,
                                  transpose_b ? sm::kBK : sm::kBMn);
@@ -332,11 +349,13 @@ extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
 }
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
-// in_dtype; C is c_dtype and D d_dtype (f32 or bf16, widened in
-// registers); gamma and beta f32; out out_dtype. route is
+// in_dtype; C is c_dtype and D d_dtype (f32, bf16 or f16, widened in
+// registers); gamma and beta f32; out out_dtype. mma_dtype is the
+// products' type: f32 (the "fma" route), bf16 (f32 or bf16 A and B), or
+// f16 (f16 A and B only, no LayerNorm prologue; ROADMAP A14). route is
 // xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
-// "tma" (bf16; 16-byte aligned base pointers and row strides), 2
-// "convert". plan is tpp_gemm_plan's {bm, bn, split, bytes} for these
+// "tma" (16-bit A and B of the products' type; 16-byte aligned base
+// pointers and row strides), 2 "convert". plan is tpp_gemm_plan's {bm, bn, split, bytes} for these
 // flags (gemm_sm90.cuh launch_plan_ok) and work its workspace (null where
 // it is 0 bytes).
 // ln = 1 runs the LayerNorm prologue, ln = 2 the ln_stats prologue on the
@@ -398,8 +417,11 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
         out, batch, m, n, k, transpose_b, epi, pro, rowpart);
     rc = static_cast<int>(cudaGetLastError());
   } else {
-    if (mma_dtype != tpp::kBF16 ||
-        (route == sm::kRouteTma && in_dtype != tpp::kBF16))
+    const bool f16 = mma_dtype == tpp::kF16;
+    if ((mma_dtype != tpp::kBF16 && !f16) ||
+        (f16 ? in_dtype != tpp::kF16
+             : in_dtype == tpp::kF16 ||
+                   (route == sm::kRouteTma && in_dtype != tpp::kBF16)))
       return static_cast<int>(cudaErrorInvalidValue);
     sm::Gemm g{};
     g.a = a;
@@ -432,7 +454,7 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
     g.unary = unary;
     g.out_dtype = out_dtype;
     g.split = p.split;
-    rc = run_sm90(p, g, transpose_b, route, ln != 0, st);
+    rc = run_sm90(p, g, transpose_b, route, ln != 0, f16, st);
   }
   if (rc != 0 || !stats_out) return rc;
   ln_stats_finish<<<(m + 255) / 256, 256, 0, st>>>(

@@ -10,7 +10,7 @@
 //
 // Numerics of the references:
 //   * B3: f32 between layers; only each product's input is rounded to the
-//     MXU dtype (bf16, or f32 at precision "highest").
+//     MXU dtype (bf16, f16 for an f16 key, or f32 at precision "highest").
 //   * B4 (repeats > 1): the state fed back is held in the MXU dtype, and the
 //     output is that state, converted to the output dtype.
 //   * B5 (pingpong, one layer k -> n, repeats > 1): even repeats run the fc,
@@ -23,8 +23,8 @@
 //
 // What bounds it on the H100: the flagship (256 x 1024x4, bf16) is 1.61
 // GFLOP and 6 MB of weights an iteration; one block cannot hold the weights
-// nor fill the card's 132 SMs. bf16 products (bf16, and f32 at "default")
-// run on the warm-panel engine (csrc/warm_panel.cuh): a cluster of blocks
+// nor fill the card's 132 SMs. 16-bit products (bf16, and f32 at
+// "default"; f16 for an f16 key, ROADMAP A14) run on the warm-panel engine (csrc/warm_panel.cuh): a cluster of blocks
 // shares a row panel, each block owns a share of every layer's output
 // columns (wgmma with the batch rows as N), and the layer's output is
 // exchanged through distributed shared memory; weights stream from the 50
@@ -73,7 +73,8 @@ __host__ __device__ inline size_t smem_bytes(int dmax) {
 template <typename Tmma>
 __device__ void block_product(const Tmma* H, int ldh, float* Z, int ldz,
                               const Tmma* W, int K, int N, bool transposed) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  // WMMA tiles for 16-bit products (bf16 or f16), FMA for f32
+  constexpr bool kTensor = !std::is_same<Tmma, float>::value;
   const int tid = threadIdx.x, warp = tid / 32;
   if constexpr (kTensor) {
     // one 16x16 output tile per warp step; A from shared memory, B
@@ -82,17 +83,17 @@ __device__ void block_product(const Tmma* H, int ldh, float* Z, int ldz,
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
       for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma, wmma::row_major>
+            fa;
         wmma::load_matrix_sync(fa, H + k0, ldh);
         if (transposed) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma, wmma::col_major>
+              fb;
           wmma::load_matrix_sync(fb, W + (size_t)nt * 16 * K + k0, K);
           wmma::mma_sync(acc, fa, fb, acc);
         } else {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma, wmma::row_major>
+              fb;
           wmma::load_matrix_sync(fb, W + (size_t)k0 * N + nt * 16, N);
           wmma::mma_sync(acc, fa, fb, acc);
         }
@@ -142,6 +143,9 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
              ChainParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldh = p.dmax + HPAD, ldz = p.dmax + ZPAD;
+  // the output is f32 or the products' 16-bit type (bf16 for f32 ones)
+  using E16 = typename std::conditional<std::is_same<Tmma, __half>::value,
+                                        __half, __nv_bfloat16>::type;
   Tmma* H = reinterpret_cast<Tmma*>(smem);  // layer input, MXU dtype
   float* Z = reinterpret_cast<float*>(
       smem + align128((size_t)CBM * ldh * sizeof(Tmma)));  // layer output
@@ -196,8 +200,8 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
       for (int i = tid; i < CBM * dl; i += THREADS) {
         const int r = i / dl, c = i % dl;
         if (r0 + r < m)
-          tpp::store_out(out, (size_t)(r0 + r) * dl + c, p.out_dtype,
-                         tpp::to_f32(H[r * ldh + c]));
+          tpp::store_out<E16>(out, (size_t)(r0 + r) * dl + c, p.out_dtype,
+                              tpp::to_f32(H[r * ldh + c]));
       }
     }
   }
@@ -207,7 +211,7 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
     const int r = i / dl, c = i % dl;
     if (r0 + r >= m) continue;
     const float v = p.round_out ? tpp::to_f32(H[r * ldh + c]) : Z[r * ldz + c];
-    tpp::store_out(out, (size_t)(r0 + r) * dl + c, p.out_dtype, v);
+    tpp::store_out<E16>(out, (size_t)(r0 + r) * dl + c, p.out_dtype, v);
   }
 }
 
@@ -230,7 +234,7 @@ int launch(const void* x, void* out, int m, const ChainParams& p,
 // its last forward step, whose hn is the output (the steps after it are
 // dead).
 int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
-              const int* plan, cudaStream_t st) {
+              int mma_dtype, const int* plan, cudaStream_t st) {
   namespace wm = tpp::warm;
   wm::Params p{};
   const int L = c.L;
@@ -258,10 +262,12 @@ int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
   p.mb = c.m;
   p.xkb = c.dims[0];
   p.x_dtype = in_dtype;
-  p.w_dtype = tpp::kBF16;
+  p.w_dtype = mma_dtype;     // the wrapper casts the weights to it
   p.out_dtype = c.out_dtype;
   p.round_out = c.pingpong ? 1 : c.round_out;
-  return wm::run(p, wm::Plan{plan[0], plan[1], plan[2], plan[3]}, st);
+  const wm::Plan pl{plan[0], plan[1], plan[2], plan[3]};
+  return mma_dtype == tpp::kF16 ? wm::run_f16(p, pl, st)
+                                : wm::run(p, pl, st);
 }
 
 }  // namespace
@@ -271,6 +277,8 @@ int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
 extern "C" long long tpp_chain_smem_bytes(int dmax, int mma_dtype) {
   return mma_dtype == tpp::kBF16
              ? static_cast<long long>(smem_bytes<__nv_bfloat16>(dmax))
+         : mma_dtype == tpp::kF16
+             ? static_cast<long long>(smem_bytes<__half>(dmax))
              : static_cast<long long>(smem_bytes<float>(dmax));
 }
 
@@ -279,8 +287,9 @@ extern "C" long long tpp_chain_smem_bytes(int dmax, int mma_dtype) {
 // dims is a host array of L+1 ints. Every dim must be a multiple of 16.
 // pingpong (B5) needs L == 1 and repeats > 1. plan, when not null, is
 // reference.warm_plan's (rows, cluster, resident, shared-memory bytes):
-// the warm-panel engine runs the chain (bf16 products only; 16-byte
-// aligned weights where they stream); null runs the first design.
+// the warm-panel engine runs the chain (16-bit products: bf16, or f16 for
+// f16 x and weights; 16-byte aligned weights where they stream); null runs
+// the first design.
 extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
                          const void* const* b_ptrs, const int* dims, int L,
                          int m, int in_dtype, int mma_dtype, int out_dtype,
@@ -311,8 +320,9 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
   p.m = m;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plan != nullptr)
-    return mma_dtype == tpp::kBF16
-               ? run_panel(x, out, p, in_dtype, plan, st)
+    return mma_dtype == tpp::kBF16 ||
+                   (mma_dtype == tpp::kF16 && in_dtype == tpp::kF16)
+               ? run_panel(x, out, p, in_dtype, mma_dtype, plan, st)
                : static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return launch<float, float>(x, out, m, p, st);
@@ -320,6 +330,8 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
     return launch<float, __nv_bfloat16>(x, out, m, p, st);
   if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, out, m, p, st);
+  if (in_dtype == tpp::kF16 && mma_dtype == tpp::kF16)
+    return launch<__half, __half>(x, out, m, p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -370,7 +370,7 @@ int launch_wgmma(const Conv& cv, const CUtensorMap& wmap, cudaStream_t st) {
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)sm::sm_count() * 8));
-  sm::split_reduce<<<blocks, 256, 0, st>>>(g);
+  sm::split_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

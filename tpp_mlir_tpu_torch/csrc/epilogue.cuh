@@ -3,12 +3,18 @@
 // The codes below match tpp_mlir_tpu_torch/xsmm/kernels.py.
 #pragma once
 
+#include <stdint.h>
+
+#include <type_traits>
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace tpp {
 
-enum Dtype : int { kF32 = 0, kBF16 = 1 };
+// f16 runs in the GEMM family only (B1, B3-B5, B19, B20: ROADMAP A14)
+enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Binary : int { kBinNone = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4,
                     kMax = 5 };
 enum Bcast : int { kBcastCol = 0, kBcastRow = 1, kBcastScalar = 2,
@@ -21,6 +27,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
@@ -29,6 +36,23 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// the Dtype code of a 16-bit type
+template <typename T> __host__ __device__ constexpr int dtype_code() {
+  return std::is_same<T, __half>::value ? kF16 : kBF16;
+}
+
+// a pair of 16-bit E values (the lower address in the low half) as f32
+template <typename E>
+__device__ __forceinline__ float2 pair_f32(uint32_t u) {
+  if constexpr (std::is_same<E, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
 // Exact-erf gelu in the exp2 domain, the constants and evaluation order of
@@ -74,15 +98,22 @@ __device__ __forceinline__ float apply_binary(int kind, float a, float b) {
   }
 }
 
-// v as store_out stores it, read back as f32 (one rounding to bf16)
+// The output and epilogue operands of a kernel are f32 or its one 16-bit
+// type E: bf16 (every kernel but the GEMM family's f16 instantiations), or
+// f16 (those, ROADMAP A14). Keeping one 16-bit branch keeps each
+// instantiation's epilogue as small as the bf16 one.
+
+// v as store_out<E> stores it, read back as f32 (one rounding to E)
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ float round_out(int dtype, float v) {
-  return dtype == kBF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+  return dtype == dtype_code<E>() ? to_f32(from_f32<E>(v)) : v;
 }
 
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void store_out(void* out, size_t i, int dtype,
                                           float v) {
-  if (dtype == kBF16)
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  if (dtype == dtype_code<E>())
+    static_cast<E*>(out)[i] = from_f32<E>(v);
   else
     static_cast<float*>(out)[i] = v;
 }

@@ -811,9 +811,9 @@ int run_wgmma(const Args& a, int batch, cudaStream_t st) {
   const uint64_t sdims[1] = {static_cast<uint64_t>(batch) * a.heads * a.seq};
   const uint32_t sbox[1] = {TR};
   if (rc == 0)
-    rc = hw::make_map(&lm, a.lse, 1, sdims, nullptr, sbox, 0, true);
+    rc = hw::make_map<float>(&lm, a.lse, 1, sdims, nullptr, sbox, 0);
   if (rc == 0)
-    rc = hw::make_map(&dm, a.delta, 1, sdims, nullptr, sbox, 0, true);
+    rc = hw::make_map<float>(&dm, a.delta, 1, sdims, nullptr, sbox, 0);
   if (rc) return rc;
 
   auto kv_kernel = bwd_kv_wgmma_kernel<D, NCW>;

@@ -18,17 +18,20 @@
 //
 // A block computes one BM x BN tile of one (i, j) block (BM = 64 NCW rows,
 // BN 64 or 128 columns) over its share of the k slices (64 deep: one
-// 128-byte swizzled bf16 row chunk) with:
+// 128-byte swizzled row chunk of the 16-bit product type T, bf16 or f16)
+// with:
 //   - one producer: a warp whose one thread keeps a ring of STAGES (A tile,
 //     B tile) stages full by TMA (loader "tma": 3D maps whose per-dimension
 //     out-of-bounds zero fill masks a partial mb, nb or kb, so a tile never
 //     reads a neighbouring block), or a warpgroup that loads through
-//     registers, rounds to bf16 and stores the same swizzled layout (loader
-//     "convert": f32 operands, VNNI B re-laid as MN-major, strides TMA
-//     cannot take), so the consumers run one code;
-//   - NCW consumer warpgroups of 64 rows running wgmma m64nBNk16 with f32
-//     accumulators in registers, one slice's products in flight while the
-//     previous slice's stage goes back to the producer (consume_ring);
+//     registers and stores the same swizzled layout (loader "convert": f32
+//     operands rounded to bf16, VNNI B re-laid as MN-major, strides TMA
+//     cannot take; an f16 operand is copied as raw 16-bit halves, never
+//     converted), so the consumers run one code;
+//   - NCW consumer warpgroups of 64 rows running wgmma m64nBNk16 (.bf16 or
+//     .f16) with f32 accumulators in registers, one slice's products in
+//     flight while the previous slice's stage goes back to the producer
+//     (consume_ring);
 //   - with the LayerNorm prologue, A arrives raw (bf16 by TMA) and each
 //     consumer warpgroup normalizes its 64 rows of the stage in place,
 //     (x - mean) rstd gamma + beta in f32 and one rounding to bf16, while
@@ -39,7 +42,8 @@
 //     mainloop keeps its registers), then rows of it go out with + C, OP D
 //     under its broadcast, the unary (one copy per unary, chosen outside
 //     the loop) and one rounding to the output dtype; C and D are read in
-//     their stored dtype and widened in registers, a row at a time.
+//     their stored dtype (f32, bf16 or f16) and widened in registers, a row
+//     at a time.
 // Where the grid is under half a wave even at 64 x 64, k is split into
 // `split` slices: each block writes its f32 partial tile to a workspace,
 // and split_reduce sums the partials in slice order and runs the epilogue
@@ -78,7 +82,8 @@ struct RingPos {
 // into acc, one slice's products kept in flight while the previous slice's
 // stage goes back to the producer. A stage is an A tile of A_BYTES
 // (warpgroup wg's 64 rows at wg * 8 KB) then a B tile of BN columns, 128
-// bytes deep. f32 acc: bf16 k16 products, 64 k a stage; A_MN 0: A is
+// bytes deep. f32 acc: 16-bit k16 products of type E (bf16 or f16), 64 k
+// a stage; A_MN 0: A is
 // [M][64 k] K-major; 1: [64 k][64 M] MN-major chunks; B_MN 0: B is
 // [BN][64 k] K-major; 1: [64 k][64 N] MN-major chunks. s32 acc: s8 k32
 // products, 128 k a stage, both operands K-major (A_MN = B_MN = 0: wgmma
@@ -90,7 +95,7 @@ struct RingPos {
 // tile while this one's epilogue runs. Without it the walk starts at stage
 // 0 and keeps the last stage (a block of one tile).
 template <int A_MN, int B_MN, int A_BYTES, int BN, int STAGES,
-          class Prep = NoPrep, class Acc = float>
+          class Prep = NoPrep, class Acc = float, class E = __nv_bfloat16>
 __device__ __forceinline__ void consume_ring(Acc (&acc)[BN / 2],
                                              unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
@@ -100,7 +105,7 @@ __device__ __forceinline__ void consume_ring(Acc (&acc)[BN / 2],
   constexpr bool S8 = std::is_same<Acc, int>::value;
   static_assert(S8 ? (BN == 128 || BN == 192) && A_MN == 0 && B_MN == 0
                    : BN == 64 || BN == 128,
-                "wgmma m64n64/n128 bf16, or m64n128/n192 s8 (K-major)");
+                "wgmma m64n64/n128 16-bit, or m64n128/n192 s8 (K-major)");
   constexpr int STAGE = A_BYTES + BK * BN * 2;
   int stage = pos ? pos->stage : 0, phase = pos ? pos->phase : 0, prev = -1;
   for (int kt = 0; kt < slices; ++kt) {
@@ -125,9 +130,9 @@ __device__ __forceinline__ void consume_ring(Acc (&acc)[BN / 2],
       else if constexpr (S8)
         hw::wgmma_m64n128k32_s8(acc, da, db, 1);
       else if constexpr (BN == 128)
-        hw::wgmma_m64n128k16_ss<B_MN, A_MN>(acc, da, db, 1);
+        hw::wgmma_m64n128k16_ss<B_MN, A_MN, E>(acc, da, db, 1);
       else
-        hw::wgmma_m64n64k16_ss<B_MN, A_MN>(acc, da, db, 1);
+        hw::wgmma_m64n64k16_ss<B_MN, A_MN, E>(acc, da, db, 1);
     }
     hw::wgmma_commit();
     // the previous slice's products are done: its stage goes back
@@ -173,7 +178,8 @@ struct Gemm {
   const float* gamma;      // LayerNorm affine, or null
   const float* beta;
   int Mb, Nb, Kb, mb, nb, kb;
-  int in_f32;              // the convert loader's source dtype
+  int in_f32;              // the convert loader's source dtype (bf16
+                           // products); f16 products read f16
   int vec_a, vec_b;        // the convert loader may read 16-byte vectors
   int vec_c, vec_d;        // C and D bases are 16-byte aligned
   int has_c, c_dtype, binary, bcast, d_dtype, unary, out_dtype;
@@ -193,11 +199,13 @@ struct Tile {
   static constexpr int bytes = stats_off + BM * 8;
 };
 
+// element i of an f32 or E (bf16 by default, or f16) operand, as f32
+template <class E = __nv_bfloat16>
 __device__ __forceinline__ float ld_f32(const void* p, size_t i, int dtype) {
-  return dtype == kBF16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-             : static_cast<const float*>(p)[i];
+  return dtype == dtype_code<E>() ? to_f32(static_cast<const E*>(p)[i])
+                                  : static_cast<const float*>(p)[i];
 }
+
 
 // N consecutive source elements (f32 or bf16) from element i as f32; the
 // ones at or past `valid` read as zero. 16-byte vectors where `vec` says
@@ -244,6 +252,41 @@ __device__ __forceinline__ uint4 pack8(const float* x) {
   return make_uint4(hw::pack_bf16(x[0], x[1]), hw::pack_bf16(x[2], x[3]),
                     hw::pack_bf16(x[4], x[5]), hw::pack_bf16(x[6], x[7]));
 }
+
+// ---- the raw 16-bit units of f16 products -----------------------------
+// An f16 operand goes into the stage as it is: N halves are N / 2 words
+// (two halves each, the lower address in the low half), zero past
+// `valid`, one 16-byte vector per 8 halves where `vec` allows it.
+template <int N>
+__device__ __forceinline__ void load_raw(uint32_t (&x)[N / 2], const void* p,
+                                         size_t i, int valid, int vec) {
+  const uint16_t* h = static_cast<const uint16_t*>(p) + i;
+  if (vec && valid == N) {
+#pragma unroll
+    for (int v = 0; v < N / 8; ++v) {
+      const uint4 u = reinterpret_cast<const uint4*>(h)[v];
+      x[4 * v] = u.x; x[4 * v + 1] = u.y;
+      x[4 * v + 2] = u.z; x[4 * v + 3] = u.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    const uint32_t lo = 2 * e < valid ? h[2 * e] : 0u;
+    const uint32_t hi = 2 * e + 1 < valid ? h[2 * e + 1] : 0u;
+    x[e] = lo | (hi << 16);
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const uint32_t* x) {
+  return make_uint4(x[0], x[1], x[2], x[3]);
+}
+
+// A loader's registers for one unit of W source elements: f32 values (bf16
+// products: rounded at the store) or raw words (f16 products)
+template <class E, int W>
+using UnitRegs = typename std::conditional<std::is_same<E, __half>::value,
+                                           uint32_t[W / 2], float[W]>::type;
 
 __device__ __forceinline__ int clamp_run(int left, int n) {
   return left < 0 ? 0 : (left > n ? n : left);
@@ -308,8 +351,21 @@ __device__ __forceinline__ void load_a(float (&x)[8], const Gemm& g,
     ln8(x, P < g.mb ? g.stats[P] : make_float2(0.f, 0.f), n, ga, be);
 }
 
+template <int LN>
+__device__ __forceinline__ void load_a(uint32_t (&x)[4], const Gemm& g,
+                                       int unit, size_t a_row, int p0,
+                                       int q0, const float (&)[8],
+                                       const float (&)[8]) {
+  static_assert(LN == kLnNone, "the LayerNorm prologue is bf16-only");
+  const int P = p0 + unit / A_ROW_UNITS;
+  const int q = q0 + (unit % A_ROW_UNITS) * 8;
+  load_raw<8>(x, g.a, (a_row + P) * g.kb + q,
+              P < g.mb ? clamp_run(g.kb - q, 8) : 0, g.vec_a);
+}
+
+template <class X>
 __device__ __forceinline__ void store_a(unsigned char* sa, int unit,
-                                        const float (&x)[8]) {
+                                        const X& x) {
   *reinterpret_cast<uint4*>(
       sa + unit_at(unit / A_ROW_UNITS, unit % A_ROW_UNITS)) = pack8(x);
 }
@@ -335,9 +391,51 @@ __device__ __forceinline__ void load_b(float (&x)[BUnits<BMODE, BN>::W],
   }
 }
 
+// load_b for f16 products: the same units as raw halves
 template <int BMODE, int BN>
-__device__ __forceinline__ void store_b(
-    unsigned char* sb, int unit, const float (&x)[BUnits<BMODE, BN>::W]) {
+__device__ __forceinline__ void load_b(
+    uint32_t (&x)[BUnits<BMODE, BN>::W / 2], const Gemm& g, int unit,
+    size_t b_blk, int t0, int q0) {
+  using U = BUnits<BMODE, BN>;
+  if constexpr (BMODE == kBMn) {
+    const int Q = q0 + unit / U::ROW, t = t0 + (unit % U::ROW) * 8;
+    load_raw<8>(x, g.b, (b_blk * g.kb + Q) * g.nb + t,
+                Q < g.kb ? clamp_run(g.nb - t, 8) : 0, g.vec_b);
+  } else if constexpr (BMODE == kBK) {
+    const int T = t0 + unit / 8, q = q0 + (unit % 8) * 8;
+    load_raw<8>(x, g.b, (b_blk * g.nb + T) * g.kb + q,
+                T < g.nb ? clamp_run(g.kb - q, 8) : 0, g.vec_b);
+  } else {
+    const int Q = q0 + 2 * (unit / U::ROW), t = t0 + (unit % U::ROW) * 8;
+    load_raw<16>(x, g.b, ((b_blk * (g.kb / 2) + Q / 2) * g.nb + t) * 2,
+                 Q < g.kb ? 2 * clamp_run(g.nb - t, 8) : 0, g.vec_b);
+  }
+}
+
+// a VNNI2 unit's two k rows: 8 columns of row Q (the even halves) and of
+// row Q + 1 (the odd ones), as f32 values or raw halves
+__device__ __forceinline__ void split_vnni(const float (&x)[16],
+                                           float (&lo)[8], float (&hi)[8]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    lo[c] = x[2 * c];
+    hi[c] = x[2 * c + 1];
+  }
+}
+
+__device__ __forceinline__ void split_vnni(const uint32_t (&x)[8],
+                                           uint32_t (&lo)[4],
+                                           uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    lo[c] = __byte_perm(x[2 * c], x[2 * c + 1], 0x5410);
+    hi[c] = __byte_perm(x[2 * c], x[2 * c + 1], 0x7632);
+  }
+}
+
+template <int BMODE, int BN, class X>
+__device__ __forceinline__ void store_b(unsigned char* sb, int unit,
+                                        const X& x) {
   using U = BUnits<BMODE, BN>;
   if constexpr (BMODE == kBK) {
     *reinterpret_cast<uint4*>(sb + unit_at(unit / 8, unit % 8)) = pack8(x);
@@ -349,12 +447,9 @@ __device__ __forceinline__ void store_b(
           pack8(x);
     } else {
       const int q = 2 * (unit / U::ROW);
-      float lo[8], hi[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        lo[c] = x[2 * c];
-        hi[c] = x[2 * c + 1];
-      }
+      using E = typename std::remove_extent<X>::type;
+      E lo[std::extent<X>::value / 2], hi[std::extent<X>::value / 2];
+      split_vnni(x, lo, hi);
       *reinterpret_cast<uint4*>(chunk + unit_at(q, u % 8)) = pack8(lo);
       *reinterpret_cast<uint4*>(chunk + unit_at(q + 1, u % 8)) = pack8(hi);
     }
@@ -362,12 +457,13 @@ __device__ __forceinline__ void store_b(
 }
 
 // The convert loader: the producer warpgroup (thread ptid) fills stage
-// after stage through registers, rounding to bf16 (with the LayerNorm
-// prologue, after normalizing in f32), in the layouts TMA would write;
-// elements past the block's mb, nb or kb are zero. A stage's loads go out
-// in one round (two for the larger tiles, to bound the registers) before
-// any of its stores, so one thread keeps up to 64 values in flight.
-template <int NCW, int BN, int BMODE, int LN>
+// after stage through registers, in the layouts TMA would write: for bf16
+// products (E) each value rounded to bf16 (with the LayerNorm prologue,
+// after normalizing in f32); for f16 products raw halves, copied as they
+// are; elements past the block's mb, nb or kb are zero. A stage's loads
+// go out in one round (two for the larger tiles, to bound the registers)
+// before any of its stores, so one thread keeps up to 64 values in flight.
+template <int NCW, int BN, int BMODE, int LN, class E>
 __device__ __forceinline__ void produce_convert(const Gemm& g,
                                                 unsigned char* smem,
                                                 uint64_t* full,
@@ -394,7 +490,8 @@ __device__ __forceinline__ void produce_convert(const Gemm& g,
     const size_t b_blk = (size_t)j * g.Kb + r;
 #pragma unroll
     for (int h = 0; h < R; ++h) {
-      float xa[RA][8], xb[RB][UB::W];
+      UnitRegs<E, 8> xa[RA];
+      UnitRegs<E, UB::W> xb[RB];
 #pragma unroll
       for (int e = 0; e < RA; ++e)
         load_a<LN>(xa[e], g, ptid + (h * RA + e) * WG, a_row, p0, q0, ga,
@@ -415,7 +512,8 @@ __device__ __forceinline__ void produce_convert(const Gemm& g,
   }
 }
 
-// The LayerNorm prologue on the raw bf16 A rows TMA delivered: consumer
+// The LayerNorm prologue (bf16 products only) on the raw bf16 A rows TMA
+// delivered: consumer
 // warpgroup wg normalizes its 64 rows of a stage in place (thread ctid
 // takes the 16-byte units of column group ctid % 8 in rows ctid / 8 +
 // 16 e), in f32 from the rows' (mean, rstd) (in shared memory: the block
@@ -459,28 +557,26 @@ struct LnPrep {
 };
 
 // D's element for output element o = (block (i, j), row p, column t)
+template <class E>
 __device__ __forceinline__ float d_at(const Gemm& g, size_t o, int i, int j,
                                       int p, int t) {
   switch (g.bcast) {
-    case kBcastCol: return ld_f32(g.d, (size_t)j * g.nb + t, g.d_dtype);
-    case kBcastRow: return ld_f32(g.d, (size_t)i * g.mb + p, g.d_dtype);
-    case kBcastScalar: return ld_f32(g.d, 0, g.d_dtype);
-    default: return ld_f32(g.d, o, g.d_dtype);
+    case kBcastCol: return ld_f32<E>(g.d, (size_t)j * g.nb + t, g.d_dtype);
+    case kBcastRow: return ld_f32<E>(g.d, (size_t)i * g.mb + p, g.d_dtype);
+    case kBcastScalar: return ld_f32<E>(g.d, 0, g.d_dtype);
+    default: return ld_f32<E>(g.d, o, g.d_dtype);
   }
 }
 
-// n (<= 4) consecutive f32 or bf16 values from element i, zero past n; one
-// 16-byte (f32) or 8-byte (bf16) load where `vec`
+// n (<= 4) consecutive f32 or E values from element i, zero past n; one
+// 16-byte (f32) or 8-byte (E) load where `vec`
+template <class E = __nv_bfloat16>
 __device__ __forceinline__ void load4(float (&x)[4], const void* p, size_t i,
                                       int dtype, bool vec, int n) {
-  if (vec && dtype == kBF16) {
-    const uint2 u =
-        *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) +
-                                        i);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  if (vec && dtype == dtype_code<E>()) {
+    const uint2 u = *reinterpret_cast<const uint2*>(static_cast<const E*>(p) +
+                                                    i);
+    const float2 lo = pair_f32<E>(u.x), hi = pair_f32<E>(u.y);
     x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
   } else if (vec) {
     const float4 f =
@@ -488,7 +584,8 @@ __device__ __forceinline__ void load4(float (&x)[4], const void* p, size_t i,
     x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) x[e] = e < n ? ld_f32(p, i + e, dtype) : 0.f;
+    for (int e = 0; e < 4; ++e)
+      x[e] = e < n ? ld_f32<E>(p, i + e, dtype) : 0.f;
   }
 }
 
@@ -504,8 +601,9 @@ __device__ __forceinline__ void load4(float (&x)[4], const void* p, size_t i,
 // are summed, and squared and summed, over the tile's columns: a thread's
 // run in column order, then a shuffle tree over the RUNS threads of the row
 // (within one warp), so the partial is the same at every launch; the row's
-// lead thread writes it to g.rowpart[tile column][row].
-template <int BM, int BN, int THREADS, int U>
+// lead thread writes it to g.rowpart[tile column][row]. C, D and the
+// output are f32 or E, the products' 16-bit type.
+template <int BM, int BN, int THREADS, int U, class E>
 __device__ __forceinline__ void epilogue_rows(const Gemm& g,
                                               const float* tile, int i,
                                               int j, int p0, int t0, int ks,
@@ -521,7 +619,7 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
   const bool epi = g.split == 1;
   float dcol[4] = {0.f, 0.f, 0.f, 0.f};
   if (epi && g.binary != kBinNone && g.bcast == kBcastCol)
-    load4(dcol, g.d, (size_t)j * g.nb + t, g.d_dtype, vec && g.vec_d, n);
+    load4<E>(dcol, g.d, (size_t)j * g.nb + t, g.d_dtype, vec && g.vec_d, n);
 #pragma unroll 1
   for (int r0 = ctid / RUNS; r0 < BM; r0 += STEP * R) {
     float v[R][4];
@@ -534,14 +632,14 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
       if (!epi || p >= g.mb || n == 0) continue;
       const size_t o = (blk + p) * g.nb + t;
       float c[4] = {0.f, 0.f, 0.f, 0.f}, d[4];
-      if (g.has_c) load4(c, g.c, o, g.c_dtype, vec && g.vec_c, n);
+      if (g.has_c) load4<E>(c, g.c, o, g.c_dtype, vec && g.vec_c, n);
       if (g.binary == kBinNone || g.bcast == kBcastCol) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[e] = dcol[e];
       } else if (g.bcast == kBcastNone) {
-        load4(d, g.d, o, g.d_dtype, vec && g.vec_d, n);
+        load4<E>(d, g.d, o, g.d_dtype, vec && g.vec_d, n);
       } else {
-        const float x = ld_f32(
+        const float x = ld_f32<E>(
             g.d, g.bcast == kBcastRow ? (size_t)i * g.mb + p : 0, g.d_dtype);
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[e] = x;
@@ -586,24 +684,21 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
       if (stats) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float y = e < n ? round_out(g.out_dtype, x[e]) : 0.f;
+          const float y = e < n ? round_out<E>(g.out_dtype, x[e]) : 0.f;
           s1[r] += y;
           s2[r] += y * y;
         }
       }
-      if (vec && g.out_dtype == kBF16) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(g.out) + o) =
-            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                       *reinterpret_cast<const uint32_t*>(&hi));
+      if (vec && g.out_dtype == dtype_code<E>()) {
+        *reinterpret_cast<uint2*>(static_cast<E*>(g.out) + o) = make_uint2(
+            hw::pack16<E>(x[0], x[1]), hw::pack16<E>(x[2], x[3]));
       } else if (vec) {
         *reinterpret_cast<float4*>(static_cast<float*>(g.out) + o) =
             make_float4(x[0], x[1], x[2], x[3]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (e < n) store_out(g.out, o + e, g.out_dtype, x[e]);
+          if (e < n) store_out<E>(g.out, o + e, g.out_dtype, x[e]);
       }
     }
     if (stats) {
@@ -627,7 +722,7 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
 // 16 warp + lane / 4 + 8 h, column 8 jj + 2 (lane % 4) + e of the
 // warpgroup's 64 rows. Every consumer thread of the block takes part
 // (named barrier 1).
-template <int NCW, int BN>
+template <int NCW, int BN, class E = __nv_bfloat16>
 __device__ __forceinline__ void store_tile(float (&acc)[BN / 2],
                                            unsigned char* smem,
                                            const Gemm& g, int i, int j,
@@ -647,7 +742,7 @@ __device__ __forceinline__ void store_tile(float (&acc)[BN / 2],
   switch (g.split > 1 ? kIdentity : g.unary) {
 #define TPP_EPILOGUE(U)                                                    \
   case U:                                                                  \
-    epilogue_rows<BM, BN, THREADS, U>(g, tile, i, j, p0, t0, ks, ctid);    \
+    epilogue_rows<BM, BN, THREADS, U, E>(g, tile, i, j, p0, t0, ks, ctid); \
     break;
     TPP_EPILOGUE(kRelu)
     TPP_EPILOGUE(kExp)
@@ -661,15 +756,16 @@ __device__ __forceinline__ void store_tile(float (&acc)[BN / 2],
     TPP_EPILOGUE(kZero)
 #undef TPP_EPILOGUE
     default:
-      epilogue_rows<BM, BN, THREADS, kIdentity>(g, tile, i, j, p0, t0, ks,
-                                                ctid);
+      epilogue_rows<BM, BN, THREADS, kIdentity, E>(g, tile, i, j, p0, t0, ks,
+                                                   ctid);
   }
 }
 
-template <int NCW, int BN, int BMODE, int LOADER, int LN>
+template <int NCW, int BN, int BMODE, int LOADER, int LN, class E>
 // Two blocks an SM where the registers allow it without spilling (ptxas,
 // 112 a thread at 288 threads); a 128-row block with a convert warpgroup
-// or the LayerNorm prologue takes one.
+// or the LayerNorm prologue takes one. E is the products' type (bf16, or
+// f16; the LayerNorm prologue is bf16-only).
 __global__ void __launch_bounds__(
     NCW * WG + (LOADER == kTma ? 32 : WG),
     (NCW == 2 && (LOADER == kConvert || LN != kLnNone)) ? 1 : 2)
@@ -677,6 +773,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
             const __grid_constant__ CUtensorMap bmap,
             const __grid_constant__ Gemm g) {
   using T = Tile<NCW, BN>;
+  static_assert(LN == kLnNone || std::is_same<E, __nv_bfloat16>::value,
+                "the LayerNorm prologue is bf16-only");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
                                     % 1024);
@@ -726,8 +824,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
         if (++stage == T::STAGES) { stage = 0; phase ^= 1; }
       }
     } else {
-      produce_convert<NCW, BN, BMODE, LN>(g, smem, full, empty, tid - NCW * WG,
-                                          i, j, p0, t0, s_lo, s_hi, kpb);
+      produce_convert<NCW, BN, BMODE, LN, E>(g, smem, full, empty,
+                                             tid - NCW * WG, i, j, p0, t0,
+                                             s_lo, s_hi, kpb);
     }
     return;
   }
@@ -742,16 +841,17 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
         acc, smem, full, empty, s_hi - s_lo, wg,
         LnPrep(g, stats, s_lo, kpb, wg));
   else
-    consume_ring<0, B_MN, T::A_BYTES, BN, T::STAGES>(
+    consume_ring<0, B_MN, T::A_BYTES, BN, T::STAGES, NoPrep, float, E>(
         acc, smem, full, empty, s_hi - s_lo, wg);
   static_assert(T::BM * (BN + 8) * 4 <= T::bar_off,
                 "the output tile fits in the ring");
-  store_tile<NCW, BN>(acc, smem, g, i, j, p0, t0, ks);
+  store_tile<NCW, BN, E>(acc, smem, g, i, j, p0, t0, ks);
 }
 
 // The split partials summed in slice order, then the epilogue, once an
-// output element. (static: each source that includes this header has its
-// own copy.)
+// output element; C, D and the output f32 or E. (static: each source that
+// includes this header has its own copy.)
+template <class E>
 static __global__ void __launch_bounds__(256) split_reduce(const Gemm g) {
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
@@ -763,10 +863,10 @@ static __global__ void __launch_bounds__(256) split_reduce(const Gemm g) {
     const int p = static_cast<int>(row % g.mb);
     const int j = static_cast<int>((row / g.mb) % g.Nb);
     const int i = static_cast<int>(row / ((size_t)g.mb * g.Nb));
-    if (g.has_c) v += ld_f32(g.c, o, g.c_dtype);
+    if (g.has_c) v += ld_f32<E>(g.c, o, g.c_dtype);
     if (g.binary != kBinNone)
-      v = apply_binary(g.binary, v, d_at(g, o, i, j, p, t));
-    store_out(g.out, o, g.out_dtype, apply_unary(g.unary, v));
+      v = apply_binary(g.binary, v, d_at<E>(g, o, i, j, p, t));
+    store_out<E>(g.out, o, g.out_dtype, apply_unary(g.unary, v));
   }
 }
 
@@ -901,11 +1001,11 @@ inline bool launch_plan_ok(const long long* plan, int Mb, int Nb, int Kb,
              plan[3];
 }
 
-template <int NCW, int BN, int BMODE, int LOADER, int LN>
+template <int NCW, int BN, int BMODE, int LOADER, int LN, class E>
 int launch(const Gemm& g, const CUtensorMap& amap, const CUtensorMap& bmap,
            cudaStream_t st) {
   using T = Tile<NCW, BN>;
-  auto kernel = gemm_kernel<NCW, BN, BMODE, LOADER, LN>;
+  auto kernel = gemm_kernel<NCW, BN, BMODE, LOADER, LN, E>;
   constexpr int smem = T::bytes + 1024;  // + the 1024-byte alignment
   static unsigned long long opted = 0;   // devices the attribute is set on
   int dev = 0;
@@ -925,40 +1025,52 @@ int launch(const Gemm& g, const CUtensorMap& amap, const CUtensorMap& bmap,
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)sm_count() * 8));
-  split_reduce<<<blocks, 256, 0, st>>>(g);
+  split_reduce<E><<<blocks, 256, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch() at the plan's tile
-template <int BMODE, int LOADER, int LN>
+// launch() at the plan's tile, the products bf16 (E) or f16
+template <int BMODE, int LOADER, int LN, class E = __nv_bfloat16>
 int launch_plan(const Plan& p, const Gemm& g, const CUtensorMap& amap,
                 const CUtensorMap& bmap, cudaStream_t st) {
   if (p.bm == 128)
-    return launch<2, 128, BMODE, LOADER, LN>(g, amap, bmap, st);
-  if (p.bn == 128) return launch<1, 128, BMODE, LOADER, LN>(g, amap, bmap, st);
-  return launch<1, 64, BMODE, LOADER, LN>(g, amap, bmap, st);
+    return launch<2, 128, BMODE, LOADER, LN, E>(g, amap, bmap, st);
+  if (p.bn == 128)
+    return launch<1, 128, BMODE, LOADER, LN, E>(g, amap, bmap, st);
+  return launch<1, 64, BMODE, LOADER, LN, E>(g, amap, bmap, st);
 }
 
-// The 3D tensor maps of the "tma" loader over bf16 operands. A [Mb, Kb,
+// launch_plan at f16 products (no LayerNorm prologue) for a B mode
+// (kBMn, kBK, kBVnni) and a loader (kTma, kConvert): its instantiations
+// live in csrc/gemm_f16.cu, a translation unit of their own, so that nvcc
+// builds them beside brgemm.cu and blocked_matmul.cu rather than after
+// them. Returns cudaErrorInvalidValue for a mode it does not run.
+int launch_plan_f16(int bmode, int loader, const Plan& p, const Gemm& g,
+                    const CUtensorMap& amap, const CUtensorMap& bmap,
+                    cudaStream_t st);
+
+// The 3D tensor maps of the "tma" loader over 16-bit operands of type E
+// (bf16 or f16). A [Mb, Kb,
 // mb, kb] is (kb, mb, Mb Kb) (Mb's stride is Kb times Kb's, so the two are
 // one dimension, coordinate i Kb + r), in (64 k x BM rows) boxes; B [Nb,
 // Kb, kb, nb] is (nb, kb, Nb Kb) in (64 n x 64 k) boxes (MN-major), or
 // [Nb, Kb, nb, kb] (kb, nb, Nb Kb) in (64 k x BN n) boxes (K-major).
 // Out-of-bounds rows and columns of a block read as zero.
+template <class E = __nv_bfloat16>
 inline int make_maps(CUtensorMap* amap, CUtensorMap* bmap, const Gemm& g,
                      const Plan& p, int bmode) {
   const uint64_t mb = g.mb, nb = g.nb, kb = g.kb;
   const uint64_t a_dims[3] = {kb, mb, (uint64_t)g.Mb * g.Kb};
   const uint64_t a_strides[2] = {kb * 2, mb * kb * 2};
   const uint32_t a_box[3] = {BK, static_cast<uint32_t>(p.bm), 1};
-  int rc = hw::make_map(amap, g.a, 3, a_dims, a_strides, a_box, 128);
+  int rc = hw::make_map<E>(amap, g.a, 3, a_dims, a_strides, a_box, 128);
   if (rc) return rc;
   const uint64_t inner = bmode == kBK ? kb : nb, outer = bmode == kBK ? nb : kb;
   const uint64_t b_dims[3] = {inner, outer, (uint64_t)g.Nb * g.Kb};
   const uint64_t b_strides[2] = {inner * 2, outer * inner * 2};
   const uint32_t b_box[3] = {
       64, static_cast<uint32_t>(bmode == kBK ? p.bn : BK), 1};
-  return hw::make_map(bmap, g.b, 3, b_dims, b_strides, b_box, 128);
+  return hw::make_map<E>(bmap, g.b, 3, b_dims, b_strides, b_box, 128);
 }
 
 // whether 16-byte vector loads can read rows of `row_elems` elements of

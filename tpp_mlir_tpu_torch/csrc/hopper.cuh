@@ -3,12 +3,13 @@
 // their arrival on an mbarrier), the 16-byte swizzle of shared-memory tiles,
 // thread block clusters (rank, the split cluster barrier, bulk copies into
 // a peer block's shared memory), wgmma's shared-memory matrix descriptors,
-// its fence/commit/wait sequence and the bf16 m64nNk16 products (both
-// operands from shared memory, or A from registers), with f32 accumulators
-// in registers, and the s8 m64nNk32 products (both operands K-major from
-// shared memory) with s32 accumulators.
+// its fence/commit/wait sequence and the 16-bit m64nNk16 products (bf16,
+// or f16 for the GEMM family's f16 keys; both operands from shared memory,
+// or A from registers), with f32 accumulators in registers, and the s8
+// m64nNk32 products (both operands K-major from shared memory) with s32
+// accumulators.
 //
-// Tiles: a bf16 tile is kept as "chunks" of SW bytes a row (SW = 128, or 64
+// Tiles: a 16-bit (bf16 or f16) tile is kept as "chunks" of SW bytes a row (SW = 128, or 64
 // for a 32-column tile), each chunk a [rows][SW] block whose 16-byte units
 // are XOR-swizzled by the row (swizzle() below), exactly as TMA writes a
 // box under CU_TENSOR_MAP_SWIZZLE_128B / _64B and as wgmma reads it under
@@ -34,8 +35,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tpp {
 namespace hopper {
@@ -101,14 +105,26 @@ inline int make_map_typed(CUtensorMap* map, CUtensorMapDataType type,
   return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// make_map_typed over bf16 elements, or f32 with `f32`
+// the tensor-map element type of T
+template <class T> struct MapType;
+template <> struct MapType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <> struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct MapType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// make_map_typed over elements of T (bf16 by default, f16, or f32)
+template <class T = __nv_bfloat16>
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box, int swizzle, bool f32 = false) {
-  return make_map_typed(map,
-                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        base, rank, dims, strides, box, swizzle);
+                    const uint32_t* box, int swizzle) {
+  return make_map_typed(map, MapType<T>::value, base, rank, dims, strides,
+                        box, swizzle);
 }
 
 // ---- device: shared memory, barriers, TMA ------------------------------
@@ -398,142 +414,184 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two values as a pair of the 16-bit product type T (bf16 or f16)
+template <class T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
+// The products' type is part of a wgmma's name (.bf16 or .f16), so each
+// wrapper below writes its asm once, as a macro of the type's name, and
+// expands it for the product type T it is instantiated at.
+#define TPP_WGMMA_TYPED(T, ASM)                   \
+  if constexpr (std::is_same<T, __half>::value) { \
+    ASM("f16");                                   \
+  } else {                                        \
+    ASM("bf16");                                  \
+  }
+
 // Register layout of an m64nN f32 accumulator (and of the A fragment): warp
 // w of the warpgroup holds rows 16 w + lane / 4 and 16 w + lane / 4 + 8;
 // d[4 j + 2 h + e] is row 16 w + lane / 4 + 8 h, column 8 j + 2 (lane % 4)
 // + e. An A fragment of 16 columns is {rows +0 cols 0-7, rows +8 cols 0-7,
-// rows +0 cols 8-15, rows +8 cols 8-15} as bf16 pairs, so the accumulator
+// rows +0 cols 8-15, rows +8 cols 8-15} as 16-bit pairs, so the accumulator
 // of a product is the A fragment of the next one with no shuffle.
 
 // m64n16k16, A and B from shared memory: 8 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %10, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                     \
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                 \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n24k16, A and B from shared memory: 12 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n24k16_ss(float (&d)[12], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %14, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11"
-      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %14, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11"                                                   \
+      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11])                                           \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n32k16, A and B from shared memory: 16 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %18, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                               \
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15])                                                        \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n40k16, A and B from shared memory: 20 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n40k16_ss(float (&d)[20], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %22, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19"
-      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %22, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19"                                                 \
+      "}, %20, %21, p, 1, 1, %23, %24;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])    \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n64k16, A and B from shared memory: 32 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %34, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n128k16, A and B from shared memory: 64 f32 accumulators a thread;
-// TRANS_A / TRANS_B 1 read an MN-major A / B tile
-template <int TRANS_B, int TRANS_A = 0>
+// TRANS_A / TRANS_B 1 read an MN-major A / B tile; T the product type
+template <int TRANS_B, int TRANS_A = 0, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %66, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                             \
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),   \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),   \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                 \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // m64n128k32, s8 x s8 -> s32, A and B K-major from shared memory: 64 s32
@@ -613,87 +671,96 @@ __device__ __forceinline__ void wgmma_m64n192k32_s8(int (&d)[96], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// m64n32k16, A from registers (four bf16x2 a thread), B from shared
-// memory: 16 f32 accumulators a thread
-template <int TRANS_B>
+// m64n32k16, A from registers (four 16-bit pairs a thread), B from shared
+// memory: 16 f32 accumulators a thread; T the product type
+template <int TRANS_B, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %21, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                               \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15])                                                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
-// m64n64k16, A from registers (four bf16x2 a thread), B from shared
-// memory: 32 f32 accumulators a thread
-template <int TRANS_B>
+// m64n64k16, A from registers (four 16-bit pairs a thread), B from shared
+// memory: 32 f32 accumulators a thread; T the product type
+template <int TRANS_B, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %37, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                             \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
-// m64n128k16, A from registers (four bf16x2 a thread), B from shared
-// memory: 64 f32 accumulators a thread
-template <int TRANS_B>
+// m64n128k16, A from registers (four 16-bit pairs a thread), B from shared
+// memory: 64 f32 accumulators a thread; T the product type
+template <int TRANS_B, class T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
                                                     const uint32_t (&a)[4],
                                                     uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TRANS_B));
+#define TPP_WGMMA(TY)                                                      \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %69, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                             \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),   \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),   \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), \
+        "n"(TRANS_B))
+  TPP_WGMMA_TYPED(T, TPP_WGMMA);
+#undef TPP_WGMMA
 }
 
 // ---- device: products over the chunks of D-column bf16 tiles ----------

@@ -156,8 +156,11 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(Args a) {
         const int e = lane * 8 + t, r = e / 16, c = e % 16;
         const int row = m0 + wm + i * 16 + r, col = n0 + wn + j * 16 + c;
         if (row >= a.m || col >= a.n) continue;
-        float y = static_cast<float>(cs[e]) * a.xs[row] * a.ws[col];
-        if (a.bias != nullptr) y += a.bias[col];
+        // the TPU kernel's order with no contraction, as the wgmma body
+        // (an FMA here would leave the two designs apart by an ulp)
+        float y = __fmul_rn(__fmul_rn(static_cast<float>(cs[e]), a.xs[row]),
+                            a.ws[col]);
+        if (a.bias != nullptr) y = __fadd_rn(y, a.bias[col]);
         tpp::store_out(a.out, (size_t)row * a.n + col, a.out_dtype,
                        tpp::apply_unary(a.unary, y));
       }

@@ -25,7 +25,8 @@
 //     independent chains (a chain of dependent small products is bound by
 //     their latency);
 //   - the epilogue in registers (OP D along the columns, the unary, one
-//     rounding to bf16, exactly where the plain version rounds) into a
+//     rounding to the 16-bit product type E -- bf16, or f16 for an f16 key
+//     (ROADMAP A14) -- exactly where the plain version rounds) into a
 //     local staging tile (two, used in turns); columns past N are zero and
 //     never stored;
 //   - the exchange: the consumers arrive at every block's `freed` barrier
@@ -38,12 +39,13 @@
 //     that chunk. One panel buffer, no cluster-wide barrier a step, no
 //     thread stores into a peer.
 // The last step stores its tiles to device memory from registers instead
-// (f32 unrounded for B3, else the bf16 state), so a run reads x once and
+// (f32 unrounded for B3, else the state in E), so a run reads x once and
 // writes the output once; rows past m are zero in the panel and never
 // stored. Weights are either resident (every slice a block owns at every
-// step, loaded once at the start through registers, rounded to bf16 there:
-// f32 and VNNI-packed weights read in place, so no conversion runs on the
-// repeat loop) or streamed from L2 (bf16 row-major weights by 2D TMA
+// step, loaded once at the start through registers, rounded to E there: f32
+// and VNNI-packed weights read in place, so no conversion runs on the
+// repeat loop; an f16 weight's values pass unchanged) or streamed from L2
+// (row-major weights in E by 2D TMA
 // through a ring of STAGES 64 x 64 slices that the feeder keeps full: the
 // weight sequence does not depend on the data, so the next step's slices
 // land while this step's exchange runs). No atomics and a fixed sum order:
@@ -72,7 +74,7 @@ namespace hw = tpp::hopper;
 constexpr int WG = 128;                   // the consumer warpgroup
 constexpr int THREADS = WG + 64;          // + a feeder and a sender warp
 constexpr int TILE = 64;                  // a tile's columns, a slice's depth
-constexpr int SLICE = TILE * TILE * 2;    // a 64 x 64 bf16 weight slice
+constexpr int SLICE = TILE * TILE * 2;    // a 64 x 64 16-bit weight slice
 constexpr int STAGES = 8;                 // the streamed ring
 constexpr int MAXS = 32;                  // steps of a period (chain.cu MAXL)
 constexpr int MAPS = 8;                   // streamed weights (tensor maps)
@@ -118,23 +120,25 @@ __device__ __forceinline__ int owned(int N, int rank, int C) {
   return rank < nt ? cdiv(nt - rank, C) : 0;
 }
 
+// element i of an f32 or E (the products' type: bf16, or f16) operand
+template <class E>
 __device__ __forceinline__ float ld(const void* p, size_t i, int dtype) {
-  return dtype == kBF16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-             : static_cast<const float*>(p)[i];
+  return dtype == dtype_code<E>() ? to_f32(static_cast<const E*>(p)[i])
+                                  : static_cast<const float*>(p)[i];
 }
 
-// eight consecutive f32 or bf16 elements at element i of base (16-byte
+// eight consecutive f32 or E elements at element i of base (16-byte
 // aligned), widened to f32
+template <class E>
 __device__ __forceinline__ void ld8(const void* base, size_t i, int dtype,
                                     float (&v)[8]) {
-  if (dtype == kBF16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(base) + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  if (dtype == dtype_code<E>()) {
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(static_cast<const E*>(base) + i);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
+      const float2 f = pair_f32<E>(w[e]);
       v[2 * e] = f.x;
       v[2 * e + 1] = f.y;
     }
@@ -147,14 +151,16 @@ __device__ __forceinline__ void ld8(const void* base, size_t i, int dtype,
   }
 }
 
-// eight values as bf16 into one 16-byte unit of shared memory
+// eight values in the product type E (bf16 or f16) into one 16-byte unit
+// of shared memory
+template <class E>
 __device__ __forceinline__ void store8(unsigned char* dst,
                                        const float (&v)[8]) {
   uint4 u;
-  u.x = hw::pack_bf16(v[0], v[1]);
-  u.y = hw::pack_bf16(v[2], v[3]);
-  u.z = hw::pack_bf16(v[4], v[5]);
-  u.w = hw::pack_bf16(v[6], v[7]);
+  u.x = hw::pack16<E>(v[0], v[1]);
+  u.y = hw::pack16<E>(v[2], v[3]);
+  u.z = hw::pack16<E>(v[4], v[5]);
+  u.w = hw::pack16<E>(v[6], v[7]);
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
@@ -168,23 +174,23 @@ __device__ __forceinline__ size_t w_index(const Params& p, int k, int n,
          (size_t)(kk - kk % V) * nb + (size_t)nn * V + kk % V;
 }
 
-template <int P, int TRANS_A>
+template <int P, int TRANS_A, class E>
 __device__ __forceinline__ void mma(float (&d)[P / 2], uint64_t da,
                                     uint64_t db) {
   if constexpr (P == 16)
-    hw::wgmma_m64n16k16_ss<0, TRANS_A>(d, da, db, 1);
+    hw::wgmma_m64n16k16_ss<0, TRANS_A, E>(d, da, db, 1);
   else if constexpr (P == 24)
-    hw::wgmma_m64n24k16_ss<0, TRANS_A>(d, da, db, 1);
+    hw::wgmma_m64n24k16_ss<0, TRANS_A, E>(d, da, db, 1);
   else if constexpr (P == 32)
-    hw::wgmma_m64n32k16_ss<0, TRANS_A>(d, da, db, 1);
+    hw::wgmma_m64n32k16_ss<0, TRANS_A, E>(d, da, db, 1);
   else if constexpr (P == 40)
-    hw::wgmma_m64n40k16_ss<0, TRANS_A>(d, da, db, 1);
+    hw::wgmma_m64n40k16_ss<0, TRANS_A, E>(d, da, db, 1);
   else
-    hw::wgmma_m64n64k16_ss<0, TRANS_A>(d, da, db, 1);
+    hw::wgmma_m64n64k16_ss<0, TRANS_A, E>(d, da, db, 1);
 }
 
 // the four k16 products of one 64-deep slice, each into its own chain
-template <int P, int FWD>
+template <int P, int FWD, class E>
 __device__ __forceinline__ void slice_products(float (&ch)[4][P / 2],
                                                const unsigned char* a,
                                                const unsigned char* b) {
@@ -193,7 +199,7 @@ __device__ __forceinline__ void slice_products(float (&ch)[4][P / 2],
     const uint64_t da =
         FWD ? hw::make_desc<128>(a + kk * 16 * 128, SLICE, 1024)
             : hw::make_desc<128>(a + kk * 32, 16, 1024);
-    mma<P, FWD>(ch[kk], da, hw::make_desc<128>(b + kk * 32, 16, 1024));
+    mma<P, FWD, E>(ch[kk], da, hw::make_desc<128>(b + kk * 32, 16, 1024));
   }
 }
 
@@ -213,7 +219,7 @@ __device__ __forceinline__ void fence_chains(float (&ch)[4][P / 2]) {
 // it: the k16 steps go to independent accumulator chains (8: four a slice,
 // even and odd slices apart; 4 above P = 32, for registers), summed in a
 // fixed order at the end. `c` counts the ring's slices.
-template <int P, int FWD>
+template <int P, int FWD, class E>
 __device__ __forceinline__ void tile_products(
     float (&acc)[P / 2], const unsigned char* panel, const unsigned char* res,
     unsigned char* ring, uint64_t* full, uint64_t* empty, uint64_t* landed,
@@ -242,7 +248,7 @@ __device__ __forceinline__ void tile_products(
 #pragma unroll
       for (int u = 0; u < SETS; ++u) fence_chains<P>(ch[u]);
       hw::wgmma_fence();
-      slice_products<P, FWD>(ch[q], a, panel + (kt + q) * CHUNK);
+      slice_products<P, FWD, E>(ch[q], a, panel + (kt + q) * CHUNK);
       hw::wgmma_commit();
       hw::wgmma_wait<1>();
 #pragma unroll
@@ -272,11 +278,11 @@ __device__ __forceinline__ void tile_products(
 // compile-time choice (one straight copy each, not switches inlined P/2
 // times; U < 0 and ADD false: both at run time, for other binaries): OP D
 // (dv, this thread's two columns of it) along the columns, U, then to the
-// output (the last step: rounded to bf16 first unless round_out is 0) or,
-// rounded to bf16, into the staging tile. Accumulator (4 j + 2 h + e) is
+// output (the last step: rounded to E first unless round_out is 0) or,
+// rounded to E, into the staging tile. Accumulator (4 j + 2 h + e) is
 // column t*64 + 16 warp + lane/4 + 8 h (wgmma's M), panel row
 // 8 j + 2 (lane % 4) + e (its N).
-template <int P, int U, bool ADD>
+template <int P, int U, bool ADD, class E>
 __device__ __forceinline__ void tile_epilogue(const Params& p, const Step& s,
                                               const float (&acc)[P / 2],
                                               const float (&dv)[2], int t,
@@ -300,35 +306,35 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Step& s,
         if (last) {
           const int gm = r0 + row;
           if (col < s.N && gm < p.mb) {
-            if (p.round_out) v = __bfloat162float(__float2bfloat16_rn(v));
-            store_out(p.out,
+            if (p.round_out) v = to_f32(from_f32<E>(v));
+            store_out<E>(p.out,
                       (((size_t)grp * (s.N / p.onb) + col / p.onb) * p.mb +
                        gm) * p.onb + col % p.onb,
                       p.out_dtype, v);
           }
         } else {
-          *reinterpret_cast<__nv_bfloat16*>(
+          *reinterpret_cast<E*>(
               staging + hw::swizzle<128>(row * 128 + (col % TILE) * 2)) =
-              __float2bfloat16_rn(v);
+              from_f32<E>(v);
         }
       }
 }
 
 // one tile's epilogue, U and D's add chosen outside the tile's loops
-template <int P>
+template <int P, class E>
 __device__ __forceinline__ void epilogue(const Params& p, const Step& s,
                                          const float (&acc)[P / 2],
                                          const float (&dv)[2], int t,
                                          int grp, int r0, bool last,
                                          unsigned char* st) {
   if (s.binary != kBinNone && s.binary != kAdd) {
-    tile_epilogue<P, -1, false>(p, s, acc, dv, t, grp, r0, last, st);
+    tile_epilogue<P, -1, false, E>(p, s, acc, dv, t, grp, r0, last, st);
     return;
   }
   switch (s.unary) {
 #define TPP_WARM_EPILOGUE(U)                                        \
   case U:                                                           \
-    tile_epilogue<P, U, true>(p, s, acc, dv, t, grp, r0, last, st); \
+    tile_epilogue<P, U, true, E>(p, s, acc, dv, t, grp, r0, last, st); \
     break;
     TPP_WARM_EPILOGUE(kRelu)
     TPP_WARM_EPILOGUE(kExp)
@@ -342,7 +348,8 @@ __device__ __forceinline__ void epilogue(const Params& p, const Step& s,
     TPP_WARM_EPILOGUE(kZero)
 #undef TPP_WARM_EPILOGUE
     default:
-      tile_epilogue<P, kIdentity, true>(p, s, acc, dv, t, grp, r0, last, st);
+      tile_epilogue<P, kIdentity, true, E>(p, s, acc, dv, t, grp, r0, last,
+                                           st);
   }
 }
 
@@ -355,8 +362,9 @@ __device__ __forceinline__ void epilogue(const Params& p, const Step& s,
 // the sender waits until every block of the cluster has freed its panel,
 // arms its own chunks' barriers with the bytes of the next panel, and
 // copies each tile to every block by the bulk-copy engine. The consumers
-// signal by predicate, not by branch, between their products.
-template <int P>
+// signal by predicate, not by branch, between their products. E is the
+// products' type: bf16, or f16 for an f16 key.
+template <int P, class E>
 __global__ void __launch_bounds__(THREADS, 1)
 warm_panel_kernel(const __grid_constant__ Params p) {
   constexpr int CHUNK = P * 128;   // a 64-column chunk of the panel
@@ -389,7 +397,7 @@ warm_panel_kernel(const __grid_constant__ Params p) {
   // over), as vectors where eight elements lie side by side.
   constexpr int BATCH = 4;
   if (p.resident) {
-    // every slice this block owns, rounded to bf16, once: [step][tile][k];
+    // every slice this block owns, rounded to E, once: [step][tile][k];
     // a flat or packed (not VNNI) weight's unit is eight side by side
     const bool vec = (p.wkb == 0 || p.wv == 1) &&
                      reinterpret_cast<uintptr_t>(p.w[0]) % 16 == 0;
@@ -407,13 +415,14 @@ warm_panel_kernel(const __grid_constant__ Params p) {
           const int row = (s.fwd ? kt : t) * TILE + (u / 8) % TILE;
           const int cb = (s.fwd ? t : kt) * TILE + (u % 8) * 8;
           if (u < n && row < Kw && cb < Nw && vec) {
-            ld8(p.w[s.w], w_index(p, row, cb, Kw, Nw), p.w_dtype, v[b]);
+            ld8<E>(p.w[s.w], w_index(p, row, cb, Kw, Nw), p.w_dtype, v[b]);
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e)
               v[b][e] = u < n && row < Kw && cb + e < Nw
-                            ? ld(p.w[s.w], w_index(p, row, cb + e, Kw, Nw),
-                                 p.w_dtype)
+                            ? ld<E>(p.w[s.w],
+                                    w_index(p, row, cb + e, Kw, Nw),
+                                    p.w_dtype)
                             : 0.f;
           }
         }
@@ -421,7 +430,7 @@ warm_panel_kernel(const __grid_constant__ Params p) {
         for (int b = 0; b < BATCH; ++b) {
           const int u = u0 + b * THREADS;
           if (u < n)
-            store8(wsm + (size_t)(s.slot + u / (TILE * 8)) * SLICE +
+            store8<E>(wsm + (size_t)(s.slot + u / (TILE * 8)) * SLICE +
                        hw::swizzle<128>(((u / 8) % TILE) * 128 + (u % 8) * 16),
                    v[b]);
         }
@@ -429,7 +438,7 @@ warm_panel_kernel(const __grid_constant__ Params p) {
     }
   }
 
-  // the panel: rows r0.. of group grp, every column of x, in bf16; rows
+  // the panel: rows r0.. of group grp, every column of x, in E; rows
   // past mb and columns past K0 (to the chunk's end) zero
   {
     const int K0 = p.steps[0].K, KT0 = cdiv(K0, TILE), xkb = p.xkb;
@@ -446,13 +455,13 @@ warm_panel_kernel(const __grid_constant__ Params p) {
             (((size_t)grp * (K0 / xkb) + k0 / xkb) * p.mb + gm) * xkb +
             k0 % xkb;
         if (u < n && gm < p.mb && k0 < K0 && vec) {
-          ld8(p.x, i0, p.x_dtype, v[b]);
+          ld8<E>(p.x, i0, p.x_dtype, v[b]);
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const int k = k0 + e;
             v[b][e] = u < n && gm < p.mb && k < K0
-                          ? ld(p.x,
+                          ? ld<E>(p.x,
                                (((size_t)grp * (K0 / xkb) + k / xkb) * p.mb +
                                 gm) * xkb + k % xkb,
                                p.x_dtype)
@@ -464,7 +473,7 @@ warm_panel_kernel(const __grid_constant__ Params p) {
       for (int b = 0; b < BATCH; ++b) {
         const int u = u0 + b * THREADS, k0 = (u % (KT0 * 8)) * 8;
         if (u < n)
-          store8(panel + (k0 / TILE) * CHUNK +
+          store8<E>(panel + (k0 / TILE) * CHUNK +
                      hw::swizzle<128>((u / (KT0 * 8)) * 128 + (k0 % TILE) * 2),
                  v[b]);
       }
@@ -543,18 +552,18 @@ warm_panel_kernel(const __grid_constant__ Params p) {
         float acc[P / 2];
         uint64_t* lw = g > 0 ? landed : nullptr;
         if (s.fwd)
-          tile_products<P, 1>(acc, panel, res, wsm, full, empty, lw, ph, KT,
-                              c);
+          tile_products<P, 1, E>(acc, panel, res, wsm, full, empty, lw, ph,
+                                 KT, c);
         else
-          tile_products<P, 0>(acc, panel, res, wsm, full, empty, lw, ph, KT,
-                              c);
+          tile_products<P, 0, E>(acc, panel, res, wsm, full, empty, lw, ph,
+                                 KT, c);
         __syncwarp();
         // the block's last products are done: its panel is free, in every
         // block's count, once this arrives there (thread k arrives at
         // block k's barrier: the C arrivals go out at once)
         if (i + 1 == nt && !last)
           hw::mbar_arrive_peer_if(freed, tid % C, tid < C);
-        epilogue<P>(p, s, acc, dv, t, grp, r0, last, staging + i * CHUNK);
+        epilogue<P, E>(p, s, acc, dv, t, grp, r0, last, staging + i * CHUNK);
       }
       if (nt == 0 && !last) {
         // no tile here: the panel's chunks land all the same, before the
@@ -599,14 +608,14 @@ inline int layout(Params& p, int rows, int resident) {
   return p.bar_off + BARRIERS * 8 + 1024;
 }
 
-template <int P>
+template <int P, class E>
 cudaError_t set_attributes() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        warm_panel_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        warm_panel_kernel<P, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         OPTIN);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(warm_panel_kernel<P>,
+      e = cudaFuncSetAttribute(warm_panel_kernel<P, E>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     return e;
@@ -614,9 +623,9 @@ cudaError_t set_attributes() {
   return err;
 }
 
-template <int P>
+template <int P, class E>
 int launch_rows(const Params& p, int clusters, int smem, cudaStream_t st) {
-  cudaError_t err = set_attributes<P>();
+  cudaError_t err = set_attributes<P, E>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * p.C);
@@ -630,17 +639,19 @@ int launch_rows(const Params& p, int clusters, int smem, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, warm_panel_kernel<P>, p);
+  err = cudaLaunchKernelEx(&cfg, warm_panel_kernel<P, E>, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches a filled Params (steps, pointers, geometry, dtypes) on `plan`.
-// Returns a cudaError_t: cudaErrorInvalidValue for a plan the engine does
-// not take (rows not 16/24/32/40/64, cluster not 1..16, bytes that
-// disagree with layout(), streamed weights that are not flat bf16 or more
-// than MAPS, a width past MAXKT chunks).
-inline int run(Params& p, const Plan& plan, cudaStream_t st) {
+// Launches a filled Params (steps, pointers, geometry, dtypes) on `plan`,
+// the products in E (bf16, or f16: run_f16). Returns a cudaError_t:
+// cudaErrorInvalidValue for a plan the engine does not take (rows not
+// 16/24/32/40/64, cluster not 1..16, bytes that disagree with layout(),
+// streamed weights that are not flat in E or more than MAPS, a width past
+// MAXKT chunks).
+template <class E = __nv_bfloat16>
+int run(Params& p, const Plan& plan, cudaStream_t st) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if ((plan.rows != 16 && plan.rows != 24 && plan.rows != 32 &&
        plan.rows != 40 && plan.rows != 64) ||
@@ -655,7 +666,7 @@ inline int run(Params& p, const Plan& plan, cudaStream_t st) {
   const int smem = layout(p, plan.rows, plan.resident);
   if (smem != plan.smem || smem > OPTIN) return bad;
   if (!plan.resident) {
-    if (p.w_dtype != kBF16 || p.wkb != 0) return bad;
+    if (p.w_dtype != dtype_code<E>() || p.wkb != 0) return bad;
     bool made[MAPS] = {};
     for (int s = 0; s < p.period; ++s) {
       const Step& sp = p.steps[s];
@@ -664,27 +675,34 @@ inline int run(Params& p, const Plan& plan, cudaStream_t st) {
       const uint64_t Kw = sp.fwd ? sp.K : sp.N, Nw = sp.fwd ? sp.N : sp.K;
       const uint64_t dims[2] = {Nw, Kw}, strides[1] = {Nw * 2};
       const uint32_t box[2] = {TILE, TILE};
-      const int rc = hw::make_map(&p.maps[sp.w], p.w[sp.w], 2, dims,
-                                  strides, box, 128);
+      const int rc = hw::make_map<E>(&p.maps[sp.w], p.w[sp.w], 2, dims,
+                                     strides, box, 128);
       if (rc) return rc;
       made[sp.w] = true;
     }
   }
   const int clusters = p.groups * cdiv(p.mb, plan.rows);
   switch (plan.rows) {
-    case 16: return launch_rows<16>(p, clusters, smem, st);
-    case 24: return launch_rows<24>(p, clusters, smem, st);
-    case 32: return launch_rows<32>(p, clusters, smem, st);
-    case 40: return launch_rows<40>(p, clusters, smem, st);
-    default: return launch_rows<64>(p, clusters, smem, st);
+    case 16: return launch_rows<16, E>(p, clusters, smem, st);
+    case 24: return launch_rows<24, E>(p, clusters, smem, st);
+    case 32: return launch_rows<32, E>(p, clusters, smem, st);
+    case 40: return launch_rows<40, E>(p, clusters, smem, st);
+    default: return launch_rows<64, E>(p, clusters, smem, st);
   }
 }
 
+// run() with f16 products (ROADMAP A14): its five kernels live in
+// csrc/warm_panel_f16.cu, a translation unit of their own that nvcc builds
+// beside chain.cu and blocked_matmul.cu
+int run_f16(Params& p, const Plan& plan, cudaStream_t st);
+
 // cudaOccupancyMaxActiveClusters for the engine at (rows, cluster, smem):
-// how many clusters of `cluster` blocks the card holds at once
+// how many clusters of `cluster` blocks the card holds at once (the bf16
+// kernel's; the f16 one asks for the same threads, one block an SM, and
+// the same shared memory)
 template <int P>
 int max_clusters_rows(int cluster, int smem, int* n) {
-  cudaError_t err = set_attributes<P>();
+  cudaError_t err = set_attributes<P, __nv_bfloat16>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
@@ -698,7 +716,8 @@ int max_clusters_rows(int cluster, int smem, int* n) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(n, warm_panel_kernel<P>, &cfg));
+      cudaOccupancyMaxActiveClusters(n, warm_panel_kernel<P, __nv_bfloat16>,
+                                     &cfg));
 }
 
 inline int max_clusters(int rows, int cluster, int smem, int* n) {

@@ -8,8 +8,10 @@ blocked_matmul a BlockedMatmulKey (csrc/blocked_matmul.cu, B19),
 conv2d_brgemm a ConvBrgemmKey (csrc/conv.cu's channel-blocked entry, B23):
 the kernel on CUDA tensors, the plain version on CPU tensors. `precision`
 is the key's: "default" rounds f32 operands to bf16 (the compiled TPU
-meaning), "highest" keeps true f32. `out_dtype` ("f32" or "bf16", default
-the operands') is the result's; a C accumulator is added in f32."""
+meaning), "highest" keeps true f32; f16 operands take f16 products at
+either (ROADMAP A14). `out_dtype` ("f32" or "bf16"; for f16 operands "f32"
+or "f16"; default the operands') is the result's; a C accumulator is added
+in f32."""
 
 from __future__ import annotations
 
@@ -19,13 +21,13 @@ from ..runtime.tensor_init import vnni_pack_tensor
 from ..xsmm.cache import global_cache
 from ..xsmm.flags import BlockedMatmulKey, BrgemmKey, ConvBrgemmKey
 
-_DT = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def _dt(x: torch.Tensor) -> str:
     if x.dtype not in _DT:
-        raise NotImplementedError(f"{x.dtype} operands: the port's GEMM takes "
-                                  f"f32 and bf16 (ROADMAP A14 for f16)")
+        raise ValueError(f"{x.dtype} operands: the port's GEMM takes f32, "
+                         f"bf16 and f16")
     return _DT[x.dtype]
 
 

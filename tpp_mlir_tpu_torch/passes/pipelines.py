@@ -24,17 +24,20 @@ The reference's patchify-conv-to-matmul option is not ported (ROADMAP,
 lowering (SLICE_OPS), so no IR runs half-lowered: a contraction, conv,
 attention or LayerNorm still in tl form (one that convert-tl-to-xsmm's
 `skip` or conv-to-brgemm left) would run its plain version on the card in
-place of its kernel, and is refused. It also refuses f16 tensors (ROADMAP
-A14), a tl.generic in contraction form or with reduction dims outside it
-(the reference's evaluator raises on the latter too), and conv or
-attention keys whose kernel the reference would swap for another.
+place of its kernel, and is refused. It also refuses the keys of xsmm ops
+that check_slice refuses (an f16 key outside the GEMM family, ROADMAP A14),
+f16 tensors of the few tl ops in F16_REFUSED, a tl.generic in contraction
+form or with reduction dims outside it (the reference's evaluator raises
+on the latter too), and conv or attention keys whose kernel the reference
+would swap for another.
 """
 
 from __future__ import annotations
 
 from ..ir import Function, Module
 from ..ir.affine import classify_generic
-from ..runtime.executor import attention_key, conv_blocked_key, conv_key
+from ..runtime.executor import (_dispatch_key, attention_key,
+                                conv_blocked_key, conv_key)
 from ..xsmm.reference import attention_route, check_slice, conv_route
 from .pass_manager import Pass, expand_pipeline, register, register_pipeline
 
@@ -79,10 +82,18 @@ SLICE_OPS = frozenset({
 })
 
 
+# the tl ops that run no f16 tensor (ROADMAP A14): the transformer slice's
+# gather, the conv family's pads, pools and strided blocked convs, and a
+# tl.generic; an xsmm op's f16 key is refused by check_slice
+F16_REFUSED = frozenset({"tl.gather", "tl.pad", "tl.blocked_conv2d",
+                         "tl.max_pool2d", "tl.avg_pool2d", "tl.generic"})
+
+
 def slice_violation(op) -> str | None:
     """Why the port cannot run `op`, or None."""
-    if any(r.type.dtype == "f16" for r in op.results
-           if hasattr(r.type, "dtype")):
+    if op.opname in F16_REFUSED and any(
+            r.type.dtype == "f16" for r in op.results
+            if hasattr(r.type, "dtype")):
         return "an f16 tensor (ROADMAP queue A14, f16 keys)"
     if op.opname not in SLICE_OPS:
         return f"op {op.opname} (not lowered to its kernel)"
@@ -121,6 +132,13 @@ def slice_violation(op) -> str | None:
             attention_route(attention_key(a))
         except NotImplementedError as e:
             return f"attention {e}"
+    if op.opname.startswith("xsmm.") and not op.opname.endswith("_dispatch"):
+        # the key the executor dispatches: check_slice refuses what no
+        # kernel of the port takes (an f16 key outside the GEMM family)
+        try:
+            check_slice(_dispatch_key(op.operands[0].owner, op))
+        except NotImplementedError as e:
+            return f"{op.opname} {e}"
     return None
 
 

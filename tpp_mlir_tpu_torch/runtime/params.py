@@ -7,7 +7,8 @@ folded ones (the concatenated QKV weights). A `tl.constant` with
 `jnp.asarray(arr).astype(dtype)` (`tpp_mlir_tpu/runtime/executor.py:55-61`):
 numpy float64 becomes float32 first (JAX's default), then one
 round-to-nearest-even conversion to the IR dtype. torch's float32 ->
-bfloat16 conversion rounds the same way, so both packages hold the same bits.
+bfloat16 and float32 -> float16 conversions round the same way, so both
+packages hold the same bits.
 A packed constant (constant-fold-pack's `pack_*` attributes) applies its
 recipe to the literal first, as the reference does (:58): the weights are
 packed once, here, outside any timed loop.
@@ -33,9 +34,9 @@ def literal_tensor(module: Module, name: str, type: TensorType,
     arr = np.asarray(module.literals[name])
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
-    if type.dtype not in TORCH_DTYPES:
-        raise NotImplementedError(f"literal dtype {type.dtype} is outside "
-                                  f"the port's slice (ROADMAP queue A14)")
+    if type.dtype not in TORCH_DTYPES:     # f32, bf16, f16, i32, i8
+        raise ValueError(f"literal dtype {type.dtype} is not one the port "
+                         f"holds: {sorted(TORCH_DTYPES)}")
     t = apply_pack_recipe(torch.from_numpy(np.ascontiguousarray(arr)),
                           recipe or {})
     if tuple(t.shape) != type.shape:

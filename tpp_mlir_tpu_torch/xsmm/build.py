@@ -11,9 +11,12 @@ Nothing is downloaded: the sources in the package are the only input.
 kernels that use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh`
 (the pipelined TMA + wgmma GEMM mainloop) by brgemm.cu, blocked_matmul.cu,
 conv.cu, grouped_gemm.cu and int8_gemm.cu, and `csrc/warm_panel.cuh` (the cluster-split
-row-panel engine) by chain.cu and blocked_matmul.cu; the tensor-map
-encoder, a driver API, is taken through the runtime's
-cudaGetDriverEntryPoint, so the link needs no -lcuda.
+row-panel engine) by chain.cu and blocked_matmul.cu; the f16
+instantiations of those two engines (ROADMAP A14) are translation units of
+their own, gemm_f16.cu and warm_panel_f16.cu, so nvcc builds them beside
+the bf16 ones rather than after them. The tensor-map encoder, a driver
+API, is taken through the runtime's cudaGetDriverEntryPoint, so the link
+needs no -lcuda.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -76,12 +80,14 @@ _SIGNATURES = {
 @dataclass(frozen=True)
 class BuildInfo:
     """What a build did: the library path, whether it compiled now, the
-    seconds it took, and nvcc's output (the ptxas register/spill report)."""
+    seconds it took, nvcc's output (the ptxas register/spill report), and
+    the seconds after the start at which each source's nvcc ended."""
 
     path: Path
     compiled: bool
     seconds: float
     log: str
+    sources: dict = field(default_factory=dict)
 
 
 def sources() -> list[Path]:
@@ -120,9 +126,21 @@ def build() -> BuildInfo:
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        # one reader a process: ptxas -v can fill a pipe before nvcc ends
+        ended: dict = {}
+
+        def reap(src, proc):
+            ended[src.name] = (*proc.communicate(),
+                               time.perf_counter() - t0)
+        readers = [threading.Thread(target=reap, args=(src, proc))
+                   for src, _, proc in procs]
+        for r in readers:
+            r.start()
+        for r in readers:
+            r.join()
         log, failed = [], []
         for src, _, proc in procs:
-            out, err = proc.communicate()
+            out, err, _ = ended[src.name]
             log.append(f"{src.name}:\n{out}{err}")
             if proc.returncode:
                 failed.append(f"nvcc {src.name} failed ({proc.returncode}):"
@@ -143,7 +161,8 @@ def build() -> BuildInfo:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(work, ignore_errors=True)
-    return BuildInfo(path, True, time.perf_counter() - t0, "".join(log))
+    return BuildInfo(path, True, time.perf_counter() - t0, "".join(log),
+                     {name: end for name, (_, _, end) in ended.items()})
 
 
 @functools.lru_cache(maxsize=1)

@@ -113,7 +113,10 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, UnaryKey)
 
-_DT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/epilogue.cuh's Dtype codes; f16 is the GEMM family's only (ROADMAP
+# A14): the other kernels refuse its key (reference.check_slice) and take
+# no f16 operand (_native widens one for them)
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
 _BCAST_CODE = {"bcast_col": 0, "bcast_row": 1, "bcast_scalar": 2, "none": 3}
 _UNARY_CODE = {None: 0, "identity": 0, "relu": 1, "exp": 2, "square": 3,
@@ -127,8 +130,10 @@ SM90_SMEM_OPTIN = reference.SM90_SMEM_OPTIN
 
 
 def chain_smem_bytes(dmax: int, mxu: torch.dtype) -> int:
-    """Dynamic shared memory chain.cu asks for (its smem_bytes())."""
-    h = CHAIN_BM * (dmax + CHAIN_HPAD) * (2 if mxu == torch.bfloat16 else 4)
+    """Dynamic shared memory chain.cu asks for (its smem_bytes()): the row
+    block's layer input in the MXU dtype (2 bytes for bf16 and f16) and its
+    f32 layer output."""
+    h = CHAIN_BM * (dmax + CHAIN_HPAD) * mxu.itemsize
     return (h + 127) // 128 * 128 + CHAIN_BM * (dmax + CHAIN_ZPAD) * 4
 
 
@@ -151,10 +156,11 @@ WARM_STAGING_BYTES = 34816
 
 def blocked_warm_smem_bytes(K: int, mxu: torch.dtype) -> int:
     """Dynamic shared memory B20 asks for at K = Kb * kb (its
-    warm_smem_bytes())."""
-    h = 2 * CHAIN_BM * (K + CHAIN_HPAD) * (2 if mxu == torch.bfloat16 else 4)
+    warm_smem_bytes()): 16-bit products (bf16, f16) add the tensor path's
+    staging."""
+    h = 2 * CHAIN_BM * (K + CHAIN_HPAD) * mxu.itemsize
     return (h + 127) // 128 * 128 + \
-        (WARM_STAGING_BYTES if mxu == torch.bfloat16 else 0)
+        (WARM_STAGING_BYTES if mxu in reference.MMA16 else 0)
 
 
 def blocked_warm_fits_smem(key: BlockedMatmulKey) -> bool:
@@ -323,11 +329,27 @@ def describe_plan(plan) -> str:
     return f"plan {plan.bm}x{plan.bn} split {plan.split}"
 
 
-def _native(t: torch.Tensor, name: str, numel: int, dev) -> torch.Tensor:
-    """An epilogue operand (C or D) as the kernel reads it: contiguous, in
-    its stored dtype where that is f32 or bf16 (widened to f32 in
-    registers), so no conversion kernel runs before the GEMM."""
-    if t.dtype not in _DT_CODE:
+# the stored dtypes a kernel reads an epilogue operand in, widened to f32 in
+# registers: f32 and its one 16-bit type, bf16 (every kernel but the GEMM
+# family's f16 instantiations) or f16 (those: csrc/epilogue.cuh)
+_EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def epilogue_dtypes(mxu: torch.dtype) -> tuple:
+    """The stored dtypes the GEMM epilogue (B1, B19) reads C and D in at
+    products of type `mxu`: f32 and f16 for f16 products, else f32 and
+    bf16."""
+    return (torch.float32, torch.float16) if mxu == torch.float16 \
+        else _EPILOGUE_DTYPES
+
+
+def _native(t: torch.Tensor, name: str, numel: int, dev,
+            dtypes=_EPILOGUE_DTYPES) -> torch.Tensor:
+    """An epilogue operand (C, D, a scale or LayerNorm's gamma/beta) as the
+    kernel reads it: contiguous, in its stored dtype where the kernel reads
+    that dtype (`dtypes`; widened to f32 in registers), so no conversion
+    kernel runs before it; any other dtype is widened to f32 first."""
+    if t.dtype not in dtypes:
         t = t.float()
     t = t.contiguous()
     if t.numel() != numel or t.device != dev:
@@ -365,9 +387,9 @@ def _brgemm_launch(key: BrgemmKey):
             if tuple(c.shape) != (m, n):
                 raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                                  f"{(m, n)}")
-            c = _native(c, "C", m * n, dev)
+            c = _native(c, "C", m * n, dev, epilogue_dtypes(mxu))
         if key.binary_kind:
-            d = _native(d, "D", d_size, dev)
+            d = _native(d, "D", d_size, dev, epilogue_dtypes(mxu))
         if ln and key.prologue_affine:
             gamma = gamma.reshape(-1).float().contiguous()
             beta = beta.reshape(-1).float().contiguous()
@@ -1133,10 +1155,11 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
             if tuple(c.shape) != (Mb, Nb, mb, nb):
                 raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                                  f"{(Mb, Nb, mb, nb)}")
-            c = _native(c, "C", Mb * Nb * mb * nb, dev)
+            c = _native(c, "C", Mb * Nb * mb * nb, dev,
+                        epilogue_dtypes(mxu))
         if key.binary_kind:
             d = d.reshape(-1).float() if key.repeats else d.reshape(-1)
-            d = _native(d, "D", Nb * nb, dev)
+            d = _native(d, "D", Nb * nb, dev, epilogue_dtypes(mxu))
         work = None if key.repeats else _plan_workspace(launch, dev)
         out = torch.empty((Mb, Nb, mb, nb), dtype=out_dt, device=dev)
         rc = library().tpp_blocked_matmul(

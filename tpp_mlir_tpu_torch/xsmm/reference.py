@@ -18,6 +18,12 @@ Precision, one meaning everywhere (kernel and plain version alike):
     `torch.backends.cudnn.allow_tf32`, is on by default).
   * bf16: bf16 operands, f32 accumulation and f32 epilogue, one rounding to
     the output dtype at the end.
+  * f16 (ROADMAP A14, the GEMM family only: B1, B3-B5, B19, B20 and the
+    xsmm.unary/binary ops): as bf16, with f16 operands and f16 products at
+    either precision; a chain rounds between layers to f16 where the bf16
+    chain rounds to bf16. The products are f16 x f16 (exact in f32): never
+    an f16 torch.matmul, whose cuBLAS reduction may run in reduced
+    precision.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
 in f32 whatever the dtype; only their results are rounded.
 """
@@ -35,7 +41,10 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, UnaryKey)
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}
+# the 16-bit product types of the wgmma kernels (f32 "default" takes bf16)
+MMA16 = (torch.bfloat16, torch.float16)
 
 # the reference's words for a strided channel-blocked conv
 # (tpp_mlir_tpu/xsmm/kernels.py:2785-2788)
@@ -49,6 +58,29 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
         f"{what} is outside the port's slice: ROADMAP queue {item}: {key}")
 
 
+# the families whose f16 keys run (ROADMAP A14's GEMM family: B1 without a
+# LayerNorm prologue or the ln_stats pair, B3-B5, B19/B20, and the
+# xsmm.unary/binary PyTorch ops); every other family's f16 key is refused
+F16_FAMILIES = (BrgemmKey, ChainKey, BlockedMatmulKey, UnaryKey, BinaryKey)
+
+
+def _check_f16(key) -> None:
+    """Refuse, naming A14, an f16 key of a family this slice does not run
+    in f16, and a kernel key that mixes f16 with bf16 or f32 operands (the
+    kernels' f16 instantiations read and write f16 and f32 only)."""
+    dtype, out = getattr(key, "dtype", None), getattr(key, "out_dtype", None)
+    if "f16" not in (dtype, out):
+        return
+    if not isinstance(key, F16_FAMILIES) or (
+            isinstance(key, BrgemmKey) and (key.prologue or
+                                            key.ln_stats_out)):
+        raise _refuse("an f16 key of this family", "A14 (f16 keys)", key)
+    if not isinstance(key, (UnaryKey, BinaryKey)) and (
+            dtype != "f16" or out not in (None, "f16", "f32")):
+        raise _refuse("an f16 key mixing 16-bit types", "A14 (f16 keys)",
+                      key)
+
+
 def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
@@ -59,23 +91,24 @@ def check_slice(key) -> None:
                             UnaryKey, BinaryKey)):
         raise NotImplementedError(f"{type(key).__name__} is outside the "
                                   f"port's slice: ROADMAP queue A")
+    _check_f16(key)
     if isinstance(key, DecodeAttnKey):
         _check_decode_attn(key)
         return
     if isinstance(key, FlashTrainKey):
         if key.dtype not in DTYPES:
-            raise _refuse(f"dtype {key.dtype!r}", "A14 (f16 keys)", key)
+            raise ValueError(f"unknown dtype {key.dtype!r}: {key}")
         return
     if isinstance(key, Int8GemmKey):
         if key.out_dtype not in DTYPES:
-            raise _refuse(f"dtype {key.out_dtype!r}", "A14 (f16 keys)", key)
+            raise ValueError(f"unknown dtype {key.out_dtype!r}: {key}")
         if key.unary_kind not in (None, *UNARY_FNS):
             raise ValueError(f"unknown unary {key.unary_kind!r}")
         return
     out_dt = "f32" if isinstance(key, GroupedWgradKey) else key.out_dtype
     for dt in (key.dtype, out_dt or key.dtype):
         if dt not in DTYPES:
-            raise _refuse(f"dtype {dt!r}", "A14 (f16 keys)", key)
+            raise ValueError(f"unknown dtype {dt!r}: {key}")
     if isinstance(key, UnaryKey):
         if key.kind not in (*UNARY_OPS, *UNARY_FNS):
             raise ValueError(f"unknown unary kind {key.kind!r}")
@@ -152,7 +185,8 @@ def _check_blocked(key: BlockedMatmulKey) -> None:
 
 
 def mxu_dtype(dtype: str, precision: str) -> torch.dtype:
-    """The dtype the products see (see the module docstring)."""
+    """The dtype the products see (see the module docstring): bf16 for f32
+    at "default", else the key's own (f16 at either precision)."""
     if dtype == "f32" and precision == "default":
         return torch.bfloat16
     return DTYPES[dtype]
@@ -540,13 +574,16 @@ def brgemm_route(key: BrgemmKey) -> str:
     mainloop of csrc/gemm_sm90.cuh), from the key alone:
       "fma"      MXU dtype f32 (f32 "highest"): brgemm.cu's f32-FMA body,
                  no TF32;
-      "tma"      bf16 operands whose row strides TMA can take (A's k and,
-                 unless transpose_b, B's n: 16-byte multiples): one
-                 producer thread fills the ring by TMA;
+      "tma"      bf16 or f16 operands whose row strides TMA can take (A's
+                 k and, unless transpose_b, B's n: 16-byte multiples): one
+                 producer thread fills the ring by TMA, the products in the
+                 operands' own type (wgmma .bf16 or .f16);
       "convert"  f32 operands at "default" (bf16 products, f32 sums) and
-                 bf16 operands TMA cannot take: the producer warpgroup
-                 loads through registers, rounds to bf16 and stores the
-                 swizzled layout TMA would, so the consumers run one code.
+                 16-bit operands TMA cannot take: the producer warpgroup
+                 loads through registers and stores the swizzled layout TMA
+                 would, so the consumers run one code: f32 is rounded to
+                 bf16, bf16 passes through f32 unchanged, f16 is copied as
+                 raw 16-bit units (no rounding at all).
     A VNNI B is un-VNNI'd by the wrapper first (as _unvnni does), so it
     takes the flat B's route. The "tma" route also needs 16-byte aligned
     base pointers; the wrapper checks them (every torch allocation is).
@@ -556,7 +593,7 @@ def brgemm_route(key: BrgemmKey) -> str:
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
     strides = (key.k,) if key.transpose_b else (key.k, key.n)
-    if key.dtype == "bf16" and tma_aligned(2, *strides):
+    if DTYPES[key.dtype] in MMA16 and tma_aligned(2, *strides):
         return "tma"
     return "convert"
 
@@ -566,18 +603,19 @@ def blocked_matmul_route(key: BlockedMatmulKey) -> str:
       "warm"     repeats > 0: B20's panel kernel in csrc/blocked_matmul.cu;
       and B19 on the loaders of brgemm_route's table:
       "fma"      f32 "highest": the f32-FMA body (VNNI read in place);
-      "tma"      bf16, not VNNI, kb and nb 16-byte multiples: 4D tensor
-                 maps over the packed A and B;
+      "tma"      bf16 or f16, not VNNI, kb and nb 16-byte multiples: 4D
+                 tensor maps over the packed A and B;
       "convert"  f32 "default", any VNNI B (VNNI2 pairs two k of one n in 4
                  bytes, no wgmma layout, so it is re-laid in registers on
-                 the way in, in place: no un-VNNI pass), and strides TMA
+                 the way in, in place: no un-VNNI pass; f16 as raw 16-bit
+                 halves, bf16 through f32 unchanged), and strides TMA
                  cannot take."""
     if key.repeats:
         return "warm"
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
-    if key.dtype == "bf16" and not key.vnni and tma_aligned(2, key.kb,
-                                                            key.nb):
+    if DTYPES[key.dtype] in MMA16 and not key.vnni and \
+            tma_aligned(2, key.kb, key.nb):
         return "tma"
     return "convert"
 
@@ -775,8 +813,9 @@ def warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
               rows: int | None = None, cluster: int | None = None,
               resident: bool | None = None) -> WarmPlan | None:
     """The warm-panel engine's plan at `key` (B3/B4/B5 chains, B20), or None
-    where the engine does not take it (f32 "highest" products, or a plan
-    that does not fit a block's shared memory). `clusters` maps a cluster
+    where the engine does not take it (f32 products, or a plan that does
+    not fit a block's shared memory). bf16 and f16 products plan alike: a
+    slice, a panel row and a weight are 2 bytes an element in either. `clusters` maps a cluster
     size to the clusters the card holds at once (the card's
     cudaOccupancyMaxActiveClusters at one block an SM; default the H100's).
     The cluster C: at most 16, and the fewest blocks that keep the most
@@ -786,9 +825,9 @@ def warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
     fewest waves (256 rows in clusters of 16, of which the H100 holds 7:
     40 rows, 7 panels).
     The weights: resident if a block's slices fit beside the panel, else
-    streamed (a chain's flat bf16 weights only, at most WARM_MAPS of
+    streamed (a chain's flat 16-bit weights only, at most WARM_MAPS of
     them). rows, cluster and resident force a choice (for experiments)."""
-    if mxu_dtype(key.dtype, key.precision) != torch.bfloat16:
+    if mxu_dtype(key.dtype, key.precision) not in MMA16:
         return None
     steps, groups, m = warm_steps(key)
     nts = [-(-N // WARM_TILE) for _, N, _ in steps]
@@ -843,7 +882,7 @@ def requested_warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
     the heuristic's plan where nothing is forced; a forced plan the engine
     cannot take (rows not in WARM_ROWS, a cluster outside
     1..WARM_MAX_CLUSTER, shared memory over SM90_SMEM_OPTIN, a width over
-    WARM_MAXKT tiles, products not bf16) raises ValueError."""
+    WARM_MAXKT tiles, f32 products) raises ValueError."""
     rows, cluster = warm_request(key) if request is None else request
     if not rows and not cluster:
         return warm_plan(key, clusters)
@@ -857,7 +896,7 @@ def requested_warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
                      cluster=cluster or None)
     if plan is None:
         raise ValueError(f"the warm-panel engine cannot place rows {rows} "
-                         f"cluster {cluster} at {key}: bf16 products, "
+                         f"cluster {cluster} at {key}: 16-bit products, "
                          f"at most {WARM_MAXKT} 64-column tiles a width and "
                          f"{SM90_SMEM_OPTIN} bytes of shared memory a "
                          f"block")
@@ -867,12 +906,13 @@ def requested_warm_plan(key: ChainKey | BlockedMatmulKey, clusters=None,
 def chain_route(key: ChainKey) -> str:
     """Which body of csrc/chain.cu runs a chain (B3, B4, B5), from the key
     alone:
-      "panel"  bf16 products (bf16, f32 "default") where warm_plan has a
-               plan: the warm-panel engine (csrc/warm_panel.cuh);
+      "panel"  16-bit products (bf16 and f32 "default": bf16; f16: f16)
+               where warm_plan has a plan: the warm-panel engine
+               (csrc/warm_panel.cuh), its wgmma in the products' type;
       "fma"    f32 "highest": the first design's f32-FMA body;
-      "wmma"   bf16 products warm_plan cannot place (more streamed layers
+      "wmma"   16-bit products warm_plan cannot place (more streamed layers
                than WARM_MAPS whose weights do not fit resident): the first
-               design's WMMA body.
+               design's WMMA body, its fragments in the products' type.
     chain_fits_smem gates every key as before; the route only picks the
     body."""
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
@@ -884,7 +924,8 @@ def warm_route(key: BlockedMatmulKey) -> str:
     """Which body of csrc/blocked_matmul.cu runs B20 (repeats > 0), from the
     key alone: "panel" (the warm-panel engine, its weight resident) where
     warm_plan has a plan, "fma" at f32 "highest", else "wmma" (the first
-    design's 16-row panel). blocked_warm_fits_smem gates every key as
+    design's 16-row panel); the 16-bit bodies run in the products' type
+    (bf16, or f16 for an f16 key). blocked_warm_fits_smem gates every key as
     before."""
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
@@ -1367,7 +1408,7 @@ def binary_reference(key: BinaryKey):
 def _check_decode_attn(key: DecodeAttnKey) -> None:
     """The variants decode_attn.py accepts (its asserts, :113-115, :280)."""
     if key.dtype not in DTYPES:
-        raise _refuse(f"dtype {key.dtype!r}", "A14 (f16 keys)", key)
+        raise ValueError(f"unknown dtype {key.dtype!r}: {key}")
     if key.groups < 1:
         raise ValueError(f"groups must be >= 1: {key}")
     if key.pack2 and (key.groups != 1 or key.kv_quant or key.heads % 2):
