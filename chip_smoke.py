@@ -275,7 +275,30 @@ fc_128x768x2304 at -n 100 (B4, B20, B5 in the kernel), the launches of
 this path counted; the flagship from a CUDA graph of 100 forwards beside
 torch.matmul + bias + ReLU in f16; each f16 key the path launched timed
 and appended to the kernel line as `kind@key`.
-The line before the last is the kernel table as JSON; the last line is
+The transformer family's f16 keys (ROADMAP A14 items 1, 2, 3 and 5,
+`phase_f16_transformer`, after `phase_f16`): (a) B2's LayerNorm-prologue
+GEMMs of GPT-2 and the encoder (one on the convert loader), B12 at GPT-2's
+ln_f (its first design forced too), B7 at GPT-2's and the encoder's packed
+keys (f16 has the TMA loader only), the flat kernel at the MHA
+suite's S 2048 keys under every strategy (B6, B8, B9, B10a, B10b) and B11,
+B21/B22 at mha_qk's and mha_softmax_v's keys and the tiled route, and B2's
+LN-stats pair at GPT-2's fc width, each against its plain version at 2e-3;
+(b) the A = 1 + 2^-10 probes of every route they take (B2 kLnSmem/kLnLoad
+and the pair; B12 register and strided; B21/B22 multi and tiled),
+bit-equal; attention's TMA loader, flat, token and B11, on a probe whose
+output moves if Q or P is rounded to bf16, held within 2e-4 of its plain
+version; (c) GPT-2 small
+(gpt2_small_s1024_bf16's widths, 12 layers) and the encoder block
+(transformer_block_d128's) in f16, and the MHA suite's mha_qk,
+mha_softmax_v and flash_attention S 2048 rows in f16 (-n 20: B11 in the
+kernel, and the loop under bench_mode scan) through run_entry, against
+--linalg-to-loops at TOL_MODEL, finite, with the bf16 rows' op counts,
+each path's launches counted; (d) each f16 key the paths launched held
+against its plain version and timed beside its bound, SDPA,
+F.layer_norm or torch.bmm in f16 where one call computes it (B2: the
+composed F.layer_norm -> addmm, marked composed): kernel-line rows;
+every other key of (a) and the f16 LN-stats pair timed the same way (no
+kernel-line row). The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1200,6 +1223,11 @@ F16_N = 100         # -n of the in-kernel benches (B4, B5, B20)
 TOL_F16 = 2e-3      # one GEMM: tests/xsmm/test_kernels.py:677's f16 rtol
 TOL_F16_CHAIN = 5e-3    # a chain: f16 roundings between layers add up
 F16_ONE = 1 + 2 ** -10  # exact in f16; 1.0 in bf16
+# attention's probe: the most its output may differ from the plain
+# version's (B7's plain version normalizes P before rounding it, 7.2e-5
+# from the kernel's order on the probe), under half what a Q or a P rounded
+# to bf16 moves it by (at least 9.6e-4 on the probe's keys)
+ATTN_PROBE_LIMIT = 2e-4
 F16_KINDS = ("brgemm", "chain", "chain_pingpong", "blocked_matmul",
              "blocked_matmul_warm")
 F16_CHAINS = ("chain", "chain_pingpong", "blocked_matmul_warm")
@@ -1291,8 +1319,14 @@ def _f16_kernel_cases():
 
 
 def f16_route_probes():
-    """(b): (label, key, forced body or None) for every route an f16 key
-    takes, at K = 1024 and an f32 output."""
+    """(b): (label, key, forced body or loader, or None) for every route an
+    f16 key takes: the GEMM family's (phase_f16) and the transformer
+    family's (phase_f16_transformer)."""
+    return _f16_gemm_probes() + _f16_transformer_probes()
+
+
+def _f16_gemm_probes():
+    """B1, B19, B3-B5 and B20's routes at K = 1024 and an f32 output."""
     from tpp_mlir_tpu_torch.xsmm import BlockedMatmulKey, BrgemmKey, ChainKey
     b1 = dict(out_dtype="f32", beta0=True)
     one = dict(dtype="f16", out_dtype="f32", has_bias=False,
@@ -1319,17 +1353,112 @@ def f16_route_probes():
                                       repeats=3, **b19), "wmma"))
 
 
+def _f16_transformer_probes():
+    """ROADMAP A14 items 1, 2, 3 and 5: B2's and B21/B22's routes at K 1024
+    (B21/B22: 64) and an f32 output, B12's with an f16 output, attention's
+    at seq_kv 256."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+                                         FlashMhaKey, LayerNormKey)
+    from tpp_mlir_tpu_torch.xsmm.reference import LOG2E
+    b1 = dict(out_dtype="f32", beta0=True)
+    # B2: exact statistics (eps 0), gamma 1 and beta 2^-10 (probe inputs)
+    ln = dict(out_dtype="f32", beta0=True, prologue_eps=0.0)
+    # attention: scale * log2(e) = 32 (f16_probe)
+    attn = dict(dtype="f16", out_dtype="f32", scale=32 / LOG2E)
+    bmm = dict(dtype="f16", out_dtype="f32", beta0=True)
+    return (
+        ("B2 ln tma (kLnSmem)", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                          prologue="layer_norm", **ln), None),
+        ("B2 ln convert (kLnLoad)", BrgemmKey(1, 64, 64, WIDTH - 4, "f16",
+                                              prologue="layer_norm", **ln),
+         None),
+        ("B2 ln_stats consumer", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                           prologue="ln_stats", **ln), None),
+        ("B2 ln_stats_out producer", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                               ln_stats_out=True, **b1),
+         None),
+        ("B12 register", LayerNormKey(64, WIDTH, "f16", eps=0.0), None),
+        ("B12 strided", LayerNormKey(64, WIDTH, "f16", eps=0.0),
+         "strided"),
+        ("attn flat tma", FlashMhaKey(4, 256, 256, 64, **attn), None),
+        ("attn token packed tma", FlashMhaKey(
+            2, 256, 256, 64, heads=2, qkv_packed=True, **attn), None),
+        ("attn flat B11 r3 tma", FlashMhaKey(4, 256, 256, 64, repeats=3,
+                                             **attn), None),
+        ("bmm multi", BatchMatmulKey(64, 32, 32, 64, **bmm), None),
+        ("bmm multi softmax_lhs", BatchMatmulKey(64, 32, 64, 64,
+                                                 softmax_lhs=True, **bmm),
+         None),
+        ("bmm multi lhs_shared", BatchMatmulKey(64, 32, 32, 64,
+                                                lhs_shared=True, **bmm),
+         None),
+        ("bmm tiled", BatchMatmulKey(8, 96, 64, 64, **bmm), None))
+
+
+def f16_probe_kernel(key, forced=None):
+    """The Kernel of a probe: build_kernel's, or with `forced` the
+    warm-panel engine's body (B3-B5, B20) or B12's body forced."""
+    from tpp_mlir_tpu_torch.xsmm import LayerNormKey, build_kernel
+    from tpp_mlir_tpu_torch.xsmm.kernels import build_layer_norm, build_warm
+    if not forced:
+        return build_kernel(key)
+    if isinstance(key, LayerNormKey):
+        return build_layer_norm(key, forced)
+    return build_warm(key, forced)
+
+
 def f16_probe(key):
-    """(b)'s inputs at `key` and the value every output element must hold:
-    A = 1 + 2^-10; a single GEMM's B 1 (1024 (1 + 2^-10) = 1025), a
-    repeat's weight 2^-10 (the state stays 1 + 2^-10). bf16 products
-    would read A as 1.0: 1024, or 1."""
+    """(b)'s inputs at `key` and what the output must be (a value every
+    element holds, or a tensor). A = 1 + 2^-10 is exact in f16 and 1.0 in
+    bf16. A single GEMM: B 1 (1024 (1 + 2^-10) = 1025); a repeat's weight
+    2^-10 (the state stays 1 + 2^-10); bf16 products read 1024, or 1.
+    B2's prologue: A's rows alternate +1 and -1 (mean 0, variance 1 with
+    eps 0, or the producer's mu 0 and var 1), gamma 1 and beta 2^-10, so
+    the normalized rows are 1 + 2^-10 and -(1 - 2^-10), exact in f16, +1
+    and -1 in bf16; B 1: k 2^-10 (1 at K 1024), 0 in bf16. The
+    ln_stats_out producer: B1's probe, and its rows' mean 1025 and var 0.
+    B12: rows alternating 1 + 2^-10 and 1 - 2^-10 (eps 0: mean 1, rstd
+    2^10), gamma 1, beta 2^-10: 1 + 2^-10 and -(1 - 2^-10), 2^-10 where
+    the row was read in bf16. Attention: _attention_probe. B21/B22: A 1,
+    B 1 + 2^-10: k (1 + 2^-10), or under softmax_lhs (P = 1/k) 1 +
+    2^-10."""
     import torch
 
-    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, ChainKey
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+                                         ChainKey, FlashMhaKey, LayerNormKey)
 
     def full(shape, v):
         return torch.full(shape, v, dtype=torch.float16, device="cuda")
+
+    def alternating(rows, n, lo, hi):
+        x = full((rows, n), hi)
+        x[:, 1::2] = lo
+        return x
+    if isinstance(key, BrgemmKey) and key.prologue:
+        a = alternating(key.m, key.k, -1.0, 1.0)[None]
+        args = (a, full((1, key.k, key.n), 1.0), None, None,
+                full((key.k,), 1.0), full((key.k,), 2 ** -10))
+        if key.prologue == "ln_stats":
+            zero = torch.zeros(key.m, 1, device="cuda")
+            args += (zero, zero + 1.0)
+        return args, key.k * 2 ** -10
+    if isinstance(key, BrgemmKey) and key.ln_stats_out:
+        a, b = full((1, key.m, key.k), F16_ONE), full((1, key.k, key.n), 1.0)
+        want = key.k * F16_ONE
+        stats = torch.full((key.m, 1), want, device="cuda")
+        return (a, b), (full((key.m, key.n), want).float(), stats,
+                        stats * 0)
+    if isinstance(key, LayerNormKey):
+        x = alternating(key.m, key.n, 1 - 2 ** -10, F16_ONE)
+        want = alternating(key.m, key.n, -(1 - 2 ** -10), F16_ONE)
+        return (x, full((key.n,), 1.0), full((key.n,), 2 ** -10)), want
+    if isinstance(key, FlashMhaKey):
+        return _attention_probe(key)
+    if isinstance(key, BatchMatmulKey):
+        a = full((key.m, key.k) if key.lhs_shared
+                 else (key.batch, key.m, key.k), 1.0)
+        return (a, full((key.batch, key.k, key.n), F16_ONE)), \
+            F16_ONE if key.softmax_lhs else key.k * F16_ONE
     reps = getattr(key, "repeats", 0) > (1 if isinstance(key, ChainKey)
                                          else 0)
     w, want = (2 ** -10, F16_ONE) if reps else (1.0, WIDTH * F16_ONE)
@@ -1343,6 +1472,86 @@ def f16_probe(key):
         (key.Nb, key.Kb, key.kb, key.nb)
     return (full((key.Mb, key.Kb, key.mb, key.kb), F16_ONE),
             full(b, w)), want
+
+
+def _attention_probe(key):
+    """Attention's probe, whose output depends on Q's and P's 2^-10 bit.
+    Each head's Q rows are (1 + 2^-10, 1, 0, ...), K's first two rows e0
+    and e1, V's (1 + 2^-10, 1, 0, ...) and (1 + 2^-10, 1, 1, ...), every
+    other K and V row 0, and scale * log2(e) 32. In f16 the scaled Q is
+    (32.03125, 32, 0, ...), the first two scores differ by 1/32, P is (1,
+    2^(-1/32) = 0.97857) rounded to (1, 0.97852), and columns 2 on read
+    0.97852 / 1.97857 = 0.49456. Q rounded to bf16 makes the two scores
+    equal (0.5 there); P rounded to bf16 is 0.98047 (0.49554). B11 feeds
+    the output back as Q: its first two columns round to (1 + 2^-10, 1)
+    in f16, so every repeat reads the same, and to (1, 1) in bf16. Returns
+    the inputs and the outputs a kernel that rounded Q (and B11's fed-back
+    output) or P to bf16 would give (_attention_rounded)."""
+    import torch
+    H, D = key.heads or 1, key.head_dim
+    B, S, Skv = key.batch, key.seq, key.seq_kv
+    q = torch.zeros(B, S, H, D, dtype=torch.float16, device="cuda")
+    k, v = (torch.zeros(B, Skv, H, D, dtype=torch.float16, device="cuda")
+            for _ in range(2))
+    q[..., 0], q[..., 1] = F16_ONE, 1.0
+    k[:, 0, :, 0] = k[:, 1, :, 1] = 1.0
+    v[:, :2, :, 0], v[:, :2, :, 1], v[:, 1, :, 2:] = F16_ONE, 1.0, 1.0
+    q, k, v = (t.reshape(B, t.shape[1], H * D) for t in (q, k, v))
+    args = (torch.cat((q, k, v), -1),) * 3 if key.qkv_packed else (q, k, v)
+    bf16, f16 = torch.bfloat16, torch.float16
+    return args, {"Q in bf16": _attention_rounded(key, args, bf16, f16),
+                  "P in bf16": _attention_rounded(key, args, f16, bf16)}
+
+
+def _attention_rounded(key, args, q_dt, p_dt):
+    """attention.cu's math at `key` on `args`, in f64 on the host, with Q
+    (and B11's fed-back output) rounded to q_dt and P to p_dt: the scores
+    from the rounded and scaled Q, P = exp2(s - max) rounded, P V divided
+    by the row sum of the unrounded P."""
+    from tpp_mlir_tpu_torch.xsmm.reference import LOG2E
+    H, D = key.heads or 1, key.head_dim
+    E = H * D
+    x = [a.cpu().double() for a in args]
+    if key.qkv_packed:
+        x = x[0][..., :E], x[0][..., E:2 * E], x[0][..., 2 * E:]
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], H, D).transpose(1, 2)
+
+    def rnd(t, dt):
+        return t.to(dt).double()
+    h, k, v = (heads(t) for t in x)
+    for _ in range(max(1, key.repeats)):
+        s = rnd(rnd(h, q_dt) * (key.scale * LOG2E), q_dt) @ k.transpose(-1,
+                                                                        -2)
+        p = (s - s.amax(-1, keepdim=True)).exp2()
+        h = rnd(p, p_dt) @ v / p.sum(-1, keepdim=True)
+        if key.repeats:
+            h = rnd(h, q_dt)
+    return h.transpose(1, 2).reshape(x[0].shape[0], -1, E).float().to(
+        args[0].device)
+
+
+def f16_probe_holds(got, want, value) -> bool:
+    """Whether a probe's output is bit-equal to its plain version's and
+    holds the probe's value (a number every element holds, a tensor, or
+    a tuple of tensors for the ln_stats_out producer's three results);
+    attention's (value: the bf16-rounded readings) is within
+    ATTN_PROBE_LIMIT of its plain version's, and each bf16-rounded reading
+    more than twice that from it."""
+    import torch
+    if isinstance(value, dict):
+        return rel_err(got, want)[1] <= ATTN_PROBE_LIMIT and \
+            all(rel_err(r, want)[1] > 2 * ATTN_PROBE_LIMIT
+                for r in value.values())
+    if isinstance(got, tuple):
+        return all(f16_probe_holds(g_, w_, v_)
+                   for g_, w_, v_ in zip(got, want, value))
+    if not torch.equal(got, want):
+        return False
+    if isinstance(value, torch.Tensor):
+        return torch.equal(got, value.to(got.dtype))
+    return bool((got == value).all())
 
 
 def _f16_launches(cache) -> dict:
@@ -1370,7 +1579,6 @@ def phase_f16() -> list:
     from tpp_mlir_tpu_torch.tools.tpp_run import init_args, run_module
     from tpp_mlir_tpu_torch.xsmm import (build_kernel, global_cache,
                                          reference_kernel)
-    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(22)
     # (a) each kernel at its f16 keys against its plain version
@@ -1388,13 +1596,15 @@ def phase_f16() -> list:
         if not ok:
             raise AssertionError(f"f16 {label}: rel {rel} > {tol}")
     # (b) the products are f16: bit-equal to the plain version's exact sums
-    for label, key, forced in f16_route_probes():
-        kern = build_warm(key, forced) if forced else build_kernel(key)
+    # (the GEMM family's routes here; the transformer family's in
+    # phase_f16_transformer)
+    for label, key, forced in _f16_gemm_probes():
+        kern = f16_probe_kernel(key, forced)
         args, value = f16_probe(key)
         got = kern(*args)
         want = reference_kernel(key)(*args)
         torch.cuda.synchronize()
-        ok = torch.equal(got, want) and bool((got == value).all())
+        ok = f16_probe_holds(got, want, value)
         say(f"f16 products {label:20s} route {kern.route:8s} every output "
             f"{got.flatten()[0].item()!r} (plain {want.flatten()[0].item()!r},"
             f" f16 products {value!r}; bf16 products would give "
@@ -1522,6 +1732,396 @@ def phase_f16() -> list:
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}))
     say(f"phase f16: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ROADMAP A14 items 1, 2, 3 and 5: the transformer family's f16 keys (B2's
+# LayerNorm prologue and LN-stats pair, B12, attention.cu's B6-B11 and B7,
+# batch_matmul.cu's B21/B22) on GPT-2 small, the encoder block and the MHA
+# suite at their bf16/f32 rows' widths, in f16
+F16_GPT2 = GPT2.replace('"dtype": "bf16"', '"dtype": "f16"')
+F16_ENCODER = ENCODER[:-1] + ', "dtype": "f16"}'
+F16_MHA = (
+    {"name": "mha_qk_f16", "model": 'mha_qk:{"batch": 64, "heads": 16, '
+     '"seq": 32, "head_dim": 64, "dtype": "f16"}'},
+    {"name": "mha_softmax_v_f16", "model": 'mha_softmax_v:{"batch": 64, '
+     '"heads": 16, "seq": 32, "head_dim": 64, "dtype": "f16"}'},
+    {"name": "flash_attention_f16_s2048", "model": 'mha_full:{"batch": 2, '
+     '"heads": 8, "seq": 2048, "head_dim": 64, "fused": true, "dtype": '
+     '"f16", "scale": 0.125}'},
+    {"name": "flash_attention_causal_f16_s2048", "model": 'mha_full:'
+     '{"batch": 2, "heads": 8, "seq": 2048, "head_dim": 64, "causal": true, '
+     '"dtype": "f16", "scale": 0.125}', "bench_mode": "scan"},
+)
+F16T_KINDS = ("brgemm", "attention", "layer_norm", "attention_flat",
+              "attention_bench", "batch_matmul")
+
+
+def _f16t_kernel_cases():
+    """(a): (label, key, forced loader or body, or None) at the f16 paths'
+    shapes: B2's LayerNorm-prologue GEMMs of GPT-2 (QKV + bias, fc1 + bias
+    + gelu) and the encoder, one on the convert loader (k 764); B12 at
+    GPT-2's ln_f, its first design forced; B7 at GPT-2's and the
+    encoder's packed keys (on TMA, f16's only attention loader); the
+    flat kernel at the suite's S 2048 rows (auto, causal, each forced
+    strategy: grouped B9, qblock B8, twocall B10a, twocall2 B10b, blocks
+    B6) and B11 at 3 repeats; B21/B22 at mha_qk's and mha_softmax_v's
+    keys, an lhs_shared and a +C softmax key, and the tiled route."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+                                         FlashMhaKey, LayerNormKey)
+    ln = dict(beta0=True, binary_kind="add", prologue="layer_norm")
+    gpt = FlashMhaKey(2, 1024, 1024, 64, "f16", scale=0.125, causal=True,
+                      heads=12, qkv_packed=True)
+    flat = FlashMhaKey(16, 2048, 2048, 64, "f16", scale=0.125)
+    causal = dataclasses.replace(flat, causal=True)
+    return (
+        ("ln gpt2 qkv 2048x2304x768 +bias",
+         BrgemmKey(1, 2048, 2304, 768, "f16", **ln), None),
+        ("ln gpt2 fc1 2048x3072x768 +bias+gelu",
+         BrgemmKey(1, 2048, 3072, 768, "f16", unary_kind="gelu", **ln),
+         None),
+        ("ln enc qkv 2048x3072x1024 +bias",
+         BrgemmKey(1, 2048, 3072, 1024, "f16", **ln), None),
+        ("ln enc fc1 2048x4096x1024 +bias+gelu",
+         BrgemmKey(1, 2048, 4096, 1024, "f16", unary_kind="gelu", **ln),
+         None),
+        ("ln qkv 2048x2304x764 (convert)",
+         BrgemmKey(1, 2048, 2304, 764, "f16", **ln), None),
+        ("ln_f gpt2 2048x768", LayerNormKey(2048, 768, "f16"), None),
+        ("ln_f gpt2 2048x768 strided", LayerNormKey(2048, 768, "f16"),
+         "strided"),
+        ("attn gpt2 b2 s1024 h12 d64 causal packed", gpt, None),
+        ("attn enc b8 s256 h8 d128 packed",
+         FlashMhaKey(8, 256, 256, 128, "f16", scale=128 ** -0.5, heads=8,
+                     qkv_packed=True), None),
+        ("flat B*H 16 s2048 d64", flat, None),
+        ("flat B*H 16 s2048 d64 causal", causal, None),
+        ("flat forced grouped (B9)",
+         dataclasses.replace(flat, strategy="grouped"), None),
+        ("flat forced qblock (B8)",
+         dataclasses.replace(flat, strategy="qblock"), None),
+        ("flat forced twocall causal (B10a)",
+         dataclasses.replace(causal, strategy="twocall"), None),
+        ("flat forced twocall2 causal (B10b)",
+         dataclasses.replace(causal, strategy="twocall2"), None),
+        ("flat blocked bq/bk 256 (B6)",
+         dataclasses.replace(flat, bq=256, bk=256), None),
+        ("flat B11 r3", dataclasses.replace(flat, repeats=3), None),
+        ("bmm mha_qk 1024x32x32x64",
+         BatchMatmulKey(1024, 32, 32, 64, "f16", beta0=True), None),
+        ("bmm mha_softmax_v 1024x32x64x32",
+         BatchMatmulKey(1024, 32, 64, 32, "f16", beta0=True,
+                        softmax_lhs=True), None),
+        ("bmm lhs_shared 300x48x64x40",
+         BatchMatmulKey(300, 48, 64, 40, "f16", beta0=True,
+                        lhs_shared=True), None),
+        ("bmm softmax +C 130x20x32x64",
+         BatchMatmulKey(130, 20, 32, 64, "f16", softmax_lhs=True), None),
+        ("bmm tiled +C 16x96x72x100",
+         BatchMatmulKey(16, 96, 72, 100, "f16"), None))
+
+
+def _f16t_inputs(key, g):
+    """Inputs of a transformer-family f16 key on the card: a LayerNorm
+    prologue's raw A rows N(0.5, 2^2) (so the normalization shows), W
+    N(0, 1/k), bias, gamma and beta N(0, 1) (gamma and beta f16, as the
+    models keep them), a C N(0, 1); B12's x N(1, 3^2); attention's
+    operands N(0, 1) (packed [Q|K|V] passed thrice, as the executor does);
+    the batched matmul's A N(0, 2^2), B N(0, 1), C f32; any other key (the
+    GEMMs the paths launch) as _f16_inputs makes it."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
+                                         FlashMhaKey, LayerNormKey)
+    f16 = torch.float16
+
+    def rnd(*shape, scale=1.0, shift=0.0, dt=f16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale +
+                shift).to(dt)
+    if isinstance(key, BrgemmKey) and key.prologue == "layer_norm":
+        return (rnd(1, key.m, key.k, scale=2.0, shift=0.5),
+                rnd(1, key.k, key.n, scale=key.k ** -0.5),
+                None if key.beta0 else rnd(key.m, key.n),
+                rnd(key.n) if key.binary_kind else None, rnd(key.k),
+                rnd(key.k))
+    if isinstance(key, LayerNormKey):
+        return rnd(key.m, key.n, scale=3.0, shift=1.0), rnd(key.n), \
+            rnd(key.n)
+    if isinstance(key, FlashMhaKey):
+        E = (key.heads or 1) * key.head_dim
+        if key.qkv_packed:
+            x = rnd(key.batch, key.seq, 3 * E)
+            return x, x, x
+        return tuple(rnd(key.batch, s, E)
+                     for s in (key.seq, key.seq_kv, key.seq_kv))
+    if isinstance(key, BatchMatmulKey):
+        a = rnd(*((key.m, key.k) if key.lhs_shared
+                  else (key.batch, key.m, key.k)), scale=2.0)
+        c = None if key.beta0 else rnd(key.batch, key.m, key.n,
+                                       dt=torch.float32)
+        return a, rnd(key.batch, key.k, key.n), c
+    return _f16_inputs(key, g)
+
+
+def _f16t_pair(g) -> float:
+    """B2's LN-stats pair at GPT-2's fc width in f16: the producer (m 2048,
+    k 768, n 3072, + bias, gelu, ln_stats_out) and its ln_stats consumer (k
+    3072, n 768, + bias) fed the producer's y, mean and var, each against
+    its plain version at TOL_F16, the statistics against the plain ones of
+    the producer's own y at TOL_F32 (f32 sums of the same stored values),
+    and each launched twice bit-equal. Returns the worst abs error."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import (BrgemmKey, build_kernel,
+                                         reference_kernel)
+    from tpp_mlir_tpu_torch.xsmm.reference import ln_stats_out
+    prod = BrgemmKey(1, 2048, 3072, 768, "f16", beta0=True,
+                     binary_kind="add", unary_kind="gelu", ln_stats_out=True)
+    cons = BrgemmKey(1, 2048, 768, 3072, "f16", beta0=True,
+                     binary_kind="add", prologue="ln_stats")
+    a, w1, _, b1 = _f16_inputs(dataclasses.replace(prod, ln_stats_out=False),
+                               g)
+    _, w2, _, b2 = _f16_inputs(dataclasses.replace(cons, prologue=None), g)
+    gamma, beta = (torch.randn(3072, generator=g, device="cuda").to(
+        torch.float16) for _ in range(2))
+    pk, ck = build_kernel(prod), build_kernel(cons)
+    y, mu, var = pk(a, w1, None, b1)
+    y2, mu2, var2 = pk(a, w1, None, b1)
+    want = reference_kernel(prod)(a, w1, None, b1)[0]
+    smu, svar = ln_stats_out(y)
+    args = (y[None], w2, None, b2, gamma, beta, mu, var)
+    z = ck(*args)
+    same = torch.equal(y, y2) and torch.equal(mu, mu2) and \
+        torch.equal(var, var2) and torch.equal(ck(*args), z)
+    zwant = reference_kernel(cons)(*args)
+    torch.cuda.synchronize()
+    rel_y, ab_y = rel_err(y, want)
+    rel_s = max(rel_err(mu, smu)[0], rel_err(var, svar)[0])
+    rel_z, ab_z = rel_err(z, zwant)
+    ok = rel_y <= TOL_F16 and rel_z <= TOL_F16 and rel_s <= TOL_F32 and \
+        same and torch_isfinite(z)
+    say(f"f16 kernel brgemm_ln_stats producer {describe(prod)} rel "
+        f"{rel_y:.3e} abs {ab_y:.3e}, mean/var vs its own y's rel "
+        f"{rel_s:.3e} (tol {TOL_F32:.0e}); consumer {describe(cons)} "
+        f"rel {rel_z:.3e} abs {ab_z:.3e} tol {TOL_F16:.0e}; second "
+        f"launches bit-equal {same}{_route_note(prod)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"f16 LN-stats pair: y {rel_y}, stats {rel_s},"
+                             f" consumer {rel_z}, bit-equal {same}")
+    return max(ab_y, ab_z)
+
+
+def _ln_composed(key, args):
+    """B2's yardstick, composed and not one call, used nowhere in the port:
+    F.layer_norm of A's rows in its own dtype (f16), then torch.addmm with
+    the bias (or torch.mm) and the unary (F.gelu, the exact-erf gelu that
+    gelu_exp2 meets within an ulp, for gelu), on the same operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpp_mlir_tpu_torch.xsmm.reference import UNARY_FNS
+    a, b, _, d, gamma, beta = args[:6]
+    unary = F.gelu if key.unary_kind == "gelu" else \
+        UNARY_FNS.get(key.unary_kind) if key.unary_kind else None
+
+    def run():
+        x = F.layer_norm(a[0], (key.k,), gamma, beta, key.prologue_eps)
+        y = torch.addmm(d, x, b[0]) if d is not None else torch.mm(x, b[0])
+        return unary(y) if unary else y
+    return run
+
+
+def _f16t_times(kind, key, args, kern, plain, where) -> dict:
+    """An f16 key's times: the kernel (and from a CUDA graph), its plain
+    version, its library call (and from a graph), for B2 the composed
+    F.layer_norm -> addmm, and its bound; printed on one line ending with
+    `where`. Returns the kernel line's timing keys."""
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    library = _library_call(kind, key, args)
+    composed = _ln_composed(key, args) if getattr(
+        key, "prologue", None) == "layer_norm" else None
+    bound, by = _bound(kind, key, args)
+    ms, plain_ms = cuda_ms(lambda: kern(*args)), \
+        cuda_ms(lambda: plain(*args))
+    lib_ms = cuda_ms(library) if library else None
+    iters = 2 if getattr(key, "repeats", 0) > 8 else 20
+    gms = graph_ms(lambda: kern(*args), iters=iters)
+    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms, "graph_ms": gms}
+    note = ""
+    if library:
+        # the yardstick from a CUDA graph too, beside the kernel's
+        entry["library_graph_ms"] = graph_ms(library, iters=iters)
+        note = f"; library call from a CUDA graph " \
+            f"{entry['library_graph_ms']:.4f} ms"
+    if composed:
+        entry["composed_ms"] = graph_ms(composed, iters=iters)
+        entry["composed"] = "F.layer_norm -> torch.addmm (not one call)"
+        note += f"; composed F.layer_norm -> addmm, not one call, from " \
+            f"a CUDA graph {entry['composed_ms']:.4f} ms"
+    if getattr(key, "repeats", 0) > 1:
+        note += f" ({ms / key.repeats:.4f} ms per repeat of " \
+            f"{key.repeats})"
+    lib = f"{lib_ms:.4f} ms" if lib_ms else "none"
+    say(f"time kernel f16 {describe(key):48s} {ms:.4f} ms (from a "
+        f"CUDA graph {gms:.4f} ms), plain version {plain_ms:.4f} ms, "
+        f"library call {lib}, bound {bound:.4f} ms ({by}); {where}; "
+        f"route {kern.route}{note}")
+    return entry
+
+
+def phase_f16_transformer() -> list:
+    """ROADMAP A14 items 1, 2, 3 and 5 on the card: (a) the transformer
+    family's f16 keys against their plain versions at TOL_F16, each line
+    naming its route, and B2's LN-stats pair; (b) the f16-not-bf16 probe on
+    every route they take (B2 kLnSmem/kLnLoad and the pair, B12 register
+    and strided, attention's TMA loader flat and token and B11, B21/B22
+    multi and tiled); (c) GPT-2 small at s1024 b2 in f16 (12 layers),
+    the f16 encoder block and the MHA suite's f16 rows through the bench
+    driver, lowered against --linalg-to-loops at TOL_MODEL, finite, with
+    the bf16/f32 rows' op counts, each path's launches counted (attention,
+    layer_norm, brgemm, the flat kernel, B11 and batch_matmul must move);
+    (d) each f16 key the paths launched held against its plain version at
+    the key and timed beside it, its bound and its library call (B2: the
+    composed F.layer_norm -> addmm, marked composed): kernel-line rows;
+    then every key (a) held that the paths do not launch, and B2's LN-stats
+    pair, timed the same way for PERF.md (no kernel-line row)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import global_cache, reference_kernel
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    worst: dict = {}
+    # (a) each kernel at its f16 keys against its plain version
+    for label, key, forced in _f16t_kernel_cases():
+        args = _f16t_inputs(key, g)
+        kern = f16_probe_kernel(key, forced)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        ok = rel <= TOL_F16 and torch_isfinite(got) and \
+            got.dtype == want.dtype and kern.launches == 1
+        note = f"; forced {forced}" if forced else _route_note(key)
+        say(f"f16 kernel {_kind(key):16s} {label:48s} rel {rel:.3e} abs "
+            f"{ab:.3e} tol {TOL_F16:.0e}{note} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {label}: rel {rel} > {TOL_F16}")
+        worst[_kind(key)] = max(worst.get(_kind(key), 0.0), ab)
+    worst["brgemm_ln_stats"] = _f16t_pair(g)
+    # (b) the products are f16: bit-equal to the plain version's exact sums
+    # (attention: within ATTN_PROBE_LIMIT, the bf16 readings further)
+    for label, key, forced in _f16_transformer_probes():
+        kern = f16_probe_kernel(key, forced)
+        args, value = f16_probe(key)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        ok = f16_probe_holds(got, want, value)
+        first = got[0] if isinstance(got, tuple) else got
+        held = "bit-equal to the plain version and the probe's f16 value"
+        if isinstance(value, dict):
+            held = f"{rel_err(got, want)[1]:.3e} from the plain version " \
+                f"(limit {ATTN_PROBE_LIMIT:.0e}); " + ", ".join(
+                    f"{name} reads {rel_err(r, want)[1]:.3e} from it"
+                    for name, r in value.items())
+        say(f"f16 products {label:34s} route {kern.route:8s} output "
+            f"{first.flatten()[:3].tolist()} {held} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 products {label}: "
+                                 f"{first.flatten()[:4]}")
+    # (c) the paths at full width, each one's launches counted
+    cache = global_cache()
+    launches: dict = {}
+    entries = [(label, {"model": model}, ops, kinds, 0)
+               for label, model, ops, kinds in F16_TRANSFORMERS]
+    entries += [(e["name"], e, *_mha_want(e)[:2], MHA_N) for e in F16_MHA]
+    for label, entry, want_ops, kinds, n in entries:
+        t1 = time.perf_counter()
+        cache.reset_launches()
+        res = run_entry(entry, n=n, device="cuda", out_stream=sys.stderr)
+        path = _launches(cache)
+        for key, count in _f16_launches(cache).items():
+            launches[key] = launches.get(key, 0) + count
+        ops = _invoke_counts(res["lowered"]["module"])
+        got = res["lowered"]["outputs"][0]
+        want = res["baseline"]["outputs"][0]
+        rel, ab = rel_err(got, want)
+        finite = torch_isfinite(got)
+        ok = ops == want_ops and finite and rel <= TOL_MODEL and \
+            got.dtype == torch.float16 and \
+            tuple(got.shape) == tuple(want.shape) and \
+            all(path[k] for k in kinds)
+        moved = {k: v for k, v in path.items() if v}
+        timed = f"; -n {n} {res['lowered']['mean_seconds'] * 1e3:.4f} " \
+            f"ms/iter, bench {res['lowered']['bench']}" if n else ""
+        say(f"f16 main {label}: lowered to {ops}; output "
+            f"{tuple(got.shape)} {str(got.dtype)[6:]} finite {finite}, vs "
+            f"--linalg-to-loops rel {rel:.3e} abs {ab:.3e} tol "
+            f"{TOL_MODEL:.0e}; launches {moved}{timed} "
+            f"({time.perf_counter() - t1:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {label}: ops {ops} (want "
+                                 f"{want_ops}), rel {rel}, finite {finite},"
+                                 f" launches {path} (must move: {kinds})")
+        del res, got, want
+        torch.cuda.empty_cache()
+    by_kind: dict = {}
+    for key, count in launches.items():
+        by_kind[_kind(key)] = by_kind.get(_kind(key), 0) + count
+    say(f"f16 transformer paths launches: {by_kind}")
+    missing = [k for k in F16T_KINDS if not by_kind.get(k)]
+    if missing:
+        raise AssertionError(f"f16 kernels of the paths never launched: "
+                             f"{missing}")
+    # (d) each f16 key the paths launched, held and timed: kernel-line rows
+    rows = []
+    for key, count in launches.items():
+        kind = _kind(key)
+        args = _f16t_inputs(key, g)
+        kern, plain = f16_probe_kernel(key), reference_kernel(key)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        tol, spread = TOL_F16, ""
+        if getattr(key, "repeats", 0) > 1 and rel > tol:
+            # B11 feeds each repeat's rounded output back as Q, so an ulp a
+            # sum order flips is carried on: held, as phase_f16 holds a
+            # repeat key, to twice what another sum order alone moves the
+            # plain version by (the same plain version on the host's BLAS)
+            host = plain(*(a.cpu() for a in args))
+            host_rel = rel_err(host, want.cpu())[0]
+            tol = max(tol, 2 * host_rel)
+            spread = f" (plain version on the host vs on the card rel " \
+                f"{host_rel:.3e})"
+        ok = rel <= tol and torch_isfinite(got) and got.dtype == want.dtype
+        say(f"f16 kernel {kind:16s} {describe(key):48s} (paths) rel "
+            f"{rel:.3e} abs {ab:.3e} tol {tol:.3e}{spread}"
+            f"{_route_note(key)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {describe(key)}: rel {rel}")
+        entry = _f16t_times(kind, key, args, kern, plain,
+                            f"{count} launches on the f16 paths")
+        rows.append((kind, key, kern.source, {
+            "launches": count, "max_abs_err": ab, **entry}))
+        worst[kind] = max(worst.get(kind, 0.0), ab)
+    # every key (a) held that the paths do not launch (the forced flat
+    # strategies, B12's first design, the convert and +C keys), and B2's
+    # LN-stats pair: timed for PERF.md's f16 table, no kernel-line row
+    for label, key, forced in _f16t_kernel_cases():
+        if key in launches and not forced:
+            continue
+        args = _f16t_inputs(key, g)
+        _f16t_times(_kind(key), key, args, f16_probe_kernel(key, forced),
+                    reference_kernel(key), f"off the paths ({label})")
+    _ln_stats_times("f16", "default", 3072, g)
+    say(f"phase f16 transformer: {time.perf_counter() - t0:.1f} s; worst "
+        f"abs error by kind {worst}")
     return rows
 
 
@@ -1998,6 +2598,14 @@ TRANSFORMERS = (
      {"xsmm.attention": 1, "xsmm.fused_brgemm+ln": 2,
       "xsmm.fused_brgemm": 2}, ("attention", "brgemm")),
 )
+
+
+# phase_f16_transformer's GPT-2 and encoder rows: the same op counts in f16
+F16_TRANSFORMERS = (
+    ("gpt2_small_s1024_f16", F16_GPT2, TRANSFORMERS[0][2],
+     ("attention", "layer_norm", "brgemm")),
+    ("transformer_block_d128_f16", F16_ENCODER, TRANSFORMERS[1][2],
+     ("attention", "brgemm")))
 
 
 def _invoke_counts(module) -> dict:
@@ -4488,7 +5096,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         q = args[0]
         B, S, H, D = key.batch, key.seq, key.heads or 1, key.head_dim
         pairs = S * (S + 1) // 2 if key.causal else S * key.seq_kv
-        rate = "f32" if key.precision == "highest" else "bf16"
+        rate = mxu_rate(key)
         flops = 4 * B * H * pairs * D * max(1, key.repeats)
         nbytes = _nbytes(q) * (1 if key.qkv_packed else 3) + \
             B * S * H * D * q.element_size()
@@ -4526,8 +5134,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         nbytes = _nbytes(*args) + 3 * _nbytes(q)
     elif kind == "batch_matmul":
         a, b, c = args
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * key.batch * key.m * key.n * key.k
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = _nbytes(a, b, c) + key.batch * key.m * key.n * size
@@ -4867,7 +5474,8 @@ def _ln_stats_inputs(kp, kc, g):
     """The producer's (A, W1, None, bias) and the consumer's (W2, None,
     bias, gamma, beta): W ~ N(0, 1/k), biases ~ N(0, 0.01), gamma near 1."""
     import torch
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[kp.dtype]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}[kp.dtype]
 
     def rnd(shape, scale=1.0, shift=0.0):
         return torch.randn(shape, generator=g, device="cuda") * scale + shift
@@ -4992,38 +5600,44 @@ def phase_ln_stats_timing() -> dict:
     bf16 GPT-2 fc key (the kernel line's) and f32 "default"; its bound: the
     bytes the two must move (A, both weights, biases, gamma, beta, y once
     each way, the statistics, the output) over HBM's rate, or their
-    products at the bf16 rate."""
+    products at the bf16 rate (f16 products, phase_f16_transformer's, at
+    the f16 rate)."""
     import torch
-
-    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {}
     for dtype, precision, n in LN_STATS_CASES[:2]:
-        kp, kc = _ln_stats_keys(dtype, precision, n)
-        pa, ca = _ln_stats_inputs(kp, kc, g)
-        prod, cons = build_kernel(kp), build_kernel(kc)
-        pprod, pcons = reference_kernel(kp), reference_kernel(kc)
-        ms = graph_ms(lambda: _ln_stats_pair(prod, cons, pa, ca))
-        plain_ms = graph_ms(lambda: _ln_stats_pair(pprod, pcons, pa, ca))
-        composed = _ln_stats_composed(kp, kc, pa, ca)
-        comp_ms = graph_ms(composed)
-        y, mu, var, z = _ln_stats_pair(prod, cons, pa, ca)
-        nbytes = _nbytes(*pa, *ca, mu, var, z) + 2 * _nbytes(y)
-        flops = 2 * kp.m * kp.n * kp.k + 2 * kc.m * kc.n * kc.k
-        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK["bf16"]
-        bound, by = max((b_bytes, "bytes"), (b_ops, "operations"))
-        bound *= 1e3
-        p_ms = graph_ms(lambda: prod(*pa))
-        say(f"time kernel brgemm_ln_stats pair {dtype} {precision} "
-            f"{LN_STATS_M}x{n}x{LN_STATS_K} -> {LN_STATS_M}x{LN_STATS_K}x"
-            f"{n}: {ms:.4f} ms (the producer alone {p_ms:.4f} ms), plain "
-            f"versions {plain_ms:.4f} ms, composed addmm + gelu -> "
-            f"F.layer_norm -> addmm (not one call) {comp_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}) (from CUDA graphs)")
-        out.setdefault("brgemm_ln_stats", {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
+        out.setdefault("brgemm_ln_stats", _ln_stats_times(dtype, precision,
+                                                          n, g))
     return out
+
+
+def _ln_stats_times(dtype: str, precision: str, n: int, g) -> dict:
+    """The pair at one key, timed as phase_ln_stats_timing says, printed
+    on one line. Returns the kernel line's timing keys."""
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    kp, kc = _ln_stats_keys(dtype, precision, n)
+    pa, ca = _ln_stats_inputs(kp, kc, g)
+    prod, cons = build_kernel(kp), build_kernel(kc)
+    pprod, pcons = reference_kernel(kp), reference_kernel(kc)
+    ms = graph_ms(lambda: _ln_stats_pair(prod, cons, pa, ca))
+    plain_ms = graph_ms(lambda: _ln_stats_pair(pprod, pcons, pa, ca))
+    comp_ms = graph_ms(_ln_stats_composed(kp, kc, pa, ca))
+    y, mu, var, z = _ln_stats_pair(prod, cons, pa, ca)
+    nbytes = _nbytes(*pa, *ca, mu, var, z) + 2 * _nbytes(y)
+    flops = 2 * kp.m * kp.n * kp.k + 2 * kc.m * kc.n * kc.k
+    peak = PEAK["f16" if dtype == "f16" else "bf16"]
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    bound, by = max((b_bytes, "bytes"), (b_ops, "operations"))
+    bound *= 1e3
+    p_ms = graph_ms(lambda: prod(*pa))
+    say(f"time kernel brgemm_ln_stats pair {dtype} {precision} "
+        f"{LN_STATS_M}x{n}x{LN_STATS_K} -> {LN_STATS_M}x{LN_STATS_K}x"
+        f"{n}: {ms:.4f} ms (the producer alone {p_ms:.4f} ms), plain "
+        f"versions {plain_ms:.4f} ms, composed addmm + gelu -> "
+        f"F.layer_norm -> addmm (not one call) {comp_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}) (from CUDA graphs)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
 
 
 def _payload_bytes(params) -> int:
@@ -5873,6 +6487,7 @@ def main() -> int:
         stats[kind] = {"max_abs_err": worst}
     launches = phase_main_path()
     f16_rows = phase_f16()
+    f16_rows += phase_f16_transformer()
     for kind, n in phase_tuning().items():
         launches[kind] += n
     for kind, n in phase_compiler_path().items():
@@ -5948,8 +6563,8 @@ def main() -> int:
         kernels.append({**{f: rows[kind][f] for f in ("route", "source",
                                                       "replaces")},
                         "name": f"{kind}@{describe(key)}{dx}", **entry})
-    # the f16 keys of the GEMM family (ROADMAP A14), each a row of its
-    # kernel's, launched on phase_f16's main path
+    # the f16 keys (ROADMAP A14), each a row of its kernel's, launched on
+    # phase_f16's main path and phase_f16_transformer's paths
     for kind, key, source, entry in f16_rows:
         kernels.append({"route": "cuda", "source": source,
                         "replaces": rows[kind]["replaces"],

@@ -2021,20 +2021,21 @@ def test_forced_warm_panels_match_plain(cuda):
 
 # ROADMAP A14: every route an f16 key takes, with A = 1 + 2^-10 (exact in
 # f16, 1.0 in bf16): the probes and their inputs are chip_smoke.py's
-# phase_f16 (b), held here at their launch counts
+# phase_f16 (b) and phase_f16_transformer (b) (the GEMM family; B2, B12,
+# attention, B21/B22), held here at their launch counts
 F16_ROUTES = {label: (key, forced)
               for label, key, forced in chip_smoke.f16_route_probes()}
 
 
 @pytest.mark.parametrize("name", list(F16_ROUTES))
 def test_f16_products_are_not_bf16(cuda, name):
-    from tpp_mlir_tpu_torch.xsmm.kernels import build_warm
     key, forced = F16_ROUTES[name]
-    kern = build_warm(key, forced) if forced else build_kernel(key)
+    kern = chip_smoke.f16_probe_kernel(key, forced)
     args, value = chip_smoke.f16_probe(key)
     got = kern(*args)
     torch.cuda.synchronize()
     want = reference_kernel(key)(*args)
     assert kern.launches == 1
-    assert torch.equal(got, want), (got.flatten()[:4], want.flatten()[:4])
-    assert bool((got == value).all())
+    assert chip_smoke.f16_probe_holds(got, want, value), \
+        (got, want) if isinstance(got, tuple) else \
+        (got.flatten()[:4], want.flatten()[:4])

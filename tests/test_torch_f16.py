@@ -31,6 +31,7 @@ import torch
 import tpp_mlir_tpu.xsmm.flags as ref_flags
 from tpp_mlir_tpu import ops as jax_ops
 from tpp_mlir_tpu.ir import parse_module as jax_parse_module
+from tpp_mlir_tpu.runtime.executor import interpret as jax_interpret
 from tpp_mlir_tpu.runtime.tensor_init import tensor_init as jax_tensor_init
 from tpp_mlir_tpu.tools.mlir_gen import build_parser as jax_gen_parser
 from tpp_mlir_tpu.tools.mlir_gen import config_from_args as jax_gen_config
@@ -375,7 +376,10 @@ def test_f16_sizes_as_two_bytes():
         reference.gemm_plan(BrgemmKey(1, 256, 1024, 1024, "bf16"))
 
 
-# every family outside the slice's f16 keys keeps refusing, naming A14
+# every family outside the slice's f16 keys keeps refusing, naming A14;
+# the transformer family's (B12, attention, the batched matmul, B2's
+# LayerNorm prologue and LN-stats producer), once refused here, run since
+# ROADMAP A14 items 1, 2, 3 and 5 (NOW_RUN below)
 OUTSIDE = {
     "layer-norm": LayerNormKey(m=8, n=64, dtype="f16"),
     "attention": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
@@ -402,11 +406,71 @@ OUTSIDE = {
     "b1-bf16-to-f16": BrgemmKey(1, 8, 64, 64, "bf16", out_dtype="f16"),
     "b1-f16-to-bf16": BrgemmKey(1, 8, 64, 64, "f16", out_dtype="bf16"),
     "chain-f32-to-f16": ChainKey(m=8, dims=(64, 64), out_dtype="f16"),
+    # B14's forward under a token key's flash_heads (A14 item 8), and an
+    # attention key mixing f16 operands with a bf16 output
+    "flash-heads": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
+                               dtype="f16", causal=True, heads=2,
+                               strategy="flash_heads"),
+    "attention-f16-to-bf16": FlashMhaKey(batch=2, seq=64, seq_kv=64,
+                                         head_dim=64, dtype="f16",
+                                         out_dtype="bf16"),
 }
+NOW_RUN = ("layer-norm", "attention", "batch-matmul", "ln-prologue",
+           "ln-stats-out")
+
+
+def _now_runs(key):
+    """An OUTSIDE key of NOW_RUN built and run on seeded f16 inputs: its
+    plain version against the Pallas body in interpret mode at 2e-3 (the
+    JAX f16 test's rtol); the LN-stats producer at m 8, which the JAX
+    package builds only as its weights-resident kernel (two m blocks or
+    more), against the port's own B1 at the key without ln_stats_out
+    (bit-equal) and numpy's row statistics of its output."""
+    rng = np.random.default_rng(9)
+    kern = build_kernel(key)
+    if isinstance(key, LayerNormKey):
+        args = (_f16((key.m, key.n), 1), _f16((key.n,), 2),
+                _f16((key.n,), 3))
+    elif isinstance(key, FlashMhaKey):
+        args = tuple(_f16((key.batch, s, key.head_dim), 4 + i)
+                     for i, s in enumerate((key.seq, key.seq_kv,
+                                            key.seq_kv)))
+    elif isinstance(key, BatchMatmulKey):
+        args = (_f16((key.batch, key.m, key.k), 7),
+                _f16((key.batch, key.k, key.n), 8),
+                rng.standard_normal((key.batch, key.m, key.n))
+                .astype(np.float32))
+    elif getattr(key, "prologue", None):
+        args = (_f16((1, key.m, key.k), 10, 3.0), _f16((1, key.k, key.n), 11,
+                                                       0.1),
+                None, None, _f16((key.k,), 12), _f16((key.k,), 13))
+    else:
+        a, b = _f16((1, key.m, key.k), 14), _f16((1, key.k, key.n), 15, 0.1)
+        y, mu, var = kern(to_torch(a), to_torch(b))
+        plain = dataclasses.replace(key, ln_stats_out=False)
+        assert torch.equal(y, build_kernel(plain)(to_torch(a), to_torch(b)))
+        yf = y.float().numpy()
+        np.testing.assert_allclose(mu.numpy()[:, 0], yf.mean(1), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(var.numpy()[:, 0], yf.var(1), rtol=1e-4,
+                                   atol=1e-6)
+        return
+    got = kern(*(None if a is None else to_torch(a) for a in args))
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    if getattr(key, "prologue", None):
+        want = jax_build_kernel(_ref_key(key), interpret=True)(
+            *jargs[:4], gamma=jargs[4], beta=jargs[5])
+    else:
+        want = jax_build_kernel(_ref_key(key), interpret=True)(*jargs)
+    assert got.dtype == F16 and kern.launches == 0
+    assert _err(got, want) <= 2e-3
 
 
 @pytest.mark.parametrize("name", list(OUTSIDE))
 def test_f16_keys_outside_the_slice_name_a14(name):
+    if name in NOW_RUN:
+        _now_runs(OUTSIDE[name])
+        return
     with pytest.raises(NotImplementedError, match="A14"):
         build_kernel(OUTSIDE[name])
 
@@ -427,11 +491,14 @@ def _f16_dispatch_module(dispatch, invoke, attrs, operands, out):
 
 
 # IR whose f16 key no kernel of the port takes: verify-slice refuses it
-# through check_slice, naming A14, before anything runs
+# through check_slice, naming A14, before anything runs; the LayerNorm
+# prologue's and B12's, once refused here, pass verify-slice and run since
+# ROADMAP A14 items 1 and 2 (IR_NOW_RUN)
 F16_IR_OUTSIDE = {
     "ln-prologue": ("xsmm.fused_brgemm_dispatch", "xsmm.fused_brgemm",
                     dict(batch=1, m=8, n=64, k=64, flags=("beta_0",),
-                         prologue="layer_norm"),
+                         binary_kind="add", binary_bcast="bcast_col",
+                         unary_kind="none", prologue="layer_norm"),
                     [(1, 8, 64), (1, 64, 64), (8, 64), (64,), (64,), (64,)],
                     (8, 64)),
     "layer-norm": ("xsmm.layer_norm_dispatch", "xsmm.layer_norm",
@@ -445,10 +512,31 @@ F16_IR_OUTSIDE = {
 }
 
 
+IR_NOW_RUN = ("ln-prologue", "layer-norm")
+
+
 @pytest.mark.parametrize("name", list(F16_IR_OUTSIDE))
 def test_verify_slice_refuses_f16_ir_outside_the_gemm_family(name):
     from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.runtime import compile as port_compile
+    module = _f16_dispatch_module(*F16_IR_OUTSIDE[name])
+    if name in IR_NOW_RUN:
+        # verify-slice admits it, and the executor runs it to the f16
+        # output its invoke declares, within one kernel's f16 tolerance of
+        # the JAX package's evaluator on the same IR (Pallas bodies in
+        # interpret mode)
+        run_pipeline(module, "verify-slice")
+        shapes = F16_IR_OUTSIDE[name][3]
+        args = [_f16(s, 20 + i) for i, s in enumerate(shapes)]
+        got = port_compile(module, device="cpu")(*map(to_torch, args))
+        want, = jax_interpret(jax_parse_module(str(module)), "entry",
+                              *map(jnp.asarray, args),
+                              interpret_kernels=True)
+        assert got.dtype == F16 and tuple(got.shape) == \
+            F16_IR_OUTSIDE[name][4]
+        assert torch.isfinite(got.float()).all()
+        assert _err(got, want) <= 2e-3
+        return
     with pytest.raises(NotImplementedError, match="A14") as e:
-        run_pipeline(_f16_dispatch_module(*F16_IR_OUTSIDE[name]),
-                     "verify-slice")
+        run_pipeline(module, "verify-slice")
     assert "outside the port's slice" in str(e.value)

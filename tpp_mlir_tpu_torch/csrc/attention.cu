@@ -35,7 +35,11 @@
 //
 // The math follows B7: Q (in the MXU dtype) is scaled by scale*log2(e) in
 // f32 and rounded to the MXU dtype again, the softmax is in the exp2
-// domain, P is rounded to the MXU dtype before P.V, sums are f32. Unlike
+// domain, P is rounded to the MXU dtype before P.V, sums are f32. The MXU
+// dtype is bf16 for bf16 and f32 "default" operands and f16 for f16 ones
+// (ROADMAP A14): the wgmma kernel is instantiated at its product type E,
+// and every rounding above, the warm bench's fed-back output included, is
+// to E. Unlike
 // B7, which normalizes P over the whole row before P.V, this kernel runs
 // the online softmax over K/V tiles and divides by the row sum once at the
 // end (as B6, B8, B9 and B11 do), so the (S x S) scores never exist
@@ -49,13 +53,18 @@
 //   - one block per (128 query rows, head, batch): two consumer warpgroups
 //     of 64 rows and one producer warpgroup;
 //   - K/V tiles of 64 rows go through a 3-stage ring in shared memory with
-//     full/empty mbarriers: for bf16 operands one producer thread fills it
-//     by TMA (3D maps over (columns, rows, batch), 128-byte swizzle, 64 at
-//     D 32; the rows past seq_kv arrive as zeros); for f32 operands at
-//     "default" (the "convert" loader) the producer warpgroup loads them
-//     through registers, rounds them to bf16 and stores the same swizzled
-//     layout, so the consumers run one code;
-//   - S = Q K^T on wgmma m64n64k16 with Q and K from shared memory, the
+//     full/empty mbarriers: for 16-bit operands one producer thread fills
+//     it by TMA (3D maps over (columns, rows, batch) of BFLOAT16 or FLOAT16
+//     elements, 128-byte swizzle, 64 at D 32; the rows past seq_kv arrive
+//     as zeros); for f32 operands at "default", and bf16 ones whose
+//     strides TMA cannot take (the "convert" loaders), the producer
+//     warpgroup loads them through registers, rounds f32 to bf16 (a bf16
+//     value goes through as it is) and stores the same swizzled layout, so
+//     the consumers run one code. f16 operands have the TMA loader only:
+//     at D 32, 64 and 128 every stride and column offset is a multiple of
+//     16 bytes;
+//   - S = Q K^T on wgmma m64n64k16 (.bf16 or .f16) with Q and K from
+//     shared memory, the
 //     online softmax in registers (row max and sum across the four lanes
 //     of a row by shuffles, columns past seq_kv and above the diagonal set
 //     to -inf in registers), and O += P V on wgmma with P from registers as
@@ -73,6 +82,8 @@
 // through shared memory, the output accumulator in shared memory.
 // D 32, 64 and 128.
 #include <math.h>
+
+#include <type_traits>
 
 #include "epilogue.cuh"
 #include "hopper.cuh"
@@ -95,9 +106,21 @@ struct Args {
   float* lse = nullptr;  // training mode: (B, H, seq) base-2 log-sum-exp
 };
 
-// ---- the bf16 MXU path: wgmma, TMA or register loaders -----------------
+// ---- the 16-bit MXU path: wgmma, TMA or register loaders ---------------
 
-enum Loader : int { kTma = 0, kConvertF32 = 1, kConvertBF16 = 2 };
+// xsmm/kernels.py _ATTENTION_LOADER_CODE: code 3 is the f32-FMA kernel; each
+// wgmma loader reads one operand dtype and runs products of one type E
+enum Loader : int { kTma = 0, kConvertF32 = 1, kConvertBF16 = 2,
+                    kTmaF16 = 4 };
+
+__host__ __device__ constexpr bool is_tma(Loader ld) {
+  return ld == kTma || ld == kTmaF16;
+}
+
+// the products' type of a loader: f16 for f16 operands, else bf16
+template <Loader LD>
+using Mma = typename std::conditional<LD == kTmaF16, __half,
+                                      __nv_bfloat16>::type;
 
 constexpr int WG = 128;          // threads of a warpgroup
 constexpr int NCW = 2;           // consumer warpgroups
@@ -124,41 +147,45 @@ struct Tile : hw::Chunks<D> {
   }
 };
 
-// eight consecutive elements as f32 (a 16-byte unit of the bf16 tile)
+// eight consecutive elements as f32 (a 16-byte unit of the 16-bit tile)
 template <Loader LD>
 __device__ __forceinline__ void load8(const void* base, size_t i,
                                       float (&x)[8]) {
+  using E = Mma<LD>;
   if constexpr (LD == kConvertF32) {
     const float4* p =
         reinterpret_cast<const float4*>(static_cast<const float*>(base) + i);
     const float4 a = p[0], b = p[1];
     x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
     x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  } else if constexpr (LD == kTma) {     // 16-byte aligned (the TMA gate)
+  } else if constexpr (is_tma(LD)) {     // 16-byte aligned (the TMA gate)
     const uint4 u =
-        *reinterpret_cast<const uint4*>(
-            static_cast<const __nv_bfloat16*>(base) + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+        *reinterpret_cast<const uint4*>(static_cast<const E*>(base) + i);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
+      const float2 f = tpp::pair_f32<E>(w[j]);
       x[2 * j] = f.x;
       x[2 * j + 1] = f.y;
     }
   } else {
-    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(base) + i;
+    const E* p = static_cast<const E*>(base) + i;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(p[j]);
+    for (int j = 0; j < 8; ++j) x[j] = tpp::to_f32(p[j]);
   }
 }
 
+// eight values rounded to E, as one 16-byte unit
+template <class E>
 __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
-  return make_uint4(hw::pack_bf16(x[0], x[1]), hw::pack_bf16(x[2], x[3]),
-                    hw::pack_bf16(x[4], x[5]), hw::pack_bf16(x[6], x[7]));
+  return make_uint4(hw::pack16<E>(x[0], x[1]), hw::pack16<E>(x[2], x[3]),
+                    hw::pack16<E>(x[4], x[5]), hw::pack16<E>(x[6], x[7]));
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// x rounded to E, as f32
+template <class E>
+__device__ __forceinline__ float round16(float x) {
+  return tpp::to_f32(tpp::from_f32<E>(x));
 }
 
 // TRAIN: B14's forward (one pass, bf16 by TMA): Q staged unscaled, S scaled
@@ -168,6 +195,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, Args a) {
   using T = Tile<D>;
+  using E = Mma<LD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
                                     % 1024);
@@ -186,7 +214,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hw::mbar_init(&full[s], LD == kTma ? 1 : WG);
+      hw::mbar_init(&full[s], is_tma(LD) ? 1 : WG);
       hw::mbar_init(&empty[s], NCW * WG);
     }
     hw::mbar_fence_init();
@@ -195,7 +223,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
 
   if (wg == NCW) {  // ---- producer warpgroup: fills the K/V ring ----
     const int ptid = tid - NCW * WG;
-    if constexpr (LD == kTma) {
+    if constexpr (is_tma(LD)) {
       if (ptid != 0) return;
       int stage = 0, phase = 0;
       for (int rep = 0; rep < passes; ++rep)
@@ -233,9 +261,9 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
               for (int j = 0; j < 8; ++j) xk[j] = xv[j] = 0.f;
             }
-            *reinterpret_cast<uint4*>(ks + T::at(BKV, r, c)) = pack8(xk);
+            *reinterpret_cast<uint4*>(ks + T::at(BKV, r, c)) = pack8<E>(xk);
             *reinterpret_cast<uint4*>(ks + T::KV + T::at(BKV, r, c)) =
-                pack8(xv);
+                pack8<E>(xv);
           }
           hw::fence_proxy_async();
           hw::mbar_arrive(&full[stage]);
@@ -252,7 +280,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
   const int cq = 2 * (lane % 4);                 // first column of a pair
   const size_t q_base = (size_t)b * a.seq * a.ld_in + col0;
 
-  // stage Q: rounded to bf16, scaled by qscale in f32, rounded again (in
+  // stage Q: rounded to E, scaled by qscale in f32, rounded again (in
   // training mode rounded only: S is scaled instead)
 #pragma unroll
   for (int it = 0; it < 64 * D / 8 / WG; ++it) {
@@ -264,12 +292,12 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
       load8<LD>(a.q, q_base + (size_t)qi * a.ld_in + c, x);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        x[j] = TRAIN ? round_bf16(x[j]) : round_bf16(x[j]) * a.qscale;
+        x[j] = TRAIN ? round16<E>(x[j]) : round16<E>(x[j]) * a.qscale;
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) x[j] = 0.f;
     }
-    *reinterpret_cast<uint4*>(qs + T::at(BQ, r_wg + r, c)) = pack8(x);
+    *reinterpret_cast<uint4*>(qs + T::at(BQ, r_wg + r, c)) = pack8<E>(x);
   }
   hw::fence_proxy_async();
   hw::bar_sync(1 + wg, WG);
@@ -290,7 +318,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
         const unsigned char* ks = ring + stage * 2 * T::KV;
         float s[BKV / 2];
         hw::wgmma_fence();
-        hw::ss_abt<D, BQ>(s, qa, ks);   // S = Q K^T
+        hw::ss_abt<D, BQ, E>(s, qa, ks);   // S = Q K^T
         hw::wgmma_commit();
         hw::wgmma_wait<0>();
         hw::fence_regs(s);
@@ -330,7 +358,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
           sum[hh] += p0 + p1;
           // S columns 16 kt .. 16 kt + 15 (s[8 kt .. 8 kt + 7]) are the A
           // fragment of P.V's step kt
-          p[i / 8][(i % 8) / 2] = hw::pack_bf16(p0, p1);
+          p[i / 8][(i % 8) / 2] = hw::pack16<E>(p0, p1);
         }
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
@@ -338,7 +366,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
         hw::fence_regs(o);
         hw::wgmma_fence();
-        hw::rs_ab<D>(o, p, ks + T::KV);   // O += P V, V MN-major
+        hw::rs_ab<D, E>(o, p, ks + T::KV);   // O += P V, V MN-major
         hw::wgmma_commit();
         hw::wgmma_wait<0>();
         hw::fence_regs(o);
@@ -361,15 +389,15 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
     if (rep + 1 == passes) break;
-    // warm bench: the output, rounded to bf16, is the next Q
+    // warm bench: the output, rounded to E, is the next Q
 #pragma unroll
     for (int i = 0; i < D / 2; i += 2) {
       const int hh = (i / 2) & 1, r = r_wg + 16 * warp + lane / 4 + 8 * hh;
       const bool in = row0 + 8 * hh < a.seq;
-      const float x0 = in ? round_bf16(o[i] / l[hh]) : 0.f;
-      const float x1 = in ? round_bf16(o[i + 1] / l[hh]) : 0.f;
+      const float x0 = in ? round16<E>(o[i] / l[hh]) : 0.f;
+      const float x1 = in ? round16<E>(o[i + 1] / l[hh]) : 0.f;
       *reinterpret_cast<uint32_t*>(qs + T::at(BQ, r, 8 * (i / 4) + cq)) =
-          hw::pack_bf16(x0 * a.qscale, x1 * a.qscale);
+          hw::pack16<E>(x0 * a.qscale, x1 * a.qscale);
     }
     hw::fence_proxy_async();
     hw::bar_sync(1 + wg, WG);
@@ -381,23 +409,24 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
     if (qi >= a.seq) continue;
     float x0 = o[i] / l[hh], x1 = o[i + 1] / l[hh];
     if (a.repeats > 0) {
-      x0 = round_bf16(x0);
-      x1 = round_bf16(x1);
+      x0 = round16<E>(x0);
+      x1 = round16<E>(x1);
     }
     const size_t at = ((size_t)b * a.seq + qi) * a.ld_out + col0 +
                       8 * (i / 4) + cq;
-    if (a.out_dtype == tpp::kBF16)
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.out) +
-                                         at) = __floats2bfloat162_rn(x0, x1);
+    if (a.out_dtype == tpp::dtype_code<E>())
+      *reinterpret_cast<uint32_t*>(static_cast<E*>(a.out) + at) =
+          hw::pack16<E>(x0, x1);
     else
       *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
           make_float2(x0, x1);
   }
 }
 
-// The K and V maps of a TMA launch: (columns E, rows seq_kv, batch) over
-// the operand's head-0 pointer, boxes of (SW / 2 columns, BKV rows, 1).
-template <int D>
+// The K and V maps of a TMA launch: (columns E, rows seq_kv, batch) of
+// 16-bit elements of type H over the operand's head-0 pointer, boxes of
+// (SW / 2 columns, BKV rows, 1).
+template <int D, class H>
 int kv_maps(const Args& a, int heads, int batch, CUtensorMap* kmap,
             CUtensorMap* vmap) {
   using T = Tile<D>;
@@ -407,8 +436,9 @@ int kv_maps(const Args& a, int heads, int batch, CUtensorMap* kmap,
   const uint64_t strides[2] = {static_cast<uint64_t>(a.ld_in) * 2,
                                static_cast<uint64_t>(a.seq_kv) * a.ld_in * 2};
   const uint32_t box[3] = {T::CW, BKV, 1};
-  int rc = hw::make_map(kmap, a.k, 3, dims, strides, box, T::SW);
-  if (rc == 0) rc = hw::make_map(vmap, a.v, 3, dims, strides, box, T::SW);
+  int rc = hw::make_map<H>(kmap, a.k, 3, dims, strides, box, T::SW);
+  if (rc == 0)
+    rc = hw::make_map<H>(vmap, a.v, 3, dims, strides, box, T::SW);
   return rc;
 }
 
@@ -416,8 +446,8 @@ template <Loader LD, int D, bool TRAIN = false>
 int launch_mma(const Args& a, int batch, int heads, cudaStream_t stream) {
   using T = Tile<D>;
   CUtensorMap kmap{}, vmap{};
-  if constexpr (LD == kTma) {
-    const int rc = kv_maps<D>(a, heads, batch, &kmap, &vmap);
+  if constexpr (is_tma(LD)) {
+    const int rc = kv_maps<D, Mma<LD>>(a, heads, batch, &kmap, &vmap);
     if (rc) return rc;
   }
   auto kernel = attention_kernel<LD, D, TRAIN>;
@@ -644,6 +674,7 @@ int launch_d(const Args& a, int batch, int heads, int loader,
     case kTma: return launch_mma<kTma, D>(a, batch, heads, st);
     case kConvertF32: return launch_mma<kConvertF32, D>(a, batch, heads, st);
     case kConvertBF16: return launch_mma<kConvertBF16, D>(a, batch, heads, st);
+    case kTmaF16: return launch_mma<kTmaF16, D>(a, batch, heads, st);
     default: return launch_fma<D>(a, batch, heads, st);
   }
 }
@@ -654,11 +685,14 @@ int launch_d(const Args& a, int batch, int heads, int loader,
 // the first element of head 0 of Q/K/V and of the output; ld_in is their row
 // stride in elements (E, or 3E for one packed operand), the output's is E.
 // The flat layout is heads = 1 with ld_in = D. `loader` is the route
-// xsmm/reference.py attention_loader chose: 0 TMA (bf16 operands, 16-byte
-// aligned pointers and strides), 1 the register loader of f32 operands at
-// "default", 2 that of bf16 operands TMA cannot take, 3 f32 FMA (MXU dtype
-// f32). The batch goes in gridDim.y (gridDim.z for FMA), so it is at most
-// 65535.
+// xsmm/reference.py attention_loader chose, for the operands' dtype: 0 TMA
+// (bf16 operands, 16-byte aligned pointers and strides), 1 the register
+// loader of f32 operands at "default", 2 that of bf16 operands TMA cannot
+// take, 3 f32 FMA (MXU dtype f32), 4 TMA of f16 operands (f16 products).
+// A loader given operands of
+// another dtype, or an output dtype other than f32 or its products' 16-bit
+// type, is refused. The batch goes in gridDim.y (gridDim.z for FMA), so
+// it is at most 65535.
 extern "C" int tpp_attention(const void* q, const void* k, const void* v,
                              void* out, int batch, int seq, int seq_kv,
                              int heads, int head_dim, int ld_in,
@@ -668,10 +702,15 @@ extern "C" int tpp_attention(const void* q, const void* k, const void* v,
   const Args a{q,     k,      v,      out,    seq,      seq_kv,
                ld_in, heads * head_dim, qscale, causal, out_dtype, repeats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the loader must match the operands' dtype
-  const int want_in = loader == kTma || loader == kConvertBF16 ? tpp::kBF16
-                                                               : tpp::kF32;
-  if (loader < 0 || loader > 3 || in_dtype != want_in)
+  // the loader must match the operands' dtype, and the output be f32 or
+  // the products' 16-bit type
+  const bool f16 = loader == kTmaF16;
+  const int want_in = f16 ? tpp::kF16
+                      : loader == kTma || loader == kConvertBF16 ? tpp::kBF16
+                                                                 : tpp::kF32;
+  if (loader < 0 || loader > 4 || in_dtype != want_in ||
+      (out_dtype != tpp::kF32 &&
+       out_dtype != (f16 ? tpp::kF16 : tpp::kBF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 32: return launch_d<32>(a, batch, heads, loader, st);
@@ -682,7 +721,8 @@ extern "C" int tpp_attention(const void* q, const void* k, const void* v,
 }
 
 // B14, the training forward (replaces tpp_mlir_tpu/xsmm/flash_train.py:146
-// build_flash_train_fwd), bf16 operands: the wgmma kernel above in its
+// build_flash_train_fwd), bf16 operands (B14's f16 keys are ROADMAP A14's,
+// not instantiated): the wgmma kernel above in its
 // training mode over the (B, S, H, D) layout (row stride H*D, TMA loader),
 // causal or not, O in bf16 and lse2 (B, H, S) f32. flash_train.cu's
 // tpp_flash_train_fwd sends its bf16 keys here. Returns the cudaError_t of

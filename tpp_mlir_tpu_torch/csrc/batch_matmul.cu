@@ -9,45 +9,51 @@
 // problems in one TPU program, a grid choice for tiny problems.
 //
 // Numerics: operands rounded to the MXU dtype (bf16 for bf16 and f32
-// "default", f32 for "highest"), products and sums in f32, C added in f32,
-// one rounding to the output dtype. The softmax takes each row's max and
-// sum over the whole k in f32 from A's values, then P = exp(a - max) / sum
-// is rounded to the MXU dtype before the product.
+// "default", f16 for f16 keys (ROADMAP A14), f32 for "highest"), products
+// and sums in f32, C added in f32, one rounding to the output dtype (f32,
+// or the products' 16-bit type). The softmax takes each row's max and sum
+// over the whole k in f32 from A's values, then P = exp(a - max) / sum is
+// rounded to the MXU dtype before the product.
 //
 // Two routes, which xsmm/reference.py batch_matmul_route chooses from the
 // key:
-//   "multi" (MXU dtype bf16, m, n and k at most 64, k and n multiples of 8:
-//   every MHA-suite key, 1024 problems of 32x32x64 or 32x64x32). Such a
+//   "multi" (16-bit products, bf16 or f16, m, n and k at most 64, k and n
+//   multiples of 8: every MHA-suite key, 1024 problems of 32x32x64 or
+//   32x64x32). Such a
 //   problem is ~4-16 KB of operands and a few hundred thousand operations,
 //   so the work is bytes and latency: at 1024 problems the bound is 6 us
 //   at 3.35 TB/s. A 64x64 block tile (the tiled route) wastes 3/4 or 1/2 of
 //   its rows on padding and stages operands one scalar at a time. Here a
 //   persistent grid of warps (a few per block, as many blocks as fit the
 //   SMs) walks the batch, each warp owning one whole problem at a time:
-//   its operands (A, B and C, f32 or bf16 as they are) arrive by cp.async
+//   its operands (A, B and C, f32, bf16 or f16 as they are) arrive by
+//   cp.async
 //   16-byte copies into the warp's own shared memory, and the warp's next
 //   problem is issued into the same slot as soon as this one's operands
 //   are read, so its loads overlap this problem's stores (at the MHA keys
 //   every problem has a warp of its own, all loads in flight at once; a
 //   2-stage ring, which doubles a warp's shared memory and so holds fewer
 //   warps an SM, read slower there); the m x n output is
-//   (m/16) x (n/8) mma.sync m16n8k16 bf16 tiles with f32 accumulators in
-//   registers. A problem this small cannot fill wgmma's 64-row M without
-//   mixing problems whose B differ, so mma.sync is the tensor-core
-//   instruction here. f32 operands are rounded to bf16 as the fragments
-//   are built from shared memory; softmax_lhs takes each row's max and sum
-//   from the staged tile (a quad of lanes shares a row) and forms P in the
-//   A fragment, exp as exp2 of a log2(e)-scaled argument and the division
-//   as a product with the sum's reciprocal: a few f32 ulps from the plain
-//   version, below P's bf16 rounding. lhs_shared loads A once per block.
+//   (m/16) x (n/8) mma.sync m16n8k16 tiles (.bf16, or .f16 for f16 keys)
+//   with f32 accumulators in registers. A problem this small cannot fill
+//   wgmma's 64-row M without mixing problems whose B differ, so mma.sync
+//   is the tensor-core instruction here. f32 operands are rounded to bf16
+//   as the fragments are built from shared memory (16-bit ones are used as
+//   they are); softmax_lhs takes each row's max and sum from the staged
+//   tile (a quad of lanes shares a row) and forms P in the A fragment,
+//   rounded to the products' type, exp as exp2 of a log2(e)-scaled
+//   argument and the division as a product with the sum's reciprocal: a
+//   few f32 ulps from the plain version, below P's 16-bit rounding.
+//   lhs_shared loads A once per block.
 //   The accumulators, plus C, go through the warp's output tile in shared
 //   memory and leave as 16-byte vector stores. Pad rows and columns are
 //   zeroed once and never copied. The launch plan (warps a block, shared
 //   bytes, resident blocks) is worked out once per shape and device.
 //   "tiled" (f32 "highest", and problems larger than that): one block of
 //   4 warps per 64x64 output tile, A and B staged through shared memory
-//   without pipelining, WMMA (mma.sync 16x16x16 bf16, f32 accumulators in
-//   registers) or f32 FMA at "highest"; a block takes `group` problems in
+//   without pipelining, WMMA (mma.sync 16x16x16 bf16 or f16, f32
+//   accumulators in registers) or f32 FMA at "highest"; a block takes
+//   `group` problems in
 //   turn when a problem fits one tile. Its keys (lhs_shared 64x256x196x128,
 //   +C 16x256x256x512 "highest") are larger and rarer; a wgmma tile for
 //   them is later work.
@@ -95,7 +101,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 template <typename Tin, typename Tmma>
 __global__ void __launch_bounds__(THREADS) batch_matmul_kernel(Args a) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  constexpr bool kTensor = !std::is_same<Tmma, float>::value;
   // row pads keep WMMA pointers 32-byte aligned (bf16 rows a multiple of 8
   // elements) and spread the FMA path's column reads over the banks
   constexpr int ALD = kTensor ? BK + 8 : BK + 1;
@@ -171,13 +177,13 @@ __global__ void __launch_bounds__(THREADS) batch_matmul_kernel(Args a) {
         if (m0 + warp * 16 < a.m) {
 #pragma unroll
           for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma,
                            wmma::row_major> fa;
             wmma::load_matrix_sync(fa, As + warp * 16 * ALD + kk, ALD);
 #pragma unroll
             for (int j = 0; j < BN / 16; ++j) {
               if (n0 + j * 16 >= a.n) break;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+              wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma,
                              wmma::row_major> fb;
               wmma::load_matrix_sync(fb, Bs + kk * BLD + j * 16, BLD);
               wmma::mma_sync(acc[j], fa, fb, acc[j]);
@@ -222,7 +228,7 @@ __global__ void __launch_bounds__(THREADS) batch_matmul_kernel(Args a) {
       const size_t o = base + (size_t)(m0 + r) * a.n + n0 + c;
       float v = Cs[r * CLD + c];
       if (a.c) v += a.c[o];
-      tpp::store_out(a.out, o, a.out_dtype, v);
+      tpp::store_out<tpp::Out16<Tmma>>(a.out, o, a.out_dtype, v);
     }
     __syncthreads();  // Cs and the statistics are free for the next problem
   }
@@ -248,7 +254,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shared-memory plan of one block of the multi route, the same on the host
 // and the card. Row strides (elements) pad each row by 16 or 32 bytes so
 // that the fragment reads of a warp hit distinct banks: A (k_pad + 8) in
-// its input dtype, B (NP + 4) f32 or (NP + 8) bf16, C and the output tile
+// its input dtype, B (NP + 4) f32 or (NP + 8) 16-bit, C and the output tile
 // (NP + 8) f32. Every region is a multiple of 16 bytes. A warp holds one
 // problem's operands (its slot) and its output tile.
 struct MPlan {
@@ -279,36 +285,53 @@ struct MArgs {
   int lhs_shared, softmax, out_dtype;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a b, m16n8k16, f32 accumulators, 16-bit products of type T (bf16
+// or f16)
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+#define TPP_MMA(TY)                                                        \
+  asm volatile(                                                            \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "           \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  TPP_WGMMA_TYPED(T, TPP_MMA);
+#undef TPP_MMA
 }
 
-// two consecutive elements as f32, and as a bf16 pair
+// two consecutive elements as f32
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-__device__ __forceinline__ uint32_t pair(const float* p) {
-  const float2 x = ld2(p);
-  return hw::pack_bf16(x.x, x.y);
+__device__ __forceinline__ float2 ld2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// two consecutive elements as a pair of T: f32 rounded to T (bf16: f32
+// "default"), a 16-bit source (T already) as it is
+template <typename T, typename Tin>
+__device__ __forceinline__ uint32_t pair(const Tin* p) {
+  if constexpr (std::is_same<Tin, float>::value) {
+    const float2 x = ld2(p);
+    return hw::pack16<T>(x.x, x.y);
+  } else {
+    static_assert(std::is_same<T, Tin>::value, "16-bit operands are T");
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
 }
-// B(r, c) and B(r + 1, c), rounded to bf16, as a pair
-__device__ __forceinline__ uint32_t col_pair(const float* p, int ld) {
-  return hw::pack_bf16(p[0], p[ld]);
-}
-__device__ __forceinline__ uint32_t col_pair(const __nv_bfloat16* p, int ld) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(p[0])) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(p[ld])) << 16;
+// B(r, c) and B(r + 1, c) as a pair of T, the same way
+template <typename T, typename Tin>
+__device__ __forceinline__ uint32_t col_pair(const Tin* p, int ld) {
+  if constexpr (std::is_same<Tin, float>::value) {
+    return hw::pack16<T>(p[0], p[ld]);
+  } else {
+    static_assert(std::is_same<T, Tin>::value, "16-bit operands are T");
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+    return static_cast<uint32_t>(h[0]) | static_cast<uint32_t>(h[ld]) << 16;
+  }
 }
 
 // cp.async the `rows` x `units` 16-byte units of a row-major source (row
@@ -324,7 +347,9 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int ld_bytes,
   }
 }
 
-template <typename Tin, int MP, int NP>
+// Tin the operands' type (f32, bf16 or f16), Tmma the products' (bf16 for
+// f32 and bf16 operands, f16 for f16 ones)
+template <typename Tin, typename Tmma, int MP, int NP>
 __global__ void __launch_bounds__(MWARPS * 32)
 batch_matmul_multi_kernel(MArgs a) {
   constexpr int MT = MP / 16, NT = NP / 8, IS = sizeof(Tin);
@@ -434,20 +459,21 @@ batch_matmul_multi_kernel(MArgs a) {
             const float2 x = ld2(at);
             const bool in = c < a.k;     // k is a multiple of 8
             const float m_ = mx[mt][hh], r_ = sm[mt][hh];
-            af[mt][q] = hw::pack_bf16(
+            af[mt][q] = hw::pack16<Tmma>(
                 in ? exp2f(fmaf(x.x, LOG2E, -m_)) * r_ : 0.f,
                 in ? exp2f(fmaf(x.y, LOG2E, -m_)) * r_ : 0.f);
           } else {
-            af[mt][q] = pair(at);
+            af[mt][q] = pair<Tmma>(at);
           }
         }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const Tin* bt = B + (k0 + 2 * t) * L.b_ld + nt * 8 + g;
-        const uint32_t b0 = col_pair(bt, L.b_ld);
-        const uint32_t b1 = col_pair(bt + 8 * L.b_ld, L.b_ld);
+        const uint32_t b0 = col_pair<Tmma>(bt, L.b_ld);
+        const uint32_t b1 = col_pair<Tmma>(bt + 8 * L.b_ld, L.b_ld);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
+        for (int mt = 0; mt < MT; ++mt)
+          mma16<Tmma>(acc[mt][nt], af[mt], b0, b1);
       }
     }
 
@@ -471,19 +497,22 @@ batch_matmul_multi_kernel(MArgs a) {
     __syncwarp();   // the slot is read: refill it; the tile is written
     issue(p + nwarps);
 
-    // 16-byte vector stores of the m x n result, one rounding
+    // 16-byte vector stores of the m x n result, one rounding (to f32 or
+    // the products' 16-bit type)
     const size_t base = (size_t)p * a.m * a.n;
-    if (a.out_dtype == tpp::kBF16) {
+    if (a.out_dtype == tpp::dtype_code<Tmma>()) {
       const int units = a.n / 8;
       for (int i = lane; i < a.m * units; i += 32) {
         const int r = i / units, c = (i % units) * 8;
         const float4 x0 = *reinterpret_cast<const float4*>(otile + r * L.o_ld + c);
         const float4 x1 =
             *reinterpret_cast<const float4*>(otile + r * L.o_ld + c + 4);
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) + base +
+        *reinterpret_cast<uint4*>(static_cast<Tmma*>(a.out) + base +
                                   (size_t)r * a.n + c) =
-            make_uint4(hw::pack_bf16(x0.x, x0.y), hw::pack_bf16(x0.z, x0.w),
-                       hw::pack_bf16(x1.x, x1.y), hw::pack_bf16(x1.z, x1.w));
+            make_uint4(hw::pack16<Tmma>(x0.x, x0.y),
+                       hw::pack16<Tmma>(x0.z, x0.w),
+                       hw::pack16<Tmma>(x1.x, x1.y),
+                       hw::pack16<Tmma>(x1.z, x1.w));
       }
     } else {
       const int units = a.n / 4;
@@ -530,9 +559,9 @@ cudaError_t plan_multi(Kernel kernel, int mp, int np, const MArgs& a,
   return e;
 }
 
-template <typename Tin, int MP, int NP>
+template <typename Tin, typename Tmma, int MP, int NP>
 int launch_multi_tile(const MArgs& a, cudaStream_t stream) {
-  auto kernel = batch_matmul_multi_kernel<Tin, MP, NP>;
+  auto kernel = batch_matmul_multi_kernel<Tin, Tmma, MP, NP>;
   // plans by (device, k, lhs_shared, C): worked out on a key's first launch
   static std::mutex mu;
   static std::map<std::array<int, 4>, MLaunch> plans;
@@ -559,39 +588,51 @@ int launch_multi_tile(const MArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin>
+template <typename Tin, typename Tmma>
 int launch_multi(const MArgs& a, cudaStream_t stream) {
   if (a.m <= 32)
-    return a.n <= 32 ? launch_multi_tile<Tin, 32, 32>(a, stream)
-                     : launch_multi_tile<Tin, 32, 64>(a, stream);
-  return a.n <= 32 ? launch_multi_tile<Tin, 64, 32>(a, stream)
-                   : launch_multi_tile<Tin, 64, 64>(a, stream);
+    return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 32, 32>(a, stream)
+                     : launch_multi_tile<Tin, Tmma, 32, 64>(a, stream);
+  return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 64, 32>(a, stream)
+                   : launch_multi_tile<Tin, Tmma, 64, 64>(a, stream);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). a is (batch, m, k),
 // or (m, k) when lhs_shared; b (batch, k, n); c null or f32 (batch, m, n);
-// out (batch, m, n). route is xsmm/reference.py batch_matmul_route's
-// choice: 1 "multi" (MXU dtype bf16, m, n, k at most 64, k and n multiples
-// of 8, every pointer 16-byte aligned), 0 "tiled", whose ceil(batch /
-// group) goes in gridDim.z, so it is at most 65535.
+// out (batch, m, n). in_dtype and mma_dtype are (f32, f32) (precision
+// "highest"), (f32, bf16), (bf16, bf16) or (f16, f16); out_dtype f32 or the
+// products' 16-bit type (bf16 beside f32 products); any other triple is
+// refused. route is xsmm/reference.py batch_matmul_route's choice: 1
+// "multi" (16-bit products, m, n, k at most 64, k and n multiples of 8,
+// every pointer 16-byte aligned), 0 "tiled", whose ceil(batch / group)
+// goes in gridDim.z, so it is at most 65535.
 extern "C" int tpp_batch_matmul(const void* a, const void* b, const void* c,
                                 void* out, int batch, int m, int n, int k,
                                 int group, int lhs_shared, int softmax,
                                 int in_dtype, int mma_dtype, int out_dtype,
                                 int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool f16 = in_dtype == tpp::kF16 && mma_dtype == tpp::kF16;
+  const int out16 = f16 ? tpp::kF16 : tpp::kBF16;
+  if ((mma_dtype == tpp::kF16) != f16 ||
+      (out_dtype != tpp::kF32 && out_dtype != out16))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
-    if (mma_dtype != tpp::kBF16 || m > MULTI_MAX || n > MULTI_MAX ||
-        k > MULTI_MAX || m < 1 || n % 8 || k % 8 || k < 8 || n < 8)
+    if ((mma_dtype != tpp::kBF16 && !f16) || m > MULTI_MAX ||
+        n > MULTI_MAX || k > MULTI_MAX || m < 1 || n % 8 || k % 8 || k < 8 ||
+        n < 8)
       return static_cast<int>(cudaErrorInvalidValue);
     const MArgs args{a,     b,          static_cast<const float*>(c),
                      out,   batch,      m,
                      n,     k,          lhs_shared,
                      softmax, out_dtype};
-    if (in_dtype == tpp::kF32) return launch_multi<float>(args, st);
-    if (in_dtype == tpp::kBF16) return launch_multi<__nv_bfloat16>(args, st);
+    if (f16) return launch_multi<__half, __half>(args, st);
+    if (in_dtype == tpp::kF32)
+      return launch_multi<float, __nv_bfloat16>(args, st);
+    if (in_dtype == tpp::kBF16)
+      return launch_multi<__nv_bfloat16, __nv_bfloat16>(args, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -605,5 +646,6 @@ extern "C" int tpp_batch_matmul(const void* a, const void* b, const void* c,
     return launch<float, __nv_bfloat16>(args, st);
   if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(args, st);
+  if (f16) return launch<__half, __half>(args, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

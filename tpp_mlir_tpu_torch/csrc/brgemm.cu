@@ -37,8 +37,9 @@
 // (xsmm/reference.py brgemm_route names the loader; gemm_plan the tile).
 // f16 keys (ROADMAP A14) run the same mainloop with f16 products (wgmma
 // .f16, TMA maps of FLOAT16 elements, the convert loader copying raw
-// halves) and no LayerNorm prologue; their instantiations are
-// csrc/gemm_f16.cu's, built beside this file.
+// halves); under the LayerNorm prologue A's rows are normalized in f32 and
+// rounded to f16. Their instantiations are csrc/gemm_f16.cu's and, with
+// the prologue, csrc/gemm_ln_f16.cu's, built beside this file.
 // The LayerNorm prologue's row statistics come from a small pass once a
 // row (ln_stats below), not from each block: a block's own pass would read
 // its A rows once for every column tile (18 times at GPT-2's QKV, 55 MB
@@ -226,17 +227,18 @@ brgemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // ---- the LayerNorm prologue's statistics -------------------------------
 
 // (mean, 1/sqrt(E[x^2] - mean^2 + eps)) of each of the m rows of A (m x k,
-// f32 or bf16), f32 sums: one warp a row
+// f32, bf16 or f16: `dtype`), f32 sums: one warp a row
 __global__ void __launch_bounds__(256)
 ln_stats(const void* __restrict__ A, float2* __restrict__ stats, int m, int k,
-         int in_f32, float eps) {
+         int dtype, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= m) return;
   float s = 0.f, s2 = 0.f;
   for (int c = lane; c < k; c += 32) {
-    const float v =
-        sm::ld_f32(A, (size_t)row * k + c, in_f32 ? tpp::kF32 : tpp::kBF16);
+    const size_t i = (size_t)row * k + c;
+    const float v = dtype == tpp::kF16 ? sm::ld_f32<__half>(A, i, dtype)
+                                       : sm::ld_f32(A, i, dtype);
     s += v;
     s2 += v * v;
   }
@@ -286,16 +288,19 @@ int run_sm90(const sm::Plan& p, const sm::Gemm& g, int transpose_b,
   CUtensorMap amap = {}, bmap = {};
   if (f16) {
     // f16 products (ROADMAP A14): f16 tensor maps or the raw 16-bit
-    // convert loader, no LayerNorm prologue (gemm_f16.cu's instantiations)
+    // convert loader (gemm_f16.cu's instantiations; with the LayerNorm
+    // prologue, gemm_ln_f16.cu's)
     const int bmode = transpose_b ? sm::kBK : sm::kBMn;
-    if (ln) return static_cast<int>(cudaErrorInvalidValue);
+    const int loader = route == sm::kRouteTma ? sm::kTma : sm::kConvert;
     if (route == sm::kRouteTma) {
       const int rc = sm::make_maps<__half>(&amap, &bmap, g, p, bmode);
       if (rc) return rc;
     }
-    return sm::launch_plan_f16(
-        bmode, route == sm::kRouteTma ? sm::kTma : sm::kConvert, p, g, amap,
-        bmap, st);
+    if (ln)
+      return transpose_b ? static_cast<int>(cudaErrorInvalidValue)
+                         : sm::launch_plan_ln_f16(loader, p, g, amap, bmap,
+                                                  st);
+    return sm::launch_plan_f16(bmode, loader, p, g, amap, bmap, st);
   }
   if (route == sm::kRouteTma) {
     const int rc = sm::make_maps(&amap, &bmap, g, p,
@@ -352,7 +357,7 @@ extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
 // in_dtype; C is c_dtype and D d_dtype (f32, bf16 or f16, widened in
 // registers); gamma and beta f32; out out_dtype. mma_dtype is the
 // products' type: f32 (the "fma" route), bf16 (f32 or bf16 A and B), or
-// f16 (f16 A and B only, no LayerNorm prologue; ROADMAP A14). route is
+// f16 (f16 A and B only; ROADMAP A14). route is
 // xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
 // "tma" (16-bit A and B of the products' type; 16-byte aligned base
 // pointers and row strides), 2 "convert". plan is tpp_gemm_plan's {bm, bn, split, bytes} for these
@@ -397,8 +402,8 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
           static_cast<const float*>(mean), static_cast<const float*>(var),
           ln_rows, m, eps);
     else
-      ln_stats<<<(m + 7) / 8, 256, 0, st>>>(a, ln_rows, m, k,
-                                            in_dtype == tpp::kF32, eps);
+      ln_stats<<<(m + 7) / 8, 256, 0, st>>>(a, ln_rows, m, k, in_dtype,
+                                            eps);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

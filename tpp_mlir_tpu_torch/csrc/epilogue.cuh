@@ -13,7 +13,8 @@
 
 namespace tpp {
 
-// f16 runs in the GEMM family only (B1, B3-B5, B19, B20: ROADMAP A14)
+// f16 (ROADMAP A14) runs in the GEMM family (B1, B2, B3-B5, B19, B20), B12,
+// attention (B6-B11) and the batched matmul (B21/B22)
 enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Binary : int { kBinNone = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4,
                     kMax = 5 };
@@ -40,6 +41,12 @@ from_f32<__nv_bfloat16>(float v) {
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
+
+// the 16-bit type that goes with T: T itself, or bf16 beside f32 (an f32
+// kernel's 16-bit output)
+template <typename T>
+using Out16 = typename std::conditional<std::is_same<T, float>::value,
+                                        __nv_bfloat16, T>::type;
 
 // the Dtype code of a 16-bit type
 template <typename T> __host__ __device__ constexpr int dtype_code() {
@@ -99,9 +106,9 @@ __device__ __forceinline__ float apply_binary(int kind, float a, float b) {
 }
 
 // The output and epilogue operands of a kernel are f32 or its one 16-bit
-// type E: bf16 (every kernel but the GEMM family's f16 instantiations), or
-// f16 (those, ROADMAP A14). Keeping one 16-bit branch keeps each
-// instantiation's epilogue as small as the bf16 one.
+// type E: bf16, or f16 in a kernel's f16 instantiations (ROADMAP A14).
+// Keeping one 16-bit branch keeps each instantiation's epilogue as small
+// as the bf16 one.
 
 // v as store_out<E> stores it, read back as f32 (one rounding to E)
 template <typename E = __nv_bfloat16>

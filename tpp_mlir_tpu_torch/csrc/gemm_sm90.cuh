@@ -32,11 +32,12 @@
 //     .f16) with f32 accumulators in registers, one slice's products in
 //     flight while the previous slice's stage goes back to the producer
 //     (consume_ring);
-//   - with the LayerNorm prologue, A arrives raw (bf16 by TMA) and each
+//   - with the LayerNorm prologue, A arrives raw (16-bit, by TMA) and each
 //     consumer warpgroup normalizes its 64 rows of the stage in place,
-//     (x - mean) rstd gamma + beta in f32 and one rounding to bf16, while
-//     the previous stage's products run (LnPrep); the convert loader
-//     normalizes as it loads, before its one rounding;
+//     (x - mean) rstd gamma + beta in f32 and one rounding to the product
+//     type T, while the previous stage's products run (LnPrep); the
+//     convert loader normalizes as it loads, before its one rounding to T
+//     (f16 rows are widened, normalized and rounded back to f16);
 //   - the epilogue through shared memory: the accumulators go to an f32
 //     tile in the ring (so they are dead before the epilogue and the
 //     mainloop keeps its registers), then rows of it go out with + C, OP D
@@ -351,16 +352,30 @@ __device__ __forceinline__ void load_a(float (&x)[8], const Gemm& g,
     ln8(x, P < g.mb ? g.stats[P] : make_float2(0.f, 0.f), n, ga, be);
 }
 
+// load_a for f16 products: raw halves, or under the LayerNorm prologue
+// the halves widened, normalized in f32 and rounded back to f16 (zero past
+// kb, as ln8 leaves them)
 template <int LN>
 __device__ __forceinline__ void load_a(uint32_t (&x)[4], const Gemm& g,
                                        int unit, size_t a_row, int p0,
-                                       int q0, const float (&)[8],
-                                       const float (&)[8]) {
-  static_assert(LN == kLnNone, "the LayerNorm prologue is bf16-only");
+                                       int q0, const float (&ga)[8],
+                                       const float (&be)[8]) {
   const int P = p0 + unit / A_ROW_UNITS;
   const int q = q0 + (unit % A_ROW_UNITS) * 8;
-  load_raw<8>(x, g.a, (a_row + P) * g.kb + q,
-              P < g.mb ? clamp_run(g.kb - q, 8) : 0, g.vec_a);
+  const int n = P < g.mb ? clamp_run(g.kb - q, 8) : 0;
+  load_raw<8>(x, g.a, (a_row + P) * g.kb + q, n, g.vec_a);
+  if constexpr (LN == kLnLoad) {
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 h = pair_f32<__half>(x[e]);
+      f[2 * e] = h.x;
+      f[2 * e + 1] = h.y;
+    }
+    ln8(f, P < g.mb ? g.stats[P] : make_float2(0.f, 0.f), n, ga, be);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = hw::pack_f16(f[2 * e], f[2 * e + 1]);
+  }
 }
 
 template <class X>
@@ -460,7 +475,8 @@ __device__ __forceinline__ void store_b(unsigned char* sb, int unit,
 // after stage through registers, in the layouts TMA would write: for bf16
 // products (E) each value rounded to bf16 (with the LayerNorm prologue,
 // after normalizing in f32); for f16 products raw halves, copied as they
-// are; elements past the block's mb, nb or kb are zero. A stage's loads
+// are (with the LayerNorm prologue, A's normalized in f32 and rounded to
+// f16); elements past the block's mb, nb or kb are zero. A stage's loads
 // go out in one round (two for the larger tiles, to bound the registers)
 // before any of its stores, so one thread keeps up to 64 values in flight.
 template <int NCW, int BN, int BMODE, int LN, class E>
@@ -512,13 +528,14 @@ __device__ __forceinline__ void produce_convert(const Gemm& g,
   }
 }
 
-// The LayerNorm prologue (bf16 products only) on the raw bf16 A rows TMA
-// delivered: consumer
-// warpgroup wg normalizes its 64 rows of a stage in place (thread ctid
-// takes the 16-byte units of column group ctid % 8 in rows ctid / 8 +
-// 16 e), in f32 from the rows' (mean, rstd) (in shared memory: the block
-// loads its rows' once), one rounding to bf16, then makes the writes
-// visible to wgmma (the async proxy) and waits for its warpgroup.
+// The LayerNorm prologue on the raw 16-bit A rows (of the product type E,
+// bf16 or f16) TMA delivered: consumer warpgroup wg normalizes its 64 rows
+// of a stage in place (thread ctid takes the 16-byte units of column group
+// ctid % 8 in rows ctid / 8 + 16 e), in f32 from the rows' (mean, rstd)
+// (in shared memory: the block loads its rows' once), one rounding to E,
+// then makes the writes visible to wgmma (the async proxy) and waits for
+// its warpgroup.
+template <class E = __nv_bfloat16>
 struct LnPrep {
   const Gemm* g;
   const float2* st;   // (mean, rstd) of warpgroup wg's 64 rows
@@ -540,16 +557,17 @@ struct LnPrep {
       const int row = ctid / A_ROW_UNITS + 16 * e;
       uint4* at = reinterpret_cast<uint4*>(sa + unit_at(row, u));
       const uint4 raw = *at;
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
       float x[8];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float2 f = __bfloat1622float2(h[c]);
+        const float2 f = pair_f32<E>(w[c]);
         x[2 * c] = f.x;
         x[2 * c + 1] = f.y;
       }
       ln8(x, st[row], n, ga, be);
-      *at = pack8(x);
+      *at = make_uint4(hw::pack16<E>(x[0], x[1]), hw::pack16<E>(x[2], x[3]),
+                       hw::pack16<E>(x[4], x[5]), hw::pack16<E>(x[6], x[7]));
     }
     hw::fence_proxy_async();
     hw::bar_sync(2 + wg, WG);
@@ -765,7 +783,7 @@ template <int NCW, int BN, int BMODE, int LOADER, int LN, class E>
 // Two blocks an SM where the registers allow it without spilling (ptxas,
 // 112 a thread at 288 threads); a 128-row block with a convert warpgroup
 // or the LayerNorm prologue takes one. E is the products' type (bf16, or
-// f16; the LayerNorm prologue is bf16-only).
+// f16).
 __global__ void __launch_bounds__(
     NCW * WG + (LOADER == kTma ? 32 : WG),
     (NCW == 2 && (LOADER == kConvert || LN != kLnNone)) ? 1 : 2)
@@ -773,8 +791,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
             const __grid_constant__ CUtensorMap bmap,
             const __grid_constant__ Gemm g) {
   using T = Tile<NCW, BN>;
-  static_assert(LN == kLnNone || std::is_same<E, __nv_bfloat16>::value,
-                "the LayerNorm prologue is bf16-only");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - hw::smem_u32(smem_raw) % 1024)
                                     % 1024);
@@ -837,9 +853,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
   for (int x = 0; x < BN / 2; ++x) acc[x] = 0.f;
   constexpr int B_MN = BMODE == kBK ? 0 : 1;
   if constexpr (LN == kLnSmem)
-    consume_ring<0, B_MN, T::A_BYTES, BN, T::STAGES>(
+    consume_ring<0, B_MN, T::A_BYTES, BN, T::STAGES, LnPrep<E>, float, E>(
         acc, smem, full, empty, s_hi - s_lo, wg,
-        LnPrep(g, stats, s_lo, kpb, wg));
+        LnPrep<E>(g, stats, s_lo, kpb, wg));
   else
     consume_ring<0, B_MN, T::A_BYTES, BN, T::STAGES, NoPrep, float, E>(
         acc, smem, full, empty, s_hi - s_lo, wg);
@@ -1048,6 +1064,15 @@ int launch_plan(const Plan& p, const Gemm& g, const CUtensorMap& amap,
 int launch_plan_f16(int bmode, int loader, const Plan& p, const Gemm& g,
                     const CUtensorMap& amap, const CUtensorMap& bmap,
                     cudaStream_t st);
+
+// launch_plan at f16 products with the LayerNorm prologue (a flat MN-major
+// B): kTma with the consumers' in-place normalization (kLnSmem), or
+// kConvert normalizing as it loads (kLnLoad); csrc/gemm_ln_f16.cu, a
+// translation unit of its own for the same reason. Returns
+// cudaErrorInvalidValue for another loader.
+int launch_plan_ln_f16(int loader, const Plan& p, const Gemm& g,
+                       const CUtensorMap& amap, const CUtensorMap& bmap,
+                       cudaStream_t st);
 
 // The 3D tensor maps of the "tma" loader over 16-bit operands of type E
 // (bf16 or f16). A [Mb, Kb,

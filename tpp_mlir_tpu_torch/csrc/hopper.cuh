@@ -4,13 +4,13 @@
 // thread block clusters (rank, the split cluster barrier, bulk copies into
 // a peer block's shared memory), wgmma's shared-memory matrix descriptors,
 // its fence/commit/wait sequence and the 16-bit m64nNk16 products (bf16,
-// or f16 for the GEMM family's f16 keys; both operands from shared memory,
-// or A from registers), with f32 accumulators in registers, and the s8
+// or f16 for f16 keys; both operands from shared memory, or A from
+// registers), with f32 accumulators in registers, and the s8
 // m64nNk32 products (both operands K-major from shared memory) with s32
 // accumulators.
 //
-// Tiles: a 16-bit (bf16 or f16) tile is kept as "chunks" of SW bytes a row (SW = 128, or 64
-// for a 32-column tile), each chunk a [rows][SW] block whose 16-byte units
+// Tiles: a 16-bit (bf16 or f16) tile is kept as "chunks" of SW bytes a row
+// (SW = 128, or 64 for a 32-column tile), each chunk a [rows][SW] block whose 16-byte units
 // are XOR-swizzled by the row (swizzle() below), exactly as TMA writes a
 // box under CU_TENSOR_MAP_SWIZZLE_128B / _64B and as wgmma reads it under
 // the descriptor's layout type 1 / 2. Chunk bases are 1024-byte aligned.
@@ -763,9 +763,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 #undef TPP_WGMMA
 }
 
-// ---- device: products over the chunks of D-column bf16 tiles ----------
+// ---- device: products over the chunks of D-column 16-bit tiles --------
 
-// a bf16 tile D columns wide: SW bytes a chunk row, CW columns a chunk
+// a 16-bit (bf16 or f16) tile D columns wide: SW bytes a chunk row, CW
+// columns a chunk
 template <int D>
 struct Chunks {
   static constexpr int SW = D >= 64 ? 128 : 64;
@@ -774,9 +775,9 @@ struct Chunks {
 
 // acc (m64 x n64) = A B^T over D columns, both operands K-major (D
 // contiguous): A the 64 rows at `a` of a tile whose chunks hold A_ROWS
-// rows, B a 64-row tile. Issues the products only: the caller fences,
-// commits and waits.
-template <int D, int A_ROWS>
+// rows, B a 64-row tile; T the product type (bf16 or f16). Issues the
+// products only: the caller fences, commits and waits.
+template <int D, int A_ROWS, class T = __nv_bfloat16>
 __device__ __forceinline__ void ss_abt(float (&acc)[32],
                                        const unsigned char* a,
                                        const unsigned char* b) {
@@ -788,14 +789,14 @@ __device__ __forceinline__ void ss_abt(float (&acc)[32],
                                          8 * C::SW);
     const uint64_t db = make_desc<C::SW>(b + c * 64 * C::SW + off, 16,
                                          8 * C::SW);
-    wgmma_m64n64k16_ss<0>(acc, da, db, kk > 0);
+    wgmma_m64n64k16_ss<0, 0, T>(acc, da, db, kk > 0);
   }
 }
 
 // acc (m64 x nD) += P X: P from registers (the four k16 A fragments of a
 // 64-column accumulator), X a 64-row tile read MN-major (D contiguous,
-// trans-b). Issues the products only.
-template <int D>
+// trans-b); T the product type (bf16 or f16). Issues the products only.
+template <int D, class T = __nv_bfloat16>
 __device__ __forceinline__ void rs_ab(float (&acc)[D / 2],
                                       const uint32_t (&p)[4][4],
                                       const unsigned char* x) {
@@ -805,11 +806,11 @@ __device__ __forceinline__ void rs_ab(float (&acc)[D / 2],
     const uint64_t db = make_desc<C::SW>(x + kt * 16 * C::SW, 64 * C::SW,
                                          8 * C::SW);
     if constexpr (D == 32)
-      wgmma_m64n32k16_rs<1>(acc, p[kt], db, 1);
+      wgmma_m64n32k16_rs<1, T>(acc, p[kt], db, 1);
     else if constexpr (D == 64)
-      wgmma_m64n64k16_rs<1>(acc, p[kt], db, 1);
+      wgmma_m64n64k16_rs<1, T>(acc, p[kt], db, 1);
     else
-      wgmma_m64n128k16_rs<1>(acc, p[kt], db, 1);
+      wgmma_m64n128k16_rs<1, T>(acc, p[kt], db, 1);
   }
 }
 

@@ -4,8 +4,10 @@
 //   y = (x - mean) / sqrt(var + eps) [* gamma + beta]
 // per row of an (m, n) matrix, with the two-pass f32 statistics and biased
 // variance of the TPU kernel (mean first, then the mean of squared
-// deviations), and one rounding to the output dtype. gamma and beta are
-// read in their stored dtype (f32 or bf16) and widened in registers.
+// deviations), and one rounding to the output dtype. x is f32, bf16 or
+// f16 (ROADMAP A14's f16 keys); the output f32 or x's 16-bit type (f32 x:
+// bf16). gamma and beta are read in their stored dtype (f32, bf16 or f16)
+// and widened in registers.
 //
 // What bounds it on the H100: it reads each element once and writes it
 // once, a few FLOPs per byte, so it is bound by device memory (3.35 TB/s);
@@ -27,6 +29,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -39,11 +42,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// element i of a f32 or bf16 vector
+// element i of an f32, bf16 or f16 vector
 __device__ __forceinline__ float ld_any(const void* p, size_t i, int dtype) {
-  return dtype == tpp::kBF16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-             : static_cast<const float*>(p)[i];
+  if (dtype == tpp::kBF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (dtype == tpp::kF16)
+    return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
 }
 
 template <typename Tin>
@@ -68,38 +73,41 @@ layer_norm_kernel(const Tin* __restrict__ x, const void* __restrict__ gamma,
     float y = (tpp::to_f32(xr[c]) - mean) * rstd;
     if (gamma != nullptr)
       y = y * ld_any(gamma, c, g_dtype) + ld_any(beta, c, g_dtype);
-    tpp::store_out(out, (size_t)row * n + c, out_dtype, y);
+    tpp::store_out<tpp::Out16<Tin>>(out, (size_t)row * n + c, out_dtype, y);
   }
 }
 
-// E consecutive f32 or bf16 values from element i (E * size a multiple of
-// 8 bytes, i a multiple of E: whole aligned vectors) as f32
+// E consecutive 16-bit H values from element i (one 16- or 8-byte load)
+// as f32
+template <int E, class H>
+__device__ __forceinline__ void ld_vec16(float (&v)[E], const void* p,
+                                         size_t i) {
+  const H* h = static_cast<const H*>(p) + i;
+  uint32_t w[E / 2];
+  if constexpr (E == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(h);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(h);
+    w[0] = u.x; w[1] = u.y;
+  }
+#pragma unroll
+  for (int e = 0; e < E / 2; ++e) {
+    const float2 f = tpp::pair_f32<H>(w[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+// E consecutive f32, bf16 or f16 values from element i (E * size a
+// multiple of 8 bytes, i a multiple of E: whole aligned vectors) as f32
 template <int E>
 __device__ __forceinline__ void ld_vec(float (&v)[E], const void* p,
                                        size_t i, int dtype) {
   if (dtype == tpp::kBF16) {
-    const __nv_bfloat162* h =
-        reinterpret_cast<const __nv_bfloat162*>(
-            static_cast<const __nv_bfloat16*>(p) + i);
-    if constexpr (E == 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(h);
-      h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        v[2 * e] = f.x;
-        v[2 * e + 1] = f.y;
-      }
-    } else {
-      const uint2 u = *reinterpret_cast<const uint2*>(h);
-      h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        v[2 * e] = f.x;
-        v[2 * e + 1] = f.y;
-      }
-    }
+    ld_vec16<E, __nv_bfloat16>(v, p, i);
+  } else if (dtype == tpp::kF16) {
+    ld_vec16<E, __half>(v, p, i);
   } else {
     const float4* f =
         reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
@@ -114,22 +122,29 @@ __device__ __forceinline__ void ld_vec(float (&v)[E], const void* p,
   }
 }
 
-// E values as E f32 (16-byte stores) or E bf16 (one 16- or 8-byte store)
+// E values as E 16-bit H (one 16- or 8-byte store)
+template <int E, class H>
+__device__ __forceinline__ void st_vec16(void* p, size_t i,
+                                         const float (&v)[E]) {
+  uint32_t w[E / 2];
+#pragma unroll
+  for (int e = 0; e < E / 2; ++e)
+    w[e] = tpp::hopper::pack16<H>(v[2 * e], v[2 * e + 1]);
+  H* o = static_cast<H*>(p) + i;
+  if constexpr (E == 8)
+    *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+}
+
+// E values as E f32 (16-byte stores) or E bf16 or f16
 template <int E>
 __device__ __forceinline__ void st_vec(void* p, size_t i, int dtype,
                                        const float (&v)[E]) {
   if (dtype == tpp::kBF16) {
-    uint32_t w[E / 2];
-#pragma unroll
-    for (int e = 0; e < E / 2; ++e) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      w[e] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p) + i;
-    if constexpr (E == 8)
-      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
-    else
-      *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+    st_vec16<E, __nv_bfloat16>(p, i, v);
+  } else if (dtype == tpp::kF16) {
+    st_vec16<E, __half>(p, i, v);
   } else {
     float4* o = reinterpret_cast<float4*>(static_cast<float*>(p) + i);
 #pragma unroll
@@ -236,17 +251,23 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). gamma and beta in
-// g_dtype (f32 or bf16), both null when the key has no affine. route 1
+// Returns the cudaError_t of the launch (0 on success). x is in_dtype
+// (f32, bf16 or f16) and out out_dtype: f32, or the 16-bit type of x (bf16
+// for an f32 x); any other pair is refused. gamma and beta in g_dtype (f32,
+// bf16 or f16), both null when the key has no affine. route 1
 // ("register") needs rows of whole 16-byte vectors, at most MAX_VPL a
 // lane, and 16-byte aligned x, out, gamma and beta (8-byte for a vector of
-// 4 bf16); route 0 ("strided") takes any n.
+// four 16-bit values); route 0 ("strided") takes any n.
 extern "C" int tpp_layer_norm(const void* x, const void* gamma,
                               const void* beta, void* out, int m, int n,
                               int in_dtype, int out_dtype, int g_dtype,
                               int route, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype != tpp::kF32 && in_dtype != tpp::kBF16)
+  const int out16 = in_dtype == tpp::kF16 ? tpp::kF16 : tpp::kBF16;
+  if ((in_dtype != tpp::kF32 && in_dtype != tpp::kBF16 &&
+       in_dtype != tpp::kF16) ||
+      (out_dtype != tpp::kF32 && out_dtype != out16) ||
+      (gamma != nullptr && (g_dtype < tpp::kF32 || g_dtype > tpp::kF16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     const int es = in_dtype == tpp::kF32 ? 4 : 2;
@@ -254,17 +275,23 @@ extern "C" int tpp_layer_norm(const void* x, const void* gamma,
     const int vpl = (nv + 31) / 32;
     if ((n * es) % 16 || vpl < 1 || vpl > MAX_VPL)
       return static_cast<int>(cudaErrorInvalidValue);
-    return in_dtype == tpp::kF32
-               ? dispatch_rows<float>(vpl, x, gamma, beta, out, m, n, eps,
-                                      g_dtype, out_dtype, st)
-               : dispatch_rows<__nv_bfloat16>(vpl, x, gamma, beta, out, m,
-                                              n, eps, g_dtype, out_dtype,
-                                              st);
+    if (in_dtype == tpp::kF32)
+      return dispatch_rows<float>(vpl, x, gamma, beta, out, m, n, eps,
+                                  g_dtype, out_dtype, st);
+    if (in_dtype == tpp::kF16)
+      return dispatch_rows<__half>(vpl, x, gamma, beta, out, m, n, eps,
+                                   g_dtype, out_dtype, st);
+    return dispatch_rows<__nv_bfloat16>(vpl, x, gamma, beta, out, m, n, eps,
+                                        g_dtype, out_dtype, st);
   }
   const dim3 grid((m + WARPS - 1) / WARPS);
   if (in_dtype == tpp::kF32)
     layer_norm_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(x), gamma, beta, out, m, n, eps, g_dtype,
+        out_dtype);
+  else if (in_dtype == tpp::kF16)
+    layer_norm_kernel<__half><<<grid, THREADS, 0, st>>>(
+        static_cast<const __half*>(x), gamma, beta, out, m, n, eps, g_dtype,
         out_dtype);
   else
     layer_norm_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(

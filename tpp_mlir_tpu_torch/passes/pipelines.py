@@ -25,7 +25,8 @@ lowering (SLICE_OPS), so no IR runs half-lowered: a contraction, conv,
 attention or LayerNorm still in tl form (one that convert-tl-to-xsmm's
 `skip` or conv-to-brgemm left) would run its plain version on the card in
 place of its kernel, and is refused. It also refuses the keys of xsmm ops
-that check_slice refuses (an f16 key outside the GEMM family, ROADMAP A14),
+that check_slice refuses (an f16 key of a family with no f16 kernel,
+ROADMAP A14),
 f16 tensors of the few tl ops in F16_REFUSED, a tl.generic in contraction
 form or with reduction dims outside it (the reference's evaluator raises
 on the latter too), and conv or attention keys whose kernel the reference
@@ -82,11 +83,11 @@ SLICE_OPS = frozenset({
 })
 
 
-# the tl ops that run no f16 tensor (ROADMAP A14): the transformer slice's
-# gather, the conv family's pads, pools and strided blocked convs, and a
-# tl.generic; an xsmm op's f16 key is refused by check_slice
-F16_REFUSED = frozenset({"tl.gather", "tl.pad", "tl.blocked_conv2d",
-                         "tl.max_pool2d", "tl.avg_pool2d", "tl.generic"})
+# the tl ops that run no f16 tensor (ROADMAP A14): the conv family's pads,
+# pools and strided blocked convs, and a tl.generic (the GPT embedding's
+# tl.gather runs in f16); an xsmm op's f16 key is refused by check_slice
+F16_REFUSED = frozenset({"tl.pad", "tl.blocked_conv2d", "tl.max_pool2d",
+                         "tl.avg_pool2d", "tl.generic"})
 
 
 def slice_violation(op) -> str | None:

@@ -13,8 +13,9 @@ kernels that use Hopper's asynchronous copies, and `csrc/gemm_sm90.cuh`
 conv.cu, grouped_gemm.cu and int8_gemm.cu, and `csrc/warm_panel.cuh` (the cluster-split
 row-panel engine) by chain.cu and blocked_matmul.cu; the f16
 instantiations of those two engines (ROADMAP A14) are translation units of
-their own, gemm_f16.cu and warm_panel_f16.cu, so nvcc builds them beside
-the bf16 ones rather than after them. The tensor-map encoder, a driver
+their own, gemm_f16.cu, gemm_ln_f16.cu (B2's LayerNorm prologue) and
+warm_panel_f16.cu, so nvcc builds them beside the bf16 ones rather than
+after them. The tensor-map encoder, a driver
 API, is taken through the runtime's cudaGetDriverEntryPoint, so the link
 needs no -lcuda.
 """

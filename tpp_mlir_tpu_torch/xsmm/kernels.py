@@ -113,9 +113,11 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, UnaryKey)
 
-# csrc/epilogue.cuh's Dtype codes; f16 is the GEMM family's only (ROADMAP
-# A14): the other kernels refuse its key (reference.check_slice) and take
-# no f16 operand (_native widens one for them)
+# csrc/epilogue.cuh's Dtype codes; f16 keys (ROADMAP A14) run on the GEMM
+# family, B2's LayerNorm prologue and ln_stats pair, B12, attention and the
+# batched matmul: the other kernels refuse their key
+# (reference.check_slice) and take no f16 operand (_native widens one for
+# them)
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
 _BCAST_CODE = {"bcast_col": 0, "bcast_row": 1, "bcast_scalar": 2, "none": 3}
@@ -534,6 +536,15 @@ ATTENTION_HEAD_DIMS = (32, 64, 128)     # attention.cu's instantiations
 CUDA_GRID_YZ = 65535                    # gridDim.y/z limit
 
 
+# csrc/attention.cu's Loader codes by (attention_loader, operand dtype):
+# each code reads one operand dtype and rounds to one product type (f32 and
+# bf16 to bf16, f16 to f16), and tpp_attention refuses a code whose
+# operand dtype is not the one it is given
+_ATTENTION_LOADER_CODE = {("tma", "bf16"): 0, ("convert", "f32"): 1,
+                          ("convert", "bf16"): 2, ("fma", "f32"): 3,
+                          ("tma", "f16"): 4}
+
+
 def _attention_launch(key: FlashMhaKey):
     route = reference.attention_route(key)
     if route == "xla":
@@ -549,8 +560,7 @@ def _attention_launch(key: FlashMhaKey):
     out_dt = reference.DTYPES[key.out_dtype or key.dtype]
     shape = (B, S, E) if key.heads else (B, S, D)
     loader = reference.attention_loader(key)
-    code = {"tma": 0, "convert": 1 if key.dtype == "f32" else 2,
-            "fma": 3}[loader]
+    code = _ATTENTION_LOADER_CODE[loader, key.dtype]
 
     def launch(q, k=None, v=None):
         if D not in ATTENTION_HEAD_DIMS:
@@ -657,6 +667,9 @@ def _batch_matmul_launch(key: BatchMatmulKey):
 
 
 LN_ROUTES = ("register", "strided")
+# the stored dtypes layer_norm.cu reads gamma and beta in (widened in
+# registers), whatever the key's dtype
+_LN_AFFINE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -668,7 +681,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _layer_norm_launch(key: LayerNormKey, route: str | None = None):
     """B12 on the body reference.layer_norm_route names, or `route` forced
     ("strided", the first design, takes any key). gamma and beta are read
-    in their stored dtype (f32 or bf16)."""
+    in their stored dtype (f32, bf16 or f16)."""
     from .build import check, library
 
     m, n = key.m, key.n
@@ -686,8 +699,10 @@ def _layer_norm_launch(key: LayerNormKey, route: str | None = None):
         _expect(x, "x", (m, n), in_dt, dev)
         g_code = 0
         if key.affine:
-            gamma = _native(gamma.reshape(-1), "gamma", n, dev)
-            beta = _native(beta.reshape(-1), "beta", n, dev).to(gamma.dtype)
+            gamma = _native(gamma.reshape(-1), "gamma", n, dev,
+                            _LN_AFFINE_DTYPES)
+            beta = _native(beta.reshape(-1), "beta", n, dev,
+                           _LN_AFFINE_DTYPES).to(gamma.dtype)
             if reg:
                 x, gamma, beta = _aligned(x), _aligned(gamma), _aligned(beta)
             g_code = _DT_CODE[gamma.dtype]

@@ -18,12 +18,15 @@ Precision, one meaning everywhere (kernel and plain version alike):
     `torch.backends.cudnn.allow_tf32`, is on by default).
   * bf16: bf16 operands, f32 accumulation and f32 epilogue, one rounding to
     the output dtype at the end.
-  * f16 (ROADMAP A14, the GEMM family only: B1, B3-B5, B19, B20 and the
-    xsmm.unary/binary ops): as bf16, with f16 operands and f16 products at
-    either precision; a chain rounds between layers to f16 where the bf16
-    chain rounds to bf16. The products are f16 x f16 (exact in f32): never
-    an f16 torch.matmul, whose cuBLAS reduction may run in reduced
-    precision.
+  * f16 (ROADMAP A14: the GEMM family, B1, B3-B5, B19, B20 and the
+    xsmm.unary/binary ops; the transformer family, B2's LayerNorm prologue
+    and ln_stats pair, B12 and attention, B6-B11; the MHA suite's batched
+    matmul, B21/B22): as bf16, with f16 operands and f16 products at
+    either precision; every rounding the bf16 kernels make to bf16 (a
+    chain's layers, the LayerNorm prologue's rows, attention's scaled Q and
+    P, a softmax_lhs P) is a rounding to f16. The products are f16 x f16
+    (exact in f32): never an f16 torch.matmul, whose cuBLAS reduction may
+    run in reduced precision.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
 in f32 whatever the dtype; only their results are rounded.
 """
@@ -58,22 +61,26 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
         f"{what} is outside the port's slice: ROADMAP queue {item}: {key}")
 
 
-# the families whose f16 keys run (ROADMAP A14's GEMM family: B1 without a
-# LayerNorm prologue or the ln_stats pair, B3-B5, B19/B20, and the
-# xsmm.unary/binary PyTorch ops); every other family's f16 key is refused
-F16_FAMILIES = (BrgemmKey, ChainKey, BlockedMatmulKey, UnaryKey, BinaryKey)
+# the families whose f16 keys run (ROADMAP A14): the GEMM family (B1 and
+# B2's LayerNorm prologue and ln_stats pair, B3-B5, B19/B20, and the
+# xsmm.unary/binary PyTorch ops), B12, attention (B6-B11, B7) and the batched
+# matmul (B21/B22); every other family's f16 key is refused
+F16_FAMILIES = (BrgemmKey, ChainKey, BlockedMatmulKey, UnaryKey, BinaryKey,
+                LayerNormKey, FlashMhaKey, BatchMatmulKey)
 
 
 def _check_f16(key) -> None:
     """Refuse, naming A14, an f16 key of a family this slice does not run
-    in f16, and a kernel key that mixes f16 with bf16 or f32 operands (the
-    kernels' f16 instantiations read and write f16 and f32 only)."""
+    in f16 (and a token-layout attention key under "flash_heads", which
+    would run B14's forward), and a kernel key that mixes f16 with bf16 or
+    f32 operands (the kernels' f16 instantiations read and write f16 and
+    f32 only)."""
     dtype, out = getattr(key, "dtype", None), getattr(key, "out_dtype", None)
     if "f16" not in (dtype, out):
         return
     if not isinstance(key, F16_FAMILIES) or (
-            isinstance(key, BrgemmKey) and (key.prologue or
-                                            key.ln_stats_out)):
+            isinstance(key, FlashMhaKey) and key.heads
+            and key.strategy == "flash_heads"):
         raise _refuse("an f16 key of this family", "A14 (f16 keys)", key)
     if not isinstance(key, (UnaryKey, BinaryKey)) and (
             dtype != "f16" or out not in (None, "f16", "f32")):
@@ -551,22 +558,33 @@ def attention_loader(key: FlashMhaKey) -> str:
     """Which loader csrc/attention.cu runs a "kernel" or "bench" route key
     with, from the key alone:
       "fma"      MXU dtype f32 (f32 "highest"): the f32-FMA kernel;
-      "tma"      bf16 operands whose row stride (E, 3E packed, D flat) and
-                 column offsets (each head's h*D, the packed groups' E and
-                 2E) TMA can take: TMA fills the K/V ring of the wgmma
-                 kernel;
+      "tma"      bf16 or f16 operands whose row stride (E, 3E packed, D
+                 flat) and column offsets (each head's h*D, the packed
+                 groups' E and 2E) TMA can take: TMA fills the K/V ring of
+                 the wgmma kernel, whose products are the operands' own type
+                 (wgmma .bf16 or .f16);
       "convert"  f32 operands at "default" (bf16 products), and bf16
                  operands TMA cannot take: the wgmma kernel's producer
-                 warpgroup loads K/V through registers, rounding to bf16.
+                 warpgroup loads K/V through registers, f32 rounded to
+                 bf16, bf16 stored as it is.
+    f16 operands have the TMA loader only: at every head_dim attention.cu
+    instantiates (32, 64, 128) each stride and column offset is a multiple
+    of 16 bytes, so an f16 key TMA cannot take is refused (ValueError).
     The operands' base pointers must be 16-byte aligned too; the wrapper
     checks them (every torch allocation is)."""
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
-    if key.dtype != "bf16":
+    if key.dtype == "f32":
         return "convert"
     E = (key.heads or 1) * key.head_dim
     ld = 3 * E if key.qkv_packed else E
-    return "tma" if tma_aligned(2, ld, E, key.head_dim) else "convert"
+    if tma_aligned(2, ld, E, key.head_dim):
+        return "tma"
+    if key.dtype == "bf16":
+        return "convert"
+    raise ValueError(f"attention.cu has no register loader for f16 "
+                     f"operands, and TMA cannot take these strides (no "
+                     f"head_dim it instantiates makes them): {key}")
 
 
 def brgemm_route(key: BrgemmKey) -> str:
@@ -1082,17 +1100,19 @@ BMM_MULTI_MAX = 64     # m, n and k of batch_matmul.cu's multi route
 
 def batch_matmul_route(key: BatchMatmulKey) -> str:
     """Which of csrc/batch_matmul.cu's kernels runs B21/B22 at `key`:
-      "multi"  MXU dtype bf16 (bf16 keys, f32 "default"), m, n and k at
-               most 64 (a whole problem fits one warp's registers and its
-               staging), k and n multiples of 8 (rows of 16-byte copies):
-               one warp per problem, cp.async staging, mma.sync. Every MHA
-               suite key: mha_qk 1024x32x32x64, mha_softmax_v 1024x32x64x32.
+      "multi"  16-bit products (bf16 for bf16 keys and f32 "default", f16
+               for f16 keys), m, n and k at most 64 (a whole problem fits
+               one warp's registers and its staging), k and n multiples of
+               8 (rows of 16-byte copies): one warp per problem, cp.async
+               staging, mma.sync (.bf16 or .f16). Every MHA suite key:
+               mha_qk 1024x32x32x64, mha_softmax_v 1024x32x64x32.
       "tiled"  everything else (f32 "highest", larger problems): 64x64
-               block tiles, `group` problems a block in turn."""
+               block tiles (WMMA in the products' 16-bit type, or f32
+               FMA), `group` problems a block in turn."""
     small = max(key.m, key.n, key.k) <= BMM_MULTI_MAX and \
         key.k % 8 == 0 and key.n % 8 == 0
-    bf16 = mxu_dtype(key.dtype, key.precision) == torch.bfloat16
-    return "multi" if small and bf16 else "tiled"
+    mma16 = mxu_dtype(key.dtype, key.precision) in MMA16
+    return "multi" if small and mma16 else "tiled"
 
 
 CONV_STRATEGIES = ("auto", "window", "fullrow", "xla")
@@ -1357,9 +1377,9 @@ def layer_norm_route(key: LayerNormKey) -> str:
     """Which body of csrc/layer_norm.cu runs B12 at `key`, from the key
     alone:
       "register"  rows of whole 16-byte vectors of the input dtype (n a
-                  multiple of 4 in f32, of 8 in bf16) and at most
+                  multiple of 4 in f32, of 8 in bf16 or f16) and at most
                   LN_MAX_VPL of them a lane of the row's warp (n up to 1,024
-                  f32 or 2,048 bf16): the row is loaded once into
+                  f32 or 2,048 bf16 or f16): the row is loaded once into
                   registers, one-pass;
       "strided"   any other n: the first design, each lane walking the row
                   with stride 32 and reading it three times.
