@@ -298,7 +298,30 @@ against its plain version and timed beside its bound, SDPA,
 F.layer_norm or torch.bmm in f16 where one call computes it (B2: the
 composed F.layer_norm -> addmm, marked composed): kernel-line rows;
 every other key of (a) and the f16 LN-stats pair timed the same way (no
-kernel-line row). The line before the last is the kernel table as JSON; the last line is
+kernel-line row).
+The conv family's f16 keys with the grouped and int8 GEMMs' (ROADMAP A14
+items 4, 6 and 7, `phase_f16_conv`, after `phase_f16_transformer`): (a)
+conv.cu (B24/B25) at the f16 twins' NHWC and NCHW keys on its tma route
+and the forced wmma tile, a ragged-channel key (the wmma tile), B23 at Cb
+1 and 2, B16 at the MoE shapes (fc1 + gelu to f16 and to f32, fc2; 8
+experts, bm 128, 9,216 rows) and at bm 16 (the WMMA tile), B17's dw1, dw2
+and a skewed routing, B15 at the int8 prefill's QKV + bias, fc1 + gelu,
+fc2 and LM-head shapes with an f16 output, each against its plain
+version at 2e-3; (b) the f16-not-bf16 probe on every new route (conv tma
+and wmma, B23, B16 and B17 wgmma and wmma: A = 1 + 2^-10; B15's stores:
+an s32 sum of 1025 times 2^-10, 1 + 2^-10 in f16 and 1 in bf16),
+bit-equal; (c) conv.json's and vit.json's rows in f16 (each named by the
+row it twins: NCHW flat and packed on B23, NHWC, the c256/16 and 1x1
+c256/14 keys, the two-layer c128/30, both ResNet blocks, both ViTs) and
+the conv-BN-pool stack at N 8, C 128, 32x32 in f16, lowered, against
+--linalg-to-loops at TOL_MODEL, finite, f16, their launches counted
+(conv_nhwc and conv_blocked must move); (d) each f16 key those paths
+launched held against its plain version and timed beside its bf16
+twin, its bound and F.conv2d (or SDPA, F.layer_norm, torch.addmm) in
+f16: kernel-line rows; every other key of (a) timed the same way (B16/B17
+beside torch._grouped_mm or a per-group torch.mm loop, marked composed;
+B15 beside the composed torch._int_mm chain), no kernel-line row. The
+line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1320,9 +1343,11 @@ def _f16_kernel_cases():
 
 def f16_route_probes():
     """(b): (label, key, forced body or loader, or None) for every route an
-    f16 key takes: the GEMM family's (phase_f16) and the transformer
-    family's (phase_f16_transformer)."""
-    return _f16_gemm_probes() + _f16_transformer_probes()
+    f16 key takes: the GEMM family's (phase_f16), the transformer
+    family's (phase_f16_transformer) and the conv family's with the grouped
+    and int8 GEMMs' (phase_f16_conv)."""
+    return _f16_gemm_probes() + _f16_transformer_probes() + \
+        _f16_conv_probes()
 
 
 def _f16_gemm_probes():
@@ -1395,15 +1420,61 @@ def _f16_transformer_probes():
         ("bmm tiled", BatchMatmulKey(8, 96, 64, 64, **bmm), None))
 
 
+def _f16_conv_probes():
+    """ROADMAP A14 items 4, 6 and 7: conv.cu's tma route and its wmma tile
+    (forced), B23, B16's and B17's wgmma and wmma tiles, each at an f32
+    output; B15's three stores of an f16 output (the epilogue
+    warpgroup's 8-byte runs at split 1, the split pass, the first
+    design's)."""
+    from tpp_mlir_tpu_torch.xsmm import (ConvBrgemmKey, ConvNhwcKey,
+                                         GroupedGemmKey, GroupedWgradKey,
+                                         Int8GemmKey)
+    conv = ConvNhwcKey(N=2, H=10, W=10, C=128, K=64, R=3, S=3, dtype="f16",
+                       out_dtype="f32", beta0=True)
+    b16 = dict(n_groups=2, m=128, n=128, k=WIDTH, dtype="f16",
+               out_dtype="f32")
+    b17 = GroupedWgradKey(n_groups=1, m=WIDTH, k=128, n=128, bm=64,
+                          dtype="f16")
+    return (
+        ("conv tma", conv, None),
+        ("conv wmma", conv, "wmma"),
+        ("B23 tma Cb 2", ConvBrgemmKey(N=2, H=10, W=10, Cb=2, c=64, Kb=1,
+                                       k=64, R=3, S=3, dtype="f16",
+                                       out_dtype="f32", beta0=True), None),
+        ("B16 wgmma", GroupedGemmKey(bm=64, **b16), None),
+        ("B16 wmma bm 16", GroupedGemmKey(bm=16, **b16), None),
+        ("B17 wgmma", b17, None),
+        ("B17 wmma", b17, "wmma"),
+        ("B15 wgmma store", Int8GemmKey(m=WIDTH, n=2304, k=1040,
+                                        out_dtype="f16"), None),
+        ("B15 wgmma split store", Int8GemmKey(m=64, n=128, k=1040,
+                                              out_dtype="f16"), None),
+        ("B15 wmma store", Int8GemmKey(m=64, n=128, k=1040,
+                                       out_dtype="f16"), "wmma"))
+
+
 def f16_probe_kernel(key, forced=None):
     """The Kernel of a probe: build_kernel's, or with `forced` the
-    warm-panel engine's body (B3-B5, B20) or B12's body forced."""
-    from tpp_mlir_tpu_torch.xsmm import LayerNormKey, build_kernel
-    from tpp_mlir_tpu_torch.xsmm.kernels import build_layer_norm, build_warm
+    warm-panel engine's body (B3-B5, B20), B12's body, conv.cu's tile, B16's
+    or B17's tile or B15's first design forced."""
+    from tpp_mlir_tpu_torch.xsmm import (ConvBrgemmKey, ConvNhwcKey,
+                                         GroupedGemmKey, GroupedWgradKey,
+                                         Int8GemmKey, LayerNormKey,
+                                         build_kernel)
+    from tpp_mlir_tpu_torch.xsmm.kernels import (build_conv,
+                                                 build_grouped_gemm,
+                                                 build_int8,
+                                                 build_layer_norm, build_warm)
     if not forced:
         return build_kernel(key)
     if isinstance(key, LayerNormKey):
         return build_layer_norm(key, forced)
+    if isinstance(key, (ConvNhwcKey, ConvBrgemmKey)):
+        return build_conv(key, forced)
+    if isinstance(key, (GroupedGemmKey, GroupedWgradKey)):
+        return build_grouped_gemm(key, forced)
+    if isinstance(key, Int8GemmKey):
+        return build_int8(key, forced)
     return build_warm(key, forced)
 
 
@@ -1421,14 +1492,47 @@ def f16_probe(key):
     2^10), gamma 1, beta 2^-10: 1 + 2^-10 and -(1 - 2^-10), 2^-10 where
     the row was read in bf16. Attention: _attention_probe. B21/B22: A 1,
     B 1 + 2^-10: k (1 + 2^-10), or under softmax_lhs (P = 1/k) 1 +
-    2^-10."""
+    2^-10. The convs: I 1 + 2^-10, W 1, no padding: R S C (1 + 2^-10)
+    (R S C in bf16). B16: A 1 + 2^-10, B 1: k (1 + 2^-10). B17: xt (the
+    transpose of the (m, k) rows, as the MoE backward passes it) 1 +
+    2^-10, dY 1, one group: m (1 + 2^-10). B15: Xq 1, Wq 1 in its first
+    1025 rows and 0 below, xscale 2^-10, wscale 1: the s32 sum 1025 scaled
+    to 1 + 2^-10, which an f16 store keeps and a bf16 one rounds to 1."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BrgemmKey,
-                                         ChainKey, FlashMhaKey, LayerNormKey)
+                                         ChainKey, ConvBrgemmKey,
+                                         ConvNhwcKey, FlashMhaKey,
+                                         GroupedGemmKey, GroupedWgradKey,
+                                         Int8GemmKey, LayerNormKey)
 
     def full(shape, v):
         return torch.full(shape, v, dtype=torch.float16, device="cuda")
+    if isinstance(key, ConvNhwcKey):
+        return (full((key.N, key.H, key.W, key.C), F16_ONE),
+                full((key.R, key.S, key.C, key.K), 1.0)), \
+            key.R * key.S * key.C * F16_ONE
+    if isinstance(key, ConvBrgemmKey):
+        return (full((key.N, key.Cb, key.H, key.W, key.c), F16_ONE),
+                full((key.Kb, key.Cb, key.R, key.S, key.c, key.k), 1.0)), \
+            key.R * key.S * key.Cb * key.c * F16_ONE
+    if isinstance(key, GroupedGemmKey):
+        nb = key.m // key.bm
+        ge = torch.arange(nb, dtype=torch.int32, device="cuda") * \
+            key.n_groups // nb
+        return (ge, full((key.m, key.k), F16_ONE),
+                full((key.n_groups, key.k, key.n), 1.0)), key.k * F16_ONE
+    if isinstance(key, GroupedWgradKey):
+        ge = torch.zeros(key.m // key.bm, dtype=torch.int32, device="cuda")
+        return (ge, full((key.m, key.k), F16_ONE).t(),
+                full((key.m, key.n), 1.0)), key.m * F16_ONE
+    if isinstance(key, Int8GemmKey):
+        xq = torch.ones(key.m, key.k, dtype=torch.int8, device="cuda")
+        wq = torch.zeros(key.k, key.n, dtype=torch.int8, device="cuda")
+        wq[:1025] = 1
+        xs = torch.full((key.m,), 2 ** -10, device="cuda")
+        ws = torch.ones(key.n, device="cuda")
+        return (xq, wq, xs, ws, None, wq.t().contiguous()), F16_ONE
 
     def alternating(rows, n, lo, hi):
         x = full((rows, n), hi)
@@ -2122,6 +2226,451 @@ def phase_f16_transformer() -> list:
     _ln_stats_times("f16", "default", 3072, g)
     say(f"phase f16 transformer: {time.perf_counter() - t0:.1f} s; worst "
         f"abs error by kind {worst}")
+    return rows
+
+
+# ROADMAP A14 items 4, 6 and 7: the conv family's f16 keys (csrc/conv.cu's
+# B23-B25), B16/B17 (csrc/grouped_gemm.cu) and B15's f16 output
+# (csrc/int8_gemm.cu). The paths are conv.json's and vit.json's rows at
+# their own sizes in f16, each named by the row it twins ("f16" in place of
+# "bf16", or of f32 where the suite has no bf16 row at that size): (name,
+# the row it twins, pipeline, kernels that must launch)
+F16_CONV_ROWS = (
+    ("conv3x3_f16_b8_c128_k128_30", "conv3x3_bf16_b8_c128_k128_30",
+     "default-tpp-passes", ("conv_nhwc",)),
+    ("conv3x3_f16_b8_c128_k128_30", "conv3x3_bf16_b8_c128_k128_30",
+     "default-tpp-passes-packed", ("conv_blocked",)),
+    ("conv3x3_nhwc_f16_b8_c128_k128_30", "conv3x3_nhwc_bf16_b8_c128_k128_30",
+     "default-tpp-passes", ("conv_nhwc",)),
+    ("conv3x3_nhwc_f16_b8_c256_k256_16", "conv3x3_nhwc_fp32_b8_c256_k256_16",
+     "default-tpp-passes", ("conv_nhwc",)),
+    ("conv1x1_nhwc_f16_b8_c256_k256_14", "conv1x1_nhwc_fp32_b8_c256_k256_14",
+     "default-tpp-passes", ("conv_nhwc",)),
+    ("conv3x3_f16_b8_c256_k256_16", "conv3x3_fp32_b8_c256_k256_16",
+     "default-tpp-passes-packed", ("conv_blocked",)),
+    ("conv3x3_f16_2layer", "conv3x3_fp32_2layer", "default-tpp-passes",
+     ("conv_nhwc",)),
+    ("resnet_block_nhwc_f16", "resnet_block_nhwc_bf16", "default-tpp-passes",
+     ("conv_nhwc",)),
+    ("resnet_block_torch_import_f16", "resnet_block_torch_import_bf16",
+     "default-tpp-passes", ("conv_nhwc",)),
+    ("vit_d128_p16_f16", "vit_d128_p16_bf16", "default-tpp-passes",
+     ("attention", "brgemm")),
+    ("vit_d64_p16_f16", "vit_d64_p16_bf16", "default-tpp-passes",
+     ("attention", "brgemm")),
+)
+F16C_KINDS = ("conv_nhwc", "conv_blocked")
+# B16 and B17 at the MoE slice's shapes in f16, and B15 at the int8
+# prefill's, with an f16 output
+_F16_B16 = dict(dtype="f16")
+F16_GROUPED_CASES = (
+    ("fc1 9216x3072x768 gelu f16", 4096, 128, 3072, 768,
+     dict(_F16_B16, unary_kind="gelu"), False),
+    ("fc1 9216x3072x768 gelu f32 out", 4096, 128, 3072, 768,
+     dict(_F16_B16, unary_kind="gelu", out_dtype="f32"), False),
+    ("fc2 9216x768x3072 f16", 4096, 128, 768, 3072, _F16_B16, False),
+    ("small bm 16 2128x768x256 (wmma)", 1000, 16, 768, 256, _F16_B16,
+     False),
+)
+F16_WGRAD_CASES = (
+    ("dw2 k3072 n768 over 9216", 4096, 128, 3072, 768, False),
+    ("dw1 k768 n3072 over 9216", 4096, 128, 768, 3072, False),
+    ("skewed dw1 k768 n3072", 4096, 128, 768, 3072, True),
+)
+
+
+def _f16_twin(name: str, row: str, pipeline: str) -> dict:
+    """A bench-driver entry of `row` (conv.json or vit.json) in f16: its
+    bf16 marker made f16, or an f32 row given the f16 float type (dtype for
+    resnet_block)."""
+    entry = next(e for e in _conv_suite() if e["name"] == row)
+    model = entry["model"]
+    for bf16 in ('"float_type": "bf16"', '"dtype": "bf16"'):
+        model = model.replace(bf16, bf16.replace("bf16", "f16"))
+    if '"f16"' not in model:
+        field = "dtype" if model.startswith("resnet_block:") else \
+            "float_type"
+        model = model[:-1] + f', "{field}": "f16"}}'
+    out = {"name": name, "model": model, "pipeline": pipeline}
+    if "bench_mode" in entry:
+        out["bench_mode"] = entry["bench_mode"]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _f16_row_keys(name: str, pipeline: str) -> tuple:
+    """The conv keys (conv_nhwc, or the packed pipeline's channel-blocked
+    ones) the pipeline makes of an f16 twin row."""
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.runtime.executor import _dispatch_key
+    from tpp_mlir_tpu_torch.tools.bench_driver import build_module
+    row = next(r for n, r, p, _ in F16_CONV_ROWS
+               if n == name and p == pipeline)
+    module = build_module(_f16_twin(name, row, pipeline))
+    run_pipeline(module, pipeline)
+    return tuple(_dispatch_key(op.operands[0].owner, op)
+                 for op in module["entry"].ops
+                 if op.opname in ("xsmm.brgemm", "xsmm.fused_brgemm")
+                 and op.operands[0].owner.attrs.get("layout")
+                 in ("conv_nhwc", "conv"))
+
+
+def _f16c_kernel_cases():
+    """(a): (label, key, forced body or None) at the f16 paths' keys and
+    the kernel API's MoE and int8 prefill keys. B16/B17 come as (label,
+    tokens, bm, n, k, fields, skew) tuples (their keys follow the
+    routing's padding) and are made in phase_f16_conv."""
+    from tpp_mlir_tpu_torch.xsmm import ConvNhwcKey
+    flat = "default-tpp-passes"
+    nhwc = _f16_row_keys("conv3x3_nhwc_f16_b8_c128_k128_30", flat)[0]
+    int8 = [(f"{label} f16 out", dataclasses.replace(key, out_dtype="f16"),
+             None) for label, key in _int8_cases()[:4]]
+    return [
+        ("conv c128/30 NHWC +bias+relu", nhwc, None),
+        ("conv c128/30 NHWC forced wmma", nhwc, "wmma"),
+        ("conv c128/30 NCHW flat +C",
+         _f16_row_keys("conv3x3_f16_b8_c128_k128_30", flat)[0], None),
+        ("conv c256/16 NHWC",
+         _f16_row_keys("conv3x3_nhwc_f16_b8_c256_k256_16", flat)[0], None),
+        ("conv 1x1 c256/14 NHWC",
+         _f16_row_keys("conv1x1_nhwc_f16_b8_c256_k256_14", flat)[0], None),
+        ("conv resnet NHWC same + residual",
+         _f16_row_keys("resnet_block_nhwc_f16", flat)[1], None),
+        ("conv ragged c12 k20 same +bias+relu (wmma)",
+         ConvNhwcKey(N=8, H=16, W=16, C=12, K=20, R=3, S=3, dtype="f16",
+                     beta0=True, binary_kind="add", unary_kind="relu",
+                     pad=(1, 1, 1, 1)), None),
+        ("B23 c128/30 packed Cb 1",
+         _f16_row_keys("conv3x3_f16_b8_c128_k128_30", PACKED)[0], None),
+        ("B23 c256/16 packed Cb 2",
+         _f16_row_keys("conv3x3_f16_b8_c256_k256_16", PACKED)[0], None),
+    ] + int8
+
+
+def _f16c_inputs(key, g):
+    """Inputs of a conv-family, grouped or int8 f16 key on the card: a
+    conv's I N(0, 1) and W N(0, 1/(R S C)) in f16, its C and D (a bias or a
+    residual) N(0, 1) in f16, as the f16 models keep them; B15's as
+    _int8_inputs makes them (the engine's bf16 bias, which the kernel reads
+    as stored: an f16 one is widened to f32 by the wrapper, one more
+    launch a call); any other key (the ViTs' GEMMs, attention, LayerNorm)
+    as _f16t_inputs makes it."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (ConvBrgemmKey, ConvNhwcKey,
+                                         Int8GemmKey)
+    f16 = torch.float16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale) \
+            .to(f16)
+    if isinstance(key, ConvNhwcKey):
+        out = (key.N, key.P, key.Q, key.K)
+        d = None
+        if key.binary_kind:
+            d = rnd(*(out if key.binary_bcast == "none" else (key.K,)))
+        return (rnd(key.N, key.H, key.W, key.C),
+                rnd(key.R, key.S, key.C, key.K,
+                    scale=(key.R * key.S * key.C) ** -0.5),
+                None if key.beta0 else rnd(*out), d)
+    if isinstance(key, ConvBrgemmKey):
+        out = (key.N, key.Kb, key.P, key.Q, key.k)
+        return (rnd(key.N, key.Cb, key.H, key.W, key.c),
+                rnd(key.Kb, key.Cb, key.R, key.S, key.c, key.k,
+                    scale=(key.R * key.S * key.Cb * key.c) ** -0.5),
+                None if key.beta0 else rnd(*out),
+                rnd(key.Kb, key.k) if key.binary_kind else None)
+    if isinstance(key, Int8GemmKey):
+        return _int8_inputs(key, g)
+    return _f16t_inputs(key, g)
+
+
+def _bf16_twin(key, args):
+    """`key` and `args` with bf16 in place of f16 (an f32 output stays
+    f32): the bf16 key its f16 key is timed beside."""
+    import torch
+    fields = {f: "bf16" for f in ("dtype", "out_dtype")
+              if getattr(key, f, None) == "f16"}
+    return dataclasses.replace(key, **fields), tuple(
+        a.to(torch.bfloat16) if isinstance(a, torch.Tensor) and
+        a.dtype == torch.float16 else a for a in args)
+
+
+def _beside_twin(key, kern, args, forced=None) -> float:
+    """An f16 key and its bf16 twin (the same route, forced body, tiles and
+    bytes) timed from CUDA graphs in turns (bf16, f16, f16, bf16, each pair
+    averaged, so that neither gains from its place in the call) and
+    printed; returns the twin's ms."""
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    twin, targs = _bf16_twin(key, args)
+    tk = f16_probe_kernel(twin, forced)
+    b1, f1, f2, b2 = (graph_ms(fn) for fn in (
+        lambda: tk(*targs), lambda: kern(*args), lambda: kern(*args),
+        lambda: tk(*targs)))
+    f16_ms, bf16_ms = (f1 + f2) / 2, (b1 + b2) / 2
+    say(f"time kernel f16 {describe(key):48s} in turns with its bf16 twin "
+        f"from CUDA graphs: f16 {f16_ms:.4f} ms, bf16 {bf16_ms:.4f} ms "
+        f"(f16/bf16 {f16_ms / bf16_ms:.3f})")
+    return bf16_ms
+
+
+def _grouped_library(kind, key, args):
+    """B16/B17's yardstick in f16: torch._grouped_mm where it takes the
+    key (no epilogue, f16 out; in f16 it copies to the host, so it is
+    timed eagerly, not from a graph), else a per-group torch.mm loop (+
+    F.gelu) on the same rows, composed and not one call. Returns
+    (callable, whether composed)."""
+    import torch
+    import torch.nn.functional as F
+    call = _grouped_mm_call(kind, key, args)
+    if call is not None:
+        try:
+            call()
+            return call, False
+        except (RuntimeError, TypeError):
+            pass
+    ge = args[-3] if kind == "grouped_gemm" else args[0]
+    counts = torch.bincount(ge.long(), minlength=key.n_groups).tolist()
+    cuts, r = [], 0
+    for g_, c in enumerate(counts):
+        if c:
+            cuts.append((g_, r, r + c * key.bm))
+        r += c * key.bm
+    if kind == "grouped_gemm":
+        _, x, b = args[-3:]
+        w = b[0] if key.layers else b
+        w = w.transpose(-2, -1) if key.transpose_b else w
+        gelu = key.unary_kind == "gelu"
+
+        def run():
+            for g_, lo, hi in cuts:
+                y = torch.mm(x[lo:hi], w[g_])
+                if gelu:
+                    F.gelu(y)
+        return run, True
+    _, xt, dy = args
+
+    def run():
+        for g_, lo, hi in cuts:
+            torch.mm(xt[:, lo:hi], dy[lo:hi])
+    return run, True
+
+
+def _f16c_api_times(kind, key, args, kern, plain, label) -> None:
+    """A kernel-API f16 key's times, for PERF.md (no kernel-line row): the
+    kernel eager and from a CUDA graph, its bf16 twin from a graph, its
+    plain version, its yardstick from a graph (B16/B17: _grouped_library;
+    B15: the composed torch._int_mm chain) and its bound."""
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import Int8GemmKey
+    if isinstance(key, Int8GemmKey):
+        library, composed = _int8_composed(key, args), True
+    else:
+        library, composed = _grouped_library(kind, key, args)
+    bound, by = _bound(kind, key, args)
+    ms, plain_ms = cuda_ms(lambda: kern(*args)), \
+        cuda_ms(lambda: plain(*args))
+    gms = graph_ms(lambda: kern(*args))
+    lib = f"composed (not one call) from a CUDA graph " \
+        f"{graph_ms(library):.4f} ms" if composed else \
+        f"library call torch._grouped_mm eager {cuda_ms(library):.4f} ms"
+    say(f"time kernel f16 {describe(key):48s} {ms:.4f} ms (from a CUDA "
+        f"graph {gms:.4f} ms), plain version {plain_ms:.4f} ms, {lib}, "
+        f"bound {bound:.4f} ms ({by}); kernel API ({label}); route "
+        f"{kern.route}")
+
+
+def phase_f16_conv() -> list:
+    """ROADMAP A14 items 4, 6 and 7 on the card: (a) conv.cu (B24/B25 on
+    its tma route and forced wmma tile, a ragged-channel key on the wmma
+    tile, B23 at Cb 1 and 2), B16 (fc1 + gelu to f16 and f32, fc2, bm 16
+    on the WMMA tile), B17 (dw1, dw2, skewed) and B15 (QKV, fc1, fc2, LM
+    head to f16) at f16 keys against their plain versions at TOL_F16; (b)
+    the f16-not-bf16 probe on every new route, bit-equal; (c) the f16 twins
+    of conv.json's and vit.json's rows and the conv-BN-pool stack (N 8, C
+    128, 32x32) in f16, lowered, against --linalg-to-loops at TOL_MODEL,
+    finite and f16, each path's launches counted (conv_nhwc and
+    conv_blocked must move); (d) each f16 key the paths launched held
+    against its plain version and timed beside its bf16 twin, its bound
+    and its library call (F.conv2d f16): kernel-line rows; then the (a)
+    keys the paths do not launch (the kernel API's B15-B17, the forced and
+    ragged conv keys), timed for PERF.md."""
+    import torch
+
+    from tpp_mlir_tpu_torch.frontend import import_torch
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
+    from tpp_mlir_tpu_torch.tools.bench_driver import run_entry
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import (build_kernel, global_cache,
+                                         reference_kernel)
+    from tpp_mlir_tpu_torch.xsmm.reference import conv_route
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(24)
+    worst: dict = {}
+    api = []        # (kind, key, args, kern, label) of the kernel API's keys
+
+    def held(label, key, forced, args, extra=""):
+        kern = f16_probe_kernel(key, forced)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        ok = rel <= TOL_F16 and torch_isfinite(got) and \
+            got.dtype == want.dtype and kern.launches == 1
+        note = f"; forced {forced}" if forced else _route_note(
+            key, args[1].stride() if _kind(key) == "grouped_wgrad" else None)
+        say(f"f16 kernel {_kind(key):14s} {label:44s} rel {rel:.3e} abs "
+            f"{ab:.3e} tol {TOL_F16:.0e}{extra}{note} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {label}: rel {rel} > {TOL_F16}, "
+                                 f"launches {kern.launches}")
+        worst[_kind(key)] = max(worst.get(_kind(key), 0.0), ab)
+        return kern
+    # (a) each kernel at its f16 keys against its plain version
+    cases = _f16c_kernel_cases()
+    for label, key, forced in cases:
+        args = _f16c_inputs(key, g)
+        kern = held(label, key, forced, args)
+        if forced or _kind(key) == "int8_gemm" or "ragged" in label:
+            api.append((_kind(key), key, args, kern, label, forced))
+    for label, T, bm, n, k, fields, skew in F16_GROUPED_CASES:
+        key, args, pad = _grouped_gemm_inputs(g, T, bm, n, k, fields, skew)
+        kern = held(label, key, None, args)
+        if kern(*args)[pad].any().item():
+            raise AssertionError(f"f16 {label}: padding rows not zero")
+        api.append(("grouped_gemm", key, args, kern, label, None))
+    for label, T, bm, k, n, skew in F16_WGRAD_CASES:
+        key, args, untouched = _grouped_wgrad_inputs(g, T, bm, k, n, skew,
+                                                     dtype="f16")
+        kern = held(label, key, None, args,
+                    f"; experts no token chose {untouched}")
+        if bool(untouched) != skew or kern(*args)[untouched].any().item():
+            raise AssertionError(f"f16 {label}: untouched {untouched}")
+        api.append(("grouped_wgrad", key, args, kern, label, None))
+    # (b) the products are f16 (B15: the stores keep f16's 2^-10)
+    for label, key, forced in _f16_conv_probes():
+        kern = f16_probe_kernel(key, forced)
+        args, value = f16_probe(key)
+        got = kern(*args)
+        want = reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        ok = f16_probe_holds(got, want, value)
+        say(f"f16 products {label:22s} route {kern.route:8s} every output "
+            f"{got.flatten()[0].item()!r} (plain "
+            f"{want.flatten()[0].item()!r}, f16 {value!r}) bit-equal "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 products {label}: "
+                                 f"{got.flatten()[:4]}")
+    # (c) the paths at full width, each one's launches counted
+    cache = global_cache()
+    launches: dict = {}
+
+    def count(label, kinds):
+        path = _launches(cache)
+        for key, n in _f16_launches(cache).items():
+            launches[key] = launches.get(key, 0) + n
+        moved = {k: v for k, v in path.items() if v}
+        if not all(path[k] for k in kinds):
+            raise AssertionError(f"f16 {label}: launches {moved} (must "
+                                 f"move: {kinds})")
+        return moved
+    for name, row, pipeline, kinds in F16_CONV_ROWS:
+        t1 = time.perf_counter()
+        cache.reset_launches()
+        res = run_entry(_f16_twin(name, row, pipeline), n=0, device="cuda",
+                        out_stream=sys.stderr)
+        module = res["lowered"]["module"]
+        keys = [key for _, key in _conv_dispatches(module)]
+        routes = [conv_route(key) for key in keys]
+        layouts = _packed_layouts(module)
+        got = res["lowered"]["outputs"][0]
+        want = res["baseline"]["outputs"][0]
+        rel, ab = rel_err(got, want)
+        finite = torch_isfinite(got)
+        moved = count(name, kinds)
+        vit = name.startswith("vit")
+        ok = finite and rel <= TOL_MODEL and got.dtype == torch.float16 \
+            and tuple(got.shape) == tuple(want.shape) and \
+            routes == (["xla"] if vit else ["kernel"] * len(routes)) and \
+            all(key.dtype == "f16" for key in keys) and \
+            (pipeline != PACKED or layouts.get("conv"))
+        say(f"f16 main {name} ({pipeline}): lowered to "
+            f"{_invoke_counts(module)}; conv routes {routes}, packed "
+            f"{layouts}; output {tuple(got.shape)} {str(got.dtype)[6:]} "
+            f"finite {finite}, vs --linalg-to-loops rel {rel:.3e} abs "
+            f"{ab:.3e} tol {TOL_MODEL:.0e}; launches {moved} "
+            f"({time.perf_counter() - t1:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {name}: rel {rel}, finite {finite}, "
+                                 f"routes {routes}, layouts {layouts}")
+        del res, got, want
+        torch.cuda.empty_cache()
+    # the imported conv-BN-pool stack in f16
+    cache.reset_launches()
+    model, x = _conv_bn_pool_stack()
+    x = x.to("cuda", torch.float16)
+    stack = import_torch(model, CONV_STACK, "f16")
+    run_pipeline(stack, "default-tpp-passes")
+    got = tpp_compile(stack, "entry", "cuda")(x)
+    want = tpp_compile(import_torch(model, CONV_STACK, "f16"), "entry",
+                       "cuda")(x)
+    rel, ab = rel_err(got, want)
+    moved = count("conv-BN-pool stack f16", ("conv_nhwc",))
+    ok = torch_isfinite(got) and rel <= TOL_MODEL and \
+        got.dtype == torch.float16
+    say(f"f16 main conv-BN-pool stack N{CONV_STACK[0]} C{CONV_STACK[1]} "
+        f"{CONV_STACK[2]}x{CONV_STACK[3]}: invokes {_invokes(stack)}; "
+        f"output {tuple(got.shape)} {str(got.dtype)[6:]} vs "
+        f"--linalg-to-loops rel {rel:.3e} abs {ab:.3e} tol "
+        f"{TOL_MODEL:.0e}; launches {moved} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"f16 conv-BN-pool stack: rel {rel}")
+    by_kind: dict = {}
+    for key, n in launches.items():
+        by_kind[_kind(key)] = by_kind.get(_kind(key), 0) + n
+    say(f"f16 conv paths launches: {by_kind}")
+    missing = [k for k in F16C_KINDS if not by_kind.get(k)]
+    if missing:
+        raise AssertionError(f"f16 kernels of the paths never launched: "
+                             f"{missing}")
+    # (d) each f16 key the paths launched, held and timed beside its bf16
+    # twin: kernel-line rows
+    rows = []
+    for key, n in launches.items():
+        kind = _kind(key)
+        args = _f16c_inputs(key, g)
+        kern, plain = build_kernel(key), reference_kernel(key)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        ok = rel <= TOL_F16 and torch_isfinite(got) and \
+            got.dtype == want.dtype
+        say(f"f16 kernel {kind:14s} {describe(key):48s} (paths) rel "
+            f"{rel:.3e} abs {ab:.3e} tol {TOL_F16:.0e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 {describe(key)}: rel {rel}")
+        entry = _f16t_times(kind, key, args, kern, plain,
+                            f"{n} launches on the f16 conv paths")
+        entry["bf16_twin_graph_ms"] = _beside_twin(key, kern, args)
+        rows.append((kind, key, kern.source, {
+            "launches": n, "max_abs_err": ab, **entry}))
+        worst[kind] = max(worst.get(kind, 0.0), ab)
+    # the kernel API's keys and the conv keys the paths do not launch,
+    # timed for PERF.md (no kernel-line row)
+    for kind, key, args, kern, label, forced in api:
+        if kind in ("grouped_gemm", "grouped_wgrad", "int8_gemm"):
+            _f16c_api_times(kind, key, args, kern, reference_kernel(key),
+                            label)
+        else:
+            _f16t_times(kind, key, args, kern, reference_kernel(key),
+                        f"off the paths ({label})")
+        _beside_twin(key, kern, args, forced)
+    say(f"phase f16 conv: {time.perf_counter() - t0:.1f} s; worst abs "
+        f"error by kind {worst}")
     return rows
 
 
@@ -3442,39 +3991,44 @@ GROUPED_WGRAD_CASES = (
 
 def _grouped_gemm_inputs(g, T, bm, n, k, fields, skew):
     """(key, args, padding-row mask): the tokens' rows gathered into the
-    padded slot order as the engine makes xs, weights ~ N(0, 1/k)."""
+    padded slot order as the engine makes xs, weights ~ N(0, 1/k), in the
+    key's dtype (bf16, or f16)."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import GroupedGemmKey
+    from tpp_mlir_tpu_torch.xsmm.reference import DTYPES
     d = _moe_routing(g, T, 8, bm, skew)
     key = GroupedGemmKey(n_groups=8, m=d["A_pad"], n=n, k=k, bm=bm,
                          **fields)
-    h = torch.randn(T, k, generator=g, device="cuda").bfloat16()
+    dt = DTYPES[key.dtype]
+    h = torch.randn(T, k, generator=g, device="cuda").to(dt)
     xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
     shape = (n, k) if key.transpose_b else (k, n)
     lead = (key.layers,) if key.layers else ()
     w = (torch.randn(*lead, 8, *shape, generator=g, device="cuda")
-         * k ** -0.5).bfloat16()
+         * k ** -0.5).to(dt)
     args = ((1,) if key.layers else ()) + (d["ge"], xs, w)
     return key, args, d["tt"] == T
 
 
-def _grouped_wgrad_inputs(g, T, bm, k, n, skew, contiguous=False):
+def _grouped_wgrad_inputs(g, T, bm, k, n, skew, contiguous=False,
+                          dtype="bf16"):
     """(key, args, experts no token chose): xt the transpose of the
     (A_pad, k) slot rows, read in place as the training backward passes
     it (or, `contiguous`, a contiguous copy), and dY with zero padding
-    rows."""
+    rows, in `dtype` (bf16, or f16)."""
     import torch
 
     from tpp_mlir_tpu_torch.xsmm import GroupedWgradKey
+    from tpp_mlir_tpu_torch.xsmm.reference import DTYPES
     d = _moe_routing(g, T, 8, bm, skew)
     key = GroupedWgradKey(n_groups=8, m=d["A_pad"], k=k, n=n, bm=bm,
-                          dtype="bf16")
-    h = torch.randn(T, k, generator=g, device="cuda").bfloat16()
+                          dtype=dtype)
+    h = torch.randn(T, k, generator=g, device="cuda").to(DTYPES[dtype])
     xs = torch.cat([h, h.new_zeros(1, k)])[d["tt"]]
     dy = torch.randn(d["A_pad"], n, generator=g, device="cuda")
     live = d["tt"] < T
-    dy = (dy * live[:, None]).bfloat16()
+    dy = (dy * live[:, None]).to(DTYPES[dtype])
     chosen = set(d["ge"][live.reshape(-1, bm).any(1)].tolist())
     xt = xs.t().contiguous() if contiguous else xs.t()
     return key, (d["ge"], xt, dy), sorted(set(range(8)) - chosen)
@@ -5149,15 +5703,13 @@ def _bound(kind, key, args) -> tuple[float, str]:
         ge, a, b = args[-3:]
         rows = int((a != 0).any(-1).sum())
         experts = int(torch.unique(ge).numel())
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * rows * key.n * key.k
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = (rows * key.k + experts * key.k * key.n) * a.element_size() \
             + key.m * key.n * size + _nbytes(ge)
     elif kind == "conv_nhwc":     # each tap's products; I, W, C, D, out
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * key.N * key.P * key.Q * key.K * key.C * key.R * key.S
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = _nbytes(*args) + key.N * key.P * key.Q * key.K * size
@@ -5169,8 +5721,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
         nbytes = _nbytes(*args) + key.Mb * key.Nb * key.mb * key.nb * size
     elif kind == "conv_blocked":    # each tap's products; I, W, C, D, out
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * key.N * key.P * key.Q * key.Kb * key.k * key.Cb * \
             key.c * key.R * key.S
         size = 4 if (key.out_dtype or key.dtype) == "f32" else 2
@@ -5179,8 +5730,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
     else:   # grouped_wgrad: the token rows of xt and dY, f32 dW
         ge, xt, dy = args
         rows = int((dy != 0).any(-1).sum())
-        rate = "f32" if mxu_dtype(key.dtype, key.precision) == \
-            torch.float32 else "bf16"
+        rate = mxu_rate(key)
         flops = 2 * rows * key.k * key.n
         nbytes = rows * (key.k + key.n) * dy.element_size() + _nbytes(ge) \
             + key.n_groups * key.k * key.n * 4
@@ -6488,6 +7038,7 @@ def main() -> int:
     launches = phase_main_path()
     f16_rows = phase_f16()
     f16_rows += phase_f16_transformer()
+    f16_rows += phase_f16_conv()
     for kind, n in phase_tuning().items():
         launches[kind] += n
     for kind, n in phase_compiler_path().items():

@@ -376,10 +376,12 @@ def test_f16_sizes_as_two_bytes():
         reference.gemm_plan(BrgemmKey(1, 256, 1024, 1024, "bf16"))
 
 
-# every family outside the slice's f16 keys keeps refusing, naming A14;
-# the transformer family's (B12, attention, the batched matmul, B2's
-# LayerNorm prologue and LN-stats producer), once refused here, run since
-# ROADMAP A14 items 1, 2, 3 and 5 (NOW_RUN below)
+# every family outside the slice's f16 keys keeps refusing, naming A14
+# (B13's decode, B14's training forward, under flash_heads too); the
+# transformer family's (B12, attention, the batched matmul, B2's LayerNorm
+# prologue and LN-stats producer), once refused here, run since ROADMAP
+# A14 items 1, 2, 3 and 5, and the conv family's, B16/B17's and B15's f16
+# output since items 4, 6 and 7 (NOW_RUN below)
 OUTSIDE = {
     "layer-norm": LayerNormKey(m=8, n=64, dtype="f16"),
     "attention": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
@@ -416,7 +418,8 @@ OUTSIDE = {
                                          out_dtype="bf16"),
 }
 NOW_RUN = ("layer-norm", "attention", "batch-matmul", "ln-prologue",
-           "ln-stats-out")
+           "ln-stats-out", "conv-nhwc", "conv-blocked", "int8-f16-out",
+           "grouped", "grouped-wgrad")
 
 
 def _now_runs(key):
@@ -425,10 +428,31 @@ def _now_runs(key):
     JAX f16 test's rtol); the LN-stats producer at m 8, which the JAX
     package builds only as its weights-resident kernel (two m blocks or
     more), against the port's own B1 at the key without ln_stats_out
-    (bit-equal) and numpy's row statistics of its output."""
+    (bit-equal) and numpy's row statistics of its output. The convs and
+    B16 take f16 operands (the conv's C in f16), B17 xt (k, m) and dY in
+    f16 (its dW is f32), B15 s8 operands and f32 scales."""
     rng = np.random.default_rng(9)
     kern = build_kernel(key)
-    if isinstance(key, LayerNormKey):
+    if isinstance(key, ConvNhwcKey):
+        args = (_f16((key.N, key.H, key.W, key.C), 16),
+                _f16((key.R, key.S, key.C, key.K), 17, 0.1),
+                _f16((key.N, key.P, key.Q, key.K), 18))
+    elif isinstance(key, ConvBrgemmKey):
+        args = (_f16((key.N, key.Cb, key.H, key.W, key.c), 16),
+                _f16((key.Kb, key.Cb, key.R, key.S, key.c, key.k), 17, 0.1),
+                _f16((key.N, key.Kb, key.P, key.Q, key.k), 18))
+    elif isinstance(key, Int8GemmKey):
+        args = (rng.integers(-127, 128, (key.m, key.k)).astype(np.int8),
+                rng.integers(-127, 128, (key.k, key.n)).astype(np.int8),
+                (rng.random(key.m) * 0.02).astype(np.float32),
+                (rng.random(key.n) * 0.02).astype(np.float32))
+    elif isinstance(key, (GroupedGemmKey, GroupedWgradKey)):
+        ge = np.arange(key.m // key.bm, dtype=np.int32) % key.n_groups
+        args = (ge, _f16((key.m, key.k), 19).T, _f16((key.m, key.n), 20)) \
+            if isinstance(key, GroupedWgradKey) else \
+            (ge, _f16((key.m, key.k), 19),
+             _f16((key.n_groups, key.k, key.n), 20, 0.25))
+    elif isinstance(key, LayerNormKey):
         args = (_f16((key.m, key.n), 1), _f16((key.n,), 2),
                 _f16((key.n,), 3))
     elif isinstance(key, FlashMhaKey):
@@ -462,7 +486,8 @@ def _now_runs(key):
             *jargs[:4], gamma=jargs[4], beta=jargs[5])
     else:
         want = jax_build_kernel(_ref_key(key), interpret=True)(*jargs)
-    assert got.dtype == F16 and kern.launches == 0
+    out = torch.float32 if isinstance(key, GroupedWgradKey) else F16
+    assert got.dtype == out and kern.launches == 0
     assert _err(got, want) <= 2e-3
 
 
@@ -493,7 +518,8 @@ def _f16_dispatch_module(dispatch, invoke, attrs, operands, out):
 # IR whose f16 key no kernel of the port takes: verify-slice refuses it
 # through check_slice, naming A14, before anything runs; the LayerNorm
 # prologue's and B12's, once refused here, pass verify-slice and run since
-# ROADMAP A14 items 1 and 2 (IR_NOW_RUN)
+# ROADMAP A14 items 1 and 2, and the NHWC conv's since items 4 and 6
+# (IR_NOW_RUN); an f16 tl.generic stays refused (F16_REFUSED)
 F16_IR_OUTSIDE = {
     "ln-prologue": ("xsmm.fused_brgemm_dispatch", "xsmm.fused_brgemm",
                     dict(batch=1, m=8, n=64, k=64, flags=("beta_0",),
@@ -509,17 +535,34 @@ F16_IR_OUTSIDE = {
                        flags=()),
                   [(2, 8, 8, 16), (3, 3, 16, 16), (2, 6, 6, 16)],
                   (2, 6, 6, 16)),
+    "generic": None,        # _f16_generic_module
 }
 
 
-IR_NOW_RUN = ("ln-prologue", "layer-norm")
+IR_NOW_RUN = ("ln-prologue", "layer-norm", "conv-nhwc")
+
+
+def _f16_generic_module():
+    """An elementwise f16 tl.generic (a * b): verify-slice refuses its f16
+    tensor (passes/pipelines.py F16_REFUSED)."""
+    from tpp_mlir_tpu_torch.ir import Function, Module, TensorType, \
+        TppBuilder
+    m = Module()
+    t = TensorType((8, 16), "f16")
+    f = m.add(Function("entry", [t, t], ["a0", "a1"]))
+    f.returns = [TppBuilder(f).generic(
+        [f.args[0], f.args[1]], f.args[0], [(0, 1), (0, 1), (0, 1)],
+        ("parallel", "parallel"), ("mul", ("arg", 0), ("arg", 1)))]
+    m.verify()
+    return m
 
 
 @pytest.mark.parametrize("name", list(F16_IR_OUTSIDE))
 def test_verify_slice_refuses_f16_ir_outside_the_gemm_family(name):
     from tpp_mlir_tpu_torch.passes import run_pipeline
     from tpp_mlir_tpu_torch.runtime import compile as port_compile
-    module = _f16_dispatch_module(*F16_IR_OUTSIDE[name])
+    module = _f16_generic_module() if F16_IR_OUTSIDE[name] is None else \
+        _f16_dispatch_module(*F16_IR_OUTSIDE[name])
     if name in IR_NOW_RUN:
         # verify-slice admits it, and the executor runs it to the f16
         # output its invoke declares, within one kernel's f16 tolerance of

@@ -175,9 +175,11 @@ def test_grouped_keys_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="unary"):
         build_kernel(GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8,
                                     unary_kind="softplus"))
+    # f16 keys run since ROADMAP A14 items 4 and 7; one mixing f16
+    # operands with a bf16 output has no instantiation
     with pytest.raises(NotImplementedError, match="A14"):
-        build_kernel(GroupedWgradKey(n_groups=2, m=16, k=16, n=16, bm=8,
-                                     dtype="f16"))
+        build_kernel(GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8,
+                                    dtype="f16", out_dtype="bf16"))
 
 
 # csrc/grouped_gemm.cu's tile for B16, chosen from the key

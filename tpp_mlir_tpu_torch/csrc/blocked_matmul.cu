@@ -534,8 +534,14 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
                       (binary && d_dtype != tpp::kF32) ||
                       (mma16 && ((Kb * kb) % 16 || nb % 16))))
     return static_cast<int>(cudaErrorInvalidValue);
-  // f16 products take f16 operands, and f16 operands f16 products
-  if ((mma_dtype == tpp::kF16) != (in_dtype == tpp::kF16))
+  // f16 products take f16 operands, and f16 operands f16 products; the
+  // epilogue reads and writes f32 or the products' 16-bit type (bf16
+  // beside f32 FMA)
+  if ((mma_dtype == tpp::kF16) != (in_dtype == tpp::kF16) ||
+      !tpp::epilogue_dtypes_ok(mma_dtype == tpp::kF16 ? tpp::kF16
+                                                      : tpp::kBF16,
+                               out_dtype, has_c ? c_dtype : tpp::kF32,
+                               binary ? d_dtype : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   const Blocked g{Mb, Nb, Kb, mb, nb, kb};
   const Epilogue epi{has_c, c_dtype, binary, d_dtype, unary, out_dtype};

@@ -354,10 +354,11 @@ extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
 }
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
-// in_dtype; C is c_dtype and D d_dtype (f32, bf16 or f16, widened in
-// registers); gamma and beta f32; out out_dtype. mma_dtype is the
-// products' type: f32 (the "fma" route), bf16 (f32 or bf16 A and B), or
-// f16 (f16 A and B only; ROADMAP A14). route is
+// in_dtype; C is c_dtype and D d_dtype (f32, or the products' 16-bit
+// type: bf16, or f16 for f16 products; widened in registers); gamma and
+// beta f32; out out_dtype (f32 or that 16-bit type; another is refused).
+// mma_dtype is the products' type: f32 (the "fma" route), bf16 (f32 or
+// bf16 A and B), or f16 (f16 A and B only; ROADMAP A14). route is
 // xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
 // "tma" (16-bit A and B of the products' type; 16-byte aligned base
 // pointers and row strides), 2 "convert". plan is tpp_gemm_plan's {bm, bn, split, bytes} for these
@@ -381,6 +382,13 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
     return static_cast<int>(cudaErrorInvalidValue);
   if ((ln == 2 && (mean == nullptr || var == nullptr)) ||
       (stats_out && (mean_out == nullptr || var_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the epilogue reads and writes f32 or its kernel's 16-bit type: f16 for
+  // f16 products, else bf16
+  if (!tpp::epilogue_dtypes_ok(mma_dtype == tpp::kF16 ? tpp::kF16
+                                                      : tpp::kBF16,
+                               out_dtype, has_c ? c_dtype : tpp::kF32,
+                               binary ? d_dtype : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fma = route == sm::kRouteFma;

@@ -35,11 +35,15 @@
 //     of one (cb, tap): each row is one input pixel's contiguous channels,
 //     its coordinates computed once per block, and a row outside the image
 //     is zeros: that is the fused padding (no padded copy of the input is
-//     ever written). Route "tma" (bf16, c and k multiples of 8): A by
-//     16-byte cp.async straight into the swizzled layout, a zero source
-//     size for padding, and W's [64 c x BN] MN-major tile by TMA (a 3D map
-//     whose zero fill masks c and k); STAGES - 2 stages in flight, each
-//     made visible to wgmma (wait, proxy fence, arrive) in order. Route
+//     ever written). Route "tma" (bf16 or f16, c and k multiples of 8): A
+//     by 16-byte cp.async straight into the swizzled layout (raw 16-bit
+//     units: the bytes of either type as they are), a zero source size for
+//     padding, and W's [64 c x BN] MN-major tile by TMA (a 3D map of the
+//     operands' type whose zero fill masks c and k); STAGES - 2 stages in
+//     flight, each made visible to wgmma (wait, proxy fence, arrive) in
+//     order. The products are of the operands' type E (wgmma .bf16 or
+//     .f16, f32 sums), and so are the 16-bit C, D and output the
+//     epilogue reads and writes (ROADMAP A14: f16 keys). Route
 //     "convert" (f32 "default": bf16 products, f32 sums; c and k multiples
 //     of 4): A and B by 16-byte cp.async into a staging ring of raw f32
 //     stages, RAW - 1 stages in flight while the producer rounds the
@@ -50,9 +54,10 @@
 //     and images, and cp.async's zero fill gives the padding for free.
 // The first version's body stays for what the routes above do not take:
 // route "fma" (f32 at precision "highest": f32 FMA, no TF32 anywhere) and
-// route "wmma" (bf16 products at channel counts the loaders cannot take,
-// or forced to time it): one 64 x 64 tile a block staged through shared
-// memory with no pipelining, WMMA 16x16x16 or f32 FMA.
+// route "wmma" (16-bit products, bf16 or f16, at channel counts the
+// loaders cannot take, or forced to time it): one 64 x 64 tile a block
+// staged through shared memory with no pipelining, WMMA 16x16x16 or f32
+// FMA.
 #include <mma.h>
 
 #include <type_traits>
@@ -189,7 +194,8 @@ __device__ __forceinline__ void produce_tma(const Conv& cv,
   using T = ConvTile<NCW, BN, sm::kTma>;
   constexpr int LAG = T::STAGES - 2;
   const Rows<T::A_UNITS> rows(cv, i, p0, ptid);
-  const __nv_bfloat16* I = static_cast<const __nv_bfloat16*>(cv.in);
+  // 16-bit units (bf16 or f16): the copies move bytes, whatever the type
+  const uint16_t* I = static_cast<const uint16_t*>(cv.in);
   const Geometry& g = cv.geo;
   const int u = ptid % 8;
   for (int kt = s_lo; kt < s_hi + LAG; ++kt) {
@@ -298,7 +304,8 @@ __device__ __forceinline__ void produce_convert(const Conv& cv,
   }
 }
 
-template <int NCW, int BN, int LOADER>
+// E: the products' type (bf16; f16 on route "tma" for f16 keys)
+template <int NCW, int BN, int LOADER, class E>
 __global__ void __launch_bounds__((NCW + 1) * sm::WG, NCW == 1 ? 2 : 1)
 conv_kernel(const __grid_constant__ CUtensorMap wmap,
             const __grid_constant__ Conv cv) {
@@ -342,15 +349,15 @@ conv_kernel(const __grid_constant__ CUtensorMap wmap,
   float acc[BN / 2];
 #pragma unroll
   for (int x = 0; x < BN / 2; ++x) acc[x] = 0.f;
-  sm::consume_ring<0, 1, T::A_BYTES, BN, T::STAGES>(acc, smem, full, empty,
-                                                    s_hi - s_lo, wg);
-  sm::store_tile<NCW, BN>(acc, smem, g, i, j, p0, t0, ks);
+  sm::consume_ring<0, 1, T::A_BYTES, BN, T::STAGES, sm::NoPrep, float, E>(
+      acc, smem, full, empty, s_hi - s_lo, wg);
+  sm::store_tile<NCW, BN, E>(acc, smem, g, i, j, p0, t0, ks);
 }
 
-template <int NCW, int BN, int LOADER>
+template <int NCW, int BN, int LOADER, class E>
 int launch_wgmma(const Conv& cv, const CUtensorMap& wmap, cudaStream_t st) {
   using T = ConvTile<NCW, BN, LOADER>;
-  auto kernel = conv_kernel<NCW, BN, LOADER>;
+  auto kernel = conv_kernel<NCW, BN, LOADER, E>;
   constexpr int smem = T::bytes + 1024;  // + the 1024-byte alignment
   static unsigned long long opted = 0;   // devices the attribute is set on
   int dev = 0;
@@ -370,20 +377,20 @@ int launch_wgmma(const Conv& cv, const CUtensorMap& wmap, cudaStream_t st) {
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)sm::sm_count() * 8));
-  sm::split_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(g);
+  sm::split_reduce<E><<<blocks, 256, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the plan's tile: 128 x 128 on the convert route only (the tma route's
-// plan keeps two 64-row blocks an SM)
-template <int LOADER>
+// plan keeps two 64-row blocks an SM); E the products' type
+template <int LOADER, class E>
 int launch_plan(int bm, int bn, const Conv& cv, const CUtensorMap& wmap,
                 cudaStream_t st) {
   if constexpr (LOADER == sm::kConvert)
-    if (bm == 128) return launch_wgmma<2, 128, LOADER>(cv, wmap, st);
+    if (bm == 128) return launch_wgmma<2, 128, LOADER, E>(cv, wmap, st);
   if (bm == 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (bn == 128) return launch_wgmma<1, 128, LOADER>(cv, wmap, st);
-  return launch_wgmma<1, 64, LOADER>(cv, wmap, st);
+  if (bn == 128) return launch_wgmma<1, 128, LOADER, E>(cv, wmap, st);
+  return launch_wgmma<1, 64, LOADER, E>(cv, wmap, st);
 }
 
 // ---- the first version's body: f32 FMA ("fma") or WMMA ("wmma") ---------
@@ -396,13 +403,15 @@ struct Epilogue {
 };
 
 // Tin: dtype of I/W in device memory; Tmma: dtype the products see
-// (bf16 -> tensor cores, float -> f32 FMA).
+// (bf16 or f16 -> tensor cores, float -> f32 FMA). The epilogue's 16-bit
+// operands and output are Tmma's 16-bit type (bf16 beside f32 FMA).
 template <typename Tin, typename Tmma>
 __global__ void __launch_bounds__(THREADS)
 conv_tile_kernel(const Tin* __restrict__ I, const Tin* __restrict__ Wt,
                  const void* __restrict__ Cacc, const void* __restrict__ D,
                  void* __restrict__ out, Geometry g, Epilogue epi) {
-  constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  constexpr bool kTensor = !std::is_same<Tmma, float>::value;
+  using E16 = tpp::Out16<Tmma>;
   __shared__ __align__(128) Tmma As[BM][BK + APAD];
   __shared__ __align__(128) Tmma Bs[BK][BN + BPAD];
   __shared__ __align__(128) float Cs[BM][BN + CPAD];
@@ -479,12 +488,12 @@ conv_tile_kernel(const Tin* __restrict__ I, const Tin* __restrict__ Wt,
         if constexpr (kTensor) {
 #pragma unroll
           for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma,
                            wmma::row_major> fa;
             wmma::load_matrix_sync(fa, &As[wr * 16][kk], BK + APAD);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+              wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma,
                              wmma::row_major> fb;
               wmma::load_matrix_sync(fb, &Bs[kk][wc * 32 + j * 16],
                                      BN + BPAD);
@@ -536,14 +545,16 @@ conv_tile_kernel(const Tin* __restrict__ I, const Tin* __restrict__ Wt,
     const size_t o =
         ((((size_t)row_n[r] * g.Kb + kb) * g.P + p) * g.Q + q) * g.k + gn;
     float v = Cs[r][c];
-    if (epi.has_c) v += sm::ld_f32(Cacc, o, epi.c_dtype);
+    if (epi.has_c) v += sm::ld_f32<E16>(Cacc, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone)
       v = tpp::apply_binary(
           epi.binary, v,
-          sm::ld_f32(D, epi.bcast == tpp::kBcastCol ? (size_t)kb * g.k + gn
-                                                    : o,
-                     epi.d_dtype));
-    tpp::store_out(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
+          sm::ld_f32<E16>(D, epi.bcast == tpp::kBcastCol
+                                 ? (size_t)kb * g.k + gn
+                                 : o,
+                          epi.d_dtype));
+    tpp::store_out<E16>(out, o, epi.out_dtype,
+                        tpp::apply_unary(epi.unary, v));
   }
 }
 
@@ -560,7 +571,9 @@ void launch_tile(const void* in, const void* w, const void* c, const void* d,
 
 // The launch of one route: "fma" and "wmma" on the tile body; "tma" and
 // "convert" on the wgmma kernel at the plan's tile (bm x bn) and k split,
-// with the split partials in `work`.
+// with the split partials in `work`. The epilogue's C, D and output are
+// f32 or the products' 16-bit type (bf16 beside f32 FMA): store_out and
+// ld_f32 know no third type, so any other code is refused.
 int run(const void* in, const void* w, const void* c, const void* d,
         void* out, void* work, const Geometry& g, int in_dtype,
         int mma_dtype, int out_dtype, int c_dtype, int d_dtype, int has_c,
@@ -568,6 +581,12 @@ int run(const void* in, const void* w, const void* c, const void* d,
         int split, void* stream) {
   if (binary != tpp::kBinNone && bcast != tpp::kBcastCol &&
       bcast != tpp::kBcastNone)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f16 = mma_dtype == tpp::kF16;
+  if (!tpp::epilogue_dtypes_ok(f16 ? tpp::kF16 : tpp::kBF16, out_dtype,
+                               has_c ? c_dtype : tpp::kF32,
+                               binary != tpp::kBinNone ? d_dtype
+                                                       : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == kRouteFma || route == kRouteWmma) {
@@ -583,16 +602,21 @@ int run(const void* in, const void* w, const void* c, const void* d,
              mma_dtype == tpp::kBF16)
       launch_tile<__nv_bfloat16, __nv_bfloat16>(in, w, c, d, out, g, epi,
                                                 st);
+    else if (route == kRouteWmma && in_dtype == tpp::kF16 && f16)
+      launch_tile<__half, __half>(in, w, c, d, out, g, epi, st);
     else
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
   }
-  // the wgmma routes: bf16 products; "tma" reads bf16, "convert" f32, at
-  // the channel alignments xsmm/reference.py conv_kernel_route checks
+  // the wgmma routes: "tma" reads bf16 or f16 and multiplies in that type,
+  // "convert" reads f32 and multiplies in bf16, at the channel alignments
+  // xsmm/reference.py conv_kernel_route checks
   const int vec = route == kRouteTma ? 8 : 4;
-  if (mma_dtype != tpp::kBF16 ||
-      (route == kRouteTma) != (in_dtype == tpp::kBF16) ||
-      (route != kRouteTma && route != kRouteConvert) || g.c % vec ||
+  const bool tma_ok = route == kRouteTma && in_dtype == mma_dtype &&
+                      (in_dtype == tpp::kBF16 || f16);
+  const bool convert_ok = route == kRouteConvert && in_dtype == tpp::kF32 &&
+                          mma_dtype == tpp::kBF16;
+  if (!(tma_ok || convert_ok) || g.c % vec ||
       g.k % vec || reinterpret_cast<uintptr_t>(in) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 || !(bm == 64 || bm == 128) ||
       !(bn == 64 || bn == 128) || (bm == 128 && bn != 128) || split < 1 ||
@@ -632,19 +656,26 @@ int run(const void* in, const void* w, const void* c, const void* d,
                               (uint64_t)g.Kb * g.Cb * g.R * g.S};
     const uint64_t strides[2] = {(uint64_t)g.k * 2, (uint64_t)g.c * g.k * 2};
     const uint32_t box[3] = {64, sm::BK, 1};
+    if (f16) {
+      const int rc = hw::make_map<__half>(&wmap, w, 3, dims, strides, box,
+                                          128);
+      if (rc) return rc;
+      return launch_plan<sm::kTma, __half>(bm, bn, cv, wmap, st);
+    }
     const int rc = hw::make_map(&wmap, w, 3, dims, strides, box, 128);
     if (rc) return rc;
-    return launch_plan<sm::kTma>(bm, bn, cv, wmap, st);
+    return launch_plan<sm::kTma, __nv_bfloat16>(bm, bn, cv, wmap, st);
   }
-  return launch_plan<sm::kConvert>(bm, bn, cv, wmap, st);
+  return launch_plan<sm::kConvert, __nv_bfloat16>(bm, bn, cv, wmap, st);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). I [N,H,W,C] and
 // W [R,S,C,K] are in_dtype; C [N,P,Q,K] is c_dtype and D ([K] for bcast 0,
-// bcast_col; [N,P,Q,K] for bcast 3, none) d_dtype (f32 or bf16, read as
-// stored and widened in registers); out [N,P,Q,K] is out_dtype. pt/pl are
+// bcast_col; [N,P,Q,K] for bcast 3, none) d_dtype (f32 or the products'
+// 16-bit type, bf16 or f16, read as stored and widened in registers); out
+// [N,P,Q,K] is out_dtype (f32 or that 16-bit type). pt/pl are
 // the top and left zero padding; P and Q carry the bottom and right
 // padding (P = H + pt + pb - R + 1). route is xsmm/reference.py
 // conv_kernel_route's (0 fma, 1 tma, 2 convert, 3 wmma); bm, bn and split

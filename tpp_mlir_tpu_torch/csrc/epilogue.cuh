@@ -5,6 +5,7 @@
 
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -14,7 +15,8 @@
 namespace tpp {
 
 // f16 (ROADMAP A14) runs in the GEMM family (B1, B2, B3-B5, B19, B20), B12,
-// attention (B6-B11) and the batched matmul (B21/B22)
+// attention (B6-B11), the batched matmul (B21/B22), the convs (B23-B25),
+// the grouped GEMMs (B16/B17) and B15's output
 enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Binary : int { kBinNone = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4,
                     kMax = 5 };
@@ -123,6 +125,18 @@ __device__ __forceinline__ void store_out(void* out, size_t i, int dtype,
     static_cast<E*>(out)[i] = from_f32<E>(v);
   else
     static_cast<float*>(out)[i] = v;
+}
+
+// Host: whether an epilogue of 16-bit type code e16 (kBF16 or kF16) takes
+// an output and C and D of these codes. store_out<E> and round_out<E>
+// write anything but E as f32, so a C entry refuses (cudaErrorInvalidValue)
+// a 16-bit code other than its kernel's before it launches: an f16 output
+// on a bf16 epilogue would be written as floats, twice its buffer.
+inline bool epilogue_dtypes_ok(int e16, int out, int c = kF32,
+                               int d = kF32) {
+  for (const int x : {out, c, d})
+    if (x != kF32 && x != e16) return false;
+  return true;
 }
 
 }  // namespace tpp

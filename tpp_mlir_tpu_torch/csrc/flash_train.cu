@@ -872,7 +872,10 @@ extern "C" int tpp_flash_train_fwd(const void* q, const void* k,
                                    int batch, int seq, int heads,
                                    int head_dim, int dtype, int causal,
                                    float qscale, int route, void* stream) {
-  if (route != (dtype == tpp::kBF16 ? kWgmma : kFma))
+  // bf16 on the wgmma route, f32 on the FMA route; f16 keys (ROADMAP A14)
+  // are not instantiated
+  if ((dtype != tpp::kBF16 && dtype != tpp::kF32) ||
+      route != (dtype == tpp::kBF16 ? kWgmma : kFma))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kWgmma)
     return tpp_attention_train_fwd(q, k, v, o, static_cast<float*>(lse2),
@@ -896,7 +899,10 @@ extern "C" int tpp_flash_train_bwd(const void* q, const void* k,
                                    int seq, int heads, int head_dim,
                                    int dtype, int causal, float qscale,
                                    float scale, int route, void* stream) {
-  if (route != (dtype == tpp::kBF16 ? kWgmma : kFma))
+  // bf16 on the wgmma route, f32 on the FMA route; f16 keys (ROADMAP A14)
+  // are not instantiated
+  if ((dtype != tpp::kBF16 && dtype != tpp::kF32) ||
+      route != (dtype == tpp::kBF16 ? kWgmma : kFma))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, dq, dk, dv,
                const_cast<float*>(static_cast<const float*>(lse2)),

@@ -30,7 +30,9 @@
 //
 // B16 takes one of two routes, which xsmm/reference.py grouped_gemm_route
 // chooses from the key:
-//   "wgmma" (bf16 operands, bm a multiple of 64, k and n multiples of 8 so
+//   "wgmma" (bf16 or f16 operands, products of their type: wgmma .bf16 or
+//   .f16 with f32 sums, FLOAT16 tensor maps for f16 keys (ROADMAP A14); bm
+//   a multiple of 64, k and n multiples of 8 so
 //   that TMA takes the row strides; every key of the MoE slice): one block
 //   computes a BM x 128 tile with BM = 128 where 128 divides bm, else 64,
 //   so a tile never straddles two row blocks: one consumer warpgroup per
@@ -44,23 +46,26 @@
 //   not a copy. The consumers run wgmma m64n128k16 with f32 accumulators in
 //   registers, keeping one k slice's products in flight while the previous
 //   slice's stage goes back to the producer, and apply the epilogue
-//   (unary, conversion, store; columns past n masked) from registers, one
-//   straight-line copy per unary. TMA's zero fill covers a ragged last k
+//   (unary, conversion, store: a pair of the 16-bit type or of f32;
+//   columns past n masked) from registers, one straight-line copy per
+//   unary. TMA's zero fill covers a ragged last k
 //   or n slice. The grid walks row blocks fastest, so neighbouring blocks
 //   read one expert's weight tile from L2.
 //   "wmma" (f32 operands, a bm that 64 does not divide, strides TMA cannot
 //   take): one 64-column output tile per block, staged through shared
 //   memory without pipelining, WMMA bf16 (mma.sync
-//   16x16x16, f32 accumulators) for bf16 and f32 "default" operands, f32
-//   FMA for f32 "highest". Its rows BM are the largest of 64, 32, 16 that
-//   divide bm (the wrapper refuses a bm that is not a multiple of 16).
+//   16x16x16, f32 accumulators) for bf16 and f32 "default" operands, WMMA
+//   f16 for f16 operands, f32 FMA for f32 "highest". Its rows BM are the
+//   largest of 64, 32, 16 that divide bm (the wrapper refuses a bm that is
+//   not a multiple of 16).
 //
 // B17 takes one of the same two routes, which xsmm/reference.py
 // grouped_wgrad_route chooses from the key and xt's strides:
-//   "wgmma" (bf16 operands, bm a multiple of 64, n a multiple of 8, xt with
-//   one unit stride and the other a multiple of 8; every key of the MoE
-//   slice): one block per (128 n columns, 128 k rows, group), the group
-//   slowest, with B16's ring, producer warp and consumer loop
+//   "wgmma" (bf16 or f16 operands, products of their type; bm a multiple
+//   of 64, n a multiple of 8, xt with one unit stride and the other a
+//   multiple of 8; every key of the MoE slice): one block per (128 n
+//   columns, 128 k rows, group), the group slowest, with B16's ring,
+//   producer warp and consumer loop
 //   (consume_ring, csrc/gemm_sm90.cuh's, which B1 and B19 share). Both
 //   operands carry the reduction (the token rows) on their slow axis: dY's
 //   slice is an MN-major B tile, and xt's an MN-major A tile (wgmma's
@@ -84,11 +89,11 @@ constexpr int BN = 64, BK = 32;
 constexpr int APAD = 8, BPAD = 8, CPAD = 4;
 
 // The products of one BM x BN output tile over a staged BK slice, with 4*BM
-// threads: BM/16 x 2 warps of 16 x 32 on the tensor cores, or BM/4 x 16
-// threads of 4 x 4 outputs on f32 FMA.
+// threads: BM/16 x 2 warps of 16 x 32 on the tensor cores (bf16 or f16),
+// or BM/4 x 16 threads of 4 x 4 outputs on f32 FMA.
 template <int BM, typename Tmma>
 struct TileMma {
-  static constexpr bool kTensor = std::is_same<Tmma, __nv_bfloat16>::value;
+  static constexpr bool kTensor = !std::is_same<Tmma, float>::value;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
   float facc[4][4];
 
@@ -110,12 +115,12 @@ struct TileMma {
       const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma, wmma::row_major>
+            fa;
         wmma::load_matrix_sync(fa, &As[wr * 16][kk], BK + APAD);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma,
                          wmma::row_major> fb;
           wmma::load_matrix_sync(fb, &Bs[kk][wc * 32 + j * 16], BN + BPAD);
           wmma::mma_sync(acc[j], fa, fb, acc[j]);
@@ -159,7 +164,21 @@ struct TileMma {
   }
 };
 
-// Tin: dtype of A/B in device memory; Tmma: dtype the products see.
+// One element of a staged tile, zero where `valid` is false: copied as it
+// is where the operand is of the products' type, else rounded through f32
+// (f32 "default" operands for bf16 products). A copy keeps the staging
+// loops free of conversions, which the f16 loops would otherwise make
+// twice an element.
+template <typename Tmma, typename Tin>
+__device__ __forceinline__ Tmma staged(const Tin* p, bool valid) {
+  if constexpr (std::is_same<Tin, Tmma>::value)
+    return valid ? *p : Tmma{};
+  else
+    return tpp::from_f32<Tmma>(valid ? tpp::to_f32(*p) : 0.f);
+}
+
+// Tin: dtype of A/B in device memory; Tmma: dtype the products see. The
+// output is f32 or Tmma's 16-bit type (bf16 beside f32 FMA).
 template <int BM, typename Tin, typename Tmma>
 __global__ void __launch_bounds__(4 * BM)
 grouped_gemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
@@ -186,25 +205,19 @@ grouped_gemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     for (int i = tid; i < BM * BK; i += THREADS) {
       const int r = i / BK, c = i % BK;
       const int gm = m0 + r, gk = k0 + c;
-      const float v =
-          (gm < m && gk < k) ? tpp::to_f32(A[(size_t)gm * k + gk]) : 0.f;
-      As[r][c] = tpp::from_f32<Tmma>(v);
+      As[r][c] = staged<Tmma>(A + (size_t)gm * k + gk, gm < m && gk < k);
     }
     if (transpose_b) {  // B[g] is [n, k]: walk k fastest
       for (int i = tid; i < BK * BN; i += THREADS) {
         const int c = i / BK, r = i % BK;
         const int gk = k0 + r, gn = n0 + c;
-        const float v =
-            (gk < k && gn < n) ? tpp::to_f32(Bg[(size_t)gn * k + gk]) : 0.f;
-        Bs[r][c] = tpp::from_f32<Tmma>(v);
+        Bs[r][c] = staged<Tmma>(Bg + (size_t)gn * k + gk, gk < k && gn < n);
       }
     } else {
       for (int i = tid; i < BK * BN; i += THREADS) {
         const int r = i / BN, c = i % BN;
         const int gk = k0 + r, gn = n0 + c;
-        const float v =
-            (gk < k && gn < n) ? tpp::to_f32(Bg[(size_t)gk * n + gn]) : 0.f;
-        Bs[r][c] = tpp::from_f32<Tmma>(v);
+        Bs[r][c] = staged<Tmma>(Bg + (size_t)gk * n + gn, gk < k && gn < n);
       }
     }
     __syncthreads();
@@ -217,8 +230,8 @@ grouped_gemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     const int r = i / BN, c = i % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= m || gn >= n) continue;
-    tpp::store_out(out, (size_t)gm * n + gn, out_dtype,
-                   tpp::apply_unary(unary, Cs[r][c]));
+    tpp::store_out<tpp::Out16<Tmma>>(out, (size_t)gm * n + gn, out_dtype,
+                                     tpp::apply_unary(unary, Cs[r][c]));
   }
 }
 
@@ -264,18 +277,13 @@ grouped_wgrad_kernel(const Tin* __restrict__ xt, const Tin* __restrict__ dy,
       const int kk = xs0 == 1 ? i % WG_BM : i / BK;
       const int rr = xs0 == 1 ? i / WG_BM : i % BK;
       const int gk = k0 + kk, gr = r0 + rr;
-      const float v = (gk < k && gr < r_end)
-                          ? tpp::to_f32(xt[gk * xs0 + gr * xs1])
-                          : 0.f;
-      As[kk][rr] = tpp::from_f32<Tmma>(v);
+      As[kk][rr] = staged<Tmma>(xt + gk * xs0 + gr * xs1,
+                                gk < k && gr < r_end);
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       const int rr = i / BN, c = i % BN;
       const int gr = r0 + rr, gn = n0 + c;
-      const float v = (gr < r_end && gn < n)
-                          ? tpp::to_f32(dy[(size_t)gr * n + gn])
-                          : 0.f;
-      Bs[rr][c] = tpp::from_f32<Tmma>(v);
+      Bs[rr][c] = staged<Tmma>(dy + (size_t)gr * n + gn, gr < r_end && gn < n);
     }
     __syncthreads();
     tile.step(As, Bs, tid);
@@ -321,7 +329,7 @@ int gemm_by_bm(const void* a, const void* b, const int* ge, const int* li,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- B16 on wgmma: bf16 operands, bm a multiple of 64 -------------------
+// ---- B16 on wgmma: bf16 or f16 operands, bm a multiple of 64 ------------
 
 namespace hw = tpp::hopper;
 
@@ -340,8 +348,8 @@ struct GTile {
 // The accumulator tile, unary(acc) converted, stored from registers:
 // acc[4 j + 2 h + e] is row `row` + 8 h, column `col` + 8 j + e; rows at or
 // past `m` are dropped; n is a multiple of 8, so a pair is in or out as a
-// whole.
-template <int U>
+// whole. The output is f32 or E, the products' 16-bit type.
+template <int U, class E>
 __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
                                            int row, int col, int m, int n,
                                            int out_dtype) {
@@ -352,9 +360,9 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
     const float x0 = tpp::apply_unary(U, acc[i]);
     const float x1 = tpp::apply_unary(U, acc[i + 1]);
     const size_t at = (size_t)gm * n + gn;
-    if (out_dtype == tpp::kBF16)
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
-                                         at) = __floats2bfloat162_rn(x0, x1);
+    if (out_dtype == tpp::dtype_code<E>())
+      *reinterpret_cast<uint32_t*>(static_cast<E*>(out) + at) =
+          hw::pack16<E>(x0, x1);
     else
       *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
           make_float2(x0, x1);
@@ -369,8 +377,9 @@ static_assert(G_BK == tpp::sm90::BK, "the shared ring is 64 deep");
 // TRANS_B 0: B[g] is (k, n), staged as two [64 k][64 n] MN-major chunks;
 // 1: B[g] is (n, k), staged as one [128 n][64 k] K-major tile. NCW consumer
 // warpgroups and one producer warp; two blocks share an SM, so one block's
-// first loads and epilogue overlap the other's products.
-template <int NCW, int TRANS_B>
+// first loads and epilogue overlap the other's products. E: the operands'
+// and products' type (bf16 or f16).
+template <int NCW, int TRANS_B, class E>
 __global__ void __launch_bounds__(G_WG * NCW + 32, 2)
 grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
                           const __grid_constant__ CUtensorMap bmap,
@@ -428,8 +437,9 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  tpp::sm90::consume_ring<0, TRANS_B ? 0 : 1, T::A_BYTES, G_BN, G_STAGES>(
-      acc, smem, full, empty, ktiles, wg);
+  tpp::sm90::consume_ring<0, TRANS_B ? 0 : 1, T::A_BYTES, G_BN, G_STAGES,
+                          tpp::sm90::NoPrep, float, E>(acc, smem, full,
+                                                       empty, ktiles, wg);
 
   // epilogue from registers, one straight-line copy per unary (the switch
   // inside the unrolled loop would inline every unary 64 times)
@@ -440,7 +450,7 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   switch (unary) {
 #define TPP_EPILOGUE(U)                                          \
   case U:                                                        \
-    store_tile<U>(acc, out, row, col, m, n, out_dtype);          \
+    store_tile<U, E>(acc, out, row, col, m, n, out_dtype);       \
     break;
     TPP_EPILOGUE(tpp::kRelu)
     TPP_EPILOGUE(tpp::kExp)
@@ -454,11 +464,11 @@ grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     TPP_EPILOGUE(tpp::kZero)
 #undef TPP_EPILOGUE
     default:
-      store_tile<tpp::kIdentity>(acc, out, row, col, m, n, out_dtype);
+      store_tile<tpp::kIdentity, E>(acc, out, row, col, m, n, out_dtype);
   }
 }
 
-template <int NCW, int TRANS_B>
+template <int NCW, int TRANS_B, class E>
 int launch_gemm_wgmma(const void* a, const void* b, const int* ge,
                       const int* li, void* out, int groups, int layers, int m,
                       int n, int k, int bm, int unary, int out_dtype,
@@ -470,16 +480,16 @@ int launch_gemm_wgmma(const void* a, const void* b, const int* ge,
                               static_cast<uint64_t>(m)};
   const uint64_t a_strides[1] = {static_cast<uint64_t>(k) * 2};
   const uint32_t a_box[2] = {G_BK, T::BM};
-  int rc = hw::make_map(&amap, a, 2, a_dims, a_strides, a_box, 128);
+  int rc = hw::make_map<E>(&amap, a, 2, a_dims, a_strides, a_box, 128);
   if (rc) return rc;
   const uint64_t inner = TRANS_B ? k : n, outer = TRANS_B ? n : k;
   const uint64_t b_dims[3] = {inner, outer, lg};
   const uint64_t b_strides[2] = {inner * 2, inner * outer * 2};
   const uint32_t b_box[3] = {64, static_cast<uint32_t>(TRANS_B ? G_BN : G_BK),
                              1};
-  rc = hw::make_map(&bmap, b, 3, b_dims, b_strides, b_box, 128);
+  rc = hw::make_map<E>(&bmap, b, 3, b_dims, b_strides, b_box, 128);
   if (rc) return rc;
-  auto kernel = grouped_gemm_wgmma_kernel<NCW, TRANS_B>;
+  auto kernel = grouped_gemm_wgmma_kernel<NCW, TRANS_B, E>;
   const int smem = T::bytes + 1024;     // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -490,6 +500,7 @@ int launch_gemm_wgmma(const void* a, const void* b, const int* ge,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class E>
 int gemm_wgmma(const void* a, const void* b, const int* ge, const int* li,
                void* out, int groups, int layers, int m, int n, int k, int bm,
                int transpose_b, int unary, int out_dtype,
@@ -498,18 +509,20 @@ int gemm_wgmma(const void* a, const void* b, const int* ge, const int* li,
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm % 128 == 0)
     return transpose_b
-               ? launch_gemm_wgmma<2, 1>(a, b, ge, li, out, groups, layers, m,
-                                         n, k, bm, unary, out_dtype, stream)
-               : launch_gemm_wgmma<2, 0>(a, b, ge, li, out, groups, layers, m,
-                                         n, k, bm, unary, out_dtype, stream);
+               ? launch_gemm_wgmma<2, 1, E>(a, b, ge, li, out, groups, layers,
+                                            m, n, k, bm, unary, out_dtype,
+                                            stream)
+               : launch_gemm_wgmma<2, 0, E>(a, b, ge, li, out, groups, layers,
+                                            m, n, k, bm, unary, out_dtype,
+                                            stream);
   return transpose_b
-             ? launch_gemm_wgmma<1, 1>(a, b, ge, li, out, groups, layers, m, n,
-                                       k, bm, unary, out_dtype, stream)
-             : launch_gemm_wgmma<1, 0>(a, b, ge, li, out, groups, layers, m, n,
-                                       k, bm, unary, out_dtype, stream);
+             ? launch_gemm_wgmma<1, 1, E>(a, b, ge, li, out, groups, layers, m,
+                                          n, k, bm, unary, out_dtype, stream)
+             : launch_gemm_wgmma<1, 0, E>(a, b, ge, li, out, groups, layers, m,
+                                          n, k, bm, unary, out_dtype, stream);
 }
 
-// ---- B17 on wgmma: bf16 operands, bm a multiple of 64 -------------------
+// ---- B17 on wgmma: bf16 or f16 operands, bm a multiple of 64 ------------
 
 // One block per (128 n columns, 128 k rows, group), the group slowest, so a
 // group's x and dY slabs stay in L2 while its tiles run. The reduction runs
@@ -522,8 +535,9 @@ int gemm_wgmma(const void* a, const void* b, const int* ge, const int* li,
 // of row blocks by a binary search of ge and streams its 64-row slices
 // (bm a multiple of 64: no slice straddles two groups); the consumers sum
 // them in order, so the result is bit-repeatable, and a group that owns no
-// block runs no slice and stores its zero accumulators.
-template <int A_MN>
+// block runs no slice and stores its zero accumulators. E: the operands'
+// and products' type (bf16 or f16); dW is f32 either way.
+template <int A_MN, class E>
 __global__ void __launch_bounds__(G_WG * 2 + 32, 2)
 grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                            const __grid_constant__ CUtensorMap ymap,
@@ -585,17 +599,20 @@ grouped_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  tpp::sm90::consume_ring<A_MN, 1, T::A_BYTES, G_BN, G_STAGES>(
-      acc, smem, full, empty, slices, wg);
+  tpp::sm90::consume_ring<A_MN, 1, T::A_BYTES, G_BN, G_STAGES,
+                          tpp::sm90::NoPrep, float, E>(acc, smem, full,
+                                                       empty, slices, wg);
   const int warp = (tid % G_WG) / 32, lane = tid % 32;
-  store_tile<tpp::kIdentity>(acc, out + static_cast<size_t>(g) * k * n,
+  store_tile<tpp::kIdentity, E>(acc, out + static_cast<size_t>(g) * k * n,
                              k0 + wg * 64 + warp * 16 + lane / 4,
                              n0 + 2 * (lane % 4), k, n, tpp::kF32);
 }
 
-// xt (k, m) bf16 with element (kk, r) at xt[kk * xs0 + r * xs1]: xs0 == 1
-// takes the MN-major A tile, xs1 == 1 the K-major one; the other stride,
-// n and bm as xsmm/reference.py grouped_wgrad_route requires.
+// xt (k, m) of type E (bf16 or f16) with element (kk, r) at xt[kk * xs0 +
+// r * xs1]: xs0 == 1 takes the MN-major A tile, xs1 == 1 the K-major one;
+// the other stride, n and bm as xsmm/reference.py grouped_wgrad_route
+// requires.
+template <class E>
 int wgrad_wgmma(const void* xt, const void* dy, const int* ge, float* out,
                 int groups, int m, int k, int n, int bm, long long xs0,
                 long long xs1, cudaStream_t stream) {
@@ -609,16 +626,16 @@ int wgrad_wgmma(const void* xt, const void* dy, const int* ge, float* out,
   const uint64_t x_strides[1] = {static_cast<uint64_t>(a_mn ? xs1 : xs0) *
                                  2};
   const uint32_t x_box[2] = {64, a_mn ? 64u : 128u};
-  int rc = hw::make_map(&xmap, xt, 2, x_dims, x_strides, x_box, 128);
+  int rc = hw::make_map<E>(&xmap, xt, 2, x_dims, x_strides, x_box, 128);
   if (rc) return rc;
   const uint64_t y_dims[2] = {static_cast<uint64_t>(n),
                               static_cast<uint64_t>(m)};
   const uint64_t y_strides[1] = {static_cast<uint64_t>(n) * 2};
   const uint32_t y_box[2] = {64, 64};
-  rc = hw::make_map(&ymap, dy, 2, y_dims, y_strides, y_box, 128);
+  rc = hw::make_map<E>(&ymap, dy, 2, y_dims, y_strides, y_box, 128);
   if (rc) return rc;
-  auto kernel = a_mn ? &grouped_wgrad_wgmma_kernel<1>
-                     : &grouped_wgrad_wgmma_kernel<0>;
+  auto kernel = a_mn ? &grouped_wgrad_wgmma_kernel<1, E>
+                     : &grouped_wgrad_wgmma_kernel<0, E>;
   const int smem = T::bytes + 1024;     // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -644,10 +661,11 @@ int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
 // in_dtype, ge int32 (m / bm), li a device int32 (the layer of a stacked
-// (layers, groups, ., .) table) or null, out out_dtype (m, n). route is
-// xsmm/reference.py grouped_gemm_route's choice: 1 "wgmma" (bf16 operands,
-// bm a multiple of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of
-// 16).
+// (layers, groups, ., .) table) or null, out out_dtype (m, n): f32 or the
+// products' 16-bit type (bf16, or f16 for f16 operands; another is
+// refused). route is xsmm/reference.py grouped_gemm_route's choice: 1
+// "wgmma" (bf16 or f16 operands and products of that type, bm a multiple
+// of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of 16).
 extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
                                 const void* li, void* out, int groups,
                                 int layers, int m, int n, int k, int bm,
@@ -658,12 +676,22 @@ extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
   const int* gp = static_cast<const int*>(ge);
   const int* lp = static_cast<const int*>(li);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool f16 = mma_dtype == tpp::kF16;
+  if (!tpp::epilogue_dtypes_ok(f16 ? tpp::kF16 : tpp::kBF16, out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
-    if (in_dtype != tpp::kBF16 || mma_dtype != tpp::kBF16)
+    if (in_dtype != mma_dtype || (in_dtype != tpp::kBF16 && !f16))
       return static_cast<int>(cudaErrorInvalidValue);
-    return gemm_wgmma(a, b, gp, lp, out, groups, layers, m, n, k, bm,
-                      transpose_b, unary, out_dtype, st);
+    return f16 ? gemm_wgmma<__half>(a, b, gp, lp, out, groups, layers, m, n,
+                                    k, bm, transpose_b, unary, out_dtype, st)
+               : gemm_wgmma<__nv_bfloat16>(a, b, gp, lp, out, groups, layers,
+                                           m, n, k, bm, transpose_b, unary,
+                                           out_dtype, st);
   }
+  if (in_dtype == tpp::kF16 && f16)
+    return gemm_by_bm<__half, __half>(a, b, gp, lp, out, groups, layers, m, n,
+                                      k, bm, transpose_b, unary, out_dtype,
+                                      st);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return gemm_by_bm<float, float>(a, b, gp, lp, out, groups, layers, m, n,
                                     k, bm, transpose_b, unary, out_dtype, st);
@@ -681,8 +709,9 @@ extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
 // xt is in_dtype, element (kk, r) at xt[kk * xs0 + r * xs1]; dy in_dtype
 // (m, n) contiguous; ge int32 (m / bm), non-decreasing; out f32 (G, k, n).
 // route is xsmm/reference.py grouped_wgrad_route's choice: 1 "wgmma" (bf16
-// operands, bm a multiple of 64, n a multiple of 8, xt with one unit
-// stride and the other a multiple of 8), 0 "wmma".
+// or f16 operands and products of that type, bm a multiple of 64, n a
+// multiple of 8, xt with one unit stride and the other a multiple of 8),
+// 0 "wmma".
 extern "C" int tpp_grouped_wgrad(const void* xt, const void* dy,
                                  const void* ge, void* out, int groups,
                                  int m, int k, int n, int bm, long long xs0,
@@ -693,10 +722,18 @@ extern "C" int tpp_grouped_wgrad(const void* xt, const void* dy,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) {
-    if (in_dtype != tpp::kBF16 || mma_dtype != tpp::kBF16)
+    if (in_dtype != mma_dtype ||
+        (in_dtype != tpp::kBF16 && in_dtype != tpp::kF16))
       return static_cast<int>(cudaErrorInvalidValue);
-    return wgrad_wgmma(xt, dy, gp, o, groups, m, k, n, bm, xs0, xs1, st);
+    return in_dtype == tpp::kF16
+               ? wgrad_wgmma<__half>(xt, dy, gp, o, groups, m, k, n, bm, xs0,
+                                     xs1, st)
+               : wgrad_wgmma<__nv_bfloat16>(xt, dy, gp, o, groups, m, k, n,
+                                            bm, xs0, xs1, st);
   }
+  if (in_dtype == tpp::kF16 && mma_dtype == tpp::kF16)
+    return launch_wgrad<__half, __half>(xt, dy, gp, o, groups, m, k, n, bm,
+                                        xs0, xs1, st);
   if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
     return launch_wgrad<float, float>(xt, dy, gp, o, groups, m, k, n, bm,
                                       xs0, xs1, st);

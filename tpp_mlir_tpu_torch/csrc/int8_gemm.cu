@@ -9,7 +9,9 @@
 // times the column scale, plus the bias (multiplies and add pinned with
 // __fmul_rn / __fadd_rn: no FMA contraction), then the unary (epilogue.cuh,
 // so gelu is the same exp2-domain gelu_exp2), one rounding to the output
-// dtype. Both bodies below give the same bits.
+// dtype: f32, bf16 or f16 (ROADMAP A14: the s8 products are unchanged,
+// only the stores know a third type). Both bodies below give the same
+// bits.
 //
 // What bounds it on the H100: 1,979 int8 TOP/s against one byte an operand
 // element, so at the serving prefill's shapes (m 4096, k 768 or 3072) the
@@ -39,8 +41,8 @@
 //     mainloop runs: each thread keeps one 4-column run's column scales
 //     and bias (read in their stored dtype and widened) in registers,
 //     loaded while it waits for the sums, walks that run down the rows and
-//     stores 16-byte (f32) or 8-byte (bf16) runs, coalesced along the
-//     rows; a ragged n stores element by element. (Done by the consumers
+//     stores 16-byte (f32) or 8-byte (bf16 or f16) runs, coalesced along
+//     the rows; a ragged n stores element by element. (Done by the consumers
 //     between two mainloops, the rows took twice a k-768 mainloop's time:
 //     scripts/exp_int8_epilogue.py);
 //   - under half a wave of tiles, k is split: each split stores its s32
@@ -63,6 +65,17 @@ namespace {
 constexpr int BM = 128, BN = 128, BK = 64, KC = BK / 16;
 constexpr int WARPS = 8, THREADS = WARPS * 32;
 constexpr int WM = 32, WN = 64;  // one warp's part of the tile (4 x 2 warps)
+
+// one output element in its dtype: f32, bf16 or f16 (store_out knows
+// f32 and one 16-bit type, so the two 16-bit types are two of its
+// instantiations)
+__device__ __forceinline__ void store_any(void* out, size_t i, int dtype,
+                                          float v) {
+  if (dtype == tpp::kF16)
+    tpp::store_out<__half>(out, i, dtype, v);
+  else
+    tpp::store_out<__nv_bfloat16>(out, i, dtype, v);
+}
 
 struct Args {
   const int8_t* x;
@@ -161,8 +174,8 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(Args a) {
         float y = __fmul_rn(__fmul_rn(static_cast<float>(cs[e]), a.xs[row]),
                             a.ws[col]);
         if (a.bias != nullptr) y = __fadd_rn(y, a.bias[col]);
-        tpp::store_out(a.out, (size_t)row * a.n + col, a.out_dtype,
-                       tpp::apply_unary(a.unary, y));
+        store_any(a.out, (size_t)row * a.n + col, a.out_dtype,
+                  tpp::apply_unary(a.unary, y));
       }
       __syncwarp();
     }
@@ -172,12 +185,14 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(Args a) {
 
 // Returns the cudaError_t of the launch (0 on success). x (m, k) and w
 // (k, n) int8, row-major, k a multiple of 16 and x 16-byte aligned; xs (m,),
-// ws (n,) and bias (n,) f32, bias null without one; out (m, n) in out_dtype.
+// ws (n,) and bias (n,) f32, bias null without one; out (m, n) in out_dtype
+// (f32, bf16 or f16).
 extern "C" int tpp_int8_gemm(const void* x, const void* w, const void* xs,
                              const void* ws, const void* bias, void* out,
                              int m, int n, int k, int unary, int out_dtype,
                              void* stream) {
-  if (k % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (k % 16 || out_dtype < tpp::kF32 || out_dtype > tpp::kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
                static_cast<const float*>(xs), static_cast<const float*>(ws),
                static_cast<const float*>(bias), out, m, n, k, unary,
@@ -295,18 +310,18 @@ __device__ __forceinline__ void i8_store(const I8Gemm& g, const int4& a,
     y[e] = tpp::apply_unary(U, v);
   }
   if (g.vec && g.out_dtype == tpp::kBF16) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
     *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(g.out) + o) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                   *reinterpret_cast<const uint32_t*>(&hi));
+        make_uint2(hw::pack_bf16(y[0], y[1]), hw::pack_bf16(y[2], y[3]));
+  } else if (g.vec && g.out_dtype == tpp::kF16) {
+    *reinterpret_cast<uint2*>(static_cast<__half*>(g.out) + o) =
+        make_uint2(hw::pack_f16(y[0], y[1]), hw::pack_f16(y[2], y[3]));
   } else if (g.vec) {
     *reinterpret_cast<float4*>(static_cast<float*>(g.out) + o) =
         make_float4(y[0], y[1], y[2], y[3]);
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (e < n) tpp::store_out(g.out, o + e, g.out_dtype, y[e]);
+      if (e < n) store_any(g.out, o + e, g.out_dtype, y[e]);
   }
 }
 
@@ -484,7 +499,7 @@ __global__ void __launch_bounds__(256) int8_split_reduce(const I8Gemm g) {
                                   sm::ld_f32(g.xs, p, g.xs_dtype)),
                         sm::ld_f32(g.ws, t, g.ws_dtype));
     if (g.has_bias) v = __fadd_rn(v, sm::ld_f32(g.bias, t, g.bias_dtype));
-    tpp::store_out(g.out, o, g.out_dtype, tpp::apply_unary(g.unary, v));
+    store_any(g.out, o, g.out_dtype, tpp::apply_unary(g.unary, v));
   }
 }
 
@@ -531,8 +546,9 @@ int i8_launch(const I8Gemm& g, const void* x, const void* wt, int grid,
 
 // Route "wgmma". Returns the cudaError_t of the launch (0 on success). x
 // (m, k) and wt (n, k) int8, k a multiple of 16, both 16-byte aligned; xs
-// (m,), ws (n,) and bias (n,) in their dtypes (f32 or bf16), bias null
-// without one; out (m, n) in out_dtype; work the [split][m][n] s32
+// (m,), ws (n,) and bias (n,) in their dtypes (f32 or bf16; another code
+// is refused), bias null without one; out (m, n) in out_dtype (f32, bf16 or
+// f16); work the [split][m][n] s32
 // partials where the plan splits k (else null). `plan` is the caller's
 // reference.int8_gemm_plan (tile rows, tile columns, k split, tiles,
 // grid, dynamic shared memory); a plan that differs from the launcher's
@@ -544,7 +560,11 @@ extern "C" int tpp_int8_gemm_wgmma(const void* x, const void* wt,
                                    int out_dtype, int xs_dtype, int ws_dtype,
                                    int bias_dtype, const int* plan,
                                    void* stream) {
-  if (k % 16 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k % 16 || m < 1 || n < 1 || out_dtype < tpp::kF32 ||
+      out_dtype > tpp::kF16 ||
+      !tpp::epilogue_dtypes_ok(tpp::kBF16, xs_dtype, ws_dtype,
+                               bias != nullptr ? bias_dtype : tpp::kF32))
+    return static_cast<int>(cudaErrorInvalidValue);
   const I8Plan p = i8_plan(m, n, k);
   const int v[6] = {p.bm, p.bn, p.split, p.tiles, p.grid, p.smem};
   for (int i = 0; i < 6; ++i)

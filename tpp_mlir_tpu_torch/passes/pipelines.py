@@ -27,7 +27,7 @@ attention or LayerNorm still in tl form (one that convert-tl-to-xsmm's
 place of its kernel, and is refused. It also refuses the keys of xsmm ops
 that check_slice refuses (an f16 key of a family with no f16 kernel,
 ROADMAP A14),
-f16 tensors of the few tl ops in F16_REFUSED, a tl.generic in contraction
+an f16 tl.generic (F16_REFUSED), a tl.generic in contraction
 form or with reduction dims outside it (the reference's evaluator raises
 on the latter too), and conv or attention keys whose kernel the reference
 would swap for another.
@@ -83,11 +83,10 @@ SLICE_OPS = frozenset({
 })
 
 
-# the tl ops that run no f16 tensor (ROADMAP A14): the conv family's pads,
-# pools and strided blocked convs, and a tl.generic (the GPT embedding's
-# tl.gather runs in f16); an xsmm op's f16 key is refused by check_slice
-F16_REFUSED = frozenset({"tl.pad", "tl.blocked_conv2d", "tl.max_pool2d",
-                         "tl.avg_pool2d", "tl.generic"})
+# the tl ops that run no f16 tensor (ROADMAP A14): a tl.generic (the conv
+# family's pads, pools and strided blocked convs and the GPT embedding's
+# tl.gather run in f16); an xsmm op's f16 key is refused by check_slice
+F16_REFUSED = frozenset({"tl.generic"})
 
 
 def slice_violation(op) -> str | None:

@@ -811,8 +811,9 @@ def _int8_gemm_launch(key: Int8GemmKey, route: str | None = None):
     (QTensor.qt, made once where the engine places int8-compute weights),
     which the wgmma body reads; without it the wrapper makes one, a
     transposing copy each call. The scales and the bias are read in their
-    stored dtype (f32 or bf16) on the wgmma body; the first design takes
-    f32 copies."""
+    stored dtype (f32 or bf16; an f16 one is widened to f32) on the wgmma
+    body; the first design takes f32 copies. The output is f32, bf16 or
+    f16 (its code passed as is: both bodies store all three)."""
     from .build import check, library
 
     m, n, k = key.m, key.n, key.k
@@ -963,7 +964,8 @@ _GROUPED_ROUTE_CODE = {"wmma": 0, "wgmma": 1}
 def _grouped_gemm_launch(key: GroupedGemmKey, route: str | None = None):
     """B16 on the tile reference.grouped_gemm_route chooses, or on `route`
     where a caller forces one (chip_smoke.py times the WMMA tile at keys
-    the route sends to wgmma)."""
+    the route sends to wgmma). An f16 key passes the f16 codes (2) for its
+    operands, products and an f16 output; an f32 output stays f32."""
     from .build import check, library
 
     G, L, m, n, k, bm = (key.n_groups, key.layers, key.m, key.n, key.k,
@@ -1052,22 +1054,25 @@ _CONV_ROUTE_CODE = {"fma": 0, "tma": 1, "convert": 2, "wmma": 3}
 
 def _conv_route(key, route: str | None) -> str:
     """The key's own route (reference.conv_kernel_route), or `route` forced:
-    "wmma" (the tile body) for any key with bf16 products."""
+    "wmma" (the tile body) for any key with 16-bit products (bf16, or f16
+    for an f16 key)."""
     own = reference.conv_kernel_route(key)
     if route is None or route == own:
         return own
     if route != "wmma" or own == "fma":
         raise ValueError(f"conv.cu cannot run {key} on route {route!r} (its "
-                         f"own: {own!r}; only 'wmma' may be forced, for bf16 "
-                         f"products)")
+                         f"own: {own!r}; only 'wmma' may be forced, for "
+                         f"16-bit products)")
     return route
 
 
 def _conv_call(key, route: str, fn, i, w, c, d, out, geometry):
     """One launch of csrc/conv.cu's entry `fn` (tpp_conv_nhwc or
     tpp_conv_blocked) on the route: C and D read in their stored dtype
-    (_native), the wgmma routes at conv_plan's tile and split with the
-    split partials in a workspace."""
+    where the kernel reads it (_native: f32 or the products' 16-bit type,
+    epilogue_dtypes), the wgmma routes at conv_plan's tile and split with
+    the split partials in a workspace. f16 keys pass the f16 codes (2) for
+    the operands and the products."""
     from .build import check
 
     dev = i.device
@@ -1078,10 +1083,11 @@ def _conv_call(key, route: str, fn, i, w, c, d, out, geometry):
         if tuple(c.shape) != tuple(out.shape):
             raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                              f"{tuple(out.shape)}")
-        c = _native(c, "C", n_out, dev)
+        c = _native(c, "C", n_out, dev, epilogue_dtypes(mxu))
     if key.binary_kind:   # a full residual, or a bias of the K columns
         d = _native(d.reshape(-1), "D", n_out if key.binary_bcast == "none"
-                    else n_out // (key.N * key.P * key.Q), dev)
+                    else n_out // (key.N * key.P * key.Q), dev,
+                    epilogue_dtypes(mxu))
     bm, bn, split = reference.conv_plan(key) \
         if route in ("tma", "convert") else (64, 64, 1)
     if route in ("tma", "convert") and (i.data_ptr() % 16 or
@@ -1250,7 +1256,7 @@ def build_kernel(key) -> Kernel:
 
 def build_conv(key: ConvNhwcKey | ConvBrgemmKey, route: str) -> Kernel:
     """csrc/conv.cu with its body forced to `route` (its own, or "wmma" for
-    a key with bf16 products), for timing the tile body beside the wgmma
+    a key with 16-bit products), for timing the tile body beside the wgmma
     kernel; build_kernel takes reference.conv_kernel_route's choice."""
     reference.check_slice(key)
     launch = _conv_blocked_launch if isinstance(key, ConvBrgemmKey) \

@@ -21,10 +21,12 @@ Precision, one meaning everywhere (kernel and plain version alike):
   * f16 (ROADMAP A14: the GEMM family, B1, B3-B5, B19, B20 and the
     xsmm.unary/binary ops; the transformer family, B2's LayerNorm prologue
     and ln_stats pair, B12 and attention, B6-B11; the MHA suite's batched
-    matmul, B21/B22): as bf16, with f16 operands and f16 products at
-    either precision; every rounding the bf16 kernels make to bf16 (a
-    chain's layers, the LayerNorm prologue's rows, attention's scaled Q and
-    P, a softmax_lhs P) is a rounding to f16. The products are f16 x f16
+    matmul, B21/B22; the conv family, B23-B25; the grouped GEMMs, B16/B17;
+    B15's f16 output): as bf16, with f16 operands and f16 products at
+    either precision (B15: s8 products, an f16 output); every rounding
+    the bf16 kernels make to bf16 (a chain's layers, the LayerNorm
+    prologue's rows, attention's scaled Q and P, a softmax_lhs P) is a
+    rounding to f16. The products are f16 x f16
     (exact in f32): never an f16 torch.matmul, whose cuBLAS reduction may
     run in reduced precision.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
@@ -63,10 +65,12 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
 
 # the families whose f16 keys run (ROADMAP A14): the GEMM family (B1 and
 # B2's LayerNorm prologue and ln_stats pair, B3-B5, B19/B20, and the
-# xsmm.unary/binary PyTorch ops), B12, attention (B6-B11, B7) and the batched
-# matmul (B21/B22); every other family's f16 key is refused
+# xsmm.unary/binary PyTorch ops), B12, attention (B6-B11, B7), the batched
+# matmul (B21/B22), the convs (B23-B25), the grouped GEMMs (B16/B17) and
+# B15's f16 output; every other family's f16 key (B13, B14, B18) is refused
 F16_FAMILIES = (BrgemmKey, ChainKey, BlockedMatmulKey, UnaryKey, BinaryKey,
-                LayerNormKey, FlashMhaKey, BatchMatmulKey)
+                LayerNormKey, FlashMhaKey, BatchMatmulKey, ConvNhwcKey,
+                ConvBrgemmKey, GroupedGemmKey, GroupedWgradKey, Int8GemmKey)
 
 
 def _check_f16(key) -> None:
@@ -74,7 +78,8 @@ def _check_f16(key) -> None:
     in f16 (and a token-layout attention key under "flash_heads", which
     would run B14's forward), and a kernel key that mixes f16 with bf16 or
     f32 operands (the kernels' f16 instantiations read and write f16 and
-    f32 only)."""
+    f32 only). B15's key is f16 by its output alone: its operands are
+    s8."""
     dtype, out = getattr(key, "dtype", None), getattr(key, "out_dtype", None)
     if "f16" not in (dtype, out):
         return
@@ -82,7 +87,7 @@ def _check_f16(key) -> None:
             isinstance(key, FlashMhaKey) and key.heads
             and key.strategy == "flash_heads"):
         raise _refuse("an f16 key of this family", "A14 (f16 keys)", key)
-    if not isinstance(key, (UnaryKey, BinaryKey)) and (
+    if not isinstance(key, (UnaryKey, BinaryKey, Int8GemmKey)) and (
             dtype != "f16" or out not in (None, "f16", "f32")):
         raise _refuse("an f16 key mixing 16-bit types", "A14 (f16 keys)",
                       key)
@@ -1153,15 +1158,18 @@ def conv_kernel_route(key: ConvNhwcKey | ConvBrgemmKey) -> str:
       "xla"      a ConvNhwcKey that conv_route sends to F.conv2d: no kernel;
       "fma"      MXU dtype f32 (f32 "highest"): the tile body's f32 FMA, no
                  TF32;
-      "tma"      bf16 operands with c and k multiples of 8 (16-byte channel
-                 runs): the wgmma implicit GEMM on csrc/gemm_sm90.cuh's
-                 consumer loop, A by 16-byte cp.async with a zero fill for
-                 padding, W by TMA;
+      "tma"      bf16 or f16 operands with c and k multiples of 8 (16-byte
+                 channel runs): the wgmma implicit GEMM on
+                 csrc/gemm_sm90.cuh's consumer loop in the operands' type,
+                 A by 16-byte cp.async with a zero fill for padding, W by
+                 TMA;
       "convert"  f32 operands at "default" (bf16 products, f32 sums) with c
                  and k multiples of 4: the same kernel, A and W by cp.async
-                 into raw f32 stages that the producer rounds to bf16;
-      "wmma"     bf16 products at any other channel count: the tile body's
-                 WMMA, staged through shared memory with no pipelining.
+                 into raw f32 stages that the producer rounds to bf16 (never
+                 an f16 key: its stages would round to bf16);
+      "wmma"     16-bit products at any other channel count: the tile
+                 body's WMMA (bf16, or f16 for f16 keys), staged through
+                 shared memory with no pipelining.
     The tile and k split of the wgmma routes are conv_plan's. The base
     pointers of I and W must be 16-byte aligned there too; the wrapper
     checks them (every torch allocation is)."""
@@ -1173,7 +1181,7 @@ def conv_kernel_route(key: ConvNhwcKey | ConvBrgemmKey) -> str:
         c, k = key.c, key.k
     if mxu_dtype(key.dtype, key.precision) == torch.float32:
         return "fma"
-    if key.dtype == "bf16":
+    if key.dtype in ("bf16", "f16"):
         return "tma" if c % 8 == 0 and k % 8 == 0 else "wmma"
     return "convert" if c % 4 == 0 and k % 4 == 0 else "wmma"
 
@@ -1206,7 +1214,8 @@ def conv_plan(key: ConvNhwcKey | ConvBrgemmKey) -> tuple[int, int, int]:
     fill a third of 264; then k is split into as many slices as the slots
     hold, each at least eight 64-deep stages. The partials are summed in
     slice order (bit-repeatable). Chosen from a sweep on the H100 at the
-    conv suite's c128/30 and c256/16 keys (scripts/exp_conv_plan.py)."""
+    conv suite's c128/30 and c256/16 keys (scripts/exp_conv_plan.py). An
+    f16 key takes its bf16 twin's plan: the same route, tiles and bytes."""
     Mb, Nb, KT, mb, nb = conv_gemm_shape(key)
     if conv_kernel_route(key) == "tma":
         tiles, slots = ((64, 128), (64, 64)), 2 * H100_SMS
@@ -1628,18 +1637,20 @@ GROUPED_BM_QUANTUM = 16     # the WMMA tile's rows: 16, 32 or 64
 
 def grouped_gemm_route(key: GroupedGemmKey) -> str:
     """Which tile of csrc/grouped_gemm.cu runs B16 at `key`, or raise:
-      "wgmma"  bf16 operands, bm a multiple of 64 (the tile's 64 or 128
-               rows divide it, so no tile straddles two row blocks), k and
-               n multiples of 8 (TMA takes the row strides): the pipelined
-               TMA + wgmma tile; every key of the MoE slice;
+      "wgmma"  bf16 or f16 operands (products in their type), bm a
+               multiple of 64 (the tile's 64 or 128 rows divide it, so no
+               tile straddles two row blocks), k and n multiples of 8 (TMA
+               takes the row strides): the pipelined TMA + wgmma tile;
+               every key of the MoE slice;
       "wmma"   any other bm that is a multiple of 16, f32 operands ("default"
-               and "highest"), strides TMA cannot take: the WMMA / f32-FMA
-               tile staged through shared memory.
+               and "highest"), strides TMA cannot take: the WMMA (bf16, or
+               f16 for f16 keys) / f32-FMA tile staged through shared
+               memory.
     A bm that is not a multiple of 16 has no tile (ValueError)."""
     if key.bm % GROUPED_BM_QUANTUM:
         raise ValueError(f"grouped_gemm.cu needs bm a multiple of "
                          f"{GROUPED_BM_QUANTUM}: {key}")
-    if key.dtype == "bf16" and key.bm % 64 == 0 and \
+    if key.dtype in ("bf16", "f16") and key.bm % 64 == 0 and \
             tma_aligned(2, key.k, key.n):
         return "wgmma"
     return "wmma"
@@ -1650,16 +1661,17 @@ def grouped_wgrad_route(key: GroupedWgradKey,
     """Which tile of csrc/grouped_gemm.cu runs B17 at `key` with xt of
     strides `xt_stride` (default (1, k): the transpose of a contiguous
     (m, k) tensor, as the MoE training backward passes it):
-      "wgmma"  bf16 operands, bm a multiple of 64 (no 64-row slice
+      "wgmma"  bf16 or f16 operands, bm a multiple of 64 (no 64-row slice
                straddles two groups), n a multiple of 8 (TMA takes dY's row
                stride), xt with one unit stride and the other a 16-byte
                multiple (TMA's MN-major or K-major A tile): the pipelined
                TMA + wgmma tile; every key of the MoE slice;
       "wmma"   f32 operands ("default" and "highest"), a bm of 16 or 32,
-               strides TMA cannot take: the WMMA / f32-FMA tile staged
-               through shared memory, which reads any strides and any bm."""
+               strides TMA cannot take: the WMMA (bf16 or f16) / f32-FMA
+               tile staged through shared memory, which reads any strides
+               and any bm."""
     xs0, xs1 = xt_stride if xt_stride is not None else (1, key.k)
-    if key.dtype == "bf16" and key.bm % 64 == 0 and \
+    if key.dtype in ("bf16", "f16") and key.bm % 64 == 0 and \
             tma_aligned(2, key.n) and \
             ((xs0 == 1 and tma_aligned(2, xs1)) or
              (xs1 == 1 and tma_aligned(2, xs0))):
