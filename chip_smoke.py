@@ -320,9 +320,30 @@ launched held against its plain version and timed beside its bf16
 twin, its bound and F.conv2d (or SDPA, F.layer_norm, torch.addmm) in
 f16: kernel-line rows; every other key of (a) timed the same way (B16/B17
 beside torch._grouped_mm or a per-group torch.mm loop, marked composed;
-B15 beside the composed torch._int_mm chain), no kernel-line row. The
-line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+B15 beside the composed torch._int_mm chain), no kernel-line row.
+The attention kernels' f16 keys (ROADMAP A14 item 8,
+`phase_f16_attention`, after `phase_f16_conv`): (a) B13 (decode_attn.cu
+on an f16 KV cache: GPT-2 small's b8 h12 s1024 d64 stacked 12-layer
+decode at pos 639, slotted, LLaMA's GQA kv4 g3, f16 q over an int8 cache,
+pack2, the tp-local kv6 key; d32 and d128 off the path) at 1e-4, and B14
+(attention.cu's training mode at f16 products) and B18 (flash_train.cu's
+wgmma passes at f16 products) at GPT-2 small's training key b8 s512 h12
+d64 causal, d32, d128, non-causal and ragged keys off it, at 2e-2 (their
+bf16 keys' tolerance: P and dS rounded to bf16, O and the grads bf16);
+B18 bit-repeatable and fed B14's own lse2; max|dS| printed against f16's
+65,504; (b) two probes a kernel: operands 1 + 2^-10 (exact in f16, 1 in
+bf16) whose rounding to bf16 moves the output, and logits where P's bf16
+and f16 roundings part, each kernel within ATTN_PROBE_LIMIT of its plain
+version and every rounded reading more than twice that from it; (c) the
+path: every count set to 0, each path key dispatched through the kernel
+cache as the decode and training steps call it (the decode keys walking
+the 12 layers, B14 then B18 on its outputs), every f16 kernel launched;
+(d) each path key timed beside its bf16 twin from CUDA graphs in turns,
+its plain version, its bound and SDPA in f16 (B13 on the live rows,
+walking the layers; B14 its forward; B18 SDPA's backward op from a
+graph): kernel-line rows; the keys off the path timed the same way, no
+kernel-line row. The line before the last is the kernel table as JSON;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -762,7 +783,8 @@ def _decode_attn_inputs(key, g):
     scales as quantize_tokens makes them), pos, the layer index (5, or the
     last of fewer layers), and the int8 cache's scales."""
     import torch
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}[key.dtype]
     B, H, S, D, G = key.batch, key.heads, key.seq, key.head_dim, key.groups
     if key.pack2:
         q_shape, slab = (B, H // 2, 2 * D), (key.stacked, B, H // 2, S, 2 * D)
@@ -1014,7 +1036,8 @@ def _flash_train_inputs(key, g, kv_heads=None):
     """q, k, v (k/v with kv_heads heads for GQA) and a cotangent dO, all
     (B, S, H, D) in the key's dtype."""
     import torch
-    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[key.dtype]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16}[key.dtype]
     B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
 
     def rnd(h):
@@ -2670,6 +2693,436 @@ def phase_f16_conv() -> list:
                         f"off the paths ({label})")
         _beside_twin(key, kern, args, forced)
     say(f"phase f16 conv: {time.perf_counter() - t0:.1f} s; worst abs "
+        f"error by kind {worst}")
+    return rows
+
+
+# ROADMAP A14 item 8: the attention kernels' f16 keys. B13 (csrc/
+# decode_attn.cu) over an f16 KV cache, f32 out; B14 (attention.cu's
+# training mode) and B18 (flash_train.cu's wgmma passes) with f16
+# products, P and dS rounded to bf16 and O and the grads stored in bf16, as
+# the JAX package's f16 keys do. No f16 engine exists: the paths are the
+# kernel API's keys of GPT-2 small's decode and training steps (and
+# LLaMA's GQA decode), each (label, key, on the path)
+TOL_F16_TRAIN = 2 * TOL_BF16    # B14/B18's bf16 keys' tolerance (phase 3)
+F16_MAX = 65504.0               # f16's largest finite value
+F16_BIG = 8192.0    # exact in f16 and bf16: F16_BIG * 2^-10 / 8 = 1
+
+
+def _f16a_decode_cases():
+    from tpp_mlir_tpu_torch.xsmm import DecodeAttnKey
+    geo = dict(batch=8, seq=1024, head_dim=64, stacked=12, dtype="f16")
+    off = dict(batch=2, seq=512, dtype="f16", stacked=2)
+    return [
+        ("gpt2 mha b8 h12 s1024 d64", DecodeAttnKey(heads=12, **geo), True),
+        ("slotted, one sentinel", DecodeAttnKey(heads=12, slotted=True,
+                                                **geo), True),
+        ("llama gqa kv4 g3", DecodeAttnKey(heads=4, groups=3, **geo), True),
+        ("f16 q over an int8 cache", DecodeAttnKey(heads=12, kv_quant=True,
+                                                   **geo), True),
+        ("pack2", DecodeAttnKey(heads=12, pack2=True, **geo), True),
+        ("tp-local kv6", DecodeAttnKey(heads=6, **geo), True),
+        ("d32 b2 h8 s512 (off the path)",
+         DecodeAttnKey(heads=8, head_dim=32, **off), False),
+        ("d128 kv2 g4 b2 s512 (off the path)",
+         DecodeAttnKey(heads=2, head_dim=128, groups=4, **off), False),
+    ]
+
+
+def _f16a_train_cases():
+    from tpp_mlir_tpu_torch.xsmm import FlashTrainKey
+    return [
+        ("gpt2 train b8 s512 h12 d64 causal",
+         FlashTrainKey(TRAIN_B, 12, TRAIN_S, 64, "f16", True, 0.125), True),
+        ("d32 b2 s256 h8 causal (off the path)",
+         FlashTrainKey(2, 8, 256, 32, "f16", True, 32 ** -0.5), False),
+        ("d128 b2 s256 h4 (off the path)",
+         FlashTrainKey(2, 4, 256, 128, "f16", False, 128 ** -0.5), False),
+        ("d64 b2 s256 h4 non-causal (off the path)",
+         FlashTrainKey(2, 4, 256, 64, "f16", False, 0.125), False),
+        ("ragged b2 s200 h4 d64 causal (off the path)",
+         FlashTrainKey(2, 4, 200, 64, "f16", True, 0.125), False),
+    ]
+
+
+def _f16_attention_probes():
+    """(b): (label, key, probe) for B13, B14 and B18: "operands" (q, K, V
+    and dO holding 1 + 2^-10 where a rounding to bf16 moves the output)
+    and "P" (logits where P's bf16 and f16 roundings part)."""
+    from tpp_mlir_tpu_torch.xsmm import (DecodeAttnKey, FlashTrainBwdKey,
+                                         FlashTrainKey)
+    from tpp_mlir_tpu_torch.xsmm.reference import LOG2E
+    ops = dict(batch=2, heads=2, seq=128, head_dim=64, dtype="f16",
+               causal=False, scale=0.125)
+    p = dict(ops, seq=64, scale=(1 / 32) / LOG2E)
+    return (
+        ("B13 operands", DecodeAttnKey(2, 2, 128, 64, "f16"), "operands"),
+        ("B13 f16 q int8 kv", DecodeAttnKey(2, 2, 128, 64, "f16",
+                                            kv_quant=True), "operands"),
+        ("B14 operands", FlashTrainKey(**ops), "operands"),
+        ("B18 operands", FlashTrainBwdKey(**ops), "operands"),
+        ("B14 P", FlashTrainKey(**p), "P"),
+        ("B18 P", FlashTrainBwdKey(**p), "P"))
+
+
+def _outputs(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _f16a_model(key, args, rounded=(), p_dt=None):
+    """B14's or B18's function in f64 on the host on `args`, with the named
+    operands ("q", "k", "v", "do") rounded to bf16 and P and dS rounded to
+    p_dt (bf16, as the JAX package rounds them; f16 for a kernel that kept
+    them in f16); the outputs rounded to bf16, as stored."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import FlashTrainBwdKey
+    from tpp_mlir_tpu_torch.xsmm.reference import LOG2E
+    bf16 = torch.bfloat16
+    p_dt = p_dt or bf16
+    x = [(a.to(bf16) if n in rounded else a).cpu().double()
+         for n, a in zip(("q", "k", "v", "do"), args)]
+    q, k, v = (t.transpose(1, 2) for t in x[:3])      # (B, H, S, D)
+    s2 = q @ k.transpose(-1, -2) * (key.scale * LOG2E)
+    if key.causal:
+        S = s2.shape[-1]
+        s2 = s2.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                            -1e30)
+
+    def rnd(t):
+        return t.to(p_dt).double()
+
+    def out(*ts):
+        return tuple(t.transpose(1, 2).to(bf16).to(args[0].device)
+                     for t in ts)
+    if not isinstance(key, FlashTrainBwdKey):
+        p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+        return out(rnd(p) @ v / p.sum(-1, keepdim=True))
+    lse2, delta = (a.cpu().double()[..., None] for a in args[4:6])
+    do = x[3].transpose(1, 2)
+    p = torch.exp2(s2 - lse2)
+    ds = rnd(p * (do @ v.transpose(-1, -2) - delta) * key.scale)
+    return out(ds @ k, ds.transpose(-1, -2) @ q,
+               rnd(p).transpose(-1, -2) @ do)
+
+
+def f16_attention_probe(key, probe):
+    """(b)'s inputs at `key`: (args, keywords, readings, model, subject).
+    `readings` are the outputs of a kernel that rounded one operand to
+    bf16 (or kept P and dS in f16), `model` those of the kernel's
+    roundings in f64 (None for B13, whose readings are its plain version
+    on the rounded operands), `subject` the outputs the probe reads.
+
+    "operands": q rows (1 + 2^-10, -1, F16_BIG, F16_BIG, 0, ...), K's even
+    rows (F16_BIG, F16_BIG, 0, ...) and odd rows (0, 0, 1 + 2^-10, -1,
+    0, ...): both scores F16_BIG 2^-10 / 8 = 1, so P is uniform; in bf16
+    q (or K) makes the even (or odd) scores 0. B13 and B14: V's even rows
+    64 (1 + 2^-10), odd rows -64 (column 0), so the output is 2^-5 (0 for a
+    bf16 V), about -29.7 or 29.8 for a bf16 q or K. B18 (non-causal, S 128,
+    P = 1/128): V's rows 64 (1 + 2^-10), dO's even rows 64 (1 + 2^-10) and
+    odd rows -64, so dV is 2^-5 (0 for a bf16 dO) and dP - delta is 0 (dS,
+    dQ, dK 0; not for a bf16 V). f16 q over an int8 cache: K's even rows
+    (64, 64) with scale F16_BIG / 64, V's rows +-1: out (e - 1) / (e + 1)
+    = 0.462, 0 for a bf16 q.
+    "P" (scale log2(e) = 1/32, S 64): even query rows (1, 1, 0, ...), odd
+    (0, 1, 0, ...); K row 0 (1, 0, ...), row 1 zero, rows 2 on (0, -2048,
+    ...): base-2 logits (1/32, 0, -64, ...) and (0, 0, -64, ...). B14: V
+    rows 0 and 1 (-0.98046875, ...) and (1, ...), so an even row reads
+    (P1' - 0.98046875) / l with P1' = 2^(-1/32) rounded, 0 in bf16 and
+    -9.87e-4 in f16. B18: P's even rows (0.50541, 0.49459) and odd rows
+    (0.5, 0.5), dO's even rows 1 and odd rows -0.98828125, so dV's row 1
+    is 32 (P1' - 0.494140625): 0 in bf16, 2^-6 in f16."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (DecodeAttnKey, FlashTrainBwdKey,
+                                         FlashTrainKey, reference_kernel)
+    f16, bf16 = torch.float16, torch.bfloat16
+
+    def z(*shape, dt=f16):
+        return torch.zeros(shape, dtype=dt, device="cuda")
+    D = key.head_dim
+    if isinstance(key, DecodeAttnKey):
+        B, H, S = key.batch, key.heads, key.seq
+        q = z(B, H, D)
+        q[..., 0], q[..., 1], q[..., 2:4] = F16_ONE, -1.0, F16_BIG
+        pos = torch.tensor([S - 1], dtype=torch.int32, device="cuda")
+        kw = {}
+        if key.kv_quant:
+            i8 = torch.int8
+            k, v = z(B, H, S, D, dt=i8), z(B, H, S, D, dt=i8)
+            k[:, :, 0::2, :2] = 64
+            v[:, :, 0::2, 0], v[:, :, 1::2, 0] = 1, -1
+            ks = torch.ones(B, H, S, device="cuda")
+            ks[:, :, 0::2] = F16_BIG / 64
+            kw = {"k_s": ks, "v_s": torch.ones(B, H, S, device="cuda")}
+            rounded = ("q",)
+        else:
+            k, v = z(B, H, S, D), z(B, H, S, D)
+            k[:, :, 0::2, :2] = F16_BIG
+            k[:, :, 1::2, 2], k[:, :, 1::2, 3] = F16_ONE, -1.0
+            v[:, :, 0::2, 0], v[:, :, 1::2, 0] = 64 * F16_ONE, -64.0
+            rounded = ("q", "k", "v")
+        args, plain = (q, k, v, pos), reference_kernel(key)
+        readings = {}
+        for i, n in enumerate(rounded):
+            r = list(args)
+            r[i] = r[i].to(bf16).to(f16)
+            readings[f"{n} in bf16"] = (plain(*r, **kw),)
+        return args, kw, readings, None, (0,)
+    bwd = isinstance(key, FlashTrainBwdKey)
+    B, S, H = key.batch, key.seq, key.heads
+    q, k, v, do = (z(B, S, H, D) for _ in range(4))
+    if probe == "operands":
+        q[..., 0], q[..., 1], q[..., 2:4] = F16_ONE, -1.0, F16_BIG
+        k[:, 0::2, :, :2] = F16_BIG
+        k[:, 1::2, :, 2], k[:, 1::2, :, 3] = F16_ONE, -1.0
+        if bwd:
+            v[..., 0] = 64 * F16_ONE
+            do[:, 0::2, :, 0], do[:, 1::2, :, 0] = 64 * F16_ONE, -64.0
+        else:
+            v[:, 0::2, :, 0], v[:, 1::2, :, 0] = 64 * F16_ONE, -64.0
+    else:
+        q[:, 0::2, :, 0], q[..., 1] = 1.0, 1.0
+        k[:, 0, :, 0], k[:, 2:, :, 1] = 1.0, -2048.0
+        v[:, 0, :, 0], v[:, 1, :, 0] = -0.98046875, 1.0
+        do[:, 0::2, :, 0], do[:, 1::2, :, 0] = 1.0, -0.98828125
+    args = (q, k, v)
+    if bwd:
+        fwd = FlashTrainKey(**dataclasses.asdict(key))
+        o, lse2 = reference_kernel(fwd)(q, k, v)
+        args = (q, k, v, do, lse2, _flash_delta(do, o))
+    if probe == "operands":
+        names = ("q", "k", "v", "do") if bwd else ("q", "k", "v")
+        readings = {f"{n} in bf16": _f16a_model(key, args, (n,))
+                    for n in names}
+        subject = (0, 1, 2) if bwd else (0,)
+    else:
+        readings = {"P in f16": _f16a_model(key, args, p_dt=f16)}
+        subject = (2,) if bwd else (0,)
+    return args, {}, readings, _f16a_model(key, args), subject
+
+
+def f16_attention_probe_holds(got, want, readings, model, subject) -> bool:
+    """Whether the probe's outputs (`subject`) are within ATTN_PROBE_LIMIT
+    of the plain version's, as the f64 model of the kernel's roundings is,
+    and every reading is more than twice that from them."""
+    got, want = _outputs(got), _outputs(want)
+
+    def dist(xs):
+        return max(rel_err(xs[i], want[i])[1] for i in subject)
+    return dist(got) <= ATTN_PROBE_LIMIT and \
+        (model is None or dist(model) <= ATTN_PROBE_LIMIT) and \
+        all(dist(r) > 2 * ATTN_PROBE_LIMIT for r in readings.values())
+
+
+def _f16a_max_ds(key, bargs) -> float:
+    """max |dS| = max |P (dP - delta) scale| of B18 at these operands, in
+    f32 on the card: what the kernel rounds to bf16 and converts to f16,
+    whose largest finite value is F16_MAX."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm.reference import _logits2
+    q, k, v, do, lse2, delta = bargs
+    p = torch.exp2(_logits2(key, q, k) - lse2[..., None])
+    dp = torch.matmul(do.transpose(1, 2).float(),
+                      v.transpose(1, 2).float().transpose(-1, -2))
+    return float((p * (dp - delta[..., None]) * key.scale).abs().max())
+
+
+def _f16a_times(kind, key, args, where) -> dict:
+    """An f16 key's times for the kernel line: beside its bf16 twin from
+    CUDA graphs in turns (bf16, f16, f16, bf16), its plain version, its
+    bound and SDPA in f16. B13 walks the stacked layers in each graph, as
+    a decode step reads them (its plain version and SDPA on the live rows
+    too); B14 and B18 eager and from a graph, B18's SDPA backward eager
+    (torch.autograd.grad) and its backward op from a graph."""
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import build_kernel, reference_kernel
+    kern, plain = build_kernel(key), reference_kernel(key)
+    twin, targs = _bf16_twin(key, args)
+    tk = build_kernel(twin)
+    bound, by = _bound(kind, key, args)
+    if kind == "decode_attn":
+        iters = 2 * key.stacked
+
+        def walk(fn, a):
+            return _walk(lambda li: fn(*a[:4], li, *a[5:]), key)
+        b1, f1, f2, b2 = (graph_ms(walk(fn, a), iters=iters) for fn, a in (
+            (tk, targs), (kern, args), (kern, args), (tk, targs)))
+        layer = _decode_library(key, args)
+        lib = graph_ms(_walk(layer, key), iters=iters) if layer else None
+        entry = {"ms": (f1 + f2) / 2, "graph_ms": (f1 + f2) / 2,
+                 "plain_ms": graph_ms(walk(plain, args), iters=iters),
+                 "library_ms": lib,
+                 "eager_ms": cuda_ms(lambda: kern(*args))}
+        note = "walking the layers"
+    else:
+        b1, f1, f2, b2 = (graph_ms(fn) for fn in (
+            lambda: tk(*targs), lambda: kern(*args), lambda: kern(*args),
+            lambda: tk(*targs)))
+        library = _library_call(kind, key, args)
+        glib = _sdpa_backward_op(key, args) \
+            if kind == "flash_train_bwd" else library
+        entry = {"ms": cuda_ms(lambda: kern(*args)),
+                 "graph_ms": (f1 + f2) / 2,
+                 "plain_ms": cuda_ms(lambda: plain(*args)),
+                 "library_ms": cuda_ms(library),
+                 "library_graph_ms": graph_ms(glib)}
+        note = f"eager {entry['ms']:.4f} ms"
+    entry.update(bound_ms=bound, bound_by=by,
+                 bf16_twin_graph_ms=(b1 + b2) / 2)
+    ratio = entry["graph_ms"] / entry["bf16_twin_graph_ms"]
+    lib = "none" if entry["library_ms"] is None else \
+        f"{entry['library_ms']:.4f} ms" + (
+            f" (graph {entry['library_graph_ms']:.4f} ms)"
+            if "library_graph_ms" in entry else "")
+    say(f"time kernel f16 {describe(key):48s} from CUDA graphs {note}: "
+        f"f16 {entry['graph_ms']:.4f} ms, bf16 twin "
+        f"{entry['bf16_twin_graph_ms']:.4f} ms (f16/bf16 {ratio:.3f}"
+        f"{', more than 10% slower' if ratio > 1.1 else ''}); plain "
+        f"version {entry['plain_ms']:.4f} ms, SDPA f16 {lib}, bound "
+        f"{bound:.4f} ms ({by}); {where}; route {kern.route}")
+    return entry
+
+
+def phase_f16_attention() -> list:
+    """ROADMAP A14 item 8 on the card: (a) B13 at f16 keys (GPT-2 small's
+    stacked decode, slotted, LLaMA's GQA, f16 q over an int8 cache, pack2,
+    the tp-local kv6 key; d32 and d128 off the path) within TOL_F32 of its
+    plain version, f32 out; B14 and B18 at GPT-2 small's training key and
+    four keys off it within TOL_F16_TRAIN, bf16 O and grads, lse2 within
+    TOL_LSE, B18 bit-repeatable and fed B14's own lse2 and delta, max|dS|
+    against F16_MAX; each kernel on its hand-written route; (b) the
+    operand and P probes (f16_attention_probe); (c) the path: counts set
+    to 0, each path key dispatched through the kernel cache (decode
+    walking the 12 layers, B14 then B18 on its outputs), every one
+    launched; (d) each path key timed (_f16a_times): kernel-line rows; the
+    keys off the path timed the same way (no row)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.xsmm import (FlashTrainBwdKey, build_kernel,
+                                         global_cache, reference_kernel)
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(25)
+    worst: dict = {}
+    errs: dict = {}         # each (a) key's worst abs error
+    path, off = [], []      # (kind, key, args)
+
+    def record(kind, key, ab, on_path, args):
+        errs[key] = ab
+        worst[kind] = max(worst.get(kind, 0.0), ab)
+        (path if on_path else off).append((kind, key, args))
+    # (a) B13
+    for label, key, on_path in _f16a_decode_cases():
+        args = _decode_attn_inputs(key, g)
+        kern = build_kernel(key)
+        got, want = kern(*args), reference_kernel(key)(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        ok = rel <= TOL_F32 and torch_isfinite(got) and \
+            got.dtype == torch.float32 and kern.launches == 1 and \
+            kern.source.endswith("csrc/decode_attn.cu")
+        say(f"f16 kernel decode_attn {label:36s} rel {rel:.3e} abs "
+            f"{ab:.3e} tol {TOL_F32:.0e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 decode {label}: rel {rel}, "
+                                 f"launches {kern.launches}")
+        record("decode_attn", key, ab, on_path, args)
+    # (a) B14 and B18
+    bf16 = torch.bfloat16
+    for label, key, on_path in _f16a_train_cases():
+        q, k, v, do = _flash_train_inputs(key, g)
+        fwd = build_kernel(key)
+        o, lse2 = fwd(q, k, v)
+        po, plse2 = reference_kernel(key)(q, k, v)
+        bkey = FlashTrainBwdKey(**dataclasses.asdict(key))
+        bargs = (q, k, v, do, plse2, _flash_delta(do, po))
+        bwd = build_kernel(bkey)
+        got, again = bwd(*bargs), bwd(*bargs)
+        fed = bwd(q, k, v, do, lse2, _flash_delta(do, o))
+        want = reference_kernel(bkey)(*bargs)
+        ds = _f16a_max_ds(key, bargs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rels = {"o": rel_err(o, po), "lse2": rel_err(lse2, plse2)}
+        rels.update({n: rel_err(a, b) for n, a, b in
+                     zip(("dq", "dk", "dv"), got, want)})
+        rels.update({f"fed {n}": rel_err(a, b) for n, a, b in
+                     zip(("dq", "dk", "dv"), fed, want)})
+        ok = same and ds < F16_MAX and \
+            all(torch_isfinite(x) for x in (o, lse2, *got)) and \
+            all(x.dtype == bf16 for x in (o, *got)) and \
+            (fwd.route, fwd.source[-12:], fwd.launches) == \
+            ("wgmma", "attention.cu", 1) and \
+            (bwd.route, bwd.source[-14:], bwd.launches) == \
+            ("wgmma", "flash_train.cu", 3) and \
+            all(r <= (TOL_LSE if n == "lse2" else TOL_F16_TRAIN)
+                for n, (r, _) in rels.items())
+        say(f"f16 kernel flash_train {label:44s} " + " ".join(
+            f"{n} rel {r:.3e}" for n, (r, _) in rels.items())
+            + f"; B18 repeat bit-equal {same}; max|dS| {ds:.4g} "
+            f"({ds / F16_MAX:.2e} of f16's {F16_MAX:.0f}); tol "
+            f"{TOL_F16_TRAIN:.0e} (lse2 {TOL_LSE:.0e}){_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 flash_train {label}: {rels}, "
+                                 f"bit-equal {same}, max|dS| {ds}")
+        record("flash_train_fwd", key, max(rels["o"][1], rels["lse2"][1]),
+               on_path, (q, k, v))
+        record("flash_train_bwd", bkey, max(
+            rels[n][1] for n in ("dq", "dk", "dv")), on_path, bargs)
+    # (b) the probes: the operands are read in f16, P and dS rounded to
+    # bf16
+    for label, key, probe in _f16_attention_probes():
+        args, kw, readings, model, subject = f16_attention_probe(key, probe)
+        kern = build_kernel(key)
+        got = _outputs(kern(*args, **kw))
+        want = _outputs(reference_kernel(key)(*args, **kw))
+        torch.cuda.synchronize()
+        ok = f16_attention_probe_holds(got, want, readings, model, subject)
+        gap = {n: max(rel_err(r[i], want[i])[1] for i in subject)
+               for n, r in readings.items()}
+        near = max(rel_err(got[i], want[i])[1] for i in subject)
+        say(f"f16 probe {label:18s} route {kern.route:6s} |kernel - plain| "
+            f"{near:.3e} (limit {ATTN_PROBE_LIMIT:.0e}); readings "
+            + ", ".join(f"{n} {d:.3e}" for n, d in gap.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f16 probe {label}: {near}, {gap}")
+    # (c) the path, as the decode and training steps call the kernels
+    cache = global_cache()
+    cache.reset_launches()
+    for kind, key, args in path:
+        kern = cache.dispatch(key)
+        if kind == "decode_attn":
+            for li in range(key.stacked):
+                kern(*args[:4], li, *args[5:])
+        elif kind == "flash_train_fwd":
+            o, lse2 = kern(*args)
+        else:
+            kern(*args[:4], lse2, _flash_delta(args[3], o))
+    torch.cuda.synchronize()
+    launched = _f16_launches(cache)
+    by_kind: dict = {}
+    for key, n in launched.items():
+        by_kind[_kind(key)] = by_kind.get(_kind(key), 0) + n
+    say(f"f16 attention path launches: {by_kind}")
+    missing = [describe(key) for _, key, _ in path if not launched.get(key)]
+    if missing:
+        raise AssertionError(f"f16 kernels of the path never launched: "
+                             f"{missing}")
+    # (d) each path key timed: kernel-line rows; the rest for PERF.md
+    rows = []
+    for kind, key, args in path:
+        n = launched[key]
+        entry = _f16a_times(kind, key, args, f"{n} launches on the path")
+        rows.append((kind, key, cache.dispatch(key).source, {
+            "launches": n, "max_abs_err": errs[key], **entry}))
+    for kind, key, args in off:
+        _f16a_times(kind, key, args, "off the path")
+    say(f"phase f16 attention: {time.perf_counter() - t0:.1f} s; worst abs "
         f"error by kind {worst}")
     return rows
 
@@ -7039,6 +7492,7 @@ def main() -> int:
     f16_rows = phase_f16()
     f16_rows += phase_f16_transformer()
     f16_rows += phase_f16_conv()
+    f16_rows += phase_f16_attention()
     for kind, n in phase_tuning().items():
         launches[kind] += n
     for kind, n in phase_compiler_path().items():
@@ -7115,7 +7569,7 @@ def main() -> int:
                                                       "replaces")},
                         "name": f"{kind}@{describe(key)}{dx}", **entry})
     # the f16 keys (ROADMAP A14), each a row of its kernel's, launched on
-    # phase_f16's main path and phase_f16_transformer's paths
+    # phase_f16's main path and the later f16 phases' paths
     for kind, key, source, entry in f16_rows:
         kernels.append({"route": "cuda", "source": source,
                         "replaces": rows[kind]["replaces"],

@@ -63,7 +63,8 @@ def _tol(key):
 
 def _rnd(g, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(
-        {"f32": torch.float32, "bf16": torch.bfloat16}[dtype])
+        {"f32": torch.float32, "bf16": torch.bfloat16,
+         "f16": torch.float16}[dtype])
 
 
 @pytest.mark.parametrize("key", [
@@ -2039,3 +2040,88 @@ def test_f16_products_are_not_bf16(cuda, name):
     assert chip_smoke.f16_probe_holds(got, want, value), \
         (got, want) if isinstance(got, tuple) else \
         (got.flatten()[:4], want.flatten()[:4])
+
+
+# ROADMAP A14 item 8: B13 (decode_attn.cu over an f16 cache, or f16 q over
+# an int8 one), B14 (attention.cu's training mode) and B18
+# (flash_train.cu's wgmma passes) at f16 keys against their plain
+# versions: B13 1e-4 (f32 math from the same f16 values, f32 out), B14 and
+# B18 2e-2 as their bf16 keys (P and dS rounded to bf16 on both sides, O
+# and the grads bf16); and chip_smoke.py's phase_f16_attention probes
+F16_ATTENTION = {
+    "decode-mha": DecodeAttnKey(4, 6, 256, 64, "f16", stacked=3),
+    "decode-slotted": DecodeAttnKey(4, 6, 256, 64, "f16", slotted=True,
+                                    stacked=3),
+    "decode-gqa-g3": DecodeAttnKey(4, 2, 256, 64, "f16", groups=3,
+                                   stacked=3),
+    "decode-pack2": DecodeAttnKey(4, 6, 256, 64, "f16", pack2=True,
+                                  stacked=3),
+    "decode-int8-kv": DecodeAttnKey(4, 6, 256, 64, "f16", kv_quant=True,
+                                    stacked=3),
+    "decode-d128-g8": DecodeAttnKey(2, 2, 128, 128, "f16", groups=8,
+                                    stacked=3),
+    "decode-d32": DecodeAttnKey(2, 4, 64, 32, "f16", stacked=3),
+    "train-d64-causal-s200": FlashTrainKey(2, 4, 200, 64, "f16", True,
+                                           0.125),
+    "train-d32-tail": FlashTrainKey(2, 3, 100, 32, "f16", False,
+                                    32 ** -0.5),
+    "train-d128-causal": FlashTrainKey(1, 2, 200, 128, "f16", True,
+                                       128 ** -0.5),
+    "train-d128-full": FlashTrainKey(1, 2, 256, 128, "f16", False,
+                                     128 ** -0.5),
+}
+
+
+@pytest.mark.parametrize("name", list(F16_ATTENTION))
+def test_f16_attention_kernels_match_plain(cuda, name):
+    key = F16_ATTENTION[name]
+    if isinstance(key, DecodeAttnKey):
+        pos = [0, key.seq, 100, key.seq - 1] if key.slotted else \
+            [key.seq - 37]
+        q, k, v, pos, kw = _decode_inputs(cuda, key, pos)
+        kern = build_kernel(key)
+        got = kern(q, k, v, pos, 1, **kw)
+        want = reference_kernel(key)(q, k, v, pos, 1, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == 1 and got.dtype == torch.float32
+        assert _err(got, want) <= 1e-4
+        return
+    q, k, v, do = (_rnd(cuda, (key.batch, key.seq, key.heads,
+                               key.head_dim), "f16") for _ in range(4))
+    fwd = build_kernel(key)
+    o, lse2 = fwd(q, k, v)
+    po, plse2 = reference_kernel(key)(q, k, v)
+    assert fwd.route == "wgmma" and o.dtype == torch.bfloat16
+    assert _err(o, po) <= 2e-2 and _err(lse2, plse2) <= 1e-4
+    delta = (do.float() * po.float()).sum(-1).transpose(1, 2).contiguous()
+    bkey = FlashTrainBwdKey(**dataclasses.asdict(key))
+    bwd = build_kernel(bkey)
+    got = bwd(q, k, v, do, plse2, delta)
+    again = bwd(q, k, v, do, plse2, delta)
+    want = reference_kernel(bkey)(q, k, v, do, plse2, delta)
+    torch.cuda.synchronize()
+    assert bwd.route == "wgmma" and bwd.launches == 2
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert _err(a, w) <= 2e-2
+
+
+F16_ATTENTION_PROBES = {label: (key, probe) for label, key, probe
+                        in chip_smoke._f16_attention_probes()}
+
+
+@pytest.mark.parametrize("name", list(F16_ATTENTION_PROBES))
+def test_f16_attention_probes(cuda, name):
+    """The operands are read in f16 (a bf16 q, K, V or dO would move the
+    output) and P and dS are rounded to bf16 (P kept in f16 would move
+    it): chip_smoke.py's f16_attention_probe."""
+    key, probe = F16_ATTENTION_PROBES[name]
+    args, kw, readings, model, subject = chip_smoke.f16_attention_probe(
+        key, probe)
+    kern = build_kernel(key)
+    got = kern(*args, **kw)
+    want = reference_kernel(key)(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert chip_smoke.f16_attention_probe_holds(got, want, readings, model,
+                                                subject)

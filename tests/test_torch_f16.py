@@ -37,6 +37,10 @@ from tpp_mlir_tpu.tools.mlir_gen import build_parser as jax_gen_parser
 from tpp_mlir_tpu.tools.mlir_gen import config_from_args as jax_gen_config
 from tpp_mlir_tpu.tools.mlir_gen import generate_text as jax_generate
 from tpp_mlir_tpu.tools.tpp_run import run_module as jax_run_module
+from tpp_mlir_tpu.xsmm.decode_attn import DecodeAttnKey as JaxDecodeKey
+from tpp_mlir_tpu.xsmm.decode_attn import build_decode_attn
+from tpp_mlir_tpu.xsmm.flash_train import FlashTrainKey as JaxTrainKey
+from tpp_mlir_tpu.xsmm.flash_train import build_flash_train_fwd
 from tpp_mlir_tpu.xsmm.kernels import build_kernel as jax_build_kernel
 from tpp_mlir_tpu_torch import ops
 from tpp_mlir_tpu_torch.runtime.tensor_init import tensor_init, to_torch
@@ -376,12 +380,13 @@ def test_f16_sizes_as_two_bytes():
         reference.gemm_plan(BrgemmKey(1, 256, 1024, 1024, "bf16"))
 
 
-# every family outside the slice's f16 keys keeps refusing, naming A14
-# (B13's decode, B14's training forward, under flash_heads too); the
-# transformer family's (B12, attention, the batched matmul, B2's LayerNorm
-# prologue and LN-stats producer), once refused here, run since ROADMAP
-# A14 items 1, 2, 3 and 5, and the conv family's, B16/B17's and B15's f16
-# output since items 4, 6 and 7 (NOW_RUN below)
+# f16 keys once refused naming A14: the transformer family's (B12,
+# attention, the batched matmul, B2's LayerNorm prologue and LN-stats
+# producer) run since ROADMAP A14 items 1, 2, 3 and 5, the conv family's,
+# B16/B17's and B15's f16 output since items 4, 6 and 7, B13's decode and
+# B14's training forward since item 8 (NOW_RUN below); keys mixing 16-bit
+# types keep refusing, naming A14; an f16 token key under flash_heads
+# raises the reference's own refusal (FLASH_HEADS_REFUSAL)
 OUTSIDE = {
     "layer-norm": LayerNormKey(m=8, n=64, dtype="f16"),
     "attention": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
@@ -408,8 +413,9 @@ OUTSIDE = {
     "b1-bf16-to-f16": BrgemmKey(1, 8, 64, 64, "bf16", out_dtype="f16"),
     "b1-f16-to-bf16": BrgemmKey(1, 8, 64, 64, "f16", out_dtype="bf16"),
     "chain-f32-to-f16": ChainKey(m=8, dims=(64, 64), out_dtype="f16"),
-    # B14's forward under a token key's flash_heads (A14 item 8), and an
-    # attention key mixing f16 operands with a bf16 output
+    # a token key's flash_heads, which the reference's gate takes in
+    # f32/bf16 only, and an attention key mixing f16 operands with a bf16
+    # output
     "flash-heads": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
                                dtype="f16", causal=True, heads=2,
                                strategy="flash_heads"),
@@ -419,7 +425,11 @@ OUTSIDE = {
 }
 NOW_RUN = ("layer-norm", "attention", "batch-matmul", "ln-prologue",
            "ln-stats-out", "conv-nhwc", "conv-blocked", "int8-f16-out",
-           "grouped", "grouped-wgrad")
+           "grouped", "grouped-wgrad", "decode", "flash-train")
+# the reference runs another kernel for an f16 flash_heads key without a
+# word (its gate takes f32/bf16, kernels.py:1674-1681 there): the port
+# refuses it in ADVICE.md #2's words, as every such forced strategy
+FLASH_HEADS_REFUSAL = "ADVICE.md #2"
 
 
 def _now_runs(key):
@@ -430,9 +440,37 @@ def _now_runs(key):
     more), against the port's own B1 at the key without ln_stats_out
     (bit-equal) and numpy's row statistics of its output. The convs and
     B16 take f16 operands (the conv's C in f16), B17 xt (k, m) and dY in
-    f16 (its dW is f32), B15 s8 operands and f32 scales."""
+    f16 (its dW is f32), B15 s8 operands and f32 scales. B13 (f32 out)
+    and B14 (bf16 O, f32 lse2), which the JAX package builds in f16 only
+    as their Pallas bodies, against those in interpret mode: B13 at 1e-5
+    as tests/test_torch_decode_attn.py (f32 math from the same f16
+    values), B14's O at 1e-2 as tests/test_torch_flash_train.py's bf16
+    (P rounded to bf16 on both sides)."""
     rng = np.random.default_rng(9)
     kern = build_kernel(key)
+    if isinstance(key, DecodeAttnKey):     # one layer's cache, every row
+        q = _f16((key.batch, key.heads, key.head_dim), 21)
+        k, v = (_f16((key.batch, key.heads, key.seq, key.head_dim), 22 + i)
+                for i in range(2))
+        pos = np.array([key.seq - 1], np.int32)
+        got = kern(*map(to_torch, (q, k, v)), torch.from_numpy(pos))
+        want = build_decode_attn(JaxDecodeKey(**dataclasses.asdict(key)),
+                                 interpret=True)(*map(jnp.asarray,
+                                                      (q, k, v, pos)))
+        assert got.dtype == torch.float32 and kern.launches == 0
+        assert _err(got, want) <= 1e-5
+        return
+    if isinstance(key, FlashTrainKey):     # (B, S, H, D) operands
+        shape = (key.batch, key.seq, key.heads, key.head_dim)
+        q, k, v = (_f16(shape, 24 + i) for i in range(3))
+        o, lse2 = kern(*map(to_torch, (q, k, v)))
+        jo, _ = build_flash_train_fwd(JaxTrainKey(**dataclasses.asdict(key)),
+                                      True)(*(jnp.asarray(x.swapaxes(1, 2))
+                                              for x in (q, k, v)))
+        assert o.dtype == torch.bfloat16 and lse2.dtype == torch.float32
+        assert kern.launches == 0
+        assert _err(o, np.asarray(jo, np.float32).swapaxes(1, 2)) <= 1e-2
+        return
     if isinstance(key, ConvNhwcKey):
         args = (_f16((key.N, key.H, key.W, key.C), 16),
                 _f16((key.R, key.S, key.C, key.K), 17, 0.1),
@@ -496,7 +534,8 @@ def test_f16_keys_outside_the_slice_name_a14(name):
     if name in NOW_RUN:
         _now_runs(OUTSIDE[name])
         return
-    with pytest.raises(NotImplementedError, match="A14"):
+    refusal = FLASH_HEADS_REFUSAL if name == "flash-heads" else "A14"
+    with pytest.raises(NotImplementedError, match=refusal):
         build_kernel(OUTSIDE[name])
 
 
@@ -515,11 +554,10 @@ def _f16_dispatch_module(dispatch, invoke, attrs, operands, out):
     return m
 
 
-# IR whose f16 key no kernel of the port takes: verify-slice refuses it
-# through check_slice, naming A14, before anything runs; the LayerNorm
-# prologue's and B12's, once refused here, pass verify-slice and run since
-# ROADMAP A14 items 1 and 2, and the NHWC conv's since items 4 and 6
-# (IR_NOW_RUN); an f16 tl.generic stays refused (F16_REFUSED)
+# f16 IR once refused by verify-slice, naming A14, before anything ran: the
+# LayerNorm prologue's and B12's pass verify-slice and run since ROADMAP
+# A14 items 1 and 2, the NHWC conv's since items 4 and 6, and an f16
+# tl.generic since item 8 (IR_NOW_RUN)
 F16_IR_OUTSIDE = {
     "ln-prologue": ("xsmm.fused_brgemm_dispatch", "xsmm.fused_brgemm",
                     dict(batch=1, m=8, n=64, k=64, flags=("beta_0",),
@@ -535,16 +573,16 @@ F16_IR_OUTSIDE = {
                        flags=()),
                   [(2, 8, 8, 16), (3, 3, 16, 16), (2, 6, 6, 16)],
                   (2, 6, 6, 16)),
-    "generic": None,        # _f16_generic_module
+    "generic": (None, None, None, [(8, 16), (8, 16)], (8, 16)),
 }
 
 
-IR_NOW_RUN = ("ln-prologue", "layer-norm", "conv-nhwc")
+IR_NOW_RUN = ("ln-prologue", "layer-norm", "conv-nhwc", "generic")
 
 
 def _f16_generic_module():
-    """An elementwise f16 tl.generic (a * b): verify-slice refuses its f16
-    tensor (passes/pipelines.py F16_REFUSED)."""
+    """An elementwise f16 tl.generic (a * b), which the JAX package's
+    evaluator and the port's run by widening to f32 and rounding once."""
     from tpp_mlir_tpu_torch.ir import Function, Module, TensorType, \
         TppBuilder
     m = Module()
@@ -561,7 +599,7 @@ def _f16_generic_module():
 def test_verify_slice_refuses_f16_ir_outside_the_gemm_family(name):
     from tpp_mlir_tpu_torch.passes import run_pipeline
     from tpp_mlir_tpu_torch.runtime import compile as port_compile
-    module = _f16_generic_module() if F16_IR_OUTSIDE[name] is None else \
+    module = _f16_generic_module() if name == "generic" else \
         _f16_dispatch_module(*F16_IR_OUTSIDE[name])
     if name in IR_NOW_RUN:
         # verify-slice admits it, and the executor runs it to the f16
@@ -579,6 +617,8 @@ def test_verify_slice_refuses_f16_ir_outside_the_gemm_family(name):
             F16_IR_OUTSIDE[name][4]
         assert torch.isfinite(got.float()).all()
         assert _err(got, want) <= 2e-3
+        if name == "generic":   # both evaluators: f32, one rounding
+            assert np.array_equal(got.numpy(), np.asarray(want))
         return
     with pytest.raises(NotImplementedError, match="A14") as e:
         run_pipeline(module, "verify-slice")

@@ -304,7 +304,7 @@ def _one_op(ir, shapes, build):
 def test_f16_evaluators_match_the_jax_evaluator(name):
     """Each evaluator gives an f16 result of the declared type, within
     2e-3 of the JAX evaluator's on the same op; the module passes
-    verify-slice (F16_REFUSED keeps tl.generic alone)."""
+    verify-slice."""
     shapes, build = EVAL[name]
     port, ref = _one_op(port_ir, shapes, build), _one_op(jax_ir, shapes,
                                                          build)

@@ -146,7 +146,8 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_flash_train_fwd_route_table(dtype, want):
     # B14's kernel by operand dtype (xsmm/reference.py flash_train_fwd_route):
     # bf16 on attention.cu's wgmma kernel in its training mode, f32 on
-    # flash_train.cu's f32-FMA forward
+    # flash_train.cu's f32-FMA forward (f16 takes bf16's:
+    # tests/test_torch_f16_attention.py)
     from tpp_mlir_tpu_torch.xsmm.reference import flash_train_fwd_route
     for causal in (True, False):
         key = FlashTrainKey(batch=2, heads=4, seq=24, head_dim=32,
@@ -168,5 +169,18 @@ def test_flash_train_bwd_route_table(dtype, want):
 
 
 def test_flash_train_key_rejects_f16():
-    with pytest.raises(NotImplementedError, match="A14"):
-        reference_kernel(FlashTrainKey(1, 2, 16, 32, "f16"))
+    """Once refused naming A14, an f16 key now runs (ROADMAP A14 item 8):
+    as the JAX package's f16 keys, B14 and B18 take f16 operands and
+    return bf16 O, dQ, dK and dV (P and dS rounded to bf16), lse2 f32;
+    tests/test_torch_f16_attention.py holds them to the Pallas bodies."""
+    key = FlashTrainKey(1, 2, 16, 32, "f16")
+    rng = np.random.default_rng(6)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 16, 2, 32))
+                                    .astype(np.float16)) for _ in range(4))
+    o, lse2 = reference_kernel(key)(q, k, v)
+    assert o.dtype == torch.bfloat16 and lse2.dtype == torch.float32
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = reference_kernel(FlashTrainBwdKey(**vars(key)))(
+        q, k, v, do, lse2, delta)
+    assert all(g.dtype == torch.bfloat16 and g.shape == q.shape and
+               torch.isfinite(g.float()).all() for g in grads)

@@ -16,14 +16,18 @@
 // aligned top-left.
 //
 // Training forward (replaces tpp_mlir_tpu/xsmm/flash_train.py:146
-// build_flash_train_fwd, B14, for bf16 operands; flash_train.cu's
+// build_flash_train_fwd, B14, for bf16 and f16 operands; flash_train.cu's
 // tpp_flash_train_fwd calls tpp_attention_train_fwd below): the same
 // function on the (B, S, H, D) layout, which is the token layout's memory,
-// with two differences that a compile-time mode (TRAIN) folds into the
-// wgmma kernel: Q is staged rounded but unscaled and the S accumulators are
+// with differences that a compile-time mode (TRAIN) folds into the wgmma
+// kernel: Q is staged rounded but unscaled and the S accumulators are
 // multiplied by qscale in f32 before the row max, as the plain version
-// scales the f32 product (B18 recomputes P from lse2); and each row's
-// base-2 log-sum-exp lse2 = m + log2(l) is written, (B, H, S) f32.
+// scales the f32 product (B18 recomputes P from lse2); each row's base-2
+// log-sum-exp lse2 = m + log2(l) is written, (B, H, S) f32; and P is
+// rounded to bf16 and O stored in bf16 whatever the products' type, as
+// B14 does (its `_pv_dtype`): with f16 operands P is rounded to bf16 and
+// then converted to f16 for the .f16 product (hopper.cuh
+// pack_bf16_as_f16), exact for P >= 2^-17.
 //
 // Warm bench (replaces :2091 _build_flash_bench, B11): with repeats > 0 a
 // block loops over the repeats on its own Q tile. A tile's output rows
@@ -188,8 +192,20 @@ __device__ __forceinline__ float round16(float x) {
   return tpp::to_f32(tpp::from_f32<E>(x));
 }
 
-// TRAIN: B14's forward (one pass, bf16 by TMA): Q staged unscaled, S scaled
-// by qscale in f32 in registers, and each row's lse2 = m + log2(l) stored.
+// P's pair as the A fragment of P.V in the products' type E: rounded to E,
+// or in training mode to bf16 first (B14 rounds P to bf16 for bf16 and f16
+// operands), then converted to E
+template <class E, bool TRAIN>
+__device__ __forceinline__ uint32_t pack_p(float p0, float p1) {
+  if constexpr (TRAIN && std::is_same<E, __half>::value)
+    return hw::pack_bf16_as_f16(p0, p1);
+  else
+    return hw::pack16<E>(p0, p1);
+}
+
+// TRAIN: B14's forward (one pass, bf16 or f16 by TMA): Q staged unscaled, S
+// scaled by qscale in f32 in registers, P rounded to bf16 (pack_p), each
+// row's lse2 = m + log2(l) stored, and O stored in bf16.
 template <Loader LD, int D, bool TRAIN = false>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap kmap,
@@ -358,7 +374,7 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
           sum[hh] += p0 + p1;
           // S columns 16 kt .. 16 kt + 15 (s[8 kt .. 8 kt + 7]) are the A
           // fragment of P.V's step kt
-          p[i / 8][(i % 8) / 2] = hw::pack16<E>(p0, p1);
+          p[i / 8][(i % 8) / 2] = pack_p<E, TRAIN>(p0, p1);
         }
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + sum[hh];
@@ -417,6 +433,9 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
     if (a.out_dtype == tpp::dtype_code<E>())
       *reinterpret_cast<uint32_t*>(static_cast<E*>(a.out) + at) =
           hw::pack16<E>(x0, x1);
+    else if (TRAIN)   // B14's bf16 O, also over f16 products
+      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at) =
+          hw::pack_bf16(x0, x1);
     else
       *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
           make_float2(x0, x1);
@@ -720,26 +739,40 @@ extern "C" int tpp_attention(const void* q, const void* k, const void* v,
   }
 }
 
+namespace {
+
+template <Loader LD>
+int launch_train(const Args& a, int batch, int heads, int head_dim,
+                 cudaStream_t st) {
+  switch (head_dim) {
+    case 32: return launch_mma<LD, 32, true>(a, batch, heads, st);
+    case 64: return launch_mma<LD, 64, true>(a, batch, heads, st);
+    case 128: return launch_mma<LD, 128, true>(a, batch, heads, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 // B14, the training forward (replaces tpp_mlir_tpu/xsmm/flash_train.py:146
-// build_flash_train_fwd), bf16 operands (B14's f16 keys are ROADMAP A14's,
-// not instantiated): the wgmma kernel above in its
-// training mode over the (B, S, H, D) layout (row stride H*D, TMA loader),
-// causal or not, O in bf16 and lse2 (B, H, S) f32. flash_train.cu's
-// tpp_flash_train_fwd sends its bf16 keys here. Returns the cudaError_t of
-// the launch (0 on success).
+// build_flash_train_fwd), bf16 or f16 operands (`dtype`, epilogue.cuh's
+// code): the wgmma kernel above in its training mode over the (B, S, H, D)
+// layout (row stride H*D, the TMA loader of the operands' type, products
+// of that type), causal or not, P rounded to bf16, O in bf16 and lse2
+// (B, H, S) f32. flash_train.cu's tpp_flash_train_fwd sends its 16-bit
+// keys here. Returns the cudaError_t of the launch (0 on success).
 extern "C" int tpp_attention_train_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse2,
                                        int batch, int seq, int heads,
-                                       int head_dim, int causal,
+                                       int head_dim, int dtype, int causal,
                                        float qscale, void* stream) {
   Args a{q,      k,      v,      o,           seq, seq,
          heads * head_dim, heads * head_dim, qscale, causal, tpp::kBF16, 0};
   a.lse = lse2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32: return launch_mma<kTma, 32, true>(a, batch, heads, st);
-    case 64: return launch_mma<kTma, 64, true>(a, batch, heads, st);
-    case 128: return launch_mma<kTma, 128, true>(a, batch, heads, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == tpp::kBF16)
+    return launch_train<kTma>(a, batch, heads, head_dim, st);
+  if (dtype == tpp::kF16)
+    return launch_train<kTmaF16>(a, batch, heads, head_dim, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

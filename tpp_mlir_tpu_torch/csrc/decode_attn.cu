@@ -5,7 +5,7 @@
 //   out[b, h, g] = sum_{s <= pos} softmax_s(K[li,b,h,s] . q[b,h,g] * D^-0.5
 //                                           [* ks[li,b,h,s]]) [* vs] V[..s]
 // with the cache as the engine keeps it: (L, B, H, S, D) per-head contiguous
-// (bf16, f32, or int8 with (L, B, H, S) f32 scales), or pack2's
+// (bf16, f16, f32, or int8 with (L, B, H, S) f32 scales), or pack2's
 // (L, B, H/2, S, 2D) head pairs, which are the same rows read at column
 // offset (h % 2) * D with a row stride of 2D. q is (B, H, G, D) in the
 // activation dtype (G query heads share KV head h); the output is f32.
@@ -108,6 +108,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* p, float (&x)[CPL]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -397,7 +408,8 @@ int launch_d(const Args& a, int d, int G, cudaStream_t st) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). q: (B, H, G, D) in
-// q_dtype; k/v: the stacked cache in kv_dtype (0 f32, 1 bf16, 2 int8),
+// q_dtype (f32, bf16 or f16, epilogue.cuh's codes); k/v: the stacked cache
+// in kv_dtype (0 f32, 1 bf16, 2 int8, 3 f16: xsmm/kernels.py _KV_CODE),
 // (L, B, H, S, D), or (L, B, H/2, S, 2D) with pack2, 16-byte aligned;
 // k_s/v_s: (L, B, H, S) f32 or null; pos: int32 on the device, one value or
 // B (slotted); out: (B, H, G, D) f32. li selects the layer. chunk and
@@ -434,5 +446,9 @@ extern "C" int tpp_decode_attn(const void* q, const void* k, const void* v,
     return launch_d<float, int8_t>(a, head_dim, groups, st);
   if (q_dtype == tpp::kBF16 && kv_dtype == 2)
     return launch_d<__nv_bfloat16, int8_t>(a, head_dim, groups, st);
+  if (q_dtype == tpp::kF16 && kv_dtype == 3)
+    return launch_d<__half, __half>(a, head_dim, groups, st);
+  if (q_dtype == tpp::kF16 && kv_dtype == 2)
+    return launch_d<__half, int8_t>(a, head_dim, groups, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

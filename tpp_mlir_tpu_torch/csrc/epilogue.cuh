@@ -14,9 +14,10 @@
 
 namespace tpp {
 
-// f16 (ROADMAP A14) runs in the GEMM family (B1, B2, B3-B5, B19, B20), B12,
-// attention (B6-B11), the batched matmul (B21/B22), the convs (B23-B25),
-// the grouped GEMMs (B16/B17) and B15's output
+// f16 (ROADMAP A14) runs in every kernel: the GEMM family (B1, B2, B3-B5,
+// B19, B20), B12, attention (B6-B11), the batched matmul (B21/B22), the
+// convs (B23-B25), the grouped GEMMs (B16/B17), B15's output, decode
+// attention (B13) and the training attention (B14/B18)
 enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 enum Binary : int { kBinNone = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4,
                     kMax = 5 };

@@ -9,14 +9,19 @@
 //             P = exp2(s2 - m2), l = rowsum(P); lse2 = m2 + log2(l)
 //   backward: P = exp2(s2 - lse2), dV = P'^T dO, dP = dO V^T,
 //             dS = (P (dP - delta) scale)', dQ = dS K, dK = dS^T Q
-// where ' rounds to bf16 for bf16 operands (the TPU kernels' `_pv_dtype`)
-// and every product sums in f32. Outputs are in the operand dtype.
+// where ' rounds to bf16 for bf16 and f16 operands (the TPU kernels'
+// `_pv_dtype`) and every product sums in f32. Outputs are in f32 for f32
+// operands and in bf16 for bf16 and f16 ones (the TPU kernels' `odt`).
 //
 // Each kernel takes one of two routes, which xsmm/reference.py
 // flash_train_fwd_route and flash_train_bwd_route choose from the key:
-//   "wgmma" (bf16 operands): B14 runs attention.cu's wgmma kernel in its
-//   training mode (tpp_attention_train_fwd); B18 runs the two wgmma
-//   kernels below;
+//   "wgmma" (bf16 or f16 operands): B14 runs attention.cu's wgmma kernel
+//   in its training mode (tpp_attention_train_fwd); B18 runs the two wgmma
+//   kernels below, whose products take the operands' type (.bf16 or
+//   .f16); with f16 operands each P and dS value is rounded to bf16, as
+//   B18 rounds it, and then converted to f16 for its product (hopper.cuh
+//   pack_bf16_as_f16: exact for |x| >= 2^-17, a term moves by at most
+//   2^-25 below);
 //   "fma" (f32 operands, which the TPU runs in true f32): the f32-FMA
 //   kernels below, no tensor cores.
 // The TPU kernels hold whole (S, S) slabs of one head in VMEM; a Hopper
@@ -439,15 +444,16 @@ int run_fma(bool backward, const Args& a, int batch, cudaStream_t st) {
   return launch_fma(flash_bwd_q_kernel<D>, bytes, a, batch, st);
 }
 
-// ===================================== "wgmma": B18, bf16 operands
+// ============================== "wgmma": B18, bf16 or f16 operands
 
 constexpr int WG = 128;       // threads of a warpgroup
 constexpr int TR = 64;        // rows of a streamed tile
 constexpr int STAGES = 3;     // ring depth
 static_assert(TR == 64, "hopper.cuh's ss_abt / rs_ab: 64-row B tiles");
 
-// A bf16 tile of rows x D is kept as D / CW chunks [rows][SW bytes], each
-// swizzled as TMA writes it (hopper.cuh's layout, as attention.cu's).
+// A 16-bit (bf16 or f16) tile of rows x D is kept as D / CW chunks
+// [rows][SW bytes], each swizzled as TMA writes it (hopper.cuh's layout, as
+// attention.cu's).
 template <int D>
 struct WTile : hw::Chunks<D> {
   static constexpr int BYTES = TR * D * 2;        // a 64-row tile
@@ -463,6 +469,17 @@ __device__ __forceinline__ void fence_frags(uint32_t (&p)[4][4]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
+}
+
+// two P or dS values as an A fragment pair of the products' type E: rounded
+// to bf16 (B18's `_pv_dtype` for bf16 and f16 operands), then, for f16
+// products, converted to f16
+template <class E>
+__device__ __forceinline__ uint32_t pack_pv(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value)
+    return hw::pack_bf16_as_f16(lo, hi);
+  else
+    return hw::pack_bf16(lo, hi);
 }
 
 // acc (rows `row` and row + 8, columns col0 + 8 (i / 4) + 2 (lane % 4)),
@@ -496,8 +513,8 @@ struct Pass1 {
   static constexpr int bytes = bar_off + (1 + 2 * STAGES) * 8;
 };
 
-// pass 1: dK and dV of 64 NCW K/V rows
-template <int D, int NCW>
+// pass 1: dK and dV of 64 NCW K/V rows; E the products' type
+template <int D, int NCW, class E>
 __global__ void __launch_bounds__(WG * NCW + 32, 1)
 bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -591,8 +608,8 @@ bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const float* dlt = lse + TR;
       float s[32], dp[32];
       hw::wgmma_fence();
-      hw::ss_abt<D, L::R>(s, ka, qt);     // S^T = K Q^T
-      hw::ss_abt<D, L::R>(dp, va, dot);   // dP^T = V dO^T
+      hw::ss_abt<D, L::R, E>(s, ka, qt);     // S^T = K Q^T
+      hw::ss_abt<D, L::R, E>(dp, va, dot);   // dP^T = V dO^T
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       hw::fence_regs(s);
@@ -615,16 +632,16 @@ bwd_kv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           if (kv >= a.seq || qi + 1 >= a.seq || (a.causal && kv > qi + 1))
             p1 = 0.f;
         }
-        pf[i / 8][(i % 8) / 2] = hw::pack_bf16(p0, p1);
+        pf[i / 8][(i % 8) / 2] = pack_pv<E>(p0, p1);
         df[i / 8][(i % 8) / 2] =
-            hw::pack_bf16(p0 * (dp[i] - d2.x) * a.scale,
-                          p1 * (dp[i + 1] - d2.y) * a.scale);
+            pack_pv<E>(p0 * (dp[i] - d2.x) * a.scale,
+                       p1 * (dp[i + 1] - d2.y) * a.scale);
       }
       hw::fence_regs(dv);
       hw::fence_regs(dk);
       hw::wgmma_fence();
-      hw::rs_ab<D>(dv, pf, dot);   // dV += P'^T dO
-      hw::rs_ab<D>(dk, df, qt);    // dK += dS'^T Q
+      hw::rs_ab<D, E>(dv, pf, dot);   // dV += P'^T dO
+      hw::rs_ab<D, E>(dk, df, qt);    // dK += dS'^T Q
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       fence_frags(pf);
@@ -650,8 +667,8 @@ struct Pass2 {
   static constexpr int bytes = bar_off + (1 + 2 * STAGES) * 8;
 };
 
-// pass 2: dQ of 128 query rows
-template <int D>
+// pass 2: dQ of 128 query rows; E the products' type
+template <int D, class E>
 __global__ void __launch_bounds__(2 * WG + 32, 1)
 bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -746,8 +763,8 @@ bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const unsigned char* vt = kt + T::BYTES;
       float s[32], dp[32];
       hw::wgmma_fence();
-      hw::ss_abt<D, L::QB>(s, qa, kt);     // S = Q K^T
-      hw::ss_abt<D, L::QB>(dp, doa, vt);   // dP = dO V^T
+      hw::ss_abt<D, L::QB, E>(s, qa, kt);     // S = Q K^T
+      hw::ss_abt<D, L::QB, E>(dp, doa, vt);   // dP = dO V^T
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       hw::fence_regs(s);
@@ -767,12 +784,12 @@ bwd_q_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             p1 = 0.f;
         }
         df[i / 8][(i % 8) / 2] =
-            hw::pack_bf16(p0 * (dp[i] - dr[hh]) * a.scale,
-                          p1 * (dp[i + 1] - dr[hh]) * a.scale);
+            pack_pv<E>(p0 * (dp[i] - dr[hh]) * a.scale,
+                       p1 * (dp[i + 1] - dr[hh]) * a.scale);
       }
       hw::fence_regs(dq);
       hw::wgmma_fence();
-      hw::rs_ab<D>(dq, df, kt);   // dQ += dS' K
+      hw::rs_ab<D, E>(dq, df, kt);   // dQ += dS' K
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       fence_frags(df);
@@ -791,9 +808,9 @@ int set_smem(Kernel kernel, int bytes) {
 }
 
 // B18 "wgmma": the tensor maps of one call (Q, K, V, dO as (H*D, S, B)
-// boxes of (CW, 64, 1); lse2 and delta as flat (B*H*S) f32 boxes of 64),
-// then pass 1 and pass 2 on the stream.
-template <int D>
+// boxes of (CW, 64, 1) of E, BFLOAT16 or FLOAT16; lse2 and delta as flat
+// (B*H*S) f32 boxes of 64), then pass 1 and pass 2 on the stream.
+template <int D, class E>
 int run_wgmma(const Args& a, int batch, cudaStream_t st) {
   using T = WTile<D>;
   constexpr int NCW = kv_wgs<D>();
@@ -804,10 +821,11 @@ int run_wgmma(const Args& a, int batch, cudaStream_t st) {
                                static_cast<uint64_t>(a.seq) * a.ld * 2};
   const uint32_t box[3] = {T::CW, TR, 1};
   CUtensorMap qm{}, km{}, vm{}, dom{}, lm{}, dm{};
-  int rc = hw::make_map(&qm, a.q, 3, dims, strides, box, T::SW);
-  if (rc == 0) rc = hw::make_map(&km, a.k, 3, dims, strides, box, T::SW);
-  if (rc == 0) rc = hw::make_map(&vm, a.v, 3, dims, strides, box, T::SW);
-  if (rc == 0) rc = hw::make_map(&dom, a.dout, 3, dims, strides, box, T::SW);
+  int rc = hw::make_map<E>(&qm, a.q, 3, dims, strides, box, T::SW);
+  if (rc == 0) rc = hw::make_map<E>(&km, a.k, 3, dims, strides, box, T::SW);
+  if (rc == 0) rc = hw::make_map<E>(&vm, a.v, 3, dims, strides, box, T::SW);
+  if (rc == 0)
+    rc = hw::make_map<E>(&dom, a.dout, 3, dims, strides, box, T::SW);
   const uint64_t sdims[1] = {static_cast<uint64_t>(batch) * a.heads * a.seq};
   const uint32_t sbox[1] = {TR};
   if (rc == 0)
@@ -816,7 +834,7 @@ int run_wgmma(const Args& a, int batch, cudaStream_t st) {
     rc = hw::make_map<float>(&dm, a.delta, 1, sdims, nullptr, sbox, 0);
   if (rc) return rc;
 
-  auto kv_kernel = bwd_kv_wgmma_kernel<D, NCW>;
+  auto kv_kernel = bwd_kv_wgmma_kernel<D, NCW, E>;
   const int kv_smem = Pass1<D, NCW>::bytes + 1024;   // + the alignment
   rc = set_smem(kv_kernel, kv_smem);
   if (rc) return rc;
@@ -826,7 +844,7 @@ int run_wgmma(const Args& a, int batch, cudaStream_t st) {
   rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
 
-  auto q_kernel = bwd_q_wgmma_kernel<D>;
+  auto q_kernel = bwd_q_wgmma_kernel<D, E>;
   const int q_smem = Pass2<D>::bytes + 1024;
   rc = set_smem(q_kernel, q_smem);
   if (rc) return rc;
@@ -837,21 +855,39 @@ int run_wgmma(const Args& a, int batch, cudaStream_t st) {
 
 enum Route : int { kFma = 0, kWgmma = 1 };
 
-int dispatch(bool backward, const Args& a, int batch, int head_dim,
-             int route, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// the wgmma backward at the products' type E
+template <class E>
+int run_wgmma_d(const Args& a, int batch, int head_dim, cudaStream_t st) {
   switch (head_dim) {
-    case 32:
-      return route == kWgmma ? run_wgmma<32>(a, batch, st)
-                             : run_fma<32>(backward, a, batch, st);
-    case 64:
-      return route == kWgmma ? run_wgmma<64>(a, batch, st)
-                             : run_fma<64>(backward, a, batch, st);
-    case 128:
-      return route == kWgmma ? run_wgmma<128>(a, batch, st)
-                             : run_fma<128>(backward, a, batch, st);
+    case 32: return run_wgmma<32, E>(a, batch, st);
+    case 64: return run_wgmma<64, E>(a, batch, st);
+    case 128: return run_wgmma<128, E>(a, batch, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the FMA passes (f32), or the wgmma backward of bf16 or f16 operands
+int dispatch(bool backward, const Args& a, int batch, int head_dim,
+             int dtype, int route, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == kWgmma)
+    return dtype == tpp::kF16
+               ? run_wgmma_d<__half>(a, batch, head_dim, st)
+               : run_wgmma_d<__nv_bfloat16>(a, batch, head_dim, st);
+  switch (head_dim) {
+    case 32: return run_fma<32>(backward, a, batch, st);
+    case 64: return run_fma<64>(backward, a, batch, st);
+    case 128: return run_fma<128>(backward, a, batch, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the route a dtype takes: wgmma for bf16 and f16, FMA for f32; -1 for
+// another code
+int route_of(int dtype) {
+  return dtype == tpp::kBF16 || dtype == tpp::kF16 ? kWgmma
+         : dtype == tpp::kF32                      ? kFma
+                                                   : -1;
 }
 
 }  // namespace
@@ -860,37 +896,37 @@ int dispatch(bool backward, const Args& a, int batch, int head_dim,
 extern "C" int tpp_attention_train_fwd(const void* q, const void* k,
                                        const void* v, void* o, float* lse2,
                                        int batch, int seq, int heads,
-                                       int head_dim, int causal,
+                                       int head_dim, int dtype, int causal,
                                        float qscale, void* stream);
 
-// B14. q/k/v/o are (B, S, H, D) in the operand dtype, lse2 (B, H, S) f32.
+// B14. q/k/v are (B, S, H, D) in the operand dtype, o (B, S, H, D) in f32
+// for f32 operands and bf16 for bf16 and f16 ones, lse2 (B, H, S) f32.
 // route is xsmm/reference.py flash_train_fwd_route's choice: 1 "wgmma"
-// (bf16), 0 "fma" (f32). Returns the cudaError_t of the launch (0 on
+// (bf16, f16), 0 "fma" (f32). Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int tpp_flash_train_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse2,
                                    int batch, int seq, int heads,
                                    int head_dim, int dtype, int causal,
                                    float qscale, int route, void* stream) {
-  // bf16 on the wgmma route, f32 on the FMA route; f16 keys (ROADMAP A14)
-  // are not instantiated
-  if ((dtype != tpp::kBF16 && dtype != tpp::kF32) ||
-      route != (dtype == tpp::kBF16 ? kWgmma : kFma))
+  // bf16 and f16 on the wgmma route, f32 on the FMA route
+  if (route != route_of(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == kWgmma)
     return tpp_attention_train_fwd(q, k, v, o, static_cast<float*>(lse2),
-                                   batch, seq, heads, head_dim, causal,
-                                   qscale, stream);
+                                   batch, seq, heads, head_dim, dtype,
+                                   causal, qscale, stream);
   const Args a{q, k, v, nullptr, o, nullptr, nullptr,
                static_cast<float*>(lse2), nullptr, seq, heads,
                heads * head_dim, causal, qscale, 0.f};
-  return dispatch(false, a, batch, head_dim, kFma, stream);
+  return dispatch(false, a, batch, head_dim, dtype, kFma, stream);
 }
 
-// B18: both passes, one after the other on the stream. q/k/v/dout and
-// dq/dk/dv are (B, S, H, D) in the operand dtype; lse2 and delta (B, H, S)
-// f32. route is xsmm/reference.py flash_train_bwd_route's choice: 1
-// "wgmma" (bf16; TMA needs 16-byte aligned operands, the batch goes in
+// B18: both passes, one after the other on the stream. q/k/v/dout are
+// (B, S, H, D) in the operand dtype, dq/dk/dv (B, S, H, D) in f32 for f32
+// operands and bf16 for bf16 and f16 ones; lse2 and delta (B, H, S) f32.
+// route is xsmm/reference.py flash_train_bwd_route's choice: 1 "wgmma"
+// (bf16, f16; TMA needs 16-byte aligned operands, the batch goes in
 // gridDim.y), 0 "fma" (f32).
 extern "C" int tpp_flash_train_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
@@ -899,14 +935,12 @@ extern "C" int tpp_flash_train_bwd(const void* q, const void* k,
                                    int seq, int heads, int head_dim,
                                    int dtype, int causal, float qscale,
                                    float scale, int route, void* stream) {
-  // bf16 on the wgmma route, f32 on the FMA route; f16 keys (ROADMAP A14)
-  // are not instantiated
-  if ((dtype != tpp::kBF16 && dtype != tpp::kF32) ||
-      route != (dtype == tpp::kBF16 ? kWgmma : kFma))
+  // bf16 and f16 on the wgmma route, f32 on the FMA route
+  if (route != route_of(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, dq, dk, dv,
                const_cast<float*>(static_cast<const float*>(lse2)),
                static_cast<const float*>(delta), seq, heads,
                heads * head_dim, causal, qscale, scale};
-  return dispatch(true, a, batch, head_dim, route, stream);
+  return dispatch(true, a, batch, head_dim, dtype, route, stream);
 }

@@ -419,6 +419,16 @@ __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two values rounded to bf16, then converted to f16 for an f16 product (the
+// training attention rounds P and dS to bf16 for bf16 and f16 keys): the
+// bf16 pair's halves are the f32 values' top 16 bits. Exact for |x| >=
+// 2^-17 (bf16's 8 significant bits fit f16's 11 down to its subnormal step
+// 2^-24); below, a value moves by at most 2^-25
+__device__ __forceinline__ uint32_t pack_bf16_as_f16(float lo, float hi) {
+  const uint32_t b = pack_bf16(lo, hi);
+  return pack_f16(__uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+
 // two values as a pair of the 16-bit product type T (bf16 or f16)
 template <class T>
 __device__ __forceinline__ uint32_t pack16(float lo, float hi) {

@@ -25,9 +25,8 @@ lowering (SLICE_OPS), so no IR runs half-lowered: a contraction, conv,
 attention or LayerNorm still in tl form (one that convert-tl-to-xsmm's
 `skip` or conv-to-brgemm left) would run its plain version on the card in
 place of its kernel, and is refused. It also refuses the keys of xsmm ops
-that check_slice refuses (an f16 key of a family with no f16 kernel,
-ROADMAP A14),
-an f16 tl.generic (F16_REFUSED), a tl.generic in contraction
+that check_slice refuses (an f16 key mixing 16-bit types, ROADMAP A14),
+a tl.generic in contraction
 form or with reduction dims outside it (the reference's evaluator raises
 on the latter too), and conv or attention keys whose kernel the reference
 would swap for another.
@@ -83,18 +82,8 @@ SLICE_OPS = frozenset({
 })
 
 
-# the tl ops that run no f16 tensor (ROADMAP A14): a tl.generic (the conv
-# family's pads, pools and strided blocked convs and the GPT embedding's
-# tl.gather run in f16); an xsmm op's f16 key is refused by check_slice
-F16_REFUSED = frozenset({"tl.generic"})
-
-
 def slice_violation(op) -> str | None:
     """Why the port cannot run `op`, or None."""
-    if op.opname in F16_REFUSED and any(
-            r.type.dtype == "f16" for r in op.results
-            if hasattr(r.type, "dtype")):
-        return "an f16 tensor (ROADMAP queue A14, f16 keys)"
     if op.opname not in SLICE_OPS:
         return f"op {op.opname} (not lowered to its kernel)"
     a = op.attrs

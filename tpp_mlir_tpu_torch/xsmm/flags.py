@@ -352,7 +352,7 @@ class FlashTrainKey:
     heads: int
     seq: int
     head_dim: int
-    dtype: str = "bf16"          # operand dtype: f32 | bf16
+    dtype: str = "bf16"          # operand dtype: f32 | bf16 | f16
     causal: bool = True
     scale: float = 1.0
 

@@ -52,13 +52,13 @@ reached. Each wrapper counts its launches.
   FlashTrainKey -> by reference.flash_train_fwd_route (replaces
                                      tpp_mlir_tpu/xsmm/flash_train.py:146
                                      build_flash_train_fwd, B14):
-                  csrc/attention.cu  (bf16: the wgmma kernel's training
-                                     mode)
+                  csrc/attention.cu  (bf16, f16: the wgmma kernel's
+                                     training mode)
                   csrc/flash_train.cu (f32: the f32-FMA forward)
   FlashTrainBwdKey -> csrc/flash_train.cu (replaces flash_train.py:190
                                      build_flash_train_bwd, B18; wgmma
-                                     passes for bf16, f32-FMA passes for
-                                     f32, by
+                                     passes for bf16 and f16, f32-FMA
+                                     passes for f32, by
                                      reference.flash_train_bwd_route)
   GroupedGemmKey -> csrc/grouped_gemm.cu (replaces :1138
                                      _build_grouped_gemm, B16; tile by
@@ -113,11 +113,9 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, UnaryKey)
 
-# csrc/epilogue.cuh's Dtype codes; f16 keys (ROADMAP A14) run on the GEMM
-# family, B2's LayerNorm prologue and ln_stats pair, B12, attention and the
-# batched matmul: the other kernels refuse their key
-# (reference.check_slice) and take no f16 operand (_native widens one for
-# them)
+# csrc/epilogue.cuh's Dtype codes; f16 keys (ROADMAP A14) run on every
+# kernel; a kernel that reads a scale, a bias or a statistic in f32 or bf16
+# only takes an f16 one widened (_native)
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
 _BCAST_CODE = {"bcast_col": 0, "bcast_row": 1, "bcast_scalar": 2, "none": 3}
@@ -729,7 +727,9 @@ def empty_kernel() -> None:
 
 DECODE_ATTN_HEAD_DIMS = (32, 64, 128)   # decode_attn.cu's instantiations
 DECODE_ATTN_MAX_GROUPS = 8
-_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# decode_attn.cu's K/V codes: its own, not _DT_CODE's (2 is int8 there)
+_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float16: 3}
 _DECODE_COUNTS: dict[int, torch.Tensor] = {}
 
 
@@ -894,13 +894,15 @@ def _flash_train_operands(key: FlashTrainKey, named: dict, dev) -> None:
 
 def _flash_train_fwd_launch(key: FlashTrainKey):
     """B14 on the kernel reference.flash_train_fwd_route chooses:
-    attention.cu's wgmma kernel in its training mode for bf16 (K/V by TMA:
-    16-byte aligned operands, the batch in gridDim.y), flash_train.cu's
-    f32-FMA forward for f32."""
+    attention.cu's wgmma kernel in its training mode for bf16 and f16 (K/V
+    by TMA: 16-byte aligned operands, the batch in gridDim.y),
+    flash_train.cu's f32-FMA forward for f32. O is stored in
+    reference.flash_train_pv_dtype (bf16 for an f16 key)."""
     from .build import check, library
 
     B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
     dt = reference.DTYPES[key.dtype]
+    out_dt = reference.flash_train_pv_dtype(key)
     route = reference.flash_train_fwd_route(key)
 
     def launch(q, k, v):
@@ -911,7 +913,7 @@ def _flash_train_fwd_launch(key: FlashTrainKey):
             raise ValueError(f"attention.cu's training mode needs 16-byte "
                              f"aligned operands and a batch of at most "
                              f"{CUDA_GRID_YZ}: {key}")
-        o = torch.empty((B, S, H, D), dtype=dt, device=dev)
+        o = torch.empty((B, S, H, D), dtype=out_dt, device=dev)
         lse2 = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         rc = library().tpp_flash_train_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -919,21 +921,23 @@ def _flash_train_fwd_launch(key: FlashTrainKey):
             key.scale * reference.LOG2E, int(route == "wgmma"), _stream())
         check(rc, f"flash_train_fwd {key}")
         return o, lse2
-    # bf16's wgmma kernel is attention.cu's training mode
+    # the wgmma kernel is attention.cu's training mode
     return _tag(launch, route, "attention.cu" if route == "wgmma"
                 else "flash_train.cu")
 
 
 def _flash_train_bwd_launch(key: FlashTrainBwdKey):
     """B18 on the kernels reference.flash_train_bwd_route chooses:
-    flash_train.cu's two wgmma passes for bf16 (Q/K/V/dO and the
+    flash_train.cu's two wgmma passes for bf16 and f16 (Q/K/V/dO and the
     statistics by TMA: 16-byte aligned operands, the batch in gridDim.y;
     the tensor maps are encoded once a call), its two f32-FMA passes for
-    f32."""
+    f32. dQ, dK and dV are stored in reference.flash_train_pv_dtype (bf16
+    for an f16 key)."""
     from .build import check, library
 
     B, S, H, D = key.batch, key.seq, key.heads, key.head_dim
     dt = reference.DTYPES[key.dtype]
+    out_dt = reference.flash_train_pv_dtype(key)
     route = reference.flash_train_bwd_route(key)
 
     def launch(q, k, v, do, lse2, delta):
@@ -945,7 +949,7 @@ def _flash_train_bwd_launch(key: FlashTrainBwdKey):
             raise ValueError(f"flash_train.cu's wgmma backward needs 16-byte "
                              f"aligned operands and a batch of at most "
                              f"{CUDA_GRID_YZ}: {key}")
-        dq, dk, dv = (torch.empty((B, S, H, D), dtype=dt, device=dev)
+        dq, dk, dv = (torch.empty((B, S, H, D), dtype=out_dt, device=dev)
                       for _ in range(3))
         rc = library().tpp_flash_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

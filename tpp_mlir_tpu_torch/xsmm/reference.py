@@ -22,13 +22,15 @@ Precision, one meaning everywhere (kernel and plain version alike):
     xsmm.unary/binary ops; the transformer family, B2's LayerNorm prologue
     and ln_stats pair, B12 and attention, B6-B11; the MHA suite's batched
     matmul, B21/B22; the conv family, B23-B25; the grouped GEMMs, B16/B17;
-    B15's f16 output): as bf16, with f16 operands and f16 products at
-    either precision (B15: s8 products, an f16 output); every rounding
-    the bf16 kernels make to bf16 (a chain's layers, the LayerNorm
-    prologue's rows, attention's scaled Q and P, a softmax_lhs P) is a
-    rounding to f16. The products are f16 x f16
-    (exact in f32): never an f16 torch.matmul, whose cuBLAS reduction may
-    run in reduced precision.
+    B15's f16 output; decode attention, B13; the training attention,
+    B14/B18): as bf16, with f16 operands and f16 products at either
+    precision (B15: s8 products, an f16 output); every rounding the bf16
+    kernels make to bf16 (a chain's layers, the LayerNorm prologue's rows,
+    attention's scaled Q and P, a softmax_lhs P) is a rounding to f16,
+    except B14/B18's, which round P and dS to bf16 and store bf16 O, dQ,
+    dK and dV, as the JAX package's f16 keys do (flash_train_pv_dtype).
+    The products are f16 x f16 (exact in f32): never an f16 torch.matmul,
+    whose cuBLAS reduction may run in reduced precision.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
 in f32 whatever the dtype; only their results are rounded.
 """
@@ -63,30 +65,16 @@ def _refuse(what: str, item: str, key) -> NotImplementedError:
         f"{what} is outside the port's slice: ROADMAP queue {item}: {key}")
 
 
-# the families whose f16 keys run (ROADMAP A14): the GEMM family (B1 and
-# B2's LayerNorm prologue and ln_stats pair, B3-B5, B19/B20, and the
-# xsmm.unary/binary PyTorch ops), B12, attention (B6-B11, B7), the batched
-# matmul (B21/B22), the convs (B23-B25), the grouped GEMMs (B16/B17) and
-# B15's f16 output; every other family's f16 key (B13, B14, B18) is refused
-F16_FAMILIES = (BrgemmKey, ChainKey, BlockedMatmulKey, UnaryKey, BinaryKey,
-                LayerNormKey, FlashMhaKey, BatchMatmulKey, ConvNhwcKey,
-                ConvBrgemmKey, GroupedGemmKey, GroupedWgradKey, Int8GemmKey)
-
-
 def _check_f16(key) -> None:
-    """Refuse, naming A14, an f16 key of a family this slice does not run
-    in f16 (and a token-layout attention key under "flash_heads", which
-    would run B14's forward), and a kernel key that mixes f16 with bf16 or
-    f32 operands (the kernels' f16 instantiations read and write f16 and
-    f32 only). B15's key is f16 by its output alone: its operands are
-    s8."""
+    """Refuse, naming A14, a kernel key that mixes f16 with bf16 or f32
+    operands (the kernels' f16 instantiations read and write f16 and f32
+    only); every family's f16 key runs (ROADMAP A14). B15's key is f16 by
+    its output alone: its operands are s8. B13, B14 and B18 have no
+    out_dtype: B13 writes f32, B14/B18 bf16, as the JAX package's kernels
+    do."""
     dtype, out = getattr(key, "dtype", None), getattr(key, "out_dtype", None)
     if "f16" not in (dtype, out):
         return
-    if not isinstance(key, F16_FAMILIES) or (
-            isinstance(key, FlashMhaKey) and key.heads
-            and key.strategy == "flash_heads"):
-        raise _refuse("an f16 key of this family", "A14 (f16 keys)", key)
     if not isinstance(key, (UnaryKey, BinaryKey, Int8GemmKey)) and (
             dtype != "f16" or out not in (None, "f16", "f32")):
         raise _refuse("an f16 key mixing 16-bit types", "A14 (f16 keys)",
@@ -542,8 +530,10 @@ def attention_route(key: FlashMhaKey) -> str:
         return "kernel"
     if key.strategy in ("auto", "tokens"):
         return "bench" if key.repeats else "kernel"
+    # the reference's gate (tpp_mlir_tpu/xsmm/kernels.py:1674-1681): an f16
+    # key fails it and reaches the refusal below
     if key.strategy == "flash_heads" and not key.repeats and key.causal \
-            and S == Skv and key.dtype in DTYPES \
+            and S == Skv and key.dtype in ("f32", "bf16") \
             and key.precision == "default":
         return "flash_heads"
     if key.strategy == "xla" and not key.repeats:
@@ -1715,32 +1705,42 @@ def _logits2(key: FlashTrainKey, q, k):
 
 def flash_train_fwd_route(key: FlashTrainKey) -> str:
     """Which kernel runs B14 at `key`:
-      "wgmma"  bf16 operands: csrc/attention.cu's wgmma kernel in its
-               training mode (TMA K/V ring, accumulators in registers);
+      "wgmma"  bf16 or f16 operands: csrc/attention.cu's wgmma kernel in its
+               training mode (TMA K/V ring, accumulators in registers;
+               products of the operands' type);
       "fma"    f32 operands: csrc/flash_train.cu's f32-FMA forward (no
                tensor cores: the TPU's f32 B14 is true f32)."""
-    return "wgmma" if key.dtype == "bf16" else "fma"
+    return "fma" if key.dtype == "f32" else "wgmma"
 
 
 def flash_train_bwd_route(key: FlashTrainKey) -> str:
     """Which kernel runs B18 at `key`:
-      "wgmma"  bf16 operands: csrc/flash_train.cu's two wgmma passes (TMA
-               rings, S/dP and the dK/dV/dQ accumulators in registers);
+      "wgmma"  bf16 or f16 operands: csrc/flash_train.cu's two wgmma passes
+               (TMA rings, S/dP and the dK/dV/dQ accumulators in
+               registers; products of the operands' type);
       "fma"    f32 operands: csrc/flash_train.cu's f32-FMA passes (no
                tensor cores: the TPU's f32 B18 is true f32)."""
-    return "wgmma" if key.dtype == "bf16" else "fma"
+    return "fma" if key.dtype == "f32" else "wgmma"
+
+
+def flash_train_pv_dtype(key: FlashTrainKey) -> torch.dtype:
+    """The dtype B14/B18 round P and dS to and store O, dQ, dK and dV in:
+    bf16 for bf16 and f16 operands, f32 for f32 (the JAX package's
+    `_pv_dtype` and `odt`, tpp_mlir_tpu/xsmm/flash_train.py:141, :154,
+    :199)."""
+    return torch.float32 if key.dtype == "f32" else torch.bfloat16
 
 
 def flash_train_fwd_reference(key: FlashTrainKey):
     """B14's function (tpp_mlir_tpu/xsmm/flash_train.py:156-171) on the
     (B, S, H, D) layout: fn(q, k, v) -> (o, lse2). O = (P V) / l with
-    P = exp2(s2 - m2) rounded to bf16 for a bf16 key before the product,
-    l the f32 row sum of P; o in the operand dtype (the code writes `odt`,
-    whatever the docstring there says), (B, S, H, D); lse2 = m2 +
-    log(l) log2(e), (B, H, S) f32, the base-2 log-sum-exp with the scale
-    folded in, private to B14 and B18."""
+    P = exp2(s2 - m2) rounded to flash_train_pv_dtype (bf16 for bf16 and
+    f16 operands) before the product, l the f32 row sum of P; the products
+    exact in f32 on the operands as stored; o in flash_train_pv_dtype,
+    (B, S, H, D); lse2 = m2 + log(l) log2(e), (B, H, S) f32, the base-2
+    log-sum-exp with the scale folded in, private to B14 and B18."""
     check_slice(key)
-    pv = DTYPES[key.dtype]
+    pv = flash_train_pv_dtype(key)
 
     def fn(q, k, v):
         s2 = _logits2(key, q, k)
@@ -1755,13 +1755,14 @@ def flash_train_fwd_reference(key: FlashTrainKey):
 
 def flash_train_bwd_reference(key: FlashTrainKey):
     """B18's function (tpp_mlir_tpu/xsmm/flash_train.py:201-227) on the
-    (B, S, H, D) layout: fn(q, k, v, do, lse2, delta) -> (dq, dk, dv) in the
-    operand dtype, with lse2 and delta = rowsum(dO * O) as (B, H, S) f32.
-    P = exp2(s2 - lse2); dV = P'^T dO; dP = dO V^T; dS = (P (dP - delta)
-    scale)'; dQ = dS K; dK = dS^T Q, where ' rounds to bf16 for a bf16 key;
-    products and sums in f32."""
+    (B, S, H, D) layout: fn(q, k, v, do, lse2, delta) -> (dq, dk, dv) in
+    flash_train_pv_dtype (bf16 for bf16 and f16 operands), with lse2 and
+    delta = rowsum(dO * O) as (B, H, S) f32. P = exp2(s2 - lse2);
+    dV = P'^T dO; dP = dO V^T; dS = (P (dP - delta) scale)'; dQ = dS K;
+    dK = dS^T Q, where ' rounds to flash_train_pv_dtype; products exact in
+    f32 on the operands as stored, sums in f32."""
     check_slice(key)
-    pv = DTYPES[key.dtype]
+    pv = flash_train_pv_dtype(key)
 
     def fn(q, k, v, do, lse2, delta):
         p = torch.exp2(_logits2(key, q, k) - lse2[..., None])
