@@ -354,6 +354,7 @@ import functools
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -3124,6 +3125,836 @@ def phase_f16_attention() -> list:
         _f16a_times(kind, key, args, "off the path")
     say(f"phase f16 attention: {time.perf_counter() - t0:.1f} s; worst abs "
         f"error by kind {worst}")
+    return rows
+
+
+# ROADMAP A14's last item: keys mixing 16-bit types (f16 products with a
+# bf16 output, bf16 or f32 products with an f16 output) on every kernel with
+# an out_dtype, each output stored by the kernel's own epilogue in its type
+# and C, D, biases and gamma/beta read in theirs. The f16 flagship runs at
+# its own depth with its last layer retyped to bf16: under tpp-gen's normal
+# init the third layer's outputs pass f16's 65,504 (F16_FLAGSHIP keeps two
+# layers for that), and a bf16 output holds them.
+F16_MIXED_FLAGSHIP = "--batch=256 --layers=1024,1024,1024,1024 --bias " \
+    "--relu --float-type=f16"
+F16_MIXED_PACKED = "--batch=256 --layers=1024,1024,1024,1024 " \
+    "--tiles=256,512,512 --bias --relu --vnni=2 --float-type=f16"
+# the three mixed pairs' probe summands (exact in both 16-bit types): one
+# rounding of their f32 sum to the output type differs from a rounding
+# through the products' type first (f16 then bf16: 1 + 2^-8 + 2^-12 is 1 +
+# 2^-7 in one rounding, 1 + 2^-8 in f16 and then a tie to 1.0; bf16 then
+# f16: 1 + 2^-11 + 2^-20 is 1 + 2^-10 in one rounding, 1.0 through bf16);
+# the large ones sum to 70,016, 70,144 in bf16 and inf through f16
+MIXED_SUMMANDS = {"bf16": (1.0, 2 ** -8, 2 ** -12),
+                  "f16": (1.0, 2 ** -11, 2 ** -20)}
+MIXED_LARGE = (32768.0, 32768.0, 4480.0)
+# the repeat benches (B4, B20, B11: the state held in the products' type
+# between repeats and cast at the end, as the JAX bodies cast): summands a
+# rounding through the products' type moves, so that their value is the
+# JAX body's and not one rounding of the f32 state
+MIXED_REPEAT_SUMMANDS = {"bf16": (1.0, 2 ** -9, 2 ** -13),
+                         "f16": (1.0, 2 ** -11, 2 ** -20)}
+
+
+def retype_last_layer(text: str) -> str:
+    """tpp-gen's f16 text with its last layer in bf16: the last tl.matmul
+    (or tl.blocked_matmul), its accumulator and bias, every value computed
+    from it (add, relu, and a packed module's bias reshape and unpack), the
+    return and the function's result type. The weights stay f16, so the
+    lowering keeps one f16 contraction key with a bf16 result; tpp-gen
+    itself has no option for it (neither package's)."""
+    lines = text.splitlines()
+    last = max(i for i, ln in enumerate(lines)
+               if re.search(r"= tl\.(blocked_)?matmul ", ln))
+    res, _, acc = re.match(r"\s*%(\w+) = tl\.\w+ %\w+, %(\w+), %(\w+)",
+                           lines[last]).groups()
+    names = {res, acc}
+    for ln in lines[last + 1:]:     # the values computed from the result
+        m = re.match(r"\s*%(\w+) = tl\.(\w+) (.*)", ln)
+        if m and set(re.findall(r"%(\w+)", m.group(3))) & names:
+            names.add(m.group(1))
+            if m.group(2) == "add":     # its other operand: the bias
+                names.update(re.findall(r"%(\w+)", m.group(3)))
+    for ln in lines:                    # a packed bias's reshape source
+        m = re.match(r"\s*%(\w+) = tl\.reshape %(\w+)", ln)
+        if m and m.group(1) in names:
+            names.add(m.group(2))
+    out = []
+    for ln in lines:
+        m = re.match(r"\s*%(\w+) = ", ln)
+        if (m and m.group(1) in names) or ln.strip().startswith("return"):
+            ln = ln.replace("xf16>", "xbf16>")
+        elif ln.strip().startswith("func @"):
+            ln = re.sub(r"-> tensor<([\dx]+)xf16>", r"-> tensor<\1xbf16>",
+                        ln)
+        out.append(ln)
+    return "\n".join(out) + "\n"
+
+
+def _mixed_module(flags: str):
+    """tpp-gen <flags> with its last layer retyped (retype_last_layer),
+    parsed by the port as tpp_run parses a file."""
+    from tpp_mlir_tpu_torch.tools.mlir_gen import (build_parser,
+                                                   config_from_args,
+                                                   generate_text)
+    from tpp_mlir_tpu_torch.tools.tpp_run import load_module
+    tag = f"mixed {flags}"
+    if tag not in _GENERATED:
+        _GENERATED[tag] = retype_last_layer(generate_text(config_from_args(
+            build_parser().parse_args(flags.split()))))
+    return load_module(_GENERATED[tag])
+
+
+def _mixed_rows():
+    """(a): (label, key, forced body or None, the C/D/bias type) for every
+    route a mixed key takes, the path's keys at its shapes (the flagship's
+    last layer, B3 and B4; the packed twin's, B19 and B20)."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, ChainKey, ConvBrgemmKey,
+                                         ConvNhwcKey, FlashMhaKey,
+                                         GroupedGemmKey, LayerNormKey)
+    fc = dict(beta0=True, binary_kind="add", unary_kind="relu")
+    hi = dict(precision="highest")
+    flag = (WIDTH,) * LAYERS
+    packed = dict(vnni=2, **fc)
+    ln = dict(beta0=True, binary_kind="add", prologue="layer_norm")
+    conv = dict(N=8, H=30, W=30, C=128, K=128, R=3, S=3)
+    flat = dict(batch=16, seq=2048, seq_kv=2048, head_dim=64, scale=0.125)
+    return (
+        ("B1 fc f16->bf16 +bias+relu (tma)",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "f16", out_dtype="bf16", **fc),
+         None, "bf16"),
+        ("B1 bf16->f16 +C +bias (tma)",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "bf16", out_dtype="f16",
+                   binary_kind="add"), None, "f16"),
+        ("B1 ragged n f16->bf16 +C (convert)",
+         BrgemmKey(1, BATCH, 1004, WIDTH, "f16", out_dtype="bf16"), None,
+         "bf16"),
+        ("B1 f32->f16 +C (convert)",
+         BrgemmKey(1, BATCH, WIDTH, WIDTH, "f32", out_dtype="f16"), None,
+         "f32"),
+        ("B1 f32 highest->f16 +C (fma)",
+         BrgemmKey(1, 128, 512, WIDTH, "f32", out_dtype="f16", **hi), None,
+         "bf16"),
+        ("B1 k split f16->bf16 +C",
+         BrgemmKey(1, 64, 128, 8192, "f16", out_dtype="bf16"), None, "f16"),
+        ("B1 out-proj bf16->f16 +C +residual (split 1)",
+         BrgemmKey(1, 2048, 768, 768, "bf16", out_dtype="f16",
+                   binary_kind="add", binary_bcast="none"), None, "f16"),
+        ("B1 ragged n f16->bf16 +C (convert, split 1)",
+         BrgemmKey(1, 2048, 1004, 768, "f16", out_dtype="bf16"), None,
+         "bf16"),
+        ("B2 ln gpt2 fc1 f16->bf16 +bias+gelu",
+         BrgemmKey(1, 2048, 3072, 768, "f16", out_dtype="bf16",
+                   unary_kind="gelu", **ln), None, "bf16"),
+        ("B2 ln_stats_out f16->bf16",
+         BrgemmKey(1, 1024, 768, 768, "f16", out_dtype="bf16",
+                   ln_stats_out=True, **fc), None, "f16"),
+        ("B3 flagship 256 x 1024x4 f16->bf16",
+         ChainKey(m=BATCH, dims=flag, dtype="f16", out_dtype="bf16"), None,
+         "bf16"),
+        ("B3 flagship f16->bf16 wmma",
+         ChainKey(m=BATCH, dims=flag, dtype="f16", out_dtype="bf16"),
+         "wmma", "bf16"),
+        ("B3 flagship bf16->f16",
+         ChainKey(m=BATCH, dims=flag, dtype="bf16", out_dtype="f16"), None,
+         "f16"),
+        ("B3 f32 highest->f16 (fma)",
+         ChainKey(m=64, dims=(WIDTH, WIDTH), dtype="f32", out_dtype="f16",
+                  **hi), None, "f32"),
+        ("B4 flagship f16->bf16 r20",
+         ChainKey(m=BATCH, dims=flag, dtype="f16", out_dtype="bf16",
+                  repeats=20), None, "bf16"),
+        ("B4 bf16->f16 r3",
+         ChainKey(m=64, dims=(WIDTH, WIDTH), dtype="bf16", out_dtype="f16",
+                  repeats=3), None, "f16"),
+        ("B5 fc_128x768x2304 f16->bf16 r3",
+         ChainKey(m=128, dims=(768, 2304), dtype="f16", out_dtype="bf16",
+                  repeats=3, pingpong=True, unary_kind=None), None, "bf16"),
+        ("B19 packed fc f16->bf16 VNNI2",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", out_dtype="bf16",
+                          **packed), None, "bf16"),
+        ("B19 packed f16->bf16 +C (tma)",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", out_dtype="bf16"),
+         None, "bf16"),
+        ("B19 packed bf16->f16 +C +bias (tma)",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "bf16", out_dtype="f16",
+                          binary_kind="add"), None, "f16"),
+        ("B19 packed Mb 8 f16->bf16 VNNI2 (split 1)",
+         BlockedMatmulKey(8, 4, 2, BATCH, 256, 512, "f16", out_dtype="bf16",
+                          **packed), None, "bf16"),
+        ("B19 f32 highest->f16 +C (fma)",
+         BlockedMatmulKey(1, 2, 2, 64, 64, 512, "f32", out_dtype="f16", **hi),
+         None, "bf16"),
+        ("B20 packed fc f16->bf16 VNNI2 r20",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", out_dtype="bf16",
+                          repeats=20, **packed), None, "bf16"),
+        ("B20 packed fc f16->bf16 VNNI2 r3 wmma",
+         BlockedMatmulKey(1, 2, 2, BATCH, 512, 512, "f16", out_dtype="bf16",
+                          repeats=3, **packed), "wmma", "f16"),
+        ("B20 f32 highest->f16 r3 (fma)",
+         BlockedMatmulKey(1, 2, 2, 64, 256, 256, "f32", out_dtype="f16",
+                          repeats=3, **hi, **fc), None, "bf16"),
+        ("conv NHWC f16->bf16 +bias+relu (tma)",
+         ConvNhwcKey(dtype="f16", out_dtype="bf16", **fc, **conv), None,
+         "bf16"),
+        ("conv NHWC bf16->f16 same +C +residual",
+         ConvNhwcKey(dtype="bf16", out_dtype="f16", pad=(1, 1, 1, 1),
+                     binary_kind="add", binary_bcast="none", **conv), None,
+         "f16"),
+        ("conv NHWC 58^2 bf16->f16 +C (split 1)",
+         ConvNhwcKey(N=8, H=58, W=58, C=64, K=64, R=3, S=3, dtype="bf16",
+                     out_dtype="f16"), None, "bf16"),
+        ("conv NHWC f16->bf16 wmma",
+         ConvNhwcKey(dtype="f16", out_dtype="bf16", **fc, **conv), "wmma",
+         "f32"),
+        ("conv NHWC f32->f16 +C (convert)",
+         ConvNhwcKey(dtype="f32", out_dtype="f16", **conv), None, "bf16"),
+        ("conv NHWC f32 highest->f16 +C (fma)",
+         ConvNhwcKey(N=2, H=10, W=10, C=64, K=64, R=3, S=3, dtype="f32",
+                     out_dtype="f16", **hi), None, "f16"),
+        ("B23 f16->bf16 Cb 2 +C +bias+relu",
+         ConvBrgemmKey(N=8, H=16, W=16, Cb=2, c=128, Kb=2, k=128, R=3, S=3,
+                       dtype="f16", out_dtype="bf16", binary_kind="add",
+                       unary_kind="relu"), None, "f32"),
+        ("B16 f16->bf16 +gelu (wgmma)",
+         GroupedGemmKey(n_groups=4, m=1024, n=1024, k=WIDTH, bm=64,
+                        dtype="f16", out_dtype="bf16", unary_kind="gelu"),
+         None, None),
+        ("B16 bf16->f16 (wgmma)",
+         GroupedGemmKey(n_groups=4, m=1024, n=1024, k=WIDTH, bm=64,
+                        dtype="bf16", out_dtype="f16"), None, None),
+        ("B16 f16->bf16 bm 16 (wmma)",
+         GroupedGemmKey(n_groups=4, m=256, n=512, k=WIDTH, bm=16,
+                        dtype="f16", out_dtype="bf16"), None, None),
+        ("B16 f32->f16 (wmma)",
+         GroupedGemmKey(n_groups=4, m=256, n=512, k=WIDTH, bm=64,
+                        dtype="f32", out_dtype="f16"), None, None),
+        ("B12 f16->bf16 (register)",
+         LayerNormKey(2048, 768, "f16", out_dtype="bf16"), None, "f16"),
+        ("B12 bf16->f16 strided",
+         LayerNormKey(2048, 768, "bf16", out_dtype="f16"), "strided", "f32"),
+        ("B12 f32->f16 (register)",
+         LayerNormKey(2048, WIDTH, "f32", out_dtype="f16"), None, "bf16"),
+        ("attn flat f16->bf16 (tma)",
+         FlashMhaKey(dtype="f16", out_dtype="bf16", **flat), None, None),
+        ("attn flat bf16->f16 causal (tma)",
+         FlashMhaKey(dtype="bf16", out_dtype="f16", causal=True, **flat),
+         None, None),
+        ("attn flat f32->f16 (convert)",
+         FlashMhaKey(8, 512, 512, 64, "f32", out_dtype="f16", scale=0.125),
+         None, None),
+        ("attn flat f32 highest->f16 (fma)",
+         FlashMhaKey(4, 256, 256, 64, "f32", out_dtype="f16", scale=0.125,
+                     **hi), None, None),
+        ("attn gpt2 packed causal f16->bf16 (B7)",
+         FlashMhaKey(2, 1024, 1024, 64, "f16", out_dtype="bf16",
+                     scale=0.125, causal=True, heads=12, qkv_packed=True),
+         None, None),
+        ("attn B11 f16->bf16 r3",
+         FlashMhaKey(dtype="f16", out_dtype="bf16", repeats=3, **flat),
+         None, None),
+        ("bmm multi f16->bf16",
+         BatchMatmulKey(1024, 32, 32, 64, "f16", out_dtype="bf16",
+                        beta0=True), None, None),
+        ("bmm multi bf16->f16 softmax_lhs",
+         BatchMatmulKey(1024, 32, 64, 32, "bf16", out_dtype="f16",
+                        beta0=True, softmax_lhs=True), None, None),
+        ("bmm tiled f16->bf16 +C",
+         BatchMatmulKey(16, 96, 72, 100, "f16", out_dtype="bf16"), None,
+         "f32"),
+        ("bmm tiled f32 highest->f16",
+         BatchMatmulKey(16, 96, 72, 100, "f32", out_dtype="f16", beta0=True,
+                        **hi), None, None))
+
+
+def _mixed_tol(key) -> float:
+    """A mixed key's tolerance against its plain version: TOL_BF16 for a
+    bf16 output; for an f16 output TOL_F16 where the function rounds once
+    (a single GEMM, conv or LayerNorm: the sum order alone moves it), else
+    TOL_BF16 over bf16 products (a chain's layers, attention's Q and P, a
+    repeat's state, the LayerNorm prologue's rows rounded to bf16 where a
+    sum order can flip one) and TOL_F16_CHAIN over f32 ones."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import ChainKey, FlashMhaKey
+    from tpp_mlir_tpu_torch.xsmm.reference import mxu_dtype
+    if key.out_dtype == "bf16":
+        return TOL_BF16
+    inside = isinstance(key, (ChainKey, FlashMhaKey)) or \
+        getattr(key, "repeats", 0) or getattr(key, "prologue", None) or \
+        getattr(key, "softmax_lhs", False)
+    if not inside:
+        return TOL_F16
+    return TOL_BF16 if mxu_dtype(key.dtype, key.precision) == \
+        torch.bfloat16 else TOL_F16_CHAIN
+
+
+def mixed_inputs(key, cd, g, device="cuda"):
+    """(args, kwargs) of a mixed key: operands in the key's dtype
+    (activations N(0, 1), weights He-scaled N(0, 2/K) so that a ReLU layer
+    and a repeat keep the state's scale; B5's weight over its spectral
+    norm; attention's N(0, 1); B12's x N(1, 3^2); a LayerNorm prologue's
+    rows N(0.5, 2^2)); C N(0, 1) and D or biases N(0, 0.1) (a chain's last
+    bias, LayerNorm's gamma/beta) in `cd`, the chain's other biases in the
+    key's dtype; B21's C f32 (its wrapper reads it so)."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, ChainKey, ConvBrgemmKey,
+                                         ConvNhwcKey, FlashMhaKey,
+                                         GroupedGemmKey, LayerNormKey)
+    from tpp_mlir_tpu_torch.xsmm.reference import DTYPES
+    dt, cdt = DTYPES[key.dtype], DTYPES[cd or "f32"]
+
+    def rnd(*shape, scale=1.0, shift=0.0, to=dt):
+        return (torch.randn(shape, generator=g, device=g.device) * scale +
+                shift).to(device=device, dtype=to)
+    if isinstance(key, BrgemmKey):
+        d_shape = {"bcast_col": (key.n,), "none": (key.m, key.n)}[
+            key.binary_bcast]
+        kw = dict(gamma=rnd(key.k), beta=rnd(key.k)) if key.prologue else {}
+        a = rnd(1, key.m, key.k, scale=2.0, shift=0.5) if key.prologue \
+            else rnd(1, key.m, key.k)
+        return (a, rnd(1, key.k, key.n, scale=(2 / key.k) ** 0.5),
+                None if key.beta0 else rnd(key.m, key.n, to=cdt),
+                rnd(*d_shape, scale=0.1, to=cdt) if key.binary_kind
+                else None), kw
+    if isinstance(key, ChainKey):
+        wb = []
+        L = len(key.dims) - 1
+        for li, (k, n) in enumerate(zip(key.dims[:-1], key.dims[1:])):
+            if key.pingpong:
+                w = rnd(k, n, to=torch.float32)
+                wb.append((w / torch.linalg.matrix_norm(w, ord=2)).to(dt))
+            else:
+                wb.append(rnd(k, n, scale=(2 / k) ** 0.5))
+            if key.has_bias:
+                wb.append(rnd(n, scale=0.1, to=cdt if li == L - 1 else dt))
+        return (rnd(key.m, key.dims[0]), *wb), {}
+    if isinstance(key, BlockedMatmulKey):
+        K = key.Kb * key.kb
+        b = rnd(key.Nb, key.Kb, key.kb, key.nb, scale=(2 / K) ** 0.5)
+        if key.vnni:
+            b = b.reshape(key.Nb, key.Kb, key.kb // 2, 2, key.nb) \
+                .movedim(-2, -1).contiguous()
+        return (rnd(key.Mb, key.Kb, key.mb, key.kb), b,
+                None if key.beta0 else
+                rnd(key.Mb, key.Nb, key.mb, key.nb, to=cdt),
+                rnd(key.Nb, key.nb, scale=0.1, to=cdt) if key.binary_kind
+                else None), {}
+    if isinstance(key, ConvNhwcKey):
+        out = (key.N, key.P, key.Q, key.K)
+        d = rnd(*(out if key.binary_bcast == "none" else (key.K,)),
+                scale=0.1, to=cdt) if key.binary_kind else None
+        return (rnd(key.N, key.H, key.W, key.C),
+                rnd(key.R, key.S, key.C, key.K,
+                    scale=(key.R * key.S * key.C) ** -0.5),
+                None if key.beta0 else rnd(*out, to=cdt), d), {}
+    if isinstance(key, ConvBrgemmKey):
+        out = (key.N, key.Kb, key.P, key.Q, key.k)
+        return (rnd(key.N, key.Cb, key.H, key.W, key.c),
+                rnd(key.Kb, key.Cb, key.R, key.S, key.c, key.k,
+                    scale=(key.R * key.S * key.Cb * key.c) ** -0.5),
+                None if key.beta0 else rnd(*out, to=cdt),
+                rnd(key.Kb, key.k, scale=0.1, to=cdt) if key.binary_kind
+                else None), {}
+    if isinstance(key, GroupedGemmKey):
+        nb = key.m // key.bm
+        ge = (torch.arange(nb) * key.n_groups // nb).to(device, torch.int32)
+        return (ge, rnd(key.m, key.k),
+                rnd(key.n_groups, key.k, key.n, scale=key.k ** -0.5)), {}
+    if isinstance(key, LayerNormKey):
+        return (rnd(key.m, key.n, scale=3.0, shift=1.0), rnd(key.n, to=cdt),
+                rnd(key.n, to=cdt)), {}
+    if isinstance(key, FlashMhaKey):
+        E = (key.heads or 1) * key.head_dim
+        if key.qkv_packed:
+            x = rnd(key.batch, key.seq, 3 * E)
+            return (x, x, x), {}
+        return tuple(rnd(key.batch, s, E) for s in
+                     (key.seq, key.seq_kv, key.seq_kv)), {}
+    assert isinstance(key, BatchMatmulKey)
+    a = rnd(*((key.m, key.k) if key.lhs_shared
+              else (key.batch, key.m, key.k)), scale=2.0)
+    return (a, rnd(key.batch, key.k, key.n),
+            None if key.beta0 else rnd(key.batch, key.m, key.n,
+                                       to=torch.float32)), {}
+
+
+def mixed_probes():
+    """(b): (label, key, forced, summands) for each route of a mixed key:
+    a single GEMM, conv, B12, attention and the batched matmul store one
+    rounding of an exact f32 sum (MIXED_SUMMANDS, MIXED_LARGE); B4, B5,
+    B20 and B11 the JAX body's rounding through the products' type
+    (MIXED_REPEAT_SUMMANDS). Shapes are small; K is 1024 where the sum
+    runs over a K."""
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, ChainKey, ConvBrgemmKey,
+                                         ConvNhwcKey, FlashMhaKey,
+                                         GroupedGemmKey, LayerNormKey)
+    one = dict(has_bias=False, unary_kind=None, last_unary=None)
+    hi = dict(precision="highest")
+    s16, s32 = MIXED_SUMMANDS["bf16"], MIXED_SUMMANDS["f16"]
+    r16, r32 = MIXED_REPEAT_SUMMANDS["bf16"], MIXED_REPEAT_SUMMANDS["f16"]
+    conv = dict(N=2, H=10, W=10, C=64, K=64, R=3, S=3, pad=(1, 1, 1, 1))
+    attn = dict(batch=4, seq=256, seq_kv=256, head_dim=64)
+    return (
+        ("B1 tma f16->bf16", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                       out_dtype="bf16", beta0=True),
+         None, s16),
+        ("B1 tma f16->bf16 70016", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                             out_dtype="bf16", beta0=True),
+         None, MIXED_LARGE),
+        ("B1 tma bf16->f16", BrgemmKey(1, 64, 64, WIDTH, "bf16",
+                                       out_dtype="f16", beta0=True),
+         None, s32),
+        ("B1 convert f32->f16", BrgemmKey(1, 64, 36, WIDTH, "f32",
+                                          out_dtype="f16", beta0=True),
+         None, s32),
+        ("B1 fma f32 highest->f16", BrgemmKey(1, 64, 64, WIDTH, "f32",
+                                              out_dtype="f16", beta0=True,
+                                              **hi), None, s32),
+        ("B1 k split f16->bf16", BrgemmKey(1, 64, 128, 8192, "f16",
+                                           out_dtype="bf16", beta0=True),
+         None, s16),
+        ("B1 split 1 bf16->f16", BrgemmKey(1, 2048, 768, WIDTH, "bf16",
+                                           out_dtype="f16", beta0=True),
+         None, s32),
+        ("B2 ln f16->bf16", BrgemmKey(1, 64, 64, WIDTH, "f16",
+                                      out_dtype="bf16", beta0=True,
+                                      prologue="layer_norm",
+                                      prologue_eps=0.0), None, s16),
+        ("B3 panel f16->bf16", ChainKey(m=64, dims=(WIDTH, 64), dtype="f16",
+                                        out_dtype="bf16", **one), None, s16),
+        ("B3 panel f16->bf16 70016", ChainKey(m=64, dims=(WIDTH, 64),
+                                              dtype="f16", out_dtype="bf16",
+                                              **one), None, MIXED_LARGE),
+        ("B3 wmma bf16->f16", ChainKey(m=64, dims=(WIDTH, 64), dtype="bf16",
+                                       out_dtype="f16", **one), "wmma", s32),
+        ("B3 fma f32 highest->f16", ChainKey(m=64, dims=(WIDTH, 64),
+                                             dtype="f32", out_dtype="f16",
+                                             **one, **hi), None, s32),
+        ("B4 panel f16->bf16 r2", ChainKey(m=64, dims=(WIDTH, WIDTH),
+                                           dtype="f16", out_dtype="bf16",
+                                           repeats=2, **one), None, r16),
+        ("B4 panel bf16->f16 r2", ChainKey(m=64, dims=(WIDTH, WIDTH),
+                                           dtype="bf16", out_dtype="f16",
+                                           repeats=2, **one), None, r32),
+        ("B5 panel f16->bf16 r3", ChainKey(m=64, dims=(WIDTH, 256),
+                                           dtype="f16", out_dtype="bf16",
+                                           repeats=3, pingpong=True, **one),
+         None, r16),
+        ("B19 tma f16->bf16", BlockedMatmulKey(1, 1, 2, 64, 64, 512, "f16",
+                                               out_dtype="bf16",
+                                               beta0=True), None, s16),
+        ("B19 convert VNNI2 f16->bf16 70016",
+         BlockedMatmulKey(1, 1, 2, 64, 64, 512, "f16", out_dtype="bf16",
+                          vnni=2, beta0=True), None, MIXED_LARGE),
+        ("B19 tma bf16->f16", BlockedMatmulKey(1, 1, 2, 64, 64, 512, "bf16",
+                                               out_dtype="f16", beta0=True),
+         None, s32),
+        ("B19 fma f32 highest->f16", BlockedMatmulKey(
+            1, 1, 2, 64, 64, 512, "f32", out_dtype="f16", beta0=True, **hi),
+         None, s32),
+        ("B20 panel f16->bf16 r1", BlockedMatmulKey(
+            1, 2, 2, 64, 512, 512, "f16", out_dtype="bf16", vnni=2,
+            repeats=1, beta0=True), None, r16),
+        ("B20 wmma bf16->f16 r1", BlockedMatmulKey(
+            1, 2, 2, 64, 512, 512, "bf16", out_dtype="f16", repeats=1,
+            beta0=True), "wmma", r32),
+        ("conv tma f16->bf16", ConvNhwcKey(dtype="f16", out_dtype="bf16",
+                                           beta0=True, **conv), None, s16),
+        ("conv tma bf16->f16", ConvNhwcKey(dtype="bf16", out_dtype="f16",
+                                           beta0=True, **conv), None, s32),
+        ("conv wmma f16->bf16", ConvNhwcKey(dtype="f16", out_dtype="bf16",
+                                            beta0=True, **conv), "wmma",
+         s16),
+        ("conv convert f32->f16", ConvNhwcKey(dtype="f32", out_dtype="f16",
+                                              beta0=True, **conv), None,
+         s32),
+        ("B23 f16->bf16", ConvBrgemmKey(N=2, H=10, W=10, Cb=2, c=64, Kb=1,
+                                        k=64, R=3, S=3, dtype="f16",
+                                        out_dtype="bf16", beta0=True), None,
+         s16),
+        ("B16 wgmma f16->bf16", GroupedGemmKey(
+            n_groups=2, m=128, n=128, k=WIDTH, bm=64, dtype="f16",
+            out_dtype="bf16"), None, s16),
+        ("B16 wmma bm 16 bf16->f16", GroupedGemmKey(
+            n_groups=2, m=128, n=128, k=WIDTH, bm=16, dtype="bf16",
+            out_dtype="f16"), None, s32),
+        ("B12 register f16->bf16", LayerNormKey(64, WIDTH, "f16",
+                                                out_dtype="bf16", eps=0.0),
+         None, s16),
+        ("B12 strided bf16->f16", LayerNormKey(64, WIDTH, "bf16",
+                                               out_dtype="f16", eps=0.0),
+         "strided", s32),
+        ("attn flat tma f16->bf16", FlashMhaKey(dtype="f16",
+                                                out_dtype="bf16", **attn),
+         None, s16),
+        ("attn flat tma bf16->f16", FlashMhaKey(dtype="bf16",
+                                                out_dtype="f16", **attn),
+         None, s32),
+        ("attn flat convert f32->f16", FlashMhaKey(dtype="f32",
+                                                   out_dtype="f16", **attn),
+         None, s32),
+        ("attn token packed f16->bf16", FlashMhaKey(
+            2, 256, 256, 64, "f16", out_dtype="bf16", heads=2,
+            qkv_packed=True, strategy="tokens"), None, s16),
+        ("attn B11 f16->bf16 r2", FlashMhaKey(dtype="f16", out_dtype="bf16",
+                                              repeats=2, **attn), None, r16),
+        ("bmm multi f16->bf16", BatchMatmulKey(64, 32, 32, 64, "f16",
+                                               out_dtype="bf16",
+                                               beta0=True), None, s16),
+        ("bmm tiled bf16->f16", BatchMatmulKey(8, 96, 64, 64, "bf16",
+                                               out_dtype="f16", beta0=True),
+         None, s32))
+
+
+def mixed_probe(key, summands, device="cuda"):
+    """A probe's inputs and its exact f32 value (None where the value is a
+    repeat bench's, rounded through the products' type: B4, B5, B20 and
+    B11). Every output element of a GEMM, chain layer, conv, grouped or
+    batched GEMM is the f32 sum a + b + c: A's rows (an image's pixels)
+    hold (a, b, c, 0, ...), B (the centre tap of W) ones. B2: A's rows
+    alternate +1 and -1 (mean 0, variance 1, eps 0: the normalized rows
+    are themselves), gamma 1, beta 0, B's rows 0, 2 and 4 (a +1 column of
+    A) hold a, b and c. B12: rows alternating +1 and -1, beta b + c: the +1
+    places read a + b + c. Attention: Q and K zero, so P is 1 everywhere
+    and l is seq_kv, and V's rows 0, 1 and 2 hold seq_kv (a, b, c): the
+    output is a + b + c. B4: W is the identity with rows 1 and 2 also
+    added into column 0, so two repeats give a + 2 b + 2 c in column 0, the
+    state rounded to the products' type between and after them. B5: W's
+    column 0 sums rows 0-2. B20 at repeats 1: one product, its state in
+    the products' type, then the output's."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (BatchMatmulKey, BlockedMatmulKey,
+                                         BrgemmKey, ChainKey, ConvBrgemmKey,
+                                         ConvNhwcKey, FlashMhaKey,
+                                         GroupedGemmKey, LayerNormKey)
+    from tpp_mlir_tpu_torch.xsmm.reference import DTYPES
+    dt = DTYPES[key.dtype]
+    a, b, c = summands
+    total = torch.tensor(a, dtype=torch.float32) + b + c     # exact
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def rows(*shape):       # (a, b, c, 0, ...) along the last dim
+        x = zeros(*shape)
+        x[..., 0], x[..., 1], x[..., 2] = a, b, c
+        return x
+
+    def full(*shape):
+        return torch.full(shape, total.item(), device=device)
+    if isinstance(key, BrgemmKey) and key.prologue:
+        x = ones(1, key.m, key.k)
+        x[..., 1::2] = -1.0
+        w = zeros(1, key.k, key.n)
+        w[0, 0], w[0, 2], w[0, 4] = a, b, c
+        return (x, w, None, None, ones(key.k), zeros(key.k)), {}, \
+            full(key.m, key.n)
+    if isinstance(key, BrgemmKey):
+        return (rows(1, key.m, key.k), ones(1, key.k, key.n)), {}, \
+            full(key.m, key.n)
+    if isinstance(key, ChainKey):
+        K, N = key.dims
+        x = rows(key.m, K)
+        if key.pingpong:
+            w = zeros(K, N)
+            w[:3, 0] = 1.0
+            return (x, w), {}, None
+        if key.repeats > 1:
+            w = torch.eye(K, N, dtype=dt, device=device)
+            w[1:3, 0] = 1.0
+            return (x, w), {}, None
+        return (x, ones(K, N)), {}, full(key.m, N)
+    if isinstance(key, BlockedMatmulKey):
+        x = zeros(key.Mb, key.Kb, key.mb, key.kb)
+        x[:, 0, :, :3] = rows(3)
+        w = ones(*((key.Nb, key.Kb, key.kb // 2, key.nb, 2) if key.vnni
+                   else (key.Nb, key.Kb, key.kb, key.nb)))
+        return (x, w), {}, None if key.repeats else \
+            full(key.Mb, key.Nb, key.mb, key.nb)
+    if isinstance(key, ConvNhwcKey):
+        w = zeros(key.R, key.S, key.C, key.K)
+        w[key.R // 2, key.S // 2] = 1.0
+        return (rows(key.N, key.H, key.W, key.C), w), {}, \
+            full(key.N, key.P, key.Q, key.K)
+    if isinstance(key, ConvBrgemmKey):
+        x = zeros(key.N, key.Cb, key.H, key.W, key.c)
+        x[:, 0] = rows(key.N, key.H, key.W, key.c)
+        w = zeros(key.Kb, key.Cb, key.R, key.S, key.c, key.k)
+        w[:, 0, key.R // 2, key.S // 2] = 1.0
+        return (x, w), {}, full(key.N, key.Kb, key.P, key.Q, key.k)
+    if isinstance(key, GroupedGemmKey):
+        nb = key.m // key.bm
+        ge = (torch.arange(nb) * key.n_groups // nb).to(device, torch.int32)
+        return (ge, rows(key.m, key.k), ones(key.n_groups, key.k, key.n)), \
+            {}, full(key.m, key.n)
+    if isinstance(key, LayerNormKey):
+        x = ones(key.m, key.n)
+        x[:, 1::2] = -1.0
+        beta = torch.full((key.n,), b, device=device) + c
+        return (x, torch.ones(key.n, device=device), beta), {}, \
+            x.float() + beta
+    if isinstance(key, FlashMhaKey):
+        E, Skv = (key.heads or 1) * key.head_dim, key.seq_kv
+        q = zeros(key.batch, key.seq, E)
+        v = zeros(key.batch, Skv, E)
+        v[:, 0], v[:, 1], v[:, 2] = Skv * a, Skv * b, Skv * c
+        args = (torch.cat((q, q, v), -1),) * 3 if key.qkv_packed else \
+            (q, zeros(key.batch, Skv, E), v)
+        return args, {}, None if key.repeats else full(key.batch, key.seq,
+                                                        E)
+    assert isinstance(key, BatchMatmulKey)
+    return (rows(key.batch, key.m, key.k), ones(key.batch, key.k, key.n)), \
+        {}, full(key.batch, key.m, key.n)
+
+
+def mixed_probe_holds(got, want, exact) -> bool:
+    """Whether a probe's output is bit-equal to its plain version's and,
+    where the function rounds once, to the exact f32 value rounded once to
+    the output type (finite: the large sum's 70,144 in bf16)."""
+    import torch
+    if not torch.equal(got, want):
+        return False
+    if exact is None:
+        return True
+    return torch.equal(got, exact.to(got.dtype)) and \
+        bool(torch.isfinite(got.float()).all())
+
+
+def _through_products(key, exact):
+    """The exact value rounded to the products' type first, then to the
+    output's: what a kernel rounding through its products' type would
+    store (the probe must tell it from one rounding where that type is
+    16-bit)."""
+    from tpp_mlir_tpu_torch.xsmm.reference import DTYPES, mxu_dtype
+    return exact.to(mxu_dtype(key.dtype, key.precision)).to(
+        DTYPES[key.out_dtype])
+
+
+def _mixed_launches(cache) -> dict:
+    """Each kind's launches of the cache since its last reset."""
+    out: dict = {}
+    for fn in cache.kernels():
+        if fn.launches:
+            out[_kind(fn.key)] = out.get(_kind(fn.key), 0) + fn.launches
+    return out
+
+
+def _mixed_copies(fn) -> int:
+    """aten::_to_copy events of one call of fn under torch.profiler: a
+    dtype conversion on the path shows here (a packed module's layout
+    copies are not conversions)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "aten::_to_copy")
+
+
+def phase_f16_mixed() -> list:
+    """ROADMAP A14's last item on the card: (a) every mixed key
+    (_mixed_rows) against its plain version at _mixed_tol; (b) the
+    rounding probes (mixed_probes): bit-equal to the plain version, one
+    rounding of the exact f32 sum where the JAX body casts once (told from
+    a rounding through the products' type), the JAX body's rounding
+    through that type at B4, B5, B20 and B11, 70,016 stored finite in
+    bf16; (c) the f16 flagship at its own depth (256 x 1024x4) with a bf16
+    last layer, flat (B3; -n 100: B4) and packed (B19; the packed fc's -n
+    100: B20), through run_module against --linalg-to-loops, finite above
+    f16's 65,504, launches counted beside the single-type twins' (tpp-gen's
+    text as it is) and the forwards free of conversion kernels; (d) the
+    path's mixed keys timed beside their f16 twins from CUDA graphs in
+    turns: kernel-line rows."""
+    import torch
+
+    from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
+    from tpp_mlir_tpu_torch.tools.trace import describe
+    from tpp_mlir_tpu_torch.tools.tpp_run import init_args, run_module
+    from tpp_mlir_tpu_torch.xsmm import global_cache, reference_kernel
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(26)
+    errs: dict = {}
+    # (a) each mixed key against its plain version
+    for label, key, forced, cd in _mixed_rows():
+        args, kw = mixed_inputs(key, cd, g)
+        kern = f16_probe_kernel(key, forced)
+        got = _outputs(kern(*args, **kw))
+        want = _outputs(reference_kernel(key)(*args, **kw))
+        torch.cuda.synchronize()
+        tol = _mixed_tol(key)
+        rel, ab = max(rel_err(x, y) for x, y in zip(got, want))
+        ok = rel <= tol and all(torch_isfinite(x) for x in got) and \
+            got[0].dtype == want[0].dtype == \
+            getattr(torch, {"bf16": "bfloat16", "f16": "float16"}[
+                key.out_dtype]) and kern.launches == 1
+        errs[key] = ab
+        say(f"mixed kernel {_kind(key):19s} {label:40s} rel {rel:.3e} abs "
+            f"{ab:.3e} tol {tol:.0e} C/D {cd or '-'} route {kern.route}"
+            f"{_route_note(key)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mixed {label}: rel {rel} > {tol}, "
+                                 f"launches {kern.launches}")
+        # beside its single-type twin (out_dtype the products' own, the
+        # same inputs), from CUDA graphs in turns: for PERF.md
+        twin = f16_probe_kernel(dataclasses.replace(key, out_dtype=None),
+                                forced)
+        t1, m1, m2, t2 = (graph_ms(lambda k=k: k(*args, **kw), iters=10)
+                          for k in (twin, kern, kern, twin))
+        say(f"time mixed {label:40s} {(m1 + m2) / 2:.4f} ms, single-type "
+            f"twin {(t1 + t2) / 2:.4f} ms (mixed/twin "
+            f"{(m1 + m2) / (t1 + t2):.3f}), from CUDA graphs in turns")
+    # (b) the rounding probes
+    for label, key, forced, summands in mixed_probes():
+        args, kw, exact = mixed_probe(key, summands)
+        kern = f16_probe_kernel(key, forced)
+        got = kern(*args, **kw)
+        want = reference_kernel(key)(*args, **kw)
+        torch.cuda.synchronize()
+        ok = mixed_probe_holds(got, want, exact)
+        if exact is None:
+            note = "the plain version's rounding through the products' type"
+        else:
+            one, via = exact.to(got.dtype), _through_products(key, exact)
+            apart = not torch.equal(one.float(), via.float())
+            note = (f"one rounding {one.flatten()[0].item()!r}, through the "
+                    f"products' type {via.flatten()[0].item()!r}"
+                    f"{'' if apart else ' (the same: f32 products)'}")
+            ok = ok and (apart or key.precision == "highest")
+        say(f"mixed probe {label:36s} route {kern.route or '-':8s} output "
+            f"{got.flatten()[0].item()!r} (plain "
+            f"{want.flatten()[0].item()!r}; {note}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mixed probe {label}: "
+                                 f"{got.flatten()[:4]} vs "
+                                 f"{want.flatten()[:4]}")
+    # (c) the flagship at its own depth, flat and packed, beside its twins
+    cache = global_cache()
+    runs = (("flat", F16_MIXED_FLAGSHIP, "default-tpp-passes",
+             ["xsmm.fused_chain"], F16_MIXED_FLAGSHIP, "B4"),
+            ("packed", F16_MIXED_PACKED, PACKED, ["xsmm.fused_brgemm"] * 3,
+             F16_PACKED_FC, "B20"))
+    path: dict = {}
+    for label, flags, pipeline, invokes, bench_flags, bench in runs:
+        counts = {}
+        for form, make in (("mixed", _mixed_module), ("twin", _module)):
+            cache.reset_launches()
+            res = run_module(make(flags), device="cuda", pipeline=pipeline,
+                             out_stream=sys.stderr)
+            ops = [op.opname for op in res["module"]["entry"].ops
+                   if op.opname.startswith("xsmm.")
+                   and not op.opname.endswith("_dispatch")]
+            if ops != invokes:
+                raise AssertionError(f"mixed {label} {form}: lowered to "
+                                     f"{ops}")
+            got = res["outputs"][0]
+            if form == "mixed":
+                ref = run_module(make(flags), device="cuda",
+                                 linalg_to_loops=True,
+                                 out_stream=sys.stderr)["outputs"][0]
+                rel, ab = rel_err(got, ref)
+                top = got.float().abs().max().item()
+                ok = got.dtype == torch.bfloat16 and torch_isfinite(got) \
+                    and top > F16_MAX and rel <= TOL_BF16
+                say(f"mixed main {label} 256 x 1024x4 f16, bf16 last layer "
+                    f"-> {ops} {tuple(got.shape)} {got.dtype}: finite "
+                    f"{torch_isfinite(got)}, max {top:.6g} (f16's "
+                    f"{F16_MAX:.0f}), vs --linalg-to-loops rel {rel:.3e} "
+                    f"abs {ab:.3e} tol {TOL_BF16:.0e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"mixed {label}: rel {rel}, max "
+                                         f"{top}")
+            nres = run_module((_mixed_module if form == "mixed"
+                               else _module)(bench_flags), n=F16_N,
+                              device="cuda", pipeline=pipeline,
+                              out_stream=sys.stderr)
+            if bench not in str(nres["bench"]):
+                raise AssertionError(f"mixed {label} {form}: bench "
+                                     f"{nres['bench']}, expected {bench}")
+            say(f"mixed main {label} {form} -n {F16_N}: bench "
+                f"{nres['bench']!r}, {nres['gflops']:.1f} GFLOP/s "
+                f"({nres['mean_seconds'] * 1e3:.4f} ms an iteration)")
+            counts[form] = _mixed_launches(cache)
+            if form == "mixed":
+                for fn in cache.kernels():
+                    if fn.launches and fn.key.out_dtype == "bf16":
+                        path[fn.key] = fn.launches
+            # the compiled forward, profiled: no conversion kernel
+            module = run_module(make(flags), device="cuda",
+                                pipeline=pipeline,
+                                out_stream=sys.stderr)["module"]
+            f = tpp_compile(module, "entry", "cuda")
+            x = init_args(module, "entry", "normal", 0, "cuda")
+            copies = _mixed_copies(lambda: f(*x))
+            say(f"mixed main {label} {form}: dtype conversions in a "
+                f"forward (aten::_to_copy) {copies}")
+            if copies:
+                raise AssertionError(f"mixed {label} {form}: {copies} "
+                                     f"conversions on the path")
+        say(f"mixed main {label} launches {counts['mixed']} (single-type "
+            f"twin {counts['twin']})")
+        if counts["mixed"] != counts["twin"]:
+            raise AssertionError(f"mixed {label}: launches "
+                                 f"{counts['mixed']} != twin's "
+                                 f"{counts['twin']}")
+    # (d) the path's mixed keys timed beside their f16 twins, in turns
+    rows = []
+    for key, n in path.items():
+        kind = _kind(key)
+        args, _ = mixed_inputs(key, "bf16", g)
+        kern, plain = cache.dispatch(key), reference_kernel(key)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        tol = _mixed_tol(key)
+        if getattr(key, "repeats", 0) > 1:
+            # as phase_f16 holds its repeat keys: at -n 100 two sum orders
+            # part further than at (a)'s 20 repeats
+            host = plain(*(a.cpu() if a is not None else None
+                           for a in args))
+            tol = max(tol, 2 * rel_err(host, want.cpu())[0])
+        ok = rel <= tol and torch_isfinite(got)
+        say(f"mixed kernel {kind:19s} {describe(key)} -> bf16 (main path) "
+            f"rel {rel:.3e} abs {ab:.3e} tol {tol:.3e}{_route_note(key)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mixed {describe(key)}: rel {rel}")
+        twin = dataclasses.replace(key, out_dtype=None)
+        targs = tuple(a.to(torch.float16) if a is not None and
+                      a.dtype == torch.bfloat16 else a for a in args)
+        tk = cache.dispatch(twin)
+        iters = 2 if getattr(key, "repeats", 0) > 8 else 20
+        t1, m1, m2, t2 = (graph_ms(fn, iters=iters) for fn in (
+            lambda: tk(*targs), lambda: kern(*args), lambda: kern(*args),
+            lambda: tk(*targs)))
+        ms, twin_ms = (m1 + m2) / 2, (t1 + t2) / 2
+        plain_ms = cuda_ms(lambda: plain(*args))
+        library = _library_call(kind, key, args)
+        lib_ms = cuda_ms(library) if library else None
+        bound, by = _bound(kind, key, args)
+        say(f"time kernel mixed {describe(key):44s} -> bf16 from CUDA "
+            f"graphs in turns with its f16 twin: {ms:.4f} ms, twin "
+            f"{twin_ms:.4f} ms (mixed/twin {ms / twin_ms:.3f}); plain "
+            f"version {plain_ms:.4f} ms, library call "
+            f"{f'{lib_ms:.4f} ms' if lib_ms else 'none'}, bound "
+            f"{bound:.4f} ms ({by}); {n} launches on the mixed path; route "
+            f"{kern.route}")
+        rows.append((kind, key, kern.source, {
+            "launches": n, "max_abs_err": ab, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "f16_twin_graph_ms": twin_ms}))
+    say(f"phase f16 mixed: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -6070,6 +6901,12 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
+def _out_size(key) -> int:
+    """Bytes of one output element of a key: its out_dtype's, else its
+    dtype's."""
+    return 4 if (key.out_dtype or key.dtype) == "f32" else 2
+
+
 def _bound(kind, key, args) -> tuple[float, str]:
     """The least time the card could take for the kernel's work on `args`:
     the larger of the bytes it must move (each input read once, each output
@@ -6098,7 +6935,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         # B4 runs the chain `repeats` times in the launch
         flops = 2 * key.m * sum(k * n for k, n in zip(dims[:-1], dims[1:])) \
             * max(1, key.repeats)
-        nbytes = _nbytes(x, *wb) + key.m * dims[-1] * x.element_size()
+        nbytes = _nbytes(x, *wb) + key.m * dims[-1] * _out_size(key)
     elif kind in ("attention", "attention_flat", "attention_bench"):
         q = args[0]
         B, S, H, D = key.batch, key.seq, key.heads or 1, key.head_dim
@@ -6106,11 +6943,11 @@ def _bound(kind, key, args) -> tuple[float, str]:
         rate = mxu_rate(key)
         flops = 4 * B * H * pairs * D * max(1, key.repeats)
         nbytes = _nbytes(q) * (1 if key.qkv_packed else 3) + \
-            B * S * H * D * q.element_size()
+            B * S * H * D * _out_size(key)
     elif kind == "layer_norm":
         x, gamma, beta = args
         rate, flops = "f32", 8 * key.m * key.n
-        nbytes = _nbytes(x, gamma, beta) + key.m * key.n * x.element_size()
+        nbytes = _nbytes(x, gamma, beta) + key.m * key.n * _out_size(key)
     elif kind == "decode_attn":
         # each slot's live rows, min(pos_b + 1, S) (pos_b == S: a free
         # slot, every row), K and V (and the int8 cache's two scales)
@@ -6149,7 +6986,7 @@ def _bound(kind, key, args) -> tuple[float, str]:
         x, w, bias = args
         rate = mxu_rate(key)
         flops = key.repeats * 2 * key.m * key.dims[0] * key.dims[1]
-        nbytes = _nbytes(x, w, bias) + key.m * key.dims[1] * x.element_size()
+        nbytes = _nbytes(x, w, bias) + key.m * key.dims[1] * _out_size(key)
     elif kind == "grouped_gemm":
         # this routing's token rows (padding rows need no work) and the
         # weights of the experts it chose; every output row is written
@@ -7493,6 +8330,7 @@ def main() -> int:
     f16_rows += phase_f16_transformer()
     f16_rows += phase_f16_conv()
     f16_rows += phase_f16_attention()
+    f16_rows += phase_f16_mixed()
     for kind, n in phase_tuning().items():
         launches[kind] += n
     for kind, n in phase_compiler_path().items():
@@ -7571,9 +8409,12 @@ def main() -> int:
     # the f16 keys (ROADMAP A14), each a row of its kernel's, launched on
     # phase_f16's main path and the later f16 phases' paths
     for kind, key, source, entry in f16_rows:
+        out = getattr(key, "out_dtype", None)
+        mixed = f"->{out}" if out in ("bf16", "f16") and \
+            out != getattr(key, "dtype", out) else ""
         kernels.append({"route": "cuda", "source": source,
                         "replaces": rows[kind]["replaces"],
-                        "name": f"{kind}@{describe(key)}", **entry})
+                        "name": f"{kind}@{describe(key)}{mixed}", **entry})
     say(f"total: {time.perf_counter() - t0:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

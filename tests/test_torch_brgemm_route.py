@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from tpp_mlir_tpu_torch.xsmm import BlockedMatmulKey, BrgemmKey
-from tpp_mlir_tpu_torch.xsmm.kernels import _native, epilogue_dtypes
+from tpp_mlir_tpu_torch.xsmm.kernels import _native
 from tpp_mlir_tpu_torch.xsmm.reference import (blocked_matmul_route,
                                                brgemm_route)
 
@@ -122,24 +122,19 @@ def test_blocked_matmul_route(name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_epilogue_operands_keep_their_dtype(dtype):
-    """C and D reach the kernel in their stored dtype (f32 or bf16, widened
-    in registers): no conversion kernel before the GEMM. A strided operand
-    is made contiguous, any other dtype goes to f32. The GEMM epilogue's
-    f16 instantiations (f16 products, ROADMAP A14) read an f16 C or D as
-    the bf16 ones read bf16, and a bf16 one goes to f32 there."""
+    """C and D reach the kernel in their stored dtype (f32, bf16 or f16,
+    widened in registers, whatever the products' type): no conversion
+    kernel before the GEMM. A strided operand is made contiguous; a dtype
+    outside the ones given (B15's scales: f32 and bf16) goes to f32."""
     dev = torch.device("cpu")
     c = torch.randn(8, 6).to(dtype).t()
     got = _native(c, "C", 48, dev)
     assert got.dtype == dtype and got.is_contiguous()
     assert torch.equal(got, c)
-    assert epilogue_dtypes(torch.bfloat16) == epilogue_dtypes(
-        torch.float32) == (torch.float32, torch.bfloat16)
     d16 = torch.randn(6, dtype=torch.float16)
-    assert _native(d16, "D", 6, dev).dtype == torch.float32
-    half = _native(d16, "D", 6, dev, epilogue_dtypes(torch.float16))
+    half = _native(d16, "D", 6, dev)
     assert half.dtype == torch.float16 and torch.equal(half, d16)
-    want = torch.float32 if dtype == torch.bfloat16 else dtype
-    assert _native(c, "C", 48, dev,
-                   epilogue_dtypes(torch.float16)).dtype == want
+    assert _native(d16, "D", 6, dev,
+                   (torch.float32, torch.bfloat16)).dtype == torch.float32
     with pytest.raises(ValueError, match="expected 7"):
         _native(torch.randn(6), "D", 7, dev)

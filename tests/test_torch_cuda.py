@@ -2125,3 +2125,43 @@ def test_f16_attention_probes(cuda, name):
     assert kern.launches == 1
     assert chip_smoke.f16_attention_probe_holds(got, want, readings, model,
                                                 subject)
+
+
+# ROADMAP A14's last item: keys mixing 16-bit types (f16 products with a
+# bf16 output, bf16 or f32 products with an f16 output), each route's key
+# with C, D and biases in the table's type (chip_smoke.py's phase_f16_mixed
+# (a) rows, at its tolerances) and the rounding probes ((b): one rounding of
+# an exact f32 sum where the JAX body casts once, the plain version's
+# rounding through the products' type at B4, B5, B20 and B11)
+MIXED = {label: (key, forced, cd)
+         for label, key, forced, cd in chip_smoke._mixed_rows()}
+MIXED_PROBES = {label: (key, forced, summands)
+                for label, key, forced, summands in chip_smoke.mixed_probes()}
+
+
+@pytest.mark.parametrize("name", list(MIXED))
+def test_mixed_keys_match_their_plain_versions(cuda, name):
+    key, forced, cd = MIXED[name]
+    args, kw = chip_smoke.mixed_inputs(key, cd, cuda)
+    kern = chip_smoke.f16_probe_kernel(key, forced)
+    got = chip_smoke._outputs(kern(*args, **kw))
+    want = chip_smoke._outputs(reference_kernel(key)(*args, **kw))
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert got[0].dtype == want[0].dtype
+    assert all(torch.isfinite(x.float()).all() for x in got)
+    assert max(_err(x, y) for x, y in zip(got, want)) <= \
+        chip_smoke._mixed_tol(key)
+
+
+@pytest.mark.parametrize("name", list(MIXED_PROBES))
+def test_mixed_keys_round_as_the_jax_bodies(cuda, name):
+    key, forced, summands = MIXED_PROBES[name]
+    args, kw, exact = chip_smoke.mixed_probe(key, summands)
+    kern = chip_smoke.f16_probe_kernel(key, forced)
+    got = kern(*args, **kw)
+    want = reference_kernel(key)(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == 1
+    assert chip_smoke.mixed_probe_holds(got, want, exact), \
+        (got.flatten()[:4], want.flatten()[:4])

@@ -310,7 +310,7 @@ def _inputs(key):
 
 
 # the product-type argument's place in each C entry (xsmm/build.py)
-_ENTRY = {"tpp_brgemm": (10, 11, 21), "tpp_chain": (7, 8, None),
+_ENTRY = {"tpp_brgemm": (10, 11, 21), "tpp_chain": (8, 9, None),
           "tpp_blocked_matmul": (13, 14, 22)}
 
 
@@ -409,13 +409,13 @@ OUTSIDE = {
                             dtype="f16"),
     "flash-train": FlashTrainKey(batch=1, heads=2, seq=64, head_dim=64,
                                  dtype="f16"),
-    # the f16 instantiations read and write f16 and f32 only
+    # keys mixing 16-bit types (MIXED)
     "b1-bf16-to-f16": BrgemmKey(1, 8, 64, 64, "bf16", out_dtype="f16"),
     "b1-f16-to-bf16": BrgemmKey(1, 8, 64, 64, "f16", out_dtype="bf16"),
     "chain-f32-to-f16": ChainKey(m=8, dims=(64, 64), out_dtype="f16"),
     # a token key's flash_heads, which the reference's gate takes in
     # f32/bf16 only, and an attention key mixing f16 operands with a bf16
-    # output
+    # output (MIXED)
     "flash-heads": FlashMhaKey(batch=2, seq=64, seq_kv=64, head_dim=64,
                                dtype="f16", causal=True, heads=2,
                                strategy="flash_heads"),
@@ -426,6 +426,11 @@ OUTSIDE = {
 NOW_RUN = ("layer-norm", "attention", "batch-matmul", "ln-prologue",
            "ln-stats-out", "conv-nhwc", "conv-blocked", "int8-f16-out",
            "grouped", "grouped-wgrad", "decode", "flash-train")
+# keys mixing 16-bit types, refused naming A14 until its last item: each
+# runs now, held to the Pallas body in interpret mode at its output type's
+# tolerance (tests/test_torch_f16_mixed.py holds every family's)
+MIXED = ("b1-bf16-to-f16", "b1-f16-to-bf16", "chain-f32-to-f16",
+         "attention-f16-to-bf16")
 # the reference runs another kernel for an f16 flash_heads key without a
 # word (its gate takes f32/bf16, kernels.py:1674-1681 there): the port
 # refuses it in ADVICE.md #2's words, as every such forced strategy
@@ -529,13 +534,49 @@ def _now_runs(key):
     assert _err(got, want) <= 2e-3
 
 
+def _mixed_runs(key):
+    """A MIXED key on seeded operands of its own dtype (f32 ones rounded
+    to bf16 values first: the port's "default" products round them, the
+    JAX interpret mode keeps f32), its plain version against the Pallas
+    body at 1e-2 for a bf16 output and 2e-3 (the JAX f16 test's rtol) for
+    an f16 one."""
+    np_dt = {"f32": np.float32, "bf16": jnp.bfloat16, "f16": np.float16}
+    rng = np.random.default_rng(10)
+
+    def arr(*shape, scale=1.0):
+        x = rng.standard_normal(shape) * scale
+        if key.dtype == "f32":
+            x = np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+        return x.astype(np_dt[key.dtype])
+    if isinstance(key, BrgemmKey):
+        args = (arr(1, key.m, key.k), arr(1, key.k, key.n, scale=0.125),
+                arr(key.m, key.n))
+    elif isinstance(key, ChainKey):
+        args = (arr(key.m, key.dims[0]),
+                arr(*key.dims, scale=key.dims[0] ** -0.5),
+                arr(key.dims[1], scale=0.1))
+    else:
+        args = tuple(arr(key.batch, s, key.head_dim)
+                     for s in (key.seq, key.seq_kv, key.seq_kv))
+    kern = build_kernel(key)
+    got = kern(*map(to_torch, args))
+    want = jax_build_kernel(_ref_key(key), interpret=True)(
+        *map(jnp.asarray, args))
+    assert got.dtype == reference.DTYPES[key.out_dtype]
+    assert kern.launches == 0
+    assert _err(got, np.asarray(jnp.asarray(want, jnp.float32))) <= \
+        (1e-2 if key.out_dtype == "bf16" else 2e-3)
+
+
 @pytest.mark.parametrize("name", list(OUTSIDE))
 def test_f16_keys_outside_the_slice_name_a14(name):
     if name in NOW_RUN:
         _now_runs(OUTSIDE[name])
         return
-    refusal = FLASH_HEADS_REFUSAL if name == "flash-heads" else "A14"
-    with pytest.raises(NotImplementedError, match=refusal):
+    if name in MIXED:
+        _mixed_runs(OUTSIDE[name])
+        return
+    with pytest.raises(NotImplementedError, match=FLASH_HEADS_REFUSAL):
         build_kernel(OUTSIDE[name])
 
 

@@ -205,12 +205,14 @@ def test_f16_routes_and_plans_equal_their_bf16_twins():
 
 
 def test_f16_kv_code_differs_from_int8():
-    """decode_attn.cu reads its K/V code in its own numbering, where 2 is
-    int8: an f16 cache takes a code of its own, never _DT_CODE's f16 2."""
-    assert kernels._KV_CODE[F16] not in (kernels._KV_CODE[torch.int8],
-                                         kernels._KV_CODE[BF16],
-                                         kernels._KV_CODE[torch.float32])
-    assert kernels._KV_CODE[torch.int8] == kernels._DT_CODE[F16] == 2
+    """decode_attn.cu reads its K/V code in the one dtype table of every C
+    entry (csrc/epilogue.cuh's Dtype, xsmm/kernels.py _DT_CODE): an f16
+    cache takes f16's code 2, an int8 one int8's 3, so an f16 cache can
+    never read as int8."""
+    codes = kernels._DT_CODE
+    assert codes[F16] == 2 and codes[torch.int8] == 3
+    assert len({codes[t] for t in (F16, torch.int8, BF16,
+                                   torch.float32)}) == 4
 
 
 class _Recorder:
@@ -247,9 +249,9 @@ def _zeros(key):
 # each key, its C entry, and the places of its operand code, K/V code or
 # route among the entry's arguments (xsmm/build.py)
 ROUTED = {
-    "decode-f16": (DECODE["mha"][0], "tpp_decode_attn", {17: 2, 18: 3}),
+    "decode-f16": (DECODE["mha"][0], "tpp_decode_attn", {17: 2, 18: 2}),
     "decode-f16-int8": (DECODE["f16-q-int8-kv"][0], "tpp_decode_attn",
-                        {17: 2, 18: 2}),
+                        {17: 2, 18: 3}),
     "flash-fwd-f16": (FlashTrainKey(2, 4, 64, 64, "f16"),
                       "tpp_flash_train_fwd", {9: 2, 12: 1}),
     "flash-bwd-f16": (FlashTrainBwdKey(2, 4, 64, 64, "f16"),
@@ -260,7 +262,8 @@ ROUTED = {
 @pytest.mark.parametrize("name", list(ROUTED))
 def test_f16_attention_launch_arguments(name, monkeypatch):
     """Each f16 key's launch passes the f16 operand code (2), decode's K/V
-    code 3 for an f16 cache (2 for int8), the wgmma route (1) for B14/B18,
+    code 2 for an f16 cache (3 for int8: the one dtype table), the wgmma
+    route (1) for B14/B18,
     and B14/B18 allocate bf16 outputs; the library stand-in is bound
     before the kernel is built, as a launcher binds it there."""
     key, entry, want = ROUTED[name]

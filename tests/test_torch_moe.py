@@ -175,11 +175,21 @@ def test_grouped_keys_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="unary"):
         build_kernel(GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8,
                                     unary_kind="softplus"))
-    # f16 keys run since ROADMAP A14 items 4 and 7; one mixing f16
-    # operands with a bf16 output has no instantiation
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_kernel(GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8,
-                                    dtype="f16", out_dtype="bf16"))
+    # a key mixing f16 operands with a bf16 output, refused until ROADMAP
+    # A14's last item, builds and runs: its plain version against the
+    # Pallas body in interpret mode at a bf16 output's 1e-2
+    key = GroupedGemmKey(n_groups=2, m=16, n=16, k=16, bm=8, dtype="f16",
+                         out_dtype="bf16")
+    ge = np.asarray([1, 0], np.int32)
+    a = _rng(11, 16, 16).astype(np.float16)
+    w = (_rng(12, 2, 16, 16) * 0.25).astype(np.float16)
+    got = build_kernel(key)(torch.from_numpy(ge), torch.from_numpy(a),
+                            torch.from_numpy(w))
+    want = jax_build_kernel(jax_flags.GroupedGemmKey(**dataclasses.asdict(
+        key)), interpret=True)(jnp.asarray(ge), jnp.asarray(a),
+                               jnp.asarray(w))
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 1e-2
 
 
 # csrc/grouped_gemm.cu's tile for B16, chosen from the key

@@ -430,15 +430,20 @@ attention_kernel(const __grid_constant__ CUtensorMap kmap,
     }
     const size_t at = ((size_t)b * a.seq + qi) * a.ld_out + col0 +
                       8 * (i / 4) + cq;
-    if (a.out_dtype == tpp::dtype_code<E>())
-      *reinterpret_cast<uint32_t*>(static_cast<E*>(a.out) + at) =
-          hw::pack16<E>(x0, x1);
-    else if (TRAIN)   // B14's bf16 O, also over f16 products
-      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at) =
-          hw::pack_bf16(x0, x1);
-    else
+    if constexpr (TRAIN) {   // B14's O: E, or bf16 over f16 products
+      if (a.out_dtype == tpp::dtype_code<E>())
+        *reinterpret_cast<uint32_t*>(static_cast<E*>(a.out) + at) =
+            hw::pack16<E>(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) +
+                                     at) = hw::pack_bf16(x0, x1);
+    } else if (a.out_dtype == tpp::kF32) {
       *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at) =
           make_float2(x0, x1);
+    } else {   // bf16 or f16, whatever E
+      *reinterpret_cast<uint32_t*>(static_cast<unsigned short*>(a.out) +
+                                   at) = tpp::pair_bits16(a.out_dtype, x0, x1);
+    }
   }
 }
 
@@ -665,6 +670,15 @@ __global__ void __launch_bounds__(FTHREADS) attention_fma_kernel(Args a) {
     __syncthreads();
   }  // repeats
 
+  if (a.out_dtype == tpp::kF16) {    // f16: the generic store, apart
+    for (int i = tid; i < FBQ * D; i += FTHREADS) {
+      const int r = i / D, c = i % D, qi = q0 + r;
+      if (qi >= a.seq) continue;
+      tpp::store_any(a.out, ((size_t)b * a.seq + qi) * a.ld_out + head + c,
+                     a.out_dtype, Os[r * L::OLD + c] / Ls[r]);
+    }
+    return;
+  }
   for (int i = tid; i < FBQ * D; i += FTHREADS) {
     const int r = i / D, c = i % D, qi = q0 + r;
     if (qi >= a.seq) continue;
@@ -709,8 +723,10 @@ int launch_d(const Args& a, int batch, int heads, int loader,
 // loader of f32 operands at "default", 2 that of bf16 operands TMA cannot
 // take, 3 f32 FMA (MXU dtype f32), 4 TMA of f16 operands (f16 products).
 // A loader given operands of
-// another dtype, or an output dtype other than f32 or its products' 16-bit
-// type, is refused. The batch goes in gridDim.y (gridDim.z for FMA), so
+// another dtype is refused; the output is f32, bf16 or f16 (one rounding
+// of the f32 output, or with repeats, B11, of the state held in the
+// products' type, as the reference's B11 casts). The batch goes in
+// gridDim.y (gridDim.z for FMA), so
 // it is at most 65535.
 extern "C" int tpp_attention(const void* q, const void* k, const void* v,
                              void* out, int batch, int seq, int seq_kv,
@@ -721,15 +737,12 @@ extern "C" int tpp_attention(const void* q, const void* k, const void* v,
   const Args a{q,     k,      v,      out,    seq,      seq_kv,
                ld_in, heads * head_dim, qscale, causal, out_dtype, repeats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the loader must match the operands' dtype, and the output be f32 or
-  // the products' 16-bit type
-  const bool f16 = loader == kTmaF16;
-  const int want_in = f16 ? tpp::kF16
+  // the loader must match the operands' dtype
+  const int want_in = loader == kTmaF16 ? tpp::kF16
                       : loader == kTma || loader == kConvertBF16 ? tpp::kBF16
                                                                  : tpp::kF32;
   if (loader < 0 || loader > 4 || in_dtype != want_in ||
-      (out_dtype != tpp::kF32 &&
-       out_dtype != (f16 ? tpp::kF16 : tpp::kBF16)))
+      !tpp::epilogue_dtypes_ok(out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 32: return launch_d<32>(a, batch, heads, loader, st);

@@ -228,7 +228,7 @@ __global__ void __launch_bounds__(THREADS) batch_matmul_kernel(Args a) {
       const size_t o = base + (size_t)(m0 + r) * a.n + n0 + c;
       float v = Cs[r * CLD + c];
       if (a.c) v += a.c[o];
-      tpp::store_out<tpp::Out16<Tmma>>(a.out, o, a.out_dtype, v);
+      tpp::store_any(a.out, o, a.out_dtype, v);
     }
     __syncthreads();  // Cs and the statistics are free for the next problem
   }
@@ -300,6 +300,27 @@ __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
 #undef TPP_MMA
 }
 
+// a warp's m x n f32 output tile (row stride ld) as rows of the 16-bit
+// type of `dtype`, eight elements a 16-byte store, from problem offset
+// `base` of out
+__device__ __forceinline__ void store_rows16(void* out, size_t base,
+                                             const float* otile, int ld,
+                                             int m, int n, int lane,
+                                             int dtype) {
+  const int units = n / 8;
+  for (int i = lane; i < m * units; i += 32) {
+    const int r = i / units, c = (i % units) * 8;
+    const float4 x0 = *reinterpret_cast<const float4*>(otile + r * ld + c);
+    const float4 x1 = *reinterpret_cast<const float4*>(otile + r * ld + c + 4);
+    *reinterpret_cast<uint4*>(static_cast<unsigned short*>(out) + base +
+                              (size_t)r * n + c) =
+        make_uint4(tpp::pair_bits16(dtype, x0.x, x0.y),
+                   tpp::pair_bits16(dtype, x0.z, x0.w),
+                   tpp::pair_bits16(dtype, x1.x, x1.y),
+                   tpp::pair_bits16(dtype, x1.z, x1.w));
+  }
+}
+
 // two consecutive elements as f32
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -349,7 +370,7 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int ld_bytes,
 
 // Tin the operands' type (f32, bf16 or f16), Tmma the products' (bf16 for
 // f32 and bf16 operands, f16 for f16 ones)
-template <typename Tin, typename Tmma, int MP, int NP>
+template <typename Tin, typename Tmma, int MP, int NP, bool OTHER>
 __global__ void __launch_bounds__(MWARPS * 32)
 batch_matmul_multi_kernel(MArgs a) {
   constexpr int MT = MP / 16, NT = NP / 8, IS = sizeof(Tin);
@@ -497,10 +518,12 @@ batch_matmul_multi_kernel(MArgs a) {
     __syncwarp();   // the slot is read: refill it; the tile is written
     issue(p + nwarps);
 
-    // 16-byte vector stores of the m x n result, one rounding (to f32 or
-    // the products' 16-bit type)
+    // 16-byte vector stores of the m x n result, one rounding (to f32,
+    // bf16 or f16)
     const size_t base = (size_t)p * a.m * a.n;
-    if (a.out_dtype == tpp::dtype_code<Tmma>()) {
+    if constexpr (OTHER) {   // the 16-bit type the products are not
+      store_rows16(a.out, base, otile, L.o_ld, a.m, a.n, lane, a.out_dtype);
+    } else if (a.out_dtype == tpp::dtype_code<Tmma>()) {
       const int units = a.n / 8;
       for (int i = lane; i < a.m * units; i += 32) {
         const int r = i / units, c = (i % units) * 8;
@@ -559,9 +582,9 @@ cudaError_t plan_multi(Kernel kernel, int mp, int np, const MArgs& a,
   return e;
 }
 
-template <typename Tin, typename Tmma, int MP, int NP>
+template <typename Tin, typename Tmma, int MP, int NP, bool OTHER>
 int launch_multi_tile(const MArgs& a, cudaStream_t stream) {
-  auto kernel = batch_matmul_multi_kernel<Tin, Tmma, MP, NP>;
+  auto kernel = batch_matmul_multi_kernel<Tin, Tmma, MP, NP, OTHER>;
   // plans by (device, k, lhs_shared, C): worked out on a key's first launch
   static std::mutex mu;
   static std::map<std::array<int, 4>, MLaunch> plans;
@@ -588,13 +611,24 @@ int launch_multi_tile(const MArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Tin, typename Tmma, bool OTHER>
+int launch_multi_by(const MArgs& a, cudaStream_t stream) {
+  if (a.m <= 32)
+    return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 32, 32, OTHER>(a, stream)
+                     : launch_multi_tile<Tin, Tmma, 32, 64, OTHER>(a, stream);
+  return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 64, 32, OTHER>(a, stream)
+                   : launch_multi_tile<Tin, Tmma, 64, 64, OTHER>(a, stream);
+}
+
+// an output of the 16-bit type the products are not takes an instantiation
+// of its own (OTHER), so that the others compile as they did: one more
+// branch in the kernel's store cost the same-type keys 4-7% from a graph
 template <typename Tin, typename Tmma>
 int launch_multi(const MArgs& a, cudaStream_t stream) {
-  if (a.m <= 32)
-    return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 32, 32>(a, stream)
-                     : launch_multi_tile<Tin, Tmma, 32, 64>(a, stream);
-  return a.n <= 32 ? launch_multi_tile<Tin, Tmma, 64, 32>(a, stream)
-                   : launch_multi_tile<Tin, Tmma, 64, 64>(a, stream);
+  const bool other = a.out_dtype != tpp::kF32 &&
+                     a.out_dtype != tpp::dtype_code<Tmma>();
+  return other ? launch_multi_by<Tin, Tmma, true>(a, stream)
+               : launch_multi_by<Tin, Tmma, false>(a, stream);
 }
 
 }  // namespace
@@ -602,8 +636,8 @@ int launch_multi(const MArgs& a, cudaStream_t stream) {
 // Returns the cudaError_t of the launch (0 on success). a is (batch, m, k),
 // or (m, k) when lhs_shared; b (batch, k, n); c null or f32 (batch, m, n);
 // out (batch, m, n). in_dtype and mma_dtype are (f32, f32) (precision
-// "highest"), (f32, bf16), (bf16, bf16) or (f16, f16); out_dtype f32 or the
-// products' 16-bit type (bf16 beside f32 products); any other triple is
+// "highest"), (f32, bf16), (bf16, bf16) or (f16, f16); out_dtype f32,
+// bf16 or f16 (one rounding of the f32 sums); any other triple is
 // refused. route is xsmm/reference.py batch_matmul_route's choice: 1
 // "multi" (16-bit products, m, n, k at most 64, k and n multiples of 8,
 // every pointer 16-byte aligned), 0 "tiled", whose ceil(batch / group)
@@ -615,9 +649,7 @@ extern "C" int tpp_batch_matmul(const void* a, const void* b, const void* c,
                                 int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool f16 = in_dtype == tpp::kF16 && mma_dtype == tpp::kF16;
-  const int out16 = f16 ? tpp::kF16 : tpp::kBF16;
-  if ((mma_dtype == tpp::kF16) != f16 ||
-      (out_dtype != tpp::kF32 && out_dtype != out16))
+  if ((mma_dtype == tpp::kF16) != f16 || !tpp::epilogue_dtypes_ok(out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if ((mma_dtype != tpp::kBF16 && !f16) || m > MULTI_MAX ||

@@ -82,6 +82,7 @@ static_assert(WARPS * (WKS * BSLD * 2 + 16 * CSLD * 4) == 34816,
 
 struct Blocked {
   int Mb, Nb, Kb, mb, nb, kb;
+  int d_dtype;   // B20's bias: f32, bf16 or f16
 };
 
 struct Epilogue {
@@ -167,12 +168,12 @@ blocked_matmul_fma_kernel(const float* __restrict__ A,
     if (gm >= g.mb || gn >= g.nb) continue;
     const size_t o = (((size_t)i * g.Nb + j) * g.mb + gm) * g.nb + gn;
     float v = Cs[rr][cc];
-    if (epi.has_c) v += tpp::sm90::ld_f32(C, o, epi.c_dtype);
+    if (epi.has_c) v += tpp::load_any(C, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone)
       v = tpp::apply_binary(
           epi.binary, v,
-          tpp::sm90::ld_f32(D, (size_t)j * g.nb + gn, epi.d_dtype));
-    tpp::store_out(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
+          tpp::load_any(D, (size_t)j * g.nb + gn, epi.d_dtype));
+    tpp::store_any(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
   }
 }
 
@@ -198,7 +199,7 @@ __host__ __device__ inline size_t warm_smem_bytes(int K) {
 template <typename Tin, typename Tmma, int V>
 __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
                           const Tin* __restrict__ W,
-                          const float* __restrict__ D, const Blocked& g,
+                          const void* __restrict__ D, const Blocked& g,
                           int binary, int unary, unsigned char* scratch) {
   constexpr bool kTensor = !std::is_same<Tmma, float>::value;
   const int K = g.Kb * g.kb, N = g.Nb * g.nb;
@@ -257,13 +258,16 @@ __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
       }
       wmma::store_matrix_sync(Cw, acc, CSLD, wmma::mem_row_major);
       __syncwarp();
+      // a lane's column is the same for every t: its bias read once
+      const float dn = binary != tpp::kBinNone
+                           ? tpp::load_any(D, nt * 16 + lane % 16, g.d_dtype)
+                           : 0.f;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int e = lane + 32 * t, rr = e / 16, c = e % 16;
         const int col_n = nt * 16 + c;
         float v = Cw[rr * CSLD + c];
-        if (binary != tpp::kBinNone)
-          v = tpp::apply_binary(binary, v, D[col_n]);
+        if (binary != tpp::kBinNone) v = tpp::apply_binary(binary, v, dn);
         nxt[rr * ldh + col_n] =
             tpp::from_f32<Tmma>(tpp::apply_unary(unary, v));
       }
@@ -300,10 +304,12 @@ __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
       for (int q = 0; q < 4; ++q) {
         const int n = c0 + tx + 64 * q;
         if (n >= N) continue;
+        const float dn =
+            binary != tpp::kBinNone ? tpp::load_any(D, n, g.d_dtype) : 0.f;
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           float v = acc[r][q];
-          if (binary != tpp::kBinNone) v = tpp::apply_binary(binary, v, D[n]);
+          if (binary != tpp::kBinNone) v = tpp::apply_binary(binary, v, dn);
           nxt[(ty * 4 + r) * ldh + n] =
               tpp::from_f32<Tmma>(tpp::apply_unary(unary, v));
         }
@@ -315,15 +321,12 @@ __device__ void warm_step(const Tmma* cur, Tmma* nxt, int ldh,
 template <typename Tin, typename Tmma, int V>
 __global__ void __launch_bounds__(THREADS)
 blocked_warm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ W,
-                    const float* __restrict__ D, void* __restrict__ out,
+                    const void* __restrict__ D, void* __restrict__ out,
                     Blocked g, int binary, int unary, int repeats,
                     int out_dtype) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = g.Kb * g.kb, N = g.Nb * g.nb;
   const int ldh = K + HPAD;
-  // the output is f32 or the products' 16-bit type (bf16 for f32 ones)
-  using E16 = typename std::conditional<std::is_same<Tmma, __half>::value,
-                                        __half, __nv_bfloat16>::type;
   Tmma* cur = reinterpret_cast<Tmma*>(smem);
   Tmma* nxt = cur + (size_t)WBM * ldh;
   unsigned char* scratch =
@@ -356,15 +359,17 @@ blocked_warm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ W,
     const int rr = e / N, n = e % N, gm = r0 + rr;
     if (gm >= g.mb) continue;
     const int jb = n / g.nb;
-    tpp::store_out<E16>(out,
-                        (((size_t)i * g.Nb + jb) * g.mb + gm) * g.nb +
-                            (n - jb * g.nb),
-                        out_dtype, tpp::to_f32(cur[rr * ldh + n]));
+    // the state, held in the products' type, cast to the output's (the
+    // reference's B20 casts its Tmma state to out_dtype)
+    tpp::store_any(out,
+                   (((size_t)i * g.Nb + jb) * g.mb + gm) * g.nb +
+                       (n - jb * g.nb),
+                   out_dtype, tpp::to_f32(cur[rr * ldh + n]));
   }
 }
 
 template <typename Tin, typename Tmma, int V>
-int launch_warm(const void* a, const void* b, const float* d, void* out,
+int launch_warm(const void* a, const void* b, const void* d, void* out,
                 Blocked g, int binary, int unary, int repeats, int out_dtype,
                 cudaStream_t stream) {
   const size_t smem = warm_smem_bytes<Tmma>(g.Kb * g.kb);
@@ -382,7 +387,7 @@ int launch_warm(const void* a, const void* b, const float* d, void* out,
 // B20 for one dtype pair, the VNNI factor made a template argument so the
 // packed offsets compile to shifts
 template <typename Tin, typename Tmma>
-int run_warm(const void* a, const void* b, const float* d, void* out,
+int run_warm(const void* a, const void* b, const void* d, void* out,
              const Blocked& g, const Epilogue& epi, int vnni, int repeats,
              cudaStream_t st) {
   return vnni == 2
@@ -461,7 +466,7 @@ int run_sm90(const void* a, const void* b, const void* c, const void* d,
 
 // B20 on the warm-panel engine: one step a repeat, the packed operands
 // addressed in place, the weight resident
-int run_warm_panel(const void* a, const void* b, const float* d, void* out,
+int run_warm_panel(const void* a, const void* b, const void* d, void* out,
                    const Blocked& g, const Epilogue& epi, int vnni,
                    int in_dtype, int mma_dtype, int repeats, const int* plan,
                    cudaStream_t st) {
@@ -469,7 +474,7 @@ int run_warm_panel(const void* a, const void* b, const float* d, void* out,
   wm::Params p{};
   const int K = g.Kb * g.kb;
   p.steps[0] = {epi.binary ? d : nullptr, K, g.Nb * g.nb, 1, 0, 0,
-                epi.binary, epi.unary};
+                epi.binary, epi.unary, epi.d_dtype};
   p.period = 1;
   p.total = repeats;
   p.w[0] = b;
@@ -506,8 +511,9 @@ extern "C" long long tpp_blocked_warm_smem_bytes(int K, int mma_dtype) {
 // B19 when repeats == 0, else B20. Returns the cudaError_t of the launch
 // (0 on success). A and B are in_dtype (B in VNNI layout when vnni is 2);
 // C [Mb,Nb,mb,nb] is c_dtype and the bias D [Nb,nb] d_dtype (f32, bf16 or
-// f16, widened in registers; B20 takes an f32 D); out [Mb,Nb,mb,nb] is
-// out_dtype. mma_dtype is the products' type: f32, bf16 (f32 or bf16 A
+// f16, widened in registers); out [Mb,Nb,mb,nb] is out_dtype (f32, bf16
+// or f16: one rounding of B19's f32 epilogue; B20's state, held in the
+// products' type, cast to it, as the reference's B20 casts). mma_dtype is the products' type: f32, bf16 (f32 or bf16 A
 // and B), or f16 (f16 A and B). B19's route is xsmm/reference.py
 // blocked_matmul_route's choice: 0 "fma" (f32 "highest"), 1 "tma" (16-bit,
 // not VNNI; 16-byte aligned base pointers and row strides), 2 "convert"; plan is
@@ -531,37 +537,32 @@ extern "C" int tpp_blocked_matmul(const void* a, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool mma16 = mma_dtype == tpp::kBF16 || mma_dtype == tpp::kF16;
   if (repeats > 0 && (has_c || Nb != Kb || nb != kb ||
-                      (binary && d_dtype != tpp::kF32) ||
                       (mma16 && ((Kb * kb) % 16 || nb % 16))))
     return static_cast<int>(cudaErrorInvalidValue);
   // f16 products take f16 operands, and f16 operands f16 products; the
-  // epilogue reads and writes f32 or the products' 16-bit type (bf16
-  // beside f32 FMA)
+  // epilogue reads and writes any of the three float types
   if ((mma_dtype == tpp::kF16) != (in_dtype == tpp::kF16) ||
-      !tpp::epilogue_dtypes_ok(mma_dtype == tpp::kF16 ? tpp::kF16
-                                                      : tpp::kBF16,
-                               out_dtype, has_c ? c_dtype : tpp::kF32,
+      !tpp::epilogue_dtypes_ok(out_dtype, has_c ? c_dtype : tpp::kF32,
                                binary ? d_dtype : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Blocked g{Mb, Nb, Kb, mb, nb, kb};
+  const Blocked g{Mb, Nb, Kb, mb, nb, kb, binary ? d_dtype : tpp::kF32};
   const Epilogue epi{has_c, c_dtype, binary, d_dtype, unary, out_dtype};
-  const float* df = static_cast<const float*>(d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (repeats > 0 && warm_plan != nullptr)
-    return mma16 ? run_warm_panel(a, b, df, out, g, epi, vnni, in_dtype,
+    return mma16 ? run_warm_panel(a, b, d, out, g, epi, vnni, in_dtype,
                                   mma_dtype, repeats, warm_plan, st)
                  : static_cast<int>(cudaErrorInvalidValue);
   if (repeats > 0) {
     if (in_dtype == tpp::kF32 && mma_dtype == tpp::kF32)
-      return run_warm<float, float>(a, b, df, out, g, epi, vnni, repeats, st);
+      return run_warm<float, float>(a, b, d, out, g, epi, vnni, repeats, st);
     if (in_dtype == tpp::kF32 && mma_dtype == tpp::kBF16)
-      return run_warm<float, __nv_bfloat16>(a, b, df, out, g, epi, vnni,
+      return run_warm<float, __nv_bfloat16>(a, b, d, out, g, epi, vnni,
                                             repeats, st);
     if (in_dtype == tpp::kBF16 && mma_dtype == tpp::kBF16)
-      return run_warm<__nv_bfloat16, __nv_bfloat16>(a, b, df, out, g, epi,
+      return run_warm<__nv_bfloat16, __nv_bfloat16>(a, b, d, out, g, epi,
                                                     vnni, repeats, st);
     if (in_dtype == tpp::kF16 && mma_dtype == tpp::kF16)
-      return run_warm<__half, __half>(a, b, df, out, g, epi, vnni, repeats,
+      return run_warm<__half, __half>(a, b, d, out, g, epi, vnni, repeats,
                                       st);
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -191,7 +191,7 @@ brgemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     const size_t o = (size_t)gm * n + gn;
     float v = Cs[r][c];
-    if (epi.has_c) v += sm::ld_f32(C, o, epi.c_dtype);
+    if (epi.has_c) v += tpp::load_any(C, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone) {
       size_t di;
       switch (epi.bcast) {
@@ -200,12 +200,12 @@ brgemm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
         case tpp::kBcastScalar: di = 0; break;
         default: di = o; break;
       }
-      v = tpp::apply_binary(epi.binary, v, sm::ld_f32(D, di, epi.d_dtype));
+      v = tpp::apply_binary(epi.binary, v, tpp::load_any(D, di, epi.d_dtype));
     }
     v = tpp::apply_unary(epi.unary, v);
-    tpp::store_out(out, o, epi.out_dtype, v);
+    tpp::store_any(out, o, epi.out_dtype, v);
     // each element of Cs is this thread's alone: it keeps the stored value
-    if (rowpart != nullptr) Cs[r][c] = tpp::round_out(epi.out_dtype, v);
+    if (rowpart != nullptr) Cs[r][c] = tpp::round_any(epi.out_dtype, v);
   }
   if (rowpart == nullptr) return;
   // ln_stats_out: each row's (sum, sum of squares) over this tile's 64
@@ -354,9 +354,9 @@ extern "C" int tpp_gemm_plan(int Mb, int Nb, int Kb, int mb, int nb, int kb,
 }
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
-// in_dtype; C is c_dtype and D d_dtype (f32, or the products' 16-bit
-// type: bf16, or f16 for f16 products; widened in registers); gamma and
-// beta f32; out out_dtype (f32 or that 16-bit type; another is refused).
+// in_dtype; C is c_dtype and D d_dtype (f32, bf16 or f16, whatever the
+// products' type; widened in registers); gamma and beta f32; out out_dtype
+// (f32, bf16 or f16: one rounding of the f32 epilogue).
 // mma_dtype is the products' type: f32 (the "fma" route), bf16 (f32 or
 // bf16 A and B), or f16 (f16 A and B only; ROADMAP A14). route is
 // xsmm/reference.py brgemm_route's choice: 0 "fma" (f32 "highest"), 1
@@ -383,11 +383,7 @@ extern "C" int tpp_brgemm(const void* a, const void* b, const void* c,
   if ((ln == 2 && (mean == nullptr || var == nullptr)) ||
       (stats_out && (mean_out == nullptr || var_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the epilogue reads and writes f32 or its kernel's 16-bit type: f16 for
-  // f16 products, else bf16
-  if (!tpp::epilogue_dtypes_ok(mma_dtype == tpp::kF16 ? tpp::kF16
-                                                      : tpp::kBF16,
-                               out_dtype, has_c ? c_dtype : tpp::kF32,
+  if (!tpp::epilogue_dtypes_ok(out_dtype, has_c ? c_dtype : tpp::kF32,
                                binary ? d_dtype : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

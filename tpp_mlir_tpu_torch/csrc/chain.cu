@@ -52,7 +52,8 @@ constexpr int HPAD = 8, ZPAD = 4;
 
 struct ChainParams {
   const void* w[MAXL];      // [dims[i], dims[i+1]] row-major, in Tmma
-  const float* bias[MAXL];  // [dims[i+1]] f32, or null
+  const void* bias[MAXL];   // [dims[i+1]] in bias_dtype[i], or null
+  int bias_dtype[MAXL];     // f32, bf16 or f16 (epilogue.cuh)
   int dims[MAXL + 1];
   int L, dmax, unary, last_unary, repeats, round_out, out_dtype, pingpong;
   int m;
@@ -143,9 +144,6 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
              ChainParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldh = p.dmax + HPAD, ldz = p.dmax + ZPAD;
-  // the output is f32 or the products' 16-bit type (bf16 for f32 ones)
-  using E16 = typename std::conditional<std::is_same<Tmma, __half>::value,
-                                        __half, __nv_bfloat16>::type;
   Tmma* H = reinterpret_cast<Tmma*>(smem);  // layer input, MXU dtype
   float* Z = reinterpret_cast<float*>(
       smem + align128((size_t)CBM * ldh * sizeof(Tmma)));  // layer output
@@ -184,12 +182,12 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
                     false);
       __syncthreads();
       // bias + activation in f32; the next layer's input in the MXU dtype
-      const float* bias = p.bias[li];
+      const void* bias = p.bias[li];
       const int act = li < p.L - 1 ? p.unary : p.last_unary;
       for (int i = tid; i < CBM * N; i += THREADS) {
         const int r = i / N, c = i % N;
         float v = Z[r * ldz + c];
-        if (bias) v += bias[c];
+        if (bias) v += tpp::load_any(bias, c, p.bias_dtype[li]);
         v = tpp::apply_unary(act, v);
         Z[r * ldz + c] = v;
         H[r * ldh + c] = tpp::from_f32<Tmma>(v);
@@ -200,8 +198,8 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
       for (int i = tid; i < CBM * dl; i += THREADS) {
         const int r = i / dl, c = i % dl;
         if (r0 + r < m)
-          tpp::store_out<E16>(out, (size_t)(r0 + r) * dl + c, p.out_dtype,
-                              tpp::to_f32(H[r * ldh + c]));
+          tpp::store_any(out, (size_t)(r0 + r) * dl + c, p.out_dtype,
+                         tpp::to_f32(H[r * ldh + c]));
       }
     }
   }
@@ -211,7 +209,7 @@ chain_kernel(const Tin* __restrict__ x, void* __restrict__ out, int m,
     const int r = i / dl, c = i % dl;
     if (r0 + r >= m) continue;
     const float v = p.round_out ? tpp::to_f32(H[r * ldh + c]) : Z[r * ldz + c];
-    tpp::store_out<E16>(out, (size_t)(r0 + r) * dl + c, p.out_dtype, v);
+    tpp::store_any(out, (size_t)(r0 + r) * dl + c, p.out_dtype, v);
   }
 }
 
@@ -241,8 +239,10 @@ int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
   if (c.pingpong) {
     const int K = c.dims[0], N = c.dims[1];
     p.steps[0] = {c.bias[0], K, N, 1, 0, 0,
-                  c.bias[0] ? tpp::kAdd : tpp::kBinNone, c.last_unary};
-    p.steps[1] = {nullptr, N, K, 0, 0, 0, tpp::kBinNone, tpp::kIdentity};
+                  c.bias[0] ? tpp::kAdd : tpp::kBinNone, c.last_unary,
+                  c.bias_dtype[0]};
+    p.steps[1] = {nullptr, N, K, 0, 0, 0, tpp::kBinNone, tpp::kIdentity,
+                  tpp::kF32};
     p.period = 2;
     p.total = (c.repeats - 1) % 2 ? c.repeats - 1 : c.repeats;
     p.onb = N;
@@ -250,7 +250,7 @@ int run_panel(const void* x, void* out, const ChainParams& c, int in_dtype,
     for (int i = 0; i < L; ++i)
       p.steps[i] = {c.bias[i], c.dims[i], c.dims[i + 1], 1, i, 0,
                     c.bias[i] ? tpp::kAdd : tpp::kBinNone,
-                    i < L - 1 ? c.unary : c.last_unary};
+                    i < L - 1 ? c.unary : c.last_unary, c.bias_dtype[i]};
     p.period = L;
     p.total = c.repeats * L;
     p.onb = c.dims[L];
@@ -283,15 +283,19 @@ extern "C" long long tpp_chain_smem_bytes(int dmax, int mma_dtype) {
 }
 
 // Returns the cudaError_t of the launch (0 on success). w_ptrs/b_ptrs are
-// host arrays of L device pointers (weights in the MXU dtype, biases f32);
-// dims is a host array of L+1 ints. Every dim must be a multiple of 16.
+// host arrays of L device pointers (weights in the MXU dtype, biases in
+// the types of the host array b_dtypes: f32, bf16 or f16); dims is a host
+// array of L+1 ints. out is out_dtype (f32, bf16 or f16: one rounding of
+// the f32 output, or of the state in the MXU dtype where round_out is set,
+// B4 and B5, as the reference's bodies cast). Every dim must be a multiple of 16.
 // pingpong (B5) needs L == 1 and repeats > 1. plan, when not null, is
 // reference.warm_plan's (rows, cluster, resident, shared-memory bytes):
 // the warm-panel engine runs the chain (16-bit products: bf16, or f16 for
 // f16 x and weights; 16-byte aligned weights where they stream); null runs
 // the first design.
 extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
-                         const void* const* b_ptrs, const int* dims, int L,
+                         const void* const* b_ptrs, const int* b_dtypes,
+                         const int* dims, int L,
                          int m, int in_dtype, int mma_dtype, int out_dtype,
                          int has_bias, int unary, int last_unary, int repeats,
                          int round_out, int pingpong, const int* plan,
@@ -309,8 +313,13 @@ extern "C" int tpp_chain(const void* x, void* out, const void* const* w_ptrs,
   }
   for (int i = 0; i < L; ++i) {
     p.w[i] = w_ptrs[i];
-    p.bias[i] = has_bias ? static_cast<const float*>(b_ptrs[i]) : nullptr;
+    p.bias[i] = has_bias ? b_ptrs[i] : nullptr;
+    p.bias_dtype[i] = has_bias ? b_dtypes[i] : tpp::kF32;
+    if (!tpp::epilogue_dtypes_ok(p.bias_dtype[i]))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!tpp::epilogue_dtypes_ok(out_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
   p.unary = unary;
   p.last_unary = last_unary;
   p.repeats = repeats < 1 ? 1 : repeats;

@@ -42,8 +42,8 @@
 //     operands' type whose zero fill masks c and k); STAGES - 2 stages in
 //     flight, each made visible to wgmma (wait, proxy fence, arrive) in
 //     order. The products are of the operands' type E (wgmma .bf16 or
-//     .f16, f32 sums), and so are the 16-bit C, D and output the
-//     epilogue reads and writes (ROADMAP A14: f16 keys). Route
+//     .f16, f32 sums); the epilogue reads C and D and writes the output
+//     in any of f32, bf16 and f16. Route
 //     "convert" (f32 "default": bf16 products, f32 sums; c and k multiples
 //     of 4): A and B by 16-byte cp.async into a staging ring of raw f32
 //     stages, RAW - 1 stages in flight while the producer rounds the
@@ -368,16 +368,21 @@ int launch_wgmma(const Conv& cv, const CUtensorMap& wmap, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     opted |= 1ull << (dev & 63);
   }
-  const sm::Gemm& g = cv.epi;
+  Conv k = cv;
+  sm::set_any16<E>(k.epi);
+  const sm::Gemm& g = k.epi;
   const dim3 grid(g.Mb * ((g.mb + T::BM - 1) / T::BM),
                   g.Nb * ((g.nb + BN - 1) / BN), g.split);
-  kernel<<<grid, (NCW + 1) * sm::WG, smem, st>>>(wmap, cv);
+  kernel<<<grid, (NCW + 1) * sm::WG, smem, st>>>(wmap, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.split == 1) return static_cast<int>(err);
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)sm::sm_count() * 8));
-  sm::split_reduce<E><<<blocks, 256, 0, st>>>(g);
+  if (g.any16)
+    sm::split_reduce<E, true><<<blocks, 256, 0, st>>>(g);
+  else
+    sm::split_reduce<E, false><<<blocks, 256, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,15 +408,14 @@ struct Epilogue {
 };
 
 // Tin: dtype of I/W in device memory; Tmma: dtype the products see
-// (bf16 or f16 -> tensor cores, float -> f32 FMA). The epilogue's 16-bit
-// operands and output are Tmma's 16-bit type (bf16 beside f32 FMA).
+// (bf16 or f16 -> tensor cores, float -> f32 FMA). The epilogue's
+// operands and output are of any of the three float types.
 template <typename Tin, typename Tmma>
 __global__ void __launch_bounds__(THREADS)
 conv_tile_kernel(const Tin* __restrict__ I, const Tin* __restrict__ Wt,
                  const void* __restrict__ Cacc, const void* __restrict__ D,
                  void* __restrict__ out, Geometry g, Epilogue epi) {
   constexpr bool kTensor = !std::is_same<Tmma, float>::value;
-  using E16 = tpp::Out16<Tmma>;
   __shared__ __align__(128) Tmma As[BM][BK + APAD];
   __shared__ __align__(128) Tmma Bs[BK][BN + BPAD];
   __shared__ __align__(128) float Cs[BM][BN + CPAD];
@@ -545,16 +549,15 @@ conv_tile_kernel(const Tin* __restrict__ I, const Tin* __restrict__ Wt,
     const size_t o =
         ((((size_t)row_n[r] * g.Kb + kb) * g.P + p) * g.Q + q) * g.k + gn;
     float v = Cs[r][c];
-    if (epi.has_c) v += sm::ld_f32<E16>(Cacc, o, epi.c_dtype);
+    if (epi.has_c) v += tpp::load_any(Cacc, o, epi.c_dtype);
     if (epi.binary != tpp::kBinNone)
       v = tpp::apply_binary(
           epi.binary, v,
-          sm::ld_f32<E16>(D, epi.bcast == tpp::kBcastCol
-                                 ? (size_t)kb * g.k + gn
-                                 : o,
-                          epi.d_dtype));
-    tpp::store_out<E16>(out, o, epi.out_dtype,
-                        tpp::apply_unary(epi.unary, v));
+          tpp::load_any(D, epi.bcast == tpp::kBcastCol
+                               ? (size_t)kb * g.k + gn
+                               : o,
+                        epi.d_dtype));
+    tpp::store_any(out, o, epi.out_dtype, tpp::apply_unary(epi.unary, v));
   }
 }
 
@@ -572,8 +575,7 @@ void launch_tile(const void* in, const void* w, const void* c, const void* d,
 // The launch of one route: "fma" and "wmma" on the tile body; "tma" and
 // "convert" on the wgmma kernel at the plan's tile (bm x bn) and k split,
 // with the split partials in `work`. The epilogue's C, D and output are
-// f32 or the products' 16-bit type (bf16 beside f32 FMA): store_out and
-// ld_f32 know no third type, so any other code is refused.
+// f32, bf16 or f16 whatever the products' type; another code is refused.
 int run(const void* in, const void* w, const void* c, const void* d,
         void* out, void* work, const Geometry& g, int in_dtype,
         int mma_dtype, int out_dtype, int c_dtype, int d_dtype, int has_c,
@@ -583,8 +585,7 @@ int run(const void* in, const void* w, const void* c, const void* d,
       bcast != tpp::kBcastNone)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f16 = mma_dtype == tpp::kF16;
-  if (!tpp::epilogue_dtypes_ok(f16 ? tpp::kF16 : tpp::kBF16, out_dtype,
-                               has_c ? c_dtype : tpp::kF32,
+  if (!tpp::epilogue_dtypes_ok(out_dtype, has_c ? c_dtype : tpp::kF32,
                                binary != tpp::kBinNone ? d_dtype
                                                        : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -673,9 +674,9 @@ int run(const void* in, const void* w, const void* c, const void* d,
 
 // Returns the cudaError_t of the launch (0 on success). I [N,H,W,C] and
 // W [R,S,C,K] are in_dtype; C [N,P,Q,K] is c_dtype and D ([K] for bcast 0,
-// bcast_col; [N,P,Q,K] for bcast 3, none) d_dtype (f32 or the products'
-// 16-bit type, bf16 or f16, read as stored and widened in registers); out
-// [N,P,Q,K] is out_dtype (f32 or that 16-bit type). pt/pl are
+// bcast_col; [N,P,Q,K] for bcast 3, none) d_dtype (f32, bf16 or f16,
+// read as stored and widened in registers); out [N,P,Q,K] is out_dtype
+// (f32, bf16 or f16: one rounding of the f32 epilogue). pt/pl are
 // the top and left zero padding; P and Q carry the bottom and right
 // padding (P = H + pt + pb - R + 1). route is xsmm/reference.py
 // conv_kernel_route's (0 fma, 1 tma, 2 convert, 3 wmma); bm, bn and split

@@ -409,7 +409,7 @@ int launch_d(const Args& a, int d, int G, cudaStream_t st) {
 
 // Returns the cudaError_t of the launch (0 on success). q: (B, H, G, D) in
 // q_dtype (f32, bf16 or f16, epilogue.cuh's codes); k/v: the stacked cache
-// in kv_dtype (0 f32, 1 bf16, 2 int8, 3 f16: xsmm/kernels.py _KV_CODE),
+// in kv_dtype (epilogue.cuh's codes: f32, bf16, f16 or int8),
 // (L, B, H, S, D), or (L, B, H/2, S, 2D) with pack2, 16-byte aligned;
 // k_s/v_s: (L, B, H, S) f32 or null; pos: int32 on the device, one value or
 // B (slotted); out: (B, H, G, D) f32. li selects the layer. chunk and
@@ -442,13 +442,13 @@ extern "C" int tpp_decode_attn(const void* q, const void* k, const void* v,
     return launch_d<float, float>(a, head_dim, groups, st);
   if (q_dtype == tpp::kBF16 && kv_dtype == tpp::kBF16)
     return launch_d<__nv_bfloat16, __nv_bfloat16>(a, head_dim, groups, st);
-  if (q_dtype == tpp::kF32 && kv_dtype == 2)
+  if (q_dtype == tpp::kF32 && kv_dtype == tpp::kI8)
     return launch_d<float, int8_t>(a, head_dim, groups, st);
-  if (q_dtype == tpp::kBF16 && kv_dtype == 2)
+  if (q_dtype == tpp::kBF16 && kv_dtype == tpp::kI8)
     return launch_d<__nv_bfloat16, int8_t>(a, head_dim, groups, st);
-  if (q_dtype == tpp::kF16 && kv_dtype == 3)
+  if (q_dtype == tpp::kF16 && kv_dtype == tpp::kF16)
     return launch_d<__half, __half>(a, head_dim, groups, st);
-  if (q_dtype == tpp::kF16 && kv_dtype == 2)
+  if (q_dtype == tpp::kF16 && kv_dtype == tpp::kI8)
     return launch_d<__half, int8_t>(a, head_dim, groups, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,11 +14,11 @@
 
 namespace tpp {
 
-// f16 (ROADMAP A14) runs in every kernel: the GEMM family (B1, B2, B3-B5,
-// B19, B20), B12, attention (B6-B11), the batched matmul (B21/B22), the
-// convs (B23-B25), the grouped GEMMs (B16/B17), B15's output, decode
-// attention (B13) and the training attention (B14/B18)
-enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// The one dtype table of every C entry (xsmm/kernels.py _DT_CODE). f16
+// runs in every kernel; an output, C, D, bias or gamma/beta may be stored
+// in any of the three float types whatever the products' type; int8 is
+// read only as operands (B13's int8 K/V cache).
+enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3 };
 enum Binary : int { kBinNone = 0, kAdd = 1, kSub = 2, kMul = 3, kDiv = 4,
                     kMax = 5 };
 enum Bcast : int { kBcastCol = 0, kBcastRow = 1, kBcastScalar = 2,
@@ -44,12 +44,6 @@ from_f32<__nv_bfloat16>(float v) {
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
-
-// the 16-bit type that goes with T: T itself, or bf16 beside f32 (an f32
-// kernel's 16-bit output)
-template <typename T>
-using Out16 = typename std::conditional<std::is_same<T, float>::value,
-                                        __nv_bfloat16, T>::type;
 
 // the Dtype code of a 16-bit type
 template <typename T> __host__ __device__ constexpr int dtype_code() {
@@ -108,17 +102,57 @@ __device__ __forceinline__ float apply_binary(int kind, float a, float b) {
   }
 }
 
-// The output and epilogue operands of a kernel are f32 or its one 16-bit
-// type E: bf16, or f16 in a kernel's f16 instantiations (ROADMAP A14).
-// Keeping one 16-bit branch keeps each instantiation's epilogue as small
-// as the bf16 one.
-
-// v as store_out<E> stores it, read back as f32 (one rounding to E)
-template <typename E = __nv_bfloat16>
-__device__ __forceinline__ float round_out(int dtype, float v) {
-  return dtype == dtype_code<E>() ? to_f32(from_f32<E>(v)) : v;
+// One element stored as f32, bf16 or f16 (the code), read as or written
+// from f32: a kernel's output, C, D, bias and gamma/beta may be of any of
+// the three types whatever its products' type E. Each kernel keeps its
+// E-typed (and f32) vector paths for the common case and takes these
+// scalar ones elsewhere; a store is one rounding of the f32 value. The
+// two 16-bit types share one 16-bit access, the conversion chosen by a
+// select: a branch of its own for each type would grow every unrolled
+// epilogue by a third store path (and the build with it).
+__device__ __forceinline__ float load_any(const void* p, size_t i,
+                                          int dtype) {
+  if (dtype == kF32) return static_cast<const float*>(p)[i];
+  const unsigned short u = static_cast<const unsigned short*>(p)[i];
+  return dtype == kBF16 ? __uint_as_float(static_cast<uint32_t>(u) << 16)
+                        : __half2float(__ushort_as_half(u));
 }
 
+// v rounded once to a 16-bit code's type, as its bits
+__device__ __forceinline__ unsigned short bits16(int dtype, float v) {
+  return dtype == kBF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(v))
+                        : __half_as_ushort(__float2half_rn(v));
+}
+
+// v as store_any stores it, read back as f32
+__device__ __forceinline__ float round_any(int dtype, float v) {
+  if (dtype == kF32) return v;
+  const unsigned short u = bits16(dtype, v);
+  return dtype == kBF16 ? __uint_as_float(static_cast<uint32_t>(u) << 16)
+                        : __half2float(__ushort_as_half(u));
+}
+
+__device__ __forceinline__ void store_any(void* out, size_t i, int dtype,
+                                          float v) {
+  if (dtype == kF32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<unsigned short*>(out)[i] = bits16(dtype, v);
+}
+
+// two values as a pair of a 16-bit code's type (the lower address in the
+// low half): both paired conversions and a select, where a pair of E
+// alone is one conversion
+__device__ __forceinline__ uint32_t pair_bits16(int dtype, float lo,
+                                                float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return dtype == kBF16 ? *reinterpret_cast<const uint32_t*>(&b)
+                        : *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The typed forms of store_any and round_any for a kernel whose every
+// other type goes elsewhere: f32 or E (bf16 by default), one rounding.
 template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void store_out(void* out, size_t i, int dtype,
                                           float v) {
@@ -128,15 +162,16 @@ __device__ __forceinline__ void store_out(void* out, size_t i, int dtype,
     static_cast<float*>(out)[i] = v;
 }
 
-// Host: whether an epilogue of 16-bit type code e16 (kBF16 or kF16) takes
-// an output and C and D of these codes. store_out<E> and round_out<E>
-// write anything but E as f32, so a C entry refuses (cudaErrorInvalidValue)
-// a 16-bit code other than its kernel's before it launches: an f16 output
-// on a bf16 epilogue would be written as floats, twice its buffer.
-inline bool epilogue_dtypes_ok(int e16, int out, int c = kF32,
-                               int d = kF32) {
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ float round_out(int dtype, float v) {
+  return dtype == dtype_code<E>() ? to_f32(from_f32<E>(v)) : v;
+}
+
+// Host: whether an output and C and D have float codes (a C entry refuses
+// another, cudaErrorInvalidValue, before it launches).
+inline bool epilogue_dtypes_ok(int out, int c = kF32, int d = kF32) {
   for (const int x : {out, c, d})
-    if (x != kF32 && x != e16) return false;
+    if (x != kF32 && x != kBF16 && x != kF16) return false;
   return true;
 }
 

@@ -185,6 +185,10 @@ struct Gemm {
   int vec_c, vec_d;        // C and D bases are 16-byte aligned
   int has_c, c_dtype, binary, bcast, d_dtype, unary, out_dtype;
   int split;
+  int any16;               // an output, C or D of the 16-bit type the
+                           // products are not: the epilogue is
+                           // epilogue_rows_any's, or split_reduce<E,
+                           // true>'s after a split (set_any16)
 };
 
 template <int NCW, int BN>
@@ -574,15 +578,24 @@ struct LnPrep {
   }
 };
 
+// element i of an epilogue operand: f32 or E (the typed epilogue's), or
+// of any type (ANY: a key with g.any16)
+template <class E, bool ANY>
+__device__ __forceinline__ float ld_epi(const void* p, size_t i, int dtype) {
+  return ANY ? load_any(p, i, dtype) : ld_f32<E>(p, i, dtype);
+}
+
 // D's element for output element o = (block (i, j), row p, column t)
-template <class E>
+template <class E, bool ANY>
 __device__ __forceinline__ float d_at(const Gemm& g, size_t o, int i, int j,
                                       int p, int t) {
   switch (g.bcast) {
-    case kBcastCol: return ld_f32<E>(g.d, (size_t)j * g.nb + t, g.d_dtype);
-    case kBcastRow: return ld_f32<E>(g.d, (size_t)i * g.mb + p, g.d_dtype);
-    case kBcastScalar: return ld_f32<E>(g.d, 0, g.d_dtype);
-    default: return ld_f32<E>(g.d, o, g.d_dtype);
+    case kBcastCol:
+      return ld_epi<E, ANY>(g.d, (size_t)j * g.nb + t, g.d_dtype);
+    case kBcastRow:
+      return ld_epi<E, ANY>(g.d, (size_t)i * g.mb + p, g.d_dtype);
+    case kBcastScalar: return ld_epi<E, ANY>(g.d, 0, g.d_dtype);
+    default: return ld_epi<E, ANY>(g.d, o, g.d_dtype);
   }
 }
 
@@ -735,6 +748,90 @@ __device__ __forceinline__ void epilogue_rows(const Gemm& g,
   }
 }
 
+// Host: g.any16 for a launch whose products are E: set where the output,
+// C or D is of the other 16-bit type. A split's partials are f32 whatever
+// the types; its epilogue is split_reduce's.
+template <class E>
+inline void set_any16(Gemm& g) {
+  const int other = dtype_code<E>() == kBF16 ? kF16 : kBF16;
+  g.any16 = g.out_dtype == other || (g.has_c && g.c_dtype == other) ||
+            (g.binary != kBinNone && g.d_dtype == other);
+}
+
+// epilogue_rows for a key with g.any16: the same function out of the f32
+// tile ([BM][BN + 8]), a thread's run of four columns at a time, C, D and
+// the output each in its own type (load_any, store_any, pair_bits16), the
+// unary at run time, the row statistics in epilogue_rows' order. Not
+// inlined, the tile's shape at run time: one copy a source, and the typed
+// epilogue of every other key compiles as it did.
+static __device__ __noinline__ void epilogue_rows_any(
+    const Gemm& g, const float* tile, int i, int j, int p0, int t0,
+    int ctid, int BM, int BN, int THREADS) {
+  const int LD = BN + 8, RUNS = BN / 4, STEP = THREADS / RUNS;
+  const size_t blk = ((size_t)i * g.Nb + j) * g.mb;
+  const int c0 = (ctid % RUNS) * 4, t = t0 + c0;
+  const int n = clamp_run(g.nb - t, 4);
+  const bool stats = g.rowpart != nullptr;
+  if (n == 0 && !stats) return;
+  // a column bias read once; a whole run of a 16-bit output one 8-byte
+  // store
+  const bool col = g.binary != kBinNone && g.bcast == kBcastCol;
+  float dcol[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (col && e < n)
+      dcol[e] = load_any(g.d, (size_t)j * g.nb + t + e, g.d_dtype);
+  const bool vec = (g.nb & 3) == 0 && n == 4 && g.out_dtype != kF32;
+  for (int row = ctid / RUNS; row < BM; row += STEP) {
+    const int p = p0 + row;
+    float s1 = 0.f, s2 = 0.f;
+    if (p < g.mb && n > 0) {
+      const size_t o = (blk + p) * g.nb + t;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = 0.f;
+        if (e < n) {
+          v = tile[row * LD + c0 + e];
+          if (g.has_c) v += load_any(g.c, o + e, g.c_dtype);
+          if (g.binary != kBinNone)
+            v = apply_binary(g.binary, v,
+                             col ? dcol[e]
+                                 : d_at<__nv_bfloat16, true>(g, o + e, i, j,
+                                                             p, t + e));
+          v = apply_unary(g.unary, v);
+        }
+        x[e] = v;
+      }
+      if (vec) {
+        *reinterpret_cast<uint2*>(static_cast<unsigned short*>(g.out) + o) =
+            make_uint2(pair_bits16(g.out_dtype, x[0], x[1]),
+                       pair_bits16(g.out_dtype, x[2], x[3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < n) store_any(g.out, o + e, g.out_dtype, x[e]);
+      }
+      if (stats) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = e < n ? round_any(g.out_dtype, x[e]) : 0.f;
+          s1 += y;
+          s2 += y * y;
+        }
+      }
+    }
+    if (stats) {
+      for (int off = RUNS / 2; off > 0; off >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (c0 == 0 && p < g.mb)
+        g.rowpart[(size_t)(t0 / BN) * g.mb + p] = make_float2(s1, s2);
+    }
+  }
+}
+
 // The accumulators of warpgroup wg (rows p0 + 64 wg + ...) into the shared
 // f32 tile, then the block's epilogue over it. acc[4 jj + 2 h + e] is row
 // 16 warp + lane / 4 + 8 h, column 8 jj + 2 (lane % 4) + e of the
@@ -757,6 +854,10 @@ __device__ __forceinline__ void store_tile(float (&acc)[BN / 2],
         make_float2(acc[x], acc[x + 1]);
   }
   hw::bar_sync(1, THREADS);
+  if (g.any16 && g.split == 1) {
+    epilogue_rows_any(g, tile, i, j, p0, t0, ctid, BM, BN, THREADS);
+    return;
+  }
   switch (g.split > 1 ? kIdentity : g.unary) {
 #define TPP_EPILOGUE(U)                                                    \
   case U:                                                                  \
@@ -865,9 +966,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 // The split partials summed in slice order, then the epilogue, once an
-// output element; C, D and the output f32 or E. (static: each source that
-// includes this header has its own copy.)
-template <class E>
+// output element; C, D and the output f32 or E, or (ANY, a key with
+// g.any16) of any type. (static: each source that includes this header
+// has its own copy.)
+template <class E, bool ANY>
 static __global__ void __launch_bounds__(256) split_reduce(const Gemm g) {
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
@@ -879,10 +981,14 @@ static __global__ void __launch_bounds__(256) split_reduce(const Gemm g) {
     const int p = static_cast<int>(row % g.mb);
     const int j = static_cast<int>((row / g.mb) % g.Nb);
     const int i = static_cast<int>(row / ((size_t)g.mb * g.Nb));
-    if (g.has_c) v += ld_f32<E>(g.c, o, g.c_dtype);
+    if (g.has_c) v += ld_epi<E, ANY>(g.c, o, g.c_dtype);
     if (g.binary != kBinNone)
-      v = apply_binary(g.binary, v, d_at<E>(g, o, i, j, p, t));
-    store_out<E>(g.out, o, g.out_dtype, apply_unary(g.unary, v));
+      v = apply_binary(g.binary, v, d_at<E, ANY>(g, o, i, j, p, t));
+    v = apply_unary(g.unary, v);
+    if (ANY)
+      store_any(g.out, o, g.out_dtype, v);
+    else
+      store_out<E>(g.out, o, g.out_dtype, v);
   }
 }
 
@@ -1034,14 +1140,19 @@ int launch(const Gemm& g, const CUtensorMap& amap, const CUtensorMap& bmap,
   }
   const dim3 grid(g.Mb * ((g.mb + T::BM - 1) / T::BM),
                   g.Nb * ((g.nb + BN - 1) / BN), g.split);
+  Gemm k = g;
+  set_any16<E>(k);
   kernel<<<grid, NCW * WG + (LOADER == kTma ? 32 : WG), smem, st>>>(amap,
-                                                                    bmap, g);
+                                                                    bmap, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.split == 1) return static_cast<int>(err);
   const size_t total = (size_t)g.Mb * g.Nb * g.mb * g.nb;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, (size_t)sm_count() * 8));
-  split_reduce<E><<<blocks, 256, 0, st>>>(g);
+  if (k.any16)
+    split_reduce<E, true><<<blocks, 256, 0, st>>>(k);
+  else
+    split_reduce<E, false><<<blocks, 256, 0, st>>>(k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -178,7 +178,7 @@ __device__ __forceinline__ Tmma staged(const Tin* p, bool valid) {
 }
 
 // Tin: dtype of A/B in device memory; Tmma: dtype the products see. The
-// output is f32 or Tmma's 16-bit type (bf16 beside f32 FMA).
+// output is f32, bf16 or f16.
 template <int BM, typename Tin, typename Tmma>
 __global__ void __launch_bounds__(4 * BM)
 grouped_gemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
@@ -230,8 +230,8 @@ grouped_gemm_kernel(const Tin* __restrict__ A, const Tin* __restrict__ B,
     const int r = i / BN, c = i % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= m || gn >= n) continue;
-    tpp::store_out<tpp::Out16<Tmma>>(out, (size_t)gm * n + gn, out_dtype,
-                                     tpp::apply_unary(unary, Cs[r][c]));
+    tpp::store_any(out, (size_t)gm * n + gn, out_dtype,
+                   tpp::apply_unary(unary, Cs[r][c]));
   }
 }
 
@@ -348,7 +348,8 @@ struct GTile {
 // The accumulator tile, unary(acc) converted, stored from registers:
 // acc[4 j + 2 h + e] is row `row` + 8 h, column `col` + 8 j + e; rows at or
 // past `m` are dropped; n is a multiple of 8, so a pair is in or out as a
-// whole. The output is f32 or E, the products' 16-bit type.
+// whole. The output is f32 or a 16-bit type (E or the other), a pair a
+// 4- or 8-byte store.
 template <int U, class E>
 __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
                                            int row, int col, int m, int n,
@@ -360,12 +361,12 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], void* out,
     const float x0 = tpp::apply_unary(U, acc[i]);
     const float x1 = tpp::apply_unary(U, acc[i + 1]);
     const size_t at = (size_t)gm * n + gn;
-    if (out_dtype == tpp::dtype_code<E>())
-      *reinterpret_cast<uint32_t*>(static_cast<E*>(out) + at) =
-          hw::pack16<E>(x0, x1);
-    else
+    if (out_dtype == tpp::kF32)
       *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
           make_float2(x0, x1);
+    else    // bf16 or f16, whatever E
+      *reinterpret_cast<uint32_t*>(static_cast<unsigned short*>(out) + at) =
+          tpp::pair_bits16(out_dtype, x0, x1);
   }
 }
 
@@ -661,9 +662,8 @@ int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
 
 // Returns the cudaError_t of the launch (0 on success). A and B are
 // in_dtype, ge int32 (m / bm), li a device int32 (the layer of a stacked
-// (layers, groups, ., .) table) or null, out out_dtype (m, n): f32 or the
-// products' 16-bit type (bf16, or f16 for f16 operands; another is
-// refused). route is xsmm/reference.py grouped_gemm_route's choice: 1
+// (layers, groups, ., .) table) or null, out out_dtype (m, n): f32, bf16
+// or f16, one rounding of the f32 epilogue (another code is refused). route is xsmm/reference.py grouped_gemm_route's choice: 1
 // "wgmma" (bf16 or f16 operands and products of that type, bm a multiple
 // of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of 16).
 extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
@@ -677,7 +677,7 @@ extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
   const int* lp = static_cast<const int*>(li);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool f16 = mma_dtype == tpp::kF16;
-  if (!tpp::epilogue_dtypes_ok(f16 ? tpp::kF16 : tpp::kBF16, out_dtype))
+  if (!tpp::epilogue_dtypes_ok(out_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if (in_dtype != mma_dtype || (in_dtype != tpp::kBF16 && !f16))

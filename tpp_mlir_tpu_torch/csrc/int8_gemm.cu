@@ -66,17 +66,6 @@ constexpr int BM = 128, BN = 128, BK = 64, KC = BK / 16;
 constexpr int WARPS = 8, THREADS = WARPS * 32;
 constexpr int WM = 32, WN = 64;  // one warp's part of the tile (4 x 2 warps)
 
-// one output element in its dtype: f32, bf16 or f16 (store_out knows
-// f32 and one 16-bit type, so the two 16-bit types are two of its
-// instantiations)
-__device__ __forceinline__ void store_any(void* out, size_t i, int dtype,
-                                          float v) {
-  if (dtype == tpp::kF16)
-    tpp::store_out<__half>(out, i, dtype, v);
-  else
-    tpp::store_out<__nv_bfloat16>(out, i, dtype, v);
-}
-
 struct Args {
   const int8_t* x;
   const int8_t* w;
@@ -174,7 +163,7 @@ __global__ void __launch_bounds__(THREADS) int8_gemm_kernel(Args a) {
         float y = __fmul_rn(__fmul_rn(static_cast<float>(cs[e]), a.xs[row]),
                             a.ws[col]);
         if (a.bias != nullptr) y = __fadd_rn(y, a.bias[col]);
-        store_any(a.out, (size_t)row * a.n + col, a.out_dtype,
+        tpp::store_any(a.out, (size_t)row * a.n + col, a.out_dtype,
                   tpp::apply_unary(a.unary, y));
       }
       __syncwarp();
@@ -321,7 +310,7 @@ __device__ __forceinline__ void i8_store(const I8Gemm& g, const int4& a,
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (e < n) store_any(g.out, o + e, g.out_dtype, y[e]);
+      if (e < n) tpp::store_any(g.out, o + e, g.out_dtype, y[e]);
   }
 }
 
@@ -499,7 +488,7 @@ __global__ void __launch_bounds__(256) int8_split_reduce(const I8Gemm g) {
                                   sm::ld_f32(g.xs, p, g.xs_dtype)),
                         sm::ld_f32(g.ws, t, g.ws_dtype));
     if (g.has_bias) v = __fadd_rn(v, sm::ld_f32(g.bias, t, g.bias_dtype));
-    store_any(g.out, o, g.out_dtype, tpp::apply_unary(g.unary, v));
+    tpp::store_any(g.out, o, g.out_dtype, tpp::apply_unary(g.unary, v));
   }
 }
 
@@ -542,6 +531,12 @@ int i8_launch(const I8Gemm& g, const void* x, const void* wt, int grid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the scales' and the bias's types: f32 or bf16 (sm::ld_f32 and load4 at
+// their default E)
+bool scale_dtype_ok(int dtype) {
+  return dtype == tpp::kF32 || dtype == tpp::kBF16;
+}
+
 }  // namespace
 
 // Route "wgmma". Returns the cudaError_t of the launch (0 on success). x
@@ -562,8 +557,8 @@ extern "C" int tpp_int8_gemm_wgmma(const void* x, const void* wt,
                                    void* stream) {
   if (k % 16 || m < 1 || n < 1 || out_dtype < tpp::kF32 ||
       out_dtype > tpp::kF16 ||
-      !tpp::epilogue_dtypes_ok(tpp::kBF16, xs_dtype, ws_dtype,
-                               bias != nullptr ? bias_dtype : tpp::kF32))
+      !scale_dtype_ok(xs_dtype) || !scale_dtype_ok(ws_dtype) ||
+      (bias != nullptr && !scale_dtype_ok(bias_dtype)))
     return static_cast<int>(cudaErrorInvalidValue);
   const I8Plan p = i8_plan(m, n, k);
   const int v[6] = {p.bm, p.bn, p.split, p.tiles, p.grid, p.smem};

@@ -5,9 +5,8 @@
 // per row of an (m, n) matrix, with the two-pass f32 statistics and biased
 // variance of the TPU kernel (mean first, then the mean of squared
 // deviations), and one rounding to the output dtype. x is f32, bf16 or
-// f16 (ROADMAP A14's f16 keys); the output f32 or x's 16-bit type (f32 x:
-// bf16). gamma and beta are read in their stored dtype (f32, bf16 or f16)
-// and widened in registers.
+// f16; the output f32, bf16 or f16, whatever x's. gamma and beta are read
+// in their stored dtype (f32, bf16 or f16) and widened in registers.
 //
 // What bounds it on the H100: it reads each element once and writes it
 // once, a few FLOPs per byte, so it is bound by device memory (3.35 TB/s);
@@ -42,15 +41,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// element i of an f32, bf16 or f16 vector
-__device__ __forceinline__ float ld_any(const void* p, size_t i, int dtype) {
-  if (dtype == tpp::kBF16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  if (dtype == tpp::kF16)
-    return __half2float(static_cast<const __half*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
 template <typename Tin>
 __global__ void __launch_bounds__(THREADS)
 layer_norm_kernel(const Tin* __restrict__ x, const void* __restrict__ gamma,
@@ -72,8 +62,9 @@ layer_norm_kernel(const Tin* __restrict__ x, const void* __restrict__ gamma,
   for (int c = lane; c < n; c += 32) {
     float y = (tpp::to_f32(xr[c]) - mean) * rstd;
     if (gamma != nullptr)
-      y = y * ld_any(gamma, c, g_dtype) + ld_any(beta, c, g_dtype);
-    tpp::store_out<tpp::Out16<Tin>>(out, (size_t)row * n + c, out_dtype, y);
+      y = y * tpp::load_any(gamma, c, g_dtype) +
+          tpp::load_any(beta, c, g_dtype);
+    tpp::store_any(out, (size_t)row * n + c, out_dtype, y);
   }
 }
 
@@ -252,9 +243,9 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). x is in_dtype
-// (f32, bf16 or f16) and out out_dtype: f32, or the 16-bit type of x (bf16
-// for an f32 x); any other pair is refused. gamma and beta in g_dtype (f32,
-// bf16 or f16), both null when the key has no affine. route 1
+// (f32, bf16 or f16) and out out_dtype (f32, bf16 or f16, whatever x's:
+// one rounding of the f32 row). gamma and beta in g_dtype (f32, bf16 or
+// f16), both null when the key has no affine. route 1
 // ("register") needs rows of whole 16-byte vectors, at most MAX_VPL a
 // lane, and 16-byte aligned x, out, gamma and beta (8-byte for a vector of
 // four 16-bit values); route 0 ("strided") takes any n.
@@ -263,11 +254,8 @@ extern "C" int tpp_layer_norm(const void* x, const void* gamma,
                               int in_dtype, int out_dtype, int g_dtype,
                               int route, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int out16 = in_dtype == tpp::kF16 ? tpp::kF16 : tpp::kBF16;
-  if ((in_dtype != tpp::kF32 && in_dtype != tpp::kBF16 &&
-       in_dtype != tpp::kF16) ||
-      (out_dtype != tpp::kF32 && out_dtype != out16) ||
-      (gamma != nullptr && (g_dtype < tpp::kF32 || g_dtype > tpp::kF16)))
+  if (!tpp::epilogue_dtypes_ok(in_dtype, out_dtype,
+                               gamma != nullptr ? g_dtype : tpp::kF32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     const int es = in_dtype == tpp::kF32 ? 4 : 2;

@@ -86,8 +86,9 @@ constexpr int OPTIN = 232448;             // sm_90's shared memory a block
 // one GEMM step: out[:, :N] = unary(H[:, :K] . W OP d) (fwd), or
 // H[:, :K] . W^T with W (N x K) read in place (!fwd)
 struct Step {
-  const float* d;   // the binary operand along the columns, or null
+  const void* d;    // the binary operand along the columns, or null
   int K, N, fwd, w, slot, binary, unary;
+  int d_dtype;      // d's type: f32, bf16 or f16 (epilogue.cuh)
 };
 
 struct Params {
@@ -278,7 +279,8 @@ __device__ __forceinline__ void tile_products(
 // compile-time choice (one straight copy each, not switches inlined P/2
 // times; U < 0 and ADD false: both at run time, for other binaries): OP D
 // (dv, this thread's two columns of it) along the columns, U, then to the
-// output (the last step: rounded to E first unless round_out is 0) or,
+// output (the last step, in its own type: rounded to E first where
+// round_out says the reference casts a state held in E, B4/B5/B20) or,
 // rounded to E, into the staging tile. Accumulator (4 j + 2 h + e) is
 // column t*64 + 16 warp + lane/4 + 8 h (wgmma's M), panel row
 // 8 j + 2 (lane % 4) + e (its N).
@@ -307,7 +309,7 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Step& s,
           const int gm = r0 + row;
           if (col < s.N && gm < p.mb) {
             if (p.round_out) v = to_f32(from_f32<E>(v));
-            store_out<E>(p.out,
+            store_any(p.out,
                       (((size_t)grp * (s.N / p.onb) + col / p.onb) * p.mb +
                        gm) * p.onb + col % p.onb,
                       p.out_dtype, v);
@@ -548,7 +550,8 @@ warm_panel_kernel(const __grid_constant__ Params p) {
         if (s.binary != kBinNone)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            if (cb + 8 * h < s.N) dv[h] = s.d[cb + 8 * h];
+            if (cb + 8 * h < s.N)
+              dv[h] = load_any(s.d, cb + 8 * h, s.d_dtype);
         float acc[P / 2];
         uint64_t* lw = g > 0 ? landed : nullptr;
         if (s.fwd)

@@ -9,9 +9,10 @@ conv2d_brgemm a ConvBrgemmKey (csrc/conv.cu's channel-blocked entry, B23):
 the kernel on CUDA tensors, the plain version on CPU tensors. `precision`
 is the key's: "default" rounds f32 operands to bf16 (the compiled TPU
 meaning), "highest" keeps true f32; f16 operands take f16 products at
-either (ROADMAP A14). `out_dtype` ("f32" or "bf16"; for f16 operands "f32"
-or "f16"; default the operands') is the result's; a C accumulator is added
-in f32."""
+either. `out_dtype` ("f32", "bf16" or "f16", whatever the operands';
+default the operands') is the result's, one rounding of the f32 epilogue
+stored by the kernel; a C accumulator, of any of the three types, is
+added in f32."""
 
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ lowering (SLICE_OPS), so no IR runs half-lowered: a contraction, conv,
 attention or LayerNorm still in tl form (one that convert-tl-to-xsmm's
 `skip` or conv-to-brgemm left) would run its plain version on the card in
 place of its kernel, and is refused. It also refuses the keys of xsmm ops
-that check_slice refuses (an f16 key mixing 16-bit types, ROADMAP A14),
+that check_slice refuses (an unknown dtype, precision or epilogue kind),
 a tl.generic in contraction
 form or with reduction dims outside it (the reference's evaluator raises
 on the latter too), and conv or attention keys whose kernel the reference
@@ -123,7 +123,7 @@ def slice_violation(op) -> str | None:
             return f"attention {e}"
     if op.opname.startswith("xsmm.") and not op.opname.endswith("_dispatch"):
         # the key the executor dispatches: check_slice refuses what no
-        # kernel of the port takes (an f16 key outside the GEMM family)
+        # kernel of the port takes
         try:
             check_slice(_dispatch_key(op.operands[0].owner, op))
         except NotImplementedError as e:

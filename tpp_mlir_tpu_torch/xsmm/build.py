@@ -56,7 +56,7 @@ _SIGNATURES = {
     "tpp_layer_norm": (_I, [_P] * 4 + [_I] * 6 + [_F, _P]),
     "tpp_empty_kernel": (_I, [_P]),
     "tpp_chain": (_I, [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
-                       ctypes.POINTER(_I)] + [_I] * 11
+                       ctypes.POINTER(_I), ctypes.POINTER(_I)] + [_I] * 11
                   + [ctypes.POINTER(_I), _P]),
     "tpp_warm_max_clusters": (_I, [_I] * 3 + [ctypes.POINTER(_I)]),
     "tpp_decode_attn": (_I, [_P] * 9 + [_I] * 12 + [_F, _P]),

@@ -113,10 +113,11 @@ from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     GroupedGemmKey, GroupedWgradKey, Int8GemmKey,
                     LayerNormKey, UnaryKey)
 
-# csrc/epilogue.cuh's Dtype codes; f16 keys (ROADMAP A14) run on every
-# kernel; a kernel that reads a scale, a bias or a statistic in f32 or bf16
-# only takes an f16 one widened (_native)
-_DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# csrc/epilogue.cuh's Dtype codes, the one table of every C entry: an
+# output, C, D, bias or gamma/beta in any of the three float types; int8
+# for B13's K/V cache
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+            torch.int8: 3}
 _BINARY_CODE = {None: 0, "add": 1, "sub": 2, "mul": 3, "div": 4, "max": 5}
 _BCAST_CODE = {"bcast_col": 0, "bcast_row": 1, "bcast_scalar": 2, "none": 3}
 _UNARY_CODE = {None: 0, "identity": 0, "relu": 1, "exp": 2, "square": 3,
@@ -329,26 +330,21 @@ def describe_plan(plan) -> str:
     return f"plan {plan.bm}x{plan.bn} split {plan.split}"
 
 
-# the stored dtypes a kernel reads an epilogue operand in, widened to f32 in
-# registers: f32 and its one 16-bit type, bf16 (every kernel but the GEMM
-# family's f16 instantiations) or f16 (those: csrc/epilogue.cuh)
-_EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def epilogue_dtypes(mxu: torch.dtype) -> tuple:
-    """The stored dtypes the GEMM epilogue (B1, B19) reads C and D in at
-    products of type `mxu`: f32 and f16 for f16 products, else f32 and
-    bf16."""
-    return (torch.float32, torch.float16) if mxu == torch.float16 \
-        else _EPILOGUE_DTYPES
+# the stored dtypes a kernel reads an epilogue operand (C, D, a bias,
+# LayerNorm's gamma/beta) in, widened to f32 in registers, whatever its
+# products' type (csrc/epilogue.cuh load_any); B15 reads its scales and
+# bias in f32 or bf16
+_EPILOGUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_SCALE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _native(t: torch.Tensor, name: str, numel: int, dev,
             dtypes=_EPILOGUE_DTYPES) -> torch.Tensor:
-    """An epilogue operand (C, D, a scale or LayerNorm's gamma/beta) as the
-    kernel reads it: contiguous, in its stored dtype where the kernel reads
-    that dtype (`dtypes`; widened to f32 in registers), so no conversion
-    kernel runs before it; any other dtype is widened to f32 first."""
+    """An epilogue operand (C, D, a bias, a scale or LayerNorm's
+    gamma/beta) as the kernel reads it: contiguous, in its stored dtype
+    where the kernel reads that dtype (`dtypes`; widened to f32 in
+    registers), so no conversion kernel runs before it; any other dtype is
+    widened to f32 first."""
     if t.dtype not in dtypes:
         t = t.float()
     t = t.contiguous()
@@ -387,9 +383,9 @@ def _brgemm_launch(key: BrgemmKey):
             if tuple(c.shape) != (m, n):
                 raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                                  f"{(m, n)}")
-            c = _native(c, "C", m * n, dev, epilogue_dtypes(mxu))
+            c = _native(c, "C", m * n, dev)
         if key.binary_kind:
-            d = _native(d, "D", d_size, dev, epilogue_dtypes(mxu))
+            d = _native(d, "D", d_size, dev)
         if ln and key.prologue_affine:
             gamma = gamma.reshape(-1).float().contiguous()
             beta = beta.reshape(-1).float().contiguous()
@@ -510,17 +506,17 @@ def _chain_launch(key: ChainKey, route: str | None = None, plan=None):
             if w.data_ptr() % 32:
                 raise ValueError(f"W{li} must be 32-byte aligned")
             ws.append(w)
-            if key.has_bias:
-                bias = wb[step * li + 1].reshape(-1).float().contiguous()
-                _expect(bias, f"b{li}", (dims[li + 1],), None, dev)
-                bs.append(bias)
+            if key.has_bias:    # read in its stored dtype
+                bs.append(_native(wb[step * li + 1].reshape(-1), f"b{li}",
+                                  dims[li + 1], dev))
         out = torch.empty((key.m, dims[-1]), dtype=out_dt, device=dev)
         w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in ws])
         b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in bs])
+        b_codes = (ctypes.c_int * L)(*[_DT_CODE[b.dtype] for b in bs])
         c_dims = (ctypes.c_int * (L + 1))(*dims)
         rc = library().tpp_chain(
-            x.data_ptr(), out.data_ptr(), w_ptrs, b_ptrs, c_dims, L, key.m,
-            _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
+            x.data_ptr(), out.data_ptr(), w_ptrs, b_ptrs, b_codes, c_dims, L,
+            key.m, _DT_CODE[in_dt], _DT_CODE[mxu], _DT_CODE[out_dt],
             int(key.has_bias), _UNARY_CODE[key.unary_kind],
             _UNARY_CODE[key.last_unary], max(1, key.repeats), int(bench),
             int(key.pingpong and bench), plan_arg, _stream())
@@ -665,9 +661,6 @@ def _batch_matmul_launch(key: BatchMatmulKey):
 
 
 LN_ROUTES = ("register", "strided")
-# the stored dtypes layer_norm.cu reads gamma and beta in (widened in
-# registers), whatever the key's dtype
-_LN_AFFINE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -697,10 +690,8 @@ def _layer_norm_launch(key: LayerNormKey, route: str | None = None):
         _expect(x, "x", (m, n), in_dt, dev)
         g_code = 0
         if key.affine:
-            gamma = _native(gamma.reshape(-1), "gamma", n, dev,
-                            _LN_AFFINE_DTYPES)
-            beta = _native(beta.reshape(-1), "beta", n, dev,
-                           _LN_AFFINE_DTYPES).to(gamma.dtype)
+            gamma = _native(gamma.reshape(-1), "gamma", n, dev)
+            beta = _native(beta.reshape(-1), "beta", n, dev).to(gamma.dtype)
             if reg:
                 x, gamma, beta = _aligned(x), _aligned(gamma), _aligned(beta)
             g_code = _DT_CODE[gamma.dtype]
@@ -727,9 +718,6 @@ def empty_kernel() -> None:
 
 DECODE_ATTN_HEAD_DIMS = (32, 64, 128)   # decode_attn.cu's instantiations
 DECODE_ATTN_MAX_GROUPS = 8
-# decode_attn.cu's K/V codes: its own, not _DT_CODE's (2 is int8 there)
-_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-            torch.float16: 3}
 _DECODE_COUNTS: dict[int, torch.Tensor] = {}
 
 
@@ -795,7 +783,7 @@ def _decode_attn_launch(key: DecodeAttnKey):
             out.data_ptr(), work.data_ptr() if work is not None else None,
             counts.data_ptr() if counts is not None else None, B, H, S, D,
             G, li, int(key.slotted), int(key.pack2), _DT_CODE[q_dt],
-            _KV_CODE[kv_dt], chunk, splits, D ** -0.5, _stream())
+            _DT_CODE[kv_dt], chunk, splits, D ** -0.5, _stream())
         check(rc, f"decode_attn {key}")
         return out
     return _tag(launch, "split", "decode_attn.cu")
@@ -853,10 +841,10 @@ def _int8_gemm_launch(key: Int8GemmKey, route: str | None = None):
         _expect(wt, "Wt", (n, k), torch.int8, dev)
         if wt.data_ptr() % 16:
             raise ValueError("Wt must be 16-byte aligned")
-        xscale = _native(xscale.reshape(-1), "xscale", m, dev)
-        wscale = _native(wscale.reshape(-1), "wscale", n, dev)
+        xscale = _native(xscale.reshape(-1), "xscale", m, dev, _SCALE_DTYPES)
+        wscale = _native(wscale.reshape(-1), "wscale", n, dev, _SCALE_DTYPES)
         if key.has_bias:
-            bias = _native(bias.reshape(-1), "bias", n, dev)
+            bias = _native(bias.reshape(-1), "bias", n, dev, _SCALE_DTYPES)
         work = torch.empty(plan.split * m * n, dtype=torch.int32,
                            device=dev) if plan.split > 1 else None
         plan_arg = (ctypes.c_int * 6)(plan.bm, plan.bn, plan.split,
@@ -1073,8 +1061,7 @@ def _conv_route(key, route: str | None) -> str:
 def _conv_call(key, route: str, fn, i, w, c, d, out, geometry):
     """One launch of csrc/conv.cu's entry `fn` (tpp_conv_nhwc or
     tpp_conv_blocked) on the route: C and D read in their stored dtype
-    where the kernel reads it (_native: f32 or the products' 16-bit type,
-    epilogue_dtypes), the wgmma routes at conv_plan's tile and split with
+    (_native), the wgmma routes at conv_plan's tile and split with
     the split partials in a workspace. f16 keys pass the f16 codes (2) for
     the operands and the products."""
     from .build import check
@@ -1087,11 +1074,10 @@ def _conv_call(key, route: str, fn, i, w, c, d, out, geometry):
         if tuple(c.shape) != tuple(out.shape):
             raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                              f"{tuple(out.shape)}")
-        c = _native(c, "C", n_out, dev, epilogue_dtypes(mxu))
+        c = _native(c, "C", n_out, dev)
     if key.binary_kind:   # a full residual, or a bias of the K columns
         d = _native(d.reshape(-1), "D", n_out if key.binary_bcast == "none"
-                    else n_out // (key.N * key.P * key.Q), dev,
-                    epilogue_dtypes(mxu))
+                    else n_out // (key.N * key.P * key.Q), dev)
     bm, bn, split = reference.conv_plan(key) \
         if route in ("tma", "convert") else (64, 64, 1)
     if route in ("tma", "convert") and (i.data_ptr() % 16 or
@@ -1180,11 +1166,9 @@ def _blocked_matmul_launch(key: BlockedMatmulKey, warm: str | None = None,
             if tuple(c.shape) != (Mb, Nb, mb, nb):
                 raise ValueError(f"C has shape {tuple(c.shape)}, expected "
                                  f"{(Mb, Nb, mb, nb)}")
-            c = _native(c, "C", Mb * Nb * mb * nb, dev,
-                        epilogue_dtypes(mxu))
+            c = _native(c, "C", Mb * Nb * mb * nb, dev)
         if key.binary_kind:
-            d = d.reshape(-1).float() if key.repeats else d.reshape(-1)
-            d = _native(d, "D", Nb * nb, dev, epilogue_dtypes(mxu))
+            d = _native(d.reshape(-1), "D", Nb * nb, dev)
         work = None if key.repeats else _plan_workspace(launch, dev)
         out = torch.empty((Mb, Nb, mb, nb), dtype=out_dt, device=dev)
         rc = library().tpp_blocked_matmul(

@@ -18,7 +18,7 @@ Precision, one meaning everywhere (kernel and plain version alike):
     `torch.backends.cudnn.allow_tf32`, is on by default).
   * bf16: bf16 operands, f32 accumulation and f32 epilogue, one rounding to
     the output dtype at the end.
-  * f16 (ROADMAP A14: the GEMM family, B1, B3-B5, B19, B20 and the
+  * f16 (every kernel: the GEMM family, B1, B3-B5, B19, B20 and the
     xsmm.unary/binary ops; the transformer family, B2's LayerNorm prologue
     and ln_stats pair, B12 and attention, B6-B11; the MHA suite's batched
     matmul, B21/B22; the conv family, B23-B25; the grouped GEMMs, B16/B17;
@@ -33,6 +33,16 @@ Precision, one meaning everywhere (kernel and plain version alike):
     whose cuBLAS reduction may run in reduced precision.
 Normalizations (LayerNorm, the GEMM's LayerNorm prologue, softmax) compute
 in f32 whatever the dtype; only their results are rounded.
+
+Output types: every key with an `out_dtype` writes f32, bf16 or f16
+whatever its products' type, and reads C, D, biases and gamma/beta in the
+type they are stored in (widened to f32). The rounding follows the JAX
+bodies' casts: B1/B2, B3, B6-B10, B7, B12, B16, B19, B21/B22 and B23-B25
+store one rounding of the f32 value to `out_dtype`, never a rounding
+through the products' type first (a bf16 output of f16 products keeps
+values above f16's 65,504); B4, B5, B20 and B11 hold their state in the
+products' type between repeats and cast that state to `out_dtype`
+(tpp_mlir_tpu/xsmm/kernels.py:2053-2061, :1969-1974, :933, :2172-2176).
 """
 
 from __future__ import annotations
@@ -60,27 +70,6 @@ CONV_BLOCKED_STRIDE = (
     "conv-to-BRGEMM to stride 1, docs/ConvMapping.md)")
 
 
-def _refuse(what: str, item: str, key) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is outside the port's slice: ROADMAP queue {item}: {key}")
-
-
-def _check_f16(key) -> None:
-    """Refuse, naming A14, a kernel key that mixes f16 with bf16 or f32
-    operands (the kernels' f16 instantiations read and write f16 and f32
-    only); every family's f16 key runs (ROADMAP A14). B15's key is f16 by
-    its output alone: its operands are s8. B13, B14 and B18 have no
-    out_dtype: B13 writes f32, B14/B18 bf16, as the JAX package's kernels
-    do."""
-    dtype, out = getattr(key, "dtype", None), getattr(key, "out_dtype", None)
-    if "f16" not in (dtype, out):
-        return
-    if not isinstance(key, (UnaryKey, BinaryKey, Int8GemmKey)) and (
-            dtype != "f16" or out not in (None, "f16", "f32")):
-        raise _refuse("an f16 key mixing 16-bit types", "A14 (f16 keys)",
-                      key)
-
-
 def check_slice(key) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any key or
     option this slice does not port."""
@@ -91,7 +80,6 @@ def check_slice(key) -> None:
                             UnaryKey, BinaryKey)):
         raise NotImplementedError(f"{type(key).__name__} is outside the "
                                   f"port's slice: ROADMAP queue A")
-    _check_f16(key)
     if isinstance(key, DecodeAttnKey):
         _check_decode_attn(key)
         return
