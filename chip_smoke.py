@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (tpp_mlir_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as below
+    python3 chip_smoke.py fusion_parity   # the build, then phase_<name>s
 
 Phases, one line each; any failure raises and the script exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -26,7 +27,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
      training key B 8, S 512, H 12, D 64 causal bf16, an f32 key at D 128
      and a GQA case through the autograd op, B18 twice bit-equal; for MoE:
      B16 at the prefill's fc1 (gelu) and fc2, the training step's z1 and
-     its two transpose_b dgrads (9216 padded rows), a bm 16 key, a stacked
+     its two transpose_b dgrads (9216 padded rows), bm 16 and bm 8 keys
+     (the WMMA tile; bm 8 in bf16, f32 "default" and "highest"), a stacked
      `layers` key and a skewed routing, and the wgmma tile's edges (bm 64,
      n and k off its 128/64 tiles, a stacked table under transpose_b, an
      f32 output, experts that own no row block), padding rows exactly
@@ -342,8 +344,19 @@ the 12 layers, B14 then B18 on its outputs), every f16 kernel launched;
 its plain version, its bound and SDPA in f16 (B13 on the live rows,
 walking the layers; B14 its forward; B18 SDPA's backward op from a
 graph): kernel-line rows; the keys off the path timed the same way, no
-kernel-line row. The line before the last is the kernel table as JSON;
-the last line is {"ok": true, "device": {...}}.
+kernel-line row.
+The parity phases (ROADMAP queue A), last: `phase_dispatch_api` (the
+libxsmm-shaped gemm/brgemm/fused_brgemm dispatch functions, and the cache's
+dispatch of a packed B19 key, a UnaryKey and a BinaryKey, against their
+plain versions), `phase_fusion_parity` (the JAX transformer-fusion and
+returned-value programs through default-tpp-passes against
+--linalg-to-loops) and `phase_serving_fuzz` (the serving fuzzer's ten
+architectures at GPT-2 small's widths, every path against the greedy
+oracle, with the seeded top-1 combine bug caught); their programs and
+harness are tests/torch_parity_cases.py, shared with the CPU tests.
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}. Given phase names, the script runs the
+device and build phases and then those phases alone, and prints neither.
 """
 
 from __future__ import annotations
@@ -1160,8 +1173,10 @@ def _kind(key) -> str | None:
     layout and the warm bench of attention.cu apart from its token layout,
     B5's ping-pong loop apart from chain.cu's others, strategy flash_heads
     under B14, and None for attention's and conv's strategy xla (no
-    kernel)."""
-    kind = KINDS[type(key).__name__]
+    kernel) and for xsmm.unary/xsmm.binary's keys (PyTorch ops)."""
+    kind = KINDS.get(type(key).__name__)
+    if kind is None:
+        return None
     if kind == "conv_nhwc":
         from tpp_mlir_tpu_torch.xsmm.reference import conv_route
         return kind if conv_route(key) == "kernel" else None
@@ -5242,6 +5257,14 @@ GROUPED_GEMM_CASES = (
     ("train dxs tb 9216x768x3072 f32 out", 4096, 128, 768, 3072,
      dict(_B16, out_dtype="f32", transpose_b=True), False),
     ("small bm 16 2128x768x256", 1000, 16, 768, 256, _B16, False),
+    # the WMMA tile's 8-row form (one warp, 8 x 32 x 16 fragments): the
+    # serving fuzzer's moe_group_bm 8, in bf16 and in f32 as it serves
+    ("small bm 8 x768 n768 k256", 1000, 8, 768, 256, _B16, False),
+    ("small bm 8 f32 gelu x3072 k768", 1000, 8, 3072, 768,
+     dict(dtype="f32", out_dtype="f32", unary_kind="gelu"), False),
+    ("small bm 8 f32 highest tb skewed", 1000, 8, 768, 3072,
+     dict(dtype="f32", precision="highest", out_dtype="f32",
+          transpose_b=True), True),
     ("layers 3 bm 64 1536x3072x768 gelu", 512, 64, 3072, 768,
      dict(_B16, unary_kind="gelu", layers=3), False),
     ("skewed fc1 9216x3072x768 gelu", 4096, 128, 3072, 768,
@@ -8298,7 +8321,255 @@ def phase_parallel_timing(rows) -> list:
 
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# ROADMAP queue A's parity items: the libxsmm-shaped dispatch API, A6's
+# pass-fusion programs and A7's serving config-space fuzz
+
+def phase_dispatch_api() -> dict:
+    """Each dispatch function of xsmm/cache.py once on CUDA tensors, against
+    reference_kernel(key) on the same inputs at phase_kernels' tolerance for
+    the key (_tol): gemm_dispatch f32 with and without transpose_b,
+    brgemm_dispatch batch 4 bf16, fused_brgemm_dispatch bias+relu (B1);
+    then the other keys the JAX package's dispatch functions take, through
+    the cache's dispatch(key): phase_packed_kernels' fc key (B19), a relu
+    UnaryKey and an add BinaryKey (no kernel: PyTorch ops, equal to the
+    plain version). B1's and B19's launch counts must rise by the calls
+    made and no other; a repeated key is a cache hit."""
+    import torch
+
+    from tpp_mlir_tpu_torch.xsmm import (BinaryKey, BrgemmKey, UnaryKey,
+                                         brgemm_dispatch,
+                                         fused_brgemm_dispatch,
+                                         gemm_dispatch, global_cache,
+                                         reference_kernel)
+    cache = global_cache()
+    g = torch.Generator(device="cuda").manual_seed(27)
+    M, N, K = BATCH, WIDTH, WIDTH
+    t0 = time.perf_counter()
+    cases = []      # (label, key, the wrapper's output, the key's inputs)
+    cache.reset_launches()
+    for tb in (False, True):
+        key = BrgemmKey(1, M, N, K, "f32", beta0=True, transpose_b=tb)
+        a, b, _, _ = _brgemm_inputs(key, g)
+        gemm = gemm_dispatch(M, N, K, "f32", beta0=True, transpose_b=tb)
+        cases.append((f"gemm_dispatch f32{' transpose_b' * tb}", key,
+                      gemm(a[0], b[0]), (a, b)))
+    key = BrgemmKey(4, M, N, K, "bf16", beta0=True)
+    a, b, _, _ = _brgemm_inputs(key, g)
+    cases.append(("brgemm_dispatch batch 4 bf16", key,
+                  brgemm_dispatch(4, M, N, K, "bf16", beta0=True)(a, b),
+                  (a, b)))
+    key = BrgemmKey(1, M, N, K, "f32", beta0=True, binary_kind="add",
+                    unary_kind="relu")
+    args = _brgemm_inputs(key, g)
+    cases.append(("fused_brgemm_dispatch f32 bias+relu", key,
+                  fused_brgemm_dispatch(1, M, N, K, "f32",
+                                        beta0=True)(*args), args))
+    key = _packed_key("fc_fp32_packed_warm_1024", 0)
+    args = _blocked_inputs(key, g)
+    cases.append(("dispatch(BlockedMatmulKey) fc packed", key,
+                  cache.dispatch(key)(*args), args))
+    x = torch.randn(M, N, generator=g, device="cuda")
+    bias = torch.randn(N, generator=g, device="cuda")
+    key = UnaryKey("relu", (M, N), "f32")
+    cases.append(("dispatch(UnaryKey) relu", key, cache.dispatch(key)(x),
+                  (x,)))
+    key = BinaryKey("add", (M, N), (N,), "f32")
+    cases.append(("dispatch(BinaryKey) add", key,
+                  cache.dispatch(key)(x, bias), (x, bias)))
+    torch.cuda.synchronize()
+    launches = _launches(cache)
+    for label, key, got, args in cases:
+        want = reference_kernel(key)(*args)
+        rel, ab = rel_err(got, want)
+        tol = _tol(key) if _kind(key) else 0.0
+        ok = tuple(got.shape) == tuple(want.shape) and rel <= tol and \
+            torch_isfinite(got)
+        say(f"dispatch {label:36s} rel {rel:.3e} abs {ab:.3e} tol "
+            f"{tol:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: rel {rel} > {tol}")
+    hits = cache.stats.hits
+    gemm_dispatch(M, N, K, "f32", beta0=True)
+    hit = cache.stats.hits == hits + 1
+    want = {"brgemm": 4, "blocked_matmul": 1}
+    moved = {k: n for k, n in launches.items() if n}
+    ok = moved == want and hit
+    say(f"dispatch launches {moved} (want {want}); a repeated key a cache "
+        f"hit: {hit}; {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dispatch API launches {moved}, hit {hit}")
+    return launches
+
+
+def _parity_cases():
+    """tests/torch_parity_cases.py, the programs and the serving fuzz
+    harness this script shares with the port's parity tests."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_parity_cases
+    return torch_parity_cases
+
+
+def phase_fusion_parity() -> dict:
+    """ROADMAP A6 on the card: each FUSION_CASES program
+    (tests/torch_parity_cases.py) through
+    default-tpp-passes and the executor run_module runs (runtime.compile,
+    device "cuda", f32 "default") on the tests' inputs, against the same
+    program evaluated as --linalg-to-loops does (the tl oracles, no
+    lowering), at TOL_BF16 as phase_compiler_path holds its f32 modules.
+    Prints each program's lowered invokes and its launches; B1 (with B2's
+    LayerNorm prologue on the block's fused GEMMs) and B7 must launch."""
+    import torch
+
+    from tpp_mlir_tpu_torch.passes import run_pipeline
+    from tpp_mlir_tpu_torch.runtime import compile as tpp_compile
+    from tpp_mlir_tpu_torch.xsmm import BrgemmKey, global_cache
+    pc = _parity_cases()
+    cache = global_cache()
+    t0 = time.perf_counter()
+    total: dict[str, int] = {"brgemm LN prologue": 0}
+    for name in pc.FUSION_CASES:
+        low = pc.fusion_module(name)
+        run_pipeline(low, "default-tpp-passes")
+        args = pc.fusion_inputs(name)
+        cache.reset_launches()
+        got = tpp_compile(low, device="cuda")(*args)
+        torch.cuda.synchronize()
+        launches = _launches(cache)
+        launches["brgemm LN prologue"] = sum(
+            fn.launches for fn in cache.kernels()
+            if isinstance(fn.key, BrgemmKey) and fn.key.prologue)
+        want = tpp_compile(pc.fusion_module(name), device="cuda")(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = max(rel_err(a, b)[0] for a, b in zip(got, want))
+        ok = len(got) == len(want) and worst <= TOL_BF16 and all(
+            tuple(a.shape) == tuple(b.shape) and torch_isfinite(a)
+            for a, b in zip(got, want))
+        moved = {k: n for k, n in launches.items() if n}
+        ops = _invokes(low)
+        say(f"fusion {name:44s} {len(ops)} invokes, launches {moved} vs "
+            f"--linalg-to-loops rel {worst:.3e} tol {TOL_BF16:.0e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: rel {worst} > {TOL_BF16}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    moved = {k: n for k, n in total.items() if n}
+    del total["brgemm LN prologue"]     # counted in brgemm
+    say(f"fusion parity: {len(pc.FUSION_CASES)} programs, launches {moved}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(moved.get(k) for k in ("brgemm", "brgemm LN prologue",
+                                      "attention")):
+        raise AssertionError(f"a kernel of the block's path never "
+                             f"launched: {moved}")
+    return total
+
+
+FUZZ_BASE = dict(vocab=50304, embed=768, heads=12, layers=2, mlp_ratio=4,
+                 max_seq=64, dtype="f32")
+FUZZ_KV_HEADS = 4       # llama_gqa and flash_gqa on the card (3 a group)
+FUZZ_SEEDS = 3          # seeds an architecture on the card
+# the share of compared steps that may take the near-tie exemption
+FUZZ_EXEMPT_SHARE = 0.05
+
+
+def phase_serving_fuzz() -> dict:
+    """ROADMAP A7 on the card: the fuzzer's ten architectures at GPT-2
+    small's widths (FUZZ_BASE: E 768, 12 heads, vocab 50304, 2 layers, 64
+    positions, f32; kv_heads 4; MoE 4 experts top-2, moe_group_bm 8), the
+    first FUZZ_SEEDS seeds of the JAX schedule each, kernels on: every path
+    against the kernels-on greedy make_generate by fuzz_compare with the
+    near-tie exemption (paths run other kernels: B7 or B14 in the prefill,
+    B13 in decode, the composed make_extend, and f32 "default" attention
+    rounds its operands to bf16). Fails where more than FUZZ_EXEMPT_SHARE
+    of the compared steps took the exemption. Then the seeded bug of the
+    JAX meta-test, once: with engine._grouped_combine made top-1, the
+    moe_grouped forms check must fail on its first seed (its logits move
+    past TOL_MODEL, or a token differs). Prints the launch
+    counts of each architecture, each path's steps, exemptions and worst
+    |delta logits|, and the phase's time."""
+    import torch
+
+    from tpp_mlir_tpu_torch.serving import engine
+    from tpp_mlir_tpu_torch.xsmm import global_cache
+    cache = global_cache()
+    t0 = time.perf_counter()
+    pc = _parity_cases()
+    arches = pc.fuzz_arches(FUZZ_BASE, FUZZ_KV_HEADS)
+    total: dict[str, int] = {}
+    table: dict[tuple, list] = {}
+    for idx, (name, cfg, bits, paths) in enumerate(arches):
+        ta = time.perf_counter()
+        harness = pc.FuzzHarness(cfg, bits, paths, "cuda")
+        cache.reset_launches()
+        seeds = range(idx, idx + FUZZ_SEEDS * len(arches), len(arches))
+        for seed in seeds:
+            res = pc.fuzz_compare(harness.run(seed), seed, exempt=True,
+                                  tol=TOL_MODEL)
+            for path, (steps, exempted, worst, notes) in res.items():
+                row = table.setdefault((name, path), [0, 0, 0.0])
+                row[0] += steps
+                row[1] += exempted
+                row[2] = max(row[2], worst)
+                for note in notes:
+                    say(f"fuzz {name} {path} seed {seed}: near tie "
+                        f"exempted, {note}")
+        torch.cuda.synchronize()
+        launches = _launches(cache)
+        moved = {k: n for k, n in launches.items() if n}
+        want = ["decode_attn", "flash_train_fwd" if cfg.flash_attn
+                else "attention"]
+        if cfg.moe_prefill_form == "grouped":
+            want.append("grouped_gemm")
+        ok = all(moved.get(k) for k in want)
+        say(f"fuzz {name:15s} seeds {list(seeds)} paths {','.join(paths)} "
+            f"launches {moved} {time.perf_counter() - ta:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: a kernel of {want} never "
+                                 f"launched: {moved}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    for (name, path), (steps, exempted, worst) in table.items():
+        say(f"fuzz {name:15s} {path:8s} steps {steps:3d} near-tie "
+            f"exemptions {exempted} worst max|dlogits| {worst:.3e}")
+    steps = sum(r[0] for r in table.values())
+    exempted = sum(r[1] for r in table.values())
+    share = exempted / steps
+    ok = share <= FUZZ_EXEMPT_SHARE
+    say(f"fuzz: {steps} steps compared, {exempted} near-tie exemptions "
+        f"({share:.2%}, at most {FUZZ_EXEMPT_SHARE:.0%}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"near-tie exemptions {share:.2%} of steps")
+    # the seeded bug: the grouped form's combine silently top-1
+    idx, (name, cfg, _, _) = next((i, a) for i, a in enumerate(arches)
+                                  if a[0] == "moe_grouped")
+    real = engine._grouped_combine
+    engine._grouped_combine = lambda gates, ys, rows, top_k: real(
+        gates, ys, rows, 1)
+    try:
+        runs = pc.FuzzHarness(cfg, 0, ("forms",), "cuda").run(idx)
+        try:
+            pc.fuzz_compare(runs, idx, exempt=True, tol=TOL_MODEL)
+            caught = ""
+        except AssertionError as e:
+            caught = str(e)
+    finally:
+        engine._grouped_combine = real
+    ok = caught.startswith("forms ")
+    say(f"fuzz seeded top-1 combine bug on {name} seed {idx}: "
+        f"{caught or 'not caught'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the forms check missed the seeded bug")
+    say(f"serving fuzz: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def main(phases: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -8306,9 +8577,20 @@ def main() -> int:
         return 1
     import tpp_mlir_tpu_torch    # noqa: F401  (fail before any output
                                  # outside a checkout)
+    unknown = [n for n in phases if not callable(globals().get(f"phase_{n}"))]
+    if unknown:
+        print(f"chip_smoke: no phase {unknown}", file=sys.stderr)
+        return 2
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    if phases:
+        # the named phases alone, after the build (each must take no
+        # argument): no kernel line, no result line
+        for name in phases:
+            globals()[f"phase_{name}"]()
+        say(f"phases {phases}: {time.perf_counter() - t0:.1f} s on {card}")
+        return 0
     stats = phase_kernels()
     stats.update(phase_flash_train())
     stats.update(phase_grouped_kernels())
@@ -8355,6 +8637,10 @@ def main() -> int:
     timing.update(phase_ln_stats_timing())
     phase_serving_timing(setups)
     phase_moe_serving_timing(moe_setup)
+    for phase in (phase_dispatch_api, phase_fusion_parity,
+                  phase_serving_fuzz):
+        for kind, n in phase().items():
+            launches[kind] += n
     kernels = []
     for kind, replaces in (
             ("brgemm", "kernels.py:580"),
@@ -8424,4 +8710,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -11,7 +11,7 @@ slice's bm 16 shapes (8 experts, 2,128 rows sorted by expert, k 256, n
 768: B16 A @ B[ge], B17 x^T dY), each checkout and dtype from a CUDA
 graph of 20 launches, in turns (other, this, this, other), the outputs of
 the two checkouts compared bit for bit; then B16's WMMA tile of this
-checkout at bm 16, 32 and 64 over 2,048 rows (its rows BM follow bm) in
+checkout at bm 8, 16, 32 and 64 over 2,048 rows (its rows BM follow bm) in
 both dtypes.
 --sass-dir writes each WMMA kernel's SASS there, one file a kernel. A
 source that refuses a dtype (cudaErrorInvalidValue) is reported as such.
@@ -172,6 +172,7 @@ def main() -> int:
             if entry:
                 fn = entry.group(1)
             elif "Used" in line and ("grouped_gemm_kernelILi16E" in fn or
+                                     "grouped_gemm_kernelILi8E" in fn or
                                      "grouped_wgrad_kernel" in fn):
                 print(f"{name} ptxas {fn}: {line.strip()}", flush=True)
         path = BUILD_DIR / f"exp_grouped_{name}.so"
@@ -208,9 +209,9 @@ def main() -> int:
                                                          outs["other"]))
             print(f"{str(dt)[6:]}: outputs of the two checkouts bit-equal "
                   f"{same}", flush=True)
-    # B16's WMMA tile at each row count (BM is the largest of 64, 32, 16
-    # that divides bm) over 2,048 rows, a multiple of all three
-    for bm in (16, 32, 64):
+    # B16's WMMA tile at each row count (BM is the largest of 64, 32, 16, 8
+    # that divides bm) over 2,048 rows, a multiple of all four
+    for bm in (8, 16, 32, 64):
         res = []
         for dt in (torch.bfloat16, torch.float16, torch.float16,
                    torch.bfloat16):

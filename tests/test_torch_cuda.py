@@ -920,6 +920,14 @@ GROUPED = {
     "f32-highest-layers": (64, 4, 64, 64, 128,
                            dict(dtype="f32", precision="highest", layers=3,
                                 unary_kind="gelu"), True),
+    # the WMMA tile's 8-row form (the serving fuzzer's moe_group_bm 8)
+    "bf16-bm8": (200, 4, 8, 128, 96, dict(dtype="bf16"), False),
+    "f32-default-bm8-gelu-skewed": (100, 4, 8, 96, 64,
+                                    dict(dtype="f32", unary_kind="gelu"),
+                                    True),
+    "f32-highest-bm24-tb": (100, 4, 24, 64, 96,
+                            dict(dtype="f32", precision="highest",
+                                 transpose_b=True), False),
 }
 
 

@@ -2,7 +2,7 @@
 tools, the imported transformer, serving and its batching, beam and
 speculative modes, training, MoE, the MHA suite, the conv family, packed
 parity mode, the parallel layer, the tuning layer and the user API with
-its examples) imports
+its examples, the dispatch API) imports
 torch and its own modules only: never JAX, Triton, ml_dtypes, nor any
 module of the JAX package `tpp_mlir_tpu`; nor does a rank of a world the
 parallel layer spawns.
@@ -207,6 +207,16 @@ assert ops.brgemm(torch.randn(2, 8, 16), torch.randn(2, 16, 8)).shape == (8, 8)
 assert ops.relu(torch.randn(4)).min() >= 0
 sys.argv = ["02_functional_ops.py", "--device", "cpu"]
 runpy.run_path("examples/torch/02_functional_ops.py", run_name="__main__")
+# the libxsmm-shaped GEMM dispatch functions
+from tpp_mlir_tpu_torch.xsmm import (brgemm_dispatch, fused_brgemm_dispatch,
+                                     gemm_dispatch)
+assert gemm_dispatch(8, 8, 8, beta0=True)(torch.randn(8, 8),
+                                          torch.randn(8, 8)).shape == (8, 8)
+assert brgemm_dispatch(2, 8, 8, 8, beta0=True)(
+    torch.randn(2, 8, 8), torch.randn(2, 8, 8)).shape == (8, 8)
+assert fused_brgemm_dispatch(1, 8, 8, 8, beta0=True)(
+    torch.randn(1, 8, 8), torch.randn(1, 8, 8), None,
+    torch.randn(8)).min() >= 0
 """ + _LOADED + r"""
 print("LIBRARY", build.library.cache_info().currsize)
 """
@@ -246,13 +256,15 @@ def _imports_and_strings(path: Path):
 
 def test_port_sources_name_no_jax_or_triton_import():
     """No file of the port, nor chip_smoke.py, nor the rank bodies of the
-    parallel tests (tests/torch_parallel_workers.py), nor the port's
-    examples (examples/torch/) imports JAX, ml_dtypes, Triton
+    parallel tests (tests/torch_parallel_workers.py), nor the parity cases
+    chip_smoke.py shares with the tests (tests/torch_parity_cases.py), nor
+    the port's examples (examples/torch/) imports JAX, ml_dtypes, Triton
     (the port has no Triton kernel) or the JAX package, or names a module
     of the JAX package to run (`-m tpp_mlir_tpu.…`)."""
     offenders = []
     for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
                  ROOT / "tests" / "torch_parallel_workers.py",
+                 ROOT / "tests" / "torch_parity_cases.py",
                  *(ROOT / "examples" / "torch").glob("*.py")]:
         names, strings = _imports_and_strings(path)
         bad = names & {"jax", "jaxlib", "ml_dtypes", "tpp_mlir_tpu",
@@ -270,14 +282,25 @@ import chip_smoke
 print("AT_IMPORT", sorted(m for m in sys.modules if m.startswith("tpp")))
 module = chip_smoke._module("--batch=8 --layers=16,16 --bias --relu")
 print("OPS", [op.opname for op in module["entry"].ops])
+pc = chip_smoke._parity_cases()
+for name in pc.FUSION_CASES:
+    pc.fusion_module(name)
+    pc.fusion_inputs(name, "cpu")
+assert len(pc.fuzz_arches(dict(vocab=97, embed=32, heads=4, layers=2,
+                               max_seq=32, dtype="f32"), 2)) == 10
 """ + _LOADED
 
 
 def test_chip_smoke_imports_only_torch_and_the_port():
-    """chip_smoke imports only the standard library, numpy, torch and the
-    port; tpp-gen is the port's copy, in process."""
+    """chip_smoke imports only the standard library, numpy, torch, the
+    port and the parity cases it shares with the tests
+    (tests/torch_parity_cases.py, which imports the same and no more);
+    tpp-gen is the port's copy, in process."""
     names, _ = _imports_and_strings(ROOT / "chip_smoke.py")
-    assert names - set(sys.stdlib_module_names) == {"numpy", "torch",
+    assert names - set(sys.stdlib_module_names) == {
+        "numpy", "torch", "tpp_mlir_tpu_torch", "torch_parity_cases"}
+    names, _ = _imports_and_strings(ROOT / "tests" / "torch_parity_cases.py")
+    assert names - set(sys.stdlib_module_names) <= {"numpy", "torch",
                                                    "tpp_mlir_tpu_torch"}
     out = _run(_SMOKE)
     assert "AT_IMPORT []" in out, out

@@ -195,8 +195,8 @@ def test_grouped_keys_refuse_what_the_kernels_cannot_take():
 # csrc/grouped_gemm.cu's tile for B16, chosen from the key
 # (xsmm/reference.py grouped_gemm_route): the TMA + wgmma tile for bf16
 # operands with bm a multiple of 64 and k, n multiples of 8; the WMMA tile
-# for every other bm that 16 divides, f32 operands and strides TMA cannot
-# take; no tile for a bm off the 16-row quantum
+# for every other bm that 8 divides, f32 operands and strides TMA cannot
+# take; no tile for a bm off the 8-row quantum
 ROUTES = {
     "bf16-bm128-slice": (dict(m=9216, n=768, k=3072, bm=128), "wgmma"),
     "bf16-bm64-gelu": (dict(unary_kind="gelu", bm=64), "wgmma"),
@@ -211,7 +211,9 @@ ROUTES = {
     "f32-highest-bm128": (dict(dtype="f32", precision="highest"), "wmma"),
     "bf16-k-off-8": (dict(k=100), "wmma"),
     "bf16-n-off-8": (dict(n=36), "wmma"),
-    "bm8": (dict(bm=8), (ValueError, "multiple of 16")),
+    "bm8": (dict(bm=8), "wmma"),
+    "bf16-bm24": (dict(bm=24, m=240), "wmma"),
+    "bm4": (dict(bm=4), (ValueError, "multiple of 8")),
 }
 
 

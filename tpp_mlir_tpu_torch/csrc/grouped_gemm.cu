@@ -56,8 +56,9 @@
 //   memory without pipelining, WMMA bf16 (mma.sync
 //   16x16x16, f32 accumulators) for bf16 and f32 "default" operands, WMMA
 //   f16 for f16 operands, f32 FMA for f32 "highest". Its rows BM are the
-//   largest of 64, 32, 16 that divide bm (the wrapper refuses a bm that is
-//   not a multiple of 16).
+//   largest of 64, 32, 16, 8 that divide bm (the wrapper refuses a bm that
+//   is not a multiple of 8); an 8-row tile is one warp on WMMA's 8 x 32 x
+//   16 fragments.
 //
 // B17 takes one of the same two routes, which xsmm/reference.py
 // grouped_wgrad_route chooses from the key and xt's strides:
@@ -90,11 +91,15 @@ constexpr int APAD = 8, BPAD = 8, CPAD = 4;
 
 // The products of one BM x BN output tile over a staged BK slice, with 4*BM
 // threads: BM/16 x 2 warps of 16 x 32 on the tensor cores (bf16 or f16),
-// or BM/4 x 16 threads of 4 x 4 outputs on f32 FMA.
+// or for BM 8 one warp of 8 x 64 on 8 x 32 x 16 fragments; or BM/4 x 16
+// threads of 4 x 4 outputs on f32 FMA.
 template <int BM, typename Tmma>
 struct TileMma {
   static constexpr bool kTensor = !std::is_same<Tmma, float>::value;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  // a warp's fragments: FM x FN each, two side by side
+  static constexpr int FM = BM == 8 ? 8 : 16, FN = BM == 8 ? 32 : 16;
+  static constexpr int WC = BN / (2 * FN);  // warps across the columns
+  wmma::fragment<wmma::accumulator, FM, FN, 16, float> acc[2];
   float facc[4][4];
 
   __device__ void zero() {
@@ -112,17 +117,18 @@ struct TileMma {
   __device__ void step(const Tmma (*As)[BK + APAD],
                        const Tmma (*Bs)[BN + BPAD], int tid) {
     if constexpr (kTensor) {
-      const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
+      const int warp = tid / 32, wr = warp / WC, wc = warp % WC;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, Tmma, wmma::row_major>
+        wmma::fragment<wmma::matrix_a, FM, FN, 16, Tmma, wmma::row_major>
             fa;
-        wmma::load_matrix_sync(fa, &As[wr * 16][kk], BK + APAD);
+        wmma::load_matrix_sync(fa, &As[wr * FM][kk], BK + APAD);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, Tmma,
+          wmma::fragment<wmma::matrix_b, FM, FN, 16, Tmma,
                          wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, &Bs[kk][wc * 32 + j * 16], BN + BPAD);
+          wmma::load_matrix_sync(fb, &Bs[kk][(wc * 2 + j) * FN],
+                                 BN + BPAD);
           wmma::mma_sync(acc[j], fa, fb, acc[j]);
         }
       }
@@ -148,10 +154,10 @@ struct TileMma {
   // the accumulators into a shared f32 tile (the caller syncs after)
   __device__ void store(float (*Cs)[BN + CPAD], int tid) {
     if constexpr (kTensor) {
-      const int warp = tid / 32, wr = warp / 2, wc = warp % 2;
+      const int warp = tid / 32, wr = warp / WC, wc = warp % WC;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&Cs[wr * 16][wc * 32 + j * 16], acc[j],
+        wmma::store_matrix_sync(&Cs[wr * FM][(wc * 2 + j) * FN], acc[j],
                                 BN + CPAD, wmma::mem_row_major);
     } else {
       const int ty = tid / 16, tx = tid % 16;
@@ -324,6 +330,9 @@ int gemm_by_bm(const void* a, const void* b, const int* ge, const int* li,
   else if (bm % 16 == 0)
     launch_gemm<16, Tin, Tmma>(a, b, ge, li, out, groups, layers, m, n, k,
                                bm, transpose_b, unary, out_dtype, stream);
+  else if (bm % 8 == 0)
+    launch_gemm<8, Tin, Tmma>(a, b, ge, li, out, groups, layers, m, n, k,
+                              bm, transpose_b, unary, out_dtype, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -665,7 +674,7 @@ int launch_wgrad(const void* xt, const void* dy, const int* ge, float* out,
 // (layers, groups, ., .) table) or null, out out_dtype (m, n): f32, bf16
 // or f16, one rounding of the f32 epilogue (another code is refused). route is xsmm/reference.py grouped_gemm_route's choice: 1
 // "wgmma" (bf16 or f16 operands and products of that type, bm a multiple
-// of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of 16).
+// of 64, k and n multiples of 8), 0 "wmma" (bm a multiple of 8).
 extern "C" int tpp_grouped_gemm(const void* a, const void* b, const void* ge,
                                 const void* li, void* out, int groups,
                                 int layers, int m, int n, int k, int bm,

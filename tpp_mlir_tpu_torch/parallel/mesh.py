@@ -158,14 +158,19 @@ def rank_device(device, local_rank: int) -> torch.device:
     return dev
 
 
-def init_world(backend: str | None = None, device="cuda") -> torch.device:
+def init_world(backend: str | None = None, device="cuda",
+               store=None) -> torch.device:
     """Join the world torchrun describes (RANK, WORLD_SIZE, LOCAL_RANK,
-    MASTER_ADDR, MASTER_PORT); `backend` defaults to nccl on CUDA and gloo
-    on the CPU. Returns this rank's device."""
+    MASTER_ADDR, MASTER_PORT), or a world of one over `store`; `backend`
+    defaults to nccl on CUDA and gloo on the CPU. Returns this rank's
+    device."""
     dev = rank_device(device, int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group(
-        backend or ("nccl" if dev.type == "cuda" else "gloo"),
-        timeout=TIMEOUT)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if store is None:
+        dist.init_process_group(backend, timeout=TIMEOUT)
+    else:
+        dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                                timeout=TIMEOUT)
     return dev
 
 
@@ -181,10 +186,14 @@ def join_world(device="cuda", shape: dict | None = None):
     have = int(os.environ.get("WORLD_SIZE", 1))
     if n > have:
         raise ValueError(f"mesh {shape} needs {n} devices, have {have}")
+    store = None
     if "WORLD_SIZE" not in os.environ:
-        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                          MASTER_ADDR="localhost", MASTER_PORT=_free_port())
-    dev = init_world(device=device)
+        # the store listens on the port the OS assigns at bind (port 0): a
+        # port probed free and bound later can be taken in between, by
+        # another world started at the same time
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        store = dist.TCPStore("localhost", 0, 1, True, timeout=TIMEOUT)
+    dev = init_world(device=device, store=store)
     if dist.get_rank() == 0:
         print(f"# world: backend {dist.get_backend()}, "
               f"{dist.get_world_size()} ranks, {dev}", file=sys.stderr)

@@ -1,6 +1,7 @@
 """Kernel keys, wrappers, plain versions and the kernel cache."""
 
-from .cache import KernelCache, global_cache
+from .cache import (KernelCache, brgemm_dispatch, fused_brgemm_dispatch,
+                    gemm_dispatch, global_cache)
 from .flags import (BatchMatmulKey, BinaryKey, BlockedMatmulKey, BrgemmKey,
                     ChainKey, ConvBrgemmKey, ConvNhwcKey, DecodeAttnKey,
                     FlashMhaKey, FlashTrainBwdKey, FlashTrainKey,
@@ -15,6 +16,8 @@ __all__ = [
     "ConvNhwcKey", "DecodeAttnKey", "FlashMhaKey",
     "FlashTrainBwdKey", "FlashTrainKey", "GroupedGemmKey", "GroupedWgradKey",
     "Int8GemmKey", "LayerNormKey",
-    "UnaryKey", "Kernel", "KernelCache",
-    "blocked_warm_fits_smem", "build_kernel", "chain_fits_smem", "global_cache", "reference_kernel",
+    "UnaryKey", "Kernel", "KernelCache", "blocked_warm_fits_smem",
+    "brgemm_dispatch", "build_kernel", "chain_fits_smem",
+    "fused_brgemm_dispatch", "gemm_dispatch", "global_cache",
+    "reference_kernel",
 ]

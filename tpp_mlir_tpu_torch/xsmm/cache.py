@@ -3,7 +3,10 @@
 The counterpart of `tpp_mlir_tpu/xsmm/cache.py`: `dispatch(key)` builds a
 kernel wrapper once per key and returns the memoized one afterwards, with hit
 and miss counts. The wrappers' launch counters let a run show which kernels
-it went through.
+it went through. The module ends with the libxsmm-shaped GEMM dispatch
+functions (the reference's XsmmRunnerUtils.cpp dispatch/invoke split), with
+the JAX package's names and arguments; other keys go through
+`global_cache().dispatch(key)`.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 
+from .flags import BrgemmKey
 from .kernels import Kernel, build_kernel
 
 
@@ -67,3 +71,38 @@ _GLOBAL = KernelCache()
 
 def global_cache() -> KernelCache:
     return _GLOBAL
+
+
+# -- C-ABI-shaped convenience wrappers (runtime/Xsmm/XsmmRunnerUtils.cpp) ----
+# The JAX functions' `interpret` argument picks a Pallas mode and has no
+# counterpart here: the operands' device chooses (Kernel.__call__), the CUDA
+# kernel for CUDA tensors and the plain version for CPU tensors.
+
+def gemm_dispatch(m, n, k, dtype="f32", beta0=False, transpose_b=False,
+                  **kw):
+    """`gemm(a, b, c=None)`: one GEMM, the batch-1 BRGEMM kernel with the
+    batch dim added to A and B; transpose_b (B given as [n, k]) stays in
+    the key and the kernel reads B so."""
+    fn = _GLOBAL.dispatch(BrgemmKey(batch=1, m=m, n=n, k=k, dtype=dtype,
+                                    beta0=beta0, transpose_b=transpose_b,
+                                    **kw))
+
+    def gemm(a, b, c=None):
+        return fn(a[None], b[None], c)
+    return gemm
+
+
+def brgemm_dispatch(batch, m, n, k, dtype="f32", beta0=False, vnni=0,
+                    **kw) -> Kernel:
+    return _GLOBAL.dispatch(BrgemmKey(batch=batch, m=m, n=n, k=k,
+                                      dtype=dtype, beta0=beta0, vnni=vnni,
+                                      **kw))
+
+
+def fused_brgemm_dispatch(batch, m, n, k, dtype="f32", beta0=False, vnni=0,
+                          binary_kind="add", binary_bcast="bcast_col",
+                          unary_kind="relu", **kw) -> Kernel:
+    return _GLOBAL.dispatch(BrgemmKey(
+        batch=batch, m=m, n=n, k=k, dtype=dtype, beta0=beta0, vnni=vnni,
+        binary_kind=binary_kind, binary_bcast=binary_bcast,
+        unary_kind=unary_kind, **kw))

@@ -1610,7 +1610,7 @@ def grouped_gemm_reference(key: GroupedGemmKey):
     return body
 
 
-GROUPED_BM_QUANTUM = 16     # the WMMA tile's rows: 16, 32 or 64
+GROUPED_BM_QUANTUM = 8      # the WMMA tile's rows: 8, 16, 32 or 64
 
 
 def grouped_gemm_route(key: GroupedGemmKey) -> str:
@@ -1620,11 +1620,11 @@ def grouped_gemm_route(key: GroupedGemmKey) -> str:
                tile straddles two row blocks), k and n multiples of 8 (TMA
                takes the row strides): the pipelined TMA + wgmma tile;
                every key of the MoE slice;
-      "wmma"   any other bm that is a multiple of 16, f32 operands ("default"
+      "wmma"   any other bm that is a multiple of 8, f32 operands ("default"
                and "highest"), strides TMA cannot take: the WMMA (bf16, or
                f16 for f16 keys) / f32-FMA tile staged through shared
                memory.
-    A bm that is not a multiple of 16 has no tile (ValueError)."""
+    A bm that is not a multiple of 8 has no tile (ValueError)."""
     if key.bm % GROUPED_BM_QUANTUM:
         raise ValueError(f"grouped_gemm.cu needs bm a multiple of "
                          f"{GROUPED_BM_QUANTUM}: {key}")
